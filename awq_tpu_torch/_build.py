@@ -1,0 +1,155 @@
+"""Build the hand-written CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface (``extern "C"``) and is
+compiled on its own into ``build/awq_tpu_torch/<name>-<hash>.so`` at the
+repository root, where ``<hash>`` covers the source, the shared header and
+the compiler flags: an edited source builds anew, an unchanged one is
+loaded from disk. Nothing here runs at import time; the op modules call
+:func:`load` on their first launch, and :func:`build_all` starts one
+``nvcc`` per source at once (the smoke script uses it to build in
+parallel and to time the build).
+
+Pointers and the stream cross ctypes as ``c_void_p`` and sizes as
+``c_int``: an undeclared argument would be passed as a
+32-bit int and cut a pointer. Every entry returns the ``cudaError_t`` of
+its launch, and :func:`check` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "awq_tpu_torch"
+SOURCES = ("w4a16", "decode_attn")
+ARCH = "sm_90a"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-lineinfo",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, in $CUDA_HOME and /usr/local/cuda): "
+        "the CUDA kernels of awq_tpu_torch are built at first use")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def _compile_cmd(name: str, out: Path) -> List[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
+            str(CSRC / f"{name}.cu")]
+
+
+def _start(name: str):
+    """Start nvcc for ``name`` unless its library exists; returns
+    ``(process, tmp_path, final_path)`` or None."""
+    final = lib_path(name)
+    if final.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", prefix=f".{name}-", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.Popen(_compile_cmd(name, Path(tmp)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, Path(tmp), final
+
+
+def _finish(name: str, started) -> str:
+    proc, tmp, final = started
+    log, _ = proc.communicate()
+    (BUILD_DIR / f"{final.stem}.log").write_text(log)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    # atomic: another process building the same source writes the same bytes
+    os.replace(tmp, final)
+    return log
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
+    """Compile every source that has no library yet, one nvcc each, all
+    started together. Returns the seconds each build took (0 if cached)."""
+    names = list(names)
+    t0 = time.perf_counter()
+    started = {n: _start(n) for n in names}
+    took = {}
+    for n in names:
+        if started[n] is None:
+            took[n] = 0.0
+            continue
+        _finish(n, started[n])
+        took[n] = time.perf_counter() - t0
+    return took
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current library (registers, spills)."""
+    path = BUILD_DIR / f"{lib_path(name).stem}.log"
+    return path.read_text() if path.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            started = _start(name)
+            if started is not None:
+                _finish(name, started)
+            lib = ctypes.CDLL(str(lib_path(name)))
+            lib.awq_error_string.restype = ctypes.c_char_p
+            lib.awq_error_string.argtypes = [ctypes.c_int]
+            _LIBS[name] = lib
+        return lib
+
+
+def declare(fn, *argtypes) -> None:
+    """Set a C entry's signature (idempotent); all entries return int."""
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.awq_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} at launch ({msg})")
+
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float

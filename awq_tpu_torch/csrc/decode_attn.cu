@@ -1,0 +1,381 @@
+// K2 (flash decode) and K3 (causal flash prefill) for Hopper (sm_90a).
+//
+// Both read ONE layer of the stacked cache, the contiguous view
+// cache[l] = [2, B, n_kv, T, HD] bf16 (K at index 0, V at 1), head-major so
+// that each head's [T, HD] slab is contiguous. HD is 128.
+//
+// K2 replaces awq_tpu/ops/decode_attn.py::flash_decode_stacked
+// (_stacked_decode_kernel): one query position per row, GQA, an online
+// softmax over the cache prefix [0, len_b) PLUS the current token's k/v,
+// which arrive as operands (not yet in the cache), scale 1/sqrt(HD).
+// Bound by device memory: the K and V prefix, 2·n_kv·len·HD·2 bytes per
+// layer, is read once and each byte feeds a few FLOPs. At batch 1 one
+// block per kv head would use 8 of 132 SMs, so T is split across blocks
+// (split-K flash decode): flash_decode_split_kernel gives each block a
+// slice of positions of one (row, kv head), stages 32-position K/V tiles in
+// shared memory with 16-byte loads, and keeps an online softmax per query
+// head of the group (one warp per head; lane j scores position j of the
+// tile). Each slice writes (max, sum, unnormalised output) in f32;
+// flash_decode_combine_kernel merges the slices in order and folds in the
+// current token, as the TPU kernel does after its loop (decode_attn.py:220).
+// Only [0, len_b) is read; positions past it are never touched.
+//
+// K3 replaces flash_prefill_stacked (_stacked_prefill_kernel) with its
+// online softmax (the TPU-only fixed_max variant is not carried over): the
+// chunk at [start, start+S) is already in the cache, query row r attends
+// positions j <= start + r, GQA. Bound by tensor-core operations at prompt
+// lengths. FlashAttention-2 shape: a block of 4 warps owns 64 query rows of
+// one head (16 per warp, Q kept in registers as mma A fragments), streams
+// 64-position K/V tiles through shared memory up to the block's causal
+// frontier, computes S = Q·K^T and O += P·V with mma.sync m16n8k16 bf16
+// (f32 accumulators), and keeps the row max and sum in registers; the
+// [S, T] score matrix never exists in memory. Single-stage loads: TMA,
+// wgmma and a pipeline are later work.
+#include "common.cuh"
+
+namespace {
+
+constexpr int HD = 128;
+constexpr int DEC_TILE = 32;   // positions per shared-memory tile
+constexpr int DEC_WARPS = 4;
+// -inf as a bit pattern (device code only)
+#define NEG_INF (__int_as_float(0xff800000))
+
+// part_ml [B, n_kv, nsplit, g, 2] (max, sum); part_acc [B, n_kv, nsplit, g, HD]
+template <int HPW>  // query heads per warp: g <= DEC_WARPS * HPW
+__global__ void __launch_bounds__(128) flash_decode_split_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ cache,
+    const int* __restrict__ lengths, float* __restrict__ part_ml,
+    float* __restrict__ part_acc, int B, int nq, int nkv, int T,
+    int split_len, float scale) {
+  constexpr int GMAX = DEC_WARPS * HPW;
+  __shared__ float qs[GMAX][HD];
+  __shared__ bf16 ks[DEC_TILE][HD + 2];     // 65-word rows: conflict-free dots
+  __shared__ __align__(16) bf16 vs[DEC_TILE][HD];
+  __shared__ float ps[GMAX][DEC_TILE];
+
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nsplit = gridDim.x;
+  const int g = nq / nkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int len = lengths[b];
+  const int j0 = split * split_len;
+  const int j1 = min(len, j0 + split_len);
+
+  for (int i = tid; i < g * HD; i += 128) {
+    const int gi = i / HD, d = i % HD;
+    qs[gi][d] = __bfloat162float(q[((size_t)b * nq + h * g + gi) * HD + d]) * scale;
+  }
+
+  float m[HPW], l[HPW], acc[HPW][4];
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  }
+  const bf16* kbase = cache + (((size_t)0 * B + b) * nkv + h) * (size_t)T * HD;
+  const bf16* vbase = cache + (((size_t)1 * B + b) * nkv + h) * (size_t)T * HD;
+
+  for (int t0 = j0; t0 < j1; t0 += DEC_TILE) {
+    const int n = min(DEC_TILE, j1 - t0);
+    __syncthreads();  // previous tile fully consumed (and qs written)
+    for (int i = tid; i < DEC_TILE * (HD / 8); i += 128) {
+      const int r = i / (HD / 8), v = i % (HD / 8);
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
+      if (r < n) {
+        kv = *reinterpret_cast<const uint4*>(kbase + (size_t)(t0 + r) * HD + v * 8);
+        vv = *reinterpret_cast<const uint4*>(vbase + (size_t)(t0 + r) * HD + v * 8);
+      }
+      uint32_t* kd = reinterpret_cast<uint32_t*>(&ks[r][v * 8]);
+      kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
+      *reinterpret_cast<uint4*>(&vs[r][v * 8]) = vv;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < HPW; ++i) {
+      const int gi = warp + DEC_WARPS * i;
+      if (gi >= g) continue;  // warp-uniform
+      float s = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < HD; d += 2) {
+        const float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ks[lane][d]));
+        s = fmaf(qs[gi][d], kf.x, s);
+        s = fmaf(qs[gi][d + 1], kf.y, s);
+      }
+      if (lane >= n) s = NEG_INF;
+      const float m_new = fmaxf(m[i], warp_max(s));  // finite: n >= 1
+      const float alpha = __expf(m[i] - m_new);
+      const float p = __expf(s - m_new);
+      l[i] = l[i] * alpha + warp_sum(p);
+      m[i] = m_new;
+      ps[gi][lane] = p;
+      __syncwarp();
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
+      for (int j = 0; j < n; ++j) {
+        const float pj = ps[gi][j];
+        const uint2 raw = *reinterpret_cast<const uint2*>(&vs[j][lane * 4]);
+        const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+        const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+        acc[i][0] = fmaf(pj, v01.x, acc[i][0]);
+        acc[i][1] = fmaf(pj, v01.y, acc[i][1]);
+        acc[i][2] = fmaf(pj, v23.x, acc[i][2]);
+        acc[i][3] = fmaf(pj, v23.y, acc[i][3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    const int gi = warp + DEC_WARPS * i;
+    if (gi >= g) continue;
+    const size_t slot = (((size_t)b * nkv + h) * nsplit + split) * g + gi;
+    if (lane == 0) {
+      part_ml[slot * 2] = m[i];
+      part_ml[slot * 2 + 1] = l[i];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part_acc[slot * HD + lane * 4 + e] = acc[i][e];
+  }
+}
+
+// One block per (query head, row); thread d owns output element d.
+__global__ void __launch_bounds__(HD) flash_decode_combine_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k_new,
+    const bf16* __restrict__ v_new, const float* __restrict__ part_ml,
+    const float* __restrict__ part_acc, bf16* __restrict__ out, int nq,
+    int nkv, int nsplit, float scale) {
+  __shared__ float red[HD / 32];
+  const int hq = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const int g = nq / nkv, h = hq / g, gi = hq % g;
+
+  // score of the current token, (q * scale) . k_new, as in the split kernel
+  const float qd = __bfloat162float(q[((size_t)b * nq + hq) * HD + d]) * scale;
+  float s = warp_sum(qd * __bfloat162float(k_new[((size_t)b * nkv + h) * HD + d]));
+  if ((d & 31) == 0) red[d >> 5] = s;
+  __syncthreads();
+  float s_c = 0.f;
+#pragma unroll
+  for (int w = 0; w < HD / 32; ++w) s_c += red[w];
+
+  float m_all = s_c;
+  for (int sp = 0; sp < nsplit; ++sp) {
+    const size_t slot = (((size_t)b * nkv + h) * nsplit + sp) * g + gi;
+    m_all = fmaxf(m_all, part_ml[slot * 2]);
+  }
+  float l_all = 0.f, a = 0.f;
+  for (int sp = 0; sp < nsplit; ++sp) {
+    const size_t slot = (((size_t)b * nkv + h) * nsplit + sp) * g + gi;
+    const float ms = part_ml[slot * 2];
+    if (ms == NEG_INF) continue;  // an empty slice (past len_b)
+    const float w = __expf(ms - m_all);
+    l_all = fmaf(part_ml[slot * 2 + 1], w, l_all);
+    a = fmaf(part_acc[slot * HD + d], w, a);
+  }
+  const float p_c = __expf(s_c - m_all);
+  l_all += p_c;
+  a = fmaf(p_c, __bfloat162float(v_new[((size_t)b * nkv + h) * HD + d]), a);
+  out[((size_t)b * nq + hq) * HD + d] = __float2bfloat16_rn(a / l_all);
+}
+
+constexpr int PF_BQ = 64, PF_BKV = 64, PF_PAD = 8;
+
+__global__ void __launch_bounds__(128) flash_prefill_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ cache,
+    bf16* __restrict__ out, int B, int S, int nq, int nkv, int T,
+    int start_pos, float scale_log2) {
+  __shared__ __align__(16) bf16 ks[PF_BKV][HD + PF_PAD];
+  __shared__ __align__(16) bf16 vs[PF_BKV][HD + PF_PAD];
+  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (nq / nkv);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int r0 = qb * PF_BQ + warp * 16;   // chunk row of this warp's row 0
+  const int ra = r0 + gq, rb = ra + 8;     // this thread's two rows
+
+  // Q as A fragments, 8 k16 steps over HD; rows past S are zeros
+  uint32_t qa[HD / 16][4];
+  const bf16* qrow_a = q + (((size_t)b * S + ra) * nq + h) * HD;
+  const bf16* qrow_b = q + (((size_t)b * S + rb) * nq + h) * HD;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int c = kk * 16 + 2 * tq;
+    qa[kk][0] = ra < S ? ld_u32(qrow_a + c) : 0u;
+    qa[kk][1] = rb < S ? ld_u32(qrow_b + c) : 0u;
+    qa[kk][2] = ra < S ? ld_u32(qrow_a + c + 8) : 0u;
+    qa[kk][3] = rb < S ? ld_u32(qrow_b + c + 8) : 0u;
+  }
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+  const int pos_a = start_pos + ra, pos_b = start_pos + rb;
+
+  const int last_row = min(qb * PF_BQ + PF_BQ, S) - 1;
+  const int kv_end = min(start_pos + last_row + 1, T);  // causal frontier
+  const bf16* kbase = cache + (((size_t)0 * B + b) * nkv + kvh) * (size_t)T * HD;
+  const bf16* vbase = cache + (((size_t)1 * B + b) * nkv + kvh) * (size_t)T * HD;
+
+  for (int j0 = 0; j0 < kv_end; j0 += PF_BKV) {
+    for (int i = tid; i < PF_BKV * (HD / 8); i += 128) {
+      const int r = i / (HD / 8), v = i % (HD / 8);
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
+      if (j0 + r < kv_end) {
+        kv = *reinterpret_cast<const uint4*>(kbase + (size_t)(j0 + r) * HD + v * 8);
+        vv = *reinterpret_cast<const uint4*>(vbase + (size_t)(j0 + r) * HD + v * 8);
+      }
+      *reinterpret_cast<uint4*>(&ks[r][v * 8]) = kv;
+      *reinterpret_cast<uint4*>(&vs[r][v * 8]) = vv;
+    }
+    __syncthreads();
+
+    float sc[PF_BKV / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < PF_BKV / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const bf16* krow = &ks[nt * 8 + gq][kk * 16 + 2 * tq];
+        mma_bf16_16816(sc[nt], qa[kk], ld_u32(krow), ld_u32(krow + 8));
+      }
+    }
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+    for (int nt = 0; nt < PF_BKV / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = j0 + nt * 8 + 2 * tq + e;
+        const bool live = key < kv_end;
+        sc[nt][e] = (live && key <= pos_a) ? sc[nt][e] * scale_log2 : NEG_INF;
+        sc[nt][2 + e] = (live && key <= pos_b) ? sc[nt][2 + e] * scale_log2 : NEG_INF;
+        mx_a = fmaxf(mx_a, sc[nt][e]);
+        mx_b = fmaxf(mx_b, sc[nt][2 + e]);
+      }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    // a row with no live key yet keeps max -inf; use 0 as its reference
+    const float ref_a = mn_a == NEG_INF ? 0.f : mn_a;
+    const float ref_b = mn_b == NEG_INF ? 0.f : mn_b;
+    const float alpha_a = exp2f(m_a - ref_a), alpha_b = exp2f(m_b - ref_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < PF_BKV / 8; ++nt) {
+      sc[nt][0] = exp2f(sc[nt][0] - ref_a);
+      sc[nt][1] = exp2f(sc[nt][1] - ref_a);
+      sc[nt][2] = exp2f(sc[nt][2] - ref_b);
+      sc[nt][3] = exp2f(sc[nt][3] - ref_b);
+      sum_a += sc[nt][0] + sc[nt][1];
+      sum_b += sc[nt][2] + sc[nt][3];
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int dt = 0; dt < HD / 8; ++dt) {
+      o[dt][0] *= alpha_a;
+      o[dt][1] *= alpha_a;
+      o[dt][2] *= alpha_b;
+      o[dt][3] *= alpha_b;
+    }
+    // P (C layout of two n8 tiles) is the A fragment of one k16 step
+#pragma unroll
+    for (int kk = 0; kk < PF_BKV / 16; ++kk) {
+      uint32_t pa[4];
+      pa[0] = pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]);
+      pa[1] = pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]);
+      pa[2] = pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pa[3] = pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+      const int k_lo = kk * 16 + 2 * tq;
+#pragma unroll
+      for (int dt = 0; dt < HD / 8; ++dt) {
+        const int d = dt * 8 + gq;
+        const uint32_t b0 = pack_bf16_bits(vs[k_lo][d], vs[k_lo + 1][d]);
+        const uint32_t b1 = pack_bf16_bits(vs[k_lo + 8][d], vs[k_lo + 9][d]);
+        mma_bf16_16816(o[dt], pa, b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int o2 = 1; o2 < 4; o2 <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, o2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, o2);
+  }
+  const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
+#pragma unroll
+  for (int dt = 0; dt < HD / 8; ++dt) {
+    const int d = dt * 8 + 2 * tq;
+    if (ra < S)
+      *reinterpret_cast<uint32_t*>(out + (((size_t)b * S + ra) * nq + h) * HD + d) =
+          pack_bf16x2(o[dt][0] * inv_a, o[dt][1] * inv_a);
+    if (rb < S)
+      *reinterpret_cast<uint32_t*>(out + (((size_t)b * S + rb) * nq + h) * HD + d) =
+          pack_bf16x2(o[dt][2] * inv_b, o[dt][3] * inv_b);
+  }
+}
+
+template <int HPW>
+void launch_split(const bf16* q, const bf16* cache, const int* lengths,
+                  float* ml, float* acc, int B, int nq, int nkv, int T,
+                  int nsplit, int split_len, float scale, cudaStream_t st) {
+  const dim3 grid(nsplit, nkv, B);
+  flash_decode_split_kernel<HPW><<<grid, 128, 0, st>>>(
+      q, cache, lengths, ml, acc, B, nq, nkv, T, split_len, scale);
+}
+
+}  // namespace
+
+// q bf16 [B, nq, 128]; k_new, v_new bf16 [B, nkv, 128]; cache bf16
+// [2, B, nkv, T, 128] contiguous; lengths int32 [B] (each <= T); part_ml f32
+// [B, nkv, nsplit, g, 2]; part_acc f32 [B, nkv, nsplit, g, 128]; out bf16
+// [B, nq, 128]; nsplit * split_len >= max(lengths), split_len % 32 == 0;
+// g = nq / nkv <= 32.
+extern "C" int awq_flash_decode(const void* q, const void* k_new, const void* v_new,
+                                const void* cache, const void* lengths,
+                                void* part_ml, void* part_acc, void* out, int B,
+                                int nq, int nkv, int T, int nsplit, int split_len,
+                                float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* cb = static_cast<const bf16*>(cache);
+  const int* lb = static_cast<const int*>(lengths);
+  float* ml = static_cast<float*>(part_ml);
+  float* acc = static_cast<float*>(part_acc);
+  const int g = nq / nkv;
+  if (g <= 4) launch_split<1>(qb, cb, lb, ml, acc, B, nq, nkv, T, nsplit, split_len, scale, st);
+  else if (g <= 8) launch_split<2>(qb, cb, lb, ml, acc, B, nq, nkv, T, nsplit, split_len, scale, st);
+  else if (g <= 16) launch_split<4>(qb, cb, lb, ml, acc, B, nq, nkv, T, nsplit, split_len, scale, st);
+  else if (g <= 32) launch_split<8>(qb, cb, lb, ml, acc, B, nq, nkv, T, nsplit, split_len, scale, st);
+  else return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_decode_combine_kernel<<<dim3(nq, B), HD, 0, st>>>(
+      qb, static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new), ml, acc,
+      static_cast<bf16*>(out), nq, nkv, nsplit, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q bf16 [B, S, nq, 128] contiguous; cache bf16 [2, B, nkv, T, 128]
+// contiguous with the chunk already written at [start_pos, start_pos + S);
+// out bf16 [B, S, nq * 128]; scale_log2 = log2(e) / sqrt(128).
+extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, int B,
+                                 int S, int nq, int nkv, int T, int start_pos,
+                                 float scale_log2, void* stream) {
+  const dim3 grid(cdiv(S, PF_BQ), nq, B);
+  flash_prefill_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(cache),
+      static_cast<bf16*>(out), B, S, nq, nkv, T, start_pos, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,363 @@
+"""Llama-family decoder (PyTorch port of ``awq_tpu/models/llama.py``).
+
+Parameters are a plain dict, the same tree as the JAX package's: decoder
+layers stacked on a leading axis (``params["layers"]["wqkv"]`` is one
+:class:`QLinear` ``[L, ...]``), so a layer is a free view ``x[l]``. The KV
+cache is the preallocated ``[L, 2, B, n_kv, T, hd]`` tensor, and
+:func:`forward` WRITES IT IN PLACE (the JAX ``forward`` returned a new
+cache; this one returns the same tensor it was given).
+
+This slice runs the JAX package's stacked per-kernel path (its
+``AWQ_TPU_DISABLE_MEGAKERNEL=1`` configuration) for llama/mistral/qwen2:
+per layer RMSNorm -> fused QKV (K1) -> rope -> flash decode (K2, current
+token's k/v as operands, then a one-position in-place append) or in-place
+chunk append + flash prefill (K3) -> o-proj (K1) -> RMSNorm -> fused
+gate/up (K1) -> SiLU·mul -> down (K1). Other family features raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from awq_tpu_torch import _device
+from awq_tpu_torch.config import ModelConfig, QuantConfig
+from awq_tpu_torch.models.layers import (
+    Linear,
+    apply_rope,
+    linear_apply,
+    rms_norm,
+    rope_table,
+    update_kv_cache,
+)
+from awq_tpu_torch.ops.decode_attn import flash_decode, flash_decode_plain
+from awq_tpu_torch.ops.decode_attn import flash_prefill, flash_prefill_plain
+from awq_tpu_torch.ops.w4a16 import (
+    QLinear,
+    qlinear_apply,
+    qlinear_apply_stacked,
+    quantize_linear,
+)
+
+Params = Dict[str, Any]
+
+# per-layer linears eligible for AWQ quantization, in block order
+LAYER_LINEARS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+SUPPORTED_ARCHS = ("llama", "mistral", "qwen2")
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _gen(generator: Optional[torch.Generator], device: torch.device):
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return generator
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                scale: float = 0.02, device="cuda") -> Params:
+    """Random fp parameters of a llama-family model (tests and benchmarks;
+    the generator must live on ``device``)."""
+    _check_supported(cfg)
+    dev = _device.resolve(device)
+    gen = _gen(generator, dev)
+    dt = _dtype(cfg)
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    nq, nkv, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+
+    def w(shape):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    def lin(ic, oc, bias):
+        return Linear(w=w((L, ic, oc)),
+                      b=torch.zeros((L, oc), dtype=dt, device=dev) if bias else None)
+
+    layers = {
+        "ln1": torch.ones((L, h), dtype=dt, device=dev),
+        "ln2": torch.ones((L, h), dtype=dt, device=dev),
+        "wq": lin(h, nq * hd, cfg.qkv_bias),
+        "wk": lin(h, nkv * hd, cfg.qkv_bias),
+        "wv": lin(h, nkv * hd, cfg.qkv_bias),
+        "wo": lin(nq * hd, h, False),
+        "gate": lin(h, i, False),
+        "up": lin(h, i, False),
+        "down": lin(i, h, False),
+    }
+    params: Params = {"embed": w((cfg.vocab_size, h)), "layers": layers,
+                      "norm": torch.ones((h,), dtype=dt, device=dev)}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = w((h, cfg.vocab_size))
+    return params
+
+
+def init_qparams(cfg: ModelConfig, qcfg: QuantConfig,
+                 generator: Optional[torch.Generator] = None,
+                 scale: float = 0.02, device="cuda") -> Params:
+    """Random packed W4 parameters, built directly in the packed layout on
+    ``device`` (no fp intermediate), as the JAX ``init_qparams`` does for
+    its benchmarks: random int32 code words, scales uniform in
+    ``[0.5, 1.5) * scale / 4``, zero points at 8. The head stays fp."""
+    _check_supported(cfg)
+    if qcfg.w_bit != 4:
+        raise NotImplementedError(
+            "W3 packing is not ported yet (ROADMAP queue A, item 13)")
+    dev = _device.resolve(device)
+    gen = _gen(generator, dev)
+    dt = _dtype(cfg)
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    nq, nkv, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    g = cfg.hidden_size if qcfg.group_size == -1 else qcfg.group_size
+
+    def qlin(ic, oc, bias):
+        qw = torch.randint(-(2**31), 2**31 - 1, (L, ic // 8, oc),
+                           generator=gen, dtype=torch.int32, device=dev)
+        s = (torch.rand((L, ic // g, oc), generator=gen, device=dev) + 0.5) * (scale / 4)
+        z = torch.full_like(s, float(2 ** (qcfg.w_bit - 1))) * s
+        return QLinear(qweight=qw, scales=s, szeros=z,
+                       bias=torch.zeros((L, oc), dtype=dt, device=dev) if bias else None,
+                       w_bit=qcfg.w_bit, group_size=g)
+
+    layers = {
+        "ln1": torch.ones((L, h), dtype=dt, device=dev),
+        "ln2": torch.ones((L, h), dtype=dt, device=dev),
+        "wq": qlin(h, nq * hd, cfg.qkv_bias),
+        "wk": qlin(h, nkv * hd, cfg.qkv_bias),
+        "wv": qlin(h, nkv * hd, cfg.qkv_bias),
+        "wo": qlin(nq * hd, h, False),
+        "gate": qlin(h, i, False),
+        "up": qlin(h, i, False),
+        "down": qlin(i, h, False),
+    }
+    params: Params = {
+        "embed": (torch.randn((cfg.vocab_size, h), generator=gen, device=dev)
+                  * scale).to(dt),
+        "layers": layers,
+        "norm": torch.ones((h,), dtype=dt, device=dev),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = (torch.randn((h, cfg.vocab_size), generator=gen,
+                                         device=dev) * scale).to(dt)
+    return params
+
+
+def quantize_params(params: Params, qcfg: QuantConfig) -> Params:
+    """Real-quantize every decoder-layer :class:`Linear` to a packed
+    :class:`QLinear`, layer by layer (embed and head stay fp)."""
+    out = dict(params)
+    layers = dict(params["layers"])
+    for name in LAYER_LINEARS:
+        lin = layers.get(name)
+        if not isinstance(lin, Linear):
+            continue
+        qls = [quantize_linear(lin.w[l].float(), n_bit=qcfg.w_bit,
+                               group_size=qcfg.group_size,
+                               bias=None if lin.b is None else lin.b[l])
+               for l in range(lin.w.shape[0])]
+        layers[name] = QLinear(
+            qweight=torch.stack([q.qweight for q in qls]),
+            scales=torch.stack([q.scales for q in qls]),
+            szeros=torch.stack([q.szeros for q in qls]),
+            bias=None if lin.b is None else torch.stack([q.bias for q in qls]),
+            w_bit=qls[0].w_bit, group_size=qls[0].group_size,
+        )
+    out["layers"] = layers
+    return out
+
+
+def fuse_linears(params: Params, cfg: ModelConfig) -> Params:
+    """Concatenate wq/wk/wv -> ``wqkv`` and gate/up -> ``wgateup`` along the
+    output-channel axis: one K1 launch instead of three/two. A plain concat
+    (no tiling or folding: those layouts exist only for the TPU)."""
+    layers = dict(params["layers"])
+    if "wq" not in layers:
+        return params
+
+    def cat(parts):
+        a = parts[0]
+        if isinstance(a, QLinear):
+            return QLinear(
+                qweight=torch.cat([p.qweight for p in parts], dim=-1),
+                scales=torch.cat([p.scales for p in parts], dim=-1),
+                szeros=torch.cat([p.szeros for p in parts], dim=-1),
+                bias=(torch.cat([p.bias for p in parts], dim=-1)
+                      if a.bias is not None else None),
+                w_bit=a.w_bit, group_size=a.group_size)
+        return Linear(w=torch.cat([p.w for p in parts], dim=-1),
+                      b=(torch.cat([p.b for p in parts], dim=-1)
+                         if a.b is not None else None))
+
+    layers["wqkv"] = cat([layers.pop("wq"), layers.pop("wk"), layers.pop("wv")])
+    if "gate" in layers:
+        layers["wgateup"] = cat([layers.pop("gate"), layers.pop("up")])
+    out = dict(params)
+    out["layers"] = layers
+    return out
+
+
+def quantize_head(params: Params, cfg: ModelConfig) -> Params:
+    """Real-quantize a plain fp ``lm_head`` to the body's W4 format. No-op
+    unless the body is quantized and the head's IC is a multiple of the
+    group size."""
+    head = params.get("lm_head")
+    if head is None or isinstance(head, QLinear):
+        return params
+    body = next((p for p in params["layers"].values()
+                 if isinstance(p, QLinear)), None)
+    if body is None or head.dim() != 2 or head.shape[0] % body.group_size:
+        return params
+    out = dict(params)
+    out["lm_head"] = quantize_linear(head.float(), n_bit=body.w_bit,
+                                     group_size=body.group_size)
+    return out
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                  dtype=torch.bfloat16, device="cuda") -> torch.Tensor:
+    """Preallocated static KV cache ``[L, 2, B, n_kv, T, hd]``, head-major so
+    each head's ``[T, hd]`` slab is contiguous for the flash kernels."""
+    dev = _device.resolve(device)
+    return torch.zeros((cfg.num_layers, 2, batch, cfg.num_kv_heads, max_seq,
+                        cfg.head_dim), dtype=dtype, device=dev)
+
+
+def params_to(params: Params, device) -> Params:
+    """The parameter tree with every tensor on ``device``."""
+    dev = torch.device(device)
+
+    def mv(x):
+        if isinstance(x, dict):
+            return {k: mv(v) for k, v in x.items()}
+        if isinstance(x, QLinear):
+            return QLinear(qweight=mv(x.qweight), scales=mv(x.scales),
+                           szeros=mv(x.szeros), bias=mv(x.bias),
+                           w_bit=x.w_bit, group_size=x.group_size)
+        if isinstance(x, Linear):
+            return Linear(w=mv(x.w), b=mv(x.b))
+        return x.to(dev) if isinstance(x, torch.Tensor) else x
+
+    return mv(params)
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    family = "other decoder families are ROADMAP queue A, item 12"
+    if cfg.arch not in SUPPORTED_ARCHS:
+        raise NotImplementedError(f"arch {cfg.arch!r}: {family}")
+    for bad, what in (
+        (cfg.pos_embed != "rope", f"pos_embed={cfg.pos_embed!r} (learned/alibi)"),
+        (cfg.norm != "rmsnorm", f"norm={cfg.norm!r} (layernorm)"),
+        (cfg.act != "silu", f"act={cfg.act!r} (gelu/relu MLPs)"),
+        (cfg.parallel_block, "parallel_block"),
+        (cfg.embed_ln, "embed_ln"),
+        (cfg.attn_bias or cfg.mlp_bias, "attention/MLP bias"),
+        (cfg.rotary_pct != 1.0, "partial rotary (rotary_pct)"),
+    ):
+        if bad:
+            raise NotImplementedError(f"{what}: {family}")
+    if cfg.prefill_a8:
+        raise NotImplementedError(
+            "prefill_a8 (W4A8 prefill) is ROADMAP queue A, item 16")
+
+
+def _head_logits(params: Params, h: torch.Tensor, impl: str) -> torch.Tensor:
+    """Final-normed hidden states -> f32 logits (tied embedding, W4 head or
+    fp matrix)."""
+    head = params.get("lm_head")
+    if head is None:
+        return torch.matmul(h.float(), params["embed"].float().T)
+    if isinstance(head, QLinear):
+        if head.qweight.dim() != 2:
+            raise ValueError("lm_head QLinear must be 2-D [IC//8, OC]")
+        return qlinear_apply(head, h, impl=impl).float()
+    return torch.matmul(h.float(), head.float())
+
+
+@torch.no_grad()
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,       # [B, S] token ids
+    cache: torch.Tensor,        # [L, 2, B, n_kv, T, hd], written in place
+    start_pos: int,             # the chunk occupies [start_pos, start_pos+S)
+    last_only: bool = True,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the decoder; returns ``(logits f32, cache)``.
+
+    ``cache`` is updated IN PLACE at ``[start_pos, start_pos + S)`` and
+    returned for symmetry with the JAX API. ``last_only=True`` computes the
+    final position's logits only (``[B, 1, V]``), else ``[B, S, V]``.
+
+    ``impl="auto"`` runs the kernels' wrappers: the hand kernels on a CUDA
+    device, their plain versions on the CPU. ``impl="plain"`` runs the
+    plain versions on any device; it is the reference the kernel path is
+    held to on the card, and slower.
+    """
+    _check_supported(cfg)
+    if not isinstance(cache, torch.Tensor):
+        raise NotImplementedError(
+            "int8 KV cache (KVCache8) is ROADMAP queue A, item 10")
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
+    start_pos = int(start_pos)
+    b, s = tokens.shape
+    dt = _dtype(cfg)
+    dev = cache.device
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    t_max = cache.shape[4]
+    if start_pos + s > t_max:
+        raise ValueError(f"chunk [{start_pos}, {start_pos + s}) exceeds the "
+                         f"cache length {t_max}")
+    layers = params["layers"]
+    plain = impl == "plain"
+    decode = flash_decode_plain if plain else flash_decode
+    prefill = flash_prefill_plain if plain else flash_prefill
+
+    def lin(name, idx, xx):
+        p = layers[name]
+        if isinstance(p, QLinear):
+            return qlinear_apply_stacked(p, idx, xx, impl=impl)
+        return linear_apply(Linear(w=p.w[idx],
+                                   b=None if p.b is None else p.b[idx]), xx)
+
+    h = params["embed"][tokens.to(dev)].to(dt)
+    cos, sin = rope_table(cfg, start_pos + s, device=dev)
+    positions = torch.arange(start_pos, start_pos + s, device=dev)
+    lengths = torch.full((b,), start_pos, dtype=torch.int32, device=dev)
+
+    for idx in range(cfg.num_layers):
+        kv = cache[idx]                                  # [2, B, n_kv, T, hd] view
+        x = rms_norm(h, layers["ln1"][idx], cfg.rms_eps)
+        if "wqkv" in layers:
+            q, k, v = torch.split(lin("wqkv", idx, x), [nq * hd, nkv * hd, nkv * hd], dim=-1)
+        else:
+            q, k, v = lin("wq", idx, x), lin("wk", idx, x), lin("wv", idx, x)
+        q = q.reshape(b, s, nq, hd)
+        k = k.reshape(b, s, nkv, hd)
+        v = v.reshape(b, s, nkv, hd)
+        q, k = apply_rope(q, k, cos, sin, positions)
+        if s == 1:
+            # the current token rides as an operand; append it afterwards
+            attn = decode(q[:, 0].contiguous(), k[:, 0].to(kv.dtype).contiguous(),
+                          v[:, 0].to(kv.dtype).contiguous(), kv, lengths,
+                          max_length=start_pos).reshape(b, 1, nq * hd)
+            update_kv_cache(kv, k, v, start_pos)
+        else:
+            update_kv_cache(kv, k, v, start_pos)
+            attn = prefill(q.contiguous(), kv, start_pos)
+        h = h + lin("wo", idx, attn.to(dt))
+        xm = rms_norm(h, layers["ln2"][idx], cfg.rms_eps)
+        if "wgateup" in layers:
+            g, u = torch.chunk(lin("wgateup", idx, xm), 2, dim=-1)
+        else:
+            g, u = lin("gate", idx, xm), lin("up", idx, xm)
+        hm = torch.nn.functional.silu(g.float()).to(dt) * u
+        h = h + lin("down", idx, hm)
+
+    if last_only:
+        h = h[:, -1:, :]
+    h = rms_norm(h, params["norm"], cfg.rms_eps)
+    return _head_logits(params, h, impl), cache

@@ -1,0 +1,196 @@
+"""Flash attention over the static KV cache (PyTorch port of
+``awq_tpu/ops/decode_attn.py``).
+
+Both functions take ONE layer of the stacked cache, the free view
+``cache[l] = [2, B, n_kv, T, hd]`` (K at index 0, V at 1), and read only
+its valid prefix.
+
+- :func:`flash_decode` wraps kernel K2 (``csrc/decode_attn.cu``), which
+  replaces ``flash_decode_stacked``: one query position per row, GQA,
+  softmax over the cache prefix ``[0, len_b)`` plus the current token's
+  k/v given as operands (not yet in the cache).
+- :func:`flash_prefill` wraps kernel K3, which replaces
+  ``flash_prefill_stacked`` with its online softmax: the chunk at
+  ``[start_pos, start_pos + S)`` is already in the cache and query row
+  ``r`` attends positions ``j <= start_pos + r``.
+
+Each has a plain PyTorch version beside it (``*_plain``): the CPU path,
+and the reference the kernels are held to on the card. On a CUDA tensor
+the wrappers launch the kernel or raise. ALiBi (``forward`` refuses
+alibi models) and head_dim 64 (the TPU kernels' paired mode; the
+wrappers raise) wait for their model families.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+
+#: Launches of K2 and K3, counted where the wrappers launch them.
+LAUNCHES = {"flash_decode": 0, "flash_prefill": 0}
+
+HEAD_DIM = 128            # the head_dim the kernels are built for
+_DECODE_TILE = 32         # positions per shared-memory tile (csrc)
+_MIN_SPLIT = 64           # fewest positions per split-K block
+_TARGET_BLOCKS = 264      # two waves of the H100's 132 SMs
+_LOG2E = 1.4426950408889634
+
+
+def flash_decode_plain(q: torch.Tensor, k_new: torch.Tensor,
+                       v_new: torch.Tensor, cache: torch.Tensor,
+                       lengths: torch.Tensor,
+                       max_length: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K2, in f32: ``[B, nq, hd]`` in ``q.dtype``."""
+    b, nq, hd = q.shape
+    nkv = cache.shape[2]
+    g = nq // nkv
+    t = cache.shape[3] if max_length is None else max_length
+    qf = q.float().reshape(b, nkv, g, hd) * (1.0 / math.sqrt(hd))
+    kf = cache[0, :, :, :t].float()
+    vf = cache[1, :, :, :t].float()
+    s = torch.einsum("bkgh,bkth->bkgt", qf, kf)
+    live = torch.arange(t, device=q.device)[None, :] < lengths[:, None].to(q.device)
+    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    s_cur = torch.einsum("bkgh,bkh->bkg", qf, k_new.float())[..., None]
+    p = torch.softmax(torch.cat([s, s_cur], dim=-1), dim=-1)
+    out = (torch.einsum("bkgt,bkth->bkgh", p[..., :t], vf)
+           + p[..., t:] * v_new.float()[:, :, None, :])
+    return out.reshape(b, nq, hd).to(q.dtype)
+
+
+def flash_prefill_plain(q: torch.Tensor, cache: torch.Tensor,
+                        start_pos: int) -> torch.Tensor:
+    """Plain version of K3, in f32: ``[B, S, nq*hd]`` in ``q.dtype``."""
+    b, s, nq, hd = q.shape
+    nkv = cache.shape[2]
+    g = nq // nkv
+    end = start_pos + s
+    qf = q.float().reshape(b, s, nkv, g, hd)
+    kf = cache[0, :, :, :end].float()
+    vf = cache[1, :, :, :end].float()
+    scores = torch.einsum("bskgh,bkth->bkgst", qf, kf) * (1.0 / math.sqrt(hd))
+    rows = start_pos + torch.arange(s, device=q.device)
+    mask = torch.arange(end, device=q.device)[None, :] <= rows[:, None]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bkth->bskgh", p, vf)
+    return out.reshape(b, s, nq * hd).to(q.dtype)
+
+
+def _check(cond: bool, what: str, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{what}: {msg}")
+
+
+def _check_common(what: str, q: torch.Tensor, cache: torch.Tensor) -> None:
+    hd = q.shape[-1]
+    if hd != HEAD_DIM:
+        raise NotImplementedError(
+            f"{what}: head_dim {hd}; the kernel is built for {HEAD_DIM} "
+            "(head_dim 64 waits for its model families, ROADMAP queue A, item 12)")
+    _check(cache.dim() == 5 and cache.shape[0] == 2 and cache.shape[-1] == hd,
+           what, f"cache must be one layer [2, B, n_kv, T, {hd}], got "
+           f"{tuple(cache.shape)}")
+    _check(q.dtype == torch.bfloat16 and cache.dtype == torch.bfloat16, what,
+           f"q and cache must be bfloat16, got {q.dtype} and {cache.dtype}")
+    _check(q.is_contiguous() and cache.is_contiguous(), what,
+           "q and cache must be contiguous")
+    _check(cache.device == q.device, what, "q and cache on different devices")
+    _check(cache.data_ptr() % 16 == 0, what, "cache must be 16-byte aligned")
+
+
+def _split(max_length: int, rows: int) -> tuple:
+    """(nsplit, split_len): enough split-K blocks to fill the card, each a
+    multiple of the kernel's tile and at least ``_MIN_SPLIT`` positions."""
+    want = max(1, -(-_TARGET_BLOCKS // rows))
+    split_len = max(_MIN_SPLIT, -(-max_length // want))
+    split_len = -(-split_len // _DECODE_TILE) * _DECODE_TILE
+    return max(1, -(-max_length // split_len)), split_len
+
+
+def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                 cache: torch.Tensor, lengths: torch.Tensor,
+                 max_length: Optional[int] = None) -> torch.Tensor:
+    """K2 wrapper. ``q [B, nq, hd]``, ``k_new``/``v_new [B, nkv, hd]`` (the
+    current token, post-rope), ``cache [2, B, nkv, T, hd]`` (one layer),
+    ``lengths [B]`` int32 cache-prefix lengths. ``max_length`` (at least
+    ``lengths.max()``) sizes the split-K grid without a device sync.
+    Returns ``[B, nq, hd]``."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_new, v_new, cache, lengths, max_length)
+    what = "flash_decode"
+    _check(q.is_cuda, what, f"unsupported device {q.device}")
+    _check_common(what, q, cache)
+    b, nq, hd = q.shape
+    nkv, t = cache.shape[2], cache.shape[3]
+    _check(cache.shape[1] == b and nq % nkv == 0 and nq // nkv <= 32, what,
+           f"q {tuple(q.shape)} does not fit cache {tuple(cache.shape)}")
+    for name, kv in (("k_new", k_new), ("v_new", v_new)):
+        _check(tuple(kv.shape) == (b, nkv, hd) and kv.dtype == torch.bfloat16
+               and kv.is_contiguous() and kv.device == q.device, what,
+               f"{name} must be contiguous bf16 [{b}, {nkv}, {hd}]")
+    _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,)
+           and lengths.device == q.device and lengths.is_contiguous(), what,
+           f"lengths must be int32 [{b}] on {q.device}")
+    if max_length is None:
+        max_length = int(lengths.max())
+    _check(0 <= max_length <= t, what, f"max_length {max_length} not in [0, {t}]")
+    nsplit, split_len = _split(max_length, b * nkv)
+    g = nq // nkv
+    part_ml = torch.empty((b, nkv, nsplit, g, 2), dtype=torch.float32,
+                          device=q.device)
+    part_acc = torch.empty((b, nkv, nsplit, g, hd), dtype=torch.float32,
+                           device=q.device)
+    out = torch.empty_like(q)
+
+    from awq_tpu_torch import _build
+
+    lib = _build.load("decode_attn")
+    fn = lib.awq_flash_decode
+    _build.declare(fn, *([_build.P] * 8), *([_build.I] * 6), _build.F,
+                   _build.P)
+    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+             cache.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(),
+             part_acc.data_ptr(), out.data_ptr(), b, nq, nkv, t, nsplit,
+             split_len, 1.0 / math.sqrt(hd),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, what)
+    LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def flash_prefill(q: torch.Tensor, cache: torch.Tensor,
+                  start_pos: Union[int, torch.Tensor]) -> torch.Tensor:
+    """K3 wrapper. ``q [B, S, nq, hd]`` post-rope queries of the chunk at
+    ``[start_pos, start_pos + S)``, already written into ``cache
+    [2, B, nkv, T, hd]`` (one layer). Returns ``[B, S, nq*hd]``."""
+    start_pos = int(start_pos)
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, cache, start_pos)
+    what = "flash_prefill"
+    _check(q.is_cuda, what, f"unsupported device {q.device}")
+    _check_common(what, q, cache)
+    b, s, nq, hd = q.shape
+    nkv, t = cache.shape[2], cache.shape[3]
+    _check(cache.shape[1] == b and nq % nkv == 0, what,
+           f"q {tuple(q.shape)} does not fit cache {tuple(cache.shape)}")
+    _check(start_pos >= 0 and start_pos + s <= t, what,
+           f"chunk [{start_pos}, {start_pos + s}) outside the cache (T={t})")
+    out = torch.empty((b, s, nq * hd), dtype=q.dtype, device=q.device)
+    if s == 0:
+        return out
+
+    from awq_tpu_torch import _build
+
+    lib = _build.load("decode_attn")
+    fn = lib.awq_flash_prefill
+    _build.declare(fn, *([_build.P] * 3), *([_build.I] * 6), _build.F,
+                   _build.P)
+    err = fn(q.data_ptr(), cache.data_ptr(), out.data_ptr(), b, s, nq, nkv,
+             t, start_pos, _LOG2E / math.sqrt(hd),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, what)
+    LAUNCHES["flash_prefill"] += 1
+    return out

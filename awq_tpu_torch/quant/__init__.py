@@ -1,0 +1,1 @@
+"""Subpackage of awq_tpu_torch; see the package docstring."""

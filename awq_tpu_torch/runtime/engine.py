@@ -1,0 +1,101 @@
+"""Single-model inference engine (PyTorch port of ``awq_tpu/runtime/engine.py``).
+
+Owns the parameters (fused QKV and gate/up) and the KV cache on one
+device, and keeps the ``start_pos`` bookkeeping across dialogue rounds so
+that a round prefills only its new tokens and reuses the history's KV.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+from awq_tpu_torch import _device
+from awq_tpu_torch.config import GenConfig, ModelConfig, RuntimeConfig
+from awq_tpu_torch.models.llama import (
+    forward,
+    fuse_linears,
+    init_kv_cache,
+    params_to,
+    quantize_head,
+)
+from awq_tpu_torch.runtime.generate import generate
+
+
+class InferenceEngine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        runtime: Optional[RuntimeConfig] = None,
+        cache_dtype=torch.bfloat16,
+        device="cuda",
+    ):
+        self.device = _device.resolve(device)
+        self.cfg = cfg
+        self.rt = runtime or RuntimeConfig()
+        if self.rt.mesh is not None:
+            raise NotImplementedError(
+                "multi-GPU serving (RuntimeConfig.mesh) is ROADMAP queue A, item 17")
+        if self.rt.prefill_w8:
+            raise NotImplementedError(
+                "the int8 prefill weight cache (prefill_w8) is ROADMAP queue A, item 16")
+        if cache_dtype in ("int8", torch.int8):
+            raise NotImplementedError("int8 KV cache is ROADMAP queue A, item 10")
+        t = min(self.rt.max_seq_len, cfg.max_position_embeddings)
+        params = params_to(params, self.device)
+        if self.rt.quantize_head:
+            params = quantize_head(params, cfg)
+        self.params = fuse_linears(params, cfg)
+        self.cache = init_kv_cache(cfg, self.rt.max_batch_size, t, cache_dtype,
+                                   device=self.device)
+        self.start_pos = 0
+
+    # ---- conversation state (history KV reused across rounds) ----
+
+    def reset(self):
+        self.start_pos = 0
+        self.cache.zero_()
+
+    @property
+    def max_seq_len(self) -> int:
+        return self.cache.shape[4]
+
+    def warmup(self, seq_len: int = 64):
+        """Run one prefill and one decode step (first launches load the
+        kernels), then clear the cache they wrote."""
+        toks = torch.zeros((self.rt.max_batch_size, seq_len), dtype=torch.long,
+                           device=self.device)
+        forward(self.params, self.cfg, toks, self.cache, 0)
+        forward(self.params, self.cfg, toks[:, :1], self.cache, seq_len)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.reset()
+
+    def generate(
+        self,
+        prompt_ids: Sequence[int],
+        gen: GenConfig,
+        stop_ids: Sequence[int] = (),
+        generator: Optional[torch.Generator] = None,
+        continue_dialogue: bool = True,
+    ) -> Dict[str, Any]:
+        """One dialogue round: prefill only the new tokens (history KV is
+        reused via ``start_pos``), then decode."""
+        tokens = torch.tensor([list(prompt_ids)], dtype=torch.long,
+                              device=self.device)
+        if self.start_pos + tokens.shape[1] + gen.max_new_tokens > self.max_seq_len:
+            self.reset()  # simplistic eviction; the paged cache lands later
+        out = generate(self.params, self.cfg, tokens, self.cache, gen,
+                       stop_ids=stop_ids, start_pos=self.start_pos,
+                       generator=generator)
+        self.cache = out["cache"]
+        n_new = int(out["n_valid"][0])
+        if continue_dialogue:
+            self.start_pos += tokens.shape[1] + n_new
+        out["output_ids"] = out["output_ids"][0, :n_new]
+        return out
+
+    def generate_speculative(self, *args, **kwargs):
+        raise NotImplementedError("speculative decoding is ROADMAP queue A, item 11")
