@@ -30,7 +30,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "awq_tpu_torch"
-SOURCES = ("w4a16", "decode_attn")
+SOURCES = ("w4a16", "decode_attn", "megakernel", "megakernel_chunk")
 ARCH = "sm_90a"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -3,9 +3,24 @@
 :func:`params_from_jax` takes the tree after ``jax.device_get`` (every leaf
 a numpy array) and reads its ``QLinear`` and ``Linear`` leaves by
 attribute, so this module imports nothing of the JAX package. It accepts
-the unfused tree of ``quantize_params`` and the tree fused by
-``fuse_linears(..., tile=False)``; the TPU-only tiled, folded and dense-3
-layouts are refused.
+the unfused tree of ``quantize_params`` and the trees of ``fuse_linears``
+with or without ``tile``.
+
+The TPU's tiled and folded layouts (``tile_qlinear``) are unfolded back
+into ``pack_int4``'s plain ``[(L,) IC//8, OC]``, the only layout the port's
+kernels read:
+
+- tiled: block-contiguous ``[(L,) NB, rows, bn]``; un-blockified;
+- folded: besides the tiling, the code words hold the bf16-bitpack nibble
+  order, and each block carries one packed qparam row per group (bf16
+  scale in the low half-word, bf16 szero in the high) after its ``IC//8``
+  code rows, then a pad to 8 rows. The nibbles are put back in the
+  standard order, and ``scales``/``szeros`` are read from the qparam rows
+  and widened to f32: the values the folded kernels compute with, present
+  even where ``strip_unfolded_qparams`` dropped the f32 fields.
+
+The dense 3-bit layout (``dense3``) is refused: W3 is ROADMAP queue A,
+item 13. A stacked-of-1 ``lm_head`` (``_tile_head``) comes back 2-D.
 """
 
 from __future__ import annotations
@@ -22,7 +37,61 @@ def _tensor(a, dev: torch.device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(dev)
-    return torch.from_numpy(a.copy()).to(dev)
+    return torch.from_numpy(np.array(a, order="C", copy=True)).to(dev)
+
+
+def _fold_nibble_maps_inv():
+    """Standard word ``q`` nibble ``s`` of a 16-word window (true row
+    ``r = 64*(q>>3) + 8*s + (q&7)``) lives in folded word ``(r>>1)&15``,
+    nibble ``(r>>5) + 4*(r&1)``: ``(src_word, src_shift)`` tables [16, 8]."""
+    q = np.arange(16)[:, None]
+    s = np.arange(8)[None, :]
+    r = 64 * (q >> 3) + 8 * s + (q & 7)
+    return (r >> 1) & 15, 4 * ((r >> 5) + 4 * (r & 1))
+
+
+def _remap_nibbles(qw: np.ndarray, maps) -> np.ndarray:
+    """Apply a word/nibble permutation per 16-word window of axis -2."""
+    src_word, src_shift = maps
+    shape = qw.shape
+    w = qw.view(np.uint32).reshape(shape[:-2] + (shape[-2] // 16, 16, shape[-1]))
+    out = np.zeros_like(w)
+    for k in range(8):
+        nib = (np.take(w, src_word[:, k], axis=-2)
+               >> src_shift[:, k][:, None].astype(np.uint32)) & np.uint32(0xF)
+        out |= nib << np.uint32(4 * k)
+    return out.reshape(shape).view(np.int32)
+
+
+def _untile(a: np.ndarray) -> np.ndarray:
+    """``[(L,) NB, rows, bn]`` -> ``[(L,) rows, NB*bn]``."""
+    *lead, nb, rows, bn = a.shape
+    return np.ascontiguousarray(
+        np.swapaxes(a, -3, -2).reshape(*lead, rows, nb * bn))
+
+
+def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    return (bits.astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+
+def unfold_qlinear(x):
+    """``(qweight, scales, szeros)`` of a JAX QLinear in the port's plain
+    layout, as numpy arrays."""
+    g = int(x.group_size)
+    qw = np.asarray(x.qweight)
+    if not getattr(x, "tiled_bn", 0):
+        return qw, np.asarray(x.scales), np.asarray(x.szeros)
+    if not getattr(x, "folded", False):
+        return _untile(qw), np.asarray(x.scales), np.asarray(x.szeros)
+    rows = qw.shape[-2]
+    ic = rows // (g // 8 + 1) * g
+    icp, n_g = ic // 8, ic // g
+    codes = _remap_nibbles(np.ascontiguousarray(qw[..., :icp, :]),
+                           _fold_nibble_maps_inv())
+    qp = _untile(qw[..., icp:icp + n_g, :]).view(np.uint32)
+    scales = _bf16_bits_to_f32(qp & np.uint32(0xFFFF))
+    szeros = _bf16_bits_to_f32(qp >> np.uint32(16))
+    return _untile(codes), scales, szeros
 
 
 def params_from_jax(tree, device="cuda"):
@@ -35,18 +104,14 @@ def params_from_jax(tree, device="cuda"):
         if isinstance(x, dict):
             return {k: conv(v, f"{path}/{k}") for k, v in x.items()}
         if hasattr(x, "qweight"):
-            if (getattr(x, "tiled_bn", 0) or getattr(x, "folded", False)
-                    or getattr(x, "dense3", False)):
-                raise ValueError(
-                    f"{path}: tiled/folded/dense-3 QLinear layouts exist only "
-                    "for the TPU kernels; convert params fused with "
-                    "fuse_linears(..., tile=False), or unfused ones")
-            if x.w_bit != 4:
+            if getattr(x, "dense3", False) or x.w_bit != 4:
                 raise NotImplementedError(
-                    f"{path}: w_bit={x.w_bit}; W3 is ROADMAP queue A, item 13")
-            return QLinear(qweight=_tensor(x.qweight, dev),
-                           scales=_tensor(x.scales, dev),
-                           szeros=_tensor(x.szeros, dev),
+                    f"{path}: w_bit={x.w_bit}, dense3="
+                    f"{getattr(x, 'dense3', False)}; W3 is ROADMAP queue A, "
+                    "item 13")
+            qw, s, sz = unfold_qlinear(x)
+            return QLinear(qweight=_tensor(qw, dev), scales=_tensor(s, dev),
+                           szeros=_tensor(sz, dev),
                            bias=conv(x.bias, f"{path}.bias"),
                            w_bit=int(x.w_bit), group_size=int(x.group_size))
         if hasattr(x, "w"):
@@ -55,4 +120,14 @@ def params_from_jax(tree, device="cuda"):
             return _tensor(x, dev)
         raise TypeError(f"{path}: unsupported leaf {type(x).__name__}")
 
-    return conv(tree, "params")
+    out = conv(tree, "params")
+    head = out.get("lm_head") if isinstance(out, dict) else None
+    if isinstance(head, QLinear) and head.qweight.dim() == 3:
+        if head.qweight.shape[0] != 1:
+            raise ValueError("lm_head QLinear stacked over more than one layer")
+        out["lm_head"] = QLinear(
+            qweight=head.qweight[0], scales=head.scales[0],
+            szeros=head.szeros[0],
+            bias=None if head.bias is None else head.bias[0],
+            w_bit=head.w_bit, group_size=head.group_size)
+    return out

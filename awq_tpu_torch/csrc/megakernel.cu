@@ -1,0 +1,523 @@
+// K4: the whole-token (and whole-layer) W4A16 decode megakernel for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas kernels of awq_tpu/ops/megakernel.py:
+// w4a16_llama_token_step (_token_kernel) and w4a16_llama_layer_step
+// (_mega_kernel). One launch runs decoder layers [layer0, layer0 + n) of a
+// llama-family model for ONE token, per layer
+//   x = rmsnorm(h)·ln1; qkv = x @ W4(wqkv) (+ bias); rope(q, k);
+//   GQA attention of q over cache [0, length) plus the current k/v;
+//   h1 = h + attn @ W4(wo); xm = rmsnorm(h1)·ln2;
+//   hm = silu(xm @ W4(gate))·(xm @ W4(up)); h = h1 + hm @ W4(down)
+// (the residual rounded to bf16 between layers in the token entry), then
+// optionally the final rmsnorm and a W4 head into f32 logits. The new k/v
+// are written into the cache at `length` in place, and returned.
+//
+// What bounds it on the H100: device memory. A token streams every W4 code
+// once (0.5 B per weight, plus 8 B of f32 scale and szero per group column)
+// and the KV prefix once; at Llama-3-8B width that is 4.22 GB of weights and
+// head, 1.26 ms at 3.35 TB/s. The TPU kernel was one grid step streaming
+// blocks through VMEM by manual DMA; here one launch must keep all 132 SMs
+// streaming, and what it does about that:
+// - a persistent grid of as many 256-thread blocks as fit on the card at
+//   once (cudaOccupancyMaxActiveBlocksPerMultiprocessor after the dynamic
+//   shared-memory attribute is set), launched with
+//   cudaLaunchCooperativeKernel, so the grid-wide barrier
+//   (cooperative_groups::this_grid().sync()) between dependent phases is
+//   valid: six per layer (QKV | attention | combine | o-proj | gate/up |
+//   down);
+// - every matmul phase hands out 32-column tiles over the full IC (OC/32
+//   tiles: 128 for wo and down, 448 gate/up pairs, 4008 for the head), so
+//   no cross-block split-K and the result is deterministic; inside a block
+//   the 8 warps take whole quantization groups and sum them in shared
+//   memory in a fixed order;
+// - the products run on the tensor cores, as the TPU kernel ran them on
+//   its MXU: a lane loads 16 bytes (4 columns) of a pack_int4 word row
+//   (input channel 64c + 8s + r in word 8c + r, nibble s, read as stored)
+//   and turns each word into bf16 pairs of exact
+//   codes with one shift, one LOP3 and one bf16 subtract per pair
+//   ((w >> 4t) & 0x000F000F | 0x43004300 is 128 + q in bf16), the B
+//   operand of mma.sync m16n8k16; the A operand is x in the matching
+//   permuted channel order. A first version did the products on the CUDA
+//   cores (a float per nibble, one FMA each) and was bound by instruction
+//   issue at about a third of the HBM rate (4.6 ms per token). The JAX
+//   kernel's per-group identity s·Σ bf16(x)·q − sz·Σ bf16(x) is kept,
+//   with f32 accumulation and the group sums of bf16(x) computed once;
+// - the input row of a phase (rmsnorm of the residual, the attention
+//   output or SiLU·mul) is rebuilt by each block in shared memory, rounded
+//   to bf16 and permuted, which saves a barrier per norm;
+// - gate column j and up column I + j go to the same block, so SiLU·mul is
+//   fused into the gate/up phase;
+// - attention is split over (kv head, position slice) items with an online
+//   softmax per warp, and a combine phase merges the slices.
+// Activations live in a device workspace that the wrapper allocates; the
+// kernel allocates nothing. A simple first version: no TMA, no cp.async
+// pipeline and no overlap of a phase's tail with the next one's loads.
+#include "mega_common.cuh"
+
+namespace {
+
+struct TokenArgs {
+  const void* h_in; void* h_out;
+  const int32_t* qkv_w; const float* qkv_s; const float* qkv_z; const void* qkv_b;
+  const int32_t* o_w; const float* o_s; const float* o_z;
+  const int32_t* gu_w; const float* gu_s; const float* gu_z;
+  const int32_t* dn_w; const float* dn_s; const float* dn_z;
+  const void* ln1; const void* ln2; const float* cosr; const float* sinr;
+  void* cache; void* k_new; void* v_new;
+  const int32_t* hd_w; const float* hd_s; const float* hd_z; const void* norm_w;
+  float* logits;
+  float* ws;
+  int layer0, n_layers, L, H, I, nq, nkv, T, length, vocab, round_res, md, has_bias;
+  int nsplit, split_len;
+  float eps;
+};
+
+constexpr int TILE = 32;                       // columns per matmul tile
+constexpr int ATT_FLOATS = MK_MAXG * MK_HD + 2 * MK_HD + 2 * MK_WARPS * MK_MAXG
+                           + MK_WARPS * MK_MAXG * MK_HD;
+constexpr int MAX_PER_SM = 4;                  // blocks per SM (barrier cost)
+constexpr int PB = 4;                          // cache positions a warp loads at once
+// The source row of a staged input sits in L2 (another block wrote it
+// before the barrier): a thread issues SU pairs of loads before it stores
+// any, so a row costs a few L2 round trips rather than one per element.
+constexpr int SU = 8;
+
+// The staged input row, in shared memory: xa[(c*4 + t)*4 + tq] holds the
+// A fragment pair of lane tq for k16 step t of chunk c:
+//   .x = bf16(x[64c + 8t + 2tq]),     bf16(x[64c + 8(t+4) + 2tq])
+//   .y = bf16(x[64c + 8t + 2tq + 1]), bf16(x[64c + 8(t+4) + 2tq + 1])
+// (the channels whose codes codes_bf16x2 pairs from words 8c + 2tq and
+// 8c + 2tq + 1), and xsum[g] the sum of group g's bf16(x).
+
+template <typename F>
+__device__ void stage_x(uint32_t* xa, float* xsum, int n, F value) {
+  for (int p0 = threadIdx.x; p0 < n / 2; p0 += SU * MK_THREADS) {
+    float lo[SU], hi[SU];
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const int p = p0 + u * MK_THREADS;
+      const int c = p >> 5, t = (p >> 3) & 3, tq = (p >> 1) & 3, h = p & 1;
+      const int i = c * 64 + t * 8 + 2 * tq + h;
+      lo[u] = p < n / 2 ? value(i) : 0.f;
+      hi[u] = p < n / 2 ? value(i + 32) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < SU; ++u)
+      if (p0 + u * MK_THREADS < n / 2) xa[p0 + u * MK_THREADS] = pack_bf16x2(lo[u], hi[u]);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int g = warp; g < n / MK_G; g += MK_WARPS) {
+    const __nv_bfloat162* v = reinterpret_cast<const __nv_bfloat162*>(xa + g * 64);
+    const float s = __low2float(v[lane]) + __high2float(v[lane]) +
+                    __low2float(v[lane + 32]) + __high2float(v[lane + 32]);
+    const float t = warp_sum(s);
+    if (lane == 0) xsum[g] = t;
+  }
+  __syncthreads();
+}
+
+// xa = permuted bf16(src · rsqrt(mean(src²) + eps) · w), n values.
+__device__ void stage_rms(uint32_t* xa, float* xsum, const float* src, const void* w,
+                          int md, int n, float eps, float* red) {
+  float ss = 0.f;
+#pragma unroll 4
+  for (int i = threadIdx.x * 4; i < n; i += MK_THREADS * 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src + i);
+    ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+  }
+  const float rs = rsqrtf(block_sum(ss, red) / n + eps);
+  stage_x(xa, xsum, n, [&](int i) { return src[i] * rs * load_act(w, md, i); });
+}
+
+__device__ void stage_copy(uint32_t* xa, float* xsum, const float* src, int n) {
+  stage_x(xa, xsum, n, [&](int i) { return src[i]; });
+}
+
+// One 32-column tile of y = x @ W4 over the full IC. Warp w takes groups
+// w, w+8, ...; lane (gq, tq) loads 16 bytes, columns n0 + 4gq .. 4gq+3, of
+// word rows 8c + 2tq and 8c + 2tq + 1. Column 4gq + j is column gq of n8
+// tile j, so the mma of tile j leaves columns n0 + 8tq + j and
+// n0 + 8tq + 4 + j in every row (A's rows are all x). Returns column
+// n0 + threadIdx.x on threads 0..31.
+__device__ float gemv_tile(const uint32_t* __restrict__ xa, const float* __restrict__ xsum,
+                           const int32_t* __restrict__ qw, const float* __restrict__ sc,
+                           const float* __restrict__ sz, int IC, int OC, int n0,
+                           float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int ng = IC / MK_G;
+  const int32_t* base = qw + (size_t)(2 * tq) * OC + n0 + 4 * gq;
+  float acc[4][2] = {};
+  // the code words of a warp's next group are loaded while it computes on
+  // the current one, so the HBM latency is paid once per tile
+  uint4 wc[4];
+  auto load = [&](uint4* w, int g) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)   // chunks 2g, 2g+1; rows 2tq, 2tq+1
+      w[r] = __ldg(reinterpret_cast<const uint4*>(
+          base + (size_t)(16 * g + 8 * (r >> 1) + (r & 1)) * OC));
+  };
+  if (warp < ng) load(wc, warp);
+  for (int g = warp; g < ng; g += MK_WARPS) {
+    uint4 wn[4];
+    if (g + MK_WARPS < ng) load(wn, g + MK_WARPS);
+    float part[4][4] = {};
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int c = 2 * g + cc;
+      const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&wc[2 * cc]);
+      const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&wc[2 * cc + 1]);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const uint2 av = *reinterpret_cast<const uint2*>(xa + ((c * 4 + t) * 4 + tq) * 2);
+        const uint32_t a[4] = {av.x, av.x, av.y, av.y};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16_16816(part[j], a, codes_bf16x2(w0[j], t), codes_bf16x2(w1[j], t));
+      }
+    }
+    // this lane's columns: n0 + 8tq + 4e + j (e = 0, 1; j = 0..3)
+    const size_t o = (size_t)g * OC + n0 + 8 * tq;
+    const float4 s0 = __ldg(reinterpret_cast<const float4*>(sc + o));
+    const float4 s1 = __ldg(reinterpret_cast<const float4*>(sc + o + 4));
+    const float4 z0 = __ldg(reinterpret_cast<const float4*>(sz + o));
+    const float4 z1 = __ldg(reinterpret_cast<const float4*>(sz + o + 4));
+    const float ss[2][4] = {{s0.x, s0.y, s0.z, s0.w}, {s1.x, s1.y, s1.z, s1.w}};
+    const float zz[2][4] = {{z0.x, z0.y, z0.z, z0.w}, {z1.x, z1.y, z1.z, z1.w}};
+    const float xs = xsum[g];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) acc[j][e] += part[j][e] * ss[e][j] - xs * zz[e][j];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) wc[r] = wn[r];
+  }
+  if (gq == 0)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) red[warp * TILE + 8 * tq + 4 * e + j] = acc[j][e];
+  __syncthreads();
+  float v = 0.f;
+  if (threadIdx.x < TILE)
+#pragma unroll
+    for (int w = 0; w < MK_WARPS; ++w) v += red[w * TILE + threadIdx.x];
+  __syncthreads();
+  return v;
+}
+
+template <typename CT>
+__global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
+  extern __shared__ float sm[];
+  cg::grid_group grid = cg::this_grid();
+  float* red = sm;                       // 256 floats
+  float* xs = sm + MK_THREADS;           // attention scratch, or:
+  uint32_t* xa = reinterpret_cast<uint32_t*>(xs);   // the staged input row
+  float* xsum = xs + (a.H > a.I ? a.H : a.I) / 2;   // its group sums
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int H = a.H, I = a.I, nq = a.nq, nkv = a.nkv, grp = nq / nkv;
+  const int nr = nq + 2 * nkv, oq = nr * MK_HD;
+  float* hres = a.ws;
+  float* qkv = hres + H;
+  float* pml = qkv + oq;
+  float* pacc = pml + (((size_t)nkv * a.nsplit * grp * 2 + 3) & ~(size_t)3);  // float4 rows
+  float* xo = pacc + (size_t)nkv * a.nsplit * grp * MK_HD;
+  float* h1 = xo + nq * MK_HD;
+  float* hm = h1 + H;
+  CT* cache = static_cast<CT*>(a.cache);
+  const int gsize = gridDim.x * MK_THREADS;
+  const int gtid = blockIdx.x * MK_THREADS + tid;
+  const int vb = blockIdx.x;
+
+  for (int i = gtid; i < H; i += gsize) hres[i] = load_act(a.h_in, a.md, i);
+  grid.sync();
+
+  for (int li = 0; li < a.n_layers; ++li) {
+    const int l = a.layer0 + li;
+    // ---- phase 1: rmsnorm + fused QKV (+ bias) ---------------------------
+    {
+      const int nt = oq / TILE;
+      const int32_t* w = a.qkv_w + (size_t)l * (H / 8) * oq;
+      const float* s = a.qkv_s + (size_t)l * (H / MK_G) * oq;
+      const float* z = a.qkv_z + (size_t)l * (H / MK_G) * oq;
+      if (vb < nt) stage_rms(xa, xsum, hres, static_cast<const char*>(a.ln1) +
+                                     (size_t)l * H * (a.md ? 2 : 4), a.md, H, a.eps, red);
+      for (int t = vb; t < nt; t += gridDim.x) {
+        const float v = gemv_tile(xa, xsum, w, s, z, H, oq, t * TILE, red);
+        if (tid < TILE) {
+          const int col = t * TILE + tid;
+          qkv[col] = v + (a.has_bias ? load_act(a.qkv_b, a.md, (size_t)l * oq + col) : 0.f);
+        }
+      }
+    }
+    grid.sync();
+    // ---- phase 2: rope + attention slices + the in-place append ----------
+    {
+      float* sq = xs;                               // [MK_MAXG][128] q·scale
+      float* kc = sq + MK_MAXG * MK_HD;             // [128] current k (roped)
+      float* vc = kc + MK_HD;                       // [128] current v
+      float* wm = vc + MK_HD;                       // [8][MK_MAXG]
+      float* wl = wm + MK_WARPS * MK_MAXG;          // [8][MK_MAXG]
+      float* wacc = wl + MK_WARPS * MK_MAXG;        // [8][MK_MAXG][128]
+      const float scale = 1.f / sqrtf((float)MK_HD);
+      const int items = nkv * a.nsplit;
+      const size_t T = a.T;
+      for (int it = vb; it < items; it += gridDim.x) {
+        const int kvh = it / a.nsplit, sp = it % a.nsplit;
+        const int p0 = sp * a.split_len;
+        const int p1 = min(p0 + a.split_len, a.length + 1);
+        for (int i = tid; i < grp * MK_HD; i += MK_THREADS) {
+          const int g = i / MK_HD, d = i % MK_HD;
+          sq[i] = rope_at(qkv + (kvh * grp + g) * MK_HD, a.cosr, a.sinr, d) * scale;
+        }
+        for (int d = tid; d < MK_HD; d += MK_THREADS) {
+          kc[d] = rope_at(qkv + (nq + kvh) * MK_HD, a.cosr, a.sinr, d);
+          vc[d] = qkv[(nq + nkv + kvh) * MK_HD + d];
+        }
+        __syncthreads();
+        const size_t krow = (((size_t)l * 2 + 0) * nkv + kvh) * T;
+        const size_t vrow = (((size_t)l * 2 + 1) * nkv + kvh) * T;
+        if (sp == 0) {
+          for (int d = tid; d < MK_HD; d += MK_THREADS) {
+            cache[(krow + a.length) * MK_HD + d] = from_f32<CT>(kc[d]);
+            cache[(vrow + a.length) * MK_HD + d] = from_f32<CT>(vc[d]);
+            static_cast<CT*>(a.k_new)[((size_t)li * nkv + kvh) * MK_HD + d] = from_f32<CT>(kc[d]);
+            static_cast<CT*>(a.v_new)[((size_t)li * nkv + kvh) * MK_HD + d] = from_f32<CT>(vc[d]);
+          }
+        }
+        float m[MK_MAXG], lsum[MK_MAXG], acc[MK_MAXG][4];
+#pragma unroll
+        for (int g = 0; g < MK_MAXG; ++g) {
+          m[g] = -INFINITY; lsum[g] = 0.f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
+        }
+        for (int pb = p0 + warp; pb < p1; pb += MK_WARPS * PB) {
+          // PB positions' k/v are loaded before any is used
+          float kv4[PB][4], vv4[PB][4];
+#pragma unroll
+          for (int u = 0; u < PB; ++u) {
+            const int p = pb + u * MK_WARPS;
+            if (p < a.length && p < p1) {
+              load4<CT>(cache + (krow + p) * MK_HD + lane * 4, kv4[u]);
+              load4<CT>(cache + (vrow + p) * MK_HD + lane * 4, vv4[u]);
+            } else if (p < p1) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) { kv4[u][e] = kc[lane * 4 + e]; vv4[u][e] = vc[lane * 4 + e]; }
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < PB; ++u) {
+            if (pb + u * MK_WARPS >= p1) break;
+#pragma unroll
+            for (int g = 0; g < MK_MAXG; ++g) {
+              if (g >= grp) break;
+              float dp = 0.f;
+#pragma unroll
+              for (int e = 0; e < 4; ++e) dp = fmaf(sq[g * MK_HD + lane * 4 + e], kv4[u][e], dp);
+              const float sc = warp_sum(dp);
+              const float mn = fmaxf(m[g], sc);
+              const float alpha = expf(m[g] - mn);
+              const float pr = expf(sc - mn);
+              lsum[g] = lsum[g] * alpha + pr;
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[g][e] = acc[g][e] * alpha + pr * vv4[u][e];
+              m[g] = mn;
+            }
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < MK_MAXG; ++g) {
+          if (g >= grp) break;
+          if (lane == 0) { wm[warp * MK_MAXG + g] = m[g]; wl[warp * MK_MAXG + g] = lsum[g]; }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            wacc[(warp * MK_MAXG + g) * MK_HD + lane * 4 + e] = acc[g][e];
+        }
+        __syncthreads();
+        for (int i = tid; i < grp * MK_HD; i += MK_THREADS) {
+          const int g = i / MK_HD, d = i % MK_HD;
+          float mx = -INFINITY;
+          for (int w = 0; w < MK_WARPS; ++w) mx = fmaxf(mx, wm[w * MK_MAXG + g]);
+          float ls = 0.f, ac = 0.f;
+          for (int w = 0; w < MK_WARPS; ++w) {
+            const float mw = wm[w * MK_MAXG + g];
+            if (mw == -INFINITY) continue;
+            const float f = expf(mw - mx);
+            ls += wl[w * MK_MAXG + g] * f;
+            ac += wacc[(w * MK_MAXG + g) * MK_HD + d] * f;
+          }
+          const size_t row = (size_t)it * grp + g;
+          pacc[row * MK_HD + d] = ac;
+          if (d == 0) { pml[row * 2] = mx; pml[row * 2 + 1] = ls; }
+        }
+        __syncthreads();
+      }
+    }
+    grid.sync();
+    // ---- phase 3: combine the slices -> attention output rows, a warp per head
+    for (int hq = vb + warp * gridDim.x; hq < nq; hq += gridDim.x * MK_WARPS) {
+      float ac[4];
+      combine_row(pml, pacc, (size_t)(hq / grp) * a.nsplit * grp + hq % grp, grp, a.nsplit, ac);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xo[hq * MK_HD + lane * 4 + e] = ac[e];
+    }
+    grid.sync();
+    // ---- phase 4: o-proj + residual -----------------------------------------
+    {
+      const int nt = H / TILE;
+      const int32_t* w = a.o_w + (size_t)l * (H / 8) * H;
+      const float* s = a.o_s + (size_t)l * (H / MK_G) * H;
+      const float* z = a.o_z + (size_t)l * (H / MK_G) * H;
+      if (vb < nt) stage_copy(xa, xsum, xo, nq * MK_HD);
+      for (int t = vb; t < nt; t += gridDim.x) {
+        const float v = gemv_tile(xa, xsum, w, s, z, H, H, t * TILE, red);
+        if (tid < TILE) h1[t * TILE + tid] = hres[t * TILE + tid] + v;
+      }
+    }
+    grid.sync();
+    // ---- phase 5: rmsnorm + gate/up, SiLU·mul fused ---------------------------
+    {
+      const int nt = I / TILE, oc = 2 * I;
+      const int32_t* w = a.gu_w + (size_t)l * (H / 8) * oc;
+      const float* s = a.gu_s + (size_t)l * (H / MK_G) * oc;
+      const float* z = a.gu_z + (size_t)l * (H / MK_G) * oc;
+      if (vb < nt) stage_rms(xa, xsum, h1, static_cast<const char*>(a.ln2) +
+                                     (size_t)l * H * (a.md ? 2 : 4), a.md, H, a.eps, red);
+      for (int t = vb; t < nt; t += gridDim.x) {
+        const float gt = gemv_tile(xa, xsum, w, s, z, H, oc, t * TILE, red);
+        const float up = gemv_tile(xa, xsum, w, s, z, H, oc, I + t * TILE, red);
+        if (tid < TILE) hm[t * TILE + tid] = gt * (1.f / (1.f + expf(-gt))) * up;
+      }
+    }
+    grid.sync();
+    // ---- phase 6: down + residual -----------------------------------------------
+    {
+      const int nt = H / TILE;
+      const int32_t* w = a.dn_w + (size_t)l * (I / 8) * H;
+      const float* s = a.dn_s + (size_t)l * (I / MK_G) * H;
+      const float* z = a.dn_z + (size_t)l * (I / MK_G) * H;
+      if (vb < nt) stage_copy(xa, xsum, hm, I);
+      for (int t = vb; t < nt; t += gridDim.x) {
+        const float v = gemv_tile(xa, xsum, w, s, z, I, H, t * TILE, red);
+        if (tid < TILE) {
+          const float y = h1[t * TILE + tid] + v;
+          hres[t * TILE + tid] = a.round_res ? bf16r(y) : y;
+        }
+      }
+    }
+    grid.sync();
+  }
+
+  for (int i = gtid; i < H; i += gsize) store_act(a.h_out, a.md, i, hres[i]);
+  if (a.vocab) {
+    // ---- final rmsnorm + W4 head -> f32 logits ----------------------------------
+    const int nt = a.vocab / TILE;
+    if (vb < nt) stage_rms(xa, xsum, hres, a.norm_w, a.md, H, a.eps, red);
+    for (int t = vb; t < nt; t += gridDim.x) {
+      const float v = gemv_tile(xa, xsum, a.hd_w, a.hd_s, a.hd_z, H, a.vocab, t * TILE, red);
+      if (tid < TILE) a.logits[t * TILE + tid] = v;
+    }
+  }
+}
+
+// Pointer and size arguments, in the order the wrapper passes them.
+enum { P_H, P_OUT, P_QW, P_QS, P_QZ, P_QB, P_OW, P_OS, P_OZ, P_GW, P_GS, P_GZ,
+       P_DW, P_DS, P_DZ, P_LN1, P_LN2, P_COS, P_SIN, P_CACHE, P_KN, P_VN,
+       P_HW, P_HS, P_HZ, P_NW, P_LOGITS };
+enum { N_L0, N_NL, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_LEN, N_VOCAB, N_ROUND,
+       N_MD, N_CD, N_BIAS };
+
+struct Plan { int grid, nsplit, split_len; size_t smem; long long ws; };
+
+template <typename CT>
+int plan_for(const int* n, Plan* p) {
+  const int H = n[N_H], I = n[N_I], nq = n[N_NQ], nkv = n[N_NKV];
+  const int maxic = H > I ? H : I;
+  const int xfloats = maxic / 2 + maxic / MK_G;        // xa + xsum
+  p->smem = (size_t)(MK_THREADS + (xfloats > ATT_FLOATS ? xfloats : ATT_FLOATS)) * sizeof(float);
+  const int err = coop_grid(token_kernel<CT>, p->smem, &p->grid, MAX_PER_SM);
+  if (err) return err;
+  // attention items: about one per block, at least 32 positions each
+  const int npos = n[N_LEN] + 1;
+  int ns = p->grid / nkv;
+  ns = ns < 1 ? 1 : ns;
+  const int most = (npos + 31) / 32;
+  ns = ns > most ? most : ns;
+  p->split_len = (npos + ns - 1) / ns;
+  p->nsplit = (npos + p->split_len - 1) / p->split_len;
+  const long long grp = nq / nkv;
+  p->ws = 2LL * H + (long long)(nq + 2 * nkv) * MK_HD + nkv * p->nsplit * grp * (2 + MK_HD) + 4
+          + (long long)nq * MK_HD + I;
+  return 0;
+}
+
+int plan(const int* n, Plan* p) {
+  switch (n[N_CD]) {
+    case 0: return plan_for<float>(n, p);
+    case 1: return plan_for<bf16>(n, p);
+    case 2: return plan_for<__half>(n, p);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// Workspace floats the launch with these arguments needs, or -(CUDA error).
+extern "C" long long awq_mega_token_ws(const void* const* ptrs, const int* n) {
+  (void)ptrs;
+  Plan p;
+  const int err = plan(n, &p);
+  return err ? -static_cast<long long>(err) : p.ws;
+}
+
+// Caller guarantees (ops/megakernel.py checks them): contiguous operands on
+// one device; W4 g128 stacked weights [L, IC/8, OC] with f32 scales and
+// szeros [L, IC/128, OC]; head_dim 128; nq/nkv <= 8; every OC a multiple of
+// 32; H and I multiples of 128; 0 <= length < T; batch 1.
+extern "C" int awq_mega_token(const void* const* ptrs, const int* n, float eps,
+                              void* ws, void* stream) {
+  Plan p;
+  int err = plan(n, &p);
+  if (err) return err;
+  if (n[N_NQ] % n[N_NKV] || n[N_NQ] / n[N_NKV] > MK_MAXG)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TokenArgs a;
+  a.h_in = ptrs[P_H]; a.h_out = const_cast<void*>(ptrs[P_OUT]);
+  a.qkv_w = static_cast<const int32_t*>(ptrs[P_QW]);
+  a.qkv_s = static_cast<const float*>(ptrs[P_QS]);
+  a.qkv_z = static_cast<const float*>(ptrs[P_QZ]); a.qkv_b = ptrs[P_QB];
+  a.o_w = static_cast<const int32_t*>(ptrs[P_OW]);
+  a.o_s = static_cast<const float*>(ptrs[P_OS]); a.o_z = static_cast<const float*>(ptrs[P_OZ]);
+  a.gu_w = static_cast<const int32_t*>(ptrs[P_GW]);
+  a.gu_s = static_cast<const float*>(ptrs[P_GS]); a.gu_z = static_cast<const float*>(ptrs[P_GZ]);
+  a.dn_w = static_cast<const int32_t*>(ptrs[P_DW]);
+  a.dn_s = static_cast<const float*>(ptrs[P_DS]); a.dn_z = static_cast<const float*>(ptrs[P_DZ]);
+  a.ln1 = ptrs[P_LN1]; a.ln2 = ptrs[P_LN2];
+  a.cosr = static_cast<const float*>(ptrs[P_COS]); a.sinr = static_cast<const float*>(ptrs[P_SIN]);
+  a.cache = const_cast<void*>(ptrs[P_CACHE]);
+  a.k_new = const_cast<void*>(ptrs[P_KN]); a.v_new = const_cast<void*>(ptrs[P_VN]);
+  a.hd_w = static_cast<const int32_t*>(ptrs[P_HW]);
+  a.hd_s = static_cast<const float*>(ptrs[P_HS]); a.hd_z = static_cast<const float*>(ptrs[P_HZ]);
+  a.norm_w = ptrs[P_NW]; a.logits = static_cast<float*>(const_cast<void*>(ptrs[P_LOGITS]));
+  a.ws = static_cast<float*>(ws);
+  a.layer0 = n[N_L0]; a.n_layers = n[N_NL]; a.L = n[N_L]; a.H = n[N_H]; a.I = n[N_I];
+  a.nq = n[N_NQ]; a.nkv = n[N_NKV]; a.T = n[N_T]; a.length = n[N_LEN];
+  a.vocab = n[N_VOCAB]; a.round_res = n[N_ROUND]; a.md = n[N_MD]; a.has_bias = n[N_BIAS];
+  a.nsplit = p.nsplit; a.split_len = p.split_len; a.eps = eps;
+  void* kargs[] = {&a};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (n[N_CD]) {
+    case 0: e = cudaLaunchCooperativeKernel((const void*)token_kernel<float>, p.grid,
+                                            MK_THREADS, kargs, p.smem, st); break;
+    case 1: e = cudaLaunchCooperativeKernel((const void*)token_kernel<bf16>, p.grid,
+                                            MK_THREADS, kargs, p.smem, st); break;
+    default: e = cudaLaunchCooperativeKernel((const void*)token_kernel<__half>, p.grid,
+                                             MK_THREADS, kargs, p.smem, st); break;
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}

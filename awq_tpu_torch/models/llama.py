@@ -7,13 +7,23 @@ cache is the preallocated ``[L, 2, B, n_kv, T, hd]`` tensor, and
 :func:`forward` WRITES IT IN PLACE (the JAX ``forward`` returned a new
 cache; this one returns the same tensor it was given).
 
-This slice runs the JAX package's stacked per-kernel path (its
-``AWQ_TPU_DISABLE_MEGAKERNEL=1`` configuration) for llama/mistral/qwen2:
-per layer RMSNorm -> fused QKV (K1) -> rope -> flash decode (K2, current
-token's k/v as operands, then a one-position in-place append) or in-place
-chunk append + flash prefill (K3) -> o-proj (K1) -> RMSNorm -> fused
-gate/up (K1) -> SiLU·mul -> down (K1). Other family features raise
-``NotImplementedError`` naming their ROADMAP item.
+:func:`forward` takes, for llama/mistral/qwen2, the JAX package's paths:
+
+- the megakernels, at batch 1 where :func:`~awq_tpu_torch.ops.megakernel.
+  megakernel_supported` holds (fused W4 g128 linears, head_dim 128, a
+  float cache on CUDA; ``AWQ_TPU_FORCE_MEGAKERNEL=1`` runs their plain
+  versions on the CPU, ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` turns them off):
+  a one-token step is ONE launch of K4 for every layer, plus the final
+  norm and the head when the head is a W4 ``QLinear``; a window of 2..32
+  tokens is one launch of K5. Both write the cache in place.
+- otherwise the stacked per-kernel path: per layer RMSNorm -> fused QKV
+  (K1) -> rope -> flash decode (K2, current token's k/v as operands, then
+  a one-position in-place append) or in-place chunk append + flash
+  prefill (K3) -> o-proj (K1) -> RMSNorm -> fused gate/up (K1) ->
+  SiLU·mul -> down (K1).
+
+Other family features raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ from awq_tpu_torch.models.layers import (
 )
 from awq_tpu_torch.ops.decode_attn import flash_decode, flash_decode_plain
 from awq_tpu_torch.ops.decode_attn import flash_prefill, flash_prefill_plain
+from awq_tpu_torch.ops import megakernel as mk
+from awq_tpu_torch.ops import megakernel_chunk as mkc
 from awq_tpu_torch.ops.w4a16 import (
     QLinear,
     qlinear_apply,
@@ -262,6 +274,38 @@ def _check_supported(cfg: ModelConfig) -> None:
             "prefill_a8 (W4A8 prefill) is ROADMAP queue A, item 16")
 
 
+_ROPE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _rope_cached(cfg: ModelConfig, t: int, dev: torch.device):
+    """The rope tables for ``t`` positions, built once per device and
+    geometry: a megakernel step then reads its rows as free views."""
+    key = (cfg.head_dim, cfg.rotary_pct, cfg.rope_theta, cfg.rope_scaling,
+           t, str(dev))
+    if key not in _ROPE:
+        _ROPE[key] = rope_table(cfg, t, device=dev)
+    return _ROPE[key]
+
+
+def _megakernel_forward(params, cfg, h, cache, start_pos, plain):
+    """The megakernel path: ``(h [1, S, H], logits or None)``."""
+    la = params["layers"]
+    s = h.shape[1]
+    cos, sin = _rope_cached(cfg, cache.shape[4], cache.device)
+    args = (la["wqkv"], la["wo"], la["wgateup"], la["down"], la["ln1"], la["ln2"])
+    kw = dict(nq=cfg.num_heads, nkv=cfg.num_kv_heads, eps=cfg.rms_eps)
+    if s == 1:
+        fn = mk.w4a16_llama_token_step_plain if plain else mk.w4a16_llama_token_step
+        if mk.head_in_kernel(params):
+            kw.update(whead=params["lm_head"], norm_w=params["norm"])
+        res = fn(h[0], *args, cos[start_pos], sin[start_pos], cache, start_pos, **kw)
+        return res[0][None], (res[3][:, None, :] if len(res) == 4 else None)
+    fn = mkc.w4a16_llama_chunk_step_plain if plain else mkc.w4a16_llama_chunk_step
+    res = fn(h[0], *args, cos[start_pos:start_pos + s], sin[start_pos:start_pos + s],
+             cache, start_pos, **kw)
+    return res[0][None], None
+
+
 def _head_logits(params: Params, h: torch.Tensor, impl: str) -> torch.Tensor:
     """Final-normed hidden states -> f32 logits (tied embedding, W4 head or
     fp matrix)."""
@@ -306,11 +350,38 @@ def forward(
     b, s = tokens.shape
     dt = _dtype(cfg)
     dev = cache.device
-    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     t_max = cache.shape[4]
     if start_pos + s > t_max:
         raise ValueError(f"chunk [{start_pos}, {start_pos + s}) exceeds the "
                          f"cache length {t_max}")
+    layers = params["layers"]
+    h = params["embed"][tokens.to(dev)].to(dt)
+    if b == 1 and ((s == 1 and mk.megakernel_supported(cfg, layers, cache)) or (
+            s > 1 and mkc.chunk_megakernel_supported(cfg, layers, cache, s))):
+        # the new k/v are written inside the kernel: no append here
+        h, logits = _megakernel_forward(params, cfg, h, cache, start_pos,
+                                        impl == "plain")
+        if logits is not None:
+            return logits, cache
+    else:
+        h = stacked_layers(params, cfg, h, cache, start_pos, impl)
+
+    if last_only:
+        h = h[:, -1:, :]
+    h = rms_norm(h, params["norm"], cfg.rms_eps)
+    return _head_logits(params, h, impl), cache
+
+
+def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
+                   cache: torch.Tensor, start_pos: int, impl: str = "auto",
+                   layer_ids=None) -> torch.Tensor:
+    """The stacked per-kernel path over ``h [B, S, H]`` for the layers
+    ``layer_ids`` (all by default): returns the new residual and writes
+    each layer's k/v into the cache in place."""
+    b, s = h.shape[:2]
+    dt = _dtype(cfg)
+    dev = cache.device
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     layers = params["layers"]
     plain = impl == "plain"
     decode = flash_decode_plain if plain else flash_decode
@@ -323,12 +394,11 @@ def forward(
         return linear_apply(Linear(w=p.w[idx],
                                    b=None if p.b is None else p.b[idx]), xx)
 
-    h = params["embed"][tokens.to(dev)].to(dt)
     cos, sin = rope_table(cfg, start_pos + s, device=dev)
     positions = torch.arange(start_pos, start_pos + s, device=dev)
     lengths = torch.full((b,), start_pos, dtype=torch.int32, device=dev)
 
-    for idx in range(cfg.num_layers):
+    for idx in (range(cfg.num_layers) if layer_ids is None else layer_ids):
         kv = cache[idx]                                  # [2, B, n_kv, T, hd] view
         x = rms_norm(h, layers["ln1"][idx], cfg.rms_eps)
         if "wqkv" in layers:
@@ -356,8 +426,4 @@ def forward(
             g, u = lin("gate", idx, xm), lin("up", idx, xm)
         hm = torch.nn.functional.silu(g.float()).to(dt) * u
         h = h + lin("down", idx, hm)
-
-    if last_only:
-        h = h[:, -1:, :]
-    h = rms_norm(h, params["norm"], cfg.rms_eps)
-    return _head_logits(params, h, impl), cache
+    return h

@@ -1,0 +1,374 @@
+"""Whole-token and whole-layer W4A16 decode megakernels (PyTorch port of
+``awq_tpu/ops/megakernel.py``).
+
+:func:`w4a16_llama_token_step` runs ALL decoder layers of a llama-family
+model for one token, plus (optionally) the final RMSNorm and the W4 head,
+in ONE launch of kernel K4 (``csrc/megakernel.cu``). Per layer: RMSNorm ->
+fused QKV (+ bias) -> rope -> GQA attention over the cache prefix
+``[0, length)`` plus the current token -> o-proj + residual -> RMSNorm ->
+gate/up -> SiLU·mul -> down + residual. :func:`w4a16_llama_layer_step` is
+the same kernel over one layer ``[l, l+1)``.
+
+The arithmetic follows the JAX kernel's (``_token_kernel``, ``unpack=
+"pscratch3"``), rounding points included:
+
+- every matmul consumes ``bf16(x)``: per output column and group ``g``,
+  ``s_g * sum(bf16(x) * q) - sz_g * sum(bf16(x))`` with f32 sums;
+- norms, rope, softmax, SiLU and the residual run in f32; the current
+  token's k/v stay f32 for its own attention;
+- the residual is rounded to bf16 between layers only (token step).
+
+Unlike JAX, the new k/v are written into the cache IN PLACE at position
+``length`` of each layer (by the kernel; by the plain version on the
+CPU); the functions still return them, as JAX does, in the cache dtype.
+
+Each function has a plain PyTorch version (``*_plain``): the CPU path and
+the reference the kernel is held to on the card. The wrappers run the
+plain version for CPU tensors and launch K4 for CUDA tensors, or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import os
+from typing import Optional
+
+import torch
+
+from awq_tpu_torch.ops.w4a16 import QLinear
+from awq_tpu_torch.quant.packing import unpack_int4
+
+#: Launches of K4's two entries, counted where the wrappers launch them.
+LAUNCHES = {"megakernel_token": 0, "megakernel_layer": 0}
+
+GROUP = 128        # the group size the kernels are built for
+HEAD_DIM = 128     # the head_dim the kernels are built for
+MAX_GROUP = 8      # most q heads per kv head K4 takes (MK_MAXG)
+CACHE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+# ---- gates -------------------------------------------------------------------
+
+def _env(name: str) -> bool:
+    return os.environ.get(name) == "1"
+
+
+def megakernel_supported(cfg, layers, cache) -> bool:
+    """Whether ``forward`` takes the megakernels for this model and cache.
+
+    Mirrors the JAX gates (``megakernel_supported`` and ``forward``'s
+    conditions at ``models/llama.py:688-697``) with the TPU-only ones
+    dropped: the folded/tiled layout, ``T % 256`` and the VMEM budget are
+    facts of Mosaic's tiling and of a 16 MB VMEM; K4 reads ``pack_int4``
+    as stored and keeps its activations in device memory. What K4 needs
+    instead: the llama shape, head_dim 128, at most 8 q heads per kv head,
+    W4 with group 128 on the four fused stacked linears, a bias on
+    ``wqkv`` only, a float cache of batch 1 on CUDA
+    (``AWQ_TPU_FORCE_MEGAKERNEL=1`` lets the plain version run on the CPU,
+    the JAX test hook); ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` turns it off. int8 caches (ROADMAP A10), W3 (A13) and the MPT shape (A12)
+    are not ported and take the stacked path.
+    """
+    if _env("AWQ_TPU_DISABLE_MEGAKERNEL"):
+        return False
+    if not isinstance(cache, torch.Tensor) or cache.dtype not in CACHE_DTYPES:
+        return False
+    if not (cache.is_cuda or _env("AWQ_TPU_FORCE_MEGAKERNEL")):
+        return False
+    if cache.dim() != 6 or cache.shape[2] != 1:
+        return False
+    if (cfg.head_dim != HEAD_DIM or cfg.act != "silu" or cfg.norm != "rmsnorm"
+            or cfg.pos_embed != "rope" or cfg.parallel_block
+            or cfg.rotary_pct != 1.0
+            or cfg.num_heads % cfg.num_kv_heads
+            or cfg.num_heads // cfg.num_kv_heads > MAX_GROUP):
+        return False
+    if cfg.hidden_size % GROUP or cfg.intermediate_size % GROUP:
+        return False
+    for name in ("wqkv", "wo", "wgateup", "down"):
+        p = layers.get(name)
+        if not isinstance(p, QLinear) or p.qweight.dim() != 3:
+            return False
+        if p.w_bit != 4 or p.group_size != GROUP:
+            return False
+        if p.bias is not None and name != "wqkv":
+            return False
+    return True
+
+
+def head_in_kernel(params) -> bool:
+    """The final norm and head run as K4's last phase when the head is a
+    2-D W4 g128 :class:`QLinear` without bias (``quantize_head``) whose
+    vocabulary is a whole number of K4's 32-column tiles."""
+    head = params.get("lm_head")
+    return (isinstance(head, QLinear) and head.qweight.dim() == 2
+            and head.bias is None and head.w_bit == 4
+            and head.group_size == GROUP and head.out_features % 32 == 0)
+
+
+# ---- plain versions ------------------------------------------------------------
+
+def qdot_plain(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+               szeros: torch.Tensor) -> torch.Tensor:
+    """``x [M, IC]`` f32 -> ``[M, OC]`` f32 as the megakernels compute it:
+    per group ``s * sum(bf16(x) * q) - sz * sum(bf16(x))``, f32 sums."""
+    m, ic = x.shape
+    ng = ic // GROUP
+    xb = x.to(torch.bfloat16).float().reshape(m, ng, GROUP).transpose(0, 1)
+    q = unpack_int4(qweight, out_dtype=torch.float32).reshape(ng, GROUP, -1)
+    dot = torch.bmm(xb, q)                              # [ng, M, OC]
+    xsum = xb.sum(dim=-1, keepdim=True)                 # [ng, M, 1]
+    return (dot * scales.float()[:, None, :]
+            - xsum * szeros.float()[:, None, :]).sum(dim=0)
+
+
+def rms_rows(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Row-wise RMSNorm in f32 (``_rms_rows``): ``[M, H]``."""
+    ms = torch.mean(x * x, dim=-1, keepdim=True)
+    return x * torch.rsqrt(ms + eps) * w.float()
+
+
+def rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """HF rotate-half rope of ``x [..., hd]`` in f32."""
+    half = x.shape[-1] // 2
+    rot = torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+    return x * cos + rot * sin
+
+
+def _lin(ql: QLinear, l: int, x: torch.Tensor) -> torch.Tensor:
+    return qdot_plain(x, ql.qweight[l], ql.scales[l], ql.szeros[l])
+
+
+def _layer_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
+                 l, length, nq, nkv, eps):
+    """One layer on the f32 residual ``h [1, H]``; writes the cache at
+    ``length`` and returns ``(h_new f32 [1, H], k, v f32 [nkv, hd])``."""
+    hd = HEAD_DIM
+    grp = nq // nkv
+    x = rms_rows(h, ln1[l], eps)
+    qkv = _lin(wqkv, l, x)[0]
+    if wqkv.bias is not None:
+        qkv = qkv + wqkv.bias[l].float()
+    cos, sin = cos_row.float(), sin_row.float()
+    q = rope_rows(qkv[:nq * hd].reshape(nq, hd), cos, sin)
+    k = rope_rows(qkv[nq * hd:(nq + nkv) * hd].reshape(nkv, hd), cos, sin)
+    v = qkv[(nq + nkv) * hd:].reshape(nkv, hd)
+    qs = (q * (1.0 / math.sqrt(hd))).reshape(nkv, grp, hd)
+    keys = torch.cat([cache[l, 0, 0, :, :length].float(), k[:, None]], dim=1)
+    vals = torch.cat([cache[l, 1, 0, :, :length].float(), v[:, None]], dim=1)
+    p = torch.softmax(torch.einsum("kgh,kth->kgt", qs, keys), dim=-1)
+    attn = torch.einsum("kgt,kth->kgh", p, vals).reshape(1, nq * hd)
+    cache[l, 0, 0, :, length] = k.to(cache.dtype)
+    cache[l, 1, 0, :, length] = v.to(cache.dtype)
+    h1 = h + _lin(wo, l, attn)
+    gu = _lin(wgu, l, rms_rows(h1, ln2[l], eps))
+    gate, up = gu.chunk(2, dim=-1)
+    hm = gate * torch.sigmoid(gate) * up
+    return h1 + _lin(wdn, l, hm), k, v
+
+
+def w4a16_llama_layer_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
+                                 sin_row, cache, layer_idx, length, nq, nkv,
+                                 eps=1e-5):
+    """Plain version of K4's layer entry: ``(h_new [1, H] in h.dtype,
+    k_new, v_new [1, nkv, hd] in the cache dtype)``; writes the cache."""
+    hn, k, v = _layer_plain(h.float(), wqkv, wo, wgu, wdn, ln1, ln2,
+                            cos_row, sin_row, cache, int(layer_idx),
+                            int(length), nq, nkv, eps)
+    return (hn.to(h.dtype), k[None].to(cache.dtype), v[None].to(cache.dtype))
+
+
+def w4a16_llama_token_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
+                                 sin_row, cache, length, nq, nkv, eps=1e-5,
+                                 whead: Optional[QLinear] = None,
+                                 norm_w: Optional[torch.Tensor] = None):
+    """Plain version of K4's token entry: ``(h_new [1, H], k_new, v_new
+    [L, nkv, hd])`` plus ``logits [1, V]`` f32 with a head; writes the
+    cache at ``length`` in every layer."""
+    hh = h.float()
+    ks, vs = [], []
+    for l in range(cache.shape[0]):
+        hn, k, v = _layer_plain(hh, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
+                                sin_row, cache, l, int(length), nq, nkv, eps)
+        hh = hn.to(torch.bfloat16).float()   # bf16 between layers
+        ks.append(k)
+        vs.append(v)
+    out = (hh.to(h.dtype), torch.stack(ks).to(cache.dtype),
+           torch.stack(vs).to(cache.dtype))
+    if whead is None:
+        return out
+    xf = rms_rows(hh, norm_w, eps)
+    return out + (qdot_plain(xf, whead.qweight, whead.scales, whead.szeros),)
+
+
+# ---- the wrappers ----------------------------------------------------------------
+
+def _fail(what: str, msg: str):
+    raise ValueError(f"{what}: {msg}")
+
+
+def check_operands(what, h, lins, ln1, ln2, cache, nq, nkv, rows):
+    """Shared checks of K4 and K5: what the kernels take."""
+    if cache.dtype not in CACHE_DTYPES:
+        raise NotImplementedError(
+            f"{what}: cache dtype {cache.dtype}; int8 KV is ROADMAP queue A, "
+            "item 10")
+    L, hd = cache.shape[0], cache.shape[-1]
+    H = h.shape[-1]
+    if hd != HEAD_DIM or cache.dim() != 6 or cache.shape[2] != 1 \
+            or cache.shape[3] != nkv:
+        _fail(what, f"cache must be [L, 2, 1, {nkv}, T, {HEAD_DIM}], got "
+              f"{tuple(cache.shape)}")
+    if nq % nkv or nq * hd != H or H % GROUP:
+        _fail(what, f"nq={nq}, nkv={nkv} do not fit H={H}")
+    if h.dtype not in _DTYPE_CODE or tuple(h.shape) != (rows, H):
+        _fail(what, f"h must be float [{rows}, {H}], got {h.dtype} "
+              f"{tuple(h.shape)}")
+    wqkv, wo, wgu, wdn = lins
+    inter = wgu.out_features // 2
+    shapes = {"wqkv": (wqkv, H, (nq + 2 * nkv) * hd), "wo": (wo, H, H),
+              "wgateup": (wgu, H, 2 * inter), "down": (wdn, inter, H)}
+    for name, (p, ic, oc) in shapes.items():
+        if p.w_bit != 4:
+            raise NotImplementedError(f"{what}: {name} w_bit={p.w_bit}; W3 is "
+                                      "ROADMAP queue A, item 13")
+        if p.group_size != GROUP or tuple(p.qweight.shape) != (L, ic // 8, oc):
+            _fail(what, f"{name} must be W4 g{GROUP} [{L}, {ic // 8}, {oc}]")
+        if p.bias is not None and name != "wqkv":
+            _fail(what, f"{name} has a bias; only wqkv may")
+        if oc % 32 or inter % GROUP:
+            _fail(what, f"{name}: OC={oc} must be a multiple of 32")
+    for t in (ln1, ln2):
+        if tuple(t.shape) != (L, H) or t.dtype != h.dtype:
+            _fail(what, f"norm weights must be {h.dtype} [{L}, {H}]")
+    return L, H, inter
+
+
+def qlinear_ptrs(p: QLinear, dev):
+    for t in (p.qweight, p.scales, p.szeros):
+        if t.device != dev or not t.is_contiguous():
+            _fail("megakernel", "weights must be contiguous on the cache's device")
+    if p.qweight.dtype != torch.int32 or p.scales.dtype != torch.float32 \
+            or p.szeros.dtype != torch.float32:
+        _fail("megakernel", "codes must be int32 and scales/szeros float32")
+    return [p.qweight.data_ptr(), p.scales.data_ptr(), p.szeros.data_ptr()]
+
+
+def check_small(what, dev, dtype, **tensors):
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != dev or not t.is_contiguous():
+            _fail(what, f"{name} must be contiguous on {dev}")
+        if dtype is not None and t.dtype != dtype:
+            _fail(what, f"{name} must be {dtype}, got {t.dtype}")
+
+
+def launch(entry: str, what: str, ptrs, ints, eps: float, dev) -> None:
+    """Call a megakernel C entry: ``entry(ptrs, ints, eps, ws, stream)``.
+    The workspace it needs comes from ``<entry>_ws`` (same arguments)."""
+    from awq_tpu_torch import _build
+
+    lib = _build.load(what)
+    P = ctypes.c_void_p * len(ptrs)
+    N = ctypes.c_int * len(ints)
+    cptrs, cints = P(*ptrs), N(*ints)
+    wsf = getattr(lib, entry + "_ws")
+    _build.declare(wsf, _build.P, _build.P)
+    wsf.restype = ctypes.c_longlong
+    n = wsf(ctypes.cast(cptrs, ctypes.c_void_p), ctypes.cast(cints, ctypes.c_void_p))
+    if n < 0:
+        _build.check(lib, int(-n), what)
+    ws = torch.empty((max(int(n), 1),), dtype=torch.float32, device=dev)
+    fn = getattr(lib, entry)
+    _build.declare(fn, _build.P, _build.P, _build.F, _build.P, _build.P)
+    err = fn(ctypes.cast(cptrs, ctypes.c_void_p), ctypes.cast(cints, ctypes.c_void_p),
+             eps, ws.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, what)
+
+
+def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
+                  sin_row, cache, layer0, n_layers, length, nq, nkv, eps,
+                  whead=None, norm_w=None, round_residual=True):
+    dev = cache.device
+    if not cache.is_cuda:
+        _fail(what, f"unsupported device {dev}")
+    L, H, inter = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
+                                 cache, nq, nkv, 1)
+    T = cache.shape[4]
+    if not 0 <= length < T:
+        _fail(what, f"length {length} must lie in [0, {T})")
+    if layer0 < 0 or layer0 + n_layers > L:
+        _fail(what, f"layers [{layer0}, {layer0 + n_layers}) outside [0, {L})")
+    check_small(what, dev, None, h=h, ln1=ln1, ln2=ln2, cache=cache)
+    check_small(what, dev, torch.float32, cos_row=cos_row, sin_row=sin_row)
+    if cos_row.numel() != HEAD_DIM or sin_row.numel() != HEAD_DIM:
+        _fail(what, f"cos/sin rows must hold {HEAD_DIM} values")
+    bias = wqkv.bias
+    check_small(what, dev, h.dtype, bias=bias, norm_w=norm_w)
+    vocab = 0
+    head = [0, 0, 0, 0]
+    logits = None
+    if whead is not None:
+        if not head_in_kernel({"lm_head": whead}) or whead.in_features != H:
+            _fail(what, "the head must be a 2-D W4 g128 QLinear [H/8, V] "
+                  "without bias")
+        vocab = whead.out_features
+        if vocab % 32:
+            _fail(what, f"vocab {vocab} must be a multiple of 32")
+        head = qlinear_ptrs(whead, dev) + [norm_w.data_ptr()]
+        logits = torch.empty((1, vocab), dtype=torch.float32, device=dev)
+    out = torch.empty_like(h)
+    k_new = torch.empty((n_layers, nkv, HEAD_DIM), dtype=cache.dtype, device=dev)
+    v_new = torch.empty_like(k_new)
+    ptrs = (
+        [h.data_ptr(), out.data_ptr()]
+        + qlinear_ptrs(wqkv, dev) + [bias.data_ptr() if bias is not None else 0]
+        + qlinear_ptrs(wo, dev) + qlinear_ptrs(wgu, dev) + qlinear_ptrs(wdn, dev)
+        + [ln1.data_ptr(), ln2.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(),
+           cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr()]
+        + head + [logits.data_ptr() if logits is not None else 0])
+    ints = [layer0, n_layers, L, H, inter, nq, nkv, T, length, vocab,
+            int(round_residual), _DTYPE_CODE[h.dtype], _DTYPE_CODE[cache.dtype],
+            int(bias is not None)]
+    launch("awq_mega_token", "megakernel", ptrs, ints, eps, dev)
+    LAUNCHES[counter] += 1
+    res = (out, k_new, v_new)
+    return res + ((logits,) if logits is not None else ())
+
+
+def w4a16_llama_layer_step(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row,
+                           cache, layer_idx, length, nq, nkv, eps=1e-5):
+    """One decoder layer for one token (K4 over ``[l, l+1)``).
+
+    ``h [1, H]`` residual, the four stacked W4 linears, ``ln1``/``ln2
+    [L, H]``, the rope rows ``[hd]`` f32 at position ``length``, ``cache
+    [L, 2, 1, nkv, T, hd]`` (written at ``length`` of layer ``l``).
+    Returns ``(h_new [1, H], k_new [1, nkv, hd], v_new)``."""
+    if cache.device.type == "cpu":
+        return w4a16_llama_layer_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2,
+                                            cos_row, sin_row, cache, layer_idx,
+                                            length, nq, nkv, eps)
+    return _token_launch("megakernel_layer", "megakernel_layer", h, wqkv, wo,
+                         wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
+                         int(layer_idx), 1, int(length), nq, nkv, eps,
+                         round_residual=False)
+
+
+def w4a16_llama_token_step(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row,
+                           cache, length, nq, nkv, eps=1e-5,
+                           whead: Optional[QLinear] = None,
+                           norm_w: Optional[torch.Tensor] = None):
+    """All decoder layers for one token in one launch of K4; with
+    ``whead``/``norm_w`` also the final RMSNorm and the W4 head. Returns
+    ``(h_new [1, H], k_new [L, nkv, hd], v_new)`` (+ ``logits [1, V]``
+    f32); the cache is written at ``length`` in every layer."""
+    if cache.device.type == "cpu":
+        return w4a16_llama_token_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2,
+                                            cos_row, sin_row, cache, length,
+                                            nq, nkv, eps, whead, norm_w)
+    return _token_launch("megakernel_token", "megakernel_token", h, wqkv, wo,
+                         wgu, wdn, ln1, ln2, cos_row, sin_row, cache, 0,
+                         cache.shape[0], int(length), nq, nkv, eps,
+                         whead=whead, norm_w=norm_w)

@@ -1,0 +1,148 @@
+"""Chunked-prefill megakernel (PyTorch port of
+``awq_tpu/ops/megakernel_chunk.py``).
+
+:func:`w4a16_llama_chunk_step` runs ALL decoder layers for a window of
+``s`` tokens (1..``CHUNK_S``) of one sequence at ``[hist, hist + s)`` in
+ONE launch of kernel K5 (``csrc/megakernel_chunk.cu``): the multi-round
+chat prefill. Window row ``i`` attends to the cache ``[0, hist)`` and to
+window rows ``0..i``, causally.
+
+The arithmetic follows the JAX kernel's (``_cchunk_kernel``), rounding
+points included: every matmul consumes ``bf16(x)`` with per-group scale
+and szero corrections in f32; the QKV and gate/up outputs are rounded to
+bf16 (the JAX kernel's bf16 scratch), the QKV bias is added after that
+rounding; ``hm = bf16(silu(gate) * up)``; the residual is f32 within a
+layer and rounded to bf16 between layers. The window's own k/v enter its
+attention in f32, as JAX's in-register causal tail does.
+
+JAX pads the window to ``CHUNK_S`` rows and lets the caller append the
+first ``s`` k/v rows. Here there is no padding: the kernel (or the plain
+version on the CPU) writes the window's k/v into the cache IN PLACE at
+``[hist, hist + s)``, and returns them too, in the cache dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from awq_tpu_torch.ops.megakernel import (
+    HEAD_DIM,
+    _DTYPE_CODE,
+    _fail,
+    check_operands,
+    check_small,
+    launch,
+    megakernel_supported,
+    qdot_plain,
+    qlinear_ptrs,
+    rms_rows,
+    rope_rows,
+)
+
+#: Launches of K5, counted where the wrapper launches it.
+LAUNCHES = {"megakernel_chunk": 0}
+
+CHUNK_S = 32      # most window rows per launch, as in the JAX kernel
+
+
+def chunk_megakernel_supported(cfg, layers, cache, s: int) -> bool:
+    """A window of 1..``CHUNK_S`` tokens under the single-token gate
+    (:func:`~awq_tpu_torch.ops.megakernel.megakernel_supported`); the
+    JAX gate's VMEM budget for 32 activation rows is a TPU fact."""
+    return 0 < s <= CHUNK_S and megakernel_supported(cfg, layers, cache)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def w4a16_llama_chunk_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_rows,
+                                 sin_rows, cache, hist, nq, nkv, eps=1e-5):
+    """Plain version of K5: ``(h_new [s, H] in h.dtype, k_new, v_new
+    [L, nkv, s, hd] in the cache dtype)``; writes the cache."""
+    hd = HEAD_DIM
+    s = h.shape[0]
+    grp = nq // nkv
+    hist = int(hist)
+    cos, sin = cos_rows.float()[:, None, :], sin_rows.float()[:, None, :]
+    causal = torch.arange(s)[None, :] <= torch.arange(s)[:, None]     # [i, j]
+    mask = torch.cat([torch.ones((s, hist), dtype=torch.bool), causal], dim=1)
+    mask = mask.to(cache.device)
+    hh = h.float()
+    ks, vs = [], []
+    for l in range(cache.shape[0]):
+        qkv = _bf16(qdot_plain(rms_rows(hh, ln1[l], eps), wqkv.qweight[l],
+                               wqkv.scales[l], wqkv.szeros[l]))
+        if wqkv.bias is not None:
+            qkv = qkv + wqkv.bias[l].float()
+        q = rope_rows(qkv[:, :nq * hd].reshape(s, nq, hd), cos, sin)
+        k = rope_rows(qkv[:, nq * hd:(nq + nkv) * hd].reshape(s, nkv, hd), cos, sin)
+        v = qkv[:, (nq + nkv) * hd:].reshape(s, nkv, hd)
+        keys = torch.cat([cache[l, 0, 0, :, :hist].float(), k.transpose(0, 1)], dim=1)
+        vals = torch.cat([cache[l, 1, 0, :, :hist].float(), v.transpose(0, 1)], dim=1)
+        qs = (q * (1.0 / math.sqrt(hd))).reshape(s, nkv, grp, hd)
+        sc = torch.einsum("ikgh,kth->kgit", qs, keys)
+        sc = sc.masked_fill(~mask, float("-inf"))
+        attn = torch.einsum("kgit,kth->ikgh", torch.softmax(sc, dim=-1), vals)
+        cache[l, 0, 0, :, hist:hist + s] = k.transpose(0, 1).to(cache.dtype)
+        cache[l, 1, 0, :, hist:hist + s] = v.transpose(0, 1).to(cache.dtype)
+        h1 = hh + qdot_plain(attn.reshape(s, nq * hd), wo.qweight[l],
+                             wo.scales[l], wo.szeros[l])
+        gu = _bf16(qdot_plain(rms_rows(h1, ln2[l], eps), wgu.qweight[l],
+                              wgu.scales[l], wgu.szeros[l]))
+        gate, up = gu.chunk(2, dim=-1)
+        hm = _bf16(gate * torch.sigmoid(gate) * up)
+        hh = _bf16(h1 + qdot_plain(hm, wdn.qweight[l], wdn.scales[l],
+                                   wdn.szeros[l]))
+        ks.append(k.transpose(0, 1))
+        vs.append(v.transpose(0, 1))
+    return (hh.to(h.dtype), torch.stack(ks).to(cache.dtype),
+            torch.stack(vs).to(cache.dtype))
+
+
+def w4a16_llama_chunk_step(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_rows,
+                           sin_rows, cache, hist, nq, nkv, eps=1e-5):
+    """All decoder layers for the window ``h [s, H]`` at ``[hist, hist+s)``
+    in one launch of K5. ``cos_rows``/``sin_rows [s, hd]`` f32 are the
+    rope rows of the window's positions. Returns ``(h_new [s, H], k_new,
+    v_new [L, nkv, s, hd])``; the cache is written at ``[hist, hist+s)``.
+    The caller runs the final norm and head on the rows it needs."""
+    if cache.device.type == "cpu":
+        return w4a16_llama_chunk_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2,
+                                            cos_rows, sin_rows, cache, hist,
+                                            nq, nkv, eps)
+    what = "megakernel_chunk"
+    dev = cache.device
+    if not cache.is_cuda:
+        _fail(what, f"unsupported device {dev}")
+    s = h.shape[0]
+    if not 0 < s <= CHUNK_S:
+        _fail(what, f"window of {s} rows; the kernel takes 1..{CHUNK_S}")
+    L, H, inter = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
+                                 cache, nq, nkv, s)
+    T = cache.shape[4]
+    hist = int(hist)
+    if hist < 0 or hist + s > T:
+        _fail(what, f"window [{hist}, {hist + s}) outside the cache (T={T})")
+    check_small(what, dev, None, h=h, ln1=ln1, ln2=ln2, cache=cache)
+    check_small(what, dev, torch.float32, cos_rows=cos_rows, sin_rows=sin_rows)
+    if tuple(cos_rows.shape) != (s, HEAD_DIM) or tuple(sin_rows.shape) != (s, HEAD_DIM):
+        _fail(what, f"cos/sin rows must be [{s}, {HEAD_DIM}]")
+    bias = wqkv.bias
+    check_small(what, dev, h.dtype, bias=bias)
+    out = torch.empty_like(h)
+    k_new = torch.empty((L, nkv, s, HEAD_DIM), dtype=cache.dtype, device=dev)
+    v_new = torch.empty_like(k_new)
+    ptrs = ([h.data_ptr(), out.data_ptr()]
+            + qlinear_ptrs(wqkv, dev) + [bias.data_ptr() if bias is not None else 0]
+            + qlinear_ptrs(wo, dev) + qlinear_ptrs(wgu, dev) + qlinear_ptrs(wdn, dev)
+            + [ln1.data_ptr(), ln2.data_ptr(), cos_rows.data_ptr(),
+               sin_rows.data_ptr(), cache.data_ptr(), k_new.data_ptr(),
+               v_new.data_ptr()])
+    ints = [s, L, H, inter, nq, nkv, T, hist, _DTYPE_CODE[h.dtype],
+            _DTYPE_CODE[cache.dtype], int(bias is not None)]
+    launch("awq_mega_chunk", "megakernel_chunk", ptrs, ints, eps, dev)
+    LAUNCHES["megakernel_chunk"] += 1
+    return out, k_new, v_new

@@ -2,7 +2,9 @@
 
 Owns the parameters (fused QKV and gate/up) and the KV cache on one
 device, and keeps the ``start_pos`` bookkeeping across dialogue rounds so
-that a round prefills only its new tokens and reuses the history's KV.
+that a round prefills only its new tokens and reuses the history's KV. A
+round's last id that was never fed is carried into the next round's
+prompt, so that no round attends over an unwritten cache slot.
 """
 
 from __future__ import annotations
@@ -51,11 +53,13 @@ class InferenceEngine:
         self.cache = init_kv_cache(cfg, self.rt.max_batch_size, t, cache_dtype,
                                    device=self.device)
         self.start_pos = 0
+        self._pending = []      # an id returned but not yet fed (see generate)
 
     # ---- conversation state (history KV reused across rounds) ----
 
     def reset(self):
         self.start_pos = 0
+        self._pending = []
         self.cache.zero_()
 
     @property
@@ -82,19 +86,30 @@ class InferenceEngine:
         continue_dialogue: bool = True,
     ) -> Dict[str, Any]:
         """One dialogue round: prefill only the new tokens (history KV is
-        reused via ``start_pos``), then decode."""
-        tokens = torch.tensor([list(prompt_ids)], dtype=torch.long,
-                              device=self.device)
-        if self.start_pos + tokens.shape[1] + gen.max_new_tokens > self.max_seq_len:
+        reused via ``start_pos``), then decode.
+
+        When the round's last id was never fed (it is the final decode
+        step's output: the round ran out of steps, or stopped on its very
+        last one), its KV slot is unwritten. With ``continue_dialogue``,
+        ``start_pos`` then stops at that id's position and the id stays
+        pending: the next round prepends it to its prompt, so its KV is
+        written before the history is attended."""
+        ids = self._pending + list(prompt_ids)
+        if self.start_pos + len(ids) + gen.max_new_tokens > self.max_seq_len:
             self.reset()  # simplistic eviction; the paged cache lands later
+            ids = list(prompt_ids)
+        tokens = torch.tensor([ids], dtype=torch.long, device=self.device)
         out = generate(self.params, self.cfg, tokens, self.cache, gen,
                        stop_ids=stop_ids, start_pos=self.start_pos,
                        generator=generator)
         self.cache = out["cache"]
         n_new = int(out["n_valid"][0])
+        ids_out = out["output_ids"][0, :n_new]
         if continue_dialogue:
-            self.start_pos += tokens.shape[1] + n_new
-        out["output_ids"] = out["output_ids"][0, :n_new]
+            unfed = n_new == out["output_ids"].shape[1]
+            self.start_pos += len(ids) + n_new - int(unfed)
+            self._pending = [int(ids_out[-1])] if unfed else []
+        out["output_ids"] = ids_out
         return out
 
     def generate_speculative(self, *args, **kwargs):

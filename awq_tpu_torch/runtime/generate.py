@@ -45,9 +45,10 @@ def generate(
     has stopped keeps feeding its stop token, so the stop token's KV is
     written; once every row has stopped and that position is written, the
     loop ends and the remaining ids repeat the stop token, as the JAX
-    scan's would. Without a stop, the last id returned is never fed and
-    its KV slot stays unwritten, a fault of the reference kept for parity
-    (ROADMAP.md, section C)."""
+    scan's would. The id at the last index ``N - 1`` is never fed, so its
+    KV slot is not written: a caller that continues the sequence feeds it
+    first (``InferenceEngine.generate`` keeps it pending for the next
+    round)."""
     dev = cache.device
     b, s = tokens.shape
     vocab = cfg.vocab_size

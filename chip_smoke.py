@@ -9,14 +9,22 @@ Phases (each failure ends the run with a non-zero exit):
    ``awq_tpu_torch/csrc`` with nvcc (one process per source, in parallel).
 2. Hold every kernel against its plain PyTorch version on the card, at the
    shapes the Llama-3-8B main path gives it, with the tolerance stated;
-   time the kernel, the plain version and one PyTorch library call, beside
-   the least time the card could take (``bound_ms``).
-3. Serve three requests (prompts of 16, 200 and 1000 random ids, 32 greedy
-   new tokens each, the second continuing the first's dialogue) through
-   ``InferenceEngine`` on a random W4A16-g128 model of Llama-3-8B's widths,
-   with a W4 head; every kernel's launch count must grow in this phase.
+   time the kernel, the plain version and one PyTorch library call (for
+   the megakernels, which no single PyTorch call computes: the stacked
+   per-kernel path's device time for the same step), beside the least
+   time the card could take (``bound_ms``).
+3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
+   new tokens each, the second continuing the first's dialogue, then a
+   24-token follow-up continuing the third's) through ``InferenceEngine``
+   on a random W4A16-g128 model of Llama-3-8B's widths with a W4 head,
+   twice: on the megakernels (the default) and with
+   ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` (the stacked per-kernel path). The
+   launch counts are set to 0 before each and read after it: K4 and K5
+   must grow in the first, K1-K3 in the second.
 4. At the same widths and 2 layers, feed the same tokens through
-   ``forward`` on the kernel path and on the plain path and compare logits.
+   ``forward`` on the kernel path and on the plain path and compare
+   logits: a 100-token prefill and 8 decodes on the stacked path, a
+   20-token chunk prefill and 8 decodes on the megakernels.
 5. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, where CUDA is not available or the
@@ -27,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -211,11 +220,149 @@ def phase_kernels(torch, timer, cases_out):
 
 
 def log_case(c):
-    log(f"  {c['name']:13s} {c['shape']:34s} max_abs_err={c['max_abs_err']:.3e} "
+    lib = ("library_ms=none" if c["library_ms"] is None
+           else f"library_ms={c['library_ms']:.4f}")
+    if "yardstick_ms" in c:
+        lib += f" stacked_path_ms={c['yardstick_ms']:.4f}"
+    log(f"  {c['name']:16s} {c['shape']:34s} max_abs_err={c['max_abs_err']:.3e} "
         f"max_rel_err={c['max_rel_err']:.3e} (tol {c['tol']}) "
         f"kernel_ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
-        f"library_ms={c['library_ms']:.4f} bound_ms={c['bound_ms']:.4f} "
-        f"({c['bound_by']})")
+        f"{lib} bound_ms={c['bound_ms']:.4f} ({c['bound_by']})")
+
+
+def device_ms(torch, fn, reps: int = 2) -> float:
+    """Device time of one call: the sum of its kernels' durations in a
+    torch.profiler trace, over ``reps`` calls after a warm one, no L2 flush.
+    For the stacked path, whose ~1700 launches per token overflow the
+    launch queue while the host enqueues them, so that CUDA events around
+    it would time the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3
+
+
+def qlinear_bytes(ql, layer=None) -> int:
+    """Bytes of one layer of a stacked QLinear (or all of a 2-D one)."""
+    ts = [ql.qweight, ql.scales, ql.szeros] + ([ql.bias] if ql.bias is not None else [])
+    n = sum(t.numel() * t.element_size() for t in ts)
+    return n // ql.qweight.shape[0] if layer is not None else n
+
+
+def phase_megakernels(torch, timer, cases_out):
+    """Phase 2, continued: K4 (layer and token entries) and K5 against their
+    plain versions at Llama-3-8B width; the yardstick is the stacked
+    per-kernel path's device time for the same step."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig
+    from awq_tpu_torch.models import llama
+    from awq_tpu_torch.ops import megakernel as mk
+    from awq_tpu_torch.ops import megakernel_chunk as mkc
+    from awq_tpu_torch.ops.w4a16 import QLinear
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    cfg = ModelConfig(**LLAMA3_8B)
+    h_dim, nq, nkv, hd, L = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.head_dim, cfg.num_layers)
+    params = llama.fuse_linears(llama.init_qparams(cfg, QuantConfig(w_bit=4, group_size=G),
+                                                   gen), cfg)
+    vocab = cfg.vocab_size
+    s_head = (torch.rand((h_dim // G, vocab), generator=gen, device=dev) + 0.5) * 0.005
+    params["lm_head"] = QLinear(
+        qweight=torch.randint(-(2**31), 2**31 - 1, (h_dim // 8, vocab), generator=gen,
+                              dtype=torch.int32, device=dev),
+        scales=s_head, szeros=s_head * 8)
+    la = params["layers"]
+    lins = (la["wqkv"], la["wo"], la["wgateup"], la["down"])
+    args = lins + (la["ln1"], la["ln2"])
+    t_cache = 4096 + 64
+    cache = llama.init_kv_cache(cfg, 1, t_cache)
+    cache.normal_(generator=gen)
+    cos, sin = llama.rope_table(cfg, t_cache, device=dev)
+    eps = cfg.rms_eps
+    layer_bytes = sum(qlinear_bytes(p, 0) for p in lins) + 2 * h_dim * 2
+    layer_flops = 2 * sum(p.in_features * p.out_features for p in lins)
+    head_bytes = qlinear_bytes(params["lm_head"])
+    kv_pos = 2 * nkv * hd * 2                    # bytes per layer and position
+    # One layer: bf16 output, f32 sums in other orders than the plain
+    # version; 2^-6 of the largest value, as for K1. Over all 32 layers of a
+    # random model each layer's bf16 rounding of the residual can land on
+    # the other side and carry on: 5e-2, as for the model-level check.
+    tol_layer, tol_deep = 2.0 ** -6, 5e-2
+
+    def record(name, shape, got, ref, tol, ms, plain_ms, yard_ms, nbytes, flops):
+        err = rel = 0.0
+        for i, (g, r) in enumerate(zip(got, ref)):
+            e, r_ = check(f"{name} {shape} output {i}", g, r, tol)
+            err, rel = max(err, e), max(rel, r_)
+        b_ms, b_by = bound(nbytes, flops)
+        cases_out.append(dict(
+            name=name, shape=shape, max_abs_err=err, max_rel_err=rel,
+            tol=f"{tol:g}*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, library="none",
+            yardstick_ms=yard_ms,
+            yardstick="stacked per-kernel path, same step, device time (profiler)"))
+        log_case(cases_out[-1])
+
+    layer = 5
+    for length in (0, 1000, 4000):
+        h = (torch.randn((1, h_dim), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        step = (h, *args, cos[length], sin[length], cache, layer, length, nq, nkv, eps)
+        got = mk.w4a16_llama_layer_step(*step)
+        ref = mk.w4a16_llama_layer_step_plain(*step)
+        torch.cuda.synchronize()
+        ms = timer(lambda: mk.w4a16_llama_layer_step(*step))
+        plain_ms = timer(lambda: mk.w4a16_llama_layer_step_plain(*step), reps=3)
+        yard_ms = device_ms(torch, lambda: llama.stacked_layers(params, cfg, h[None], cache, length,
+                                                    layer_ids=[layer]))
+        record("megakernel_layer", f"layer {layer} len={length}", got, ref, tol_layer,
+               ms, plain_ms, yard_ms, layer_bytes + kv_pos * (length + 1),
+               layer_flops + 4.0 * nq * hd * (length + 1))
+
+    length = 1000
+    h = (torch.randn((1, h_dim), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    step = (h, *args, cos[length], sin[length], cache, length, nq, nkv, eps)
+    head = dict(whead=params["lm_head"], norm_w=params["norm"])
+    got = mk.w4a16_llama_token_step(*step, **head)
+    ref = mk.w4a16_llama_token_step_plain(*step, **head)
+    torch.cuda.synchronize()
+    ms = timer(lambda: mk.w4a16_llama_token_step(*step, **head))
+    plain_ms = timer(lambda: mk.w4a16_llama_token_step_plain(*step, **head), reps=2)
+
+    def stacked_token():
+        hh = llama.stacked_layers(params, cfg, h[None], cache, length)
+        return llama._head_logits(params, llama.rms_norm(hh, params["norm"], eps), "auto")
+
+    yard_ms = device_ms(torch, stacked_token)
+    record("megakernel_token", f"{L} layers + W4 head, len={length}", got, ref, tol_deep,
+           ms, plain_ms, yard_ms,
+           L * (layer_bytes + kv_pos * (length + 1)) + head_bytes,
+           L * (layer_flops + 4.0 * nq * hd * (length + 1)) + 2.0 * h_dim * vocab)
+
+    for s in (16, 32):
+        for hist in (0, 700):
+            hw = (torch.randn((s, h_dim), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+            step = (hw, *args, cos[hist:hist + s], sin[hist:hist + s], cache, hist,
+                    nq, nkv, eps)
+            got = mkc.w4a16_llama_chunk_step(*step)
+            ref = mkc.w4a16_llama_chunk_step_plain(*step)
+            torch.cuda.synchronize()
+            ms = timer(lambda: mkc.w4a16_llama_chunk_step(*step))
+            plain_ms = timer(lambda: mkc.w4a16_llama_chunk_step_plain(*step), reps=2)
+            yard_ms = device_ms(torch, lambda: llama.stacked_layers(params, cfg, hw[None], cache, hist))
+            pairs = s * hist + s * (s + 1) // 2
+            record("megakernel_chunk", f"{L} layers S={s} hist={hist}", got, ref, tol_deep,
+                   ms, plain_ms, yard_ms, L * (layer_bytes + kv_pos * (hist + s)),
+                   L * (s * layer_flops + 4.0 * nq * hd * pairs))
+    del params, cache
 
 
 def weight_bytes(params) -> int:
@@ -230,12 +377,31 @@ def weight_bytes(params) -> int:
     return total
 
 
+REQUESTS = ((16, True), (200, False), (1000, True), (24, False))   # (prompt, fresh)
+CONFIGS = (("megakernels", None), ("stacked", "1"))   # AWQ_TPU_DISABLE_MEGAKERNEL
+
+
+def counters():
+    from awq_tpu_torch.ops import decode_attn as da
+    from awq_tpu_torch.ops import megakernel as mk
+    from awq_tpu_torch.ops import megakernel_chunk as mkc
+    from awq_tpu_torch.ops import w4a16 as w4
+
+    return (w4.LAUNCHES, da.LAUNCHES, mk.LAUNCHES, mkc.LAUNCHES)
+
+
+def set_config(disable):
+    if disable is None:
+        os.environ.pop("AWQ_TPU_DISABLE_MEGAKERNEL", None)
+    else:
+        os.environ["AWQ_TPU_DISABLE_MEGAKERNEL"] = disable
+
+
 def phase_serve(torch, layers: int):
-    """Phase 3: three requests through InferenceEngine; returns launches."""
+    """Phase 3: the requests through InferenceEngine, once per configuration;
+    returns {config: launches}."""
     from awq_tpu_torch.config import GenConfig, ModelConfig, QuantConfig, RuntimeConfig
     from awq_tpu_torch.models.llama import init_qparams
-    from awq_tpu_torch.ops import decode_attn as da
-    from awq_tpu_torch.ops import w4a16 as w4
     from awq_tpu_torch.runtime.engine import InferenceEngine
 
     cfg = ModelConfig(**{**LLAMA3_8B, "num_layers": layers})
@@ -251,48 +417,58 @@ def phase_serve(torch, layers: int):
         f"{wbytes / 1e9:.3f} GB, embedding {engine.params['embed'].numel() * 2 / 1e9:.3f} GB, "
         f"KV cache {engine.cache.numel() * 2 / 1e9:.3f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    engine.warmup()
-
-    for d in (w4.LAUNCHES, da.LAUNCHES):
-        for k in d:
-            d[k] = 0
-    rng = torch.Generator().manual_seed(7)
-    gen = GenConfig(greedy=True, max_new_tokens=32)
     kv_row = 2 * layers * cfg.num_kv_heads * cfg.head_dim * 2   # bytes/position
-    results = []
-    for i, (n, fresh) in enumerate(((16, True), (200, False), (1000, True))):
-        if fresh:
-            engine.reset()
-        prompt = torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
-        start = engine.start_pos
-        out = engine.generate(prompt, gen)
-        ids = out["output_ids"]
-        if len(ids) != 32 or int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab_size:
-            raise AssertionError(f"request {i + 1}: bad output ids {ids.tolist()}")
-        tm = out["timing"]
-        mean_pos = start + n + 16
-        gb_tok = (wbytes + kv_row * mean_pos) / 1e9
-        ms_tok = tm["ms_per_token"]
-        log(f"  request {i + 1}: prompt {n} at start_pos {start}: "
-            f"TTFT {tm['ttft_s'] * 1e3:.2f} ms, {ms_tok:.3f} ms/token over 31 "
-            f"decode steps, {gb_tok:.3f} GB/token streamed, "
-            f"{gb_tok / ms_tok * 1e3:.1f} GB/s effective")
-        results.append(dict(prompt=n, start_pos=start, ttft_ms=tm["ttft_s"] * 1e3,
-                            ms_per_token=ms_tok, gb_per_token=gb_tok,
-                            gbps=gb_tok / ms_tok * 1e3))
-    launches = {**w4.LAUNCHES, **da.LAUNCHES}
-    log(f"  launches during the three requests: {launches}")
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
-    profile_decode(torch, engine, results[-1]["ms_per_token"])
+    gen = GenConfig(greedy=True, max_new_tokens=32)
+    out_launches = {}
+    for label, disable in CONFIGS:
+        set_config(disable)
+        log(f"  [{label}] AWQ_TPU_DISABLE_MEGAKERNEL={disable or 'unset'}")
+        engine.warmup()
+        rng = torch.Generator().manual_seed(7)
+        for d in counters():
+            for k in d:
+                d[k] = 0
+        results = []
+        for i, (n, fresh) in enumerate(REQUESTS):
+            if fresh:
+                engine.reset()
+            prompt = torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+            start = engine.start_pos
+            out = engine.generate(prompt, gen)
+            ids = out["output_ids"]
+            if len(ids) != 32 or int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab_size:
+                raise AssertionError(f"request {i + 1}: bad output ids {ids.tolist()}")
+            tm = out["timing"]
+            fed = engine.start_pos - start - 31          # prompt plus a pending id
+            mean_pos = start + fed + 16
+            gb_tok = (wbytes + kv_row * mean_pos) / 1e9
+            ms_tok = tm["ms_per_token"]
+            log(f"  [{label}] request {i + 1}: prompt {n} (+{fed - n} pending) at "
+                f"start_pos {start}: TTFT {tm['ttft_s'] * 1e3:.2f} ms, {ms_tok:.3f} "
+                f"ms/token over 31 decode steps, {gb_tok:.3f} GB/token streamed, "
+                f"{gb_tok / ms_tok * 1e3:.1f} GB/s effective")
+            results.append(dict(prompt=n, start_pos=start, ttft_ms=tm["ttft_s"] * 1e3,
+                                ms_per_token=ms_tok, gb_per_token=gb_tok))
+        launches = {k: v for d in counters() for k, v in d.items()}
+        log(f"  [{label}] launches during the four requests: {launches}")
+        must = (("megakernel_token", "megakernel_chunk") if disable is None else
+                ("w4a16_gemv", "w4a16_gemm", "flash_decode", "flash_prefill"))
+        for k in must:
+            if launches[k] <= 0:
+                raise AssertionError(f"[{label}] kernel {k} was not launched on its path")
+        if disable is not None and (launches["megakernel_token"] or launches["megakernel_chunk"]):
+            raise AssertionError(f"[{label}] a megakernel ran with the megakernels off")
+        out_launches[label] = launches
+        profile_decode(torch, engine, results[-1]["ms_per_token"], label)
+    set_config(None)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del engine
     torch.cuda.empty_cache()
-    return launches, results
+    return out_launches
 
 
-def profile_decode(torch, engine, ms_per_token: float, steps: int = 8) -> None:
+def profile_decode(torch, engine, ms_per_token: float, label: str,
+                   steps: int = 8) -> None:
     """Device time of decode steps by kernel, from a torch.profiler trace of
     ``steps`` forward calls after the last request, against the request's
     unprofiled ms/token: the rest of the step is the device's idle share."""
@@ -311,7 +487,7 @@ def profile_decode(torch, engine, ms_per_token: float, steps: int = 8) -> None:
         for i in range(steps):
             forward(engine.params, engine.cfg, tok, engine.cache, at + 1 + i)
         torch.cuda.synchronize()
-        log(f"  {steps} forward calls at position {at + 1}, no sync between: "
+        log(f"  [{label}] {steps} forward calls at position {at + 1}, no sync between: "
             f"{(time.perf_counter() - t0) / steps * 1e3:.3f} ms/step")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -322,13 +498,14 @@ def profile_decode(torch, engine, ms_per_token: float, steps: int = 8) -> None:
     ops = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
     op_ms = sum(e.self_cpu_time_total for e in ops) / steps / 1e3
     top = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:6]
-    log(f"  host under the profiler: {wall_ms:.3f} ms/step, of which PyTorch ops "
+    log(f"  [{label}] host under the profiler: {wall_ms:.3f} ms/step, of which PyTorch ops "
         f"{op_ms:.3f} ms (top: " + ", ".join(
             f"{e.key} x{e.count // steps} {e.self_cpu_time_total / steps / 1e3:.2f}"
             for e in top) + "); the rest is Python and the ctypes launches")
     groups = {"w4a16_gemv": ("w4a16_gemv", "splitk_reduce"),
               "flash_decode": ("flash_decode",), "w4a16_gemm": ("w4a16_gemm",),
-              "flash_prefill": ("flash_prefill",)}
+              "flash_prefill": ("flash_prefill",), "megakernel_token": ("token_kernel",),
+              "megakernel_chunk": ("chunk_kernel",)}
     us = {k: 0.0 for k in groups}
     us["other PyTorch kernels"] = 0.0
     n_kernels = 0
@@ -340,20 +517,19 @@ def profile_decode(torch, engine, ms_per_token: float, steps: int = 8) -> None:
                     if any(p in e.name for p in pats)), "other PyTorch kernels")
         us[key] += e.time_range.elapsed_us()
     if not n_kernels:
-        log("  profiler: no device events recorded; no breakdown")
+        log(f"  [{label}] profiler: no device events recorded; no breakdown")
         return
     busy_ms = sum(us.values()) / steps / 1e3
     parts = ", ".join(f"{k} {v / steps / 1e3:.3f}" for k, v in us.items() if v)
-    log(f"  decode step device time (torch.profiler, {steps} steps at position "
+    log(f"  [{label}] decode step device time (torch.profiler, {steps} steps at position "
         f"{pos + 1}): {busy_ms:.3f} ms/step busy [{parts}], "
         f"{n_kernels / steps:.0f} kernels/step; against {ms_per_token:.3f} "
         f"ms/token unprofiled the device is idle {1 - busy_ms / ms_per_token:.1%}")
 
 
 def phase_model_parity(torch):
-    """Phase 4: kernel path vs plain path through forward, 2 layers."""
-    import dataclasses
-
+    """Phase 4: kernel path vs plain path through forward, 2 layers, on the
+    stacked path and on the megakernels."""
     from awq_tpu_torch.config import ModelConfig, QuantConfig
     from awq_tpu_torch.models import llama
 
@@ -361,24 +537,28 @@ def phase_model_parity(torch):
     params = llama.init_qparams(cfg, QuantConfig(w_bit=4, group_size=G),
                                 torch.Generator(device="cuda").manual_seed(1))
     params = llama.fuse_linears(llama.quantize_head(params, cfg), cfg)
-    caches = [llama.init_kv_cache(cfg, 1, 512) for _ in range(2)]
-    rng = torch.Generator().manual_seed(3)
-    steps = [torch.randint(0, cfg.vocab_size, (1, 100), generator=rng)] + [
-        torch.randint(0, cfg.vocab_size, (1, 1), generator=rng) for _ in range(8)]
     # bf16 model: the two paths round differently at every layer; 5e-2 of
     # the largest logit bounds their drift over two layers
     tol = 5e-2
-    pos, agree, worst = 0, 0, 0.0
-    for toks in steps:
-        toks = toks.cuda()
-        got, _ = llama.forward(params, cfg, toks, caches[0], pos)
-        ref, _ = llama.forward(params, cfg, toks, caches[1], pos, impl="plain")
-        err, rel = check(f"forward at start_pos {pos}", got, ref, tol)
-        worst = max(worst, rel)
-        agree += int(torch.equal(got[:, -1].argmax(-1), ref[:, -1].argmax(-1)))
-        pos += toks.shape[1]
-    log(f"  logits kernel vs plain: worst max_abs_err/max|ref| {worst:.3e} "
-        f"(tol {tol:g}); greedy ids agree on {agree}/{len(steps)} steps")
+    for label, disable, prompt in (("stacked", "1", 100), ("megakernels", None, 20)):
+        set_config(disable)
+        caches = [llama.init_kv_cache(cfg, 1, 512) for _ in range(2)]
+        rng = torch.Generator().manual_seed(3)
+        steps = [torch.randint(0, cfg.vocab_size, (1, prompt), generator=rng)] + [
+            torch.randint(0, cfg.vocab_size, (1, 1), generator=rng) for _ in range(8)]
+        pos, agree, worst = 0, 0, 0.0
+        for toks in steps:
+            toks = toks.cuda()
+            got, _ = llama.forward(params, cfg, toks, caches[0], pos)
+            ref, _ = llama.forward(params, cfg, toks, caches[1], pos, impl="plain")
+            err, rel = check(f"[{label}] forward at start_pos {pos}", got, ref, tol)
+            worst = max(worst, rel)
+            agree += int(torch.equal(got[:, -1].argmax(-1), ref[:, -1].argmax(-1)))
+            pos += toks.shape[1]
+        log(f"  [{label}] {prompt}-token prefill + 8 decodes, logits kernel vs plain: "
+            f"worst max_abs_err/max|ref| {worst:.3e} (tol {tol:g}); greedy ids agree "
+            f"on {agree}/{len(steps)} steps")
+    set_config(None)
 
 
 def main() -> int:
@@ -417,11 +597,14 @@ def main() -> int:
     timer = Timer(torch, reps=20)
     cases = []
     phase_kernels(torch, timer, cases)
+    torch.cuda.empty_cache()
+    phase_megakernels(torch, timer, cases)
     del timer
     torch.cuda.empty_cache()
 
-    log(f"phase 3: serve three requests, Llama-3-8B width, {args.layers} layers")
-    launches, _ = phase_serve(torch, args.layers)
+    log(f"phase 3: serve four requests, Llama-3-8B width, {args.layers} layers, "
+        "on the megakernels and on the stacked path")
+    launches = phase_serve(torch, args.layers)
 
     log("phase 4: forward, kernel path against plain path (2 layers)")
     phase_model_parity(torch)
@@ -433,19 +616,33 @@ def main() -> int:
                "flash_decode": ("awq_tpu_torch/csrc/decode_attn.cu",
                                 "awq_tpu/ops/decode_attn.py:394"),
                "flash_prefill": ("awq_tpu_torch/csrc/decode_attn.cu",
-                                 "awq_tpu/ops/decode_attn.py:691")}
+                                 "awq_tpu/ops/decode_attn.py:691"),
+               "megakernel_token": ("awq_tpu_torch/csrc/megakernel.cu",
+                                    "awq_tpu/ops/megakernel.py:1047"),
+               "megakernel_layer": ("awq_tpu_torch/csrc/megakernel.cu",
+                                    "awq_tpu/ops/megakernel.py:954"),
+               "megakernel_chunk": ("awq_tpu_torch/csrc/megakernel_chunk.cu",
+                                    "awq_tpu/ops/megakernel_chunk.py:295")}
     # one representative shape per kernel in the summary; every case is
     # printed above
     pick = {"w4a16_gemv": "wgateup M=1", "w4a16_gemm": "wgateup M=1000",
-            "flash_decode": "len=4000", "flash_prefill": "S=512 start=700"}
+            "flash_decode": "len=4000", "flash_prefill": "S=512 start=700",
+            "megakernel_token": "32 layers", "megakernel_layer": "layer 5 len=1000",
+            "megakernel_chunk": "32 layers S=32 hist=700"}
+    # launches: each kernel's count on its own path's run in phase 3 (the
+    # stacked path carries K1-K3, the megakernels K4-K5). forward calls K4's
+    # token entry; the layer entry is the same kernel over one layer and
+    # has no caller on the main path, so it counts 0 there.
     kernels = []
     for name, (src, replaces) in sources.items():
         c = next(c for c in cases if c["name"] == name and c["shape"].startswith(pick[name]))
+        run = "megakernels" if name.startswith("megakernel") else "stacked"
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[name], max_abs_err=c["max_abs_err"], ms=c["ms"],
+            launches=launches[run][name], max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-            library_ms=c["library_ms"], shape=c["shape"]))
+            library_ms=c["library_ms"], shape=c["shape"],
+            **({"stacked_path_ms": c["yardstick_ms"]} if "yardstick_ms" in c else {})))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,11 @@
 equal the JAX engine's bit for bit, over two dialogue rounds of 16 new
 tokens each (the second round reuses the first's KV through
 ``start_pos``), on an f32 model with an f32 cache on both sides.
+
+The JAX engine never feeds the last id of a round that ends without a
+stop, and the next round attends over its unwritten KV slot. The port
+feeds that id at the start of the next round; the JAX side of these tests
+does the same by hand (``_jax_round``), so the two stay comparable.
 """
 
 import subprocess
@@ -29,20 +34,43 @@ GEOM = dict(arch="llama", vocab_size=512, hidden_size=512,
             head_dim=128, max_position_embeddings=256, dtype="float32")
 
 
-@pytest.mark.parametrize("stop", [(), (None,)])
-def test_engine_greedy_ids_bit_exact(stop):
+def _jax_round(jeng, prompt, gen, stop_ids, pending):
+    """One JAX engine round with the port's repair of the last-token fault
+    applied by hand: a pending id (returned last, never fed) steps
+    ``start_pos`` back onto its own position and is prepended to the
+    prompt. Returns the ids and the id left pending by this round."""
+    if pending is not None:
+        jeng.start_pos -= 1
+        prompt = [pending] + list(prompt)
+    ids = np.asarray(jeng.generate(prompt, gen, stop_ids=stop_ids)["output_ids"])
+    unfed = len(ids) == max(gen.max_new_tokens, 1)   # the final step's id
+    return ids, (int(ids[-1]) if unfed else None)
+
+
+def _engines(src_fused):
     jcfg, tcfg = JConfig(**GEOM), TConfig(**GEOM)
     jparams = jllama.quantize_params(
         jllama.init_params(jcfg, jax.random.PRNGKey(2)),
         JQuant(w_bit=4, group_size=128))
-    tparams = params_from_jax(jax.device_get(jparams), device="cpu")
     jeng = JEngine(jcfg, jparams, JRuntime(max_seq_len=256),
                    cache_dtype=jnp.float32)
-    teng = TEngine(tcfg, tparams, TRuntime(max_seq_len=256),
-                   cache_dtype=torch.float32, device="cpu")
+    # the JAX engine fuses and folds; its XLA path computes with the f32
+    # scale fields, its megakernel with the folded bf16 ones
+    src = jeng.params if src_fused else jparams
+    teng = TEngine(tcfg, params_from_jax(jax.device_get(src), device="cpu"),
+                   TRuntime(max_seq_len=256), cache_dtype=torch.float32,
+                   device="cpu")
+    return jeng, teng
+
+
+@pytest.mark.parametrize("stop", [(), (None,)])
+def test_engine_greedy_ids_bit_exact(stop):
+    """Stacked path (JAX: XLA). Round 1 ends without a stop, so its last id
+    is fed at the start of round 2 on both sides (the JAX side by hand)."""
+    jeng, teng = _engines(src_fused=False)
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, 512, 7).tolist(), rng.integers(0, 512, 5).tolist()]
-    stop_ids = ()
+    stop_ids, pending = (), None
     for rnd, prompt in enumerate(prompts):
         jg, tg = JGen(greedy=True, max_new_tokens=16), TGen(greedy=True, max_new_tokens=16)
         if stop and rnd == 1:
@@ -51,22 +79,61 @@ def test_engine_greedy_ids_bit_exact(stop):
             # which round 3 reads. (JAX arrays are immutable, so the probe
             # leaves the engine's state as it was.)
             cache, pos = jeng.cache, jeng.start_pos
-            probe = np.asarray(jeng.generate(prompt, jg)["output_ids"])
+            probe, _ = _jax_round(jeng, prompt, jg, (), pending)
             jeng.cache, jeng.start_pos = cache, pos
             stop_ids = (int(probe[4]),)
-        jout = jeng.generate(prompt, jg, stop_ids=stop_ids)
+        jids, pending = _jax_round(jeng, prompt, jg, stop_ids, pending)
         tout = teng.generate(prompt, tg, stop_ids=stop_ids)
-        np.testing.assert_array_equal(tout["output_ids"].numpy(),
-                                      np.asarray(jout["output_ids"]))
-        assert teng.start_pos == jeng.start_pos
+        np.testing.assert_array_equal(tout["output_ids"].numpy(), jids)
+        assert teng.start_pos == jeng.start_pos - (pending is not None)
         if stop_ids:
             assert len(tout["output_ids"]) <= 5
     # the round-2 answer depends on round 1's KV: a third round on both
     # engines agrees as well
-    j3 = jeng.generate(prompts[0], JGen(greedy=True, max_new_tokens=4))
+    j3, _ = _jax_round(jeng, prompts[0], JGen(greedy=True, max_new_tokens=4),
+                       (), pending)
     t3 = teng.generate(prompts[0], TGen(greedy=True, max_new_tokens=4))
-    np.testing.assert_array_equal(t3["output_ids"].numpy(),
-                                  np.asarray(j3["output_ids"]))
+    np.testing.assert_array_equal(t3["output_ids"].numpy(), j3)
+
+
+@pytest.mark.parametrize("mega", [False, True])
+def test_engine_feeds_the_last_id_of_a_round(mega, monkeypatch):
+    """Two rounds of 16 greedy steps without a stop, on the stacked path
+    and on the megakernels (the JAX side forced onto its megakernel).
+    Prompts are longer than CHUNK_S: JAX has no CPU hook for its chunk
+    kernel, so both sides prefill on the stacked path and decode with the
+    whole-token megakernel. Round 1's last id is never fed by ``generate``;
+    the port's engine keeps it pending, and its KV slot (at round 1's
+    final position) is written during round 2. The ids equal the JAX
+    engine's with the same repair applied by hand, bit for bit."""
+    monkeypatch.delenv("AWQ_TPU_DISABLE_MEGAKERNEL", raising=False)
+    if mega:
+        for name, val in (("AWQ_TPU_FORCE_FLASH", "1"), ("AWQ_TPU_FIXED_MAX", "off"),
+                          ("AWQ_TPU_FORCE_MEGAKERNEL", "1")):
+            monkeypatch.setenv(name, val)
+    else:
+        monkeypatch.delenv("AWQ_TPU_FORCE_MEGAKERNEL", raising=False)
+    jax.clear_caches()   # forward's trace reads the env at trace time
+    try:
+        jeng, teng = _engines(src_fused=mega)
+        rng = np.random.default_rng(11)
+        prompts = [rng.integers(0, 512, 40).tolist(), rng.integers(0, 512, 36).tolist()]
+        pending = None
+        for rnd, prompt in enumerate(prompts):
+            gen = dict(greedy=True, max_new_tokens=16)
+            slot = teng.start_pos        # a pending id's position
+            jids, pending_next = _jax_round(jeng, prompt, JGen(**gen), (), pending)
+            tids = teng.generate(prompt, TGen(**gen))["output_ids"].numpy()
+            np.testing.assert_array_equal(tids, jids)
+            if rnd == 1:
+                # round 1's last id sat at `slot`; round 2 wrote its KV
+                assert teng.cache[:, :, 0, :, slot].abs().sum(-1).min() > 0
+            pending = pending_next
+            assert pending is not None
+            assert teng.start_pos == jeng.start_pos - 1
+            assert float(teng.cache[:, :, 0, :, teng.start_pos].abs().max()) == 0.0
+    finally:
+        jax.clear_caches()
 
 
 def test_samplers_match_jax():
@@ -112,6 +179,7 @@ def test_port_imports_no_jax():
         "import awq_tpu_torch, awq_tpu_torch.config, awq_tpu_torch.convert\n"
         "import awq_tpu_torch.quant.core, awq_tpu_torch.quant.packing\n"
         "import awq_tpu_torch.ops.w4a16, awq_tpu_torch.ops.decode_attn\n"
+        "import awq_tpu_torch.ops.megakernel, awq_tpu_torch.ops.megakernel_chunk\n"
         "import awq_tpu_torch.models.layers, awq_tpu_torch.models.llama\n"
         "import awq_tpu_torch.runtime.sampling, awq_tpu_torch.runtime.generate\n"
         "import awq_tpu_torch.runtime.engine\n"

@@ -1,0 +1,368 @@
+"""Port parity of the megakernels: K4 (``ops/megakernel.py``, the whole-token
+and whole-layer steps) and K5 (``ops/megakernel_chunk.py``, the chunk
+step), their plain versions against the JAX kernels run with
+``interpret=True``, and the gates.
+
+The JAX weights are W4-g128 ``quantize_linear`` outputs repacked by
+``tile_qlinear(..., fold_scales=True)`` (the layout the JAX megakernels
+take) and reach the port through ``params_from_jax``, which unfolds them.
+Geometry: head_dim 128, hidden 256-512, 2-3 layers, a cache of 256
+positions. Tests marked ``cuda`` hold the CUDA kernels to the plain
+versions on a card and skip here.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from awq_tpu_torch.config import ModelConfig as TConfig
+from awq_tpu_torch.convert import params_from_jax
+from awq_tpu_torch.ops import megakernel as tmk
+from awq_tpu_torch.ops import megakernel_chunk as tmc
+from awq_tpu_torch.ops.w4a16 import QLinear
+
+HD, T = 128, 256
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _jax_lins(seed, H, I, nq, nkv, L, bias=False):
+    """Folded stacked W4 linears of the JAX package, distinct per layer."""
+    import jax
+    import jax.numpy as jnp
+    from awq_tpu.ops.w4a16 import quantize_linear, tile_qlinear
+
+    keys = iter(jax.random.split(jax.random.PRNGKey(seed), 64))
+    rng = np.random.default_rng(seed)
+
+    def lin(ic, oc, with_bias=False):
+        qls = []
+        for _ in range(L):
+            w = jax.random.normal(next(keys), (ic, oc), jnp.float32) * 0.05
+            b = (jnp.asarray(rng.standard_normal(oc).astype(np.float32) * 0.1)
+                 if with_bias else None)
+            qls.append(quantize_linear(w, bias=b))
+        ql = jax.tree_util.tree_map(lambda *a: jnp.stack(a), *qls)
+        return tile_qlinear(ql, block_n=128, fold_scales=True)
+
+    return {"wqkv": lin(H, (nq + 2 * nkv) * HD, bias), "wo": lin(H, H),
+            "wgateup": lin(H, 2 * I), "down": lin(I, H)}
+
+
+def _inputs(seed, H, L, nkv, rows=1):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return dict(h=f(rows, H) * 0.3, ln1=rng.uniform(0.8, 1.2, (L, H)).astype(np.float32),
+                ln2=rng.uniform(0.8, 1.2, (L, H)).astype(np.float32),
+                cache=f(L, 2, 1, nkv, T, HD) * 0.2,
+                ang=rng.uniform(0, 6.28, (rows, HD)).astype(np.float32))
+
+
+def _both(jl, inp):
+    """(JAX arrays, port tensors) of the weights and inputs."""
+    import jax
+    import jax.numpy as jnp
+
+    t = params_from_jax(jax.device_get(jl), device="cpu")
+    cos, sin = np.cos(inp["ang"]), np.sin(inp["ang"])
+    j = {k: jnp.asarray(v) for k, v in inp.items()}
+    j.update(cos=jnp.asarray(cos), sin=jnp.asarray(sin))
+    tt = {k: torch.from_numpy(v.copy()) for k, v in inp.items()}
+    tt.update(cos=torch.from_numpy(cos), sin=torch.from_numpy(sin))
+    return j, t, tt
+
+
+def _close(got, ref, tol):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    ref = ref.float().numpy() if isinstance(ref, torch.Tensor) else np.asarray(ref, np.float32)
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0, atol=tol * np.abs(ref).max())
+
+
+# The plain versions compute in f32 what the JAX kernels compute in f32 in
+# interpret mode (dots of bf16(x) against exact codes, bf16 scales from the
+# folded rows); the JAX kernels dot against codes biased by +128 and take
+# 128·sum(x) back off, which costs them some f32 cancellation. Every matmul
+# rounds its input to bf16, and an input on a bf16 rounding edge can round
+# the other way on the two sides: one element then moves by one bf16 step
+# (2^-8 relative) and moves every output of that matmul a little. The
+# largest effect measured on the layer and token steps was 6e-4 of the
+# output's largest magnitude: TOL = 2^-8 covers it. The chunk step also
+# rounds QKV, gate/up, hm and the residual to bf16 (as the JAX kernel's
+# bf16 scratch does), so such steps recur and compound over the layers:
+# 6.5e-3 was measured after two layers, and CHUNK_TOL = 2^-6 covers it.
+TOL, CHUNK_TOL = 2.0 ** -8, 2.0 ** -6
+
+
+@pytest.mark.parametrize("nq,nkv,length,bias", [
+    (2, 2, 0, False), (2, 2, 37, False), (4, 2, 200, False), (4, 2, 37, True)])
+def test_layer_step_plain_matches_jax(nq, nkv, length, bias):
+    from awq_tpu.ops.megakernel import w4a16_llama_layer_step
+
+    H, I, L = nq * HD, 256, 2
+    jl = _jax_lins(nq + length, H, I, nq, nkv, L, bias)
+    j, t, tt = _both(jl, _inputs(length, H, L, nkv))
+    jh, jk, jv = w4a16_llama_layer_step(
+        j["h"], jl["wqkv"], jl["wo"], jl["wgateup"], jl["down"], j["ln1"],
+        j["ln2"], j["cos"][0], j["sin"][0], j["cache"], 1, length, nq=nq,
+        nkv=nkv, eps=1e-5, interpret=True)
+    cache = tt["cache"].clone()
+    th, tk, tv = tmk.w4a16_llama_layer_step(
+        tt["h"], t["wqkv"], t["wo"], t["wgateup"], t["down"], tt["ln1"],
+        tt["ln2"], tt["cos"][0], tt["sin"][0], cache, 1, length, nq, nkv, 1e-5)
+    _close(th, jh, TOL)
+    _close(tk, jk, TOL)
+    _close(tv, jv, TOL)
+    # the new k/v are written in place at `length` of layer 1, nothing else
+    torch.testing.assert_close(cache[1, 0, 0, :, length], tk[0], rtol=0, atol=0)
+    torch.testing.assert_close(cache[1, 1, 0, :, length], tv[0], rtol=0, atol=0)
+    cache[1, :, 0, :, length] = tt["cache"][1, :, 0, :, length]
+    assert torch.equal(cache, tt["cache"])
+
+
+@pytest.mark.parametrize("head", [False, True])
+def test_token_step_plain_matches_jax(head):
+    import jax
+    import jax.numpy as jnp
+    from awq_tpu.ops.megakernel import w4a16_llama_token_step
+    from awq_tpu.ops.w4a16 import quantize_linear, tile_qlinear
+
+    nq = nkv = 2
+    H, I, L, V, length = nq * HD, 256, 3, 512, 65
+    jl = _jax_lins(7, H, I, nq, nkv, L)
+    inp = _inputs(8, H, L, nkv)
+    # a bf16 cache and residual, as the model runs them
+    cache_bf = jnp.asarray(inp["cache"]).astype(jnp.bfloat16)
+    h_bf = jnp.asarray(inp["h"]).astype(jnp.bfloat16)
+    j, t, tt = _both(jl, inp)
+    kw = dict(nq=nq, nkv=nkv, eps=1e-5, interpret=True)
+    tkw = {}
+    if head:
+        whead = tile_qlinear(jax.tree_util.tree_map(
+            lambda a: a[None], quantize_linear(jax.random.normal(
+                jax.random.PRNGKey(9), (H, V), jnp.float32) * 0.05)),
+            block_n=128, fold_scales=True)
+        norm_w = jnp.asarray(np.random.default_rng(9).uniform(0.8, 1.2, H),
+                             jnp.float32)
+        kw.update(whead=whead, norm_w=norm_w)
+        th_ = params_from_jax(jax.device_get({"lm_head": whead}), device="cpu")
+        tkw = dict(whead=th_["lm_head"], norm_w=torch.from_numpy(np.array(norm_w)))
+        assert th_["lm_head"].qweight.dim() == 2
+    res = w4a16_llama_token_step(
+        h_bf, jl["wqkv"], jl["wo"], jl["wgateup"], jl["down"], j["ln1"],
+        j["ln2"], j["cos"][0], j["sin"][0], cache_bf, length, **kw)
+    cache = torch.from_numpy(np.array(cache_bf.astype(jnp.float32))).to(torch.bfloat16)
+    got = tmk.w4a16_llama_token_step(
+        torch.from_numpy(np.array(h_bf.astype(jnp.float32))).to(torch.bfloat16),
+        t["wqkv"], t["wo"], t["wgateup"], t["down"], tt["ln1"], tt["ln2"],
+        tt["cos"][0], tt["sin"][0], cache, length, nq, nkv, 1e-5, **tkw)
+    assert len(got) == len(res) == (4 if head else 3)
+    # the residual and k/v leave in bf16, where an f32 difference that
+    # crosses a rounding edge shows as one bf16 step: within TOL
+    for g, r in zip(got[:3], res[:3]):
+        _close(g, r, TOL)
+    if head:
+        _close(got[3], res[3], TOL)
+    for l in range(L):
+        assert torch.equal(cache[l, 0, 0, :, length], got[1][l])
+        assert torch.equal(cache[l, 1, 0, :, length], got[2][l])
+
+
+@pytest.mark.parametrize("s,hist", [(17, 40), (32, 0), (8, 200)])
+def test_chunk_step_plain_matches_jax(s, hist):
+    import jax.numpy as jnp
+    from awq_tpu.ops.megakernel_chunk import CHUNK_S, w4a16_llama_chunk_step
+
+    assert tmc.CHUNK_S == CHUNK_S
+    nq, nkv, H, I, L = 4, 2, 512, 512, 2
+    jl = _jax_lins(s + hist, H, I, nq, nkv, L, bias=True)
+    inp = _inputs(s * 3 + hist, H, L, nkv, rows=CHUNK_S)
+    j, t, tt = _both(jl, inp)
+    # JAX takes the window padded to CHUNK_S rows at the end
+    hw = j["h"].at[s:].set(0.0)
+    jh, jk, jv = w4a16_llama_chunk_step(
+        hw, jl["wqkv"], jl["wo"], jl["wgateup"], jl["down"], j["ln1"],
+        j["ln2"], j["cos"], j["sin"], j["cache"], jnp.int32(hist),
+        nq=nq, nkv=nkv, eps=1e-5, interpret=True)
+    cache = tt["cache"].clone()
+    th, tk, tv = tmc.w4a16_llama_chunk_step(
+        tt["h"][:s].contiguous(), t["wqkv"], t["wo"], t["wgateup"], t["down"],
+        tt["ln1"], tt["ln2"], tt["cos"][:s].contiguous(),
+        tt["sin"][:s].contiguous(), cache, hist, nq, nkv, 1e-5)
+    _close(th, jh[:s], CHUNK_TOL)
+    _close(tk, jk[:, :, :s], CHUNK_TOL)
+    _close(tv, jv[:, :, :s], CHUNK_TOL)
+    assert torch.equal(cache[:, 0, 0, :, hist:hist + s], tk)
+    assert torch.equal(cache[:, 1, 0, :, hist:hist + s], tv)
+    assert torch.equal(cache[:, :, :, :, :hist], tt["cache"][:, :, :, :, :hist])
+    assert torch.equal(cache[:, :, :, :, hist + s:], tt["cache"][:, :, :, :, hist + s:])
+
+
+def _gate_model(**change):
+    cfg = TConfig(arch="llama", vocab_size=64, hidden_size=256,
+                  intermediate_size=256, num_layers=2, num_heads=2,
+                  num_kv_heads=2, head_dim=128, max_position_embeddings=512,
+                  dtype="float32")
+    cfg = dataclasses.replace(cfg, **change)
+    import awq_tpu_torch.models.llama as tllama
+    from awq_tpu_torch.config import QuantConfig
+
+    p = tllama.fuse_linears(tllama.init_qparams(cfg, QuantConfig(), device="cpu"), cfg)
+    return cfg, p["layers"]
+
+
+@pytest.mark.parametrize("case", [
+    "ok", "wo_bias", "hd64", "s33", "w3", "disabled", "unforced", "int8",
+    "batch2", "unfused", "group16"])
+def test_gates(case, monkeypatch):
+    monkeypatch.setenv("AWQ_TPU_FORCE_MEGAKERNEL", "1")
+    monkeypatch.delenv("AWQ_TPU_DISABLE_MEGAKERNEL", raising=False)
+    cfg, layers = _gate_model()
+    layers = dict(layers)
+    cache = torch.zeros((2, 2, 1, 2, 256, 128))
+    s = 16
+    if case == "wo_bias":
+        layers["wo"] = dataclasses.replace(layers["wo"],
+                                           bias=torch.zeros((2, 256)))
+    elif case == "hd64":
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    elif case == "s33":
+        s = 33
+    elif case == "w3":
+        layers["down"] = dataclasses.replace(layers["down"], w_bit=3)
+    elif case == "disabled":
+        monkeypatch.setenv("AWQ_TPU_DISABLE_MEGAKERNEL", "1")
+    elif case == "unforced":
+        monkeypatch.delenv("AWQ_TPU_FORCE_MEGAKERNEL")   # a CPU cache
+    elif case == "int8":
+        cache = cache.to(torch.int8)
+    elif case == "batch2":
+        cache = torch.zeros((2, 2, 2, 2, 256, 128))
+    elif case == "unfused":
+        layers["up"] = layers.pop("wgateup")
+    elif case == "group16":     # K4 takes at most 8 q heads per kv head
+        cfg = dataclasses.replace(cfg, num_heads=16, num_kv_heads=1)
+    token = tmk.megakernel_supported(cfg, layers, cache)
+    chunk = tmc.chunk_megakernel_supported(cfg, layers, cache, s)
+    assert token == (case in ("ok", "s33"))
+    assert chunk == (case == "ok")
+    if case == "ok":
+        assert tmc.chunk_megakernel_supported(cfg, layers, cache, 1)
+        assert tmc.chunk_megakernel_supported(cfg, layers, cache, 32)
+        assert not tmc.chunk_megakernel_supported(cfg, layers, cache, 0)
+        # a qkv bias (qwen2) is taken
+        layers["wqkv"] = dataclasses.replace(
+            layers["wqkv"], bias=torch.zeros((2, layers["wqkv"].out_features)))
+        assert tmk.megakernel_supported(cfg, layers, cache)
+
+
+@pytest.mark.parametrize("case", ["ok", "vocab48", "bias", "stacked", "fp"])
+def test_head_in_kernel(case):
+    """The head joins K4 only as a 2-D W4 g128 QLinear without bias over
+    whole 32-column tiles; otherwise forward runs it after the kernel."""
+    vocab = 48 if case == "vocab48" else 64
+    head = QLinear(qweight=torch.zeros((32, vocab), dtype=torch.int32),
+                   scales=torch.ones((2, vocab)), szeros=torch.zeros((2, vocab)),
+                   bias=torch.zeros(vocab) if case == "bias" else None)
+    if case == "stacked":
+        head = QLinear(qweight=head.qweight[None], scales=head.scales[None],
+                       szeros=head.szeros[None])
+    elif case == "fp":
+        head = torch.zeros((256, vocab))
+    assert tmk.head_in_kernel({"lm_head": head}) == (case == "ok")
+
+
+def test_unsupported_operands_raise():
+    """What the kernels do not take raises, naming its ROADMAP item."""
+    cfg, layers = _gate_model()
+    h, ln = torch.zeros((1, 256)), torch.ones((2, 256))
+    lins = (layers["wqkv"], layers["wo"], layers["wgateup"], layers["down"])
+    cache = torch.zeros((2, 2, 1, 2, 8, 128))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tmk.check_operands("k4", h, lins, ln, ln, cache.to(torch.int8), 2, 2, 1)
+    w3 = dataclasses.replace(layers["down"], w_bit=3)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tmk.check_operands("k4", h, (*lins[:3], w3), ln, ln, cache, 2, 2, 1)
+    assert tmk.check_operands("k4", h, lins, ln, ln, cache, 2, 2, 1) == (2, 256, 256)
+
+
+# ---- on the card: K4 and K5 against their plain versions -------------------
+
+def _card_model(dev, nq, nkv, H, I, L, bias, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def lin(ic, oc, b=False):
+        qw = torch.randint(-(2**31), 2**31 - 1, (L, ic // 8, oc), generator=g,
+                           dtype=torch.int32, device=dev)
+        s = (torch.rand((L, ic // 128, oc), generator=g, device=dev) + 0.5) * 0.01
+        bias_t = (torch.randn((L, oc), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        return QLinear(qweight=qw, scales=s, szeros=s * 8,
+                       bias=bias_t if b else None)
+
+    ws = (lin(H, (nq + 2 * nkv) * HD, bias), lin(H, H), lin(H, 2 * I), lin(I, H))
+    ln = [(torch.rand((L, H), generator=g, device=dev) * 0.4 + 0.8).to(torch.bfloat16)
+          for _ in range(2)]
+    cache = (torch.randn((L, 2, 1, nkv, T, HD), generator=g, device=dev) * 0.5
+             ).to(torch.bfloat16)
+    ang = torch.rand((32, HD), generator=g, device=dev) * 6.28
+    return ws, ln, cache, torch.cos(ang), torch.sin(ang), g
+
+
+# bf16 residual and k/v out; the kernel sums in other orders than the plain
+# version (f32): 2^-6 of the largest value bounds that with a margin.
+CARD_TOL = 2.0 ** -6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,bias", [(0, False), (37, True), (200, False)])
+def test_layer_and_token_kernels_match_plain_on_card(cuda, length, bias):
+    nq, nkv, H, I, L = 4, 2, 512, 1024, 3
+    ws, (ln1, ln2), cache, cos, sin, g = _card_model(cuda, nq, nkv, H, I, L, bias, length)
+    h = (torch.randn((1, H), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    c1, c2 = cache.clone(), cache.clone()
+    got = tmk.w4a16_llama_layer_step(h, *ws, ln1, ln2, cos[0], sin[0], c1, 1,
+                                     length, nq, nkv)
+    ref = tmk.w4a16_llama_layer_step_plain(h, *ws, ln1, ln2, cos[0], sin[0],
+                                           c2, 1, length, nq, nkv)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        _close(a.cpu(), b.cpu(), CARD_TOL)
+    head = QLinear(qweight=torch.randint(-(2**31), 2**31 - 1, (H // 8, 1024),
+                                         generator=g, dtype=torch.int32, device=cuda),
+                   scales=torch.full((H // 128, 1024), 0.01, device=cuda),
+                   szeros=torch.full((H // 128, 1024), 0.08, device=cuda))
+    norm_w = torch.ones(H, dtype=torch.bfloat16, device=cuda)
+    c1, c2 = cache.clone(), cache.clone()
+    got = tmk.w4a16_llama_token_step(h, *ws, ln1, ln2, cos[0], sin[0], c1,
+                                     length, nq, nkv, whead=head, norm_w=norm_w)
+    ref = tmk.w4a16_llama_token_step_plain(h, *ws, ln1, ln2, cos[0], sin[0],
+                                           c2, length, nq, nkv, whead=head,
+                                           norm_w=norm_w)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        _close(a.cpu(), b.cpu(), CARD_TOL)
+    assert torch.equal(c1[:, :, :, :, length + 1:], cache[:, :, :, :, length + 1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,hist", [(1, 0), (17, 40), (32, 200)])
+def test_chunk_kernel_matches_plain_on_card(cuda, s, hist):
+    nq, nkv, H, I, L = 4, 2, 512, 1024, 2
+    ws, (ln1, ln2), cache, cos, sin, g = _card_model(cuda, nq, nkv, H, I, L, True, s)
+    h = (torch.randn((s, H), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    c1, c2 = cache.clone(), cache.clone()
+    got = tmc.w4a16_llama_chunk_step(h, *ws, ln1, ln2, cos[:s], sin[:s], c1,
+                                     hist, nq, nkv)
+    ref = tmc.w4a16_llama_chunk_step_plain(h, *ws, ln1, ln2, cos[:s], sin[:s],
+                                           c2, hist, nq, nkv)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        _close(a.cpu(), b.cpu(), CARD_TOL)
+    assert torch.equal(c1[:, :, :, :, hist + s:], cache[:, :, :, :, hist + s:])
