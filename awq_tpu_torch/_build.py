@@ -30,7 +30,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "awq_tpu_torch"
-SOURCES = ("w4a16", "decode_attn", "megakernel", "megakernel_chunk")
+SOURCES = ("w4a16", "decode_attn", "megakernel", "megakernel_chunk",
+           "megakernel_batched", "cache_append")
 ARCH = "sm_90a"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

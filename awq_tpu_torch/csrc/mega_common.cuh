@@ -1,7 +1,7 @@
-// Helpers shared by the megakernels K4 (megakernel.cu) and K5
-// (megakernel_chunk.cu): typed loads and stores of activations and cache
-// rows, bf16 rounding, the block-wide sum, and the launch plan of a
-// cooperative persistent grid.
+// Helpers shared by the megakernels K4 (megakernel.cu), K5
+// (megakernel_chunk.cu) and K6 (megakernel_batched.cu): typed loads and
+// stores of activations and cache rows, bf16 rounding, the block-wide sum,
+// and the launch plan of a cooperative persistent grid.
 #pragma once
 
 #include <cooperative_groups.h>

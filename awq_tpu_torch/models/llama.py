@@ -22,6 +22,13 @@ cache; this one returns the same tensor it was given).
   prefill (K3) -> o-proj (K1) -> RMSNorm -> fused gate/up (K1) ->
   SiLU·mul -> down (K1).
 
+:func:`decode_step_batched` is the continuous-batching step: one token per
+row, every row at its own position. With 2..64 rows under the same gate it
+is ONE launch of K6 (``ops/megakernel_batched.py``), which also writes each
+row's k/v in place; otherwise the stacked path with per-row rope rows, K2
+over per-row lengths and one deferred append of all layers through K7
+(``ops/cache_append.py``).
+
 Other family features raise ``NotImplementedError`` naming their ROADMAP
 item.
 """
@@ -42,9 +49,14 @@ from awq_tpu_torch.models.layers import (
     rope_table,
     update_kv_cache,
 )
+from awq_tpu_torch.ops.cache_append import (
+    batched_cache_append,
+    batched_cache_append_plain,
+)
 from awq_tpu_torch.ops.decode_attn import flash_decode, flash_decode_plain
 from awq_tpu_torch.ops.decode_attn import flash_prefill, flash_prefill_plain
 from awq_tpu_torch.ops import megakernel as mk
+from awq_tpu_torch.ops import megakernel_batched as mkb
 from awq_tpu_torch.ops import megakernel_chunk as mkc
 from awq_tpu_torch.ops.w4a16 import (
     QLinear,
@@ -374,10 +386,18 @@ def forward(
 
 def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                    cache: torch.Tensor, start_pos: int, impl: str = "auto",
-                   layer_ids=None) -> torch.Tensor:
+                   layer_ids=None, lengths: Optional[torch.Tensor] = None,
+                   max_length: Optional[int] = None) -> torch.Tensor:
     """The stacked per-kernel path over ``h [B, S, H]`` for the layers
     ``layer_ids`` (all by default): returns the new residual and writes
-    each layer's k/v into the cache in place."""
+    each layer's k/v into the cache in place.
+
+    With ``lengths [B]`` (int32 on the cache's device; ``S == 1``) row ``b``
+    decodes at its own position ``lengths[b]`` and ``start_pos`` is not
+    read: per-row rope rows, K2 over the per-row prefixes with the current
+    token as an operand, and ONE append of every layer's k/v after the loop
+    (K7). ``max_length`` (at least ``lengths.max()``, from the caller's host
+    copy) sizes K2's grid without a device sync."""
     b, s = h.shape[:2]
     dt = _dtype(cfg)
     dev = cache.device
@@ -394,9 +414,16 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         return linear_apply(Linear(w=p.w[idx],
                                    b=None if p.b is None else p.b[idx]), xx)
 
-    cos, sin = rope_table(cfg, start_pos + s, device=dev)
-    positions = torch.arange(start_pos, start_pos + s, device=dev)
-    lengths = torch.full((b,), start_pos, dtype=torch.int32, device=dev)
+    if lengths is None:
+        cos, sin = rope_table(cfg, start_pos + s, device=dev)
+        positions = torch.arange(start_pos, start_pos + s, device=dev)
+        row_lengths = torch.full((b,), start_pos, dtype=torch.int32, device=dev)
+        max_length = start_pos
+    else:
+        cos, sin = _rope_cached(cfg, cache.shape[4], dev)
+        positions = lengths.long()[:, None]
+        row_lengths = lengths
+    kv_new = []       # per-row decode: every layer's [2, B, n_kv, hd]
 
     for idx in (range(cfg.num_layers) if layer_ids is None else layer_ids):
         kv = cache[idx]                                  # [2, B, n_kv, T, hd] view
@@ -411,10 +438,13 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         q, k = apply_rope(q, k, cos, sin, positions)
         if s == 1:
             # the current token rides as an operand; append it afterwards
-            attn = decode(q[:, 0].contiguous(), k[:, 0].to(kv.dtype).contiguous(),
-                          v[:, 0].to(kv.dtype).contiguous(), kv, lengths,
-                          max_length=start_pos).reshape(b, 1, nq * hd)
-            update_kv_cache(kv, k, v, start_pos)
+            k1, v1 = k[:, 0].to(kv.dtype).contiguous(), v[:, 0].to(kv.dtype).contiguous()
+            attn = decode(q[:, 0].contiguous(), k1, v1, kv, row_lengths,
+                          max_length=max_length).reshape(b, 1, nq * hd)
+            if lengths is None:
+                update_kv_cache(kv, k, v, start_pos)
+            else:
+                kv_new.append(torch.stack([k1, v1]))
         else:
             update_kv_cache(kv, k, v, start_pos)
             attn = prefill(q.contiguous(), kv, start_pos)
@@ -426,4 +456,66 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
             g, u = lin("gate", idx, xm), lin("up", idx, xm)
         hm = torch.nn.functional.silu(g.float()).to(dt) * u
         h = h + lin("down", idx, hm)
+    if kv_new:
+        append = batched_cache_append_plain if plain else batched_cache_append
+        append(cache, torch.stack(kv_new), lengths)
     return h
+
+
+@torch.no_grad()
+def decode_step_batched(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,       # [B] one token per row
+    cache: torch.Tensor,        # [L, 2, B, n_kv, T, hd], written in place
+    lengths: torch.Tensor,      # [B] int32 per-row lengths (write positions)
+    impl: str = "auto",
+    max_length: Optional[int] = None,
+    tp_axis: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step with PER-ROW positions, the continuous-batching
+    step: returns ``(logits [B, V] f32, cache)``. Row ``b`` reads its cache
+    prefix ``[0, lengths[b])`` and writes its k/v at ``lengths[b]``, in
+    place. ``lengths`` lives on the cache's device; ``max_length`` (at
+    least ``lengths.max()``) comes from the caller's host copy, so that no
+    step syncs to read it (without it the wrappers read it from the
+    device). ``impl`` as in :func:`forward`."""
+    _check_supported(cfg)
+    if tp_axis is not None:
+        raise NotImplementedError(
+            "tensor-parallel decode (tp_axis) is ROADMAP queue A, item 17")
+    if not isinstance(cache, torch.Tensor) or cache.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 KV cache (KVCache8) is ROADMAP queue A, item 10")
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
+    dev = cache.device
+    b = tokens.shape[0]
+    if cache.shape[2] != b or tuple(lengths.shape) != (b,):
+        raise ValueError(f"{b} tokens need a cache of {b} slots and lengths "
+                         f"[{b}], got {tuple(cache.shape)} and {tuple(lengths.shape)}")
+    lengths = lengths.to(device=dev, dtype=torch.int32)
+    dt = _dtype(cfg)
+    layers = params["layers"]
+    h = params["embed"][tokens.to(dev)].to(dt)                     # [B, H]
+    if mkb.megakernel_batched_supported(cfg, layers, cache, b):
+        fn = (mkb.w4a16_llama_token_step_batched_plain if impl == "plain"
+              else mkb.w4a16_llama_token_step_batched)
+        cos, sin = _rope_cached(cfg, cache.shape[4], dev)
+        rows = lengths.long().clamp(0, cache.shape[4] - 1)
+        kw = dict(nq=cfg.num_heads, nkv=cfg.num_kv_heads, eps=cfg.rms_eps,
+                  max_length=max_length)
+        if mk.head_in_kernel(params):
+            kw.update(whead=params["lm_head"], norm_w=params["norm"])
+        # the rows' k/v are written inside the kernel: no append here
+        res = fn(h, layers["wqkv"], layers["wo"], layers["wgateup"],
+                 layers["down"], layers["ln1"], layers["ln2"], cos[rows],
+                 sin[rows], cache, lengths, **kw)
+        if len(res) == 4:
+            return res[3], cache
+        h = res[0]
+    else:
+        h = stacked_layers(params, cfg, h[:, None], cache, 0, impl,
+                           lengths=lengths, max_length=max_length)[:, 0]
+    h = rms_norm(h, params["norm"], cfg.rms_eps)
+    return _head_logits(params, h, impl), cache

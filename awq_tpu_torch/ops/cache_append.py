@@ -1,0 +1,79 @@
+"""Batched KV-cache append (PyTorch port of ``awq_tpu/ops/cache_append.py``).
+
+The continuous-batching decode step produces the new ``kv [L, 2, B, n_kv,
+hd]`` of every layer and row, and row ``b`` writes at its own position
+``lengths[b]``. :func:`batched_cache_append` scatters all of it into
+``cache [L, 2, B, n_kv, T, hd]`` in ONE launch of kernel K7
+(``csrc/cache_append.cu``), reading ``lengths`` on the device. The cache
+is written IN PLACE (the JAX function donated its cache and returned the
+new one; this one returns the tensor it was given).
+
+A length at or past ``T`` is clamped to ``T - 1``, as the JAX wrapper
+clamps: it can spoil only the last position. A negative one writes
+position 0.
+
+:func:`batched_cache_append_plain` is the plain PyTorch version: the CPU
+path and the reference the kernel is held to on the card, bit for bit. On
+a CUDA tensor the wrapper launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+#: Launches of K7, counted where the wrapper launches it.
+LAUNCHES = {"cache_append": 0}
+
+
+def batched_cache_append_plain(cache: torch.Tensor, kv: torch.Tensor,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7: one indexed assignment, in place."""
+    b, t = cache.shape[2], cache.shape[4]
+    pos = lengths.to(device=cache.device, dtype=torch.long).clamp(0, t - 1)
+    rows = torch.arange(b, device=cache.device)
+    # cache[:, :, b, :, pos[b]] <- kv[:, :, b]: the indexed view is [B, L, 2, n_kv, hd]
+    cache[:, :, rows, :, pos] = kv.to(cache.dtype).permute(2, 0, 1, 3, 4)
+    return cache
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"batched_cache_append: {msg}")
+
+
+def batched_cache_append(cache: torch.Tensor, kv: torch.Tensor,
+                         lengths: torch.Tensor) -> torch.Tensor:
+    """K7 wrapper: scatter ``kv [L, 2, B, n_kv, hd]`` into ``cache
+    [L, 2, B, n_kv, T, hd]`` at the per-row positions ``lengths [B]``
+    (int32, on the cache's device), in place. Returns ``cache``."""
+    if cache.device.type == "cpu":
+        return batched_cache_append_plain(cache, kv, lengths)
+    _check(cache.is_cuda, f"unsupported device {cache.device}")
+    _check(cache.dim() == 6 and cache.shape[1] == 2,
+           f"cache must be [L, 2, B, n_kv, T, hd], got {tuple(cache.shape)}")
+    L, _, b, nkv, t, hd = cache.shape
+    _check(tuple(kv.shape) == (L, 2, b, nkv, hd),
+           f"kv must be [{L}, 2, {b}, {nkv}, {hd}], got {tuple(kv.shape)}")
+    _check(kv.dtype == cache.dtype, f"kv is {kv.dtype}, the cache {cache.dtype}")
+    _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,),
+           f"lengths must be int32 [{b}]")
+    _check(kv.device == cache.device and lengths.device == cache.device,
+           "operands on different devices")
+    _check(cache.is_contiguous() and kv.is_contiguous() and lengths.is_contiguous(),
+           "operands must be contiguous")
+    row_bytes = hd * cache.element_size()
+    _check(row_bytes % 16 == 0 and cache.data_ptr() % 16 == 0
+           and kv.data_ptr() % 16 == 0,
+           "rows must be 16-byte multiples, 16-byte aligned")
+
+    from awq_tpu_torch import _build
+
+    lib = _build.load("cache_append")
+    fn = lib.awq_cache_append
+    _build.declare(fn, *([_build.P] * 3), *([_build.I] * 5), _build.P)
+    err = fn(cache.data_ptr(), kv.data_ptr(), lengths.data_ptr(),
+             L * 2 * b * nkv, b, nkv, t, row_bytes,
+             torch.cuda.current_stream(cache.device).cuda_stream)
+    _build.check(lib, err, "cache_append")
+    LAUNCHES["cache_append"] += 1
+    return cache

@@ -55,8 +55,9 @@ def _env(name: str) -> bool:
     return os.environ.get(name) == "1"
 
 
-def megakernel_supported(cfg, layers, cache) -> bool:
-    """Whether ``forward`` takes the megakernels for this model and cache.
+def megakernel_supported(cfg, layers, cache, slots: int = 1) -> bool:
+    """Whether ``forward`` takes the megakernels for this model and cache
+    (of ``slots`` batch rows: 1 for K4 and K5, B for the batched K6).
 
     Mirrors the JAX gates (``megakernel_supported`` and ``forward``'s
     conditions at ``models/llama.py:688-697``) with the TPU-only ones
@@ -76,7 +77,7 @@ def megakernel_supported(cfg, layers, cache) -> bool:
         return False
     if not (cache.is_cuda or _env("AWQ_TPU_FORCE_MEGAKERNEL")):
         return False
-    if cache.dim() != 6 or cache.shape[2] != 1:
+    if cache.dim() != 6 or cache.shape[2] != slots:
         return False
     if (cfg.head_dim != HEAD_DIM or cfg.act != "silu" or cfg.norm != "rmsnorm"
             or cfg.pos_embed != "rope" or cfg.parallel_block
@@ -208,17 +209,17 @@ def _fail(what: str, msg: str):
     raise ValueError(f"{what}: {msg}")
 
 
-def check_operands(what, h, lins, ln1, ln2, cache, nq, nkv, rows):
-    """Shared checks of K4 and K5: what the kernels take."""
+def check_operands(what, h, lins, ln1, ln2, cache, nq, nkv, rows, slots=1):
+    """Shared checks of K4, K5 and K6: what the kernels take."""
     if cache.dtype not in CACHE_DTYPES:
         raise NotImplementedError(
             f"{what}: cache dtype {cache.dtype}; int8 KV is ROADMAP queue A, "
             "item 10")
     L, hd = cache.shape[0], cache.shape[-1]
     H = h.shape[-1]
-    if hd != HEAD_DIM or cache.dim() != 6 or cache.shape[2] != 1 \
+    if hd != HEAD_DIM or cache.dim() != 6 or cache.shape[2] != slots \
             or cache.shape[3] != nkv:
-        _fail(what, f"cache must be [L, 2, 1, {nkv}, T, {HEAD_DIM}], got "
+        _fail(what, f"cache must be [L, 2, {slots}, {nkv}, T, {HEAD_DIM}], got "
               f"{tuple(cache.shape)}")
     if nq % nkv or nq * hd != H or H % GROUP:
         _fail(what, f"nq={nq}, nkv={nkv} do not fit H={H}")
@@ -265,6 +266,20 @@ def check_small(what, dev, dtype, **tensors):
             _fail(what, f"{name} must be {dtype}, got {t.dtype}")
 
 
+def head_operands(what, whead, norm_w, H, rows, dev):
+    """``(vocab, [head pointers, norm pointer], logits [rows, V] f32)`` of a
+    megakernel's optional last phase, the final norm and the W4 head;
+    ``(0, four null pointers, None)`` without a head."""
+    if whead is None:
+        return 0, [0, 0, 0, 0], None
+    if not head_in_kernel({"lm_head": whead}) or whead.in_features != H:
+        _fail(what, "the head must be a 2-D W4 g128 QLinear [H/8, V] "
+              "without bias, V a multiple of 32")
+    logits = torch.empty((rows, whead.out_features), dtype=torch.float32, device=dev)
+    return (whead.out_features, qlinear_ptrs(whead, dev) + [norm_w.data_ptr()],
+            logits)
+
+
 def launch(entry: str, what: str, ptrs, ints, eps: float, dev) -> None:
     """Call a megakernel C entry: ``entry(ptrs, ints, eps, ws, stream)``.
     The workspace it needs comes from ``<entry>_ws`` (same arguments)."""
@@ -307,18 +322,7 @@ def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
         _fail(what, f"cos/sin rows must hold {HEAD_DIM} values")
     bias = wqkv.bias
     check_small(what, dev, h.dtype, bias=bias, norm_w=norm_w)
-    vocab = 0
-    head = [0, 0, 0, 0]
-    logits = None
-    if whead is not None:
-        if not head_in_kernel({"lm_head": whead}) or whead.in_features != H:
-            _fail(what, "the head must be a 2-D W4 g128 QLinear [H/8, V] "
-                  "without bias")
-        vocab = whead.out_features
-        if vocab % 32:
-            _fail(what, f"vocab {vocab} must be a multiple of 32")
-        head = qlinear_ptrs(whead, dev) + [norm_w.data_ptr()]
-        logits = torch.empty((1, vocab), dtype=torch.float32, device=dev)
+    vocab, head, logits = head_operands(what, whead, norm_w, H, 1, dev)
     out = torch.empty_like(h)
     k_new = torch.empty((n_layers, nkv, HEAD_DIM), dtype=cache.dtype, device=dev)
     v_new = torch.empty_like(k_new)

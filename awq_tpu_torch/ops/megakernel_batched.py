@@ -1,0 +1,196 @@
+"""Batched whole-token decode megakernel (PyTorch port of
+``awq_tpu/ops/megakernel_batched.py``).
+
+:func:`w4a16_llama_token_step_batched` runs ALL decoder layers for ``B``
+rows, one token each, row ``b`` at its own position ``lengths[b]``, plus
+(optionally) the final RMSNorm and the W4 head, in ONE launch of kernel K6
+(``csrc/megakernel_batched.cu``): the decode step of the
+continuous-batching engine. Every weight is streamed once for all rows.
+
+The arithmetic follows the JAX kernel's (``_btoken_kernel``), rounding
+points included: every matmul consumes ``bf16(x)`` with per-group scale
+and szero corrections in f32; the QKV output is rounded to bf16, the bias
+added and the sum rounded again (the JAX kernel's g-major and b-major bf16
+scratch); gate/up are rounded to bf16 and ``hm = bf16(silu(gate) * up)``;
+the residual is f32 within a layer and rounded to bf16 between layers.
+Each row's current k/v enter its own attention in f32.
+
+JAX returns the new k/v and its caller scatters them into the cache. Here,
+as in K4 and K5, the kernel (or the plain version on the CPU) writes them
+IN PLACE at ``cache[l, :, b, :, lengths[b]]`` and returns them too, in the
+cache dtype, so a step is one launch with no append after it. A length
+outside ``[0, T)`` is clamped into it, as the JAX append clamps.
+
+Only the contiguous float cache is ported: ``cache_scales`` (int8 KV) and
+``tables`` (paged) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from awq_tpu_torch.ops.megakernel import (
+    HEAD_DIM,
+    _DTYPE_CODE,
+    _fail,
+    check_operands,
+    check_small,
+    head_operands,
+    launch,
+    megakernel_supported,
+    qdot_plain,
+    qlinear_ptrs,
+    rms_rows,
+    rope_rows,
+)
+from awq_tpu_torch.ops.w4a16 import QLinear
+
+#: Launches of K6, counted where the wrapper launches it.
+LAUNCHES = {"megakernel_batched": 0}
+
+MIN_B, MAX_B = 2, 64      # rows per launch (one row is K4's case)
+
+
+def megakernel_batched_supported(cfg, layers, cache, batch: int) -> bool:
+    """Whether ``decode_step_batched`` takes K6: the single-token gate
+    (:func:`~awq_tpu_torch.ops.megakernel.megakernel_supported`) over a
+    cache of ``batch`` slots, with 2..64 rows. The JAX gate's ``B % 8`` and
+    its VMEM budget are facts of Mosaic's (8, 128) tiles and of the TPU's
+    scratch memory: K6 takes any row count (rows fill ``mma`` tiles of 16,
+    in passes of 32) and keeps its activations in device memory."""
+    if not MIN_B <= batch <= MAX_B:
+        return False
+    return megakernel_supported(cfg, layers, cache, slots=batch)
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _unported(cache_scales, tables) -> None:
+    if cache_scales is not None:
+        raise NotImplementedError(
+            "megakernel_batched: int8 KV (cache_scales) is ROADMAP queue A, item 10")
+    if tables is not None:
+        raise NotImplementedError(
+            "megakernel_batched: the paged cache (tables) is ROADMAP queue A, item 9")
+
+
+def w4a16_llama_token_step_batched_plain(
+        h, wqkv, wo, wgu, wdn, ln1, ln2, cos_rows, sin_rows, cache, lengths,
+        nq, nkv, eps=1e-5, whead: Optional[QLinear] = None,
+        norm_w: Optional[torch.Tensor] = None, cache_scales=None, tables=None,
+        max_length: Optional[int] = None):
+    """Plain version of K6: ``(h_new [B, H] in h.dtype, k_new, v_new
+    [L, B, nkv, hd] in the cache dtype)`` plus ``logits [B, V]`` f32 with a
+    head; writes the cache at each row's length in every layer."""
+    _unported(cache_scales, tables)
+    hd = HEAD_DIM
+    b, t = h.shape[0], cache.shape[4]
+    grp = nq // nkv
+    dev = cache.device
+    lens = lengths.to(device=dev, dtype=torch.long).clamp(0, t - 1)
+    tmax = int(lens.max())      # max_length is the kernel's grid hint only
+    rows = torch.arange(b, device=dev)
+    live = torch.arange(tmax, device=dev)[None, :] < lens[:, None]      # [B, tmax]
+    cos, sin = cos_rows.float()[:, None, :], sin_rows.float()[:, None, :]
+    hh = h.float()
+    ks, vs = [], []
+    for l in range(cache.shape[0]):
+        qkv = _bf16(qdot_plain(rms_rows(hh, ln1[l], eps), wqkv.qweight[l],
+                               wqkv.scales[l], wqkv.szeros[l]))
+        if wqkv.bias is not None:
+            qkv = _bf16(qkv + wqkv.bias[l].float())
+        q = rope_rows(qkv[:, :nq * hd].reshape(b, nq, hd), cos, sin)
+        k = rope_rows(qkv[:, nq * hd:(nq + nkv) * hd].reshape(b, nkv, hd), cos, sin)
+        v = qkv[:, (nq + nkv) * hd:].reshape(b, nkv, hd)
+        qs = (q * (1.0 / math.sqrt(hd))).reshape(b, nkv, grp, hd)
+        sc = torch.einsum("bkgh,bkth->bkgt", qs, cache[l, 0, :, :, :tmax].float())
+        sc = sc.masked_fill(~live[:, None, None, :], float("-inf"))
+        s_cur = torch.einsum("bkgh,bkh->bkg", qs, k)[..., None]
+        p = torch.softmax(torch.cat([sc, s_cur], dim=-1), dim=-1)
+        attn = (torch.einsum("bkgt,bkth->bkgh", p[..., :tmax],
+                             cache[l, 1, :, :, :tmax].float())
+                + p[..., tmax:] * v[:, :, None, :])
+        cache[l, 0, rows, :, lens] = k.to(cache.dtype)
+        cache[l, 1, rows, :, lens] = v.to(cache.dtype)
+        h1 = hh + qdot_plain(attn.reshape(b, nq * hd), wo.qweight[l],
+                             wo.scales[l], wo.szeros[l])
+        gu = _bf16(qdot_plain(rms_rows(h1, ln2[l], eps), wgu.qweight[l],
+                              wgu.scales[l], wgu.szeros[l]))
+        gate, up = gu.chunk(2, dim=-1)
+        hm = _bf16(gate * torch.sigmoid(gate) * up)
+        hh = _bf16(h1 + qdot_plain(hm, wdn.qweight[l], wdn.scales[l],
+                                   wdn.szeros[l]))
+        ks.append(k)
+        vs.append(v)
+    out = (hh.to(h.dtype), torch.stack(ks).to(cache.dtype),
+           torch.stack(vs).to(cache.dtype))
+    if whead is None:
+        return out
+    xf = rms_rows(hh, norm_w, eps)
+    return out + (qdot_plain(xf, whead.qweight, whead.scales, whead.szeros),)
+
+
+def w4a16_llama_token_step_batched(
+        h, wqkv, wo, wgu, wdn, ln1, ln2, cos_rows, sin_rows, cache, lengths,
+        nq, nkv, eps=1e-5, whead: Optional[QLinear] = None,
+        norm_w: Optional[torch.Tensor] = None, cache_scales=None, tables=None,
+        max_length: Optional[int] = None):
+    """All decoder layers for the ``B`` rows ``h [B, H]`` in one launch of
+    K6; with ``whead``/``norm_w`` also the final RMSNorm and the W4 head.
+
+    ``cos_rows``/``sin_rows [B, hd]`` f32 are the rope rows at each row's
+    position, ``cache [L, 2, B, nkv, T, hd]``, ``lengths [B]`` int32 on the
+    cache's device (read there: no host sync). ``max_length``, about
+    ``lengths.max()``, sizes the attention slices (a wrong value costs load
+    balance, not correctness); the engine passes it from its host copy of
+    the lengths, and without it the slices are sized for a full cache
+    (``T - 1``). Returns ``(h_new [B, H], k_new
+    [L, B, nkv, hd], v_new)`` (+ ``logits [B, V]`` f32); the cache is
+    written at ``lengths[b]`` of slot ``b`` in every layer."""
+    if cache.device.type == "cpu":
+        return w4a16_llama_token_step_batched_plain(
+            h, wqkv, wo, wgu, wdn, ln1, ln2, cos_rows, sin_rows, cache, lengths,
+            nq, nkv, eps, whead, norm_w, cache_scales, tables, max_length)
+    _unported(cache_scales, tables)
+    what = "megakernel_batched"
+    dev = cache.device
+    if not cache.is_cuda:
+        _fail(what, f"unsupported device {dev}")
+    b = h.shape[0]
+    if not MIN_B <= b <= MAX_B:
+        _fail(what, f"{b} rows; the kernel takes {MIN_B}..{MAX_B}")
+    L, H, inter = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
+                                 cache, nq, nkv, b, slots=b)
+    T = cache.shape[4]
+    check_small(what, dev, None, h=h, ln1=ln1, ln2=ln2, cache=cache)
+    check_small(what, dev, torch.float32, cos_rows=cos_rows, sin_rows=sin_rows)
+    check_small(what, dev, torch.int32, lengths=lengths)
+    if tuple(cos_rows.shape) != (b, HEAD_DIM) or tuple(sin_rows.shape) != (b, HEAD_DIM):
+        _fail(what, f"cos/sin rows must be [{b}, {HEAD_DIM}]")
+    if tuple(lengths.shape) != (b,):
+        _fail(what, f"lengths must be int32 [{b}]")
+    max_length = T - 1 if max_length is None else min(max(int(max_length), 0), T - 1)
+    bias = wqkv.bias
+    check_small(what, dev, h.dtype, bias=bias, norm_w=norm_w)
+    vocab, head, logits = head_operands(what, whead, norm_w, H, b, dev)
+    out = torch.empty_like(h)
+    k_new = torch.empty((L, b, nkv, HEAD_DIM), dtype=cache.dtype, device=dev)
+    v_new = torch.empty_like(k_new)
+    ptrs = ([h.data_ptr(), out.data_ptr()]
+            + qlinear_ptrs(wqkv, dev) + [bias.data_ptr() if bias is not None else 0]
+            + qlinear_ptrs(wo, dev) + qlinear_ptrs(wgu, dev) + qlinear_ptrs(wdn, dev)
+            + [ln1.data_ptr(), ln2.data_ptr(), cos_rows.data_ptr(),
+               sin_rows.data_ptr(), cache.data_ptr(), k_new.data_ptr(),
+               v_new.data_ptr(), lengths.data_ptr()]
+            + head + [logits.data_ptr() if logits is not None else 0])
+    ints = [b, L, H, inter, nq, nkv, T, max_length, vocab, _DTYPE_CODE[h.dtype],
+            _DTYPE_CODE[cache.dtype], int(bias is not None)]
+    launch("awq_mega_batched", "megakernel_batched", ptrs, ints, eps, dev)
+    LAUNCHES["megakernel_batched"] += 1
+    res = (out, k_new, v_new)
+    return res + ((logits,) if logits is not None else ())

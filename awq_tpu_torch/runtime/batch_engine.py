@@ -1,0 +1,244 @@
+"""Continuous-batching inference engine (PyTorch port of
+``awq_tpu/runtime/batch_engine.py``).
+
+A slot-based scheduler over the batch axis of one shared static KV cache
+``[L, 2, n_slots, n_kv, T, hd]``. Requests are admitted into free slots (a
+prefill writes that slot's cache rows), and every engine step runs ONE
+batched decode for all slots at their own lengths
+(:func:`~awq_tpu_torch.models.llama.decode_step_batched`: per-row rope
+positions, per-row attention lengths). Finished slots free at once and new
+requests join between steps, so decode never drains the batch.
+
+The host keeps its own copies of the per-slot lengths and next tokens, as
+the JAX engine does: a step uploads them and fetches one thing from the
+device, the sampled ids.
+
+Prefill into a slot. The JAX engine slices the slot's row out of the cache,
+runs ``forward`` on it and writes the row back. Here the single-stream
+kernels (K2-K5) take a contiguous cache of batch 1, and the view
+``cache[:, :, slot:slot + 1]`` of an ``n_slots`` cache is not contiguous.
+So the engine prefills into a one-slot staging cache of the same length
+(allocated at the first admission) and copies only the prefix ``[0, S)``
+that the prompt wrote into the slot: S positions per layer and head, not a
+``T``-long row.
+
+Not ported: speculative verify (``spec_k``), a device mesh, the int8 cache
+and the int8 prefill weight cache raise ``NotImplementedError``. The JAX
+engine's ``_can_admit`` and ``_on_release`` hooks serve its paged subclass
+only and come with that port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from awq_tpu_torch import _device
+from awq_tpu_torch.config import GenConfig, ModelConfig
+from awq_tpu_torch.models.llama import (
+    decode_step_batched,
+    forward,
+    fuse_linears,
+    init_kv_cache,
+    params_to,
+)
+from awq_tpu_torch.models.llama import quantize_head as _quantize_head
+from awq_tpu_torch.runtime.sampling import sample_logits, sample_logits_batched
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt_ids: List[int]
+    gen: GenConfig
+    stop_ids: frozenset
+    out_ids: List[int] = dataclasses.field(default_factory=list)
+    slot: Optional[int] = None
+    done: bool = False
+    submitted_at: float = dataclasses.field(default_factory=time.time)
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+
+
+class BatchEngine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        # default 8: 2..64 slots ride the batched whole-token megakernel on
+        # the card (ops/megakernel_batched.py), one launch per step instead
+        # of ~50 per layer
+        n_slots: int = 8,
+        max_seq_len: int = 2048,
+        cache_dtype=torch.bfloat16,
+        quantize_head: bool = False,
+        runtime=None,   # Optional[RuntimeConfig]: quantize_head
+        spec_k: int = 0,
+        device="cuda",
+    ):
+        self.device = _device.resolve(device)
+        self.cfg = cfg
+        if spec_k:
+            raise NotImplementedError(
+                "speculative verify (spec_k) is ROADMAP queue A, item 11")
+        if getattr(runtime, "mesh", None) is not None:
+            raise NotImplementedError(
+                "multi-GPU serving (RuntimeConfig.mesh) is ROADMAP queue A, item 17")
+        if getattr(runtime, "prefill_w8", False):
+            raise NotImplementedError(
+                "the int8 prefill weight cache (prefill_w8) is ROADMAP queue A, item 16")
+        if cache_dtype in ("int8", torch.int8):
+            raise NotImplementedError("int8 KV cache is ROADMAP queue A, item 10")
+        if runtime is not None and runtime.quantize_head:
+            quantize_head = True
+        params = params_to(params, self.device)
+        if quantize_head:
+            params = _quantize_head(params, cfg)
+        self.params = fuse_linears(params, cfg)
+        self.n_slots = n_slots
+        self._init_cache(cfg, n_slots, max_seq_len, cache_dtype)
+        self.lengths = np.zeros(n_slots, np.int32)     # host copy
+        self.tokens = np.zeros(n_slots, np.int64)      # next input per slot
+        # per-slot sampling params (requests carry their own GenConfig)
+        self.temps = np.ones(n_slots, np.float32)
+        self.top_ks = np.zeros(n_slots, np.int64)
+        self.top_ps = np.ones(n_slots, np.float32)
+        self.greedy = np.ones(n_slots, bool)
+        self.slots: List[Optional[Request]] = [None] * n_slots
+        self.waiting: Deque[Request] = deque()
+        self.finished: Dict[int, Request] = {}
+        self._next_rid = 0
+        self._generator = torch.Generator(device=self.device).manual_seed(0)
+
+    # ---- cache strategy ----------------------------------------------------
+
+    def _init_cache(self, cfg, n_slots, max_seq_len, cache_dtype) -> None:
+        self.cache = init_kv_cache(cfg, n_slots, max_seq_len, cache_dtype,
+                                   device=self.device)
+        self.max_seq = self.cache.shape[4]
+        self._stage: Optional[torch.Tensor] = None     # one-slot prefill cache
+
+    def _prefill_slot(self, slot: int, toks: torch.Tensor) -> torch.Tensor:
+        """Prefill ``toks [1, S]`` into ``slot``'s cache rows; returns the
+        final-position logits ``[1, V]``."""
+        if self._stage is None:
+            self._stage = torch.zeros_like(self.cache[:, :, :1])
+        s = toks.shape[1]
+        logits, _ = forward(self.params, self.cfg, toks, self._stage, 0)
+        self.cache[:, :, slot, :, :s] = self._stage[:, :, 0, :, :s]
+        return logits[:, -1]
+
+    def _decode(self) -> torch.Tensor:
+        """One batched decode step over all slots -> logits [n_slots, V]."""
+        logits, _ = decode_step_batched(
+            self.params, self.cfg,
+            torch.from_numpy(self.tokens).to(self.device), self.cache,
+            torch.from_numpy(self.lengths).to(self.device),
+            max_length=int(self.lengths.max()),
+        )
+        return logits
+
+    # ---- request API ------------------------------------------------------
+
+    def submit(self, prompt_ids: Sequence[int], gen: GenConfig,
+               stop_ids: Sequence[int] = ()) -> int:
+        rid = self._next_rid
+        self._next_rid += 1
+        self.waiting.append(Request(
+            rid=rid, prompt_ids=list(prompt_ids), gen=gen,
+            stop_ids=frozenset(int(t) for t in stop_ids),
+        ))
+        return rid
+
+    @property
+    def n_active(self) -> int:
+        return sum(r is not None for r in self.slots)
+
+    def _free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self.slots):
+            if r is None:
+                return i
+        return None
+
+    # ---- scheduling -------------------------------------------------------
+
+    def _admit(self) -> None:
+        """Prefill waiting requests into free slots (continuous admission)."""
+        while self.waiting:
+            slot = self._free_slot()
+            if slot is None:
+                return
+            req = self.waiting[0]
+            n = len(req.prompt_ids)
+            if n + req.gen.max_new_tokens > self.max_seq:
+                self.waiting.popleft()
+                req.done = True
+                req.finished_at = time.time()
+                self.finished[req.rid] = req
+                continue
+            self.waiting.popleft()
+            toks = torch.tensor([req.prompt_ids], dtype=torch.long,
+                                device=self.device)
+            last_logits = self._prefill_slot(slot, toks)
+            first = int(sample_logits(last_logits, req.gen,
+                                      generator=self._generator)[0])
+            req.slot = slot
+            req.first_token_at = time.time()
+            self.slots[slot] = req
+            self.lengths[slot] = n
+            self.tokens[slot] = first
+            self.temps[slot] = req.gen.temperature
+            self.top_ks[slot] = req.gen.top_k
+            self.top_ps[slot] = req.gen.top_p
+            self.greedy[slot] = req.gen.greedy
+            self._record(req, first)
+
+    def _finish(self, req: Request) -> None:
+        req.done = True
+        req.finished_at = time.time()
+        self.finished[req.rid] = req
+        self.slots[req.slot] = None
+
+    def _record(self, req: Request, token: int) -> None:
+        req.out_ids.append(token)
+        if (token in req.stop_ids
+                or len(req.out_ids) >= req.gen.max_new_tokens):
+            if req.out_ids and req.out_ids[-1] in req.stop_ids:
+                req.out_ids.pop()
+            self._finish(req)
+
+    def step(self) -> Dict[int, int]:
+        """Admit + one batched decode step. Returns {rid: new_token} for
+        slots that produced a token this step."""
+        self._admit()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return {}
+        logits = self._decode()
+        nxt = sample_logits_batched(
+            logits, torch.from_numpy(self.temps), torch.from_numpy(self.top_ks),
+            torch.from_numpy(self.top_ps), torch.from_numpy(self.greedy),
+            generator=self._generator,
+        ).cpu().numpy()                      # the step's one device fetch
+        out: Dict[int, int] = {}
+        for i in active:
+            req = self.slots[i]
+            self.lengths[i] += 1
+            tok = int(nxt[i])
+            self.tokens[i] = tok
+            out[req.rid] = tok
+            self._record(req, tok)
+            if not req.done and self.lengths[i] + 1 >= self.max_seq:
+                self._finish(req)  # out of cache slots
+        return out
+
+    def run(self) -> Dict[int, Request]:
+        """Drain all submitted requests; returns {rid: Request}."""
+        while self.waiting or self.n_active:
+            self.step()
+        return self.finished

@@ -3,7 +3,9 @@
 Repetition penalty -> temperature -> top-k -> top-p, then greedy
 (``argmax``) or categorical sampling from an explicit ``torch.Generator``.
 Sampled draws differ from ``jax.random``'s for the same seed; greedy ids
-are the same function of the logits.
+are the same function of the logits. :func:`process_logits` and
+:func:`sample_logits_batched` take ROW-VARYING parameters: continuous
+batching mixes requests with different ``GenConfig``s in one step.
 """
 
 from __future__ import annotations
@@ -44,6 +46,54 @@ def apply_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
                          torch.full_like(sorted_logits, float("inf")))
     thresh = thresh.amin(dim=-1, keepdim=True)
     return torch.where(logits < thresh, float("-inf"), logits)
+
+
+def process_logits(logits: torch.Tensor, temperature: torch.Tensor,
+                   top_k: torch.Tensor, top_p: torch.Tensor) -> torch.Tensor:
+    """Per-row temperature / top-k / top-p masking of ``logits [..., V]``
+    f32. ``temperature``, ``top_k`` (int, 0 = off) and ``top_p`` (1.0 = off)
+    have shape ``logits.shape[:-1]`` or broadcast to it."""
+    v = logits.shape[-1]
+    lead = logits.shape[:-1]
+    proc = logits / temperature.clamp(min=1e-5)[..., None]
+
+    sorted_desc = torch.sort(proc, dim=-1, descending=True).values
+    # per-row top-k threshold: the value at index k-1; k = 0 -> the last (off)
+    k = torch.where(top_k > 0, top_k.clamp(1, v), torch.full_like(top_k, v))
+    k = k.to(torch.long).broadcast_to(lead)
+    kth = torch.gather(sorted_desc, -1, (k - 1)[..., None])
+    proc = torch.where(proc < kth, float("-inf"), proc)
+
+    # per-row top-p on the logits already masked by top-k
+    s2 = torch.sort(proc, dim=-1, descending=True).values
+    cum = torch.cumsum(torch.softmax(s2, dim=-1), dim=-1)
+    keep = torch.cat([torch.ones_like(cum[..., :1], dtype=torch.bool),
+                      cum[..., :-1] < top_p[..., None]], dim=-1)
+    thresh = torch.where(keep, s2, torch.full_like(s2, float("inf")))
+    thresh = thresh.amin(dim=-1, keepdim=True)
+    return torch.where(proc < thresh, float("-inf"), proc)
+
+
+def sample_logits_batched(logits: torch.Tensor, temperature: torch.Tensor,
+                          top_k: torch.Tensor, top_p: torch.Tensor,
+                          greedy: torch.Tensor,
+                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """One token per row of ``logits [B, V]`` with per-row parameters
+    ``[B]`` -> ``[B]`` int64. Rows with ``greedy`` set or a temperature
+    under 1e-5 take the argmax of the raw logits; the others draw from
+    their masked distribution with ``generator``. The parameters may live
+    on the host (the engine's copies): a step whose rows are all greedy is
+    then decided without a device sync and runs the argmax only."""
+    logits = logits.float()
+    arg = torch.argmax(logits, dim=-1)
+    take_arg = greedy | (temperature < 1e-5)
+    if bool(take_arg.all()):
+        return arg
+    dev = logits.device
+    proc = process_logits(logits, temperature.to(dev), top_k.to(dev), top_p.to(dev))
+    sampled = torch.multinomial(torch.softmax(proc, dim=-1), 1,
+                                generator=generator)[:, 0]
+    return torch.where(take_arg.to(dev), arg, sampled)
 
 
 def sample_logits(logits: torch.Tensor, gen: GenConfig,

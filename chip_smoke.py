@@ -13,6 +13,10 @@ Phases (each failure ends the run with a non-zero exit):
    the megakernels, which no single PyTorch call computes: the stacked
    per-kernel path's device time for the same step), beside the least
    time the card could take (``bound_ms``).
+   That covers K1-K5 at batch 1, K1 at 8 and 32 rows and K2 at 8 rows of
+   ragged lengths as the batched stacked path calls them, the batched
+   megakernel K6 at 8 and 32 rows (its in-place cache write included) and
+   the KV append K7.
 3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
    new tokens each, the second continuing the first's dialogue, then a
    24-token follow-up continuing the third's) through ``InferenceEngine``
@@ -21,10 +25,18 @@ Phases (each failure ends the run with a non-zero exit):
    ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` (the stacked per-kernel path). The
    launch counts are set to 0 before each and read after it: K4 and K5
    must grow in the first, K1-K3 in the second.
+3b. Serve twelve requests (prompts of 16, 24, 200 and 1000 ids in rotation,
+   32 greedy new tokens each) through a ``BatchEngine`` of 8 slots over the
+   same model, a new request joining every few steps while the others
+   decode; again twice: on K6 (the default) and with
+   ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` (K1 GEMV at 8 rows, K2, K7). K6 must
+   grow in the first, K1, K2 and K7 in the second. The copy of a prompt's
+   prefix from the staging cache into its slot is timed by prompt length.
 4. At the same widths and 2 layers, feed the same tokens through
    ``forward`` on the kernel path and on the plain path and compare
    logits: a 100-token prefill and 8 decodes on the stacked path, a
-   20-token chunk prefill and 8 decodes on the megakernels.
+   20-token chunk prefill and 8 decodes on the megakernels; then one
+   ``decode_step_batched`` of 8 rows at ragged lengths on both paths.
 5. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, where CUDA is not available or the
@@ -155,6 +167,12 @@ def phase_kernels(torch, timer, cases_out):
         for wname in ("wqkv", "wgateup", "down"):
             cases_out.append(k1_case("w4a16_gemm", wname, m))
             log_case(cases_out[-1])
+    # the batched stacked path: 8 slots are the GEMV entry's most rows
+    # (GEMV_MAX_M), 32 rows take the GEMM entry; every projection and the head
+    for entry, m in (("w4a16_gemv", w4.GEMV_MAX_M), ("w4a16_gemm", 32)):
+        for wname in shapes:
+            cases_out.append(k1_case(entry, wname, m))
+            log_case(cases_out[-1])
 
     # bf16 output rounding 2^-9; K3 also rounds P to bf16 for P.V.
     attn_tol = 2.0 ** -6
@@ -217,6 +235,71 @@ def phase_kernels(torch, timer, cases_out):
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             library="F.scaled_dot_product_attention(attn_mask, enable_gqa=True)"))
         log_case(cases_out[-1])
+
+    # K2 over 8 rows at their own lengths (one of them 0), as the batched
+    # stacked path calls it; the grid is sized from the longest row
+    b, t_b = 8, 2048
+    ragged = [1000, 0, 930, 1100, 1015, 850, 1200, 977]
+    mx = max(ragged)
+    cache = torch.randn((2, b, nkv, t_b, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, nq, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    kn, vn = (torch.randn((b, nkv, hd), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor(ragged, dtype=torch.int32, device="cuda")
+    got = da.flash_decode(q, kn, vn, cache, lens, max_length=mx)
+    ref = da.flash_decode_plain(q, kn, vn, cache, lens, max_length=mx)
+    torch.cuda.synchronize()
+    err, rel = check(f"flash_decode B={b} ragged", got, ref, attn_tol)
+    k_all = torch.cat([cache[0, :, :, :mx], kn[:, :, None]], dim=2)
+    v_all = torch.cat([cache[1, :, :, :mx], vn[:, :, None]], dim=2)
+    mask = torch.arange(mx + 1, device="cuda")[None, :] < lens[:, None]
+    mask[:, mx] = True
+    ms = timer(lambda: da.flash_decode(q, kn, vn, cache, lens, max_length=mx))
+    plain_ms = timer(lambda: da.flash_decode_plain(q, kn, vn, cache, lens,
+                                                   max_length=mx), reps=5)
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k_all, v_all, attn_mask=mask[:, None, None, :], enable_gqa=True))
+    nbytes = (2 * b * nq * hd + 2 * b * nkv * hd + 2 * nkv * hd * sum(ragged)) * 2
+    b_ms, b_by = bound(nbytes, 4.0 * nq * hd * (sum(ragged) + b))
+    cases_out.append(dict(
+        name="flash_decode", shape=f"B={b} ragged len 0..{mx} nq={nq} nkv={nkv}",
+        max_abs_err=err, max_rel_err=rel, tol=f"{attn_tol:g}*max|ref|", ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        library="F.scaled_dot_product_attention(attn_mask, enable_gqa=True)"))
+    log_case(cases_out[-1])
+    del cache, k_all, v_all
+
+    # K7: one step's k/v of all 32 layers into an 8-slot cache; exact
+    from awq_tpu_torch.ops import cache_append as ca
+
+    n_l = cfg["num_layers"]
+    caches = [torch.randn((n_l, 2, b, nkv, t_b, hd), generator=gen,
+                          device="cuda").to(torch.bfloat16)]
+    caches.append(caches[0].clone())
+    kv = torch.randn((n_l, 2, b, nkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    ca.batched_cache_append(caches[0], kv, lens)
+    ca.batched_cache_append_plain(caches[1], kv, lens)
+    torch.cuda.synchronize()
+    err, rel = check("cache_append", caches[0], caches[1], 0.0)
+    if not torch.equal(caches[0], caches[1]):
+        raise AssertionError("cache_append: the kernel's cache differs from the plain one")
+    rows, pos = torch.arange(b, device="cuda"), lens.long()
+    kvp = kv.permute(2, 0, 1, 3, 4).contiguous()
+
+    def indexed_copy():
+        caches[1][:, :, rows, :, pos] = kvp
+
+    ms = timer(lambda: ca.batched_cache_append(caches[0], kv, lens))
+    plain_ms = timer(lambda: ca.batched_cache_append_plain(caches[1], kv, lens), reps=5)
+    lib_ms = timer(indexed_copy)
+    b_ms, b_by = bound(2 * kv.numel() * 2 + b * 4, 0.0)
+    cases_out.append(dict(
+        name="cache_append", shape=f"L={n_l} B={b} nkv={nkv} hd={hd} T={t_b}",
+        max_abs_err=err, max_rel_err=rel, tol="exact", ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        library="one indexed assignment (index_put_) of the permuted k/v"))
+    log_case(cases_out[-1])
+    del caches
 
 
 def log_case(c):
@@ -362,7 +445,65 @@ def phase_megakernels(torch, timer, cases_out):
             record("megakernel_chunk", f"{L} layers S={s} hist={hist}", got, ref, tol_deep,
                    ms, plain_ms, yard_ms, L * (layer_bytes + kv_pos * (hist + s)),
                    L * (s * layer_flops + 4.0 * nq * hd * pairs))
-    del params, cache
+    del cache
+
+    # K6: the continuous-batching step, 8 and 32 rows at ragged lengths
+    # around 1000 (row 1 is empty); the yardstick is the stacked batched
+    # path (K1 at M rows, K2, glue, K7) for the same step
+    from awq_tpu_torch.ops import megakernel_batched as mkb
+
+    t_b = 2048
+    cos, sin = llama.rope_table(cfg, t_b, device=dev)
+    for b in (8, 32):
+        ragged = [700 + (i * 97) % 600 for i in range(b)]
+        ragged[1] = 0
+        mx, total = max(ragged), sum(ragged) + b
+        lens = torch.tensor(ragged, dtype=torch.int32, device=dev)
+        cache_b = llama.init_kv_cache(cfg, b, t_b)
+        cache_b.normal_(generator=gen)
+        cache_ref = cache_b.clone()             # the plain version's own cache
+        h = (torch.randn((b, h_dim), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        rope = (cos[lens.long()], sin[lens.long()])
+        step = (h, *args, *rope, cache_b, lens, nq, nkv, eps)
+        step_ref = (h, *args, *rope, cache_ref, lens, nq, nkv, eps)
+        kw = dict(whead=params["lm_head"], norm_w=params["norm"], max_length=mx)
+        got = mkb.w4a16_llama_token_step_batched(*step, **kw)
+        ref = mkb.w4a16_llama_token_step_batched_plain(*step_ref, **kw)
+        torch.cuda.synchronize()
+        # the in-place write over all layers: each row's k/v sit at its own
+        # length, as returned, within tolerance of the plain cache's, and
+        # every other element of the two caches is equal bit for bit
+        rows, at = torch.arange(b, device=dev), lens.long()
+        for i in (0, 1):
+            if not torch.equal(cache_b[:, i, rows, :, at].transpose(0, 1), got[1 + i]):
+                raise AssertionError(f"megakernel_batched B={b}: the cache does not hold "
+                                     "the returned k/v at each row's length")
+            check(f"megakernel_batched B={b} cache written, kv {i}",
+                  cache_b[:, i, rows, :, at], cache_ref[:, i, rows, :, at], tol_deep)
+        written = cache_ref[:, :, rows, :, at]
+        cache_ref[:, :, rows, :, at] = cache_b[:, :, rows, :, at]
+        if not torch.equal(cache_b, cache_ref):
+            raise AssertionError(f"megakernel_batched B={b}: the kernel changed the cache "
+                                 "outside the rows' write positions")
+        cache_ref[:, :, rows, :, at] = written
+        del written
+        ms = timer(lambda: mkb.w4a16_llama_token_step_batched(*step, **kw))
+        plain_ms = timer(lambda: mkb.w4a16_llama_token_step_batched_plain(*step_ref, **kw),
+                         reps=2)
+
+        def stacked_step():
+            hh = llama.stacked_layers(params, cfg, h[:, None], cache_b, 0,
+                                      lengths=lens, max_length=mx)[:, 0]
+            return llama._head_logits(params, llama.rms_norm(hh, params["norm"], eps), "auto")
+
+        yard_ms = device_ms(torch, stacked_step)
+        record("megakernel_batched", f"{L} layers + W4 head, B={b}, len 0..{mx}", got, ref,
+               tol_deep, ms, plain_ms, yard_ms,
+               L * (layer_bytes + kv_pos * total) + head_bytes + 2 * b * h_dim * 2,
+               b * (L * layer_flops + 2.0 * h_dim * vocab) + L * 4.0 * nq * hd * total)
+        del cache_b, cache_ref, step, step_ref, got, ref
+        torch.cuda.empty_cache()
+    del params
 
 
 def weight_bytes(params) -> int:
@@ -382,12 +523,25 @@ CONFIGS = (("megakernels", None), ("stacked", "1"))   # AWQ_TPU_DISABLE_MEGAKERN
 
 
 def counters():
+    from awq_tpu_torch.ops import cache_append as ca
     from awq_tpu_torch.ops import decode_attn as da
     from awq_tpu_torch.ops import megakernel as mk
+    from awq_tpu_torch.ops import megakernel_batched as mkb
     from awq_tpu_torch.ops import megakernel_chunk as mkc
     from awq_tpu_torch.ops import w4a16 as w4
 
-    return (w4.LAUNCHES, da.LAUNCHES, mk.LAUNCHES, mkc.LAUNCHES)
+    return (w4.LAUNCHES, da.LAUNCHES, mk.LAUNCHES, mkc.LAUNCHES, mkb.LAUNCHES,
+            ca.LAUNCHES)
+
+
+def reset_counters():
+    for d in counters():
+        for k in d:
+            d[k] = 0
+
+
+def read_counters():
+    return {k: v for d in counters() for k, v in d.items()}
 
 
 def set_config(disable):
@@ -399,7 +553,8 @@ def set_config(disable):
 
 def phase_serve(torch, layers: int):
     """Phase 3: the requests through InferenceEngine, once per configuration;
-    returns {config: launches}."""
+    returns {config: launches} and the engine's parameters (fused, W4 head)
+    for the batched phase."""
     from awq_tpu_torch.config import GenConfig, ModelConfig, QuantConfig, RuntimeConfig
     from awq_tpu_torch.models.llama import init_qparams
     from awq_tpu_torch.runtime.engine import InferenceEngine
@@ -425,9 +580,7 @@ def phase_serve(torch, layers: int):
         log(f"  [{label}] AWQ_TPU_DISABLE_MEGAKERNEL={disable or 'unset'}")
         engine.warmup()
         rng = torch.Generator().manual_seed(7)
-        for d in counters():
-            for k in d:
-                d[k] = 0
+        reset_counters()
         results = []
         for i, (n, fresh) in enumerate(REQUESTS):
             if fresh:
@@ -449,7 +602,7 @@ def phase_serve(torch, layers: int):
                 f"{gb_tok / ms_tok * 1e3:.1f} GB/s effective")
             results.append(dict(prompt=n, start_pos=start, ttft_ms=tm["ttft_s"] * 1e3,
                                 ms_per_token=ms_tok, gb_per_token=gb_tok))
-        launches = {k: v for d in counters() for k, v in d.items()}
+        launches = read_counters()
         log(f"  [{label}] launches during the four requests: {launches}")
         must = (("megakernel_token", "megakernel_chunk") if disable is None else
                 ("w4a16_gemv", "w4a16_gemm", "flash_decode", "flash_prefill"))
@@ -462,9 +615,10 @@ def phase_serve(torch, layers: int):
         profile_decode(torch, engine, results[-1]["ms_per_token"], label)
     set_config(None)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    params = engine.params
     del engine
     torch.cuda.empty_cache()
-    return out_launches
+    return out_launches, cfg, params
 
 
 def profile_decode(torch, engine, ms_per_token: float, label: str,
@@ -472,9 +626,6 @@ def profile_decode(torch, engine, ms_per_token: float, label: str,
     """Device time of decode steps by kernel, from a torch.profiler trace of
     ``steps`` forward calls after the last request, against the request's
     unprofiled ms/token: the rest of the step is the device's idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from awq_tpu_torch.models.llama import forward
 
     tok = torch.zeros((1, 1), dtype=torch.long, device="cuda")
@@ -489,10 +640,32 @@ def profile_decode(torch, engine, ms_per_token: float, label: str,
         torch.cuda.synchronize()
         log(f"  [{label}] {steps} forward calls at position {at + 1}, no sync between: "
             f"{(time.perf_counter() - t0) / steps * 1e3:.3f} ms/step")
+    profile_steps(torch, lambda i: forward(engine.params, engine.cfg, tok, engine.cache,
+                                           pos + 1 + i),
+                  ms_per_token, label, f"position {pos + 1}", "ms/token", steps)
+
+
+KERNEL_GROUPS = {"w4a16_gemv": ("w4a16_gemv", "splitk_reduce"),
+                 "flash_decode": ("flash_decode",), "w4a16_gemm": ("w4a16_gemm",),
+                 "flash_prefill": ("flash_prefill",), "megakernel_token": ("token_kernel",),
+                 "megakernel_chunk": ("chunk_kernel",),
+                 "megakernel_batched": ("batched_kernel",),
+                 "cache_append": ("cache_append_kernel",)}
+
+
+def profile_steps(torch, run_step, ms_ref: float, label: str, where: str, unit: str,
+                  steps: int = 8) -> None:
+    """A torch.profiler trace of ``steps`` calls of ``run_step(i)``: the host's
+    time per step and its top operations, the device time per step by kernel,
+    the kernels per step, and the device's idle share against ``ms_ref``, the
+    unprofiled time of such a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            forward(engine.params, engine.cfg, tok, engine.cache, pos + 1 + i)
+            run_step(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / steps * 1e3
     ops = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
@@ -502,18 +675,14 @@ def profile_decode(torch, engine, ms_per_token: float, label: str,
         f"{op_ms:.3f} ms (top: " + ", ".join(
             f"{e.key} x{e.count // steps} {e.self_cpu_time_total / steps / 1e3:.2f}"
             for e in top) + "); the rest is Python and the ctypes launches")
-    groups = {"w4a16_gemv": ("w4a16_gemv", "splitk_reduce"),
-              "flash_decode": ("flash_decode",), "w4a16_gemm": ("w4a16_gemm",),
-              "flash_prefill": ("flash_prefill",), "megakernel_token": ("token_kernel",),
-              "megakernel_chunk": ("chunk_kernel",)}
-    us = {k: 0.0 for k in groups}
+    us = {k: 0.0 for k in KERNEL_GROUPS}
     us["other PyTorch kernels"] = 0.0
     n_kernels = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         n_kernels += 1
-        key = next((k for k, pats in groups.items()
+        key = next((k for k, pats in KERNEL_GROUPS.items()
                     if any(p in e.name for p in pats)), "other PyTorch kernels")
         us[key] += e.time_range.elapsed_us()
     if not n_kernels:
@@ -521,10 +690,129 @@ def profile_decode(torch, engine, ms_per_token: float, label: str,
         return
     busy_ms = sum(us.values()) / steps / 1e3
     parts = ", ".join(f"{k} {v / steps / 1e3:.3f}" for k, v in us.items() if v)
-    log(f"  [{label}] decode step device time (torch.profiler, {steps} steps at position "
-        f"{pos + 1}): {busy_ms:.3f} ms/step busy [{parts}], "
-        f"{n_kernels / steps:.0f} kernels/step; against {ms_per_token:.3f} "
-        f"ms/token unprofiled the device is idle {1 - busy_ms / ms_per_token:.1%}")
+    log(f"  [{label}] decode step device time (torch.profiler, {steps} steps at "
+        f"{where}): {busy_ms:.3f} ms/step busy [{parts}], "
+        f"{n_kernels / steps:.0f} kernels/step; against {ms_ref:.3f} "
+        f"{unit} unprofiled the device is idle {1 - busy_ms / ms_ref:.1%}")
+
+
+BATCH_PROMPTS = (16, 24, 200, 1000)     # in rotation over the twelve requests
+BATCH_SLOTS, BATCH_REQUESTS, BATCH_NEW = 8, 12, 32
+
+
+def phase_serve_batched(torch, cfg, params):
+    """Phase 3b: twelve requests through an 8-slot BatchEngine, once per
+    configuration; returns {config: launches}."""
+    from awq_tpu_torch.config import GenConfig
+    from awq_tpu_torch.runtime.batch_engine import BatchEngine
+
+    gen = GenConfig(greedy=True, max_new_tokens=BATCH_NEW)
+    rng = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(0, cfg.vocab_size, (BATCH_PROMPTS[i % 4],),
+                             generator=rng).tolist() for i in range(BATCH_REQUESTS)]
+    out_launches, ids = {}, {}
+    for label, disable in (("batched", None), ("batched_stacked", "1")):
+        set_config(disable)
+        log(f"  [{label}] AWQ_TPU_DISABLE_MEGAKERNEL={disable or 'unset'}")
+        engine = BatchEngine(cfg, params, n_slots=BATCH_SLOTS, max_seq_len=2048)
+        # warm: first launches load the kernels' modules
+        engine.submit(prompts[0][:8], GenConfig(greedy=True, max_new_tokens=2))
+        engine.submit(prompts[2][:40], GenConfig(greedy=True, max_new_tokens=2))
+        engine.run()
+        engine.finished.clear()
+        torch.cuda.synchronize()
+        reset_counters()
+        rids, decode_ms, admit_ms = [], [], []
+        pending = list(prompts)
+        n_steps = 0
+        t_run = time.perf_counter()
+        while pending or engine.waiting or engine.n_active:
+            # six requests at once, then one more every fourth step while a
+            # slot is free: each joins while the others decode
+            free = BATCH_SLOTS - engine.n_active - len(engine.waiting)
+            want = 6 - len(rids) if len(rids) < 6 else int(n_steps % 4 == 0)
+            for _ in range(min(want, free, len(pending))):
+                rids.append(engine.submit(pending.pop(0), gen))
+            admitting = bool(engine.waiting)
+            t0 = time.perf_counter()
+            engine.step()               # ends with the fetch of the sampled ids
+            (admit_ms if admitting else decode_ms).append((time.perf_counter() - t0) * 1e3)
+            n_steps += 1
+        wall = time.perf_counter() - t_run
+        launches = read_counters()
+        done = [engine.finished[r] for r in rids]
+        for r in done:
+            if len(r.out_ids) != BATCH_NEW or min(r.out_ids) < 0 \
+                    or max(r.out_ids) >= cfg.vocab_size:
+                raise AssertionError(f"[{label}] request {r.rid}: bad output ids {r.out_ids}")
+        ids[label] = [r.out_ids for r in done]
+        n_tok = sum(len(r.out_ids) for r in done)
+        ttft = {n: [] for n in BATCH_PROMPTS}
+        for r in done:
+            ttft[len(r.prompt_ids)].append((r.first_token_at - r.submitted_at) * 1e3)
+        ms_step = statistics.median(decode_ms)
+        log(f"  [{label}] {BATCH_REQUESTS} requests x {BATCH_NEW} new tokens through "
+            f"{BATCH_SLOTS} slots: {n_steps} steps in {wall * 1e3:.1f} ms, "
+            f"{n_tok / wall:.1f} tokens/s aggregate; decode-only steps "
+            f"{ms_step:.3f} ms/step median ({min(decode_ms):.3f}-{max(decode_ms):.3f}, "
+            f"{len(decode_ms)} steps), steps that admit {statistics.median(admit_ms):.2f} ms median")
+        log(f"  [{label}] TTFT (submit to first token, ms) by prompt length: " + ", ".join(
+            f"{n}: " + "/".join(f"{t:.2f}" for t in ts) for n, ts in ttft.items()))
+        log(f"  [{label}] launches during the twelve requests: {launches}")
+        must = (("megakernel_batched", "megakernel_chunk", "w4a16_gemm", "flash_prefill")
+                if disable is None else
+                ("w4a16_gemv", "w4a16_gemm", "flash_decode", "flash_prefill", "cache_append"))
+        for k in must:
+            if launches[k] <= 0:
+                raise AssertionError(f"[{label}] kernel {k} was not launched on its path")
+        off = (("cache_append", "flash_decode") if disable is None else
+               ("megakernel_batched", "megakernel_chunk", "megakernel_token"))
+        for k in off:
+            if launches[k]:
+                raise AssertionError(f"[{label}] kernel {k} ran off its path")
+        out_launches[label] = launches
+        # eight more steps over all slots at the lengths the run left behind
+        where = f"slot lengths {sorted(int(x) for x in engine.lengths)}"
+
+        def one_step(i):
+            engine._decode().argmax(-1).cpu()
+            engine.lengths += 1
+
+        one_step(0)
+        profile_steps(torch, one_step, ms_step, label, where, "ms/step")
+        if disable is None:
+            time_prefix_copy(torch, engine)
+        del engine
+        torch.cuda.empty_cache()
+    set_config(None)
+    agree = sum(a == b for a, b in zip(ids["batched"], ids["batched_stacked"]))
+    log(f"  greedy ids of the two paths agree on {agree}/{BATCH_REQUESTS} requests "
+        "(random weights: a rounding difference can flip an argmax and the rest follows)")
+    return out_launches
+
+
+def time_prefix_copy(torch, engine, slot: int = 3, reps: int = 5) -> None:
+    """Device time of an admission's copy of the prompt's prefix ``[0, S)``
+    from the one-slot staging cache into a slot, as ``_prefill_slot`` makes
+    it: the median of ``reps`` CUDA-event-timed copies per prompt length,
+    against the bytes read and written over the memory rate."""
+    cache, stage = engine.cache, engine._stage
+    parts = []
+    for s in BATCH_PROMPTS:
+        times = []
+        for _ in range(reps + 1):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            cache[:, :, slot, :, :s] = stage[:, :, 0, :, :s]
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        nbytes = 2 * stage[:, :, 0, :, :s].numel() * stage.element_size()
+        parts.append(f"{s} tokens {statistics.median(times[1:]):.4f} ms "
+                     f"({nbytes / 1e6:.1f} MB moved, bound "
+                     f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    log("  prefix copy from the staging cache into a slot, by prompt length: "
+        + ", ".join(parts))
 
 
 def phase_model_parity(torch):
@@ -558,6 +846,27 @@ def phase_model_parity(torch):
         log(f"  [{label}] {prompt}-token prefill + 8 decodes, logits kernel vs plain: "
             f"worst max_abs_err/max|ref| {worst:.3e} (tol {tol:g}); greedy ids agree "
             f"on {agree}/{len(steps)} steps")
+    # one continuous-batching step of 8 rows at ragged lengths (row 1 empty)
+    # over a random cache: K6, then the stacked batched path (K1, K2, K7)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ragged = [300, 0, 17, 511 - 1, 64, 255, 128, 5]
+    lens = torch.tensor(ragged, dtype=torch.int32, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (8,), generator=gen, device="cuda")
+    base = llama.init_kv_cache(cfg, 8, 512)
+    base.normal_(generator=gen)
+    for label, disable in (("batched", None), ("batched_stacked", "1")):
+        set_config(disable)
+        caches = [base.clone(), base.clone()]
+        got, _ = llama.decode_step_batched(params, cfg, toks, caches[0], lens,
+                                           max_length=max(ragged))
+        ref, _ = llama.decode_step_batched(params, cfg, toks, caches[1], lens, impl="plain")
+        torch.cuda.synchronize()
+        err, rel = check(f"[{label}] decode_step_batched logits", got, ref, tol)
+        cerr, _ = check(f"[{label}] decode_step_batched cache", caches[0], caches[1], tol)
+        agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+        log(f"  [{label}] decode_step_batched, 8 rows at lengths {ragged}, kernel vs plain: "
+            f"logits max_abs_err/max|ref| {rel:.3e} (tol {tol:g}), cache max_abs_err "
+            f"{cerr:.3e}; greedy ids agree on {agree}/8 rows")
     set_config(None)
 
 
@@ -604,7 +913,13 @@ def main() -> int:
 
     log(f"phase 3: serve four requests, Llama-3-8B width, {args.layers} layers, "
         "on the megakernels and on the stacked path")
-    launches = phase_serve(torch, args.layers)
+    launches, cfg, params = phase_serve(torch, args.layers)
+
+    log(f"phase 3b: serve twelve requests through an 8-slot BatchEngine, {args.layers} "
+        "layers, on the batched megakernel and on the stacked batched path")
+    launches.update(phase_serve_batched(torch, cfg, params))
+    del params
+    torch.cuda.empty_cache()
 
     log("phase 4: forward, kernel path against plain path (2 layers)")
     phase_model_parity(torch)
@@ -622,21 +937,28 @@ def main() -> int:
                "megakernel_layer": ("awq_tpu_torch/csrc/megakernel.cu",
                                     "awq_tpu/ops/megakernel.py:954"),
                "megakernel_chunk": ("awq_tpu_torch/csrc/megakernel_chunk.cu",
-                                    "awq_tpu/ops/megakernel_chunk.py:295")}
+                                    "awq_tpu/ops/megakernel_chunk.py:295"),
+               "megakernel_batched": ("awq_tpu_torch/csrc/megakernel_batched.cu",
+                                      "awq_tpu/ops/megakernel_batched.py:531"),
+               "cache_append": ("awq_tpu_torch/csrc/cache_append.cu",
+                                "awq_tpu/ops/cache_append.py:62")}
     # one representative shape per kernel in the summary; every case is
     # printed above
-    pick = {"w4a16_gemv": "wgateup M=1", "w4a16_gemm": "wgateup M=1000",
+    pick = {"w4a16_gemv": "wgateup M=1 ", "w4a16_gemm": "wgateup M=1000",
             "flash_decode": "len=4000", "flash_prefill": "S=512 start=700",
             "megakernel_token": "32 layers", "megakernel_layer": "layer 5 len=1000",
-            "megakernel_chunk": "32 layers S=32 hist=700"}
-    # launches: each kernel's count on its own path's run in phase 3 (the
-    # stacked path carries K1-K3, the megakernels K4-K5). forward calls K4's
-    # token entry; the layer entry is the same kernel over one layer and
-    # has no caller on the main path, so it counts 0 there.
+            "megakernel_chunk": "32 layers S=32 hist=700",
+            "megakernel_batched": "32 layers + W4 head, B=8", "cache_append": "L=32"}
+    # launches: each kernel's count on its own path's run in phases 3 and 3b
+    # (the stacked path carries K1-K3, the megakernels K4-K5, the batched
+    # engine K6, its stacked path K7). forward calls K4's token entry; the
+    # layer entry is the same kernel over one layer and has no caller on the
+    # main path, so it counts 0 there.
+    runs = {"megakernel_batched": "batched", "cache_append": "batched_stacked"}
     kernels = []
     for name, (src, replaces) in sources.items():
         c = next(c for c in cases if c["name"] == name and c["shape"].startswith(pick[name]))
-        run = "megakernels" if name.startswith("megakernel") else "stacked"
+        run = runs.get(name, "megakernels" if name.startswith("megakernel") else "stacked")
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[run][name], max_abs_err=c["max_abs_err"], ms=c["ms"],
