@@ -16,6 +16,13 @@
 // per position, because a single-position write breaks Mosaic's (8, 128)
 // tile; here a thread moves 16 bytes of a row straight to its place, and
 // the rows of one (l, s, b, h) are contiguous on both sides.
+//
+// Paged mode (the stacked paged step's append; JAX scatters it with a
+// per-row dynamic_update_slice loop in XLA): the same copy into the page
+// pool [L, 2, NP, n_kv, page, HD], row b's position p at page
+// tables[b, p / page], offset p % page, with p clamped to [0, MP·page − 1].
+// Freed slots' table rows are 0, the trash page, so their writes land
+// there.
 #include "common.cuh"
 
 namespace {
@@ -31,6 +38,22 @@ __global__ void __launch_bounds__(256) cache_append_kernel(
   const int b = static_cast<int>((row / nkv) % B);
   const int pos = min(max(lengths[b], 0), T - 1);
   cache[(row * T + pos) * vecs + v] = kv[i];
+}
+
+__global__ void __launch_bounds__(256) cache_append_paged_kernel(
+    uint4* __restrict__ pool, const uint4* __restrict__ kv,
+    const int* __restrict__ lengths, const int* __restrict__ tables, int B, int nkv,
+    int np, int page, int mp, int vecs, long long total) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const long long row = i / vecs;          // (l, s, b, h) flattened
+  const int v = static_cast<int>(i % vecs);
+  const int h = static_cast<int>(row % nkv);
+  const int b = static_cast<int>((row / nkv) % B);
+  const long long ls = row / ((long long)nkv * B);   // l * 2 + s
+  const int pos = min(max(lengths[b], 0), mp * page - 1);
+  const int pid = tables[(size_t)b * mp + pos / page];
+  pool[((((ls * np + pid) * nkv + h) * page) + pos % page) * vecs + v] = kv[i];
 }
 
 }  // namespace
@@ -53,5 +76,27 @@ extern "C" int awq_cache_append(void* cache, const void* kv, const void* lengths
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint4*>(cache), static_cast<const uint4*>(kv),
       static_cast<const int*>(lengths), B, nkv, T, vecs, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Paged mode: pool [L, 2, np, nkv, page, HD] and kv [L, 2, B, nkv, HD] of one
+// dtype on one device, 16-byte aligned; lengths [B] and tables [B, mp] int32
+// on that device, page ids in [0, np). `rows` is L·2·B·nkv.
+extern "C" int awq_cache_append_paged(void* pool, const void* kv, const void* lengths,
+                                      const void* tables, int rows, int B, int nkv,
+                                      int np, int page, int mp, int row_bytes,
+                                      void* stream) {
+  if (rows <= 0) return 0;
+  if (row_bytes % 16 || B < 1 || nkv < 1 || np < 1 || page < 1 || mp < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vecs = row_bytes / 16;
+  const long long total = (long long)rows * vecs;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  cache_append_paged_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint4*>(pool), static_cast<const uint4*>(kv),
+      static_cast<const int*>(lengths), static_cast<const int*>(tables), B, nkv, np, page,
+      mp, vecs, total);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,20 @@
 // current token, as the TPU kernel does after its loop (decode_attn.py:220).
 // Only [0, len_b) is read; positions past it are never touched.
 //
+// K8 replaces flash_decode_paged (_paged_decode_kernel): the same attention
+// over a PAGED cache, one layer of the pool [2, NP, n_kv, page, HD] with a
+// block table tables [B, MP]; position p of row b lives at
+// pool[s, tables[b, p / page], h, p % page]. It is K2's body, not a copy:
+// the split kernel takes the address of a position from a functor, ContigKV
+// for K2 and PagedKV for K8, and the combine kernel is shared. The TPU
+// kernel scalar-prefetched the table; here each load looks up its own
+// entry (one int per position, from L1). The wrapper makes the splits whole
+// pages, so a block streams contiguous page x HD slabs. Bound by device
+// memory as K2: the bytes of the rows' prefixes. Row lengths are clamped to
+// [0, MP·page] on the device, so no table entry past MP is read. The TPU
+// kernel rounds the softmax weights to the pool dtype before P·V; K8, like
+// K2, keeps them in f32.
+//
 // K3 replaces flash_prefill_stacked (_stacked_prefill_kernel) with its
 // online softmax (the TPU-only fixed_max variant is not carried over): the
 // chunk at [start, start+S) is already in the cache, query row r attends
@@ -41,13 +55,49 @@ constexpr int DEC_WARPS = 4;
 // -inf as a bit pattern (device code only)
 #define NEG_INF (__int_as_float(0xff800000))
 
+// Where the positions of (row b, kv head h) sit in one layer: row(b, h) is
+// a cursor whose K and V rows of position t are at k + off(t) and
+// v + off(t).
+struct ContigKV {  // K2: cache [2, B, n_kv, T, HD]
+  const bf16* base;
+  int B, nkv, T;
+  struct Row {
+    const bf16* k;
+    const bf16* v;
+    __device__ __forceinline__ size_t off(int t) const { return (size_t)t * HD; }
+  };
+  __device__ __forceinline__ Row row(int b, int h) const {
+    const bf16* k = base + ((size_t)b * nkv + h) * T * HD;
+    return Row{k, k + (size_t)B * nkv * T * HD};
+  }
+};
+struct PagedKV {   // K8: pool [2, NP, n_kv, page, HD], tables [B, MP]
+  const bf16* base;
+  const int* tables;
+  int np, nkv, page, mp;
+  struct Row {
+    const bf16* k;      // head h of page 0, K plane
+    const bf16* v;      // the same in the V plane
+    const int* tab;     // row b's table
+    int pstride;        // elements from one page to the next: nkv * page * HD
+    int page;
+    __device__ __forceinline__ size_t off(int t) const {
+      return (size_t)__ldg(tab + t / page) * pstride + (size_t)(t % page) * HD;
+    }
+  };
+  __device__ __forceinline__ Row row(int b, int h) const {
+    const bf16* k = base + (size_t)h * page * HD;
+    return Row{k, k + (size_t)np * nkv * page * HD, tables + (size_t)b * mp,
+               nkv * page * HD, page};
+  }
+};
+
 // part_ml [B, n_kv, nsplit, g, 2] (max, sum); part_acc [B, n_kv, nsplit, g, HD]
-template <int HPW>  // query heads per warp: g <= DEC_WARPS * HPW
+template <int HPW, typename KV>  // query heads per warp: g <= DEC_WARPS * HPW
 __global__ void __launch_bounds__(128) flash_decode_split_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ cache,
-    const int* __restrict__ lengths, float* __restrict__ part_ml,
-    float* __restrict__ part_acc, int B, int nq, int nkv, int T,
-    int split_len, float scale) {
+    const bf16* __restrict__ q, const KV kv, const int* __restrict__ lengths,
+    int max_len, float* __restrict__ part_ml, float* __restrict__ part_acc,
+    int nq, int nkv, int split_len, float scale) {
   constexpr int GMAX = DEC_WARPS * HPW;
   __shared__ float qs[GMAX][HD];
   __shared__ bf16 ks[DEC_TILE][HD + 2];     // 65-word rows: conflict-free dots
@@ -58,7 +108,7 @@ __global__ void __launch_bounds__(128) flash_decode_split_kernel(
   const int nsplit = gridDim.x;
   const int g = nq / nkv;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = lengths[b];
+  const int len = min(max(lengths[b], 0), max_len);
   const int j0 = split * split_len;
   const int j1 = min(len, j0 + split_len);
 
@@ -75,21 +125,20 @@ __global__ void __launch_bounds__(128) flash_decode_split_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   }
-  const bf16* kbase = cache + (((size_t)0 * B + b) * nkv + h) * (size_t)T * HD;
-  const bf16* vbase = cache + (((size_t)1 * B + b) * nkv + h) * (size_t)T * HD;
-
+  const typename KV::Row rows = kv.row(b, h);
   for (int t0 = j0; t0 < j1; t0 += DEC_TILE) {
     const int n = min(DEC_TILE, j1 - t0);
     __syncthreads();  // previous tile fully consumed (and qs written)
     for (int i = tid; i < DEC_TILE * (HD / 8); i += 128) {
       const int r = i / (HD / 8), v = i % (HD / 8);
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
+      uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
       if (r < n) {
-        kv = *reinterpret_cast<const uint4*>(kbase + (size_t)(t0 + r) * HD + v * 8);
-        vv = *reinterpret_cast<const uint4*>(vbase + (size_t)(t0 + r) * HD + v * 8);
+        const size_t o = rows.off(t0 + r) + v * 8;
+        kk = *reinterpret_cast<const uint4*>(rows.k + o);
+        vv = *reinterpret_cast<const uint4*>(rows.v + o);
       }
       uint32_t* kd = reinterpret_cast<uint32_t*>(&ks[r][v * 8]);
-      kd[0] = kv.x; kd[1] = kv.y; kd[2] = kv.z; kd[3] = kv.w;
+      kd[0] = kk.x; kd[1] = kk.y; kd[2] = kk.z; kd[3] = kk.w;
       *reinterpret_cast<uint4*>(&vs[r][v * 8]) = vv;
     }
     __syncthreads();
@@ -326,13 +375,38 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
   }
 }
 
-template <int HPW>
-void launch_split(const bf16* q, const bf16* cache, const int* lengths,
-                  float* ml, float* acc, int B, int nq, int nkv, int T,
-                  int nsplit, int split_len, float scale, cudaStream_t st) {
+template <int HPW, typename KV>
+void launch_split(const bf16* q, const KV& kv, const int* lengths, int max_len,
+                  float* ml, float* acc, int B, int nq, int nkv, int nsplit,
+                  int split_len, float scale, cudaStream_t st) {
   const dim3 grid(nsplit, nkv, B);
-  flash_decode_split_kernel<HPW><<<grid, 128, 0, st>>>(
-      q, cache, lengths, ml, acc, B, nq, nkv, T, split_len, scale);
+  flash_decode_split_kernel<HPW, KV><<<grid, 128, 0, st>>>(
+      q, kv, lengths, max_len, ml, acc, nq, nkv, split_len, scale);
+}
+
+// The split kernel at the group's warp width, then the combine kernel.
+template <typename KV>
+int run_decode(const void* q, const void* k_new, const void* v_new, const KV& kv,
+               const void* lengths, int max_len, void* part_ml, void* part_acc,
+               void* out, int B, int nq, int nkv, int nsplit, int split_len,
+               float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* qb = static_cast<const bf16*>(q);
+  const int* lb = static_cast<const int*>(lengths);
+  float* ml = static_cast<float*>(part_ml);
+  float* acc = static_cast<float*>(part_acc);
+  const int g = nq / nkv;
+  if (g <= 4) launch_split<1>(qb, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
+  else if (g <= 8) launch_split<2>(qb, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
+  else if (g <= 16) launch_split<4>(qb, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
+  else if (g <= 32) launch_split<8>(qb, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
+  else return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_decode_combine_kernel<<<dim3(nq, B), HD, 0, st>>>(
+      qb, static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new), ml, acc,
+      static_cast<bf16*>(out), nq, nkv, nsplit, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -347,24 +421,26 @@ extern "C" int awq_flash_decode(const void* q, const void* k_new, const void* v_
                                 void* part_ml, void* part_acc, void* out, int B,
                                 int nq, int nkv, int T, int nsplit, int split_len,
                                 float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* cb = static_cast<const bf16*>(cache);
-  const int* lb = static_cast<const int*>(lengths);
-  float* ml = static_cast<float*>(part_ml);
-  float* acc = static_cast<float*>(part_acc);
-  const int g = nq / nkv;
-  if (g <= 4) launch_split<1>(qb, cb, lb, ml, acc, B, nq, nkv, T, nsplit, split_len, scale, st);
-  else if (g <= 8) launch_split<2>(qb, cb, lb, ml, acc, B, nq, nkv, T, nsplit, split_len, scale, st);
-  else if (g <= 16) launch_split<4>(qb, cb, lb, ml, acc, B, nq, nkv, T, nsplit, split_len, scale, st);
-  else if (g <= 32) launch_split<8>(qb, cb, lb, ml, acc, B, nq, nkv, T, nsplit, split_len, scale, st);
-  else return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_combine_kernel<<<dim3(nq, B), HD, 0, st>>>(
-      qb, static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new), ml, acc,
-      static_cast<bf16*>(out), nq, nkv, nsplit, scale);
-  return static_cast<int>(cudaGetLastError());
+  const ContigKV kv{static_cast<const bf16*>(cache), B, nkv, T};
+  return run_decode(q, k_new, v_new, kv, lengths, T, part_ml, part_acc, out, B, nq,
+                    nkv, nsplit, split_len, scale, stream);
+}
+
+// K8: as awq_flash_decode, over one layer of the page pool, pool bf16
+// [2, NP, nkv, page, 128] contiguous, with tables int32 [B, MP] of page ids
+// in [0, NP); lengths are clamped to [0, MP * page];
+// nsplit * split_len >= max(lengths).
+extern "C" int awq_flash_decode_paged(const void* q, const void* k_new,
+                                      const void* v_new, const void* pool,
+                                      const void* tables, const void* lengths,
+                                      void* part_ml, void* part_acc, void* out, int B,
+                                      int nq, int nkv, int np, int page, int mp,
+                                      int nsplit, int split_len, float scale,
+                                      void* stream) {
+  const PagedKV kv{static_cast<const bf16*>(pool), static_cast<const int*>(tables), np,
+                   nkv, page, mp};
+  return run_decode(q, k_new, v_new, kv, lengths, mp * page, part_ml, part_acc, out, B,
+                    nq, nkv, nsplit, split_len, scale, stream);
 }
 
 // q bf16 [B, S, nq, 128] contiguous; cache bf16 [2, B, nkv, T, 128]

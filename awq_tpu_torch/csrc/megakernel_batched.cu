@@ -47,6 +47,16 @@
 //   past it, so a low max_length costs balance, not correctness); a row
 //   shorter than a slice's start leaves (-inf, 0, 0) there and the combine
 //   gives it weight 0.
+// Paged mode (the JAX kernel's `tables`, row 18's paged DMA): the cache is
+// a page pool [L, 2, NP, nkv, page, HD] shared by all rows and row b's
+// position p lives at page tables[b, p / page], offset p % page. Only the
+// two addresses change: the QKV epilogue's write and the attention's reads
+// (kv_row). The row length is clamped to [0, MP·page − 1], as row_length
+// clamps to T − 1 with T = MP·page; freed slots' table rows are 0, the
+// trash page, so their writes land there. The page size is a power of two,
+// so the lookup is a shift and a mask, not a division, in the attention
+// loop. The paged instance is built for a bf16 pool only (the engine's
+// pool dtype).
 // A simple first version, like K5: activation rows are read through L2 by
 // every tile, there is no TMA and no overlap of a phase's tail with the next
 // one's loads.
@@ -64,8 +74,10 @@ struct BatchArgs {
   void* cache; void* k_new; void* v_new; const int32_t* lengths;
   const int32_t* hd_w; const float* hd_s; const float* hd_z; const void* norm_w;
   float* logits;
+  const int32_t* tables;   // paged mode: [B, mp] page ids; T = mp·page
   float* ws;
   int B, L, H, I, nq, nkv, T, vocab, md, has_bias;
+  int np, page, page_shift, mp;
   int nsplit, split_len;
   float eps;
 };
@@ -79,7 +91,20 @@ __device__ __forceinline__ int row_length(const int32_t* lengths, int b, int T) 
   return min(max(lengths[b], 0), T - 1);
 }
 
-template <typename CT>
+// Element row (in units of MK_HD) of position p of (layer l, k or v, row b,
+// kv head): the slot cache's [L, 2, B, nkv, T] or the pool's page.
+template <bool PAGED>
+__device__ __forceinline__ size_t kv_row(const BatchArgs& a, int l, int which, int b,
+                                         int kvh, int p) {
+  if constexpr (PAGED) {
+    const int pid = a.tables[(size_t)b * a.mp + (p >> a.page_shift)];
+    return ((((size_t)l * 2 + which) * a.np + pid) * a.nkv + kvh) * a.page + (p & (a.page - 1));
+  } else {
+    return ((((size_t)l * 2 + which) * a.B + b) * a.nkv + kvh) * (size_t)a.T + p;
+  }
+}
+
+template <typename CT, bool PAGED>
 __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
   extern __shared__ __align__(16) float sm[];
   cg::grid_group grid = cg::this_grid();
@@ -103,7 +128,6 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
   bf16* xw = reinterpret_cast<bf16*>(a.ws + xoff);
   bf16* hmw = xw + (size_t)B * H;           // [B][I]
   CT* cache = static_cast<CT*>(a.cache);
-  const size_t T = a.T;
   const int gsize = gridDim.x * MK_THREADS, gtid = blockIdx.x * MK_THREADS + tid;
 
   for (int i = gtid; i < B * H; i += gsize) hres[i] = load_act(a.h_in, a.md, i);
@@ -148,7 +172,7 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
             qkv[(size_t)r * oq + c + MK_HD / 2] = x1;
             if (is_kv) {
               const int pos = row_length(a.lengths, r, a.T);
-              const size_t crow = (((((size_t)l * 2 + which) * B + r) * nkv + kvh) * T + pos) * MK_HD;
+              const size_t crow = kv_row<PAGED>(a, l, which, r, kvh, pos) * MK_HD;
               const size_t orow = (((size_t)l * B + r) * nkv + kvh) * MK_HD;
               CT* out = static_cast<CT*>(which ? a.v_new : a.k_new);
               cache[crow + d] = out[orow + d] = from_f32<CT>(x0);
@@ -185,8 +209,6 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
           vc[d] = qrow[(nq + nkv + kvh) * MK_HD + d];
         }
         __syncthreads();
-        const size_t krow = ((((size_t)l * 2 + 0) * B + b) * nkv + kvh) * T;
-        const size_t vrow = ((((size_t)l * 2 + 1) * B + b) * nkv + kvh) * T;
         float m[MK_MAXG], lsum[MK_MAXG], acc[MK_MAXG][4];
 #pragma unroll
         for (int g = 0; g < MK_MAXG; ++g) {
@@ -201,8 +223,8 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
           for (int u = 0; u < PB; ++u) {
             const int p = pb + u * MK_WARPS;
             if (p < len && p < p1) {
-              load4<CT>(cache + (krow + p) * MK_HD + lane * 4, kv4[u]);
-              load4<CT>(cache + (vrow + p) * MK_HD + lane * 4, vv4[u]);
+              load4<CT>(cache + kv_row<PAGED>(a, l, 0, b, kvh, p) * MK_HD + lane * 4, kv4[u]);
+              load4<CT>(cache + kv_row<PAGED>(a, l, 1, b, kvh, p) * MK_HD + lane * 4, vv4[u]);
             } else {
 #pragma unroll
               for (int e = 0; e < 4; ++e) { kv4[u][e] = kc[lane * 4 + e]; vv4[u][e] = vc[lane * 4 + e]; }
@@ -346,17 +368,19 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
 
 enum { P_H, P_OUT, P_QW, P_QS, P_QZ, P_QB, P_OW, P_OS, P_OZ, P_GW, P_GS, P_GZ,
        P_DW, P_DS, P_DZ, P_LN1, P_LN2, P_COS, P_SIN, P_CACHE, P_KN, P_VN, P_LEN,
-       P_HW, P_HS, P_HZ, P_NW, P_LOGITS };
-enum { N_B, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_MAXLEN, N_VOCAB, N_MD, N_CD, N_BIAS };
+       P_HW, P_HS, P_HZ, P_NW, P_LOGITS, P_TABLES };
+// paged mode: N_T is MP·page, N_NP the pool's pages (0: the slot cache)
+enum { N_B, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_MAXLEN, N_VOCAB, N_MD, N_CD, N_BIAS,
+       N_NP, N_PAGE, N_MP };
 
 struct Plan { int grid, nsplit, split_len; size_t smem; long long ws; };
 
-template <typename CT>
+template <typename CT, bool PAGED>
 int plan_for(const int* n, Plan* p) {
   const int B = n[N_B], H = n[N_H], I = n[N_I], nq = n[N_NQ], nkv = n[N_NKV];
   p->smem = (size_t)(MK_WARPS + (GEMM_FLOATS + STAGE_FLOATS > ATT_FLOATS
                                   ? GEMM_FLOATS + STAGE_FLOATS : ATT_FLOATS)) * sizeof(float);
-  const int err = coop_grid(batched_kernel<CT>, p->smem, &p->grid);
+  const int err = coop_grid(batched_kernel<CT, PAGED>, p->smem, &p->grid);
   if (err) return err;
   // attention items: about one per block, at least 32 positions each
   const int npos = n[N_MAXLEN] + 1;
@@ -374,10 +398,12 @@ int plan_for(const int* n, Plan* p) {
 }
 
 int plan(const int* n, Plan* p) {
+  if (n[N_NP]) return n[N_CD] == 1 ? plan_for<bf16, true>(n, p)
+                                   : static_cast<int>(cudaErrorInvalidValue);
   switch (n[N_CD]) {
-    case 0: return plan_for<float>(n, p);
-    case 1: return plan_for<bf16>(n, p);
-    case 2: return plan_for<__half>(n, p);
+    case 0: return plan_for<float, false>(n, p);
+    case 1: return plan_for<bf16, false>(n, p);
+    case 2: return plan_for<__half, false>(n, p);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -394,7 +420,9 @@ extern "C" long long awq_mega_batched_ws(const void* const* ptrs, const int* n) 
 
 // Caller guarantees (ops/megakernel_batched.py checks them): as K4's entry,
 // with 1 <= B <= 64 rows, a cache of B slots, lengths [B] int32 on the
-// device and 0 <= max_length < T.
+// device and 0 <= max_length < T. Paged mode (N_NP > 0): a bf16 pool
+// [L, 2, NP, nkv, page, 128] with page a power of two, tables int32
+// [B, MP] of page ids in [0, NP) and T = MP·page.
 extern "C" int awq_mega_batched(const void* const* ptrs, const int* n, float eps,
                                 void* ws, void* stream) {
   Plan p;
@@ -422,21 +450,23 @@ extern "C" int awq_mega_batched(const void* const* ptrs, const int* n, float eps
   a.hd_w = static_cast<const int32_t*>(ptrs[P_HW]);
   a.hd_s = static_cast<const float*>(ptrs[P_HS]); a.hd_z = static_cast<const float*>(ptrs[P_HZ]);
   a.norm_w = ptrs[P_NW]; a.logits = static_cast<float*>(const_cast<void*>(ptrs[P_LOGITS]));
+  a.tables = static_cast<const int32_t*>(ptrs[P_TABLES]);
   a.ws = static_cast<float*>(ws);
   a.B = n[N_B]; a.L = n[N_L]; a.H = n[N_H]; a.I = n[N_I]; a.nq = n[N_NQ]; a.nkv = n[N_NKV];
   a.T = n[N_T]; a.vocab = n[N_VOCAB]; a.md = n[N_MD]; a.has_bias = n[N_BIAS];
+  a.np = n[N_NP]; a.page = n[N_PAGE]; a.mp = n[N_MP];
+  if (a.np && (a.page < 1 || (a.page & (a.page - 1)) || a.mp < 1 || a.T != a.page * a.mp
+               || !a.tables))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.page_shift = a.np ? __builtin_ctz(static_cast<unsigned>(a.page)) : 0;
   a.nsplit = p.nsplit; a.split_len = p.split_len; a.eps = eps;
   void* kargs[] = {&a};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (n[N_CD]) {
-    case 0: e = cudaLaunchCooperativeKernel((const void*)batched_kernel<float>, p.grid,
-                                            MK_THREADS, kargs, p.smem, st); break;
-    case 1: e = cudaLaunchCooperativeKernel((const void*)batched_kernel<bf16>, p.grid,
-                                            MK_THREADS, kargs, p.smem, st); break;
-    default: e = cudaLaunchCooperativeKernel((const void*)batched_kernel<__half>, p.grid,
-                                             MK_THREADS, kargs, p.smem, st); break;
-  }
+  const void* fn = a.np ? (const void*)batched_kernel<bf16, true>
+                 : n[N_CD] == 0 ? (const void*)batched_kernel<float, false>
+                 : n[N_CD] == 1 ? (const void*)batched_kernel<bf16, false>
+                 : (const void*)batched_kernel<__half, false>;
+  const cudaError_t e = cudaLaunchCooperativeKernel(fn, p.grid, MK_THREADS, kargs, p.smem, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,6 +29,12 @@ row's k/v in place; otherwise the stacked path with per-row rope rows, K2
 over per-row lengths and one deferred append of all layers through K7
 (``ops/cache_append.py``).
 
+:func:`decode_step_paged` is the same step over a PAGED cache: a page pool
+``[L, 2, NP, n_kv, page, hd]`` and a block table ``[B, MP]`` per row. It
+takes K6's paged mode (2..64 rows, pages of a power-of-two size), or the
+stacked path with K8 (``flash_decode_paged``) per layer and one paged K7
+append.
+
 Other family features raise ``NotImplementedError`` naming their ROADMAP
 item.
 """
@@ -54,6 +60,7 @@ from awq_tpu_torch.ops.cache_append import (
     batched_cache_append_plain,
 )
 from awq_tpu_torch.ops.decode_attn import flash_decode, flash_decode_plain
+from awq_tpu_torch.ops.decode_attn import flash_decode_paged, flash_decode_paged_plain
 from awq_tpu_torch.ops.decode_attn import flash_prefill, flash_prefill_plain
 from awq_tpu_torch.ops import megakernel as mk
 from awq_tpu_torch.ops import megakernel_batched as mkb
@@ -387,7 +394,8 @@ def forward(
 def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                    cache: torch.Tensor, start_pos: int, impl: str = "auto",
                    layer_ids=None, lengths: Optional[torch.Tensor] = None,
-                   max_length: Optional[int] = None) -> torch.Tensor:
+                   max_length: Optional[int] = None,
+                   tables: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The stacked per-kernel path over ``h [B, S, H]`` for the layers
     ``layer_ids`` (all by default): returns the new residual and writes
     each layer's k/v into the cache in place.
@@ -397,7 +405,9 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     read: per-row rope rows, K2 over the per-row prefixes with the current
     token as an operand, and ONE append of every layer's k/v after the loop
     (K7). ``max_length`` (at least ``lengths.max()``, from the caller's host
-    copy) sizes K2's grid without a device sync."""
+    copy) sizes K2's grid without a device sync. With ``tables [B, MP]`` as
+    well, ``cache`` is a page pool and K8 and the paged K7 take K2's and
+    K7's places."""
     b, s = h.shape[:2]
     dt = _dtype(cfg)
     dev = cache.device
@@ -405,6 +415,7 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     layers = params["layers"]
     plain = impl == "plain"
     decode = flash_decode_plain if plain else flash_decode
+    decode_paged = flash_decode_paged_plain if plain else flash_decode_paged
     prefill = flash_prefill_plain if plain else flash_prefill
 
     def lin(name, idx, xx):
@@ -420,13 +431,14 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         row_lengths = torch.full((b,), start_pos, dtype=torch.int32, device=dev)
         max_length = start_pos
     else:
-        cos, sin = _rope_cached(cfg, cache.shape[4], dev)
+        t_max = cache.shape[4] * (1 if tables is None else tables.shape[1])
+        cos, sin = _rope_cached(cfg, t_max, dev)
         positions = lengths.long()[:, None]
         row_lengths = lengths
     kv_new = []       # per-row decode: every layer's [2, B, n_kv, hd]
 
     for idx in (range(cfg.num_layers) if layer_ids is None else layer_ids):
-        kv = cache[idx]                                  # [2, B, n_kv, T, hd] view
+        kv = cache[idx]                  # [2, B, n_kv, T, hd] (or [2, NP, ...]) view
         x = rms_norm(h, layers["ln1"][idx], cfg.rms_eps)
         if "wqkv" in layers:
             q, k, v = torch.split(lin("wqkv", idx, x), [nq * hd, nkv * hd, nkv * hd], dim=-1)
@@ -439,8 +451,13 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         if s == 1:
             # the current token rides as an operand; append it afterwards
             k1, v1 = k[:, 0].to(kv.dtype).contiguous(), v[:, 0].to(kv.dtype).contiguous()
-            attn = decode(q[:, 0].contiguous(), k1, v1, kv, row_lengths,
-                          max_length=max_length).reshape(b, 1, nq * hd)
+            if tables is None:
+                attn = decode(q[:, 0].contiguous(), k1, v1, kv, row_lengths,
+                              max_length=max_length)
+            else:
+                attn = decode_paged(q[:, 0].contiguous(), k1, v1, cache, tables, idx,
+                                    row_lengths, max_length=max_length)
+            attn = attn.reshape(b, 1, nq * hd)
             if lengths is None:
                 update_kv_cache(kv, k, v, start_pos)
             else:
@@ -458,8 +475,21 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         h = h + lin("down", idx, hm)
     if kv_new:
         append = batched_cache_append_plain if plain else batched_cache_append
-        append(cache, torch.stack(kv_new), lengths)
+        append(cache, torch.stack(kv_new), lengths, tables)
     return h
+
+
+def _check_step(cfg: ModelConfig, cache, impl: str, tp_axis) -> None:
+    """What the batched and paged steps refuse."""
+    _check_supported(cfg)
+    if tp_axis is not None:
+        raise NotImplementedError(
+            "tensor-parallel decode (tp_axis) is ROADMAP queue A, item 17")
+    if not isinstance(cache, torch.Tensor) or cache.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 KV cache (KVCache8) is ROADMAP queue A, item 10")
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
 
 
 @torch.no_grad()
@@ -480,15 +510,7 @@ def decode_step_batched(
     least ``lengths.max()``) comes from the caller's host copy, so that no
     step syncs to read it (without it the wrappers read it from the
     device). ``impl`` as in :func:`forward`."""
-    _check_supported(cfg)
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "tensor-parallel decode (tp_axis) is ROADMAP queue A, item 17")
-    if not isinstance(cache, torch.Tensor) or cache.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 KV cache (KVCache8) is ROADMAP queue A, item 10")
-    if impl not in ("auto", "plain"):
-        raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
+    _check_step(cfg, cache, impl, tp_axis)
     dev = cache.device
     b = tokens.shape[0]
     if cache.shape[2] != b or tuple(lengths.shape) != (b,):
@@ -519,3 +541,65 @@ def decode_step_batched(
                            lengths=lengths, max_length=max_length)[:, 0]
     h = rms_norm(h, params["norm"], cfg.rms_eps)
     return _head_logits(params, h, impl), cache
+
+
+@torch.no_grad()
+def decode_step_paged(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,       # [B] one token per row
+    pool: torch.Tensor,         # [L, 2, NP, n_kv, page, hd], written in place
+    tables: torch.Tensor,       # [B, MP] int32 physical page ids
+    lengths: torch.Tensor,      # [B] int32 per-row lengths (write positions)
+    impl: str = "auto",
+    max_length: Optional[int] = None,
+    tp_axis: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode step over a PAGED KV cache: row ``b``'s positions
+    ``[0, lengths[b])`` live in the pages ``tables[b]`` of the shared pool,
+    and its k/v are written in place at page ``tables[b, lengths[b] //
+    page]``, offset ``lengths[b] % page``. Returns ``(logits [B, V] f32,
+    pool)``. ``tables`` and ``lengths`` live on the pool's device;
+    ``max_length`` (at least ``lengths.max()``) comes from the caller's host
+    copy, so that no step syncs to read it. A freed row's table is all 0,
+    the trash page that no request owns, so its k/v land there.
+
+    2..64 rows under K6's paged gate (on the card, a bf16 pool) are ONE
+    launch of K6's paged mode (no append after it); otherwise the stacked
+    path with K8 per layer and one paged K7 append. ``impl`` as in
+    :func:`forward`."""
+    _check_step(cfg, pool, impl, tp_axis)
+    dev = pool.device
+    b = tokens.shape[0]
+    if pool.dim() != 6 or tables.dim() != 2 or tables.shape[0] != b \
+            or tuple(lengths.shape) != (b,):
+        raise ValueError(f"{b} tokens need a pool [L, 2, NP, n_kv, page, hd], tables "
+                         f"[{b}, MP] and lengths [{b}], got {tuple(pool.shape)}, "
+                         f"{tuple(tables.shape)} and {tuple(lengths.shape)}")
+    lengths = lengths.to(device=dev, dtype=torch.int32)
+    tables = tables.to(device=dev, dtype=torch.int32)
+    dt = _dtype(cfg)
+    layers = params["layers"]
+    h = params["embed"][tokens.to(dev)].to(dt)                     # [B, H]
+    if mkb.megakernel_paged_supported(cfg, layers, pool, b):
+        fn = (mkb.w4a16_llama_token_step_batched_plain if impl == "plain"
+              else mkb.w4a16_llama_token_step_batched)
+        t_max = tables.shape[1] * pool.shape[4]
+        cos, sin = _rope_cached(cfg, t_max, dev)
+        rows = lengths.long().clamp(0, t_max - 1)
+        kw = dict(nq=cfg.num_heads, nkv=cfg.num_kv_heads, eps=cfg.rms_eps,
+                  max_length=max_length, tables=tables)
+        if mk.head_in_kernel(params):
+            kw.update(whead=params["lm_head"], norm_w=params["norm"])
+        # the rows' k/v are written into their pages inside the kernel
+        res = fn(h, layers["wqkv"], layers["wo"], layers["wgateup"],
+                 layers["down"], layers["ln1"], layers["ln2"], cos[rows],
+                 sin[rows], pool, lengths, **kw)
+        if len(res) == 4:
+            return res[3], pool
+        h = res[0]
+    else:
+        h = stacked_layers(params, cfg, h[:, None], pool, 0, impl, lengths=lengths,
+                           max_length=max_length, tables=tables)[:, 0]
+    h = rms_norm(h, params["norm"], cfg.rms_eps)
+    return _head_logits(params, h, impl), pool

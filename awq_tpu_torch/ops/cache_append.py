@@ -12,6 +12,12 @@ A length at or past ``T`` is clamped to ``T - 1``, as the JAX wrapper
 clamps: it can spoil only the last position. A negative one writes
 position 0.
 
+With ``tables [B, MP]`` (int32 page ids) the cache is a page pool ``[L, 2,
+NP, n_kv, page, hd]`` and row ``b``'s position ``p`` lives at page
+``tables[b, p // page]``, offset ``p % page``: the stacked paged step's one
+append per step (JAX does it with a per-row ``dynamic_update_slice`` loop,
+``models/llama.py:1729-1736``), with ``T = MP * page`` for the clamp.
+
 :func:`batched_cache_append_plain` is the plain PyTorch version: the CPU
 path and the reference the kernel is held to on the card, bit for bit. On
 a CUDA tensor the wrapper launches the kernel or raises.
@@ -19,20 +25,32 @@ a CUDA tensor the wrapper launches the kernel or raises.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-#: Launches of K7, counted where the wrapper launches it.
-LAUNCHES = {"cache_append": 0}
+#: Launches of K7 on a slot cache and on a page pool, counted where the
+#: wrapper launches it.
+LAUNCHES = {"cache_append": 0, "cache_append_paged": 0}
 
 
 def batched_cache_append_plain(cache: torch.Tensor, kv: torch.Tensor,
-                               lengths: torch.Tensor) -> torch.Tensor:
+                               lengths: torch.Tensor,
+                               tables: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K7: one indexed assignment, in place."""
-    b, t = cache.shape[2], cache.shape[4]
-    pos = lengths.to(device=cache.device, dtype=torch.long).clamp(0, t - 1)
+    b = kv.shape[2]
     rows = torch.arange(b, device=cache.device)
-    # cache[:, :, b, :, pos[b]] <- kv[:, :, b]: the indexed view is [B, L, 2, n_kv, hd]
-    cache[:, :, rows, :, pos] = kv.to(cache.dtype).permute(2, 0, 1, 3, 4)
+    if tables is None:
+        where = rows
+        pos = lengths.to(device=cache.device, dtype=torch.long).clamp(0, cache.shape[4] - 1)
+    else:
+        page = cache.shape[4]
+        t = tables.shape[1] * page
+        p = lengths.to(device=cache.device, dtype=torch.long).clamp(0, t - 1)
+        where = tables.to(cache.device).long()[rows, p // page]
+        pos = p % page
+    # cache[:, :, where[b], :, pos[b]] <- kv[:, :, b]: the indexed view is [B, L, 2, n_kv, hd]
+    cache[:, :, where, :, pos] = kv.to(cache.dtype).permute(2, 0, 1, 3, 4)
     return cache
 
 
@@ -42,16 +60,20 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def batched_cache_append(cache: torch.Tensor, kv: torch.Tensor,
-                         lengths: torch.Tensor) -> torch.Tensor:
+                         lengths: torch.Tensor,
+                         tables: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7 wrapper: scatter ``kv [L, 2, B, n_kv, hd]`` into ``cache
     [L, 2, B, n_kv, T, hd]`` at the per-row positions ``lengths [B]``
-    (int32, on the cache's device), in place. Returns ``cache``."""
+    (int32, on the cache's device), in place; with ``tables [B, MP]`` (int32,
+    same device) into the page pool ``cache [L, 2, NP, n_kv, page, hd]``.
+    Returns ``cache``."""
     if cache.device.type == "cpu":
-        return batched_cache_append_plain(cache, kv, lengths)
+        return batched_cache_append_plain(cache, kv, lengths, tables)
     _check(cache.is_cuda, f"unsupported device {cache.device}")
     _check(cache.dim() == 6 and cache.shape[1] == 2,
            f"cache must be [L, 2, B, n_kv, T, hd], got {tuple(cache.shape)}")
-    L, _, b, nkv, t, hd = cache.shape
+    L, _, slots, nkv, t, hd = cache.shape
+    b = kv.shape[2] if tables is not None else slots
     _check(tuple(kv.shape) == (L, 2, b, nkv, hd),
            f"kv must be [{L}, 2, {b}, {nkv}, {hd}], got {tuple(kv.shape)}")
     _check(kv.dtype == cache.dtype, f"kv is {kv.dtype}, the cache {cache.dtype}")
@@ -69,11 +91,23 @@ def batched_cache_append(cache: torch.Tensor, kv: torch.Tensor,
     from awq_tpu_torch import _build
 
     lib = _build.load("cache_append")
+    stream = torch.cuda.current_stream(cache.device).cuda_stream
+    if tables is not None:
+        mp = tables.shape[1] if tables.dim() == 2 else 0
+        _check(tables.dtype == torch.int32 and tuple(tables.shape) == (b, mp) and mp > 0
+               and tables.device == cache.device and tables.is_contiguous(),
+               f"tables must be contiguous int32 [{b}, MP] on {cache.device}")
+        fn = lib.awq_cache_append_paged
+        _build.declare(fn, *([_build.P] * 4), *([_build.I] * 7), _build.P)
+        err = fn(cache.data_ptr(), kv.data_ptr(), lengths.data_ptr(), tables.data_ptr(),
+                 L * 2 * b * nkv, b, nkv, slots, t, mp, row_bytes, stream)
+        _build.check(lib, err, "cache_append_paged")
+        LAUNCHES["cache_append_paged"] += 1
+        return cache
     fn = lib.awq_cache_append
     _build.declare(fn, *([_build.P] * 3), *([_build.I] * 5), _build.P)
     err = fn(cache.data_ptr(), kv.data_ptr(), lengths.data_ptr(),
-             L * 2 * b * nkv, b, nkv, t, row_bytes,
-             torch.cuda.current_stream(cache.device).cuda_stream)
+             L * 2 * b * nkv, b, nkv, t, row_bytes, stream)
     _build.check(lib, err, "cache_append")
     LAUNCHES["cache_append"] += 1
     return cache

@@ -9,6 +9,12 @@ its valid prefix.
   replaces ``flash_decode_stacked``: one query position per row, GQA,
   softmax over the cache prefix ``[0, len_b)`` plus the current token's
   k/v given as operands (not yet in the cache).
+- :func:`flash_decode_paged` wraps kernel K8, which replaces
+  ``flash_decode_paged``: K2's attention over ONE layer of a page pool
+  ``[L, 2, NP, n_kv, page, hd]``, row ``b``'s position ``p`` at page
+  ``tables[b, p // page]``, offset ``p % page``. K8 is K2's split kernel
+  with a paged address functor (``csrc/decode_attn.cu``); its splits are
+  whole pages.
 - :func:`flash_prefill` wraps kernel K3, which replaces
   ``flash_prefill_stacked`` with its online softmax: the chunk at
   ``[start_pos, start_pos + S)`` is already in the cache and query row
@@ -28,8 +34,8 @@ from typing import Optional, Union
 
 import torch
 
-#: Launches of K2 and K3, counted where the wrappers launch them.
-LAUNCHES = {"flash_decode": 0, "flash_prefill": 0}
+#: Launches of K2, K8 and K3, counted where the wrappers launch them.
+LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0, "flash_prefill": 0}
 
 HEAD_DIM = 128            # the head_dim the kernels are built for
 _DECODE_TILE = 32         # positions per shared-memory tile (csrc)
@@ -58,6 +64,35 @@ def flash_decode_plain(q: torch.Tensor, k_new: torch.Tensor,
     out = (torch.einsum("bkgt,bkth->bkgh", p[..., :t], vf)
            + p[..., t:] * v_new.float()[:, :, None, :])
     return out.reshape(b, nq, hd).to(q.dtype)
+
+
+def gather_pages(pool: torch.Tensor, tables: torch.Tensor, layer: int,
+                 n_pages: int) -> torch.Tensor:
+    """The first ``n_pages`` pages of each row's table, gathered from layer
+    ``layer`` of the pool into a contiguous ``[2, B, n_kv, n_pages*page, hd]``."""
+    _, _, _, nkv, page, hd = pool.shape
+    b = tables.shape[0]
+    idx = tables[:, :n_pages].to(pool.device).long()
+    g = pool[layer][:, idx]                          # [2, B, n, n_kv, page, hd]
+    return g.permute(0, 1, 3, 2, 4, 5).reshape(2, b, nkv, n_pages * page, hd)
+
+
+def flash_decode_paged_plain(q: torch.Tensor, k_new: torch.Tensor,
+                             v_new: torch.Tensor, pool: torch.Tensor,
+                             tables: torch.Tensor, layer: int,
+                             lengths: torch.Tensor,
+                             max_length: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K8: gather each row's pages into a contiguous view
+    and run :func:`flash_decode_plain` over it. The current token's k/v are
+    rounded to the pool dtype first, as JAX's wrapper does. Lengths are
+    clamped to ``[0, MP * page]``, as the kernel clamps them."""
+    page, mp = pool.shape[4], tables.shape[1]
+    lengths = lengths.to(q.device).clamp(0, mp * page)
+    t = int(lengths.max()) if max_length is None else min(int(max_length), mp * page)
+    n_pages = -(-t // page)
+    cache = gather_pages(pool, tables, int(layer), n_pages)
+    return flash_decode_plain(q, k_new.to(pool.dtype), v_new.to(pool.dtype), cache,
+                              lengths, max_length=t)
 
 
 def flash_prefill_plain(q: torch.Tensor, cache: torch.Tensor,
@@ -158,6 +193,69 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, what)
     LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def flash_decode_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                       pool: torch.Tensor, tables: torch.Tensor, layer: int,
+                       lengths: torch.Tensor,
+                       max_length: Optional[int] = None) -> torch.Tensor:
+    """K8 wrapper, JAX's signature. ``q [B, nq, hd]``, ``k_new``/``v_new
+    [B, nkv, hd]`` (the current token, post-rope), ``pool [L, 2, NP, nkv,
+    page, hd]``, ``tables [B, MP]`` int32 page ids (in ``[0, NP)``: not
+    checked, that would take a sync), ``layer`` the pool's layer,
+    ``lengths [B]`` int32. ``max_length`` (at least ``lengths.max()``)
+    sizes the split-K grid without a device sync. Returns ``[B, nq, hd]``."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_plain(q, k_new, v_new, pool, tables, layer, lengths,
+                                        max_length)
+    what = "flash_decode_paged"
+    _check(q.is_cuda, what, f"unsupported device {q.device}")
+    layer = int(layer)
+    _check(pool.dim() == 6 and pool.shape[1] == 2 and 0 <= layer < pool.shape[0], what,
+           f"pool must be [L, 2, NP, n_kv, page, hd] with layer {layer} in it, got "
+           f"{tuple(pool.shape)}")
+    _check_common(what, q, pool[layer])
+    b, nq, hd = q.shape
+    np_, nkv, page = pool.shape[2], pool.shape[3], pool.shape[4]
+    _check(nq % nkv == 0 and nq // nkv <= 32, what,
+           f"q {tuple(q.shape)} does not fit pool {tuple(pool.shape)}")
+    for name, kv in (("k_new", k_new), ("v_new", v_new)):
+        _check(tuple(kv.shape) == (b, nkv, hd) and kv.dtype == torch.bfloat16
+               and kv.is_contiguous() and kv.device == q.device, what,
+               f"{name} must be contiguous bf16 [{b}, {nkv}, {hd}]")
+    _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,)
+           and lengths.device == q.device and lengths.is_contiguous(), what,
+           f"lengths must be int32 [{b}] on {q.device}")
+    _check(tables.dtype == torch.int32 and tables.dim() == 2 and tables.shape[0] == b
+           and tables.shape[1] > 0 and tables.device == q.device
+           and tables.is_contiguous(), what,
+           f"tables must be contiguous int32 [{b}, MP] on {q.device}")
+    mp = tables.shape[1]
+    if max_length is None:
+        max_length = int(lengths.max())
+    max_length = min(max(int(max_length), 0), mp * page)
+    nsplit, split_len = _split(max_length, b * nkv)
+    if page % _DECODE_TILE == 0:        # whole pages per split
+        split_len = -(-split_len // page) * page
+        nsplit = max(1, -(-max_length // split_len))
+    g = nq // nkv
+    part_ml = torch.empty((b, nkv, nsplit, g, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((b, nkv, nsplit, g, hd), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+
+    from awq_tpu_torch import _build
+
+    lib = _build.load("decode_attn")
+    fn = lib.awq_flash_decode_paged
+    _build.declare(fn, *([_build.P] * 9), *([_build.I] * 8), _build.F, _build.P)
+    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), pool[layer].data_ptr(),
+             tables.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(),
+             part_acc.data_ptr(), out.data_ptr(), b, nq, nkv, np_, page, mp, nsplit,
+             split_len, 1.0 / math.sqrt(hd),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, what)
+    LAUNCHES["flash_decode_paged"] += 1
     return out
 
 

@@ -21,8 +21,12 @@ IN PLACE at ``cache[l, :, b, :, lengths[b]]`` and returns them too, in the
 cache dtype, so a step is one launch with no append after it. A length
 outside ``[0, T)`` is clamped into it, as the JAX append clamps.
 
-Only the contiguous float cache is ported: ``cache_scales`` (int8 KV) and
-``tables`` (paged) raise ``NotImplementedError``.
+Paged mode (``tables [B, MP]`` int32 page ids): ``cache`` is then a page
+pool ``[L, 2, NP, nkv, page, hd]`` shared by all rows, and row ``b``'s
+position ``p`` lives at page ``tables[b, p // page]``, offset ``p % page``.
+K6 reads and writes through the table; everything else is the same step.
+The length is clamped into ``[0, MP * page)``. ``cache_scales`` (int8 KV)
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from awq_tpu_torch.ops.decode_attn import gather_pages
 from awq_tpu_torch.ops.megakernel import (
     HEAD_DIM,
     _DTYPE_CODE,
@@ -48,8 +53,9 @@ from awq_tpu_torch.ops.megakernel import (
 )
 from awq_tpu_torch.ops.w4a16 import QLinear
 
-#: Launches of K6, counted where the wrapper launches it.
-LAUNCHES = {"megakernel_batched": 0}
+#: Launches of K6 over a slot cache and over a page pool, counted where the
+#: wrapper launches it.
+LAUNCHES = {"megakernel_batched": 0, "megakernel_batched_paged": 0}
 
 MIN_B, MAX_B = 2, 64      # rows per launch (one row is K4's case)
 
@@ -66,17 +72,59 @@ def megakernel_batched_supported(cfg, layers, cache, batch: int) -> bool:
     return megakernel_supported(cfg, layers, cache, slots=batch)
 
 
+def megakernel_paged_supported(cfg, layers, pool, batch: int) -> bool:
+    """Whether ``decode_step_paged`` takes K6's paged mode: 2..64 rows, as
+    the slot gate, over a page pool ``[L, 2, NP, nkv, page, hd]`` under the
+    single-token gate, with a page size that is a power of two. K6 looks up
+    the page of every position it reads or writes (a shift and a mask), so
+    it takes any such page size; the JAX gate's ``page == 256`` and ``B %
+    8`` are its (8, 128) tiles and its ``bt``-sized DMA blocks. The card's
+    paged instance is built for bf16, the engine's pool dtype: its wrapper
+    refuses another (the plain version takes any float pool)."""
+    if not MIN_B <= batch <= MAX_B or pool.dim() != 6:
+        return False
+    page = pool.shape[4]
+    if page < 1 or page & (page - 1):
+        return False
+    return megakernel_supported(cfg, layers, pool, slots=pool.shape[2])
+
+
 def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def _unported(cache_scales, tables) -> None:
+def _unported(cache_scales) -> None:
     if cache_scales is not None:
         raise NotImplementedError(
             "megakernel_batched: int8 KV (cache_scales) is ROADMAP queue A, item 10")
-    if tables is not None:
-        raise NotImplementedError(
-            "megakernel_batched: the paged cache (tables) is ROADMAP queue A, item 9")
+
+
+class _Rows:
+    """Where each row's k/v live: slot ``b`` of a slot cache, or the pages
+    ``tables[b]`` of a pool. ``read(l, n)`` is ``[2, B, nkv, n, hd]``, the
+    first ``n`` positions of every row in layer ``l``; ``write(l, s, x)``
+    puts ``x [B, nkv, hd]`` at each row's position."""
+
+    def __init__(self, cache, lengths, tables):
+        dev = cache.device
+        self.cache, self.page = cache, cache.shape[4]
+        rows = torch.arange(lengths.shape[0], device=dev)
+        t = self.page if tables is None else tables.shape[1] * self.page
+        self.lens = lengths.to(device=dev, dtype=torch.long).clamp(0, t - 1)
+        if tables is None:
+            self.tables, self.where, self.pos = None, rows, self.lens
+        else:
+            self.tables = tables.to(dev).long()
+            self.where = self.tables[rows, self.lens // self.page]
+            self.pos = self.lens % self.page
+
+    def read(self, l, n):
+        if self.tables is None:
+            return self.cache[l, :, :, :, :n]
+        return gather_pages(self.cache, self.tables, l, -(-n // self.page))[..., :n, :]
+
+    def write(self, l, s, x):
+        self.cache[l, s, self.where, :, self.pos] = x.to(self.cache.dtype)
 
 
 def w4a16_llama_token_step_batched_plain(
@@ -86,15 +134,16 @@ def w4a16_llama_token_step_batched_plain(
         max_length: Optional[int] = None):
     """Plain version of K6: ``(h_new [B, H] in h.dtype, k_new, v_new
     [L, B, nkv, hd] in the cache dtype)`` plus ``logits [B, V]`` f32 with a
-    head; writes the cache at each row's length in every layer."""
-    _unported(cache_scales, tables)
+    head; writes the cache (or the pool, with ``tables``) at each row's
+    length in every layer."""
+    _unported(cache_scales)
     hd = HEAD_DIM
-    b, t = h.shape[0], cache.shape[4]
+    b = h.shape[0]
     grp = nq // nkv
     dev = cache.device
-    lens = lengths.to(device=dev, dtype=torch.long).clamp(0, t - 1)
+    kv_at = _Rows(cache, lengths, tables)
+    lens = kv_at.lens
     tmax = int(lens.max())      # max_length is the kernel's grid hint only
-    rows = torch.arange(b, device=dev)
     live = torch.arange(tmax, device=dev)[None, :] < lens[:, None]      # [B, tmax]
     cos, sin = cos_rows.float()[:, None, :], sin_rows.float()[:, None, :]
     hh = h.float()
@@ -108,15 +157,15 @@ def w4a16_llama_token_step_batched_plain(
         k = rope_rows(qkv[:, nq * hd:(nq + nkv) * hd].reshape(b, nkv, hd), cos, sin)
         v = qkv[:, (nq + nkv) * hd:].reshape(b, nkv, hd)
         qs = (q * (1.0 / math.sqrt(hd))).reshape(b, nkv, grp, hd)
-        sc = torch.einsum("bkgh,bkth->bkgt", qs, cache[l, 0, :, :, :tmax].float())
+        kc, vc = kv_at.read(l, tmax).float()
+        sc = torch.einsum("bkgh,bkth->bkgt", qs, kc)
         sc = sc.masked_fill(~live[:, None, None, :], float("-inf"))
         s_cur = torch.einsum("bkgh,bkh->bkg", qs, k)[..., None]
         p = torch.softmax(torch.cat([sc, s_cur], dim=-1), dim=-1)
-        attn = (torch.einsum("bkgt,bkth->bkgh", p[..., :tmax],
-                             cache[l, 1, :, :, :tmax].float())
+        attn = (torch.einsum("bkgt,bkth->bkgh", p[..., :tmax], vc)
                 + p[..., tmax:] * v[:, :, None, :])
-        cache[l, 0, rows, :, lens] = k.to(cache.dtype)
-        cache[l, 1, rows, :, lens] = v.to(cache.dtype)
+        kv_at.write(l, 0, k)
+        kv_at.write(l, 1, v)
         h1 = hh + qdot_plain(attn.reshape(b, nq * hd), wo.qweight[l],
                              wo.scales[l], wo.szeros[l])
         gu = _bf16(qdot_plain(rms_rows(h1, ln2[l], eps), wgu.qweight[l],
@@ -145,7 +194,10 @@ def w4a16_llama_token_step_batched(
 
     ``cos_rows``/``sin_rows [B, hd]`` f32 are the rope rows at each row's
     position, ``cache [L, 2, B, nkv, T, hd]``, ``lengths [B]`` int32 on the
-    cache's device (read there: no host sync). ``max_length``, about
+    cache's device (read there: no host sync). With ``tables [B, MP]`` int32
+    on that device (page ids in ``[0, NP)``: not checked, that would take a
+    sync), ``cache`` is a bf16 pool ``[L, 2, NP, nkv, page, hd]`` and
+    ``T = MP * page``. ``max_length``, about
     ``lengths.max()``, sizes the attention slices (a wrong value costs load
     balance, not correctness); the engine passes it from its host copy of
     the lengths, and without it the slices are sized for a full cache
@@ -156,8 +208,9 @@ def w4a16_llama_token_step_batched(
         return w4a16_llama_token_step_batched_plain(
             h, wqkv, wo, wgu, wdn, ln1, ln2, cos_rows, sin_rows, cache, lengths,
             nq, nkv, eps, whead, norm_w, cache_scales, tables, max_length)
-    _unported(cache_scales, tables)
-    what = "megakernel_batched"
+    _unported(cache_scales)
+    paged = tables is not None
+    what = "megakernel_batched_paged" if paged else "megakernel_batched"
     dev = cache.device
     if not cache.is_cuda:
         _fail(what, f"unsupported device {dev}")
@@ -165,8 +218,19 @@ def w4a16_llama_token_step_batched(
     if not MIN_B <= b <= MAX_B:
         _fail(what, f"{b} rows; the kernel takes {MIN_B}..{MAX_B}")
     L, H, inter = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
-                                 cache, nq, nkv, b, slots=b)
+                                 cache, nq, nkv, b, slots=cache.shape[2] if paged else b)
+    page_ints = [0, 0, 0]
     T = cache.shape[4]
+    if paged:
+        if cache.dtype != torch.bfloat16:
+            _fail(what, f"the pool must be bfloat16, got {cache.dtype}")
+        if tables.dim() != 2 or tables.shape[0] != b or tables.shape[1] < 1:
+            _fail(what, f"tables must be int32 [{b}, MP]")
+        if T & (T - 1):
+            _fail(what, f"page size {T}: the kernel takes powers of two")
+        check_small(what, dev, torch.int32, tables=tables)
+        page_ints = [cache.shape[2], T, tables.shape[1]]
+        T = T * tables.shape[1]
     check_small(what, dev, None, h=h, ln1=ln1, ln2=ln2, cache=cache)
     check_small(what, dev, torch.float32, cos_rows=cos_rows, sin_rows=sin_rows)
     check_small(what, dev, torch.int32, lengths=lengths)
@@ -187,10 +251,11 @@ def w4a16_llama_token_step_batched(
             + [ln1.data_ptr(), ln2.data_ptr(), cos_rows.data_ptr(),
                sin_rows.data_ptr(), cache.data_ptr(), k_new.data_ptr(),
                v_new.data_ptr(), lengths.data_ptr()]
-            + head + [logits.data_ptr() if logits is not None else 0])
+            + head + [logits.data_ptr() if logits is not None else 0]
+            + [tables.data_ptr() if paged else 0])
     ints = [b, L, H, inter, nq, nkv, T, max_length, vocab, _DTYPE_CODE[h.dtype],
-            _DTYPE_CODE[cache.dtype], int(bias is not None)]
+            _DTYPE_CODE[cache.dtype], int(bias is not None)] + page_ints
     launch("awq_mega_batched", "megakernel_batched", ptrs, ints, eps, dev)
-    LAUNCHES["megakernel_batched"] += 1
+    LAUNCHES[what] += 1
     res = (out, k_new, v_new)
     return res + ((logits,) if logits is not None else ())

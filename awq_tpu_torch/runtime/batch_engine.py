@@ -22,10 +22,24 @@ So the engine prefills into a one-slot staging cache of the same length
 that the prompt wrote into the slot: S positions per layer and head, not a
 ``T``-long row.
 
+The ``_can_admit`` and ``_on_release`` hooks are the JAX engine's: the
+paged subclass (``runtime/paged.py``) overrides them, and ``_decode`` may
+release slots there (preemption).
+
+Two departures from the JAX engine, both faults of the reference that
+show only under preemption (ROADMAP.md, section C):
+
+- ``step`` skips a slot that ``_decode`` released; the JAX engine reads
+  ``.rid`` of the freed slot and raises ``AttributeError``
+  (``awq_tpu/runtime/batch_engine.py:377-383`` after
+  ``awq_tpu/runtime/paged.py:190-223``).
+- A preempted request comes back with its generated ids folded into its
+  prompt. ``_admit`` counts only the tokens it still has to generate
+  against the cache length; the JAX engine counts ``max_new_tokens`` on
+  top of the longer prompt and drops a request that fits.
+
 Not ported: speculative verify (``spec_k``), a device mesh, the int8 cache
-and the int8 prefill weight cache raise ``NotImplementedError``. The JAX
-engine's ``_can_admit`` and ``_on_release`` hooks serve its paged subclass
-only and come with that port.
+and the int8 prefill weight cache raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -101,6 +115,7 @@ class BatchEngine:
             params = _quantize_head(params, cfg)
         self.params = fuse_linears(params, cfg)
         self.n_slots = n_slots
+        self._stage: Optional[torch.Tensor] = None     # one-slot prefill cache
         self._init_cache(cfg, n_slots, max_seq_len, cache_dtype)
         self.lengths = np.zeros(n_slots, np.int32)     # host copy
         self.tokens = np.zeros(n_slots, np.int64)      # next input per slot
@@ -121,17 +136,29 @@ class BatchEngine:
         self.cache = init_kv_cache(cfg, n_slots, max_seq_len, cache_dtype,
                                    device=self.device)
         self.max_seq = self.cache.shape[4]
-        self._stage: Optional[torch.Tensor] = None     # one-slot prefill cache
+
+    def _stage_prefill(self, toks: torch.Tensor) -> torch.Tensor:
+        """Prefill ``toks [1, S]`` into the one-slot staging cache
+        ``[L, 2, 1, n_kv, max_seq, hd]`` (allocated at the first admission);
+        returns the final-position logits ``[1, V]``."""
+        if self._stage is None:
+            self._stage = init_kv_cache(self.cfg, 1, self.max_seq, self.cache.dtype,
+                                        device=self.device)
+        logits, _ = forward(self.params, self.cfg, toks, self._stage, 0)
+        return logits[:, -1]
+
+    def _can_admit(self, req: Request) -> bool:
+        """Room for ``req`` now (a free slot is enough here; the paged
+        engine also needs pages)."""
+        return True
 
     def _prefill_slot(self, slot: int, toks: torch.Tensor) -> torch.Tensor:
         """Prefill ``toks [1, S]`` into ``slot``'s cache rows; returns the
         final-position logits ``[1, V]``."""
-        if self._stage is None:
-            self._stage = torch.zeros_like(self.cache[:, :, :1])
+        logits = self._stage_prefill(toks)
         s = toks.shape[1]
-        logits, _ = forward(self.params, self.cfg, toks, self._stage, 0)
         self.cache[:, :, slot, :, :s] = self._stage[:, :, 0, :, :s]
-        return logits[:, -1]
+        return logits
 
     def _decode(self) -> torch.Tensor:
         """One batched decode step over all slots -> logits [n_slots, V]."""
@@ -142,6 +169,9 @@ class BatchEngine:
             max_length=int(self.lengths.max()),
         )
         return logits
+
+    def _on_release(self, slot: int) -> None:
+        """Slot freed (request finished or preempted)."""
 
     # ---- request API ------------------------------------------------------
 
@@ -175,12 +205,15 @@ class BatchEngine:
                 return
             req = self.waiting[0]
             n = len(req.prompt_ids)
-            if n + req.gen.max_new_tokens > self.max_seq:
+            # a preempted request's prompt holds its generated ids already
+            if n + req.gen.max_new_tokens - len(req.out_ids) > self.max_seq:
                 self.waiting.popleft()
                 req.done = True
                 req.finished_at = time.time()
                 self.finished[req.rid] = req
                 continue
+            if not self._can_admit(req):
+                return  # no capacity right now (e.g. the page pool is full)
             self.waiting.popleft()
             toks = torch.tensor([req.prompt_ids], dtype=torch.long,
                                 device=self.device)
@@ -203,6 +236,7 @@ class BatchEngine:
         req.finished_at = time.time()
         self.finished[req.rid] = req
         self.slots[req.slot] = None
+        self._on_release(req.slot)
 
     def _record(self, req: Request, token: int) -> None:
         req.out_ids.append(token)
@@ -228,6 +262,8 @@ class BatchEngine:
         out: Dict[int, int] = {}
         for i in active:
             req = self.slots[i]
+            if req is None:
+                continue                     # released during _decode (preempted)
             self.lengths[i] += 1
             tok = int(nxt[i])
             self.tokens[i] = tok

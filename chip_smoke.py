@@ -16,7 +16,12 @@ Phases (each failure ends the run with a non-zero exit):
    That covers K1-K5 at batch 1, K1 at 8 and 32 rows and K2 at 8 rows of
    ragged lengths as the batched stacked path calls them, the batched
    megakernel K6 at 8 and 32 rows (its in-place cache write included) and
-   the KV append K7.
+   the KV append K7; then the paged KV path: K8 (paged flash decode) on
+   K2's 8 rows over a permuted pool of 256-position pages (yardsticks: K2
+   on the contiguous cache, SDPA on the gathered view), K6's paged mode at
+   8 and 32 rows (yardstick: the contiguous K6 on the same rows; the pool
+   outside the rows' write positions must stay bit-equal to the plain
+   version's) and K7's paged mode (exact).
 3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
    new tokens each, the second continuing the first's dialogue, then a
    24-token follow-up continuing the third's) through ``InferenceEngine``
@@ -32,11 +37,19 @@ Phases (each failure ends the run with a non-zero exit):
    ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` (K1 GEMV at 8 rows, K2, K7). K6 must
    grow in the first, K1, K2 and K7 in the second. The copy of a prompt's
    prefix from the staging cache into its slot is timed by prompt length.
+3c. Serve phase 3b's twelve requests through an 8-slot ``PagedBatchEngine``
+   with pages of 256: with the default pool of 32 pages (greedy ids must
+   equal phase 3b's on K6 for all twelve) and with a pool of 12 pages,
+   which must preempt at least once while every request completes; each
+   on K6's paged mode and with ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` (K1, K8 and
+   the paged K7). Prints ms/step, tokens/s, the pool's bytes and the peak
+   device memory, and profiles eight steps of eight live requests.
 4. At the same widths and 2 layers, feed the same tokens through
    ``forward`` on the kernel path and on the plain path and compare
    logits: a 100-token prefill and 8 decodes on the stacked path, a
    20-token chunk prefill and 8 decodes on the megakernels; then one
-   ``decode_step_batched`` of 8 rows at ragged lengths on both paths.
+   ``decode_step_batched`` of 8 rows at ragged lengths on both paths, and
+   one ``decode_step_paged`` of the same rows over a permuted pool.
 5. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, where CUDA is not available or the
@@ -267,7 +280,35 @@ def phase_kernels(torch, timer, cases_out):
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         library="F.scaled_dot_product_attention(attn_mask, enable_gqa=True)"))
     log_case(cases_out[-1])
-    del cache, k_all, v_all
+
+    # K8: the same rows and data, paged: pages of 256 scattered over a
+    # permuted pool; yardsticks K2 on the contiguous cache and SDPA on the
+    # gathered view (k_all, v_all)
+    page, mp = 256, t_b // 256
+    pool, tables = scatter_pages(torch, cache[None], mp, page, gen)
+    got = da.flash_decode_paged(q, kn, vn, pool, tables, 0, lens, max_length=mx)
+    ref = da.flash_decode_paged_plain(q, kn, vn, pool, tables, 0, lens, max_length=mx)
+    flat = da.flash_decode(q, kn, vn, cache, lens, max_length=mx)
+    torch.cuda.synchronize()
+    err, rel = check(f"flash_decode_paged B={b} ragged", got, ref, attn_tol)
+    vs_k2, _ = check("flash_decode_paged against K2", got, flat, attn_tol)
+    ms = timer(lambda: da.flash_decode_paged(q, kn, vn, pool, tables, 0, lens, max_length=mx))
+    plain_ms = timer(lambda: da.flash_decode_paged_plain(q, kn, vn, pool, tables, 0, lens,
+                                                         max_length=mx), reps=5)
+    k2_ms = timer(lambda: da.flash_decode(q, kn, vn, cache, lens, max_length=mx))
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k_all, v_all, attn_mask=mask[:, None, None, :], enable_gqa=True))
+    pages_read = sum(-(-n // page) for n in ragged)
+    b_ms, b_by = bound(nbytes + pages_read * 4, 4.0 * nq * hd * (sum(ragged) + b))
+    cases_out.append(dict(
+        name="flash_decode_paged",
+        shape=f"B={b} ragged len 0..{mx} page {page} nq={nq} nkv={nkv}", max_abs_err=err,
+        max_rel_err=rel, tol=f"{attn_tol:g}*max|ref|", ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        library="F.scaled_dot_product_attention on the gathered view",
+        yardstick_ms=k2_ms, yardstick=f"K2 on the contiguous cache (max diff {vs_k2:.2e})"))
+    log_case(cases_out[-1])
+    del cache, k_all, v_all, pool
 
     # K7: one step's k/v of all 32 layers into an 8-slot cache; exact
     from awq_tpu_torch.ops import cache_append as ca
@@ -301,12 +342,61 @@ def phase_kernels(torch, timer, cases_out):
     log_case(cases_out[-1])
     del caches
 
+    # K7 paged: the same step's k/v into a pool of 8 pages per row; exact
+    pools = [torch.randn((n_l, 2, 1 + b * 8, nkv, 256, hd), generator=gen,
+                         device="cuda").to(torch.bfloat16)]
+    pools.append(pools[0].clone())
+    tables = (torch.randperm(b * 8, generator=gen, device="cuda") + 1).reshape(b, 8
+                                                                            ).to(torch.int32)
+    ca.batched_cache_append(pools[0], kv, lens, tables)
+    ca.batched_cache_append_plain(pools[1], kv, lens, tables)
+    torch.cuda.synchronize()
+    err, rel = check("cache_append_paged", pools[0], pools[1], 0.0)
+    if not torch.equal(pools[0], pools[1]):
+        raise AssertionError("cache_append_paged: the kernel's pool differs from the plain one")
+    where, off = tables.long()[rows, pos // 256], pos % 256
+
+    def indexed_copy_paged():
+        pools[1][:, :, where, :, off] = kvp
+
+    ms = timer(lambda: ca.batched_cache_append(pools[0], kv, lens, tables))
+    plain_ms = timer(lambda: ca.batched_cache_append_plain(pools[1], kv, lens, tables), reps=5)
+    lib_ms = timer(indexed_copy_paged)
+    b_ms, b_by = bound(2 * kv.numel() * 2 + b * 4 + b * 8 * 4, 0.0)
+    cases_out.append(dict(
+        name="cache_append_paged", shape=f"L={n_l} B={b} nkv={nkv} hd={hd} page 256",
+        max_abs_err=err, max_rel_err=rel, tol="exact", ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        library="one indexed assignment (index_put_) at the rows' pages and offsets"))
+    log_case(cases_out[-1])
+    del pools
+
+
+def scatter_pages(torch, cache, mp, page, gen, need=None):
+    """A slot cache ``[L, 2, B, nkv, mp*page, hd]`` scattered into a pool of
+    permuted pages: ``(pool [L, 2, NP, nkv, page, hd], tables [B, mp] int32)``.
+    Row b gets ``need[b]`` pages (all ``mp`` by default); its other table
+    entries are 0, the trash page, which holds random data."""
+    L, _, b, nkv, _, hd = cache.shape
+    need = [mp] * b if need is None else need
+    n_pages = 1 + sum(need)
+    perm = (torch.randperm(n_pages - 1, generator=gen, device=gen.device) + 1).tolist()
+    tables = torch.zeros((b, mp), dtype=torch.int32)
+    pool = torch.randn((L, 2, 1, nkv, page, hd), generator=gen, device=cache.device
+                       ).to(cache.dtype).expand(L, 2, n_pages, nkv, page, hd).contiguous()
+    for i in range(b):
+        for j in range(need[i]):
+            pid = perm.pop()
+            tables[i, j] = pid
+            pool[:, :, pid] = cache[:, :, i, :, j * page:(j + 1) * page]
+    return pool, tables.to(cache.device)
+
 
 def log_case(c):
     lib = ("library_ms=none" if c["library_ms"] is None
            else f"library_ms={c['library_ms']:.4f}")
     if "yardstick_ms" in c:
-        lib += f" stacked_path_ms={c['yardstick_ms']:.4f}"
+        lib += f" yardstick_ms={c['yardstick_ms']:.4f} ({c['yardstick']})"
     log(f"  {c['name']:16s} {c['shape']:34s} max_abs_err={c['max_abs_err']:.3e} "
         f"max_rel_err={c['max_rel_err']:.3e} (tol {c['tol']}) "
         f"kernel_ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
@@ -381,7 +471,8 @@ def phase_megakernels(torch, timer, cases_out):
     # the other side and carry on: 5e-2, as for the model-level check.
     tol_layer, tol_deep = 2.0 ** -6, 5e-2
 
-    def record(name, shape, got, ref, tol, ms, plain_ms, yard_ms, nbytes, flops):
+    def record(name, shape, got, ref, tol, ms, plain_ms, yard_ms, nbytes, flops,
+               yard="stacked per-kernel path, same step, device time (profiler)"):
         err = rel = 0.0
         for i, (g, r) in enumerate(zip(got, ref)):
             e, r_ = check(f"{name} {shape} output {i}", g, r, tol)
@@ -391,8 +482,7 @@ def phase_megakernels(torch, timer, cases_out):
             name=name, shape=shape, max_abs_err=err, max_rel_err=rel,
             tol=f"{tol:g}*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None, library="none",
-            yardstick_ms=yard_ms,
-            yardstick="stacked per-kernel path, same step, device time (profiler)"))
+            yardstick_ms=yard_ms, yardstick=yard))
         log_case(cases_out[-1])
 
     layer = 5
@@ -461,6 +551,10 @@ def phase_megakernels(torch, timer, cases_out):
         lens = torch.tensor(ragged, dtype=torch.int32, device=dev)
         cache_b = llama.init_kv_cache(cfg, b, t_b)
         cache_b.normal_(generator=gen)
+        # the same rows paged (for K6's paged mode below): each row's pages
+        # up to its write position, scattered over a permuted pool
+        pool, tables = scatter_pages(torch, cache_b, t_b // 256, 256, gen,
+                                     need=[n // 256 + 1 for n in ragged])
         cache_ref = cache_b.clone()             # the plain version's own cache
         h = (torch.randn((b, h_dim), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
         rope = (cos[lens.long()], sin[lens.long()])
@@ -497,11 +591,42 @@ def phase_megakernels(torch, timer, cases_out):
             return llama._head_logits(params, llama.rms_norm(hh, params["norm"], eps), "auto")
 
         yard_ms = device_ms(torch, stacked_step)
+        k6_bytes = L * (layer_bytes + kv_pos * total) + head_bytes + 2 * b * h_dim * 2
+        k6_flops = b * (L * layer_flops + 2.0 * h_dim * vocab) + L * 4.0 * nq * hd * total
         record("megakernel_batched", f"{L} layers + W4 head, B={b}, len 0..{mx}", got, ref,
-               tol_deep, ms, plain_ms, yard_ms,
-               L * (layer_bytes + kv_pos * total) + head_bytes + 2 * b * h_dim * 2,
-               b * (L * layer_flops + 2.0 * h_dim * vocab) + L * 4.0 * nq * hd * total)
-        del cache_b, cache_ref, step, step_ref, got, ref
+               tol_deep, ms, plain_ms, yard_ms, k6_bytes, k6_flops)
+        del cache_b, cache_ref, step, step_ref, ref
+        torch.cuda.empty_cache()
+
+        # K6's paged mode on the same rows; the yardstick is the contiguous K6
+        pool_ref = pool.clone()
+        kw_p = dict(kw, tables=tables)
+        step = (h, *args, *rope, pool, lens, nq, nkv, eps)
+        step_ref = (h, *args, *rope, pool_ref, lens, nq, nkv, eps)
+        got_p = mkb.w4a16_llama_token_step_batched(*step, **kw_p)
+        ref = mkb.w4a16_llama_token_step_batched_plain(*step_ref, **kw_p)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got_p, got))
+        where = tables.long()[rows, at // 256]
+        off = at % 256
+        for i in (0, 1):
+            if not torch.equal(pool[:, i, where, :, off].transpose(0, 1), got_p[1 + i]):
+                raise AssertionError(f"megakernel_batched_paged B={b}: the pool does not "
+                                     "hold the returned k/v at each row's page and offset")
+            check(f"megakernel_batched_paged B={b} pool written, kv {i}",
+                  pool[:, i, where, :, off], pool_ref[:, i, where, :, off], tol_deep)
+        pool_ref[:, :, where, :, off] = pool[:, :, where, :, off]
+        if not torch.equal(pool, pool_ref):
+            raise AssertionError(f"megakernel_batched_paged B={b}: the kernel changed the "
+                                 "pool outside the rows' write positions")
+        ms_p = timer(lambda: mkb.w4a16_llama_token_step_batched(*step, **kw_p))
+        plain_ms = timer(lambda: mkb.w4a16_llama_token_step_batched_plain(*step_ref, **kw_p),
+                         reps=2)
+        record("megakernel_batched_paged",
+               f"{L} layers + W4 head, B={b}, len 0..{mx}, page 256", got_p, ref, tol_deep,
+               ms_p, plain_ms, ms, k6_bytes + b * (t_b // 256) * 4, k6_flops,
+               yard=f"contiguous K6, same rows (outputs {'equal' if same else 'differ'})")
+        del pool, pool_ref, step, step_ref, got, got_p, ref
         torch.cuda.empty_cache()
     del params
 
@@ -700,76 +825,101 @@ BATCH_PROMPTS = (16, 24, 200, 1000)     # in rotation over the twelve requests
 BATCH_SLOTS, BATCH_REQUESTS, BATCH_NEW = 8, 12, 32
 
 
-def phase_serve_batched(torch, cfg, params):
-    """Phase 3b: twelve requests through an 8-slot BatchEngine, once per
-    configuration; returns {config: launches}."""
+def batch_prompts(cfg):
+    import torch
+
+    rng = torch.Generator().manual_seed(11)
+    return [torch.randint(0, cfg.vocab_size, (BATCH_PROMPTS[i % 4],),
+                          generator=rng).tolist() for i in range(BATCH_REQUESTS)]
+
+
+def drive(torch, engine, prompts, label, cfg):
+    """The twelve requests through ``engine``: six at once, then one more
+    every fourth step while a slot is free, so each joins while the others
+    decode. Warms the engine first and resets the launch counts just before
+    the run. Returns the finished requests in submission order, the launch
+    counts and the median decode-only ms/step."""
     from awq_tpu_torch.config import GenConfig
-    from awq_tpu_torch.runtime.batch_engine import BatchEngine
 
     gen = GenConfig(greedy=True, max_new_tokens=BATCH_NEW)
-    rng = torch.Generator().manual_seed(11)
-    prompts = [torch.randint(0, cfg.vocab_size, (BATCH_PROMPTS[i % 4],),
-                             generator=rng).tolist() for i in range(BATCH_REQUESTS)]
+    # warm: first launches load the kernels' modules
+    engine.submit(prompts[0][:8], GenConfig(greedy=True, max_new_tokens=2))
+    engine.submit(prompts[2][:40], GenConfig(greedy=True, max_new_tokens=2))
+    engine.run()
+    engine.finished.clear()
+    torch.cuda.synchronize()
+    reset_counters()
+    rids, decode_ms, admit_ms = [], [], []
+    pending = list(prompts)
+    n_steps = 0
+    t_run = time.perf_counter()
+    while pending or engine.waiting or engine.n_active:
+        free = BATCH_SLOTS - engine.n_active - len(engine.waiting)
+        want = 6 - len(rids) if len(rids) < 6 else int(n_steps % 4 == 0)
+        for _ in range(min(want, free, len(pending))):
+            rids.append(engine.submit(pending.pop(0), gen))
+        admitting = bool(engine.waiting)
+        t0 = time.perf_counter()
+        engine.step()               # ends with the fetch of the sampled ids
+        (admit_ms if admitting else decode_ms).append((time.perf_counter() - t0) * 1e3)
+        n_steps += 1
+    wall = time.perf_counter() - t_run
+    launches = read_counters()
+    done = [engine.finished[r] for r in rids]
+    for r in done:
+        if len(r.out_ids) != BATCH_NEW or min(r.out_ids) < 0 \
+                or max(r.out_ids) >= cfg.vocab_size:
+            raise AssertionError(f"[{label}] request {r.rid}: bad output ids {r.out_ids}")
+    n_tok = sum(len(r.out_ids) for r in done)
+    ttft = {n: [] for n in BATCH_PROMPTS}
+    for r, prompt in zip(done, prompts):
+        ttft[len(prompt)].append((r.first_token_at - r.submitted_at) * 1e3)
+    ms_step = statistics.median(decode_ms)
+    log(f"  [{label}] {BATCH_REQUESTS} requests x {BATCH_NEW} new tokens through "
+        f"{BATCH_SLOTS} slots: {n_steps} steps in {wall * 1e3:.1f} ms, "
+        f"{n_tok / wall:.1f} tokens/s aggregate; decode-only steps "
+        f"{ms_step:.3f} ms/step median ({min(decode_ms):.3f}-{max(decode_ms):.3f}, "
+        f"{len(decode_ms)} steps), steps that admit {statistics.median(admit_ms):.2f} ms median")
+    log(f"  [{label}] TTFT (submit to first token, ms) by prompt length: " + ", ".join(
+        f"{n}: " + "/".join(f"{t:.2f}" for t in ts) for n, ts in ttft.items()))
+    log(f"  [{label}] launches during the twelve requests: {launches}")
+    return done, launches, ms_step
+
+
+def check_path(label, launches, must, off):
+    for k in must:
+        if launches[k] <= 0:
+            raise AssertionError(f"[{label}] kernel {k} was not launched on its path")
+    for k in off:
+        if launches[k]:
+            raise AssertionError(f"[{label}] kernel {k} ran off its path")
+
+
+def phase_serve_batched(torch, cfg, params):
+    """Phase 3b: twelve requests through an 8-slot BatchEngine, once per
+    configuration; returns {config: launches} and the greedy ids on K6."""
+    from awq_tpu_torch.runtime.batch_engine import BatchEngine
+
+    prompts = batch_prompts(cfg)
     out_launches, ids = {}, {}
     for label, disable in (("batched", None), ("batched_stacked", "1")):
         set_config(disable)
         log(f"  [{label}] AWQ_TPU_DISABLE_MEGAKERNEL={disable or 'unset'}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         engine = BatchEngine(cfg, params, n_slots=BATCH_SLOTS, max_seq_len=2048)
-        # warm: first launches load the kernels' modules
-        engine.submit(prompts[0][:8], GenConfig(greedy=True, max_new_tokens=2))
-        engine.submit(prompts[2][:40], GenConfig(greedy=True, max_new_tokens=2))
-        engine.run()
-        engine.finished.clear()
-        torch.cuda.synchronize()
-        reset_counters()
-        rids, decode_ms, admit_ms = [], [], []
-        pending = list(prompts)
-        n_steps = 0
-        t_run = time.perf_counter()
-        while pending or engine.waiting or engine.n_active:
-            # six requests at once, then one more every fourth step while a
-            # slot is free: each joins while the others decode
-            free = BATCH_SLOTS - engine.n_active - len(engine.waiting)
-            want = 6 - len(rids) if len(rids) < 6 else int(n_steps % 4 == 0)
-            for _ in range(min(want, free, len(pending))):
-                rids.append(engine.submit(pending.pop(0), gen))
-            admitting = bool(engine.waiting)
-            t0 = time.perf_counter()
-            engine.step()               # ends with the fetch of the sampled ids
-            (admit_ms if admitting else decode_ms).append((time.perf_counter() - t0) * 1e3)
-            n_steps += 1
-        wall = time.perf_counter() - t_run
-        launches = read_counters()
-        done = [engine.finished[r] for r in rids]
-        for r in done:
-            if len(r.out_ids) != BATCH_NEW or min(r.out_ids) < 0 \
-                    or max(r.out_ids) >= cfg.vocab_size:
-                raise AssertionError(f"[{label}] request {r.rid}: bad output ids {r.out_ids}")
+        done, launches, ms_step = drive(torch, engine, prompts, label, cfg)
+        log(f"  [{label}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         ids[label] = [r.out_ids for r in done]
-        n_tok = sum(len(r.out_ids) for r in done)
-        ttft = {n: [] for n in BATCH_PROMPTS}
-        for r in done:
-            ttft[len(r.prompt_ids)].append((r.first_token_at - r.submitted_at) * 1e3)
-        ms_step = statistics.median(decode_ms)
-        log(f"  [{label}] {BATCH_REQUESTS} requests x {BATCH_NEW} new tokens through "
-            f"{BATCH_SLOTS} slots: {n_steps} steps in {wall * 1e3:.1f} ms, "
-            f"{n_tok / wall:.1f} tokens/s aggregate; decode-only steps "
-            f"{ms_step:.3f} ms/step median ({min(decode_ms):.3f}-{max(decode_ms):.3f}, "
-            f"{len(decode_ms)} steps), steps that admit {statistics.median(admit_ms):.2f} ms median")
-        log(f"  [{label}] TTFT (submit to first token, ms) by prompt length: " + ", ".join(
-            f"{n}: " + "/".join(f"{t:.2f}" for t in ts) for n, ts in ttft.items()))
-        log(f"  [{label}] launches during the twelve requests: {launches}")
-        must = (("megakernel_batched", "megakernel_chunk", "w4a16_gemm", "flash_prefill")
-                if disable is None else
-                ("w4a16_gemv", "w4a16_gemm", "flash_decode", "flash_prefill", "cache_append"))
-        for k in must:
-            if launches[k] <= 0:
-                raise AssertionError(f"[{label}] kernel {k} was not launched on its path")
-        off = (("cache_append", "flash_decode") if disable is None else
-               ("megakernel_batched", "megakernel_chunk", "megakernel_token"))
-        for k in off:
-            if launches[k]:
-                raise AssertionError(f"[{label}] kernel {k} ran off its path")
+        if disable is None:
+            check_path(label, launches,
+                       ("megakernel_batched", "megakernel_chunk", "w4a16_gemm",
+                        "flash_prefill"), ("cache_append", "flash_decode"))
+        else:
+            check_path(label, launches,
+                       ("w4a16_gemv", "w4a16_gemm", "flash_decode", "flash_prefill",
+                        "cache_append"),
+                       ("megakernel_batched", "megakernel_chunk", "megakernel_token"))
         out_launches[label] = launches
         # eight more steps over all slots at the lengths the run left behind
         where = f"slot lengths {sorted(int(x) for x in engine.lengths)}"
@@ -788,6 +938,71 @@ def phase_serve_batched(torch, cfg, params):
     agree = sum(a == b for a, b in zip(ids["batched"], ids["batched_stacked"]))
     log(f"  greedy ids of the two paths agree on {agree}/{BATCH_REQUESTS} requests "
         "(random weights: a rounding difference can flip an argmax and the rest follows)")
+    return out_launches, ids["batched"]
+
+
+PAGE, SMALL_POOL = 256, 12     # phase 3c: page size; pages of the preempting pool
+
+
+def phase_serve_paged(torch, cfg, params, slot_ids):
+    """Phase 3c: phase 3b's twelve requests through an 8-slot
+    PagedBatchEngine with pages of 256, on K6 and on the stacked path, with
+    the default pool (greedy ids must equal phase 3b's on K6) and with a
+    pool of SMALL_POOL pages (at least one preemption; every request
+    completes). Returns {config: launches}."""
+    from awq_tpu_torch.config import GenConfig
+    from awq_tpu_torch.runtime.paged import PagedBatchEngine
+
+    prompts = batch_prompts(cfg)
+    kv_pos = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * 2
+    log(f"  the 8-slot engine's cache: {BATCH_SLOTS * 2048 * kv_pos / 2**30:.3f} GiB")
+    out_launches = {}
+    for pool_label, n_pages in (("default pool", None), ("small pool", SMALL_POOL)):
+        for label, disable in (("paged", None), ("paged_stacked", "1")):
+            set_config(disable)
+            tag = label + ("" if n_pages is None else "_small")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            engine = PagedBatchEngine(cfg, params, n_slots=BATCH_SLOTS, max_seq_len=2048,
+                                      page_size=PAGE, n_pages=n_pages)
+            pool_bytes = engine.cache.numel() * engine.cache.element_size()
+            log(f"  [{tag}] {pool_label}: {engine.n_pages} pages of {PAGE} "
+                f"({pool_bytes / 2**30:.3f} GiB); AWQ_TPU_DISABLE_MEGAKERNEL={disable or 'unset'}")
+            done, launches, ms_step = drive(torch, engine, prompts, tag, cfg)
+            agree = sum(r.out_ids == ref for r, ref in zip(done, slot_ids))
+            log(f"  [{tag}] {engine.n_preempted} preemptions; greedy ids equal phase 3b's "
+                f"on K6 for {agree}/{BATCH_REQUESTS} requests; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if disable is None:
+                check_path(tag, launches,
+                           ("megakernel_batched_paged", "megakernel_chunk", "w4a16_gemm",
+                            "flash_prefill"),
+                           ("megakernel_batched", "flash_decode", "flash_decode_paged",
+                            "cache_append", "cache_append_paged"))
+            else:
+                check_path(tag, launches,
+                           ("w4a16_gemv", "w4a16_gemm", "flash_decode_paged", "flash_prefill",
+                            "cache_append_paged"),
+                           ("megakernel_batched", "megakernel_batched_paged",
+                            "megakernel_chunk", "megakernel_token", "flash_decode",
+                            "cache_append"))
+            if n_pages is None and disable is None and agree != BATCH_REQUESTS:
+                raise AssertionError(f"[{tag}] greedy ids differ from phase 3b's on K6")
+            if n_pages is not None and not engine.n_preempted:
+                raise AssertionError(f"[{tag}] the small pool preempted nothing")
+            out_launches[tag] = launches
+            if n_pages is None:
+                # eight live requests, then a profile of eight engine steps
+                gen = GenConfig(greedy=True, max_new_tokens=12)
+                for i in range(BATCH_SLOTS):
+                    engine.submit(prompts[i], gen)
+                engine.step()
+                where = f"slot lengths {sorted(int(x) for x in engine.lengths)}"
+                profile_steps(torch, lambda i: engine.step(), ms_step, tag, where, "ms/step")
+                engine.run()
+            del engine
+    set_config(None)
+    torch.cuda.empty_cache()
     return out_launches
 
 
@@ -867,6 +1082,23 @@ def phase_model_parity(torch):
         log(f"  [{label}] decode_step_batched, 8 rows at lengths {ragged}, kernel vs plain: "
             f"logits max_abs_err/max|ref| {rel:.3e} (tol {tol:g}), cache max_abs_err "
             f"{cerr:.3e}; greedy ids agree on {agree}/8 rows")
+    # the same step paged: pages of 128 over a permuted pool; K6's paged
+    # mode, then the stacked paged path (K1, K8, paged K7)
+    pool, tables = scatter_pages(torch, base, 4, 128, gen)
+    for label, disable in (("paged", None), ("paged_stacked", "1")):
+        set_config(disable)
+        pools = [pool.clone(), pool.clone()]
+        got, _ = llama.decode_step_paged(params, cfg, toks, pools[0], tables, lens,
+                                         max_length=max(ragged))
+        ref, _ = llama.decode_step_paged(params, cfg, toks, pools[1], tables, lens,
+                                         impl="plain")
+        torch.cuda.synchronize()
+        err, rel = check(f"[{label}] decode_step_paged logits", got, ref, tol)
+        cerr, _ = check(f"[{label}] decode_step_paged pool", pools[0], pools[1], tol)
+        agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+        log(f"  [{label}] decode_step_paged, the same rows over a permuted pool of pages of "
+            f"128, kernel vs plain: logits max_abs_err/max|ref| {rel:.3e} (tol {tol:g}), "
+            f"pool max_abs_err {cerr:.3e}; greedy ids agree on {agree}/8 rows")
     set_config(None)
 
 
@@ -917,7 +1149,13 @@ def main() -> int:
 
     log(f"phase 3b: serve twelve requests through an 8-slot BatchEngine, {args.layers} "
         "layers, on the batched megakernel and on the stacked batched path")
-    launches.update(phase_serve_batched(torch, cfg, params))
+    batched, slot_ids = phase_serve_batched(torch, cfg, params)
+    launches.update(batched)
+
+    log(f"phase 3c: the same twelve requests through an 8-slot PagedBatchEngine, "
+        f"{args.layers} layers, pages of {PAGE}, on K6's paged mode and on the stacked "
+        "paged path, with the default pool and with a pool that preempts")
+    launches.update(phase_serve_paged(torch, cfg, params, slot_ids))
     del params
     torch.cuda.empty_cache()
 
@@ -941,20 +1179,31 @@ def main() -> int:
                "megakernel_batched": ("awq_tpu_torch/csrc/megakernel_batched.cu",
                                       "awq_tpu/ops/megakernel_batched.py:531"),
                "cache_append": ("awq_tpu_torch/csrc/cache_append.cu",
-                                "awq_tpu/ops/cache_append.py:62")}
+                                "awq_tpu/ops/cache_append.py:62"),
+               "flash_decode_paged": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                      "awq_tpu/ops/decode_attn.py:944"),
+               "megakernel_batched_paged": ("awq_tpu_torch/csrc/megakernel_batched.cu",
+                                            "awq_tpu/ops/megakernel_batched.py:531"),
+               "cache_append_paged": ("awq_tpu_torch/csrc/cache_append.cu",
+                                      "awq_tpu/models/llama.py:1729")}
     # one representative shape per kernel in the summary; every case is
     # printed above
     pick = {"w4a16_gemv": "wgateup M=1 ", "w4a16_gemm": "wgateup M=1000",
             "flash_decode": "len=4000", "flash_prefill": "S=512 start=700",
             "megakernel_token": "32 layers", "megakernel_layer": "layer 5 len=1000",
             "megakernel_chunk": "32 layers S=32 hist=700",
-            "megakernel_batched": "32 layers + W4 head, B=8", "cache_append": "L=32"}
-    # launches: each kernel's count on its own path's run in phases 3 and 3b
-    # (the stacked path carries K1-K3, the megakernels K4-K5, the batched
-    # engine K6, its stacked path K7). forward calls K4's token entry; the
-    # layer entry is the same kernel over one layer and has no caller on the
-    # main path, so it counts 0 there.
-    runs = {"megakernel_batched": "batched", "cache_append": "batched_stacked"}
+            "megakernel_batched": "32 layers + W4 head, B=8", "cache_append": "L=32",
+            "flash_decode_paged": "B=8", "megakernel_batched_paged": "32 layers + W4 head, B=8",
+            "cache_append_paged": "L=32"}
+    # launches: each kernel's count on its own path's run in phases 3, 3b
+    # and 3c (the stacked path carries K1-K3, the megakernels K4-K5, the
+    # batched engine K6, its stacked path K7, the paged engine K6's and K7's
+    # paged modes and K8, with the default pool). forward calls K4's token
+    # entry; the layer entry is the same kernel over one layer and has no
+    # caller on the main path, so it counts 0 there.
+    runs = {"megakernel_batched": "batched", "cache_append": "batched_stacked",
+            "megakernel_batched_paged": "paged", "flash_decode_paged": "paged_stacked",
+            "cache_append_paged": "paged_stacked"}
     kernels = []
     for name, (src, replaces) in sources.items():
         c = next(c for c in cases if c["name"] == name and c["shape"].startswith(pick[name]))
@@ -964,7 +1213,8 @@ def main() -> int:
             launches=launches[run][name], max_abs_err=c["max_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], shape=c["shape"],
-            **({"stacked_path_ms": c["yardstick_ms"]} if "yardstick_ms" in c else {})))
+            **({"yardstick_ms": c["yardstick_ms"], "yardstick": c["yardstick"]}
+               if "yardstick_ms" in c else {})))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -72,7 +72,11 @@ def test_append_counts_launches_only_on_the_card():
     before = dict(tca.LAUNCHES)
     tca.batched_cache_append(torch.from_numpy(cache), torch.from_numpy(kv),
                              torch.tensor([1, 2], dtype=torch.int32))
-    assert tca.LAUNCHES == before == {"cache_append": before["cache_append"]}
+    tca.batched_cache_append(torch.from_numpy(cache), torch.from_numpy(kv),
+                             torch.tensor([1, 2], dtype=torch.int32),
+                             torch.tensor([[0], [1]], dtype=torch.int32))
+    assert tca.LAUNCHES == before
+    assert set(before) == {"cache_append", "cache_append_paged"}
 
 
 # ---- on the card: K7 against its plain version --------------------------------

@@ -183,6 +183,7 @@ def test_port_imports_no_jax():
         "import awq_tpu_torch.models.layers, awq_tpu_torch.models.llama\n"
         "import awq_tpu_torch.runtime.sampling, awq_tpu_torch.runtime.generate\n"
         "import awq_tpu_torch.runtime.engine, awq_tpu_torch.runtime.batch_engine\n"
+        "import awq_tpu_torch.runtime.paged\n"
         "import awq_tpu_torch.ops.megakernel_batched, awq_tpu_torch.ops.cache_append\n"
         "import awq_tpu_torch.serve.http, awq_tpu_torch.serve.batch_worker\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

@@ -226,6 +226,8 @@ def test_batched_gate(case, monkeypatch):
 
 
 def test_batched_unported_options_raise():
+    """int8 KV (``cache_scales``) still raises; ``tables`` (paged mode) now
+    runs: a pool of 5 pages of 8 positions, two rows on their own pages."""
     cfg, layers = _gate_model()
     lins = (layers["wqkv"], layers["wo"], layers["wgateup"], layers["down"])
     ln = torch.ones((2, 256))
@@ -234,10 +236,17 @@ def test_batched_unported_options_raise():
             torch.zeros((2, 128)), cache, torch.zeros(2, dtype=torch.int32), 2, 2)
     with pytest.raises(NotImplementedError, match="item 10"):
         tmb.w4a16_llama_token_step_batched(*args, cache_scales=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmb.w4a16_llama_token_step_batched(*args, tables=torch.zeros((2, 1)))
     out = tmb.w4a16_llama_token_step_batched(*args)
     assert len(out) == 3 and out[0].shape == (2, 256)
+    pool = torch.zeros((2, 2, 5, 2, 8, 128))
+    tables = torch.tensor([[3, 1], [2, 4]], dtype=torch.int32)
+    lens = torch.tensor([9, 0], dtype=torch.int32)
+    paged = (*args[:9], pool, lens, 2, 2)
+    out = tmb.w4a16_llama_token_step_batched(*paged, tables=tables)
+    assert len(out) == 3 and out[0].shape == (2, 256)
+    # row 0 wrote position 9 (page 1, offset 1), row 1 position 0 (page 2)
+    assert torch.equal(pool[:, 0, 1, :, 1], out[1][:, 0])
+    assert torch.equal(pool[:, 1, 2, :, 0], out[2][:, 1])
 
 
 # ---- on the card: K6 against its plain version ------------------------------
