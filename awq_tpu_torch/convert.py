@@ -21,6 +21,9 @@ kernels read:
 
 The dense 3-bit layout (``dense3``) is refused: W3 is ROADMAP queue A,
 item 13. A stacked-of-1 ``lm_head`` (``_tile_head``) comes back 2-D.
+
+:func:`kv_cache8_from_jax` carries a JAX ``KVCache8`` (codes and scales)
+across the same way, so that one int8 cache can feed both packages.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 
 from awq_tpu_torch import _device
 from awq_tpu_torch.models.layers import Linear
+from awq_tpu_torch.models.llama import KVCache8
 from awq_tpu_torch.ops.w4a16 import QLinear
 
 
@@ -131,3 +135,17 @@ def params_from_jax(tree, device="cuda"):
             bias=None if head.bias is None else head.bias[0],
             w_bit=head.w_bit, group_size=head.group_size)
     return out
+
+
+def kv_cache8_from_jax(tree, device="cuda") -> KVCache8:
+    """The port's :class:`~awq_tpu_torch.models.llama.KVCache8` from a host
+    copy of a JAX one (``data`` int8 ``[L, 2, B, n_kv, T, hd]``, ``scales``
+    f32 ``[L, 2, B, n_kv, T]``; JAX's ``[.., T//256, 256]`` scale view is
+    taken too)."""
+    dev = _device.resolve(device)
+    data = _tensor(tree.data, dev)
+    scales = _tensor(tree.scales, dev)
+    if data.dtype != torch.int8 or data.dim() != 6 or scales.dtype != torch.float32:
+        raise ValueError(f"a KVCache8 holds int8 [L, 2, B, n_kv, T, hd] codes and f32 "
+                         f"scales, got {data.dtype} {tuple(data.shape)} and {scales.dtype}")
+    return KVCache8(data=data, scales=scales.reshape(data.shape[:5]).contiguous())

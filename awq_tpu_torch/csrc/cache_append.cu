@@ -23,6 +23,17 @@
 // tables[b, p / page], offset p % page, with p clamped to [0, MP·page − 1].
 // Freed slots' table rows are 0, the trash page, so their writes land
 // there.
+//
+// int8 mode (the int8 KV cache, KVCache8; JAX quantizes with quantize_kv
+// and writes with a per-row dynamic_update_slice loop in XLA,
+// models/llama.py:1313-1325): codes [L, 2, B, n_kv, T, 128] int8 and scales
+// [L, 2, B, n_kv, T] f32. One warp per (l, s, b, h) row: lane j holds
+// elements 4j..4j+3, a warp max gives the row's absmax, and the lane writes
+// its 4 codes as one 32-bit word (128 bytes per row, coalesced) and lane 0
+// the scale. The arithmetic is quantize_kv's to the bit: s = max(absmax,
+// 1e-6f) / 127 and q = clip(rint(x / s), -127, 127), a true division and
+// round-half-even (the build has no fast-math flag). Bound by device memory
+// as the copy: the bf16 rows in, 132 bytes per row out.
 #include "common.cuh"
 
 namespace {
@@ -54,6 +65,45 @@ __global__ void __launch_bounds__(256) cache_append_paged_kernel(
   const int pos = min(max(lengths[b], 0), mp * page - 1);
   const int pid = tables[(size_t)b * mp + pos / page];
   pool[((((ls * np + pid) * nkv + h) * page) + pos % page) * vecs + v] = kv[i];
+}
+
+template <typename T>
+__device__ __forceinline__ void load4f(const T* p, float* o);
+template <> __device__ __forceinline__ void load4f<float>(const float* p, float* o) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+template <> __device__ __forceinline__ void load4f<bf16>(const bf16* p, float* o) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+}
+
+// One warp per (l, s, b, h) row of 128 elements; 8 warps per block.
+template <typename T>
+__global__ void __launch_bounds__(256) cache_append_int8_kernel(
+    int8_t* __restrict__ codes, float* __restrict__ scales, const T* __restrict__ kv,
+    const int* __restrict__ lengths, int B, int nkv, int T_, int rows) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);   // (l, s, b, h) flattened
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int b = (row / nkv) % B;
+  const int pos = min(max(lengths[b], 0), T_ - 1);
+  float x[4];
+  load4f<T>(kv + (size_t)row * 128 + lane * 4, x);
+  float a = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3])));
+  a = warp_max(a);
+  const float s = fmaxf(a, 1e-6f) / 127.f;
+  uint32_t word = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float q = fminf(fmaxf(rintf(x[e] / s), -127.f), 127.f);
+    word |= (static_cast<uint32_t>(static_cast<int>(q)) & 0xFFu) << (8 * e);
+  }
+  const size_t at = (size_t)row * T_ + pos;
+  *reinterpret_cast<uint32_t*>(codes + at * 128 + lane * 4) = word;
+  if (lane == 0) scales[at] = s;
 }
 
 }  // namespace
@@ -98,5 +148,26 @@ extern "C" int awq_cache_append_paged(void* pool, const void* kv, const void* le
       static_cast<uint4*>(pool), static_cast<const uint4*>(kv),
       static_cast<const int*>(lengths), static_cast<const int*>(tables), B, nkv, np, page,
       mp, vecs, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// int8 mode: codes int8 [L, 2, B, nkv, T, 128] and scales f32 [L, 2, B, nkv, T],
+// kv [L, 2, B, nkv, 128] bf16 (kv_f32 = 0) or f32 (1), lengths [B] int32, all
+// contiguous on one device. `rows` is L·2·B·nkv.
+extern "C" int awq_cache_append_int8(void* codes, void* scales, const void* kv,
+                                     const void* lengths, int rows, int B, int nkv, int T,
+                                     int kv_f32, void* stream) {
+  if (rows <= 0) return 0;
+  if (B < 1 || nkv < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>(cdiv(rows, 8));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kv_f32)
+    cache_append_int8_kernel<float><<<blocks, 256, 0, st>>>(
+        static_cast<int8_t*>(codes), static_cast<float*>(scales),
+        static_cast<const float*>(kv), static_cast<const int*>(lengths), B, nkv, T, rows);
+  else
+    cache_append_int8_kernel<bf16><<<blocks, 256, 0, st>>>(
+        static_cast<int8_t*>(codes), static_cast<float*>(scales),
+        static_cast<const bf16*>(kv), static_cast<const int*>(lengths), B, nkv, T, rows);
   return static_cast<int>(cudaGetLastError());
 }

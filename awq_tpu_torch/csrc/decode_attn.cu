@@ -34,6 +34,19 @@
 // kernel rounds the softmax weights to the pool dtype before P·V; K8, like
 // K2, keeps them in f32.
 //
+// K9 replaces flash_decode_stacked8 (_stacked_decode_kernel8): K2's
+// attention over ONE layer of an int8 KV cache, codes [2, B, n_kv, T, HD]
+// int8 and scales [2, B, n_kv, T] f32 (one per position and head), with the
+// current token's k/v in bf16 as operands. It is K2's body again, with the
+// Int8KV functor: a 16-byte load brings 16 codes instead of 8 bf16 values,
+// the tile of codes sits in shared memory as int8 and its 32 positions'
+// K and V scales beside it. As in the TPU kernel, nothing is dequantized
+// elementwise: the loads widen the codes to f32, K's scale multiplies a
+// position's score after q·k, and V's scale multiplies its softmax weight
+// before p·v; the weights stay f32 (the TPU kernel's p is f32 here too).
+// Bound by device memory: half K2's bytes plus 8 bytes of scales per
+// position and head.
+//
 // K3 replaces flash_prefill_stacked (_stacked_prefill_kernel) with its
 // online softmax (the TPU-only fixed_max variant is not carried over): the
 // chunk at [start, start+S) is already in the cache, query row r attends
@@ -59,6 +72,7 @@ constexpr int DEC_WARPS = 4;
 // a cursor whose K and V rows of position t are at k + off(t) and
 // v + off(t).
 struct ContigKV {  // K2: cache [2, B, n_kv, T, HD]
+  using Elem = bf16;
   const bf16* base;
   int B, nkv, T;
   struct Row {
@@ -72,6 +86,7 @@ struct ContigKV {  // K2: cache [2, B, n_kv, T, HD]
   }
 };
 struct PagedKV {   // K8: pool [2, NP, n_kv, page, HD], tables [B, MP]
+  using Elem = bf16;
   const bf16* base;
   const int* tables;
   int np, nkv, page, mp;
@@ -91,6 +106,39 @@ struct PagedKV {   // K8: pool [2, NP, n_kv, page, HD], tables [B, MP]
                nkv * page * HD, page};
   }
 };
+struct Int8KV {    // K9: codes [2, B, n_kv, T, HD] int8, scales [2, B, n_kv, T] f32
+  using Elem = int8_t;
+  const int8_t* base;
+  const float* scales;
+  int B, nkv, T;
+  struct Row {
+    const int8_t* k;
+    const int8_t* v;
+    const float* ks;    // K scale of position t at ks[t]
+    const float* vs;
+    __device__ __forceinline__ size_t off(int t) const { return (size_t)t * HD; }
+  };
+  __device__ __forceinline__ Row row(int b, int h) const {
+    const size_t r = ((size_t)b * nkv + h) * T;
+    const size_t plane = (size_t)B * nkv * T;
+    return Row{base + r * HD, base + (r + plane) * HD, scales + r, scales + r + plane};
+  }
+};
+
+// The shared-memory tile of DEC_TILE positions: bf16 rows (K padded to
+// 65 words, conflict-free dots), or int8 rows (K padded to 33 words) with
+// the positions' K and V scales.
+template <typename E> struct DecTile;
+template <> struct DecTile<bf16> {
+  bf16 k[DEC_TILE][HD + 2];
+  __align__(16) bf16 v[DEC_TILE][HD];
+};
+template <> struct DecTile<int8_t> {
+  __align__(16) int8_t k[DEC_TILE][HD + 4];
+  __align__(16) int8_t v[DEC_TILE][HD];
+  float ks[DEC_TILE];
+  float vs[DEC_TILE];
+};
 
 // part_ml [B, n_kv, nsplit, g, 2] (max, sum); part_acc [B, n_kv, nsplit, g, HD]
 template <int HPW, typename KV>  // query heads per warp: g <= DEC_WARPS * HPW
@@ -98,10 +146,12 @@ __global__ void __launch_bounds__(128) flash_decode_split_kernel(
     const bf16* __restrict__ q, const KV kv, const int* __restrict__ lengths,
     int max_len, float* __restrict__ part_ml, float* __restrict__ part_acc,
     int nq, int nkv, int split_len, float scale) {
+  using E = typename KV::Elem;
+  constexpr bool Q8 = sizeof(E) == 1;
+  constexpr int EPV = 16 / sizeof(E);      // elements per 16-byte load
   constexpr int GMAX = DEC_WARPS * HPW;
   __shared__ float qs[GMAX][HD];
-  __shared__ bf16 ks[DEC_TILE][HD + 2];     // 65-word rows: conflict-free dots
-  __shared__ __align__(16) bf16 vs[DEC_TILE][HD];
+  __shared__ DecTile<E> tile;
   __shared__ float ps[GMAX][DEC_TILE];
 
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -129,17 +179,21 @@ __global__ void __launch_bounds__(128) flash_decode_split_kernel(
   for (int t0 = j0; t0 < j1; t0 += DEC_TILE) {
     const int n = min(DEC_TILE, j1 - t0);
     __syncthreads();  // previous tile fully consumed (and qs written)
-    for (int i = tid; i < DEC_TILE * (HD / 8); i += 128) {
-      const int r = i / (HD / 8), v = i % (HD / 8);
+    for (int i = tid; i < DEC_TILE * (HD / EPV); i += 128) {
+      const int r = i / (HD / EPV), v = i % (HD / EPV);
       uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
       if (r < n) {
-        const size_t o = rows.off(t0 + r) + v * 8;
+        const size_t o = rows.off(t0 + r) + v * EPV;
         kk = *reinterpret_cast<const uint4*>(rows.k + o);
         vv = *reinterpret_cast<const uint4*>(rows.v + o);
       }
-      uint32_t* kd = reinterpret_cast<uint32_t*>(&ks[r][v * 8]);
+      uint32_t* kd = reinterpret_cast<uint32_t*>(&tile.k[r][v * EPV]);
       kd[0] = kk.x; kd[1] = kk.y; kd[2] = kk.z; kd[3] = kk.w;
-      *reinterpret_cast<uint4*>(&vs[r][v * 8]) = vv;
+      *reinterpret_cast<uint4*>(&tile.v[r][v * EPV]) = vv;
+    }
+    if constexpr (Q8) {
+      if (tid < DEC_TILE) tile.ks[tid] = tid < n ? rows.ks[t0 + tid] : 0.f;
+      else if (tid < 2 * DEC_TILE) tile.vs[tid - DEC_TILE] = tid - DEC_TILE < n ? rows.vs[t0 + tid - DEC_TILE] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -147,11 +201,23 @@ __global__ void __launch_bounds__(128) flash_decode_split_kernel(
       const int gi = warp + DEC_WARPS * i;
       if (gi >= g) continue;  // warp-uniform
       float s = 0.f;
+      if constexpr (Q8) {
 #pragma unroll 8
-      for (int d = 0; d < HD; d += 2) {
-        const float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ks[lane][d]));
-        s = fmaf(qs[gi][d], kf.x, s);
-        s = fmaf(qs[gi][d + 1], kf.y, s);
+        for (int d = 0; d < HD; d += 4) {
+          const char4 kc = *reinterpret_cast<const char4*>(&tile.k[lane][d]);
+          s = fmaf(qs[gi][d], static_cast<float>(kc.x), s);
+          s = fmaf(qs[gi][d + 1], static_cast<float>(kc.y), s);
+          s = fmaf(qs[gi][d + 2], static_cast<float>(kc.z), s);
+          s = fmaf(qs[gi][d + 3], static_cast<float>(kc.w), s);
+        }
+        s *= tile.ks[lane];                      // K's scale on the score
+      } else {
+#pragma unroll 8
+        for (int d = 0; d < HD; d += 2) {
+          const float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&tile.k[lane][d]));
+          s = fmaf(qs[gi][d], kf.x, s);
+          s = fmaf(qs[gi][d + 1], kf.y, s);
+        }
       }
       if (lane >= n) s = NEG_INF;
       const float m_new = fmaxf(m[i], warp_max(s));  // finite: n >= 1
@@ -164,14 +230,23 @@ __global__ void __launch_bounds__(128) flash_decode_split_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
       for (int j = 0; j < n; ++j) {
-        const float pj = ps[gi][j];
-        const uint2 raw = *reinterpret_cast<const uint2*>(&vs[j][lane * 4]);
-        const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-        const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-        acc[i][0] = fmaf(pj, v01.x, acc[i][0]);
-        acc[i][1] = fmaf(pj, v01.y, acc[i][1]);
-        acc[i][2] = fmaf(pj, v23.x, acc[i][2]);
-        acc[i][3] = fmaf(pj, v23.y, acc[i][3]);
+        if constexpr (Q8) {
+          const float pj = ps[gi][j] * tile.vs[j];   // V's scale folded into p
+          const char4 vc = *reinterpret_cast<const char4*>(&tile.v[j][lane * 4]);
+          acc[i][0] = fmaf(pj, static_cast<float>(vc.x), acc[i][0]);
+          acc[i][1] = fmaf(pj, static_cast<float>(vc.y), acc[i][1]);
+          acc[i][2] = fmaf(pj, static_cast<float>(vc.z), acc[i][2]);
+          acc[i][3] = fmaf(pj, static_cast<float>(vc.w), acc[i][3]);
+        } else {
+          const float pj = ps[gi][j];
+          const uint2 raw = *reinterpret_cast<const uint2*>(&tile.v[j][lane * 4]);
+          const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+          const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+          acc[i][0] = fmaf(pj, v01.x, acc[i][0]);
+          acc[i][1] = fmaf(pj, v01.y, acc[i][1]);
+          acc[i][2] = fmaf(pj, v23.x, acc[i][2]);
+          acc[i][3] = fmaf(pj, v23.y, acc[i][3]);
+        }
       }
     }
   }
@@ -441,6 +516,19 @@ extern "C" int awq_flash_decode_paged(const void* q, const void* k_new,
                    nkv, page, mp};
   return run_decode(q, k_new, v_new, kv, lengths, mp * page, part_ml, part_acc, out, B,
                     nq, nkv, nsplit, split_len, scale, stream);
+}
+
+// K9: as awq_flash_decode, over one layer of an int8 cache: codes int8
+// [2, B, nkv, T, 128] and scales f32 [2, B, nkv, T], both contiguous.
+extern "C" int awq_flash_decode_int8(const void* q, const void* k_new, const void* v_new,
+                                     const void* codes, const void* scales,
+                                     const void* lengths, void* part_ml, void* part_acc,
+                                     void* out, int B, int nq, int nkv, int T, int nsplit,
+                                     int split_len, float scale, void* stream) {
+  const Int8KV kv{static_cast<const int8_t*>(codes), static_cast<const float*>(scales), B,
+                  nkv, T};
+  return run_decode(q, k_new, v_new, kv, lengths, T, part_ml, part_acc, out, B, nq, nkv,
+                    nsplit, split_len, scale, stream);
 }
 
 // q bf16 [B, S, nq, 128] contiguous; cache bf16 [2, B, nkv, T, 128]

@@ -87,6 +87,40 @@ template <> __device__ __forceinline__ void load4<__half>(const __half* p, float
   o[0] = __low2float(a); o[1] = __high2float(a); o[2] = __low2float(b); o[3] = __high2float(b);
 }
 
+template <> __device__ __forceinline__ void load4<int8_t>(const int8_t* p, float* o) {
+  const char4 v = *reinterpret_cast<const char4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+
+// JAX's quantize_kv (models/llama.py:391) of the current token's k and v
+// rows, 128 f32 values each in shared memory, after rounding them to bf16,
+// the dtype JAX's megakernels return k/v in for an int8 cache:
+// s = max(absmax, 1e-6f) / 127 and q = clip(rint(x / s), -127, 127), a true
+// division and round-half-even (the build has no fast-math flag), bit-equal
+// to quantize_kv. Called by all MK_THREADS (256) threads of the block, at a
+// point every thread reaches: thread t takes element t & 127 of row t >> 7
+// (k, then v). Writes the 128 codes at kq and vq, the scales at *ks and *vs
+// and, where kout and vout are not null, the bf16 values there. `red` holds
+// MK_WARPS floats of shared memory.
+__device__ __forceinline__ void quantize_kv_rows(const float* kc, const float* vc,
+                                                 int8_t* kq, int8_t* vq, float* ks,
+                                                 float* vs, bf16* kout, bf16* vout,
+                                                 float* red) {
+  const int t = threadIdx.x, d = t & (MK_HD - 1), which = t >> 7;
+  const float x = bf16r(which ? vc[d] : kc[d]);
+  const float a = warp_max(fabsf(x));
+  __syncthreads();                       // red is free
+  if ((t & 31) == 0) red[t >> 5] = a;
+  __syncthreads();
+  const float* r = red + which * (MK_HD / 32);
+  const float s = fmaxf(fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3])), 1e-6f) / 127.f;
+  (which ? vq : kq)[d] = static_cast<int8_t>(fminf(fmaxf(rintf(x / s), -127.f), 127.f));
+  if (d == 0) *(which ? vs : ks) = s;
+  bf16* o = which ? vout : kout;
+  if (o) o[d] = __float2bfloat16_rn(x);
+  __syncthreads();                       // red may be reused
+}
+
 // HF rotate-half rope of element d of a 128-wide row x (f32).
 __device__ __forceinline__ float rope_at(const float* x, const float* cosr,
                                         const float* sinr, int d) {

@@ -50,6 +50,14 @@
 //   fused into the gate/up phase;
 // - attention is split over (kv head, position slice) items with an online
 //   softmax per warp, and a combine phase merges the slices.
+// int8 KV (the JAX kernel's cache_scales): the cache holds int8 codes and
+// f32 scales [L, 2, 1, n_kv, T], one per position and head. The attention
+// loop widens a position's codes to f32 and multiplies them by its scale
+// before the dot, as the TPU kernel dequantizes (megakernel.py:512-536); the
+// current token stays f32. The append rounds the current k/v to bf16 (the
+// k_new/v_new it returns, JAX's kv_dt), reduces the 128-wide absmax over
+// the block and writes 128 codes and one scale each (quantize_kv_rows):
+// what JAX's caller appends after the kernel (models/llama.py:765-774).
 // Activations live in a device workspace that the wrapper allocates; the
 // kernel allocates nothing. A simple first version: no TMA, no cp.async
 // pipeline and no overlap of a phase's tail with the next one's loads.
@@ -67,6 +75,7 @@ struct TokenArgs {
   void* cache; void* k_new; void* v_new;
   const int32_t* hd_w; const float* hd_s; const float* hd_z; const void* norm_w;
   float* logits;
+  float* scales;           // int8 cache: [L, 2, 1, nkv, T]
   float* ws;
   int layer0, n_layers, L, H, I, nq, nkv, T, length, vocab, round_res, md, has_bias;
   int nsplit, split_len;
@@ -210,6 +219,7 @@ __device__ float gemv_tile(const uint32_t* __restrict__ xa, const float* __restr
 
 template <typename CT>
 __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
+  constexpr bool Q8 = sizeof(CT) == 1;   // int8 codes with f32 scales
   extern __shared__ float sm[];
   cg::grid_group grid = cg::this_grid();
   float* red = sm;                       // 256 floats
@@ -280,11 +290,19 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
         const size_t krow = (((size_t)l * 2 + 0) * nkv + kvh) * T;
         const size_t vrow = (((size_t)l * 2 + 1) * nkv + kvh) * T;
         if (sp == 0) {
-          for (int d = tid; d < MK_HD; d += MK_THREADS) {
-            cache[(krow + a.length) * MK_HD + d] = from_f32<CT>(kc[d]);
-            cache[(vrow + a.length) * MK_HD + d] = from_f32<CT>(vc[d]);
-            static_cast<CT*>(a.k_new)[((size_t)li * nkv + kvh) * MK_HD + d] = from_f32<CT>(kc[d]);
-            static_cast<CT*>(a.v_new)[((size_t)li * nkv + kvh) * MK_HD + d] = from_f32<CT>(vc[d]);
+          if constexpr (Q8) {
+            const size_t o = ((size_t)li * nkv + kvh) * MK_HD;
+            quantize_kv_rows(kc, vc, cache + (krow + a.length) * MK_HD,
+                             cache + (vrow + a.length) * MK_HD, a.scales + krow + a.length,
+                             a.scales + vrow + a.length, static_cast<bf16*>(a.k_new) + o,
+                             static_cast<bf16*>(a.v_new) + o, red);
+          } else {
+            for (int d = tid; d < MK_HD; d += MK_THREADS) {
+              cache[(krow + a.length) * MK_HD + d] = from_f32<CT>(kc[d]);
+              cache[(vrow + a.length) * MK_HD + d] = from_f32<CT>(vc[d]);
+              static_cast<CT*>(a.k_new)[((size_t)li * nkv + kvh) * MK_HD + d] = from_f32<CT>(kc[d]);
+              static_cast<CT*>(a.v_new)[((size_t)li * nkv + kvh) * MK_HD + d] = from_f32<CT>(vc[d]);
+            }
           }
         }
         float m[MK_MAXG], lsum[MK_MAXG], acc[MK_MAXG][4];
@@ -303,6 +321,11 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
             if (p < a.length && p < p1) {
               load4<CT>(cache + (krow + p) * MK_HD + lane * 4, kv4[u]);
               load4<CT>(cache + (vrow + p) * MK_HD + lane * 4, vv4[u]);
+              if constexpr (Q8) {
+                const float ks = a.scales[krow + p], vs = a.scales[vrow + p];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) { kv4[u][e] *= ks; vv4[u][e] *= vs; }
+              }
             } else if (p < p1) {
 #pragma unroll
               for (int e = 0; e < 4; ++e) { kv4[u][e] = kc[lane * 4 + e]; vv4[u][e] = vc[lane * 4 + e]; }
@@ -426,7 +449,7 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
 // Pointer and size arguments, in the order the wrapper passes them.
 enum { P_H, P_OUT, P_QW, P_QS, P_QZ, P_QB, P_OW, P_OS, P_OZ, P_GW, P_GS, P_GZ,
        P_DW, P_DS, P_DZ, P_LN1, P_LN2, P_COS, P_SIN, P_CACHE, P_KN, P_VN,
-       P_HW, P_HS, P_HZ, P_NW, P_LOGITS };
+       P_HW, P_HS, P_HZ, P_NW, P_LOGITS, P_SCALES };
 enum { N_L0, N_NL, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_LEN, N_VOCAB, N_ROUND,
        N_MD, N_CD, N_BIAS };
 
@@ -459,6 +482,7 @@ int plan(const int* n, Plan* p) {
     case 0: return plan_for<float>(n, p);
     case 1: return plan_for<bf16>(n, p);
     case 2: return plan_for<__half>(n, p);
+    case 3: return plan_for<int8_t>(n, p);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -476,7 +500,9 @@ extern "C" long long awq_mega_token_ws(const void* const* ptrs, const int* n) {
 // Caller guarantees (ops/megakernel.py checks them): contiguous operands on
 // one device; W4 g128 stacked weights [L, IC/8, OC] with f32 scales and
 // szeros [L, IC/128, OC]; head_dim 128; nq/nkv <= 8; every OC a multiple of
-// 32; H and I multiples of 128; 0 <= length < T; batch 1.
+// 32; H and I multiples of 128; 0 <= length < T; batch 1. Cache dtype code
+// 3 is int8 codes with f32 scales [L, 2, 1, nkv, T] at P_SCALES, and bf16
+// k_new/v_new.
 extern "C" int awq_mega_token(const void* const* ptrs, const int* n, float eps,
                               void* ws, void* stream) {
   Plan p;
@@ -502,6 +528,8 @@ extern "C" int awq_mega_token(const void* const* ptrs, const int* n, float eps,
   a.hd_w = static_cast<const int32_t*>(ptrs[P_HW]);
   a.hd_s = static_cast<const float*>(ptrs[P_HS]); a.hd_z = static_cast<const float*>(ptrs[P_HZ]);
   a.norm_w = ptrs[P_NW]; a.logits = static_cast<float*>(const_cast<void*>(ptrs[P_LOGITS]));
+  a.scales = static_cast<float*>(const_cast<void*>(ptrs[P_SCALES]));
+  if (n[N_CD] == 3 && !a.scales) return static_cast<int>(cudaErrorInvalidValue);
   a.ws = static_cast<float*>(ws);
   a.layer0 = n[N_L0]; a.n_layers = n[N_NL]; a.L = n[N_L]; a.H = n[N_H]; a.I = n[N_I];
   a.nq = n[N_NQ]; a.nkv = n[N_NKV]; a.T = n[N_T]; a.length = n[N_LEN];
@@ -514,6 +542,8 @@ extern "C" int awq_mega_token(const void* const* ptrs, const int* n, float eps,
     case 0: e = cudaLaunchCooperativeKernel((const void*)token_kernel<float>, p.grid,
                                             MK_THREADS, kargs, p.smem, st); break;
     case 1: e = cudaLaunchCooperativeKernel((const void*)token_kernel<bf16>, p.grid,
+                                            MK_THREADS, kargs, p.smem, st); break;
+    case 3: e = cudaLaunchCooperativeKernel((const void*)token_kernel<int8_t>, p.grid,
                                             MK_THREADS, kargs, p.smem, st); break;
     default: e = cudaLaunchCooperativeKernel((const void*)token_kernel<__half>, p.grid,
                                              MK_THREADS, kargs, p.smem, st); break;

@@ -57,6 +57,18 @@
 // so the lookup is a shift and a mask, not a division, in the attention
 // loop. The paged instance is built for a bf16 pool only (the engine's
 // pool dtype).
+// int8 slot mode (the JAX kernel's cache_scales): the cache holds int8
+// codes and f32 scales [L, 2, B, n_kv, T], one per position and head. The
+// attention dequantizes a position as K4 does (codes widened to f32 times
+// the scale; the current token stays f32), and k_new/v_new come back bf16
+// (JAX's kv_dt). The cache write cannot sit in the QKV epilogue: a block
+// there holds columns d and d + 64 of a head, half of the 128 values whose
+// absmax quantize_kv needs. So it moves past the grid barrier, into the
+// attention phase: the slice-0 item of each (row, kv head) already holds
+// the head's current k and v in shared memory, rounds them to bf16 and
+// writes 128 codes and one scale each at the row's position
+// (quantize_kv_rows). Nothing reads that position from the cache in this
+// step. The paged mode stays bf16: the JAX package has no paged int8 pool.
 // A simple first version, like K5: activation rows are read through L2 by
 // every tile, there is no TMA and no overlap of a phase's tail with the next
 // one's loads.
@@ -75,6 +87,7 @@ struct BatchArgs {
   const int32_t* hd_w; const float* hd_s; const float* hd_z; const void* norm_w;
   float* logits;
   const int32_t* tables;   // paged mode: [B, mp] page ids; T = mp·page
+  float* scales;           // int8 mode: [L, 2, B, nkv, T]
   float* ws;
   int B, L, H, I, nq, nkv, T, vocab, md, has_bias;
   int np, page, page_shift, mp;
@@ -106,6 +119,7 @@ __device__ __forceinline__ size_t kv_row(const BatchArgs& a, int l, int which, i
 
 template <typename CT, bool PAGED>
 __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
+  constexpr bool Q8 = sizeof(CT) == 1;   // int8 codes with f32 scales
   extern __shared__ __align__(16) float sm[];
   cg::grid_group grid = cg::this_grid();
   float* red8 = sm;                         // block_sum scratch
@@ -171,12 +185,18 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
             qkv[(size_t)r * oq + c] = x0;
             qkv[(size_t)r * oq + c + MK_HD / 2] = x1;
             if (is_kv) {
-              const int pos = row_length(a.lengths, r, a.T);
-              const size_t crow = kv_row<PAGED>(a, l, which, r, kvh, pos) * MK_HD;
               const size_t orow = (((size_t)l * B + r) * nkv + kvh) * MK_HD;
-              CT* out = static_cast<CT*>(which ? a.v_new : a.k_new);
-              cache[crow + d] = out[orow + d] = from_f32<CT>(x0);
-              cache[crow + d + 64] = out[orow + d + 64] = from_f32<CT>(x1);
+              if constexpr (Q8) {      // the codes are written in the attention phase
+                bf16* out = static_cast<bf16*>(which ? a.v_new : a.k_new);
+                out[orow + d] = __float2bfloat16_rn(x0);
+                out[orow + d + 64] = __float2bfloat16_rn(x1);
+              } else {
+                const int pos = row_length(a.lengths, r, a.T);
+                const size_t crow = kv_row<PAGED>(a, l, which, r, kvh, pos) * MK_HD;
+                CT* out = static_cast<CT*>(which ? a.v_new : a.k_new);
+                cache[crow + d] = out[orow + d] = from_f32<CT>(x0);
+                cache[crow + d + 64] = out[orow + d + 64] = from_f32<CT>(x1);
+              }
             }
           }
           __syncthreads();
@@ -209,6 +229,14 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
           vc[d] = qrow[(nq + nkv + kvh) * MK_HD + d];
         }
         __syncthreads();
+        if constexpr (Q8) {
+          if (sp == 0) {               // the row's k/v at its own position
+            const size_t kr = kv_row<PAGED>(a, l, 0, b, kvh, len);
+            const size_t vr = kv_row<PAGED>(a, l, 1, b, kvh, len);
+            quantize_kv_rows(kc, vc, cache + kr * MK_HD, cache + vr * MK_HD, a.scales + kr,
+                             a.scales + vr, nullptr, nullptr, red8);
+          }
+        }
         float m[MK_MAXG], lsum[MK_MAXG], acc[MK_MAXG][4];
 #pragma unroll
         for (int g = 0; g < MK_MAXG; ++g) {
@@ -225,6 +253,12 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
             if (p < len && p < p1) {
               load4<CT>(cache + kv_row<PAGED>(a, l, 0, b, kvh, p) * MK_HD + lane * 4, kv4[u]);
               load4<CT>(cache + kv_row<PAGED>(a, l, 1, b, kvh, p) * MK_HD + lane * 4, vv4[u]);
+              if constexpr (Q8) {
+                const float ks = a.scales[kv_row<PAGED>(a, l, 0, b, kvh, p)];
+                const float vs = a.scales[kv_row<PAGED>(a, l, 1, b, kvh, p)];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) { kv4[u][e] *= ks; vv4[u][e] *= vs; }
+              }
             } else {
 #pragma unroll
               for (int e = 0; e < 4; ++e) { kv4[u][e] = kc[lane * 4 + e]; vv4[u][e] = vc[lane * 4 + e]; }
@@ -368,7 +402,7 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
 
 enum { P_H, P_OUT, P_QW, P_QS, P_QZ, P_QB, P_OW, P_OS, P_OZ, P_GW, P_GS, P_GZ,
        P_DW, P_DS, P_DZ, P_LN1, P_LN2, P_COS, P_SIN, P_CACHE, P_KN, P_VN, P_LEN,
-       P_HW, P_HS, P_HZ, P_NW, P_LOGITS, P_TABLES };
+       P_HW, P_HS, P_HZ, P_NW, P_LOGITS, P_TABLES, P_SCALES };
 // paged mode: N_T is MP·page, N_NP the pool's pages (0: the slot cache)
 enum { N_B, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_MAXLEN, N_VOCAB, N_MD, N_CD, N_BIAS,
        N_NP, N_PAGE, N_MP };
@@ -404,6 +438,7 @@ int plan(const int* n, Plan* p) {
     case 0: return plan_for<float, false>(n, p);
     case 1: return plan_for<bf16, false>(n, p);
     case 2: return plan_for<__half, false>(n, p);
+    case 3: return plan_for<int8_t, false>(n, p);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -422,7 +457,9 @@ extern "C" long long awq_mega_batched_ws(const void* const* ptrs, const int* n) 
 // with 1 <= B <= 64 rows, a cache of B slots, lengths [B] int32 on the
 // device and 0 <= max_length < T. Paged mode (N_NP > 0): a bf16 pool
 // [L, 2, NP, nkv, page, 128] with page a power of two, tables int32
-// [B, MP] of page ids in [0, NP) and T = MP·page.
+// [B, MP] of page ids in [0, NP) and T = MP·page. Cache dtype code 3 (slot
+// mode only): int8 codes with f32 scales [L, 2, B, nkv, T] at P_SCALES, and
+// bf16 k_new/v_new.
 extern "C" int awq_mega_batched(const void* const* ptrs, const int* n, float eps,
                                 void* ws, void* stream) {
   Plan p;
@@ -451,6 +488,8 @@ extern "C" int awq_mega_batched(const void* const* ptrs, const int* n, float eps
   a.hd_s = static_cast<const float*>(ptrs[P_HS]); a.hd_z = static_cast<const float*>(ptrs[P_HZ]);
   a.norm_w = ptrs[P_NW]; a.logits = static_cast<float*>(const_cast<void*>(ptrs[P_LOGITS]));
   a.tables = static_cast<const int32_t*>(ptrs[P_TABLES]);
+  a.scales = static_cast<float*>(const_cast<void*>(ptrs[P_SCALES]));
+  if (n[N_CD] == 3 && !a.scales) return static_cast<int>(cudaErrorInvalidValue);
   a.ws = static_cast<float*>(ws);
   a.B = n[N_B]; a.L = n[N_L]; a.H = n[N_H]; a.I = n[N_I]; a.nq = n[N_NQ]; a.nkv = n[N_NKV];
   a.T = n[N_T]; a.vocab = n[N_VOCAB]; a.md = n[N_MD]; a.has_bias = n[N_BIAS];
@@ -465,6 +504,7 @@ extern "C" int awq_mega_batched(const void* const* ptrs, const int* n, float eps
   const void* fn = a.np ? (const void*)batched_kernel<bf16, true>
                  : n[N_CD] == 0 ? (const void*)batched_kernel<float, false>
                  : n[N_CD] == 1 ? (const void*)batched_kernel<bf16, false>
+                 : n[N_CD] == 3 ? (const void*)batched_kernel<int8_t, false>
                  : (const void*)batched_kernel<__half, false>;
   const cudaError_t e = cudaLaunchCooperativeKernel(fn, p.grid, MK_THREADS, kargs, p.smem, st);
   if (e != cudaSuccess) return static_cast<int>(e);

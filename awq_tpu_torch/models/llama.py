@@ -35,13 +35,22 @@ takes K6's paged mode (2..64 rows, pages of a power-of-two size), or the
 stacked path with K8 (``flash_decode_paged``) per layer and one paged K7
 append.
 
+The int8 KV cache, :class:`KVCache8` (int8 codes and f32 scales, one per
+position and head), rides :func:`forward` and :func:`decode_step_batched`:
+decode through K4's and K6's int8 modes, or the stacked path with K9
+(``flash_decode_int8``) per layer and one K7 int8 append; the current
+token's k/v enter its own attention in full precision and are quantized
+after every layer has run, as on the TPU. Prefill quantizes the chunk and
+writes it first, then attends over the dequantized prefix with K3. There
+is no paged int8 pool and no int8 K5, as in the JAX package.
+
 Other family features raise ``NotImplementedError`` naming their ROADMAP
 item.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -57,9 +66,14 @@ from awq_tpu_torch.models.layers import (
 )
 from awq_tpu_torch.ops.cache_append import (
     batched_cache_append,
+    batched_cache_append_int8,
+    batched_cache_append_int8_plain,
     batched_cache_append_plain,
+    dequantize_kv,
+    quantize_kv,
 )
 from awq_tpu_torch.ops.decode_attn import flash_decode, flash_decode_plain
+from awq_tpu_torch.ops.decode_attn import flash_decode_int8, flash_decode_int8_plain
 from awq_tpu_torch.ops.decode_attn import flash_decode_paged, flash_decode_paged_plain
 from awq_tpu_torch.ops.decode_attn import flash_prefill, flash_prefill_plain
 from awq_tpu_torch.ops import megakernel as mk
@@ -255,6 +269,54 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                         cfg.head_dim), dtype=dtype, device=dev)
 
 
+class KVCache8(NamedTuple):
+    """int8 KV cache (the JAX package's ``KVCache8``): half the bytes of a
+    bf16 cache held and streamed, so a card holds twice the slots or the
+    context. ``data`` int8 ``[L, 2, B, n_kv, T, hd]``, ``scales`` f32
+    ``[L, 2, B, n_kv, T]``: position ``t`` of a (layer, k|v, row, head) is
+    ``f32(data[..., t, :]) * scales[..., t]`` (:func:`quantize_kv`)."""
+
+    data: torch.Tensor
+    scales: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+
+Cache = Union[torch.Tensor, KVCache8]
+
+
+def init_kv_cache8(cfg: ModelConfig, batch: int, max_seq: int,
+                   device="cuda") -> KVCache8:
+    """A zeroed :class:`KVCache8` of ``batch`` rows and ``max_seq``
+    positions."""
+    dev = _device.resolve(device)
+    L, nkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    return KVCache8(
+        data=torch.zeros((L, 2, batch, nkv, max_seq, hd), dtype=torch.int8, device=dev),
+        scales=torch.zeros((L, 2, batch, nkv, max_seq), dtype=torch.float32, device=dev))
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
+               device="cuda") -> Cache:
+    """A zeroed cache of ``dtype``: a :class:`KVCache8` for ``"int8"`` (or
+    ``torch.int8``), else a float tensor (:func:`init_kv_cache`)."""
+    if dtype in ("int8", torch.int8):
+        return init_kv_cache8(cfg, batch, max_seq, device=device)
+    return init_kv_cache(cfg, batch, max_seq, dtype, device=device)
+
+
+def cache_tensors(cache: Cache) -> Tuple[torch.Tensor, ...]:
+    """The tensors a cache holds: ``(data, scales)`` or ``(cache,)``."""
+    return tuple(cache) if isinstance(cache, KVCache8) else (cache,)
+
+
+def cache_seq_len(cache: Cache) -> int:
+    """T of either a plain tensor cache or a :class:`KVCache8`."""
+    return (cache.data if isinstance(cache, KVCache8) else cache).shape[4]
+
+
 def params_to(params: Params, device) -> Params:
     """The parameter tree with every tensor on ``device``."""
     dev = torch.device(device)
@@ -310,13 +372,15 @@ def _megakernel_forward(params, cfg, h, cache, start_pos, plain):
     """The megakernel path: ``(h [1, S, H], logits or None)``."""
     la = params["layers"]
     s = h.shape[1]
-    cos, sin = _rope_cached(cfg, cache.shape[4], cache.device)
+    cos, sin = _rope_cached(cfg, cache_seq_len(cache), cache.device)
     args = (la["wqkv"], la["wo"], la["wgateup"], la["down"], la["ln1"], la["ln2"])
     kw = dict(nq=cfg.num_heads, nkv=cfg.num_kv_heads, eps=cfg.rms_eps)
     if s == 1:
         fn = mk.w4a16_llama_token_step_plain if plain else mk.w4a16_llama_token_step
         if mk.head_in_kernel(params):
             kw.update(whead=params["lm_head"], norm_w=params["norm"])
+        if isinstance(cache, KVCache8):
+            cache, kw["cache_scales"] = cache
         res = fn(h[0], *args, cos[start_pos], sin[start_pos], cache, start_pos, **kw)
         return res[0][None], (res[3][:, None, :] if len(res) == 4 else None)
     fn = mkc.w4a16_llama_chunk_step_plain if plain else mkc.w4a16_llama_chunk_step
@@ -343,11 +407,11 @@ def forward(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,       # [B, S] token ids
-    cache: torch.Tensor,        # [L, 2, B, n_kv, T, hd], written in place
+    cache: Cache,               # [L, 2, B, n_kv, T, hd] or a KVCache8, in place
     start_pos: int,             # the chunk occupies [start_pos, start_pos+S)
     last_only: bool = True,
     impl: str = "auto",
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, Cache]:
     """Run the decoder; returns ``(logits f32, cache)``.
 
     ``cache`` is updated IN PLACE at ``[start_pos, start_pos + S)`` and
@@ -360,16 +424,14 @@ def forward(
     held to on the card, and slower.
     """
     _check_supported(cfg)
-    if not isinstance(cache, torch.Tensor):
-        raise NotImplementedError(
-            "int8 KV cache (KVCache8) is ROADMAP queue A, item 10")
+    _check_cache(cache)
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
     start_pos = int(start_pos)
     b, s = tokens.shape
     dt = _dtype(cfg)
     dev = cache.device
-    t_max = cache.shape[4]
+    t_max = cache_seq_len(cache)
     if start_pos + s > t_max:
         raise ValueError(f"chunk [{start_pos}, {start_pos + s}) exceeds the "
                          f"cache length {t_max}")
@@ -392,13 +454,18 @@ def forward(
 
 
 def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
-                   cache: torch.Tensor, start_pos: int, impl: str = "auto",
+                   cache: Cache, start_pos: int, impl: str = "auto",
                    layer_ids=None, lengths: Optional[torch.Tensor] = None,
                    max_length: Optional[int] = None,
                    tables: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The stacked per-kernel path over ``h [B, S, H]`` for the layers
     ``layer_ids`` (all by default): returns the new residual and writes
     each layer's k/v into the cache in place.
+
+    Over a :class:`KVCache8`, decode (``S == 1``) takes K9 per layer with
+    the current token in full precision and ONE K7 int8 append of every
+    layer after the loop; prefill quantizes the chunk into the cache, then
+    runs K3 over the layer's dequantized prefix ``[0, start_pos + S)``.
 
     With ``lengths [B]`` (int32 on the cache's device; ``S == 1``) row ``b``
     decodes at its own position ``lengths[b]`` and ``start_pos`` is not
@@ -414,7 +481,9 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     layers = params["layers"]
     plain = impl == "plain"
+    q8 = isinstance(cache, KVCache8)
     decode = flash_decode_plain if plain else flash_decode
+    decode8 = flash_decode_int8_plain if plain else flash_decode_int8
     decode_paged = flash_decode_paged_plain if plain else flash_decode_paged
     prefill = flash_prefill_plain if plain else flash_prefill
 
@@ -431,14 +500,15 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         row_lengths = torch.full((b,), start_pos, dtype=torch.int32, device=dev)
         max_length = start_pos
     else:
-        t_max = cache.shape[4] * (1 if tables is None else tables.shape[1])
+        t_max = cache_seq_len(cache) * (1 if tables is None else tables.shape[1])
         cos, sin = _rope_cached(cfg, t_max, dev)
         positions = lengths.long()[:, None]
         row_lengths = lengths
     kv_new = []       # per-row decode: every layer's [2, B, n_kv, hd]
 
     for idx in (range(cfg.num_layers) if layer_ids is None else layer_ids):
-        kv = cache[idx]                  # [2, B, n_kv, T, hd] (or [2, NP, ...]) view
+        # [2, B, n_kv, T, hd] (or [2, NP, ...]) view; int8 codes and scales
+        kv, kv_s = (cache.data[idx], cache.scales[idx]) if q8 else (cache[idx], None)
         x = rms_norm(h, layers["ln1"][idx], cfg.rms_eps)
         if "wqkv" in layers:
             q, k, v = torch.split(lin("wqkv", idx, x), [nq * hd, nkv * hd, nkv * hd], dim=-1)
@@ -450,18 +520,31 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         q, k = apply_rope(q, k, cos, sin, positions)
         if s == 1:
             # the current token rides as an operand; append it afterwards
-            k1, v1 = k[:, 0].to(kv.dtype).contiguous(), v[:, 0].to(kv.dtype).contiguous()
-            if tables is None:
-                attn = decode(q[:, 0].contiguous(), k1, v1, kv, row_lengths,
-                              max_length=max_length)
+            # (over an int8 cache in full precision: the append quantizes it)
+            q1 = q[:, 0].contiguous()
+            if q8:
+                k1, v1 = k[:, 0].contiguous(), v[:, 0].contiguous()
+                attn = decode8(q1, k1, v1, kv, kv_s, row_lengths, max_length=max_length)
             else:
-                attn = decode_paged(q[:, 0].contiguous(), k1, v1, cache, tables, idx,
-                                    row_lengths, max_length=max_length)
+                k1, v1 = k[:, 0].to(kv.dtype).contiguous(), v[:, 0].to(kv.dtype).contiguous()
+                if tables is None:
+                    attn = decode(q1, k1, v1, kv, row_lengths, max_length=max_length)
+                else:
+                    attn = decode_paged(q1, k1, v1, cache, tables, idx, row_lengths,
+                                        max_length=max_length)
             attn = attn.reshape(b, 1, nq * hd)
-            if lengths is None:
+            if lengths is None and not q8:
                 update_kv_cache(kv, k, v, start_pos)
             else:
                 kv_new.append(torch.stack([k1, v1]))
+        elif q8:
+            # quantize and write the chunk, then attend over the dequantized
+            # prefix, the chunk's own quantized positions included
+            end = start_pos + s
+            kq, ks = quantize_kv(torch.stack([k, v]).transpose(2, 3))   # [2, B, n_kv, S, *]
+            kv[:, :, :, start_pos:end], kv_s[:, :, :, start_pos:end] = kq, ks
+            attn = prefill(q.contiguous(), dequantize_kv(kv[:, :, :, :end],
+                                                         kv_s[:, :, :, :end], dt), start_pos)
         else:
             update_kv_cache(kv, k, v, start_pos)
             attn = prefill(q.contiguous(), kv, start_pos)
@@ -473,10 +556,26 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
             g, u = lin("gate", idx, xm), lin("up", idx, xm)
         hm = torch.nn.functional.silu(g.float()).to(dt) * u
         h = h + lin("down", idx, hm)
-    if kv_new:
+    if kv_new and q8:
+        append8 = batched_cache_append_int8_plain if plain else batched_cache_append_int8
+        append8(cache.data, cache.scales, torch.stack(kv_new), row_lengths)
+    elif kv_new:
         append = batched_cache_append_plain if plain else batched_cache_append
         append(cache, torch.stack(kv_new), lengths, tables)
     return h
+
+
+def _check_cache(cache) -> None:
+    """A cache is a float tensor or a :class:`KVCache8`; a bare int8 tensor
+    has lost its scales."""
+    if isinstance(cache, KVCache8):
+        return
+    if not isinstance(cache, torch.Tensor):
+        raise TypeError(f"the cache must be a tensor or a KVCache8, got "
+                        f"{type(cache).__name__}")
+    if cache.dtype == torch.int8:
+        raise TypeError("a bare int8 cache tensor: the int8 KV cache is a KVCache8 "
+                        "of codes and scales (init_kv_cache8)")
 
 
 def _check_step(cfg: ModelConfig, cache, impl: str, tp_axis) -> None:
@@ -485,9 +584,7 @@ def _check_step(cfg: ModelConfig, cache, impl: str, tp_axis) -> None:
     if tp_axis is not None:
         raise NotImplementedError(
             "tensor-parallel decode (tp_axis) is ROADMAP queue A, item 17")
-    if not isinstance(cache, torch.Tensor) or cache.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 KV cache (KVCache8) is ROADMAP queue A, item 10")
+    _check_cache(cache)
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
 
@@ -497,12 +594,12 @@ def decode_step_batched(
     params: Params,
     cfg: ModelConfig,
     tokens: torch.Tensor,       # [B] one token per row
-    cache: torch.Tensor,        # [L, 2, B, n_kv, T, hd], written in place
+    cache: Cache,               # [L, 2, B, n_kv, T, hd] or a KVCache8, in place
     lengths: torch.Tensor,      # [B] int32 per-row lengths (write positions)
     impl: str = "auto",
     max_length: Optional[int] = None,
     tp_axis: Optional[str] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, Cache]:
     """One decode step with PER-ROW positions, the continuous-batching
     step: returns ``(logits [B, V] f32, cache)``. Row ``b`` reads its cache
     prefix ``[0, lengths[b])`` and writes its k/v at ``lengths[b]``, in
@@ -513,9 +610,10 @@ def decode_step_batched(
     _check_step(cfg, cache, impl, tp_axis)
     dev = cache.device
     b = tokens.shape[0]
-    if cache.shape[2] != b or tuple(lengths.shape) != (b,):
+    data, scales = mk.split_cache(cache)
+    if data.shape[2] != b or tuple(lengths.shape) != (b,):
         raise ValueError(f"{b} tokens need a cache of {b} slots and lengths "
-                         f"[{b}], got {tuple(cache.shape)} and {tuple(lengths.shape)}")
+                         f"[{b}], got {tuple(data.shape)} and {tuple(lengths.shape)}")
     lengths = lengths.to(device=dev, dtype=torch.int32)
     dt = _dtype(cfg)
     layers = params["layers"]
@@ -523,16 +621,16 @@ def decode_step_batched(
     if mkb.megakernel_batched_supported(cfg, layers, cache, b):
         fn = (mkb.w4a16_llama_token_step_batched_plain if impl == "plain"
               else mkb.w4a16_llama_token_step_batched)
-        cos, sin = _rope_cached(cfg, cache.shape[4], dev)
-        rows = lengths.long().clamp(0, cache.shape[4] - 1)
+        cos, sin = _rope_cached(cfg, data.shape[4], dev)
+        rows = lengths.long().clamp(0, data.shape[4] - 1)
         kw = dict(nq=cfg.num_heads, nkv=cfg.num_kv_heads, eps=cfg.rms_eps,
-                  max_length=max_length)
+                  max_length=max_length, cache_scales=scales)
         if mk.head_in_kernel(params):
             kw.update(whead=params["lm_head"], norm_w=params["norm"])
         # the rows' k/v are written inside the kernel: no append here
         res = fn(h, layers["wqkv"], layers["wo"], layers["wgateup"],
                  layers["down"], layers["ln1"], layers["ln2"], cos[rows],
-                 sin[rows], cache, lengths, **kw)
+                 sin[rows], data, lengths, **kw)
         if len(res) == 4:
             return res[3], cache
         h = res[0]
@@ -567,7 +665,12 @@ def decode_step_paged(
     2..64 rows under K6's paged gate (on the card, a bf16 pool) are ONE
     launch of K6's paged mode (no append after it); otherwise the stacked
     path with K8 per layer and one paged K7 append. ``impl`` as in
-    :func:`forward`."""
+    :func:`forward`. A :class:`KVCache8` pool raises: the JAX package has
+    no paged int8 cache either."""
+    if isinstance(pool, KVCache8) or pool.dtype == torch.int8:
+        raise NotImplementedError(
+            "decode_step_paged: int8 KV over a page pool; the JAX package has none "
+            "either (awq_tpu/runtime/paged.py:107-109; ROADMAP queue A, item 10)")
     _check_step(cfg, pool, impl, tp_axis)
     dev = pool.device
     b = tokens.shape[0]

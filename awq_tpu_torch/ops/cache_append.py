@@ -12,6 +12,14 @@ A length at or past ``T`` is clamped to ``T - 1``, as the JAX wrapper
 clamps: it can spoil only the last position. A negative one writes
 position 0.
 
+int8 mode (:func:`batched_cache_append_int8`): the cache is a
+``KVCache8``'s codes ``data [L, 2, B, n_kv, T, hd]`` int8 and ``scales
+[L, 2, B, n_kv, T]`` f32. The kernel quantizes every row of ``kv`` as
+:func:`quantize_kv` does and writes its 128 codes and its scale at the
+row's position, clamped as above. JAX does this with ``quantize_kv`` and a
+per-row ``dynamic_update_slice`` loop in XLA (``models/llama.py:1313-1325``
+and ``:1015-1027``); the kernel is bit-equal to it.
+
 With ``tables [B, MP]`` (int32 page ids) the cache is a page pool ``[L, 2,
 NP, n_kv, page, hd]`` and row ``b``'s position ``p`` lives at page
 ``tables[b, p // page]``, offset ``p % page``: the stacked paged step's one
@@ -29,9 +37,29 @@ from typing import Optional
 
 import torch
 
-#: Launches of K7 on a slot cache and on a page pool, counted where the
-#: wrapper launches it.
-LAUNCHES = {"cache_append": 0, "cache_append_paged": 0}
+#: Launches of K7 on a slot cache, on a page pool and in int8 mode, counted
+#: where the wrapper launches it.
+LAUNCHES = {"cache_append": 0, "cache_append_paged": 0, "cache_append_int8": 0}
+
+
+def quantize_kv(k: torch.Tensor):
+    """Symmetric int8 over the last axis (head_dim), one scale per row: the
+    JAX package's ``quantize_kv`` (``models/llama.py:391``), bit for bit.
+    ``k [..., hd]`` -> ``(codes int8 [..., hd], scales f32 [...])`` with
+    ``s = max(absmax(f32(k)), 1e-6) / 127`` and ``q = clip(round_half_even(
+    f32(k) / s), -127, 127)``: a true division, not a reciprocal multiply.
+    The divisor 127 is a tensor on ``k``'s device: PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal, one ulp off at times."""
+    kf = k.float()
+    s = torch.clamp_min(kf.abs().amax(dim=-1), 1e-6) / kf.new_tensor(127.0)
+    q = torch.clamp(torch.round(kf / s[..., None]), -127, 127).to(torch.int8)
+    return q, s
+
+
+def dequantize_kv(codes: torch.Tensor, scales: torch.Tensor,
+                  dtype=torch.float32) -> torch.Tensor:
+    """``f32(codes) * scales`` over the last axis, in ``dtype``."""
+    return (codes.float() * scales[..., None]).to(dtype)
 
 
 def batched_cache_append_plain(cache: torch.Tensor, kv: torch.Tensor,
@@ -54,9 +82,61 @@ def batched_cache_append_plain(cache: torch.Tensor, kv: torch.Tensor,
     return cache
 
 
+def batched_cache_append_int8_plain(data: torch.Tensor, scales: torch.Tensor,
+                                    kv: torch.Tensor,
+                                    lengths: torch.Tensor) -> None:
+    """Plain version of K7's int8 mode: :func:`quantize_kv` of ``kv`` and one
+    indexed assignment each of the codes and the scales, in place."""
+    b = kv.shape[2]
+    rows = torch.arange(b, device=data.device)
+    pos = lengths.to(device=data.device, dtype=torch.long).clamp(0, data.shape[4] - 1)
+    q, s = quantize_kv(kv.to(data.device))
+    data[:, :, rows, :, pos] = q.permute(2, 0, 1, 3, 4)
+    scales[:, :, rows, :, pos] = s.permute(2, 0, 1, 3)
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"batched_cache_append: {msg}")
+
+
+def batched_cache_append_int8(data: torch.Tensor, scales: torch.Tensor,
+                              kv: torch.Tensor, lengths: torch.Tensor) -> None:
+    """K7's int8 mode: quantize ``kv [L, 2, B, n_kv, hd]`` (bf16 or f32) per
+    row and write the codes into ``data [L, 2, B, n_kv, T, hd]`` int8 and the
+    scales into ``scales [L, 2, B, n_kv, T]`` f32 at the per-row positions
+    ``lengths [B]`` (int32, on the cache's device), in place."""
+    if data.device.type == "cpu":
+        return batched_cache_append_int8_plain(data, scales, kv, lengths)
+    _check(data.is_cuda, f"unsupported device {data.device}")
+    _check(data.dim() == 6 and data.shape[1] == 2 and data.dtype == torch.int8,
+           f"data must be int8 [L, 2, B, n_kv, T, hd], got {data.dtype} "
+           f"{tuple(data.shape)}")
+    L, _, b, nkv, t, hd = data.shape
+    _check(hd == 128, f"head_dim {hd}: the int8 mode is built for 128")
+    _check(tuple(scales.shape) == (L, 2, b, nkv, t) and scales.dtype == torch.float32,
+           f"scales must be f32 [{L}, 2, {b}, {nkv}, {t}]")
+    _check(tuple(kv.shape) == (L, 2, b, nkv, hd)
+           and kv.dtype in (torch.bfloat16, torch.float32),
+           f"kv must be bf16 or f32 [{L}, 2, {b}, {nkv}, {hd}], got {kv.dtype} "
+           f"{tuple(kv.shape)}")
+    _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,),
+           f"lengths must be int32 [{b}]")
+    _check(all(x.device == data.device for x in (scales, kv, lengths)),
+           "operands on different devices")
+    _check(all(x.is_contiguous() for x in (data, scales, kv, lengths)),
+           "operands must be contiguous")
+
+    from awq_tpu_torch import _build
+
+    lib = _build.load("cache_append")
+    fn = lib.awq_cache_append_int8
+    _build.declare(fn, *([_build.P] * 4), *([_build.I] * 5), _build.P)
+    err = fn(data.data_ptr(), scales.data_ptr(), kv.data_ptr(), lengths.data_ptr(),
+             L * 2 * b * nkv, b, nkv, t, int(kv.dtype == torch.float32),
+             torch.cuda.current_stream(data.device).cuda_stream)
+    _build.check(lib, err, "cache_append_int8")
+    LAUNCHES["cache_append_int8"] += 1
 
 
 def batched_cache_append(cache: torch.Tensor, kv: torch.Tensor,

@@ -15,6 +15,14 @@ its valid prefix.
   ``tables[b, p // page]``, offset ``p % page``. K8 is K2's split kernel
   with a paged address functor (``csrc/decode_attn.cu``); its splits are
   whole pages.
+- :func:`flash_decode_int8` wraps kernel K9, which replaces
+  ``flash_decode_stacked8``: K2's attention over ONE layer of an int8 KV
+  cache, codes ``[2, B, n_kv, T, hd]`` int8 and scales ``[2, B, n_kv, T]``
+  f32 (a ``KVCache8``'s ``data[l]`` and ``scales[l]``), with the current
+  token's k/v in full precision. Nothing is dequantized elementwise: K's
+  scale multiplies a position's score after ``q·k_int8``, V's scale folds
+  into its softmax weight before ``p·v_int8``, and the weights stay f32.
+  K9 is K2's split kernel with an int8 address functor.
 - :func:`flash_prefill` wraps kernel K3, which replaces
   ``flash_prefill_stacked`` with its online softmax: the chunk at
   ``[start_pos, start_pos + S)`` is already in the cache and query row
@@ -34,8 +42,9 @@ from typing import Optional, Union
 
 import torch
 
-#: Launches of K2, K8 and K3, counted where the wrappers launch them.
-LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0, "flash_prefill": 0}
+#: Launches of K2, K8, K9 and K3, counted where the wrappers launch them.
+LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0, "flash_decode_int8": 0,
+            "flash_prefill": 0}
 
 HEAD_DIM = 128            # the head_dim the kernels are built for
 _DECODE_TILE = 32         # positions per shared-memory tile (csrc)
@@ -63,6 +72,30 @@ def flash_decode_plain(q: torch.Tensor, k_new: torch.Tensor,
     p = torch.softmax(torch.cat([s, s_cur], dim=-1), dim=-1)
     out = (torch.einsum("bkgt,bkth->bkgh", p[..., :t], vf)
            + p[..., t:] * v_new.float()[:, :, None, :])
+    return out.reshape(b, nq, hd).to(q.dtype)
+
+
+def flash_decode_int8_plain(q: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, cache: torch.Tensor,
+                            scales: torch.Tensor, lengths: torch.Tensor,
+                            max_length: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K9, in f32, in the TPU kernel's order: scores
+    ``(q·scale)·k_int8`` times K's scale, softmax weights times V's scale
+    before ``p·v_int8``. ``[B, nq, hd]`` in ``q.dtype``."""
+    b, nq, hd = q.shape
+    nkv = cache.shape[2]
+    g = nq // nkv
+    t = cache.shape[3] if max_length is None else max_length
+    qf = q.float().reshape(b, nkv, g, hd) * (1.0 / math.sqrt(hd))
+    s = (torch.einsum("bkgh,bkth->bkgt", qf, cache[0, :, :, :t].float())
+         * scales[0, :, :, None, :t])
+    live = torch.arange(t, device=q.device)[None, :] < lengths[:, None].to(q.device)
+    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    s_cur = torch.einsum("bkgh,bkh->bkg", qf, k_new.to(q.dtype).float())[..., None]
+    p = torch.softmax(torch.cat([s, s_cur], dim=-1), dim=-1)
+    out = (torch.einsum("bkgt,bkth->bkgh", p[..., :t] * scales[1, :, :, None, :t],
+                        cache[1, :, :, :t].float())
+           + p[..., t:] * v_new.to(q.dtype).float()[:, :, None, :])
     return out.reshape(b, nq, hd).to(q.dtype)
 
 
@@ -193,6 +226,65 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, what)
     LAUNCHES["flash_decode"] += 1
+    return out
+
+
+def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                      cache: torch.Tensor, scales: torch.Tensor, lengths: torch.Tensor,
+                      max_length: Optional[int] = None) -> torch.Tensor:
+    """K9 wrapper. As :func:`flash_decode`, over one layer of an int8 cache:
+    ``cache [2, B, nkv, T, hd]`` int8 codes and ``scales [2, B, nkv, T]``
+    f32. ``k_new``/``v_new`` (bf16) are the current token in full
+    precision, quantized by the caller's append after the step."""
+    if q.device.type == "cpu":
+        return flash_decode_int8_plain(q, k_new, v_new, cache, scales, lengths,
+                                       max_length)
+    what = "flash_decode_int8"
+    _check(q.is_cuda, what, f"unsupported device {q.device}")
+    b, nq, hd = q.shape
+    if hd != HEAD_DIM:
+        raise NotImplementedError(
+            f"{what}: head_dim {hd}; the kernel is built for {HEAD_DIM} "
+            "(head_dim 64 waits for its model families, ROADMAP queue A, item 12)")
+    _check(cache.dim() == 5 and cache.shape[0] == 2 and cache.shape[1] == b
+           and cache.shape[-1] == hd and cache.dtype == torch.int8, what,
+           f"cache must be int8 [2, {b}, n_kv, T, {hd}], got {cache.dtype} "
+           f"{tuple(cache.shape)}")
+    nkv, t = cache.shape[2], cache.shape[3]
+    _check(tuple(scales.shape) == (2, b, nkv, t) and scales.dtype == torch.float32,
+           what, f"scales must be f32 [2, {b}, {nkv}, {t}], got {scales.dtype} "
+           f"{tuple(scales.shape)}")
+    _check(q.dtype == torch.bfloat16 and nq % nkv == 0 and nq // nkv <= 32, what,
+           f"q must be bf16 [{b}, nq, {hd}] with nq a multiple of {nkv}")
+    for name, kv in (("k_new", k_new), ("v_new", v_new)):
+        _check(tuple(kv.shape) == (b, nkv, hd) and kv.dtype == torch.bfloat16, what,
+               f"{name} must be bf16 [{b}, {nkv}, {hd}]")
+    _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,), what,
+           f"lengths must be int32 [{b}]")
+    _check(all(x.device == q.device and x.is_contiguous()
+               for x in (q, k_new, v_new, cache, scales, lengths)), what,
+           f"operands must be contiguous on {q.device}")
+    _check(cache.data_ptr() % 16 == 0, what, "cache must be 16-byte aligned")
+    if max_length is None:
+        max_length = int(lengths.max())
+    _check(0 <= max_length <= t, what, f"max_length {max_length} not in [0, {t}]")
+    nsplit, split_len = _split(max_length, b * nkv)
+    g = nq // nkv
+    part_ml = torch.empty((b, nkv, nsplit, g, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((b, nkv, nsplit, g, hd), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+
+    from awq_tpu_torch import _build
+
+    lib = _build.load("decode_attn")
+    fn = lib.awq_flash_decode_int8
+    _build.declare(fn, *([_build.P] * 9), *([_build.I] * 6), _build.F, _build.P)
+    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
+             scales.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(),
+             part_acc.data_ptr(), out.data_ptr(), b, nq, nkv, t, nsplit, split_len,
+             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, what)
+    LAUNCHES["flash_decode_int8"] += 1
     return out
 
 

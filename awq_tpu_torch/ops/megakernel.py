@@ -22,6 +22,16 @@ Unlike JAX, the new k/v are written into the cache IN PLACE at position
 ``length`` of each layer (by the kernel; by the plain version on the
 CPU); the functions still return them, as JAX does, in the cache dtype.
 
+int8 KV (``cache_scales``, the JAX kernels' operand of that name): the
+cache is a ``KVCache8``'s int8 codes ``[L, 2, 1, nkv, T, hd]`` with f32
+``cache_scales [L, 2, 1, nkv, T]``. The attention dequantizes each prefix
+position elementwise (``f32(code) * scale``) and the current token stays
+f32, as in the JAX kernel (``megakernel.py:512-536``). The new k/v come
+back in bf16 (JAX's ``kv_dt``), and the in-place write stores
+:func:`~awq_tpu_torch.ops.cache_append.quantize_kv` of those bf16 values,
+codes and scale, which is what JAX's caller appends
+(``models/llama.py:765-774``).
+
 Each function has a plain PyTorch version (``*_plain``): the CPU path and
 the reference the kernel is held to on the card. The wrappers run the
 plain version for CPU tensors and launch K4 for CUDA tensors, or raise.
@@ -36,17 +46,36 @@ from typing import Optional
 
 import torch
 
+from awq_tpu_torch.ops.cache_append import dequantize_kv, quantize_kv
 from awq_tpu_torch.ops.w4a16 import QLinear
 from awq_tpu_torch.quant.packing import unpack_int4
 
-#: Launches of K4's two entries, counted where the wrappers launch them.
-LAUNCHES = {"megakernel_token": 0, "megakernel_layer": 0}
+#: Launches of K4's two entries, over a float cache and over an int8 one,
+#: counted where the wrappers launch them.
+LAUNCHES = {"megakernel_token": 0, "megakernel_layer": 0,
+            "megakernel_token_int8": 0, "megakernel_layer_int8": 0}
 
 GROUP = 128        # the group size the kernels are built for
 HEAD_DIM = 128     # the head_dim the kernels are built for
 MAX_GROUP = 8      # most q heads per kv head K4 takes (MK_MAXG)
 CACHE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_CACHE_CODE = {**_DTYPE_CODE, torch.int8: 3}
+
+
+def split_cache(cache):
+    """``(data, scales)`` of a KV cache: a ``KVCache8`` (the ``(data,
+    scales)`` pair of ``models/llama.py``) or a float tensor, whose scales
+    are None."""
+    if isinstance(cache, tuple):
+        return cache[0], cache[1]
+    return cache, None
+
+
+def kv_out_dtype(cache: torch.Tensor) -> torch.dtype:
+    """The dtype the megakernels return k/v in: the cache's, or bf16 for an
+    int8 cache (JAX's ``kv_dt``)."""
+    return torch.bfloat16 if cache.dtype == torch.int8 else cache.dtype
 
 
 # ---- gates -------------------------------------------------------------------
@@ -68,12 +97,20 @@ def megakernel_supported(cfg, layers, cache, slots: int = 1) -> bool:
     W4 with group 128 on the four fused stacked linears, a bias on
     ``wqkv`` only, a float cache of batch 1 on CUDA
     (``AWQ_TPU_FORCE_MEGAKERNEL=1`` lets the plain version run on the CPU,
-    the JAX test hook); ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` turns it off. int8 caches (ROADMAP A10), W3 (A13) and the MPT shape (A12)
-    are not ported and take the stacked path.
+    the JAX test hook); ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` turns it off. An
+    int8 ``KVCache8`` is taken with its scales (a bare int8 tensor is not);
+    W3 (A13) and the MPT shape (A12) are not ported and take the stacked
+    path.
     """
     if _env("AWQ_TPU_DISABLE_MEGAKERNEL"):
         return False
-    if not isinstance(cache, torch.Tensor) or cache.dtype not in CACHE_DTYPES:
+    cache, scales = split_cache(cache)
+    if not isinstance(cache, torch.Tensor):
+        return False
+    if scales is None and cache.dtype not in CACHE_DTYPES:
+        return False
+    if scales is not None and (cache.dtype != torch.int8
+                               or tuple(scales.shape) != tuple(cache.shape[:5])):
         return False
     if not (cache.is_cuda or _env("AWQ_TPU_FORCE_MEGAKERNEL")):
         return False
@@ -142,9 +179,10 @@ def _lin(ql: QLinear, l: int, x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
-                 l, length, nq, nkv, eps):
-    """One layer on the f32 residual ``h [1, H]``; writes the cache at
-    ``length`` and returns ``(h_new f32 [1, H], k, v f32 [nkv, hd])``."""
+                 l, length, nq, nkv, eps, scales=None):
+    """One layer on the f32 residual ``h [1, H]``; writes the cache (codes
+    and ``scales`` for an int8 one) at ``length`` and returns ``(h_new f32
+    [1, H], k, v f32 [nkv, hd])``."""
     hd = HEAD_DIM
     grp = nq // nkv
     x = rms_rows(h, ln1[l], eps)
@@ -156,12 +194,15 @@ def _layer_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
     k = rope_rows(qkv[nq * hd:(nq + nkv) * hd].reshape(nkv, hd), cos, sin)
     v = qkv[(nq + nkv) * hd:].reshape(nkv, hd)
     qs = (q * (1.0 / math.sqrt(hd))).reshape(nkv, grp, hd)
-    keys = torch.cat([cache[l, 0, 0, :, :length].float(), k[:, None]], dim=1)
-    vals = torch.cat([cache[l, 1, 0, :, :length].float(), v[:, None]], dim=1)
+    if scales is None:
+        prefix = cache[l, :, 0, :, :length].float()
+    else:
+        prefix = dequantize_kv(cache[l, :, 0, :, :length], scales[l, :, 0, :, :length])
+    keys = torch.cat([prefix[0], k[:, None]], dim=1)
+    vals = torch.cat([prefix[1], v[:, None]], dim=1)
     p = torch.softmax(torch.einsum("kgh,kth->kgt", qs, keys), dim=-1)
     attn = torch.einsum("kgt,kth->kgh", p, vals).reshape(1, nq * hd)
-    cache[l, 0, 0, :, length] = k.to(cache.dtype)
-    cache[l, 1, 0, :, length] = v.to(cache.dtype)
+    write_kv(cache, scales, (l, slice(None), 0, slice(None), length), torch.stack([k, v]))
     h1 = h + _lin(wo, l, attn)
     gu = _lin(wgu, l, rms_rows(h1, ln2[l], eps))
     gate, up = gu.chunk(2, dim=-1)
@@ -169,21 +210,35 @@ def _layer_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
     return h1 + _lin(wdn, l, hm), k, v
 
 
+def write_kv(cache, scales, at, kv):
+    """``cache[at] = kv`` in the cache dtype; for an int8 cache the codes and
+    ``scales[at]`` of :func:`quantize_kv` of ``bf16(kv)``, as JAX's caller
+    quantizes the megakernels' bf16 k/v. ``at`` indexes the position of
+    every (k|v, head) row of ``kv [2, ..., hd]``."""
+    if scales is None:
+        cache[at] = kv.to(cache.dtype)
+    else:
+        cache[at], scales[at] = quantize_kv(kv.to(torch.bfloat16))
+
+
 def w4a16_llama_layer_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
                                  sin_row, cache, layer_idx, length, nq, nkv,
-                                 eps=1e-5):
+                                 eps=1e-5, cache_scales=None):
     """Plain version of K4's layer entry: ``(h_new [1, H] in h.dtype,
-    k_new, v_new [1, nkv, hd] in the cache dtype)``; writes the cache."""
+    k_new, v_new [1, nkv, hd] in the cache dtype, bf16 for int8)``; writes
+    the cache."""
     hn, k, v = _layer_plain(h.float(), wqkv, wo, wgu, wdn, ln1, ln2,
                             cos_row, sin_row, cache, int(layer_idx),
-                            int(length), nq, nkv, eps)
-    return (hn.to(h.dtype), k[None].to(cache.dtype), v[None].to(cache.dtype))
+                            int(length), nq, nkv, eps, cache_scales)
+    kt = kv_out_dtype(cache)
+    return (hn.to(h.dtype), k[None].to(kt), v[None].to(kt))
 
 
 def w4a16_llama_token_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
                                  sin_row, cache, length, nq, nkv, eps=1e-5,
                                  whead: Optional[QLinear] = None,
-                                 norm_w: Optional[torch.Tensor] = None):
+                                 norm_w: Optional[torch.Tensor] = None,
+                                 cache_scales=None):
     """Plain version of K4's token entry: ``(h_new [1, H], k_new, v_new
     [L, nkv, hd])`` plus ``logits [1, V]`` f32 with a head; writes the
     cache at ``length`` in every layer."""
@@ -191,12 +246,13 @@ def w4a16_llama_token_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
     ks, vs = [], []
     for l in range(cache.shape[0]):
         hn, k, v = _layer_plain(hh, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
-                                sin_row, cache, l, int(length), nq, nkv, eps)
+                                sin_row, cache, l, int(length), nq, nkv, eps,
+                                cache_scales)
         hh = hn.to(torch.bfloat16).float()   # bf16 between layers
         ks.append(k)
         vs.append(v)
-    out = (hh.to(h.dtype), torch.stack(ks).to(cache.dtype),
-           torch.stack(vs).to(cache.dtype))
+    kt = kv_out_dtype(cache)
+    out = (hh.to(h.dtype), torch.stack(ks).to(kt), torch.stack(vs).to(kt))
     if whead is None:
         return out
     xf = rms_rows(hh, norm_w, eps)
@@ -209,12 +265,22 @@ def _fail(what: str, msg: str):
     raise ValueError(f"{what}: {msg}")
 
 
-def check_operands(what, h, lins, ln1, ln2, cache, nq, nkv, rows, slots=1):
-    """Shared checks of K4, K5 and K6: what the kernels take."""
-    if cache.dtype not in CACHE_DTYPES:
-        raise NotImplementedError(
-            f"{what}: cache dtype {cache.dtype}; int8 KV is ROADMAP queue A, "
-            "item 10")
+def check_operands(what, h, lins, ln1, ln2, cache, nq, nkv, rows, slots=1,
+                   scales=None):
+    """Shared checks of K4, K5 and K6: what the kernels take. An int8 cache
+    comes with its f32 ``scales [L, 2, slots, nkv, T]``."""
+    if cache.dtype == torch.int8:
+        if scales is None:
+            _fail(what, "an int8 cache needs its scales (cache_scales)")
+        if tuple(scales.shape) != tuple(cache.shape[:5]) or scales.dtype != torch.float32:
+            _fail(what, f"cache_scales must be f32 {list(cache.shape[:5])}, got "
+                  f"{scales.dtype} {list(scales.shape)}")
+        check_small(what, cache.device, torch.float32, cache_scales=scales)
+    elif cache.dtype not in CACHE_DTYPES:
+        _fail(what, f"cache dtype {cache.dtype}: the kernels take f32, bf16, f16 "
+              "or int8 with scales")
+    elif scales is not None:
+        _fail(what, f"cache_scales with a {cache.dtype} cache")
     L, hd = cache.shape[0], cache.shape[-1]
     H = h.shape[-1]
     if hd != HEAD_DIM or cache.dim() != 6 or cache.shape[2] != slots \
@@ -305,12 +371,12 @@ def launch(entry: str, what: str, ptrs, ints, eps: float, dev) -> None:
 
 def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
                   sin_row, cache, layer0, n_layers, length, nq, nkv, eps,
-                  whead=None, norm_w=None, round_residual=True):
+                  whead=None, norm_w=None, round_residual=True, scales=None):
     dev = cache.device
     if not cache.is_cuda:
         _fail(what, f"unsupported device {dev}")
     L, H, inter = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
-                                 cache, nq, nkv, 1)
+                                 cache, nq, nkv, 1, scales=scales)
     T = cache.shape[4]
     if not 0 <= length < T:
         _fail(what, f"length {length} must lie in [0, {T})")
@@ -324,7 +390,7 @@ def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
     check_small(what, dev, h.dtype, bias=bias, norm_w=norm_w)
     vocab, head, logits = head_operands(what, whead, norm_w, H, 1, dev)
     out = torch.empty_like(h)
-    k_new = torch.empty((n_layers, nkv, HEAD_DIM), dtype=cache.dtype, device=dev)
+    k_new = torch.empty((n_layers, nkv, HEAD_DIM), dtype=kv_out_dtype(cache), device=dev)
     v_new = torch.empty_like(k_new)
     ptrs = (
         [h.data_ptr(), out.data_ptr()]
@@ -332,47 +398,53 @@ def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
         + qlinear_ptrs(wo, dev) + qlinear_ptrs(wgu, dev) + qlinear_ptrs(wdn, dev)
         + [ln1.data_ptr(), ln2.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(),
            cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr()]
-        + head + [logits.data_ptr() if logits is not None else 0])
+        + head + [logits.data_ptr() if logits is not None else 0,
+                  scales.data_ptr() if scales is not None else 0])
     ints = [layer0, n_layers, L, H, inter, nq, nkv, T, length, vocab,
-            int(round_residual), _DTYPE_CODE[h.dtype], _DTYPE_CODE[cache.dtype],
+            int(round_residual), _DTYPE_CODE[h.dtype], _CACHE_CODE[cache.dtype],
             int(bias is not None)]
     launch("awq_mega_token", "megakernel", ptrs, ints, eps, dev)
-    LAUNCHES[counter] += 1
+    LAUNCHES[counter + ("_int8" if scales is not None else "")] += 1
     res = (out, k_new, v_new)
     return res + ((logits,) if logits is not None else ())
 
 
 def w4a16_llama_layer_step(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row,
-                           cache, layer_idx, length, nq, nkv, eps=1e-5):
+                           cache, layer_idx, length, nq, nkv, eps=1e-5,
+                           cache_scales=None):
     """One decoder layer for one token (K4 over ``[l, l+1)``).
 
     ``h [1, H]`` residual, the four stacked W4 linears, ``ln1``/``ln2
     [L, H]``, the rope rows ``[hd]`` f32 at position ``length``, ``cache
-    [L, 2, 1, nkv, T, hd]`` (written at ``length`` of layer ``l``).
-    Returns ``(h_new [1, H], k_new [1, nkv, hd], v_new)``."""
+    [L, 2, 1, nkv, T, hd]`` (written at ``length`` of layer ``l``; int8
+    with ``cache_scales [L, 2, 1, nkv, T]`` f32). Returns ``(h_new [1, H],
+    k_new [1, nkv, hd], v_new)``."""
     if cache.device.type == "cpu":
         return w4a16_llama_layer_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2,
                                             cos_row, sin_row, cache, layer_idx,
-                                            length, nq, nkv, eps)
+                                            length, nq, nkv, eps, cache_scales)
     return _token_launch("megakernel_layer", "megakernel_layer", h, wqkv, wo,
                          wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
                          int(layer_idx), 1, int(length), nq, nkv, eps,
-                         round_residual=False)
+                         round_residual=False, scales=cache_scales)
 
 
 def w4a16_llama_token_step(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row,
                            cache, length, nq, nkv, eps=1e-5,
                            whead: Optional[QLinear] = None,
-                           norm_w: Optional[torch.Tensor] = None):
+                           norm_w: Optional[torch.Tensor] = None,
+                           cache_scales=None):
     """All decoder layers for one token in one launch of K4; with
     ``whead``/``norm_w`` also the final RMSNorm and the W4 head. Returns
     ``(h_new [1, H], k_new [L, nkv, hd], v_new)`` (+ ``logits [1, V]``
-    f32); the cache is written at ``length`` in every layer."""
+    f32); the cache is written at ``length`` in every layer (int8 codes and
+    ``cache_scales`` for an int8 cache, whose k/v come back bf16)."""
     if cache.device.type == "cpu":
         return w4a16_llama_token_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2,
                                             cos_row, sin_row, cache, length,
-                                            nq, nkv, eps, whead, norm_w)
+                                            nq, nkv, eps, whead, norm_w,
+                                            cache_scales)
     return _token_launch("megakernel_token", "megakernel_token", h, wqkv, wo,
                          wgu, wdn, ln1, ln2, cos_row, sin_row, cache, 0,
                          cache.shape[0], int(length), nq, nkv, eps,
-                         whead=whead, norm_w=norm_w)
+                         whead=whead, norm_w=norm_w, scales=cache_scales)

@@ -25,8 +25,16 @@ Paged mode (``tables [B, MP]`` int32 page ids): ``cache`` is then a page
 pool ``[L, 2, NP, nkv, page, hd]`` shared by all rows, and row ``b``'s
 position ``p`` lives at page ``tables[b, p // page]``, offset ``p % page``.
 K6 reads and writes through the table; everything else is the same step.
-The length is clamped into ``[0, MP * page)``. ``cache_scales`` (int8 KV)
-raises ``NotImplementedError``.
+The length is clamped into ``[0, MP * page)``.
+
+int8 KV (``cache_scales [L, 2, B, nkv, T]`` f32 beside an int8 cache, the
+JAX kernel's operand; its ``[.., T//256, 256]`` form is taken too, as the
+reshape it is): slot mode only, as in JAX, whose paged gate refuses an int8
+pool (``megakernel_batched.py:518``); paged mode with ``cache_scales``
+raises ``NotImplementedError``. The attention dequantizes each prefix
+position elementwise; the new k/v come back in bf16 and the in-place write
+stores ``quantize_kv`` of them, as JAX's caller appends them
+(``models/llama.py:1141-1154``).
 """
 
 from __future__ import annotations
@@ -37,25 +45,30 @@ from typing import Optional
 import torch
 
 from awq_tpu_torch.ops.decode_attn import gather_pages
+from awq_tpu_torch.ops.cache_append import dequantize_kv
 from awq_tpu_torch.ops.megakernel import (
     HEAD_DIM,
+    _CACHE_CODE,
     _DTYPE_CODE,
     _fail,
     check_operands,
     check_small,
     head_operands,
+    kv_out_dtype,
     launch,
     megakernel_supported,
     qdot_plain,
     qlinear_ptrs,
     rms_rows,
     rope_rows,
+    write_kv,
 )
 from awq_tpu_torch.ops.w4a16 import QLinear
 
-#: Launches of K6 over a slot cache and over a page pool, counted where the
-#: wrapper launches it.
-LAUNCHES = {"megakernel_batched": 0, "megakernel_batched_paged": 0}
+#: Launches of K6 over a slot cache, over a page pool and over an int8 slot
+#: cache, counted where the wrapper launches it.
+LAUNCHES = {"megakernel_batched": 0, "megakernel_batched_paged": 0,
+            "megakernel_batched_int8": 0}
 
 MIN_B, MAX_B = 2, 64      # rows per launch (one row is K4's case)
 
@@ -80,8 +93,9 @@ def megakernel_paged_supported(cfg, layers, pool, batch: int) -> bool:
     it takes any such page size; the JAX gate's ``page == 256`` and ``B %
     8`` are its (8, 128) tiles and its ``bt``-sized DMA blocks. The card's
     paged instance is built for bf16, the engine's pool dtype: its wrapper
-    refuses another (the plain version takes any float pool)."""
-    if not MIN_B <= batch <= MAX_B or pool.dim() != 6:
+    refuses another (the plain version takes any float pool). An int8 pool
+    is refused, as the JAX gate refuses it: there is no paged int8 cache."""
+    if isinstance(pool, tuple) or not MIN_B <= batch <= MAX_B or pool.dim() != 6:
         return False
     page = pool.shape[4]
     if page < 1 or page & (page - 1):
@@ -93,21 +107,31 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-def _unported(cache_scales) -> None:
-    if cache_scales is not None:
+def _scales_view(cache, cache_scales, tables):
+    """``cache_scales`` as ``[L, 2, B, nkv, T]`` (JAX's ``[.., T//256, 256]``
+    reshaped), or None; int8 KV in paged mode raises."""
+    if cache_scales is None:
+        return None
+    if cache.dtype != torch.int8:
+        _fail("megakernel_batched", f"cache_scales with a {cache.dtype} cache")
+    if tables is not None:
         raise NotImplementedError(
-            "megakernel_batched: int8 KV (cache_scales) is ROADMAP queue A, item 10")
+            "megakernel_batched: int8 KV over a page pool; the JAX package has no "
+            "paged int8 cache either (awq_tpu/runtime/paged.py:107-109, "
+            "ops/megakernel_batched.py:518)")
+    return cache_scales.reshape(tuple(cache_scales.shape[:4]) + (-1,))
 
 
 class _Rows:
-    """Where each row's k/v live: slot ``b`` of a slot cache, or the pages
-    ``tables[b]`` of a pool. ``read(l, n)`` is ``[2, B, nkv, n, hd]``, the
-    first ``n`` positions of every row in layer ``l``; ``write(l, s, x)``
-    puts ``x [B, nkv, hd]`` at each row's position."""
+    """Where each row's k/v live: slot ``b`` of a slot cache (codes and
+    ``scales`` for int8), or the pages ``tables[b]`` of a pool. ``read(l,
+    n)`` is ``[2, B, nkv, n, hd]`` f32, the first ``n`` positions of every
+    row in layer ``l``, dequantized; ``write(l, x)`` puts ``x [2, B, nkv,
+    hd]`` at each row's position."""
 
-    def __init__(self, cache, lengths, tables):
+    def __init__(self, cache, lengths, tables, scales=None):
         dev = cache.device
-        self.cache, self.page = cache, cache.shape[4]
+        self.cache, self.scales, self.page = cache, scales, cache.shape[4]
         rows = torch.arange(lengths.shape[0], device=dev)
         t = self.page if tables is None else tables.shape[1] * self.page
         self.lens = lengths.to(device=dev, dtype=torch.long).clamp(0, t - 1)
@@ -119,12 +143,17 @@ class _Rows:
             self.pos = self.lens % self.page
 
     def read(self, l, n):
+        if self.scales is not None:
+            return dequantize_kv(self.cache[l, :, :, :, :n], self.scales[l, :, :, :, :n])
         if self.tables is None:
-            return self.cache[l, :, :, :, :n]
-        return gather_pages(self.cache, self.tables, l, -(-n // self.page))[..., :n, :]
+            return self.cache[l, :, :, :, :n].float()
+        return gather_pages(self.cache, self.tables, l,
+                            -(-n // self.page))[..., :n, :].float()
 
-    def write(self, l, s, x):
-        self.cache[l, s, self.where, :, self.pos] = x.to(self.cache.dtype)
+    def write(self, l, x):
+        # cache[l, :, where[b], :, pos[b]] is [B, 2, nkv, hd]
+        write_kv(self.cache, self.scales, (l, slice(None), self.where, slice(None), self.pos),
+                 x.transpose(0, 1))
 
 
 def w4a16_llama_token_step_batched_plain(
@@ -133,15 +162,15 @@ def w4a16_llama_token_step_batched_plain(
         norm_w: Optional[torch.Tensor] = None, cache_scales=None, tables=None,
         max_length: Optional[int] = None):
     """Plain version of K6: ``(h_new [B, H] in h.dtype, k_new, v_new
-    [L, B, nkv, hd] in the cache dtype)`` plus ``logits [B, V]`` f32 with a
-    head; writes the cache (or the pool, with ``tables``) at each row's
-    length in every layer."""
-    _unported(cache_scales)
+    [L, B, nkv, hd] in the cache dtype, bf16 for int8)`` plus ``logits
+    [B, V]`` f32 with a head; writes the cache (or the pool, with
+    ``tables``) at each row's length in every layer."""
+    scales = _scales_view(cache, cache_scales, tables)
     hd = HEAD_DIM
     b = h.shape[0]
     grp = nq // nkv
     dev = cache.device
-    kv_at = _Rows(cache, lengths, tables)
+    kv_at = _Rows(cache, lengths, tables, scales)
     lens = kv_at.lens
     tmax = int(lens.max())      # max_length is the kernel's grid hint only
     live = torch.arange(tmax, device=dev)[None, :] < lens[:, None]      # [B, tmax]
@@ -157,15 +186,14 @@ def w4a16_llama_token_step_batched_plain(
         k = rope_rows(qkv[:, nq * hd:(nq + nkv) * hd].reshape(b, nkv, hd), cos, sin)
         v = qkv[:, (nq + nkv) * hd:].reshape(b, nkv, hd)
         qs = (q * (1.0 / math.sqrt(hd))).reshape(b, nkv, grp, hd)
-        kc, vc = kv_at.read(l, tmax).float()
+        kc, vc = kv_at.read(l, tmax)
         sc = torch.einsum("bkgh,bkth->bkgt", qs, kc)
         sc = sc.masked_fill(~live[:, None, None, :], float("-inf"))
         s_cur = torch.einsum("bkgh,bkh->bkg", qs, k)[..., None]
         p = torch.softmax(torch.cat([sc, s_cur], dim=-1), dim=-1)
         attn = (torch.einsum("bkgt,bkth->bkgh", p[..., :tmax], vc)
                 + p[..., tmax:] * v[:, :, None, :])
-        kv_at.write(l, 0, k)
-        kv_at.write(l, 1, v)
+        kv_at.write(l, torch.stack([k, v]))
         h1 = hh + qdot_plain(attn.reshape(b, nq * hd), wo.qweight[l],
                              wo.scales[l], wo.szeros[l])
         gu = _bf16(qdot_plain(rms_rows(h1, ln2[l], eps), wgu.qweight[l],
@@ -176,8 +204,8 @@ def w4a16_llama_token_step_batched_plain(
                                    wdn.szeros[l]))
         ks.append(k)
         vs.append(v)
-    out = (hh.to(h.dtype), torch.stack(ks).to(cache.dtype),
-           torch.stack(vs).to(cache.dtype))
+    kt = kv_out_dtype(cache)
+    out = (hh.to(h.dtype), torch.stack(ks).to(kt), torch.stack(vs).to(kt))
     if whead is None:
         return out
     xf = rms_rows(hh, norm_w, eps)
@@ -197,7 +225,8 @@ def w4a16_llama_token_step_batched(
     cache's device (read there: no host sync). With ``tables [B, MP]`` int32
     on that device (page ids in ``[0, NP)``: not checked, that would take a
     sync), ``cache`` is a bf16 pool ``[L, 2, NP, nkv, page, hd]`` and
-    ``T = MP * page``. ``max_length``, about
+    ``T = MP * page``. An int8 slot cache comes with ``cache_scales [L, 2,
+    B, nkv, T]`` f32 (its k/v come back bf16). ``max_length``, about
     ``lengths.max()``, sizes the attention slices (a wrong value costs load
     balance, not correctness); the engine passes it from its host copy of
     the lengths, and without it the slices are sized for a full cache
@@ -208,9 +237,10 @@ def w4a16_llama_token_step_batched(
         return w4a16_llama_token_step_batched_plain(
             h, wqkv, wo, wgu, wdn, ln1, ln2, cos_rows, sin_rows, cache, lengths,
             nq, nkv, eps, whead, norm_w, cache_scales, tables, max_length)
-    _unported(cache_scales)
+    scales = _scales_view(cache, cache_scales, tables)
     paged = tables is not None
-    what = "megakernel_batched_paged" if paged else "megakernel_batched"
+    what = ("megakernel_batched_paged" if paged else
+            "megakernel_batched_int8" if scales is not None else "megakernel_batched")
     dev = cache.device
     if not cache.is_cuda:
         _fail(what, f"unsupported device {dev}")
@@ -218,7 +248,8 @@ def w4a16_llama_token_step_batched(
     if not MIN_B <= b <= MAX_B:
         _fail(what, f"{b} rows; the kernel takes {MIN_B}..{MAX_B}")
     L, H, inter = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
-                                 cache, nq, nkv, b, slots=cache.shape[2] if paged else b)
+                                 cache, nq, nkv, b, slots=cache.shape[2] if paged else b,
+                                 scales=scales)
     page_ints = [0, 0, 0]
     T = cache.shape[4]
     if paged:
@@ -243,7 +274,7 @@ def w4a16_llama_token_step_batched(
     check_small(what, dev, h.dtype, bias=bias, norm_w=norm_w)
     vocab, head, logits = head_operands(what, whead, norm_w, H, b, dev)
     out = torch.empty_like(h)
-    k_new = torch.empty((L, b, nkv, HEAD_DIM), dtype=cache.dtype, device=dev)
+    k_new = torch.empty((L, b, nkv, HEAD_DIM), dtype=kv_out_dtype(cache), device=dev)
     v_new = torch.empty_like(k_new)
     ptrs = ([h.data_ptr(), out.data_ptr()]
             + qlinear_ptrs(wqkv, dev) + [bias.data_ptr() if bias is not None else 0]
@@ -252,9 +283,10 @@ def w4a16_llama_token_step_batched(
                sin_rows.data_ptr(), cache.data_ptr(), k_new.data_ptr(),
                v_new.data_ptr(), lengths.data_ptr()]
             + head + [logits.data_ptr() if logits is not None else 0]
-            + [tables.data_ptr() if paged else 0])
+            + [tables.data_ptr() if paged else 0,
+               scales.data_ptr() if scales is not None else 0])
     ints = [b, L, H, inter, nq, nkv, T, max_length, vocab, _DTYPE_CODE[h.dtype],
-            _DTYPE_CODE[cache.dtype], int(bias is not None)] + page_ints
+            _CACHE_CODE[cache.dtype], int(bias is not None)] + page_ints
     launch("awq_mega_batched", "megakernel_batched", ptrs, ints, eps, dev)
     LAUNCHES[what] += 1
     res = (out, k_new, v_new)

@@ -50,8 +50,11 @@ CHUNK_S = 32      # most window rows per launch, as in the JAX kernel
 def chunk_megakernel_supported(cfg, layers, cache, s: int) -> bool:
     """A window of 1..``CHUNK_S`` tokens under the single-token gate
     (:func:`~awq_tpu_torch.ops.megakernel.megakernel_supported`); the
-    JAX gate's VMEM budget for 32 activation rows is a TPU fact."""
-    return 0 < s <= CHUNK_S and megakernel_supported(cfg, layers, cache)
+    JAX gate's VMEM budget for 32 activation rows is a TPU fact. An int8
+    ``KVCache8`` is refused, as JAX refuses it (``megakernel_chunk.py:269``,
+    and ``forward`` gates its chunk kernel on ``not is_q8``)."""
+    return (0 < s <= CHUNK_S and not isinstance(cache, tuple)
+            and megakernel_supported(cfg, layers, cache))
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

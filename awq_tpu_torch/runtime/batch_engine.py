@@ -38,8 +38,13 @@ show only under preemption (ROADMAP.md, section C):
   against the cache length; the JAX engine counts ``max_new_tokens`` on
   top of the longer prompt and drops a request that fits.
 
-Not ported: speculative verify (``spec_k``), a device mesh, the int8 cache
-and the int8 prefill weight cache raise ``NotImplementedError``.
+``cache_dtype="int8"`` holds a ``KVCache8`` (int8 codes and f32 scales):
+half the bytes of the bf16 cache, so twice the slots or the context on
+the same card. The staging cache is one too, and the prefix copy moves
+codes and scales.
+
+Not ported: speculative verify (``spec_k``), a device mesh and the int8
+prefill weight cache raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,10 +60,12 @@ import torch
 from awq_tpu_torch import _device
 from awq_tpu_torch.config import GenConfig, ModelConfig
 from awq_tpu_torch.models.llama import (
+    cache_seq_len,
+    cache_tensors,
     decode_step_batched,
     forward,
     fuse_linears,
-    init_kv_cache,
+    init_cache,
     params_to,
 )
 from awq_tpu_torch.models.llama import quantize_head as _quantize_head
@@ -106,8 +113,6 @@ class BatchEngine:
         if getattr(runtime, "prefill_w8", False):
             raise NotImplementedError(
                 "the int8 prefill weight cache (prefill_w8) is ROADMAP queue A, item 16")
-        if cache_dtype in ("int8", torch.int8):
-            raise NotImplementedError("int8 KV cache is ROADMAP queue A, item 10")
         if runtime is not None and runtime.quantize_head:
             quantize_head = True
         params = params_to(params, self.device)
@@ -115,7 +120,8 @@ class BatchEngine:
             params = _quantize_head(params, cfg)
         self.params = fuse_linears(params, cfg)
         self.n_slots = n_slots
-        self._stage: Optional[torch.Tensor] = None     # one-slot prefill cache
+        self.cache_dtype = cache_dtype
+        self._stage = None                             # one-slot prefill cache
         self._init_cache(cfg, n_slots, max_seq_len, cache_dtype)
         self.lengths = np.zeros(n_slots, np.int32)     # host copy
         self.tokens = np.zeros(n_slots, np.int64)      # next input per slot
@@ -133,17 +139,17 @@ class BatchEngine:
     # ---- cache strategy ----------------------------------------------------
 
     def _init_cache(self, cfg, n_slots, max_seq_len, cache_dtype) -> None:
-        self.cache = init_kv_cache(cfg, n_slots, max_seq_len, cache_dtype,
-                                   device=self.device)
-        self.max_seq = self.cache.shape[4]
+        self.cache = init_cache(cfg, n_slots, max_seq_len, cache_dtype,
+                                device=self.device)
+        self.max_seq = cache_seq_len(self.cache)
 
     def _stage_prefill(self, toks: torch.Tensor) -> torch.Tensor:
         """Prefill ``toks [1, S]`` into the one-slot staging cache
         ``[L, 2, 1, n_kv, max_seq, hd]`` (allocated at the first admission);
         returns the final-position logits ``[1, V]``."""
         if self._stage is None:
-            self._stage = init_kv_cache(self.cfg, 1, self.max_seq, self.cache.dtype,
-                                        device=self.device)
+            self._stage = init_cache(self.cfg, 1, self.max_seq, self.cache_dtype,
+                                     device=self.device)
         logits, _ = forward(self.params, self.cfg, toks, self._stage, 0)
         return logits[:, -1]
 
@@ -157,7 +163,8 @@ class BatchEngine:
         final-position logits ``[1, V]``."""
         logits = self._stage_prefill(toks)
         s = toks.shape[1]
-        self.cache[:, :, slot, :, :s] = self._stage[:, :, 0, :, :s]
+        for dst, src in zip(cache_tensors(self.cache), cache_tensors(self._stage)):
+            dst[:, :, slot, :, :s] = src[:, :, 0, :, :s]
         return logits
 
     def _decode(self) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Single-model inference engine (PyTorch port of ``awq_tpu/runtime/engine.py``).
 
 Owns the parameters (fused QKV and gate/up) and the KV cache on one
-device, and keeps the ``start_pos`` bookkeeping across dialogue rounds so
+device (bf16 by default; ``cache_dtype="int8"`` holds a ``KVCache8`` of
+int8 codes and f32 scales, half the bytes), and keeps the ``start_pos`` bookkeeping across dialogue rounds so
 that a round prefills only its new tokens and reuses the history's KV. A
 round's last id that was never fed is carried into the next round's
 prompt, so that no round attends over an unwritten cache slot.
@@ -16,9 +17,11 @@ import torch
 from awq_tpu_torch import _device
 from awq_tpu_torch.config import GenConfig, ModelConfig, RuntimeConfig
 from awq_tpu_torch.models.llama import (
+    cache_seq_len,
+    cache_tensors,
     forward,
     fuse_linears,
-    init_kv_cache,
+    init_cache,
     params_to,
     quantize_head,
 )
@@ -43,15 +46,13 @@ class InferenceEngine:
         if self.rt.prefill_w8:
             raise NotImplementedError(
                 "the int8 prefill weight cache (prefill_w8) is ROADMAP queue A, item 16")
-        if cache_dtype in ("int8", torch.int8):
-            raise NotImplementedError("int8 KV cache is ROADMAP queue A, item 10")
         t = min(self.rt.max_seq_len, cfg.max_position_embeddings)
         params = params_to(params, self.device)
         if self.rt.quantize_head:
             params = quantize_head(params, cfg)
         self.params = fuse_linears(params, cfg)
-        self.cache = init_kv_cache(cfg, self.rt.max_batch_size, t, cache_dtype,
-                                   device=self.device)
+        self.cache = init_cache(cfg, self.rt.max_batch_size, t, cache_dtype,
+                                device=self.device)
         self.start_pos = 0
         self._pending = []      # an id returned but not yet fed (see generate)
 
@@ -60,11 +61,12 @@ class InferenceEngine:
     def reset(self):
         self.start_pos = 0
         self._pending = []
-        self.cache.zero_()
+        for t in cache_tensors(self.cache):
+            t.zero_()
 
     @property
     def max_seq_len(self) -> int:
-        return self.cache.shape[4]
+        return cache_seq_len(self.cache)
 
     def warmup(self, seq_len: int = 64):
         """Run one prefill and one decode step (first launches load the

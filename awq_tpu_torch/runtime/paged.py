@@ -28,8 +28,9 @@ tail of the prompt's last page comes from the staging cache: it lies past
 the prompt's length, so it is masked, and it lands only in a page this
 slot owns.
 
-Not ported: the paged int8 cache raises ``NotImplementedError``, as in JAX;
-a mesh and ``spec_k`` raise as in ``BatchEngine``.
+Not ported: the paged int8 cache raises ``NotImplementedError``, as in JAX
+(``awq_tpu/runtime/paged.py:107-109``), whose paged engine has none; a mesh
+and ``spec_k`` raise as in ``BatchEngine``.
 """
 
 from __future__ import annotations
@@ -89,6 +90,11 @@ class PagedBatchEngine(BatchEngine):
         runtime=None,   # Optional[RuntimeConfig]: quantize_head
         device="cuda",
     ):
+        if cache_dtype in ("int8", torch.int8):
+            raise NotImplementedError(
+                "paged int8 KV: the JAX package has none either "
+                "(awq_tpu/runtime/paged.py:107-109); use BatchEngine(cache_dtype="
+                "'int8'). ROADMAP queue A, item 10")
         self.page_size = page_size
         self.n_pages = n_pages  # resolved in _init_cache
         self.n_preempted = 0

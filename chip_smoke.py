@@ -21,7 +21,14 @@ Phases (each failure ends the run with a non-zero exit):
    on the contiguous cache, SDPA on the gathered view), K6's paged mode at
    8 and 32 rows (yardstick: the contiguous K6 on the same rows; the pool
    outside the rows' write positions must stay bit-equal to the plain
-   version's) and K7's paged mode (exact).
+   version's) and K7's paged mode (exact). Then the int8 KV cache: K4's
+   int8 mode (token entry at 32 layers with the head, and the layer entry;
+   yardstick the bf16 K4), K6's int8 slot mode at 8 and 32 rows (yardstick
+   the bf16 K6), K9 (int8 flash decode) at batch 1 and on K2's 8 ragged
+   rows (yardsticks K2 on the dequantized bf16 cache and SDPA on it) and
+   K7's int8 mode (exact). An int8 megakernel's in-place write must hold,
+   at each row's position, ``quantize_kv`` of the k/v it returned, bit for
+   bit, and leave the rest of the cache bit-equal to the plain version's.
 3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
    new tokens each, the second continuing the first's dialogue, then a
    24-token follow-up continuing the third's) through ``InferenceEngine``
@@ -44,12 +51,21 @@ Phases (each failure ends the run with a non-zero exit):
    on K6's paged mode and with ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` (K1, K8 and
    the paged K7). Prints ms/step, tokens/s, the pool's bytes and the peak
    device memory, and profiles eight steps of eight live requests.
+3d. The int8 KV cache: phase 3's four requests through
+   ``InferenceEngine(cache_dtype="int8")`` and phase 3b's twelve through an
+   8-slot ``BatchEngine(cache_dtype="int8")``, each on the megakernels (K4's
+   and K6's int8 modes must grow) and with ``AWQ_TPU_DISABLE_MEGAKERNEL=1``
+   (K9 and K7's int8 mode must grow); every prompt takes the stacked
+   prefill, as K5 takes no int8 cache. Prints the caches' bytes, the peak
+   device memory against phase 3b's, and how many requests' greedy ids
+   equal the bf16 runs' (information: int8 changes the numbers).
 4. At the same widths and 2 layers, feed the same tokens through
    ``forward`` on the kernel path and on the plain path and compare
    logits: a 100-token prefill and 8 decodes on the stacked path, a
-   20-token chunk prefill and 8 decodes on the megakernels; then one
-   ``decode_step_batched`` of 8 rows at ragged lengths on both paths, and
-   one ``decode_step_paged`` of the same rows over a permuted pool.
+   20-token chunk prefill and 8 decodes on the megakernels, and both again
+   over an int8 cache; then one ``decode_step_batched`` of 8 rows at ragged
+   lengths on both paths, over a bf16 and over an int8 cache, and one
+   ``decode_step_paged`` of the same rows over a permuted pool.
 5. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, where CUDA is not available or the
@@ -372,6 +388,138 @@ def phase_kernels(torch, timer, cases_out):
     del pools
 
 
+RAGGED = [1000, 0, 930, 1100, 1015, 850, 1200, 977]   # K2's and K9's 8 rows
+
+
+def quantize_cache(torch, cache):
+    """``(codes int8, scales f32)`` of a float cache ``[L, ...]``, the int8
+    KV cache's ``quantize_kv`` one layer at a time (its f32 temporaries stay
+    one layer's size)."""
+    from awq_tpu_torch.ops.cache_append import quantize_kv
+
+    codes = torch.empty(cache.shape, dtype=torch.int8, device=cache.device)
+    scales = torch.empty(cache.shape[:-1], dtype=torch.float32, device=cache.device)
+    for l in range(cache.shape[0]):
+        codes[l], scales[l] = quantize_kv(cache[l])
+    return codes, scales
+
+
+def check_int8_write(torch, name, kern, plain, kv_out, rows, at, tol):
+    """The in-place write of an int8 megakernel (K4, K6): at each row's
+    position the codes and scales are ``quantize_kv`` of the bf16 k/v the
+    kernel returned (``kv_out``, each ``[L, B, nkv, hd]``), bit for bit, and
+    dequantized within ``tol`` of the plain version's; everywhere else the
+    kernel's cache (``kern``, codes and scales) equals the plain version's
+    (``plain``) bit for bit."""
+    from awq_tpu_torch.ops.cache_append import dequantize_kv, quantize_kv
+
+    (codes, scales), (pcodes, pscales) = kern, plain
+    for i in (0, 1):
+        q, s = quantize_kv(kv_out[i])
+        # the indexed view [:, i, rows, :, at] is [B, L, nkv, ...]
+        c, sc = codes[:, i, rows, :, at].transpose(0, 1), scales[:, i, rows, :, at].transpose(0, 1)
+        if not (torch.equal(c, q) and torch.equal(sc, s)):
+            raise AssertionError(f"{name}: the codes and scales at each row's position are "
+                                 "not quantize_kv of the returned k/v")
+        check(f"{name} cache written, kv {i}", dequantize_kv(c, sc),
+              dequantize_kv(pcodes[:, i, rows, :, at], pscales[:, i, rows, :, at]
+                            ).transpose(0, 1), tol)
+    keep = pcodes[:, :, rows, :, at], pscales[:, :, rows, :, at]
+    pcodes[:, :, rows, :, at] = codes[:, :, rows, :, at]
+    pscales[:, :, rows, :, at] = scales[:, :, rows, :, at]
+    same = torch.equal(codes, pcodes) and torch.equal(scales, pscales)
+    pcodes[:, :, rows, :, at], pscales[:, :, rows, :, at] = keep
+    if not same:
+        raise AssertionError(f"{name}: the kernel changed the cache outside the rows' "
+                             "write positions")
+
+
+def phase_int8_kernels(torch, timer, cases_out):
+    """Phase 2, the int8 KV cache: K9 (int8 flash decode) at batch 1 and on
+    K2's 8 ragged rows, against its plain version; its yardsticks are K2 on
+    a bf16 cache holding the same dequantized values and SDPA on that view.
+    Then K7's int8 mode (exact), with the bf16 K7 on the same rows as its
+    yardstick. Bounds count int8 codes plus f32 scales."""
+    import torch.nn.functional as F
+
+    from awq_tpu_torch.ops import cache_append as ca
+    from awq_tpu_torch.ops import decode_attn as da
+
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    cfg = LLAMA3_8B
+    nq, nkv, hd = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"]
+    attn_tol = 2.0 ** -6          # bf16 output rounding, sums in other orders
+    for ragged, t in (([1000], 4096), ([4000], 4096), (RAGGED, 2048)):
+        b, mx = len(ragged), max(ragged)
+        codes, scales = ca.quantize_kv(torch.randn((2, b, nkv, t, hd), generator=gen,
+                                                   device="cuda"))
+        deq = ca.dequantize_kv(codes, scales, torch.bfloat16)
+        q = torch.randn((b, nq, hd), generator=gen, device="cuda").to(torch.bfloat16)
+        kn, vn = (torch.randn((b, nkv, hd), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(2))
+        lens = torch.tensor(ragged, dtype=torch.int32, device="cuda")
+        what = f"len={mx}" if b == 1 else f"B={b} ragged len 0..{mx}"
+        got = da.flash_decode_int8(q, kn, vn, codes, scales, lens, max_length=mx)
+        ref = da.flash_decode_int8_plain(q, kn, vn, codes, scales, lens, max_length=mx)
+        k2 = da.flash_decode(q, kn, vn, deq, lens, max_length=mx)
+        torch.cuda.synchronize()
+        err, rel = check(f"flash_decode_int8 {what}", got, ref, attn_tol)
+        vs_k2, _ = check("flash_decode_int8 against K2 on the dequantized cache", got, k2,
+                         attn_tol)
+        k_all = torch.cat([deq[0, :, :, :mx], kn[:, :, None]], dim=2)
+        v_all = torch.cat([deq[1, :, :, :mx], vn[:, :, None]], dim=2)
+        mask = torch.arange(mx + 1, device="cuda")[None, :] < lens[:, None]
+        mask[:, mx] = True
+        ms = timer(lambda: da.flash_decode_int8(q, kn, vn, codes, scales, lens, max_length=mx))
+        plain_ms = timer(lambda: da.flash_decode_int8_plain(q, kn, vn, codes, scales, lens,
+                                                            max_length=mx), reps=5)
+        k2_ms = timer(lambda: da.flash_decode(q, kn, vn, deq, lens, max_length=mx))
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k_all, v_all, attn_mask=mask[:, None, None, :], enable_gqa=True))
+        nbytes = (2 * b * nq * hd + 2 * b * nkv * hd) * 2 + 2 * nkv * sum(ragged) * (hd + 4)
+        b_ms, b_by = bound(nbytes, 4.0 * nq * hd * (sum(ragged) + b))
+        cases_out.append(dict(
+            name="flash_decode_int8", shape=f"{what} nq={nq} nkv={nkv}", max_abs_err=err,
+            max_rel_err=rel, tol=f"{attn_tol:g}*max|ref|", ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library="F.scaled_dot_product_attention on the dequantized bf16 view",
+            yardstick_ms=k2_ms,
+            yardstick=f"K2 on the dequantized bf16 cache (max diff {vs_k2:.2e})"))
+        log_case(cases_out[-1])
+        del codes, scales, deq, k_all, v_all
+
+    # K7's int8 mode: one step's k/v of all 32 layers quantized into an
+    # 8-slot int8 cache at the ragged rows' lengths; exact
+    n_l, b, t_b = cfg["num_layers"], len(RAGGED), 2048
+    lens = torch.tensor(RAGGED, dtype=torch.int32, device="cuda")
+    codes = torch.randint(-127, 128, (n_l, 2, b, nkv, t_b, hd), generator=gen,
+                          dtype=torch.int8, device="cuda")
+    scales = torch.rand((n_l, 2, b, nkv, t_b), generator=gen, device="cuda") * 0.03
+    c8 = [(codes, scales), (codes.clone(), scales.clone())]
+    kv = torch.randn((n_l, 2, b, nkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    kv[0, 1, 2, 3] = 0.0                                  # a zero row: the 1e-6 floor
+    ca.batched_cache_append_int8(*c8[0], kv, lens)
+    ca.batched_cache_append_int8_plain(*c8[1], kv, lens)
+    torch.cuda.synchronize()
+    if not (torch.equal(c8[0][0], c8[1][0]) and torch.equal(c8[0][1], c8[1][1])):
+        raise AssertionError("cache_append_int8: the kernel's codes or scales differ from "
+                             "the plain version's")
+    err = rel = 0.0
+    cache16 = torch.zeros((n_l, 2, b, nkv, t_b, hd), dtype=torch.bfloat16, device="cuda")
+    ms = timer(lambda: ca.batched_cache_append_int8(*c8[0], kv, lens))
+    plain_ms = timer(lambda: ca.batched_cache_append_int8_plain(*c8[1], kv, lens), reps=5)
+    k7_ms = timer(lambda: ca.batched_cache_append(cache16, kv, lens))
+    rows_kv = kv.numel() // hd
+    b_ms, b_by = bound(kv.numel() * 2 + kv.numel() + rows_kv * 4 + b * 4, 0.0)
+    cases_out.append(dict(
+        name="cache_append_int8", shape=f"L={n_l} B={b} nkv={nkv} hd={hd} T={t_b}",
+        max_abs_err=err, max_rel_err=rel, tol="exact", ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none",
+        yardstick_ms=k7_ms, yardstick="K7 on a bf16 cache, same rows"))
+    log_case(cases_out[-1])
+    del codes, scales, c8, cache16
+
+
 def scatter_pages(torch, cache, mp, page, gen, need=None):
     """A slot cache ``[L, 2, B, nkv, mp*page, hd]`` scattered into a pool of
     permuted pages: ``(pool [L, 2, NP, nkv, page, hd], tables [B, mp] int32)``.
@@ -485,14 +633,14 @@ def phase_megakernels(torch, timer, cases_out):
             yardstick_ms=yard_ms, yardstick=yard))
         log_case(cases_out[-1])
 
-    layer = 5
+    layer, layer_ms = 5, {}
     for length in (0, 1000, 4000):
         h = (torch.randn((1, h_dim), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
         step = (h, *args, cos[length], sin[length], cache, layer, length, nq, nkv, eps)
         got = mk.w4a16_llama_layer_step(*step)
         ref = mk.w4a16_llama_layer_step_plain(*step)
         torch.cuda.synchronize()
-        ms = timer(lambda: mk.w4a16_llama_layer_step(*step))
+        ms = layer_ms[length] = timer(lambda: mk.w4a16_llama_layer_step(*step))
         plain_ms = timer(lambda: mk.w4a16_llama_layer_step_plain(*step), reps=3)
         yard_ms = device_ms(torch, lambda: llama.stacked_layers(params, cfg, h[None], cache, length,
                                                     layer_ids=[layer]))
@@ -515,10 +663,59 @@ def phase_megakernels(torch, timer, cases_out):
         return llama._head_logits(params, llama.rms_norm(hh, params["norm"], eps), "auto")
 
     yard_ms = device_ms(torch, stacked_token)
+    token_flops = L * (layer_flops + 4.0 * nq * hd * (length + 1)) + 2.0 * h_dim * vocab
     record("megakernel_token", f"{L} layers + W4 head, len={length}", got, ref, tol_deep,
            ms, plain_ms, yard_ms,
-           L * (layer_bytes + kv_pos * (length + 1)) + head_bytes,
-           L * (layer_flops + 4.0 * nq * hd * (length + 1)) + 2.0 * h_dim * vocab)
+           L * (layer_bytes + kv_pos * (length + 1)) + head_bytes, token_flops)
+
+    # K4's int8 mode (cache_scales) over the same cache quantized: the token
+    # entry (yardstick: the bf16 K4 token step above) and the layer entry
+    # (yardstick: the bf16 layer step at the same length); the in-place
+    # write is held as check_int8_write says
+    kv8_pos = 2 * nkv * (hd + 4)              # int8 codes + f32 scale, per layer
+    codes, scales = quantize_cache(torch, cache)
+    c8 = [(codes, scales), (codes.clone(), scales.clone())]
+    one = torch.zeros(1, dtype=torch.long, device=dev)
+    at = torch.full((1,), length, dtype=torch.long, device=dev)
+    bf16_token_ms = ms
+    got = mk.w4a16_llama_token_step(*step[:9], c8[0][0], length, nq, nkv, eps,
+                                    cache_scales=c8[0][1], **head)
+    ref = mk.w4a16_llama_token_step_plain(*step[:9], c8[1][0], length, nq, nkv, eps,
+                                          cache_scales=c8[1][1], **head)
+    torch.cuda.synchronize()
+    check_int8_write(torch, "megakernel_token_int8", c8[0], c8[1],
+                     [x[:, None] for x in got[1:3]], one, at, tol_deep)
+    ms = timer(lambda: mk.w4a16_llama_token_step(*step[:9], c8[0][0], length, nq, nkv, eps,
+                                                 cache_scales=c8[0][1], **head))
+    plain_ms = timer(lambda: mk.w4a16_llama_token_step_plain(
+        *step[:9], c8[1][0], length, nq, nkv, eps, cache_scales=c8[1][1], **head), reps=2)
+    record("megakernel_token_int8", f"{L} layers + W4 head, len={length}", got, ref,
+           tol_deep, ms, plain_ms, bf16_token_ms,
+           L * (layer_bytes + kv8_pos * (length + 1)) + head_bytes, token_flops,
+           yard="K4 over the bf16 cache, same step")
+    for x, y in zip(*c8):     # the token step wrote both: start the layer entry equal
+        x.copy_(y)
+    got = mk.w4a16_llama_layer_step(*step[:9], c8[0][0], layer, length, nq, nkv, eps,
+                                    cache_scales=c8[0][1])
+    ref = mk.w4a16_llama_layer_step_plain(*step[:9], c8[1][0], layer, length, nq, nkv, eps,
+                                          cache_scales=c8[1][1])
+    torch.cuda.synchronize()
+    pick = torch.arange(L, device=dev) == layer         # only layer `layer` is written
+    check_int8_write(torch, "megakernel_layer_int8",
+                     tuple(x[pick] for x in c8[0]), tuple(x[pick] for x in c8[1]),
+                     [x[:, None] for x in got[1:3]], one, at, tol_layer)
+    for x, y in zip(c8[0], c8[1]):
+        if not torch.equal(x[~pick], y[~pick]):
+            raise AssertionError("megakernel_layer_int8: the kernel wrote another layer")
+    ms = timer(lambda: mk.w4a16_llama_layer_step(*step[:9], c8[0][0], layer, length, nq, nkv,
+                                                 eps, cache_scales=c8[0][1]))
+    plain_ms = timer(lambda: mk.w4a16_llama_layer_step_plain(
+        *step[:9], c8[1][0], layer, length, nq, nkv, eps, cache_scales=c8[1][1]), reps=3)
+    record("megakernel_layer_int8", f"layer {layer} len={length}", got, ref, tol_layer, ms,
+           plain_ms, layer_ms[length], layer_bytes + kv8_pos * (length + 1),
+           layer_flops + 4.0 * nq * hd * (length + 1),
+           yard="K4 layer entry over the bf16 cache, same length")
+    del codes, scales, c8
 
     for s in (16, 32):
         for hist in (0, 700):
@@ -595,7 +792,29 @@ def phase_megakernels(torch, timer, cases_out):
         k6_flops = b * (L * layer_flops + 2.0 * h_dim * vocab) + L * 4.0 * nq * hd * total
         record("megakernel_batched", f"{L} layers + W4 head, B={b}, len 0..{mx}", got, ref,
                tol_deep, ms, plain_ms, yard_ms, k6_bytes, k6_flops)
+
+        # K6's int8 slot mode on the same rows over the cache quantized; the
+        # yardstick is the bf16 K6 on these rows (just above)
+        c8 = quantize_cache(torch, cache_b)
         del cache_b, cache_ref, step, step_ref, ref
+        torch.cuda.empty_cache()
+        c8 = [c8, tuple(x.clone() for x in c8)]
+        got8 = mkb.w4a16_llama_token_step_batched(h, *args, *rope, c8[0][0], lens, nq, nkv, eps,
+                                                  cache_scales=c8[0][1], **kw)
+        ref8 = mkb.w4a16_llama_token_step_batched_plain(h, *args, *rope, c8[1][0], lens, nq,
+                                                        nkv, eps, cache_scales=c8[1][1], **kw)
+        torch.cuda.synchronize()
+        check_int8_write(torch, f"megakernel_batched_int8 B={b}", c8[0], c8[1], got8[1:3],
+                         rows, at, tol_deep)
+        ms8 = timer(lambda: mkb.w4a16_llama_token_step_batched(
+            h, *args, *rope, c8[0][0], lens, nq, nkv, eps, cache_scales=c8[0][1], **kw))
+        plain_ms = timer(lambda: mkb.w4a16_llama_token_step_batched_plain(
+            h, *args, *rope, c8[1][0], lens, nq, nkv, eps, cache_scales=c8[1][1], **kw), reps=2)
+        record("megakernel_batched_int8", f"{L} layers + W4 head, B={b}, len 0..{mx}", got8,
+               ref8, tol_deep, ms8, plain_ms, ms,
+               L * (layer_bytes + 2 * nkv * (hd + 4) * total) + head_bytes + 2 * b * h_dim * 2,
+               k6_flops, yard="bf16 K6, same rows")
+        del c8, got8, ref8
         torch.cuda.empty_cache()
 
         # K6's paged mode on the same rows; the yardstick is the contiguous K6
@@ -644,7 +863,23 @@ def weight_bytes(params) -> int:
 
 
 REQUESTS = ((16, True), (200, False), (1000, True), (24, False))   # (prompt, fresh)
-CONFIGS = (("megakernels", None), ("stacked", "1"))   # AWQ_TPU_DISABLE_MEGAKERNEL
+# label: (AWQ_TPU_DISABLE_MEGAKERNEL, kernels that must run, kernels that must
+# not) for phases 3 and 3d (single stream)
+SERVE_PATHS = {
+    "megakernels": (None, ("megakernel_token", "megakernel_chunk"),
+                    ("megakernel_token_int8", "flash_decode_int8")),
+    "stacked": ("1", ("w4a16_gemv", "w4a16_gemm", "flash_decode", "flash_prefill"),
+                ("megakernel_token", "megakernel_chunk")),
+    # the int8 cache: K5 takes none (as in JAX), so every prompt takes the
+    # stacked prefill (K1 GEMM, K3 over the dequantized prefix)
+    "megakernels_int8": (None, ("megakernel_token_int8", "w4a16_gemm", "flash_prefill"),
+                         ("megakernel_token", "megakernel_chunk", "flash_decode_int8",
+                          "cache_append_int8")),
+    "stacked_int8": ("1", ("w4a16_gemv", "w4a16_gemm", "flash_decode_int8", "flash_prefill",
+                           "cache_append_int8"),
+                     ("megakernel_token", "megakernel_token_int8", "megakernel_chunk",
+                      "flash_decode")),
+}
 
 
 def counters():
@@ -676,11 +911,17 @@ def set_config(disable):
         os.environ["AWQ_TPU_DISABLE_MEGAKERNEL"] = disable
 
 
+def cache_bytes(cache) -> int:
+    from awq_tpu_torch.models.llama import cache_tensors
+
+    return sum(t.numel() * t.element_size() for t in cache_tensors(cache))
+
+
 def phase_serve(torch, layers: int):
     """Phase 3: the requests through InferenceEngine, once per configuration;
-    returns {config: launches} and the engine's parameters (fused, W4 head)
-    for the batched phase."""
-    from awq_tpu_torch.config import GenConfig, ModelConfig, QuantConfig, RuntimeConfig
+    returns {config: launches}, the engine's parameters (fused, W4 head) for
+    the batched phases and the greedy ids on the megakernels."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig, RuntimeConfig
     from awq_tpu_torch.models.llama import init_qparams
     from awq_tpu_torch.runtime.engine import InferenceEngine
 
@@ -692,21 +933,38 @@ def phase_serve(torch, layers: int):
                              RuntimeConfig(max_seq_len=2048, quantize_head=True))
     del params
     torch.cuda.synchronize()
-    wbytes = weight_bytes(engine.params)
     log(f"  model: {layers} layers at Llama-3-8B width, W4 weights+head "
-        f"{wbytes / 1e9:.3f} GB, embedding {engine.params['embed'].numel() * 2 / 1e9:.3f} GB, "
-        f"KV cache {engine.cache.numel() * 2 / 1e9:.3f} GB, built in "
+        f"{weight_bytes(engine.params) / 1e9:.3f} GB, embedding "
+        f"{engine.params['embed'].numel() * 2 / 1e9:.3f} GB, KV cache "
+        f"{cache_bytes(engine.cache) / 1e9:.3f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    kv_row = 2 * layers * cfg.num_kv_heads * cfg.head_dim * 2   # bytes/position
+    out_launches, ids = serve_single(torch, engine, cfg, ("megakernels", "stacked"))
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    params = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    return out_launches, cfg, params, ids["megakernels"]
+
+
+def serve_single(torch, engine, cfg, labels):
+    """Phase 3's four requests through ``engine`` once per path of
+    ``labels`` (SERVE_PATHS), the launch counts set to 0 just before and
+    read just after each; then a profile of decode steps. Returns {label:
+    launches} and {label: the requests' greedy ids}."""
+    from awq_tpu_torch.config import GenConfig
+
+    wbytes = weight_bytes(engine.params)
+    kv_row = cache_bytes(engine.cache) // engine.max_seq_len   # bytes/position
     gen = GenConfig(greedy=True, max_new_tokens=32)
-    out_launches = {}
-    for label, disable in CONFIGS:
+    out_launches, out_ids = {}, {}
+    for label in labels:
+        disable, must, off = SERVE_PATHS[label]
         set_config(disable)
         log(f"  [{label}] AWQ_TPU_DISABLE_MEGAKERNEL={disable or 'unset'}")
         engine.warmup()
         rng = torch.Generator().manual_seed(7)
         reset_counters()
-        results = []
+        results, ids_all = [], []
         for i, (n, fresh) in enumerate(REQUESTS):
             if fresh:
                 engine.reset()
@@ -716,6 +974,7 @@ def phase_serve(torch, layers: int):
             ids = out["output_ids"]
             if len(ids) != 32 or int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab_size:
                 raise AssertionError(f"request {i + 1}: bad output ids {ids.tolist()}")
+            ids_all.append(ids.tolist())
             tm = out["timing"]
             fed = engine.start_pos - start - 31          # prompt plus a pending id
             mean_pos = start + fed + 16
@@ -729,21 +988,52 @@ def phase_serve(torch, layers: int):
                                 ms_per_token=ms_tok, gb_per_token=gb_tok))
         launches = read_counters()
         log(f"  [{label}] launches during the four requests: {launches}")
-        must = (("megakernel_token", "megakernel_chunk") if disable is None else
-                ("w4a16_gemv", "w4a16_gemm", "flash_decode", "flash_prefill"))
-        for k in must:
-            if launches[k] <= 0:
-                raise AssertionError(f"[{label}] kernel {k} was not launched on its path")
-        if disable is not None and (launches["megakernel_token"] or launches["megakernel_chunk"]):
-            raise AssertionError(f"[{label}] a megakernel ran with the megakernels off")
-        out_launches[label] = launches
+        check_path(label, launches, must, off)
+        out_launches[label], out_ids[label] = launches, ids_all
         profile_decode(torch, engine, results[-1]["ms_per_token"], label)
     set_config(None)
-    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    params = engine.params
-    del engine
+    return out_launches, out_ids
+
+
+def compare_ids(label, got, ref, what):
+    """Information, not a check: how many requests' greedy ids equal
+    ``ref``'s, and each request's first differing step (None: equal)."""
+    first = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                  None if len(a) == len(b) else min(len(a), len(b)))
+             for a, b in zip(got, ref)]
+    log(f"  [{label}] greedy ids equal {what} for {first.count(None)}/{len(ref)} requests; "
+        f"first differing step by request: {first}")
+
+
+def phase_serve_int8(torch, cfg, params, single_ids, slot_ids, slot_peak):
+    """Phase 3d, the int8 KV cache (KVCache8): phase 3's four requests
+    through InferenceEngine(cache_dtype="int8") on K4's int8 mode and on the
+    stacked path (K9, the K7 int8 append), then phase 3b's twelve through an
+    8-slot BatchEngine(cache_dtype="int8") on K6's int8 mode and on the
+    stacked path. Prints the caches' bytes, the peak device memory against
+    phase 3b's and how many requests' greedy ids equal the bf16 runs' (on
+    the megakernels). Returns {config: launches}."""
+    from awq_tpu_torch.config import RuntimeConfig
+    from awq_tpu_torch.runtime.engine import InferenceEngine
+
     torch.cuda.empty_cache()
-    return out_launches, cfg, params
+    torch.cuda.reset_peak_memory_stats()
+    engine = InferenceEngine(cfg, params, RuntimeConfig(max_seq_len=2048), cache_dtype="int8")
+    log(f"  single-stream int8 cache: {cache_bytes(engine.cache) / 2**30:.4f} GiB (codes "
+        f"{engine.cache.data.numel() / 2**30:.4f}, scales "
+        f"{engine.cache.scales.numel() * 4 / 2**30:.4f})")
+    out_launches, ids = serve_single(torch, engine, cfg, ("megakernels_int8", "stacked_int8"))
+    for label in ids:
+        compare_ids(label, ids[label], single_ids, "phase 3's on the bf16 megakernels")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del engine
+    batched, bids, peaks = phase_serve_batched(torch, cfg, params, "int8")
+    out_launches.update(batched)
+    for label in bids:
+        compare_ids(label, bids[label], slot_ids, "phase 3b's on the bf16 K6")
+        log(f"  [{label}] peak device memory {peaks[label]:.2f} GiB against "
+            f"{slot_peak:.2f} GiB for phase 3b's bf16 engine on K6")
+    return out_launches
 
 
 def profile_decode(torch, engine, ms_per_token: float, label: str,
@@ -895,31 +1185,50 @@ def check_path(label, launches, must, off):
             raise AssertionError(f"[{label}] kernel {k} ran off its path")
 
 
-def phase_serve_batched(torch, cfg, params):
-    """Phase 3b: twelve requests through an 8-slot BatchEngine, once per
-    configuration; returns {config: launches} and the greedy ids on K6."""
+# label: (AWQ_TPU_DISABLE_MEGAKERNEL, kernels that must run, kernels that must
+# not) for phases 3b and 3d (8 slots); the int8 cache's prompts all take the
+# stacked prefill into the staging cache (K5 takes no int8 cache)
+BATCH_PATHS = {
+    "batched": (None, ("megakernel_batched", "megakernel_chunk", "w4a16_gemm",
+                       "flash_prefill"), ("cache_append", "flash_decode")),
+    "batched_stacked": ("1", ("w4a16_gemv", "w4a16_gemm", "flash_decode", "flash_prefill",
+                              "cache_append"),
+                        ("megakernel_batched", "megakernel_chunk", "megakernel_token")),
+    "batched_int8": (None, ("megakernel_batched_int8", "w4a16_gemm", "flash_prefill"),
+                     ("megakernel_batched", "megakernel_chunk", "flash_decode_int8",
+                      "cache_append_int8")),
+    "batched_stacked_int8": ("1", ("w4a16_gemv", "w4a16_gemm", "flash_decode_int8",
+                                   "flash_prefill", "cache_append_int8"),
+                             ("megakernel_batched", "megakernel_batched_int8",
+                              "megakernel_chunk", "megakernel_token", "megakernel_token_int8",
+                              "flash_decode", "cache_append")),
+}
+
+
+def phase_serve_batched(torch, cfg, params, cache_dtype=None):
+    """Phase 3b (and 3d with ``cache_dtype="int8"``): twelve requests through
+    an 8-slot BatchEngine, on K6 and on the stacked path; returns {config:
+    launches}, {config: greedy ids} and {config: peak device memory, GiB}."""
     from awq_tpu_torch.runtime.batch_engine import BatchEngine
 
     prompts = batch_prompts(cfg)
-    out_launches, ids = {}, {}
-    for label, disable in (("batched", None), ("batched_stacked", "1")):
+    out_launches, ids, peaks = {}, {}, {}
+    sfx = "" if cache_dtype is None else f"_{cache_dtype}"
+    for label in ("batched" + sfx, "batched_stacked" + sfx):
+        disable, must, off = BATCH_PATHS[label]
         set_config(disable)
         log(f"  [{label}] AWQ_TPU_DISABLE_MEGAKERNEL={disable or 'unset'}")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        engine = BatchEngine(cfg, params, n_slots=BATCH_SLOTS, max_seq_len=2048)
+        engine = BatchEngine(cfg, params, n_slots=BATCH_SLOTS, max_seq_len=2048,
+                             **({} if cache_dtype is None else {"cache_dtype": cache_dtype}))
+        log(f"  [{label}] the {BATCH_SLOTS}-slot cache: "
+            f"{cache_bytes(engine.cache) / 2**30:.4f} GiB")
         done, launches, ms_step = drive(torch, engine, prompts, label, cfg)
-        log(f"  [{label}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  [{label}] peak device memory {peaks[label]:.2f} GiB")
         ids[label] = [r.out_ids for r in done]
-        if disable is None:
-            check_path(label, launches,
-                       ("megakernel_batched", "megakernel_chunk", "w4a16_gemm",
-                        "flash_prefill"), ("cache_append", "flash_decode"))
-        else:
-            check_path(label, launches,
-                       ("w4a16_gemv", "w4a16_gemm", "flash_decode", "flash_prefill",
-                        "cache_append"),
-                       ("megakernel_batched", "megakernel_chunk", "megakernel_token"))
+        check_path(label, launches, must, off)
         out_launches[label] = launches
         # eight more steps over all slots at the lengths the run left behind
         where = f"slot lengths {sorted(int(x) for x in engine.lengths)}"
@@ -935,10 +1244,11 @@ def phase_serve_batched(torch, cfg, params):
         del engine
         torch.cuda.empty_cache()
     set_config(None)
-    agree = sum(a == b for a, b in zip(ids["batched"], ids["batched_stacked"]))
-    log(f"  greedy ids of the two paths agree on {agree}/{BATCH_REQUESTS} requests "
-        "(random weights: a rounding difference can flip an argmax and the rest follows)")
-    return out_launches, ids["batched"]
+    a, b = ids.values()
+    log(f"  greedy ids of the two paths agree on {sum(x == y for x, y in zip(a, b))}/"
+        f"{BATCH_REQUESTS} requests (random weights: a rounding difference can flip an "
+        "argmax and the rest follows)")
+    return out_launches, ids, peaks
 
 
 PAGE, SMALL_POOL = 256, 12     # phase 3c: page size; pages of the preempting pool
@@ -1011,18 +1321,21 @@ def time_prefix_copy(torch, engine, slot: int = 3, reps: int = 5) -> None:
     from the one-slot staging cache into a slot, as ``_prefill_slot`` makes
     it: the median of ``reps`` CUDA-event-timed copies per prompt length,
     against the bytes read and written over the memory rate."""
-    cache, stage = engine.cache, engine._stage
+    from awq_tpu_torch.models.llama import cache_tensors
+
+    pairs = list(zip(cache_tensors(engine.cache), cache_tensors(engine._stage)))
     parts = []
     for s in BATCH_PROMPTS:
         times = []
         for _ in range(reps + 1):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            cache[:, :, slot, :, :s] = stage[:, :, 0, :, :s]
+            for dst, src in pairs:            # codes and scales for an int8 cache
+                dst[:, :, slot, :, :s] = src[:, :, 0, :, :s]
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
-        nbytes = 2 * stage[:, :, 0, :, :s].numel() * stage.element_size()
+        nbytes = sum(2 * src[:, :, 0, :, :s].numel() * src.element_size() for _, src in pairs)
         parts.append(f"{s} tokens {statistics.median(times[1:]):.4f} ms "
                      f"({nbytes / 1e6:.1f} MB moved, bound "
                      f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
@@ -1032,9 +1345,11 @@ def time_prefix_copy(torch, engine, slot: int = 3, reps: int = 5) -> None:
 
 def phase_model_parity(torch):
     """Phase 4: kernel path vs plain path through forward, 2 layers, on the
-    stacked path and on the megakernels."""
+    stacked path and on the megakernels, over a bf16 and an int8 cache; one
+    batched step on each path and one paged step."""
     from awq_tpu_torch.config import ModelConfig, QuantConfig
     from awq_tpu_torch.models import llama
+    from awq_tpu_torch.ops import cache_append as ca
 
     cfg = ModelConfig(**{**LLAMA3_8B, "num_layers": 2})
     params = llama.init_qparams(cfg, QuantConfig(w_bit=4, group_size=G),
@@ -1043,9 +1358,15 @@ def phase_model_parity(torch):
     # bf16 model: the two paths round differently at every layer; 5e-2 of
     # the largest logit bounds their drift over two layers
     tol = 5e-2
-    for label, disable, prompt in (("stacked", "1", 100), ("megakernels", None, 20)):
+    for label, disable, prompt in (("stacked", "1", 100), ("megakernels", None, 20),
+                                   ("stacked_int8", "1", 100), ("megakernels_int8", None, 20)):
+        # the int8 cache (KVCache8): the prefill takes the stacked path either
+        # way (K5 takes no int8 cache); decode takes K9 and the K7 int8
+        # append, or K4's int8 mode
         set_config(disable)
-        caches = [llama.init_kv_cache(cfg, 1, 512) for _ in range(2)]
+        caches = [llama.init_cache(cfg, 1, 512, "int8" if label.endswith("int8")
+                                   else torch.bfloat16) for _ in range(2)]
+        reset_counters()
         rng = torch.Generator().manual_seed(3)
         steps = [torch.randint(0, cfg.vocab_size, (1, prompt), generator=rng)] + [
             torch.randint(0, cfg.vocab_size, (1, 1), generator=rng) for _ in range(8)]
@@ -1061,6 +1382,8 @@ def phase_model_parity(torch):
         log(f"  [{label}] {prompt}-token prefill + 8 decodes, logits kernel vs plain: "
             f"worst max_abs_err/max|ref| {worst:.3e} (tol {tol:g}); greedy ids agree "
             f"on {agree}/{len(steps)} steps")
+        if label.endswith("int8"):
+            check_path(label, read_counters(), *SERVE_PATHS[label][1:])
     # one continuous-batching step of 8 rows at ragged lengths (row 1 empty)
     # over a random cache: K6, then the stacked batched path (K1, K2, K7)
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1082,6 +1405,28 @@ def phase_model_parity(torch):
         log(f"  [{label}] decode_step_batched, 8 rows at lengths {ragged}, kernel vs plain: "
             f"logits max_abs_err/max|ref| {rel:.3e} (tol {tol:g}), cache max_abs_err "
             f"{cerr:.3e}; greedy ids agree on {agree}/8 rows")
+    # the same step over the int8 cache (the random cache quantized): K6's
+    # int8 slot mode, then the stacked path (K1, K9, the K7 int8 append)
+    base8 = quantize_cache(torch, base)
+    for label, disable in (("batched_int8", None), ("batched_stacked_int8", "1")):
+        set_config(disable)
+        caches = [llama.KVCache8(*(x.clone() for x in base8)) for _ in range(2)]
+        reset_counters()
+        got, _ = llama.decode_step_batched(params, cfg, toks, caches[0], lens,
+                                           max_length=max(ragged))
+        ref, _ = llama.decode_step_batched(params, cfg, toks, caches[1], lens, impl="plain")
+        torch.cuda.synchronize()
+        must = ("megakernel_batched_int8",) if disable is None else (
+            "flash_decode_int8", "cache_append_int8")
+        check_path(label, read_counters(), must, ())
+        err, rel = check(f"[{label}] decode_step_batched logits", got, ref, tol)
+        cerr, _ = check(f"[{label}] decode_step_batched cache, dequantized",
+                        ca.dequantize_kv(*caches[0]), ca.dequantize_kv(*caches[1]), tol)
+        agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+        log(f"  [{label}] decode_step_batched over the int8 cache, the same rows, kernel vs "
+            f"plain: logits max_abs_err/max|ref| {rel:.3e} (tol {tol:g}), dequantized cache "
+            f"max_abs_err {cerr:.3e}; greedy ids agree on {agree}/8 rows")
+    del base8
     # the same step paged: pages of 128 over a permuted pool; K6's paged
     # mode, then the stacked paged path (K1, K8, paged K7)
     pool, tables = scatter_pages(torch, base, 4, 128, gen)
@@ -1129,9 +1474,12 @@ def main() -> int:
     log(f"  nvcc ({_build.ARCH}): " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
         + f"; wall {time.perf_counter() - t0:.1f} s")
     for name in _build.SOURCES:
+        fn = "?"      # the entry function (mangled: IaLb0E is <int8_t, false>)
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {fn}: {line.strip()}")
 
     log("phase 2: kernels against their plain versions (main-path shapes)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1140,22 +1488,31 @@ def main() -> int:
     phase_kernels(torch, timer, cases)
     torch.cuda.empty_cache()
     phase_megakernels(torch, timer, cases)
+    torch.cuda.empty_cache()
+    phase_int8_kernels(torch, timer, cases)
     del timer
     torch.cuda.empty_cache()
 
     log(f"phase 3: serve four requests, Llama-3-8B width, {args.layers} layers, "
         "on the megakernels and on the stacked path")
-    launches, cfg, params = phase_serve(torch, args.layers)
+    launches, cfg, params, single_ids = phase_serve(torch, args.layers)
 
     log(f"phase 3b: serve twelve requests through an 8-slot BatchEngine, {args.layers} "
         "layers, on the batched megakernel and on the stacked batched path")
-    batched, slot_ids = phase_serve_batched(torch, cfg, params)
+    batched, ids, peaks = phase_serve_batched(torch, cfg, params)
     launches.update(batched)
+    slot_ids = ids["batched"]
 
     log(f"phase 3c: the same twelve requests through an 8-slot PagedBatchEngine, "
         f"{args.layers} layers, pages of {PAGE}, on K6's paged mode and on the stacked "
         "paged path, with the default pool and with a pool that preempts")
     launches.update(phase_serve_paged(torch, cfg, params, slot_ids))
+
+    log(f"phase 3d: the int8 KV cache, {args.layers} layers: phase 3's four requests "
+        "through InferenceEngine(cache_dtype='int8') and phase 3b's twelve through an "
+        "8-slot BatchEngine(cache_dtype='int8'), on the megakernels and on the stacked path")
+    launches.update(phase_serve_int8(torch, cfg, params, single_ids, slot_ids,
+                                     peaks["batched"]))
     del params
     torch.cuda.empty_cache()
 
@@ -1185,7 +1542,15 @@ def main() -> int:
                "megakernel_batched_paged": ("awq_tpu_torch/csrc/megakernel_batched.cu",
                                             "awq_tpu/ops/megakernel_batched.py:531"),
                "cache_append_paged": ("awq_tpu_torch/csrc/cache_append.cu",
-                                      "awq_tpu/models/llama.py:1729")}
+                                      "awq_tpu/models/llama.py:1729"),
+               "flash_decode_int8": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                     "awq_tpu/ops/decode_attn.py:325"),
+               "megakernel_token_int8": ("awq_tpu_torch/csrc/megakernel.cu",
+                                         "awq_tpu/ops/megakernel.py:1047"),
+               "megakernel_batched_int8": ("awq_tpu_torch/csrc/megakernel_batched.cu",
+                                           "awq_tpu/ops/megakernel_batched.py:531"),
+               "cache_append_int8": ("awq_tpu_torch/csrc/cache_append.cu",
+                                     "awq_tpu/models/llama.py:1313")}
     # one representative shape per kernel in the summary; every case is
     # printed above
     pick = {"w4a16_gemv": "wgateup M=1 ", "w4a16_gemm": "wgateup M=1000",
@@ -1194,16 +1559,22 @@ def main() -> int:
             "megakernel_chunk": "32 layers S=32 hist=700",
             "megakernel_batched": "32 layers + W4 head, B=8", "cache_append": "L=32",
             "flash_decode_paged": "B=8", "megakernel_batched_paged": "32 layers + W4 head, B=8",
-            "cache_append_paged": "L=32"}
+            "cache_append_paged": "L=32", "flash_decode_int8": "len=4000",
+            "megakernel_token_int8": "32 layers",
+            "megakernel_batched_int8": "32 layers + W4 head, B=8", "cache_append_int8": "L=32"}
     # launches: each kernel's count on its own path's run in phases 3, 3b
     # and 3c (the stacked path carries K1-K3, the megakernels K4-K5, the
     # batched engine K6, its stacked path K7, the paged engine K6's and K7's
-    # paged modes and K8, with the default pool). forward calls K4's token
-    # entry; the layer entry is the same kernel over one layer and has no
-    # caller on the main path, so it counts 0 there.
+    # paged modes and K8, with the default pool; phase 3d's int8 runs K4's
+    # and K6's int8 modes, and on the stacked paths K9 and K7's int8 mode).
+    # forward calls K4's token entry; the layer entry is the same kernel over
+    # one layer and has no caller on the main path, so it counts 0 there.
     runs = {"megakernel_batched": "batched", "cache_append": "batched_stacked",
             "megakernel_batched_paged": "paged", "flash_decode_paged": "paged_stacked",
-            "cache_append_paged": "paged_stacked"}
+            "cache_append_paged": "paged_stacked", "flash_decode_int8": "stacked_int8",
+            "megakernel_token_int8": "megakernels_int8",
+            "megakernel_batched_int8": "batched_int8",
+            "cache_append_int8": "batched_stacked_int8"}
     kernels = []
     for name, (src, replaces) in sources.items():
         c = next(c for c in cases if c["name"] == name and c["shape"].startswith(pick[name]))

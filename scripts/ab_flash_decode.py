@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A/B of K2 (flash decode) between builds of ``csrc/decode_attn.cu`` on
-one NVIDIA GPU.
+"""A/B of K2 (flash decode) and K8 (paged flash decode) between builds of
+``csrc/decode_attn.cu`` on one NVIDIA GPU.
 
     python3 scripts/ab_flash_decode.py OTHER.cu [OTHER2.cu ...] [--reps 20] [--rounds 3]
 
@@ -8,7 +8,8 @@ Builds each OTHER.cu and the checkout's ``awq_tpu_torch/csrc/decode_attn.cu``
 with the port's nvcc flags (one nvcc each, in parallel) into
 ``build/ab_flash_decode/``, then times K2 from each library at the smoke
 script's shapes: batch 1 at 1000 and 4000 cached positions, and 8 rows of
-ragged lengths 0..1200. The builds run in turns (each in order, then in
+ragged lengths 0..1200; and K8 on those 8 rows over a permuted pool of
+pages of 256 (``chip_smoke.scatter_pages``). The builds run in turns (each in order, then in
 reverse, ``--rounds`` times), each turn the median of ``--reps`` calls
 with the L2 flushed before each (``chip_smoke.Timer``); the script prints
 every turn and the medians, with the card's name and power limit. All
@@ -52,7 +53,7 @@ def main() -> int:
         return 2
     from awq_tpu_torch import _build
     from awq_tpu_torch.ops import decode_attn as da
-    from chip_smoke import Timer
+    from chip_smoke import Timer, scatter_pages
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -66,20 +67,28 @@ def main() -> int:
     procs = [build(src, so) for src, so in libs.values()]
     if any(p.wait() for p in procs):
         return 1
-    fns = {}
+    fns, fns8 = {}, {}
     for name, (_, so) in libs.items():
-        fn = ctypes.CDLL(str(so)).awq_flash_decode
+        lib = ctypes.CDLL(str(so))
+        fn = lib.awq_flash_decode
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                                    ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = fn
+        fn = lib.awq_flash_decode_paged
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float,
+                                                                   ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fns8[name] = fn
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    nq, nkv, hd, t = 32, 8, 128, 2048
-    cases = {"B=1 len=1000": [1000], "B=1 len=4000": [4000],
-             "B=8 ragged 0..1200": [1000, 0, 930, 1100, 1015, 850, 1200, 977]}
+    nq, nkv, hd, t, page = 32, 8, 128, 2048, 256
+    ragged = [1000, 0, 930, 1100, 1015, 850, 1200, 977]
+    cases = {"K2 B=1 len=1000": ([1000], False), "K2 B=1 len=4000": ([4000], False),
+             "K2 B=8 ragged 0..1200": (ragged, False),
+             "K8 B=8 ragged 0..1200, pages of 256": (ragged, True)}
     timer = Timer(torch, reps=args.reps)
-    for label, lens_l in cases.items():
+    for label, (lens_l, paged) in cases.items():
         b, mx = len(lens_l), max(lens_l)
         tt = max(t, mx)
         cache = torch.randn((2, b, nkv, tt, hd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -88,15 +97,27 @@ def main() -> int:
                   for _ in range(2))
         lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
         nsplit, split_len = da._split(mx, b * nkv)
+        if paged:     # as flash_decode_paged: whole pages per split
+            pool, tables = scatter_pages(torch, cache[None], tt // page, page, gen)
+            split_len = -(-split_len // page) * page
+            nsplit = max(1, -(-mx // split_len))
         ml = torch.empty((b, nkv, nsplit, nq // nkv, 2), dtype=torch.float32, device="cuda")
         acc = torch.empty((b, nkv, nsplit, nq // nkv, hd), dtype=torch.float32, device="cuda")
         outs = {name: torch.empty_like(q) for name in fns}
 
         def call(name):
-            err = fns[name](q.data_ptr(), kn.data_ptr(), vn.data_ptr(), cache.data_ptr(),
-                            lens.data_ptr(), ml.data_ptr(), acc.data_ptr(),
-                            outs[name].data_ptr(), b, nq, nkv, tt, nsplit, split_len,
-                            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+            stream = torch.cuda.current_stream().cuda_stream
+            if paged:
+                err = fns8[name](q.data_ptr(), kn.data_ptr(), vn.data_ptr(), pool[0].data_ptr(),
+                                 tables.data_ptr(), lens.data_ptr(), ml.data_ptr(),
+                                 acc.data_ptr(), outs[name].data_ptr(), b, nq, nkv,
+                                 pool.shape[2], page, tt // page, nsplit, split_len,
+                                 1.0 / math.sqrt(hd), stream)
+            else:
+                err = fns[name](q.data_ptr(), kn.data_ptr(), vn.data_ptr(), cache.data_ptr(),
+                                lens.data_ptr(), ml.data_ptr(), acc.data_ptr(),
+                                outs[name].data_ptr(), b, nq, nkv, tt, nsplit, split_len,
+                                1.0 / math.sqrt(hd), stream)
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
 

@@ -75,8 +75,11 @@ def test_append_counts_launches_only_on_the_card():
     tca.batched_cache_append(torch.from_numpy(cache), torch.from_numpy(kv),
                              torch.tensor([1, 2], dtype=torch.int32),
                              torch.tensor([[0], [1]], dtype=torch.int32))
+    q, sc = tca.quantize_kv(torch.from_numpy(cache))
+    tca.batched_cache_append_int8(q, sc, torch.from_numpy(kv),
+                                  torch.tensor([1, 2], dtype=torch.int32))
     assert tca.LAUNCHES == before
-    assert set(before) == {"cache_append", "cache_append_paged"}
+    assert set(before) == {"cache_append", "cache_append_paged", "cache_append_int8"}
 
 
 # ---- on the card: K7 against its plain version --------------------------------

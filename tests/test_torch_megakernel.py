@@ -280,13 +280,19 @@ def test_head_in_kernel(case):
 
 
 def test_unsupported_operands_raise():
-    """What the kernels do not take raises, naming its ROADMAP item."""
+    """What the kernels do not take raises, naming its ROADMAP item; an
+    int8 cache is taken with its f32 scales only."""
     cfg, layers = _gate_model()
     h, ln = torch.zeros((1, 256)), torch.ones((2, 256))
     lins = (layers["wqkv"], layers["wo"], layers["wgateup"], layers["down"])
     cache = torch.zeros((2, 2, 1, 2, 8, 128))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="scales"):
         tmk.check_operands("k4", h, lins, ln, ln, cache.to(torch.int8), 2, 2, 1)
+    scales = torch.zeros((2, 2, 1, 2, 8))
+    assert tmk.check_operands("k4", h, lins, ln, ln, cache.to(torch.int8), 2, 2, 1,
+                              scales=scales) == (2, 256, 256)
+    with pytest.raises(ValueError, match="cache_scales"):
+        tmk.check_operands("k4", h, lins, ln, ln, cache, 2, 2, 1, scales=scales)
     w3 = dataclasses.replace(layers["down"], w_bit=3)
     with pytest.raises(NotImplementedError, match="item 13"):
         tmk.check_operands("k4", h, (*lins[:3], w3), ln, ln, cache, 2, 2, 1)

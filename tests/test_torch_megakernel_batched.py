@@ -226,15 +226,17 @@ def test_batched_gate(case, monkeypatch):
 
 
 def test_batched_unported_options_raise():
-    """int8 KV (``cache_scales``) still raises; ``tables`` (paged mode) now
-    runs: a pool of 5 pages of 8 positions, two rows on their own pages."""
+    """int8 KV (``cache_scales``) runs in slot mode over an int8 cache
+    (tests/test_torch_kv8.py) and raises beside a float cache or in paged
+    mode, which has no int8 pool, as in JAX; ``tables`` (paged mode) runs:
+    a pool of 5 pages of 8 positions, two rows on their own pages."""
     cfg, layers = _gate_model()
     lins = (layers["wqkv"], layers["wo"], layers["wgateup"], layers["down"])
     ln = torch.ones((2, 256))
     cache = torch.zeros((2, 2, 2, 2, 16, 128))
     args = (torch.zeros((2, 256)), *lins, ln, ln, torch.ones((2, 128)),
             torch.zeros((2, 128)), cache, torch.zeros(2, dtype=torch.int32), 2, 2)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="cache_scales"):
         tmb.w4a16_llama_token_step_batched(*args, cache_scales=torch.zeros(1))
     out = tmb.w4a16_llama_token_step_batched(*args)
     assert len(out) == 3 and out[0].shape == (2, 256)
@@ -244,6 +246,10 @@ def test_batched_unported_options_raise():
     paged = (*args[:9], pool, lens, 2, 2)
     out = tmb.w4a16_llama_token_step_batched(*paged, tables=tables)
     assert len(out) == 3 and out[0].shape == (2, 256)
+    pool8 = (*args[:9], pool.to(torch.int8), lens, 2, 2)
+    with pytest.raises(NotImplementedError, match="paged"):
+        tmb.w4a16_llama_token_step_batched(*pool8, tables=tables,
+                                           cache_scales=torch.zeros((2, 2, 5, 2, 8)))
     # row 0 wrote position 9 (page 1, offset 1), row 1 position 0 (page 2)
     assert torch.equal(pool[:, 0, 1, :, 1], out[1][:, 0])
     assert torch.equal(pool[:, 1, 2, :, 0], out[2][:, 1])
