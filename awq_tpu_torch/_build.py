@@ -1,13 +1,19 @@
 """Build the hand-written CUDA kernels with ``nvcc`` and load them with ctypes.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface (``extern "C"``) and is
-compiled on its own into ``build/awq_tpu_torch/<name>-<hash>.so`` at the
-repository root, where ``<hash>`` covers the source, the shared header and
-the compiler flags: an edited source builds anew, an unchanged one is
-loaded from disk. Nothing here runs at import time; the op modules call
+Each unit of :data:`UNITS` is one ``csrc/<source>.cu`` with a set of
+``-D`` defines, exposes a plain C interface (``extern "C"``) and is
+compiled on its own into ``build/awq_tpu_torch/<unit>-<hash>.so`` at the
+repository root, where ``<hash>`` covers the source, every header of
+``csrc/`` (so any header a unit includes), the defines and the compiler
+flags: an edited source or header builds anew, an unchanged one is loaded
+from disk. The megakernels are built once per instance: K4
+(``megakernel.cu``) per weight format, K5 (``megakernel_chunk.cu``) per
+cache dtype and format, K6 (``megakernel_batched.cu``) per cache (the
+four slot dtypes and the page pool) and format, so that the instances
+compile in parallel. Nothing here runs at import time; the op modules call
 :func:`load` on their first launch, and :func:`build_all` starts one
-``nvcc`` per source at once (the smoke script uses it to build in
-parallel and to time the build).
+``nvcc`` per unit at once (the smoke script uses it to build in parallel
+and to time the build).
 
 Pointers and the stream cross ctypes as ``c_void_p`` and sizes as
 ``c_int``: an undeclared argument would be passed as a
@@ -26,12 +32,27 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "awq_tpu_torch"
-SOURCES = ("w4a16", "decode_attn", "megakernel", "megakernel_chunk",
-           "megakernel_batched", "cache_append")
+_CT = {"f32": "float", "bf16": "bf16", "f16": "__half", "int8": "int8_t"}
+_FORMATS = (("", 0), ("_w3", 1))     # unit suffix, -DAWQ_MEGA_W3
+#: Unit name -> (source stem in csrc/, defines).
+UNITS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
+    "w4a16": ("w4a16", ()), "w3a16": ("w3a16", ()), "decode_attn": ("decode_attn", ()),
+    **{f"megakernel{sfx}": ("megakernel", (f"AWQ_MEGA_W3={w}",)) for sfx, w in _FORMATS},
+    **{f"megakernel_chunk_{c}{sfx}": ("megakernel_chunk",
+                                      (f"AWQ_MEGA_CT={_CT[c]}", f"AWQ_MEGA_W3={w}"))
+       for c in ("f32", "bf16", "f16") for sfx, w in _FORMATS},
+    **{f"megakernel_batched_{c}{sfx}": (
+        "megakernel_batched",
+        (f"AWQ_MEGA_CT={_CT.get(c, 'bf16')}", f"AWQ_MEGA_PAGED={int(c == 'paged')}",
+         f"AWQ_MEGA_W3={w}"))
+       for c in ("f32", "bf16", "f16", "int8", "paged") for sfx, w in _FORMATS},
+    "cache_append": ("cache_append", ()),
+}
+SOURCES = tuple(UNITS)
 ARCH = "sm_90a"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -56,11 +77,12 @@ def nvcc_path() -> str:
 
 
 def _digest(name: str) -> str:
+    src, defines = UNITS[name]
     h = hashlib.sha256()
-    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{src}.cu"]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + defines).encode())
     return h.hexdigest()[:16]
 
 
@@ -69,32 +91,34 @@ def lib_path(name: str) -> Path:
 
 
 def _compile_cmd(name: str, out: Path) -> List[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
-            str(CSRC / f"{name}.cu")]
+    src, defines = UNITS[name]
+    return [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-I", str(CSRC),
+            "-o", str(out), str(CSRC / f"{src}.cu")]
 
 
 def _start(name: str):
     """Start nvcc for ``name`` unless its library exists; returns
-    ``(process, tmp_path, final_path)`` or None."""
+    ``(process, tmp_path, final_path)`` or None. nvcc writes its output to
+    the log beside the library (a pipe could fill and stall it)."""
     final = lib_path(name)
     if final.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", prefix=f".{name}-", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.Popen(_compile_cmd(name, Path(tmp)),
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+    with open(BUILD_DIR / f"{final.stem}.log", "w") as log:
+        proc = subprocess.Popen(_compile_cmd(name, Path(tmp)), stdout=log,
+                                stderr=subprocess.STDOUT, text=True)
     return proc, Path(tmp), final
 
 
 def _finish(name: str, started) -> str:
     proc, tmp, final = started
-    log, _ = proc.communicate()
-    (BUILD_DIR / f"{final.stem}.log").write_text(log)
+    proc.wait()
+    log = (BUILD_DIR / f"{final.stem}.log").read_text()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+        raise RuntimeError(f"nvcc failed for unit {name} (csrc/{UNITS[name][0]}.cu) "
                            f"(exit {proc.returncode}):\n{log}")
     # atomic: another process building the same source writes the same bytes
     os.replace(tmp, final)
@@ -102,18 +126,21 @@ def _finish(name: str, started) -> str:
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every source that has no library yet, one nvcc each, all
-    started together. Returns the seconds each build took (0 if cached)."""
+    """Compile every unit that has no library yet, one nvcc each, all
+    started together. Returns the seconds from the start to each build's
+    end (0 if cached)."""
     names = list(names)
     t0 = time.perf_counter()
     started = {n: _start(n) for n in names}
-    took = {}
+    took = {n: 0.0 for n in names if started[n] is None}
+    while len(took) < len(names):
+        for n in names:
+            if n not in took and started[n][0].poll() is not None:
+                took[n] = time.perf_counter() - t0
+        time.sleep(0.05)
     for n in names:
-        if started[n] is None:
-            took[n] = 0.0
-            continue
-        _finish(n, started[n])
-        took[n] = time.perf_counter() - t0
+        if started[n] is not None:
+            _finish(n, started[n])
     return took
 
 
@@ -124,7 +151,7 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of unit ``name``, built first if needed."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:

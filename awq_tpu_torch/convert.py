@@ -19,8 +19,16 @@ kernels read:
   and widened to f32: the values the folded kernels compute with, present
   even where ``strip_unfolded_qparams`` dropped the f32 fields.
 
-The dense 3-bit layout (``dense3``) is refused: W3 is ROADMAP queue A,
-item 13. A stacked-of-1 ``lm_head`` (``_tile_head``) comes back 2-D.
+The dense 3-bit layout (``dense3``, ``pack_int3`` ``[(L,) IC*3//32, OC]``)
+is copied as it is. Its TPU fold, ``w3x`` (``tile_qlinear(...,
+fold_scales=True)`` of a dense3 QLinear), is unfolded back into
+``pack_int3``: each full chunk of 5 groups holds 64 rows whose 16-bit
+halves carry 5 codes of 3 bits (code ``2r + h`` of group ``5c + j`` in
+row ``r``, bits ``16h + 3j``), each of the ``n_groups % 5`` trailer
+groups 16 rows of nibbles (code ``32j + 2r + h`` in row ``r``, bits
+``16h + 4j``), then the bf16 qparam band as for W4. The group count comes
+from the QLinear's ``n_groups``: the row count alone does not give it.
+A stacked-of-1 ``lm_head`` (``_tile_head``) comes back 2-D.
 
 :func:`kv_cache8_from_jax` carries a JAX ``KVCache8`` (codes and scales)
 across the same way, so that one int8 cache can feed both packages.
@@ -35,6 +43,7 @@ from awq_tpu_torch import _device
 from awq_tpu_torch.models.layers import Linear
 from awq_tpu_torch.models.llama import KVCache8
 from awq_tpu_torch.ops.w4a16 import QLinear
+from awq_tpu_torch.quant.packing import pack_int3
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
@@ -78,6 +87,40 @@ def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
     return (bits.astype(np.uint32) << np.uint32(16)).view(np.float32)
 
 
+def _w3x_codes(w: np.ndarray, n_g: int) -> np.ndarray:
+    """The codes ``[(L,) IC, OC]`` of untiled ``w3x`` code rows
+    ``[(L,) crows, OC]`` (the inverse of JAX's ``_fold_tile3``)."""
+    fc, tg = divmod(n_g, 5)
+    *lead, _, oc = w.shape
+    w = w.view(np.uint32)
+    parts = []
+    if fc:
+        wf = w[..., :fc * 64, :].reshape(*lead, fc, 1, 64, 1, oc)
+        sh = (16 * np.arange(2)[None, :] + 3 * np.arange(5)[:, None]).astype(np.uint32)
+        cf = (wf >> sh[:, None, :, None]) & np.uint32(7)       # [.., c, j, r, h, OC]
+        parts.append(cf.reshape(*lead, fc * 640, oc))
+    if tg:
+        wt = w[..., fc * 64:fc * 64 + tg * 16, :].reshape(*lead, tg, 1, 16, 1, oc)
+        sh = (16 * np.arange(2)[None, :] + 4 * np.arange(4)[:, None]).astype(np.uint32)
+        ct = (wt >> sh[:, None, :, None]) & np.uint32(7)       # [.., t, j, r, h, OC]
+        parts.append(ct.reshape(*lead, tg * 128, oc))
+    return np.concatenate(parts, axis=-2).astype(np.uint8)
+
+
+def _pack3(codes: np.ndarray) -> np.ndarray:
+    """``pack_int3`` of codes ``[(L,) IC, OC]``."""
+    flat = codes.reshape(-1, *codes.shape[-2:])
+    packed = [pack_int3(torch.from_numpy(c)).numpy() for c in flat]
+    return np.stack(packed).reshape(*codes.shape[:-2], *packed[0].shape)
+
+
+def _qparams(qp: np.ndarray):
+    """f32 ``(scales, szeros)`` of an untiled packed qparam band."""
+    qp = qp.view(np.uint32)
+    return (_bf16_bits_to_f32(qp & np.uint32(0xFFFF)),
+            _bf16_bits_to_f32(qp >> np.uint32(16)))
+
+
 def unfold_qlinear(x):
     """``(qweight, scales, szeros)`` of a JAX QLinear in the port's plain
     layout, as numpy arrays."""
@@ -87,14 +130,18 @@ def unfold_qlinear(x):
         return qw, np.asarray(x.scales), np.asarray(x.szeros)
     if not getattr(x, "folded", False):
         return _untile(qw), np.asarray(x.scales), np.asarray(x.szeros)
+    if getattr(x, "dense3", False):
+        n_g = int(x.n_groups)
+        crows = 64 * (n_g // 5) + 16 * (n_g % 5)
+        codes = _w3x_codes(_untile(np.ascontiguousarray(qw[..., :crows, :])), n_g)
+        scales, szeros = _qparams(_untile(qw[..., crows:crows + n_g, :]))
+        return _pack3(codes), scales, szeros
     rows = qw.shape[-2]
     ic = rows // (g // 8 + 1) * g
     icp, n_g = ic // 8, ic // g
     codes = _remap_nibbles(np.ascontiguousarray(qw[..., :icp, :]),
                            _fold_nibble_maps_inv())
-    qp = _untile(qw[..., icp:icp + n_g, :]).view(np.uint32)
-    scales = _bf16_bits_to_f32(qp & np.uint32(0xFFFF))
-    szeros = _bf16_bits_to_f32(qp >> np.uint32(16))
+    scales, szeros = _qparams(_untile(qw[..., icp:icp + n_g, :]))
     return _untile(codes), scales, szeros
 
 
@@ -108,16 +155,16 @@ def params_from_jax(tree, device="cuda"):
         if isinstance(x, dict):
             return {k: conv(v, f"{path}/{k}") for k, v in x.items()}
         if hasattr(x, "qweight"):
-            if getattr(x, "dense3", False) or x.w_bit != 4:
-                raise NotImplementedError(
-                    f"{path}: w_bit={x.w_bit}, dense3="
-                    f"{getattr(x, 'dense3', False)}; W3 is ROADMAP queue A, "
-                    "item 13")
+            dense3 = bool(getattr(x, "dense3", False))
+            if x.w_bit not in (3, 4) or (dense3 and x.w_bit != 3):
+                raise ValueError(f"{path}: w_bit={x.w_bit}, dense3={dense3}: the "
+                                 "packed layouts hold 4-bit or 3-bit codes")
             qw, s, sz = unfold_qlinear(x)
             return QLinear(qweight=_tensor(qw, dev), scales=_tensor(s, dev),
                            szeros=_tensor(sz, dev),
                            bias=conv(x.bias, f"{path}.bias"),
-                           w_bit=int(x.w_bit), group_size=int(x.group_size))
+                           w_bit=int(x.w_bit), group_size=int(x.group_size),
+                           dense3=dense3)
         if hasattr(x, "w"):
             return Linear(w=_tensor(x.w, dev), b=conv(x.b, f"{path}.b"))
         if isinstance(x, (np.ndarray, np.generic)) or hasattr(x, "__array__"):
@@ -133,7 +180,7 @@ def params_from_jax(tree, device="cuda"):
             qweight=head.qweight[0], scales=head.scales[0],
             szeros=head.szeros[0],
             bias=None if head.bias is None else head.bias[0],
-            w_bit=head.w_bit, group_size=head.group_size)
+            w_bit=head.w_bit, group_size=head.group_size, dense3=head.dense3)
     return out
 
 

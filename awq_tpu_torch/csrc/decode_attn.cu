@@ -1,8 +1,12 @@
 // K2 (flash decode) and K3 (causal flash prefill) for Hopper (sm_90a).
 //
 // Both read ONE layer of the stacked cache, the contiguous view
-// cache[l] = [2, B, n_kv, T, HD] bf16 (K at index 0, V at 1), head-major so
-// that each head's [T, HD] slab is contiguous. HD is 128.
+// cache[l] = [2, B, n_kv, T, HD] (K at index 0, V at 1), head-major so
+// that each head's [T, HD] slab is contiguous. HD is 128. The cache is f32,
+// bf16 or f16 (a template parameter, E); q, the current token's k/v and
+// the output are f32, bf16 or f16 too, each of its own dtype (a runtime
+// code: they are read once per block), as the JAX kernels follow q.dtype
+// and the cache's dtype apart.
 //
 // K2 replaces awq_tpu/ops/decode_attn.py::flash_decode_stacked
 // (_stacked_decode_kernel): one query position per row, GQA, an online
@@ -37,7 +41,7 @@
 // K9 replaces flash_decode_stacked8 (_stacked_decode_kernel8): K2's
 // attention over ONE layer of an int8 KV cache, codes [2, B, n_kv, T, HD]
 // int8 and scales [2, B, n_kv, T] f32 (one per position and head), with the
-// current token's k/v in bf16 as operands. It is K2's body again, with the
+// current token's k/v in q's dtype as operands. It is K2's body again, with the
 // Int8KV functor: a 16-byte load brings 16 codes instead of 8 bf16 values,
 // the tile of codes sits in shared memory as int8 and its 32 positions'
 // K and V scales beside it. As in the TPU kernel, nothing is dequantized
@@ -54,10 +58,12 @@
 // lengths. FlashAttention-2 shape: a block of 4 warps owns 64 query rows of
 // one head (16 per warp, Q kept in registers as mma A fragments), streams
 // 64-position K/V tiles through shared memory up to the block's causal
-// frontier, computes S = Q·K^T and O += P·V with mma.sync m16n8k16 bf16
-// (f32 accumulators), and keeps the row max and sum in registers; the
-// [S, T] score matrix never exists in memory. Single-stage loads: TMA,
-// wgmma and a pipeline are later work.
+// frontier, computes S = Q·K^T and O += P·V with mma.sync m16n8k16
+// (f32 accumulators; bf16 operands, or f16 over an f16 cache; an f32
+// cache's tiles, q and P are rounded to bf16, about 3 significant digits),
+// and keeps the row max and sum in registers; the [S, T] score matrix never
+// exists in memory. Single-stage loads: TMA, wgmma and a pipeline are later
+// work.
 #include "common.cuh"
 
 namespace {
@@ -71,28 +77,30 @@ constexpr int DEC_WARPS = 4;
 // Where the positions of (row b, kv head h) sit in one layer: row(b, h) is
 // a cursor whose K and V rows of position t are at k + off(t) and
 // v + off(t).
+template <typename E>
 struct ContigKV {  // K2: cache [2, B, n_kv, T, HD]
-  using Elem = bf16;
-  const bf16* base;
+  using Elem = E;
+  const E* base;
   int B, nkv, T;
   struct Row {
-    const bf16* k;
-    const bf16* v;
+    const E* k;
+    const E* v;
     __device__ __forceinline__ size_t off(int t) const { return (size_t)t * HD; }
   };
   __device__ __forceinline__ Row row(int b, int h) const {
-    const bf16* k = base + ((size_t)b * nkv + h) * T * HD;
+    const E* k = base + ((size_t)b * nkv + h) * T * HD;
     return Row{k, k + (size_t)B * nkv * T * HD};
   }
 };
+template <typename E>
 struct PagedKV {   // K8: pool [2, NP, n_kv, page, HD], tables [B, MP]
-  using Elem = bf16;
-  const bf16* base;
+  using Elem = E;
+  const E* base;
   const int* tables;
   int np, nkv, page, mp;
   struct Row {
-    const bf16* k;      // head h of page 0, K plane
-    const bf16* v;      // the same in the V plane
+    const E* k;         // head h of page 0, K plane
+    const E* v;         // the same in the V plane
     const int* tab;     // row b's table
     int pstride;        // elements from one page to the next: nkv * page * HD
     int page;
@@ -101,7 +109,7 @@ struct PagedKV {   // K8: pool [2, NP, n_kv, page, HD], tables [B, MP]
     }
   };
   __device__ __forceinline__ Row row(int b, int h) const {
-    const bf16* k = base + (size_t)h * page * HD;
+    const E* k = base + (size_t)h * page * HD;
     return Row{k, k + (size_t)np * nkv * page * HD, tables + (size_t)b * mp,
                nkv * page * HD, page};
   }
@@ -125,13 +133,12 @@ struct Int8KV {    // K9: codes [2, B, n_kv, T, HD] int8, scales [2, B, n_kv, T]
   }
 };
 
-// The shared-memory tile of DEC_TILE positions: bf16 rows (K padded to
-// 65 words, conflict-free dots), or int8 rows (K padded to 33 words) with
-// the positions' K and V scales.
-template <typename E> struct DecTile;
-template <> struct DecTile<bf16> {
-  bf16 k[DEC_TILE][HD + 2];
-  __align__(16) bf16 v[DEC_TILE][HD];
+// The shared-memory tile of DEC_TILE positions: bf16 or f16 rows (K padded
+// to 65 words, conflict-free dots), f32 rows (K padded to 129 words), or
+// int8 rows (K padded to 33 words) with the positions' K and V scales.
+template <typename E> struct DecTile {
+  E k[DEC_TILE][HD + 4 / sizeof(E)];
+  __align__(16) E v[DEC_TILE][HD];
 };
 template <> struct DecTile<int8_t> {
   __align__(16) int8_t k[DEC_TILE][HD + 4];
@@ -140,10 +147,20 @@ template <> struct DecTile<int8_t> {
   float vs[DEC_TILE];
 };
 
-// part_ml [B, n_kv, nsplit, g, 2] (max, sum); part_acc [B, n_kv, nsplit, g, HD]
+// Elements d and d + 1 of a K row in the tile, as f32.
+__device__ __forceinline__ float2 kpair(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 kpair(const __half* p) {
+  return __half22float2(*reinterpret_cast<const __half2*>(p));
+}
+__device__ __forceinline__ float2 kpair(const float* p) { return make_float2(p[0], p[1]); }
+
+// part_ml [B, n_kv, nsplit, g, 2] (max, sum); part_acc [B, n_kv, nsplit, g, HD];
+// q of dtype code qdt (0 f32, 1 bf16, 2 f16).
 template <int HPW, typename KV>  // query heads per warp: g <= DEC_WARPS * HPW
 __global__ void __launch_bounds__(128) flash_decode_split_kernel(
-    const bf16* __restrict__ q, const KV kv, const int* __restrict__ lengths,
+    const void* __restrict__ q, int qdt, const KV kv, const int* __restrict__ lengths,
     int max_len, float* __restrict__ part_ml, float* __restrict__ part_acc,
     int nq, int nkv, int split_len, float scale) {
   using E = typename KV::Elem;
@@ -164,7 +181,7 @@ __global__ void __launch_bounds__(128) flash_decode_split_kernel(
 
   for (int i = tid; i < g * HD; i += 128) {
     const int gi = i / HD, d = i % HD;
-    qs[gi][d] = __bfloat162float(q[((size_t)b * nq + h * g + gi) * HD + d]) * scale;
+    qs[gi][d] = load_act(q, qdt, ((size_t)b * nq + h * g + gi) * HD + d) * scale;
   }
 
   float m[HPW], l[HPW], acc[HPW][4];
@@ -214,7 +231,7 @@ __global__ void __launch_bounds__(128) flash_decode_split_kernel(
       } else {
 #pragma unroll 8
         for (int d = 0; d < HD; d += 2) {
-          const float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&tile.k[lane][d]));
+          const float2 kf = kpair(&tile.k[lane][d]);
           s = fmaf(qs[gi][d], kf.x, s);
           s = fmaf(qs[gi][d + 1], kf.y, s);
         }
@@ -239,13 +256,10 @@ __global__ void __launch_bounds__(128) flash_decode_split_kernel(
           acc[i][3] = fmaf(pj, static_cast<float>(vc.w), acc[i][3]);
         } else {
           const float pj = ps[gi][j];
-          const uint2 raw = *reinterpret_cast<const uint2*>(&tile.v[j][lane * 4]);
-          const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-          const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-          acc[i][0] = fmaf(pj, v01.x, acc[i][0]);
-          acc[i][1] = fmaf(pj, v01.y, acc[i][1]);
-          acc[i][2] = fmaf(pj, v23.x, acc[i][2]);
-          acc[i][3] = fmaf(pj, v23.y, acc[i][3]);
+          float v4[4];
+          load4<E>(&tile.v[j][lane * 4], v4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(pj, v4[e], acc[i][e]);
         }
       }
     }
@@ -265,19 +279,20 @@ __global__ void __launch_bounds__(128) flash_decode_split_kernel(
   }
 }
 
-// One block per (query head, row); thread d owns output element d.
+// One block per (query head, row); thread d owns output element d. q and
+// out are of dtype code qdt, k_new and v_new of kdt.
 __global__ void __launch_bounds__(HD) flash_decode_combine_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k_new,
-    const bf16* __restrict__ v_new, const float* __restrict__ part_ml,
-    const float* __restrict__ part_acc, bf16* __restrict__ out, int nq,
-    int nkv, int nsplit, float scale) {
+    const void* __restrict__ q, const void* __restrict__ k_new,
+    const void* __restrict__ v_new, const float* __restrict__ part_ml,
+    const float* __restrict__ part_acc, void* __restrict__ out, int qdt, int kdt,
+    int nq, int nkv, int nsplit, float scale) {
   __shared__ float red[HD / 32];
   const int hq = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int g = nq / nkv, h = hq / g, gi = hq % g;
 
   // score of the current token, (q * scale) . k_new, as in the split kernel
-  const float qd = __bfloat162float(q[((size_t)b * nq + hq) * HD + d]) * scale;
-  float s = warp_sum(qd * __bfloat162float(k_new[((size_t)b * nkv + h) * HD + d]));
+  const float qd = load_act(q, qdt, ((size_t)b * nq + hq) * HD + d) * scale;
+  float s = warp_sum(qd * load_act(k_new, kdt, ((size_t)b * nkv + h) * HD + d));
   if ((d & 31) == 0) red[d >> 5] = s;
   __syncthreads();
   float s_c = 0.f;
@@ -300,18 +315,33 @@ __global__ void __launch_bounds__(HD) flash_decode_combine_kernel(
   }
   const float p_c = __expf(s_c - m_all);
   l_all += p_c;
-  a = fmaf(p_c, __bfloat162float(v_new[((size_t)b * nkv + h) * HD + d]), a);
-  out[((size_t)b * nq + hq) * HD + d] = __float2bfloat16_rn(a / l_all);
+  a = fmaf(p_c, load_act(v_new, kdt, ((size_t)b * nkv + h) * HD + d), a);
+  store_act(out, qdt, ((size_t)b * nq + hq) * HD + d, a / l_all);
 }
 
 constexpr int PF_BQ = 64, PF_BKV = 64, PF_PAD = 8;
 
+// 8 consecutive cache elements as 8 MT values in one uint4.
+template <typename E, typename MT>
+__device__ __forceinline__ uint4 load8(const E* p) {
+  if constexpr (sizeof(E) == 2) {
+    return *reinterpret_cast<const uint4*>(p);
+  } else {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    const float4 b = *reinterpret_cast<const float4*>(p + 4);
+    return make_uint4(pack2<MT>(a.x, a.y), pack2<MT>(a.z, a.w), pack2<MT>(b.x, b.y),
+                      pack2<MT>(b.z, b.w));
+  }
+}
+
+// q and out of dtype code qdt; the cache of E, staged as MT.
+template <typename E>
 __global__ void __launch_bounds__(128) flash_prefill_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ cache,
-    bf16* __restrict__ out, int B, int S, int nq, int nkv, int T,
-    int start_pos, float scale_log2) {
-  __shared__ __align__(16) bf16 ks[PF_BKV][HD + PF_PAD];
-  __shared__ __align__(16) bf16 vs[PF_BKV][HD + PF_PAD];
+    const void* __restrict__ q, const E* __restrict__ cache, void* __restrict__ out,
+    int qdt, int B, int S, int nq, int nkv, int T, int start_pos, float scale_log2) {
+  using MT = typename MmaOf<E>::type;
+  __shared__ __align__(16) MT ks[PF_BKV][HD + PF_PAD];
+  __shared__ __align__(16) MT vs[PF_BKV][HD + PF_PAD];
   const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (nq / nkv);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -321,15 +351,18 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
 
   // Q as A fragments, 8 k16 steps over HD; rows past S are zeros
   uint32_t qa[HD / 16][4];
-  const bf16* qrow_a = q + (((size_t)b * S + ra) * nq + h) * HD;
-  const bf16* qrow_b = q + (((size_t)b * S + rb) * nq + h) * HD;
+  const size_t qrow_a = (((size_t)b * S + ra) * nq + h) * HD;
+  const size_t qrow_b = (((size_t)b * S + rb) * nq + h) * HD;
+  auto qpair = [&](size_t i) {
+    return pack2<MT>(load_act(q, qdt, i), load_act(q, qdt, i + 1));
+  };
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const int c = kk * 16 + 2 * tq;
-    qa[kk][0] = ra < S ? ld_u32(qrow_a + c) : 0u;
-    qa[kk][1] = rb < S ? ld_u32(qrow_b + c) : 0u;
-    qa[kk][2] = ra < S ? ld_u32(qrow_a + c + 8) : 0u;
-    qa[kk][3] = rb < S ? ld_u32(qrow_b + c + 8) : 0u;
+    qa[kk][0] = ra < S ? qpair(qrow_a + c) : 0u;
+    qa[kk][1] = rb < S ? qpair(qrow_b + c) : 0u;
+    qa[kk][2] = ra < S ? qpair(qrow_a + c + 8) : 0u;
+    qa[kk][3] = rb < S ? qpair(qrow_b + c + 8) : 0u;
   }
 
   float o[HD / 8][4];
@@ -342,16 +375,16 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
 
   const int last_row = min(qb * PF_BQ + PF_BQ, S) - 1;
   const int kv_end = min(start_pos + last_row + 1, T);  // causal frontier
-  const bf16* kbase = cache + (((size_t)0 * B + b) * nkv + kvh) * (size_t)T * HD;
-  const bf16* vbase = cache + (((size_t)1 * B + b) * nkv + kvh) * (size_t)T * HD;
+  const E* kbase = cache + (((size_t)0 * B + b) * nkv + kvh) * (size_t)T * HD;
+  const E* vbase = cache + (((size_t)1 * B + b) * nkv + kvh) * (size_t)T * HD;
 
   for (int j0 = 0; j0 < kv_end; j0 += PF_BKV) {
     for (int i = tid; i < PF_BKV * (HD / 8); i += 128) {
       const int r = i / (HD / 8), v = i % (HD / 8);
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
       if (j0 + r < kv_end) {
-        kv = *reinterpret_cast<const uint4*>(kbase + (size_t)(j0 + r) * HD + v * 8);
-        vv = *reinterpret_cast<const uint4*>(vbase + (size_t)(j0 + r) * HD + v * 8);
+        kv = load8<E, MT>(kbase + (size_t)(j0 + r) * HD + v * 8);
+        vv = load8<E, MT>(vbase + (size_t)(j0 + r) * HD + v * 8);
       }
       *reinterpret_cast<uint4*>(&ks[r][v * 8]) = kv;
       *reinterpret_cast<uint4*>(&vs[r][v * 8]) = vv;
@@ -365,8 +398,9 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
       for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        const bf16* krow = &ks[nt * 8 + gq][kk * 16 + 2 * tq];
-        mma_bf16_16816(sc[nt], qa[kk], ld_u32(krow), ld_u32(krow + 8));
+        const MT* krow = &ks[nt * 8 + gq][kk * 16 + 2 * tq];
+        mma_16816<MT>(sc[nt], qa[kk], *reinterpret_cast<const uint32_t*>(krow),
+                      *reinterpret_cast<const uint32_t*>(krow + 8));
       }
     }
     float mx_a = NEG_INF, mx_b = NEG_INF;
@@ -416,17 +450,17 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
 #pragma unroll
     for (int kk = 0; kk < PF_BKV / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]);
-      pa[1] = pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]);
-      pa[2] = pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      pa[3] = pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+      pa[0] = pack2<MT>(sc[2 * kk][0], sc[2 * kk][1]);
+      pa[1] = pack2<MT>(sc[2 * kk][2], sc[2 * kk][3]);
+      pa[2] = pack2<MT>(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+      pa[3] = pack2<MT>(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
       const int k_lo = kk * 16 + 2 * tq;
 #pragma unroll
       for (int dt = 0; dt < HD / 8; ++dt) {
         const int d = dt * 8 + gq;
-        const uint32_t b0 = pack_bf16_bits(vs[k_lo][d], vs[k_lo + 1][d]);
-        const uint32_t b1 = pack_bf16_bits(vs[k_lo + 8][d], vs[k_lo + 9][d]);
-        mma_bf16_16816(o[dt], pa, b0, b1);
+        const uint32_t b0 = pack_bits<MT>(vs[k_lo][d], vs[k_lo + 1][d]);
+        const uint32_t b1 = pack_bits<MT>(vs[k_lo + 8][d], vs[k_lo + 9][d]);
+        mma_16816<MT>(o[dt], pa, b0, b1);
       }
     }
     __syncthreads();
@@ -441,105 +475,152 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
 #pragma unroll
   for (int dt = 0; dt < HD / 8; ++dt) {
     const int d = dt * 8 + 2 * tq;
-    if (ra < S)
-      *reinterpret_cast<uint32_t*>(out + (((size_t)b * S + ra) * nq + h) * HD + d) =
-          pack_bf16x2(o[dt][0] * inv_a, o[dt][1] * inv_a);
-    if (rb < S)
-      *reinterpret_cast<uint32_t*>(out + (((size_t)b * S + rb) * nq + h) * HD + d) =
-          pack_bf16x2(o[dt][2] * inv_b, o[dt][3] * inv_b);
+    if (ra < S) {
+      const size_t i = (((size_t)b * S + ra) * nq + h) * HD + d;
+      store_act(out, qdt, i, o[dt][0] * inv_a);
+      store_act(out, qdt, i + 1, o[dt][1] * inv_a);
+    }
+    if (rb < S) {
+      const size_t i = (((size_t)b * S + rb) * nq + h) * HD + d;
+      store_act(out, qdt, i, o[dt][2] * inv_b);
+      store_act(out, qdt, i + 1, o[dt][3] * inv_b);
+    }
   }
 }
 
 template <int HPW, typename KV>
-void launch_split(const bf16* q, const KV& kv, const int* lengths, int max_len,
+void launch_split(const void* q, int qdt, const KV& kv, const int* lengths, int max_len,
                   float* ml, float* acc, int B, int nq, int nkv, int nsplit,
                   int split_len, float scale, cudaStream_t st) {
   const dim3 grid(nsplit, nkv, B);
   flash_decode_split_kernel<HPW, KV><<<grid, 128, 0, st>>>(
-      q, kv, lengths, max_len, ml, acc, nq, nkv, split_len, scale);
+      q, qdt, kv, lengths, max_len, ml, acc, nq, nkv, split_len, scale);
 }
 
-// The split kernel at the group's warp width, then the combine kernel.
+// The split kernel at the group's warp width, then the combine kernel. An
+// f32 tile has room for 16 query heads per kv head (the 48 KB of static
+// shared memory), the others for 32.
 template <typename KV>
-int run_decode(const void* q, const void* k_new, const void* v_new, const KV& kv,
-               const void* lengths, int max_len, void* part_ml, void* part_acc,
-               void* out, int B, int nq, int nkv, int nsplit, int split_len,
-               float scale, void* stream) {
+int run_decode(const void* q, const void* k_new, const void* v_new, int qdt, int kdt,
+               const KV& kv, const void* lengths, int max_len, void* part_ml,
+               void* part_acc, void* out, int B, int nq, int nkv, int nsplit,
+               int split_len, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* qb = static_cast<const bf16*>(q);
   const int* lb = static_cast<const int*>(lengths);
   float* ml = static_cast<float*>(part_ml);
   float* acc = static_cast<float*>(part_acc);
   const int g = nq / nkv;
-  if (g <= 4) launch_split<1>(qb, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
-  else if (g <= 8) launch_split<2>(qb, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
-  else if (g <= 16) launch_split<4>(qb, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
-  else if (g <= 32) launch_split<8>(qb, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
-  else return static_cast<int>(cudaErrorInvalidValue);
+  if (g <= 4) launch_split<1>(q, qdt, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
+  else if (g <= 8) launch_split<2>(q, qdt, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
+  else if (g <= 16) launch_split<4>(q, qdt, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
+  else if constexpr (sizeof(typename KV::Elem) != 4) {
+    if (g <= 32) launch_split<8>(q, qdt, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
+    else return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   flash_decode_combine_kernel<<<dim3(nq, B), HD, 0, st>>>(
-      qb, static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new), ml, acc,
-      static_cast<bf16*>(out), nq, nkv, nsplit, scale);
+      q, k_new, v_new, ml, acc, out, qdt, kdt, nq, nkv, nsplit, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// run_decode over the address functor F<E> of the cache dtype code cdt.
+template <template <typename> class F, typename Make>
+int run_typed(int cdt, Make make, const void* q, const void* k_new, const void* v_new,
+              int qdt, int kdt, const void* lengths, int max_len, void* part_ml,
+              void* part_acc, void* out, int B, int nq, int nkv, int nsplit,
+              int split_len, float scale, void* stream) {
+  switch (cdt) {
+    case 0: return run_decode(q, k_new, v_new, qdt, kdt, make(F<float>{}), lengths, max_len,
+                              part_ml, part_acc, out, B, nq, nkv, nsplit, split_len, scale,
+                              stream);
+    case 1: return run_decode(q, k_new, v_new, qdt, kdt, make(F<bf16>{}), lengths, max_len,
+                              part_ml, part_acc, out, B, nq, nkv, nsplit, split_len, scale,
+                              stream);
+    case 2: return run_decode(q, k_new, v_new, qdt, kdt, make(F<__half>{}), lengths, max_len,
+                              part_ml, part_acc, out, B, nq, nkv, nsplit, split_len, scale,
+                              stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// q bf16 [B, nq, 128]; k_new, v_new bf16 [B, nkv, 128]; cache bf16
-// [2, B, nkv, T, 128] contiguous; lengths int32 [B] (each <= T); part_ml f32
-// [B, nkv, nsplit, g, 2]; part_acc f32 [B, nkv, nsplit, g, 128]; out bf16
-// [B, nq, 128]; nsplit * split_len >= max(lengths), split_len % 32 == 0;
-// g = nq / nkv <= 32.
+// Dtype codes: 0 f32, 1 bf16, 2 f16. q [B, nq, 128] and out of qdt;
+// k_new, v_new [B, nkv, 128] of kdt; cache [2, B, nkv, T, 128] contiguous
+// of cdt; lengths int32 [B] (each <= T); part_ml f32 [B, nkv, nsplit, g, 2];
+// part_acc f32 [B, nkv, nsplit, g, 128]; nsplit * split_len >=
+// max(lengths), split_len % 32 == 0; g = nq / nkv <= 32 (16 for an f32
+// cache).
 extern "C" int awq_flash_decode(const void* q, const void* k_new, const void* v_new,
                                 const void* cache, const void* lengths,
                                 void* part_ml, void* part_acc, void* out, int B,
                                 int nq, int nkv, int T, int nsplit, int split_len,
-                                float scale, void* stream) {
-  const ContigKV kv{static_cast<const bf16*>(cache), B, nkv, T};
-  return run_decode(q, k_new, v_new, kv, lengths, T, part_ml, part_acc, out, B, nq,
-                    nkv, nsplit, split_len, scale, stream);
+                                float scale, int qdt, int kdt, int cdt, void* stream) {
+  auto make = [&](auto tag) {
+    using E = typename decltype(tag)::Elem;
+    return ContigKV<E>{static_cast<const E*>(cache), B, nkv, T};
+  };
+  return run_typed<ContigKV>(cdt, make, q, k_new, v_new, qdt, kdt, lengths, T, part_ml,
+                             part_acc, out, B, nq, nkv, nsplit, split_len, scale, stream);
 }
 
-// K8: as awq_flash_decode, over one layer of the page pool, pool bf16
-// [2, NP, nkv, page, 128] contiguous, with tables int32 [B, MP] of page ids
-// in [0, NP); lengths are clamped to [0, MP * page];
+// K8: as awq_flash_decode, over one layer of the page pool, pool
+// [2, NP, nkv, page, 128] contiguous of cdt, with tables int32 [B, MP] of
+// page ids in [0, NP); lengths are clamped to [0, MP * page];
 // nsplit * split_len >= max(lengths).
 extern "C" int awq_flash_decode_paged(const void* q, const void* k_new,
                                       const void* v_new, const void* pool,
                                       const void* tables, const void* lengths,
                                       void* part_ml, void* part_acc, void* out, int B,
                                       int nq, int nkv, int np, int page, int mp,
-                                      int nsplit, int split_len, float scale,
-                                      void* stream) {
-  const PagedKV kv{static_cast<const bf16*>(pool), static_cast<const int*>(tables), np,
-                   nkv, page, mp};
-  return run_decode(q, k_new, v_new, kv, lengths, mp * page, part_ml, part_acc, out, B,
-                    nq, nkv, nsplit, split_len, scale, stream);
+                                      int nsplit, int split_len, float scale, int qdt,
+                                      int kdt, int cdt, void* stream) {
+  auto make = [&](auto tag) {
+    using E = typename decltype(tag)::Elem;
+    return PagedKV<E>{static_cast<const E*>(pool), static_cast<const int*>(tables), np,
+                      nkv, page, mp};
+  };
+  return run_typed<PagedKV>(cdt, make, q, k_new, v_new, qdt, kdt, lengths, mp * page,
+                            part_ml, part_acc, out, B, nq, nkv, nsplit, split_len, scale,
+                            stream);
 }
 
 // K9: as awq_flash_decode, over one layer of an int8 cache: codes int8
-// [2, B, nkv, T, 128] and scales f32 [2, B, nkv, T], both contiguous.
+// [2, B, nkv, T, 128] and scales f32 [2, B, nkv, T], both contiguous; q,
+// out, k_new and v_new of qdt.
 extern "C" int awq_flash_decode_int8(const void* q, const void* k_new, const void* v_new,
                                      const void* codes, const void* scales,
                                      const void* lengths, void* part_ml, void* part_acc,
                                      void* out, int B, int nq, int nkv, int T, int nsplit,
-                                     int split_len, float scale, void* stream) {
+                                     int split_len, float scale, int qdt, void* stream) {
   const Int8KV kv{static_cast<const int8_t*>(codes), static_cast<const float*>(scales), B,
                   nkv, T};
-  return run_decode(q, k_new, v_new, kv, lengths, T, part_ml, part_acc, out, B, nq, nkv,
-                    nsplit, split_len, scale, stream);
+  return run_decode(q, k_new, v_new, qdt, qdt, kv, lengths, T, part_ml, part_acc, out, B,
+                    nq, nkv, nsplit, split_len, scale, stream);
 }
 
-// q bf16 [B, S, nq, 128] contiguous; cache bf16 [2, B, nkv, T, 128]
-// contiguous with the chunk already written at [start_pos, start_pos + S);
-// out bf16 [B, S, nq * 128]; scale_log2 = log2(e) / sqrt(128).
+// q [B, S, nq, 128] contiguous of qdt; cache [2, B, nkv, T, 128] contiguous
+// of cdt with the chunk already written at [start_pos, start_pos + S); out
+// [B, S, nq * 128] of qdt; scale_log2 = log2(e) / sqrt(128).
 extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, int B,
                                  int S, int nq, int nkv, int T, int start_pos,
-                                 float scale_log2, void* stream) {
+                                 float scale_log2, int qdt, int cdt, void* stream) {
   const dim3 grid(cdiv(S, PF_BQ), nq, B);
-  flash_prefill_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(cache),
-      static_cast<bf16*>(out), B, S, nq, nkv, T, start_pos, scale_log2);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (cdt) {
+    case 0: flash_prefill_kernel<float><<<grid, 128, 0, st>>>(
+                q, static_cast<const float*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
+                scale_log2); break;
+    case 1: flash_prefill_kernel<bf16><<<grid, 128, 0, st>>>(
+                q, static_cast<const bf16*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
+                scale_log2); break;
+    case 2: flash_prefill_kernel<__half><<<grid, 128, 0, st>>>(
+                q, static_cast<const __half*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
+                scale_log2); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,13 @@
 // Helpers shared by the megakernels K4 (megakernel.cu), K5
-// (megakernel_chunk.cu) and K6 (megakernel_batched.cu): typed loads and
-// stores of activations and cache rows, bf16 rounding, the block-wide sum,
-// and the launch plan of a cooperative persistent grid.
+// (megakernel_chunk.cu) and K6 (megakernel_batched.cu): the unit's weight
+// format, the code pairs of both formats, typed loads of cache rows, the
+// block-wide sum, and the launch plan of a cooperative persistent grid.
 #pragma once
 
 #include <cooperative_groups.h>
-#include <cuda_fp16.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -18,6 +19,16 @@ constexpr int MK_HD = 128;        // head_dim
 constexpr int MK_G = 128;         // quantization group
 constexpr int MK_MAXG = 8;        // most q heads per kv head
 
+// The weight format of the unit: each megakernel source is built once per
+// format (_build.UNITS passes -DAWQ_MEGA_W3=0 for pack_int4, 1 for
+// pack_int3), so the matmul tiles pick their loads and code pairs at
+// compile time. A grid-uniform runtime flag in one build cost K4's W4 token
+// step 4% on the H100 80GB HBM3 at 700 W (210 registers against 192).
+#ifndef AWQ_MEGA_W3
+#error "build with -DAWQ_MEGA_W3=0 (pack_int4) or 1 (pack_int3): see _build.UNITS"
+#endif
+constexpr bool UNIT_W3 = AWQ_MEGA_W3;
+
 // bf16 pair (lo = nibble t, hi = nibble t+4 of the pack_int4 word w)
 // holding the exact codes: (w >> 4t) & 0x000F000F | 0x43004300 is 128 + q
 // in bf16, and one bf16 subtract takes the 128 off.
@@ -26,6 +37,93 @@ __device__ __forceinline__ uint32_t codes_bf16x2(uint32_t w, int t) {
   __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
                              __float2bfloat162_rn(128.f));
   return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// The W3 (pack_int3) mode of the same pairs. A lane of the matmul tiles
+// holds, for its word row r (a 128-group g = 2c' + h of 256-chunk c'), the
+// lo word 24c' + 8h + r (fields f = 0..15: channel 128g + 8f + r) and the
+// hi word 24c' + 16 + r (bit 16h + f). The W4 pair (t, t+4) of k16 half
+// cc is channels 128g + 64cc + 8t + r and + 32: lo fields 8cc + t and
+// 8cc + t + 4, 8 bits apart. w3_spread moves them 16 bits apart, so that
+// one shift and mask per t yields the pair as codes_bf16x2 does: the lo
+// word's bytes 2cc and 2cc+1 go to bytes 0 and 2 (one PRMT), and the hi
+// word's byte 2h + cc goes to both, its nibbles then shifted to bits 2..5
+// and 18..21, the value 4 of the code.
+__device__ __forceinline__ void w3_spread(uint32_t lo, uint32_t hi, int h, int cc,
+                                          uint32_t& ls, uint32_t& hs) {
+  ls = __byte_perm(lo, 0u, cc ? 0x4342u : 0x4140u);
+  const uint32_t k = 2 * h + cc;
+  const uint32_t b = __byte_perm(hi, 0u, 0x4040u | k | (k << 8));
+  hs = ((b << 2) & 0x3Cu) | ((b >> 2) & 0x3C0000u);
+}
+
+__device__ __forceinline__ uint32_t codes3_bf16x2(uint32_t ls, uint32_t hs, int t) {
+  uint32_t v = ((ls >> (2 * t)) & 0x00030003u) | ((hs >> t) & 0x00040004u) | 0x43004300u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
+                             __float2bfloat162_rn(128.f));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// The wrappers' code of a cache element type: 0 f32, 1 bf16, 2 f16, 3 int8.
+template <typename CT> constexpr int cache_code() {
+  return sizeof(CT) == 1 ? 3 : sizeof(CT) == 4 ? 0 : std::is_same<CT, bf16>::value ? 1 : 2;
+}
+
+// Code-word rows of a [IC, OC] weight in either format: pack_int4's IC/8
+// or pack_int3's IC·3/32.
+__device__ __forceinline__ size_t qrows(int ic, int w3) {
+  return w3 ? (size_t)ic * 3 / 32 : (size_t)ic / 8;
+}
+
+// One lane's code words of 128-group g for a 32-column matmul tile: four
+// 16-byte loads, columns 4gq .. 4gq+3 of the tile; base = qw + 2tq·OC +
+// n0 + 4gq. W4 (pack_int4): word rows 8c + 2tq and 8c + 2tq + 1 of chunks
+// c = 2g, 2g + 1, in that order. W3 (pack_int3, 256-chunk c' = g / 2,
+// h = g % 2): lo rows 24c' + 8h + 2tq, + 1, then hi rows 24c' + 16 + 2tq,
+// + 1. A hi word holds both groups of its chunk; the two warps that take
+// groups 2c' and 2c' + 1 of one block read it at about the same time, so
+// the second read is served on chip and the device memory sees each code
+// byte once (0.375 B per weight against W4's 0.5).
+template <bool W3>
+__device__ __forceinline__ void load_group(uint4* w, const int32_t* base, int g, int OC) {
+  if constexpr (W3) {
+    const size_t lo = (size_t)(24 * (g >> 1) + 8 * (g & 1)), hi = (size_t)(24 * (g >> 1) + 16);
+    w[0] = __ldg(reinterpret_cast<const uint4*>(base + lo * OC));
+    w[1] = __ldg(reinterpret_cast<const uint4*>(base + (lo + 1) * OC));
+    w[2] = __ldg(reinterpret_cast<const uint4*>(base + hi * OC));
+    w[3] = __ldg(reinterpret_cast<const uint4*>(base + (hi + 1) * OC));
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      w[r] = __ldg(reinterpret_cast<const uint4*>(base + (size_t)(16 * g + 8 * (r >> 1) + (r & 1)) * OC));
+  }
+}
+
+// The words that k16 half cc of group g's B fragments come from, column
+// j = 0..3: p0/q0 for word row 2tq, p1/q1 for 2tq + 1. W4: the chunk's
+// words as loaded (q unused); W3: w3_spread of the lo and hi words.
+template <bool W3>
+__device__ __forceinline__ void group_words(const uint4* w, int g, int cc, uint32_t* p0,
+                                            uint32_t* p1, uint32_t* q0, uint32_t* q1) {
+  const uint32_t* a = reinterpret_cast<const uint32_t*>(&w[W3 ? 0 : 2 * cc]);
+  const uint32_t* b = reinterpret_cast<const uint32_t*>(&w[W3 ? 1 : 2 * cc + 1]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (W3) {
+      w3_spread(a[j], reinterpret_cast<const uint32_t*>(&w[2])[j], g & 1, cc, p0[j], q0[j]);
+      w3_spread(b[j], reinterpret_cast<const uint32_t*>(&w[3])[j], g & 1, cc, p1[j], q1[j]);
+    } else {
+      p0[j] = a[j];
+      p1[j] = b[j];
+    }
+  }
+}
+
+// The bf16 code pair of k16 step t from group_words' p and q.
+template <bool W3>
+__device__ __forceinline__ uint32_t code_pair(uint32_t p, uint32_t q, int t) {
+  if constexpr (W3) return codes3_bf16x2(p, q, t);
+  else return codes_bf16x2(p, t);
 }
 
 // 16-byte global -> shared copy that does not pass through registers;
@@ -39,58 +137,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Model-dtype code of activations and norm weights: 0 f32, 1 bf16, 2 f16.
-__device__ __forceinline__ float load_act(const void* p, int md, size_t i) {
-  if (md == 1) return __bfloat162float(static_cast<const bf16*>(p)[i]);
-  if (md == 2) return __half2float(static_cast<const __half*>(p)[i]);
-  return static_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void store_act(void* p, int md, size_t i, float v) {
-  if (md == 1) static_cast<bf16*>(p)[i] = __float2bfloat16_rn(v);
-  else if (md == 2) static_cast<__half*>(p)[i] = __float2half_rn(v);
-  else static_cast<float*>(p)[i] = v;
-}
-
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Cache element conversions (the cache is f32, bf16 or f16).
-template <typename CT> __device__ __forceinline__ float to_f32(CT v);
-template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f32<bf16>(bf16 v) { return __bfloat162float(v); }
-template <> __device__ __forceinline__ float to_f32<__half>(__half v) { return __half2float(v); }
-
-template <typename CT> __device__ __forceinline__ CT from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
-template <> __device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half_rn(v); }
-
-// Four consecutive cache elements as f32 (p 4-element aligned).
-template <typename CT> __device__ __forceinline__ void load4(const CT* p, float* o);
-template <> __device__ __forceinline__ void load4<float>(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-template <> __device__ __forceinline__ void load4<bf16>(const bf16* p, float* o) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-  o[0] = __low2float(a); o[1] = __high2float(a); o[2] = __low2float(b); o[3] = __high2float(b);
-}
-template <> __device__ __forceinline__ void load4<__half>(const __half* p, float* o) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const __half2 a = *reinterpret_cast<const __half2*>(&v.x);
-  const __half2 b = *reinterpret_cast<const __half2*>(&v.y);
-  o[0] = __low2float(a); o[1] = __high2float(a); o[2] = __low2float(b); o[3] = __high2float(b);
-}
-
-template <> __device__ __forceinline__ void load4<int8_t>(const int8_t* p, float* o) {
-  const char4 v = *reinterpret_cast<const char4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
 
 // JAX's quantize_kv (models/llama.py:391) of the current token's k and v
 // rows, 128 f32 values each in shared memory, after rounding them to bf16,

@@ -1,9 +1,9 @@
-// The many-row W4 matmul tile shared by the chunk megakernel K5
+// The many-row W4/W3 matmul tile shared by the chunk megakernel K5
 // (megakernel_chunk.cu) and the batched whole-token megakernel K6
 // (megakernel_batched.cu): up to 32 bf16 activation rows, kept in device
 // memory in a fragment-permuted layout, against one 32-column tile of a
-// pack_int4 weight over the full IC, and the row-wise RMSNorm that writes
-// such rows.
+// pack_int4 or (in a W3 unit, UNIT_W3) pack_int3 weight over the full IC,
+// and the row-wise RMSNorm that writes such rows.
 #pragma once
 
 #include "mega_common.cuh"
@@ -39,18 +39,12 @@ __device__ __forceinline__ void stage_group(uint32_t* dst, const bf16* x, int ld
   cp_async_commit();
 }
 
-__device__ __forceinline__ void load_w(uint4* w, const int32_t* base, int g, int OC) {
-#pragma unroll
-  for (int r = 0; r < 4; ++r)      // chunks 2g, 2g+1; word rows 2tq, 2tq+1
-    w[r] = __ldg(reinterpret_cast<const uint4*>(base + (size_t)(16 * g + 8 * (r >> 1) + (r & 1)) * OC));
-}
-
 // out[r][c] (r < S, c < 32) = row r of x (bf16 rows in the permuted layout,
-// stride ldx) @ W4 for columns n0..n0+31, over the full IC. Warp w takes
+// stride ldx) @ W for columns n0..n0+31, over the full IC. Warp w takes
 // groups w, w+8, ...; the group's rows are staged in shared memory by
 // cp.async one group ahead, and its code words loaded one group ahead, so
 // neither the L2 nor the HBM latency is paid once per group. Lane (gq, tq)
-// loads columns n0 + 4gq .. 4gq+3 of word rows 8c + 2tq, 8c + 2tq + 1 (as
+// loads columns n0 + 4gq .. 4gq+3 of its group's word rows (load_group, as
 // K4): n8 tile j's column gq is column 4gq + j, and its accumulator (row,
 // 2tq + e) is column n0 + 8tq + 4e + j.
 __device__ void mma_tile(const bf16* __restrict__ x, int ldx, int S,
@@ -74,14 +68,14 @@ __device__ void mma_tile(const bf16* __restrict__ x, int ldx, int S,
   uint4 wc[4];
   if (warp < ng) {
     stage_group(abuf, x, ldx, S, mtn * 16, warp);
-    load_w(wc, base, warp, OC);
+    load_group<UNIT_W3>(wc, base, warp, OC);
   }
   for (int g = warp, it = 0; g < ng; g += MK_WARPS, ++it) {
     const int gn = g + MK_WARPS;
     uint4 wn[4];
     if (gn < ng) {
       stage_group(abuf + ((it + 1) & 1) * ABUF, x, ldx, S, mtn * 16, gn);
-      load_w(wn, base, gn, OC);
+      load_group<UNIT_W3>(wn, base, gn, OC);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -100,8 +94,8 @@ __device__ void mma_tile(const bf16* __restrict__ x, int ldx, int S,
     }
 #pragma unroll
     for (int cc = 0; cc < 2; ++cc) {
-      const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&wc[2 * cc]);
-      const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&wc[2 * cc + 1]);
+      uint32_t p0[4], p1[4], q0[4], q1[4];
+      group_words<UNIT_W3>(wc, g, cc, p0, p1, q0, q1);
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         uint32_t a[2][4];
@@ -119,7 +113,8 @@ __device__ void mma_tile(const bf16* __restrict__ x, int ldx, int S,
         }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const uint32_t b0 = codes_bf16x2(w0[j], t), b1 = codes_bf16x2(w1[j], t);
+          const uint32_t b0 = code_pair<UNIT_W3>(p0[j], q0[j], t);
+          const uint32_t b1 = code_pair<UNIT_W3>(p1[j], q1[j], t);
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt)
             if (mt < mtn) mma_bf16_16816(part[mt][j], a[mt], b0, b1);

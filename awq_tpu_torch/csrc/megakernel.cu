@@ -58,6 +58,14 @@
 // k_new/v_new it returns, JAX's kv_dt), reduces the 128-wide absmax over
 // the block and writes 128 codes and one scale each (quantize_kv_rows):
 // what JAX's caller appends after the kernel (models/llama.py:765-774).
+// W3 mode (the JAX kernel's unpack="dense3", Pallas rows 15-16): every
+// linear and the head hold pack_int3 codes. This source is built twice
+// (_build.UNITS: megakernel, megakernel_w3), four cache instances each:
+// the unit's format (UNIT_W3) picks the tile's loads and code pairs at
+// compile time (load_group, group_words and code_pair in mega_common.cuh).
+// The staged activations are the same in both modes: w3_spread moves the
+// 3-bit codes into the pairs that the W4 permutation expects. A token then
+// streams 0.375 B per weight (3.28 GB at Llama-3-8B width with the head).
 // Activations live in a device workspace that the wrapper allocates; the
 // kernel allocates nothing. A simple first version: no TMA, no cp.async
 // pipeline and no overlap of a phase's tail with the next one's loads.
@@ -144,11 +152,11 @@ __device__ void stage_copy(uint32_t* xa, float* xsum, const float* src, int n) {
   stage_x(xa, xsum, n, [&](int i) { return src[i]; });
 }
 
-// One 32-column tile of y = x @ W4 over the full IC. Warp w takes groups
+// One 32-column tile of y = x @ W over the full IC. Warp w takes groups
 // w, w+8, ...; lane (gq, tq) loads 16 bytes, columns n0 + 4gq .. 4gq+3, of
-// word rows 8c + 2tq and 8c + 2tq + 1. Column 4gq + j is column gq of n8
-// tile j, so the mma of tile j leaves columns n0 + 8tq + j and
-// n0 + 8tq + 4 + j in every row (A's rows are all x). Returns column
+// each of its group's four word rows (load_group). Column 4gq + j is
+// column gq of n8 tile j, so the mma of tile j leaves columns n0 + 8tq + j
+// and n0 + 8tq + 4 + j in every row (A's rows are all x). Returns column
 // n0 + threadIdx.x on threads 0..31.
 __device__ float gemv_tile(const uint32_t* __restrict__ xa, const float* __restrict__ xsum,
                            const int32_t* __restrict__ qw, const float* __restrict__ sc,
@@ -162,29 +170,24 @@ __device__ float gemv_tile(const uint32_t* __restrict__ xa, const float* __restr
   // the code words of a warp's next group are loaded while it computes on
   // the current one, so the HBM latency is paid once per tile
   uint4 wc[4];
-  auto load = [&](uint4* w, int g) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)   // chunks 2g, 2g+1; rows 2tq, 2tq+1
-      w[r] = __ldg(reinterpret_cast<const uint4*>(
-          base + (size_t)(16 * g + 8 * (r >> 1) + (r & 1)) * OC));
-  };
-  if (warp < ng) load(wc, warp);
+  if (warp < ng) load_group<UNIT_W3>(wc, base, warp, OC);
   for (int g = warp; g < ng; g += MK_WARPS) {
     uint4 wn[4];
-    if (g + MK_WARPS < ng) load(wn, g + MK_WARPS);
+    if (g + MK_WARPS < ng) load_group<UNIT_W3>(wn, base, g + MK_WARPS, OC);
     float part[4][4] = {};
 #pragma unroll
     for (int cc = 0; cc < 2; ++cc) {
       const int c = 2 * g + cc;
-      const uint32_t* w0 = reinterpret_cast<const uint32_t*>(&wc[2 * cc]);
-      const uint32_t* w1 = reinterpret_cast<const uint32_t*>(&wc[2 * cc + 1]);
+      uint32_t p0[4], p1[4], q0[4], q1[4];
+      group_words<UNIT_W3>(wc, g, cc, p0, p1, q0, q1);
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         const uint2 av = *reinterpret_cast<const uint2*>(xa + ((c * 4 + t) * 4 + tq) * 2);
         const uint32_t a[4] = {av.x, av.x, av.y, av.y};
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          mma_bf16_16816(part[j], a, codes_bf16x2(w0[j], t), codes_bf16x2(w1[j], t));
+          mma_bf16_16816(part[j], a, code_pair<UNIT_W3>(p0[j], q0[j], t),
+                         code_pair<UNIT_W3>(p1[j], q1[j], t));
       }
     }
     // this lane's columns: n0 + 8tq + 4e + j (e = 0, 1; j = 0..3)
@@ -249,7 +252,7 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
     // ---- phase 1: rmsnorm + fused QKV (+ bias) ---------------------------
     {
       const int nt = oq / TILE;
-      const int32_t* w = a.qkv_w + (size_t)l * (H / 8) * oq;
+      const int32_t* w = a.qkv_w + (size_t)l * qrows(H, UNIT_W3) * oq;
       const float* s = a.qkv_s + (size_t)l * (H / MK_G) * oq;
       const float* z = a.qkv_z + (size_t)l * (H / MK_G) * oq;
       if (vb < nt) stage_rms(xa, xsum, hres, static_cast<const char*>(a.ln1) +
@@ -391,7 +394,7 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
     // ---- phase 4: o-proj + residual -----------------------------------------
     {
       const int nt = H / TILE;
-      const int32_t* w = a.o_w + (size_t)l * (H / 8) * H;
+      const int32_t* w = a.o_w + (size_t)l * qrows(H, UNIT_W3) * H;
       const float* s = a.o_s + (size_t)l * (H / MK_G) * H;
       const float* z = a.o_z + (size_t)l * (H / MK_G) * H;
       if (vb < nt) stage_copy(xa, xsum, xo, nq * MK_HD);
@@ -404,7 +407,7 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
     // ---- phase 5: rmsnorm + gate/up, SiLU·mul fused ---------------------------
     {
       const int nt = I / TILE, oc = 2 * I;
-      const int32_t* w = a.gu_w + (size_t)l * (H / 8) * oc;
+      const int32_t* w = a.gu_w + (size_t)l * qrows(H, UNIT_W3) * oc;
       const float* s = a.gu_s + (size_t)l * (H / MK_G) * oc;
       const float* z = a.gu_z + (size_t)l * (H / MK_G) * oc;
       if (vb < nt) stage_rms(xa, xsum, h1, static_cast<const char*>(a.ln2) +
@@ -419,7 +422,7 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
     // ---- phase 6: down + residual -----------------------------------------------
     {
       const int nt = H / TILE;
-      const int32_t* w = a.dn_w + (size_t)l * (I / 8) * H;
+      const int32_t* w = a.dn_w + (size_t)l * qrows(I, UNIT_W3) * H;
       const float* s = a.dn_s + (size_t)l * (I / MK_G) * H;
       const float* z = a.dn_z + (size_t)l * (I / MK_G) * H;
       if (vb < nt) stage_copy(xa, xsum, hm, I);
@@ -451,7 +454,7 @@ enum { P_H, P_OUT, P_QW, P_QS, P_QZ, P_QB, P_OW, P_OS, P_OZ, P_GW, P_GS, P_GZ,
        P_DW, P_DS, P_DZ, P_LN1, P_LN2, P_COS, P_SIN, P_CACHE, P_KN, P_VN,
        P_HW, P_HS, P_HZ, P_NW, P_LOGITS, P_SCALES };
 enum { N_L0, N_NL, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_LEN, N_VOCAB, N_ROUND,
-       N_MD, N_CD, N_BIAS };
+       N_MD, N_CD, N_BIAS, N_W3 };
 
 struct Plan { int grid, nsplit, split_len; size_t smem; long long ws; };
 
@@ -498,8 +501,9 @@ extern "C" long long awq_mega_token_ws(const void* const* ptrs, const int* n) {
 }
 
 // Caller guarantees (ops/megakernel.py checks them): contiguous operands on
-// one device; W4 g128 stacked weights [L, IC/8, OC] with f32 scales and
-// szeros [L, IC/128, OC]; head_dim 128; nq/nkv <= 8; every OC a multiple of
+// one device; g128 stacked weights, W4 [L, IC/8, OC] or with N_W3 W3
+// [L, IC*3/32, OC] (every linear and the head), with f32 scales and szeros
+// [L, IC/128, OC]; head_dim 128; nq/nkv <= 8; every OC a multiple of
 // 32; H and I multiples of 128; 0 <= length < T; batch 1. Cache dtype code
 // 3 is int8 codes with f32 scales [L, 2, 1, nkv, T] at P_SCALES, and bf16
 // k_new/v_new.
@@ -508,7 +512,7 @@ extern "C" int awq_mega_token(const void* const* ptrs, const int* n, float eps,
   Plan p;
   int err = plan(n, &p);
   if (err) return err;
-  if (n[N_NQ] % n[N_NKV] || n[N_NQ] / n[N_NKV] > MK_MAXG)
+  if (n[N_NQ] % n[N_NKV] || n[N_NQ] / n[N_NKV] > MK_MAXG || n[N_W3] != UNIT_W3)
     return static_cast<int>(cudaErrorInvalidValue);
   TokenArgs a;
   a.h_in = ptrs[P_H]; a.h_out = const_cast<void*>(ptrs[P_OUT]);

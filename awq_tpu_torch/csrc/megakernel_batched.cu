@@ -1,4 +1,8 @@
 // K6: the batched whole-token W4A16 decode megakernel for Hopper (sm_90a).
+// This source is built once per instance and weight format (_build.UNITS:
+// the cache element type AWQ_MEGA_CT, AWQ_MEGA_PAGED and AWQ_MEGA_W3; the
+// f32, bf16, f16 and int8 slot caches and the bf16 page pool, each W4 and
+// W3), ten units that the build compiles in parallel.
 //
 // Replaces the Pallas kernel of awq_tpu/ops/megakernel_batched.py:
 // w4a16_llama_token_step_batched (_btoken_kernel). One launch runs ALL
@@ -69,6 +73,9 @@
 // writes 128 codes and one scale each at the row's position
 // (quantize_kv_rows). Nothing reads that position from the cache in this
 // step. The paged mode stays bf16: the JAX package has no paged int8 pool.
+// W3 mode (the JAX kernel's dense3, Pallas row 18, in every instance):
+// the linears and the head hold pack_int3 codes, read by the tile of a W3
+// unit (mega_rows.cuh).
 // A simple first version, like K5: activation rows are read through L2 by
 // every tile, there is no TMA and no overlap of a phase's tail with the next
 // one's loads.
@@ -156,7 +163,7 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
     // again, ropes q and k in f32 with the row's cos/sin and appends the
     // row's k/v to the cache at the row's own position ---------------------------
     {
-      const int32_t* w = a.qkv_w + (size_t)l * (H / 8) * oq;
+      const int32_t* w = a.qkv_w + (size_t)l * qrows(H, UNIT_W3) * oq;
       const float* s = a.qkv_s + (size_t)l * (H / MK_G) * oq;
       const float* z = a.qkv_z + (size_t)l * (H / MK_G) * oq;
       for (int pt = blockIdx.x; pt < oq / (2 * TILE); pt += gridDim.x) {
@@ -326,7 +333,7 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
     grid.sync();
     // ---- o-proj + residual --------------------------------------------------------
     {
-      const int32_t* w = a.o_w + (size_t)l * (H / 8) * H;
+      const int32_t* w = a.o_w + (size_t)l * qrows(H, UNIT_W3) * H;
       const float* s = a.o_s + (size_t)l * (H / MK_G) * H;
       const float* z = a.o_z + (size_t)l * (H / MK_G) * H;
       for (int t = blockIdx.x; t < H / TILE; t += gridDim.x)
@@ -347,7 +354,7 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
     // ---- gate/up (each rounded to bf16), hm = bf16(silu(gate)·up) ----------------
     {
       const int oc = 2 * I;
-      const int32_t* w = a.gu_w + (size_t)l * (H / 8) * oc;
+      const int32_t* w = a.gu_w + (size_t)l * qrows(H, UNIT_W3) * oc;
       const float* s = a.gu_s + (size_t)l * (H / MK_G) * oc;
       const float* z = a.gu_z + (size_t)l * (H / MK_G) * oc;
       for (int t = blockIdx.x; t < I / TILE; t += gridDim.x)
@@ -367,7 +374,7 @@ __global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
     grid.sync();
     // ---- down + residual, rounded to bf16 between layers ----------------------------
     {
-      const int32_t* w = a.dn_w + (size_t)l * (I / 8) * H;
+      const int32_t* w = a.dn_w + (size_t)l * qrows(I, UNIT_W3) * H;
       const float* s = a.dn_s + (size_t)l * (I / MK_G) * H;
       const float* z = a.dn_z + (size_t)l * (I / MK_G) * H;
       for (int t = blockIdx.x; t < H / TILE; t += gridDim.x)
@@ -405,7 +412,7 @@ enum { P_H, P_OUT, P_QW, P_QS, P_QZ, P_QB, P_OW, P_OS, P_OZ, P_GW, P_GS, P_GZ,
        P_HW, P_HS, P_HZ, P_NW, P_LOGITS, P_TABLES, P_SCALES };
 // paged mode: N_T is MP·page, N_NP the pool's pages (0: the slot cache)
 enum { N_B, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_MAXLEN, N_VOCAB, N_MD, N_CD, N_BIAS,
-       N_NP, N_PAGE, N_MP };
+       N_NP, N_PAGE, N_MP, N_W3 };
 
 struct Plan { int grid, nsplit, split_len; size_t smem; long long ws; };
 
@@ -431,25 +438,13 @@ int plan_for(const int* n, Plan* p) {
   return 0;
 }
 
-int plan(const int* n, Plan* p) {
-  if (n[N_NP]) return n[N_CD] == 1 ? plan_for<bf16, true>(n, p)
-                                   : static_cast<int>(cudaErrorInvalidValue);
-  switch (n[N_CD]) {
-    case 0: return plan_for<float, false>(n, p);
-    case 1: return plan_for<bf16, false>(n, p);
-    case 2: return plan_for<__half, false>(n, p);
-    case 3: return plan_for<int8_t, false>(n, p);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-}  // namespace
-
 // Workspace floats the launch with these arguments needs, or -(CUDA error).
-extern "C" long long awq_mega_batched_ws(const void* const* ptrs, const int* n) {
-  (void)ptrs;
+template <typename CT, bool PAGED>
+long long batched_ws(const int* n) {
+  if (n[N_CD] != cache_code<CT>() || (n[N_NP] != 0) != PAGED)
+    return -static_cast<long long>(cudaErrorInvalidValue);
   Plan p;
-  const int err = plan(n, &p);
+  const int err = plan_for<CT, PAGED>(n, &p);
   return err ? -static_cast<long long>(err) : p.ws;
 }
 
@@ -459,14 +454,17 @@ extern "C" long long awq_mega_batched_ws(const void* const* ptrs, const int* n) 
 // [L, 2, NP, nkv, page, 128] with page a power of two, tables int32
 // [B, MP] of page ids in [0, NP) and T = MP·page. Cache dtype code 3 (slot
 // mode only): int8 codes with f32 scales [L, 2, B, nkv, T] at P_SCALES, and
-// bf16 k_new/v_new.
-extern "C" int awq_mega_batched(const void* const* ptrs, const int* n, float eps,
-                                void* ws, void* stream) {
+// bf16 k_new/v_new. The cache dtype and the mode must be the instance's.
+template <typename CT, bool PAGED>
+int batched_launch(const void* const* ptrs, const int* n, float eps, void* ws,
+                   void* stream) {
+  if (n[N_CD] != cache_code<CT>() || (n[N_NP] != 0) != PAGED)
+    return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
-  int err = plan(n, &p);
+  int err = plan_for<CT, PAGED>(n, &p);
   if (err) return err;
   if (n[N_B] < 1 || n[N_B] > MAXB || n[N_NQ] % n[N_NKV] || n[N_NQ] / n[N_NKV] > MK_MAXG
-      || n[N_MAXLEN] < 0 || n[N_MAXLEN] >= n[N_T])
+      || n[N_MAXLEN] < 0 || n[N_MAXLEN] >= n[N_T] || n[N_W3] != UNIT_W3)
     return static_cast<int>(cudaErrorInvalidValue);
   BatchArgs a;
   a.h_in = ptrs[P_H]; a.h_out = const_cast<void*>(ptrs[P_OUT]);
@@ -501,12 +499,21 @@ extern "C" int awq_mega_batched(const void* const* ptrs, const int* n, float eps
   a.nsplit = p.nsplit; a.split_len = p.split_len; a.eps = eps;
   void* kargs[] = {&a};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const void* fn = a.np ? (const void*)batched_kernel<bf16, true>
-                 : n[N_CD] == 0 ? (const void*)batched_kernel<float, false>
-                 : n[N_CD] == 1 ? (const void*)batched_kernel<bf16, false>
-                 : n[N_CD] == 3 ? (const void*)batched_kernel<int8_t, false>
-                 : (const void*)batched_kernel<__half, false>;
-  const cudaError_t e = cudaLaunchCooperativeKernel(fn, p.grid, MK_THREADS, kargs, p.smem, st);
+  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)batched_kernel<CT, PAGED>,
+                                                    p.grid, MK_THREADS, kargs, p.smem, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Workspace floats the launch with these arguments needs, or -(CUDA error).
+extern "C" long long awq_mega_batched_ws(const void* const* ptrs, const int* n) {
+  (void)ptrs;
+  return batched_ws<AWQ_MEGA_CT, AWQ_MEGA_PAGED != 0>(n);
+}
+
+extern "C" int awq_mega_batched(const void* const* ptrs, const int* n, float eps, void* ws,
+                                void* stream) {
+  return batched_launch<AWQ_MEGA_CT, AWQ_MEGA_PAGED != 0>(ptrs, n, eps, ws, stream);
 }

@@ -1,4 +1,7 @@
-// K5: the chunked-prefill megakernel for Hopper (sm_90a).
+// K5: the chunked-prefill megakernel for Hopper (sm_90a). This source is
+// built once per cache dtype and weight format (_build.UNITS: the cache
+// element type AWQ_MEGA_CT, and AWQ_MEGA_W3), six units that the build
+// compiles in parallel.
 //
 // Replaces the Pallas kernel of awq_tpu/ops/megakernel_chunk.py:
 // w4a16_llama_chunk_step (_cchunk_kernel). One launch runs ALL decoder
@@ -29,6 +32,8 @@
 //   owning 4 query rows with their online softmax; the window's own k/v
 //   stay f32 in shared memory (JAX's in-register causal tail), and a
 //   combine phase merges the slices.
+// W3 mode (the JAX kernel's dense3, Pallas row 17): the tile of a W3 unit
+// reads pack_int3 codes (mega_rows.cuh); everything else is the W4 path.
 #include "mega_rows.cuh"
 
 namespace {
@@ -88,7 +93,7 @@ __global__ void __launch_bounds__(MK_THREADS) chunk_kernel(ChunkArgs a) {
     // 32-column tiles), so its epilogue rounds to bf16, adds the bias, ropes
     // q and k in f32 and appends the window's k/v to the cache ----------------
     {
-      const int32_t* w = a.qkv_w + (size_t)l * (H / 8) * oq;
+      const int32_t* w = a.qkv_w + (size_t)l * qrows(H, UNIT_W3) * oq;
       const float* s = a.qkv_s + (size_t)l * (H / MK_G) * oq;
       const float* z = a.qkv_z + (size_t)l * (H / MK_G) * oq;
       for (int pt = blockIdx.x; pt < oq / (2 * TILE); pt += gridDim.x) {
@@ -252,7 +257,7 @@ __global__ void __launch_bounds__(MK_THREADS) chunk_kernel(ChunkArgs a) {
     grid.sync();
     // ---- o-proj + residual --------------------------------------------------------
     {
-      const int32_t* w = a.o_w + (size_t)l * (H / 8) * H;
+      const int32_t* w = a.o_w + (size_t)l * qrows(H, UNIT_W3) * H;
       const float* s = a.o_s + (size_t)l * (H / MK_G) * H;
       const float* z = a.o_z + (size_t)l * (H / MK_G) * H;
       for (int t = blockIdx.x; t < H / TILE; t += gridDim.x) {
@@ -271,7 +276,7 @@ __global__ void __launch_bounds__(MK_THREADS) chunk_kernel(ChunkArgs a) {
     // ---- gate/up (each rounded to bf16), hm = bf16(silu(gate)·up) ----------------
     {
       const int oc = 2 * I;
-      const int32_t* w = a.gu_w + (size_t)l * (H / 8) * oc;
+      const int32_t* w = a.gu_w + (size_t)l * qrows(H, UNIT_W3) * oc;
       const float* s = a.gu_s + (size_t)l * (H / MK_G) * oc;
       const float* z = a.gu_z + (size_t)l * (H / MK_G) * oc;
       for (int t = blockIdx.x; t < I / TILE; t += gridDim.x) {
@@ -288,7 +293,7 @@ __global__ void __launch_bounds__(MK_THREADS) chunk_kernel(ChunkArgs a) {
     grid.sync();
     // ---- down + residual, rounded to bf16 between layers ----------------------------
     {
-      const int32_t* w = a.dn_w + (size_t)l * (I / 8) * H;
+      const int32_t* w = a.dn_w + (size_t)l * qrows(I, UNIT_W3) * H;
       const float* s = a.dn_s + (size_t)l * (I / MK_G) * H;
       const float* z = a.dn_z + (size_t)l * (I / MK_G) * H;
       for (int t = blockIdx.x; t < H / TILE; t += gridDim.x) {
@@ -307,7 +312,7 @@ __global__ void __launch_bounds__(MK_THREADS) chunk_kernel(ChunkArgs a) {
 
 enum { P_H, P_OUT, P_QW, P_QS, P_QZ, P_QB, P_OW, P_OS, P_OZ, P_GW, P_GS, P_GZ,
        P_DW, P_DS, P_DZ, P_LN1, P_LN2, P_COS, P_SIN, P_CACHE, P_KN, P_VN };
-enum { N_S, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_HIST, N_MD, N_CD, N_BIAS };
+enum { N_S, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_HIST, N_MD, N_CD, N_BIAS, N_W3 };
 
 struct Plan { int grid, nrb, nsplit, split_len; size_t smem; long long ws; };
 
@@ -333,32 +338,25 @@ int plan_for(const int* n, Plan* p) {
   return 0;
 }
 
-int plan(const int* n, Plan* p) {
-  switch (n[N_CD]) {
-    case 0: return plan_for<float>(n, p);
-    case 1: return plan_for<bf16>(n, p);
-    case 2: return plan_for<__half>(n, p);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-}  // namespace
-
-extern "C" long long awq_mega_chunk_ws(const void* const* ptrs, const int* n) {
-  (void)ptrs;
+// Workspace floats the launch with these arguments needs, or -(CUDA error).
+template <typename CT>
+long long chunk_ws(const int* n) {
+  if (n[N_CD] != cache_code<CT>()) return -static_cast<long long>(cudaErrorInvalidValue);
   Plan p;
-  const int err = plan(n, &p);
+  const int err = plan_for<CT>(n, &p);
   return err ? -static_cast<long long>(err) : p.ws;
 }
 
 // Caller guarantees (ops/megakernel_chunk.py checks them): as K4's entry,
-// with 1 <= S <= 32 window rows and hist + S <= T.
-extern "C" int awq_mega_chunk(const void* const* ptrs, const int* n, float eps,
-                              void* ws, void* stream) {
+// with 1 <= S <= 32 window rows and hist + S <= T, and the instance's
+// cache dtype.
+template <typename CT>
+int chunk_launch(const void* const* ptrs, const int* n, float eps, void* ws, void* stream) {
+  if (n[N_CD] != cache_code<CT>()) return static_cast<int>(cudaErrorInvalidValue);
   Plan p;
-  int err = plan(n, &p);
+  int err = plan_for<CT>(n, &p);
   if (err) return err;
-  if (n[N_S] < 1 || n[N_S] > MAXS || n[N_NQ] % n[N_NKV])
+  if (n[N_S] < 1 || n[N_S] > MAXS || n[N_NQ] % n[N_NKV] || n[N_W3] != UNIT_W3)
     return static_cast<int>(cudaErrorInvalidValue);
   ChunkArgs a;
   a.h_in = ptrs[P_H]; a.h_out = const_cast<void*>(ptrs[P_OUT]);
@@ -381,15 +379,21 @@ extern "C" int awq_mega_chunk(const void* const* ptrs, const int* n, float eps,
   a.nrb = p.nrb; a.nsplit = p.nsplit; a.split_len = p.split_len; a.eps = eps;
   void* kargs[] = {&a};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (n[N_CD]) {
-    case 0: e = cudaLaunchCooperativeKernel((const void*)chunk_kernel<float>, p.grid,
-                                            MK_THREADS, kargs, p.smem, st); break;
-    case 1: e = cudaLaunchCooperativeKernel((const void*)chunk_kernel<bf16>, p.grid,
-                                            MK_THREADS, kargs, p.smem, st); break;
-    default: e = cudaLaunchCooperativeKernel((const void*)chunk_kernel<__half>, p.grid,
-                                             MK_THREADS, kargs, p.smem, st); break;
-  }
+  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)chunk_kernel<CT>, p.grid,
+                                                    MK_THREADS, kargs, p.smem, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Workspace floats the launch with these arguments needs, or -(CUDA error).
+extern "C" long long awq_mega_chunk_ws(const void* const* ptrs, const int* n) {
+  (void)ptrs;
+  return chunk_ws<AWQ_MEGA_CT>(n);
+}
+
+extern "C" int awq_mega_chunk(const void* const* ptrs, const int* n, float eps, void* ws,
+                              void* stream) {
+  return chunk_launch<AWQ_MEGA_CT>(ptrs, n, eps, ws, stream);
 }

@@ -10,11 +10,13 @@ cache; this one returns the same tensor it was given).
 :func:`forward` takes, for llama/mistral/qwen2, the JAX package's paths:
 
 - the megakernels, at batch 1 where :func:`~awq_tpu_torch.ops.megakernel.
-  megakernel_supported` holds (fused W4 g128 linears, head_dim 128, a
+  megakernel_supported` holds (fused g128 linears, all W4 or all W3 in
+  ``pack_int3``, head_dim 128, a
   float cache on CUDA; ``AWQ_TPU_FORCE_MEGAKERNEL=1`` runs their plain
   versions on the CPU, ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` turns them off):
   a one-token step is ONE launch of K4 for every layer, plus the final
-  norm and the head when the head is a W4 ``QLinear``; a window of 2..32
+  norm and the head when the head is a ``QLinear`` of the body's format; a
+  window of 2..32
   tokens is one launch of K5. Both write the cache in place.
 - otherwise the stacked per-kernel path: per layer RMSNorm -> fused QKV
   (K1) -> rope -> flash decode (K2, current token's k/v as operands, then
@@ -142,29 +144,41 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 def init_qparams(cfg: ModelConfig, qcfg: QuantConfig,
                  generator: Optional[torch.Generator] = None,
                  scale: float = 0.02, device="cuda") -> Params:
-    """Random packed W4 parameters, built directly in the packed layout on
+    """Random packed parameters, built directly in the packed layout on
     ``device`` (no fp intermediate), as the JAX ``init_qparams`` does for
     its benchmarks: random int32 code words, scales uniform in
-    ``[0.5, 1.5) * scale / 4``, zero points at 8. The head stays fp."""
+    ``[0.5, 1.5) * scale / 4``, zero points at ``2**(w_bit - 1)``. W3 takes
+    the true dense 3-bit layout (``pack_int3``, ``[L, IC*3//32, OC]``)
+    where ``IC % 256 == 0``, so that a W3 model streams real W3 bytes, else
+    3-bit codes in the nibble container. The head stays fp.
+
+    ``group_size == -1`` is one group over each linear's own IC, as
+    ``quantize_linear`` takes it. (The JAX function takes the hidden size
+    for every linear, whose groups then do not cover ``down``'s IC when
+    the intermediate size is not a multiple of it,
+    ``awq_tpu/models/llama.py:157``.)"""
     _check_supported(cfg)
-    if qcfg.w_bit != 4:
-        raise NotImplementedError(
-            "W3 packing is not ported yet (ROADMAP queue A, item 13)")
+    if qcfg.w_bit not in (3, 4):
+        raise ValueError(f"w_bit={qcfg.w_bit}: the packed layouts take 3 or 4")
     dev = _device.resolve(device)
     gen = _gen(generator, dev)
     dt = _dtype(cfg)
     h, i = cfg.hidden_size, cfg.intermediate_size
     nq, nkv, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
-    g = cfg.hidden_size if qcfg.group_size == -1 else qcfg.group_size
 
     def qlin(ic, oc, bias):
-        qw = torch.randint(-(2**31), 2**31 - 1, (L, ic // 8, oc),
+        g = ic if qcfg.group_size == -1 else qcfg.group_size
+        dense3 = qcfg.w_bit == 3 and ic % 256 == 0
+        rows = ic * 3 // 32 if dense3 else ic // 8
+        qw = torch.randint(-(2**31), 2**31 - 1, (L, rows, oc),
                            generator=gen, dtype=torch.int32, device=dev)
+        if qcfg.w_bit == 3 and not dense3:
+            qw &= 0x77777777          # 3-bit codes in the nibble container
         s = (torch.rand((L, ic // g, oc), generator=gen, device=dev) + 0.5) * (scale / 4)
         z = torch.full_like(s, float(2 ** (qcfg.w_bit - 1))) * s
         return QLinear(qweight=qw, scales=s, szeros=z,
                        bias=torch.zeros((L, oc), dtype=dt, device=dev) if bias else None,
-                       w_bit=qcfg.w_bit, group_size=g)
+                       w_bit=qcfg.w_bit, group_size=g, dense3=dense3)
 
     layers = {
         "ln1": torch.ones((L, h), dtype=dt, device=dev),
@@ -207,7 +221,7 @@ def quantize_params(params: Params, qcfg: QuantConfig) -> Params:
             scales=torch.stack([q.scales for q in qls]),
             szeros=torch.stack([q.szeros for q in qls]),
             bias=None if lin.b is None else torch.stack([q.bias for q in qls]),
-            w_bit=qls[0].w_bit, group_size=qls[0].group_size,
+            w_bit=qls[0].w_bit, group_size=qls[0].group_size, dense3=qls[0].dense3,
         )
     out["layers"] = layers
     return out
@@ -216,7 +230,8 @@ def quantize_params(params: Params, qcfg: QuantConfig) -> Params:
 def fuse_linears(params: Params, cfg: ModelConfig) -> Params:
     """Concatenate wq/wk/wv -> ``wqkv`` and gate/up -> ``wgateup`` along the
     output-channel axis: one K1 launch instead of three/two. A plain concat
-    (no tiling or folding: those layouts exist only for the TPU)."""
+    (no tiling or folding: those layouts exist only for the TPU); OC is the
+    last axis of both packings, so it keeps either layout."""
     layers = dict(params["layers"])
     if "wq" not in layers:
         return params
@@ -230,7 +245,7 @@ def fuse_linears(params: Params, cfg: ModelConfig) -> Params:
                 szeros=torch.cat([p.szeros for p in parts], dim=-1),
                 bias=(torch.cat([p.bias for p in parts], dim=-1)
                       if a.bias is not None else None),
-                w_bit=a.w_bit, group_size=a.group_size)
+                w_bit=a.w_bit, group_size=a.group_size, dense3=a.dense3)
         return Linear(w=torch.cat([p.w for p in parts], dim=-1),
                       b=(torch.cat([p.b for p in parts], dim=-1)
                          if a.b is not None else None))
@@ -244,9 +259,10 @@ def fuse_linears(params: Params, cfg: ModelConfig) -> Params:
 
 
 def quantize_head(params: Params, cfg: ModelConfig) -> Params:
-    """Real-quantize a plain fp ``lm_head`` to the body's W4 format. No-op
-    unless the body is quantized and the head's IC is a multiple of the
-    group size."""
+    """Real-quantize a plain fp ``lm_head`` to the body's ``w_bit`` and group
+    size (a W3 head in ``pack_int3`` where its IC is a multiple of 256, as
+    ``quantize_linear`` packs it). No-op unless the body is quantized and
+    the head's IC is a multiple of the group size."""
     head = params.get("lm_head")
     if head is None or isinstance(head, QLinear):
         return params
@@ -327,7 +343,7 @@ def params_to(params: Params, device) -> Params:
         if isinstance(x, QLinear):
             return QLinear(qweight=mv(x.qweight), scales=mv(x.scales),
                            szeros=mv(x.szeros), bias=mv(x.bias),
-                           w_bit=x.w_bit, group_size=x.group_size)
+                           w_bit=x.w_bit, group_size=x.group_size, dense3=x.dense3)
         if isinstance(x, Linear):
             return Linear(w=mv(x.w), b=mv(x.b))
         return x.to(dev) if isinstance(x, torch.Tensor) else x
@@ -390,14 +406,14 @@ def _megakernel_forward(params, cfg, h, cache, start_pos, plain):
 
 
 def _head_logits(params: Params, h: torch.Tensor, impl: str) -> torch.Tensor:
-    """Final-normed hidden states -> f32 logits (tied embedding, W4 head or
-    fp matrix)."""
+    """Final-normed hidden states -> f32 logits (tied embedding, quantized
+    head or fp matrix)."""
     head = params.get("lm_head")
     if head is None:
         return torch.matmul(h.float(), params["embed"].float().T)
     if isinstance(head, QLinear):
         if head.qweight.dim() != 2:
-            raise ValueError("lm_head QLinear must be 2-D [IC//8, OC]")
+            raise ValueError("lm_head QLinear must be 2-D [rows, OC]")
         return qlinear_apply(head, h, impl=impl).float()
     return torch.matmul(h.float(), head.float())
 

@@ -30,7 +30,10 @@ its valid prefix.
 
 Each has a plain PyTorch version beside it (``*_plain``): the CPU path,
 and the reference the kernels are held to on the card. On a CUDA tensor
-the wrappers launch the kernel or raise. ALiBi (``forward`` refuses
+the wrappers launch the kernel or raise. The kernels take f32, bf16 and
+f16 for q (the output's dtype), the current token's k/v and the cache,
+each of its own dtype, as the JAX kernels follow ``q.dtype``; an f32
+cache takes at most 16 query heads per kv head (K2, K8). ALiBi (``forward`` refuses
 alibi models) and head_dim 64 (the TPU kernels' paired mode; the
 wrappers raise) wait for their model families.
 """
@@ -51,6 +54,7 @@ _DECODE_TILE = 32         # positions per shared-memory tile (csrc)
 _MIN_SPLIT = 64           # fewest positions per split-K block
 _TARGET_BLOCKS = 264      # two waves of the H100's 132 SMs
 _LOG2E = 1.4426950408889634
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def flash_decode_plain(q: torch.Tensor, k_new: torch.Tensor,
@@ -161,12 +165,19 @@ def _check_common(what: str, q: torch.Tensor, cache: torch.Tensor) -> None:
     _check(cache.dim() == 5 and cache.shape[0] == 2 and cache.shape[-1] == hd,
            what, f"cache must be one layer [2, B, n_kv, T, {hd}], got "
            f"{tuple(cache.shape)}")
-    _check(q.dtype == torch.bfloat16 and cache.dtype == torch.bfloat16, what,
-           f"q and cache must be bfloat16, got {q.dtype} and {cache.dtype}")
+    _check(q.dtype in _DTYPE_CODE and cache.dtype in _DTYPE_CODE, what,
+           f"q and cache must be f32, bf16 or f16, got {q.dtype} and {cache.dtype}")
     _check(q.is_contiguous() and cache.is_contiguous(), what,
            "q and cache must be contiguous")
     _check(cache.device == q.device, what, "q and cache on different devices")
     _check(cache.data_ptr() % 16 == 0, what, "cache must be 16-byte aligned")
+
+
+def _check_group(what: str, nq: int, nkv: int, cache_dtype) -> None:
+    most = 16 if cache_dtype == torch.float32 else 32
+    _check(nq % nkv == 0 and nq // nkv <= most, what,
+           f"nq={nq} is not a multiple of nkv={nkv} with at most {most} q heads "
+           f"per kv head over a {cache_dtype} cache")
 
 
 def _split(max_length: int, rows: int) -> tuple:
@@ -193,12 +204,15 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     _check_common(what, q, cache)
     b, nq, hd = q.shape
     nkv, t = cache.shape[2], cache.shape[3]
-    _check(cache.shape[1] == b and nq % nkv == 0 and nq // nkv <= 32, what,
+    _check(cache.shape[1] == b, what,
            f"q {tuple(q.shape)} does not fit cache {tuple(cache.shape)}")
+    _check_group(what, nq, nkv, cache.dtype)
+    _check(k_new.dtype == v_new.dtype and k_new.dtype in _DTYPE_CODE, what,
+           "k_new and v_new must share one of f32, bf16, f16")
     for name, kv in (("k_new", k_new), ("v_new", v_new)):
-        _check(tuple(kv.shape) == (b, nkv, hd) and kv.dtype == torch.bfloat16
+        _check(tuple(kv.shape) == (b, nkv, hd)
                and kv.is_contiguous() and kv.device == q.device, what,
-               f"{name} must be contiguous bf16 [{b}, {nkv}, {hd}]")
+               f"{name} must be contiguous [{b}, {nkv}, {hd}]")
     _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,)
            and lengths.device == q.device and lengths.is_contiguous(), what,
            f"lengths must be int32 [{b}] on {q.device}")
@@ -218,11 +232,12 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     lib = _build.load("decode_attn")
     fn = lib.awq_flash_decode
     _build.declare(fn, *([_build.P] * 8), *([_build.I] * 6), _build.F,
-                   _build.P)
+                   *([_build.I] * 3), _build.P)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
              cache.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(),
              part_acc.data_ptr(), out.data_ptr(), b, nq, nkv, t, nsplit,
-             split_len, 1.0 / math.sqrt(hd),
+             split_len, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+             _DTYPE_CODE[k_new.dtype], _DTYPE_CODE[cache.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, what)
     LAUNCHES["flash_decode"] += 1
@@ -234,7 +249,7 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                       max_length: Optional[int] = None) -> torch.Tensor:
     """K9 wrapper. As :func:`flash_decode`, over one layer of an int8 cache:
     ``cache [2, B, nkv, T, hd]`` int8 codes and ``scales [2, B, nkv, T]``
-    f32. ``k_new``/``v_new`` (bf16) are the current token in full
+    f32. ``k_new``/``v_new`` (in q's dtype) are the current token in full
     precision, quantized by the caller's append after the step."""
     if q.device.type == "cpu":
         return flash_decode_int8_plain(q, k_new, v_new, cache, scales, lengths,
@@ -254,11 +269,11 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     _check(tuple(scales.shape) == (2, b, nkv, t) and scales.dtype == torch.float32,
            what, f"scales must be f32 [2, {b}, {nkv}, {t}], got {scales.dtype} "
            f"{tuple(scales.shape)}")
-    _check(q.dtype == torch.bfloat16 and nq % nkv == 0 and nq // nkv <= 32, what,
-           f"q must be bf16 [{b}, nq, {hd}] with nq a multiple of {nkv}")
+    _check(q.dtype in _DTYPE_CODE and nq % nkv == 0 and nq // nkv <= 32, what,
+           f"q must be f32, bf16 or f16 [{b}, nq, {hd}] with nq a multiple of {nkv}")
     for name, kv in (("k_new", k_new), ("v_new", v_new)):
-        _check(tuple(kv.shape) == (b, nkv, hd) and kv.dtype == torch.bfloat16, what,
-               f"{name} must be bf16 [{b}, {nkv}, {hd}]")
+        _check(tuple(kv.shape) == (b, nkv, hd) and kv.dtype == q.dtype, what,
+               f"{name} must be {q.dtype} [{b}, {nkv}, {hd}]")
     _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,), what,
            f"lengths must be int32 [{b}]")
     _check(all(x.device == q.device and x.is_contiguous()
@@ -278,11 +293,13 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
 
     lib = _build.load("decode_attn")
     fn = lib.awq_flash_decode_int8
-    _build.declare(fn, *([_build.P] * 9), *([_build.I] * 6), _build.F, _build.P)
+    _build.declare(fn, *([_build.P] * 9), *([_build.I] * 6), _build.F, _build.I,
+                   _build.P)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
              scales.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(),
              part_acc.data_ptr(), out.data_ptr(), b, nq, nkv, t, nsplit, split_len,
-             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+             1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, what)
     LAUNCHES["flash_decode_int8"] += 1
     return out
@@ -310,12 +327,13 @@ def flash_decode_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
     _check_common(what, q, pool[layer])
     b, nq, hd = q.shape
     np_, nkv, page = pool.shape[2], pool.shape[3], pool.shape[4]
-    _check(nq % nkv == 0 and nq // nkv <= 32, what,
-           f"q {tuple(q.shape)} does not fit pool {tuple(pool.shape)}")
+    _check_group(what, nq, nkv, pool.dtype)
+    _check(k_new.dtype == v_new.dtype and k_new.dtype in _DTYPE_CODE, what,
+           "k_new and v_new must share one of f32, bf16, f16")
     for name, kv in (("k_new", k_new), ("v_new", v_new)):
-        _check(tuple(kv.shape) == (b, nkv, hd) and kv.dtype == torch.bfloat16
+        _check(tuple(kv.shape) == (b, nkv, hd)
                and kv.is_contiguous() and kv.device == q.device, what,
-               f"{name} must be contiguous bf16 [{b}, {nkv}, {hd}]")
+               f"{name} must be contiguous [{b}, {nkv}, {hd}]")
     _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,)
            and lengths.device == q.device and lengths.is_contiguous(), what,
            f"lengths must be int32 [{b}] on {q.device}")
@@ -340,11 +358,15 @@ def flash_decode_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
 
     lib = _build.load("decode_attn")
     fn = lib.awq_flash_decode_paged
-    _build.declare(fn, *([_build.P] * 9), *([_build.I] * 8), _build.F, _build.P)
+    _build.declare(fn, *([_build.P] * 9), *([_build.I] * 8), _build.F,
+                   *([_build.I] * 3), _build.P)
+    # the plain version rounds the current token to the pool dtype first
+    k_new, v_new = k_new.to(pool.dtype), v_new.to(pool.dtype)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), pool[layer].data_ptr(),
              tables.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(),
              part_acc.data_ptr(), out.data_ptr(), b, nq, nkv, np_, page, mp, nsplit,
-             split_len, 1.0 / math.sqrt(hd),
+             split_len, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+             _DTYPE_CODE[pool.dtype], _DTYPE_CODE[pool.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, what)
     LAUNCHES["flash_decode_paged"] += 1
@@ -377,10 +399,10 @@ def flash_prefill(q: torch.Tensor, cache: torch.Tensor,
     lib = _build.load("decode_attn")
     fn = lib.awq_flash_prefill
     _build.declare(fn, *([_build.P] * 3), *([_build.I] * 6), _build.F,
-                   _build.P)
+                   _build.I, _build.I, _build.P)
     err = fn(q.data_ptr(), cache.data_ptr(), out.data_ptr(), b, s, nq, nkv,
-             t, start_pos, _LOG2E / math.sqrt(hd),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             t, start_pos, _LOG2E / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+             _DTYPE_CODE[cache.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, what)
     LAUNCHES["flash_prefill"] += 1
     return out

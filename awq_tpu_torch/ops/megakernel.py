@@ -32,6 +32,12 @@ back in bf16 (JAX's ``kv_dt``), and the in-place write stores
 codes and scale, which is what JAX's caller appends
 (``models/llama.py:765-774``).
 
+W3 (the JAX kernels' ``unpack="dense3"``): every fused linear, and the
+head when it runs in the kernel, holds ``pack_int3`` codes (``dense3``
+QLinears, g128). K4 reads them as stored in its W3 mode, 0.375 B per
+weight; the plain versions unpack them with ``unpack_int3``. The rounding
+points are the W4 ones.
+
 Each function has a plain PyTorch version (``*_plain``): the CPU path and
 the reference the kernel is held to on the card. The wrappers run the
 plain version for CPU tensors and launch K4 for CUDA tensors, or raise.
@@ -47,13 +53,12 @@ from typing import Optional
 import torch
 
 from awq_tpu_torch.ops.cache_append import dequantize_kv, quantize_kv
-from awq_tpu_torch.ops.w4a16 import QLinear
-from awq_tpu_torch.quant.packing import unpack_int4
+from awq_tpu_torch.ops.w4a16 import QLinear, unpack_codes
 
 #: Launches of K4's two entries, over a float cache and over an int8 one,
-#: counted where the wrappers launch them.
-LAUNCHES = {"megakernel_token": 0, "megakernel_layer": 0,
-            "megakernel_token_int8": 0, "megakernel_layer_int8": 0}
+#: in W4 and in W3 mode, counted where the wrappers launch them.
+LAUNCHES = {f"megakernel_{e}{w}{c}": 0 for e in ("token", "layer")
+            for w in ("", "_w3") for c in ("", "_int8")}
 
 GROUP = 128        # the group size the kernels are built for
 HEAD_DIM = 128     # the head_dim the kernels are built for
@@ -84,6 +89,20 @@ def _env(name: str) -> bool:
     return os.environ.get(name) == "1"
 
 
+def weight_format(p) -> Optional[bool]:
+    """The megakernels' format of a g128 :class:`QLinear`: False for W4 in
+    ``pack_int4``, True for W3 in ``pack_int3`` (``dense3``), None for
+    anything else (3-bit codes in the nibble container take the stacked
+    path, as in JAX)."""
+    if not isinstance(p, QLinear) or p.group_size != GROUP:
+        return None
+    if p.w_bit == 4 and not p.dense3:
+        return False
+    if p.w_bit == 3 and p.dense3:
+        return True
+    return None
+
+
 def megakernel_supported(cfg, layers, cache, slots: int = 1) -> bool:
     """Whether ``forward`` takes the megakernels for this model and cache
     (of ``slots`` batch rows: 1 for K4 and K5, B for the batched K6).
@@ -94,13 +113,14 @@ def megakernel_supported(cfg, layers, cache, slots: int = 1) -> bool:
     facts of Mosaic's tiling and of a 16 MB VMEM; K4 reads ``pack_int4``
     as stored and keeps its activations in device memory. What K4 needs
     instead: the llama shape, head_dim 128, at most 8 q heads per kv head,
-    W4 with group 128 on the four fused stacked linears, a bias on
-    ``wqkv`` only, a float cache of batch 1 on CUDA
-    (``AWQ_TPU_FORCE_MEGAKERNEL=1`` lets the plain version run on the CPU,
-    the JAX test hook); ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` turns it off. An
-    int8 ``KVCache8`` is taken with its scales (a bare int8 tensor is not);
-    W3 (A13) and the MPT shape (A12) are not ported and take the stacked
-    path.
+    group 128 on the four fused stacked linears, all W4 or all W3 in
+    ``pack_int3`` (a uniform stack, as JAX's gate at
+    ``awq_tpu/ops/megakernel.py:909-923``), a bias on ``wqkv`` only, a
+    float cache of batch 1 on CUDA (``AWQ_TPU_FORCE_MEGAKERNEL=1`` lets the
+    plain version run on the CPU, the JAX test hook);
+    ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` turns it off. An int8 ``KVCache8`` is
+    taken with its scales (a bare int8 tensor is not). The MPT shape (A12)
+    is not ported and takes the stacked path.
     """
     if _env("AWQ_TPU_DISABLE_MEGAKERNEL"):
         return False
@@ -124,11 +144,12 @@ def megakernel_supported(cfg, layers, cache, slots: int = 1) -> bool:
         return False
     if cfg.hidden_size % GROUP or cfg.intermediate_size % GROUP:
         return False
+    fmt = weight_format(layers.get("wqkv"))
     for name in ("wqkv", "wo", "wgateup", "down"):
         p = layers.get(name)
         if not isinstance(p, QLinear) or p.qweight.dim() != 3:
             return False
-        if p.w_bit != 4 or p.group_size != GROUP:
+        if fmt is None or weight_format(p) != fmt:
             return False
         if p.bias is not None and name != "wqkv":
             return False
@@ -136,25 +157,30 @@ def megakernel_supported(cfg, layers, cache, slots: int = 1) -> bool:
 
 
 def head_in_kernel(params) -> bool:
-    """The final norm and head run as K4's last phase when the head is a
-    2-D W4 g128 :class:`QLinear` without bias (``quantize_head``) whose
-    vocabulary is a whole number of K4's 32-column tiles."""
+    """The final norm and head run as the megakernels' last phase when the
+    head is a 2-D g128 :class:`QLinear` without bias (``quantize_head``),
+    in the body's format (a W3 head only with a W3 body, as JAX's
+    ``models/llama.py:742``), whose vocabulary is a whole number of the
+    kernels' 32-column tiles."""
     head = params.get("lm_head")
-    return (isinstance(head, QLinear) and head.qweight.dim() == 2
-            and head.bias is None and head.w_bit == 4
-            and head.group_size == GROUP and head.out_features % 32 == 0)
+    body = params.get("layers", {}).get("wqkv")
+    fmt = weight_format(head)
+    return (fmt is not None and head.qweight.dim() == 2 and head.bias is None
+            and head.out_features % 32 == 0
+            and (body is None or weight_format(body) == fmt))
 
 
 # ---- plain versions ------------------------------------------------------------
 
 def qdot_plain(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
-               szeros: torch.Tensor) -> torch.Tensor:
+               szeros: torch.Tensor, dense3: bool = False) -> torch.Tensor:
     """``x [M, IC]`` f32 -> ``[M, OC]`` f32 as the megakernels compute it:
-    per group ``s * sum(bf16(x) * q) - sz * sum(bf16(x))``, f32 sums."""
+    per group ``s * sum(bf16(x) * q) - sz * sum(bf16(x))``, f32 sums; the
+    codes of ``pack_int4`` or, with ``dense3``, ``pack_int3``."""
     m, ic = x.shape
     ng = ic // GROUP
     xb = x.to(torch.bfloat16).float().reshape(m, ng, GROUP).transpose(0, 1)
-    q = unpack_int4(qweight, out_dtype=torch.float32).reshape(ng, GROUP, -1)
+    q = unpack_codes(qweight, dense3).reshape(ng, GROUP, -1)
     dot = torch.bmm(xb, q)                              # [ng, M, OC]
     xsum = xb.sum(dim=-1, keepdim=True)                 # [ng, M, 1]
     return (dot * scales.float()[:, None, :]
@@ -174,8 +200,13 @@ def rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Te
     return x * cos + rot * sin
 
 
-def _lin(ql: QLinear, l: int, x: torch.Tensor) -> torch.Tensor:
-    return qdot_plain(x, ql.qweight[l], ql.scales[l], ql.szeros[l])
+def qdot_layer(ql: QLinear, l: Optional[int], x: torch.Tensor) -> torch.Tensor:
+    """:func:`qdot_plain` of layer ``l`` of a stacked QLinear (``l=None``:
+    a 2-D one, the head)."""
+    if l is None:
+        return qdot_plain(x, ql.qweight, ql.scales, ql.szeros, ql.dense3)
+    return qdot_plain(x, ql.qweight[l], ql.scales[l], ql.szeros[l], ql.dense3)
+
 
 
 def _layer_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
@@ -186,7 +217,7 @@ def _layer_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
     hd = HEAD_DIM
     grp = nq // nkv
     x = rms_rows(h, ln1[l], eps)
-    qkv = _lin(wqkv, l, x)[0]
+    qkv = qdot_layer(wqkv, l, x)[0]
     if wqkv.bias is not None:
         qkv = qkv + wqkv.bias[l].float()
     cos, sin = cos_row.float(), sin_row.float()
@@ -203,11 +234,11 @@ def _layer_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
     p = torch.softmax(torch.einsum("kgh,kth->kgt", qs, keys), dim=-1)
     attn = torch.einsum("kgt,kth->kgh", p, vals).reshape(1, nq * hd)
     write_kv(cache, scales, (l, slice(None), 0, slice(None), length), torch.stack([k, v]))
-    h1 = h + _lin(wo, l, attn)
-    gu = _lin(wgu, l, rms_rows(h1, ln2[l], eps))
+    h1 = h + qdot_layer(wo, l, attn)
+    gu = qdot_layer(wgu, l, rms_rows(h1, ln2[l], eps))
     gate, up = gu.chunk(2, dim=-1)
     hm = gate * torch.sigmoid(gate) * up
-    return h1 + _lin(wdn, l, hm), k, v
+    return h1 + qdot_layer(wdn, l, hm), k, v
 
 
 def write_kv(cache, scales, at, kv):
@@ -256,7 +287,7 @@ def w4a16_llama_token_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
     if whead is None:
         return out
     xf = rms_rows(hh, norm_w, eps)
-    return out + (qdot_plain(xf, whead.qweight, whead.scales, whead.szeros),)
+    return out + (qdot_layer(whead, None, xf),)
 
 
 # ---- the wrappers ----------------------------------------------------------------
@@ -268,7 +299,9 @@ def _fail(what: str, msg: str):
 def check_operands(what, h, lins, ln1, ln2, cache, nq, nkv, rows, slots=1,
                    scales=None):
     """Shared checks of K4, K5 and K6: what the kernels take. An int8 cache
-    comes with its f32 ``scales [L, 2, slots, nkv, T]``."""
+    comes with its f32 ``scales [L, 2, slots, nkv, T]``. Returns ``(L, H,
+    I, w3)``, ``w3`` the linears' format (all W3 in ``pack_int3``, or all
+    W4)."""
     if cache.dtype == torch.int8:
         if scales is None:
             _fail(what, "an int8 cache needs its scales (cache_scales)")
@@ -294,14 +327,17 @@ def check_operands(what, h, lins, ln1, ln2, cache, nq, nkv, rows, slots=1,
               f"{tuple(h.shape)}")
     wqkv, wo, wgu, wdn = lins
     inter = wgu.out_features // 2
+    w3 = weight_format(wqkv)
+    if w3 is None:
+        _fail(what, f"wqkv must be W4 or W3 in pack_int3 (dense3), g{GROUP}; got "
+              f"w_bit={wqkv.w_bit}, dense3={wqkv.dense3}, g{wqkv.group_size}")
+    fmt = "W3 (dense3)" if w3 else "W4"
     shapes = {"wqkv": (wqkv, H, (nq + 2 * nkv) * hd), "wo": (wo, H, H),
               "wgateup": (wgu, H, 2 * inter), "down": (wdn, inter, H)}
     for name, (p, ic, oc) in shapes.items():
-        if p.w_bit != 4:
-            raise NotImplementedError(f"{what}: {name} w_bit={p.w_bit}; W3 is "
-                                      "ROADMAP queue A, item 13")
-        if p.group_size != GROUP or tuple(p.qweight.shape) != (L, ic // 8, oc):
-            _fail(what, f"{name} must be W4 g{GROUP} [{L}, {ic // 8}, {oc}]")
+        rows = ic * 3 // 32 if w3 else ic // 8
+        if weight_format(p) != w3 or tuple(p.qweight.shape) != (L, rows, oc):
+            _fail(what, f"{name} must be {fmt} g{GROUP} [{L}, {rows}, {oc}], as wqkv")
         if p.bias is not None and name != "wqkv":
             _fail(what, f"{name} has a bias; only wqkv may")
         if oc % 32 or inter % GROUP:
@@ -309,7 +345,7 @@ def check_operands(what, h, lins, ln1, ln2, cache, nq, nkv, rows, slots=1,
     for t in (ln1, ln2):
         if tuple(t.shape) != (L, H) or t.dtype != h.dtype:
             _fail(what, f"norm weights must be {h.dtype} [{L}, {H}]")
-    return L, H, inter
+    return L, H, inter, w3
 
 
 def qlinear_ptrs(p: QLinear, dev):
@@ -332,15 +368,17 @@ def check_small(what, dev, dtype, **tensors):
             _fail(what, f"{name} must be {dtype}, got {t.dtype}")
 
 
-def head_operands(what, whead, norm_w, H, rows, dev):
+def head_operands(what, whead, norm_w, H, rows, dev, w3=False):
     """``(vocab, [head pointers, norm pointer], logits [rows, V] f32)`` of a
-    megakernel's optional last phase, the final norm and the W4 head;
-    ``(0, four null pointers, None)`` without a head."""
+    megakernel's optional last phase, the final norm and the head in the
+    body's format (``w3``); ``(0, four null pointers, None)`` without a
+    head."""
     if whead is None:
         return 0, [0, 0, 0, 0], None
-    if not head_in_kernel({"lm_head": whead}) or whead.in_features != H:
-        _fail(what, "the head must be a 2-D W4 g128 QLinear [H/8, V] "
-              "without bias, V a multiple of 32")
+    if (not head_in_kernel({"lm_head": whead}) or weight_format(whead) != w3
+            or whead.in_features != H):
+        _fail(what, f"the head must be a 2-D {'W3 (dense3)' if w3 else 'W4'} g128 "
+              "QLinear over H without bias, V a multiple of 32, in the body's format")
     logits = torch.empty((rows, whead.out_features), dtype=torch.float32, device=dev)
     return (whead.out_features, qlinear_ptrs(whead, dev) + [norm_w.data_ptr()],
             logits)
@@ -375,8 +413,8 @@ def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
     dev = cache.device
     if not cache.is_cuda:
         _fail(what, f"unsupported device {dev}")
-    L, H, inter = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
-                                 cache, nq, nkv, 1, scales=scales)
+    L, H, inter, w3 = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
+                                     cache, nq, nkv, 1, scales=scales)
     T = cache.shape[4]
     if not 0 <= length < T:
         _fail(what, f"length {length} must lie in [0, {T})")
@@ -388,7 +426,7 @@ def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
         _fail(what, f"cos/sin rows must hold {HEAD_DIM} values")
     bias = wqkv.bias
     check_small(what, dev, h.dtype, bias=bias, norm_w=norm_w)
-    vocab, head, logits = head_operands(what, whead, norm_w, H, 1, dev)
+    vocab, head, logits = head_operands(what, whead, norm_w, H, 1, dev, w3)
     out = torch.empty_like(h)
     k_new = torch.empty((n_layers, nkv, HEAD_DIM), dtype=kv_out_dtype(cache), device=dev)
     v_new = torch.empty_like(k_new)
@@ -402,9 +440,9 @@ def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
                   scales.data_ptr() if scales is not None else 0])
     ints = [layer0, n_layers, L, H, inter, nq, nkv, T, length, vocab,
             int(round_residual), _DTYPE_CODE[h.dtype], _CACHE_CODE[cache.dtype],
-            int(bias is not None)]
-    launch("awq_mega_token", "megakernel", ptrs, ints, eps, dev)
-    LAUNCHES[counter + ("_int8" if scales is not None else "")] += 1
+            int(bias is not None), int(w3)]
+    launch("awq_mega_token", "megakernel_w3" if w3 else "megakernel", ptrs, ints, eps, dev)
+    LAUNCHES[counter + ("_w3" if w3 else "") + ("_int8" if scales is not None else "")] += 1
     res = (out, k_new, v_new)
     return res + ((logits,) if logits is not None else ())
 

@@ -57,7 +57,7 @@ from awq_tpu_torch.ops.megakernel import (
     kv_out_dtype,
     launch,
     megakernel_supported,
-    qdot_plain,
+    qdot_layer,
     qlinear_ptrs,
     rms_rows,
     rope_rows,
@@ -66,9 +66,11 @@ from awq_tpu_torch.ops.megakernel import (
 from awq_tpu_torch.ops.w4a16 import QLinear
 
 #: Launches of K6 over a slot cache, over a page pool and over an int8 slot
-#: cache, counted where the wrapper launches it.
-LAUNCHES = {"megakernel_batched": 0, "megakernel_batched_paged": 0,
-            "megakernel_batched_int8": 0}
+#: cache, in W4 and in W3 mode, counted where the wrapper launches it.
+LAUNCHES = {f"megakernel_batched{m}{w}": 0 for m in ("", "_paged", "_int8")
+            for w in ("", "_w3")}
+_INSTANCE = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
+             torch.int8: "int8"}
 
 MIN_B, MAX_B = 2, 64      # rows per launch (one row is K4's case)
 
@@ -178,8 +180,7 @@ def w4a16_llama_token_step_batched_plain(
     hh = h.float()
     ks, vs = [], []
     for l in range(cache.shape[0]):
-        qkv = _bf16(qdot_plain(rms_rows(hh, ln1[l], eps), wqkv.qweight[l],
-                               wqkv.scales[l], wqkv.szeros[l]))
+        qkv = _bf16(qdot_layer(wqkv, l, rms_rows(hh, ln1[l], eps)))
         if wqkv.bias is not None:
             qkv = _bf16(qkv + wqkv.bias[l].float())
         q = rope_rows(qkv[:, :nq * hd].reshape(b, nq, hd), cos, sin)
@@ -194,14 +195,11 @@ def w4a16_llama_token_step_batched_plain(
         attn = (torch.einsum("bkgt,bkth->bkgh", p[..., :tmax], vc)
                 + p[..., tmax:] * v[:, :, None, :])
         kv_at.write(l, torch.stack([k, v]))
-        h1 = hh + qdot_plain(attn.reshape(b, nq * hd), wo.qweight[l],
-                             wo.scales[l], wo.szeros[l])
-        gu = _bf16(qdot_plain(rms_rows(h1, ln2[l], eps), wgu.qweight[l],
-                              wgu.scales[l], wgu.szeros[l]))
+        h1 = hh + qdot_layer(wo, l, attn.reshape(b, nq * hd))
+        gu = _bf16(qdot_layer(wgu, l, rms_rows(h1, ln2[l], eps)))
         gate, up = gu.chunk(2, dim=-1)
         hm = _bf16(gate * torch.sigmoid(gate) * up)
-        hh = _bf16(h1 + qdot_plain(hm, wdn.qweight[l], wdn.scales[l],
-                                   wdn.szeros[l]))
+        hh = _bf16(h1 + qdot_layer(wdn, l, hm))
         ks.append(k)
         vs.append(v)
     kt = kv_out_dtype(cache)
@@ -209,7 +207,7 @@ def w4a16_llama_token_step_batched_plain(
     if whead is None:
         return out
     xf = rms_rows(hh, norm_w, eps)
-    return out + (qdot_plain(xf, whead.qweight, whead.scales, whead.szeros),)
+    return out + (qdot_layer(whead, None, xf),)
 
 
 def w4a16_llama_token_step_batched(
@@ -247,9 +245,9 @@ def w4a16_llama_token_step_batched(
     b = h.shape[0]
     if not MIN_B <= b <= MAX_B:
         _fail(what, f"{b} rows; the kernel takes {MIN_B}..{MAX_B}")
-    L, H, inter = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
-                                 cache, nq, nkv, b, slots=cache.shape[2] if paged else b,
-                                 scales=scales)
+    L, H, inter, w3 = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
+                                     cache, nq, nkv, b,
+                                     slots=cache.shape[2] if paged else b, scales=scales)
     page_ints = [0, 0, 0]
     T = cache.shape[4]
     if paged:
@@ -272,7 +270,7 @@ def w4a16_llama_token_step_batched(
     max_length = T - 1 if max_length is None else min(max(int(max_length), 0), T - 1)
     bias = wqkv.bias
     check_small(what, dev, h.dtype, bias=bias, norm_w=norm_w)
-    vocab, head, logits = head_operands(what, whead, norm_w, H, b, dev)
+    vocab, head, logits = head_operands(what, whead, norm_w, H, b, dev, w3)
     out = torch.empty_like(h)
     k_new = torch.empty((L, b, nkv, HEAD_DIM), dtype=kv_out_dtype(cache), device=dev)
     v_new = torch.empty_like(k_new)
@@ -286,8 +284,10 @@ def w4a16_llama_token_step_batched(
             + [tables.data_ptr() if paged else 0,
                scales.data_ptr() if scales is not None else 0])
     ints = [b, L, H, inter, nq, nkv, T, max_length, vocab, _DTYPE_CODE[h.dtype],
-            _CACHE_CODE[cache.dtype], int(bias is not None)] + page_ints
-    launch("awq_mega_batched", "megakernel_batched", ptrs, ints, eps, dev)
-    LAUNCHES[what] += 1
+            _CACHE_CODE[cache.dtype], int(bias is not None)] + page_ints + [int(w3)]
+    unit = ("megakernel_batched_" + ("paged" if paged else _INSTANCE[cache.dtype])
+            + ("_w3" if w3 else ""))
+    launch("awq_mega_batched", unit, ptrs, ints, eps, dev)
+    LAUNCHES[what + ("_w3" if w3 else "")] += 1
     res = (out, k_new, v_new)
     return res + ((logits,) if logits is not None else ())

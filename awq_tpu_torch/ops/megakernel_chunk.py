@@ -35,14 +35,14 @@ from awq_tpu_torch.ops.megakernel import (
     check_small,
     launch,
     megakernel_supported,
-    qdot_plain,
+    qdot_layer,
     qlinear_ptrs,
     rms_rows,
     rope_rows,
 )
 
-#: Launches of K5, counted where the wrapper launches it.
-LAUNCHES = {"megakernel_chunk": 0}
+#: Launches of K5 in W4 and in W3 mode, counted where the wrapper launches it.
+LAUNCHES = {"megakernel_chunk": 0, "megakernel_chunk_w3": 0}
 
 CHUNK_S = 32      # most window rows per launch, as in the JAX kernel
 
@@ -76,8 +76,7 @@ def w4a16_llama_chunk_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_rows,
     hh = h.float()
     ks, vs = [], []
     for l in range(cache.shape[0]):
-        qkv = _bf16(qdot_plain(rms_rows(hh, ln1[l], eps), wqkv.qweight[l],
-                               wqkv.scales[l], wqkv.szeros[l]))
+        qkv = _bf16(qdot_layer(wqkv, l, rms_rows(hh, ln1[l], eps)))
         if wqkv.bias is not None:
             qkv = qkv + wqkv.bias[l].float()
         q = rope_rows(qkv[:, :nq * hd].reshape(s, nq, hd), cos, sin)
@@ -91,14 +90,11 @@ def w4a16_llama_chunk_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_rows,
         attn = torch.einsum("kgit,kth->ikgh", torch.softmax(sc, dim=-1), vals)
         cache[l, 0, 0, :, hist:hist + s] = k.transpose(0, 1).to(cache.dtype)
         cache[l, 1, 0, :, hist:hist + s] = v.transpose(0, 1).to(cache.dtype)
-        h1 = hh + qdot_plain(attn.reshape(s, nq * hd), wo.qweight[l],
-                             wo.scales[l], wo.szeros[l])
-        gu = _bf16(qdot_plain(rms_rows(h1, ln2[l], eps), wgu.qweight[l],
-                              wgu.scales[l], wgu.szeros[l]))
+        h1 = hh + qdot_layer(wo, l, attn.reshape(s, nq * hd))
+        gu = _bf16(qdot_layer(wgu, l, rms_rows(h1, ln2[l], eps)))
         gate, up = gu.chunk(2, dim=-1)
         hm = _bf16(gate * torch.sigmoid(gate) * up)
-        hh = _bf16(h1 + qdot_plain(hm, wdn.qweight[l], wdn.scales[l],
-                                   wdn.szeros[l]))
+        hh = _bf16(h1 + qdot_layer(wdn, l, hm))
         ks.append(k.transpose(0, 1))
         vs.append(v.transpose(0, 1))
     return (hh.to(h.dtype), torch.stack(ks).to(cache.dtype),
@@ -123,8 +119,8 @@ def w4a16_llama_chunk_step(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_rows,
     s = h.shape[0]
     if not 0 < s <= CHUNK_S:
         _fail(what, f"window of {s} rows; the kernel takes 1..{CHUNK_S}")
-    L, H, inter = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
-                                 cache, nq, nkv, s)
+    L, H, inter, w3 = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
+                                     cache, nq, nkv, s)
     T = cache.shape[4]
     hist = int(hist)
     if hist < 0 or hist + s > T:
@@ -145,7 +141,9 @@ def w4a16_llama_chunk_step(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_rows,
                sin_rows.data_ptr(), cache.data_ptr(), k_new.data_ptr(),
                v_new.data_ptr()])
     ints = [s, L, H, inter, nq, nkv, T, hist, _DTYPE_CODE[h.dtype],
-            _DTYPE_CODE[cache.dtype], int(bias is not None)]
-    launch("awq_mega_chunk", "megakernel_chunk", ptrs, ints, eps, dev)
-    LAUNCHES["megakernel_chunk"] += 1
+            _DTYPE_CODE[cache.dtype], int(bias is not None), int(w3)]
+    unit = "megakernel_chunk_" + {torch.float32: "f32", torch.bfloat16: "bf16",
+                                  torch.float16: "f16"}[cache.dtype] + ("_w3" if w3 else "")
+    launch("awq_mega_chunk", unit, ptrs, ints, eps, dev)
+    LAUNCHES["megakernel_chunk" + ("_w3" if w3 else "")] += 1
     return out, k_new, v_new

@@ -6,7 +6,7 @@
 Phases (each failure ends the run with a non-zero exit):
 
 1. Print the card's name and power limit; build the CUDA kernels from
-   ``awq_tpu_torch/csrc`` with nvcc (one process per source, in parallel).
+   ``awq_tpu_torch/csrc`` with nvcc (one process per unit, in parallel).
 2. Hold every kernel against its plain PyTorch version on the card, at the
    shapes the Llama-3-8B main path gives it, with the tolerance stated;
    time the kernel, the plain version and one PyTorch library call (for
@@ -29,6 +29,12 @@ Phases (each failure ends the run with a non-zero exit):
    K7's int8 mode (exact). An int8 megakernel's in-place write must hold,
    at each row's position, ``quantize_kv`` of the k/v it returned, bit for
    bit, and leave the rest of the cache bit-equal to the plain version's.
+   Then W3 (pack_int3 codes): K1's W3 mode (GEMV at 1 and 8 rows, GEMM at
+   32, 200 and 1000, every projection and the head; yardstick
+   ``torch.matmul`` on the dequantized weight) and the W3 modes of K4
+   (layer and token entries, a W3 head), K5 and K6 (slot, int8 and paged,
+   their in-place writes held as above) over a 32-layer W3 model. Last, an
+   f16 model's kernels: K1 (GEMV and GEMM), K2, K8, K3 and K9 over f16.
 3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
    new tokens each, the second continuing the first's dialogue, then a
    24-token follow-up continuing the third's) through ``InferenceEngine``
@@ -59,13 +65,25 @@ Phases (each failure ends the run with a non-zero exit):
    prefill, as K5 takes no int8 cache. Prints the caches' bytes, the peak
    device memory against phase 3b's, and how many requests' greedy ids
    equal the bf16 runs' (information: int8 changes the numbers).
+3e. The W3 model (W3-g128 pack_int3 weights and a W3 head from
+   ``quantize_head``, at ``--layers`` as phase 3): phase 3's four
+   requests through ``InferenceEngine`` and phase 3b's twelve through an
+   8-slot ``BatchEngine``, on the megakernels' W3 modes (K4, K5, K6 W3
+   counts must grow) and with ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` (K1's W3
+   counts must grow); then the twelve through K6's int8 W3 mode and its
+   paged W3 mode (ids equal the W3 slot engine's). Prints the weight bytes
+   and peak memory against the W4 model's and how many requests' greedy ids
+   equal the W4 runs' (information).
 4. At the same widths and 2 layers, feed the same tokens through
    ``forward`` on the kernel path and on the plain path and compare
    logits: a 100-token prefill and 8 decodes on the stacked path, a
    20-token chunk prefill and 8 decodes on the megakernels, and both again
    over an int8 cache; then one ``decode_step_batched`` of 8 rows at ragged
    lengths on both paths, over a bf16 and over an int8 cache, and one
-   ``decode_step_paged`` of the same rows over a permuted pool.
+   ``decode_step_paged`` of the same rows over a permuted pool. Then a W3
+   model on the stacked path and on the megakernels, one batched and one
+   paged W3 step on K6, and an f16 model with an f16 cache on the stacked
+   path.
 5. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, where CUDA is not available or the
@@ -165,29 +183,34 @@ def phase_kernels(torch, timer, cases_out):
     # orders: 2^-6 of the output's largest magnitude bounds all of it.
     k1_tol = 2.0 ** -6
 
-    def k1_case(entry, wname, m):
+    def k1_case(entry, wname, m, dense3=False, dtype=torch.bfloat16):
+        # dense3: K1's W3 mode over pack_int3 codes (IC*3/32 word rows)
         ic, oc = shapes[wname]
-        x = torch.randn((m, ic), generator=gen, device="cuda").to(torch.bfloat16)
-        qw = torch.randint(-(2**31), 2**31 - 1, (ic // 8, oc), generator=gen,
+        rows = ic * 3 // 32 if dense3 else ic // 8
+        x = torch.randn((m, ic), generator=gen, device="cuda").to(dtype)
+        qw = torch.randint(-(2**31), 2**31 - 1, (rows, oc), generator=gen,
                            dtype=torch.int32, device="cuda")
         s = (torch.rand((ic // G, oc), generator=gen, device="cuda") + 0.5) * 0.005
-        sz = s * 8
-        got = w4.w4a16_matmul(x, qw, s, sz, G)
-        ref = w4.w4a16_matmul_plain(x, qw, s, sz, G)
+        sz = s * (4 if dense3 else 8)
+        got = w4.w4a16_matmul(x, qw, s, sz, G, dense3=dense3)
+        ref = w4.w4a16_matmul_plain(x, qw, s, sz, G, dense3=dense3)
         torch.cuda.synchronize()
-        err, rel = check(f"{entry} {wname} M={m}", got, ref, k1_tol)
-        w = w4.dequantize(qw, s, sz, G, torch.bfloat16)
-        ms = timer(lambda: w4.w4a16_matmul(x, qw, s, sz, G))
-        plain_ms = timer(lambda: w4.w4a16_matmul_plain(x, qw, s, sz, G), reps=5)
+        dt = "" if dtype == torch.bfloat16 else f" {str(dtype)[6:]}"
+        err, rel = check(f"{entry} {wname} M={m}{dt}", got, ref, k1_tol)
+        w = w4.dequantize(qw, s, sz, G, dtype, dense3)
+        ms = timer(lambda: w4.w4a16_matmul(x, qw, s, sz, G, dense3=dense3))
+        plain_ms = timer(lambda: w4.w4a16_matmul_plain(x, qw, s, sz, G, dense3=dense3),
+                         reps=5)
         lib_ms = timer(lambda: torch.matmul(x, w))
-        nbytes = m * ic * 2 + ic * oc // 2 + 2 * (ic // G) * oc * 4 + m * oc * 2
+        es = x.element_size()
+        nbytes = m * ic * es + rows * oc * 4 + 2 * (ic // G) * oc * 4 + m * oc * es
         b_ms, b_by = bound(nbytes, 2.0 * m * ic * oc)
         del w
-        return dict(name=entry, shape=f"{wname} M={m} {ic}->{oc}", max_abs_err=err,
+        return dict(name=entry, shape=f"{wname} M={m} {ic}->{oc}{dt}", max_abs_err=err,
                     max_rel_err=rel, tol=f"{k1_tol:g}*max|ref|", ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms,
-                    library="torch.matmul on the bf16-dequantized weight")
+                    library=f"torch.matmul on the{dt or ' bf16'}-dequantized weight")
 
     for wname in ("wqkv", "wo", "wgateup", "down", "head"):
         cases_out.append(k1_case("w4a16_gemv", wname, 1))
@@ -202,6 +225,17 @@ def phase_kernels(torch, timer, cases_out):
         for wname in shapes:
             cases_out.append(k1_case(entry, wname, m))
             log_case(cases_out[-1])
+    # K1's W3 mode (pack_int3, the W3 model's every projection and head):
+    # the GEMV at 1 and 8 rows, the GEMM at 32, 200 and 1000
+    for m in (1, w4.GEMV_MAX_M, 32, 200, 1000):
+        for wname in shapes:
+            entry = "w3a16_gemv" if m <= w4.GEMV_MAX_M else "w3a16_gemm"
+            cases_out.append(k1_case(entry, wname, m, dense3=True))
+            log_case(cases_out[-1])
+    # an f16 model's x (K1 follows x's dtype)
+    for entry, m in (("w4a16_gemv", 1), ("w4a16_gemm", 200)):
+        cases_out.append(k1_case(entry, "wgateup", m, dtype=torch.float16))
+        log_case(cases_out[-1])
 
     # bf16 output rounding 2^-9; K3 also rounds P to bf16 for P.V.
     attn_tol = 2.0 ** -6
@@ -520,6 +554,96 @@ def phase_int8_kernels(torch, timer, cases_out):
     del codes, scales, c8, cache16
 
 
+def phase_f16_attention(torch, timer, cases_out):
+    """Phase 2, an f16 model's attention: K2 at len 1000, K8 on K2's 8
+    ragged rows over a permuted pool, K3 at S=512 from 700 and K9 at len
+    1000 (f16 q over an int8 cache), each against its plain version; the
+    library call is SDPA in f16."""
+    import torch.nn.functional as F
+
+    from awq_tpu_torch.ops import cache_append as ca
+    from awq_tpu_torch.ops import decode_attn as da
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    cfg, f16 = LLAMA3_8B, torch.float16
+    nq, nkv, hd = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"]
+    tol = 2.0 ** -6               # f16 output rounding, sums in other orders
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(f16)
+
+    def add(name, shape, got, ref, fn, plain, lib, nbytes, flops, library):
+        torch.cuda.synchronize()
+        err, rel = check(f"{name} {shape}", got, ref, tol)
+        b_ms, b_by = bound(nbytes, flops)
+        cases_out.append(dict(
+            name=name, shape=shape, max_abs_err=err, max_rel_err=rel,
+            tol=f"{tol:g}*max|ref|", ms=timer(fn), plain_ms=timer(plain, reps=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=timer(lib), library=library))
+        log_case(cases_out[-1])
+
+    for ragged, paged in (([1000], False), (RAGGED, True)):
+        b, mx, t = len(ragged), max(ragged), 2048
+        cache, q, kn, vn = rnd(2, b, nkv, t, hd), rnd(b, nq, hd), rnd(b, nkv, hd), rnd(b, nkv, hd)
+        lens = torch.tensor(ragged, dtype=torch.int32, device="cuda")
+        k_all = torch.cat([cache[0, :, :, :mx], kn[:, :, None]], dim=2)
+        v_all = torch.cat([cache[1, :, :, :mx], vn[:, :, None]], dim=2)
+        mask = torch.arange(mx + 1, device="cuda")[None, :] < lens[:, None]
+        mask[:, mx] = True
+        nbytes = (2 * b * nq * hd + 2 * b * nkv * hd + 2 * nkv * hd * sum(ragged)) * 2
+        flops = 4.0 * nq * hd * (sum(ragged) + b)
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k_all, v_all, attn_mask=mask[:, None, None, :], enable_gqa=True)
+
+        if not paged:
+            args = (q, kn, vn, cache, lens)
+            add("flash_decode", f"len={mx} nq={nq} nkv={nkv} f16",
+                da.flash_decode(*args, max_length=mx), da.flash_decode_plain(*args, max_length=mx),
+                lambda: da.flash_decode(*args, max_length=mx),
+                lambda: da.flash_decode_plain(*args, max_length=mx), lib, nbytes, flops,
+                "F.scaled_dot_product_attention in f16")
+            codes, scales = ca.quantize_kv(cache)
+            args8 = (q, kn, vn, codes, scales, lens)
+            add("flash_decode_int8", f"len={mx} nq={nq} nkv={nkv} f16 q",
+                da.flash_decode_int8(*args8, max_length=mx),
+                da.flash_decode_int8_plain(*args8, max_length=mx),
+                lambda: da.flash_decode_int8(*args8, max_length=mx),
+                lambda: da.flash_decode_int8_plain(*args8, max_length=mx), lib,
+                (2 * b * nq * hd + 2 * b * nkv * hd) * 2 + 2 * nkv * mx * (hd + 4), flops,
+                "F.scaled_dot_product_attention in f16 on the f16 cache")
+            del codes, scales
+        else:
+            pool, tables = scatter_pages(torch, cache[None], t // 256, 256, gen)
+            argp = (q, kn, vn, pool, tables, 0, lens)
+            add("flash_decode_paged", f"B={b} ragged len 0..{mx} page 256 f16",
+                da.flash_decode_paged(*argp, max_length=mx),
+                da.flash_decode_paged_plain(*argp, max_length=mx),
+                lambda: da.flash_decode_paged(*argp, max_length=mx),
+                lambda: da.flash_decode_paged_plain(*argp, max_length=mx), lib,
+                nbytes + sum(-(-n // 256) for n in ragged) * 4, flops,
+                "F.scaled_dot_product_attention in f16 on the gathered view")
+            del pool
+        del cache, k_all, v_all
+    s_, start, t = 512, 700, 2048
+    cache, q = rnd(2, 1, nkv, t, hd), rnd(1, s_, nq, hd)
+    end = start + s_
+    k_all, v_all = cache[0, :, :, :end].contiguous(), cache[1, :, :, :end].contiguous()
+    qt = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(end, device="cuda")[None, :]
+            <= (start + torch.arange(s_, device="cuda"))[:, None])
+    pairs = s_ * start + s_ * (s_ + 1) // 2
+    add("flash_prefill", f"S={s_} start={start} nq={nq} nkv={nkv} f16",
+        da.flash_prefill(q, cache, start), da.flash_prefill_plain(q, cache, start),
+        lambda: da.flash_prefill(q, cache, start),
+        lambda: da.flash_prefill_plain(q, cache, start),
+        lambda: F.scaled_dot_product_attention(qt, k_all, v_all, attn_mask=mask,
+                                               enable_gqa=True),
+        (2 * s_ * nq * hd + 2 * nkv * end * hd) * 2, 4.0 * nq * hd * pairs,
+        "F.scaled_dot_product_attention(attn_mask) in f16")
+
+
 def scatter_pages(torch, cache, mp, page, gen, need=None):
     """A slot cache ``[L, 2, B, nkv, mp*page, hd]`` scattered into a pool of
     permuted pages: ``(pool [L, 2, NP, nkv, page, hd], tables [B, mp] int32)``.
@@ -578,10 +702,13 @@ def qlinear_bytes(ql, layer=None) -> int:
     return n // ql.qweight.shape[0] if layer is not None else n
 
 
-def phase_megakernels(torch, timer, cases_out):
-    """Phase 2, continued: K4 (layer and token entries) and K5 against their
-    plain versions at Llama-3-8B width; the yardstick is the stacked
-    per-kernel path's device time for the same step."""
+def phase_megakernels(torch, timer, cases_out, w3=False):
+    """Phase 2, continued: K4 (layer and token entries), K5 and K6 (slot,
+    int8 and paged modes) against their plain versions at Llama-3-8B width;
+    the yardstick is the stacked per-kernel path's device time for the same
+    step. ``w3``: the same over a W3 model (pack_int3 linears and head), the
+    kernels' W3 modes, named with a ``_w3`` suffix; K4's int8 mode is
+    held over W4 only."""
     from awq_tpu_torch.config import ModelConfig, QuantConfig
     from awq_tpu_torch.models import llama
     from awq_tpu_torch.ops import megakernel as mk
@@ -593,14 +720,16 @@ def phase_megakernels(torch, timer, cases_out):
     cfg = ModelConfig(**LLAMA3_8B)
     h_dim, nq, nkv, hd, L = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                              cfg.head_dim, cfg.num_layers)
-    params = llama.fuse_linears(llama.init_qparams(cfg, QuantConfig(w_bit=4, group_size=G),
-                                                   gen), cfg)
+    w_bit, sfx, wname = (3, "_w3", "W3") if w3 else (4, "", "W4")
+    params = llama.fuse_linears(llama.init_qparams(
+        cfg, QuantConfig(w_bit=w_bit, group_size=G), gen), cfg)
     vocab = cfg.vocab_size
     s_head = (torch.rand((h_dim // G, vocab), generator=gen, device=dev) + 0.5) * 0.005
     params["lm_head"] = QLinear(
-        qweight=torch.randint(-(2**31), 2**31 - 1, (h_dim // 8, vocab), generator=gen,
+        qweight=torch.randint(-(2**31), 2**31 - 1,
+                              (h_dim * 3 // 32 if w3 else h_dim // 8, vocab), generator=gen,
                               dtype=torch.int32, device=dev),
-        scales=s_head, szeros=s_head * 8)
+        scales=s_head, szeros=s_head * 2 ** (w_bit - 1), w_bit=w_bit, dense3=w3)
     la = params["layers"]
     lins = (la["wqkv"], la["wo"], la["wgateup"], la["down"])
     args = lins + (la["ln1"], la["ln2"])
@@ -621,6 +750,7 @@ def phase_megakernels(torch, timer, cases_out):
 
     def record(name, shape, got, ref, tol, ms, plain_ms, yard_ms, nbytes, flops,
                yard="stacked per-kernel path, same step, device time (profiler)"):
+        name, shape = name + sfx, shape.replace("W4 head", f"{wname} head")
         err = rel = 0.0
         for i, (g, r) in enumerate(zip(got, ref)):
             e, r_ = check(f"{name} {shape} output {i}", g, r, tol)
@@ -673,49 +803,50 @@ def phase_megakernels(torch, timer, cases_out):
     # (yardstick: the bf16 layer step at the same length); the in-place
     # write is held as check_int8_write says
     kv8_pos = 2 * nkv * (hd + 4)              # int8 codes + f32 scale, per layer
-    codes, scales = quantize_cache(torch, cache)
-    c8 = [(codes, scales), (codes.clone(), scales.clone())]
-    one = torch.zeros(1, dtype=torch.long, device=dev)
-    at = torch.full((1,), length, dtype=torch.long, device=dev)
-    bf16_token_ms = ms
-    got = mk.w4a16_llama_token_step(*step[:9], c8[0][0], length, nq, nkv, eps,
-                                    cache_scales=c8[0][1], **head)
-    ref = mk.w4a16_llama_token_step_plain(*step[:9], c8[1][0], length, nq, nkv, eps,
-                                          cache_scales=c8[1][1], **head)
-    torch.cuda.synchronize()
-    check_int8_write(torch, "megakernel_token_int8", c8[0], c8[1],
-                     [x[:, None] for x in got[1:3]], one, at, tol_deep)
-    ms = timer(lambda: mk.w4a16_llama_token_step(*step[:9], c8[0][0], length, nq, nkv, eps,
-                                                 cache_scales=c8[0][1], **head))
-    plain_ms = timer(lambda: mk.w4a16_llama_token_step_plain(
-        *step[:9], c8[1][0], length, nq, nkv, eps, cache_scales=c8[1][1], **head), reps=2)
-    record("megakernel_token_int8", f"{L} layers + W4 head, len={length}", got, ref,
-           tol_deep, ms, plain_ms, bf16_token_ms,
-           L * (layer_bytes + kv8_pos * (length + 1)) + head_bytes, token_flops,
-           yard="K4 over the bf16 cache, same step")
-    for x, y in zip(*c8):     # the token step wrote both: start the layer entry equal
-        x.copy_(y)
-    got = mk.w4a16_llama_layer_step(*step[:9], c8[0][0], layer, length, nq, nkv, eps,
-                                    cache_scales=c8[0][1])
-    ref = mk.w4a16_llama_layer_step_plain(*step[:9], c8[1][0], layer, length, nq, nkv, eps,
-                                          cache_scales=c8[1][1])
-    torch.cuda.synchronize()
-    pick = torch.arange(L, device=dev) == layer         # only layer `layer` is written
-    check_int8_write(torch, "megakernel_layer_int8",
-                     tuple(x[pick] for x in c8[0]), tuple(x[pick] for x in c8[1]),
-                     [x[:, None] for x in got[1:3]], one, at, tol_layer)
-    for x, y in zip(c8[0], c8[1]):
-        if not torch.equal(x[~pick], y[~pick]):
-            raise AssertionError("megakernel_layer_int8: the kernel wrote another layer")
-    ms = timer(lambda: mk.w4a16_llama_layer_step(*step[:9], c8[0][0], layer, length, nq, nkv,
-                                                 eps, cache_scales=c8[0][1]))
-    plain_ms = timer(lambda: mk.w4a16_llama_layer_step_plain(
-        *step[:9], c8[1][0], layer, length, nq, nkv, eps, cache_scales=c8[1][1]), reps=3)
-    record("megakernel_layer_int8", f"layer {layer} len={length}", got, ref, tol_layer, ms,
-           plain_ms, layer_ms[length], layer_bytes + kv8_pos * (length + 1),
-           layer_flops + 4.0 * nq * hd * (length + 1),
-           yard="K4 layer entry over the bf16 cache, same length")
-    del codes, scales, c8
+    if not w3:
+        codes, scales = quantize_cache(torch, cache)
+        c8 = [(codes, scales), (codes.clone(), scales.clone())]
+        one = torch.zeros(1, dtype=torch.long, device=dev)
+        at = torch.full((1,), length, dtype=torch.long, device=dev)
+        bf16_token_ms = ms
+        got = mk.w4a16_llama_token_step(*step[:9], c8[0][0], length, nq, nkv, eps,
+                                        cache_scales=c8[0][1], **head)
+        ref = mk.w4a16_llama_token_step_plain(*step[:9], c8[1][0], length, nq, nkv, eps,
+                                              cache_scales=c8[1][1], **head)
+        torch.cuda.synchronize()
+        check_int8_write(torch, "megakernel_token_int8", c8[0], c8[1],
+                         [x[:, None] for x in got[1:3]], one, at, tol_deep)
+        ms = timer(lambda: mk.w4a16_llama_token_step(*step[:9], c8[0][0], length, nq, nkv, eps,
+                                                     cache_scales=c8[0][1], **head))
+        plain_ms = timer(lambda: mk.w4a16_llama_token_step_plain(
+            *step[:9], c8[1][0], length, nq, nkv, eps, cache_scales=c8[1][1], **head), reps=2)
+        record("megakernel_token_int8", f"{L} layers + W4 head, len={length}", got, ref,
+               tol_deep, ms, plain_ms, bf16_token_ms,
+               L * (layer_bytes + kv8_pos * (length + 1)) + head_bytes, token_flops,
+               yard="K4 over the bf16 cache, same step")
+        for x, y in zip(*c8):     # the token step wrote both: start the layer entry equal
+            x.copy_(y)
+        got = mk.w4a16_llama_layer_step(*step[:9], c8[0][0], layer, length, nq, nkv, eps,
+                                        cache_scales=c8[0][1])
+        ref = mk.w4a16_llama_layer_step_plain(*step[:9], c8[1][0], layer, length, nq, nkv, eps,
+                                              cache_scales=c8[1][1])
+        torch.cuda.synchronize()
+        pick = torch.arange(L, device=dev) == layer         # only layer `layer` is written
+        check_int8_write(torch, "megakernel_layer_int8",
+                         tuple(x[pick] for x in c8[0]), tuple(x[pick] for x in c8[1]),
+                         [x[:, None] for x in got[1:3]], one, at, tol_layer)
+        for x, y in zip(c8[0], c8[1]):
+            if not torch.equal(x[~pick], y[~pick]):
+                raise AssertionError("megakernel_layer_int8: the kernel wrote another layer")
+        ms = timer(lambda: mk.w4a16_llama_layer_step(*step[:9], c8[0][0], layer, length, nq, nkv,
+                                                     eps, cache_scales=c8[0][1]))
+        plain_ms = timer(lambda: mk.w4a16_llama_layer_step_plain(
+            *step[:9], c8[1][0], layer, length, nq, nkv, eps, cache_scales=c8[1][1]), reps=3)
+        record("megakernel_layer_int8", f"layer {layer} len={length}", got, ref, tol_layer, ms,
+               plain_ms, layer_ms[length], layer_bytes + kv8_pos * (length + 1),
+               layer_flops + 4.0 * nq * hd * (length + 1),
+               yard="K4 layer entry over the bf16 cache, same length")
+        del codes, scales, c8
 
     for s in (16, 32):
         for hist in (0, 700):
@@ -879,6 +1010,16 @@ SERVE_PATHS = {
                            "cache_append_int8"),
                      ("megakernel_token", "megakernel_token_int8", "megakernel_chunk",
                       "flash_decode")),
+    # the W3 model (phase 3e): the megakernels' W3 modes, prompts over 32
+    # tokens on K1's W3 GEMM and K3 (and the head after them on its GEMV);
+    # no W4 kernel anywhere
+    "megakernels_w3": (None, ("megakernel_token_w3", "megakernel_chunk_w3", "w3a16_gemm",
+                              "flash_prefill"),
+                       ("megakernel_token", "megakernel_chunk", "w4a16_gemv", "w4a16_gemm",
+                        "flash_decode")),
+    "stacked_w3": ("1", ("w3a16_gemv", "w3a16_gemm", "flash_decode", "flash_prefill"),
+                   ("megakernel_token_w3", "megakernel_chunk_w3", "w4a16_gemv",
+                    "w4a16_gemm")),
 }
 
 
@@ -926,6 +1067,7 @@ def phase_serve(torch, layers: int):
     from awq_tpu_torch.runtime.engine import InferenceEngine
 
     cfg = ModelConfig(**{**LLAMA3_8B, "num_layers": layers})
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     params = init_qparams(cfg, QuantConfig(w_bit=4, group_size=G),
                           torch.Generator(device="cuda").manual_seed(0))
@@ -938,12 +1080,14 @@ def phase_serve(torch, layers: int):
         f"{engine.params['embed'].numel() * 2 / 1e9:.3f} GB, KV cache "
         f"{cache_bytes(engine.cache) / 1e9:.3f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()      # serving's peak, the build left out
     out_launches, ids = serve_single(torch, engine, cfg, ("megakernels", "stacked"))
-    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  peak device memory while serving {peak:.2f} GiB")
     params = engine.params
     del engine
     torch.cuda.empty_cache()
-    return out_launches, cfg, params, ids["megakernels"]
+    return out_launches, cfg, params, ids["megakernels"], peak
 
 
 def serve_single(torch, engine, cfg, labels):
@@ -1033,6 +1177,71 @@ def phase_serve_int8(torch, cfg, params, single_ids, slot_ids, slot_peak):
         compare_ids(label, bids[label], slot_ids, "phase 3b's on the bf16 K6")
         log(f"  [{label}] peak device memory {peaks[label]:.2f} GiB against "
             f"{slot_peak:.2f} GiB for phase 3b's bf16 engine on K6")
+    return out_launches
+
+
+def phase_serve_w3(torch, layers, w4, single_ids, slot_ids):
+    """Phase 3e, the W3 model: W3-g128 weights in pack_int3 and a W3 head
+    from ``quantize_head``, at ``layers`` layers of Llama-3-8B's width.
+    Phase 3's four requests through InferenceEngine and phase 3b's twelve
+    through an 8-slot BatchEngine, each on the megakernels' W3 modes (K4,
+    K5, K6) and with ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` (K1's W3 mode); then
+    the twelve once more on K6's int8 and paged W3 modes. ``w4`` holds
+    phase 3's and 3b's W4 weight bytes and peak memory. Prints the weight
+    bytes and peak device memory against W4 and how many requests' greedy
+    ids equal the W4 runs' (information: W3 changes the numbers). Returns
+    {config: launches}."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig, RuntimeConfig
+    from awq_tpu_torch.models.llama import init_qparams
+    from awq_tpu_torch.runtime.engine import InferenceEngine
+    from awq_tpu_torch.runtime.paged import PagedBatchEngine
+
+    cfg = ModelConfig(**{**LLAMA3_8B, "num_layers": layers})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_qparams(cfg, QuantConfig(w_bit=3, group_size=G),
+                          torch.Generator(device="cuda").manual_seed(0))
+    engine = InferenceEngine(cfg, params,
+                             RuntimeConfig(max_seq_len=2048, quantize_head=True))
+    del params
+    torch.cuda.synchronize()
+    w3_bytes = weight_bytes(engine.params)
+    log(f"  model: {layers} layers at Llama-3-8B width, W3 (pack_int3) weights+head "
+        f"{w3_bytes / 1e9:.3f} GB against {w4['weight_bytes'] / 1e9:.3f} GB in W4 "
+        f"({w3_bytes / w4['weight_bytes']:.3f}x), built in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()      # serving's peak, as phase 3's
+    out_launches, ids = serve_single(torch, engine, cfg, ("megakernels_w3", "stacked_w3"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  peak device memory while serving {peak:.2f} GiB against "
+        f"{w4['single_peak']:.2f} GiB for phase 3's W4 engine")
+    for label in ids:
+        compare_ids(label, ids[label], single_ids, "phase 3's W4 run on the megakernels")
+    params = engine.params
+    del engine
+    batched, bids, peaks = phase_serve_batched(
+        torch, cfg, params, labels=("batched_w3", "batched_stacked_w3"))
+    out_launches.update(batched)
+    for label in bids:
+        compare_ids(label, bids[label], slot_ids, "phase 3b's W4 run on K6")
+        log(f"  [{label}] peak device memory {peaks[label]:.2f} GiB against "
+            f"{w4['slot_peak']:.2f} GiB for phase 3b's W4 engine on K6")
+    batched, _, _ = phase_serve_batched(torch, cfg, params, "int8", labels=("batched_int8_w3",))
+    out_launches.update(batched)
+    label = "paged_w3"
+    disable, must, off = BATCH_PATHS[label]
+    set_config(disable)
+    engine = PagedBatchEngine(cfg, params, n_slots=BATCH_SLOTS, max_seq_len=2048,
+                              page_size=PAGE)
+    done, launches, _ = drive(torch, engine, batch_prompts(cfg), label, cfg)
+    agree = sum(r.out_ids == ref for r, ref in zip(done, bids["batched_w3"]))
+    log(f"  [{label}] greedy ids equal the W3 slot engine's on K6 for {agree}/{BATCH_REQUESTS} "
+        "requests")
+    if agree != BATCH_REQUESTS:
+        raise AssertionError(f"[{label}] greedy ids differ from the W3 slot engine's on K6")
+    check_path(label, launches, must, off)
+    out_launches[label] = launches
+    del engine, params
+    torch.cuda.empty_cache()
     return out_launches
 
 
@@ -1202,19 +1411,36 @@ BATCH_PATHS = {
                              ("megakernel_batched", "megakernel_batched_int8",
                               "megakernel_chunk", "megakernel_token", "megakernel_token_int8",
                               "flash_decode", "cache_append")),
+    "batched_w3": (None, ("megakernel_batched_w3", "megakernel_chunk_w3", "w3a16_gemm",
+                          "flash_prefill"),
+                   ("megakernel_batched", "megakernel_chunk", "w4a16_gemm", "cache_append",
+                    "flash_decode")),
+    "batched_stacked_w3": ("1", ("w3a16_gemv", "w3a16_gemm", "flash_decode", "flash_prefill",
+                                 "cache_append"),
+                           ("megakernel_batched_w3", "megakernel_chunk_w3",
+                            "megakernel_token_w3", "w4a16_gemv", "w4a16_gemm")),
+    # K6's int8 and paged W3 modes, on K6 only
+    "batched_int8_w3": (None, ("megakernel_batched_int8_w3", "w3a16_gemm", "flash_prefill"),
+                        ("megakernel_batched_w3", "megakernel_batched_int8",
+                         "megakernel_chunk_w3", "flash_decode_int8", "cache_append_int8")),
+    "paged_w3": (None, ("megakernel_batched_paged_w3", "megakernel_chunk_w3", "w3a16_gemm",
+                        "flash_prefill"),
+                 ("megakernel_batched_paged", "megakernel_batched_w3", "flash_decode_paged",
+                  "cache_append_paged")),
 }
 
 
-def phase_serve_batched(torch, cfg, params, cache_dtype=None):
+def phase_serve_batched(torch, cfg, params, cache_dtype=None, labels=None):
     """Phase 3b (and 3d with ``cache_dtype="int8"``): twelve requests through
-    an 8-slot BatchEngine, on K6 and on the stacked path; returns {config:
-    launches}, {config: greedy ids} and {config: peak device memory, GiB}."""
+    an 8-slot BatchEngine, on K6 and on the stacked path (or the BATCH_PATHS
+    ``labels``); returns {config: launches}, {config: greedy ids} and
+    {config: peak device memory, GiB}."""
     from awq_tpu_torch.runtime.batch_engine import BatchEngine
 
     prompts = batch_prompts(cfg)
     out_launches, ids, peaks = {}, {}, {}
     sfx = "" if cache_dtype is None else f"_{cache_dtype}"
-    for label in ("batched" + sfx, "batched_stacked" + sfx):
+    for label in labels or ("batched" + sfx, "batched_stacked" + sfx):
         disable, must, off = BATCH_PATHS[label]
         set_config(disable)
         log(f"  [{label}] AWQ_TPU_DISABLE_MEGAKERNEL={disable or 'unset'}")
@@ -1244,10 +1470,11 @@ def phase_serve_batched(torch, cfg, params, cache_dtype=None):
         del engine
         torch.cuda.empty_cache()
     set_config(None)
-    a, b = ids.values()
-    log(f"  greedy ids of the two paths agree on {sum(x == y for x, y in zip(a, b))}/"
-        f"{BATCH_REQUESTS} requests (random weights: a rounding difference can flip an "
-        "argmax and the rest follows)")
+    if len(ids) == 2:
+        a, b = ids.values()
+        log(f"  greedy ids of the two paths agree on {sum(x == y for x, y in zip(a, b))}/"
+            f"{BATCH_REQUESTS} requests (random weights: a rounding difference can flip an "
+            "argmax and the rest follows)")
     return out_launches, ids, peaks
 
 
@@ -1447,10 +1674,93 @@ def phase_model_parity(torch):
     set_config(None)
 
 
+def phase_model_parity_w3_f16(torch):
+    """Phase 4, continued: a 2-layer W3 model (pack_int3 linears and head)
+    through forward on the stacked path (K1's W3 mode) and on the
+    megakernels (K4, K5 W3 modes), one decode_step_batched (K6 W3) and one
+    decode_step_paged (K6's paged W3 mode) of 8 ragged rows, kernel path
+    against plain path; then an f16 W4 model with an f16 cache on the
+    stacked path (K1, K2, K3 over f16). Tolerance 5e-2 of the largest
+    logit, as for the W4 model."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig
+    from awq_tpu_torch.models import llama
+
+    tol = 5e-2
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def run_forward(label, params, cfg, disable, prompt, must, dtype):
+        set_config(disable)
+        caches = [llama.init_cache(cfg, 1, 512, dtype) for _ in range(2)]
+        reset_counters()
+        rng = torch.Generator().manual_seed(3)
+        steps = [torch.randint(0, cfg.vocab_size, (1, prompt), generator=rng)] + [
+            torch.randint(0, cfg.vocab_size, (1, 1), generator=rng) for _ in range(8)]
+        pos, agree, worst = 0, 0, 0.0
+        for toks in steps:
+            toks = toks.cuda()
+            got, _ = llama.forward(params, cfg, toks, caches[0], pos)
+            ref, _ = llama.forward(params, cfg, toks, caches[1], pos, impl="plain")
+            err, rel = check(f"[{label}] forward at start_pos {pos}", got, ref, tol)
+            worst = max(worst, rel)
+            agree += int(torch.equal(got[:, -1].argmax(-1), ref[:, -1].argmax(-1)))
+            pos += toks.shape[1]
+        check_path(label, read_counters(), must, ())
+        log(f"  [{label}] {prompt}-token prefill + 8 decodes, logits kernel vs plain: "
+            f"worst max_abs_err/max|ref| {worst:.3e} (tol {tol:g}); greedy ids agree "
+            f"on {agree}/{len(steps)} steps")
+
+    cfg = ModelConfig(**{**LLAMA3_8B, "num_layers": 2})
+    params = llama.init_qparams(cfg, QuantConfig(w_bit=3, group_size=G),
+                                torch.Generator(device="cuda").manual_seed(1))
+    params = llama.fuse_linears(llama.quantize_head(params, cfg), cfg)
+    assert params["lm_head"].dense3
+    run_forward("stacked_w3", params, cfg, "1", 100, ("w3a16_gemv", "w3a16_gemm"),
+                torch.bfloat16)
+    run_forward("megakernels_w3", params, cfg, None, 20,
+                ("megakernel_token_w3", "megakernel_chunk_w3"), torch.bfloat16)
+    ragged = [300, 0, 17, 511 - 1, 64, 255, 128, 5]
+    lens = torch.tensor(ragged, dtype=torch.int32, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (8,), generator=gen, device="cuda")
+    base = llama.init_kv_cache(cfg, 8, 512)
+    base.normal_(generator=gen)
+    pool, tables = scatter_pages(torch, base, 4, 128, gen)
+    set_config(None)
+    for label, step, cache, kw, must in (
+            ("batched_w3", llama.decode_step_batched, base, {}, "megakernel_batched_w3"),
+            ("paged_w3", llama.decode_step_paged, pool, {"tables": tables},
+             "megakernel_batched_paged_w3")):
+        caches = [cache.clone(), cache.clone()]
+        reset_counters()
+        args = (params, cfg, toks)
+        if kw:
+            got, _ = step(*args, caches[0], tables, lens, max_length=max(ragged))
+            ref, _ = step(*args, caches[1], tables, lens, impl="plain")
+        else:
+            got, _ = step(*args, caches[0], lens, max_length=max(ragged))
+            ref, _ = step(*args, caches[1], lens, impl="plain")
+        torch.cuda.synchronize()
+        check_path(label, read_counters(), (must,), ())
+        err, rel = check(f"[{label}] one step's logits", got, ref, tol)
+        cerr, _ = check(f"[{label}] one step's cache", caches[0], caches[1], tol)
+        agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+        log(f"  [{label}] one step of 8 rows at lengths {ragged}, kernel vs plain: logits "
+            f"max_abs_err/max|ref| {rel:.3e} (tol {tol:g}), cache max_abs_err {cerr:.3e}; "
+            f"greedy ids agree on {agree}/8 rows")
+    del params, base, pool
+    cfg16 = ModelConfig(**{**LLAMA3_8B, "num_layers": 2, "dtype": "float16"})
+    params = llama.init_qparams(cfg16, QuantConfig(w_bit=4, group_size=G),
+                                torch.Generator(device="cuda").manual_seed(2))
+    params = llama.fuse_linears(llama.quantize_head(params, cfg16), cfg16)
+    run_forward("stacked_f16", params, cfg16, "1", 100,
+                ("w4a16_gemv", "w4a16_gemm", "flash_decode", "flash_prefill"), torch.float16)
+    set_config(None)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--layers", type=int, default=32,
-                    help="decoder layers of the served model (width is Llama-3-8B's)")
+                    help="decoder layers of the W4 model of phases 3-3d and the W3 "
+                         "model of phase 3e (width is Llama-3-8B's)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1489,13 +1799,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_megakernels(torch, timer, cases)
     torch.cuda.empty_cache()
+    phase_megakernels(torch, timer, cases, w3=True)
+    torch.cuda.empty_cache()
     phase_int8_kernels(torch, timer, cases)
+    phase_f16_attention(torch, timer, cases)
     del timer
     torch.cuda.empty_cache()
 
     log(f"phase 3: serve four requests, Llama-3-8B width, {args.layers} layers, "
         "on the megakernels and on the stacked path")
-    launches, cfg, params, single_ids = phase_serve(torch, args.layers)
+    launches, cfg, params, single_ids, single_peak = phase_serve(torch, args.layers)
+    w4 = dict(weight_bytes=weight_bytes(params), single_peak=single_peak)
 
     log(f"phase 3b: serve twelve requests through an 8-slot BatchEngine, {args.layers} "
         "layers, on the batched megakernel and on the stacked batched path")
@@ -1516,13 +1830,25 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    log(f"phase 3e: the W3 model (pack_int3 weights and head), {args.layers} layers: "
+        "phase 3's four requests through InferenceEngine and phase 3b's twelve through an "
+        "8-slot BatchEngine, on the megakernels' W3 modes and on K1's; then the twelve on "
+        "K6's int8 and paged W3 modes")
+    w4["slot_peak"] = peaks["batched"]
+    launches.update(phase_serve_w3(torch, args.layers, w4, single_ids, slot_ids))
+
     log("phase 4: forward, kernel path against plain path (2 layers)")
     phase_model_parity(torch)
+    phase_model_parity_w3_f16(torch)
 
-    sources = {"w4a16_gemv": ("awq_tpu_torch/csrc/w4a16.cu",
+    sources = {"w4a16_gemv": ("awq_tpu_torch/csrc/w4a16.cuh",
                               "awq_tpu/ops/w4a16.py:388"),
-               "w4a16_gemm": ("awq_tpu_torch/csrc/w4a16.cu",
+               "w4a16_gemm": ("awq_tpu_torch/csrc/w4a16.cuh",
                               "awq_tpu/ops/w4a16.py:388"),
+               "w3a16_gemv": ("awq_tpu_torch/csrc/w4a16.cuh",
+                              "awq_tpu/ops/w4a16.py:310"),
+               "w3a16_gemm": ("awq_tpu_torch/csrc/w4a16.cuh",
+                              "awq_tpu/ops/w4a16.py:310"),
                "flash_decode": ("awq_tpu_torch/csrc/decode_attn.cu",
                                 "awq_tpu/ops/decode_attn.py:394"),
                "flash_prefill": ("awq_tpu_torch/csrc/decode_attn.cu",
@@ -1550,7 +1876,19 @@ def main() -> int:
                "megakernel_batched_int8": ("awq_tpu_torch/csrc/megakernel_batched.cu",
                                            "awq_tpu/ops/megakernel_batched.py:531"),
                "cache_append_int8": ("awq_tpu_torch/csrc/cache_append.cu",
-                                     "awq_tpu/models/llama.py:1313")}
+                                     "awq_tpu/models/llama.py:1313"),
+               "megakernel_token_w3": ("awq_tpu_torch/csrc/megakernel.cu",
+                                       "awq_tpu/ops/megakernel.py:1047"),
+               "megakernel_layer_w3": ("awq_tpu_torch/csrc/megakernel.cu",
+                                       "awq_tpu/ops/megakernel.py:954"),
+               "megakernel_chunk_w3": ("awq_tpu_torch/csrc/megakernel_chunk.cu",
+                                       "awq_tpu/ops/megakernel_chunk.py:295"),
+               "megakernel_batched_w3": ("awq_tpu_torch/csrc/megakernel_batched.cu",
+                                         "awq_tpu/ops/megakernel_batched.py:531"),
+               "megakernel_batched_int8_w3": ("awq_tpu_torch/csrc/megakernel_batched.cu",
+                                              "awq_tpu/ops/megakernel_batched.py:531"),
+               "megakernel_batched_paged_w3": ("awq_tpu_torch/csrc/megakernel_batched.cu",
+                                               "awq_tpu/ops/megakernel_batched.py:531")}
     # one representative shape per kernel in the summary; every case is
     # printed above
     pick = {"w4a16_gemv": "wgateup M=1 ", "w4a16_gemm": "wgateup M=1000",
@@ -1561,7 +1899,13 @@ def main() -> int:
             "flash_decode_paged": "B=8", "megakernel_batched_paged": "32 layers + W4 head, B=8",
             "cache_append_paged": "L=32", "flash_decode_int8": "len=4000",
             "megakernel_token_int8": "32 layers",
-            "megakernel_batched_int8": "32 layers + W4 head, B=8", "cache_append_int8": "L=32"}
+            "megakernel_batched_int8": "32 layers + W4 head, B=8", "cache_append_int8": "L=32",
+            "w3a16_gemv": "wgateup M=1 ", "w3a16_gemm": "wgateup M=1000",
+            "megakernel_token_w3": "32 layers", "megakernel_layer_w3": "layer 5 len=1000",
+            "megakernel_chunk_w3": "32 layers S=32 hist=700",
+            "megakernel_batched_w3": "32 layers + W3 head, B=8",
+            "megakernel_batched_int8_w3": "32 layers + W3 head, B=8",
+            "megakernel_batched_paged_w3": "32 layers + W3 head, B=8"}
     # launches: each kernel's count on its own path's run in phases 3, 3b
     # and 3c (the stacked path carries K1-K3, the megakernels K4-K5, the
     # batched engine K6, its stacked path K7, the paged engine K6's and K7's
@@ -1574,7 +1918,12 @@ def main() -> int:
             "cache_append_paged": "paged_stacked", "flash_decode_int8": "stacked_int8",
             "megakernel_token_int8": "megakernels_int8",
             "megakernel_batched_int8": "batched_int8",
-            "cache_append_int8": "batched_stacked_int8"}
+            "cache_append_int8": "batched_stacked_int8",
+            "w3a16_gemv": "stacked_w3", "w3a16_gemm": "stacked_w3",
+            "megakernel_token_w3": "megakernels_w3", "megakernel_layer_w3": "megakernels_w3",
+            "megakernel_chunk_w3": "megakernels_w3", "megakernel_batched_w3": "batched_w3",
+            "megakernel_batched_int8_w3": "batched_int8_w3",
+            "megakernel_batched_paged_w3": "paged_w3"}
     kernels = []
     for name, (src, replaces) in sources.items():
         c = next(c for c in cases if c["name"] == name and c["shape"].startswith(pick[name]))

@@ -30,6 +30,10 @@ from awq_tpu_torch.runtime.batch_engine import BatchEngine as TBatchEngine
 from awq_tpu_torch.serve.batch_worker import BatchWorker
 from awq_tpu_torch.serve.http import post_json, post_stream
 
+# One intra-op thread: the CPU tensors here are tiny, and the test workers
+# share the cores (eight threads per worker oversubscribe them many times).
+torch.set_num_threads(1)
+
 GEOM = dict(arch="llama", vocab_size=512, hidden_size=512,
             intermediate_size=1024, num_layers=2, num_heads=4, num_kv_heads=2,
             head_dim=128, max_position_embeddings=256, dtype="float32")
@@ -132,8 +136,27 @@ def _run(engine, gen_cls, reqs, stops, late=2):
     return [done[r] for r in rids]
 
 
+@pytest.fixture(scope="module")
+def jax_batch_ref(model):
+    """The JAX engine's side of ``test_batch_engine_greedy_ids_match_jax``,
+    run once for both cases: the requests, the stop ids taken from a first
+    run's own output, and the run with those stops."""
+    jcfg, jparams, _, _ = model
+    reqs = _requests()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("AWQ_TPU_FORCE_MEGAKERNEL", raising=False)
+        mp.delenv("AWQ_TPU_DISABLE_MEGAKERNEL", raising=False)
+        probe = _run(JBatchEngine(jcfg, jparams, n_slots=3, max_seq_len=T,
+                                  cache_dtype=jnp.float32), JGen, reqs, {})
+        stops = {1: (probe[1].out_ids[3],), 4: (probe[4].out_ids[1],)}
+        ref = _run(JBatchEngine(jcfg, jparams, n_slots=3, max_seq_len=T,
+                                cache_dtype=jnp.float32), JGen, reqs, stops)
+    assert len(ref[1].out_ids) <= 3 and len(ref[4].out_ids) <= 1
+    return reqs, stops, ref
+
+
 @pytest.mark.parametrize("mega", [False, True])
-def test_batch_engine_greedy_ids_match_jax(model, mega, monkeypatch):
+def test_batch_engine_greedy_ids_match_jax(model, jax_batch_ref, mega, monkeypatch):
     """Greedy ids of the port's ``BatchEngine`` equal the JAX engine's bit
     for bit: six requests through three slots (so prompts are admitted into
     slots 1 and 2 and into freed slots while others decode), mixed prompt
@@ -145,16 +168,10 @@ def test_batch_engine_greedy_ids_match_jax(model, mega, monkeypatch):
     megakernels round their matmul inputs to bf16, so this holds only while
     no argmax of these requests lies within that rounding: true of this
     seed (the test is deterministic on the CPU)."""
-    jcfg, jparams, tcfg, tparams = model
+    _, _, tcfg, tparams = model
     monkeypatch.delenv("AWQ_TPU_FORCE_MEGAKERNEL", raising=False)
     monkeypatch.delenv("AWQ_TPU_DISABLE_MEGAKERNEL", raising=False)
-    reqs = _requests()
-    probe = _run(JBatchEngine(jcfg, jparams, n_slots=3, max_seq_len=T,
-                              cache_dtype=jnp.float32), JGen, reqs, {})
-    stops = {1: (probe[1].out_ids[3],), 4: (probe[4].out_ids[1],)}
-    ref = _run(JBatchEngine(jcfg, jparams, n_slots=3, max_seq_len=T,
-                            cache_dtype=jnp.float32), JGen, reqs, stops)
-    assert len(ref[1].out_ids) <= 3 and len(ref[4].out_ids) <= 1
+    reqs, stops, ref = jax_batch_ref
     if mega:
         monkeypatch.setenv("AWQ_TPU_FORCE_MEGAKERNEL", "1")
     eng = TBatchEngine(tcfg, tparams, n_slots=3, max_seq_len=T,

@@ -10,6 +10,10 @@ import torch
 
 from awq_tpu_torch.ops import cache_append as tca
 
+# One intra-op thread: the CPU tensors here are tiny, and the test workers
+# share the cores (eight threads per worker oversubscribe them many times).
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda():

@@ -13,6 +13,10 @@ import torch
 from awq_tpu_torch.convert import params_from_jax
 from awq_tpu_torch.quant.packing import pack_int4, unpack_int4
 
+# One intra-op thread: the CPU tensors here are tiny, and the test workers
+# share the cores (eight threads per worker oversubscribe them many times).
+torch.set_num_threads(1)
+
 
 def _stacked(L=2, ic=256, oc=384, seed=0):
     import jax
@@ -65,6 +69,8 @@ def test_tiled_head_comes_back_2d_and_dense3_raises():
     got = params_from_jax(jax.device_get({"lm_head": head}), device="cpu")["lm_head"]
     assert got.qweight.dim() == 2 and tuple(got.scales.shape) == (2, 512)
     ql = _stacked()
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # dense3 is the 3-bit layout (tests/test_torch_w3.py converts it); a
+    # QLinear that claims it for 4-bit codes is refused
+    with pytest.raises(ValueError, match="dense3=True"):
         params_from_jax(jax.device_get({"x": dataclasses.replace(
-            ql, w_bit=3, dense3=True)}), device="cpu")
+            ql, w_bit=4, dense3=True)}), device="cpu")

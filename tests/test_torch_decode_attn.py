@@ -14,6 +14,10 @@ import torch
 
 from awq_tpu_torch.ops import decode_attn as tda
 
+# One intra-op thread: the CPU tensors here are tiny, and the test workers
+# share the cores (eight threads per worker oversubscribe them many times).
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda():

@@ -29,6 +29,10 @@ from awq_tpu_torch.convert import params_from_jax
 from awq_tpu_torch.runtime import sampling as tsampling
 from awq_tpu_torch.runtime.engine import InferenceEngine as TEngine
 
+# One intra-op thread: the CPU tensors here are tiny, and the test workers
+# share the cores (eight threads per worker oversubscribe them many times).
+torch.set_num_threads(1)
+
 GEOM = dict(arch="llama", vocab_size=512, hidden_size=512,
             intermediate_size=1024, num_layers=2, num_heads=4, num_kv_heads=2,
             head_dim=128, max_position_embeddings=256, dtype="float32")
@@ -47,11 +51,18 @@ def _jax_round(jeng, prompt, gen, stop_ids, pending):
     return ids, (int(ids[-1]) if unfed else None)
 
 
-def _engines(src_fused):
+def _engines(src_fused, jax_side=True):
+    """``(JAX engine, port engine)`` over one model; ``jax_side=False``
+    builds the port's only (None in the JAX engine's place), from the
+    unfused tree."""
     jcfg, tcfg = JConfig(**GEOM), TConfig(**GEOM)
     jparams = jllama.quantize_params(
         jllama.init_params(jcfg, jax.random.PRNGKey(2)),
         JQuant(w_bit=4, group_size=128))
+    if not jax_side:
+        return None, TEngine(tcfg, params_from_jax(jax.device_get(jparams), device="cpu"),
+                             TRuntime(max_seq_len=256), cache_dtype=torch.float32,
+                             device="cpu")
     jeng = JEngine(jcfg, jparams, JRuntime(max_seq_len=256),
                    cache_dtype=jnp.float32)
     # the JAX engine fuses and folds; its XLA path computes with the f32
@@ -63,37 +74,54 @@ def _engines(src_fused):
     return jeng, teng
 
 
-@pytest.mark.parametrize("stop", [(), (None,)])
-def test_engine_greedy_ids_bit_exact(stop):
-    """Stacked path (JAX: XLA). Round 1 ends without a stop, so its last id
-    is fed at the start of round 2 on both sides (the JAX side by hand)."""
-    jeng, teng = _engines(src_fused=False)
+def _jax_rounds(jeng, prompts, stop_round2):
+    """Rounds 1-3 of ``test_engine_greedy_ids_bit_exact`` on the JAX
+    engine: ``[(ids, stop_ids, start_pos after the round, pending)]``."""
+    out, pending = [], None
+    for rnd, (prompt, n) in enumerate(((prompts[0], 16), (prompts[1], 16), (prompts[0], 4))):
+        stop_ids = stop_round2 if rnd == 1 else ()
+        ids, pending = _jax_round(jeng, prompt, JGen(greedy=True, max_new_tokens=n),
+                                  stop_ids, pending)
+        out.append((ids, stop_ids, jeng.start_pos, pending))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_greedy_rounds():
+    """The JAX engine's side of both cases of
+    ``test_engine_greedy_ids_bit_exact``, from one engine: three rounds
+    without a stop, then the same three again from a fresh cache with
+    round 2 stopped on the token it emitted 5th without one (JAX arrays
+    are immutable, so a saved cache restores the engine's state)."""
+    jeng, _ = _engines(src_fused=False)
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, 512, 7).tolist(), rng.integers(0, 512, 5).tolist()]
-    stop_ids, pending = (), None
-    for rnd, prompt in enumerate(prompts):
-        jg, tg = JGen(greedy=True, max_new_tokens=16), TGen(greedy=True, max_new_tokens=16)
-        if stop and rnd == 1:
-            # stop round 2 on the token the JAX engine would emit 5th: this
-            # exercises the stop logic and the KV written after the stop,
-            # which round 3 reads. (JAX arrays are immutable, so the probe
-            # leaves the engine's state as it was.)
-            cache, pos = jeng.cache, jeng.start_pos
-            probe, _ = _jax_round(jeng, prompt, jg, (), pending)
-            jeng.cache, jeng.start_pos = cache, pos
-            stop_ids = (int(probe[4]),)
-        jids, pending = _jax_round(jeng, prompt, jg, stop_ids, pending)
+    fresh = (jeng.cache, jeng.start_pos)
+    plain = _jax_rounds(jeng, prompts, ())
+    jeng.cache, jeng.start_pos = fresh
+    stopped = _jax_rounds(jeng, prompts, (int(plain[1][0][4]),))
+    return prompts, {(): plain, (None,): stopped}
+
+
+@pytest.mark.parametrize("stop", [(), (None,)])
+def test_engine_greedy_ids_bit_exact(stop, jax_greedy_rounds):
+    """Stacked path (JAX: XLA). Round 1 ends without a stop, so its last id
+    is fed at the start of round 2 on both sides (the JAX side by hand).
+    With ``stop``, round 2 stops on the token the JAX engine would emit
+    5th: this exercises the stop logic and the KV written after the stop,
+    which round 3 reads. The round-3 answer depends on the KV of the
+    earlier rounds: it agrees as well."""
+    prompts, rounds = jax_greedy_rounds
+    _, teng = _engines(src_fused=False, jax_side=False)
+    for rnd, (jids, stop_ids, jpos, pending) in enumerate(rounds[stop]):
+        prompt = prompts[1] if rnd == 1 else prompts[0]
+        tg = TGen(greedy=True, max_new_tokens=4 if rnd == 2 else 16)
         tout = teng.generate(prompt, tg, stop_ids=stop_ids)
         np.testing.assert_array_equal(tout["output_ids"].numpy(), jids)
-        assert teng.start_pos == jeng.start_pos - (pending is not None)
+        if rnd < 2:
+            assert teng.start_pos == jpos - (pending is not None)
         if stop_ids:
             assert len(tout["output_ids"]) <= 5
-    # the round-2 answer depends on round 1's KV: a third round on both
-    # engines agrees as well
-    j3, _ = _jax_round(jeng, prompts[0], JGen(greedy=True, max_new_tokens=4),
-                       (), pending)
-    t3 = teng.generate(prompts[0], TGen(greedy=True, max_new_tokens=4))
-    np.testing.assert_array_equal(t3["output_ids"].numpy(), j3)
 
 
 @pytest.mark.parametrize("mega", [False, True])

@@ -12,6 +12,10 @@ from awq_tpu.models import layers as jl
 from awq_tpu_torch.config import ModelConfig as TConfig, RopeScaling as TRope
 from awq_tpu_torch.models import layers as tl
 
+# One intra-op thread: the CPU tensors here are tiny, and the test workers
+# share the cores (eight threads per worker oversubscribe them many times).
+torch.set_num_threads(1)
+
 GEOM = dict(arch="llama", vocab_size=512, hidden_size=512,
             intermediate_size=1024, num_layers=2, num_heads=4, num_kv_heads=2,
             head_dim=128, max_position_embeddings=256, dtype="float32",

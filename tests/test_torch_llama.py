@@ -22,6 +22,10 @@ from awq_tpu_torch.ops import decode_attn as tda
 from awq_tpu_torch.ops import w4a16 as tw
 from awq_tpu_torch.runtime.engine import InferenceEngine
 
+# One intra-op thread: the CPU tensors here are tiny, and the test workers
+# share the cores (eight threads per worker oversubscribe them many times).
+torch.set_num_threads(1)
+
 T = 256
 
 

@@ -23,6 +23,10 @@ from awq_tpu_torch.ops import megakernel as tmk
 from awq_tpu_torch.ops import megakernel_batched as tmb
 from awq_tpu_torch.ops.w4a16 import QLinear
 
+# One intra-op thread: the CPU tensors here are tiny, and the test workers
+# share the cores (eight threads per worker oversubscribe them many times).
+torch.set_num_threads(1)
+
 HD, T, B = 128, 256, 8
 LENGTHS = [37, 0, 65, 200, 5, 255, 128, 17]
 

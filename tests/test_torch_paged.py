@@ -26,6 +26,10 @@ from awq_tpu_torch.ops import megakernel_batched as tmb
 from awq_tpu_torch.runtime.batch_engine import BatchEngine as TBatchEngine
 from awq_tpu_torch.runtime.paged import PageAllocator, PagedBatchEngine
 
+# One intra-op thread: the CPU tensors here are tiny, and the test workers
+# share the cores (eight threads per worker oversubscribe them many times).
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda():

@@ -15,6 +15,10 @@ from awq_tpu.quant import packing as jpack
 from awq_tpu_torch.quant import core as tcore
 from awq_tpu_torch.quant import packing as tpack
 
+# One intra-op thread: the CPU tensors here are tiny, and the test workers
+# share the cores (eight threads per worker oversubscribe them many times).
+torch.set_num_threads(1)
+
 
 def _codes(ic, oc, seed):
     return np.random.default_rng(seed).integers(0, 16, (ic, oc), dtype=np.uint8)

@@ -15,6 +15,10 @@ import torch
 
 from awq_tpu_torch.ops import w4a16 as tw
 
+# One intra-op thread: the CPU tensors here are tiny, and the test workers
+# share the cores (eight threads per worker oversubscribe them many times).
+torch.set_num_threads(1)
+
 G = 128
 
 
@@ -152,6 +156,6 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     args, _ = _card_case(cuda, 2, 512, 256, False, seed=1)
     x, qw, s, sz = args
     with pytest.raises(ValueError):
-        tw.w4a16_matmul(x.float(), qw, s, sz, G)
+        tw.w4a16_matmul(x.double(), qw, s, sz, G)
     with pytest.raises(ValueError):
         tw.w4a16_matmul(x, qw, s, sz, 96)
