@@ -50,7 +50,7 @@ UNITS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
         (f"AWQ_MEGA_CT={_CT.get(c, 'bf16')}", f"AWQ_MEGA_PAGED={int(c == 'paged')}",
          f"AWQ_MEGA_W3={w}"))
        for c in ("f32", "bf16", "f16", "int8", "paged") for sfx, w in _FORMATS},
-    "cache_append": ("cache_append", ()),
+    "cache_append": ("cache_append", ()), "w8a8": ("w8a8", ()),
 }
 SOURCES = tuple(UNITS)
 ARCH = "sm_90a"

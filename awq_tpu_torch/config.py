@@ -132,8 +132,8 @@ class RuntimeConfig:
     # engine init when the full cache cannot fit free HBM.
     prefill_w8_budget_gb: float = 0.0
     # multi-device serving: a device mesh with a 'tp' axis in the JAX
-    # package. The port's engine raises NotImplementedError on it (and on
-    # prefill_w8) until multi-GPU lands (ROADMAP queue A, items 16-17).
+    # package. The port's engines raise NotImplementedError on it until
+    # multi-GPU lands (ROADMAP queue A, item 17).
     mesh: Optional[Any] = None
 
 

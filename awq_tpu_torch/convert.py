@@ -28,7 +28,9 @@ row ``r``, bits ``16h + 3j``), each of the ``n_groups % 5`` trailer
 groups 16 rows of nibbles (code ``32j + 2r + h`` in row ``r``, bits
 ``16h + 4j``), then the bf16 qparam band as for W4. The group count comes
 from the QLinear's ``n_groups``: the row count alone does not give it.
-A stacked-of-1 ``lm_head`` (``_tile_head``) comes back 2-D.
+A stacked-of-1 ``lm_head`` (``_tile_head``) comes back 2-D. An int8
+prefill weight cache (``<name>_w8``, a JAX ``W8Stack`` of ``[L, NB, IC,
+bn]`` blocks) comes back in the port's ``[L, OC, IC]`` layout.
 
 :func:`kv_cache8_from_jax` carries a JAX ``KVCache8`` (codes and scales)
 across the same way, so that one int8 cache can feed both packages.
@@ -42,7 +44,7 @@ import torch
 from awq_tpu_torch import _device
 from awq_tpu_torch.models.layers import Linear
 from awq_tpu_torch.models.llama import KVCache8
-from awq_tpu_torch.ops.w4a16 import QLinear
+from awq_tpu_torch.ops.w4a16 import QLinear, W8Stack
 from awq_tpu_torch.quant.packing import pack_int3
 
 
@@ -145,6 +147,19 @@ def unfold_qlinear(x):
     return _untile(codes), scales, szeros
 
 
+def _w8stack(x, dev: torch.device) -> W8Stack:
+    """A JAX ``W8Stack`` (``w8`` int8 ``[L, NB, IC, bn]``, ``scol`` f32
+    ``[L, NB, 1, bn]``) in the port's layout: ``w8 [L, OC, IC]`` with each
+    column's codes contiguous, ``scol [L, OC]``."""
+    w8, scol = np.asarray(x.w8), np.asarray(x.scol)
+    if w8.dtype != np.int8 or w8.ndim != 4 or scol.shape != (*w8.shape[:2], 1, w8.shape[3]):
+        raise ValueError(f"a W8Stack holds int8 [L, NB, IC, bn] codes and f32 [L, NB, 1, bn] "
+                         f"scales, got {w8.dtype} {w8.shape} and {scol.shape}")
+    n_layers, nb, ic, bn = w8.shape
+    return W8Stack(w8=_tensor(w8.transpose(0, 1, 3, 2).reshape(n_layers, nb * bn, ic), dev),
+                   scol=_tensor(scol.reshape(n_layers, nb * bn), dev))
+
+
 def params_from_jax(tree, device="cuda"):
     """The port's parameter tree from a host copy of a JAX one."""
     dev = _device.resolve(device)
@@ -165,6 +180,8 @@ def params_from_jax(tree, device="cuda"):
                            bias=conv(x.bias, f"{path}.bias"),
                            w_bit=int(x.w_bit), group_size=int(x.group_size),
                            dense3=dense3)
+        if hasattr(x, "w8") and hasattr(x, "scol"):
+            return _w8stack(x, dev)
         if hasattr(x, "w"):
             return Linear(w=_tensor(x.w, dev), b=conv(x.b, f"{path}.b"))
         if isinstance(x, (np.ndarray, np.generic)) or hasattr(x, "__array__"):

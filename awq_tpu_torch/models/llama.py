@@ -46,12 +46,20 @@ after every layer has run, as on the TPU. Prefill quantizes the chunk and
 writes it first, then attends over the dequantized prefix with K3. There
 is no paged int8 pool and no int8 K5, as in the JAX package.
 
+``cfg.prefill_a8`` (the int8-activation prefill) routes every stacked-path
+linear of a prefill (S > 1) through K11 over the layer's int8 weight cache
+``<name>_w8`` (a ``W8Stack``, built by ``attach_w8_caches`` for
+``RuntimeConfig.prefill_w8``) or K10, as ``qlinear_apply_stacked`` gates
+them; the megakernels and decode are unchanged, so a float-cache prompt of
+up to 32 tokens still takes K5, as in the JAX package.
+
 Other family features raise ``NotImplementedError`` naming their ROADMAP
 item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -83,6 +91,8 @@ from awq_tpu_torch.ops import megakernel_batched as mkb
 from awq_tpu_torch.ops import megakernel_chunk as mkc
 from awq_tpu_torch.ops.w4a16 import (
     QLinear,
+    W8Stack,
+    attach_w8_caches,
     qlinear_apply,
     qlinear_apply_stacked,
     quantize_linear,
@@ -231,7 +241,9 @@ def fuse_linears(params: Params, cfg: ModelConfig) -> Params:
     """Concatenate wq/wk/wv -> ``wqkv`` and gate/up -> ``wgateup`` along the
     output-channel axis: one K1 launch instead of three/two. A plain concat
     (no tiling or folding: those layouts exist only for the TPU); OC is the
-    last axis of both packings, so it keeps either layout."""
+    last axis of both packings, so it keeps either layout. The parts' int8
+    prefill caches (``wq_w8`` ...), where every part has one, fuse the same
+    way."""
     layers = dict(params["layers"])
     if "wq" not in layers:
         return params
@@ -250,12 +262,33 @@ def fuse_linears(params: Params, cfg: ModelConfig) -> Params:
                       b=(torch.cat([p.b for p in parts], dim=-1)
                          if a.b is not None else None))
 
-    layers["wqkv"] = cat([layers.pop("wq"), layers.pop("wk"), layers.pop("wv")])
+    def fuse(name, parts):
+        layers[name] = cat([layers.pop(p) for p in parts])
+        # int8 prefill caches (W8Stack [L, OC, IC]) of every part fuse too
+        caches = [layers.pop(p + "_w8", None) for p in parts]
+        if all(c is not None for c in caches):
+            layers[name + "_w8"] = W8Stack(w8=torch.cat([c.w8 for c in caches], dim=-2),
+                                           scol=torch.cat([c.scol for c in caches], dim=-1))
+
+    fuse("wqkv", ("wq", "wk", "wv"))
     if "gate" in layers:
-        layers["wgateup"] = cat([layers.pop("gate"), layers.pop("up")])
+        fuse("wgateup", ("gate", "up"))
     out = dict(params)
     out["layers"] = layers
     return out
+
+
+def attach_prefill_w8(params: Params, cfg: ModelConfig, runtime) -> Tuple[Params, ModelConfig]:
+    """The engines' ``RuntimeConfig.prefill_w8`` step (``awq_tpu/runtime/
+    engine.py:88-102``, ``batch_engine.py:96-111``), after
+    :func:`fuse_linears`: the fused tree with an int8 prefill weight cache
+    per eligible linear (``attach_w8_caches``, within
+    ``prefill_w8_budget_gb`` when it is set) and ``cfg`` with
+    ``prefill_a8``."""
+    budget = int(runtime.prefill_w8_budget_gb * 2**30) or None
+    out = dict(params)
+    out["layers"] = attach_w8_caches(params["layers"], budget_bytes=budget)
+    return out, dataclasses.replace(cfg, prefill_a8=True)
 
 
 def quantize_head(params: Params, cfg: ModelConfig) -> Params:
@@ -346,6 +379,8 @@ def params_to(params: Params, device) -> Params:
                            w_bit=x.w_bit, group_size=x.group_size, dense3=x.dense3)
         if isinstance(x, Linear):
             return Linear(w=mv(x.w), b=mv(x.b))
+        if isinstance(x, W8Stack):
+            return W8Stack(w8=mv(x.w8), scol=mv(x.scol))
         return x.to(dev) if isinstance(x, torch.Tensor) else x
 
     return mv(params)
@@ -366,9 +401,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     ):
         if bad:
             raise NotImplementedError(f"{what}: {family}")
-    if cfg.prefill_a8:
-        raise NotImplementedError(
-            "prefill_a8 (W4A8 prefill) is ROADMAP queue A, item 16")
 
 
 _ROPE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -503,10 +535,15 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     decode_paged = flash_decode_paged_plain if plain else flash_decode_paged
     prefill = flash_prefill_plain if plain else flash_prefill
 
+    # the int8-activation prefill (cfg.prefill_a8): K11 over a layer's
+    # int8 cache (``<name>_w8``), else K10; decode stays W4A16
+    a8 = s > 1 and cfg.prefill_a8
+
     def lin(name, idx, xx):
         p = layers[name]
         if isinstance(p, QLinear):
-            return qlinear_apply_stacked(p, idx, xx, impl=impl)
+            return qlinear_apply_stacked(p, idx, xx, impl=impl, a8=a8,
+                                         w8stack=layers.get(name + "_w8") if a8 else None)
         return linear_apply(Linear(w=p.w[idx],
                                    b=None if p.b is None else p.b[idx]), xx)
 

@@ -22,21 +22,46 @@ true 3-bit layout (``IC % 256 == 0``), which streams 0.75x the code bytes.
 The kernels read both packings as they are: a layer of a stacked
 ``[L, rows, OC]`` weight is the free view ``qweight[l]``, so none of the
 TPU's scalar-prefetch layer indexing is carried over.
+
+The int8-activation prefill (``cfg.prefill_a8``; ``csrc/w8a8.cu``): x is
+quantized per token (``ops/w8a8.py::quant_per_token``) and multiplied in
+int8 with int32 sums, then ``y = (f32(acc) * scol) * sx`` rounded once to
+``x.dtype``:
+
+- :func:`w4a8_matmul` is the wrapper of K10, the counterpart of the Pallas
+  kernel ``w4a8_matmul_stacked_tiled_folded`` (row 7): it requantizes the
+  W4 codes to int8 per output column inside the kernel
+  (:func:`requant_w8`'s arithmetic);
+- :func:`w8a8_matmul` is the wrapper of K11, the counterpart of
+  ``w8a8_matmul_stacked_tiled`` (row 8), over the int8 prefill weight cache
+  :class:`W8Stack` that :func:`attach_w8_caches` builds once
+  (``RuntimeConfig.prefill_w8``).
+
+:func:`qlinear_apply_stacked` routes a prefill (``a8``) as the JAX package
+does: K11 from ``_W8_MIN_M`` rows where the layer has a cache, else K10
+from ``_A8_MIN_M`` rows at group 128, else K1; ``pack_int3`` weights take
+K1 whatever ``a8`` says. The two thresholds take the JAX package's
+environment overrides (``AWQ_TPU_W8_MIN_M``, ``AWQ_TPU_A8_MIN_M``), read at
+each call here where JAX reads them once at import.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import os
+import warnings
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from awq_tpu_torch.ops.w8a8 import quant_per_token, quant_per_token_plain
 from awq_tpu_torch.quant.core import quantize_groupwise
 from awq_tpu_torch.quant.packing import pack_int3, pack_int4, unpack_int3, unpack_int4
 
-#: Launches of each K1 entry and of its W3 mode, counted where the wrapper
-#: launches them.
-LAUNCHES = {"w4a16_gemv": 0, "w4a16_gemm": 0, "w3a16_gemv": 0, "w3a16_gemm": 0}
+#: Launches of each K1 entry and of its W3 mode, of K10 (``w4a8_gemm``) and
+#: of K11 (``w8a8_gemm``), counted where the wrapper launches them.
+LAUNCHES = {"w4a16_gemv": 0, "w4a16_gemm": 0, "w3a16_gemv": 0, "w3a16_gemm": 0,
+            "w4a8_gemm": 0, "w8a8_gemm": 0}
 
 GEMV_MAX_M = 8          # rows served by the GEMV entry
 _SPLIT_K = 512          # input channels per GEMV block (csrc/w4a16.cuh)
@@ -232,9 +257,265 @@ def qlinear_apply(ql: QLinear, x: torch.Tensor, impl: str = "auto") -> torch.Ten
 
 
 def qlinear_apply_stacked(ql: QLinear, layer_idx: int, x: torch.Tensor,
-                          impl: str = "auto") -> torch.Tensor:
+                          impl: str = "auto", a8: bool = False,
+                          w8stack: Optional["W8Stack"] = None) -> torch.Tensor:
     """Apply layer ``layer_idx`` of a stacked ``QLinear [L, ...]``; the
-    layer's operands are free views of the stack."""
+    layer's operands are free views of the stack.
+
+    ``a8`` (a prefill under ``cfg.prefill_a8``) routes the nibble-container
+    weights as ``awq_tpu/ops/w4a16.py:1397-1409`` does: K11 over
+    ``w8stack``'s layer from ``_W8_MIN_M`` rows, else K10 from
+    ``_A8_MIN_M`` rows at group 128, else K1. The bias is added after the
+    int8 product in ``x.dtype``, as JAX adds it."""
     bias = ql.bias[layer_idx] if ql.bias is not None else None
+    if a8 and not ql.dense3:
+        x2 = x.reshape(-1, x.shape[-1])
+        m, plain = x2.shape[0], impl == "plain"
+        out = None
+        if w8stack is not None and m >= _min_rows("AWQ_TPU_W8_MIN_M", _W8_MIN_M):
+            fn = w8a8_matmul_plain if plain else w8a8_matmul
+            out = fn(x2, w8stack.w8[layer_idx], w8stack.scol[layer_idx])
+        elif m >= _min_rows("AWQ_TPU_A8_MIN_M", _A8_MIN_M) and ql.group_size == 128:
+            fn = w4a8_matmul_plain if plain else w4a8_matmul
+            out = fn(x2, ql.qweight[layer_idx], ql.scales[layer_idx],
+                     ql.szeros[layer_idx], ql.group_size)
+        if out is not None:
+            if bias is not None:
+                out = out + bias.to(out.dtype)
+            return out.reshape(*x.shape[:-1], ql.out_features)
     return _apply(ql.qweight[layer_idx], ql.scales[layer_idx],
                   ql.szeros[layer_idx], bias, ql.group_size, ql.dense3, x, impl)
+
+
+# ---- the int8-activation prefill: K10, K11 and the int8 weight cache ----------
+
+# Rows from which a prefill matmul takes K10 (the requant in the kernel
+# amortizes only over long inputs) and K11 (the cache), as in the JAX
+# package; its environment variables override them.
+_A8_MIN_M = 512
+_W8_MIN_M = 32
+_COL_RATIO = 15.0 / 127.0   # the per-column scale bounds |code - z| <= 15
+
+
+def _min_rows(env: str, default: int) -> int:
+    return int(os.environ.get(env, default))
+
+
+@dataclasses.dataclass
+class W8Stack:
+    """The int8 prefill weight cache of a stacked W4 :class:`QLinear`
+    (the JAX package's ``W8Stack``), in the port's own layout: ``w8`` int8
+    ``[L, OC, IC]`` (each output column's IC codes contiguous, the
+    column-major B operand of the int8 ``mma``) and ``scol`` f32 ``[L, OC]``,
+    the per-column dequant scale. IC*OC bytes per layer."""
+
+    w8: torch.Tensor
+    scol: torch.Tensor
+
+
+def requant_w8(qweight: torch.Tensor, scales: torch.Tensor, szeros: torch.Tensor,
+               group_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer's W4 codes requantized per output column: ``(w8 int8
+    [OC, IC], scol f32 [OC])``, the arithmetic of the TPU kernel
+    ``_w4a8_kernel_folded`` and of ``build_w8_stack``, every step one f32
+    operation in the same order: bf16 ``s`` and ``sz`` (the folded layout's
+    values), ``z = sz / s``, ``scol = max(max(0, max_g s) * f32(15/127),
+    1e-12)``, ``w8 = clip(round_half_even(((128 + q) - (128 + z)) *
+    (s * (1 / scol))), -127, 127)``. The ``128 +`` on both sides drops z's
+    low bits as the TPU's bf16-bitpack arithmetic does; the divisions are
+    by tensors (true divisions on the card too)."""
+    ic = qweight.shape[0] * 8
+    s = scales.to(torch.bfloat16).float()
+    sz = szeros.to(torch.bfloat16).float()
+    z = sz / s
+    scol = torch.clamp_min(torch.clamp_min(s.amax(dim=0), 0.0) * _COL_RATIO, 1e-12)
+    sinv = s * (torch.ones_like(scol) / scol)
+    wf = unpack_int4(qweight, out_dtype=torch.float32).add_(128.0)
+    wf = wf.view(ic // group_size, group_size, -1)
+    wf.sub_((z + 128.0)[:, None]).mul_(sinv[:, None])
+    w8 = wf.round_().clamp_(-127, 127).to(torch.int8).view(ic, -1)
+    return w8.t().contiguous(), scol
+
+
+def _w8_eligible(p) -> bool:
+    """A stacked W4 QLinear in the nibble layout at group 128: the JAX
+    package's condition (folded, 4-bit, not dense3, stacked; its fold
+    exists at group 128 only)."""
+    return (isinstance(p, QLinear) and p.w_bit == 4 and not p.dense3
+            and p.qweight.dim() == 3 and p.group_size == 128)
+
+
+def build_w8_stack(ql: QLinear) -> W8Stack:
+    """Requantize every layer of a stacked W4 QLinear (:func:`requant_w8`)
+    into one preallocated cache: each layer is written in place, so the
+    peak holds the cache once plus one layer's temporaries (stacking the
+    per-layer results would hold it twice)."""
+    if not _w8_eligible(ql):
+        raise ValueError("the int8 prefill cache needs a stacked W4 QLinear in the "
+                         "nibble layout at group 128")
+    n_layers, dev = ql.qweight.shape[0], ql.qweight.device
+    w8 = torch.empty((n_layers, ql.out_features, ql.in_features), dtype=torch.int8,
+                     device=dev)
+    scol = torch.empty((n_layers, ql.out_features), dtype=torch.float32, device=dev)
+    for l in range(n_layers):
+        w8[l], scol[l] = requant_w8(ql.qweight[l], ql.scales[l], ql.szeros[l],
+                                    ql.group_size)
+    return W8Stack(w8=w8, scol=scol)
+
+
+def w8_cache_cost(layers: dict) -> Dict[str, int]:
+    """Bytes of the int8 prefill cache per eligible linear name: ``L * IC *
+    OC`` codes (the per-column scales add 4 bytes per column and layer)."""
+    return {name: p.qweight.shape[0] * p.in_features * p.out_features
+            for name, p in layers.items() if _w8_eligible(p)}
+
+
+def _device_free_bytes(device: torch.device) -> Optional[int]:
+    """Free device memory, or None where there is no card to ask."""
+    if device.type != "cuda":
+        return None
+    return int(torch.cuda.mem_get_info(device)[0])
+
+
+def attach_w8_caches(layers: dict, budget_bytes: Optional[int] = None,
+                     headroom_bytes: int = 1 << 30) -> dict:
+    """``layers`` plus a ``<name>_w8`` :class:`W8Stack` for every eligible
+    linear (``RuntimeConfig.prefill_w8``); the caller sets
+    ``cfg.prefill_a8``. ``budget_bytes`` builds the deepest-IC names first
+    (where K10's requant costs most) until the budget is spent and leaves
+    the rest on K10, as the JAX package does.
+
+    The fit guard refuses (ValueError) a cache larger than the free device
+    memory less ``headroom_bytes``, with or without a budget: the JAX
+    package skips the check when a budget is given
+    (``awq_tpu/ops/w4a16.py:1250``), and a budget above what is free would
+    then fail halfway through the build."""
+    out = dict(layers)
+    cost = w8_cache_cost(layers)
+    take = list(cost)
+    if budget_bytes is not None and budget_bytes > 0:
+        take, spent = [], 0
+        for name in sorted(cost, key=lambda n: -layers[n].in_features):
+            if spent + cost[name] <= budget_bytes:
+                take.append(name)
+                spent += cost[name]
+        skipped = sorted(set(cost) - set(take))
+        if skipped:
+            warnings.warn(f"prefill_w8: budget {budget_bytes / 2**30:.2f} GiB covers "
+                          f"{sorted(take)} ({spent / 2**30:.2f} GiB); {skipped} stay on "
+                          "the in-kernel-requant a8 path")
+    need = sum(cost[n] for n in take)
+    if take:
+        free = _device_free_bytes(layers[take[0]].qweight.device)
+        if free is not None and need > max(free - headroom_bytes, 0):
+            raise ValueError(
+                f"prefill_w8: the int8 weight cache needs {need / 2**30:.2f} GiB but only "
+                f"{free / 2**30:.2f} GiB of device memory is free (headroom "
+                f"{headroom_bytes / 2**30:.1f} GiB). Set RuntimeConfig.prefill_w8_budget_gb "
+                "below what is free (deepest-IC layers first) or disable prefill_w8.")
+    for name in take:
+        out[name + "_w8"] = build_w8_stack(layers[name])
+    return out
+
+
+def w8a8_matmul_plain(x: torch.Tensor, w8: torch.Tensor,
+                      scol: torch.Tensor) -> torch.Tensor:
+    """Plain version of K11: ``x [M, IC]`` against one layer of the cache
+    (``w8 [OC, IC]``, ``scol [OC]``) -> ``[M, OC]`` in ``x.dtype``. The
+    int8 product is summed in f64, exact for these integers."""
+    xq, sx = quant_per_token_plain(x)
+    acc = torch.matmul(xq.double(), w8.double().t())
+    return ((acc.float() * scol) * sx).to(x.dtype)
+
+
+def w4a8_matmul_plain(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+                      szeros: torch.Tensor, group_size: int) -> torch.Tensor:
+    """Plain version of K10: :func:`requant_w8`, then K11's plain version."""
+    return w8a8_matmul_plain(x, *requant_w8(qweight, scales, szeros, group_size))
+
+
+def _check_a8_x(x: torch.Tensor, what: str) -> None:
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODE or not x.is_contiguous():
+        raise ValueError(f"{what}: x must be a contiguous f32, bf16 or f16 [M, IC], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.shape[1] % 64:
+        raise ValueError(f"{what}: IC={x.shape[1]} must be a multiple of 64")
+
+
+def _launch_a8(what: str, entry: str, x: torch.Tensor, oc: int, weights, group_size=None):
+    """Quantize x (one launch), then run K10 or K11 into a new [M, OC]."""
+    m, ic = x.shape
+    out = torch.empty((m, oc), dtype=x.dtype, device=x.device)
+    if m == 0:
+        return out
+    xq, sx = quant_per_token(x)
+
+    from awq_tpu_torch import _build
+
+    lib = _build.load("w8a8")
+    fn = getattr(lib, entry)
+    n_ptr = 3 + len(weights)
+    extra = () if group_size is None else (group_size,)
+    _build.declare(fn, *([_build.P] * n_ptr), *([_build.I] * (4 + len(extra))), _build.P)
+    err = fn(xq.data_ptr(), sx.data_ptr(), *(t.data_ptr() for t in weights),
+             out.data_ptr(), m, ic, oc, *extra, _DTYPE_CODE[x.dtype],
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, what)
+    LAUNCHES[what] += 1
+    return out
+
+
+def w8a8_matmul(x: torch.Tensor, w8: torch.Tensor, scol: torch.Tensor) -> torch.Tensor:
+    """K11 wrapper: ``x [M, IC]`` against one layer of the int8 cache
+    (``w8`` int8 ``[OC, IC]``, ``scol`` f32 ``[OC]``, free views of a
+    :class:`W8Stack`) -> ``[M, OC]`` in ``x.dtype``. CPU tensors take
+    :func:`w8a8_matmul_plain`; CUDA tensors launch the quantization kernel
+    and K11, after checking what they take: contiguous operands on one
+    device, IC a multiple of 64, 16-byte aligned codes."""
+    if x.device.type == "cpu":
+        return w8a8_matmul_plain(x, w8, scol)
+    if not x.is_cuda:
+        raise ValueError(f"w8a8_matmul: unsupported device {x.device}")
+    _check_a8_x(x, "w8a8_matmul")
+    ic = x.shape[1]
+    if (w8.dtype != torch.int8 or w8.dim() != 2 or w8.shape[1] != ic
+            or scol.dtype != torch.float32 or tuple(scol.shape) != (w8.shape[0],)):
+        raise ValueError(f"w8a8_matmul: w8 must be int8 [OC, {ic}] and scol f32 [OC], got "
+                         f"{w8.dtype} {tuple(w8.shape)} and {scol.dtype} {tuple(scol.shape)}")
+    if not all(t.device == x.device and t.is_contiguous() for t in (w8, scol)):
+        raise ValueError("w8a8_matmul: operands must be contiguous and on x's device")
+    if w8.data_ptr() % 16:
+        raise ValueError("w8a8_matmul: w8 must be 16-byte aligned")
+    return _launch_a8("w8a8_gemm", "awq_w8a8_gemm", x, w8.shape[0], (w8, scol))
+
+
+def w4a8_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
+                szeros: torch.Tensor, group_size: int) -> torch.Tensor:
+    """K10 wrapper: ``x [M, IC]`` against one layer's ``pack_int4`` codes
+    (int32 ``[IC/8, OC]``) and f32 ``scales``/``szeros`` ``[IC/G, OC]``,
+    requantized to int8 per column inside the kernel -> ``[M, OC]`` in
+    ``x.dtype``. CPU tensors take :func:`w4a8_matmul_plain`; CUDA tensors
+    launch the quantization kernel and K10, after checking contiguous
+    operands on one device, IC a multiple of 64 and a group size that is a
+    multiple of 64 dividing IC."""
+    if x.device.type == "cpu":
+        return w4a8_matmul_plain(x, qweight, scales, szeros, group_size)
+    if not x.is_cuda:
+        raise ValueError(f"w4a8_matmul: unsupported device {x.device}")
+    _check_a8_x(x, "w4a8_matmul")
+    ic = x.shape[1]
+    if qweight.dtype != torch.int32 or qweight.dim() != 2 or qweight.shape[0] != ic // 8:
+        raise ValueError(f"w4a8_matmul: qweight must be int32 [{ic // 8}, OC], got "
+                         f"{qweight.dtype} {tuple(qweight.shape)}")
+    oc = qweight.shape[1]
+    if group_size <= 0 or group_size % 64 or ic % group_size:
+        raise ValueError(f"w4a8_matmul: group_size={group_size} must be a multiple of 64 "
+                         f"dividing IC={ic}")
+    n_g = ic // group_size
+    if not all(t.dtype == torch.float32 and tuple(t.shape) == (n_g, oc)
+               for t in (scales, szeros)):
+        raise ValueError(f"w4a8_matmul: scales/szeros must be f32 [{n_g}, {oc}]")
+    if not all(t.device == x.device and t.is_contiguous() for t in (qweight, scales, szeros)):
+        raise ValueError("w4a8_matmul: operands must be contiguous and on x's device")
+    return _launch_a8("w4a8_gemm", "awq_w4a8_gemm", x, oc, (qweight, scales, szeros),
+                      group_size)

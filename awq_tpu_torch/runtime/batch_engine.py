@@ -43,8 +43,11 @@ half the bytes of the bf16 cache, so twice the slots or the context on
 the same card. The staging cache is one too, and the prefix copy moves
 codes and scales.
 
-Not ported: speculative verify (``spec_k``), a device mesh and the int8
-prefill weight cache raise ``NotImplementedError``.
+``RuntimeConfig.prefill_w8`` builds the int8 prefill weight cache and
+turns on ``cfg.prefill_a8``, as in ``InferenceEngine``.
+
+Not ported: speculative verify (``spec_k``) and a device mesh raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ import torch
 from awq_tpu_torch import _device
 from awq_tpu_torch.config import GenConfig, ModelConfig
 from awq_tpu_torch.models.llama import (
+    attach_prefill_w8,
     cache_seq_len,
     cache_tensors,
     decode_step_batched,
@@ -98,7 +102,7 @@ class BatchEngine:
         max_seq_len: int = 2048,
         cache_dtype=torch.bfloat16,
         quantize_head: bool = False,
-        runtime=None,   # Optional[RuntimeConfig]: quantize_head
+        runtime=None,   # Optional[RuntimeConfig]: quantize_head, prefill_w8
         spec_k: int = 0,
         device="cuda",
     ):
@@ -110,15 +114,16 @@ class BatchEngine:
         if getattr(runtime, "mesh", None) is not None:
             raise NotImplementedError(
                 "multi-GPU serving (RuntimeConfig.mesh) is ROADMAP queue A, item 17")
-        if getattr(runtime, "prefill_w8", False):
-            raise NotImplementedError(
-                "the int8 prefill weight cache (prefill_w8) is ROADMAP queue A, item 16")
         if runtime is not None and runtime.quantize_head:
             quantize_head = True
         params = params_to(params, self.device)
         if quantize_head:
             params = _quantize_head(params, cfg)
         self.params = fuse_linears(params, cfg)
+        if getattr(runtime, "prefill_w8", False):
+            # admission prefills (through the staging cache) then take K11
+            self.params, cfg = attach_prefill_w8(self.params, cfg, runtime)
+            self.cfg = cfg
         self.n_slots = n_slots
         self.cache_dtype = cache_dtype
         self._stage = None                             # one-slot prefill cache

@@ -6,6 +6,11 @@ int8 codes and f32 scales, half the bytes), and keeps the ``start_pos`` bookkeep
 that a round prefills only its new tokens and reuses the history's KV. A
 round's last id that was never fed is carried into the next round's
 prompt, so that no round attends over an unwritten cache slot.
+
+``RuntimeConfig.prefill_w8`` builds the int8 prefill weight cache after
+the fusion and turns on ``cfg.prefill_a8`` (``attach_prefill_w8``):
+prompts of 32 tokens and more on the stacked path then prefill through
+K11 (a float-cache prompt of up to 32 tokens still takes K5).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import torch
 from awq_tpu_torch import _device
 from awq_tpu_torch.config import GenConfig, ModelConfig, RuntimeConfig
 from awq_tpu_torch.models.llama import (
+    attach_prefill_w8,
     cache_seq_len,
     cache_tensors,
     forward,
@@ -43,14 +49,13 @@ class InferenceEngine:
         if self.rt.mesh is not None:
             raise NotImplementedError(
                 "multi-GPU serving (RuntimeConfig.mesh) is ROADMAP queue A, item 17")
-        if self.rt.prefill_w8:
-            raise NotImplementedError(
-                "the int8 prefill weight cache (prefill_w8) is ROADMAP queue A, item 16")
         t = min(self.rt.max_seq_len, cfg.max_position_embeddings)
         params = params_to(params, self.device)
         if self.rt.quantize_head:
             params = quantize_head(params, cfg)
         self.params = fuse_linears(params, cfg)
+        if self.rt.prefill_w8:
+            self.params, self.cfg = attach_prefill_w8(self.params, cfg, self.rt)
         self.cache = init_cache(cfg, self.rt.max_batch_size, t, cache_dtype,
                                 device=self.device)
         self.start_pos = 0

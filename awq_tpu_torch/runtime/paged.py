@@ -87,7 +87,7 @@ class PagedBatchEngine(BatchEngine):
         cache_dtype=torch.bfloat16,
         page_size: int = 256,
         n_pages: Optional[int] = None,
-        runtime=None,   # Optional[RuntimeConfig]: quantize_head
+        runtime=None,   # Optional[RuntimeConfig]: quantize_head, prefill_w8
         device="cuda",
     ):
         if cache_dtype in ("int8", torch.int8):

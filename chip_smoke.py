@@ -33,8 +33,14 @@ Phases (each failure ends the run with a non-zero exit):
    32, 200 and 1000, every projection and the head; yardstick
    ``torch.matmul`` on the dequantized weight) and the W3 modes of K4
    (layer and token entries, a W3 head), K5 and K6 (slot, int8 and paged,
-   their in-place writes held as above) over a 32-layer W3 model. Last, an
+   their in-place writes held as above) over a 32-layer W3 model. Then an
    f16 model's kernels: K1 (GEMV and GEMM), K2, K8, K3 and K9 over f16.
+   Last, the int8-activation prefill at the four projections: the
+   per-token quantization kernel, K11 (over one layer's int8 weight cache,
+   built on the card) at 32, 40, 200 and 1000 rows and K10 (the W4 codes
+   requantized in the kernel) at 40, 512 and 1000, each bit-equal to its
+   plain version, K11 to K10, and the card's cache to the CPU's build;
+   yardsticks ``torch._int_mm`` with the same epilogue and K1's GEMM.
 3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
    new tokens each, the second continuing the first's dialogue, then a
    24-token follow-up continuing the third's) through ``InferenceEngine``
@@ -74,6 +80,17 @@ Phases (each failure ends the run with a non-zero exit):
    paged W3 mode (ids equal the W3 slot engine's). Prints the weight bytes
    and peak memory against the W4 model's and how many requests' greedy ids
    equal the W4 runs' (information).
+3f. The int8-activation prefill over phase 3's model (run after 3d):
+   phase 3's four requests through ``InferenceEngine`` with
+   ``RuntimeConfig(prefill_w8=True)`` (the int8 weight cache, K11 for the
+   200- and 1000-token prompts) and with ``cfg.prefill_a8`` alone (K10 for
+   the 1000-token prompt, K1 for the 200), then phase 3b's twelve through an
+   8-slot ``BatchEngine`` each way and through a ``PagedBatchEngine`` of 32
+   pages with the cache. Prints the cache's build seconds and GiB, TTFT
+   beside phase 3's, peak memory and the kernels of a 1000-token prefill;
+   the two configurations' greedy ids must be equal where both prefill in
+   int8 (or on K5) over the same history, and the paged engine's equal the
+   slot engine's.
 4. At the same widths and 2 layers, feed the same tokens through
    ``forward`` on the kernel path and on the plain path and compare
    logits: a 100-token prefill and 8 decodes on the stacked path, a
@@ -83,7 +100,8 @@ Phases (each failure ends the run with a non-zero exit):
    ``decode_step_paged`` of the same rows over a permuted pool. Then a W3
    model on the stacked path and on the megakernels, one batched and one
    paged W3 step on K6, and an f16 model with an f16 cache on the stacked
-   path.
+   path; then a 100-token prefill with the int8 weight cache (K11) and a
+   600-token one with ``prefill_a8`` alone (K10).
 5. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, where CUDA is not available or the
@@ -102,6 +120,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12             # H100 SXM dense int8 tensor-core peak
 LLAMA3_8B = dict(arch="llama", vocab_size=128256, hidden_size=4096,
                  intermediate_size=14336, num_layers=32, num_heads=32,
                  num_kv_heads=8, head_dim=128, max_position_embeddings=8192,
@@ -113,8 +132,8 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -552,6 +571,108 @@ def phase_int8_kernels(torch, timer, cases_out):
         yardstick_ms=k7_ms, yardstick="K7 on a bf16 cache, same rows"))
     log_case(cases_out[-1])
     del codes, scales, c8, cache16
+
+
+def phase_int8_prefill_kernels(torch, timer, cases_out):
+    """Phase 2, continued: the int8-activation prefill at the four
+    Llama-3-8B projections. ``quant_per_token``, K11 (over one layer's int8
+    cache, built on the card by ``requant_w8``) at 32, 40, 200 and 1000 rows
+    and K10 (the W4 codes requantized in the kernel) at 40, 512 and 1000,
+    each bit-equal to its plain version and K11 to K10 where both run; the
+    on-card cache of wqkv bit-equal to the CPU's build. Timed against the
+    bound (int8 operations at the int8 peak), ``torch._int_mm`` on the same
+    int8 operands plus the same epilogue (library) and K1's GEMM on the same
+    x (yardstick). The kernel's time holds the quantization's launch."""
+    from awq_tpu_torch.ops import w4a16 as w4
+    from awq_tpu_torch.ops import w8a8 as q8
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(777)
+    cfg = LLAMA3_8B
+    h, inter, nq, nkv, hd = (cfg["hidden_size"], cfg["intermediate_size"],
+                             cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"])
+    shapes = {"wqkv": (h, (nq + 2 * nkv) * hd), "wo": (nq * hd, h),
+              "wgateup": (h, 2 * inter), "down": (inter, h)}
+
+    def exact(name, got, ref):
+        if not torch.equal(got, ref):
+            err = (got.float() - ref.float()).abs().max().item()
+            raise AssertionError(f"{name}: not bit-equal (max_abs_err {err:.3e})")
+
+    def int_mm(xq, sx, w8, scol, dtype):
+        return ((torch._int_mm(xq, w8.t()).float() * scol) * sx).to(dtype)
+
+    for ic in (h, inter):
+        x = torch.randn((1000, ic), generator=gen, device="cuda").to(torch.bfloat16)
+        got, ref = q8.quant_per_token(x), q8.quant_per_token_plain(x)
+        torch.cuda.synchronize()
+        exact(f"quant_per_token M=1000 IC={ic}", torch.cat([got[0].float(), got[1]], 1),
+              torch.cat([ref[0].float(), ref[1]], 1))
+        b_ms, b_by = bound(1000 * ic * 3 + 1000 * 4, 0.0)
+        cases_out.append(dict(
+            name="quant_per_token", shape=f"M=1000 IC={ic}", max_abs_err=0.0,
+            max_rel_err=0.0, tol="0 (bit-equal)", ms=timer(lambda: q8.quant_per_token(x)),
+            plain_ms=timer(lambda: q8.quant_per_token_plain(x), reps=5), bound_ms=b_ms,
+            bound_by=b_by, library_ms=None))
+        log_case(cases_out[-1])
+
+    for wname, (ic, oc) in shapes.items():
+        qw = torch.randint(-(2**31), 2**31 - 1, (ic // 8, oc), generator=gen,
+                           dtype=torch.int32, device="cuda")
+        s = (torch.rand((ic // G, oc), generator=gen, device="cuda") + 0.5) * 0.005
+        sz = s * 8
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w8, scol = w4.requant_w8(qw, s, sz, G)
+        torch.cuda.synchronize()
+        log(f"  {wname}: one layer's int8 cache built on the card in "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({oc * ic / 2**20:.1f} MiB)")
+        if wname == "wqkv":
+            cw8, cscol = w4.requant_w8(qw.cpu(), s.cpu(), sz.cpu(), G)
+            exact("the on-card int8 cache against the CPU build", w8.cpu(), cw8)
+            exact("the on-card per-column scales against the CPU build", scol.cpu(), cscol)
+        for m in (32, 40, 200, 512, 1000):
+            x = torch.randn((m, ic), generator=gen, device="cuda").to(torch.bfloat16)
+            xq, sx = q8.quant_per_token(x)
+            k1_ms = timer(lambda: w4.w4a16_matmul(x, qw, s, sz, G))
+            try:        # the library yardstick only: a refusal leaves it unmeasured
+                lib_out = int_mm(xq, sx, w8, scol, x.dtype)
+                lib_ms = timer(lambda: int_mm(xq, sx, w8, scol, x.dtype))
+            except RuntimeError as e:
+                log(f"  torch._int_mm refused {wname} M={m}: {e}")
+                lib_out = lib_ms = None
+            out = {}
+            for name, run, plain, wbytes in (
+                    ("w8a8_gemm", lambda: w4.w8a8_matmul(x, w8, scol),
+                     lambda: w4.w8a8_matmul_plain(x, w8, scol), oc * ic + oc * 4),
+                    ("w4a8_gemm", lambda: w4.w4a8_matmul(x, qw, s, sz, G),
+                     lambda: w4.w4a8_matmul_plain(x, qw, s, sz, G),
+                     ic // 8 * oc * 4 + 2 * (ic // G) * oc * 4)):
+                if m not in {"w8a8_gemm": (32, 40, 200, 1000), "w4a8_gemm": (40, 512, 1000)}[name]:
+                    continue
+                got, ref = run(), plain()
+                torch.cuda.synchronize()
+                exact(f"{name} {wname} M={m}", got, ref)
+                out[name] = got
+                b_ms, b_by = bound(m * ic * 2 + wbytes + m * oc * 2, 2.0 * m * ic * oc, INT8_OPS)
+                cases_out.append(dict(
+                    name=name, shape=f"{wname} M={m} {ic}->{oc}", max_abs_err=0.0,
+                    max_rel_err=0.0, tol="0 (bit-equal)", ms=timer(run),
+                    plain_ms=timer(plain, reps=3), bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms, yardstick_ms=k1_ms,
+                    library="torch._int_mm on the same int8 operands + the same epilogue",
+                    yardstick="K1 GEMM (w4a16_gemm) on the same x"))
+                log_case(cases_out[-1])
+            if lib_out is not None:
+                exact(f"{wname} M={m}: torch._int_mm and K10/K11", lib_out,
+                      out.get("w8a8_gemm", out.get("w4a8_gemm")))
+            if len(out) == 2:
+                exact(f"K11 over the cache against K10, {wname} M={m}", out["w8a8_gemm"],
+                      out["w4a8_gemm"])
+        del qw, s, sz, w8, scol
+        torch.cuda.empty_cache()
+    log("  K11 over the cache bit-equal to K10 at M=40 and 1000; torch._int_mm's products "
+        f"with the same epilogue equal both ({time.perf_counter() - t_phase:.1f} s)")
 
 
 def phase_f16_attention(torch, timer, cases_out):
@@ -1020,6 +1141,14 @@ SERVE_PATHS = {
     "stacked_w3": ("1", ("w3a16_gemv", "w3a16_gemm", "flash_decode", "flash_prefill"),
                    ("megakernel_token_w3", "megakernel_chunk_w3", "w4a16_gemv",
                     "w4a16_gemm")),
+    # the int8-activation prefill (phase 3f): with the int8 weight cache,
+    # every prefill over 32 tokens on K11 (no K1 GEMM, no K10); with
+    # prefill_a8 alone, the 1000-token prompt on K10 and the 200-token one
+    # on K1's GEMM; prompts of up to 32 tokens on K5, decode on K4
+    "prefill_w8": (None, ("megakernel_token", "megakernel_chunk", "w8a8_gemm",
+                          "quant_per_token", "flash_prefill"), ("w4a8_gemm", "w4a16_gemm")),
+    "prefill_a8": (None, ("megakernel_token", "megakernel_chunk", "w4a8_gemm", "w4a16_gemm",
+                          "quant_per_token", "flash_prefill"), ("w8a8_gemm",)),
 }
 
 
@@ -1030,9 +1159,10 @@ def counters():
     from awq_tpu_torch.ops import megakernel_batched as mkb
     from awq_tpu_torch.ops import megakernel_chunk as mkc
     from awq_tpu_torch.ops import w4a16 as w4
+    from awq_tpu_torch.ops import w8a8 as q8
 
     return (w4.LAUNCHES, da.LAUNCHES, mk.LAUNCHES, mkc.LAUNCHES, mkb.LAUNCHES,
-            ca.LAUNCHES)
+            ca.LAUNCHES, q8.LAUNCHES)
 
 
 def reset_counters():
@@ -1081,26 +1211,26 @@ def phase_serve(torch, layers: int):
         f"{cache_bytes(engine.cache) / 1e9:.3f} GB, built in "
         f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()      # serving's peak, the build left out
-    out_launches, ids = serve_single(torch, engine, cfg, ("megakernels", "stacked"))
+    out_launches, ids, ttft = serve_single(torch, engine, cfg, ("megakernels", "stacked"))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  peak device memory while serving {peak:.2f} GiB")
     params = engine.params
     del engine
     torch.cuda.empty_cache()
-    return out_launches, cfg, params, ids["megakernels"], peak
+    return out_launches, cfg, params, ids["megakernels"], peak, ttft["megakernels"]
 
 
 def serve_single(torch, engine, cfg, labels):
     """Phase 3's four requests through ``engine`` once per path of
     ``labels`` (SERVE_PATHS), the launch counts set to 0 just before and
     read just after each; then a profile of decode steps. Returns {label:
-    launches} and {label: the requests' greedy ids}."""
+    launches}, {label: the requests' greedy ids} and {label: their TTFTs, ms}."""
     from awq_tpu_torch.config import GenConfig
 
     wbytes = weight_bytes(engine.params)
     kv_row = cache_bytes(engine.cache) // engine.max_seq_len   # bytes/position
     gen = GenConfig(greedy=True, max_new_tokens=32)
-    out_launches, out_ids = {}, {}
+    out_launches, out_ids, out_ttft = {}, {}, {}
     for label in labels:
         disable, must, off = SERVE_PATHS[label]
         set_config(disable)
@@ -1134,9 +1264,10 @@ def serve_single(torch, engine, cfg, labels):
         log(f"  [{label}] launches during the four requests: {launches}")
         check_path(label, launches, must, off)
         out_launches[label], out_ids[label] = launches, ids_all
+        out_ttft[label] = [r["ttft_ms"] for r in results]
         profile_decode(torch, engine, results[-1]["ms_per_token"], label)
     set_config(None)
-    return out_launches, out_ids
+    return out_launches, out_ids, out_ttft
 
 
 def compare_ids(label, got, ref, what):
@@ -1166,7 +1297,8 @@ def phase_serve_int8(torch, cfg, params, single_ids, slot_ids, slot_peak):
     log(f"  single-stream int8 cache: {cache_bytes(engine.cache) / 2**30:.4f} GiB (codes "
         f"{engine.cache.data.numel() / 2**30:.4f}, scales "
         f"{engine.cache.scales.numel() * 4 / 2**30:.4f})")
-    out_launches, ids = serve_single(torch, engine, cfg, ("megakernels_int8", "stacked_int8"))
+    out_launches, ids, _ = serve_single(torch, engine, cfg,
+                                        ("megakernels_int8", "stacked_int8"))
     for label in ids:
         compare_ids(label, ids[label], single_ids, "phase 3's on the bf16 megakernels")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1210,7 +1342,7 @@ def phase_serve_w3(torch, layers, w4, single_ids, slot_ids):
         f"{w3_bytes / 1e9:.3f} GB against {w4['weight_bytes'] / 1e9:.3f} GB in W4 "
         f"({w3_bytes / w4['weight_bytes']:.3f}x), built in {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()      # serving's peak, as phase 3's
-    out_launches, ids = serve_single(torch, engine, cfg, ("megakernels_w3", "stacked_w3"))
+    out_launches, ids, _ = serve_single(torch, engine, cfg, ("megakernels_w3", "stacked_w3"))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  peak device memory while serving {peak:.2f} GiB against "
         f"{w4['single_peak']:.2f} GiB for phase 3's W4 engine")
@@ -1245,6 +1377,145 @@ def phase_serve_w3(torch, layers, w4, single_ids, slot_ids):
     return out_launches
 
 
+def int8_gated(prompts):
+    """Indices of the requests whose prefill and history take the same
+    numbers with the int8 cache and with prefill_a8 alone: prompts of up to
+    32 tokens (K5 either way) and of at least _A8_MIN_M (K11 against K10,
+    bit-equal); a prompt between them takes K11 against K1's GEMM. Each
+    item is ``(tokens, fresh)``; a continued dialogue carries its history."""
+    from awq_tpu_torch.ops import w4a16 as w4
+
+    gated, chain = [], True
+    for i, (n, fresh) in enumerate(prompts):
+        chain = (chain or fresh) and (n <= 32 or n >= w4._A8_MIN_M)
+        if chain:
+            gated.append(i)
+    return gated
+
+
+def profile_prefill(torch, engine, n: int, label: str) -> None:
+    """Kernels and device time of one ``n``-token prefill from position 0
+    (torch.profiler), by kernel group; the cache is cleared after."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from awq_tpu_torch.models.llama import forward
+
+    engine.reset()
+    toks = torch.randint(0, engine.cfg.vocab_size, (1, n),
+                         generator=torch.Generator().manual_seed(5)).cuda()
+    forward(engine.params, engine.cfg, toks, engine.cache, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        forward(engine.params, engine.cfg, toks, engine.cache, 0)
+        torch.cuda.synchronize()
+    us = {k: 0.0 for k in ("w4a8_gemm / w8a8_gemm", "quant_per_token", "w4a16_gemm",
+                           "flash_prefill")}
+    us["other"], n_kernels = 0.0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_kernels += 1
+            key = next((k for k in us if k != "other"
+                        and any(p in e.name for p in KERNEL_GROUPS[k])), "other")
+            us[key] += e.time_range.elapsed_us()
+    engine.reset()
+    log(f"  [{label}] one {n}-token prefill: {n_kernels} kernels, device "
+        f"{sum(us.values()) / 1e3:.3f} ms [" + ", ".join(
+            f"{k} {v / 1e3:.3f}" for k, v in us.items() if v) + "] (torch.profiler)")
+
+
+def phase_serve_int8_prefill(torch, cfg, params, ref):
+    """Phase 3f, the int8-activation prefill at ``cfg``'s layers: phase 3's
+    four requests through InferenceEngine with ``RuntimeConfig(prefill_w8=
+    True)`` (K11 for the 200- and 1000-token prompts) and with
+    ``cfg.prefill_a8`` alone (K10 for the 1000-token one, K1 for the 200),
+    then phase 3b's twelve through an 8-slot BatchEngine each way and once
+    through a PagedBatchEngine of 32 pages with the cache. Prints the cache's
+    build time and GiB, TTFT beside phase 3's, the peak device memory and
+    the kernels of one 1000-token prefill. The greedy ids of the two int8
+    configurations must be equal where both take an int8 path (or K5) on
+    the same history, and the paged engine's those of the slot engine with
+    the cache; how many equal the W4A16 runs' is printed. ``ref`` holds
+    phase 3's and 3b's ids, TTFTs and peaks. Returns {config: launches}."""
+    import dataclasses
+
+    from awq_tpu_torch.config import RuntimeConfig
+    from awq_tpu_torch.runtime.batch_engine import BatchEngine
+    from awq_tpu_torch.runtime.engine import InferenceEngine
+    from awq_tpu_torch.runtime.paged import PagedBatchEngine
+
+    cfg_a8 = dataclasses.replace(cfg, prefill_a8=True)
+    rt_w8 = RuntimeConfig(max_seq_len=2048, prefill_w8=True)
+    out_launches, ids = {}, {}
+    for label, c, rt in (("prefill_w8", cfg, rt_w8),
+                         ("prefill_a8", cfg_a8, RuntimeConfig(max_seq_len=2048))):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = InferenceEngine(c, params, rt)
+        torch.cuda.synchronize()
+        caches = [v for k, v in engine.params["layers"].items() if k.endswith("_w8")]
+        gib = sum(v.w8.numel() + v.scol.numel() * 4 for v in caches) / 2**30
+        log(f"  [{label}] engine built in {time.perf_counter() - t0:.2f} s; int8 prefill "
+            f"weight cache {gib:.4f} GiB over {len(caches)} linears x {cfg.num_layers} layers")
+        torch.cuda.reset_peak_memory_stats()      # serving's peak, as phase 3's
+        launches, got, ttft = serve_single(torch, engine, engine.cfg, (label,))
+        out_launches.update(launches)
+        ids[label] = got[label]
+        log(f"  [{label}] peak device memory while serving "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB against "
+            f"{ref['single_peak']:.2f} GiB for phase 3's engine")
+        log(f"  [{label}] TTFT by prompt (ms), this run / phase 3 on W4A16: " + ", ".join(
+            f"{n}: {a:.2f} / {b:.2f}" for (n, _), a, b in zip(REQUESTS, ttft[label],
+                                                              ref["single_ttft"])))
+        profile_prefill(torch, engine, 1000, label)
+        del engine
+    gated = int8_gated(REQUESTS)
+    for i in gated:
+        if ids["prefill_w8"][i] != ids["prefill_a8"][i]:
+            raise AssertionError(f"request {i + 1}: greedy ids under prefill_w8 differ from "
+                                 "those under prefill_a8 alone")
+    log(f"  greedy ids under prefill_w8 equal those under prefill_a8 alone for requests "
+        f"{[i + 1 for i in gated]} (both int8, or K5, on the same history)")
+    for label in ids:
+        compare_ids(label, ids[label], ref["single_ids"], "phase 3's W4A16 run")
+
+    torch.cuda.empty_cache()
+    prompts = batch_prompts(cfg)
+    bids = {}
+    for label, c, rt in (("batched_prefill_w8", cfg, rt_w8), ("batched_prefill_a8", cfg_a8, None),
+                         ("paged_prefill_w8", cfg, rt_w8)):
+        disable, must, off = BATCH_PATHS[label]
+        set_config(disable)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(n_slots=BATCH_SLOTS, max_seq_len=2048, runtime=rt)
+        engine = (PagedBatchEngine(c, params, page_size=PAGE, **kw) if label.startswith("paged")
+                  else BatchEngine(c, params, **kw))
+        done, launches, _ = drive(torch, engine, prompts, label, cfg)
+        log(f"  [{label}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"against {ref['slot_peak']:.2f} GiB for phase 3b's engine on K6")
+        check_path(label, launches, must, off)
+        out_launches[label] = launches
+        bids[label] = [r.out_ids for r in done]
+        del engine
+    set_config(None)
+    gated = int8_gated([(len(p), True) for p in prompts])
+    for i in gated:
+        if bids["batched_prefill_w8"][i] != bids["batched_prefill_a8"][i]:
+            raise AssertionError(f"batched request {i + 1}: greedy ids under prefill_w8 differ "
+                                 "from those under prefill_a8 alone")
+    if bids["paged_prefill_w8"] != bids["batched_prefill_w8"]:
+        raise AssertionError("[paged_prefill_w8] greedy ids differ from the slot engine's")
+    log(f"  8 slots: greedy ids under prefill_w8 equal prefill_a8's for the {len(gated)} requests "
+        f"with prompts of up to 32 or of 1000 tokens; the paged engine's equal the slot "
+        f"engine's for {BATCH_REQUESTS}/{BATCH_REQUESTS}")
+    for label in bids:
+        compare_ids(label, bids[label], ref["slot_ids"], "phase 3b's W4A16 run on K6")
+    torch.cuda.empty_cache()
+    return out_launches
+
+
 def profile_decode(torch, engine, ms_per_token: float, label: str,
                    steps: int = 8) -> None:
     """Device time of decode steps by kernel, from a torch.profiler trace of
@@ -1274,7 +1545,9 @@ KERNEL_GROUPS = {"w4a16_gemv": ("w4a16_gemv", "splitk_reduce"),
                  "flash_prefill": ("flash_prefill",), "megakernel_token": ("token_kernel",),
                  "megakernel_chunk": ("chunk_kernel",),
                  "megakernel_batched": ("batched_kernel",),
-                 "cache_append": ("cache_append_kernel",)}
+                 "cache_append": ("cache_append_kernel",),
+                 "w4a8_gemm / w8a8_gemm": ("w8a8_gemm_kernel",),
+                 "quant_per_token": ("quant_per_token_kernel",)}
 
 
 def profile_steps(torch, run_step, ms_ref: float, label: str, where: str, unit: str,
@@ -1427,6 +1700,16 @@ BATCH_PATHS = {
                         "flash_prefill"),
                  ("megakernel_batched_paged", "megakernel_batched_w3", "flash_decode_paged",
                   "cache_append_paged")),
+    # phase 3f: admissions over 32 tokens on K11 with the cache, on K10
+    # (1000 tokens) and K1 (200) with prefill_a8 alone
+    "batched_prefill_w8": (None, ("megakernel_batched", "megakernel_chunk", "w8a8_gemm",
+                                  "quant_per_token", "flash_prefill"),
+                           ("w4a8_gemm", "w4a16_gemm", "cache_append")),
+    "batched_prefill_a8": (None, ("megakernel_batched", "megakernel_chunk", "w4a8_gemm",
+                                  "w4a16_gemm", "quant_per_token"), ("w8a8_gemm",)),
+    "paged_prefill_w8": (None, ("megakernel_batched_paged", "megakernel_chunk", "w8a8_gemm",
+                                "quant_per_token"),
+                         ("w4a8_gemm", "w4a16_gemm", "megakernel_batched")),
 }
 
 
@@ -1573,7 +1856,8 @@ def time_prefix_copy(torch, engine, slot: int = 3, reps: int = 5) -> None:
 def phase_model_parity(torch):
     """Phase 4: kernel path vs plain path through forward, 2 layers, on the
     stacked path and on the megakernels, over a bf16 and an int8 cache; one
-    batched step on each path and one paged step."""
+    batched step on each path and one paged step; the int8-activation
+    prefill with the int8 weight cache (K11) and without it (K10)."""
     from awq_tpu_torch.config import ModelConfig, QuantConfig
     from awq_tpu_torch.models import llama
     from awq_tpu_torch.ops import cache_append as ca
@@ -1672,6 +1956,38 @@ def phase_model_parity(torch):
             f"128, kernel vs plain: logits max_abs_err/max|ref| {rel:.3e} (tol {tol:g}), "
             f"pool max_abs_err {cerr:.3e}; greedy ids agree on {agree}/8 rows")
     set_config(None)
+    # the int8-activation prefill through forward: the int8 weight cache
+    # (K11) on a 100-token prompt and prefill_a8 alone (K10) on 600 tokens.
+    # K10 and K11 equal their plain versions; the rest of the path rounds
+    # as above: the same 5e-2
+    import dataclasses
+
+    from awq_tpu_torch.ops import w4a16 as w4
+
+    cfg8 = dataclasses.replace(cfg, prefill_a8=True)
+    params_w8 = dict(params)
+    params_w8["layers"] = w4.attach_w8_caches(params["layers"])
+    rng = torch.Generator().manual_seed(8)
+    for label, p, prompt, kern in (("prefill_w8", params_w8, 100, "w8a8_gemm"),
+                                   ("prefill_a8", params, 600, "w4a8_gemm")):
+        caches = [llama.init_cache(cfg8, 1, 1024) for _ in range(2)]
+        toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=rng).cuda()
+        reset_counters()
+        got, _ = llama.forward(p, cfg8, toks, caches[0], 0)
+        launches = read_counters()
+        ref, _ = llama.forward(p, cfg8, toks, caches[1], 0, impl="plain")
+        torch.cuda.synchronize()
+        n_lin = 4 * cfg.num_layers
+        if launches[kern] != n_lin or launches["quant_per_token"] != n_lin:
+            raise AssertionError(f"[{label}] {launches[kern]} {kern} and "
+                                 f"{launches['quant_per_token']} quant_per_token launches, "
+                                 f"not {n_lin} each")
+        err, rel = check(f"[{label}] forward, {prompt}-token prefill", got, ref, tol)
+        cerr, _ = check(f"[{label}] the cache the prefill wrote", caches[0], caches[1], tol)
+        log(f"  [{label}] {prompt}-token prefill, logits kernel vs plain: max_abs_err/max|ref| "
+            f"{rel:.3e} (tol {tol:g}), cache max_abs_err {cerr:.3e}; {launches[kern]} {kern} "
+            "launches; greedy ids agree: "
+            f"{bool(torch.equal(got[:, -1].argmax(-1), ref[:, -1].argmax(-1)))}")
 
 
 def phase_model_parity_w3_f16(torch):
@@ -1764,6 +2080,9 @@ def main() -> int:
     args = ap.parse_args()
     t_start = time.perf_counter()
 
+    def stamp(msg: str) -> None:      # a phase's first line, with the seconds so far
+        log(f"[{time.perf_counter() - t_start:.1f} s] {msg}")
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1778,7 +2097,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    log("phase 1: build")
+    stamp(f"phase 1: build")
     t0 = time.perf_counter()
     took = _build.build_all()
     log(f"  nvcc ({_build.ARCH}): " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
@@ -1791,7 +2110,7 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {name} {fn}: {line.strip()}")
 
-    log("phase 2: kernels against their plain versions (main-path shapes)")
+    stamp(f"phase 2: kernels against their plain versions (main-path shapes)")
     torch.backends.cuda.matmul.allow_tf32 = False
     timer = Timer(torch, reps=20)
     cases = []
@@ -1803,41 +2122,50 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_int8_kernels(torch, timer, cases)
     phase_f16_attention(torch, timer, cases)
+    phase_int8_prefill_kernels(torch, timer, cases)
     del timer
     torch.cuda.empty_cache()
 
-    log(f"phase 3: serve four requests, Llama-3-8B width, {args.layers} layers, "
+    stamp(f"phase 3: serve four requests, Llama-3-8B width, {args.layers} layers, "
         "on the megakernels and on the stacked path")
-    launches, cfg, params, single_ids, single_peak = phase_serve(torch, args.layers)
+    launches, cfg, params, single_ids, single_peak, single_ttft = phase_serve(torch,
+                                                                              args.layers)
     w4 = dict(weight_bytes=weight_bytes(params), single_peak=single_peak)
 
-    log(f"phase 3b: serve twelve requests through an 8-slot BatchEngine, {args.layers} "
+    stamp(f"phase 3b: serve twelve requests through an 8-slot BatchEngine, {args.layers} "
         "layers, on the batched megakernel and on the stacked batched path")
     batched, ids, peaks = phase_serve_batched(torch, cfg, params)
     launches.update(batched)
     slot_ids = ids["batched"]
 
-    log(f"phase 3c: the same twelve requests through an 8-slot PagedBatchEngine, "
+    stamp(f"phase 3c: the same twelve requests through an 8-slot PagedBatchEngine, "
         f"{args.layers} layers, pages of {PAGE}, on K6's paged mode and on the stacked "
         "paged path, with the default pool and with a pool that preempts")
     launches.update(phase_serve_paged(torch, cfg, params, slot_ids))
 
-    log(f"phase 3d: the int8 KV cache, {args.layers} layers: phase 3's four requests "
+    stamp(f"phase 3d: the int8 KV cache, {args.layers} layers: phase 3's four requests "
         "through InferenceEngine(cache_dtype='int8') and phase 3b's twelve through an "
         "8-slot BatchEngine(cache_dtype='int8'), on the megakernels and on the stacked path")
     launches.update(phase_serve_int8(torch, cfg, params, single_ids, slot_ids,
                                      peaks["batched"]))
+
+    stamp(f"phase 3f: the int8-activation prefill, {args.layers} layers: phase 3's four "
+        "requests and phase 3b's twelve with RuntimeConfig(prefill_w8=True) (K11) and with "
+        "prefill_a8 alone (K10), and the twelve through a PagedBatchEngine with the cache")
+    launches.update(phase_serve_int8_prefill(torch, cfg, params, dict(
+        single_ids=single_ids, single_ttft=single_ttft, single_peak=single_peak,
+        slot_ids=slot_ids, slot_peak=peaks["batched"])))
     del params
     torch.cuda.empty_cache()
 
-    log(f"phase 3e: the W3 model (pack_int3 weights and head), {args.layers} layers: "
+    stamp(f"phase 3e: the W3 model (pack_int3 weights and head), {args.layers} layers: "
         "phase 3's four requests through InferenceEngine and phase 3b's twelve through an "
         "8-slot BatchEngine, on the megakernels' W3 modes and on K1's; then the twelve on "
         "K6's int8 and paged W3 modes")
     w4["slot_peak"] = peaks["batched"]
     launches.update(phase_serve_w3(torch, args.layers, w4, single_ids, slot_ids))
 
-    log("phase 4: forward, kernel path against plain path (2 layers)")
+    stamp(f"phase 4: forward, kernel path against plain path (2 layers)")
     phase_model_parity(torch)
     phase_model_parity_w3_f16(torch)
 
@@ -1888,7 +2216,11 @@ def main() -> int:
                "megakernel_batched_int8_w3": ("awq_tpu_torch/csrc/megakernel_batched.cu",
                                               "awq_tpu/ops/megakernel_batched.py:531"),
                "megakernel_batched_paged_w3": ("awq_tpu_torch/csrc/megakernel_batched.cu",
-                                               "awq_tpu/ops/megakernel_batched.py:531")}
+                                               "awq_tpu/ops/megakernel_batched.py:531"),
+               "w8a8_gemm": ("awq_tpu_torch/csrc/w8a8.cu", "awq_tpu/ops/w4a16.py:1302"),
+               "w4a8_gemm": ("awq_tpu_torch/csrc/w8a8.cu", "awq_tpu/ops/w4a16.py:1046"),
+               # XLA in the JAX package, not Pallas: no TPU kernel to replace
+               "quant_per_token": ("awq_tpu_torch/csrc/w8a8.cu", "awq_tpu/ops/w8a8.py:33")}
     # one representative shape per kernel in the summary; every case is
     # printed above
     pick = {"w4a16_gemv": "wgateup M=1 ", "w4a16_gemm": "wgateup M=1000",
@@ -1905,7 +2237,9 @@ def main() -> int:
             "megakernel_chunk_w3": "32 layers S=32 hist=700",
             "megakernel_batched_w3": "32 layers + W3 head, B=8",
             "megakernel_batched_int8_w3": "32 layers + W3 head, B=8",
-            "megakernel_batched_paged_w3": "32 layers + W3 head, B=8"}
+            "megakernel_batched_paged_w3": "32 layers + W3 head, B=8",
+            "w8a8_gemm": "wgateup M=1000", "w4a8_gemm": "wgateup M=1000",
+            "quant_per_token": "M=1000 IC=4096"}
     # launches: each kernel's count on its own path's run in phases 3, 3b
     # and 3c (the stacked path carries K1-K3, the megakernels K4-K5, the
     # batched engine K6, its stacked path K7, the paged engine K6's and K7's
@@ -1923,7 +2257,9 @@ def main() -> int:
             "megakernel_token_w3": "megakernels_w3", "megakernel_layer_w3": "megakernels_w3",
             "megakernel_chunk_w3": "megakernels_w3", "megakernel_batched_w3": "batched_w3",
             "megakernel_batched_int8_w3": "batched_int8_w3",
-            "megakernel_batched_paged_w3": "paged_w3"}
+            "megakernel_batched_paged_w3": "paged_w3",
+            "w8a8_gemm": "prefill_w8", "w4a8_gemm": "prefill_a8",
+            "quant_per_token": "prefill_w8"}
     kernels = []
     for name, (src, replaces) in sources.items():
         c = next(c for c in cases if c["name"] == name and c["shape"].startswith(pick[name]))

@@ -221,7 +221,6 @@ def test_batch_engine_mixes_greedy_and_sampled_rows(model):
 @pytest.mark.parametrize("what,kw", [
     ("item 11", dict(spec_k=4)),
     ("item 17", dict(runtime=TRuntime(mesh=object()))),
-    ("item 16", dict(runtime=TRuntime(prefill_w8=True))),
 ])
 def test_batch_engine_unported_options_raise(model, what, kw):
     _, _, tcfg, tparams = model

@@ -460,7 +460,6 @@ def test_paged_engine_memory_footprint(tiny):
 @pytest.mark.parametrize("what,kw", [
     ("item 10", dict(cache_dtype="int8")),
     ("item 17", dict(runtime=TRuntime(mesh=object()))),
-    ("item 16", dict(runtime=TRuntime(prefill_w8=True))),
 ])
 def test_paged_engine_unported_options_raise(tiny, what, kw):
     _, _, tcfg, tparams = tiny
