@@ -132,8 +132,9 @@ class RuntimeConfig:
     # engine init when the full cache cannot fit free HBM.
     prefill_w8_budget_gb: float = 0.0
     # multi-device serving: a device mesh with a 'tp' axis in the JAX
-    # package. The port's engines raise NotImplementedError on it until
-    # multi-GPU lands (ROADMAP queue A, item 17).
+    # package; in the port, this rank's tensor-parallel group
+    # (awq_tpu_torch.parallel.mesh.TPGroup, dp = 1), which InferenceEngine
+    # serves through. BatchEngine over a group is ROADMAP queue A, item 17b.
     mesh: Optional[Any] = None
 
 

@@ -34,9 +34,19 @@ bn]`` blocks) comes back in the port's ``[L, OC, IC]`` layout.
 
 :func:`kv_cache8_from_jax` carries a JAX ``KVCache8`` (codes and scales)
 across the same way, so that one int8 cache can feed both packages.
+
+:func:`rank_params_from_jax` takes one rank of a JAX ``TPParams`` (the
+tensor-parallel deploy layout of ``build_tp_params``, numpy leaves): it
+cuts each leaf to the rank's part along the axis its PartitionSpec names
+``"tp"`` (:func:`rank_tree_from_jax`; the JAX package assembles its global
+arrays so that this part is the rank's own local fold) and converts that
+as above, into the port's rank shard
+(``awq_tpu_torch.parallel.deploy.build_tp_params``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -213,3 +223,48 @@ def kv_cache8_from_jax(tree, device="cuda") -> KVCache8:
         raise ValueError(f"a KVCache8 holds int8 [L, 2, B, n_kv, T, hd] codes and f32 "
                          f"scales, got {data.dtype} {tuple(data.shape)} and {scales.dtype}")
     return KVCache8(data=data, scales=scales.reshape(data.shape[:5]).contiguous())
+
+
+def _rank_part(a, spec, rank: int, tp: int):
+    """Rank ``rank``'s part of array ``a`` under a PartitionSpec (a tuple of
+    axis names, None or tuples of names; absent trailing axes whole)."""
+    if a is None:
+        return None
+    a = np.asarray(a)
+    for axis, name in enumerate(tuple(spec or ())):
+        names = name if isinstance(name, tuple) else (name,)
+        if "tp" in names:
+            n = a.shape[axis] // tp
+            a = np.take(a, np.arange(rank * n, (rank + 1) * n), axis=axis)
+    return a
+
+
+def rank_tree_from_jax(tp_params, rank: int):
+    """Rank ``rank``'s parts of a host copy of a JAX ``TPParams``
+    (``params``, ``pspecs``, ``tp``; leaves numpy arrays after
+    ``jax.device_get``), in JAX's own tree and layout: what the JAX
+    package's shardings hand that rank's device."""
+    tp = int(tp_params.tp)
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} outside [0, {tp})")
+
+    def cut(x, spec):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: cut(v, spec[k]) for k, v in x.items()}
+        if dataclasses.is_dataclass(x):
+            arrays = {f.name: cut(getattr(x, f.name), getattr(spec, f.name))
+                      for f in dataclasses.fields(x)
+                      if not f.metadata.get("static") and getattr(x, f.name) is not None}
+            return dataclasses.replace(x, **arrays)
+        return _rank_part(x, spec, rank, tp)
+
+    return cut(tp_params.params, tp_params.pspecs)
+
+
+def rank_params_from_jax(tp_params, rank: int, device="cuda"):
+    """Rank ``rank``'s shard of a host copy of a JAX ``TPParams``, in the
+    port's layout: the parameters ``awq_tpu_torch.parallel.deploy.
+    build_tp_params`` builds for that rank."""
+    return params_from_jax(rank_tree_from_jax(tp_params, rank), device=device)

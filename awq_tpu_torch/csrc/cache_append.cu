@@ -30,9 +30,11 @@
 // [L, 2, B, n_kv, T] f32. One warp per (l, s, b, h) row: lane j holds
 // elements 4j..4j+3, a warp max gives the row's absmax, and the lane writes
 // its 4 codes as one 32-bit word (128 bytes per row, coalesced) and lane 0
-// the scale. The arithmetic is quantize_kv's to the bit: s = max(absmax,
-// 1e-6f) / 127 and q = clip(rint(x / s), -127, 127), a true division and
-// round-half-even (the build has no fast-math flag). Bound by device memory
+// the scale. The arithmetic is quantize_kv's under jit to the bit: s =
+// max(absmax, 1e-6f) * f32(1/127) (XLA turns the source's division by the
+// constant 127 into this product) and q = clip(rint(x / s), -127, 127), a
+// true division and round-half-even (the build has no fast-math flag).
+// Bound by device memory
 // as the copy: the bf16 rows in, 132 bytes per row out.
 #include "common.cuh"
 
@@ -94,7 +96,7 @@ __global__ void __launch_bounds__(256) cache_append_int8_kernel(
   load4f<T>(kv + (size_t)row * 128 + lane * 4, x);
   float a = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3])));
   a = warp_max(a);
-  const float s = fmaxf(a, 1e-6f) / 127.f;
+  const float s = __fmul_rn(fmaxf(a, 1e-6f), 1.f / 127.f);
   uint32_t word = 0;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {

@@ -141,13 +141,14 @@ __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_gr
 // JAX's quantize_kv (models/llama.py:391) of the current token's k and v
 // rows, 128 f32 values each in shared memory, after rounding them to bf16,
 // the dtype JAX's megakernels return k/v in for an int8 cache:
-// s = max(absmax, 1e-6f) / 127 and q = clip(rint(x / s), -127, 127), a true
-// division and round-half-even (the build has no fast-math flag), bit-equal
-// to quantize_kv. Called by all MK_THREADS (256) threads of the block, at a
-// point every thread reaches: thread t takes element t & 127 of row t >> 7
-// (k, then v). Writes the 128 codes at kq and vq, the scales at *ks and *vs
-// and, where kout and vout are not null, the bf16 values there. `red` holds
-// MK_WARPS floats of shared memory.
+// s = max(absmax, 1e-6f) * f32(1/127), as XLA computes the source's
+// division by the constant 127 under jit, and q = clip(rint(x / s), -127,
+// 127), a true division and round-half-even (the build has no fast-math
+// flag), bit-equal to quantize_kv. Called by all MK_THREADS (256) threads
+// of the block, at a point every thread reaches: thread t takes element
+// t & 127 of row t >> 7 (k, then v). Writes the 128 codes at kq and vq, the
+// scales at *ks and *vs and, where kout and vout are not null, the bf16
+// values there. `red` holds MK_WARPS floats of shared memory.
 __device__ __forceinline__ void quantize_kv_rows(const float* kc, const float* vc,
                                                  int8_t* kq, int8_t* vq, float* ks,
                                                  float* vs, bf16* kout, bf16* vout,
@@ -159,7 +160,7 @@ __device__ __forceinline__ void quantize_kv_rows(const float* kc, const float* v
   if ((t & 31) == 0) red[t >> 5] = a;
   __syncthreads();
   const float* r = red + which * (MK_HD / 32);
-  const float s = fmaxf(fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3])), 1e-6f) / 127.f;
+  const float s = __fmul_rn(fmaxf(fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3])), 1e-6f), 1.f / 127.f);
   (which ? vq : kq)[d] = static_cast<int8_t>(fminf(fmaxf(rintf(x / s), -127.f), 127.f));
   if (d == 0) *(which ? vs : ks) = s;
   bf16* o = which ? vout : kout;

@@ -66,6 +66,17 @@
 // The staged activations are the same in both modes: w3_spread moves the
 // 3-bit codes into the pairs that the W4 permutation expects. A token then
 // streams 0.375 B per weight (3.28 GB at Llama-3-8B width with the head).
+// K12 and K13, the tensor-parallel halves (Pallas rows 19 and 20,
+// awq_tpu/ops/megakernel_tp.py: w4a16_llama_attn_half / _attn_half_kernel
+// and w4a16_llama_mlp_half / _mlp_half_kernel): the same kernel body over one
+// layer of one rank's shards, compiled as two more instances (MODE below),
+// as the JAX package builds them from K4's _attn_phases and _mlp_phases.
+// K12 (MODE_ATT) runs phases 1-4 on the rank's q/k/v columns, kv heads and
+// wo rows (IC = nq·128 of the rank, not H) and writes wo's f32 partial sum
+// without the residual; K13 (MODE_MLP) runs phases 5-6 from an f32 residual
+// on the rank's gate/up columns and down rows and writes down's f32
+// partial. The caller all-reduces each partial over the group and adds the
+// residual (models/llama.py). Bound by the rank's weight bytes, as K4.
 // Activations live in a device workspace that the wrapper allocates; the
 // kernel allocates nothing. A simple first version: no TMA, no cp.async
 // pipeline and no overlap of a phase's tail with the next one's loads.
@@ -91,6 +102,9 @@ struct TokenArgs {
 };
 
 constexpr int TILE = 32;                       // columns per matmul tile
+// What one launch runs: layers [layer0, layer0 + n) (K4), or one layer's
+// attention half (K12) or MLP half (K13), each writing an f32 partial sum.
+enum { MODE_LAYERS = 0, MODE_ATT = 1, MODE_MLP = 2 };
 constexpr int ATT_FLOATS = MK_MAXG * MK_HD + 2 * MK_HD + 2 * MK_WARPS * MK_MAXG
                            + MK_WARPS * MK_MAXG * MK_HD;
 constexpr int MAX_PER_SM = 4;                  // blocks per SM (barrier cost)
@@ -220,9 +234,10 @@ __device__ float gemv_tile(const uint32_t* __restrict__ xa, const float* __restr
   return v;
 }
 
-template <typename CT>
+template <typename CT, int MODE>
 __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
   constexpr bool Q8 = sizeof(CT) == 1;   // int8 codes with f32 scales
+  constexpr bool ATT = MODE != MODE_MLP, MLP = MODE != MODE_ATT;
   extern __shared__ float sm[];
   cg::grid_group grid = cg::this_grid();
   float* red = sm;                       // 256 floats
@@ -244,11 +259,17 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
   const int gtid = blockIdx.x * MK_THREADS + tid;
   const int vb = blockIdx.x;
 
-  for (int i = gtid; i < H; i += gsize) hres[i] = load_act(a.h_in, a.md, i);
+  float* part = static_cast<float*>(a.h_out);   // K12, K13: the f32 partial
+  if constexpr (MODE == MODE_MLP) {
+    for (int i = gtid; i < H; i += gsize) h1[i] = static_cast<const float*>(a.h_in)[i];
+  } else {
+    for (int i = gtid; i < H; i += gsize) hres[i] = load_act(a.h_in, a.md, i);
+  }
   grid.sync();
 
   for (int li = 0; li < a.n_layers; ++li) {
     const int l = a.layer0 + li;
+    if constexpr (ATT) {
     // ---- phase 1: rmsnorm + fused QKV (+ bias) ---------------------------
     {
       const int nt = oq / TILE;
@@ -391,19 +412,24 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
       for (int e = 0; e < 4; ++e) xo[hq * MK_HD + lane * 4 + e] = ac[e];
     }
     grid.sync();
-    // ---- phase 4: o-proj + residual -----------------------------------------
+    // ---- phase 4: o-proj (+ residual) over IC = nq·128 (= H in K4) -------
     {
-      const int nt = H / TILE;
-      const int32_t* w = a.o_w + (size_t)l * qrows(H, UNIT_W3) * H;
-      const float* s = a.o_s + (size_t)l * (H / MK_G) * H;
-      const float* z = a.o_z + (size_t)l * (H / MK_G) * H;
-      if (vb < nt) stage_copy(xa, xsum, xo, nq * MK_HD);
+      const int nt = H / TILE, ic = nq * MK_HD;
+      const int32_t* w = a.o_w + (size_t)l * qrows(ic, UNIT_W3) * H;
+      const float* s = a.o_s + (size_t)l * (ic / MK_G) * H;
+      const float* z = a.o_z + (size_t)l * (ic / MK_G) * H;
+      if (vb < nt) stage_copy(xa, xsum, xo, ic);
       for (int t = vb; t < nt; t += gridDim.x) {
-        const float v = gemv_tile(xa, xsum, w, s, z, H, H, t * TILE, red);
-        if (tid < TILE) h1[t * TILE + tid] = hres[t * TILE + tid] + v;
+        const float v = gemv_tile(xa, xsum, w, s, z, ic, H, t * TILE, red);
+        if (tid < TILE) {
+          if constexpr (MODE == MODE_ATT) part[t * TILE + tid] = v;
+          else h1[t * TILE + tid] = hres[t * TILE + tid] + v;
+        }
       }
     }
     grid.sync();
+    }
+    if constexpr (MLP) {
     // ---- phase 5: rmsnorm + gate/up, SiLU·mul fused ---------------------------
     {
       const int nt = I / TILE, oc = 2 * I;
@@ -429,14 +455,20 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
       for (int t = vb; t < nt; t += gridDim.x) {
         const float v = gemv_tile(xa, xsum, w, s, z, I, H, t * TILE, red);
         if (tid < TILE) {
-          const float y = h1[t * TILE + tid] + v;
-          hres[t * TILE + tid] = a.round_res ? bf16r(y) : y;
+          if constexpr (MODE == MODE_MLP) {
+            part[t * TILE + tid] = v;
+          } else {
+            const float y = h1[t * TILE + tid] + v;
+            hres[t * TILE + tid] = a.round_res ? bf16r(y) : y;
+          }
         }
       }
     }
     grid.sync();
+    }
   }
 
+  if constexpr (MODE != MODE_LAYERS) return;
   for (int i = gtid; i < H; i += gsize) store_act(a.h_out, a.md, i, hres[i]);
   if (a.vocab) {
     // ---- final rmsnorm + W4 head -> f32 logits ----------------------------------
@@ -454,17 +486,17 @@ enum { P_H, P_OUT, P_QW, P_QS, P_QZ, P_QB, P_OW, P_OS, P_OZ, P_GW, P_GS, P_GZ,
        P_DW, P_DS, P_DZ, P_LN1, P_LN2, P_COS, P_SIN, P_CACHE, P_KN, P_VN,
        P_HW, P_HS, P_HZ, P_NW, P_LOGITS, P_SCALES };
 enum { N_L0, N_NL, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_LEN, N_VOCAB, N_ROUND,
-       N_MD, N_CD, N_BIAS, N_W3 };
+       N_MD, N_CD, N_BIAS, N_W3, N_MODE };
 
 struct Plan { int grid, nsplit, split_len; size_t smem; long long ws; };
 
-template <typename CT>
+template <typename CT, int MODE>
 int plan_for(const int* n, Plan* p) {
   const int H = n[N_H], I = n[N_I], nq = n[N_NQ], nkv = n[N_NKV];
   const int maxic = H > I ? H : I;
   const int xfloats = maxic / 2 + maxic / MK_G;        // xa + xsum
   p->smem = (size_t)(MK_THREADS + (xfloats > ATT_FLOATS ? xfloats : ATT_FLOATS)) * sizeof(float);
-  const int err = coop_grid(token_kernel<CT>, p->smem, &p->grid, MAX_PER_SM);
+  const int err = coop_grid(token_kernel<CT, MODE>, p->smem, &p->grid, MAX_PER_SM);
   if (err) return err;
   // attention items: about one per block, at least 32 positions each
   const int npos = n[N_LEN] + 1;
@@ -480,13 +512,45 @@ int plan_for(const int* n, Plan* p) {
   return 0;
 }
 
-int plan(const int* n, Plan* p) {
+// The instance a launch with these arguments runs: the cache dtype (K13
+// reads no cache and has the one bf16 instance) and the mode.
+template <int MODE>
+const void* kernel_for(int cd) {
+  switch (cd) {
+    case 0: return (const void*)token_kernel<float, MODE>;
+    case 1: return (const void*)token_kernel<bf16, MODE>;
+    case 2: return (const void*)token_kernel<__half, MODE>;
+    case 3: return (const void*)token_kernel<int8_t, MODE>;
+    default: return nullptr;
+  }
+}
+
+template <int MODE>
+int plan_mode(const int* n, Plan* p) {
   switch (n[N_CD]) {
-    case 0: return plan_for<float>(n, p);
-    case 1: return plan_for<bf16>(n, p);
-    case 2: return plan_for<__half>(n, p);
-    case 3: return plan_for<int8_t>(n, p);
+    case 0: return plan_for<float, MODE>(n, p);
+    case 1: return plan_for<bf16, MODE>(n, p);
+    case 2: return plan_for<__half, MODE>(n, p);
+    case 3: return plan_for<int8_t, MODE>(n, p);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int plan(const int* n, Plan* p) {
+  switch (n[N_MODE]) {
+    case MODE_LAYERS: return plan_mode<MODE_LAYERS>(n, p);
+    case MODE_ATT: return plan_mode<MODE_ATT>(n, p);
+    case MODE_MLP: return n[N_CD] == 1 ? plan_for<bf16, MODE_MLP>(n, p)
+                                       : static_cast<int>(cudaErrorInvalidValue);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+const void* kernel(const int* n) {
+  switch (n[N_MODE]) {
+    case MODE_LAYERS: return kernel_for<MODE_LAYERS>(n[N_CD]);
+    case MODE_ATT: return kernel_for<MODE_ATT>(n[N_CD]);
+    default: return n[N_CD] == 1 ? (const void*)token_kernel<bf16, MODE_MLP> : nullptr;
   }
 }
 
@@ -500,13 +564,17 @@ extern "C" long long awq_mega_token_ws(const void* const* ptrs, const int* n) {
   return err ? -static_cast<long long>(err) : p.ws;
 }
 
-// Caller guarantees (ops/megakernel.py checks them): contiguous operands on
-// one device; g128 stacked weights, W4 [L, IC/8, OC] or with N_W3 W3
-// [L, IC*3/32, OC] (every linear and the head), with f32 scales and szeros
-// [L, IC/128, OC]; head_dim 128; nq/nkv <= 8; every OC a multiple of
-// 32; H and I multiples of 128; 0 <= length < T; batch 1. Cache dtype code
-// 3 is int8 codes with f32 scales [L, 2, 1, nkv, T] at P_SCALES, and bf16
-// k_new/v_new.
+// Caller guarantees (ops/megakernel.py and ops/megakernel_tp.py check
+// them): contiguous operands on one device; g128 stacked weights, W4
+// [L, IC/8, OC] or with N_W3 W3 [L, IC*3/32, OC] (every linear and the
+// head), with f32 scales and szeros [L, IC/128, OC]; head_dim 128; nq/nkv
+// <= 8; every OC a multiple of 32; H, I and nq·128 multiples of 128 (of
+// 256 in W3); 0 <= length < T; batch 1. Cache dtype code 3 is int8 codes
+// with f32 scales [L, 2, 1, nkv, T] at P_SCALES, and bf16 k_new/v_new.
+// N_MODE: MODE_LAYERS (K4: P_H and P_OUT in the model dtype), MODE_ATT (K12:
+// P_OUT the f32 [H] partial, one layer, wo [L, nq·128/8, H]) or MODE_MLP
+// (K13: P_H the f32 [H] residual, P_OUT the f32 partial, one layer, no
+// cache, N_CD 1).
 extern "C" int awq_mega_token(const void* const* ptrs, const int* n, float eps,
                               void* ws, void* stream) {
   Plan p;
@@ -540,18 +608,10 @@ extern "C" int awq_mega_token(const void* const* ptrs, const int* n, float eps,
   a.vocab = n[N_VOCAB]; a.round_res = n[N_ROUND]; a.md = n[N_MD]; a.has_bias = n[N_BIAS];
   a.nsplit = p.nsplit; a.split_len = p.split_len; a.eps = eps;
   void* kargs[] = {&a};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (n[N_CD]) {
-    case 0: e = cudaLaunchCooperativeKernel((const void*)token_kernel<float>, p.grid,
-                                            MK_THREADS, kargs, p.smem, st); break;
-    case 1: e = cudaLaunchCooperativeKernel((const void*)token_kernel<bf16>, p.grid,
-                                            MK_THREADS, kargs, p.smem, st); break;
-    case 3: e = cudaLaunchCooperativeKernel((const void*)token_kernel<int8_t>, p.grid,
-                                            MK_THREADS, kargs, p.smem, st); break;
-    default: e = cudaLaunchCooperativeKernel((const void*)token_kernel<__half>, p.grid,
-                                             MK_THREADS, kargs, p.smem, st); break;
-  }
+  const void* fn = kernel(n);
+  if (!fn) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = cudaLaunchCooperativeKernel(fn, p.grid, MK_THREADS, kargs, p.smem,
+                                                    static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,6 +46,18 @@ after every layer has run, as on the TPU. Prefill quantizes the chunk and
 writes it first, then attends over the dequantized prefix with K3. There
 is no paged int8 pool and no int8 K5, as in the JAX package.
 
+Under tensor parallelism (``tp_axis``, a :class:`~awq_tpu_torch.parallel.
+mesh.TPGroup`; ``parallel/tp.py`` drives it) every rank runs
+:func:`forward` on its shards with the LOCAL config (``tp_local_cfg``):
+the vocab-sharded embedding is a masked local lookup and an all-reduce;
+one-token decode at batch 1 takes the half-layer megakernels K12 and K13
+(``ops/megakernel_tp.py``) with an all-reduce after each, where
+``tp_megakernel_supported`` holds (on CUDA, or their plain versions on the
+CPU with ``AWQ_TPU_TP_MEGAKERNEL=1``, the JAX package's switch); otherwise,
+and for every prefill, the stacked path with an all-reduce after the
+row-parallel ``wo`` and ``down`` (a bias added once, after it). K4 and K5
+fuse all layers and take no part. The logits come back vocab-sharded.
+
 ``cfg.prefill_a8`` (the int8-activation prefill) routes every stacked-path
 linear of a prefill (S > 1) through K11 over the layer's int8 weight cache
 ``<name>_w8`` (a ``W8Stack``, built by ``attach_w8_caches`` for
@@ -89,6 +101,7 @@ from awq_tpu_torch.ops.decode_attn import flash_prefill, flash_prefill_plain
 from awq_tpu_torch.ops import megakernel as mk
 from awq_tpu_torch.ops import megakernel_batched as mkb
 from awq_tpu_torch.ops import megakernel_chunk as mkc
+from awq_tpu_torch.ops import megakernel_tp as mtp
 from awq_tpu_torch.ops.w4a16 import (
     QLinear,
     W8Stack,
@@ -437,6 +450,51 @@ def _megakernel_forward(params, cfg, h, cache, start_pos, plain):
     return res[0][None], None
 
 
+def _embed_lookup(params: Params, cfg: ModelConfig, ids: torch.Tensor, dt,
+                  tp_axis) -> torch.Tensor:
+    """Token embedding lookup. Under tensor parallelism with a vocab-sharded
+    table (``awq_tpu/models/llama.py:432-446``): a lookup of the ids in this
+    rank's rows, zeros for the others, then an all-reduce over the group."""
+    emb = params["embed"]
+    if tp_axis is not None and emb.shape[0] != cfg.vocab_size:
+        shard = emb.shape[0]
+        loc = ids - tp_axis.rank * shard
+        ok = (loc >= 0) & (loc < shard)
+        h = torch.where(ok[..., None], emb[loc.clamp(0, shard - 1)], emb.new_zeros(()))
+        return tp_axis.all_reduce(h.contiguous()).to(dt)
+    return emb[ids].to(dt)
+
+
+def _tp_halves_forward(params, cfg, h, cache, start_pos, plain, tp_axis):
+    """One token through every layer on K12 and K13, per layer in JAX's
+    rounding order (``awq_tpu/models/llama.py:778-830``): ``h1 = f32(h) +
+    all_reduce(o_part)``, ``h = dtype(h1 + all_reduce(m_part))``. The
+    kernels write each layer's k/v into the rank's cache in place."""
+    la = params["layers"]
+    data, scales = mk.split_cache(cache)
+    cos, sin = _rope_cached(cfg, data.shape[4], data.device)
+    attn = mtp.w4a16_llama_attn_half_plain if plain else mtp.w4a16_llama_attn_half
+    mlp = mtp.w4a16_llama_mlp_half_plain if plain else mtp.w4a16_llama_mlp_half
+    kw = dict(nq=cfg.num_heads, nkv=cfg.num_kv_heads, eps=cfg.rms_eps, cache_scales=scales)
+    hrow = h[0]
+    for l in range(cfg.num_layers):
+        o_part = attn(hrow, la["wqkv"], la["wo"], la["ln1"], cos[start_pos], sin[start_pos],
+                      data, l, start_pos, **kw)[0]
+        h1 = hrow.float() + tp_axis.all_reduce(o_part)
+        m_part = mlp(h1, la["wgateup"], la["down"], la["ln2"], l, eps=cfg.rms_eps)
+        hrow = (h1 + tp_axis.all_reduce(m_part)).to(h.dtype)
+    return hrow[None]
+
+
+def _use_tp_halves(cfg, layers, cache, b: int, s: int) -> bool:
+    """``forward``'s gate of K12/K13 under ``tp_axis`` (JAX's ``use_tpmega``)."""
+    dev = cache.device
+    return (s == 1 and b == 1
+            and (dev.type == "cuda" or mk._env("AWQ_TPU_TP_MEGAKERNEL"))
+            and not mk._env("AWQ_TPU_DISABLE_MEGAKERNEL")
+            and mtp.tp_megakernel_supported(cfg, layers, cache))
+
+
 def _head_logits(params: Params, h: torch.Tensor, impl: str) -> torch.Tensor:
     """Final-normed hidden states -> f32 logits (tied embedding, quantized
     head or fp matrix)."""
@@ -459,6 +517,7 @@ def forward(
     start_pos: int,             # the chunk occupies [start_pos, start_pos+S)
     last_only: bool = True,
     impl: str = "auto",
+    tp_axis=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Run the decoder; returns ``(logits f32, cache)``.
 
@@ -470,6 +529,11 @@ def forward(
     device, their plain versions on the CPU. ``impl="plain"`` runs the
     plain versions on any device; it is the reference the kernel path is
     held to on the card, and slower.
+
+    ``tp_axis``: this rank's :class:`~awq_tpu_torch.parallel.mesh.TPGroup`
+    when ``params``/``cache`` are its tensor-parallel shards and ``cfg`` the
+    local config; the logits are then this rank's vocab slice ``[B, S,
+    V/tp]`` (``parallel/tp.py::tp_forward`` gathers them).
     """
     _check_supported(cfg)
     _check_cache(cache)
@@ -484,8 +548,16 @@ def forward(
         raise ValueError(f"chunk [{start_pos}, {start_pos + s}) exceeds the "
                          f"cache length {t_max}")
     layers = params["layers"]
-    h = params["embed"][tokens.to(dev)].to(dt)
-    if b == 1 and ((s == 1 and mk.megakernel_supported(cfg, layers, cache)) or (
+    h = _embed_lookup(params, cfg, tokens.to(dev), dt, tp_axis)
+    if tp_axis is not None:
+        # Megatron TP: no whole-model megakernel (its layers leave no room
+        # for the all-reduces); the halves at batch-1 decode, else stacked
+        if _use_tp_halves(cfg, layers, cache, b, s):
+            h = _tp_halves_forward(params, cfg, h, cache, start_pos, impl == "plain",
+                                   tp_axis)
+        else:
+            h = stacked_layers(params, cfg, h, cache, start_pos, impl, tp_axis=tp_axis)
+    elif b == 1 and ((s == 1 and mk.megakernel_supported(cfg, layers, cache)) or (
             s > 1 and mkc.chunk_megakernel_supported(cfg, layers, cache, s))):
         # the new k/v are written inside the kernel: no append here
         h, logits = _megakernel_forward(params, cfg, h, cache, start_pos,
@@ -505,7 +577,7 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                    cache: Cache, start_pos: int, impl: str = "auto",
                    layer_ids=None, lengths: Optional[torch.Tensor] = None,
                    max_length: Optional[int] = None,
-                   tables: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   tables: Optional[torch.Tensor] = None, tp_axis=None) -> torch.Tensor:
     """The stacked per-kernel path over ``h [B, S, H]`` for the layers
     ``layer_ids`` (all by default): returns the new residual and writes
     each layer's k/v into the cache in place.
@@ -522,7 +594,10 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     (K7). ``max_length`` (at least ``lengths.max()``, from the caller's host
     copy) sizes K2's grid without a device sync. With ``tables [B, MP]`` as
     well, ``cache`` is a page pool and K8 and the paged K7 take K2's and
-    K7's places."""
+    K7's places. With ``tp_axis`` (a rank's shards under tensor
+    parallelism) the row-parallel ``wo`` and ``down`` end in an all-reduce
+    of their partial sums, their bias added once after it
+    (``_lin_row_fn``, ``awq_tpu/models/llama.py:463-494``)."""
     b, s = h.shape[:2]
     dt = _dtype(cfg)
     dev = cache.device
@@ -539,13 +614,25 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     # int8 cache (``<name>_w8``), else K10; decode stays W4A16
     a8 = s > 1 and cfg.prefill_a8
 
-    def lin(name, idx, xx):
+    def lin(name, idx, xx, with_bias=True):
         p = layers[name]
         if isinstance(p, QLinear):
+            if not with_bias:
+                p = dataclasses.replace(p, bias=None)
             return qlinear_apply_stacked(p, idx, xx, impl=impl, a8=a8,
                                          w8stack=layers.get(name + "_w8") if a8 else None)
-        return linear_apply(Linear(w=p.w[idx],
-                                   b=None if p.b is None else p.b[idx]), xx)
+        b = p.b[idx] if with_bias and p.b is not None else None
+        return linear_apply(Linear(w=p.w[idx], b=b), xx)
+
+    def lin_row(name, idx, xx):
+        """A row-parallel linear: each rank's partial sum over its input
+        channels, summed over the group; the (replicated) bias once."""
+        if tp_axis is None:
+            return lin(name, idx, xx)
+        p = layers[name]
+        bias = p.bias if isinstance(p, QLinear) else p.b
+        out = tp_axis.all_reduce(lin(name, idx, xx, with_bias=False).contiguous())
+        return out if bias is None else out + bias[idx].to(out.dtype)
 
     if lengths is None:
         cos, sin = rope_table(cfg, start_pos + s, device=dev)
@@ -601,14 +688,14 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         else:
             update_kv_cache(kv, k, v, start_pos)
             attn = prefill(q.contiguous(), kv, start_pos)
-        h = h + lin("wo", idx, attn.to(dt))
+        h = h + lin_row("wo", idx, attn.to(dt))
         xm = rms_norm(h, layers["ln2"][idx], cfg.rms_eps)
         if "wgateup" in layers:
             g, u = torch.chunk(lin("wgateup", idx, xm), 2, dim=-1)
         else:
             g, u = lin("gate", idx, xm), lin("up", idx, xm)
         hm = torch.nn.functional.silu(g.float()).to(dt) * u
-        h = h + lin("down", idx, hm)
+        h = h + lin_row("down", idx, hm)
     if kv_new and q8:
         append8 = batched_cache_append_int8_plain if plain else batched_cache_append_int8
         append8(cache.data, cache.scales, torch.stack(kv_new), row_lengths)
@@ -636,7 +723,8 @@ def _check_step(cfg: ModelConfig, cache, impl: str, tp_axis) -> None:
     _check_supported(cfg)
     if tp_axis is not None:
         raise NotImplementedError(
-            "tensor-parallel decode (tp_axis) is ROADMAP queue A, item 17")
+            "the batched and paged steps under tensor parallelism (tp_axis) are "
+            "ROADMAP queue A, item 17b")
     _check_cache(cache)
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")

@@ -44,14 +44,15 @@ LAUNCHES = {"cache_append": 0, "cache_append_paged": 0, "cache_append_int8": 0}
 
 def quantize_kv(k: torch.Tensor):
     """Symmetric int8 over the last axis (head_dim), one scale per row: the
-    JAX package's ``quantize_kv`` (``models/llama.py:391``), bit for bit.
-    ``k [..., hd]`` -> ``(codes int8 [..., hd], scales f32 [...])`` with
-    ``s = max(absmax(f32(k)), 1e-6) / 127`` and ``q = clip(round_half_even(
-    f32(k) / s), -127, 127)``: a true division, not a reciprocal multiply.
-    The divisor 127 is a tensor on ``k``'s device: PyTorch's CUDA division
-    by a Python scalar multiplies by its reciprocal, one ulp off at times."""
+    JAX package's ``quantize_kv`` (``models/llama.py:391``) as its callers
+    run it, under ``jit``, bit for bit. ``k [..., hd]`` -> ``(codes int8
+    [..., hd], scales f32 [...])`` with ``s = max(absmax(f32(k)), 1e-6) *
+    f32(1/127)`` and ``q = clip(round_half_even(f32(k) / s), -127, 127)``.
+    The JAX source writes ``/ 127.0``, but XLA turns a division by a
+    constant into a multiplication by its reciprocal; the division of the
+    codes is by a tensor and stays a true one."""
     kf = k.float()
-    s = torch.clamp_min(kf.abs().amax(dim=-1), 1e-6) / kf.new_tensor(127.0)
+    s = torch.clamp_min(kf.abs().amax(dim=-1), 1e-6) * (1.0 / 127.0)
     q = torch.clamp(torch.round(kf / s[..., None]), -127, 127).to(torch.int8)
     return q, s
 

@@ -66,6 +66,9 @@ MAX_GROUP = 8      # most q heads per kv head K4 takes (MK_MAXG)
 CACHE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _CACHE_CODE = {**_DTYPE_CODE, torch.int8: 3}
+# what a launch of csrc/megakernel.cu runs (its N_MODE): layers (K4), or one
+# layer's attention half (K12) or MLP half (K13, ops/megakernel_tp.py)
+MODE_LAYERS, MODE_ATT, MODE_MLP = 0, 1, 2
 
 
 def split_cache(cache):
@@ -209,11 +212,12 @@ def qdot_layer(ql: QLinear, l: Optional[int], x: torch.Tensor) -> torch.Tensor:
 
 
 
-def _layer_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
-                 l, length, nq, nkv, eps, scales=None):
-    """One layer on the f32 residual ``h [1, H]``; writes the cache (codes
-    and ``scales`` for an int8 one) at ``length`` and returns ``(h_new f32
-    [1, H], k, v f32 [nkv, hd])``."""
+def attn_plain(h, wqkv, ln1, cos_row, sin_row, cache, l, length, nq, nkv, eps,
+               scales=None):
+    """The attention of one layer on the f32 residual ``h [1, H]``: RMSNorm,
+    QKV (+ bias), rope, attention over the cache prefix and the current
+    token. Writes the cache (codes and ``scales`` for an int8 one) at
+    ``length`` and returns ``(attn f32 [1, nq*hd], k, v f32 [nkv, hd])``."""
     hd = HEAD_DIM
     grp = nq // nkv
     x = rms_rows(h, ln1[l], eps)
@@ -234,11 +238,28 @@ def _layer_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
     p = torch.softmax(torch.einsum("kgh,kth->kgt", qs, keys), dim=-1)
     attn = torch.einsum("kgt,kth->kgh", p, vals).reshape(1, nq * hd)
     write_kv(cache, scales, (l, slice(None), 0, slice(None), length), torch.stack([k, v]))
-    h1 = h + qdot_layer(wo, l, attn)
+    return attn, k, v
+
+
+def mlp_plain(h1, wgu, wdn, ln2, l, eps):
+    """The MLP of one layer on the f32 residual ``h1 [1, H]``: RMSNorm,
+    gate/up, SiLU·mul, down; returns down's output, f32 ``[1, H]``, without
+    the residual."""
     gu = qdot_layer(wgu, l, rms_rows(h1, ln2[l], eps))
     gate, up = gu.chunk(2, dim=-1)
     hm = gate * torch.sigmoid(gate) * up
-    return h1 + qdot_layer(wdn, l, hm), k, v
+    return qdot_layer(wdn, l, hm)
+
+
+def _layer_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
+                 l, length, nq, nkv, eps, scales=None):
+    """One layer on the f32 residual ``h [1, H]``; writes the cache (codes
+    and ``scales`` for an int8 one) at ``length`` and returns ``(h_new f32
+    [1, H], k, v f32 [nkv, hd])``."""
+    attn, k, v = attn_plain(h, wqkv, ln1, cos_row, sin_row, cache, l, length, nq, nkv,
+                            eps, scales)
+    h1 = h + qdot_layer(wo, l, attn)
+    return h1 + mlp_plain(h1, wgu, wdn, ln2, l, eps), k, v
 
 
 def write_kv(cache, scales, at, kv):
@@ -440,7 +461,7 @@ def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
                   scales.data_ptr() if scales is not None else 0])
     ints = [layer0, n_layers, L, H, inter, nq, nkv, T, length, vocab,
             int(round_residual), _DTYPE_CODE[h.dtype], _CACHE_CODE[cache.dtype],
-            int(bias is not None), int(w3)]
+            int(bias is not None), int(w3), MODE_LAYERS]
     launch("awq_mega_token", "megakernel_w3" if w3 else "megakernel", ptrs, ints, eps, dev)
     LAUNCHES[counter + ("_w3" if w3 else "") + ("_int8" if scales is not None else "")] += 1
     res = (out, k_new, v_new)

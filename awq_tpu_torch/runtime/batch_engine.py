@@ -113,7 +113,8 @@ class BatchEngine:
                 "speculative verify (spec_k) is ROADMAP queue A, item 11")
         if getattr(runtime, "mesh", None) is not None:
             raise NotImplementedError(
-                "multi-GPU serving (RuntimeConfig.mesh) is ROADMAP queue A, item 17")
+                "BatchEngine over a tensor-parallel group (RuntimeConfig.mesh) is "
+                "ROADMAP queue A, item 17b")
         if runtime is not None and runtime.quantize_head:
             quantize_head = True
         params = params_to(params, self.device)

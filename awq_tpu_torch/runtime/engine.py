@@ -11,6 +11,15 @@ prompt, so that no round attends over an unwritten cache slot.
 the fusion and turns on ``cfg.prefill_a8`` (``attach_prefill_w8``):
 prompts of 32 tokens and more on the stacked path then prefill through
 K11 (a float-cache prompt of up to 32 tokens still takes K5).
+
+``RuntimeConfig.mesh`` (this rank's :class:`~awq_tpu_torch.parallel.mesh.
+TPGroup`, ``dp == 1``) serves through tensor parallelism, as the JAX
+engine does over a mesh: every rank of the group builds an engine from the
+same plain (unfused) params and drives it with the same calls. The engine
+keeps the rank's deploy layout (``build_tp_params``) and its kv-head shard
+of the cache (bf16, or int8 codes and scales), on the group's device;
+prefill and decode run through ``tp_forward`` and ``tp_decode_scan``, and
+every rank returns the same ids.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from awq_tpu_torch.models.llama import (
     params_to,
     quantize_head,
 )
+from awq_tpu_torch.parallel.deploy import build_tp_params
+from awq_tpu_torch.parallel.tp import tp_forward, tp_local_cfg
 from awq_tpu_torch.runtime.generate import generate
 
 
@@ -43,13 +54,28 @@ class InferenceEngine:
         cache_dtype=torch.bfloat16,
         device="cuda",
     ):
-        self.device = _device.resolve(device)
         self.cfg = cfg
         self.rt = runtime or RuntimeConfig()
-        if self.rt.mesh is not None:
-            raise NotImplementedError(
-                "multi-GPU serving (RuntimeConfig.mesh) is ROADMAP queue A, item 17")
+        self.mesh = self.rt.mesh
         t = min(self.rt.max_seq_len, cfg.max_position_embeddings)
+        self._pending = []      # an id returned but not yet fed (see generate)
+        self.start_pos = 0
+        if self.mesh is not None:
+            if self.mesh.dp != 1:
+                raise ValueError("engines require a dp=1 mesh (the batch axis is the "
+                                 f"engine's slot axis); got dp={self.mesh.dp}, "
+                                 f"tp={self.mesh.size}")
+            self.device = _device.resolve(self.mesh.device)
+            # sliced where the params lie (the host, for a model larger than a
+            # card), and only the rank's shard moves to its card
+            self.params = params_to(build_tp_params(params, cfg, self.mesh,
+                                                    quantize_head=self.rt.quantize_head,
+                                                    prefill_w8=self.rt.prefill_w8),
+                                    self.device)
+            self.cache = init_cache(tp_local_cfg(cfg, self.mesh.size), self.rt.max_batch_size,
+                                    t, cache_dtype, device=self.device)
+            return
+        self.device = _device.resolve(device)
         params = params_to(params, self.device)
         if self.rt.quantize_head:
             params = quantize_head(params, cfg)
@@ -58,8 +84,6 @@ class InferenceEngine:
             self.params, self.cfg = attach_prefill_w8(self.params, cfg, self.rt)
         self.cache = init_cache(cfg, self.rt.max_batch_size, t, cache_dtype,
                                 device=self.device)
-        self.start_pos = 0
-        self._pending = []      # an id returned but not yet fed (see generate)
 
     # ---- conversation state (history KV reused across rounds) ----
 
@@ -73,13 +97,18 @@ class InferenceEngine:
     def max_seq_len(self) -> int:
         return cache_seq_len(self.cache)
 
+    def _forward(self, tokens, start_pos):
+        if self.mesh is not None:
+            return tp_forward(self.params, self.cfg, tokens, self.cache, start_pos, self.mesh)
+        return forward(self.params, self.cfg, tokens, self.cache, start_pos)
+
     def warmup(self, seq_len: int = 64):
         """Run one prefill and one decode step (first launches load the
         kernels), then clear the cache they wrote."""
         toks = torch.zeros((self.rt.max_batch_size, seq_len), dtype=torch.long,
                            device=self.device)
-        forward(self.params, self.cfg, toks, self.cache, 0)
-        forward(self.params, self.cfg, toks[:, :1], self.cache, seq_len)
+        self._forward(toks, 0)
+        self._forward(toks[:, :1], seq_len)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.reset()
@@ -108,7 +137,7 @@ class InferenceEngine:
         tokens = torch.tensor([ids], dtype=torch.long, device=self.device)
         out = generate(self.params, self.cfg, tokens, self.cache, gen,
                        stop_ids=stop_ids, start_pos=self.start_pos,
-                       generator=generator)
+                       generator=generator, mesh=self.mesh)
         self.cache = out["cache"]
         n_new = int(out["n_valid"][0])
         ids_out = out["output_ids"][0, :n_new]

@@ -41,6 +41,12 @@ Phases (each failure ends the run with a non-zero exit):
    requantized in the kernel) at 40, 512 and 1000, each bit-equal to its
    plain version, K11 to K10, and the card's cache to the CPU's build;
    yardsticks ``torch._int_mm`` with the same epilogue and K1's GEMM.
+   Then the tensor-parallel halves K12 (attention half) and K13 (MLP half)
+   on one rank's shards of Llama-3-8B at tp = 1, 2 and 4 (q/kv heads and
+   intermediate 32/8/14336, 16/4/7168, 8/2/3584), layer 5: K12 at lengths
+   0, 1000 and 4000 over a bf16 cache and 1000 over an int8 one (its
+   in-place write held as above), K13, and both in W3 at tp = 2; the
+   yardstick is the stacked per-rank path's device time for the same half.
 3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
    new tokens each, the second continuing the first's dialogue, then a
    24-token follow-up continuing the third's) through ``InferenceEngine``
@@ -91,13 +97,27 @@ Phases (each failure ends the run with a non-zero exit):
    the two configurations' greedy ids must be equal where both prefill in
    int8 (or on K5) over the same history, and the paged engine's equal the
    slot engine's.
+3g. Tensor-parallel serving over phase 3's model (seed 0): (a) at tp = 1
+   over NCCL in this process, phase 3's four requests through
+   ``InferenceEngine(RuntimeConfig(mesh=...))``, once over a bf16 and once
+   over an int8 cache: every prompt on the stacked path, every decode step
+   on K12 and K13 with an all-reduce after each (K4 and K5 must not run);
+   (b) at tp = 2 over gloo, two spawned processes sharing the card (they
+   meet through a FileStore under ``build/``, with a timeout), each
+   building the model from the seed and serving the same requests. Prints
+   TTFT, ms/token (in (b) two ranks time-sliced on one card, no TP
+   speed-up), kernels per decode step and idle share (a), each rank's
+   peak memory (b), and how many requests' greedy ids equal phase 3's on
+   K4 and (b)'s equal (a)'s (information; both ranks must agree).
 4. At the same widths and 2 layers, feed the same tokens through
    ``forward`` on the kernel path and on the plain path and compare
    logits: a 100-token prefill and 8 decodes on the stacked path, a
    20-token chunk prefill and 8 decodes on the megakernels, and both again
    over an int8 cache; then one ``decode_step_batched`` of 8 rows at ragged
    lengths on both paths, over a bf16 and over an int8 cache, and one
-   ``decode_step_paged`` of the same rows over a permuted pool. Then a W3
+   ``decode_step_paged`` of the same rows over a permuted pool; at the end,
+   ``tp_forward`` at tp = 1 (phase 3g's NCCL group): a 100-token prefill
+   and 8 decodes on K12/K13, over a bf16 and an int8 cache. Then a W3
    model on the stacked path and on the megakernels, one batched and one
    paged W3 step on K6, and an f16 model with an f16 cache on the stacked
    path; then a 100-token prefill with the int8 weight cache (K11) and a
@@ -675,6 +695,145 @@ def phase_int8_prefill_kernels(torch, timer, cases_out):
         f"with the same epilogue equal both ({time.perf_counter() - t_phase:.1f} s)")
 
 
+# tp -> (q heads, kv heads, intermediate size) of one rank of Llama-3-8B
+TP_SHAPES = {1: (32, 8, 14336), 2: (16, 4, 7168), 4: (8, 2, 3584)}
+
+
+def phase_tp_kernels(torch, timer, cases_out):
+    """Phase 2, the tensor-parallel halves: K12 (attention half) and K13
+    (MLP half) against their plain versions on one rank's shards of
+    Llama-3-8B at tp = 1, 2 and 4, layer 5 of 8, K12 at lengths 0, 1000
+    and 4000 over a bf16 cache and 1000 over an int8 one, and a W3 case
+    at tp = 2. The yardstick is the device time of the stacked per-rank
+    path for the same half (K1, rope and K2 or K9, K1; K1, SiLU, K1),
+    without the all-reduce."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig
+    from awq_tpu_torch.models import llama
+    from awq_tpu_torch.models.layers import apply_rope, rms_norm
+    from awq_tpu_torch.ops import decode_attn as da
+    from awq_tpu_torch.ops import megakernel_tp as mtp
+    from awq_tpu_torch.ops.w4a16 import qlinear_apply_stacked
+
+    dev, layer, n_layers, t_cache = "cuda", 5, 8, 4096 + 64
+    gen = torch.Generator(device=dev).manual_seed(97)
+    tol = 2.0 ** -6      # bf16 outputs, f32 sums in other orders: as K4's layer entry
+    for tp, (nq, nkv, inter) in TP_SHAPES.items():
+        for w_bit in ((4, 3) if tp == 2 else (4,)):
+            sfx = "_w3" if w_bit == 3 else ""
+            cfg = ModelConfig(**{**LLAMA3_8B, "num_layers": n_layers, "num_heads": nq,
+                                 "num_kv_heads": nkv, "intermediate_size": inter})
+            params = llama.init_qparams(cfg, QuantConfig(w_bit=w_bit, group_size=G), gen)
+            del params["embed"], params["lm_head"]
+            la = llama.fuse_linears(params, cfg)["layers"]
+            del params
+            H, hd, eps = cfg.hidden_size, cfg.head_dim, cfg.rms_eps
+            cos, sin = llama.rope_table(cfg, t_cache, device=dev)
+            base = torch.randn((n_layers, 2, 1, nkv, t_cache, hd), generator=gen,
+                               device=dev).to(torch.bfloat16)
+            attn_bytes = qlinear_bytes(la["wqkv"], 0) + qlinear_bytes(la["wo"], 0) + 2 * H * 2
+            attn_flops = 2.0 * (la["wqkv"].in_features * la["wqkv"].out_features
+                                + la["wo"].in_features * H)
+            runs = [(0, False), (1000, False), (4000, False), (1000, True)] if not sfx else [
+                (1000, False)]
+            for length, q8 in runs:
+                if q8:
+                    codes, scales = quantize_cache(torch, base)
+                    c = [(codes, scales), (codes.clone(), scales.clone())]
+                    kv_pos = 2 * nkv * (hd + 4)
+                else:
+                    c = [(base.clone(), None), (base.clone(), None)]
+                    kv_pos = 2 * nkv * hd * 2
+                h = (torch.randn((1, H), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+                step = (h, la["wqkv"], la["wo"], la["ln1"], cos[length], sin[length])
+                rest = (layer, length, nq, nkv, eps)
+                got = mtp.w4a16_llama_attn_half(*step, c[0][0], *rest, cache_scales=c[0][1])
+                ref = mtp.w4a16_llama_attn_half_plain(*step, c[1][0], *rest,
+                                                      cache_scales=c[1][1])
+                torch.cuda.synchronize()
+                name = "megakernel_attn_half" + sfx + ("_int8" if q8 else "")
+                pick = torch.arange(n_layers, device=dev) == layer
+                one = torch.zeros(1, dtype=torch.long, device=dev)
+                at = torch.full((1,), length, dtype=torch.long, device=dev)
+                if q8:
+                    check_int8_write(torch, name, tuple(x[pick] for x in c[0]),
+                                     tuple(x[pick] for x in c[1]),
+                                     [x[None, None] for x in got[1:]], one, at, tol)
+                else:
+                    kv = torch.stack(got[1:])
+                    if not torch.equal(c[0][0][layer, :, 0, :, length], kv):
+                        raise AssertionError(f"{name}: the cache at {length} is not the k/v")
+                    c[1][0][layer, :, 0, :, length] = kv
+                    if not torch.equal(c[0][0], c[1][0]):
+                        raise AssertionError(f"{name}: the kernel wrote outside its position")
+                ms = timer(lambda: mtp.w4a16_llama_attn_half(*step, c[0][0], *rest,
+                                                             cache_scales=c[0][1]))
+                plain_ms = timer(lambda: mtp.w4a16_llama_attn_half_plain(
+                    *step, c[1][0], *rest, cache_scales=c[1][1]), reps=3)
+
+                def stacked_attn():
+                    x = rms_norm(h[None], la["ln1"][layer], eps)
+                    q, k, v = torch.split(qlinear_apply_stacked(la["wqkv"], layer, x),
+                                          [nq * hd, nkv * hd, nkv * hd], dim=-1)
+                    q, k = apply_rope(q.reshape(1, 1, nq, hd), k.reshape(1, 1, nkv, hd), cos,
+                                      sin, torch.full((1, 1), length, device=dev))
+                    lens = torch.full((1,), length, dtype=torch.int32, device=dev)
+                    v1 = v.reshape(1, nkv, hd).contiguous()
+                    if q8:
+                        o = da.flash_decode_int8(q[:, 0].contiguous(), k[:, 0].contiguous(),
+                                                 v1, c[1][0][layer], c[1][1][layer], lens,
+                                                 max_length=length)
+                    else:
+                        o = da.flash_decode(q[:, 0].contiguous(), k[:, 0].contiguous(), v1,
+                                            c[1][0][layer], lens, max_length=length)
+                    return qlinear_apply_stacked(la["wo"], layer,
+                                                 o.reshape(1, 1, nq * hd).to(h.dtype))
+
+                yard_ms = device_ms(torch, stacked_attn)
+                err = rel = 0.0
+                for i, (g_, r_) in enumerate(zip(got, ref)):
+                    e, r2 = check(f"{name} tp={tp} len={length} output {i}", g_, r_, tol)
+                    err, rel = max(err, e), max(rel, r2)
+                b_ms, b_by = bound(attn_bytes + kv_pos * (length + 1),
+                                   attn_flops + 4.0 * nq * hd * (length + 1))
+                cases_out.append(dict(
+                    name=name, shape=f"tp={tp} layer {layer} len={length}", max_abs_err=err,
+                    max_rel_err=rel, tol=f"{tol:g}*max|ref|", ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none",
+                    yardstick_ms=yard_ms,
+                    yardstick="stacked per-rank path for the half, device time (profiler)"))
+                log_case(cases_out[-1])
+                del c
+            h1 = torch.randn((1, H), generator=gen, device=dev) * 0.5
+            got = mtp.w4a16_llama_mlp_half(h1, la["wgateup"], la["down"], la["ln2"], layer, eps)
+            ref = mtp.w4a16_llama_mlp_half_plain(h1, la["wgateup"], la["down"], la["ln2"],
+                                                 layer, eps)
+            torch.cuda.synchronize()
+            name = "megakernel_mlp_half" + sfx
+            err, rel = check(f"{name} tp={tp}", got, ref, tol)
+            ms = timer(lambda: mtp.w4a16_llama_mlp_half(h1, la["wgateup"], la["down"],
+                                                        la["ln2"], layer, eps))
+            plain_ms = timer(lambda: mtp.w4a16_llama_mlp_half_plain(
+                h1, la["wgateup"], la["down"], la["ln2"], layer, eps), reps=3)
+
+            def stacked_mlp():
+                xm = rms_norm(h1[None].to(torch.bfloat16), la["ln2"][layer], eps)
+                g_, u_ = torch.chunk(qlinear_apply_stacked(la["wgateup"], layer, xm), 2, dim=-1)
+                hm = torch.nn.functional.silu(g_.float()).to(torch.bfloat16) * u_
+                return qlinear_apply_stacked(la["down"], layer, hm)
+
+            yard_ms = device_ms(torch, stacked_mlp)
+            b_ms, b_by = bound(qlinear_bytes(la["wgateup"], 0) + qlinear_bytes(la["down"], 0)
+                               + 2 * H * 2, 2.0 * 3 * H * inter)
+            cases_out.append(dict(
+                name=name, shape=f"tp={tp} layer {layer}", max_abs_err=err, max_rel_err=rel,
+                tol=f"{tol:g}*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, library="none", yardstick_ms=yard_ms,
+                yardstick="stacked per-rank path for the half, device time (profiler)"))
+            log_case(cases_out[-1])
+            del la, base
+            torch.cuda.empty_cache()
+
+
 def phase_f16_attention(torch, timer, cases_out):
     """Phase 2, an f16 model's attention: K2 at len 1000, K8 on K2's 8
     ragged rows over a permuted pool, K3 at S=512 from 700 and K9 at len
@@ -1158,11 +1317,12 @@ def counters():
     from awq_tpu_torch.ops import megakernel as mk
     from awq_tpu_torch.ops import megakernel_batched as mkb
     from awq_tpu_torch.ops import megakernel_chunk as mkc
+    from awq_tpu_torch.ops import megakernel_tp as mtp
     from awq_tpu_torch.ops import w4a16 as w4
     from awq_tpu_torch.ops import w8a8 as q8
 
     return (w4.LAUNCHES, da.LAUNCHES, mk.LAUNCHES, mkc.LAUNCHES, mkb.LAUNCHES,
-            ca.LAUNCHES, q8.LAUNCHES)
+            ca.LAUNCHES, q8.LAUNCHES, mtp.LAUNCHES)
 
 
 def reset_counters():
@@ -1540,7 +1700,11 @@ def profile_decode(torch, engine, ms_per_token: float, label: str,
                   ms_per_token, label, f"position {pos + 1}", "ms/token", steps)
 
 
-KERNEL_GROUPS = {"w4a16_gemv": ("w4a16_gemv", "splitk_reduce"),
+KERNEL_GROUPS = {"megakernel_attn_half": tuple(f"token_kernel<{t}, 1>" for t in (
+                     "float", "__nv_bfloat16", "__half", "signed char", "char")),
+                 "megakernel_mlp_half": ("token_kernel<__nv_bfloat16, 2>",),
+                 "nccl all-reduce": ("nccl",),
+                 "w4a16_gemv": ("w4a16_gemv", "splitk_reduce"),
                  "flash_decode": ("flash_decode",), "w4a16_gemm": ("w4a16_gemm",),
                  "flash_prefill": ("flash_prefill",), "megakernel_token": ("token_kernel",),
                  "megakernel_chunk": ("chunk_kernel",),
@@ -1853,6 +2017,244 @@ def time_prefix_copy(torch, engine, slot: int = 3, reps: int = 5) -> None:
         + ", ".join(parts))
 
 
+# label: kernels that must run, kernels that must not, in phase 3g (tensor
+# parallel): decode on K12 and K13, every prompt on the stacked path (K1
+# GEMM, K3) with the head on K1's GEMV (fp at tp = 4); never K4 or K5
+TP_PATHS = {
+    "tp1": (("megakernel_attn_half", "megakernel_mlp_half", "w4a16_gemm", "flash_prefill",
+             "w4a16_gemv"),
+            ("megakernel_token", "megakernel_chunk", "megakernel_attn_half_int8", "flash_decode")),
+    "tp1_int8": (("megakernel_attn_half_int8", "megakernel_mlp_half", "w4a16_gemm",
+                  "flash_prefill"),
+                 ("megakernel_token_int8", "megakernel_attn_half", "flash_decode_int8",
+                  "cache_append_int8")),
+    "tp2": (("megakernel_attn_half", "megakernel_mlp_half", "w4a16_gemm", "flash_prefill"),
+            ("megakernel_token", "megakernel_chunk")),
+}
+TP2_TIMEOUT_S = 420
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def serve_tp(torch, engine, cfg, label):
+    """Phase 3's four requests through a tensor-parallel ``engine``, the
+    launch counts set to 0 just before and read just after; returns
+    (launches, ids, per-request results)."""
+    from awq_tpu_torch.config import GenConfig
+
+    gen = GenConfig(greedy=True, max_new_tokens=32)
+    engine.warmup()
+    rng = torch.Generator().manual_seed(7)
+    reset_counters()
+    ids_all, results = [], []
+    for i, (n, fresh) in enumerate(REQUESTS):
+        if fresh:
+            engine.reset()
+        prompt = torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+        start = engine.start_pos
+        out = engine.generate(prompt, gen)
+        ids = out["output_ids"]
+        if len(ids) != 32 or int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab_size:
+            raise AssertionError(f"[{label}] request {i + 1}: bad output ids {ids.tolist()}")
+        ids_all.append(ids.tolist())
+        tm = out["timing"]
+        results.append(dict(prompt=n, start_pos=start, ttft_ms=tm["ttft_s"] * 1e3,
+                            ms_per_token=tm["ms_per_token"]))
+        log(f"  [{label}] request {i + 1}: prompt {n} at start_pos {start}: TTFT "
+            f"{tm['ttft_s'] * 1e3:.2f} ms, {tm['ms_per_token']:.3f} ms/token over 31 decode "
+            "steps")
+    launches = read_counters()
+    return launches, ids_all, results
+
+
+def phase_serve_tp(torch, layers: int, single_ids):
+    """Phase 3g (a): tensor parallelism at tp = 1 over NCCL in this process:
+    phase 3's four requests through ``InferenceEngine(RuntimeConfig(mesh=
+    ...))`` on phase 3's model (seed 0), with a bf16 and with an int8
+    cache; decode on K12 and K13 with an NCCL all-reduce after each. Prints
+    TTFT, ms/token, the decode step's kernels and idle share, and how many
+    requests' greedy ids equal phase 3's on K4. Returns ({label: launches},
+    the group, which stays up for phase 4, the bf16 ids)."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig, RuntimeConfig
+    from awq_tpu_torch.models.llama import init_qparams
+    from awq_tpu_torch.parallel.distributed import init_distributed
+    from awq_tpu_torch.parallel.mesh import make_mesh
+    from awq_tpu_torch.parallel.tp import tp_forward
+    from awq_tpu_torch.runtime.engine import InferenceEngine
+
+    set_config(None)
+    t0 = time.perf_counter()
+    init_distributed("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                     world_size=1, local_rank=0, timeout_s=120)
+    mesh = make_mesh()
+    log(f"  NCCL group of 1 rank on {mesh.device} in {time.perf_counter() - t0:.1f} s")
+    cfg = ModelConfig(**{**LLAMA3_8B, "num_layers": layers})
+    out, tp1_ids = {}, None
+    for label, cache_dtype in (("tp1", torch.bfloat16), ("tp1_int8", "int8")):
+        params = init_qparams(cfg, QuantConfig(w_bit=4, group_size=G),
+                              torch.Generator(device="cuda").manual_seed(0))
+        engine = InferenceEngine(cfg, params, RuntimeConfig(max_seq_len=2048, quantize_head=True,
+                                                            mesh=mesh), cache_dtype=cache_dtype)
+        del params                                # serving's peak, the build left out
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launches, ids, res = serve_tp(torch, engine, cfg, label)
+        log(f"  [{label}] launches during the four requests: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        check_path(label, launches, *TP_PATHS[label])
+        log(f"  [{label}] peak device memory while serving "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        compare_ids(label, ids, single_ids, "phase 3's on K4")
+        tok = torch.zeros((1, 1), dtype=torch.long, device="cuda")
+        pos = engine.start_pos
+        profile_steps(torch, lambda i: tp_forward(engine.params, engine.cfg, tok, engine.cache,
+                                                  pos + 1 + i, mesh),
+                      res[-1]["ms_per_token"], label, f"position {pos + 1}", "ms/token")
+        out[label] = launches
+        tp1_ids = tp1_ids or ids
+        del engine
+        torch.cuda.empty_cache()
+    return out, mesh, tp1_ids
+
+
+def tp2_rank(rank: int, store_path: str, layers: int, out_path: str) -> None:
+    """One of phase 3g (b)'s two ranks: a gloo group over a FileStore, both
+    ranks on card 0 (the default device under gloo); phase 3's model drawn
+    from its seed on the card and moved to the host, the stand-in for a
+    checkpoint loaded there, so that the card holds nothing of it; then the
+    engine's build (the rank's deploy shard sliced on the host, only the
+    shard moved to the card) and phase 3's four requests. Writes its ids,
+    timings, launches, build time and peak memory from the build on to
+    ``out_path`` (JSON)."""
+    import torch
+    import torch.distributed as dist
+
+    from awq_tpu_torch.config import ModelConfig, QuantConfig, RuntimeConfig
+    from awq_tpu_torch.models.llama import init_qparams, params_to
+    from awq_tpu_torch.parallel.distributed import init_distributed
+    from awq_tpu_torch.parallel.mesh import make_mesh
+    from awq_tpu_torch.runtime.engine import InferenceEngine
+
+    device = init_distributed("gloo", rank=rank, world_size=2, timeout_s=TP2_TIMEOUT_S,
+                              store=dist.FileStore(store_path, 2))
+    mesh = make_mesh()
+    if mesh.device != device or device.type != "cuda":
+        raise AssertionError(f"rank {rank}: group on {mesh.device}, init on {device}")
+    cfg = ModelConfig(**{**LLAMA3_8B, "num_layers": layers})
+    params = params_to(init_qparams(cfg, QuantConfig(w_bit=4, group_size=G),
+                                    torch.Generator(device="cuda").manual_seed(0)), "cpu")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = InferenceEngine(cfg, params, RuntimeConfig(max_seq_len=2048, quantize_head=True,
+                                                        mesh=mesh))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del params
+    launches, ids, res = serve_tp(torch, engine, cfg, f"tp2 rank {rank}")
+    with open(out_path, "w") as f:
+        json.dump(dict(ids=ids, results=res, launches=launches, build_s=build_s,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       weight_gb=weight_bytes(engine.params) / 1e9), f)
+    dist.destroy_process_group()
+
+
+def phase_serve_tp2(torch, layers: int, tp1_ids, single_ids):
+    """Phase 3g (b): tensor parallelism at tp = 2 over gloo, two spawned
+    processes sharing the one card (time-sliced, so no TP speed-up), each
+    a rank with its shard of phase 3's model: the four requests, greedy ids
+    against (a)'s and phase 3's, each rank's peak memory and ms/token.
+    Returns rank 0's launches."""
+    import multiprocessing as mp
+
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "tp_smoke")
+    os.makedirs(tmp, exist_ok=True)
+    store = os.path.join(tmp, f"store-{os.getpid()}")
+    if os.path.exists(store):
+        os.unlink(store)
+    outs = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp2_rank, args=(r, store, layers, outs[r])) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, TP2_TIMEOUT_S - (time.perf_counter() - t0)))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    if hung or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"tp2: ranks {hung} hung, exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    got = []
+    for r, path in enumerate(outs):
+        with open(path) as f:
+            got.append(json.load(f))
+    log(f"  two ranks in {time.perf_counter() - t0:.1f} s (spawn, build, serve)")
+    if got[0]["ids"] != got[1]["ids"]:
+        raise AssertionError("tp2: the two ranks chose different ids")
+    check_path("tp2", got[0]["launches"], *TP_PATHS["tp2"])
+    for r, g in enumerate(got):
+        log(f"  [tp2 rank {r}] shard {g['weight_gb']:.3f} GB of W4 weights and head, built "
+            f"from the host in {g['build_s']:.1f} s; peak device memory from the build on "
+            f"{g['peak_gib']:.2f} GiB; ms/token (two ranks "
+            "time-sliced on one card, gloo all-reduces through the host): " + ", ".join(
+                f"{x['ms_per_token']:.2f}" for x in g["results"]) + "; TTFT ms: " + ", ".join(
+                f"{x['ttft_ms']:.1f}" for x in g["results"]))
+    compare_ids("tp2", got[0]["ids"], tp1_ids, "(a)'s at tp = 1")
+    compare_ids("tp2", got[0]["ids"], single_ids, "phase 3's on K4")
+    return got[0]["launches"]
+
+
+def phase_model_parity_tp(torch, mesh):
+    """Phase 4, tensor parallel at tp = 1 (the NCCL group of phase 3g): a
+    2-layer model's 100-token prefill (stacked) and 8 decodes (K12, K13)
+    through ``tp_forward``, kernel path against plain path, over a bf16
+    and an int8 cache."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig
+    from awq_tpu_torch.models import llama
+    from awq_tpu_torch.parallel.deploy import build_tp_params
+    from awq_tpu_torch.parallel.tp import tp_forward
+
+    cfg = ModelConfig(**{**LLAMA3_8B, "num_layers": 2})
+    params = build_tp_params(llama.init_qparams(
+        cfg, QuantConfig(w_bit=4, group_size=G), torch.Generator(device="cuda").manual_seed(1)),
+        cfg, mesh, quantize_head=True)
+    tol = 5e-2       # as the single-device parity above
+    set_config(None)
+    for label, dt in (("tp1", torch.bfloat16), ("tp1_int8", "int8")):
+        caches = [llama.init_cache(cfg, 1, 512, dt) for _ in range(2)]
+        reset_counters()
+        rng = torch.Generator().manual_seed(3)
+        steps = [torch.randint(0, cfg.vocab_size, (1, 100), generator=rng)] + [
+            torch.randint(0, cfg.vocab_size, (1, 1), generator=rng) for _ in range(8)]
+        pos, agree, worst = 0, 0, 0.0
+        for toks in steps:
+            toks = toks.cuda()
+            got = tp_forward(params, cfg, toks, caches[0], pos, mesh)[0]
+            ref = tp_forward(params, cfg, toks, caches[1], pos, mesh, impl="plain")[0]
+            err, rel = check(f"[{label}] tp_forward at start_pos {pos}", got, ref, tol)
+            worst = max(worst, rel)
+            agree += int(torch.equal(got[:, -1].argmax(-1), ref[:, -1].argmax(-1)))
+            pos += toks.shape[1]
+        launches = read_counters()
+        half = "megakernel_attn_half" + ("_int8" if label.endswith("int8") else "")
+        if launches[half] != 8 * 2 or launches["megakernel_mlp_half"] != 8 * 2:
+            raise AssertionError(f"[{label}] expected 16 launches of each half, got "
+                                 f"{launches[half]} and {launches['megakernel_mlp_half']}")
+        log(f"  [{label}] tp_forward, 100-token prefill + 8 decodes, logits kernel vs plain: "
+            f"worst max_abs_err/max|ref| {worst:.3e} (tol {tol:g}); greedy ids agree on "
+            f"{agree}/{len(steps)} steps")
+
+
 def phase_model_parity(torch):
     """Phase 4: kernel path vs plain path through forward, 2 layers, on the
     stacked path and on the megakernels, over a bf16 and an int8 cache; one
@@ -2123,6 +2525,9 @@ def main() -> int:
     phase_int8_kernels(torch, timer, cases)
     phase_f16_attention(torch, timer, cases)
     phase_int8_prefill_kernels(torch, timer, cases)
+    t_tp = time.perf_counter()
+    phase_tp_kernels(torch, timer, cases)
+    log(f"  the tensor-parallel halves: {time.perf_counter() - t_tp:.1f} s")
     del timer
     torch.cuda.empty_cache()
 
@@ -2165,9 +2570,21 @@ def main() -> int:
     w4["slot_peak"] = peaks["batched"]
     launches.update(phase_serve_w3(torch, args.layers, w4, single_ids, slot_ids))
 
+    stamp(f"phase 3g: tensor-parallel serving, {args.layers} layers: phase 3's four requests "
+          "through InferenceEngine(RuntimeConfig(mesh=...)), (a) at tp = 1 over NCCL with a "
+          "bf16 and an int8 cache, (b) at tp = 2 over gloo, two ranks sharing the card")
+    tp_launches, mesh, tp1_ids = phase_serve_tp(torch, args.layers, single_ids)
+    launches.update(tp_launches)
+    stamp("phase 3g (b): tp = 2 over gloo")
+    launches["tp2"] = phase_serve_tp2(torch, args.layers, tp1_ids, single_ids)
+
     stamp(f"phase 4: forward, kernel path against plain path (2 layers)")
     phase_model_parity(torch)
     phase_model_parity_w3_f16(torch)
+    phase_model_parity_tp(torch, mesh)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
 
     sources = {"w4a16_gemv": ("awq_tpu_torch/csrc/w4a16.cuh",
                               "awq_tpu/ops/w4a16.py:388"),
@@ -2220,7 +2637,11 @@ def main() -> int:
                "w8a8_gemm": ("awq_tpu_torch/csrc/w8a8.cu", "awq_tpu/ops/w4a16.py:1302"),
                "w4a8_gemm": ("awq_tpu_torch/csrc/w8a8.cu", "awq_tpu/ops/w4a16.py:1046"),
                # XLA in the JAX package, not Pallas: no TPU kernel to replace
-               "quant_per_token": ("awq_tpu_torch/csrc/w8a8.cu", "awq_tpu/ops/w8a8.py:33")}
+               "quant_per_token": ("awq_tpu_torch/csrc/w8a8.cu", "awq_tpu/ops/w8a8.py:33"),
+               "megakernel_attn_half": ("awq_tpu_torch/csrc/megakernel.cu",
+                                        "awq_tpu/ops/megakernel_tp.py:126"),
+               "megakernel_mlp_half": ("awq_tpu_torch/csrc/megakernel.cu",
+                                       "awq_tpu/ops/megakernel_tp.py:235")}
     # one representative shape per kernel in the summary; every case is
     # printed above
     pick = {"w4a16_gemv": "wgateup M=1 ", "w4a16_gemm": "wgateup M=1000",
@@ -2239,7 +2660,8 @@ def main() -> int:
             "megakernel_batched_int8_w3": "32 layers + W3 head, B=8",
             "megakernel_batched_paged_w3": "32 layers + W3 head, B=8",
             "w8a8_gemm": "wgateup M=1000", "w4a8_gemm": "wgateup M=1000",
-            "quant_per_token": "M=1000 IC=4096"}
+            "quant_per_token": "M=1000 IC=4096",
+            "megakernel_attn_half": "tp=2 layer 5 len=1000", "megakernel_mlp_half": "tp=2 "}
     # launches: each kernel's count on its own path's run in phases 3, 3b
     # and 3c (the stacked path carries K1-K3, the megakernels K4-K5, the
     # batched engine K6, its stacked path K7, the paged engine K6's and K7's
@@ -2259,7 +2681,8 @@ def main() -> int:
             "megakernel_batched_int8_w3": "batched_int8_w3",
             "megakernel_batched_paged_w3": "paged_w3",
             "w8a8_gemm": "prefill_w8", "w4a8_gemm": "prefill_a8",
-            "quant_per_token": "prefill_w8"}
+            "quant_per_token": "prefill_w8",
+            "megakernel_attn_half": "tp1", "megakernel_mlp_half": "tp1"}
     kernels = []
     for name, (src, replaces) in sources.items():
         c = next(c for c in cases if c["name"] == name and c["shape"].startswith(pick[name]))

@@ -68,12 +68,16 @@ def _cache8(rng, *shape):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantize_kv_bit_exact(dtype):
-    """Codes and scales equal JAX's ``quantize_kv`` bit for bit, on random
-    rows, on rows whose values divide to exact .5 ties (absmax 127 makes the
-    scale exactly 1: round half to even), and on an all-zero head (the
-    1e-6 floor)."""
+    """Codes and scales equal JAX's ``quantize_kv`` bit for bit as every
+    deployed caller runs it, under ``jax.jit`` (XLA turns its ``/ 127.0``
+    into a multiplication by ``f32(1/127)``), on random rows, on rows whose
+    values divide to exact .5 ties (absmax 127 makes the scale exactly 1:
+    round half to even), and on an all-zero head (the 1e-6 floor)."""
+    import jax
     import jax.numpy as jnp
-    from awq_tpu.models.llama import quantize_kv as jquantize_kv
+    from awq_tpu.models.llama import quantize_kv
+
+    jquantize_kv = jax.jit(quantize_kv)
 
     rng = np.random.default_rng(0)
     x = _normal(rng, 3, 5, 2, HD) * 3.0
@@ -340,12 +344,15 @@ def test_megakernel_batched_int8_plain_matches_single_token_per_row():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cache_append_int8_plain_bit_exact_against_jax(dtype):
-    """K7's int8 mode against JAX's per-row ``quantize_kv`` +
-    ``dynamic_update_slice`` loop (``models/llama.py:1313-1325``), bit for
-    bit, rows at 0, T-1 and past T (clamped to T-1 by both)."""
+    """K7's int8 mode against JAX's per-row ``quantize_kv`` (jitted, as its
+    callers run it) + ``dynamic_update_slice`` loop
+    (``models/llama.py:1313-1325``), bit for bit, rows at 0, T-1 and past T
+    (clamped to T-1 by both)."""
     import jax
     import jax.numpy as jnp
-    from awq_tpu.models.llama import quantize_kv as jquantize_kv
+    from awq_tpu.models.llama import quantize_kv
+
+    jquantize_kv = jax.jit(quantize_kv)
 
     L, b, nkv, t = 2, 4, 2, 64
     rng = np.random.default_rng(6)
