@@ -28,7 +28,9 @@ row ``r``, bits ``16h + 3j``), each of the ``n_groups % 5`` trailer
 groups 16 rows of nibbles (code ``32j + 2r + h`` in row ``r``, bits
 ``16h + 4j``), then the bf16 qparam band as for W4. The group count comes
 from the QLinear's ``n_groups``: the row count alone does not give it.
-A stacked-of-1 ``lm_head`` (``_tile_head``) comes back 2-D. An int8
+A stacked-of-1 ``lm_head`` (``_tile_head``) comes back 2-D. The OC tails
+``<name>_rem`` of a falcon-7b-class tree (``fuse_linears(tile=True)``)
+are concatenated back onto ``<name>``. An int8
 prefill weight cache (``<name>_w8``, a JAX ``W8Stack`` of ``[L, NB, IC,
 bn]`` blocks) comes back in the port's ``[L, OC, IC]`` layout.
 
@@ -170,6 +172,30 @@ def _w8stack(x, dev: torch.device) -> W8Stack:
                    scol=_tensor(scol.reshape(n_layers, nb * bn), dev))
 
 
+def _join_tails(layers: dict) -> dict:
+    """Each ``<name>_rem`` of JAX's deployed layout (``fuse_linears(tile=True)``
+    splits an OC with no 128-wide tile, falcon-7b's, into a tiled main part
+    and a plain tail) concatenated back onto ``<name>`` along OC: one
+    linear, as the port's kernels read any OC."""
+    out = dict(layers)
+    for rem_name in [k for k in layers if k.endswith("_rem")]:
+        name = rem_name[:-len("_rem")]
+        main, rem = out[name], out.pop(rem_name)
+        if not (isinstance(main, QLinear) and isinstance(rem, QLinear)
+                and (main.w_bit, main.group_size, main.dense3)
+                == (rem.w_bit, rem.group_size, rem.dense3)
+                and (main.bias is None) == (rem.bias is None)):
+            raise ValueError(f"layers/{rem_name}: an OC tail that does not match "
+                             f"layers/{name}")
+        out[name] = QLinear(
+            qweight=torch.cat([main.qweight, rem.qweight], dim=-1),
+            scales=torch.cat([main.scales, rem.scales], dim=-1),
+            szeros=torch.cat([main.szeros, rem.szeros], dim=-1),
+            bias=None if main.bias is None else torch.cat([main.bias, rem.bias], dim=-1),
+            w_bit=main.w_bit, group_size=main.group_size, dense3=main.dense3)
+    return out
+
+
 def params_from_jax(tree, device="cuda"):
     """The port's parameter tree from a host copy of a JAX one."""
     dev = _device.resolve(device)
@@ -199,6 +225,8 @@ def params_from_jax(tree, device="cuda"):
         raise TypeError(f"{path}: unsupported leaf {type(x).__name__}")
 
     out = conv(tree, "params")
+    if isinstance(out, dict) and isinstance(out.get("layers"), dict):
+        out["layers"] = _join_tails(out["layers"])
     head = out.get("lm_head") if isinstance(out, dict) else None
     if isinstance(head, QLinear) and head.qweight.dim() == 3:
         if head.qweight.shape[0] != 1:

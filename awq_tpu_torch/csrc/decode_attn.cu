@@ -1,8 +1,10 @@
-// K2 (flash decode) and K3 (causal flash prefill) for Hopper (sm_90a).
+// K2, K8, K9, K14 (flash decode) and K3 (causal flash prefill) for Hopper
+// (sm_90a).
 //
-// Both read ONE layer of the stacked cache, the contiguous view
+// All read ONE layer of the stacked cache, the contiguous view
 // cache[l] = [2, B, n_kv, T, HD] (K at index 0, V at 1), head-major so
-// that each head's [T, HD] slab is contiguous. HD is 128. The cache is f32,
+// that each head's [T, HD] slab is contiguous. HD is 128 for K2, K8 and K9;
+// K3 and K14 take head_dim 64 or 128 (a template parameter D). The cache is f32,
 // bf16 or f16 (a template parameter, E); q, the current token's k/v and
 // the output are f32, bf16 or f16 too, each of its own dtype (a runtime
 // code: they are read once per block), as the JAX kernels follow q.dtype
@@ -51,6 +53,22 @@
 // Bound by device memory: half K2's bytes plus 8 bytes of scales per
 // position and head.
 //
+// K14 replaces flash_decode (_flash_decode_kernel): the attention of one
+// query position per row over positions [0, length) of one layer's k_cache
+// and v_cache [B, n_kv, T, D] (two tensors), one length for every row, the
+// current token already written (no operand for it), GQA/MQA with up to 128
+// query heads per kv head (falcon-7b: 71 at D = 64), scale 1/sqrt(D). The
+// TPU kernel's grid (B, n_kv) holds a kv head's whole [g, D] query group
+// per program; at falcon's B * n_kv = 1 that is one block on 132 SMs, so
+// K14 splits the positions across blocks as K2 does and merges the slices
+// with K2's combine kernel (without a current token). A block takes a chunk
+// of 8 heads of the group, one warp each, with their queries and running
+// softmax state in shared memory; the chunks of a group read the same K/V
+// slice (from L2 after the first). Bound by device memory: 2 * n_kv * length * D
+// cache elements; at falcon-7b's one kv head that is 256 KB of bf16 a layer
+// at length 1000 (0.08 us), so it is launch-bound there. Softmax weights stay
+// f32 for P.V (the TPU kernel rounds them to the cache dtype).
+//
 // K3 replaces flash_prefill_stacked (_stacked_prefill_kernel) with its
 // online softmax (the TPU-only fixed_max variant is not carried over): the
 // chunk at [start, start+S) is already in the cache, query row r attends
@@ -71,6 +89,8 @@ namespace {
 constexpr int HD = 128;
 constexpr int DEC_TILE = 32;   // positions per shared-memory tile
 constexpr int DEC_WARPS = 4;
+constexpr int LAYER_HEADS = 8;         // K14: query heads (and warps) per block
+constexpr int DEC_LAYER_THREADS = 32 * LAYER_HEADS;
 // -inf as a bit pattern (device code only)
 #define NEG_INF (__int_as_float(0xff800000))
 
@@ -279,25 +299,31 @@ __global__ void __launch_bounds__(128) flash_decode_split_kernel(
   }
 }
 
-// One block per (query head, row); thread d owns output element d. q and
-// out are of dtype code qdt, k_new and v_new of kdt.
-__global__ void __launch_bounds__(HD) flash_decode_combine_kernel(
+// One block per (query head, row); thread d owns output element d of D.
+// With CUR (K2, K8, K9) the current token's k/v fold in after the slices;
+// q and out are of dtype code qdt, k_new and v_new of kdt. Without it (K14)
+// q, k_new and v_new are not read.
+template <int D, bool CUR>
+__global__ void __launch_bounds__(D) flash_decode_combine_kernel(
     const void* __restrict__ q, const void* __restrict__ k_new,
     const void* __restrict__ v_new, const float* __restrict__ part_ml,
     const float* __restrict__ part_acc, void* __restrict__ out, int qdt, int kdt,
     int nq, int nkv, int nsplit, float scale) {
-  __shared__ float red[HD / 32];
   const int hq = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int g = nq / nkv, h = hq / g, gi = hq % g;
 
-  // score of the current token, (q * scale) . k_new, as in the split kernel
-  const float qd = load_act(q, qdt, ((size_t)b * nq + hq) * HD + d) * scale;
-  float s = warp_sum(qd * load_act(k_new, kdt, ((size_t)b * nkv + h) * HD + d));
-  if ((d & 31) == 0) red[d >> 5] = s;
-  __syncthreads();
-  float s_c = 0.f;
+  float s_c = NEG_INF;
+  if constexpr (CUR) {
+    __shared__ float red[D / 32];
+    // score of the current token, (q * scale) . k_new, as in the split kernel
+    const float qd = load_act(q, qdt, ((size_t)b * nq + hq) * D + d) * scale;
+    float s = warp_sum(qd * load_act(k_new, kdt, ((size_t)b * nkv + h) * D + d));
+    if ((d & 31) == 0) red[d >> 5] = s;
+    __syncthreads();
+    s_c = 0.f;
 #pragma unroll
-  for (int w = 0; w < HD / 32; ++w) s_c += red[w];
+    for (int w = 0; w < D / 32; ++w) s_c += red[w];
+  }
 
   float m_all = s_c;
   for (int sp = 0; sp < nsplit; ++sp) {
@@ -311,12 +337,153 @@ __global__ void __launch_bounds__(HD) flash_decode_combine_kernel(
     if (ms == NEG_INF) continue;  // an empty slice (past len_b)
     const float w = __expf(ms - m_all);
     l_all = fmaf(part_ml[slot * 2 + 1], w, l_all);
-    a = fmaf(part_acc[slot * HD + d], w, a);
+    a = fmaf(part_acc[slot * D + d], w, a);
   }
-  const float p_c = __expf(s_c - m_all);
-  l_all += p_c;
-  a = fmaf(p_c, load_act(v_new, kdt, ((size_t)b * nkv + h) * HD + d), a);
-  store_act(out, qdt, ((size_t)b * nq + hq) * HD + d, a / l_all);
+  if constexpr (CUR) {
+    const float p_c = __expf(s_c - m_all);
+    l_all += p_c;
+    a = fmaf(p_c, load_act(v_new, kdt, ((size_t)b * nkv + h) * D + d), a);
+  }
+  store_act(out, qdt, ((size_t)b * nq + hq) * D + d, a / l_all);
+}
+
+// K14's split kernel: the positions [j0, j1) of one (row, kv head) for a
+// chunk of up to LAYER_HEADS query heads of that kv head's group (the
+// grid's y is kv head x chunk: falcon-7b's 71 heads are 9 chunks, so each
+// warp owns one head and the chunks run side by side; a chunk's blocks
+// read the same K/V slice, from L2 after the first). Dynamic shared memory
+// holds a DEC_TILE-position K/V tile, the chunk's scaled queries and its
+// running state (max, sum, and the unnormalised output [heads][D], in f32).
+// Warp w owns heads w, w + nwarps, ... of the chunk: lane j scores position
+// j of the tile, then the warp folds the tile's weighted V rows into its
+// head's state (lane owns D / 32 output elements).
+// Layout [V tile | K tile (padded rows) | q | acc | ml | ps].
+template <int D, typename E>
+__global__ void __launch_bounds__(DEC_LAYER_THREADS) flash_decode_layer_split_kernel(
+    const void* __restrict__ q, int qdt, const E* __restrict__ kc, const E* __restrict__ vc,
+    int length, float* __restrict__ part_ml, float* __restrict__ part_acc, int nq, int nkv,
+    int T, int split_len, float scale) {
+  constexpr int EPV = 16 / sizeof(E);      // elements per 16-byte load
+  constexpr int KROW = D + 4 / sizeof(E);  // a K row padded by one word
+  constexpr int PL = D / 32;               // output elements per lane
+  extern __shared__ __align__(16) unsigned char smem[];
+  E* vt = reinterpret_cast<E*>(smem);
+  E* kt = vt + DEC_TILE * D;
+  const int g = nq / nkv;
+  const int nwarps = blockDim.x >> 5;
+  float* qs = reinterpret_cast<float*>(kt + DEC_TILE * KROW);
+  float* acc = qs + LAYER_HEADS * D;
+  float* ml = acc + LAYER_HEADS * D;
+  float* ps = ml + 2 * LAYER_HEADS;
+
+  const int nchunk = (g + LAYER_HEADS - 1) / LAYER_HEADS;
+  const int split = blockIdx.x, h = blockIdx.y / nchunk, b = blockIdx.z;
+  const int g0 = (blockIdx.y % nchunk) * LAYER_HEADS;   // the chunk's first head
+  const int gc = min(LAYER_HEADS, g - g0);              // and its heads
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j0 = split * split_len;
+  const int j1 = min(length, j0 + split_len);
+  for (int i = tid; i < gc * D; i += blockDim.x) {
+    qs[i] = load_act(q, qdt, ((size_t)b * nq + h * g + g0) * D + i) * scale;
+    acc[i] = 0.f;
+  }
+  for (int i = tid; i < gc; i += blockDim.x) {
+    ml[2 * i] = NEG_INF;
+    ml[2 * i + 1] = 0.f;
+  }
+  const size_t head = ((size_t)b * nkv + h) * T * D;
+  for (int t0 = j0; t0 < j1; t0 += DEC_TILE) {
+    const int n = min(DEC_TILE, j1 - t0);
+    __syncthreads();  // previous tile fully consumed (and qs, acc, ml written)
+    for (int i = tid; i < DEC_TILE * (D / EPV); i += blockDim.x) {
+      const int r = i / (D / EPV), c = i % (D / EPV);
+      uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
+      if (r < n) {
+        const size_t o = head + (size_t)(t0 + r) * D + c * EPV;
+        kk = *reinterpret_cast<const uint4*>(kc + o);
+        vv = *reinterpret_cast<const uint4*>(vc + o);
+      }
+      uint32_t* kd = reinterpret_cast<uint32_t*>(kt + r * KROW + c * EPV);
+      kd[0] = kk.x; kd[1] = kk.y; kd[2] = kk.z; kd[3] = kk.w;
+      *reinterpret_cast<uint4*>(vt + r * D + c * EPV) = vv;
+    }
+    __syncthreads();
+    for (int gi = warp; gi < gc; gi += nwarps) {
+      const float* qg = qs + gi * D;
+      const E* kr = kt + lane * KROW;
+      float s = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; d += 2) {
+        const float2 kf = kpair(kr + d);
+        s = fmaf(qg[d], kf.x, s);
+        s = fmaf(qg[d + 1], kf.y, s);
+      }
+      if (lane >= n) s = NEG_INF;
+      const float m_old = ml[2 * gi];
+      const float m_new = fmaxf(m_old, warp_max(s));  // finite: n >= 1
+      const float alpha = __expf(m_old - m_new);
+      const float p = __expf(s - m_new);
+      const float l_new = ml[2 * gi + 1] * alpha + warp_sum(p);
+      ps[warp * DEC_TILE + lane] = p;
+      __syncwarp();
+      float* ag = acc + gi * D + lane * PL;
+      float a[PL];
+#pragma unroll
+      for (int e = 0; e < PL; ++e) a[e] = ag[e] * alpha;
+      for (int j = 0; j < n; ++j) {
+        const float pj = ps[warp * DEC_TILE + j];
+        float v[PL];
+        if constexpr (PL == 4) {
+          load4<E>(vt + j * D + lane * PL, v);
+        } else {
+          const float2 vf = kpair(vt + j * D + lane * PL);
+          v[0] = vf.x;
+          v[1] = vf.y;
+        }
+#pragma unroll
+        for (int e = 0; e < PL; ++e) a[e] = fmaf(pj, v[e], a[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < PL; ++e) ag[e] = a[e];
+      if (lane == 0) {
+        ml[2 * gi] = m_new;
+        ml[2 * gi + 1] = l_new;
+      }
+      __syncwarp();  // ps is the warp's next head's
+    }
+  }
+  __syncthreads();
+  const size_t slot0 = (((size_t)b * nkv + h) * gridDim.x + split) * g + g0;
+  for (int i = tid; i < gc * D; i += blockDim.x) part_acc[slot0 * D + i] = acc[i];
+  for (int i = tid; i < 2 * gc; i += blockDim.x) part_ml[slot0 * 2 + i] = ml[i];
+}
+
+// Bytes of K14's dynamic shared memory: at most 42 KB (D 128 over an f32
+// cache), inside the 48 KB a launch gets without an opt-in attribute.
+template <int D, typename E>
+constexpr size_t layer_smem(int nwarps) {
+  return (size_t)DEC_TILE * D * sizeof(E) + (size_t)DEC_TILE * (D + 4 / sizeof(E)) * sizeof(E)
+         + ((size_t)2 * LAYER_HEADS * D + 2 * LAYER_HEADS + (size_t)nwarps * DEC_TILE)
+           * sizeof(float);
+}
+static_assert(layer_smem<128, float>(LAYER_HEADS) <= 48 * 1024, "K14's tile outgrew 48 KB");
+
+template <int D, typename E>
+int run_decode_layer(const void* q, int qdt, const void* kc, const void* vc, int length,
+                     float* ml, float* acc, void* out, int B, int nq, int nkv, int T,
+                     int nsplit, int split_len, float scale, cudaStream_t st) {
+  const int g = nq / nkv;
+  const int nwarps = min(g, LAYER_HEADS);
+  flash_decode_layer_split_kernel<D, E>
+      <<<dim3(nsplit, nkv * cdiv(g, LAYER_HEADS), B), nwarps * 32,
+         layer_smem<D, E>(nwarps), st>>>(
+      q, qdt, static_cast<const E*>(kc), static_cast<const E*>(vc), length, ml, acc, nq, nkv,
+      T, split_len, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_decode_combine_kernel<D, false><<<dim3(nq, B), D, 0, st>>>(
+      nullptr, nullptr, nullptr, ml, acc, out, qdt, 0, nq, nkv, nsplit, 0.f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int PF_BQ = 64, PF_BKV = 64, PF_PAD = 8;
@@ -334,14 +501,14 @@ __device__ __forceinline__ uint4 load8(const E* p) {
   }
 }
 
-// q and out of dtype code qdt; the cache of E, staged as MT.
-template <typename E>
+// q and out of dtype code qdt; the cache of E, staged as MT; head_dim D.
+template <typename E, int D>
 __global__ void __launch_bounds__(128) flash_prefill_kernel(
     const void* __restrict__ q, const E* __restrict__ cache, void* __restrict__ out,
     int qdt, int B, int S, int nq, int nkv, int T, int start_pos, float scale_log2) {
   using MT = typename MmaOf<E>::type;
-  __shared__ __align__(16) MT ks[PF_BKV][HD + PF_PAD];
-  __shared__ __align__(16) MT vs[PF_BKV][HD + PF_PAD];
+  __shared__ __align__(16) MT ks[PF_BKV][D + PF_PAD];
+  __shared__ __align__(16) MT vs[PF_BKV][D + PF_PAD];
   const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (nq / nkv);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -349,15 +516,15 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
   const int r0 = qb * PF_BQ + warp * 16;   // chunk row of this warp's row 0
   const int ra = r0 + gq, rb = ra + 8;     // this thread's two rows
 
-  // Q as A fragments, 8 k16 steps over HD; rows past S are zeros
-  uint32_t qa[HD / 16][4];
-  const size_t qrow_a = (((size_t)b * S + ra) * nq + h) * HD;
-  const size_t qrow_b = (((size_t)b * S + rb) * nq + h) * HD;
+  // Q as A fragments, D / 16 k16 steps over D; rows past S are zeros
+  uint32_t qa[D / 16][4];
+  const size_t qrow_a = (((size_t)b * S + ra) * nq + h) * D;
+  const size_t qrow_b = (((size_t)b * S + rb) * nq + h) * D;
   auto qpair = [&](size_t i) {
     return pack2<MT>(load_act(q, qdt, i), load_act(q, qdt, i + 1));
   };
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     const int c = kk * 16 + 2 * tq;
     qa[kk][0] = ra < S ? qpair(qrow_a + c) : 0u;
     qa[kk][1] = rb < S ? qpair(qrow_b + c) : 0u;
@@ -365,9 +532,9 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
     qa[kk][3] = rb < S ? qpair(qrow_b + c + 8) : 0u;
   }
 
-  float o[HD / 8][4];
+  float o[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i)
+  for (int i = 0; i < D / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
   float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
@@ -375,16 +542,16 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
 
   const int last_row = min(qb * PF_BQ + PF_BQ, S) - 1;
   const int kv_end = min(start_pos + last_row + 1, T);  // causal frontier
-  const E* kbase = cache + (((size_t)0 * B + b) * nkv + kvh) * (size_t)T * HD;
-  const E* vbase = cache + (((size_t)1 * B + b) * nkv + kvh) * (size_t)T * HD;
+  const E* kbase = cache + (((size_t)0 * B + b) * nkv + kvh) * (size_t)T * D;
+  const E* vbase = cache + (((size_t)1 * B + b) * nkv + kvh) * (size_t)T * D;
 
   for (int j0 = 0; j0 < kv_end; j0 += PF_BKV) {
-    for (int i = tid; i < PF_BKV * (HD / 8); i += 128) {
-      const int r = i / (HD / 8), v = i % (HD / 8);
+    for (int i = tid; i < PF_BKV * (D / 8); i += 128) {
+      const int r = i / (D / 8), v = i % (D / 8);
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
       if (j0 + r < kv_end) {
-        kv = load8<E, MT>(kbase + (size_t)(j0 + r) * HD + v * 8);
-        vv = load8<E, MT>(vbase + (size_t)(j0 + r) * HD + v * 8);
+        kv = load8<E, MT>(kbase + (size_t)(j0 + r) * D + v * 8);
+        vv = load8<E, MT>(vbase + (size_t)(j0 + r) * D + v * 8);
       }
       *reinterpret_cast<uint4*>(&ks[r][v * 8]) = kv;
       *reinterpret_cast<uint4*>(&vs[r][v * 8]) = vv;
@@ -397,7 +564,7 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
+      for (int kk = 0; kk < D / 16; ++kk) {
         const MT* krow = &ks[nt * 8 + gq][kk * 16 + 2 * tq];
         mma_16816<MT>(sc[nt], qa[kk], *reinterpret_cast<const uint32_t*>(krow),
                       *reinterpret_cast<const uint32_t*>(krow + 8));
@@ -440,7 +607,7 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
     l_a = l_a * alpha_a + sum_a;
     l_b = l_b * alpha_b + sum_b;
 #pragma unroll
-    for (int dt = 0; dt < HD / 8; ++dt) {
+    for (int dt = 0; dt < D / 8; ++dt) {
       o[dt][0] *= alpha_a;
       o[dt][1] *= alpha_a;
       o[dt][2] *= alpha_b;
@@ -456,7 +623,7 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
       pa[3] = pack2<MT>(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
       const int k_lo = kk * 16 + 2 * tq;
 #pragma unroll
-      for (int dt = 0; dt < HD / 8; ++dt) {
+      for (int dt = 0; dt < D / 8; ++dt) {
         const int d = dt * 8 + gq;
         const uint32_t b0 = pack_bits<MT>(vs[k_lo][d], vs[k_lo + 1][d]);
         const uint32_t b1 = pack_bits<MT>(vs[k_lo + 8][d], vs[k_lo + 9][d]);
@@ -473,15 +640,15 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
   }
   const float inv_a = 1.f / l_a, inv_b = 1.f / l_b;
 #pragma unroll
-  for (int dt = 0; dt < HD / 8; ++dt) {
+  for (int dt = 0; dt < D / 8; ++dt) {
     const int d = dt * 8 + 2 * tq;
     if (ra < S) {
-      const size_t i = (((size_t)b * S + ra) * nq + h) * HD + d;
+      const size_t i = (((size_t)b * S + ra) * nq + h) * D + d;
       store_act(out, qdt, i, o[dt][0] * inv_a);
       store_act(out, qdt, i + 1, o[dt][1] * inv_a);
     }
     if (rb < S) {
-      const size_t i = (((size_t)b * S + rb) * nq + h) * HD + d;
+      const size_t i = (((size_t)b * S + rb) * nq + h) * D + d;
       store_act(out, qdt, i, o[dt][2] * inv_b);
       store_act(out, qdt, i + 1, o[dt][3] * inv_b);
     }
@@ -521,7 +688,7 @@ int run_decode(const void* q, const void* k_new, const void* v_new, int qdt, int
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_combine_kernel<<<dim3(nq, B), HD, 0, st>>>(
+  flash_decode_combine_kernel<HD, true><<<dim3(nq, B), HD, 0, st>>>(
       q, k_new, v_new, ml, acc, out, qdt, kdt, nq, nkv, nsplit, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -544,6 +711,25 @@ int run_typed(int cdt, Make make, const void* q, const void* k_new, const void* 
                               stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <int D>
+int run_prefill(const void* q, const void* cache, void* out, int B, int S, int nq, int nkv,
+                int T, int start_pos, float scale_log2, int qdt, int cdt, cudaStream_t st) {
+  const dim3 grid(cdiv(S, PF_BQ), nq, B);
+  switch (cdt) {
+    case 0: flash_prefill_kernel<float, D><<<grid, 128, 0, st>>>(
+                q, static_cast<const float*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
+                scale_log2); break;
+    case 1: flash_prefill_kernel<bf16, D><<<grid, 128, 0, st>>>(
+                q, static_cast<const bf16*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
+                scale_log2); break;
+    case 2: flash_prefill_kernel<__half, D><<<grid, 128, 0, st>>>(
+                q, static_cast<const __half*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
+                scale_log2); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -602,25 +788,53 @@ extern "C" int awq_flash_decode_int8(const void* q, const void* k_new, const voi
                     nq, nkv, nsplit, split_len, scale, stream);
 }
 
-// q [B, S, nq, 128] contiguous of qdt; cache [2, B, nkv, T, 128] contiguous
+// q [B, S, nq, hd] contiguous of qdt; cache [2, B, nkv, T, hd] contiguous
 // of cdt with the chunk already written at [start_pos, start_pos + S); out
-// [B, S, nq * 128] of qdt; scale_log2 = log2(e) / sqrt(128).
+// [B, S, nq * hd] of qdt; hd 64 or 128, nq a multiple of nkv;
+// scale_log2 = log2(e) / sqrt(hd).
 extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, int B,
-                                 int S, int nq, int nkv, int T, int start_pos,
+                                 int S, int nq, int nkv, int T, int start_pos, int hd,
                                  float scale_log2, int qdt, int cdt, void* stream) {
-  const dim3 grid(cdiv(S, PF_BQ), nq, B);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (cdt) {
-    case 0: flash_prefill_kernel<float><<<grid, 128, 0, st>>>(
-                q, static_cast<const float*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
-                scale_log2); break;
-    case 1: flash_prefill_kernel<bf16><<<grid, 128, 0, st>>>(
-                q, static_cast<const bf16*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
-                scale_log2); break;
-    case 2: flash_prefill_kernel<__half><<<grid, 128, 0, st>>>(
-                q, static_cast<const __half*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
-                scale_log2); break;
+  switch (hd) {
+    case 64: return run_prefill<64>(q, cache, out, B, S, nq, nkv, T, start_pos, scale_log2,
+                                    qdt, cdt, st);
+    case 128: return run_prefill<128>(q, cache, out, B, S, nq, nkv, T, start_pos, scale_log2,
+                                      qdt, cdt, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// K14: q [B, nq, hd] contiguous of qdt; k_cache, v_cache [B, nkv, T, hd],
+// each contiguous, of cdt; positions [0, length) attended, 1 <= length <= T;
+// part_ml f32 [B, nkv, nsplit, g, 2], part_acc f32 [B, nkv, nsplit, g, hd];
+// nsplit * split_len >= length, split_len % 32 == 0; out [B, nq, hd] of qdt;
+// hd 64 or 128, g = nq / nkv <= 128.
+extern "C" int awq_flash_decode_layer(const void* q, const void* k_cache,
+                                      const void* v_cache, void* part_ml, void* part_acc,
+                                      void* out, int B, int nq, int nkv, int T, int length,
+                                      int nsplit, int split_len, int hd, float scale,
+                                      int qdt, int cdt, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ml = static_cast<float*>(part_ml);
+  float* acc = static_cast<float*>(part_acc);
+#define AWQ_LAYER(D_, E_) \
+  return run_decode_layer<D_, E_>(q, qdt, k_cache, v_cache, length, ml, acc, out, B, nq, \
+                                  nkv, T, nsplit, split_len, scale, st)
+  if (nq % nkv || nq / nkv > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd == 64) {
+    switch (cdt) {
+      case 0: AWQ_LAYER(64, float);
+      case 1: AWQ_LAYER(64, bf16);
+      case 2: AWQ_LAYER(64, __half);
+    }
+  } else if (hd == 128) {
+    switch (cdt) {
+      case 0: AWQ_LAYER(128, float);
+      case 1: AWQ_LAYER(128, bf16);
+      case 2: AWQ_LAYER(128, __half);
+    }
+  }
+#undef AWQ_LAYER
+  return static_cast<int>(cudaErrorInvalidValue);
 }

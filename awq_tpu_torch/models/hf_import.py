@@ -1,0 +1,203 @@
+"""HuggingFace checkpoint -> the port's parameter tree (PyTorch port of
+``awq_tpu/models/hf_import.py``).
+
+:func:`import_hf_model` takes an in-memory ``transformers`` model (the tests
+build tiny random ones) or a checkpoint directory holding ``config.json``
+and ``*.safetensors`` shards (or ``*.bin`` ones). Weights are transposed to
+the ``[IC, OC]`` convention and stacked on a leading layer axis, the tree
+:func:`~awq_tpu_torch.models.llama.forward` reads. The llama family
+(llama, mistral, qwen2) and falcon (7b-style MQA with one norm, and the
+40b-style grouped QKV with two) are ported; the other families raise,
+naming ROADMAP A12.
+
+Shards are read by :func:`read_safetensors`, a reader of the format
+itself (an 8-byte little-endian header length, a JSON header, then raw
+little-endian tensors): the card's machine has neither ``safetensors``
+nor ``transformers``, and the in-memory branch needs only the model's
+``config`` and ``state_dict``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import struct
+from typing import Any, Dict, Tuple
+
+import torch
+
+from awq_tpu_torch import _device
+from awq_tpu_torch.config import ModelConfig, model_config_from_hf
+from awq_tpu_torch.models.layers import Linear
+
+Params = Dict[str, Any]
+
+_LLAMA_MAP = {
+    "ln1": "model.layers.{i}.input_layernorm.weight",
+    "ln2": "model.layers.{i}.post_attention_layernorm.weight",
+    "wq": "model.layers.{i}.self_attn.q_proj",
+    "wk": "model.layers.{i}.self_attn.k_proj",
+    "wv": "model.layers.{i}.self_attn.v_proj",
+    "wo": "model.layers.{i}.self_attn.o_proj",
+    "gate": "model.layers.{i}.mlp.gate_proj",
+    "up": "model.layers.{i}.mlp.up_proj",
+    "down": "model.layers.{i}.mlp.down_proj",
+}
+
+_ST_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+              "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+              "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of one ``.safetensors`` file, on the CPU."""
+    with open(path, "rb") as f:
+        blob = f.read()
+    (n,) = struct.unpack("<Q", blob[:8])
+    header = json.loads(blob[8:8 + n])
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        if meta["dtype"] not in _ST_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} of dtype {meta['dtype']}")
+        dt = _ST_DTYPES[meta["dtype"]]
+        lo, hi = meta["data_offsets"]
+        raw = blob[8 + n + lo:8 + n + hi]
+        out[name] = (torch.frombuffer(bytearray(raw), dtype=dt) if raw
+                     else torch.empty(0, dtype=dt)).reshape(meta["shape"])
+    return out
+
+
+def _load_dir_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """All tensors of a checkpoint directory (safetensors preferred)."""
+    sd: Dict[str, torch.Tensor] = {}
+    names = sorted(os.listdir(path))
+    shards = [f for f in names if f.endswith(".safetensors")]
+    if shards:
+        for f in shards:
+            sd.update(read_safetensors(os.path.join(path, f)))
+        return sd
+    bins = [f for f in names if f.endswith(".bin")]
+    if bins:
+        for f in bins:
+            sd.update(torch.load(os.path.join(path, f), map_location="cpu",
+                                 weights_only=True))
+        return sd
+    raise FileNotFoundError(f"no weights found in {path}")
+
+
+def import_hf_model(model_or_path, dtype: str = "bfloat16",
+                    device="cuda") -> Tuple[ModelConfig, Params]:
+    """Import an HF decoder checkpoint into ``(ModelConfig, params)``, the
+    parameters on ``device`` in ``dtype`` (f32 weights rounded to nearest,
+    as the JAX package's ``jnp.asarray`` rounds them)."""
+    dev = _device.resolve(device)
+    if isinstance(model_or_path, str):
+        with open(os.path.join(model_or_path, "config.json")) as f:
+            raw_cfg = json.load(f)
+        sd = _load_dir_state_dict(model_or_path)
+    else:
+        raw_cfg = model_or_path.config.to_dict()
+        sd = {k: v.detach().cpu() for k, v in model_or_path.state_dict().items()}
+    cfg = model_config_from_hf(raw_cfg)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    builders = {"llama": _build_llama_params, "mistral": _build_llama_params,
+                "qwen2": _build_llama_params, "falcon": _build_falcon_params}
+    if cfg.arch not in builders:
+        raise NotImplementedError(f"importer: arch {cfg.arch!r}; the other decoder "
+                                  "families are ROADMAP queue A, item 12")
+    from awq_tpu_torch.models.llama import params_to
+
+    return cfg, params_to(builders[cfg.arch](cfg, sd), dev)
+
+
+def _dt(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _stack_lin(cfg: ModelConfig, sd, fmt: str) -> Linear:
+    """The linears ``fmt.format(i=l)`` of every layer as one ``[L, IC, OC]``
+    :class:`Linear`, with their biases where the checkpoint has them."""
+    dt, L = _dt(cfg), cfg.num_layers
+    w = torch.stack([sd[fmt.format(i=i) + ".weight"].T for i in range(L)]).to(dt)
+    b = None
+    if fmt.format(i=0) + ".bias" in sd:
+        b = torch.stack([sd[fmt.format(i=i) + ".bias"] for i in range(L)]).to(dt)
+    return Linear(w=w.contiguous(), b=b)
+
+
+def _stack_vec(cfg: ModelConfig, sd, fmt: str) -> torch.Tensor:
+    return torch.stack([sd[fmt.format(i=i)] for i in range(cfg.num_layers)]).to(_dt(cfg))
+
+
+def _split_qkv(cfg: ModelConfig, fused: Linear, layout: str) -> Dict[str, Linear]:
+    """Split a stacked fused-QKV Linear ``[L, H, qkv_out]``: ``"concat"``
+    (q | k | v blocks: falcon-7b's q heads, its one k and one v) or
+    ``"grouped"`` (falcon's new_decoder_architecture: per kv group
+    ``[n_kv, q_per_group + 2, head_dim]``)."""
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    w, b = fused.w, fused.b
+    if layout == "grouped":
+        L, H, _ = w.shape
+        g = nq // nkv
+        wg = w.reshape(L, H, nkv, g + 2, hd)
+        bg = None if b is None else b.reshape(L, nkv, g + 2, hd)
+
+        def take(lo, hi, nh):
+            return Linear(w=wg[:, :, :, lo:hi].reshape(L, H, nh * hd).contiguous(),
+                          b=None if bg is None
+                          else bg[:, :, lo:hi].reshape(L, nh * hd).contiguous())
+
+        return {"wq": take(0, g, nq), "wk": take(g, g + 1, nkv),
+                "wv": take(g + 1, g + 2, nkv)}
+
+    def cut(lo, hi):
+        return Linear(w=w[:, :, lo:hi].contiguous(),
+                      b=None if b is None else b[:, lo:hi].contiguous())
+
+    q_dim, kv_dim = nq * hd, nkv * hd
+    return {"wq": cut(0, q_dim), "wk": cut(q_dim, q_dim + kv_dim),
+            "wv": cut(q_dim + kv_dim, q_dim + 2 * kv_dim)}
+
+
+def _build_llama_params(cfg: ModelConfig, sd) -> Params:
+    dt = _dt(cfg)
+    layers: Params = {"ln1": _stack_vec(cfg, sd, _LLAMA_MAP["ln1"]),
+                      "ln2": _stack_vec(cfg, sd, _LLAMA_MAP["ln2"])}
+    for name in ("wq", "wk", "wv", "wo", "gate", "up", "down"):
+        layers[name] = _stack_lin(cfg, sd, _LLAMA_MAP[name])
+    params: Params = {"embed": sd["model.embed_tokens.weight"].to(dt), "layers": layers,
+                      "norm": sd["model.norm.weight"].to(dt)}
+    if not cfg.tie_word_embeddings and "lm_head.weight" in sd:
+        params["lm_head"] = sd["lm_head.weight"].T.to(dt).contiguous()
+    return params
+
+
+def _build_falcon_params(cfg: ModelConfig, sd) -> Params:
+    dt = _dt(cfg)
+    pre = "transformer.h.{i}."
+    fused = _stack_lin(cfg, sd, pre + "self_attention.query_key_value")
+    # new_decoder_architecture (falcon-40b/180b): QKV grouped per kv head and
+    # one norm per parallel branch (ln_attn / ln_mlp) for input_layernorm
+    ln1 = "ln_attn" if cfg.grouped_qkv else "input_layernorm"
+    layers: Params = {
+        "ln1": _stack_vec(cfg, sd, pre + ln1 + ".weight"),
+        "ln1_b": _stack_vec(cfg, sd, pre + ln1 + ".bias"),
+        **_split_qkv(cfg, fused, "grouped" if cfg.grouped_qkv else "concat"),
+        "wo": _stack_lin(cfg, sd, pre + "self_attention.dense"),
+        "up": _stack_lin(cfg, sd, pre + "mlp.dense_h_to_4h"),
+        "down": _stack_lin(cfg, sd, pre + "mlp.dense_4h_to_h"),
+    }
+    if not cfg.single_ln:
+        ln2 = "ln_mlp" if cfg.grouped_qkv else "post_attention_layernorm"
+        layers["ln2"] = _stack_vec(cfg, sd, pre + ln2 + ".weight")
+        layers["ln2_b"] = _stack_vec(cfg, sd, pre + ln2 + ".bias")
+    params: Params = {"embed": sd["transformer.word_embeddings.weight"].to(dt),
+                      "layers": layers, "norm": sd["transformer.ln_f.weight"].to(dt),
+                      "norm_b": sd["transformer.ln_f.bias"].to(dt)}
+    if not cfg.tie_word_embeddings and "lm_head.weight" in sd:
+        params["lm_head"] = sd["lm_head.weight"].T.to(dt).contiguous()
+    return params

@@ -1,8 +1,11 @@
 """Building blocks of the decoder (PyTorch port of ``awq_tpu/models/layers.py``).
 
-Norms and softmax run in f32 and cast back, as in the JAX package. These
-stay plain PyTorch: the JAX package left them to XLA fusions, and the
-port has no hand kernel for them.
+Norms, activations and softmax run in f32 and cast back, as in the JAX
+package. These stay plain PyTorch: the JAX package left them to XLA
+fusions, and the port has no hand kernel for them. :func:`attention`
+sends a one-position step to K14 (``ops/decode_attn.py::flash_decode_layer``,
+its plain version on the CPU), as the JAX function dispatches it to
+``flash_decode`` on a TPU.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 from awq_tpu_torch.config import ModelConfig
+from awq_tpu_torch.ops.decode_attn import flash_decode_layer
 from awq_tpu_torch.ops.w4a16 import QLinear, qlinear_apply
 
 
@@ -41,6 +45,19 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (mean, biased variance, ``rsqrt``),
+    then the weight and the optional bias."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    out = (xf - mean) * torch.rsqrt(var + eps) * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
 
 
 def rope_table(cfg: ModelConfig, max_len: int,
@@ -110,11 +127,22 @@ def attention(
     start_pos: int,             # the chunk occupies [start, start+S)
     bias: Optional[torch.Tensor] = None,  # e.g. alibi [n_q, 1, T]
 ) -> torch.Tensor:
-    """Causal (chunk-offset) attention, GQA-aware, masked over the whole
-    static cache: query ``i`` attends positions ``j <= start_pos + i``.
-    The masked reference; the model runs the flash kernels instead."""
+    """Causal (chunk-offset) attention, GQA-aware, over a static cache that
+    already holds the chunk: query ``i`` attends positions ``j <= start_pos
+    + i``. Returns ``[B, S, n_q * hd]`` in ``q.dtype``.
+
+    One position (S = 1) with no bias is :func:`flash_decode_layer` over
+    ``[0, start_pos + 1)``: K14 on a CUDA tensor, which launches or raises
+    (``NotImplementedError`` naming ROADMAP A12 for a head_dim other than
+    64 or 128, or more than 128 query heads per kv head), and its plain
+    version (f32 softmax weights) on the CPU. Everything else takes the
+    masked path below, the JAX function's (f32 scores and softmax, the
+    weights rounded to ``q.dtype``)."""
     b, s, n_q, hd = q.shape
     n_kv, t = k_cache.shape[1], k_cache.shape[2]
+    if s == 1 and bias is None:
+        out = flash_decode_layer(q[:, 0].contiguous(), k_cache, v_cache, start_pos + 1)
+        return out.reshape(b, 1, n_q * hd)
     groups = n_q // n_kv
     qf = q.reshape(b, s, n_kv, groups, hd).float()
     scores = torch.einsum("bskgh,bkth->bkgst", qf, k_cache.float()) / math.sqrt(hd)
@@ -150,3 +178,25 @@ def mlp_swiglu(gate, up, down, x: torch.Tensor) -> torch.Tensor:
     u = linear_apply(up, x)
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return linear_apply(down, h)
+
+
+def activation(h: torch.Tensor, act: str,
+               act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain MLP's activation, in f32 and cast back: ``relu``, the tanh
+    GELU (``gelu_tanh``) or the exact erf GELU (any other ``act``: falcon,
+    mpt, neox); then the AWQ activation-scale fold, the output divided by
+    ``act_scale`` (the next linear's weights carry it)."""
+    if act == "relu":
+        h = torch.clamp_min(h, 0)
+    else:
+        h = torch.nn.functional.gelu(
+            h.float(), approximate="tanh" if act == "gelu_tanh" else "none").to(h.dtype)
+    if act_scale is not None:
+        h = (h.float() / act_scale).to(h.dtype)
+    return h
+
+
+def mlp_gelu(fc1, fc2, x: torch.Tensor, act: str = "gelu",
+             act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain MLP: ``fc2(activation(fc1(x)))``."""
+    return linear_apply(fc2, activation(linear_apply(fc1, x), act, act_scale))

@@ -1,4 +1,4 @@
-"""Llama-family decoder (PyTorch port of ``awq_tpu/models/llama.py``).
+"""Llama-family and falcon decoder (PyTorch port of ``awq_tpu/models/llama.py``).
 
 Parameters are a plain dict, the same tree as the JAX package's: decoder
 layers stacked on a leading axis (``params["layers"]["wqkv"]`` is one
@@ -65,6 +65,19 @@ linear of a prefill (S > 1) through K11 over the layer's int8 weight cache
 them; the megakernels and decode are unchanged, so a float-cache prompt of
 up to 32 tokens still takes K5, as in the JAX package.
 
+Falcon (``arch="falcon"``: LayerNorm with bias, the exact-GELU MLP ``up``
+/``down`` with no gate, the parallel block with one norm (7b, ``single_ln``)
+or two (40b), MQA or grouped QKV) takes the stacked path of :func:`forward`
+alone: its norm and MLP refuse every megakernel gate, and K2 takes neither
+its head_dim 64 nor its 71 query heads per kv head. Where K2's gate
+(``flash_decode_supported``) fails, a one-position step at one shared
+position writes each layer's k/v and then attends through
+``layers.attention``, whose S = 1 branch is K14 (``flash_decode_layer``:
+it launches or raises on the card, its plain version on the CPU), as
+JAX's ``forward`` falls back to ``attention`` after its in-scan append;
+prefill runs K3's head_dim-64 mode. Falcon's batched, paged, int8-KV and
+tensor-parallel paths raise (ROADMAP A12).
+
 Other family features raise ``NotImplementedError`` naming their ROADMAP
 item.
 """
@@ -80,7 +93,10 @@ from awq_tpu_torch import _device
 from awq_tpu_torch.config import ModelConfig, QuantConfig
 from awq_tpu_torch.models.layers import (
     Linear,
+    activation,
     apply_rope,
+    attention,
+    layer_norm,
     linear_apply,
     rms_norm,
     rope_table,
@@ -95,6 +111,7 @@ from awq_tpu_torch.ops.cache_append import (
     quantize_kv,
 )
 from awq_tpu_torch.ops.decode_attn import flash_decode, flash_decode_plain
+from awq_tpu_torch.ops.decode_attn import flash_decode_layer_plain, flash_decode_supported
 from awq_tpu_torch.ops.decode_attn import flash_decode_int8, flash_decode_int8_plain
 from awq_tpu_torch.ops.decode_attn import flash_decode_paged, flash_decode_paged_plain
 from awq_tpu_torch.ops.decode_attn import flash_prefill, flash_prefill_plain
@@ -115,7 +132,8 @@ Params = Dict[str, Any]
 
 # per-layer linears eligible for AWQ quantization, in block order
 LAYER_LINEARS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
-SUPPORTED_ARCHS = ("llama", "mistral", "qwen2")
+LLAMA_ARCHS = ("llama", "mistral", "qwen2")
+SUPPORTED_ARCHS = LLAMA_ARCHS + ("falcon",)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -128,16 +146,45 @@ def _gen(generator: Optional[torch.Generator], device: torch.device):
     return generator
 
 
+def _family_layers(cfg: ModelConfig, dev: torch.device, lin) -> Params:
+    """The stacked layer tree of ``cfg``'s family, each linear drawn by
+    ``lin(ic, oc, bias)`` in the order wq, wk, wv, wo, gate, up, down (as
+    ``awq_tpu/models/llama.py::init_params`` lays it out): a gate only for a
+    SiLU MLP, no ``ln2`` under ``single_ln``, and LayerNorm biases (zeros)
+    for a LayerNorm with bias."""
+    dt = _dtype(cfg)
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    nq, nkv, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    ln_bias = cfg.norm == "layernorm" and cfg.norm_bias
+    norms = ("ln1",) if cfg.single_ln else ("ln1", "ln2")
+    layers: Params = {n: torch.ones((L, h), dtype=dt, device=dev) for n in norms}
+    if ln_bias:
+        layers.update({n + "_b": torch.zeros((L, h), dtype=dt, device=dev) for n in norms})
+    layers.update(wq=lin(h, nq * hd, cfg.qkv_bias), wk=lin(h, nkv * hd, cfg.qkv_bias),
+                  wv=lin(h, nkv * hd, cfg.qkv_bias), wo=lin(nq * hd, h, False))
+    if cfg.act == "silu":
+        layers["gate"] = lin(h, i, False)
+    layers.update(up=lin(h, i, False), down=lin(i, h, False))
+    return layers
+
+
+def _final_norm(cfg: ModelConfig, dev: torch.device) -> Params:
+    """``norm`` (and ``norm_b`` for a LayerNorm with bias) of the final norm."""
+    out = {"norm": torch.ones((cfg.hidden_size,), dtype=_dtype(cfg), device=dev)}
+    if cfg.norm == "layernorm" and cfg.norm_bias:
+        out["norm_b"] = torch.zeros((cfg.hidden_size,), dtype=_dtype(cfg), device=dev)
+    return out
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 scale: float = 0.02, device="cuda") -> Params:
-    """Random fp parameters of a llama-family model (tests and benchmarks;
-    the generator must live on ``device``)."""
+    """Random fp parameters of a llama-family or falcon model (tests and
+    benchmarks; the generator must live on ``device``)."""
     _check_supported(cfg)
     dev = _device.resolve(device)
     gen = _gen(generator, dev)
     dt = _dtype(cfg)
-    h, i = cfg.hidden_size, cfg.intermediate_size
-    nq, nkv, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    h, L = cfg.hidden_size, cfg.num_layers
 
     def w(shape):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
@@ -146,19 +193,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         return Linear(w=w((L, ic, oc)),
                       b=torch.zeros((L, oc), dtype=dt, device=dev) if bias else None)
 
-    layers = {
-        "ln1": torch.ones((L, h), dtype=dt, device=dev),
-        "ln2": torch.ones((L, h), dtype=dt, device=dev),
-        "wq": lin(h, nq * hd, cfg.qkv_bias),
-        "wk": lin(h, nkv * hd, cfg.qkv_bias),
-        "wv": lin(h, nkv * hd, cfg.qkv_bias),
-        "wo": lin(nq * hd, h, False),
-        "gate": lin(h, i, False),
-        "up": lin(h, i, False),
-        "down": lin(i, h, False),
-    }
+    layers = _family_layers(cfg, dev, lin)
     params: Params = {"embed": w((cfg.vocab_size, h)), "layers": layers,
-                      "norm": torch.ones((h,), dtype=dt, device=dev)}
+                      **_final_norm(cfg, dev)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((h, cfg.vocab_size))
     return params
@@ -173,7 +210,10 @@ def init_qparams(cfg: ModelConfig, qcfg: QuantConfig,
     ``[0.5, 1.5) * scale / 4``, zero points at ``2**(w_bit - 1)``. W3 takes
     the true dense 3-bit layout (``pack_int3``, ``[L, IC*3//32, OC]``)
     where ``IC % 256 == 0``, so that a W3 model streams real W3 bytes, else
-    3-bit codes in the nibble container. The head stays fp.
+    3-bit codes in the nibble container. The head stays fp. The layer tree
+    is the family's (:func:`init_params`': no gate for a GELU MLP, no
+    ``ln2`` under ``single_ln``, LayerNorm biases); the JAX function lays
+    out the llama tree for every family.
 
     ``group_size == -1`` is one group over each linear's own IC, as
     ``quantize_linear`` takes it. (The JAX function takes the hidden size
@@ -186,8 +226,7 @@ def init_qparams(cfg: ModelConfig, qcfg: QuantConfig,
     dev = _device.resolve(device)
     gen = _gen(generator, dev)
     dt = _dtype(cfg)
-    h, i = cfg.hidden_size, cfg.intermediate_size
-    nq, nkv, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    h, L = cfg.hidden_size, cfg.num_layers
 
     def qlin(ic, oc, bias):
         g = ic if qcfg.group_size == -1 else qcfg.group_size
@@ -203,22 +242,12 @@ def init_qparams(cfg: ModelConfig, qcfg: QuantConfig,
                        bias=torch.zeros((L, oc), dtype=dt, device=dev) if bias else None,
                        w_bit=qcfg.w_bit, group_size=g, dense3=dense3)
 
-    layers = {
-        "ln1": torch.ones((L, h), dtype=dt, device=dev),
-        "ln2": torch.ones((L, h), dtype=dt, device=dev),
-        "wq": qlin(h, nq * hd, cfg.qkv_bias),
-        "wk": qlin(h, nkv * hd, cfg.qkv_bias),
-        "wv": qlin(h, nkv * hd, cfg.qkv_bias),
-        "wo": qlin(nq * hd, h, False),
-        "gate": qlin(h, i, False),
-        "up": qlin(h, i, False),
-        "down": qlin(i, h, False),
-    }
+    layers = _family_layers(cfg, dev, qlin)
     params: Params = {
         "embed": (torch.randn((cfg.vocab_size, h), generator=gen, device=dev)
                   * scale).to(dt),
         "layers": layers,
-        "norm": torch.ones((h,), dtype=dt, device=dev),
+        **_final_norm(cfg, dev),
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = (torch.randn((h, cfg.vocab_size), generator=gen,
@@ -400,20 +429,42 @@ def params_to(params: Params, device) -> Params:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    """The llama family (RMSNorm, SwiGLU, sequential block) and falcon
+    (LayerNorm with or without bias, exact GELU, the parallel block with one
+    or two norms, MQA or grouped QKV); rope positions over the whole head.
+    Everything else raises, naming ROADMAP A12."""
     family = "other decoder families are ROADMAP queue A, item 12"
     if cfg.arch not in SUPPORTED_ARCHS:
         raise NotImplementedError(f"arch {cfg.arch!r}: {family}")
+    llama = cfg.arch in LLAMA_ARCHS
     for bad, what in (
         (cfg.pos_embed != "rope", f"pos_embed={cfg.pos_embed!r} (learned/alibi)"),
-        (cfg.norm != "rmsnorm", f"norm={cfg.norm!r} (layernorm)"),
-        (cfg.act != "silu", f"act={cfg.act!r} (gelu/relu MLPs)"),
-        (cfg.parallel_block, "parallel_block"),
+        (cfg.norm != ("rmsnorm" if llama else "layernorm"), f"norm={cfg.norm!r}"),
+        (cfg.act != ("silu" if llama else "gelu"), f"act={cfg.act!r}"),
+        (llama and (cfg.parallel_block or cfg.single_ln), "parallel_block"),
         (cfg.embed_ln, "embed_ln"),
         (cfg.attn_bias or cfg.mlp_bias, "attention/MLP bias"),
         (cfg.rotary_pct != 1.0, "partial rotary (rotary_pct)"),
     ):
         if bad:
-            raise NotImplementedError(f"{what}: {family}")
+            raise NotImplementedError(f"{cfg.arch}: {what}: {family}")
+
+
+def check_llama_family(cfg: ModelConfig, what: str) -> None:
+    """The batched, paged, int8-KV and tensor-parallel paths take the llama
+    family only: K2, K6, K8 and K9 have no head_dim-64 or wide-group mode,
+    and the layer body of K6 and K12/K13 is the llama block."""
+    if cfg.arch not in LLAMA_ARCHS:
+        raise NotImplementedError(
+            f"{what} of a {cfg.arch} model: the family's batched, paged, int8-KV and "
+            "tensor-parallel paths are ROADMAP queue A, item 12")
+
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    if cfg.norm == "rmsnorm":
+        return rms_norm(x, weight, cfg.rms_eps)
+    return layer_norm(x, weight, bias, cfg.rms_eps)
 
 
 _ROPE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -537,6 +588,10 @@ def forward(
     """
     _check_supported(cfg)
     _check_cache(cache)
+    if tp_axis is not None:
+        check_llama_family(cfg, "forward under tensor parallelism")
+    if isinstance(cache, KVCache8):
+        check_llama_family(cfg, "forward over an int8 KV cache")
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
     start_pos = int(start_pos)
@@ -569,7 +624,7 @@ def forward(
 
     if last_only:
         h = h[:, -1:, :]
-    h = rms_norm(h, params["norm"], cfg.rms_eps)
+    h = _norm(cfg, h, params["norm"], params.get("norm_b"))
     return _head_logits(params, h, impl), cache
 
 
@@ -646,10 +701,21 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         row_lengths = lengths
     kv_new = []       # per-row decode: every layer's [2, B, n_kv, hd]
 
+    # where K2 cannot take the shape, a single-position step at one shared
+    # position writes its k/v and attends over the layer's cache
+    # (layers.attention: K14, which launches or raises on the card), as
+    # JAX's forward does (models/llama.py:938-978)
+    fallback = (s == 1 and lengths is None and not q8 and tables is None
+                and not flash_decode_supported(nq, nkv, hd, cache.dtype))
+
+    def at(name, idx):
+        t = layers.get(name)
+        return None if t is None else t[idx]
+
     for idx in (range(cfg.num_layers) if layer_ids is None else layer_ids):
         # [2, B, n_kv, T, hd] (or [2, NP, ...]) view; int8 codes and scales
         kv, kv_s = (cache.data[idx], cache.scales[idx]) if q8 else (cache[idx], None)
-        x = rms_norm(h, layers["ln1"][idx], cfg.rms_eps)
+        x = _norm(cfg, h, layers["ln1"][idx], at("ln1_b", idx))
         if "wqkv" in layers:
             q, k, v = torch.split(lin("wqkv", idx, x), [nq * hd, nkv * hd, nkv * hd], dim=-1)
         else:
@@ -658,7 +724,14 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         k = k.reshape(b, s, nkv, hd)
         v = v.reshape(b, s, nkv, hd)
         q, k = apply_rope(q, k, cos, sin, positions)
-        if s == 1:
+        if fallback:
+            update_kv_cache(kv, k, v, start_pos)
+            if plain:
+                attn = flash_decode_layer_plain(q[:, 0], kv[0], kv[1], start_pos + 1)
+            else:
+                attn = attention(q, kv[0], kv[1], start_pos)
+            attn = attn.reshape(b, 1, nq * hd)
+        elif s == 1:
             # the current token rides as an operand; append it afterwards
             # (over an int8 cache in full precision: the append quantizes it)
             q1 = q[:, 0].contiguous()
@@ -688,14 +761,24 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         else:
             update_kv_cache(kv, k, v, start_pos)
             attn = prefill(q.contiguous(), kv, start_pos)
-        h = h + lin_row("wo", idx, attn.to(dt))
-        xm = rms_norm(h, layers["ln2"][idx], cfg.rms_eps)
-        if "wgateup" in layers:
-            g, u = torch.chunk(lin("wgateup", idx, xm), 2, dim=-1)
+        attn_out = lin_row("wo", idx, attn.to(dt))
+        if cfg.parallel_block:
+            # falcon: both branches read norms of the same input (falcon-7b
+            # one norm, single_ln) and sum into one residual
+            xm = x if cfg.single_ln else _norm(cfg, h, layers["ln2"][idx], at("ln2_b", idx))
         else:
-            g, u = lin("gate", idx, xm), lin("up", idx, xm)
-        hm = torch.nn.functional.silu(g.float()).to(dt) * u
-        h = h + lin_row("down", idx, hm)
+            h = h + attn_out
+            xm = _norm(cfg, h, layers["ln2"][idx], at("ln2_b", idx))
+        if cfg.act != "silu":
+            hm = activation(lin("up", idx, xm), cfg.act, at("act_scale", idx))
+        else:
+            if "wgateup" in layers:
+                g, u = torch.chunk(lin("wgateup", idx, xm), 2, dim=-1)
+            else:
+                g, u = lin("gate", idx, xm), lin("up", idx, xm)
+            hm = torch.nn.functional.silu(g.float()).to(dt) * u
+        m = lin_row("down", idx, hm)
+        h = h + attn_out + m if cfg.parallel_block else h + m
     if kv_new and q8:
         append8 = batched_cache_append_int8_plain if plain else batched_cache_append_int8
         append8(cache.data, cache.scales, torch.stack(kv_new), row_lengths)
@@ -721,6 +804,7 @@ def _check_cache(cache) -> None:
 def _check_step(cfg: ModelConfig, cache, impl: str, tp_axis) -> None:
     """What the batched and paged steps refuse."""
     _check_supported(cfg)
+    check_llama_family(cfg, "the batched or paged step")
     if tp_axis is not None:
         raise NotImplementedError(
             "the batched and paged steps under tensor parallelism (tp_axis) are "

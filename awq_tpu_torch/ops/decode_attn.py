@@ -26,7 +26,15 @@ its valid prefix.
 - :func:`flash_prefill` wraps kernel K3, which replaces
   ``flash_prefill_stacked`` with its online softmax: the chunk at
   ``[start_pos, start_pos + S)`` is already in the cache and query row
-  ``r`` attends positions ``j <= start_pos + r``.
+  ``r`` attends positions ``j <= start_pos + r``. head_dim 64 or 128, any
+  number of query heads per kv head.
+- :func:`flash_decode_layer` wraps kernel K14, which replaces JAX's
+  ``flash_decode`` (``_flash_decode_kernel``; the port's
+  :func:`flash_decode` is K2): one query position per row over positions
+  ``[0, length)`` of one layer's ``k_cache``/``v_cache [B, n_kv, T, hd]``,
+  one length for every row, the current token already written. head_dim
+  64 or 128 and up to 128 query heads per kv head (falcon-7b: 71 over one
+  kv head at head_dim 64). ``layers.attention`` calls it at S = 1.
 
 Each has a plain PyTorch version beside it (``*_plain``): the CPU path,
 and the reference the kernels are held to on the card. On a CUDA tensor
@@ -34,8 +42,8 @@ the wrappers launch the kernel or raise. The kernels take f32, bf16 and
 f16 for q (the output's dtype), the current token's k/v and the cache,
 each of its own dtype, as the JAX kernels follow ``q.dtype``; an f32
 cache takes at most 16 query heads per kv head (K2, K8). ALiBi (``forward`` refuses
-alibi models) and head_dim 64 (the TPU kernels' paired mode; the
-wrappers raise) wait for their model families.
+alibi models) and head_dim 64 in K2, K8 and K9 (the TPU kernels' paired
+mode; those wrappers raise) wait for their model families.
 """
 
 from __future__ import annotations
@@ -45,14 +53,17 @@ from typing import Optional, Union
 
 import torch
 
-#: Launches of K2, K8, K9 and K3, counted where the wrappers launch them.
+#: Launches of K2, K8, K9, K3 and K14, counted where the wrappers launch them.
 LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0, "flash_decode_int8": 0,
-            "flash_prefill": 0}
+            "flash_prefill": 0, "flash_decode_layer": 0}
 
-HEAD_DIM = 128            # the head_dim the kernels are built for
+HEAD_DIM = 128            # the head_dim K2, K8 and K9 are built for
+HEAD_DIMS = (64, 128)     # the head_dims K3 and K14 are built for
+LAYER_MAX_GROUP = 128     # K14's most query heads per kv head
 _DECODE_TILE = 32         # positions per shared-memory tile (csrc)
 _MIN_SPLIT = 64           # fewest positions per split-K block
 _TARGET_BLOCKS = 264      # two waves of the H100's 132 SMs
+_LAYER_HEADS = 8          # query heads per K14 block (csrc)
 _LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -151,17 +162,38 @@ def flash_prefill_plain(q: torch.Tensor, cache: torch.Tensor,
     return out.reshape(b, s, nq * hd).to(q.dtype)
 
 
+def flash_decode_layer_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, length: int) -> torch.Tensor:
+    """Plain version of K14, in f32: ``q [B, nq, hd]`` over positions
+    ``[0, length)`` of ``k_cache``/``v_cache [B, nkv, T, hd]``; ``[B, nq,
+    hd]`` in ``q.dtype``."""
+    b, nq, hd = q.shape
+    nkv = k_cache.shape[1]
+    length = int(length)
+    qf = q.float().reshape(b, nkv, nq // nkv, hd) * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bkgh,bkth->bkgt", qf, k_cache[:, :, :length].float())
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,bkth->bkgh", p, v_cache[:, :, :length].float())
+    return out.reshape(b, nq, hd).to(q.dtype)
+
+
 def _check(cond: bool, what: str, msg: str) -> None:
     if not cond:
         raise ValueError(f"{what}: {msg}")
 
 
-def _check_common(what: str, q: torch.Tensor, cache: torch.Tensor) -> None:
-    hd = q.shape[-1]
-    if hd != HEAD_DIM:
+def _check_head_dim(what: str, hd: int, dims=(HEAD_DIM,)) -> None:
+    if hd not in dims:
         raise NotImplementedError(
-            f"{what}: head_dim {hd}; the kernel is built for {HEAD_DIM} "
-            "(head_dim 64 waits for its model families, ROADMAP queue A, item 12)")
+            f"{what}: head_dim {hd}; the kernel is built for "
+            f"{' and '.join(map(str, dims))} (other head_dims wait for their model "
+            "families, ROADMAP queue A, item 12)")
+
+
+def _check_common(what: str, q: torch.Tensor, cache: torch.Tensor,
+                  dims=(HEAD_DIM,)) -> None:
+    hd = q.shape[-1]
+    _check_head_dim(what, hd, dims)
     _check(cache.dim() == 5 and cache.shape[0] == 2 and cache.shape[-1] == hd,
            what, f"cache must be one layer [2, B, n_kv, T, {hd}], got "
            f"{tuple(cache.shape)}")
@@ -173,9 +205,36 @@ def _check_common(what: str, q: torch.Tensor, cache: torch.Tensor) -> None:
     _check(cache.data_ptr() % 16 == 0, what, "cache must be 16-byte aligned")
 
 
+def flash_decode_supported(nq: int, nkv: int, hd: int, cache_dtype) -> bool:
+    """Whether K2 takes this shape and float cache dtype: head_dim 128, ``nq``
+    a multiple of ``nkv`` with at most 32 query heads per kv head (16 over
+    an f32 cache). A static test; the model's S = 1 step falls back to
+    :func:`flash_decode_layer` (K14) where it fails."""
+    most = 16 if cache_dtype == torch.float32 else 32
+    return (hd == HEAD_DIM and cache_dtype in _DTYPE_CODE and nq % nkv == 0
+            and nq // nkv <= most)
+
+
+def _check_layer(what: str, nq: int, nkv: int, hd: int, q_dtype, k_dtype, v_dtype) -> None:
+    """K14's checks: head_dim 64 or 128 and at most 128 query heads per kv
+    head (``NotImplementedError`` naming ROADMAP A12 otherwise), ``nq`` a
+    multiple of ``nkv``, q and both caches f32, bf16 or f16, the two caches
+    of one dtype."""
+    _check_head_dim(what, hd, HEAD_DIMS)
+    _check(nq % nkv == 0, what, f"nq={nq} is not a multiple of nkv={nkv}")
+    if nq // nkv > LAYER_MAX_GROUP:
+        raise NotImplementedError(
+            f"{what}: {nq // nkv} q heads per kv head; the kernel takes at most "
+            f"{LAYER_MAX_GROUP} (wider groups wait for their model families, ROADMAP "
+            "queue A, item 12)")
+    _check(q_dtype in _DTYPE_CODE and k_dtype in _DTYPE_CODE and v_dtype == k_dtype, what,
+           f"q and the caches must be f32, bf16 or f16 and the caches of one dtype; got "
+           f"{q_dtype}, {k_dtype} and {v_dtype}")
+
+
 def _check_group(what: str, nq: int, nkv: int, cache_dtype) -> None:
     most = 16 if cache_dtype == torch.float32 else 32
-    _check(nq % nkv == 0 and nq // nkv <= most, what,
+    _check(flash_decode_supported(nq, nkv, HEAD_DIM, cache_dtype), what,
            f"nq={nq} is not a multiple of nkv={nkv} with at most {most} q heads "
            f"per kv head over a {cache_dtype} cache")
 
@@ -257,10 +316,7 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     what = "flash_decode_int8"
     _check(q.is_cuda, what, f"unsupported device {q.device}")
     b, nq, hd = q.shape
-    if hd != HEAD_DIM:
-        raise NotImplementedError(
-            f"{what}: head_dim {hd}; the kernel is built for {HEAD_DIM} "
-            "(head_dim 64 waits for its model families, ROADMAP queue A, item 12)")
+    _check_head_dim(what, hd)
     _check(cache.dim() == 5 and cache.shape[0] == 2 and cache.shape[1] == b
            and cache.shape[-1] == hd and cache.dtype == torch.int8, what,
            f"cache must be int8 [2, {b}, n_kv, T, {hd}], got {cache.dtype} "
@@ -377,13 +433,13 @@ def flash_prefill(q: torch.Tensor, cache: torch.Tensor,
                   start_pos: Union[int, torch.Tensor]) -> torch.Tensor:
     """K3 wrapper. ``q [B, S, nq, hd]`` post-rope queries of the chunk at
     ``[start_pos, start_pos + S)``, already written into ``cache
-    [2, B, nkv, T, hd]`` (one layer). Returns ``[B, S, nq*hd]``."""
+    [2, B, nkv, T, hd]`` (one layer); hd 64 or 128. Returns ``[B, S, nq*hd]``."""
     start_pos = int(start_pos)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, cache, start_pos)
     what = "flash_prefill"
     _check(q.is_cuda, what, f"unsupported device {q.device}")
-    _check_common(what, q, cache)
+    _check_common(what, q, cache, HEAD_DIMS)
     b, s, nq, hd = q.shape
     nkv, t = cache.shape[2], cache.shape[3]
     _check(cache.shape[1] == b and nq % nkv == 0, what,
@@ -398,11 +454,56 @@ def flash_prefill(q: torch.Tensor, cache: torch.Tensor,
 
     lib = _build.load("decode_attn")
     fn = lib.awq_flash_prefill
-    _build.declare(fn, *([_build.P] * 3), *([_build.I] * 6), _build.F,
+    _build.declare(fn, *([_build.P] * 3), *([_build.I] * 7), _build.F,
                    _build.I, _build.I, _build.P)
     err = fn(q.data_ptr(), cache.data_ptr(), out.data_ptr(), b, s, nq, nkv,
-             t, start_pos, _LOG2E / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+             t, start_pos, hd, _LOG2E / math.sqrt(hd), _DTYPE_CODE[q.dtype],
              _DTYPE_CODE[cache.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, what)
     LAUNCHES["flash_prefill"] += 1
+    return out
+
+
+def flash_decode_layer(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       length: Union[int, torch.Tensor]) -> torch.Tensor:
+    """K14 wrapper, JAX's ``flash_decode`` signature. ``q [B, nq, hd]`` one
+    query position per row; ``k_cache``/``v_cache [B, nkv, T, hd]`` one
+    layer's cache (two tensors, e.g. the views ``kv[0]``, ``kv[1]``),
+    ``length`` the positions ``[0, length)`` every row attends, the current
+    token's included (it is already written). Returns ``[B, nq, hd]``."""
+    length = int(length)
+    if q.device.type == "cpu":
+        return flash_decode_layer_plain(q, k_cache, v_cache, length)
+    what = "flash_decode_layer"
+    _check(q.is_cuda, what, f"unsupported device {q.device}")
+    b, nq, hd = q.shape
+    _check(k_cache.dim() == 4 and tuple(k_cache.shape) == tuple(v_cache.shape)
+           and k_cache.shape[0] == b and k_cache.shape[-1] == hd, what,
+           f"k_cache and v_cache must be [{b}, n_kv, T, {hd}], got "
+           f"{tuple(k_cache.shape)} and {tuple(v_cache.shape)}")
+    nkv, t = k_cache.shape[1], k_cache.shape[2]
+    _check_layer(what, nq, nkv, hd, q.dtype, k_cache.dtype, v_cache.dtype)
+    _check(all(x.is_contiguous() and x.device == q.device for x in (q, k_cache, v_cache)),
+           what, f"q, k_cache and v_cache must be contiguous on {q.device}")
+    _check(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0, what,
+           "k_cache and v_cache must be 16-byte aligned")
+    _check(1 <= length <= t, what, f"length {length} not in [1, {t}]")
+    g = nq // nkv
+    nsplit, split_len = _split(length, b * nkv * -(-g // _LAYER_HEADS))
+    part_ml = torch.empty((b, nkv, nsplit, g, 2), dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((b, nkv, nsplit, g, hd), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+
+    from awq_tpu_torch import _build
+
+    lib = _build.load("decode_attn")
+    fn = lib.awq_flash_decode_layer
+    _build.declare(fn, *([_build.P] * 6), *([_build.I] * 8), _build.F, _build.I,
+                   _build.I, _build.P)
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), part_ml.data_ptr(),
+             part_acc.data_ptr(), out.data_ptr(), b, nq, nkv, t, length, nsplit, split_len,
+             hd, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, what)
+    LAUNCHES["flash_decode_layer"] += 1
     return out

@@ -41,9 +41,10 @@ def build_tp_params(params: Dict[str, Any], cfg: ModelConfig, mesh, quantize_hea
     (``awq_tpu/parallel/deploy.py:276-289``). The port has no 128-column
     tile to fit, but it makes the same decision: the two packages then
     compute the same head, and a test can hold one to the other."""
-    from awq_tpu_torch.models.llama import fuse_linears
+    from awq_tpu_torch.models.llama import check_llama_family, fuse_linears
     from awq_tpu_torch.models.llama import quantize_head as _qhead
 
+    check_llama_family(cfg, "the tensor-parallel deploy layout")
     tp, rank = mesh.size, mesh.rank
     if prefill_w8:
         raise NotImplementedError(

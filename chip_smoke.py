@@ -47,6 +47,11 @@ Phases (each failure ends the run with a non-zero exit):
    0, 1000 and 4000 over a bf16 cache and 1000 over an int8 one (its
    in-place write held as above), K13, and both in W3 at tp = 2; the
    yardstick is the stacked per-rank path's device time for the same half.
+   Last, the falcon path's attention: K14 (single-layer flash decode) at
+   Falcon-7B's shape (B 1, one kv head, 71 q heads, head_dim 64; lengths 1,
+   1000, 2047) and Llama-3-8B's (B 1 and 8, 8 kv heads of 4; lengths 1000
+   and 4000), and K3's head_dim-64 mode at Falcon-7B's shape (S 512 from
+   0 and from 700); yardstick SDPA.
 3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
    new tokens each, the second continuing the first's dialogue, then a
    24-token follow-up continuing the third's) through ``InferenceEngine``
@@ -109,6 +114,14 @@ Phases (each failure ends the run with a non-zero exit):
    speed-up), kernels per decode step and idle share (a), each rank's
    peak memory (b), and how many requests' greedy ids equal phase 3's on
    K4 and (b)'s equal (a)'s (information; both ranks must agree).
+3h. Falcon-7B at full width and depth (32 layers), random
+   W4-g64 weights and head from seed 0 (``init_qparams``, ``quantize_head``),
+   a bf16 cache of 2048 positions: phase 3's four requests through
+   ``InferenceEngine`` on the stacked path, decode through K14 per layer
+   (K2 cannot take 71 q heads per kv head at head_dim 64), prefill on K1's
+   GEMM and K3's head_dim-64 mode; no megakernel, and K14 runs in no other
+   phase. Prints TTFT, ms/token, GB/token, kernels per decode step, idle
+   share, peak memory and the ids.
 4. At the same widths and 2 layers, feed the same tokens through
    ``forward`` on the kernel path and on the plain path and compare
    logits: a 100-token prefill and 8 decodes on the stacked path, a
@@ -121,7 +134,10 @@ Phases (each failure ends the run with a non-zero exit):
    model on the stacked path and on the megakernels, one batched and one
    paged W3 step on K6, and an f16 model with an f16 cache on the stacked
    path; then a 100-token prefill with the int8 weight cache (K11) and a
-   600-token one with ``prefill_a8`` alone (K10).
+   600-token one with ``prefill_a8`` alone (K10); then a 2-layer Falcon-7B
+   model, a 100-token prefill and 16 decodes (K14 once per layer and step),
+   both paths also against the same model in f32: the kernel path no
+   further from it than 1.25 times the plain path.
 5. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, where CUDA is not available or the
@@ -131,6 +147,7 @@ port is not beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -146,6 +163,16 @@ LLAMA3_8B = dict(arch="llama", vocab_size=128256, hidden_size=4096,
                  num_kv_heads=8, head_dim=128, max_position_embeddings=8192,
                  rope_theta=500000.0, dtype="bfloat16")
 G = 128
+# Falcon-7B at the published widths of tiiuae/falcon-7b's config.json
+# (awq_tpu/benchmark.py:54-59): 71 query heads over ONE kv head at head_dim
+# 64, hidden 4544 (no multiple of 128: W4 at group 64, benchmark.py:112),
+# one LayerNorm with bias feeding both branches of a parallel block, an
+# exact-GELU MLP
+FALCON_7B = dict(arch="falcon", vocab_size=65024, hidden_size=4544,
+                 intermediate_size=18176, num_layers=32, num_heads=71, num_kv_heads=1,
+                 head_dim=64, max_position_embeddings=2048, norm="layernorm", act="gelu",
+                 parallel_block=True, single_ln=True, dtype="bfloat16")
+FALCON_G = 64
 
 
 def log(msg: str) -> None:
@@ -924,6 +951,70 @@ def phase_f16_attention(torch, timer, cases_out):
         "F.scaled_dot_product_attention(attn_mask) in f16")
 
 
+def phase_layer_attention(torch, timer, cases_out):
+    """Phase 2, the single-layer attention of the falcon path: K14
+    (``flash_decode_layer``) at Falcon-7B's shape (B 1, one kv head, 71 q
+    heads, head_dim 64, bf16; lengths 1, 1000 and 2047) and at Llama-3-8B's
+    (B 1 and 8, 8 kv heads, 4 q heads each, head_dim 128; lengths 1000 and
+    4000), and K3 at head_dim 64 at Falcon-7B's shape (S 512 from 0 and
+    from 700), each against its plain version; the library call is SDPA on
+    the same positions."""
+    import torch.nn.functional as F
+
+    from awq_tpu_torch.ops import decode_attn as da
+
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    tol = 2.0 ** -6           # bf16 output rounding; K3 rounds P to bf16 too
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def add(name, shape, fn, plain, lib, nbytes, flops, library):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err, rel = check(f"{name} {shape}", got, ref, tol)
+        b_ms, b_by = bound(nbytes, flops)
+        cases_out.append(dict(
+            name=name, shape=shape, max_abs_err=err, max_rel_err=rel,
+            tol=f"{tol:g}*max|ref|", ms=timer(fn), plain_ms=timer(plain, reps=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=timer(lib), library=library))
+        log_case(cases_out[-1])
+
+    fal = FALCON_7B
+    for b, nq, nkv, hd, t, lengths in ((1, fal["num_heads"], 1, 64, 2048, (1, 1000, 2047)),
+                                       (1, 32, 8, 128, 4096, (1000, 4000)),
+                                       (8, 32, 8, 128, 4096, (1000,))):
+        kv, q = rnd(2, b, nkv, t, hd), rnd(b, nq, hd)
+        for length in lengths:
+            k_l, v_l = kv[0, :, :, :length].contiguous(), kv[1, :, :, :length].contiguous()
+            add("flash_decode_layer", f"len={length} B={b} nq={nq} nkv={nkv} hd={hd}",
+                lambda: da.flash_decode_layer(q, kv[0], kv[1], length),
+                lambda: da.flash_decode_layer_plain(q, kv[0], kv[1], length),
+                lambda: F.scaled_dot_product_attention(q[:, :, None], k_l, v_l,
+                                                       enable_gqa=True),
+                (2 * b * nq * hd + 2 * b * nkv * length * hd) * 2,
+                4.0 * b * nq * length * hd, "F.scaled_dot_product_attention(enable_gqa=True)")
+            del k_l, v_l
+        del kv
+    nq, s_, t = fal["num_heads"], 512, 2048
+    for start in (0, 700):
+        cache, q = rnd(2, 1, 1, t, 64), rnd(1, s_, nq, 64)
+        end = start + s_
+        k_all, v_all = cache[0, :, :, :end].contiguous(), cache[1, :, :, :end].contiguous()
+        qt = q.transpose(1, 2).contiguous()
+        mask = (torch.arange(end, device="cuda")[None, :]
+                <= (start + torch.arange(s_, device="cuda"))[:, None])
+        pairs = s_ * start + s_ * (s_ + 1) // 2
+        add("flash_prefill_hd64", f"S={s_} start={start} nq={nq} nkv=1 hd=64",
+            lambda: da.flash_prefill(q, cache, start),
+            lambda: da.flash_prefill_plain(q, cache, start),
+            lambda: F.scaled_dot_product_attention(qt, k_all, v_all, attn_mask=mask,
+                                                   enable_gqa=True),
+            (2 * s_ * nq * 64 + 2 * end * 64) * 2, 4.0 * nq * 64 * pairs,
+            "F.scaled_dot_product_attention(attn_mask, enable_gqa=True)")
+        del cache, k_all, v_all
+
+
 def scatter_pages(torch, cache, mp, page, gen, need=None):
     """A slot cache ``[L, 2, B, nkv, mp*page, hd]`` scattered into a pool of
     permuted pages: ``(pool [L, 2, NP, nkv, page, hd], tables [B, mp] int32)``.
@@ -1308,6 +1399,12 @@ SERVE_PATHS = {
                           "quant_per_token", "flash_prefill"), ("w4a8_gemm", "w4a16_gemm")),
     "prefill_a8": (None, ("megakernel_token", "megakernel_chunk", "w4a8_gemm", "w4a16_gemm",
                           "quant_per_token", "flash_prefill"), ("w8a8_gemm",)),
+    # Falcon-7B (phase 3h): the stacked path, decode through K14 per layer
+    # (K2's gate fails: 71 q heads a kv head at head_dim 64), prefill on K1's
+    # GEMM and K3's head_dim-64 mode; no megakernel
+    "falcon": (None, ("w4a16_gemv", "w4a16_gemm", "flash_decode_layer", "flash_prefill"),
+               ("megakernel_token", "megakernel_chunk", "flash_decode", "flash_decode_int8",
+                "cache_append")),
 }
 
 
@@ -1428,6 +1525,48 @@ def serve_single(torch, engine, cfg, labels):
         profile_decode(torch, engine, results[-1]["ms_per_token"], label)
     set_config(None)
     return out_launches, out_ids, out_ttft
+
+
+def phase_serve_falcon(torch, layers: int):
+    """Phase 3h: Falcon-7B at full width (``layers`` of its 32), random
+    W4-g64 weights from seed 0 through ``init_qparams``, a W4-g64 head
+    (``quantize_head``) and a bf16 cache of 2048 positions, serving phase 3's
+    four requests through ``InferenceEngine`` (greedy, 32 new tokens each).
+    Returns {"falcon": launches}."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig, RuntimeConfig
+    from awq_tpu_torch.models.llama import init_qparams
+    from awq_tpu_torch.runtime.engine import InferenceEngine
+
+    cfg = ModelConfig(**{**FALCON_7B, "num_layers": layers})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_qparams(cfg, QuantConfig(w_bit=4, group_size=FALCON_G),
+                          torch.Generator(device="cuda").manual_seed(0))
+    engine = InferenceEngine(cfg, params,
+                             RuntimeConfig(max_seq_len=2048, quantize_head=True))
+    del params
+    torch.cuda.synchronize()
+    head = engine.params["lm_head"]
+    log(f"  model: Falcon-7B, {layers} layers, W4-g{FALCON_G} weights+head "
+        f"{weight_bytes(engine.params) / 1e9:.3f} GB (head g{head.group_size}), embedding "
+        f"{engine.params['embed'].numel() * 2 / 1e9:.3f} GB, KV cache "
+        f"{cache_bytes(engine.cache) / 1e9:.4f} GB (one kv head), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()      # serving's peak, the build left out
+    launches, ids, _ = serve_single(torch, engine, cfg, ("falcon",))
+    steps = len(REQUESTS) * 31                  # decode steps: 32 new tokens a request
+    per_step = launches["falcon"]["flash_decode_layer"] / steps
+    log(f"  [falcon] K14 launches per decode step {per_step:g} (one per layer), K3 launches "
+        f"per prompt {launches['falcon']['flash_prefill'] / len(REQUESTS):g}")
+    if per_step != layers:
+        raise AssertionError(f"[falcon] {per_step:g} K14 launches per decode step, not {layers}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  [falcon] peak device memory while serving {peak:.2f} GiB")
+    for i, row in enumerate(ids["falcon"]):
+        log(f"  [falcon] request {i + 1} ids: {row}")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
 
 
 def compare_ids(label, got, ref, what):
@@ -1705,6 +1844,8 @@ KERNEL_GROUPS = {"megakernel_attn_half": tuple(f"token_kernel<{t}, 1>" for t in 
                  "megakernel_mlp_half": ("token_kernel<__nv_bfloat16, 2>",),
                  "nccl all-reduce": ("nccl",),
                  "w4a16_gemv": ("w4a16_gemv", "splitk_reduce"),
+                 "flash_decode_layer": ("flash_decode_layer", "combine_kernel<64, false>",
+                                        "combine_kernel<128, false>"),
                  "flash_decode": ("flash_decode",), "w4a16_gemm": ("w4a16_gemm",),
                  "flash_prefill": ("flash_prefill",), "megakernel_token": ("token_kernel",),
                  "megakernel_chunk": ("chunk_kernel",),
@@ -1823,6 +1964,8 @@ def drive(torch, engine, prompts, label, cfg):
 
 
 def check_path(label, launches, must, off):
+    if not label.startswith("falcon") and launches.get("flash_decode_layer"):
+        raise AssertionError(f"[{label}] K14 (flash_decode_layer) ran off the falcon path")
     for k in must:
         if launches[k] <= 0:
             raise AssertionError(f"[{label}] kernel {k} was not launched on its path")
@@ -2392,6 +2535,82 @@ def phase_model_parity(torch):
             f"{bool(torch.equal(got[:, -1].argmax(-1), ref[:, -1].argmax(-1)))}")
 
 
+def to_f32(torch, x):
+    """Every floating tensor of a parameter tree in f32; the W4 codes as
+    they are."""
+    if isinstance(x, dict):
+        return {k: to_f32(torch, v) for k, v in x.items()}
+    if isinstance(x, torch.Tensor):
+        return x.float() if x.is_floating_point() else x
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: to_f32(torch, getattr(x, f.name))
+                                         for f in dataclasses.fields(x)
+                                         if isinstance(getattr(x, f.name), torch.Tensor)})
+    return x
+
+
+def phase_model_parity_falcon(torch):
+    """Phase 4, falcon: a 2-layer Falcon-7B-width model (W4-g64 layers and
+    head, bf16 cache) through forward, the kernel path (K1, K3's head_dim-64
+    mode, K14) against ``impl="plain"`` over a 100-token prefill and 16
+    decode steps, within 5e-2 of the largest logit as phase 4's llama
+    models; K14 must launch once per layer and step, K3 once per layer.
+
+    Both bf16 paths are also held to the same model evaluated in f32
+    (``impl="plain"``, the same W4 codes, f32 activations and cache): this
+    model's bf16 rounding alone puts the plain path 3.3e-2 from it, so the
+    kernel path must come no further from it than 1.25 times the plain
+    path does. A kernel that is partly wrong moves away from the f32 model;
+    the two bf16 paths' rounding does not."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig
+    from awq_tpu_torch.models import llama
+
+    cfg = ModelConfig(**{**FALCON_7B, "num_layers": 2})
+    params = llama.init_qparams(cfg, QuantConfig(w_bit=4, group_size=FALCON_G),
+                                torch.Generator(device="cuda").manual_seed(1))
+    params = llama.fuse_linears(llama.quantize_head(params, cfg), cfg)
+    cfg32, params32 = dataclasses.replace(cfg, dtype="float32"), to_f32(torch, params)
+    tol, tol32 = 5e-2, 1.25
+    caches = [llama.init_cache(cfg, 1, 512) for _ in range(2)]
+    cache32 = llama.init_cache(cfg32, 1, 512, torch.float32)
+    rng = torch.Generator().manual_seed(3)
+    steps = [torch.randint(0, cfg.vocab_size, (1, 100), generator=rng)] + [
+        torch.randint(0, cfg.vocab_size, (1, 1), generator=rng) for _ in range(16)]
+    pos, agree, worst, launches = 0, 0, 0.0, {}
+    worst32 = {"kernels": 0.0, "plain": 0.0}
+    for toks in steps:
+        toks = toks.cuda()
+        reset_counters()
+        got, _ = llama.forward(params, cfg, toks, caches[0], pos)
+        for k, v in read_counters().items():
+            launches[k] = launches.get(k, 0) + v
+        ref, _ = llama.forward(params, cfg, toks, caches[1], pos, impl="plain")
+        ref32, _ = llama.forward(params32, cfg32, toks, cache32, pos, impl="plain")
+        err, rel = check(f"[falcon] forward at start_pos {pos}", got, ref, tol)
+        worst = max(worst, rel)
+        for name, logits in (("kernels", got), ("plain", ref)):
+            worst32[name] = max(worst32[name], check(
+                f"[falcon] {name} against f32 at start_pos {pos}", logits, ref32, 1.0)[1])
+        agree += int(torch.equal(got[:, -1].argmax(-1), ref[:, -1].argmax(-1)))
+        pos += toks.shape[1]
+    cerr, _ = check("[falcon] the cache", caches[0], caches[1], tol)
+    if worst32["kernels"] > tol32 * worst32["plain"]:
+        raise AssertionError(f"[falcon] the kernel path lies {worst32['kernels']:.3e} of the "
+                             f"largest logit from the f32 model, more than {tol32:g} x the "
+                             f"plain path's {worst32['plain']:.3e}")
+    n_l = cfg.num_layers
+    if launches["flash_decode_layer"] != 16 * n_l or launches["flash_prefill"] != n_l:
+        raise AssertionError(f"[falcon] {launches['flash_decode_layer']} K14 and "
+                             f"{launches['flash_prefill']} K3 launches, not {16 * n_l} and {n_l}")
+    check_path("falcon", launches, *SERVE_PATHS["falcon"][1:])
+    log(f"  [falcon] 100-token prefill + 16 decodes, 2 layers, logits kernel vs plain: worst "
+        f"max_abs_err/max|ref| {worst:.3e} (tol {tol:g}), cache max_abs_err {cerr:.3e}; "
+        f"against the f32 model: kernel path {worst32['kernels']:.3e}, plain path "
+        f"{worst32['plain']:.3e} (tol {tol32:g} x the plain path's); greedy ids agree on "
+        f"{agree}/{len(steps)} steps; {launches['flash_decode_layer']} K14 and "
+        f"{launches['flash_prefill']} K3 launches")
+
+
 def phase_model_parity_w3_f16(torch):
     """Phase 4, continued: a 2-layer W3 model (pack_int3 linears and head)
     through forward on the stacked path (K1's W3 mode) and on the
@@ -2528,6 +2747,7 @@ def main() -> int:
     t_tp = time.perf_counter()
     phase_tp_kernels(torch, timer, cases)
     log(f"  the tensor-parallel halves: {time.perf_counter() - t_tp:.1f} s")
+    phase_layer_attention(torch, timer, cases)
     del timer
     torch.cuda.empty_cache()
 
@@ -2578,9 +2798,14 @@ def main() -> int:
     stamp("phase 3g (b): tp = 2 over gloo")
     launches["tp2"] = phase_serve_tp2(torch, args.layers, tp1_ids, single_ids)
 
+    stamp(f"phase 3h: Falcon-7B, {FALCON_7B['num_layers']} layers at full width, W4-g{FALCON_G}: "
+          "phase 3's four requests through InferenceEngine on the stacked path (K14, K3 hd 64)")
+    launches.update(phase_serve_falcon(torch, FALCON_7B["num_layers"]))
+
     stamp(f"phase 4: forward, kernel path against plain path (2 layers)")
     phase_model_parity(torch)
     phase_model_parity_w3_f16(torch)
+    phase_model_parity_falcon(torch)
     phase_model_parity_tp(torch, mesh)
     import torch.distributed as dist
 
@@ -2641,7 +2866,11 @@ def main() -> int:
                "megakernel_attn_half": ("awq_tpu_torch/csrc/megakernel.cu",
                                         "awq_tpu/ops/megakernel_tp.py:126"),
                "megakernel_mlp_half": ("awq_tpu_torch/csrc/megakernel.cu",
-                                       "awq_tpu/ops/megakernel_tp.py:235")}
+                                       "awq_tpu/ops/megakernel_tp.py:235"),
+               "flash_decode_layer": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                      "awq_tpu/ops/decode_attn.py:803"),
+               "flash_prefill_hd64": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                      "awq_tpu/ops/decode_attn.py:691")}
     # one representative shape per kernel in the summary; every case is
     # printed above
     pick = {"w4a16_gemv": "wgateup M=1 ", "w4a16_gemm": "wgateup M=1000",
@@ -2661,12 +2890,14 @@ def main() -> int:
             "megakernel_batched_paged_w3": "32 layers + W3 head, B=8",
             "w8a8_gemm": "wgateup M=1000", "w4a8_gemm": "wgateup M=1000",
             "quant_per_token": "M=1000 IC=4096",
-            "megakernel_attn_half": "tp=2 layer 5 len=1000", "megakernel_mlp_half": "tp=2 "}
+            "megakernel_attn_half": "tp=2 layer 5 len=1000", "megakernel_mlp_half": "tp=2 ",
+            "flash_decode_layer": "len=1000 B=1 nq=71", "flash_prefill_hd64": "S=512 start=700"}
     # launches: each kernel's count on its own path's run in phases 3, 3b
     # and 3c (the stacked path carries K1-K3, the megakernels K4-K5, the
     # batched engine K6, its stacked path K7, the paged engine K6's and K7's
     # paged modes and K8, with the default pool; phase 3d's int8 runs K4's
-    # and K6's int8 modes, and on the stacked paths K9 and K7's int8 mode).
+    # and K6's int8 modes, and on the stacked paths K9 and K7's int8 mode;
+    # phase 3h's falcon run K14 and K3's head_dim-64 mode).
     # forward calls K4's token entry; the layer entry is the same kernel over
     # one layer and has no caller on the main path, so it counts 0 there.
     runs = {"megakernel_batched": "batched", "cache_append": "batched_stacked",
@@ -2682,14 +2913,18 @@ def main() -> int:
             "megakernel_batched_paged_w3": "paged_w3",
             "w8a8_gemm": "prefill_w8", "w4a8_gemm": "prefill_a8",
             "quant_per_token": "prefill_w8",
-            "megakernel_attn_half": "tp1", "megakernel_mlp_half": "tp1"}
+            "megakernel_attn_half": "tp1", "megakernel_mlp_half": "tp1",
+            "flash_decode_layer": "falcon", "flash_prefill_hd64": "falcon"}
+    # K3's head_dim-64 mode counts under K3's one wrapper
+    counter = {"flash_prefill_hd64": "flash_prefill"}
     kernels = []
     for name, (src, replaces) in sources.items():
         c = next(c for c in cases if c["name"] == name and c["shape"].startswith(pick[name]))
         run = runs.get(name, "megakernels" if name.startswith("megakernel") else "stacked")
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches[run][name], max_abs_err=c["max_abs_err"], ms=c["ms"],
+            launches=launches[run][counter.get(name, name)], max_abs_err=c["max_abs_err"],
+            ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], shape=c["shape"],
             **({"yardstick_ms": c["yardstick_ms"], "yardstick": c["yardstick"]}

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A/B of K2 (flash decode) and K8 (paged flash decode) between builds of
-``csrc/decode_attn.cu`` on one NVIDIA GPU.
+"""A/B of K2 (flash decode), K8 (paged flash decode) and K9 (int8 flash
+decode) between builds of ``csrc/decode_attn.cu`` on one NVIDIA GPU.
 
     python3 scripts/ab_flash_decode.py OTHER.cu [OTHER2.cu ...] [--reps 20] [--rounds 3]
 
@@ -9,7 +9,8 @@ with the port's nvcc flags (one nvcc each, in parallel) into
 ``build/ab_flash_decode/``, then times K2 from each library at the smoke
 script's shapes: batch 1 at 1000 and 4000 cached positions, and 8 rows of
 ragged lengths 0..1200; and K8 on those 8 rows over a permuted pool of
-pages of 256 (``chip_smoke.scatter_pages``). The builds run in turns (each in order, then in
+pages of 256 (``chip_smoke.scatter_pages``); and K9 at batch 1 at 1000
+cached positions over int8 codes and scales. The builds run in turns (each in order, then in
 reverse, ``--rounds`` times), each turn the median of ``--reps`` calls
 with the L2 flushed before each (``chip_smoke.Timer``); the script prints
 every turn and the medians, with the card's name and power limit. All
@@ -67,28 +68,29 @@ def main() -> int:
     procs = [build(src, so) for src, so in libs.values()]
     if any(p.wait() for p in procs):
         return 1
-    fns, fns8 = {}, {}
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fns, fns8, fns9 = {}, {}, {}
     for name, (_, so) in libs.items():
         lib = ctypes.CDLL(str(so))
-        fn = lib.awq_flash_decode
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float,
-                                                                   ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-        fn = lib.awq_flash_decode_paged
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                                   ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns8[name] = fn
+        for table, entry, types in (
+                (fns, "awq_flash_decode", [P] * 8 + [I] * 6 + [F] + [I] * 3 + [P]),
+                (fns8, "awq_flash_decode_paged", [P] * 9 + [I] * 8 + [F] + [I] * 3 + [P]),
+                (fns9, "awq_flash_decode_int8", [P] * 9 + [I] * 6 + [F, I, P])):
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = types, ctypes.c_int
+            table[name] = fn
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     nq, nkv, hd, t, page = 32, 8, 128, 2048, 256
     ragged = [1000, 0, 930, 1100, 1015, 850, 1200, 977]
-    cases = {"K2 B=1 len=1000": ([1000], False), "K2 B=1 len=4000": ([4000], False),
-             "K2 B=8 ragged 0..1200": (ragged, False),
-             "K8 B=8 ragged 0..1200, pages of 256": (ragged, True)}
+    cases = {"K2 B=1 len=1000": ([1000], ""), "K2 B=1 len=4000": ([4000], ""),
+             "K2 B=8 ragged 0..1200": (ragged, ""),
+             "K8 B=8 ragged 0..1200, pages of 256": (ragged, "paged"),
+             "K9 B=1 len=1000, int8": ([1000], "int8")}
     timer = Timer(torch, reps=args.reps)
-    for label, (lens_l, paged) in cases.items():
+    bf16 = 1                          # the kernels' dtype code of bf16
+    for label, (lens_l, mode) in cases.items():
+        paged = mode == "paged"
         b, mx = len(lens_l), max(lens_l)
         tt = max(t, mx)
         cache = torch.randn((2, b, nkv, tt, hd), generator=gen, device="cuda").to(torch.bfloat16)
@@ -105,6 +107,11 @@ def main() -> int:
         acc = torch.empty((b, nkv, nsplit, nq // nkv, hd), dtype=torch.float32, device="cuda")
         outs = {name: torch.empty_like(q) for name in fns}
 
+        if mode == "int8":
+            codes = torch.randint(-127, 128, cache.shape, generator=gen, device="cuda",
+                                  dtype=torch.int8)
+            scales = torch.rand(cache.shape[:4], generator=gen, device="cuda") * 0.02
+
         def call(name):
             stream = torch.cuda.current_stream().cuda_stream
             if paged:
@@ -112,12 +119,17 @@ def main() -> int:
                                  tables.data_ptr(), lens.data_ptr(), ml.data_ptr(),
                                  acc.data_ptr(), outs[name].data_ptr(), b, nq, nkv,
                                  pool.shape[2], page, tt // page, nsplit, split_len,
-                                 1.0 / math.sqrt(hd), stream)
+                                 1.0 / math.sqrt(hd), bf16, bf16, bf16, stream)
+            elif mode == "int8":
+                err = fns9[name](q.data_ptr(), kn.data_ptr(), vn.data_ptr(), codes.data_ptr(),
+                                 scales.data_ptr(), lens.data_ptr(), ml.data_ptr(),
+                                 acc.data_ptr(), outs[name].data_ptr(), b, nq, nkv, tt,
+                                 nsplit, split_len, 1.0 / math.sqrt(hd), bf16, stream)
             else:
                 err = fns[name](q.data_ptr(), kn.data_ptr(), vn.data_ptr(), cache.data_ptr(),
                                 lens.data_ptr(), ml.data_ptr(), acc.data_ptr(),
                                 outs[name].data_ptr(), b, nq, nkv, tt, nsplit, split_len,
-                                1.0 / math.sqrt(hd), stream)
+                                1.0 / math.sqrt(hd), bf16, bf16, bf16, stream)
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
 
