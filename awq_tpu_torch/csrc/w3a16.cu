@@ -13,9 +13,12 @@ extern "C" int awq_w3a16_gemv(const void* x, const void* qw, const void* scales,
                           split_k, vec, dtype, stream);
 }
 
-// Caller guarantees: as awq_w4a16_gemm, with qw as for awq_w3a16_gemv.
+// As awq_w4a16_gemm, with qw as for awq_w3a16_gemv (IC % 256 == 0,
+// 1 <= splits <= IC / 256).
 extern "C" int awq_w3a16_gemm(const void* x, const void* qw, const void* scales,
                               const void* szeros, const void* bias, void* out,
-                              int M, int IC, int OC, int G, int dtype, void* stream) {
-  return gemm_entry<true>(x, qw, scales, szeros, bias, out, M, IC, OC, G, dtype, stream);
+                              void* partial, int M, int IC, int OC, int G, int nt,
+                              int splits, int dtype, void* stream) {
+  return gemm_entry<true>(x, qw, scales, szeros, bias, out, partial, M, IC, OC, G, nt,
+                          splits, dtype, stream);
 }

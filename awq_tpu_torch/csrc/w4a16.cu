@@ -14,10 +14,16 @@ extern "C" int awq_w4a16_gemv(const void* x, const void* qw, const void* scales,
                            split_k, vec, dtype, stream);
 }
 
-// Caller guarantees: x 16-byte aligned, IC % 64 == 0, G % 8 == 0; the other
-// operands as for awq_w4a16_gemv.
+// The GEMM entry (M > 8): `nt` and `splits` are the host plan's token
+// tile (16, 32, 64 or 128) and split count (ops/w4a16.py::gemm_plan),
+// partial f32 [splits, M, OC] when splits > 1 (else null). Caller
+// guarantees: x [M, IC] contiguous and 16-byte aligned, bf16 for dtype 0
+// (f32 output) and 1, f16 for 2; IC % 64 == 0, G % 8 == 0, IC % G == 0;
+// 1 <= splits <= IC / 64; the other operands as for awq_w4a16_gemv.
 extern "C" int awq_w4a16_gemm(const void* x, const void* qw, const void* scales,
                               const void* szeros, const void* bias, void* out,
-                              int M, int IC, int OC, int G, int dtype, void* stream) {
-  return gemm_entry<false>(x, qw, scales, szeros, bias, out, M, IC, OC, G, dtype, stream);
+                              void* partial, int M, int IC, int OC, int G, int nt,
+                              int splits, int dtype, void* stream) {
+  return gemm_entry<false>(x, qw, scales, szeros, bias, out, partial, M, IC, OC, G, nt,
+                           splits, dtype, stream);
 }

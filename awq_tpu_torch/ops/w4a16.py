@@ -14,7 +14,8 @@ true 3-bit layout (``IC % 256 == 0``), which streams 0.75x the code bytes.
   ``w4a16_matmul_stacked`` (and their TPU-only tiled and folded layouts)
   and, in its W3 mode (``csrc/w3a16.cu``), ``w3a16_matmul_stacked`` and
   ``w3a16_matmul_stacked_tiled_folded``: the GEMV entry for ``M <= 8``
-  rows (decode), the tiled mma.sync entry for more (prefill). On a CPU
+  rows (decode), the wgmma GEMM entry for more (prefill), over the host
+  plan of :func:`gemm_plan` (orientation, token tile, IC splits). On a CPU
   tensor it runs the plain version; on a CUDA tensor it launches the
   kernel or raises. The source note in the ``.cuh`` says what bounds each
   entry on the H100 and what its design does about it.
@@ -35,7 +36,8 @@ int8 with int32 sums, then ``y = (f32(acc) * scol) * sx`` rounded once to
 - :func:`w8a8_matmul` is the wrapper of K11, the counterpart of
   ``w8a8_matmul_stacked_tiled`` (row 8), over the int8 prefill weight cache
   :class:`W8Stack` that :func:`attach_w8_caches` builds once
-  (``RuntimeConfig.prefill_w8``).
+  (``RuntimeConfig.prefill_w8``): wgmma s8 over the plan of
+  :func:`gemm_plan`, with int32 split partials.
 
 :func:`qlinear_apply_stacked` routes a prefill (``a8``) as the JAX package
 does: K11 from ``_W8_MIN_M`` rows where the layer has a cache, else K10
@@ -66,6 +68,69 @@ LAUNCHES = {"w4a16_gemv": 0, "w4a16_gemm": 0, "w3a16_gemv": 0, "w3a16_gemm": 0,
 GEMV_MAX_M = 8          # rows served by the GEMV entry
 _SPLIT_K = 512          # input channels per GEMV block (csrc/w4a16.cuh)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: Input channels of one ring stage of the wgmma GEMMs: K1 W4 (8 code rows),
+#: K1 W3 (one 256-channel pack_int3 chunk, 24 code rows), K11 (128 int8).
+STAGE_K = {"w4a16": 64, "w3a16": 256, "w8a8": 128}
+GEMM_BN = 128           # output columns of a block
+_N_SM: Dict[int, int] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """How K1's GEMM entry or K11 covers one product ``[M, IC] x [IC, OC]``.
+
+    ``swap``: the weights are wgmma's 64-row operand and the ``tile_m``
+    tokens of a block its N, so that no tensor-core row works on padding
+    (K1 always, its dequantized weights in registers; K11 up to 64 rows,
+    above that blocks of 128 tokens x 128 columns). ``blocks_per_sm``: how
+    many blocks of that tile the kernel fits on an SM. ``splits``: the IC
+    stages are cut into this many ranges, split ``z`` taking stages
+    ``[z*n//splits, (z+1)*n//splits)``; a second launch sums their
+    partials in split order (f32 for K1; int32 for K11).
+    """
+
+    swap: bool
+    tile_m: int
+    stage_k: int
+    n_stages: int
+    tiles: int
+    blocks_per_sm: int
+    splits: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    def edges(self, ic: int):
+        """The channel offsets where the splits start, and IC."""
+        n = self.n_stages
+        return [z * n // self.splits * self.stage_k for z in range(self.splits)] + [ic]
+
+
+def gemm_plan(m: int, ic: int, oc: int, kind: str = "w4a16", n_sm: int = 132) -> GemmPlan:
+    """The host-side plan of one wgmma GEMM (``kind``: ``w4a16``, ``w3a16``
+    or ``w8a8``): the token tile by M (16, 32, 64, then 128; K11 turns to
+    128 x 128 tiles from 65 rows), and where the tiles leave SMs idle, as
+    many IC splits as one wave of blocks holds (never more than the
+    stages)."""
+    stage_k = STAGE_K[kind]
+    k11 = kind == "w8a8"
+    tile_m = next((t for t in (16, 32, 64) if m <= t), 128)
+    swap = not k11 or tile_m <= 64
+    bps = 2 if tile_m <= 64 else 1
+    tiles = -(-oc // GEMM_BN) * -(-m // tile_m)
+    n_stages = -(-ic // stage_k)
+    splits = 1 if tiles >= n_sm else max(1, min(n_sm * bps // tiles, n_stages))
+    return GemmPlan(swap=swap, tile_m=tile_m, stage_k=stage_k, n_stages=n_stages,
+                    tiles=tiles, blocks_per_sm=bps, splits=splits)
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _N_SM:
+        _N_SM[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _N_SM[idx]
 
 
 @dataclasses.dataclass
@@ -168,8 +233,10 @@ def w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
     """K1 wrapper: ``x [M, IC] @ dequant(qweight) (+ bias)`` in ``x.dtype``.
 
     CPU tensors take :func:`w4a16_matmul_plain`. CUDA tensors launch the
-    GEMV entry (``M <= 8``) or the tiled entry of the format's library
-    (``w4a16``, or ``w3a16`` with ``dense3``), after checking what the
+    GEMV entry (``M <= 8``) or the wgmma GEMM entry of the format's library
+    (``w4a16``, or ``w3a16`` with ``dense3``; f32 ``x`` rounded to bf16 for
+    it, and with more than one split a second launch that sums the
+    partials), after checking what the
     kernels take: f32, bf16 or f16 ``x`` with a bias of its dtype, int32
     codes, f32 scales, contiguous operands on one device, a group size
     that is a multiple of 8 and divides IC (the whole IC included).
@@ -226,12 +293,18 @@ def w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
                  dtype, stream)
         what = f"{fmt}_gemv"
     else:
-        _check(x.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+        # f32 x enters the tensor cores as bf16, rounded here once
+        xk = x.to(torch.bfloat16) if x.dtype == torch.float32 else x
+        _check(xk.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+        plan = gemm_plan(m, ic, oc, fmt, _sm_count(x.device))
+        partial = (torch.empty((plan.splits, m, oc), dtype=torch.float32, device=x.device)
+                   if plan.splits > 1 else None)
         fn = getattr(lib, f"awq_{fmt}_gemm")
-        _build.declare(fn, *([_build.P] * 6), *([_build.I] * 5), _build.P)
-        err = fn(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-                 szeros.data_ptr(), bias_ptr, out.data_ptr(), m, ic, oc,
-                 group_size, dtype, stream)
+        _build.declare(fn, *([_build.P] * 7), *([_build.I] * 7), _build.P)
+        err = fn(xk.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
+                 szeros.data_ptr(), bias_ptr, out.data_ptr(),
+                 None if partial is None else partial.data_ptr(), m, ic, oc,
+                 group_size, plan.tile_m, plan.splits, dtype, stream)
         what = f"{fmt}_gemm"
     _build.check(lib, err, what)
     LAUNCHES[what] += 1
@@ -442,8 +515,9 @@ def _check_a8_x(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: IC={x.shape[1]} must be a multiple of 64")
 
 
-def _launch_a8(what: str, entry: str, x: torch.Tensor, oc: int, weights, group_size=None):
-    """Quantize x (one launch), then run K10 or K11 into a new [M, OC]."""
+def _launch_a8(what: str, x: torch.Tensor, oc: int, weights, group_size=None):
+    """Quantize x (one launch), then run K10 (``group_size`` given) or K11
+    (over the plan of :func:`gemm_plan`) into a new [M, OC]."""
     m, ic = x.shape
     out = torch.empty((m, oc), dtype=x.dtype, device=x.device)
     if m == 0:
@@ -453,13 +527,20 @@ def _launch_a8(what: str, entry: str, x: torch.Tensor, oc: int, weights, group_s
     from awq_tpu_torch import _build
 
     lib = _build.load("w8a8")
-    fn = getattr(lib, entry)
-    n_ptr = 3 + len(weights)
-    extra = () if group_size is None else (group_size,)
-    _build.declare(fn, *([_build.P] * n_ptr), *([_build.I] * (4 + len(extra))), _build.P)
-    err = fn(xq.data_ptr(), sx.data_ptr(), *(t.data_ptr() for t in weights),
-             out.data_ptr(), m, ic, oc, *extra, _DTYPE_CODE[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = [xq.data_ptr(), sx.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr()]
+    if group_size is not None:
+        fn = lib.awq_w4a8_gemm
+        _build.declare(fn, *([_build.P] * 6), *([_build.I] * 5), _build.P)
+        err = fn(*ptrs, m, ic, oc, group_size, _DTYPE_CODE[x.dtype], stream)
+    else:
+        plan = gemm_plan(m, ic, oc, "w8a8", _sm_count(x.device))
+        partial = (torch.empty((plan.splits, m, oc), dtype=torch.int32, device=x.device)
+                   if plan.splits > 1 else None)
+        fn = lib.awq_w8a8_gemm
+        _build.declare(fn, *([_build.P] * 6), *([_build.I] * 6), _build.P)
+        err = fn(*ptrs, None if partial is None else partial.data_ptr(), m, ic, oc,
+                 plan.tile_m, plan.splits, _DTYPE_CODE[x.dtype], stream)
     _build.check(lib, err, what)
     LAUNCHES[what] += 1
     return out
@@ -486,7 +567,7 @@ def w8a8_matmul(x: torch.Tensor, w8: torch.Tensor, scol: torch.Tensor) -> torch.
         raise ValueError("w8a8_matmul: operands must be contiguous and on x's device")
     if w8.data_ptr() % 16:
         raise ValueError("w8a8_matmul: w8 must be 16-byte aligned")
-    return _launch_a8("w8a8_gemm", "awq_w8a8_gemm", x, w8.shape[0], (w8, scol))
+    return _launch_a8("w8a8_gemm", x, w8.shape[0], (w8, scol))
 
 
 def w4a8_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
@@ -517,5 +598,4 @@ def w4a8_matmul(x: torch.Tensor, qweight: torch.Tensor, scales: torch.Tensor,
         raise ValueError(f"w4a8_matmul: scales/szeros must be f32 [{n_g}, {oc}]")
     if not all(t.device == x.device and t.is_contiguous() for t in (qweight, scales, szeros)):
         raise ValueError("w4a8_matmul: operands must be contiguous and on x's device")
-    return _launch_a8("w4a8_gemm", "awq_w4a8_gemm", x, oc, (qweight, scales, szeros),
-                      group_size)
+    return _launch_a8("w4a8_gemm", x, oc, (qweight, scales, szeros), group_size)

@@ -13,7 +13,9 @@ Phases (each failure ends the run with a non-zero exit):
    the megakernels, which no single PyTorch call computes: the stacked
    per-kernel path's device time for the same step), beside the least
    time the card could take (``bound_ms``).
-   That covers K1-K5 at batch 1, K1 at 8 and 32 rows and K2 at 8 rows of
+   That covers K1-K5 at batch 1, K1's GEMM at 16, 64, 200 and 1000 rows
+   (each line with the plan's orientation and split count), K1 at 8 and
+   32 rows and K2 at 8 rows of
    ragged lengths as the batched stacked path calls them, the batched
    megakernel K6 at 8 and 32 rows (its in-place cache write included) and
    the KV append K7; then the paged KV path: K8 (paged flash decode) on
@@ -276,13 +278,14 @@ def phase_kernels(torch, timer, cases_out):
                     max_rel_err=rel, tol=f"{k1_tol:g}*max|ref|", ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms,
-                    library=f"torch.matmul on the{dt or ' bf16'}-dequantized weight")
+                    library=f"torch.matmul on the{dt or ' bf16'}-dequantized weight",
+                    **plan_of(entry, m, ic, oc))
 
     for wname in ("wqkv", "wo", "wgateup", "down", "head"):
         cases_out.append(k1_case("w4a16_gemv", wname, 1))
         log_case(cases_out[-1])
-    for m in (16, 200, 1000):
-        for wname in ("wqkv", "wgateup", "down"):
+    for m in (16, 64, 200, 1000):
+        for wname in ("wqkv", "wo", "wgateup", "down"):
             cases_out.append(k1_case("w4a16_gemm", wname, m))
             log_case(cases_out[-1])
     # the batched stacked path: 8 slots are the GEMV entry's most rows
@@ -708,7 +711,7 @@ def phase_int8_prefill_kernels(torch, timer, cases_out):
                     plain_ms=timer(plain, reps=3), bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms, yardstick_ms=k1_ms,
                     library="torch._int_mm on the same int8 operands + the same epilogue",
-                    yardstick="K1 GEMM (w4a16_gemm) on the same x"))
+                    yardstick="K1 GEMM (w4a16_gemm) on the same x", **plan_of(name, m, ic, oc)))
                 log_case(cases_out[-1])
             if lib_out is not None:
                 exact(f"{wname} M={m}: torch._int_mm and K10/K11", lib_out,
@@ -1035,15 +1038,32 @@ def scatter_pages(torch, cache, mp, page, gen, need=None):
     return pool, tables.to(cache.device)
 
 
+def plan_of(entry, m, ic, oc):
+    """The host plan of a wgmma GEMM case (K1's GEMM entry, K11): its
+    orientation and split count, for the case line."""
+    import torch
+
+    from awq_tpu_torch.ops import w4a16 as w4
+
+    kind = {"w4a16_gemm": "w4a16", "w3a16_gemm": "w3a16", "w8a8_gemm": "w8a8"}.get(entry)
+    if kind is None:
+        return {}
+    p = w4.gemm_plan(m, ic, oc, kind, torch.cuda.get_device_properties(0).multi_processor_count)
+    orient = f"weights as A, tokens as N={p.tile_m}" if p.swap else "128x128 tiles"
+    return {"plan": f"{orient}, {p.splits} split{'s' if p.splits > 1 else ''}, "
+                    f"{p.blocks} blocks"}
+
+
 def log_case(c):
     lib = ("library_ms=none" if c["library_ms"] is None
            else f"library_ms={c['library_ms']:.4f}")
     if "yardstick_ms" in c:
         lib += f" yardstick_ms={c['yardstick_ms']:.4f} ({c['yardstick']})"
+    plan = f" [{c['plan']}]" if "plan" in c else ""
     log(f"  {c['name']:16s} {c['shape']:34s} max_abs_err={c['max_abs_err']:.3e} "
         f"max_rel_err={c['max_rel_err']:.3e} (tol {c['tol']}) "
         f"kernel_ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
-        f"{lib} bound_ms={c['bound_ms']:.4f} ({c['bound_by']})")
+        f"{lib} bound_ms={c['bound_ms']:.4f} ({c['bound_by']}){plan}")
 
 
 def device_ms(torch, fn, reps: int = 2) -> float:
@@ -1846,12 +1866,14 @@ KERNEL_GROUPS = {"megakernel_attn_half": tuple(f"token_kernel<{t}, 1>" for t in 
                  "w4a16_gemv": ("w4a16_gemv", "splitk_reduce"),
                  "flash_decode_layer": ("flash_decode_layer", "combine_kernel<64, false>",
                                         "combine_kernel<128, false>"),
-                 "flash_decode": ("flash_decode",), "w4a16_gemm": ("w4a16_gemm",),
+                 "flash_decode": ("flash_decode",),
+                 "w4a16_gemm": ("w4a16_wgmma_kernel", "splitk_reduce"),
                  "flash_prefill": ("flash_prefill",), "megakernel_token": ("token_kernel",),
                  "megakernel_chunk": ("chunk_kernel",),
                  "megakernel_batched": ("batched_kernel",),
                  "cache_append": ("cache_append_kernel",),
-                 "w4a8_gemm / w8a8_gemm": ("w8a8_gemm_kernel",),
+                 "w4a8_gemm / w8a8_gemm": ("w4a8_gemm_kernel", "w8a8_wgmma_kernel",
+                                           "w8a8_splitk_epilogue"),
                  "quant_per_token": ("quant_per_token_kernel",)}
 
 

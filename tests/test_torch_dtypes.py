@@ -118,7 +118,8 @@ def _stack4(ic, oc, g, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,g", [(1, 128), (8, 128), (37, 128), (1, -1), (8, -1), (37, -1),
-                                 (5, 32), (20, 96), (1, 96), (8, 96)])
+                                 (5, 32), (20, 96), (1, 96), (8, 96),
+                                 (37, 32), (200, 32), (70, 96), (200, 96), (200, -1)])
 def test_k1_dtypes_and_groups_on_card(cuda, dtype, m, g):
     # g = 96 at m <= 8: the GEMV's 512-input split ends inside a group
     ic, oc = 1536, 320

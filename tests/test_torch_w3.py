@@ -236,7 +236,7 @@ def test_head_in_kernel_follows_body_format(head):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 @pytest.mark.parametrize("m,g", [(1, 128), (8, -1), (37, 128), (37, -1), (3, 64), (70, 256),
-                                 (1, 96), (8, 96)])
+                                 (1, 96), (8, 96), (33, 128), (200, 128), (33, 96), (200, -1)])
 def test_w3_kernel_matches_plain_on_card(cuda, dtype, m, g):
     # g = 96 over IC = 1536: the GEMV's 512-input split ends inside a group
     ic, oc = (1536 if g == 96 else 1024), 384

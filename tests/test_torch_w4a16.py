@@ -133,12 +133,23 @@ def _card_case(dev, m, ic, oc, bias, seed):
     return args, bb
 
 
+# The GEMM rows run the wgmma kernel on every path of its plan: the swapped
+# orientation (M <= 64) at token tiles 16, 32 and 64 and the 128-token tile
+# above, split-K where the tiles are few (IC 14336 splits for real), and
+# column counts that are no multiple of the 128-column tile, TMA's 16-byte
+# row pitch (320, 4544) or neither (202: the codes and scales by cp.async).
+_GEMM_CASES = [(m, 1024, oc, m % 2 == 1) for m in (9, 16, 31, 32, 33, 64, 65, 200, 1000)
+               for oc in (202, 320, 4544)] + [
+    (9, 14336, 4096, False), (32, 14336, 4096, True), (64, 14336, 320, False),
+    (200, 14336, 4544, True), (1000, 14336, 4096, False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,ic,oc,bias", [
     (1, 512, 256, False), (3, 1024, 384, True), (8, 512, 200, False),
     (2, 512, 202, True), (20, 512, 202, False),
     (1, 4096, 6144, False), (37, 512, 256, True), (70, 1024, 200, False),
-    (200, 4096, 4096, False)])
+    (200, 4096, 4096, False)] + _GEMM_CASES)
 def test_kernel_matches_plain_on_card(cuda, m, ic, oc, bias):
     args, bb = _card_case(cuda, m, ic, oc, bias, seed=m + oc)
     entry = "w4a16_gemv" if m <= tw.GEMV_MAX_M else "w4a16_gemm"

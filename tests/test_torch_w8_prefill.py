@@ -319,8 +319,8 @@ def _card_linear(dev, ic, oc, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
-@pytest.mark.parametrize("m", [32, 40, 200, 512])
-@pytest.mark.parametrize("oc", [384, 320])
+@pytest.mark.parametrize("m", [32, 40, 200, 512, 1, 17, 33, 64, 1000])
+@pytest.mark.parametrize("oc", [384, 320, 4544])
 def test_k10_k11_bit_equal_plain_on_card(cuda, dtype, m, oc):
     """K10 and K11 bit-equal to their plain versions (int32 sums are exact
     and the epilogue's order is fixed), over f32/bf16/f16 x and an OC that
