@@ -72,17 +72,39 @@
 // K3 replaces flash_prefill_stacked (_stacked_prefill_kernel) with its
 // online softmax (the TPU-only fixed_max variant is not carried over): the
 // chunk at [start, start+S) is already in the cache, query row r attends
-// positions j <= start + r, GQA. Bound by tensor-core operations at prompt
-// lengths. FlashAttention-2 shape: a block of 4 warps owns 64 query rows of
-// one head (16 per warp, Q kept in registers as mma A fragments), streams
-// 64-position K/V tiles through shared memory up to the block's causal
-// frontier, computes S = Q·K^T and O += P·V with mma.sync m16n8k16
-// (f32 accumulators; bf16 operands, or f16 over an f16 cache; an f32
-// cache's tiles, q and P are rounded to bf16, about 3 significant digits),
-// and keeps the row max and sum in registers; the [S, T] score matrix never
-// exists in memory. Single-stage loads: TMA, wgmma and a pipeline are later
-// work.
+// positions j <= start + r, GQA/MQA. Bound by tensor-core operations at
+// prompt lengths. Two modes:
+// - bf16 and f16 caches (flash_prefill_wgmma_kernel), FlashAttention-3's
+//   shape for Hopper. GQA packing: a block owns one (row b, kv head) and
+//   128 consecutive (position, head-in-group) query rows, which sit side by
+//   side in q (the g heads of a position are adjacent), so each K/V tile it
+//   loads serves every head of the group (4 for Llama-3-8B, 71 for
+//   Falcon-7B's MQA) and the causal limit is applied per row by its
+//   position. One producer warp streams BKV-position K and V tiles of the
+//   layer's [T, hd] slab by TMA (128-byte swizzle; a 3-D map whose rows end
+//   at start + S, so positions past the chunk read as zeros) into a ring of
+//   3 stages; two consumer warpgroups of 64 rows each compute S = Q·K^T
+//   with wgmma (both operands K-major in shared memory; Q staged once per
+//   block by the consumers' own loads), keep the row max and sum in
+//   registers, round P to bf16/f16 in registers as wgmma's A fragments and
+//   accumulate O += P·V with wgmma's transposed-B form, V read MN-major
+//   straight from its TMA tile. BKV is 64 positions at hd 128 and 128 at
+//   hd 64 (S and O together 96 f32 accumulators a thread). Blocks run
+//   heavy-first: block 0 takes the last row tile, whose causal frontier is
+//   the longest, so the short tiles fill the tail
+//   (ops/decode_attn.py::prefill_plan mirrors the order).
+// - an f32 cache (flash_prefill_kernel, the earlier mma.sync body, kept as the f32 mode):
+//   a block of 4 warps owns 64 query rows of one head (Q in registers as
+//   mma.sync A fragments), streams 64-position K/V tiles through shared
+//   memory with synchronous loads, rounds the tiles, q and P to bf16
+//   (about 3 significant digits) for mma.sync m16n8k16 with f32 sums.
+// Both keep f32 accumulators, the online max and sum in f32 and P rounded
+// to bf16 (f16 over an f16 cache) for P·V; the [S, T] score matrix never
+// exists in memory.
 #include "common.cuh"
+#include "hopper.cuh"
+
+#include <type_traits>
 
 namespace {
 
@@ -655,6 +677,232 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
   }
 }
 
+// ---- K3's bf16/f16 mode: wgmma fed by a TMA ring --------------------------
+
+namespace k3 {
+constexpr int BQ = 128;         // packed query rows of a block: two warpgroups of 64
+constexpr int THREADS = 288;    // two consumer warpgroups and one producer warp
+constexpr int STAGES = 3;
+template <int D> __host__ __device__ constexpr int bkv() { return D == 128 ? 64 : 128; }
+// the dtype code (1 bf16, 2 f16) of a tile type
+template <typename MT> __host__ __device__ constexpr int dtype_code() {
+  return std::is_same<MT, bf16>::value ? 1 : 2;
+}
+}  // namespace k3
+
+// 8 consecutive q elements (dtype code qdt) as 8 MT values in one uint4.
+template <typename MT>
+__device__ __forceinline__ uint4 load8_q(const void* q, int qdt, size_t i) {
+  if (qdt == k3::dtype_code<MT>())
+    return *reinterpret_cast<const uint4*>(static_cast<const MT*>(q) + i);
+  return make_uint4(pack2<MT>(load_act(q, qdt, i), load_act(q, qdt, i + 1)),
+                    pack2<MT>(load_act(q, qdt, i + 2), load_act(q, qdt, i + 3)),
+                    pack2<MT>(load_act(q, qdt, i + 4), load_act(q, qdt, i + 5)),
+                    pack2<MT>(load_act(q, qdt, i + 6), load_act(q, qdt, i + 7)));
+}
+
+// Block x takes row tile n_tiles - 1 - x / (B * nkv) of (row b, kv head h)
+// = x % (B * nkv): rows [128 tile, 128 tile + 128) of the S * g packed rows
+// (position r / g, head-in-group r % g). Shared memory: Q (D / 64 panels of
+// 128 rows x 128 bytes), then the ring's stages (K, then V: D / 64 panels of
+// BKV rows x 128 bytes each), then the full and empty mbarriers.
+template <typename MT, int D>
+__global__ void __launch_bounds__(k3::THREADS, 1) flash_prefill_wgmma_kernel(
+    const __grid_constant__ CUtensorMap kvmap, const void* __restrict__ q,
+    void* __restrict__ out, int qdt, int B, int S, int nq, int nkv, int start_pos,
+    int n_tiles, float scale_log2) {
+  constexpr int NP = D / 64;                 // 128-byte panels along head_dim
+  constexpr int BKV = k3::bkv<D>();
+  constexpr int QP = k3::BQ * 128;           // one Q panel
+  constexpr int PB = BKV * 128;              // one panel of a K or V tile
+  constexpr int TB = NP * PB;                // a K (or V) tile
+  constexpr int SB = 2 * TB;                 // a stage
+  constexpr int NS = BKV / 2, NO = D / 2;    // S and O accumulators a thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = hop::align1024(smem_raw);
+  uint8_t* ring = qs + NP * QP;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + k3::STAGES * SB);
+  uint64_t* empty = full + k3::STAGES;
+
+  const int g = nq / nkv, rows = S * g;
+  const int bh = blockIdx.x % (B * nkv);
+  const int tile = n_tiles - 1 - static_cast<int>(blockIdx.x) / (B * nkv);
+  const int b = bh / nkv, kvh = bh % nkv;
+  const int r0 = tile * k3::BQ;
+  const int frontier = start_pos + (min(r0 + k3::BQ, rows) - 1) / g + 1;   // keys [0, frontier)
+  const int n_kv = (frontier + BKV - 1) / BKV;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < k3::STAGES; ++i) {
+      hop::mbar_init(&full[i], 1);
+      hop::mbar_init(&empty[i], 256);
+    }
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {   // the producer warp: one lane issues the TMA loads
+    if (lane == 0) {
+      const int hk = b * nkv + kvh, hv = (B + b) * nkv + kvh;   // planes of K and V
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % k3::STAGES;
+        hop::mbar_wait(&empty[st], ((j / k3::STAGES) & 1) ^ 1);
+        uint8_t* ks = ring + st * SB;
+        hop::mbar_expect_tx(&full[st], SB);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          hop::tma_load_3d(ks + p * PB, &kvmap, &full[st], 64 * p, j * BKV, hk);
+          hop::tma_load_3d(ks + TB + p * PB, &kvmap, &full[st], 64 * p, j * BKV, hv);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, t = threadIdx.x & 127, wi = t >> 5;
+  // Q: this warpgroup's 64 rows, 16-byte chunks into the swizzled panels
+  for (int i = t; i < 64 * NP * 8; i += 128) {
+    const int rr = 64 * wg + i / (NP * 8), c = i % (NP * 8), row = r0 + rr;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row < rows)
+      v = load8_q<MT>(q, qdt, (((size_t)b * S + row / g) * nq + kvh * g + row % g) * D + 8 * c);
+    *reinterpret_cast<uint4*>(qs + (c >> 3) * QP + hop::swz128(rr, 16 * (c & 7))) = v;
+  }
+  hop::fence_proxy_async();
+  hop::bar_sync(1 + wg, 128);
+
+  // this thread's rows 64 wg + 16 wi + lane / 4 (+ 8): the last key each attends
+  const int rl = 64 * wg + 16 * wi + (lane >> 2);
+  int lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) lim[h] = start_pos + min(r0 + rl + 8 * h, rows - 1) / g;
+  const int lim_min = start_pos + r0 / g;    // tiles at or below it need no mask
+  float o[NO], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j % k3::STAGES;
+    hop::mbar_wait(&full[st], (j / k3::STAGES) & 1);
+    const uint8_t* ks = ring + st * SB;
+    const uint8_t* vs = ks + TB;
+    float s[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    hop::fence_regs<NS>(s);
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk >> 2) * QP, koff = (kk >> 2) * PB, sub = (kk & 3) * 32;
+      hop::WgmmaSS<MT, BKV>::mma(s, hop::desc_k128(qs + off + 64 * wg * 128 + sub),
+                                 hop::desc_k128(ks + koff + sub));
+    }
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs<NS>(s);
+
+    const int j0 = j * BKV;
+    const bool masked = j0 + BKV - 1 > lim_min;
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int jj = 0; jj < BKV / 8; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = s[4 * jj + 2 * h + e];
+          const int key = j0 + 8 * jj + 2 * (lane & 3) + e;
+          v = (!masked || key <= lim[h]) ? v * scale_log2 : NEG_INF;
+          mx[h] = fmaxf(mx[h], v);
+        }
+    float ref[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float mn = fmaxf(m[h], mx[h]);
+      ref[h] = mn == NEG_INF ? 0.f : mn;   // a row with no live key yet
+      alpha[h] = exp2f(m[h] - ref[h]);
+      m[h] = mn;
+    }
+#pragma unroll
+    for (int jj = 0; jj < BKV / 8; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& v = s[4 * jj + 2 * h + e];
+          v = exp2f(v - ref[h]);
+          sum[h] += v;
+        }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        o[4 * jj + 2 * h] *= alpha[h];
+        o[4 * jj + 2 * h + 1] *= alpha[h];
+      }
+    // P in S's accumulator layout is wgmma's A fragment: keys 16kk.. of
+    // step kk are accumulators 8kk..8kk+7
+    uint32_t pa[BKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[kk][i] = pack2<MT>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    hop::fence_regs<NO>(o);
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      hop::WgmmaRSt<MT, D>::mma(o, pa[kk], hop::desc_mn128(vs + kk * 2048, PB));
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs<NO>(o);
+    hop::mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int row = r0 + rl + 8 * h;
+    if (row >= rows) continue;
+    const float inv = 1.f / l[h];
+    const size_t base = (((size_t)b * S + row / g) * nq + kvh * g + row % g) * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const size_t i = base + 8 * jj + 2 * (lane & 3);
+      const float v0 = o[4 * jj + 2 * h] * inv, v1 = o[4 * jj + 2 * h + 1] * inv;
+      if (qdt == k3::dtype_code<MT>()) {
+        *reinterpret_cast<uint32_t*>(static_cast<MT*>(out) + i) = pack2<MT>(v0, v1);
+      } else {
+        store_act(out, qdt, i, v0);
+        store_act(out, qdt, i + 1, v1);
+      }
+    }
+  }
+}
+
+template <typename MT, int D>
+int prefill_wgmma(const void* q, const void* cache, void* out, int B, int S, int nq, int nkv,
+                  int T, int start_pos, int n_tiles, float scale_log2, int qdt,
+                  cudaStream_t st) {
+  static int smem_set = 0;
+  constexpr int BKV = k3::bkv<D>();
+  const int bytes = 1024 + (D / 64) * k3::BQ * 128 + k3::STAGES * (2 * (D / 64) * BKV * 128 + 16);
+  CUtensorMap map;
+  int err = hop::make_map3(&map, hop::TmaType<MT>::v, 2, cache, D, start_pos + S, 2ull * B * nkv,
+                           D, (uint64_t)T * D, 64, BKV);
+  auto kernel = flash_prefill_wgmma_kernel<MT, D>;
+  if (!err) err = hop::allow_smem(kernel, bytes, &smem_set);
+  if (err) return err;
+  kernel<<<n_tiles * B * nkv, k3::THREADS, bytes, st>>>(map, q, out, qdt, B, S, nq, nkv,
+                                                        start_pos, n_tiles, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int HPW, typename KV>
 void launch_split(const void* q, int qdt, const KV& kv, const int* lengths, int max_len,
                   float* ml, float* acc, int B, int nq, int nkv, int nsplit,
@@ -715,21 +963,22 @@ int run_typed(int cdt, Make make, const void* q, const void* k_new, const void* 
 
 template <int D>
 int run_prefill(const void* q, const void* cache, void* out, int B, int S, int nq, int nkv,
-                int T, int start_pos, float scale_log2, int qdt, int cdt, cudaStream_t st) {
-  const dim3 grid(cdiv(S, PF_BQ), nq, B);
+                int T, int start_pos, int n_tiles, float scale_log2, int qdt, int cdt,
+                cudaStream_t st) {
   switch (cdt) {
-    case 0: flash_prefill_kernel<float, D><<<grid, 128, 0, st>>>(
-                q, static_cast<const float*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
-                scale_log2); break;
-    case 1: flash_prefill_kernel<bf16, D><<<grid, 128, 0, st>>>(
-                q, static_cast<const bf16*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
-                scale_log2); break;
-    case 2: flash_prefill_kernel<__half, D><<<grid, 128, 0, st>>>(
-                q, static_cast<const __half*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
-                scale_log2); break;
+    case 0: {
+      const dim3 grid(cdiv(S, PF_BQ), nq, B);
+      flash_prefill_kernel<float, D><<<grid, 128, 0, st>>>(
+          q, static_cast<const float*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
+          scale_log2);
+      return static_cast<int>(cudaGetLastError());
+    }
+    case 1: return prefill_wgmma<bf16, D>(q, cache, out, B, S, nq, nkv, T, start_pos, n_tiles,
+                                          scale_log2, qdt, st);
+    case 2: return prefill_wgmma<__half, D>(q, cache, out, B, S, nq, nkv, T, start_pos,
+                                            n_tiles, scale_log2, qdt, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -789,18 +1038,23 @@ extern "C" int awq_flash_decode_int8(const void* q, const void* k_new, const voi
 }
 
 // q [B, S, nq, hd] contiguous of qdt; cache [2, B, nkv, T, hd] contiguous
-// of cdt with the chunk already written at [start_pos, start_pos + S); out
-// [B, S, nq * hd] of qdt; hd 64 or 128, nq a multiple of nkv;
+// and 16-byte aligned, of cdt, with the chunk already written at
+// [start_pos, start_pos + S); out [B, S, nq * hd] of qdt; hd 64 or 128, nq
+// a multiple of nkv; n_tiles = ceil(S * nq / nkv / 128), the host plan's
+// row tiles (ops/decode_attn.py::prefill_plan; the f32 mode ignores it);
 // scale_log2 = log2(e) / sqrt(hd).
 extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, int B,
                                  int S, int nq, int nkv, int T, int start_pos, int hd,
-                                 float scale_log2, int qdt, int cdt, void* stream) {
+                                 int n_tiles, float scale_log2, int qdt, int cdt,
+                                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nq % nkv || n_tiles != cdiv(S * (nq / nkv), k3::BQ))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 64: return run_prefill<64>(q, cache, out, B, S, nq, nkv, T, start_pos, scale_log2,
-                                    qdt, cdt, st);
-    case 128: return run_prefill<128>(q, cache, out, B, S, nq, nkv, T, start_pos, scale_log2,
-                                      qdt, cdt, st);
+    case 64: return run_prefill<64>(q, cache, out, B, S, nq, nkv, T, start_pos, n_tiles,
+                                    scale_log2, qdt, cdt, st);
+    case 128: return run_prefill<128>(q, cache, out, B, S, nq, nkv, T, start_pos, n_tiles,
+                                      scale_log2, qdt, cdt, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

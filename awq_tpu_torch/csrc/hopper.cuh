@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks of the port's wgmma GEMMs: K1's GEMM
-// entry (w4a16.cuh, W4 and W3) and K11 (w8a8.cu). Raw PTX, no CUTLASS:
-// mbarriers, TMA tile loads and cp.async into the same ring, the shared
-// memory descriptors and instructions of wgmma, and the host-side encoding
-// of TMA descriptors.
+// Hopper (sm_90a) building blocks of the port's wgmma kernels: K1's GEMM
+// entry (w4a16.cuh, W4 and W3), K10 and K11 (w8a8.cu) and K3's bf16/f16
+// modes (decode_attn.cu). Raw PTX, no CUTLASS: mbarriers, TMA tile loads
+// (2-D and 3-D) and cp.async into the same ring, the shared memory
+// descriptors (K-major and MN-major, 128-byte swizzle) and instructions of
+// wgmma (A from registers or shared memory, B optionally transposed), and
+// the host-side encoding of TMA descriptors.
 //
 // The units link the CUDA runtime only: cuTensorMapEncodeTiled, a driver
 // function, is fetched once through cudaGetDriverEntryPointByVersion and
@@ -59,13 +61,15 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 
 // Wait until the phase of parity `parity` has completed. Each try
 // suspends the thread until the phase completes or a time limit passes
-// (the hint, 10 ms), so that waiting warps take no issue slots from those
-// at work. A wait that never ends (a fault in a ring's accounting) traps
-// after about 10 s, so that the launch fails instead of holding the card.
+// (the hint, 10 ms, which the hardware may shorten), so that waiting warps
+// take no issue slots from those at work. A wait that never ends (a fault
+// in a ring's accounting) traps after about 10 s of the global timer, so
+// that the launch fails instead of holding the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_u32(bar);
   uint32_t done;
-  for (uint32_t tries = 0;; ++tries) {
+  uint64_t t0 = 0;
+  for (uint32_t tries = 1;; ++tries) {
     asm volatile(
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
@@ -73,7 +77,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(a), "r"(parity), "r"(10000000u)
         : "memory");
     if (done) return;
-    if (tries == 1024u) __trap();
+    if ((tries & 63u) == 0u) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 10000000000ull) __trap();
+    }
   }
 }
 
@@ -102,6 +111,35 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// A 3-D TMA tile load (coordinates innermost first) that completes on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// This thread's generic-proxy writes to shared memory become visible to
+// the async proxy (wgmma's operand reads, TMA): after st.shared of an
+// operand tile and before the barrier that hands it to wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Named barrier `id` (1..15) over `threads` threads (a multiple of 32).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 128-byte swizzle (TMA's SWIZZLE_128B and wgmma's 128B layout): byte b of
+// row r of a tile of 128-byte rows that starts on a 1024-byte boundary
+// sits at r * 128 + ((b / 16) ^ (r % 8)) * 16 + b % 16.
+__host__ __device__ __forceinline__ uint32_t swz128(uint32_t r, uint32_t b) {
+  return r * 128u + ((((b >> 4) ^ r) & 7u) << 4) + (b & 15u);
 }
 
 // ---- device: wgmma -------------------------------------------------------
@@ -136,6 +174,18 @@ __device__ __forceinline__ uint64_t desc_k128(const void* p) {
   const uint32_t a = smem_u32(p);
   return static_cast<uint64_t>((a & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) |
          (1ull << 62);
+}
+
+// Descriptor of an MN-major operand tile (wgmma's transposed B), 128-byte
+// swizzle: each K row holds 64 bf16/f16 values along N in 128 bytes, 8-row
+// atoms 1024 bytes apart along K (the stride byte offset), and the next 64
+// values along N `panel` bytes on (the leading byte offset). A step of 16
+// along K adds 2048 bytes to the start address. This is how a TMA tile of
+// a row-major [K, N] array (V's [positions, head_dim]) is read as B.
+__device__ __forceinline__ uint64_t desc_mn128(const void* p, uint32_t panel) {
+  const uint32_t a = smem_u32(p);
+  return static_cast<uint64_t>((a & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((panel >> 4) & 0x3FFFu) << 16) | (64ull << 32) | (1ull << 62);
 }
 
 // D[64 x N] += A[64 x K] * B[N x K]^T with f32 sums, K = 16 (bf16, f16):
@@ -372,6 +422,191 @@ template <> struct WgmmaRS<__half, 256> {
 };
 
 
+// D[64 x N] += A[64 x K] * B[N x K]^T with f32 sums, K = 16 (bf16, f16),
+// both operands K-major in shared memory (desc_k128). D as for WgmmaRS.
+template <typename E, int N> struct WgmmaSS;
+template <> struct WgmmaSS<bf16, 64> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct WgmmaSS<bf16, 128> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct WgmmaSS<__half, 64> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct WgmmaSS<__half, 128> {
+  static __device__ __forceinline__ void mma(float* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+// D[64 x N] += A[64 x K] * B[K x N] with f32 sums, K = 16 (bf16, f16): A
+// from registers as for WgmmaRS, B MN-major in shared memory (desc_mn128;
+// wgmma's transpose bit for B). D as for WgmmaRS.
+template <typename E, int N> struct WgmmaRSt;
+template <> struct WgmmaRSt<bf16, 64> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct WgmmaRSt<bf16, 128> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct WgmmaRSt<__half, 64> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+template <> struct WgmmaRSt<__half, 128> {
+  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
 // D[64 x N] += A[64 x K] * B[N x K]^T with s32 sums, K = 32 (int8): both
 // operands K-major in shared memory (the only form wgmma takes for 8-bit
 // types). D as for WgmmaRS.
@@ -472,6 +707,11 @@ static EncodeTiled encode_fn() {
   return fn;
 }
 
+// The TMA element type of a 16-bit tile type.
+template <typename MT> struct TmaType;
+template <> struct TmaType<bf16> { static constexpr CUtensorMapDataType v = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; };
+template <> struct TmaType<__half> { static constexpr CUtensorMapDataType v = CU_TENSOR_MAP_DATA_TYPE_FLOAT16; };
+
 // A row-major [rows, cols] tensor of `esize`-byte elements, read in boxes
 // of box_rows x box_cols; reads past an edge return zeros. Returns a
 // cudaError_t code (0 on success).
@@ -487,6 +727,25 @@ static int make_map(CUtensorMap* map, CUtensorMapDataType dt, int esize, const v
   const CUresult r = fn(map, dt, 2, const_cast<void*>(base), dims, strides, box, estr,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A [planes, rows, cols] tensor of `esize`-byte elements whose rows are
+// `row_pitch` elements apart within a plane and planes `plane_pitch`
+// elements apart, read in boxes of box_rows x box_cols of one plane with
+// the 128-byte swizzle; reads past `rows` (or any edge) return zeros.
+static int make_map3(CUtensorMap* map, CUtensorMapDataType dt, int esize, const void* base,
+                     uint64_t cols, uint64_t rows, uint64_t planes, uint64_t row_pitch,
+                     uint64_t plane_pitch, uint32_t box_cols, uint32_t box_rows) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {cols, rows, planes};
+  const cuuint64_t strides[2] = {row_pitch * esize, plane_pitch * esize};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, dt, 3, const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }

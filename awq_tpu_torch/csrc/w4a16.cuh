@@ -573,9 +573,6 @@ int gemv(const void* x, const void* qw, const void* scales, const void* szeros,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename MT> struct TmaType;
-template <> struct TmaType<bf16> { static constexpr CUtensorMapDataType v = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; };
-template <> struct TmaType<__half> { static constexpr CUtensorMapDataType v = CU_TENSOR_MAP_DATA_TYPE_FLOAT16; };
 
 // One GEMM: the TMA descriptors of this call's operands (encoded on the
 // host per launch: a stacked layer is a new address each time), then the
@@ -602,7 +599,7 @@ int gemm_launch(const void* x, const void* qw, const void* scales, const void* s
   const int bytes = 1024 + stages * sb;
 
   CUtensorMap xm, qm, sm, zm;
-  int err = hop::make_map(&xm, TmaType<MT>::v, 2, x, IC, M, 64, NT, true);
+  int err = hop::make_map(&xm, hop::TmaType<MT>::v, 2, x, IC, M, 64, NT, true);
   qm = sm = zm = xm;
   if (!err && tma_w)
     err = hop::make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qw, OC, n_st * F::ROWS, k1::BN,

@@ -40,57 +40,65 @@
 // int32 partials and w8a8_splitk_epilogue sums them (exact in any order)
 // and applies the epilogue.
 //
-// K10 (w4a8_gemm_kernel) keeps the first design: one block computes a
-// 128x128 output tile with 8 warps (2 x 4, each 64x32) running mma.sync
-// m16n8k32 s8·s8 -> s32; per 64-channel step it stages the int8 x tile
-// and the requantized weight tile in shared memory (rows padded to 80
-// bytes, which keeps every fragment read conflict-free). Single-stage and
-// synchronous. blockIdx.x walks M, so the blocks that run together share
-// one weight column tile and re-read the small x from L2.
-//
-// K10's requant is ALU work repeated once per M tile: a prologue computes
-// scol for the block's 128 columns from the scales alone (IC/G reads per
-// column), then each step turns its 8 code rows x 128 columns into int8 in
-// shared memory (two threads per column, four words each; the four codes
-// of one nibble slot are four consecutive channels, one 32-bit store).
+// K10 (w4a8_wgmma_kernel) is K11's product fed by a requantizing stage:
+// - warp specialization over three rings: one producer warp streams each
+//   128-channel stage's x tile (TMA, 128-byte swizzle, as K11) and a
+//   second its 16 code rows (TMA, or 4-byte cp.async where OC·4 is no
+//   multiple of 16, as K1); two requant warpgroups (a thread per output
+//   column) take alternate stages, hold a stage's codes in registers and
+//   free their slot at once (so the codes run ahead of the products),
+//   then turn them into int8 straight into the swizzled K-major B tile
+//   that wgmma's s8 form reads, fence.proxy.async and arrive on an
+//   mbarrier; two consumer warpgroups of 64 tokens issue wgmma.mma_async
+//   s8·s8 -> s32 (SS form) and free each stage's x and B tiles. The
+//   requant overlaps the tensor cores instead of preceding them.
+// - the requant's arithmetic is JAX's per-element chain above, evaluated
+//   once per (column, group, code value): the sixteen int8 results of a
+//   column's group form a lookup table in four registers, and each word of
+//   eight codes becomes eight int8 values with six PRMT byte selects and
+//   two LOP3 (the table's halves and a byte mask of the codes' top bits).
+//   The same f32 operations on the same operands give the same int8 codes,
+//   so the output stays bit-equal, while the f32 work and the slow f32 ->
+//   int conversions shrink G / 16 times (8x at group 128). A stage's
+//   scales are read from global memory a stage ahead (two register sets
+//   in turn) and its tables built before its codes arrive.
+// - the lookup writes a word's eight codes (channels 8s + r of its 64-block,
+//   s = 0..7) to eight adjacent bytes: within each 64-channel block, B's K
+//   order is 8r + s instead of 8s + r. The x codes carry the same
+//   permutation (quant_per_token_kernel's `perm`, written by the
+//   quantization launch), so the int32 sums, exact in any order, are those
+//   of the natural order.
+// - 128-token by 128-column tiles, one block per SM (576 threads; 5 x and
+//   B tiles and 7 code tiles in flight); split-K where the tiles are fewer than the
+//   SMs (ops/w4a16.py::gemm_plan's "w4a8" kind), int32 partials summed by
+//   w8a8_splitk_epilogue with scol written by the first M tile's blocks.
+// scol is computed once per block, the column maxima over the IC/G scale
+// rows split across the consumer and requant threads before the first
+// stage, and handed to the consumers' epilogue by an mbarrier. What holds
+// it (clock64 in an instrumented copy, PERF.md §6): one requant warpgroup
+// spent ~2,000 cycles a stage in dependent shared-memory and global round
+// trips whatever its share of the words, hence two warpgroups on
+// alternate stages and the tables built ahead.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int QBM = 128, QBN = 128, QBK = 64, QROW = QBK + 16;  // bytes per smem row
-
-// D += A·B on one m16n8k32 tile, int8 inputs, int32 accumulators.
-// A (16x32, row-major): a[0] = (row g, k 4t..4t+3), a[1] = (row g+8, same k),
-// a[2] = (row g, k 16+4t..16+4t+3), a[3] = (row g+8, k 16+4t..).
-// B (32x8, k-major): b0 = (k 4t..4t+3, col g), b1 = (k 16+4t.., col g).
-// C: c[0..1] = (row g, cols 2t, 2t+1), c[2..3] = (row g+8, same cols);
-// g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void mma_s8_16832(int* c, const uint32_t* a, uint32_t b0,
-                                             uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_s32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// 128 + nibble s of a pack_int4 word, exact: the code in the mantissa of 2^7.
-__device__ __forceinline__ float code128_f32(uint32_t w, int s) {
-  return __uint_as_float(0x43000000u | (((w >> (4 * s)) & 0xFu) << 16));
+// 128 + v for a code v in [0, 15], exact: the code in the mantissa of 2^7.
+__device__ __forceinline__ float code128_f32(uint32_t v) {
+  return __uint_as_float(0x43000000u | (v << 16));
 }
 
 __device__ __forceinline__ int clamp_int(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
+// With `perm`, channel 64c + 8s + r is written to 64c + 8r + s (K10's K
+// order within each 64-channel block; IC % 64 == 0).
 template <typename T>
 __global__ void __launch_bounds__(256) quant_per_token_kernel(
-    const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx, int IC) {
+    const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx, int IC,
+    int perm) {
   __shared__ float red[8];
   const int m = blockIdx.x, tid = threadIdx.x;
   const T* row = x + (size_t)m * IC;
@@ -106,135 +114,16 @@ __global__ void __launch_bounds__(256) quant_per_token_kernel(
   if (tid == 0) sx[m] = scale;
   int8_t* out = xq + (size_t)m * IC;
   for (int k = tid; k < IC; k += 256)
-    out[k] = static_cast<int8_t>(
+    out[perm ? (k & ~63) | ((k & 7) << 3) | ((k >> 3) & 7) : k] = static_cast<int8_t>(
         clamp_int(__float2int_rn(__fdiv_rn(to_f32<T>(row[k]), scale)), -128, 127));
 }
 
-// K10: int8 x against the W4 codes requantized per column in shared memory.
 template <typename T>
-__global__ void __launch_bounds__(256) w4a8_gemm_kernel(
-    const int8_t* __restrict__ xq, const float* __restrict__ sx,
-    const int32_t* __restrict__ qw, const float* __restrict__ scales,
-    const float* __restrict__ szeros, T* __restrict__ out, int M, int IC, int OC, int G,
-    float col_ratio) {
-  __shared__ __align__(16) int8_t As[QBM][QROW];
-  __shared__ __align__(16) int8_t Bs[QBN][QROW];   // [n][k]
-  __shared__ float scol_s[QBN], inv_s[QBN], red[2][QBN];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;   // 2 x 4 warps, 64x32 each
-  const int gq = lane >> 2, tq = lane & 3;
-  const int m0 = blockIdx.x * QBM, n0 = blockIdx.y * QBN;
-
-  {
-    // scol of the block's columns: two threads per column, half the groups each
-    const int n = tid & (QBN - 1), half = tid >> 7, col = n0 + n;
-    float smax = 0.f;
-    if (col < OC)
-      for (int g = half; g < IC / G; g += 2)
-        smax = fmaxf(smax, bf16r(scales[(size_t)g * OC + col]));
-    red[half][n] = smax;
-    __syncthreads();
-    if (tid < QBN) {
-      const float sc = fmaxf(__fmul_rn(fmaxf(red[0][tid], red[1][tid]), col_ratio), 1e-12f);
-      scol_s[tid] = sc;
-      inv_s[tid] = __fdiv_rn(1.f, sc);
-    }
-    __syncthreads();
-  }
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  for (int k0 = 0; k0 < IC; k0 += QBK) {
-    // x tile: 128 rows x 4 vectors of 16 codes
-    for (int i = tid; i < QBM * (QBK / 16); i += 256) {
-      const int r = i >> 2, v = i & 3;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M) val = *reinterpret_cast<const uint4*>(xq + (size_t)(m0 + r) * IC + k0 + 16 * v);
-      *reinterpret_cast<uint4*>(&As[r][16 * v]) = val;
-    }
-    {
-      // thread (n, j) requantizes word rows k0/8 + 4j + i (i < 4) of column
-      // n: nibble u of row r is channel k0 + 8u + r. G % 64 == 0, so the
-      // step lies in one group.
-      const int n = tid & (QBN - 1), j = tid >> 7, col = n0 + n;
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-      float zz = 128.f, f = 0.f;   // a column past OC requantizes to 0
-      if (col < OC) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) w[i] = qw[(size_t)(k0 / 8 + 4 * j + i) * OC + col];
-        const size_t gi = (size_t)(k0 / G) * OC + col;
-        const float s = bf16r(scales[gi]), sz = bf16r(szeros[gi]);
-        zz = __fadd_rn(128.f, __fdiv_rn(sz, s));
-        f = __fmul_rn(s, inv_s[n]);
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        uint32_t packed = 0u;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float wf = __fmul_rn(__fsub_rn(code128_f32(w[i], u), zz), f);
-          const int q = clamp_int(__float2int_rn(wf), -127, 127);
-          packed |= (static_cast<uint32_t>(q) & 0xFFu) << (8 * i);
-        }
-        *reinterpret_cast<uint32_t*>(&Bs[n][8 * u + 4 * j]) = packed;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < QBK; kk += 32) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int r = wm * 64 + mi * 16 + gq;
-        a[mi][0] = ld_s32(&As[r][kk + 4 * tq]);
-        a[mi][1] = ld_s32(&As[r + 8][kk + 4 * tq]);
-        a[mi][2] = ld_s32(&As[r][kk + 16 + 4 * tq]);
-        a[mi][3] = ld_s32(&As[r + 8][kk + 16 + 4 * tq]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = wn * 32 + ni * 8 + gq;
-        const uint32_t b0 = ld_s32(&Bs[n][kk + 4 * tq]);
-        const uint32_t b1 = ld_s32(&Bs[n][kk + 16 + 4 * tq]);
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) mma_s8_16832(acc[mi][ni], a[mi], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-
-  // y = (f32(acc) * scol) * sx, rounded once to T
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = wn * 32 + ni * 8 + 2 * tq + e, col = n0 + c;
-      if (col >= OC) continue;
-      const float sc = scol_s[c];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = m0 + wm * 64 + mi * 16 + gq + half * 8;
-          if (r >= M) continue;
-          const float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[mi][ni][half * 2 + e]), sc),
-                                    sx[r]);
-          out[(size_t)r * OC + col] = from_f32<T>(v);
-        }
-    }
-}
-
-template <typename T>
-int quant_launch(const void* x, void* xq, void* sx, int M, int IC, cudaStream_t st) {
+int quant_launch(const void* x, void* xq, void* sx, int M, int IC, int perm,
+                 cudaStream_t st) {
   quant_per_token_kernel<T><<<M, 256, 0, st>>>(static_cast<const T*>(x),
                                                static_cast<int8_t*>(xq),
-                                               static_cast<float*>(sx), IC);
+                                               static_cast<float*>(sx), IC, perm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -399,29 +288,357 @@ int k11_nt(const void* xq, const void* sx, const void* w8, const void* scol, voi
   }
 }
 
+// ---- K10: wgmma s8 over a requantizing ring -----------------------------
+
+namespace k10 {
+constexpr int RQ = 2;           // requant warpgroups, taking alternate stages
+constexpr int BM = 128;         // tokens of a block: two consumer warpgroups of 64
+constexpr int BN = 128;         // output columns of a block
+constexpr int KS = 128;         // channels of one stage
+constexpr int ROWS = KS / 8;    // code rows of a stage
+constexpr int WORKERS = 256 + 128 * RQ;   // consumer and requant threads
+constexpr int THREADS = WORKERS + 64;     // and two producer warps (x, codes)
+constexpr int STAGES = 5;       // x tiles and B tiles in flight
+constexpr int CSTAGES = 7;      // code tiles in flight
+constexpr int XB = BM * KS, WB = BN * KS, CB = ROWS * BN * 4;
+constexpr int BARS = 4 * STAGES + 2 * CSTAGES + 1;
+constexpr int SMEM = 1024 + STAGES * (XB + WB) + CSTAGES * CB + 8 * BARS + 4 * WORKERS;
+}  // namespace k10
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t lop3_select(uint32_t hi, uint32_t lo, uint32_t mask) {
+  uint32_t d;   // (hi & mask) | (lo & ~mask)
+  asm("lop3.b32 %0, %1, %2, %3, 0xE4;" : "=r"(d) : "r"(hi), "r"(lo), "r"(mask));
+  return d;
+}
+
+// The eight codes of word w through the 16-entry table L (entry v in byte v
+// % 4 of L[v / 4]): nibble s's value lands in byte s of lo (s < 4) or of
+// hi. prmt's low 3 selector bits pick a byte of {L1:L0} or {L3:L2} (the
+// top bit cleared); the byte mask of nibbles >= 8 comes from selecting
+// bytes of {~0:0} with the nibbles' bits 1-3 (a set bit 3 of the selector,
+// here the next nibble's bit 0, replicates the sign of 0x00 or 0xFF: no
+// change).
+__device__ __forceinline__ void lookup8(uint32_t w, const uint32_t* L, uint32_t& lo,
+                                        uint32_t& hi) {
+  const uint32_t wm = w & 0x77777777u, wh = wm >> 16;
+  lo = lop3_select(prmt(L[2], L[3], wm), prmt(L[0], L[1], wm), prmt(0u, ~0u, w >> 1));
+  hi = lop3_select(prmt(L[2], L[3], wh), prmt(L[0], L[1], wh), prmt(0u, ~0u, w >> 17));
+}
+
+// The int8 codes of a column's group for the sixteen code values, JAX's
+// chain per value: clip(rint(((128 + q) - (128 + sz/s)) * (s * (1/scol))),
+// -127, 127), each step one f32 operation in that order.
+__device__ __forceinline__ void requant_table(float s_raw, float sz_raw, float inv, bool live,
+                                              uint32_t* L) {
+  const float s = bf16r(s_raw), sz = bf16r(sz_raw);
+  const float zz = live ? __fadd_rn(128.f, __fdiv_rn(sz, s)) : 128.f;
+  const float f = live ? __fmul_rn(s, inv) : 0.f;   // a column past OC requantizes to 0
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t packed = 0u;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float wf = __fmul_rn(__fsub_rn(code128_f32(4 * i + e), zz), f);
+      packed |= (static_cast<uint32_t>(clamp_int(__float2int_rn(wf), -127, 127)) & 0xFFu)
+                << (8 * e);
+    }
+    L[i] = packed;
+  }
+}
+
+// Block (x, y, z): tokens [128x, 128x + 128), columns [128y, 128y + 128),
+// split z of the IC stages. Warps 0-7 multiply (warpgroup w takes tokens
+// 64w..); warps 8-15 requantize, warpgroup r the stages i = r mod 2
+// (thread n column n: a stage's requant is a chain of dependent round
+// trips, so two stages are in flight at once); warp 16 loads the x tiles
+// and warp 17 the code tiles. Three rings: x tiles (filled by TMA, freed
+// by the consumers), code tiles (filled by TMA or cp.async, freed by the
+// requant as soon as it holds a stage's codes in registers, so they run
+// ahead of the products) and B tiles (written by the requant, freed by
+// the consumers). Split `blockIdx.z` writes int32 partials where `partial`
+// is given (and its first M tile scol into scol_out); else the epilogue
+// (f32(acc) * scol) * sx, rounded once to T.
+template <typename T>
+__global__ void __launch_bounds__(k10::THREADS, 1) w4a8_wgmma_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap qmap,
+    const int32_t* __restrict__ qw, const float* __restrict__ scales,
+    const float* __restrict__ szeros, const float* __restrict__ sx, T* __restrict__ out,
+    int32_t* __restrict__ partial, float* __restrict__ scol_out, int M, int IC, int OC, int G,
+    int splits, int tma_w, float col_ratio) {
+  using namespace k10;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* xring = hop::align1024(smem_raw);
+  uint8_t* bring = xring + STAGES * XB;
+  uint8_t* cring = bring + STAGES * WB;
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(cring + CSTAGES * CB);
+  uint64_t* xempty = xfull + STAGES;
+  uint64_t* wready = xempty + STAGES;
+  uint64_t* bempty = wready + STAGES;
+  uint64_t* cfull = bempty + STAGES;
+  uint64_t* cempty = cfull + CSTAGES;
+  uint64_t* scol_bar = cempty + CSTAGES;
+  float* scol_s = reinterpret_cast<float*>(scol_bar + 1);   // [WORKERS / BN][BN]
+
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, split = blockIdx.z;
+  const int n_st = (IC + KS - 1) / KS;   // a last half stage reads zeros past IC
+  const int s_begin = static_cast<int>(static_cast<long long>(split) * n_st / splits);
+  const int nst = static_cast<int>(static_cast<long long>(split + 1) * n_st / splits) - s_begin;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_g = IC / G;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      hop::mbar_init(&xfull[i], 1);
+      hop::mbar_init(&xempty[i], 256);
+      hop::mbar_init(&wready[i], 128);
+      hop::mbar_init(&bempty[i], 256);
+    }
+    for (int i = 0; i < CSTAGES; ++i) {
+      // the codes by TMA: the producer's expect_tx; by cp.async: one
+      // arrival per lane
+      hop::mbar_init(&cfull[i], tma_w ? 1 : 32);
+      hop::mbar_init(&cempty[i], 128);
+    }
+    hop::mbar_init(scol_bar, 128);
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == WORKERS / 32) {   // the x producer
+    if (lane == 0) {
+      for (int i = 0; i < nst; ++i) {
+        const int st = i % STAGES;
+        hop::mbar_wait(&xempty[st], ((i / STAGES) & 1) ^ 1);
+        hop::mbar_expect_tx(&xfull[st], XB);
+        hop::tma_load_2d(xring + st * XB, &xmap, &xfull[st], (s_begin + i) * KS, m0);
+      }
+    }
+    return;
+  }
+  if (warp == WORKERS / 32 + 1) {   // the codes producer
+    for (int i = 0; i < nst; ++i) {
+      const int st = i % CSTAGES, kst = s_begin + i;
+      hop::mbar_wait(&cempty[st], ((i / CSTAGES) & 1) ^ 1);
+      uint8_t* cbase = cring + st * CB;
+      if (tma_w) {
+        if (lane == 0) {
+          hop::mbar_expect_tx(&cfull[st], CB);
+          hop::tma_load_2d(cbase, &qmap, &cfull[st], n0, kst * ROWS);
+        }
+      } else {   // row pitch OC*4 no multiple of 16: 4-byte copies
+        int32_t* cd = reinterpret_cast<int32_t*>(cbase);
+        for (int e = lane; e < ROWS * BN; e += 32) {
+          const int r = kst * ROWS + e / BN, c = n0 + e % BN;
+          const bool ok = c < OC && r < IC / 8;
+          hop::cp_async4(cd + e, qw + (ok ? (size_t)r * OC + c : 0), ok);
+        }
+        hop::cp_async_arrive(&cfull[st]);
+      }
+    }
+    if (!tma_w) hop::cp_async_wait_all();
+    return;
+  }
+
+  // scol's column maxima, the IC/G scale rows split over the consumer and
+  // requant threads (which have nothing else to do before the first stage)
+  {
+    constexpr int PARTS = WORKERS / BN;
+    const int n = threadIdx.x % BN, part = threadIdx.x / BN, col = n0 + n;
+    float smax = 0.f;
+    if (col < OC) {
+      for (int g0 = part; g0 < n_g; g0 += 8 * PARTS) {
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int g = g0 + u * PARTS;
+          v[u] = g < n_g ? bf16r(scales[(size_t)g * OC + col]) : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) smax = fmaxf(smax, v[u]);
+      }
+    }
+    scol_s[part * BN + n] = smax;
+    hop::bar_sync(1, WORKERS);
+  }
+
+  if (warp >= 8) {   // the requant warpgroups
+    const int q = threadIdx.x - 256, n = q % BN, r = q / BN, col = n0 + n;
+    const bool live = col < OC;
+    float smax = 0.f;
+#pragma unroll
+    for (int p = 0; p < WORKERS / BN; ++p) smax = fmaxf(smax, scol_s[p * BN + n]);
+    const float sc = fmaxf(__fmul_rn(smax, col_ratio), 1e-12f);
+    const float inv = __fdiv_rn(1.f, sc);
+    hop::bar_sync(2, 128 * RQ);   // every part read before column n's slot is overwritten
+    if (r == 0) {
+      scol_s[n] = sc;
+      if (scol_out != nullptr && blockIdx.x == 0 && split == 0 && live) scol_out[col] = sc;
+      hop::mbar_arrive(scol_bar);
+    }
+
+    // the scale and szero of stage i's two 64-channel blocks (one group
+    // each), read from global memory a stage ahead; zeros past IC or OC
+    auto load_scales = [&](int i, float* v) {
+      const int k0 = (s_begin + i) * KS;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int g = (k0 + 64 * h) / G;
+        const bool ok = live && i < nst && g < n_g;
+        const size_t off = ok ? (size_t)g * OC + col : 0;
+        v[2 * h] = ok ? __ldg(scales + off) : 0.f;
+        v[2 * h + 1] = ok ? __ldg(szeros + off) : 0.f;
+      }
+    };
+    // one stage: its tables from `cur` (read a stage ahead), the next
+    // stage's scales into `nxt`, then the codes once they arrive
+    auto requant_stage = [&](int i, const float* cur, float* nxt) {
+      load_scales(i + RQ, nxt);
+      // the tables before the codes arrive: their latency overlaps the wait
+      const int k0 = (s_begin + i) * KS;
+      uint32_t L[2][4];
+      requant_table(cur[0], cur[1], inv, live, L[0]);
+      if ((k0 + 64) / G != k0 / G) {
+        requant_table(cur[2], cur[3], inv, live, L[1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) L[1][e] = L[0][e];
+      }
+      const int cs = i % CSTAGES;
+      hop::mbar_wait(&cfull[cs], (i / CSTAGES) & 1);
+      const uint32_t* codes = reinterpret_cast<const uint32_t*>(cring + cs * CB);
+      uint32_t w[ROWS];
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) w[k] = codes[k * BN + n];
+      hop::mbar_arrive(&cempty[cs]);   // the codes are in registers
+      const int st = i % STAGES;
+      hop::mbar_wait(&bempty[st], ((i / STAGES) & 1) ^ 1);
+      uint8_t* wt = bring + st * WB;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)   // the stage's 64-channel blocks
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {   // words 2j, 2j + 1: one 16-byte chunk of B's row n
+          uint4 v;
+          lookup8(w[8 * c + 2 * j], L[c], v.x, v.y);
+          lookup8(w[8 * c + 2 * j + 1], L[c], v.z, v.w);
+          *reinterpret_cast<uint4*>(wt + hop::swz128(n, 16 * (4 * c + j))) = v;
+        }
+      hop::fence_proxy_async();
+      hop::mbar_arrive(&wready[st]);
+    };
+    // two register sets in turn, so that no copy waits for a load in flight
+    float sa[4], sb[4];
+    load_scales(r, sa);
+    for (int i = r; i < nst; i += 2 * RQ) {
+      requant_stage(i, sa, sb);
+      if (i + RQ < nst) requant_stage(i + RQ, sb, sa);
+    }
+    return;
+  }
+
+  // the consumer warpgroups
+  const int wg = warp >> 2, t = threadIdx.x & 127, wi = t >> 5;
+  int acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  for (int i = 0; i < nst; ++i) {
+    const int st = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    hop::mbar_wait(&xfull[st], ph);
+    hop::mbar_wait(&wready[st], ph);
+    const uint64_t da = hop::desc_k128(xring + st * XB + wg * 64 * 128);
+    const uint64_t db = hop::desc_k128(bring + st * WB);
+    hop::fence_regs<64>(acc);
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) hop::Wgmma<int8_t, 128>::mma(acc, da + 2 * kk, db + 2 * kk);
+    hop::wg_commit();
+    hop::wg_wait<1>();   // the previous stage's products are done: release its tiles
+    hop::fence_regs<64>(acc);
+    if (i > 0) {
+      hop::mbar_arrive(&xempty[(i - 1) % STAGES]);
+      hop::mbar_arrive(&bempty[(i - 1) % STAGES]);
+    }
+  }
+  hop::wg_wait<0>();
+  hop::fence_regs<64>(acc);
+  hop::mbar_wait(scol_bar, 0);
+
+#pragma unroll
+  for (int j8 = 0; j8 < 16; ++j8)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int rr = 16 * wi + (lane >> 2) + 8 * h, c = 8 * j8 + 2 * (lane & 3) + e;
+        const int tok = m0 + wg * 64 + rr, oc = n0 + c;
+        if (tok >= M || oc >= OC) continue;
+        const int v = acc[4 * j8 + 2 * h + e];
+        if (partial) {
+          partial[((size_t)split * M + tok) * OC + oc] = v;
+        } else {
+          out[(size_t)tok * OC + oc] =
+              from_f32<T>(__fmul_rn(__fmul_rn(__int2float_rn(v), scol_s[c]), sx[tok]));
+        }
+      }
+}
+
+// One K10 product: the TMA descriptors (x, and the code rows where OC·4 is
+// a multiple of 16), the kernel over (M tiles, OC tiles, splits), then with
+// splits > 1 K11's split epilogue over scol_out.
 template <typename T>
 int k10_launch(const void* xq, const void* sx, const void* qw, const void* scales,
-               const void* szeros, void* out, int M, int IC, int OC, int G, cudaStream_t st) {
-  const dim3 grid(cdiv(M, QBM), cdiv(OC, QBN));
-  w4a8_gemm_kernel<T><<<grid, 256, 0, st>>>(
-      static_cast<const int8_t*>(xq), static_cast<const float*>(sx),
-      static_cast<const int32_t*>(qw), static_cast<const float*>(scales),
-      static_cast<const float*>(szeros), static_cast<T*>(out), M, IC, OC, G,
+               const void* szeros, void* out, void* partial, void* scol_out, int M, int IC,
+               int OC, int G, int splits, cudaStream_t st) {
+  using namespace k10;
+  static_assert(SMEM <= 227 * 1024, "K10's rings outgrew the shared memory");
+  static int smem_set = 0;
+  const int n_st = cdiv(IC, KS);
+  const bool tma_w = OC % 4 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
+  if (splits < 1 || splits > n_st || (splits > 1 && (!partial || !scol_out)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xm, qm;
+  int err = hop::make_map(&xm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, xq, IC, M, KS, BM, true);
+  qm = xm;
+  if (!err && tma_w)
+    err = hop::make_map(&qm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, qw, OC, IC / 8, BN, ROWS, false);
+  auto kernel = w4a8_wgmma_kernel<T>;
+  if (!err) err = hop::allow_smem(kernel, SMEM, &smem_set);
+  if (err) return err;
+  const dim3 grid(cdiv(M, BM), cdiv(OC, BN), splits);
+  kernel<<<grid, THREADS, SMEM, st>>>(
+      xm, qm, static_cast<const int32_t*>(qw), static_cast<const float*>(scales),
+      static_cast<const float*>(szeros), static_cast<const float*>(sx), static_cast<T*>(out),
+      splits > 1 ? static_cast<int32_t*>(partial) : nullptr,
+      splits > 1 ? static_cast<float*>(scol_out) : nullptr, M, IC, OC, G, splits, tma_w,
       static_cast<float>(15.0 / 127.0));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+  const size_t want = ((size_t)M * OC + 255) / 256;
+  w8a8_splitk_epilogue<T><<<static_cast<int>(want < 65535 ? want : 65535), 256, 0, st>>>(
+      static_cast<const int32_t*>(partial), static_cast<const float*>(sx),
+      static_cast<const float*>(scol_out), static_cast<T*>(out), M, OC, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Caller guarantees: x [M, IC] contiguous of dtype code `dtype` (0 f32,
-// 1 bf16, 2 f16), xq int8 [M, IC], sx f32 [M]; M >= 1.
+// 1 bf16, 2 f16), xq int8 [M, IC], sx f32 [M]; M >= 1; with perm (K10's
+// channel order within 64-blocks) IC % 64 == 0.
 extern "C" int awq_quant_per_token(const void* x, void* xq, void* sx, int M, int IC,
-                                   int dtype, void* stream) {
+                                   int dtype, int perm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (perm && IC % 64) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
-    case 0: return quant_launch<float>(x, xq, sx, M, IC, st);
-    case 1: return quant_launch<bf16>(x, xq, sx, M, IC, st);
-    case 2: return quant_launch<__half>(x, xq, sx, M, IC, st);
+    case 0: return quant_launch<float>(x, xq, sx, M, IC, perm, st);
+    case 1: return quant_launch<bf16>(x, xq, sx, M, IC, perm, st);
+    case 2: return quant_launch<__half>(x, xq, sx, M, IC, perm, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -444,17 +661,26 @@ extern "C" int awq_w8a8_gemm(const void* xq, const void* sx, const void* w8,
   }
 }
 
-// K10. Caller guarantees: xq, sx, out as for awq_w8a8_gemm; qw int32
-// [IC/8, OC] in pack_int4's layout, scales/szeros f32 [IC/G, OC];
-// G % 64 == 0, IC % G == 0.
+// K10 over the host plan's split count (ops/w4a16.py::gemm_plan, kind
+// "w4a8"). Caller guarantees: xq int8 [M, IC] in K10's channel order
+// (awq_quant_per_token with perm) and 16-byte aligned, sx f32 [M], out
+// [M, OC] of dtype code `dtype`; qw int32 [IC/8, OC] in pack_int4's
+// layout, scales/szeros f32 [IC/G, OC]; G % 64 == 0, IC % G == 0; with
+// splits > 1, partial int32 [splits, M, OC] and scol_out f32 [OC] (else
+// null).
 extern "C" int awq_w4a8_gemm(const void* xq, const void* sx, const void* qw,
-                             const void* scales, const void* szeros, void* out, int M,
-                             int IC, int OC, int G, int dtype, void* stream) {
+                             const void* scales, const void* szeros, void* out,
+                             void* partial, void* scol_out, int M, int IC, int OC, int G,
+                             int splits, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define AWQ_K10(T_) \
+  return k10_launch<T_>(xq, sx, qw, scales, szeros, out, partial, scol_out, M, IC, OC, G, \
+                        splits, st)
   switch (dtype) {
-    case 0: return k10_launch<float>(xq, sx, qw, scales, szeros, out, M, IC, OC, G, st);
-    case 1: return k10_launch<bf16>(xq, sx, qw, scales, szeros, out, M, IC, OC, G, st);
-    case 2: return k10_launch<__half>(xq, sx, qw, scales, szeros, out, M, IC, OC, G, st);
+    case 0: AWQ_K10(float);
+    case 1: AWQ_K10(bf16);
+    case 2: AWQ_K10(__half);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef AWQ_K10
 }

@@ -27,7 +27,11 @@ its valid prefix.
   ``flash_prefill_stacked`` with its online softmax: the chunk at
   ``[start_pos, start_pos + S)`` is already in the cache and query row
   ``r`` attends positions ``j <= start_pos + r``. head_dim 64 or 128, any
-  number of query heads per kv head.
+  number of query heads per kv head. Over a bf16 or f16 cache a block
+  takes 128 packed (position, head-in-group) rows of one kv head, so each
+  K/V tile it loads serves the whole group; :func:`prefill_plan` is the
+  host plan of those tiles and of their heavy-first order, which the
+  kernel follows.
 - :func:`flash_decode_layer` wraps kernel K14, which replaces JAX's
   ``flash_decode`` (``_flash_decode_kernel``; the port's
   :func:`flash_decode` is K2): one query position per row over positions
@@ -48,6 +52,7 @@ mode; those wrappers raise) wait for their model families.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Union
 
@@ -65,6 +70,8 @@ _MIN_SPLIT = 64           # fewest positions per split-K block
 _TARGET_BLOCKS = 264      # two waves of the H100's 132 SMs
 _LAYER_HEADS = 8          # query heads per K14 block (csrc)
 _LOG2E = 1.4426950408889634
+PREFILL_ROWS = 128        # K3: packed query rows of a block (csrc k3::BQ)
+PREFILL_KV_TILE = {128: 64, 64: 128}   # K3: positions of a K/V tile by head_dim
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -429,6 +436,61 @@ def flash_decode_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class PrefillPlan:
+    """How K3's bf16/f16 mode covers one chunk: the ``S * g`` query rows of
+    each (row b, kv head), packed as ``r = position * g + head-in-group``
+    (q's own order within a kv head's group), cut into ``n_tiles`` tiles of
+    ``PREFILL_ROWS``; one block per (tile, b, kv head), launched in the
+    order of :meth:`tile`: block ``x`` takes tile ``n_tiles - 1 - x // (B *
+    nkv)``, so the tiles with the longest causal frontier start first."""
+
+    b: int
+    s: int
+    nq: int
+    nkv: int
+    t: int
+    start: int
+    hd: int
+
+    @property
+    def g(self) -> int:
+        return self.nq // self.nkv
+
+    @property
+    def rows(self) -> int:
+        return self.s * self.g
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.rows // PREFILL_ROWS)
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * self.b * self.nkv
+
+    @property
+    def kv_tile(self) -> int:
+        return PREFILL_KV_TILE[self.hd]
+
+    def tile(self, x: int):
+        """Block ``x``'s ``(b, kv head, first row, end row, frontier)``: its
+        rows ``[r0, r1)`` attend keys below ``frontier = start + (r1 - 1) //
+        g + 1`` (never past T), each row up to ``start + r // g``."""
+        bh = x % (self.b * self.nkv)
+        tile = self.n_tiles - 1 - x // (self.b * self.nkv)
+        r0 = tile * PREFILL_ROWS
+        r1 = min(r0 + PREFILL_ROWS, self.rows)
+        return bh // self.nkv, bh % self.nkv, r0, r1, min(self.start + (r1 - 1) // self.g + 1,
+                                                          self.t)
+
+
+def prefill_plan(b: int, s: int, nq: int, nkv: int, t: int, start: int, hd: int) -> PrefillPlan:
+    """K3's host plan for ``q [b, s, nq, hd]`` over a cache of ``t`` positions
+    from ``start`` (see :class:`PrefillPlan`)."""
+    return PrefillPlan(b=b, s=s, nq=nq, nkv=nkv, t=t, start=start, hd=hd)
+
+
 def flash_prefill(q: torch.Tensor, cache: torch.Tensor,
                   start_pos: Union[int, torch.Tensor]) -> torch.Tensor:
     """K3 wrapper. ``q [B, S, nq, hd]`` post-rope queries of the chunk at
@@ -454,10 +516,11 @@ def flash_prefill(q: torch.Tensor, cache: torch.Tensor,
 
     lib = _build.load("decode_attn")
     fn = lib.awq_flash_prefill
-    _build.declare(fn, *([_build.P] * 3), *([_build.I] * 7), _build.F,
+    plan = prefill_plan(b, s, nq, nkv, t, start_pos, hd)
+    _build.declare(fn, *([_build.P] * 3), *([_build.I] * 8), _build.F,
                    _build.I, _build.I, _build.P)
     err = fn(q.data_ptr(), cache.data_ptr(), out.data_ptr(), b, s, nq, nkv,
-             t, start_pos, hd, _LOG2E / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+             t, start_pos, hd, plan.n_tiles, _LOG2E / math.sqrt(hd), _DTYPE_CODE[q.dtype],
              _DTYPE_CODE[cache.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, what)
     LAUNCHES["flash_prefill"] += 1

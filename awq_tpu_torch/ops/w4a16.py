@@ -32,7 +32,9 @@ int8 with int32 sums, then ``y = (f32(acc) * scol) * sx`` rounded once to
 - :func:`w4a8_matmul` is the wrapper of K10, the counterpart of the Pallas
   kernel ``w4a8_matmul_stacked_tiled_folded`` (row 7): it requantizes the
   W4 codes to int8 per output column inside the kernel
-  (:func:`requant_w8`'s arithmetic);
+  (:func:`requant_w8`'s arithmetic, as a 16-entry table per column and
+  group) into wgmma's B tile, with x quantized in the kernel's channel
+  order (``ops/w8a8.py::permute64``), over the plan of :func:`gemm_plan`;
 - :func:`w8a8_matmul` is the wrapper of K11, the counterpart of
   ``w8a8_matmul_stacked_tiled`` (row 8), over the int8 prefill weight cache
   :class:`W8Stack` that :func:`attach_w8_caches` builds once
@@ -70,24 +72,26 @@ _SPLIT_K = 512          # input channels per GEMV block (csrc/w4a16.cuh)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: Input channels of one ring stage of the wgmma GEMMs: K1 W4 (8 code rows),
-#: K1 W3 (one 256-channel pack_int3 chunk, 24 code rows), K11 (128 int8).
-STAGE_K = {"w4a16": 64, "w3a16": 256, "w8a8": 128}
+#: K1 W3 (one 256-channel pack_int3 chunk, 24 code rows), K11 (128 int8),
+#: K10 (16 code rows requantized to 128 int8).
+STAGE_K = {"w4a16": 64, "w3a16": 256, "w8a8": 128, "w4a8": 128}
 GEMM_BN = 128           # output columns of a block
 _N_SM: Dict[int, int] = {}
 
 
 @dataclasses.dataclass(frozen=True)
 class GemmPlan:
-    """How K1's GEMM entry or K11 covers one product ``[M, IC] x [IC, OC]``.
+    """How K1's GEMM entry, K10 or K11 covers one product ``[M, IC] x [IC, OC]``.
 
     ``swap``: the weights are wgmma's 64-row operand and the ``tile_m``
     tokens of a block its N, so that no tensor-core row works on padding
     (K1 always, its dequantized weights in registers; K11 up to 64 rows,
-    above that blocks of 128 tokens x 128 columns). ``blocks_per_sm``: how
+    above that blocks of 128 tokens x 128 columns; K10 never: 128 x 128
+    tiles, one requantized stage feeding 128 tokens). ``blocks_per_sm``: how
     many blocks of that tile the kernel fits on an SM. ``splits``: the IC
     stages are cut into this many ranges, split ``z`` taking stages
     ``[z*n//splits, (z+1)*n//splits)``; a second launch sums their
-    partials in split order (f32 for K1; int32 for K11).
+    partials in split order (f32 for K1; int32 for K10 and K11).
     """
 
     swap: bool
@@ -109,15 +113,15 @@ class GemmPlan:
 
 
 def gemm_plan(m: int, ic: int, oc: int, kind: str = "w4a16", n_sm: int = 132) -> GemmPlan:
-    """The host-side plan of one wgmma GEMM (``kind``: ``w4a16``, ``w3a16``
-    or ``w8a8``): the token tile by M (16, 32, 64, then 128; K11 turns to
-    128 x 128 tiles from 65 rows), and where the tiles leave SMs idle, as
-    many IC splits as one wave of blocks holds (never more than the
-    stages)."""
+    """The host-side plan of one wgmma GEMM (``kind``: ``w4a16``, ``w3a16``,
+    ``w8a8`` or ``w4a8``): the token tile by M (16, 32, 64, then 128; K11
+    turns to 128 x 128 tiles from 65 rows, K10 takes them at every M), and
+    where the tiles leave SMs idle, as many IC splits as one wave of blocks
+    holds (never more than the stages)."""
     stage_k = STAGE_K[kind]
     k11 = kind == "w8a8"
-    tile_m = next((t for t in (16, 32, 64) if m <= t), 128)
-    swap = not k11 or tile_m <= 64
+    tile_m = 128 if kind == "w4a8" else next((t for t in (16, 32, 64) if m <= t), 128)
+    swap = kind in ("w4a16", "w3a16") or (k11 and tile_m <= 64)
     bps = 2 if tile_m <= 64 else 1
     tiles = -(-oc // GEMM_BN) * -(-m // tile_m)
     n_stages = -(-ic // stage_k)
@@ -516,31 +520,36 @@ def _check_a8_x(x: torch.Tensor, what: str) -> None:
 
 
 def _launch_a8(what: str, x: torch.Tensor, oc: int, weights, group_size=None):
-    """Quantize x (one launch), then run K10 (``group_size`` given) or K11
-    (over the plan of :func:`gemm_plan`) into a new [M, OC]."""
+    """Quantize x (one launch; in K10's channel order for K10), then run K10
+    (``group_size`` given) or K11 over the plan of :func:`gemm_plan` into a
+    new [M, OC]."""
     m, ic = x.shape
     out = torch.empty((m, oc), dtype=x.dtype, device=x.device)
     if m == 0:
         return out
-    xq, sx = quant_per_token(x)
+    k10 = group_size is not None
+    xq, sx = quant_per_token(x, perm=k10)
 
     from awq_tpu_torch import _build
 
     lib = _build.load("w8a8")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [xq.data_ptr(), sx.data_ptr(), *(t.data_ptr() for t in weights), out.data_ptr()]
-    if group_size is not None:
+    plan = gemm_plan(m, ic, oc, "w4a8" if k10 else "w8a8", _sm_count(x.device))
+    partial = (torch.empty((plan.splits, m, oc), dtype=torch.int32, device=x.device)
+               if plan.splits > 1 else None)
+    pp = None if partial is None else partial.data_ptr()
+    if k10:
+        scol = (torch.empty((oc,), dtype=torch.float32, device=x.device)
+                if plan.splits > 1 else None)
         fn = lib.awq_w4a8_gemm
-        _build.declare(fn, *([_build.P] * 6), *([_build.I] * 5), _build.P)
-        err = fn(*ptrs, m, ic, oc, group_size, _DTYPE_CODE[x.dtype], stream)
+        _build.declare(fn, *([_build.P] * 8), *([_build.I] * 6), _build.P)
+        err = fn(*ptrs, pp, None if scol is None else scol.data_ptr(), m, ic, oc, group_size,
+                 plan.splits, _DTYPE_CODE[x.dtype], stream)
     else:
-        plan = gemm_plan(m, ic, oc, "w8a8", _sm_count(x.device))
-        partial = (torch.empty((plan.splits, m, oc), dtype=torch.int32, device=x.device)
-                   if plan.splits > 1 else None)
         fn = lib.awq_w8a8_gemm
         _build.declare(fn, *([_build.P] * 6), *([_build.I] * 6), _build.P)
-        err = fn(*ptrs, None if partial is None else partial.data_ptr(), m, ic, oc,
-                 plan.tile_m, plan.splits, _DTYPE_CODE[x.dtype], stream)
+        err = fn(*ptrs, pp, m, ic, oc, plan.tile_m, plan.splits, _DTYPE_CODE[x.dtype], stream)
     _build.check(lib, err, what)
     LAUNCHES[what] += 1
     return out

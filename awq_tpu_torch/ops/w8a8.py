@@ -40,11 +40,21 @@ def quant_per_token_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xq, sx
 
 
-def quant_per_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def permute64(xq: torch.Tensor) -> torch.Tensor:
+    """K10's channel order: within each 64-channel block, channel ``8s + r``
+    moves to ``8r + s`` (an 8x8 transpose; its own inverse). ``IC % 64 == 0``."""
+    m, ic = xq.shape
+    return xq.view(m, ic // 64, 8, 8).transpose(-1, -2).reshape(m, ic)
+
+
+def quant_per_token(x: torch.Tensor, perm: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Wrapper: ``x [M, IC]`` (f32, bf16 or f16, contiguous) ->
-    ``(xq int8 [M, IC], sx f32 [M, 1])``."""
+    ``(xq int8 [M, IC], sx f32 [M, 1])``; with ``perm`` the codes in K10's
+    channel order (:func:`permute64`, ``IC % 64 == 0``), written so by the
+    same launch."""
     if x.device.type == "cpu":
-        return quant_per_token_plain(x)
+        xq, sx = quant_per_token_plain(x)
+        return (permute64(xq) if perm else xq), sx
     if not x.is_cuda:
         raise ValueError(f"quant_per_token: unsupported device {x.device}")
     if x.dim() != 2 or x.dtype not in DTYPE_CODE or not x.is_contiguous():
@@ -60,9 +70,9 @@ def quant_per_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
     lib = _build.load("w8a8")
     fn = lib.awq_quant_per_token
-    _build.declare(fn, _build.P, _build.P, _build.P, _build.I, _build.I, _build.I, _build.P)
+    _build.declare(fn, _build.P, _build.P, _build.P, *([_build.I] * 4), _build.P)
     err = fn(x.data_ptr(), xq.data_ptr(), sx.data_ptr(), m, ic, DTYPE_CODE[x.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
+             int(perm), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "quant_per_token")
     LAUNCHES["quant_per_token"] += 1
     return xq, sx

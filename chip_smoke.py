@@ -42,7 +42,9 @@ Phases (each failure ends the run with a non-zero exit):
    built on the card) at 32, 40, 200 and 1000 rows and K10 (the W4 codes
    requantized in the kernel) at 40, 512 and 1000, each bit-equal to its
    plain version, K11 to K10, and the card's cache to the CPU's build;
-   yardsticks ``torch._int_mm`` with the same epilogue and K1's GEMM.
+   yardsticks ``torch._int_mm`` with the same epilogue and K1's GEMM, and
+   for K10 the two-launch composition it fuses (``requant_w8`` on the
+   card, then K11), bit-equal to it.
    Then the tensor-parallel halves K12 (attention half) and K13 (MLP half)
    on one rank's shards of Llama-3-8B at tp = 1, 2 and 4 (q/kv heads and
    intermediate 32/8/14336, 16/4/7168, 8/2/3584), layer 5: K12 at lengths
@@ -53,7 +55,7 @@ Phases (each failure ends the run with a non-zero exit):
    Falcon-7B's shape (B 1, one kv head, 71 q heads, head_dim 64; lengths 1,
    1000, 2047) and Llama-3-8B's (B 1 and 8, 8 kv heads of 4; lengths 1000
    and 4000), and K3's head_dim-64 mode at Falcon-7B's shape (S 512 from
-   0 and from 700); yardstick SDPA.
+   0 and from 700, S 1000 from 0: the 1000-token prompt); yardstick SDPA.
 3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
    new tokens each, the second continuing the first's dialogue, then a
    24-token follow-up continuing the third's) through ``InferenceEngine``
@@ -340,8 +342,8 @@ def phase_kernels(torch, timer, cases_out):
             library="F.scaled_dot_product_attention(enable_gqa=True)"))
         log_case(cases_out[-1])
 
-    s = 512
-    for start in (0, 700):
+    # S=512 from 0 and 700, and the 1000-token prompt's shape
+    for s, start in ((512, 0), (512, 700), (1000, 0)):
         cache = kv_cache()
         q = torch.randn((1, s, nq, hd), generator=gen, device="cuda").to(torch.bfloat16)
         got = da.flash_prefill(q, cache, start)
@@ -704,6 +706,15 @@ def phase_int8_prefill_kernels(torch, timer, cases_out):
                 torch.cuda.synchronize()
                 exact(f"{name} {wname} M={m}", got, ref)
                 out[name] = got
+                extra = {}
+                if name == "w4a8_gemm":
+                    # the two-launch composition K10 fuses (a yardstick, not
+                    # a path of the program): requant_w8 on the card, then K11
+                    def comp():
+                        return w4.w8a8_matmul(x, *w4.requant_w8(qw, s, sz, G))
+                    exact(f"requant_w8 + K11 against K10, {wname} M={m}", comp(), got)
+                    extra = dict(composition_ms=timer(comp),
+                                 composition="requant_w8 on the card + K11 on its cache")
                 b_ms, b_by = bound(m * ic * 2 + wbytes + m * oc * 2, 2.0 * m * ic * oc, INT8_OPS)
                 cases_out.append(dict(
                     name=name, shape=f"{wname} M={m} {ic}->{oc}", max_abs_err=0.0,
@@ -711,7 +722,8 @@ def phase_int8_prefill_kernels(torch, timer, cases_out):
                     plain_ms=timer(plain, reps=3), bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms, yardstick_ms=k1_ms,
                     library="torch._int_mm on the same int8 operands + the same epilogue",
-                    yardstick="K1 GEMM (w4a16_gemm) on the same x", **plan_of(name, m, ic, oc)))
+                    yardstick="K1 GEMM (w4a16_gemm) on the same x", **extra,
+                    **plan_of(name, m, ic, oc)))
                 log_case(cases_out[-1])
             if lib_out is not None:
                 exact(f"{wname} M={m}: torch._int_mm and K10/K11", lib_out,
@@ -960,8 +972,8 @@ def phase_layer_attention(torch, timer, cases_out):
     heads, head_dim 64, bf16; lengths 1, 1000 and 2047) and at Llama-3-8B's
     (B 1 and 8, 8 kv heads, 4 q heads each, head_dim 128; lengths 1000 and
     4000), and K3 at head_dim 64 at Falcon-7B's shape (S 512 from 0 and
-    from 700), each against its plain version; the library call is SDPA on
-    the same positions."""
+    from 700, S 1000 from 0), each against its plain version; the library
+    call is SDPA on the same positions."""
     import torch.nn.functional as F
 
     from awq_tpu_torch.ops import decode_attn as da
@@ -999,8 +1011,8 @@ def phase_layer_attention(torch, timer, cases_out):
                 4.0 * b * nq * length * hd, "F.scaled_dot_product_attention(enable_gqa=True)")
             del k_l, v_l
         del kv
-    nq, s_, t = fal["num_heads"], 512, 2048
-    for start in (0, 700):
+    nq, t = fal["num_heads"], 2048
+    for s_, start in ((512, 0), (512, 700), (1000, 0)):
         cache, q = rnd(2, 1, 1, t, 64), rnd(1, s_, nq, 64)
         end = start + s_
         k_all, v_all = cache[0, :, :, :end].contiguous(), cache[1, :, :, :end].contiguous()
@@ -1539,6 +1551,7 @@ def serve_single(torch, engine, cfg, labels):
                                 ms_per_token=ms_tok, gb_per_token=gb_tok))
         launches = read_counters()
         log(f"  [{label}] launches during the four requests: {launches}")
+        log(f"  [{label}] greedy ids: {json.dumps(ids_all)}")
         check_path(label, launches, must, off)
         out_launches[label], out_ids[label] = launches, ids_all
         out_ttft[label] = [r["ttft_ms"] for r in results]
@@ -1872,7 +1885,7 @@ KERNEL_GROUPS = {"megakernel_attn_half": tuple(f"token_kernel<{t}, 1>" for t in 
                  "megakernel_chunk": ("chunk_kernel",),
                  "megakernel_batched": ("batched_kernel",),
                  "cache_append": ("cache_append_kernel",),
-                 "w4a8_gemm / w8a8_gemm": ("w4a8_gemm_kernel", "w8a8_wgmma_kernel",
+                 "w4a8_gemm / w8a8_gemm": ("w4a8_wgmma_kernel", "w8a8_wgmma_kernel",
                                            "w8a8_splitk_epilogue"),
                  "quant_per_token": ("quant_per_token_kernel",)}
 
@@ -2949,8 +2962,8 @@ def main() -> int:
             ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
             library_ms=c["library_ms"], shape=c["shape"],
-            **({"yardstick_ms": c["yardstick_ms"], "yardstick": c["yardstick"]}
-               if "yardstick_ms" in c else {})))
+            **{k: c[k] for k in ("yardstick_ms", "yardstick", "composition_ms", "composition")
+               if k in c}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

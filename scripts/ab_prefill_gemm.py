@@ -10,13 +10,17 @@ OTHER is another tree's ``awq_tpu_torch/csrc`` (e.g. the parent commit's,
 and each tree's own headers (one nvcc each, all in parallel), into
 ``build/ab_prefill_gemm/``. Either build's C entries may have the
 single-stage signatures (no plan) or the wgmma ones (token tile and split
-count from ``ops/w4a16.py::gemm_plan``); the script reads which from the
-source.
+count from ``ops/w4a16.py::gemm_plan``; K10's wgmma entry also takes its x
+codes in its own channel order, ``ops/w8a8.py::permute64``); the script
+reads which from the source.
 
 Shapes: Llama-3-8B's four projections (bf16 x, group 128) with K1 W4 at
 M = 16, 32, 64, 200, 1000, K1 W3 at 32, 200, 1000, K11 at 32, 40, 200,
 1000 and K10 at 40, 512, 1000. K10 and K11 get the same int8 x (the
-quantization launch is left out of their times). The builds run in turns
+quantization launch is left out of their times). Each K10 row also times
+the two-launch composition that K10 fuses, the checkout's ``requant_w8``
+on the card and then its K11 over that cache (a yardstick, not a path of
+the program). The builds run in turns
 (in order, then in reverse, ``--rounds`` times), each turn the median of
 ``--reps`` calls with the L2 flushed before each (``chip_smoke.Timer``).
 The script prints each shape's turns, the medians and the ratio, with the
@@ -59,9 +63,10 @@ class Build:
         self.csrc, self.tag = csrc, tag
         self.so = {u: out_dir / f"{tag}-{u}.so" for u in ("w4a16", "w3a16", "w8a8")}
         # the wgmma entries take the plan's token tile and split count
+        w8a8 = (csrc / "w8a8.cu").read_text()
         self.planned = {
             "k1": "int nt" in (csrc / "w4a16.cu").read_text(),
-            "k11": "int nt" in (csrc / "w8a8.cu").read_text()}
+            "k11": "int nt" in w8a8, "k10": "void* scol_out" in w8a8}
 
     def start(self):
         return [build(self.csrc / f"{u}.cu", so) for u, so in self.so.items()]
@@ -80,7 +85,8 @@ class Build:
         fn.restype = I
         self.fn["w8a8_gemm"] = fn
         fn = libs["w8a8"].awq_w4a8_gemm
-        fn.argtypes, fn.restype = [P] * 6 + [I] * 5 + [P], I
+        fn.argtypes = ([P] * 8 + [I] * 6 if self.planned["k10"] else [P] * 6 + [I] * 5) + [P]
+        fn.restype = I
         self.fn["w4a8_gemm"] = fn
 
 
@@ -101,6 +107,7 @@ def main() -> int:
         return 2
     from awq_tpu_torch import _build
     from awq_tpu_torch.ops import w4a16 as w4
+    from awq_tpu_torch.ops.w8a8 import permute64
     from chip_smoke import Timer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -136,12 +143,16 @@ def main() -> int:
             for m in ms:
                 x = torch.randn((m, ic), generator=gen, device="cuda").to(torch.bfloat16)
                 xq, sx = w4.quant_per_token_plain(x)
+                xq_perm = permute64(xq)
                 outs = {k: torch.empty((m, oc), dtype=torch.bfloat16, device="cuda")
                         for k in builds}
-                kind = {"w4a16_gemm": "w4a16", "w3a16_gemm": "w3a16"}.get(entry, "w8a8")
+                kind = {"w4a16_gemm": "w4a16", "w3a16_gemm": "w3a16",
+                        "w4a8_gemm": "w4a8"}.get(entry, "w8a8")
                 plan = w4.gemm_plan(m, ic, oc, kind, n_sm)
                 part = torch.empty((plan.splits, m, oc), device="cuda",
-                                   dtype=torch.int32 if kind == "w8a8" else torch.float32)
+                                   dtype=torch.int32 if kind in ("w8a8", "w4a8")
+                                   else torch.float32)
+                scol_buf = torch.empty((oc,), device="cuda", dtype=torch.float32)
 
                 def call(k, entry=entry, x=x, xq=xq, sx=sx, plan=plan, part=part):
                     b, o = builds[k], outs[k]
@@ -160,6 +171,11 @@ def main() -> int:
                         err = (fn(*head, pp, m, ic, oc, plan.tile_m, plan.splits, bf16,
                                   stream()) if b.planned["k11"]
                                else fn(*head, m, ic, oc, bf16, stream()))
+                    elif b.planned["k10"]:
+                        err = fn(xq_perm.data_ptr(), sx.data_ptr(), qw.data_ptr(), s.data_ptr(),
+                                 sz.data_ptr(), o.data_ptr(), pp,
+                                 scol_buf.data_ptr() if plan.splits > 1 else None, m, ic, oc, G,
+                                 plan.splits, bf16, stream())
                     else:
                         err = fn(xq.data_ptr(), sx.data_ptr(), qw.data_ptr(), s.data_ptr(),
                                  sz.data_ptr(), o.data_ptr(), m, ic, oc, G, bf16, stream())
@@ -183,13 +199,21 @@ def main() -> int:
                 failed |= not same
                 med = {k: statistics.median(ts) for k, ts in times.items()}
                 ratio = med["checkout"] / med["other"]
+                comp = ""
+                if entry == "w4a8_gemm":
+                    def composed(x=x):
+                        return w4.w8a8_matmul(x, *w4.requant_w8(qw, s, sz, G))
+                    same_c = torch.equal(composed(), outs["checkout"])
+                    failed |= not same_c
+                    comp = (f"; requant_w8 + K11 {timer(composed):.4f} ms ("
+                            + ("bit-equal" if same_c else "DIFFERS") + ")")
                 rows.append((entry, wname, m, med["other"], med["checkout"], ratio))
                 split = f"swap nt={plan.tile_m}" if plan.swap else "128x128"
                 print(f"{entry} {wname} M={m} ({split}, splits={plan.splits}): "
                       + "; ".join(f"{k} median {med[k]:.4f} ms ("
                                   + " ".join(f"{t:.4f}" for t in ts) + ")"
                                   for k, ts in times.items())
-                      + f"; checkout/other {ratio:.3f}; {verdict}", flush=True)
+                      + f"; checkout/other {ratio:.3f}; {verdict}{comp}", flush=True)
         del qw, q3, s, sz, w8, scol
         torch.cuda.empty_cache()
     slower = [r for r in rows if r[5] > 1.0]

@@ -145,7 +145,7 @@ def test_flash_decode_kernel_matches_plain(cuda, nq, nkv, lengths):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,nkv,start_pos,s", [
-    (4, 2, 0, 70), (4, 1, 37, 130), (32, 8, 0, 512), (32, 8, 700, 512)])
+    (4, 2, 0, 70), (4, 1, 37, 130), (32, 8, 0, 512), (32, 8, 700, 512), (32, 8, 0, 1000)])
 def test_flash_prefill_kernel_matches_plain(cuda, nq, nkv, start_pos, s):
     rng = np.random.default_rng(start_pos + s)
     b, t = 2, 2048

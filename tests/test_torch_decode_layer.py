@@ -215,7 +215,7 @@ def test_llama_head_dim_96_decode_raises_on_the_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,nkv,start_pos,s", [
-    (71, 1, 0, 512), (71, 1, 700, 512), (4, 2, 37, 130), (12, 4, 0, 70)])
+    (71, 1, 0, 512), (71, 1, 700, 512), (4, 2, 37, 130), (12, 4, 0, 70), (71, 1, 0, 1000)])
 def test_flash_prefill_head_dim_64_kernel_matches_plain(cuda, nq, nkv, start_pos, s):
     rng = np.random.default_rng(start_pos + s + nq)
     b, t = 1, 2048

@@ -1,5 +1,5 @@
-"""The host-side plan of the wgmma GEMMs: K1's GEMM entry (W4 and W3) and
-K11 (``ops/w4a16.py::gemm_plan``).
+"""The host-side plan of the wgmma GEMMs: K1's GEMM entry (W4 and W3), K10
+and K11 (``ops/w4a16.py::gemm_plan``).
 
 The plan picks the orientation and token tile by M and cuts IC into split
 ranges on ring-stage edges, so that short prompts still put a block on
@@ -30,7 +30,7 @@ SHAPES = {"wqkv": (4096, 6144), "wo": (4096, 4096), "wgateup": (4096, 28672),
           "down": (14336, 4096), "head": (4096, 128256)}
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + ("w4a8",))
 @pytest.mark.parametrize("m", [9, 16, 32, 33, 64, 65, 200, 1000])
 @pytest.mark.parametrize("ic,oc", [(4096, 6144), (14336, 4096), (1024, 202), (4608, 4544),
                                    (512, 256)])
@@ -39,7 +39,7 @@ def test_splits_cover_ic_on_stage_edges(kind, m, ic, oc):
         pytest.skip("pack_int3 needs IC % 256 == 0")
     plan = tw.gemm_plan(m, ic, oc, kind, N_SM)
     edges = plan.edges(ic)
-    assert plan.stage_k == {"w4a16": 64, "w3a16": 256, "w8a8": 128}[kind]
+    assert plan.stage_k == {"w4a16": 64, "w3a16": 256, "w8a8": 128, "w4a8": 128}[kind]
     assert 1 <= plan.splits <= plan.n_stages
     assert plan.n_stages * plan.stage_k >= ic > (plan.n_stages - 1) * plan.stage_k
     assert edges[0] == 0 and edges[-1] == ic and len(edges) == plan.splits + 1
@@ -76,8 +76,34 @@ def test_token_tile_and_orientation_by_rows(m, tile, kind):
     assert plan.blocks_per_sm == (2 if tile <= 64 else 1)
 
 
+# K10 takes 128 tokens x 128 columns at every M: one requantized stage
+# feeds all 128 tokens of its block, and the weights are never the 64-row
+# operand (wgmma's s8 form reads both operands from shared memory).
+@pytest.mark.parametrize("m", [1, 40, 64, 65, 512, 1000])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_w4a8_tiles_are_128_by_128(m, name):
+    ic, oc = SHAPES[name]
+    plan = tw.gemm_plan(m, ic, oc, "w4a8", N_SM)
+    assert plan.tile_m == 128 and not plan.swap and plan.blocks_per_sm == 1, plan
+    assert plan.tiles == -(-oc // 128) * -(-m // 128)
+
+
+# Split-K only where the tiles are fewer than the SMs, and then no more
+# splits than one wave of blocks holds (K10 fits one block an SM).
+@pytest.mark.parametrize("m", [1, 40, 512, 1000])
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_w4a8_splits_only_below_a_wave(m, name):
+    ic, oc = SHAPES[name]
+    plan = tw.gemm_plan(m, ic, oc, "w4a8", N_SM)
+    if plan.tiles >= N_SM:
+        assert plan.splits == 1, plan
+    else:
+        assert plan.splits == max(1, min(N_SM // plan.tiles, plan.n_stages)), plan
+        assert plan.blocks <= N_SM, plan
+
+
 def test_long_prompts_do_not_split():
-    for kind in KINDS:
+    for kind in KINDS + ("w4a8",):
         for name in ("wgateup", "down", "head"):
             assert tw.gemm_plan(1000, *SHAPES[name], kind, N_SM).splits == 1, (kind, name)
 

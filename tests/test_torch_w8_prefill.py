@@ -348,6 +348,28 @@ def test_k10_k11_bit_equal_plain_on_card(cuda, dtype, m, oc):
         assert torch.equal(k11, k10)
 
 
+# Llama-3-8B's four projections at the rows K10 is routed (512 and 1000)
+# and at 40 (split-K), group 128 and 64; IC = 1088 ends on a half stage.
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [40, 512, 1000])
+@pytest.mark.parametrize("ic,oc,g", [(ic, oc, g) for ic, oc in ((4096, 6144), (4096, 4096),
+                                                                (4096, 28672), (14336, 4096))
+                                     for g in (128, 64)] + [(1088, 4544, 64)])
+def test_k10_bit_equal_at_projection_shapes_on_card(cuda, m, ic, oc, g):
+    gen = torch.Generator(device=cuda).manual_seed(m + ic + oc + g)
+    qw = torch.randint(-(2**31), 2**31 - 1, (ic // 8, oc), generator=gen, dtype=torch.int32,
+                       device=cuda)
+    s = (torch.rand((ic // g, oc), generator=gen, device=cuda) + 0.5) * 0.005
+    sz = s * (7 + torch.rand((ic // g, oc), generator=gen, device=cuda))
+    x = (torch.randn((m, ic), generator=gen, device=cuda) * 0.5).to(torch.bfloat16)
+    before = tw.LAUNCHES["w4a8_gemm"]
+    k10 = tw.w4a8_matmul(x, qw, s, sz, g)
+    torch.cuda.synchronize()
+    assert tw.LAUNCHES["w4a8_gemm"] == before + 1
+    assert torch.equal(k10, tw.w4a8_matmul_plain(x, qw, s, sz, g))
+    assert torch.equal(k10, tw.w8a8_matmul(x, *tw.requant_w8(qw, s, sz, g)))
+
+
 @pytest.mark.cuda
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     ql = _card_linear(cuda, 1024, 256, 0)
