@@ -1,73 +1,92 @@
 // K2, K8, K9, K14 (flash decode) and K3 (causal flash prefill) for Hopper
 // (sm_90a).
 //
-// All read ONE layer of the stacked cache, the contiguous view
+// K2, K8 and K9 read ONE layer of the stacked cache, the contiguous view
 // cache[l] = [2, B, n_kv, T, HD] (K at index 0, V at 1), head-major so
-// that each head's [T, HD] slab is contiguous. HD is 128 for K2, K8 and K9;
-// K3 and K14 take head_dim 64 or 128 (a template parameter D). The cache is f32,
-// bf16 or f16 (a template parameter, E); q, the current token's k/v and
-// the output are f32, bf16 or f16 too, each of its own dtype (a runtime
-// code: they are read once per block), as the JAX kernels follow q.dtype
-// and the cache's dtype apart.
+// that each head's [T, HD] slab is contiguous (K8 a page pool, K9 int8
+// codes); HD is 128 for them. K14 reads one layer's k_cache and v_cache
+// [B, n_kv, T, D], two tensors. K3 and K14 take head_dim 64 or 128 (a
+// template parameter D). The cache is f32, bf16 or f16 (a template
+// parameter, E); q, the current token's k/v and the output are f32, bf16
+// or f16 too, each of its own dtype (a runtime code: they are read once
+// per block), as the JAX kernels follow q.dtype and the cache's dtype apart.
 //
-// K2 replaces awq_tpu/ops/decode_attn.py::flash_decode_stacked
-// (_stacked_decode_kernel): one query position per row, GQA, an online
-// softmax over the cache prefix [0, len_b) PLUS the current token's k/v,
-// which arrive as operands (not yet in the cache), scale 1/sqrt(HD).
-// Bound by device memory: the K and V prefix, 2·n_kv·len·HD·2 bytes per
-// layer, is read once and each byte feeds a few FLOPs. At batch 1 one
-// block per kv head would use 8 of 132 SMs, so T is split across blocks
-// (split-K flash decode): flash_decode_split_kernel gives each block a
-// slice of positions of one (row, kv head), stages 32-position K/V tiles in
-// shared memory with 16-byte loads, and keeps an online softmax per query
-// head of the group (one warp per head; lane j scores position j of the
-// tile). Each slice writes (max, sum, unnormalised output) in f32;
-// flash_decode_combine_kernel merges the slices in order and folds in the
-// current token, as the TPU kernel does after its loop (decode_attn.py:220).
-// Only [0, len_b) is read; positions past it are never touched.
+// ---- Split flash decode: one body for K2, K8, K9 and K14 ------------------
 //
-// K8 replaces flash_decode_paged (_paged_decode_kernel): the same attention
-// over a PAGED cache, one layer of the pool [2, NP, n_kv, page, HD] with a
-// block table tables [B, MP]; position p of row b lives at
-// pool[s, tables[b, p / page], h, p % page]. It is K2's body, not a copy:
-// the split kernel takes the address of a position from a functor, ContigKV
-// for K2 and PagedKV for K8, and the combine kernel is shared. The TPU
-// kernel scalar-prefetched the table; here each load looks up its own
-// entry (one int per position, from L1). The wrapper makes the splits whole
-// pages, so a block streams contiguous page x HD slabs. Bound by device
-// memory as K2: the bytes of the rows' prefixes. Row lengths are clamped to
-// [0, MP·page] on the device, so no table entry past MP is read. The TPU
-// kernel rounds the softmax weights to the pool dtype before P·V; K8, like
-// K2, keeps them in f32.
+// It replaces four TPU kernels of awq_tpu/ops/decode_attn.py (Pallas rows
+// 9-12 of PERF.md's table):
+// - K2, flash_decode_stacked (_stacked_decode_kernel): one query position
+//   per row, GQA, an online softmax over the cache prefix [0, len_b) PLUS
+//   the current token's k/v, which arrive as operands (not yet in the
+//   cache), scale 1/sqrt(HD);
+// - K8, flash_decode_paged (_paged_decode_kernel): K2's attention over one
+//   layer of a page pool [2, NP, n_kv, page, HD] with a block table
+//   tables [B, MP]; position p of row b lives at
+//   pool[s, tables[b, p / page], h, p % page];
+// - K9, flash_decode_stacked8 (_stacked_decode_kernel8): K2's attention
+//   over one layer of an int8 cache, codes [2, B, n_kv, T, HD] and scales
+//   [2, B, n_kv, T] f32 (one per position and head);
+// - K14, flash_decode (_flash_decode_kernel): positions [0, length) of
+//   k_cache/v_cache, one length for every row, the current token already
+//   written (no operand for it), up to 128 query heads per kv head
+//   (falcon-7b: 71 over one kv head at D = 64).
+// The four differ only in where a position's K and V rows are (an address
+// functor: ContigKV, PagedKV, Int8KV, LayerKV) and in the current token
+// (a compile-time flag CUR, set for K2, K8 and K9).
 //
-// K9 replaces flash_decode_stacked8 (_stacked_decode_kernel8): K2's
-// attention over ONE layer of an int8 KV cache, codes [2, B, n_kv, T, HD]
-// int8 and scales [2, B, n_kv, T] f32 (one per position and head), with the
-// current token's k/v in q's dtype as operands. It is K2's body again, with the
-// Int8KV functor: a 16-byte load brings 16 codes instead of 8 bf16 values,
-// the tile of codes sits in shared memory as int8 and its 32 positions'
-// K and V scales beside it. As in the TPU kernel, nothing is dequantized
-// elementwise: the loads widen the codes to f32, K's scale multiplies a
-// position's score after q·k, and V's scale multiplies its softmax weight
-// before p·v; the weights stay f32 (the TPU kernel's p is f32 here too).
-// Bound by device memory: half K2's bytes plus 8 bytes of scales per
-// position and head.
+// What bounds it: the K and V bytes of the rows' prefixes, read once, at
+// 3.35 TB/s (16.4 MB at Llama-3-8B B=1, length 4000: 4.9 us); each byte
+// feeds a few FLOPs. At falcon's one kv head the layer is 256 KB at length
+// 1000 (0.08 us): there latency and launches bound it, and so they do at
+// every length of a call whose cluster merge and barriers are a fixed cost
+// of a few microseconds (PERF.md). The design:
+// - One launch a call. The positions of one (row b, kv head h) are cut
+//   into `cluster` slices of `per` positions (a multiple of the 64-position
+//   tile; 256-position units for K2 and K8, so that K8 slices rows as K2
+//   does and returns K2's output bit for bit), one block each, and the
+//   blocks of a slice set form one thread-block cluster (grid x = cluster
+//   size <= 16, so that B * n_kv clusters fill the card). Each block keeps
+//   its running (max, sum, unnormalised output) for the kv head's whole
+//   query group in its own shared memory; after a cluster barrier each
+//   block merges a slice of the g x D outputs over all the cluster's blocks
+//   at once, a few blocks a lane, reading its peers' state through
+//   distributed shared memory (mapa / ld.shared::cluster) in one round and
+//   merging online, then across lanes by shuffles, folds in the current
+//   token after the prefix as the TPU kernel does (decode_attn.py:220),
+//   and writes the output. No partial buffers, no second launch; a cluster
+//   of one block skips the barriers.
+// - A ring of 2-4 stages of 64-position K/V tiles filled by 16-byte
+//   cp.async copies (through L2; zero-filled past the slice), so that up to
+//   three tiles are in flight while one is computed; every thread issues
+//   its share, one commit group a stage. A tile's rows come from one
+//   address where they are consecutive (K8: one table read a tile when a
+//   page holds whole tiles), else row by row. Rows are stored with
+//   their 16-byte chunks XOR-swizzled by the row's low three bits, which
+//   keeps ldmatrix (and the f32 mode's vector loads) free of bank conflicts.
+// - The group's heads are the rows of one product. The q heads of the kv
+//   head, padded to 16-row tiles (one for g <= 16, five for falcon's 71),
+//   are A operands of mma.sync m16n8k16: S = Q.K^T over a warp's 16 (or
+//   32) positions of the tile, then O += P.V with V read through
+//   ldmatrix.trans, f32 sums. Warps split the tile's positions (4 warps of
+//   16 for up to two row tiles, 2 of 32 above) and each keeps its own
+//   online softmax; the block merges its warps before the cluster merge.
+// - Numerics: q * scale stays f32 as in JAX (decode_attn.py:41, :127) by
+//   splitting it into hi and lo halves of the mma type, two products into
+//   the same sums; P is rounded to the cache's dtype for P.V as the TPU
+//   kernel rounds it (decode_attn.py:81, :209) while the row sums add the
+//   f32 weights. K9's codes widen exactly to f16 (byte permutes and one
+//   subtraction, its mma type) in a second shared tile; K's scale
+//   multiplies a position's score and V's its weight before the rounding,
+//   as the TPU kernel does. An f32 cache takes a CUDA-core body
+//   in the same fragment layout (q, K, V and P all f32).
+// A block's first tile is copied before its row's length arrives (a
+// memory latency less), so positions past len_b may be read there, never
+// past T (MP * page for K8); they are masked, and their V rows zeroed
+// before use. A row of length 0 returns its current token's v. Row lengths
+// are clamped to [0, T] ([0, MP * page] for K8, so no table entry past MP
+// is read).
 //
-// K14 replaces flash_decode (_flash_decode_kernel): the attention of one
-// query position per row over positions [0, length) of one layer's k_cache
-// and v_cache [B, n_kv, T, D] (two tensors), one length for every row, the
-// current token already written (no operand for it), GQA/MQA with up to 128
-// query heads per kv head (falcon-7b: 71 at D = 64), scale 1/sqrt(D). The
-// TPU kernel's grid (B, n_kv) holds a kv head's whole [g, D] query group
-// per program; at falcon's B * n_kv = 1 that is one block on 132 SMs, so
-// K14 splits the positions across blocks as K2 does and merges the slices
-// with K2's combine kernel (without a current token). A block takes a chunk
-// of 8 heads of the group, one warp each, with their queries and running
-// softmax state in shared memory; the chunks of a group read the same K/V
-// slice (from L2 after the first). Bound by device memory: 2 * n_kv * length * D
-// cache elements; at falcon-7b's one kv head that is 256 KB of bf16 a layer
-// at length 1000 (0.08 us), so it is launch-bound there. Softmax weights stay
-// f32 for P.V (the TPU kernel rounds them to the cache dtype).
+// ---- K3 -------------------------------------------------------------------
 //
 // K3 replaces flash_prefill_stacked (_stacked_prefill_kernel) with its
 // online softmax (the TPU-only fixed_max variant is not carried over): the
@@ -108,37 +127,47 @@
 
 namespace {
 
-constexpr int HD = 128;
-constexpr int DEC_TILE = 32;   // positions per shared-memory tile
-constexpr int DEC_WARPS = 4;
-constexpr int LAYER_HEADS = 8;         // K14: query heads (and warps) per block
-constexpr int DEC_LAYER_THREADS = 32 * LAYER_HEADS;
+constexpr int HD = 128;        // K2, K8 and K9's head_dim
 // -inf as a bit pattern (device code only)
 #define NEG_INF (__int_as_float(0xff800000))
 
+namespace dec {
+constexpr int TILE = 64;             // positions of a ring stage
+constexpr int MAX_CLUSTER = 16;      // blocks of a cluster (non-portable above 8)
+constexpr int SMEM_MAX = 232448;     // dynamic shared memory a block may have
+}  // namespace dec
+
 // Where the positions of (row b, kv head h) sit in one layer: row(b, h) is
 // a cursor whose K and V rows of position t are at k + off(t) and
-// v + off(t).
+// v + off(t) (consecutive positions of a 64-position tile that starts on
+// a multiple of 64 are consecutive rows where slab() holds); length(b) is
+// row b's number of cached positions, and every position below bound() may
+// be read whatever the length.
 template <typename E>
 struct ContigKV {  // K2: cache [2, B, n_kv, T, HD]
   using Elem = E;
   const E* base;
+  const int* lengths;
   int B, nkv, T;
   struct Row {
     const E* k;
     const E* v;
     __device__ __forceinline__ size_t off(int t) const { return (size_t)t * HD; }
+    __device__ __forceinline__ bool slab() const { return true; }
   };
   __device__ __forceinline__ Row row(int b, int h) const {
     const E* k = base + ((size_t)b * nkv + h) * T * HD;
     return Row{k, k + (size_t)B * nkv * T * HD};
   }
+  __device__ __forceinline__ int length(int b) const { return min(max(lengths[b], 0), T); }
+  __device__ __forceinline__ int bound() const { return T; }
 };
 template <typename E>
 struct PagedKV {   // K8: pool [2, NP, n_kv, page, HD], tables [B, MP]
   using Elem = E;
   const E* base;
   const int* tables;
+  const int* lengths;
   int np, nkv, page, mp;
   struct Row {
     const E* k;         // head h of page 0, K plane
@@ -149,17 +178,21 @@ struct PagedKV {   // K8: pool [2, NP, n_kv, page, HD], tables [B, MP]
     __device__ __forceinline__ size_t off(int t) const {
       return (size_t)__ldg(tab + t / page) * pstride + (size_t)(t % page) * HD;
     }
+    __device__ __forceinline__ bool slab() const { return page % dec::TILE == 0; }
   };
   __device__ __forceinline__ Row row(int b, int h) const {
     const E* k = base + (size_t)h * page * HD;
     return Row{k, k + (size_t)np * nkv * page * HD, tables + (size_t)b * mp,
                nkv * page * HD, page};
   }
+  __device__ __forceinline__ int length(int b) const { return min(max(lengths[b], 0), mp * page); }
+  __device__ __forceinline__ int bound() const { return mp * page; }
 };
 struct Int8KV {    // K9: codes [2, B, n_kv, T, HD] int8, scales [2, B, n_kv, T] f32
   using Elem = int8_t;
   const int8_t* base;
   const float* scales;
+  const int* lengths;
   int B, nkv, T;
   struct Row {
     const int8_t* k;
@@ -167,347 +200,626 @@ struct Int8KV {    // K9: codes [2, B, n_kv, T, HD] int8, scales [2, B, n_kv, T]
     const float* ks;    // K scale of position t at ks[t]
     const float* vs;
     __device__ __forceinline__ size_t off(int t) const { return (size_t)t * HD; }
+    __device__ __forceinline__ bool slab() const { return true; }
   };
   __device__ __forceinline__ Row row(int b, int h) const {
     const size_t r = ((size_t)b * nkv + h) * T;
     const size_t plane = (size_t)B * nkv * T;
     return Row{base + r * HD, base + (r + plane) * HD, scales + r, scales + r + plane};
   }
+  __device__ __forceinline__ int length(int b) const { return min(max(lengths[b], 0), T); }
+  __device__ __forceinline__ int bound() const { return T; }
+};
+template <typename E, int D>
+struct LayerKV {   // K14: k_cache, v_cache [B, n_kv, T, D], one length
+  using Elem = E;
+  const E* k;
+  const E* v;
+  int nkv, T, len;
+  struct Row {
+    const E* k;
+    const E* v;
+    __device__ __forceinline__ size_t off(int t) const { return (size_t)t * D; }
+    __device__ __forceinline__ bool slab() const { return true; }
+  };
+  __device__ __forceinline__ Row row(int b, int h) const {
+    const size_t r = ((size_t)b * nkv + h) * T * D;
+    return Row{k + r, v + r};
+  }
+  __device__ __forceinline__ int length(int) const { return len; }
+  __device__ __forceinline__ int bound() const { return len; }
 };
 
-// The shared-memory tile of DEC_TILE positions: bf16 or f16 rows (K padded
-// to 65 words, conflict-free dots), f32 rows (K padded to 129 words), or
-// int8 rows (K padded to 33 words) with the positions' K and V scales.
-template <typename E> struct DecTile {
-  E k[DEC_TILE][HD + 4 / sizeof(E)];
-  __align__(16) E v[DEC_TILE][HD];
-};
-template <> struct DecTile<int8_t> {
-  __align__(16) int8_t k[DEC_TILE][HD + 4];
-  __align__(16) int8_t v[DEC_TILE][HD];
-  float ks[DEC_TILE];
-  float vs[DEC_TILE];
+// q [B, nq, D] and out of dtype code qdt (0 f32, 1 bf16, 2 f16); k_new,
+// v_new [B, nkv, D] of kdt (read with CUR only); `per` positions a block,
+// `stages` ring stages.
+struct DecodeArgs {
+  const void* q;
+  const void* k_new;
+  const void* v_new;
+  void* out;
+  int qdt, kdt, nq, nkv, per, stages;
+  float scale;
 };
 
-// Elements d and d + 1 of a K row in the tile, as f32.
-__device__ __forceinline__ float2 kpair(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+// Shared memory of one block, in bytes (ops/decode_attn.py::decode_plan
+// mirrors it): a header (the current token's scores sc[32] and v[D]), then
+// the main region: q (hi and lo halves, or f32), the ring, K9's widened
+// tile and the f32 mode's P; after the loop the merge's state overlays the
+// main region.
+struct DecLayout {
+  int hdr, q, stage, ring, wide, ps, merge, total;
+};
+__host__ __device__ constexpr int round128(int x) { return (x + 127) & ~127; }
+template <int D, int NPW, typename E>
+__host__ __device__ inline DecLayout dec_layout(int g, int stages) {
+  const int rows = 16 * ((g + 15) / 16), warps = rows / 16 * (dec::TILE / NPW);
+  DecLayout L{};
+  L.hdr = round128((32 + D) * 4);
+  L.q = round128(rows * D * 4);
+  L.stage = round128(2 * dec::TILE * D * (int)sizeof(E) + (sizeof(E) == 1 ? 2 * dec::TILE * 4 : 0));
+  L.ring = stages * L.stage;
+  L.wide = sizeof(E) == 1 ? 2 * dec::TILE * D * 2 : 0;
+  L.ps = sizeof(E) == 4 ? warps * 16 * NPW * 4 : 0;
+  L.merge = round128((warps * 16 * (D + 6) + 6 * rows) * 4);
+  const int main_region = L.q + L.ring + L.wide + L.ps;
+  L.total = L.hdr + (main_region > L.merge ? main_region : L.merge);
+  return L;
 }
-__device__ __forceinline__ float2 kpair(const __half* p) {
-  return __half22float2(*reinterpret_cast<const __half2*>(p));
-}
-__device__ __forceinline__ float2 kpair(const float* p) { return make_float2(p[0], p[1]); }
 
-// part_ml [B, n_kv, nsplit, g, 2] (max, sum); part_acc [B, n_kv, nsplit, g, HD];
-// q of dtype code qdt (0 f32, 1 bf16, 2 f16).
-template <int HPW, typename KV>  // query heads per warp: g <= DEC_WARPS * HPW
-__global__ void __launch_bounds__(128) flash_decode_split_kernel(
-    const void* __restrict__ q, int qdt, const KV kv, const int* __restrict__ lengths,
-    int max_len, float* __restrict__ part_ml, float* __restrict__ part_acc,
-    int nq, int nkv, int split_len, float scale) {
+// Four int8 codes (a word, the first in its low byte) as two f16x2 words,
+// exactly: code c + 128 in the low byte of f16 1024 + (c + 128), less 1152.
+__device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t p[2] = {__byte_perm(u, 0x64646464u, 0x5140), __byte_perm(u, 0x64646464u, 0x7362)};
+  const __half2 bias = __half2half2(__ushort_as_half(0x6480));
+  const __half2 a = __hsub2(*reinterpret_cast<const __half2*>(&p[0]), bias);
+  const __half2 b = __hsub2(*reinterpret_cast<const __half2*>(&p[1]), bias);
+  lo = *reinterpret_cast<const uint32_t*>(&a);
+  hi = *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of `rowb`-byte rows
+// (at least 8 chunks a row): the chunk index XORed with the row's low bits.
+__device__ __forceinline__ int swz(int r, int c, int rowb) { return r * rowb + ((c ^ (r & 7)) << 4); }
+
+// The split-and-merge body. Block (rank, h, b) of a cluster of gridDim.x
+// blocks takes positions [rank * per, min(len_b, (rank + 1) * per)) of
+// (row b, kv head h). Warp w owns query-row tile w / PW (16 rows of the
+// group, padded) and positions [(w % PW) * NPW, +NPW) of each tile; in
+// mma.sync's C layout lane (gq, tq) = (lane / 4, lane % 4) holds rows gq
+// and gq + 8, columns 2 tq, 2 tq + 1 of each 8-column piece.
+template <int D, int NPW, bool CUR, typename KV>
+__global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(const KV kv,
+                                                                             const DecodeArgs a) {
   using E = typename KV::Elem;
-  constexpr bool Q8 = sizeof(E) == 1;
-  constexpr int EPV = 16 / sizeof(E);      // elements per 16-byte load
-  constexpr int GMAX = DEC_WARPS * HPW;
-  __shared__ float qs[GMAX][HD];
-  __shared__ DecTile<E> tile;
-  __shared__ float ps[GMAX][DEC_TILE];
+  // the mma type: f16 over f16 and int8 (codes widen to f16 exactly by byte
+  // permutes), else bf16
+  using MT = typename std::conditional<sizeof(E) == 1, __half, typename MmaOf<E>::type>::type;
+  constexpr bool I8 = sizeof(E) == 1, F32 = sizeof(E) == 4;
+  constexpr int TILE = dec::TILE, PW = TILE / NPW;
+  constexpr int ROWB = D * (int)sizeof(E);  // a ring row
+  constexpr int CPR = ROWB / 16;            // its 16-byte chunks
+  constexpr int MROWB = D * 2;              // a 16-bit row (q halves, K9's widened tile)
+  static_assert(CPR >= 8 && MROWB / 16 >= 8, "a swizzled row needs 8 chunks");
+  extern __shared__ __align__(128) uint8_t smem[];
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nsplit = gridDim.x;
-  const int g = nq / nkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int len = min(max(lengths[b], 0), max_len);
-  const int j0 = split * split_len;
-  const int j1 = min(len, j0 + split_len);
+  const int rank = blockIdx.x, nsplit = gridDim.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = a.nq / a.nkv, rows = 16 * ((g + 15) / 16);
+  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = nthr >> 5;
+  const DecLayout L = dec_layout<D, NPW, E>(g, a.stages);
+  float* sc = reinterpret_cast<float*>(smem);        // [32] the current token's scores
+  float* vnew = sc + 32;                              // [D] the current token's v
+  uint8_t* qs = smem + L.hdr;
+  uint8_t* ring = qs + L.q;
+  uint8_t* wide = ring + L.ring;
+  float* ps = reinterpret_cast<float*>(wide + L.wide);
+  // after the loop, over the main region: the warps' states, then per query
+  // row the block's (max, sum) and its warps' weights
+  float* wst = reinterpret_cast<float*>(smem + L.hdr);  // [nw][16][D + 4]
+  float* wml = wst + nw * 16 * (D + 4);                  // [nw][16][2]
+  float* bml = wml + nw * 16 * 2;                        // [rows][2]
+  float* bw = bml + 2 * rows;                            // [rows][4]
+  const size_t kvo = ((size_t)b * a.nkv + h) * D;       // this kv head's k_new / v_new
+  const float vn = CUR && tid < D ? load_act(a.v_new, a.kdt, kvo + tid) : 0.f;
 
-  for (int i = tid; i < g * HD; i += 128) {
-    const int gi = i / HD, d = i % HD;
-    qs[gi][d] = load_act(q, qdt, ((size_t)b * nq + h * g + gi) * HD + d) * scale;
-  }
+  const int p0 = rank * a.per;
+  const typename KV::Row kvr = kv.row(b, h);
 
-  float m[HPW], l[HPW], acc[HPW][4];
-#pragma unroll
-  for (int i = 0; i < HPW; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  }
-  const typename KV::Row rows = kv.row(b, h);
-  for (int t0 = j0; t0 < j1; t0 += DEC_TILE) {
-    const int n = min(DEC_TILE, j1 - t0);
-    __syncthreads();  // previous tile fully consumed (and qs written)
-    for (int i = tid; i < DEC_TILE * (HD / EPV); i += 128) {
-      const int r = i / (HD / EPV), v = i % (HD / EPV);
-      uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (r < n) {
-        const size_t o = rows.off(t0 + r) + v * EPV;
-        kk = *reinterpret_cast<const uint4*>(rows.k + o);
-        vv = *reinterpret_cast<const uint4*>(rows.v + o);
-      }
-      uint32_t* kd = reinterpret_cast<uint32_t*>(&tile.k[r][v * EPV]);
-      kd[0] = kk.x; kd[1] = kk.y; kd[2] = kk.z; kd[3] = kk.w;
-      *reinterpret_cast<uint4*>(&tile.v[r][v * EPV]) = vv;
+  // tile i of the slice into its ring stage, positions below `end`: K rows,
+  // V rows (and K9's scales), zeros past `end`; a slab's rows from one
+  // address (K8: one table read a tile)
+  auto issue = [&](int i, int end) {
+    uint8_t* st = ring + (i % a.stages) * L.stage;
+    const int t0 = p0 + i * TILE;
+    const bool slab = kvr.slab();
+    const size_t o0 = slab ? kvr.off(t0) : 0;
+    for (int c = tid; c < TILE * CPR; c += nthr) {
+      const int r = c / CPR, ch = c % CPR, pos = t0 + r;
+      const bool ok = pos < end;
+      const size_t o =
+          ok ? (slab ? o0 + (size_t)r * D : kvr.off(pos)) + ch * (16 / (int)sizeof(E)) : 0;
+      hop::cp_async16(st + swz(r, ch, ROWB), kvr.k + o, ok);
+      hop::cp_async16(st + TILE * ROWB + swz(r, ch, ROWB), kvr.v + o, ok);
     }
-    if constexpr (Q8) {
-      if (tid < DEC_TILE) tile.ks[tid] = tid < n ? rows.ks[t0 + tid] : 0.f;
-      else if (tid < 2 * DEC_TILE) tile.vs[tid - DEC_TILE] = tid - DEC_TILE < n ? rows.vs[t0 + tid - DEC_TILE] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < HPW; ++i) {
-      const int gi = warp + DEC_WARPS * i;
-      if (gi >= g) continue;  // warp-uniform
-      float s = 0.f;
-      if constexpr (Q8) {
-#pragma unroll 8
-        for (int d = 0; d < HD; d += 4) {
-          const char4 kc = *reinterpret_cast<const char4*>(&tile.k[lane][d]);
-          s = fmaf(qs[gi][d], static_cast<float>(kc.x), s);
-          s = fmaf(qs[gi][d + 1], static_cast<float>(kc.y), s);
-          s = fmaf(qs[gi][d + 2], static_cast<float>(kc.z), s);
-          s = fmaf(qs[gi][d + 3], static_cast<float>(kc.w), s);
-        }
-        s *= tile.ks[lane];                      // K's scale on the score
-      } else {
-#pragma unroll 8
-        for (int d = 0; d < HD; d += 2) {
-          const float2 kf = kpair(&tile.k[lane][d]);
-          s = fmaf(qs[gi][d], kf.x, s);
-          s = fmaf(qs[gi][d + 1], kf.y, s);
-        }
+    if constexpr (I8) {
+      float* scl = reinterpret_cast<float*>(st + 2 * TILE * ROWB);
+      for (int c = tid; c < 2 * TILE; c += nthr) {
+        const int pos = t0 + c % TILE;
+        const bool ok = pos < end;
+        hop::cp_async4(scl + c, (c < TILE ? kvr.ks : kvr.vs) + (ok ? pos : 0), ok);
       }
-      if (lane >= n) s = NEG_INF;
-      const float m_new = fmaxf(m[i], warp_max(s));  // finite: n >= 1
-      const float alpha = __expf(m[i] - m_new);
-      const float p = __expf(s - m_new);
-      l[i] = l[i] * alpha + warp_sum(p);
-      m[i] = m_new;
-      ps[gi][lane] = p;
-      __syncwarp();
+    }
+  };
+  // the first tile before the row's length is known (up to bound(): a
+  // memory latency less), the ring's next ones once it is
+  const int spec = min(kv.bound(), p0 + a.per);
+  if (spec > p0) issue(0, spec);
+  hop::cp_async_commit();
+  const int len = kv.length(b);   // in flight with the q loads below
+
+  // q * scale of the group's rows (zeros past g), while the first tiles fly:
+  // 8 consecutive elements a chunk, a thread's two chunks of a pass loaded
+  // before either is stored (the loads are cold: one latency, not sixteen).
+  // With CUR each chunk adds its share of (q * scale) . k_new; the 16 (D/8)
+  // chunks of a row sit in one half-warp.
+  constexpr int QC = 8, CPQ = D / QC;
+  const int nqc = rows * CPQ;
+  for (int c0 = tid; c0 < nqc; c0 += 2 * nthr) {
+    float v[2][QC], kn[2][QC];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha;
-      for (int j = 0; j < n; ++j) {
-        if constexpr (Q8) {
-          const float pj = ps[gi][j] * tile.vs[j];   // V's scale folded into p
-          const char4 vc = *reinterpret_cast<const char4*>(&tile.v[j][lane * 4]);
-          acc[i][0] = fmaf(pj, static_cast<float>(vc.x), acc[i][0]);
-          acc[i][1] = fmaf(pj, static_cast<float>(vc.y), acc[i][1]);
-          acc[i][2] = fmaf(pj, static_cast<float>(vc.z), acc[i][2]);
-          acc[i][3] = fmaf(pj, static_cast<float>(vc.w), acc[i][3]);
+    for (int u = 0; u < 2; ++u) {
+      const int c = c0 + u * nthr, r = c / CPQ, d = (c % CPQ) * QC;
+      const bool live = c < nqc && r < g;
+      const size_t qo = ((size_t)b * a.nq + h * g + r) * D + d;
+#pragma unroll
+      for (int e = 0; e < QC; ++e) {
+        v[u][e] = live ? load_act(a.q, a.qdt, qo + e) * a.scale : 0.f;
+        kn[u][e] = CUR && live ? load_act(a.k_new, a.kdt, kvo + d + e) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = c0 + u * nthr, r = c / CPQ, d = (c % CPQ) * QC;
+      if (c < nqc) {
+        if constexpr (F32) {
+          *reinterpret_cast<float4*>(qs + swz(r, d / 4, D * 4)) =
+              make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
+          *reinterpret_cast<float4*>(qs + swz(r, d / 4 + 1, D * 4)) =
+              make_float4(v[u][4], v[u][5], v[u][6], v[u][7]);
         } else {
-          const float pj = ps[gi][j];
-          float v4[4];
-          load4<E>(&tile.v[j][lane * 4], v4);
+          uint32_t hi[QC / 2], lo[QC / 2];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(pj, v4[e], acc[i][e]);
+          for (int e = 0; e < QC; e += 2) {
+            hi[e / 2] = pack2<MT>(v[u][e], v[u][e + 1]);
+            const MT* hp = reinterpret_cast<const MT*>(&hi[e / 2]);
+            lo[e / 2] = pack2<MT>(v[u][e] - to_f32<MT>(hp[0]), v[u][e + 1] - to_f32<MT>(hp[1]));
+          }
+          const int off = swz(r, d / 8, MROWB);
+          *reinterpret_cast<uint4*>(qs + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<uint4*>(qs + rows * MROWB + off) =
+              make_uint4(lo[0], lo[1], lo[2], lo[3]);
         }
       }
-    }
-  }
-
+      if constexpr (CUR) {
+        float part = 0.f;
 #pragma unroll
-  for (int i = 0; i < HPW; ++i) {
-    const int gi = warp + DEC_WARPS * i;
-    if (gi >= g) continue;
-    const size_t slot = (((size_t)b * nkv + h) * nsplit + split) * g + gi;
-    if (lane == 0) {
-      part_ml[slot * 2] = m[i];
-      part_ml[slot * 2 + 1] = l[i];
-    }
+        for (int e = 0; e < QC; ++e) part = fmaf(v[u][e], kn[u][e], part);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) part_acc[slot * HD + lane * 4 + e] = acc[i][e];
-  }
-}
-
-// One block per (query head, row); thread d owns output element d of D.
-// With CUR (K2, K8, K9) the current token's k/v fold in after the slices;
-// q and out are of dtype code qdt, k_new and v_new of kdt. Without it (K14)
-// q, k_new and v_new are not read.
-template <int D, bool CUR>
-__global__ void __launch_bounds__(D) flash_decode_combine_kernel(
-    const void* __restrict__ q, const void* __restrict__ k_new,
-    const void* __restrict__ v_new, const float* __restrict__ part_ml,
-    const float* __restrict__ part_acc, void* __restrict__ out, int qdt, int kdt,
-    int nq, int nkv, int nsplit, float scale) {
-  const int hq = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const int g = nq / nkv, h = hq / g, gi = hq % g;
-
-  float s_c = NEG_INF;
-  if constexpr (CUR) {
-    __shared__ float red[D / 32];
-    // score of the current token, (q * scale) . k_new, as in the split kernel
-    const float qd = load_act(q, qdt, ((size_t)b * nq + hq) * D + d) * scale;
-    float s = warp_sum(qd * load_act(k_new, kdt, ((size_t)b * nkv + h) * D + d));
-    if ((d & 31) == 0) red[d >> 5] = s;
-    __syncthreads();
-    s_c = 0.f;
-#pragma unroll
-    for (int w = 0; w < D / 32; ++w) s_c += red[w];
-  }
-
-  float m_all = s_c;
-  for (int sp = 0; sp < nsplit; ++sp) {
-    const size_t slot = (((size_t)b * nkv + h) * nsplit + sp) * g + gi;
-    m_all = fmaxf(m_all, part_ml[slot * 2]);
-  }
-  float l_all = 0.f, a = 0.f;
-  for (int sp = 0; sp < nsplit; ++sp) {
-    const size_t slot = (((size_t)b * nkv + h) * nsplit + sp) * g + gi;
-    const float ms = part_ml[slot * 2];
-    if (ms == NEG_INF) continue;  // an empty slice (past len_b)
-    const float w = __expf(ms - m_all);
-    l_all = fmaf(part_ml[slot * 2 + 1], w, l_all);
-    a = fmaf(part_acc[slot * D + d], w, a);
-  }
-  if constexpr (CUR) {
-    const float p_c = __expf(s_c - m_all);
-    l_all += p_c;
-    a = fmaf(p_c, load_act(v_new, kdt, ((size_t)b * nkv + h) * D + d), a);
-  }
-  store_act(out, qdt, ((size_t)b * nq + hq) * D + d, a / l_all);
-}
-
-// K14's split kernel: the positions [j0, j1) of one (row, kv head) for a
-// chunk of up to LAYER_HEADS query heads of that kv head's group (the
-// grid's y is kv head x chunk: falcon-7b's 71 heads are 9 chunks, so each
-// warp owns one head and the chunks run side by side; a chunk's blocks
-// read the same K/V slice, from L2 after the first). Dynamic shared memory
-// holds a DEC_TILE-position K/V tile, the chunk's scaled queries and its
-// running state (max, sum, and the unnormalised output [heads][D], in f32).
-// Warp w owns heads w, w + nwarps, ... of the chunk: lane j scores position
-// j of the tile, then the warp folds the tile's weighted V rows into its
-// head's state (lane owns D / 32 output elements).
-// Layout [V tile | K tile (padded rows) | q | acc | ml | ps].
-template <int D, typename E>
-__global__ void __launch_bounds__(DEC_LAYER_THREADS) flash_decode_layer_split_kernel(
-    const void* __restrict__ q, int qdt, const E* __restrict__ kc, const E* __restrict__ vc,
-    int length, float* __restrict__ part_ml, float* __restrict__ part_acc, int nq, int nkv,
-    int T, int split_len, float scale) {
-  constexpr int EPV = 16 / sizeof(E);      // elements per 16-byte load
-  constexpr int KROW = D + 4 / sizeof(E);  // a K row padded by one word
-  constexpr int PL = D / 32;               // output elements per lane
-  extern __shared__ __align__(16) unsigned char smem[];
-  E* vt = reinterpret_cast<E*>(smem);
-  E* kt = vt + DEC_TILE * D;
-  const int g = nq / nkv;
-  const int nwarps = blockDim.x >> 5;
-  float* qs = reinterpret_cast<float*>(kt + DEC_TILE * KROW);
-  float* acc = qs + LAYER_HEADS * D;
-  float* ml = acc + LAYER_HEADS * D;
-  float* ps = ml + 2 * LAYER_HEADS;
-
-  const int nchunk = (g + LAYER_HEADS - 1) / LAYER_HEADS;
-  const int split = blockIdx.x, h = blockIdx.y / nchunk, b = blockIdx.z;
-  const int g0 = (blockIdx.y % nchunk) * LAYER_HEADS;   // the chunk's first head
-  const int gc = min(LAYER_HEADS, g - g0);              // and its heads
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int j0 = split * split_len;
-  const int j1 = min(length, j0 + split_len);
-  for (int i = tid; i < gc * D; i += blockDim.x) {
-    qs[i] = load_act(q, qdt, ((size_t)b * nq + h * g + g0) * D + i) * scale;
-    acc[i] = 0.f;
-  }
-  for (int i = tid; i < gc; i += blockDim.x) {
-    ml[2 * i] = NEG_INF;
-    ml[2 * i + 1] = 0.f;
-  }
-  const size_t head = ((size_t)b * nkv + h) * T * D;
-  for (int t0 = j0; t0 < j1; t0 += DEC_TILE) {
-    const int n = min(DEC_TILE, j1 - t0);
-    __syncthreads();  // previous tile fully consumed (and qs, acc, ml written)
-    for (int i = tid; i < DEC_TILE * (D / EPV); i += blockDim.x) {
-      const int r = i / (D / EPV), c = i % (D / EPV);
-      uint4 kk = make_uint4(0u, 0u, 0u, 0u), vv = make_uint4(0u, 0u, 0u, 0u);
-      if (r < n) {
-        const size_t o = head + (size_t)(t0 + r) * D + c * EPV;
-        kk = *reinterpret_cast<const uint4*>(kc + o);
-        vv = *reinterpret_cast<const uint4*>(vc + o);
+        for (int o = CPQ / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+        if (c < nqc && c % CPQ == 0 && r < g) sc[r] = part;
       }
-      uint32_t* kd = reinterpret_cast<uint32_t*>(kt + r * KROW + c * EPV);
-      kd[0] = kk.x; kd[1] = kk.y; kd[2] = kk.z; kd[3] = kk.w;
-      *reinterpret_cast<uint4*>(vt + r * D + c * EPV) = vv;
     }
-    __syncthreads();
-    for (int gi = warp; gi < gc; gi += nwarps) {
-      const float* qg = qs + gi * D;
-      const E* kr = kt + lane * KROW;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; d += 2) {
-        const float2 kf = kpair(kr + d);
-        s = fmaf(qg[d], kf.x, s);
-        s = fmaf(qg[d + 1], kf.y, s);
+  }
+  if (CUR && tid < D) vnew[tid] = vn;
+  const int p1 = min(len, p0 + a.per);
+  const int ntiles = p1 > p0 ? (p1 - p0 + TILE - 1) / TILE : 0;
+  for (int s = 1; s < a.stages - 1; ++s) {
+    if (s < ntiles) issue(s, p1);
+    hop::cp_async_commit();
+  }
+
+  const int mt = warp / PW, c0 = (warp % PW) * NPW;   // row tile, first column
+  const int gq = lane >> 2, tq = lane & 3;
+  float o[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < ntiles; ++i) {
+    hop::cp_async_wait_pending(a.stages - 2);   // tile i has landed (this thread's copies)
+    __syncthreads();                            // everyone's, and tile i - 1 is consumed
+    if (i + a.stages - 1 < ntiles) issue(i + a.stages - 1, p1);
+    hop::cp_async_commit();
+    uint8_t* st = ring + (i % a.stages) * L.stage;
+    const int t0 = p0 + i * TILE;
+    if (i == 0 && min(spec, t0 + TILE) > p1) {   // the first tile ran past the row's end:
+      const int r0 = p1 - t0;                   // zero V there (0 * NaN is NaN)
+      for (int c = tid; c < (TILE - r0) * CPR; c += nthr)
+        *reinterpret_cast<uint4*>(st + TILE * ROWB + swz(r0 + c / CPR, c % CPR, ROWB)) =
+            make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (I8)
+        for (int c = r0 + tid; c < TILE; c += nthr)
+          reinterpret_cast<float*>(st + 2 * TILE * ROWB)[TILE + c] = 0.f;
+      __syncthreads();
+    }
+    const uint8_t* kt = st;
+    const uint8_t* vt = st + TILE * ROWB;
+    const float* kscale = nullptr;
+    const float* vscale = nullptr;
+    if constexpr (I8) {   // widen the codes to f16 (exact) in the second tile
+      for (int c = tid; c < 2 * TILE * CPR; c += nthr) {
+        const int kvs = c / (TILE * CPR), rem = c - kvs * TILE * CPR;
+        const int r = rem / CPR, ch = rem % CPR;
+        const uint4 w = *reinterpret_cast<const uint4*>(st + kvs * TILE * ROWB + swz(r, ch, ROWB));
+        uint32_t x[8];
+        widen4(w.x, x[0], x[1]);
+        widen4(w.y, x[2], x[3]);
+        widen4(w.z, x[4], x[5]);
+        widen4(w.w, x[6], x[7]);
+        uint8_t* dst = wide + kvs * TILE * MROWB;
+        *reinterpret_cast<uint4*>(dst + swz(r, 2 * ch, MROWB)) = make_uint4(x[0], x[1], x[2], x[3]);
+        *reinterpret_cast<uint4*>(dst + swz(r, 2 * ch + 1, MROWB)) =
+            make_uint4(x[4], x[5], x[6], x[7]);
       }
-      if (lane >= n) s = NEG_INF;
-      const float m_old = ml[2 * gi];
-      const float m_new = fmaxf(m_old, warp_max(s));  // finite: n >= 1
-      const float alpha = __expf(m_old - m_new);
-      const float p = __expf(s - m_new);
-      const float l_new = ml[2 * gi + 1] * alpha + warp_sum(p);
-      ps[warp * DEC_TILE + lane] = p;
+      __syncthreads();
+      kt = wide;
+      vt = wide + TILE * MROWB;
+      kscale = reinterpret_cast<const float*>(st + 2 * TILE * ROWB);
+      vscale = kscale + TILE;
+    }
+
+    // S = (q * scale) . K^T over this warp's NPW columns (the lo half's
+    // products in sl: two shorter chains of dependent mma)
+    float s[NPW / 8][4], sl[NPW / 8][4];
+#pragma unroll
+    for (int j = 0; j < NPW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = 0.f;
+    if constexpr (F32) {
+      const int ra = mt * 16 + gq;
+#pragma unroll 4
+      for (int c = 0; c < D / 4; ++c) {
+        const float4 qa = *reinterpret_cast<const float4*>(qs + swz(ra, c, D * 4));
+        const float4 qb = *reinterpret_cast<const float4*>(qs + swz(ra + 8, c, D * 4));
+#pragma unroll
+        for (int j = 0; j < NPW / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float4 k4 =
+                *reinterpret_cast<const float4*>(kt + swz(c0 + 8 * j + 2 * tq + e, c, ROWB));
+            s[j][e] = fmaf(qa.w, k4.w, fmaf(qa.z, k4.z, fmaf(qa.y, k4.y, fmaf(qa.x, k4.x, s[j][e]))));
+            s[j][2 + e] =
+                fmaf(qb.w, k4.w, fmaf(qb.z, k4.z, fmaf(qb.y, k4.y, fmaf(qb.x, k4.x, s[j][2 + e]))));
+          }
+      }
+    } else {
+      const int qrow = mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+      const int krow = c0 + (lane & 7) + 8 * (lane >> 4);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qh[4], ql[4];
+        const int qo = swz(qrow, 2 * kk + (lane >> 4), MROWB);
+        hop::ldsm_x4(qh, qs + qo);
+        hop::ldsm_x4(ql, qs + rows * MROWB + qo);
+#pragma unroll
+        for (int np = 0; np < NPW / 16; ++np) {
+          uint32_t kb[4];
+          hop::ldsm_x4(kb, kt + swz(krow + 16 * np, 2 * kk + ((lane >> 3) & 1), MROWB));
+          mma_16816<MT>(s[2 * np], qh, kb[0], kb[1]);
+          mma_16816<MT>(sl[2 * np], ql, kb[0], kb[1]);
+          mma_16816<MT>(s[2 * np + 1], qh, kb[2], kb[3]);
+          mma_16816<MT>(sl[2 * np + 1], ql, kb[2], kb[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NPW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += sl[j][e];
+    }
+
+    // online softmax of rows gq, gq + 8 (K9: K's scale on the score)
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < NPW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * j + 2 * tq + e;
+        const bool live = t0 + col < p1;
+        float sa = s[j][e], sb = s[j][2 + e];
+        if constexpr (I8) {
+          sa *= kscale[col];
+          sb *= kscale[col];
+        }
+        s[j][e] = live ? sa : NEG_INF;
+        s[j][2 + e] = live ? sb : NEG_INF;
+        mx[0] = fmaxf(mx[0], s[j][e]);
+        mx[1] = fmaxf(mx[1], s[j][2 + e]);
+      }
+    float ref[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);
+      ref[r] = mn == NEG_INF ? 0.f : mn;   // no live column yet: weights 0
+      alpha[r] = __expf(m[r] - ref[r]);
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int j = 0; j < NPW / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = __expf(s[j][e] - ref[0]);
+        s[j][2 + e] = __expf(s[j][2 + e] - ref[1]);
+        sum[0] += s[j][e];
+        sum[1] += s[j][2 + e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += P . V
+    if constexpr (F32) {
+      float* pw = ps + warp * 16 * NPW;
+#pragma unroll
+      for (int j = 0; j < NPW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          pw[gq * NPW + 8 * j + 2 * tq + e] = s[j][e];
+          pw[(gq + 8) * NPW + 8 * j + 2 * tq + e] = s[j][2 + e];
+        }
       __syncwarp();
-      float* ag = acc + gi * D + lane * PL;
-      float a[PL];
+      for (int j = 0; j < NPW; ++j) {
+        const float pa = pw[gq * NPW + j], pb = pw[(gq + 8) * NPW + j];
+        const uint8_t* vrow = vt + (c0 + j) * ROWB;
 #pragma unroll
-      for (int e = 0; e < PL; ++e) a[e] = ag[e] * alpha;
-      for (int j = 0; j < n; ++j) {
-        const float pj = ps[warp * DEC_TILE + j];
-        float v[PL];
-        if constexpr (PL == 4) {
-          load4<E>(vt + j * D + lane * PL, v);
-        } else {
-          const float2 vf = kpair(vt + j * D + lane * PL);
-          v[0] = vf.x;
-          v[1] = vf.y;
+        for (int dn = 0; dn < D / 8; ++dn) {
+          const int ch = 2 * dn + (tq >> 1);
+          const float2 v2 = *reinterpret_cast<const float2*>(
+              vrow + ((ch ^ ((c0 + j) & 7)) << 4) + (tq & 1) * 8);
+          o[dn][0] = fmaf(pa, v2.x, o[dn][0]);
+          o[dn][1] = fmaf(pa, v2.y, o[dn][1]);
+          o[dn][2] = fmaf(pb, v2.x, o[dn][2]);
+          o[dn][3] = fmaf(pb, v2.y, o[dn][3]);
         }
-#pragma unroll
-        for (int e = 0; e < PL; ++e) a[e] = fmaf(pj, v[e], a[e]);
       }
+      __syncwarp();
+    } else {
+      const int vrow = c0 + (lane & 7) + 8 * ((lane >> 3) & 1);
 #pragma unroll
-      for (int e = 0; e < PL; ++e) ag[e] = a[e];
-      if (lane == 0) {
-        ml[2 * gi] = m_new;
-        ml[2 * gi + 1] = l_new;
+      for (int kk = 0; kk < NPW / 16; ++kk) {
+        float w[4] = {1.f, 1.f, 1.f, 1.f};   // K9: V's scale of columns 2tq, +1, +8, +9
+        if constexpr (I8) {
+          const int col = c0 + 16 * kk + 2 * tq;
+          w[0] = vscale[col];
+          w[1] = vscale[col + 1];
+          w[2] = vscale[col + 8];
+          w[3] = vscale[col + 9];
+        }
+        uint32_t pa[4];
+        pa[0] = pack2<MT>(s[2 * kk][0] * w[0], s[2 * kk][1] * w[1]);
+        pa[1] = pack2<MT>(s[2 * kk][2] * w[0], s[2 * kk][3] * w[1]);
+        pa[2] = pack2<MT>(s[2 * kk + 1][0] * w[2], s[2 * kk + 1][1] * w[3]);
+        pa[3] = pack2<MT>(s[2 * kk + 1][2] * w[2], s[2 * kk + 1][3] * w[3]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t vb[4];
+          hop::ldsm_x4_trans(vb, vt + swz(vrow + 16 * kk, 2 * dp + (lane >> 4), MROWB));
+          mma_16816<MT>(o[2 * dp], pa, vb[0], vb[1]);
+          mma_16816<MT>(o[2 * dp + 1], pa, vb[2], vb[3]);
+        }
       }
-      __syncwarp();  // ps is the warp's next head's
     }
+  }
+
+  // each warp's state into shared memory (over the ring: all copies
+  // landed), rows padded to DP floats so that a store's 8 rows differ in bank
+  constexpr int DP = D + 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  hop::cp_async_wait_all();
+  __syncthreads();
+  float* ws = wst + warp * 16 * DP;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(ws + (gq + 8 * r) * DP + 8 * dn + 2 * tq) =
+          make_float2(o[dn][2 * r], o[dn][2 * r + 1]);
+  if (tq == 0) {
+    *reinterpret_cast<float2*>(wml + (warp * 16 + gq) * 2) = make_float2(m[0], l[0]);
+    *reinterpret_cast<float2*>(wml + (warp * 16 + gq + 8) * 2) = make_float2(m[1], l[1]);
   }
   __syncthreads();
-  const size_t slot0 = (((size_t)b * nkv + h) * gridDim.x + split) * g + g0;
-  for (int i = tid; i < gc * D; i += blockDim.x) part_acc[slot0 * D + i] = acc[i];
-  for (int i = tid; i < 2 * gc; i += blockDim.x) part_ml[slot0 * 2 + i] = ml[i];
+  // the block's state: its PW warps of each row tile merged into the first
+  // one's slot, the rows' weights computed once (a warp with no live
+  // position weighs 0; its output and sum are 0)
+  for (int r = tid; r < g; r += nthr) {
+    const int rr = r % 16, w0 = (r / 16) * PW;
+    float mb = NEG_INF, lb = 0.f;
+#pragma unroll
+    for (int p = 0; p < PW; ++p) mb = fmaxf(mb, wml[((w0 + p) * 16 + rr) * 2]);
+#pragma unroll
+    for (int p = 0; p < PW; ++p) {
+      const float mw = wml[((w0 + p) * 16 + rr) * 2];
+      const float wgt = mw == NEG_INF ? 0.f : __expf(mw - mb);
+      lb = fmaf(wml[((w0 + p) * 16 + rr) * 2 + 1], wgt, lb);
+      bw[r * 4 + p] = wgt;
+    }
+    bml[2 * r] = mb;
+    bml[2 * r + 1] = lb;
+  }
+  __syncthreads();
+  const int n4 = g * (D / 4);
+  for (int i = tid; i < n4; i += nthr) {
+    const int r = i / (D / 4), d = (i % (D / 4)) * 4, rr = r % 16, w0 = (r / 16) * PW;
+    float4 ob = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int p = 0; p < PW; ++p) {
+      const float4 ow = *reinterpret_cast<const float4*>(wst + ((w0 + p) * 16 + rr) * DP + d);
+      const float wgt = bw[r * 4 + p];
+      ob = make_float4(fmaf(ow.x, wgt, ob.x), fmaf(ow.y, wgt, ob.y), fmaf(ow.z, wgt, ob.z),
+                       fmaf(ow.w, wgt, ob.w));
+    }
+    *reinterpret_cast<float4*>(wst + (w0 * 16 + rr) * DP + d) = ob;
+  }
+
+  // The cluster merge: `le` consecutive lanes (a power of two) take an
+  // output float4 of this block's share of the g x D outputs, each reading
+  // the (max, sum) and that float4 of its blocks (ranks lane, lane + le,
+  // ...) in one round of remote loads and merging them online, then across
+  // the lanes by shuffles (as many lanes as the threads allow, so that every
+  // remote load is in flight at once); the first lane folds in the current
+  // token. A block alone (the same arithmetic) needs no cluster.
+  if (nsplit == 1) {
+    __syncthreads();
+    for (int i = tid; i < n4; i += nthr) {
+      const int r = i / (D / 4), d = (i % (D / 4)) * 4;
+      const float2 ml = *reinterpret_cast<const float2*>(bml + 2 * r);
+      const float s_c = CUR ? sc[r] : NEG_INF;
+      const float m_all = fmaxf(ml.x, s_c);
+      const float wgt = ml.x == NEG_INF ? 0.f : __expf(ml.x - m_all);
+      const float p_c = CUR ? __expf(s_c - m_all) : 0.f;
+      const float den = ml.y * wgt + p_c;
+      const float4 ov =
+          *reinterpret_cast<const float4*>(wst + ((r / 16) * PW * 16 + r % 16) * DP + d);
+      const float acc[4] = {ov.x * wgt, ov.y * wgt, ov.z * wgt, ov.w * wgt};
+      const size_t oo = ((size_t)b * a.nq + h * g + r) * D + d;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        store_act(a.out, a.qdt, oo + e,
+                  (CUR ? fmaf(p_c, vnew[d + e], acc[e]) : acc[e]) / den);
+    }
+    return;
+  }
+  const int lo = rank * n4 / nsplit, hi = (rank + 1) * n4 / nsplit;
+  int le = 1;
+  while (le < nsplit && 2 * le * (hi - lo) <= nthr) le *= 2;
+  hop::cluster_sync();
+  for (int i = tid; i < ((hi - lo) * le + 31) / 32 * 32; i += nthr) {
+    const int item = lo + i / le, p = i % le;
+    const bool in = item < hi;
+    const int r = in ? item / (D / 4) : 0, d = (item % (D / 4)) * 4;
+    const float* op = wst + ((r / 16) * PW * 16 + r % 16) * DP + d;
+    float m = NEG_INF, l = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+    // (m, l, acc) += (mq, lq, oq), online: weights against the larger max
+    auto fold = [&](float mq, float lq, const float* oq) {
+      const float mn = fmaxf(m, mq), ref = mn == NEG_INF ? 0.f : mn;
+      const float wa = __expf(m - ref), wb = __expf(mq - ref);
+      l = l * wa + lq * wb;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[e] = acc[e] * wa + oq[e] * wb;
+      m = mn;
+    };
+#pragma unroll
+    for (int j0 = 0; j0 < dec::MAX_CLUSTER; j0 += 4) {
+      if (j0 * le >= nsplit) break;   // the lanes hold every block already
+      float2 ml[4];
+      float4 ov[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {   // a slice with no position: max -inf, zeros
+        const int q = p + (j0 + j) * le;
+        ml[j] = make_float2(NEG_INF, 0.f);
+        ov[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (in && q < nsplit) {
+          ml[j] = hop::ld_cluster_f32x2(hop::cluster_map(bml + 2 * r, q));
+          ov[j] = hop::ld_cluster_f32x4(hop::cluster_map(op, q));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float oq[4] = {ov[j].x, ov[j].y, ov[j].z, ov[j].w};
+        fold(ml[j].x, ml[j].y, oq);
+      }
+    }
+    for (int x = le / 2; x > 0; x >>= 1) {
+      float oq[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oq[e] = __shfl_xor_sync(~0u, acc[e], x);
+      const float mq = __shfl_xor_sync(~0u, m, x), lq = __shfl_xor_sync(~0u, l, x);
+      fold(mq, lq, oq);
+    }
+    if (in && p == 0) {
+      const float s_c = CUR ? sc[r] : NEG_INF;
+      const float m_all = fmaxf(m, s_c);
+      const float wgt = m == NEG_INF ? 0.f : __expf(m - m_all);
+      const float p_c = CUR ? __expf(s_c - m_all) : 0.f;
+      const float den = l * wgt + p_c;
+      const size_t oo = ((size_t)b * a.nq + h * g + r) * D + d;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        store_act(a.out, a.qdt, oo + e,
+                  (CUR ? fmaf(p_c, vnew[d + e], acc[e] * wgt) : acc[e] * wgt) / den);
+    }
+  }
+  hop::cluster_sync();   // the peers are done reading this block's state
 }
 
-// Bytes of K14's dynamic shared memory: at most 42 KB (D 128 over an f32
-// cache), inside the 48 KB a launch gets without an opt-in attribute.
-template <int D, typename E>
-constexpr size_t layer_smem(int nwarps) {
-  return (size_t)DEC_TILE * D * sizeof(E) + (size_t)DEC_TILE * (D + 4 / sizeof(E)) * sizeof(E)
-         + ((size_t)2 * LAYER_HEADS * D + 2 * LAYER_HEADS + (size_t)nwarps * DEC_TILE)
-           * sizeof(float);
+// One launch of the body as clusters of `cluster` blocks along x. The
+// plan (ops/decode_attn.py::decode_plan) is checked, not adjusted: a plan
+// the kernel cannot run, or a cluster the card cannot schedule, returns
+// cudaErrorInvalidValue.
+template <int D, int NPW, bool CUR, typename KV>
+int launch_decode(const KV& kv, const DecodeArgs& a, int B, int cluster, int smem,
+                  cudaStream_t st) {
+  using E = typename KV::Elem;
+  static int smem_set = 0, nonportable = 0, checked[dec::MAX_CLUSTER + 1] = {0};
+  const int g = a.nq / a.nkv;
+  if (a.stages < 2 || a.stages > 4 || cluster < 1 || cluster > dec::MAX_CLUSTER ||
+      a.per < dec::TILE || a.per % dec::TILE || smem > dec::SMEM_MAX ||
+      smem != dec_layout<D, NPW, E>(g, a.stages).total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_decode_kernel<D, NPW, CUR, KV>;
+  int err = hop::allow_smem(kernel, smem, &smem_set);
+  if (err) return err;
+  if (cluster > 8 && !nonportable) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    nonportable = 1;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cluster, a.nkv, B);
+  cfg.blockDim = dim3(32 * ((g + 15) / 16) * (dec::TILE / NPW));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (smem > checked[cluster]) {
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+    checked[cluster] = smem;
+  }
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, kv, a);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
-static_assert(layer_smem<128, float>(LAYER_HEADS) <= 48 * 1024, "K14's tile outgrew 48 KB");
 
-template <int D, typename E>
-int run_decode_layer(const void* q, int qdt, const void* kc, const void* vc, int length,
-                     float* ml, float* acc, void* out, int B, int nq, int nkv, int T,
-                     int nsplit, int split_len, float scale, cudaStream_t st) {
-  const int g = nq / nkv;
-  const int nwarps = min(g, LAYER_HEADS);
-  flash_decode_layer_split_kernel<D, E>
-      <<<dim3(nsplit, nkv * cdiv(g, LAYER_HEADS), B), nwarps * 32,
-         layer_smem<D, E>(nwarps), st>>>(
-      q, qdt, static_cast<const E*>(kc), static_cast<const E*>(vc), length, ml, acc, nq, nkv,
-      T, split_len, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_combine_kernel<D, false><<<dim3(nq, B), D, 0, st>>>(
-      nullptr, nullptr, nullptr, ml, acc, out, qdt, 0, nq, nkv, nsplit, 0.f);
-  return static_cast<int>(cudaGetLastError());
+// K2, K8 and K9: head_dim 128 and at most two 16-row tiles of q heads.
+template <typename KV>
+int run_decode(const KV& kv, const DecodeArgs& a, int B, int cluster, int smem, void* stream) {
+  if (a.nq % a.nkv || a.nq / a.nkv > 32) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_decode<HD, 16, true>(kv, a, B, cluster, smem, static_cast<cudaStream_t>(stream));
 }
-
 constexpr int PF_BQ = 64, PF_BKV = 64, PF_PAD = 8;
 
 // 8 consecutive cache elements as 8 MT values in one uint4.
@@ -903,62 +1215,26 @@ int prefill_wgmma(const void* q, const void* cache, void* out, int B, int S, int
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int HPW, typename KV>
-void launch_split(const void* q, int qdt, const KV& kv, const int* lengths, int max_len,
-                  float* ml, float* acc, int B, int nq, int nkv, int nsplit,
-                  int split_len, float scale, cudaStream_t st) {
-  const dim3 grid(nsplit, nkv, B);
-  flash_decode_split_kernel<HPW, KV><<<grid, 128, 0, st>>>(
-      q, qdt, kv, lengths, max_len, ml, acc, nq, nkv, split_len, scale);
-}
-
-// The split kernel at the group's warp width, then the combine kernel. An
-// f32 tile has room for 16 query heads per kv head (the 48 KB of static
-// shared memory), the others for 32.
-template <typename KV>
-int run_decode(const void* q, const void* k_new, const void* v_new, int qdt, int kdt,
-               const KV& kv, const void* lengths, int max_len, void* part_ml,
-               void* part_acc, void* out, int B, int nq, int nkv, int nsplit,
-               int split_len, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* lb = static_cast<const int*>(lengths);
-  float* ml = static_cast<float*>(part_ml);
-  float* acc = static_cast<float*>(part_acc);
-  const int g = nq / nkv;
-  if (g <= 4) launch_split<1>(q, qdt, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
-  else if (g <= 8) launch_split<2>(q, qdt, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
-  else if (g <= 16) launch_split<4>(q, qdt, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
-  else if constexpr (sizeof(typename KV::Elem) != 4) {
-    if (g <= 32) launch_split<8>(q, qdt, kv, lb, max_len, ml, acc, B, nq, nkv, nsplit, split_len, scale, st);
-    else return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  flash_decode_combine_kernel<HD, true><<<dim3(nq, B), HD, 0, st>>>(
-      q, k_new, v_new, ml, acc, out, qdt, kdt, nq, nkv, nsplit, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // run_decode over the address functor F<E> of the cache dtype code cdt.
 template <template <typename> class F, typename Make>
-int run_typed(int cdt, Make make, const void* q, const void* k_new, const void* v_new,
-              int qdt, int kdt, const void* lengths, int max_len, void* part_ml,
-              void* part_acc, void* out, int B, int nq, int nkv, int nsplit,
-              int split_len, float scale, void* stream) {
+int run_typed(int cdt, Make make, const DecodeArgs& a, int B, int cluster, int smem,
+              void* stream) {
   switch (cdt) {
-    case 0: return run_decode(q, k_new, v_new, qdt, kdt, make(F<float>{}), lengths, max_len,
-                              part_ml, part_acc, out, B, nq, nkv, nsplit, split_len, scale,
-                              stream);
-    case 1: return run_decode(q, k_new, v_new, qdt, kdt, make(F<bf16>{}), lengths, max_len,
-                              part_ml, part_acc, out, B, nq, nkv, nsplit, split_len, scale,
-                              stream);
-    case 2: return run_decode(q, k_new, v_new, qdt, kdt, make(F<__half>{}), lengths, max_len,
-                              part_ml, part_acc, out, B, nq, nkv, nsplit, split_len, scale,
-                              stream);
+    case 0: return run_decode(make(F<float>{}), a, B, cluster, smem, stream);
+    case 1: return run_decode(make(F<bf16>{}), a, B, cluster, smem, stream);
+    case 2: return run_decode(make(F<__half>{}), a, B, cluster, smem, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K14 at head_dim D over a cache of E: one 16-row tile of q heads a warp
+// and 4 warps a tile up to 32 heads, 2 warps (32 positions each) above.
+template <int D, typename E>
+int run_layer(const void* kc, const void* vc, int nkv, int T, int length, const DecodeArgs& a,
+              int B, int cluster, int smem, cudaStream_t st) {
+  const LayerKV<E, D> kv{static_cast<const E*>(kc), static_cast<const E*>(vc), nkv, T, length};
+  if (a.nq / nkv <= 32) return launch_decode<D, 16, false>(kv, a, B, cluster, smem, st);
+  return launch_decode<D, 32, false>(kv, a, B, cluster, smem, st);
 }
 
 template <int D>
@@ -985,56 +1261,57 @@ int run_prefill(const void* q, const void* cache, void* out, int B, int S, int n
 
 // Dtype codes: 0 f32, 1 bf16, 2 f16. q [B, nq, 128] and out of qdt;
 // k_new, v_new [B, nkv, 128] of kdt; cache [2, B, nkv, T, 128] contiguous
-// of cdt; lengths int32 [B] (each <= T); part_ml f32 [B, nkv, nsplit, g, 2];
-// part_acc f32 [B, nkv, nsplit, g, 128]; nsplit * split_len >=
-// max(lengths), split_len % 32 == 0; g = nq / nkv <= 32 (16 for an f32
-// cache).
+// and 16-byte aligned, of cdt; lengths int32 [B] (clamped to [0, T]);
+// g = nq / nkv <= 32 (16 for an f32 cache: the host plan's shared memory).
+// The plan (ops/decode_attn.py::decode_plan): `cluster` blocks of `per`
+// positions (a multiple of 64, cluster * per >= max(lengths)) for each
+// (row, kv head), `stages` ring stages, `smem` bytes of shared memory.
 extern "C" int awq_flash_decode(const void* q, const void* k_new, const void* v_new,
-                                const void* cache, const void* lengths,
-                                void* part_ml, void* part_acc, void* out, int B,
-                                int nq, int nkv, int T, int nsplit, int split_len,
-                                float scale, int qdt, int kdt, int cdt, void* stream) {
+                                const void* cache, const void* lengths, void* out, int B,
+                                int nq, int nkv, int T, int cluster, int per, int stages,
+                                int smem, float scale, int qdt, int kdt, int cdt,
+                                void* stream) {
+  const DecodeArgs a{q, k_new, v_new, out, qdt, kdt, nq, nkv, per, stages, scale};
   auto make = [&](auto tag) {
     using E = typename decltype(tag)::Elem;
-    return ContigKV<E>{static_cast<const E*>(cache), B, nkv, T};
+    return ContigKV<E>{static_cast<const E*>(cache), static_cast<const int*>(lengths), B, nkv,
+                       T};
   };
-  return run_typed<ContigKV>(cdt, make, q, k_new, v_new, qdt, kdt, lengths, T, part_ml,
-                             part_acc, out, B, nq, nkv, nsplit, split_len, scale, stream);
+  return run_typed<ContigKV>(cdt, make, a, B, cluster, smem, stream);
 }
 
 // K8: as awq_flash_decode, over one layer of the page pool, pool
 // [2, NP, nkv, page, 128] contiguous of cdt, with tables int32 [B, MP] of
-// page ids in [0, NP); lengths are clamped to [0, MP * page];
-// nsplit * split_len >= max(lengths).
+// page ids in [0, NP); lengths are clamped to [0, MP * page]; `per` is a
+// whole number of pages.
 extern "C" int awq_flash_decode_paged(const void* q, const void* k_new,
                                       const void* v_new, const void* pool,
-                                      const void* tables, const void* lengths,
-                                      void* part_ml, void* part_acc, void* out, int B,
-                                      int nq, int nkv, int np, int page, int mp,
-                                      int nsplit, int split_len, float scale, int qdt,
-                                      int kdt, int cdt, void* stream) {
+                                      const void* tables, const void* lengths, void* out,
+                                      int B, int nq, int nkv, int np, int page, int mp,
+                                      int cluster, int per, int stages, int smem, float scale,
+                                      int qdt, int kdt, int cdt, void* stream) {
+  if (page < 1 || per % page) return static_cast<int>(cudaErrorInvalidValue);
+  const DecodeArgs a{q, k_new, v_new, out, qdt, kdt, nq, nkv, per, stages, scale};
   auto make = [&](auto tag) {
     using E = typename decltype(tag)::Elem;
-    return PagedKV<E>{static_cast<const E*>(pool), static_cast<const int*>(tables), np,
-                      nkv, page, mp};
+    return PagedKV<E>{static_cast<const E*>(pool), static_cast<const int*>(tables),
+                      static_cast<const int*>(lengths), np, nkv, page, mp};
   };
-  return run_typed<PagedKV>(cdt, make, q, k_new, v_new, qdt, kdt, lengths, mp * page,
-                            part_ml, part_acc, out, B, nq, nkv, nsplit, split_len, scale,
-                            stream);
+  return run_typed<PagedKV>(cdt, make, a, B, cluster, smem, stream);
 }
 
 // K9: as awq_flash_decode, over one layer of an int8 cache: codes int8
-// [2, B, nkv, T, 128] and scales f32 [2, B, nkv, T], both contiguous; q,
-// out, k_new and v_new of qdt.
+// [2, B, nkv, T, 128] (16-byte aligned) and scales f32 [2, B, nkv, T], both
+// contiguous; q, out, k_new and v_new of qdt.
 extern "C" int awq_flash_decode_int8(const void* q, const void* k_new, const void* v_new,
                                      const void* codes, const void* scales,
-                                     const void* lengths, void* part_ml, void* part_acc,
-                                     void* out, int B, int nq, int nkv, int T, int nsplit,
-                                     int split_len, float scale, int qdt, void* stream) {
-  const Int8KV kv{static_cast<const int8_t*>(codes), static_cast<const float*>(scales), B,
-                  nkv, T};
-  return run_decode(q, k_new, v_new, qdt, qdt, kv, lengths, T, part_ml, part_acc, out, B,
-                    nq, nkv, nsplit, split_len, scale, stream);
+                                     const void* lengths, void* out, int B, int nq, int nkv,
+                                     int T, int cluster, int per, int stages, int smem,
+                                     float scale, int qdt, void* stream) {
+  const DecodeArgs a{q, k_new, v_new, out, qdt, qdt, nq, nkv, per, stages, scale};
+  const Int8KV kv{static_cast<const int8_t*>(codes), static_cast<const float*>(scales),
+                  static_cast<const int*>(lengths), B, nkv, T};
+  return run_decode(kv, a, B, cluster, smem, stream);
 }
 
 // q [B, S, nq, hd] contiguous of qdt; cache [2, B, nkv, T, hd] contiguous
@@ -1060,22 +1337,20 @@ extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, in
 }
 
 // K14: q [B, nq, hd] contiguous of qdt; k_cache, v_cache [B, nkv, T, hd],
-// each contiguous, of cdt; positions [0, length) attended, 1 <= length <= T;
-// part_ml f32 [B, nkv, nsplit, g, 2], part_acc f32 [B, nkv, nsplit, g, hd];
-// nsplit * split_len >= length, split_len % 32 == 0; out [B, nq, hd] of qdt;
-// hd 64 or 128, g = nq / nkv <= 128.
+// each contiguous and 16-byte aligned, of cdt; positions [0, length)
+// attended, 1 <= length <= T; out [B, nq, hd] of qdt; hd 64 or 128,
+// g = nq / nkv <= 128; the plan as for awq_flash_decode.
 extern "C" int awq_flash_decode_layer(const void* q, const void* k_cache,
-                                      const void* v_cache, void* part_ml, void* part_acc,
-                                      void* out, int B, int nq, int nkv, int T, int length,
-                                      int nsplit, int split_len, int hd, float scale,
-                                      int qdt, int cdt, void* stream) {
+                                      const void* v_cache, void* out, int B, int nq, int nkv,
+                                      int T, int length, int hd, int cluster, int per,
+                                      int stages, int smem, float scale, int qdt, int cdt,
+                                      void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* ml = static_cast<float*>(part_ml);
-  float* acc = static_cast<float*>(part_acc);
+  const DecodeArgs a{q, nullptr, nullptr, out, qdt, 0, nq, nkv, per, stages, scale};
+  if (nq % nkv || nq / nkv > 128 || length < 1 || length > T)
+    return static_cast<int>(cudaErrorInvalidValue);
 #define AWQ_LAYER(D_, E_) \
-  return run_decode_layer<D_, E_>(q, qdt, k_cache, v_cache, length, ml, acc, out, B, nq, \
-                                  nkv, T, nsplit, split_len, scale, st)
-  if (nq % nkv || nq / nkv > 128) return static_cast<int>(cudaErrorInvalidValue);
+  return run_layer<D_, E_>(k_cache, v_cache, nkv, T, length, a, B, cluster, smem, st)
   if (hd == 64) {
     switch (cdt) {
       case 0: AWQ_LAYER(64, float);

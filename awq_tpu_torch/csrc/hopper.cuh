@@ -1,10 +1,13 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: K1's GEMM
 // entry (w4a16.cuh, W4 and W3), K10 and K11 (w8a8.cu) and K3's bf16/f16
-// modes (decode_attn.cu). Raw PTX, no CUTLASS: mbarriers, TMA tile loads
-// (2-D and 3-D) and cp.async into the same ring, the shared memory
-// descriptors (K-major and MN-major, 128-byte swizzle) and instructions of
-// wgmma (A from registers or shared memory, B optionally transposed), and
-// the host-side encoding of TMA descriptors.
+// modes (decode_attn.cu), and of the split flash decode (K2, K8, K9, K14 in
+// decode_attn.cu). Raw PTX, no CUTLASS: mbarriers, TMA tile loads (2-D and
+// 3-D) and cp.async (4 and 16 bytes, with commit groups) into the same
+// ring, ldmatrix, thread-block cluster helpers (the cluster barrier, mapa
+// and loads from a peer's shared memory), the shared memory descriptors
+// (K-major and MN-major, 128-byte swizzle) and instructions of wgmma (A from
+// registers or shared memory, B optionally transposed), and the host-side
+// encoding of TMA descriptors.
 //
 // The units link the CUDA runtime only: cuTensorMapEncodeTiled, a driver
 // function, is fetched once through cudaGetDriverEntryPointByVersion and
@@ -111,6 +114,79 @@ __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// 16 bytes global -> shared through L2 only, zero-filled where !valid (src
+// is not read then). Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Close this thread's group of cp.async copies issued since the last commit
+// (an empty group too, so that the count of groups stays one per stage).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most `pending` of this thread's groups are still in
+// flight, for a runtime `pending` of 0..3 (the instruction takes an
+// immediate).
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+  }
+}
+
+// Four 8x8 matrices of 16-bit elements from shared memory, one 16-byte row
+// address a lane (lanes 8i..8i+7 give matrix i's rows); r[i] of lane l is
+// matrix i's (row l / 4, columns 2 (l % 4), +1), or with .trans its
+// (rows 2 (l % 4), +1, column l / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(row)));
+}
+
+// ---- device: thread-block clusters ---------------------------------------
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// the shared-memory writes before it (release) are seen by the reads of
+// any block of the cluster after it (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The address in block `rank`'s shared memory of this block's shared `p`.
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+// Loads from a cluster address (cluster_map).
+__device__ __forceinline__ float2 ld_cluster_f32x2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(a) : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
 }
 
 // A 3-D TMA tile load (coordinates innermost first) that completes on `bar`.

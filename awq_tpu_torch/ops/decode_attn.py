@@ -12,17 +12,17 @@ its valid prefix.
 - :func:`flash_decode_paged` wraps kernel K8, which replaces
   ``flash_decode_paged``: K2's attention over ONE layer of a page pool
   ``[L, 2, NP, n_kv, page, hd]``, row ``b``'s position ``p`` at page
-  ``tables[b, p // page]``, offset ``p % page``. K8 is K2's split kernel
-  with a paged address functor (``csrc/decode_attn.cu``); its splits are
-  whole pages.
+  ``tables[b, p // page]``, offset ``p % page``. K8 is K2's body with a
+  paged address functor (``csrc/decode_attn.cu``); its slices are whole
+  pages.
 - :func:`flash_decode_int8` wraps kernel K9, which replaces
   ``flash_decode_stacked8``: K2's attention over ONE layer of an int8 KV
   cache, codes ``[2, B, n_kv, T, hd]`` int8 and scales ``[2, B, n_kv, T]``
   f32 (a ``KVCache8``'s ``data[l]`` and ``scales[l]``), with the current
   token's k/v in full precision. Nothing is dequantized elementwise: K's
   scale multiplies a position's score after ``q·k_int8``, V's scale folds
-  into its softmax weight before ``p·v_int8``, and the weights stay f32.
-  K9 is K2's split kernel with an int8 address functor.
+  into its softmax weight before ``p·v_int8``. K9 is K2's body with an
+  int8 address functor.
 - :func:`flash_prefill` wraps kernel K3, which replaces
   ``flash_prefill_stacked`` with its online softmax: the chunk at
   ``[start_pos, start_pos + S)`` is already in the cache and query row
@@ -40,6 +40,17 @@ its valid prefix.
   64 or 128 and up to 128 query heads per kv head (falcon-7b: 71 over one
   kv head at head_dim 64). ``layers.attention`` calls it at S = 1.
 
+K2, K8, K9 and K14 are one split-and-merge body, one launch a call: the
+positions of each (row, kv head) are cut into slices whose blocks form a
+thread-block cluster and merge their online-softmax states through
+distributed shared memory, streaming K/V through a ring of asynchronous
+copies; the kv head's query group forms the rows of ``mma.sync`` products
+(q·scale split into two halves of the mma type, P rounded to the cache's
+dtype for P·V, as the TPU kernels round it, to f16 over K9's codes; an f32
+cache on CUDA cores).
+:func:`decode_plan` is their host plan (cluster size, positions a block,
+ring stages, shared memory), which the C entries check and never adjust.
+
 Each has a plain PyTorch version beside it (``*_plain``): the CPU path,
 and the reference the kernels are held to on the card. On a CUDA tensor
 the wrappers launch the kernel or raise. The kernels take f32, bf16 and
@@ -53,6 +64,7 @@ mode; those wrappers raise) wait for their model families.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Union
 
@@ -65,10 +77,18 @@ LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0, "flash_decode_int8": 0,
 HEAD_DIM = 128            # the head_dim K2, K8 and K9 are built for
 HEAD_DIMS = (64, 128)     # the head_dims K3 and K14 are built for
 LAYER_MAX_GROUP = 128     # K14's most query heads per kv head
-_DECODE_TILE = 32         # positions per shared-memory tile (csrc)
-_MIN_SPLIT = 64           # fewest positions per split-K block
-_TARGET_BLOCKS = 264      # two waves of the H100's 132 SMs
-_LAYER_HEADS = 8          # query heads per K14 block (csrc)
+DECODE_TILE = 64          # positions of a ring stage (csrc dec::TILE)
+# K2's and K8's slices are whole 256-position units (the paged engine's
+# page), so that K8 over pages dividing 256 slices rows as K2 does and
+# returns K2's output bit for bit
+K2_UNIT = 256
+#: each wrapper's slice unit (the ``unit`` of its :func:`decode_plan`)
+PLAN_UNIT = {"flash_decode": K2_UNIT, "flash_decode_paged": K2_UNIT,
+             "flash_decode_int8": DECODE_TILE, "flash_decode_layer": DECODE_TILE}
+MAX_CLUSTER = 16          # blocks of a cluster (csrc dec::MAX_CLUSTER)
+SMEM_MAX = 232448         # shared memory a block may have (227 KB)
+SMEM_SM = 233472          # shared memory of an SM (228 KB), 1 KB of it reserved a block
+H100_SMS = 132
 _LOG2E = 1.4426950408889634
 PREFILL_ROWS = 128        # K3: packed query rows of a block (csrc k3::BQ)
 PREFILL_KV_TILE = {128: 64, 64: 128}   # K3: positions of a K/V tile by head_dim
@@ -246,13 +266,139 @@ def _check_group(what: str, nq: int, nkv: int, cache_dtype) -> None:
            f"per kv head over a {cache_dtype} cache")
 
 
-def _split(max_length: int, rows: int) -> tuple:
-    """(nsplit, split_len): enough split-K blocks to fill the card, each a
-    multiple of the kernel's tile and at least ``_MIN_SPLIT`` positions."""
-    want = max(1, -(-_TARGET_BLOCKS // rows))
-    split_len = max(_MIN_SPLIT, -(-max_length // want))
-    split_len = -(-split_len // _DECODE_TILE) * _DECODE_TILE
-    return max(1, -(-max_length // split_len)), split_len
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How the split flash-decode body (K2, K8, K9, K14) covers one call.
+
+    For each (row b, kv head) the positions ``[0, max_length)`` are cut into
+    ``cluster`` slices of ``per`` positions (a multiple of ``unit``:
+    :data:`DECODE_TILE`, or :data:`K2_UNIT` and whole pages for K2 and K8),
+    one block each: block ``rank``
+    takes ``[rank * per, min(len_b, (rank + 1) * per))``, streamed through a
+    ring of ``stages`` tiles. The blocks of a (row, kv head) are one
+    thread-block cluster (the grid is ``(cluster, nkv, b)``) and merge their
+    softmax states on chip. The kv head's ``g`` query heads are padded to
+    ``row_tiles`` 16-row tiles of ``mma.sync``; ``warps_per_tile`` warps
+    share a tile's positions, ``npw`` each. ``smem`` mirrors
+    ``csrc/decode_attn.cu::dec_layout``; the C entry refuses a plan whose
+    bytes differ."""
+
+    b: int
+    nq: int
+    nkv: int
+    hd: int
+    max_length: int
+    esize: int            # bytes of a cache element: 1 (int8 codes), 2 or 4
+    page: int             # K8's page size; 0 for a contiguous cache
+    cluster: int
+    per: int
+    stages: int
+
+    @property
+    def g(self) -> int:
+        return self.nq // self.nkv
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.g // 16)
+
+    @property
+    def npw(self) -> int:
+        return 16 if self.row_tiles <= 2 else 32
+
+    @property
+    def warps(self) -> int:
+        return self.row_tiles * (DECODE_TILE // self.npw)
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+    @property
+    def blocks(self) -> int:
+        return self.cluster * self.nkv * self.b
+
+    @property
+    def row_bytes(self) -> int:
+        """Bytes of one position's K (or V) row: a whole number of the
+        16-byte ``cp.async`` copies."""
+        return self.hd * self.esize
+
+    def layout(self, stages: Optional[int] = None) -> dict:
+        """The block's shared-memory regions in bytes (see the C layout)."""
+        stages = self.stages if stages is None else stages
+        r128 = lambda x: (x + 127) & ~127   # noqa: E731
+        rows, t = 16 * self.row_tiles, DECODE_TILE
+        lay = dict(hdr=r128((32 + self.hd) * 4), q=r128(rows * self.hd * 4),
+                   stage=r128(2 * t * self.row_bytes + (2 * t * 4 if self.esize == 1 else 0)),
+                   wide=2 * t * self.hd * 2 if self.esize == 1 else 0,
+                   ps=self.warps * 16 * self.npw * 4 if self.esize == 4 else 0,
+                   merge=r128((self.warps * 16 * (self.hd + 6) + 6 * rows) * 4))
+        lay["ring"] = stages * lay["stage"]
+        lay["total"] = lay["hdr"] + max(lay["q"] + lay["ring"] + lay["wide"] + lay["ps"],
+                                        lay["merge"])
+        return lay
+
+    @property
+    def smem(self) -> int:
+        return self.layout()["total"]
+
+    def slice(self, rank: int, length: int) -> tuple:
+        """Positions ``[lo, hi)`` that block ``rank`` reads of a row of
+        ``length`` cached positions (empty past the row's end)."""
+        lo = rank * self.per
+        return lo, max(lo, min(length, lo + self.per))
+
+    def describe(self) -> str:
+        return (f"cluster {self.cluster}, {self.per} positions a block, {self.stages} stages, "
+                f"{self.threads} threads, {self.smem} B shared")
+
+
+@functools.lru_cache(maxsize=512)
+def decode_plan(b: int, nq: int, nkv: int, hd: int, max_length: int, esize: int,
+                unit: int = DECODE_TILE, page: int = 0, sms: int = H100_SMS,
+                max_cluster: int = MAX_CLUSTER) -> DecodePlan:
+    """The split flash decode's host plan (see :class:`DecodePlan`) for
+    ``b`` rows of ``nq`` query heads over ``nkv`` kv heads at head_dim
+    ``hd``, rows at most ``max_length`` long, a cache of ``esize``-byte
+    elements, slices a multiple of ``unit`` (K8: and of its ``page``). The
+    cluster fills one wave of ``sms``
+    blocks: ``sms // (b * nkv)`` blocks a (row, kv head), at most
+    ``max_cluster``, fewer when the rows are short; a longer cache gives
+    each block more tiles. The ring takes 4 stages where the blocks an SM
+    must hold still fit its shared memory, else 3 or 2, and no more than a
+    block's tiles plus one. An SM must hold the blocks of one wave, and
+    two when the cluster is above 8: a 16-block cluster whose blocks take
+    an SM each waits for a GPC with 16 free SMs (on the H100, clusters of
+    16 at 140 KB a block ran 1.5x slower than at 107 KB,
+    ``scripts/exp_decode_plan.py``)."""
+    unit = math.lcm(DECODE_TILE, unit, page or 1)
+    want = max(1, min(max_cluster, sms // (b * nkv)))
+    per = max(unit, _round_up(-(-max_length // want), unit))
+    cluster = max(1, -(-max_length // per))
+    plan = DecodePlan(b=b, nq=nq, nkv=nkv, hd=hd, max_length=max_length, esize=esize,
+                      page=page, cluster=cluster, per=per, stages=2)
+    per_sm = max(-(-plan.blocks // sms), 2 if cluster > 8 else 1)
+    most = max(2, min(4, -(-min(per, max_length) // DECODE_TILE) + 1))
+    for stages in range(most, 1, -1):
+        total = plan.layout(stages)["total"]
+        if total <= SMEM_MAX and (per_sm * (total + 1024) <= SMEM_SM or stages == 2):
+            return dataclasses.replace(plan, stages=stages)
+    raise ValueError(f"decode_plan: {nq} q heads over {nkv} kv heads at head_dim {hd} need "
+                     f"{plan.layout(2)['total']} B of shared memory, more than {SMEM_MAX}")
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan_args(plan: DecodePlan) -> tuple:
+    return plan.cluster, plan.per, plan.stages, plan.smem
 
 
 def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -285,27 +431,22 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     if max_length is None:
         max_length = int(lengths.max())
     _check(0 <= max_length <= t, what, f"max_length {max_length} not in [0, {t}]")
-    nsplit, split_len = _split(max_length, b * nkv)
-    g = nq // nkv
-    part_ml = torch.empty((b, nkv, nsplit, g, 2), dtype=torch.float32,
-                          device=q.device)
-    part_acc = torch.empty((b, nkv, nsplit, g, hd), dtype=torch.float32,
-                           device=q.device)
+    plan = decode_plan(b, nq, nkv, hd, max_length, cache.element_size(), PLAN_UNIT[what],
+                       sms=_sm_count(q.device))
     out = torch.empty_like(q)
 
     from awq_tpu_torch import _build
 
     lib = _build.load("decode_attn")
     fn = lib.awq_flash_decode
-    _build.declare(fn, *([_build.P] * 8), *([_build.I] * 6), _build.F,
+    _build.declare(fn, *([_build.P] * 6), *([_build.I] * 8), _build.F,
                    *([_build.I] * 3), _build.P)
-    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-             cache.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(),
-             part_acc.data_ptr(), out.data_ptr(), b, nq, nkv, t, nsplit,
-             split_len, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
-             _DTYPE_CODE[k_new.dtype], _DTYPE_CODE[cache.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, what)
+    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), b, nq, nkv, t, *_plan_args(plan),
+             1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_new.dtype],
+             _DTYPE_CODE[cache.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        _build.check(lib, err, f"{what} ({plan.describe()})")
     LAUNCHES["flash_decode"] += 1
     return out
 
@@ -346,24 +487,22 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     if max_length is None:
         max_length = int(lengths.max())
     _check(0 <= max_length <= t, what, f"max_length {max_length} not in [0, {t}]")
-    nsplit, split_len = _split(max_length, b * nkv)
-    g = nq // nkv
-    part_ml = torch.empty((b, nkv, nsplit, g, 2), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((b, nkv, nsplit, g, hd), dtype=torch.float32, device=q.device)
+    plan = decode_plan(b, nq, nkv, hd, max_length, 1, PLAN_UNIT[what],
+                       sms=_sm_count(q.device))
     out = torch.empty_like(q)
 
     from awq_tpu_torch import _build
 
     lib = _build.load("decode_attn")
     fn = lib.awq_flash_decode_int8
-    _build.declare(fn, *([_build.P] * 9), *([_build.I] * 6), _build.F, _build.I,
+    _build.declare(fn, *([_build.P] * 7), *([_build.I] * 8), _build.F, _build.I,
                    _build.P)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
-             scales.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(),
-             part_acc.data_ptr(), out.data_ptr(), b, nq, nkv, t, nsplit, split_len,
-             1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+             scales.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, nq, nkv, t,
+             *_plan_args(plan), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, what)
+    if err:
+        _build.check(lib, err, f"{what} ({plan.describe()})")
     LAUNCHES["flash_decode_int8"] += 1
     return out
 
@@ -408,30 +547,25 @@ def flash_decode_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
     if max_length is None:
         max_length = int(lengths.max())
     max_length = min(max(int(max_length), 0), mp * page)
-    nsplit, split_len = _split(max_length, b * nkv)
-    if page % _DECODE_TILE == 0:        # whole pages per split
-        split_len = -(-split_len // page) * page
-        nsplit = max(1, -(-max_length // split_len))
-    g = nq // nkv
-    part_ml = torch.empty((b, nkv, nsplit, g, 2), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((b, nkv, nsplit, g, hd), dtype=torch.float32, device=q.device)
+    plan = decode_plan(b, nq, nkv, hd, max_length, pool.element_size(), PLAN_UNIT[what],
+                       page, sms=_sm_count(q.device))
     out = torch.empty_like(q)
 
     from awq_tpu_torch import _build
 
     lib = _build.load("decode_attn")
     fn = lib.awq_flash_decode_paged
-    _build.declare(fn, *([_build.P] * 9), *([_build.I] * 8), _build.F,
+    _build.declare(fn, *([_build.P] * 7), *([_build.I] * 10), _build.F,
                    *([_build.I] * 3), _build.P)
     # the plain version rounds the current token to the pool dtype first
     k_new, v_new = k_new.to(pool.dtype), v_new.to(pool.dtype)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), pool[layer].data_ptr(),
-             tables.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(),
-             part_acc.data_ptr(), out.data_ptr(), b, nq, nkv, np_, page, mp, nsplit,
-             split_len, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, nq, nkv, np_, page,
+             mp, *_plan_args(plan), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
              _DTYPE_CODE[pool.dtype], _DTYPE_CODE[pool.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, what)
+    if err:
+        _build.check(lib, err, f"{what} ({plan.describe()})")
     LAUNCHES["flash_decode_paged"] += 1
     return out
 
@@ -551,22 +685,21 @@ def flash_decode_layer(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
     _check(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0, what,
            "k_cache and v_cache must be 16-byte aligned")
     _check(1 <= length <= t, what, f"length {length} not in [1, {t}]")
-    g = nq // nkv
-    nsplit, split_len = _split(length, b * nkv * -(-g // _LAYER_HEADS))
-    part_ml = torch.empty((b, nkv, nsplit, g, 2), dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((b, nkv, nsplit, g, hd), dtype=torch.float32, device=q.device)
+    plan = decode_plan(b, nq, nkv, hd, length, k_cache.element_size(), PLAN_UNIT[what],
+                       sms=_sm_count(q.device))
     out = torch.empty_like(q)
 
     from awq_tpu_torch import _build
 
     lib = _build.load("decode_attn")
     fn = lib.awq_flash_decode_layer
-    _build.declare(fn, *([_build.P] * 6), *([_build.I] * 8), _build.F, _build.I,
+    _build.declare(fn, *([_build.P] * 4), *([_build.I] * 10), _build.F, _build.I,
                    _build.I, _build.P)
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), part_ml.data_ptr(),
-             part_acc.data_ptr(), out.data_ptr(), b, nq, nkv, t, length, nsplit, split_len,
-             hd, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), b, nq,
+             nkv, t, length, hd, *_plan_args(plan), 1.0 / math.sqrt(hd),
+             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, what)
+    if err:
+        _build.check(lib, err, f"{what} ({plan.describe()})")
     LAUNCHES["flash_decode_layer"] += 1
     return out

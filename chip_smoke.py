@@ -339,7 +339,8 @@ def phase_kernels(torch, timer, cases_out):
             name="flash_decode", shape=f"len={length} nq={nq} nkv={nkv} hd={hd}",
             max_abs_err=err, max_rel_err=rel, tol=f"{attn_tol:g}*max|ref|", ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            library="F.scaled_dot_product_attention(enable_gqa=True)"))
+            library="F.scaled_dot_product_attention(enable_gqa=True)",
+            **decode_plan_of("flash_decode", 1, nq, nkv, hd, length, 2)))
         log_case(cases_out[-1])
 
     # S=512 from 0 and 700, and the 1000-token prompt's shape
@@ -399,12 +400,14 @@ def phase_kernels(torch, timer, cases_out):
         name="flash_decode", shape=f"B={b} ragged len 0..{mx} nq={nq} nkv={nkv}",
         max_abs_err=err, max_rel_err=rel, tol=f"{attn_tol:g}*max|ref|", ms=ms,
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        library="F.scaled_dot_product_attention(attn_mask, enable_gqa=True)"))
+        library="F.scaled_dot_product_attention(attn_mask, enable_gqa=True)",
+        **decode_plan_of("flash_decode", b, nq, nkv, hd, mx, 2)))
     log_case(cases_out[-1])
 
     # K8: the same rows and data, paged: pages of 256 scattered over a
-    # permuted pool; yardsticks K2 on the contiguous cache and SDPA on the
-    # gathered view (k_all, v_all)
+    # permuted pool; its output must be K2's bit for bit (the same plan, the
+    # paged functor changes addresses only); yardsticks K2 on the contiguous
+    # cache and SDPA on the gathered view (k_all, v_all)
     page, mp = 256, t_b // 256
     pool, tables = scatter_pages(torch, cache[None], mp, page, gen)
     got = da.flash_decode_paged(q, kn, vn, pool, tables, 0, lens, max_length=mx)
@@ -413,6 +416,10 @@ def phase_kernels(torch, timer, cases_out):
     torch.cuda.synchronize()
     err, rel = check(f"flash_decode_paged B={b} ragged", got, ref, attn_tol)
     vs_k2, _ = check("flash_decode_paged against K2", got, flat, attn_tol)
+    if not torch.equal(got, flat):
+        raise AssertionError(f"flash_decode_paged: output differs from K2's on the same rows "
+                             f"(max diff {vs_k2:.3e}); the paged functor may change addresses "
+                             "only")
     ms = timer(lambda: da.flash_decode_paged(q, kn, vn, pool, tables, 0, lens, max_length=mx))
     plain_ms = timer(lambda: da.flash_decode_paged_plain(q, kn, vn, pool, tables, 0, lens,
                                                          max_length=mx), reps=5)
@@ -427,7 +434,8 @@ def phase_kernels(torch, timer, cases_out):
         max_rel_err=rel, tol=f"{attn_tol:g}*max|ref|", ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         library="F.scaled_dot_product_attention on the gathered view",
-        yardstick_ms=k2_ms, yardstick=f"K2 on the contiguous cache (max diff {vs_k2:.2e})"))
+        yardstick_ms=k2_ms, yardstick="K2 on the contiguous cache (outputs equal)",
+        **decode_plan_of("flash_decode_paged", b, nq, nkv, hd, mx, 2, page)))
     log_case(cases_out[-1])
     del cache, k_all, v_all, pool
 
@@ -589,7 +597,8 @@ def phase_int8_kernels(torch, timer, cases_out):
             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             library="F.scaled_dot_product_attention on the dequantized bf16 view",
             yardstick_ms=k2_ms,
-            yardstick=f"K2 on the dequantized bf16 cache (max diff {vs_k2:.2e})"))
+            yardstick=f"K2 on the dequantized bf16 cache (max diff {vs_k2:.2e})",
+            **decode_plan_of("flash_decode_int8", b, nq, nkv, hd, mx, 1)))
         log_case(cases_out[-1])
         del codes, scales, deq, k_all, v_all
 
@@ -894,14 +903,15 @@ def phase_f16_attention(torch, timer, cases_out):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(f16)
 
-    def add(name, shape, got, ref, fn, plain, lib, nbytes, flops, library):
+    def add(name, shape, got, ref, fn, plain, lib, nbytes, flops, library, plan=None):
         torch.cuda.synchronize()
         err, rel = check(f"{name} {shape}", got, ref, tol)
         b_ms, b_by = bound(nbytes, flops)
         cases_out.append(dict(
             name=name, shape=shape, max_abs_err=err, max_rel_err=rel,
             tol=f"{tol:g}*max|ref|", ms=timer(fn), plain_ms=timer(plain, reps=5),
-            bound_ms=b_ms, bound_by=b_by, library_ms=timer(lib), library=library))
+            bound_ms=b_ms, bound_by=b_by, library_ms=timer(lib), library=library,
+            **(plan or {})))
         log_case(cases_out[-1])
 
     for ragged, paged in (([1000], False), (RAGGED, True)):
@@ -925,7 +935,8 @@ def phase_f16_attention(torch, timer, cases_out):
                 da.flash_decode(*args, max_length=mx), da.flash_decode_plain(*args, max_length=mx),
                 lambda: da.flash_decode(*args, max_length=mx),
                 lambda: da.flash_decode_plain(*args, max_length=mx), lib, nbytes, flops,
-                "F.scaled_dot_product_attention in f16")
+                "F.scaled_dot_product_attention in f16",
+                decode_plan_of("flash_decode", b, nq, nkv, hd, mx, 2))
             codes, scales = ca.quantize_kv(cache)
             args8 = (q, kn, vn, codes, scales, lens)
             add("flash_decode_int8", f"len={mx} nq={nq} nkv={nkv} f16 q",
@@ -934,7 +945,8 @@ def phase_f16_attention(torch, timer, cases_out):
                 lambda: da.flash_decode_int8(*args8, max_length=mx),
                 lambda: da.flash_decode_int8_plain(*args8, max_length=mx), lib,
                 (2 * b * nq * hd + 2 * b * nkv * hd) * 2 + 2 * nkv * mx * (hd + 4), flops,
-                "F.scaled_dot_product_attention in f16 on the f16 cache")
+                "F.scaled_dot_product_attention in f16 on the f16 cache",
+                decode_plan_of("flash_decode_int8", b, nq, nkv, hd, mx, 1))
             del codes, scales
         else:
             pool, tables = scatter_pages(torch, cache[None], t // 256, 256, gen)
@@ -945,7 +957,8 @@ def phase_f16_attention(torch, timer, cases_out):
                 lambda: da.flash_decode_paged(*argp, max_length=mx),
                 lambda: da.flash_decode_paged_plain(*argp, max_length=mx), lib,
                 nbytes + sum(-(-n // 256) for n in ragged) * 4, flops,
-                "F.scaled_dot_product_attention in f16 on the gathered view")
+                "F.scaled_dot_product_attention in f16 on the gathered view",
+                decode_plan_of("flash_decode_paged", b, nq, nkv, hd, mx, 2, 256))
             del pool
         del cache, k_all, v_all
     s_, start, t = 512, 700, 2048
@@ -984,7 +997,7 @@ def phase_layer_attention(torch, timer, cases_out):
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
-    def add(name, shape, fn, plain, lib, nbytes, flops, library):
+    def add(name, shape, fn, plain, lib, nbytes, flops, library, plan=None):
         got, ref = fn(), plain()
         torch.cuda.synchronize()
         err, rel = check(f"{name} {shape}", got, ref, tol)
@@ -992,7 +1005,8 @@ def phase_layer_attention(torch, timer, cases_out):
         cases_out.append(dict(
             name=name, shape=shape, max_abs_err=err, max_rel_err=rel,
             tol=f"{tol:g}*max|ref|", ms=timer(fn), plain_ms=timer(plain, reps=5),
-            bound_ms=b_ms, bound_by=b_by, library_ms=timer(lib), library=library))
+            bound_ms=b_ms, bound_by=b_by, library_ms=timer(lib), library=library,
+            **(plan or {})))
         log_case(cases_out[-1])
 
     fal = FALCON_7B
@@ -1008,7 +1022,8 @@ def phase_layer_attention(torch, timer, cases_out):
                 lambda: F.scaled_dot_product_attention(q[:, :, None], k_l, v_l,
                                                        enable_gqa=True),
                 (2 * b * nq * hd + 2 * b * nkv * length * hd) * 2,
-                4.0 * b * nq * length * hd, "F.scaled_dot_product_attention(enable_gqa=True)")
+                4.0 * b * nq * length * hd, "F.scaled_dot_product_attention(enable_gqa=True)",
+                decode_plan_of("flash_decode_layer", b, nq, nkv, hd, length, 2))
             del k_l, v_l
         del kv
     nq, t = fal["num_heads"], 2048
@@ -1064,6 +1079,18 @@ def plan_of(entry, m, ic, oc):
     orient = f"weights as A, tokens as N={p.tile_m}" if p.swap else "128x128 tiles"
     return {"plan": f"{orient}, {p.splits} split{'s' if p.splits > 1 else ''}, "
                     f"{p.blocks} blocks"}
+
+
+def decode_plan_of(name, b, nq, nkv, hd, max_length, esize, page=0):
+    """The host plan of a split flash-decode case (K2, K8, K9, K14), as its
+    wrapper makes it: cluster, positions a block, stages, for the case line."""
+    import torch
+
+    from awq_tpu_torch.ops import decode_attn as da
+
+    p = da.decode_plan(b, nq, nkv, hd, max_length, esize, da.PLAN_UNIT[name], page,
+                       sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    return {"plan": p.describe()}
 
 
 def log_case(c):
@@ -1877,8 +1904,7 @@ KERNEL_GROUPS = {"megakernel_attn_half": tuple(f"token_kernel<{t}, 1>" for t in 
                  "megakernel_mlp_half": ("token_kernel<__nv_bfloat16, 2>",),
                  "nccl all-reduce": ("nccl",),
                  "w4a16_gemv": ("w4a16_gemv", "splitk_reduce"),
-                 "flash_decode_layer": ("flash_decode_layer", "combine_kernel<64, false>",
-                                        "combine_kernel<128, false>"),
+                 "flash_decode_layer": ("LayerKV",),
                  "flash_decode": ("flash_decode",),
                  "w4a16_gemm": ("w4a16_wgmma_kernel", "splitk_reduce"),
                  "flash_prefill": ("flash_prefill",), "megakernel_token": ("token_kernel",),

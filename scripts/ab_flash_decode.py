@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""A/B of K2 (flash decode), K8 (paged flash decode) and K9 (int8 flash
-decode) between builds of ``csrc/decode_attn.cu`` on one NVIDIA GPU.
+"""A/B of the split flash decode, K2, K8, K9 and K14, between builds of
+``csrc/decode_attn.cu`` on one NVIDIA GPU.
 
     python3 scripts/ab_flash_decode.py OTHER.cu [OTHER2.cu ...] [--reps 20] [--rounds 3]
 
 Builds each OTHER.cu and the checkout's ``awq_tpu_torch/csrc/decode_attn.cu``
 with the port's nvcc flags (one nvcc each, in parallel) into
-``build/ab_flash_decode/``, then times K2 from each library at the smoke
-script's shapes: batch 1 at 1000 and 4000 cached positions, and 8 rows of
-ragged lengths 0..1200; and K8 on those 8 rows over a permuted pool of
-pages of 256 (``chip_smoke.scatter_pages``); and K9 at batch 1 at 1000
-cached positions over int8 codes and scales. The builds run in turns (each in order, then in
-reverse, ``--rounds`` times), each turn the median of ``--reps`` calls
-with the L2 flushed before each (``chip_smoke.Timer``); the script prints
-every turn and the medians, with the card's name and power limit. All
-builds get the same inputs and must give the same output bit for bit.
+``build/ab_flash_decode/`` and reads from each source which C signatures it
+has: the planned one-launch entries (``ops/decode_attn.py::decode_plan``) or
+the earlier split-and-combine entries with their partial buffers, whose
+split rule this script keeps (``_old_split``). Then it times, at the smoke
+script's shapes: K2 at batch 1 at 1, 1000 and 4000 cached positions and on
+8 rows of ragged lengths 0..1200; K8 on those 8 rows over a permuted pool
+of pages of 256 (``chip_smoke.scatter_pages``); K9 at batch 1 at 1000 and
+4000 positions over int8 codes and scales; K14 at Falcon-7B's shape (71 q
+heads over one kv head, head_dim 64) at 1, 1000 and 2047 positions and at
+Llama-3-8B's (32 over 8, head_dim 128) at 1000 and 4000, and at 8 rows of
+1000. The builds run in turns (each in order, then in reverse, ``--rounds``
+times), each turn the median of ``--reps`` calls with the L2 flushed before
+each (``chip_smoke.Timer``), with SDPA on the same positions beside them;
+the script prints every turn and the medians with the card's name and power
+limit. Every build's output must lie within 2^-6 of the largest magnitude
+of its plain version's; the builds' mutual max difference is printed (the
+numerics differ on purpose between designs), and inside each build K8's
+output must equal K2's bit for bit on the same rows.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+TOL = 2.0 ** -6
+
 
 def build(src: Path, out: Path):
     from awq_tpu_torch import _build
@@ -37,6 +48,178 @@ def build(src: Path, out: Path):
     log = open(out.with_suffix(".log"), "w")
     return subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
                              "-o", str(out), str(src)], stdout=log, stderr=subprocess.STDOUT)
+
+
+def _old_split(max_length: int, rows: int) -> tuple:
+    """The split-and-combine kernels' (nsplit, split_len): 264 blocks, at
+    least 64 positions a split, 32-position tiles."""
+    want = max(1, -(-264 // rows))
+    split_len = max(64, -(-max_length // want))
+    split_len = -(-split_len // 32) * 32
+    return max(1, -(-max_length // split_len)), split_len
+
+
+class Build:
+    """One library's four entries behind one call signature per kernel."""
+
+    def __init__(self, so: Path, planned: bool):
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        self.lib, self.planned = ctypes.CDLL(str(so)), planned
+        sigs = ({"awq_flash_decode": [P] * 6 + [I] * 8 + [F] + [I] * 3 + [P],
+                 "awq_flash_decode_paged": [P] * 7 + [I] * 10 + [F] + [I] * 3 + [P],
+                 "awq_flash_decode_int8": [P] * 7 + [I] * 8 + [F, I, P],
+                 "awq_flash_decode_layer": [P] * 4 + [I] * 10 + [F, I, I, P]} if planned else
+                {"awq_flash_decode": [P] * 8 + [I] * 6 + [F] + [I] * 3 + [P],
+                 "awq_flash_decode_paged": [P] * 9 + [I] * 8 + [F] + [I] * 3 + [P],
+                 "awq_flash_decode_int8": [P] * 9 + [I] * 6 + [F, I, P],
+                 "awq_flash_decode_layer": [P] * 6 + [I] * 8 + [F, I, I, P]})
+        for name, types in sigs.items():
+            fn = getattr(self.lib, name)
+            fn.argtypes, fn.restype = types, ctypes.c_int
+
+    def run(self, torch, da, case, out, bufs):
+        """Launch ``case`` (see main) into ``out``; ``bufs`` caches the
+        earlier design's partial buffers."""
+        mode, a = case["mode"], case["args"]
+        q = a["q"]
+        b, nq, hd = q.shape
+        stream = torch.cuda.current_stream().cuda_stream
+        scale, bf16 = 1.0 / math.sqrt(hd), 1
+        if mode == "layer":
+            k, v, length = a["k"], a["v"], a["length"]
+            nkv, t = k.shape[1], k.shape[2]
+            if self.planned:
+                p = da.decode_plan(b, nq, nkv, hd, length, 2, da.PLAN_UNIT["flash_decode_layer"])
+                err = self.lib.awq_flash_decode_layer(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nkv, t,
+                    length, hd, p.cluster, p.per, p.stages, p.smem, scale, bf16, bf16, stream)
+            else:
+                ns, sl = _old_split(length, b * nkv * -(-(nq // nkv) // 8))
+                ml, acc = self._parts(torch, bufs, b, nkv, ns, nq // nkv, hd)
+                err = self.lib.awq_flash_decode_layer(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), ml.data_ptr(), acc.data_ptr(),
+                    out.data_ptr(), b, nq, nkv, t, length, ns, sl, hd, scale, bf16, bf16,
+                    stream)
+        else:
+            kn, vn, lens, mx = a["kn"], a["vn"], a["lens"], a["mx"]
+            if mode == "paged":
+                pool, tables, page = a["pool"], a["tables"], a["page"]
+                nkv, mp = pool.shape[3], tables.shape[1]
+                head = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), pool[0].data_ptr(),
+                        tables.data_ptr(), lens.data_ptr())
+                dims = (b, nq, nkv, pool.shape[2], page, mp)
+                tail = (scale, bf16, bf16, bf16, stream)
+                fn, esize, unit = self.lib.awq_flash_decode_paged, 2, "flash_decode_paged"
+            elif mode == "int8":
+                codes, scales = a["codes"], a["scales"]
+                nkv = codes.shape[2]
+                head = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), codes.data_ptr(),
+                        scales.data_ptr(), lens.data_ptr())
+                dims = (b, nq, nkv, codes.shape[3])
+                tail = (scale, bf16, stream)
+                fn, esize, unit = self.lib.awq_flash_decode_int8, 1, "flash_decode_int8"
+                page = 0
+            else:
+                cache = a["cache"]
+                nkv = cache.shape[2]
+                head = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), cache.data_ptr(),
+                        lens.data_ptr())
+                dims = (b, nq, nkv, cache.shape[3])
+                tail = (scale, bf16, bf16, bf16, stream)
+                fn, esize, unit, page = self.lib.awq_flash_decode, 2, "flash_decode", 0
+            if self.planned:
+                p = da.decode_plan(b, nq, nkv, hd, mx, esize, da.PLAN_UNIT[unit], page)
+                err = fn(*head, out.data_ptr(), *dims, p.cluster, p.per, p.stages, p.smem, *tail)
+            else:
+                ns, sl = _old_split(mx, b * nkv)
+                if mode == "paged" and page % 32 == 0:   # whole pages a split
+                    sl = -(-sl // page) * page
+                    ns = max(1, -(-mx // sl))
+                ml, acc = self._parts(torch, bufs, b, nkv, ns, nq // nkv, hd)
+                err = fn(*head, ml.data_ptr(), acc.data_ptr(), out.data_ptr(), *dims, ns, sl,
+                         *tail)
+        if err:
+            raise RuntimeError(f"{case['label']}: CUDA error {err}")
+
+    @staticmethod
+    def _parts(torch, bufs, b, nkv, ns, g, hd):
+        key = (b, nkv, ns, g, hd)
+        if key not in bufs:
+            bufs[key] = (torch.empty((b, nkv, ns, g, 2), device="cuda"),
+                         torch.empty((b, nkv, ns, g, hd), device="cuda"))
+        return bufs[key]
+
+
+def make_cases(torch, gen):
+    """The smoke script's K2/K8/K9/K14 shapes, each with its plain version
+    and its SDPA call."""
+    import torch.nn.functional as F
+
+    from awq_tpu_torch.ops import cache_append as ca
+    from awq_tpu_torch.ops import decode_attn as da
+    from chip_smoke import RAGGED, scatter_pages
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def sdpa(q, k_all, v_all, mask=None):
+        m = None if mask is None else mask[:, None, None, :]
+        return lambda: F.scaled_dot_product_attention(q[:, :, None], k_all, v_all,
+                                                      attn_mask=m, enable_gqa=True)
+
+    cases = []
+    nq, nkv, hd = 32, 8, 128
+    for lens_l in ([1], [1000], [4000], RAGGED):
+        b, mx = len(lens_l), max(lens_l)
+        t = 4096 if b == 1 else 2048
+        cache, q, kn, vn = rnd(2, b, nkv, t, hd), rnd(b, nq, hd), rnd(b, nkv, hd), rnd(b, nkv, hd)
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        k_all = torch.cat([cache[0, :, :, :mx], kn[:, :, None]], dim=2)
+        v_all = torch.cat([cache[1, :, :, :mx], vn[:, :, None]], dim=2)
+        mask = torch.arange(mx + 1, device="cuda")[None, :] < lens[:, None]
+        mask[:, mx] = True
+        what = f"B=1 len={mx}" if b == 1 else f"B={b} ragged 0..{mx}"
+        args = dict(q=q, kn=kn, vn=vn, lens=lens, mx=mx, cache=cache)
+        cases.append(dict(label=f"K2 {what}", mode="contig", args=args,
+                          plain=lambda a=args: da.flash_decode_plain(
+                              a["q"], a["kn"], a["vn"], a["cache"], a["lens"], max_length=a["mx"]),
+                          sdpa=sdpa(q, k_all, v_all, mask)))
+        if b > 1:   # K8 on the same rows over a permuted pool of pages of 256
+            pool, tables = scatter_pages(torch, cache[None], t // 256, 256, gen)
+            argp = dict(args, pool=pool, tables=tables, page=256)
+            cases.append(dict(label=f"K8 {what}, pages of 256", mode="paged", args=argp,
+                              same_as=len(cases) - 1,
+                              plain=lambda a=argp: da.flash_decode_paged_plain(
+                                  a["q"], a["kn"], a["vn"], a["pool"], a["tables"], 0, a["lens"],
+                                  max_length=a["mx"]),
+                              sdpa=sdpa(q, k_all, v_all, mask)))
+    for mx in (1000, 4000):
+        codes, scales = ca.quantize_kv(torch.randn((2, 1, nkv, 4096, hd), generator=gen,
+                                                   device="cuda"))
+        deq = ca.dequantize_kv(codes, scales, torch.bfloat16)
+        q, kn, vn = rnd(1, nq, hd), rnd(1, nkv, hd), rnd(1, nkv, hd)
+        lens = torch.tensor([mx], dtype=torch.int32, device="cuda")
+        args = dict(q=q, kn=kn, vn=vn, lens=lens, mx=mx, codes=codes, scales=scales)
+        k_all = torch.cat([deq[0, :, :, :mx], kn[:, :, None]], dim=2)
+        v_all = torch.cat([deq[1, :, :, :mx], vn[:, :, None]], dim=2)
+        cases.append(dict(label=f"K9 B=1 len={mx}, int8", mode="int8", args=args,
+                          plain=lambda a=args: da.flash_decode_int8_plain(
+                              a["q"], a["kn"], a["vn"], a["codes"], a["scales"], a["lens"],
+                              max_length=a["mx"]),
+                          sdpa=sdpa(q, k_all, v_all)))
+    for b, nq_l, nkv_l, hd_l, t, lengths, name in (
+            (1, 71, 1, 64, 2048, (1, 1000, 2047), "Falcon-7B"),
+            (1, 32, 8, 128, 4096, (1000, 4000), "Llama-3-8B"),
+            (8, 32, 8, 128, 4096, (1000,), "Llama-3-8B")):
+        kv, q = rnd(2, b, nkv_l, t, hd_l), rnd(b, nq_l, hd_l)
+        for length in lengths:
+            args = dict(q=q, k=kv[0], v=kv[1], length=length)
+            k_l, v_l = kv[0, :, :, :length].contiguous(), kv[1, :, :, :length].contiguous()
+            cases.append(dict(label=f"K14 {name} B={b} len={length}", mode="layer", args=args,
+                              plain=lambda a=args: da.flash_decode_layer_plain(
+                                  a["q"], a["k"], a["v"], a["length"]),
+                              sdpa=sdpa(q, k_l, v_l)))
+    return cases
 
 
 def main() -> int:
@@ -54,7 +237,7 @@ def main() -> int:
         return 2
     from awq_tpu_torch import _build
     from awq_tpu_torch.ops import decode_attn as da
-    from chip_smoke import Timer, scatter_pages
+    from chip_smoke import Timer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -62,91 +245,56 @@ def main() -> int:
     print(f"nvidia-smi: {smi}", flush=True)
     out_dir = ROOT / "build" / "ab_flash_decode"
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs = {f"{i}:{src.parent.name}/{src.name}": (src.resolve(), out_dir / f"other{i}.so")
+    srcs = {f"{i}:{src.parent.name}/{src.name}": (src.resolve(), out_dir / f"other{i}.so")
             for i, src in enumerate(args.other)}
-    libs["checkout"] = (_build.CSRC / "decode_attn.cu", out_dir / "checkout.so")
-    procs = [build(src, so) for src, so in libs.values()]
+    srcs["checkout"] = (_build.CSRC / "decode_attn.cu", out_dir / "checkout.so")
+    procs = [build(src, so) for src, so in srcs.values()]
     if any(p.wait() for p in procs):
         return 1
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fns, fns8, fns9 = {}, {}, {}
-    for name, (_, so) in libs.items():
-        lib = ctypes.CDLL(str(so))
-        for table, entry, types in (
-                (fns, "awq_flash_decode", [P] * 8 + [I] * 6 + [F] + [I] * 3 + [P]),
-                (fns8, "awq_flash_decode_paged", [P] * 9 + [I] * 8 + [F] + [I] * 3 + [P]),
-                (fns9, "awq_flash_decode_int8", [P] * 9 + [I] * 6 + [F, I, P])):
-            fn = getattr(lib, entry)
-            fn.argtypes, fn.restype = types, ctypes.c_int
-            table[name] = fn
+    builds = {name: Build(so, "part_ml" not in src.read_text())
+              for name, (src, so) in srcs.items()}
+    print("builds: " + "; ".join(f"{n} ({'planned, one launch' if b.planned else 'split + combine'})"
+                                 for n, b in builds.items()), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    nq, nkv, hd, t, page = 32, 8, 128, 2048, 256
-    ragged = [1000, 0, 930, 1100, 1015, 850, 1200, 977]
-    cases = {"K2 B=1 len=1000": ([1000], ""), "K2 B=1 len=4000": ([4000], ""),
-             "K2 B=8 ragged 0..1200": (ragged, ""),
-             "K8 B=8 ragged 0..1200, pages of 256": (ragged, "paged"),
-             "K9 B=1 len=1000, int8": ([1000], "int8")}
     timer = Timer(torch, reps=args.reps)
-    bf16 = 1                          # the kernels' dtype code of bf16
-    for label, (lens_l, mode) in cases.items():
-        paged = mode == "paged"
-        b, mx = len(lens_l), max(lens_l)
-        tt = max(t, mx)
-        cache = torch.randn((2, b, nkv, tt, hd), generator=gen, device="cuda").to(torch.bfloat16)
-        q = torch.randn((b, nq, hd), generator=gen, device="cuda").to(torch.bfloat16)
-        kn, vn = (torch.randn((b, nkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
-                  for _ in range(2))
-        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-        nsplit, split_len = da._split(mx, b * nkv)
-        if paged:     # as flash_decode_paged: whole pages per split
-            pool, tables = scatter_pages(torch, cache[None], tt // page, page, gen)
-            split_len = -(-split_len // page) * page
-            nsplit = max(1, -(-mx // split_len))
-        ml = torch.empty((b, nkv, nsplit, nq // nkv, 2), dtype=torch.float32, device="cuda")
-        acc = torch.empty((b, nkv, nsplit, nq // nkv, hd), dtype=torch.float32, device="cuda")
-        outs = {name: torch.empty_like(q) for name in fns}
-
-        if mode == "int8":
-            codes = torch.randint(-127, 128, cache.shape, generator=gen, device="cuda",
-                                  dtype=torch.int8)
-            scales = torch.rand(cache.shape[:4], generator=gen, device="cuda") * 0.02
-
-        def call(name):
-            stream = torch.cuda.current_stream().cuda_stream
-            if paged:
-                err = fns8[name](q.data_ptr(), kn.data_ptr(), vn.data_ptr(), pool[0].data_ptr(),
-                                 tables.data_ptr(), lens.data_ptr(), ml.data_ptr(),
-                                 acc.data_ptr(), outs[name].data_ptr(), b, nq, nkv,
-                                 pool.shape[2], page, tt // page, nsplit, split_len,
-                                 1.0 / math.sqrt(hd), bf16, bf16, bf16, stream)
-            elif mode == "int8":
-                err = fns9[name](q.data_ptr(), kn.data_ptr(), vn.data_ptr(), codes.data_ptr(),
-                                 scales.data_ptr(), lens.data_ptr(), ml.data_ptr(),
-                                 acc.data_ptr(), outs[name].data_ptr(), b, nq, nkv, tt,
-                                 nsplit, split_len, 1.0 / math.sqrt(hd), bf16, stream)
-            else:
-                err = fns[name](q.data_ptr(), kn.data_ptr(), vn.data_ptr(), cache.data_ptr(),
-                                lens.data_ptr(), ml.data_ptr(), acc.data_ptr(),
-                                outs[name].data_ptr(), b, nq, nkv, tt, nsplit, split_len,
-                                1.0 / math.sqrt(hd), bf16, bf16, bf16, stream)
-            if err:
-                raise RuntimeError(f"{name}: CUDA error {err}")
-
-        times = {name: [] for name in fns}
-        order = list(fns)
+    cases = make_cases(torch, gen)
+    outs = []
+    bad = False
+    for case in cases:
+        q = case["args"]["q"]
+        ref = case["plain"]().float()
+        scale = ref.abs().max().item()
+        out = {name: torch.empty_like(q) for name in builds}
+        bufs = {name: {} for name in builds}
+        for name, bld in builds.items():
+            bld.run(torch, da, case, out[name], bufs[name])
+        torch.cuda.synchronize()
+        errs = {name: (o.float() - ref).abs().max().item() for name, o in out.items()}
+        mutual = max((out[a].float() - out[c].float()).abs().max().item()
+                     for a in builds for c in builds)
+        times = {name: [] for name in builds}
+        order = list(builds)
         for _ in range(args.rounds):
             for name in order + order[::-1]:
-                times[name].append(timer(lambda: call(name)))
+                times[name].append(timer(lambda: builds[name].run(torch, da, case, out[name],
+                                                                  bufs[name])))
+        sdpa_ms = timer(case["sdpa"])
         torch.cuda.synchronize()
-        same = all(torch.equal(o, outs["checkout"]) for o in outs.values())
-        print(f"{label}: " + "; ".join(
+        line = f"{case['label']}: " + "; ".join(
             f"{name} median {statistics.median(ts):.4f} ms ("
-            + " ".join(f"{x:.4f}" for x in ts) + ")" for name, ts in times.items())
-            + f"; outputs {'equal' if same else 'DIFFER'}", flush=True)
-        if not same:
-            return 1
-    return 0
+            + " ".join(f"{x:.4f}" for x in ts) + f"), max err {errs[name]:.3e}"
+            for name, ts in times.items())
+        line += f"; SDPA {sdpa_ms:.4f} ms; builds' max diff {mutual:.3e} (tol {TOL:g}*{scale:.3e})"
+        if "same_as" in case:
+            same = {name: torch.equal(out[name], outs[case["same_as"]][name]) for name in builds}
+            line += "; K8 = K2 " + ", ".join(f"{n} {'equal' if e else 'DIFFERS'}"
+                                             for n, e in same.items())
+            bad |= not all(same.values())
+        print(line, flush=True)
+        bad |= any(e > TOL * scale for e in errs.values())
+        outs.append(out)
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

@@ -123,10 +123,10 @@ def _bf16(dev, rng, *shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nq,nkv,lengths", [
-    (4, 2, [0, 1, 37]), (32, 8, [1000]), (32, 8, [4000]), (8, 1, [5, 300]),
-    # 8 rows as the batched engine has them: the split-K grid is sized from
-    # the longest, so the short rows leave empty slices for the combine
-    (32, 8, [1000, 0, 930, 3, 4000, 850, 64, 977])])
+    (4, 2, [0, 1, 37]), (32, 8, [1]), (32, 8, [1000]), (32, 8, [4000]), (8, 1, [5, 300]),
+    # 8 rows as the batched engine has them: the cluster is sized from the
+    # longest, so the short rows leave blocks with no position to merge
+    (32, 8, [1000, 0, 930, 3, 4000, 850, 64, 977]), (32, 8, [1, 0, 2047, 256])])
 def test_flash_decode_kernel_matches_plain(cuda, nq, nkv, lengths):
     rng = np.random.default_rng(len(lengths) * nq)
     b, t = len(lengths), 4096
@@ -158,3 +158,97 @@ def test_flash_prefill_kernel_matches_plain(cuda, nq, nkv, start_pos, s):
     ref = tda.flash_prefill_plain(q, cache, start_pos)
     err = (got.float() - ref.float()).abs().max().item()
     assert err <= 2 ** -6 * ref.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [256, 64, 16])
+def test_k8_equals_k2_bit_for_bit_on_the_card(cuda, page):
+    """K8 over a permuted pool returns K2's output on the same rows bit for
+    bit: the plans slice the rows alike (``K2_UNIT``) and the paged functor
+    changes addresses only."""
+    rng = np.random.default_rng(page)
+    lengths = [1000, 0, 930, 1100, 1015, 850, 1200, 977]
+    b, nq, nkv, hd, mp = len(lengths), 32, 8, 128, 1280 // page
+    cache = _bf16(cuda, rng, 2, b, nkv, mp * page, hd)
+    q = _bf16(cuda, rng, b, nq, hd)
+    kn, vn = _bf16(cuda, rng, b, nkv, hd), _bf16(cuda, rng, b, nkv, hd)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    perm = torch.from_numpy(rng.permutation(b * mp) + 1).to(cuda)
+    tables = perm.reshape(b, mp).to(torch.int32)
+    pool = torch.zeros((1, 2, 1 + b * mp, nkv, page, hd), dtype=torch.bfloat16, device=cuda)
+    pool[0][:, tables.long()] = cache.reshape(2, b, nkv, mp, page, hd).permute(0, 1, 3, 2, 4, 5)
+    got = tda.flash_decode_paged(q, kn, vn, pool, tables, 0, lens, max_length=max(lengths))
+    ref = tda.flash_decode(q, kn, vn, cache, lens, max_length=max(lengths))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_each_decode_call_is_one_launch(cuda):
+    """K2, K8, K9 and K14: one kernel on the card a call (no combine, no
+    partial buffers), counted by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from awq_tpu_torch.ops.cache_append import quantize_kv
+
+    rng = np.random.default_rng(12)
+    b, nq, nkv, hd, t = 2, 32, 8, 128, 512
+    cache = _bf16(cuda, rng, 2, b, nkv, t, hd)
+    q, kn, vn = _bf16(cuda, rng, b, nq, hd), _bf16(cuda, rng, b, nkv, hd), _bf16(cuda, rng, b, nkv, hd)
+    lens = torch.tensor([300, 0], dtype=torch.int32, device=cuda)
+    codes, scales = quantize_kv(cache.float())
+    tables = torch.arange(1, 1 + b * 2, dtype=torch.int32, device=cuda).reshape(b, 2)
+    pool = torch.zeros((1, 2, 1 + b * 2, nkv, 256, hd), dtype=torch.bfloat16, device=cuda)
+    qf = _bf16(cuda, rng, 1, 71, 64)
+    kvf = _bf16(cuda, rng, 2, 1, 1, 1024, 64)
+    calls = {"flash_decode": lambda: tda.flash_decode(q, kn, vn, cache, lens, max_length=300),
+             "flash_decode_paged": lambda: tda.flash_decode_paged(q, kn, vn, pool, tables, 0,
+                                                                  lens, max_length=300),
+             "flash_decode_int8": lambda: tda.flash_decode_int8(q, kn, vn, codes, scales, lens,
+                                                                max_length=300),
+             "flash_decode_layer": lambda: tda.flash_decode_layer(qf, kvf[0], kvf[1], 1000)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        before = tda.LAUNCHES[name]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == 1 and "flash_decode_kernel" in kernels[0], (name, kernels)
+        assert tda.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.cuda
+def test_stale_positions_past_the_length_do_not_leak_on_the_card(cuda):
+    """A block's first tile is copied before the row's length is known, so
+    positions past it are read: NaN there (K, V and K9's scales) must not
+    reach the output of K2, K8 or K9."""
+    from awq_tpu_torch.ops.cache_append import quantize_kv
+
+    rng = np.random.default_rng(13)
+    lengths = [5, 0, 63, 64, 65, 300]
+    b, nq, nkv, hd, t = len(lengths), 32, 8, 128, 512
+    clean = _bf16(cuda, rng, 2, b, nkv, t, hd)
+    q = _bf16(cuda, rng, b, nq, hd)
+    kn, vn = _bf16(cuda, rng, b, nkv, hd), _bf16(cuda, rng, b, nkv, hd)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    past = torch.arange(t, device=cuda)[None, :] >= lens[:, None]        # [b, t]
+    dirty = clean.masked_fill(past[None, :, None, :, None], float("nan"))
+    ref = tda.flash_decode_plain(q, kn, vn, clean, lens)
+    got = tda.flash_decode(q, kn, vn, dirty, lens)
+    tables = torch.arange(1, 1 + b * 2, dtype=torch.int32, device=cuda).reshape(b, 2)
+    pool = torch.full((1, 2, 1 + b * 2, nkv, 256, hd), float("nan"), dtype=torch.bfloat16,
+                      device=cuda)
+    pool[0][:, tables.long()] = dirty.reshape(2, b, nkv, 2, 256, hd).permute(0, 1, 3, 2, 4, 5)
+    got8 = tda.flash_decode_paged(q, kn, vn, pool, tables, 0, lens)
+    codes, scales = quantize_kv(clean.float())
+    ref9 = tda.flash_decode_int8_plain(q, kn, vn, codes, scales, lens)
+    got9 = tda.flash_decode_int8(q, kn, vn, codes, scales.masked_fill(past[None, :, None], float("nan")),
+                                 lens)
+    torch.cuda.synchronize()
+    for out, want in ((got, ref), (got8, ref), (got9, ref9)):
+        assert bool(out.float().isfinite().all())
+        err = (out.float() - want.float()).abs().max().item()
+        assert err <= 2 ** -6 * want.float().abs().max().item(), err

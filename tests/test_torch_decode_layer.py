@@ -144,8 +144,9 @@ def _dev(dev, rng, dtype, *shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 @pytest.mark.parametrize("b,nq,nkv,hd,lengths", [
-    (1, 71, 1, 64, (1, 1000, 2047)), (1, 32, 8, 128, (1000, 4000)),
-    (8, 32, 8, 128, (1000,)), (2, 128, 1, 128, (1, 300)), (3, 12, 4, 64, (37, 256))])
+    (1, 71, 1, 64, (1, 1000, 2047)), (1, 32, 8, 128, (1, 1000, 4000)),
+    (8, 32, 8, 128, (1000,)), (2, 128, 1, 128, (1, 300)), (3, 12, 4, 64, (37, 256)),
+    (4, 71, 1, 64, (1, 2047))])
 def test_flash_decode_layer_kernel_matches_plain(cuda, dtype, b, nq, nkv, hd, lengths):
     rng = np.random.default_rng(nq + hd + b)
     t = 4096
