@@ -27,29 +27,45 @@
 //   valid: six per layer (QKV | attention | combine | o-proj | gate/up |
 //   down);
 // - every matmul phase hands out 32-column tiles over the full IC (OC/32
-//   tiles: 128 for wo and down, 448 gate/up pairs, 4008 for the head), so
-//   no cross-block split-K and the result is deterministic; inside a block
-//   the 8 warps take whole quantization groups and sum them in shared
-//   memory in a fixed order;
+//   tiles: 128 for wo and down, 448 gate/up pairs, 4008 for the head) to
+//   the grid's one block an SM, so no cross-block split-K and the result is
+//   deterministic; inside a block the 8 warps take whole quantization groups
+//   and sum them in shared memory in a fixed order;
+// - a warp loads its next group's code words while it computes on the
+//   current one, so the HBM latency is paid once per tile;
 // - the products run on the tensor cores, as the TPU kernel ran them on
 //   its MXU: a lane loads 16 bytes (4 columns) of a pack_int4 word row
 //   (input channel 64c + 8s + r in word 8c + r, nibble s, read as stored)
-//   and turns each word into bf16 pairs of exact
-//   codes with one shift, one LOP3 and one bf16 subtract per pair
-//   ((w >> 4t) & 0x000F000F | 0x43004300 is 128 + q in bf16), the B
-//   operand of mma.sync m16n8k16; the A operand is x in the matching
+//   and turns each word into bf16 pairs with one shift and one LOP3 per
+//   pair ((w >> 4t) & 0x000F000F | 0x43004300 is 128 + q in bf16, exactly),
+//   the B operand of mma.sync m16n8k16; the A operand is x in the matching
 //   permuted channel order. A first version did the products on the CUDA
 //   cores (a float per nibble, one FMA each) and was bound by instruction
 //   issue at about a third of the HBM rate (4.6 ms per token). The JAX
-//   kernel's per-group identity s·Σ bf16(x)·q − sz·Σ bf16(x) is kept,
-//   with f32 accumulation and the group sums of bf16(x) computed once;
+//   kernel's per-group identity s·Σ bf16(x)·q − sz·Σ bf16(x) is kept with
+//   the codes biased by 128 as the JAX kernels bias them:
+//   s·Σ bf16(x)·(128 + q) − (128·s + sz)·Σ bf16(x), f32 accumulation, the
+//   group sums of bf16(x) computed once;
 // - the input row of a phase (rmsnorm of the residual, the attention
 //   output or SiLU·mul) is rebuilt by each block in shared memory, rounded
-//   to bf16 and permuted, which saves a barrier per norm;
+//   to bf16 and permuted, which saves a barrier per norm; an rmsnorm loads
+//   its row and the norm weights once, before its block sum;
 // - gate column j and up column I + j go to the same block, so SiLU·mul is
 //   fused into the gate/up phase;
 // - attention is split over (kv head, position slice) items with an online
 //   softmax per warp, and a combine phase merges the slices.
+// The body is bound by the latency of its per-group work and of its
+// stagings and barriers more than by bytes (PERF.md, the phase clocks of
+// scripts/exp_mega_phases.py). Measured slower on the H100 and not kept:
+// a weight stream through a cp.async ring a warp that runs through the
+// barriers, with wo, down and gate/up split over IC and merged by the last
+// block to arrive (4.67-5.5 ms a token: the per-lane copies take issue
+// slots on the critical path, and a merge's __threadfence waits for the
+// warp's copies in flight); the next phase's first group copied into shared
+// memory before each barrier (+0.74 ms a token); the combine folded into
+// the attention phase by the last slice to finish (+0.2 ms: its fence,
+// atomic and serial merge cost more than the barrier it saves); the next
+// group's scale rows loaded ahead with its codes (32 more registers, spills).
 // int8 KV (the JAX kernel's cache_scales): the cache holds int8 codes and
 // f32 scales [L, 2, 1, n_kv, T], one per position and head. The attention
 // loop widens a position's codes to f32 and multiplies them by its scale
@@ -78,8 +94,7 @@
 // partial. The caller all-reduces each partial over the group and adds the
 // residual (models/llama.py). Bound by the rank's weight bytes, as K4.
 // Activations live in a device workspace that the wrapper allocates; the
-// kernel allocates nothing. A simple first version: no TMA, no cp.async
-// pipeline and no overlap of a phase's tail with the next one's loads.
+// kernel allocates nothing.
 #include "mega_common.cuh"
 
 namespace {
@@ -121,22 +136,8 @@ constexpr int SU = 8;
 // (the channels whose codes codes_bf16x2 pairs from words 8c + 2tq and
 // 8c + 2tq + 1), and xsum[g] the sum of group g's bf16(x).
 
-template <typename F>
-__device__ void stage_x(uint32_t* xa, float* xsum, int n, F value) {
-  for (int p0 = threadIdx.x; p0 < n / 2; p0 += SU * MK_THREADS) {
-    float lo[SU], hi[SU];
-#pragma unroll
-    for (int u = 0; u < SU; ++u) {
-      const int p = p0 + u * MK_THREADS;
-      const int c = p >> 5, t = (p >> 3) & 3, tq = (p >> 1) & 3, h = p & 1;
-      const int i = c * 64 + t * 8 + 2 * tq + h;
-      lo[u] = p < n / 2 ? value(i) : 0.f;
-      hi[u] = p < n / 2 ? value(i + 32) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < SU; ++u)
-      if (p0 + u * MK_THREADS < n / 2) xa[p0 + u * MK_THREADS] = pack_bf16x2(lo[u], hi[u]);
-  }
+// xsum[g] = the sum of group g's bf16(x) in the staged row xa.
+__device__ void group_sums(const uint32_t* xa, float* xsum, int n) {
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int g = warp; g < n / MK_G; g += MK_WARPS) {
@@ -149,21 +150,77 @@ __device__ void stage_x(uint32_t* xa, float* xsum, int n, F value) {
   __syncthreads();
 }
 
-// xa = permuted bf16(src · rsqrt(mean(src²) + eps) · w), n values.
+// The channel whose value is the low half of pair slot p of a staged row.
+__device__ __forceinline__ int slot_channel(int p) {
+  const int c = p >> 5, t = (p >> 3) & 3, tq = (p >> 1) & 3, h = p & 1;
+  return c * 64 + t * 8 + 2 * tq + h;
+}
+
+template <typename F>
+__device__ void stage_x(uint32_t* xa, float* xsum, int n, F value) {
+  for (int p0 = threadIdx.x; p0 < n / 2; p0 += SU * MK_THREADS) {
+    float lo[SU], hi[SU];
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const int p = p0 + u * MK_THREADS, i = slot_channel(p);
+      lo[u] = p < n / 2 ? value(i) : 0.f;
+      hi[u] = p < n / 2 ? value(i + 32) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < SU; ++u)
+      if (p0 + u * MK_THREADS < n / 2) xa[p0 + u * MK_THREADS] = pack_bf16x2(lo[u], hi[u]);
+  }
+  group_sums(xa, xsum, n);
+}
+
+// xa = permuted bf16(src · rsqrt(mean(src²) + eps) · w), n values. A row of
+// up to 2·SU·256 values is loaded once, the norm weights with it, before
+// the block sum (one round trip); a longer one in two passes.
 __device__ void stage_rms(uint32_t* xa, float* xsum, const float* src, const void* w,
                           int md, int n, float eps, float* red) {
-  float ss = 0.f;
-#pragma unroll 4
-  for (int i = threadIdx.x * 4; i < n; i += MK_THREADS * 4) {
-    const float4 v = *reinterpret_cast<const float4*>(src + i);
-    ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+  if (n / 2 > SU * MK_THREADS) {
+    float ss = 0.f;
+    for (int i = threadIdx.x * 4; i < n; i += MK_THREADS * 4) {
+      const float4 v = *reinterpret_cast<const float4*>(src + i);
+      ss += v.x * v.x + v.y * v.y + v.z * v.z + v.w * v.w;
+    }
+    const float rs = rsqrtf(block_sum(ss, red) / n + eps);
+    stage_x(xa, xsum, n, [&](int i) { return src[i] * rs * load_act(w, md, i); });
+    return;
   }
+  float lo[SU], hi[SU], wl[SU], wh[SU], ss = 0.f;
+#pragma unroll
+  for (int u = 0; u < SU; ++u) {
+    const int p = threadIdx.x + u * MK_THREADS, i = slot_channel(p);
+    const bool ok = p < n / 2;
+    lo[u] = ok ? src[i] : 0.f;
+    hi[u] = ok ? src[i + 32] : 0.f;
+    wl[u] = ok ? load_act(w, md, i) : 0.f;
+    wh[u] = ok ? load_act(w, md, i + 32) : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < SU; ++u) ss += lo[u] * lo[u] + hi[u] * hi[u];
   const float rs = rsqrtf(block_sum(ss, red) / n + eps);
-  stage_x(xa, xsum, n, [&](int i) { return src[i] * rs * load_act(w, md, i); });
+#pragma unroll
+  for (int u = 0; u < SU; ++u) {
+    const int p = threadIdx.x + u * MK_THREADS;
+    if (p < n / 2) xa[p] = pack_bf16x2(lo[u] * rs * wl[u], hi[u] * rs * wh[u]);
+  }
+  group_sums(xa, xsum, n);
 }
 
 __device__ void stage_copy(uint32_t* xa, float* xsum, const float* src, int n) {
   stage_x(xa, xsum, n, [&](int i) { return src[i]; });
+}
+
+// The bf16 pair of k16 step t as 2^7 + q (exact: the code's bits in the
+// mantissa of 128): one shift and one LOP3, no subtract; the 2^7·Σ bf16(x)
+// it adds is taken off with the group's scales, as the JAX kernels bias
+// their codes by 128.
+template <bool W3>
+__device__ __forceinline__ uint32_t biased_pair(uint32_t p, uint32_t q, int t) {
+  if constexpr (W3) return ((p >> (2 * t)) & 0x00030003u) | ((q >> t) & 0x00040004u) | 0x43004300u;
+  else return ((p >> (4 * t)) & 0x000F000Fu) | 0x43004300u;
 }
 
 // One 32-column tile of y = x @ W over the full IC. Warp w takes groups
@@ -200,11 +257,12 @@ __device__ float gemv_tile(const uint32_t* __restrict__ xa, const float* __restr
         const uint32_t a[4] = {av.x, av.x, av.y, av.y};
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          mma_bf16_16816(part[j], a, code_pair<UNIT_W3>(p0[j], q0[j], t),
-                         code_pair<UNIT_W3>(p1[j], q1[j], t));
+          mma_bf16_16816(part[j], a, biased_pair<UNIT_W3>(p0[j], q0[j], t),
+                         biased_pair<UNIT_W3>(p1[j], q1[j], t));
       }
     }
-    // this lane's columns: n0 + 8tq + 4e + j (e = 0, 1; j = 0..3)
+    // this lane's columns: n0 + 8tq + 4e + j (e = 0, 1; j = 0..3):
+    // s·Σ x·(128 + q) − (128·s + sz)·Σ x
     const size_t o = (size_t)g * OC + n0 + 8 * tq;
     const float4 s0 = __ldg(reinterpret_cast<const float4*>(sc + o));
     const float4 s1 = __ldg(reinterpret_cast<const float4*>(sc + o + 4));
@@ -216,7 +274,8 @@ __device__ float gemv_tile(const uint32_t* __restrict__ xa, const float* __restr
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) acc[j][e] += part[j][e] * ss[e][j] - xs * zz[e][j];
+      for (int e = 0; e < 2; ++e)
+        acc[j][e] += part[j][e] * ss[e][j] - xs * fmaf(128.f, ss[e][j], zz[e][j]);
 #pragma unroll
     for (int r = 0; r < 4; ++r) wc[r] = wn[r];
   }
@@ -258,6 +317,7 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
   const int gsize = gridDim.x * MK_THREADS;
   const int gtid = blockIdx.x * MK_THREADS + tid;
   const int vb = blockIdx.x;
+  const size_t es = a.md ? 2 : 4;                // bytes of a norm weight
 
   float* part = static_cast<float*>(a.h_out);   // K12, K13: the f32 partial
   if constexpr (MODE == MODE_MLP) {
@@ -276,8 +336,8 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
       const int32_t* w = a.qkv_w + (size_t)l * qrows(H, UNIT_W3) * oq;
       const float* s = a.qkv_s + (size_t)l * (H / MK_G) * oq;
       const float* z = a.qkv_z + (size_t)l * (H / MK_G) * oq;
-      if (vb < nt) stage_rms(xa, xsum, hres, static_cast<const char*>(a.ln1) +
-                                     (size_t)l * H * (a.md ? 2 : 4), a.md, H, a.eps, red);
+      if (vb < nt) stage_rms(xa, xsum, hres, static_cast<const char*>(a.ln1) + (size_t)l * H * es,
+                             a.md, H, a.eps, red);
       for (int t = vb; t < nt; t += gridDim.x) {
         const float v = gemv_tile(xa, xsum, w, s, z, H, oq, t * TILE, red);
         if (tid < TILE) {
@@ -427,7 +487,7 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
         }
       }
     }
-    grid.sync();
+    if constexpr (MODE == MODE_LAYERS) grid.sync();
     }
     if constexpr (MLP) {
     // ---- phase 5: rmsnorm + gate/up, SiLU·mul fused ---------------------------
@@ -436,8 +496,8 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
       const int32_t* w = a.gu_w + (size_t)l * qrows(H, UNIT_W3) * oc;
       const float* s = a.gu_s + (size_t)l * (H / MK_G) * oc;
       const float* z = a.gu_z + (size_t)l * (H / MK_G) * oc;
-      if (vb < nt) stage_rms(xa, xsum, h1, static_cast<const char*>(a.ln2) +
-                                     (size_t)l * H * (a.md ? 2 : 4), a.md, H, a.eps, red);
+      if (vb < nt) stage_rms(xa, xsum, h1, static_cast<const char*>(a.ln2) + (size_t)l * H * es,
+                             a.md, H, a.eps, red);
       for (int t = vb; t < nt; t += gridDim.x) {
         const float gt = gemv_tile(xa, xsum, w, s, z, H, oc, t * TILE, red);
         const float up = gemv_tile(xa, xsum, w, s, z, H, oc, I + t * TILE, red);
@@ -464,7 +524,7 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
         }
       }
     }
-    grid.sync();
+    if constexpr (MODE == MODE_LAYERS) grid.sync();
     }
   }
 

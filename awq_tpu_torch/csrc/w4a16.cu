@@ -1,17 +1,20 @@
 // K1 over pack_int4 codes: the W4 entries of the body in w4a16.cuh.
 #include "w4a16.cuh"
 
-// Caller guarantees: x [M, IC] contiguous of dtype code `dtype` (0 f32,
-// 1 bf16, 2 f16), qw int32 [IC/8, OC], scales/szeros f32 [IC/G, OC], bias
-// [OC] of x's dtype or null, out [M, OC] of x's dtype, partial f32
-// [ceil(IC/split_k), M, OC]; 1 <= M <= 8; G % 8 == 0, IC % G == 0,
-// IC % 64 == 0, split_k % 64 == 0, split_k <= 512.
+// The GEMV entry (M <= 8), one launch: `splits` and `stages` are the host
+// plan's IC splits of a column tile (a cluster, at most 8) and ring slots
+// (2..9; ops/w4a16.py::gemv_plan). Caller guarantees: x [M, IC] contiguous
+// and 16-byte aligned, of dtype code `dtype` (0 f32, 1 bf16, 2 f16), qw
+// int32 [IC/8, OC], scales/szeros f32 [IC/G, OC], bias [OC] of x's dtype or
+// null, out [M, OC] of x's dtype; 1 <= M <= 8; G % 8 == 0, IC % G == 0,
+// IC % 64 == 0; vec = 1 only where OC % 4 == 0 and qw, scales and szeros
+// are 16-byte aligned.
 extern "C" int awq_w4a16_gemv(const void* x, const void* qw, const void* scales,
-                              const void* szeros, const void* bias, void* out,
-                              void* partial, int M, int IC, int OC, int G,
-                              int split_k, int vec, int dtype, void* stream) {
-  return gemv_entry<false>(x, qw, scales, szeros, bias, out, partial, M, IC, OC, G,
-                           split_k, vec, dtype, stream);
+                              const void* szeros, const void* bias, void* out, int M, int IC,
+                              int OC, int G, int splits, int stages, int vec, int dtype,
+                              void* stream) {
+  return gemv_entry<false>(x, qw, scales, szeros, bias, out, M, IC, OC, G, splits, stages,
+                           vec, dtype, stream);
 }
 
 // The GEMM entry (M > 8): `nt` and `splits` are the host plan's token

@@ -25,27 +25,51 @@
 // in 8 word rows, one channel per row, so warp r of a block takes row r.
 //
 // (a) w4a16_gemv_kernel, M <= 8 (decode). Bound by device memory: every code
-//     byte is read once per token (0.5 B per weight in W4, 0.375 B in W3,
-//     plus 8 B of scales per group column), and the work per byte is a few
-//     FMAs. Design: each thread owns 4 adjacent columns and loads one
-//     16-byte vector per word row (a warp reads 512 contiguous bytes); the
-//     8 warps of a block take the 8 word rows of each chunk (warp r = row
-//     r; in W3 the lo rows r and 8 + r and the hi row 16 + r, each word
-//     read once), so x, staged once in shared memory as f32, is a broadcast
-//     read. IC is split over gridDim.y (split-K, 512 channels per block) so
-//     that even OC = 4096 puts 256+ blocks on the 132 SMs; the splits write
-//     f32 partials that a second kernel sums in a fixed order
-//     (deterministic, no atomics) and rounds to T, adding the bias. Per
-//     group the matmul-then-scale identity of the TPU kernel is kept:
-//     y += s_g * sum(x*q) - sum(x) * sz_g, so the inner loop is one FMA per
-//     code and m, and codes become floats by a mantissa OR (in W3 after
-//     the lo and hi words are shifted once per 64 channels, so that each
-//     code's shifts are constants). Any group size G that is a multiple of
-//     8 and divides IC is taken (G = IC too): the sums are flushed with the
-//     group's scales at every group edge (checked once per 64 channels
-//     where G is a multiple of 64), and at the end of a split that cuts a
-//     group, which carries its partial group into the partial sum (the
-//     identity is linear, so the splits add up to the whole group).
+//     byte is read once per call (0.5 B per weight in W4, 0.375 B in W3,
+//     plus 8 B of scales per group column), the products are 2 M flops per
+//     weight. The first version (one FMA and one shared-memory read of x per
+//     code and row, one 16-byte load in flight per thread, x staged before
+//     the first code load, f32 partials and a second launch) was bound by
+//     instruction issue at M = 8 (1.3-1.5x torch.matmul on the dequantized
+//     weight) and by memory latency at M = 1 (wo 6.2x its bound). Design:
+//     - one launch a call, deterministic: the host plan (gemv_plan in
+//       ops/w4a16.py) gives a block 128 output columns and a range of IC on
+//       packing-chunk edges; where the column tiles alone leave SMs idle the
+//       IC ranges of a tile form a thread-block cluster of up to 8 blocks,
+//       which adds its ranks' sums through distributed shared memory in rank
+//       order (no partial buffer, no reduce launch, no atomics);
+//     - a producer warp streams the range through a ring of `stages` slots
+//       in shared memory, each slot one packing chunk (8 code rows of 64
+//       channels in W4, 24 of 256 in W3) and the scale rows of the groups it
+//       spans: one cp.async.bulk a row (a 512-byte run of the 128 columns),
+//       completing on the slot's mbarrier (4-byte cp.async where the row
+//       pitch OC*4 is no multiple of 16: OC = 202); the consumer warps free a
+//       slot through a second mbarrier. The first slots are requested before
+//       the consumers stage the block's x (its rows over the range, in shared
+//       memory, with their group sums). A block streams at a few GB/s on the
+//       H100 whatever its ring's depth, so the plan keeps the rings short
+//       (at most 5 slots, ~21 KB in flight a W4 block) and the blocks many
+//       (three an SM where the column tiles allow, by more IC splits);
+//     - the products on the tensor cores (mma.sync m16n8k16, bf16 for bf16 x,
+//       f16 for f16 x): A is the weights, 16 output columns by 16 contiguous
+//       input channels, B the M <= 8 rows of x (zero rows above M). Consumer
+//       thread (gq, tq) holds words 2tq and 2tq + 1 of four adjacent columns
+//       (two 16-byte shared loads); one PRMT puts byte j of both words side
+//       by side, and a mask and an OR with the tile type's 2^7 (bf16) or 2^10
+//       (f16) make 2^7 + q (2^10 + q) exactly for units 2j (channels 16j +
+//       2tq, + 1) and 2j + 1 (16j + 8 + 2tq, + 1): no subtract (W3: the lo and
+//       hi words' fields moved to the same places first). So a k-step is 16
+//       contiguous channels and never crosses a group edge for G % 16 == 0
+//       (64, 96, 128, IC). JAX's per-group identity is kept with the codes
+//       biased as the JAX kernels bias them, s·Σ x·(c + q) − (c·s + sz)·Σ x
+//       with c the power of 2 and f32 sums: the products sum in the mma
+//       accumulators, folded into f32 totals with the group's scales and
+//       the staged group sums of x at each group edge;
+//     - f32 x (and a group size that is no multiple of 16, whose k-steps
+//       would straddle groups) keeps f32 arithmetic on the CUDA cores over the
+//       same ring, x staged as f32: a thread sums its own two channels of each
+//       8-channel unit with the identity (exact codes) flushed at every group
+//       edge, and the four lanes of a column are added at the end.
 // (b) w4a16_wgmma_kernel, M > 8 (prefill). The products are 2·M·IC·OC FLOPs
 //     against IC·OC/2 code bytes: bound by the code bytes up to M ~ 150 in
 //     bf16 (at M = 32, `down` reads 29 MB in 8.8 us at 3.35 TB/s), by the
@@ -86,165 +110,444 @@
 //     a thread has here: ptxas then serializes the wgmma.
 //
 // OC need not be a multiple of 128 (qwen2/falcon widths): both kernels mask
-// the column edge; the GEMV takes 16-byte loads only where the caller says
-// the rows are 16-byte aligned (OC % 4 == 0), else 4-byte loads.
+// the column edge; both take 16-byte copies only where the rows are 16-byte
+// aligned (OC % 4 == 0), else 4-byte ones.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int GEMV_WARPS = 8;            // = word rows per unit
-constexpr int GEMV_COLS = 4;             // columns per thread
-constexpr int GEMV_TILE_N = 32 * GEMV_COLS;
-constexpr int GEMV_MAX_SPLIT_K = 512;    // input channels per block
+namespace gv {
+constexpr int CONSUMERS = 4;                 // warps that compute, 32 columns each
+constexpr int THREADS = 32 * (CONSUMERS + 1);   // and one producer warp
+constexpr int BN = 128;          // output columns of a block: 4 a consumer thread
+constexpr int PITCH = BN + 4;    // words of a staged code row: 16 bytes of padding
+constexpr int MAX_CLUSTER = 8;   // IC splits of one column tile (a portable cluster)
+constexpr int MAX_STAGES = 9;
 
-// 4 words of one code row at columns n0..n0+3 (16 bytes where full).
-__device__ __forceinline__ void load_row4(const int32_t* row, int n0, int OC, bool full,
-                                          uint32_t* w) {
-  if (full) {
-    const int4 v = *reinterpret_cast<const int4*>(row + n0);
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < GEMV_COLS; ++j) w[j] = (n0 + j < OC) ? row[n0 + j] : 0;
-  }
+template <bool W3> struct Fmt {
+  static constexpr int KS = W3 ? 256 : 64;   // channels of a stage: one packing chunk
+  static constexpr int SUB = KS / 64;        // 64-channel sub-steps of a stage
+  static constexpr int ROWS = W3 ? 24 : 8;   // code rows of a stage
+};
+
+// One ring stage: the code rows [ROWS][PITCH], then ns rows of scales and
+// of szeros [ns][BN] (ns: the most groups a stage spans).
+__host__ __device__ constexpr int stage_bytes(int rows, int ns) {
+  return rows * PITCH * 4 + 2 * ns * BN * 4;
 }
 
-__device__ __forceinline__ void load_q4(const float* p, int n0, int OC, bool full, float* v) {
-  if (full) {
-    const float4 a = *reinterpret_cast<const float4*>(p + n0);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < GEMV_COLS; ++j) v[j] = n0 + j < OC ? p[n0 + j] : 0.f;
-  }
+// A block's shared memory: m rows of x over the longest split's `range`
+// channels (tensor cores: bf16/f16 pairs permuted within each 16-channel
+// block, 32 bytes of padding a row; else f32, 16 bytes), their group sums
+// (tensor cores), the ring, its mbarriers. The block's output tile [m][BN]
+// reuses the ring after the last stage.
+struct Layout {
+  int xw, ngr, xs_off, ring_off, bar_off, total;
+};
+__host__ __device__ inline Layout layout(bool tc, int m, int range, int G, int stages, int sb) {
+  Layout L;
+  L.xw = tc ? range / 2 + 8 : range + 4;
+  L.ngr = range / G + 2;
+  L.xs_off = m * L.xw * 4;
+  L.ring_off = (L.xs_off + (tc ? m * L.ngr * 4 : 0) + 127) / 128 * 128;
+  L.bar_off = L.ring_off + stages * sb;
+  L.total = L.bar_off + 2 * stages * 8;
+  return L;
 }
 
-template <int M, typename T, bool W3>
-__global__ void __launch_bounds__(256) w4a16_gemv_kernel(
-    const T* __restrict__ x, const int32_t* __restrict__ qw,
-    const float* __restrict__ scales, const float* __restrict__ szeros,
-    float* __restrict__ partial, int IC, int OC, int G, int split_k, int vec) {
-  constexpr int CH = W3 ? 256 : 64;      // channels per packing chunk
-  constexpr int ROWS = W3 ? 24 : 8;      // code rows per chunk
-  constexpr int UNITS = CH / 8;          // 8-channel units per chunk
-  __shared__ float xs[M][GEMV_MAX_SPLIT_K];
-  __shared__ float red[GEMV_WARPS][GEMV_TILE_N];
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int tid = warp * 32 + lane;
-  const int split = blockIdx.y;
-  const int k0 = split * split_k;
-  const int klen = min(split_k, IC - k0);
-  const int n0 = blockIdx.x * GEMV_TILE_N + lane * GEMV_COLS;
+__device__ __forceinline__ float ld_cluster_f32(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
 
-  for (int i = tid; i < M * klen; i += 256) {
-    const int m = i / klen, k = i - m * klen;
-    xs[m][k] = to_f32<T>(x[(size_t)m * IC + k0 + k]);
+// `bytes` (a multiple of 16) global -> shared by the bulk-copy engine,
+// completing on `bar`'s transaction count; both addresses 16-byte aligned.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(hop::smem_u32(dst)), "l"(src), "r"(bytes), "r"(hop::smem_u32(bar))
+      : "memory");
+}
+
+// Bytes b of two words side by side: [x.b, x.b, y.b, y.b].
+__device__ __forceinline__ uint32_t pair_bytes(uint32_t x, uint32_t y, int b) {
+  return __byte_perm(x, y, b | (b << 4) | ((4 + b) << 8) | ((4 + b) << 12));
+}
+
+// The tile type's 2^7 (bf16) or 2^10 (f16) in both halves: OR-ed with a
+// code in its low bits it is that power plus the code, exactly.
+template <typename MT> struct Magic;
+template <> struct Magic<bf16> {
+  static constexpr uint32_t base = 0x43004300u;
+  static constexpr float value = 128.f;
+};
+template <> struct Magic<__half> {
+  static constexpr uint32_t base = 0x64006400u;
+  static constexpr float value = 1024.f;
+};
+}  // namespace gv
+
+// The GEMV: block (z, y) of a cluster of gridDim.x = splits blocks sums
+// the stages [z*n/splits, (z+1)*n/splits) of column tile y (BN columns),
+// and the cluster adds its splits in rank order. Warp CONSUMERS is the
+// producer: it streams the range's stages through a ring of `stages`
+// slots (bulk copies of the code and scale rows, mbarriers full/empty),
+// while the consumer warps stage x in shared memory and then compute.
+// Consumer thread (gq, tq) of warp w owns columns 32w + 4gq .. +3 and, of
+// every 64-channel sub-step, the code words of rows 2tq and 2tq + 1 (W3:
+// lo rows 8h + 2tq, + 1 and hi rows 16 + 2tq, + 1).
+// TC: m16n8k16 on the tensor cores, A the weights (column 4gq + 2i + h of
+// tile i is A row gq + 8h) as 2^7 + q (bf16) or 2^10 + q (f16), exact, B
+// x's rows (row gq, zero from m_rows on); k = 2tq + e and 2tq + 8 + e at
+// channels 16j + 2tq + e and 16j + 8 + 2tq + e of k-step j: byte j of code
+// words 2tq + e, low and high nibble (W3: fields 2j, 2j + 1 of the moved
+// words). At a group edge the group's products fold into f32 totals as
+// s·(Σ x·(c + q)) − (sz + c·s)·Σ x, c the power of 2, JAX's identity with
+// the codes biased as the JAX kernels bias them. Else (f32 x, or a group
+// size that is no multiple of 16) the same loads feed f32 FMAs on the CUDA
+// cores with exact codes, a thread summing its own channels and the four
+// lanes of a column added in the end.
+template <typename T, bool W3, bool TC, int M>
+__global__ void __launch_bounds__(gv::THREADS) w4a16_gemv_kernel(
+    const T* __restrict__ x, const int32_t* __restrict__ qw, const float* __restrict__ scales,
+    const float* __restrict__ szeros, const T* __restrict__ bias, T* __restrict__ out,
+    int m_rows, int IC, int OC, int G, int ns, int stages, int vec) {
+  using F = gv::Fmt<W3>;
+  constexpr int SUB = F::SUB;
+  extern __shared__ __align__(128) uint8_t gv_smem[];
+  const int SB = gv::stage_bytes(F::ROWS, ns);
+  const int splits = gridDim.x, split = blockIdx.x;
+  const int n0 = blockIdx.y * gv::BN;
+  const int n_st = IC / F::KS;
+  const int s_begin = static_cast<int>(static_cast<long long>(split) * n_st / splits);
+  const int nst = static_cast<int>(static_cast<long long>(split + 1) * n_st / splits) - s_begin;
+  const gv::Layout L = gv::layout(TC, m_rows, (n_st + splits - 1) / splits * F::KS, G, stages, SB);
+  uint8_t* ring = gv_smem + L.ring_off;
+  uint64_t* full = reinterpret_cast<uint64_t*>(gv_smem + L.bar_off);
+  uint64_t* empty = full + stages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int ngroups = IC / G;
+  const int k_begin = s_begin * F::KS, k_len = nst * F::KS;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      // full: the producer's expect_tx (bulk copies), or its arrival and one
+      // cp.async arrival a lane (4-byte copies); empty: each consumer warp
+      hop::mbar_init(&full[s], vec ? 1 : 33);
+      hop::mbar_init(&empty[s], gv::CONSUMERS);
+    }
+    hop::mbar_fence_init();
   }
   __syncthreads();
 
-  const bool full = vec && (n0 + GEMV_COLS <= OC);
-  float acc[M][GEMV_COLS], dot[M][GEMV_COLS], xsum[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    xsum[m] = 0.f;
-#pragma unroll
-    for (int j = 0; j < GEMV_COLS; ++j) acc[m][j] = dot[m][j] = 0.f;
-  }
-  int g = k0 / G;                 // the group of the next unit
-  int left = (g + 1) * G - k0;    // its channels not yet summed
-  auto flush = [&]() {
-    float sc[GEMV_COLS], sz[GEMV_COLS];
-    load_q4(scales + (size_t)g * OC, n0, OC, full, sc);
-    load_q4(szeros + (size_t)g * OC, n0, OC, full, sz);
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-#pragma unroll
-      for (int j = 0; j < GEMV_COLS; ++j) {
-        acc[m][j] += dot[m][j] * sc[j] - xsum[m] * sz[j];
-        dot[m][j] = 0.f;
-      }
-      xsum[m] = 0.f;
-    }
-  };
-
-  // groups that are whole 64-channel blocks are flushed once per block,
-  // smaller ones once per unit
-  const bool fine = G % 64 != 0;
-  for (int c = 0; c < klen / CH; ++c) {
-    const int32_t* rows = qw + (size_t)((k0 / CH + c) * ROWS + warp) * OC;
-    uint32_t w0[GEMV_COLS], w1[GEMV_COLS] = {}, w2[GEMV_COLS] = {};
-    load_row4(rows, n0, OC, full, w0);
-    if constexpr (W3) {
-      load_row4(rows + (size_t)8 * OC, n0, OC, full, w1);
-      load_row4(rows + (size_t)16 * OC, n0, OC, full, w2);
-    }
-    for (int b = 0; b < UNITS / 8; ++b) {    // blocks of 8 units (64 channels)
-      // W3: the lo and hi words shifted so that unit 8b + u sits at lo
-      // bits 2u and hi bit u
-      uint32_t lw[GEMV_COLS], hw[GEMV_COLS];
-#pragma unroll
-      for (int j = 0; j < GEMV_COLS; ++j) {
-        lw[j] = W3 ? (b < 2 ? w0[j] : w1[j]) >> (16 * (b & 1)) : w0[j];
-        hw[j] = w2[j] >> (8 * b);
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int kl = c * CH + (8 * b + u) * 8 + warp;
-        float qv[GEMV_COLS];
-#pragma unroll
-        for (int j = 0; j < GEMV_COLS; ++j) {
-          if constexpr (W3) {
-            const uint32_t q = ((lw[j] >> (2 * u)) & 3u) | (((hw[j] >> u) & 1u) << 2);
-            qv[j] = __uint_as_float(0x4B000000u | q) - 8388608.0f;
+  if (warp == gv::CONSUMERS) {   // the producer: every stage of the range in order
+    const int ncols = min(gv::BN, OC - n0);
+    for (int i = 0; i < nst; ++i) {
+      const int s = i % stages;
+      if (i >= stages) hop::mbar_wait(&empty[s], ((i / stages) - 1) & 1);
+      uint8_t* base = ring + s * SB;
+      const int kst = s_begin + i, g0 = kst * F::KS / G;
+      float* sd = reinterpret_cast<float*>(base + F::ROWS * gv::PITCH * 4);
+      float* zd = sd + ns * gv::BN;
+      const int nsv = min(ns, ngroups - g0);   // scale rows that exist
+      const int32_t* src = qw + (size_t)kst * F::ROWS * OC + n0;
+      if (vec) {   // a bulk copy a row: OC % 4 == 0 and 16-byte aligned operands
+        if (lane == 0) hop::mbar_expect_tx(&full[s], (F::ROWS + 2 * nsv) * ncols * 4);
+        __syncwarp();
+        for (int r = lane; r < F::ROWS + 2 * nsv; r += 32) {
+          if (r < F::ROWS) {
+            gv::bulk_load(base + r * gv::PITCH * 4, src + (size_t)r * OC, ncols * 4, &full[s]);
           } else {
-            qv[j] = nibble_f32(lw[j], u);
+            const int k = r - F::ROWS, z = k >= nsv, gr = z ? k - nsv : k;
+            gv::bulk_load((z ? zd : sd) + gr * gv::BN, (z ? szeros : scales) +
+                          (size_t)(g0 + gr) * OC + n0, ncols * 4, &full[s]);
           }
         }
+      } else {     // 4-byte copies, zero past the last column
+        for (int e = lane; e < F::ROWS * gv::BN; e += 32) {
+          const int r = e / gv::BN, c = e % gv::BN;
+          const bool ok = c < ncols;
+          hop::cp_async4(reinterpret_cast<int32_t*>(base) + r * gv::PITCH + c,
+                         ok ? src + (size_t)r * OC + c : qw, ok);
+        }
+        for (int e = lane; e < ns * gv::BN; e += 32) {
+          const int r = e / gv::BN, c = e % gv::BN;
+          const bool ok = c < ncols && r < nsv;
+          const size_t off = ok ? (size_t)(g0 + r) * OC + n0 + c : 0;
+          hop::cp_async4(sd + e, scales + off, ok);
+          hop::cp_async4(zd + e, szeros + off, ok);
+        }
+        hop::cp_async_arrive(&full[s]);
+        if (lane == 0) hop::mbar_arrive(&full[s]);
+      }
+    }
+    if (!vec) hop::cp_async_wait_all();
+  } else {
+    // ---- the consumers: x of the range in shared memory, then the stages ----
+    const int ctid = tid, col0 = 32 * warp + 4 * gq;
+    uint32_t* xs_w = reinterpret_cast<uint32_t*>(gv_smem);
+    float* xsum = reinterpret_cast<float*>(gv_smem + L.xs_off);
+    const int g_first = k_begin / G;
+    float* red = reinterpret_cast<float*>(ring);   // [m_rows][BN], after the last stage
+    if constexpr (TC) {
+      // x rows as pairs, each 16-channel block's 8 words stored w0 w4 w1 w5
+      // w2 w6 w3 w7, so that a lane's b0, b1 of a k-step are one 8-byte word
+      for (int i = ctid; i < m_rows * (k_len / 16); i += 32 * gv::CONSUMERS) {
+        const int m = i / (k_len / 16), b = i - m * (k_len / 16);
+        const uint4* p = reinterpret_cast<const uint4*>(x + (size_t)m * IC + k_begin + 16 * b);
+        const uint4 lo = p[0], hi = p[1];
+        uint4* d = reinterpret_cast<uint4*>(xs_w + m * L.xw + 8 * b);
+        d[0] = make_uint4(lo.x, hi.x, lo.y, hi.y);
+        d[1] = make_uint4(lo.z, hi.z, lo.w, hi.w);
+      }
+      // the group sums of x over the range's channels, a warp each
+      const int ngr = (k_begin + k_len - 1) / G - g_first + 1;
+      for (int i = warp; i < m_rows * ngr; i += gv::CONSUMERS) {
+        const int m = i / ngr, g = g_first + i - m * ngr;
+        const int c0 = max(k_begin, g * G), c1 = min(k_begin + k_len, (g + 1) * G);
+        float s = 0.f;
+        for (int c = c0 + lane; c < c1; c += 32) s += to_f32<T>(x[(size_t)m * IC + c]);
+        s = warp_sum(s);
+        if (lane == 0) xsum[m * L.ngr + (g - g_first)] = s;
+      }
+    } else {
+      float* xf = reinterpret_cast<float*>(gv_smem);
+      for (int i = ctid; i < m_rows * k_len; i += 32 * gv::CONSUMERS) {
+        const int m = i / k_len, k = i - m * k_len;
+        xf[m * L.xw + k] = to_f32<T>(x[(size_t)m * IC + k_begin + k]);
+      }
+    }
+    hop::bar_sync(1, 32 * gv::CONSUMERS);
+
+    int g_cur = g_first;                  // the group being summed
+    int left = (g_cur + 1) * G - k_begin;    // its channels still to come
+    // this thread's code words of sub-step q of the stage in slot `base`,
+    // W3's moved so that the sub-step's fields start at 0
+    auto words = [&](const uint8_t* base, int q, uint32_t* lo0, uint32_t* lo1, uint32_t* hi0,
+                     uint32_t* hi1) {
+      const int32_t* cd = reinterpret_cast<const int32_t*>(base);
+      const int r0 = (W3 ? 8 * (q >> 1) : 0) + 2 * tq;
+      const uint4 a = *reinterpret_cast<const uint4*>(cd + r0 * gv::PITCH + col0);
+      const uint4 b = *reinterpret_cast<const uint4*>(cd + (r0 + 1) * gv::PITCH + col0);
+      lo0[0] = a.x; lo0[1] = a.y; lo0[2] = a.z; lo0[3] = a.w;
+      lo1[0] = b.x; lo1[1] = b.y; lo1[2] = b.z; lo1[3] = b.w;
+      if constexpr (W3) {
+        const uint4 c = *reinterpret_cast<const uint4*>(cd + (16 + 2 * tq) * gv::PITCH + col0);
+        const uint4 d = *reinterpret_cast<const uint4*>(cd + (17 + 2 * tq) * gv::PITCH + col0);
+        hi0[0] = c.x; hi0[1] = c.y; hi0[2] = c.z; hi0[3] = c.w;
+        hi1[0] = d.x; hi1[1] = d.y; hi1[2] = d.z; hi1[3] = d.w;
+#pragma unroll
+        for (int c4 = 0; c4 < 4; ++c4) {
+          lo0[c4] >>= 16 * (q & 1); lo1[c4] >>= 16 * (q & 1);
+          hi0[c4] >>= 8 * q; hi1[c4] >>= 8 * q;
+        }
+      }
+    };
+    // the scale and szero rows of group g_cur in the stage at `base` (its
+    // first group g0), this thread's four columns
+    auto scale_rows = [&](const uint8_t* base, int g0, float* sv, float* zv) {
+      const float* sd = reinterpret_cast<const float*>(base + F::ROWS * gv::PITCH * 4) +
+                        (g_cur - g0) * gv::BN + col0;
+      const float4 s4 = *reinterpret_cast<const float4*>(sd);
+      const float4 z4 = *reinterpret_cast<const float4*>(sd + ns * gv::BN);
+      sv[0] = s4.x; sv[1] = s4.y; sv[2] = s4.z; sv[3] = s4.w;
+      zv[0] = z4.x; zv[1] = z4.y; zv[2] = z4.z; zv[3] = z4.w;
+    };
+
+    if constexpr (TC) {
+      using MT = T;
+      constexpr uint32_t BASE = gv::Magic<MT>::base;
+      const bool xon = gq < m_rows;
+      const uint32_t* xrow = xs_w + (xon ? gq : 0) * L.xw + 2 * tq;
+      float acc[2][4], d[2][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) acc[i][e] = d[i][e] = 0.f;
+      auto flush = [&](const uint8_t* base, int g0) {
+        float sv[4], zv[4], xv[2];
+        scale_rows(base, g0, sv, zv);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          xv[e] = 2 * tq + e < m_rows ? xsum[(2 * tq + e) * L.ngr + g_cur - g_first] : 0.f;
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float s = sv[2 * t + h], zc = fmaf(gv::Magic<MT>::value, s, zv[2 * t + h]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              acc[t][2 * h + e] += d[t][2 * h + e] * s - xv[e] * zc;
+              d[t][2 * h + e] = 0.f;
+            }
+          }
+        ++g_cur;
+      };
+      for (int i = 0; i < nst; ++i) {
+        const int s = i % stages;
+        hop::mbar_wait(&full[s], (i / stages) & 1);
+        const uint8_t* base = ring + s * SB;
+        const int g0 = (s_begin + i) * F::KS / G;
+        for (int q = 0; q < SUB; ++q) {
+          uint32_t lo0[4], lo1[4], hi0[4], hi1[4];
+          words(base, q, lo0, lo1, hi0, hi1);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint2 b = xon ? *reinterpret_cast<const uint2*>(xrow + 8 * (4 * (i * SUB + q) + j))
+                                : make_uint2(0u, 0u);
+            uint32_t pl[4], ph[4];   // column c's pairs of units 2j and 2j + 1
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              if constexpr (W3) {
+                const uint32_t L3 = gv::pair_bytes(lo0[c], lo1[c], j >> 1);
+                const uint32_t H3 = gv::pair_bytes(hi0[c], hi1[c], 0) << 2;
+                const int f = 2 * (j & 1);
+                pl[c] = ((L3 >> (2 * f)) & 0x00030003u) | ((H3 >> (2 * j)) & 0x00040004u) | BASE;
+                ph[c] = ((L3 >> (2 * f + 2)) & 0x00030003u) | ((H3 >> (2 * j + 1)) & 0x00040004u) |
+                        BASE;
+              } else {
+                const uint32_t P = gv::pair_bytes(lo0[c], lo1[c], j);
+                pl[c] = (P & 0x000F000Fu) | BASE;
+                ph[c] = ((P >> 4) & 0x000F000Fu) | BASE;
+              }
+            }
+#pragma unroll
+            for (int t = 0; t < 2; ++t) {
+              const uint32_t a[4] = {pl[2 * t], pl[2 * t + 1], ph[2 * t], ph[2 * t + 1]};
+              mma_16816<MT>(d[t], a, b.x, b.y);
+            }
+            left -= 16;
+            if (left == 0) {
+              flush(base, g0);
+              left = G;
+            }
+          }
+        }
+        if (i == nst - 1 && left != G) flush(base, g0);   // the split ends inside a group
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(&empty[s]);
+      }
+      hop::bar_sync(1, 32 * gv::CONSUMERS);   // every consumer has left the ring
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int m = 2 * tq + e;
+            if (m < m_rows) red[m * gv::BN + col0 + 2 * t + h] = acc[t][2 * h + e];
+          }
+    } else {
+      const float* xf = reinterpret_cast<const float*>(gv_smem) + 2 * tq;
+      float acc[M][4], dot[M][4], xs[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        xs[m] = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[m][c] = dot[m][c] = 0.f;
+      }
+      auto flush = [&](const uint8_t* base, int g0) {
+        float sv[4], zv[4];
+        scale_rows(base, g0, sv, zv);
 #pragma unroll
         for (int m = 0; m < M; ++m) {
-          const float xv = xs[m][kl];
-          xsum[m] += xv;
 #pragma unroll
-          for (int j = 0; j < GEMV_COLS; ++j) dot[m][j] = fmaf(xv, qv[j], dot[m][j]);
+          for (int c = 0; c < 4; ++c) {
+            acc[m][c] += dot[m][c] * sv[c] - xs[m] * zv[c];
+            dot[m][c] = 0.f;
+          }
+          xs[m] = 0.f;
         }
-        if (fine) {
-          left -= 8;
-          if (left == 0) {
-            flush();
-            ++g;
-            left = G;
+        ++g_cur;
+      };
+      for (int i = 0; i < nst; ++i) {
+        const int s = i % stages;
+        hop::mbar_wait(&full[s], (i / stages) & 1);
+        const uint8_t* base = ring + s * SB;
+        const int g0 = (s_begin + i) * F::KS / G;
+        for (int q = 0; q < SUB; ++q) {
+          uint32_t lo0[4], lo1[4], hi0[4], hi1[4];
+          words(base, q, lo0, lo1, hi0, hi1);
+          const float* xp = xf + 64 * (i * SUB + q);
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            float qv[4][2];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              if constexpr (W3) {   // field u of the moved lo words, bit u of the moved hi words
+                qv[c][0] = static_cast<float>(((lo0[c] >> (2 * u)) & 3u) | (((hi0[c] >> u) & 1u) << 2));
+                qv[c][1] = static_cast<float>(((lo1[c] >> (2 * u)) & 3u) | (((hi1[c] >> u) & 1u) << 2));
+              } else {
+                qv[c][0] = nibble_f32(lo0[c], u);
+                qv[c][1] = nibble_f32(lo1[c], u);
+              }
+            }
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              const float2 xv = *reinterpret_cast<const float2*>(xp + m * L.xw + 8 * u);
+              xs[m] += xv.x + xv.y;
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                dot[m][c] = fmaf(xv.y, qv[c][1], fmaf(xv.x, qv[c][0], dot[m][c]));
+            }
+            left -= 8;
+            if (left == 0) {
+              flush(base, g0);
+              left = G;
+            }
           }
         }
+        if (i == nst - 1 && left != G) flush(base, g0);
+        __syncwarp();
+        if (lane == 0) hop::mbar_arrive(&empty[s]);
       }
-      if (!fine) {
-        left -= 64;
-        if (left == 0) {
-          flush();
-          ++g;
-          left = G;
+      hop::bar_sync(1, 32 * gv::CONSUMERS);   // every consumer has left the ring
+      // the four lanes of a column hold its channels 2tq, 2tq + 1 of each unit
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float v = acc[m][c];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (c == tq) red[m * gv::BN + col0 + c] = v;
         }
-      }
     }
   }
-  if (left != G) flush();         // the split ends inside group g
 
-  // sum the 8 warps' partials of each column, one row m at a time
-  for (int m = 0; m < M; ++m) {
-#pragma unroll
-    for (int j = 0; j < GEMV_COLS; ++j) red[warp][lane * GEMV_COLS + j] = acc[m][j];
-    __syncthreads();
-    if (tid < GEMV_TILE_N) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < GEMV_WARPS; ++w) s += red[w][tid];
-      const int n = blockIdx.x * GEMV_TILE_N + tid;
-      if (n < OC) partial[((size_t)split * M + m) * OC + n] = s;
-    }
-    __syncthreads();
+  // the output: one block writes its tile; a cluster's ranks each add a
+  // slice of the tile over the ranks in order 0, 1, ... (deterministic)
+  const float* red = reinterpret_cast<const float*>(ring);
+  const int n_out = m_rows * gv::BN;
+  auto emit = [&](int idx, float v) {
+    const int m = idx / gv::BN, n = n0 + idx % gv::BN;
+    if (n >= OC) return;
+    T r = from_f32<T>(v);
+    if (bias) r = from_f32<T>(to_f32<T>(r) + to_f32<T>(bias[n]));
+    out[(size_t)m * OC + n] = r;
+  };
+  if (splits == 1) {
+    if (warp == gv::CONSUMERS) return;
+    hop::bar_sync(1, 32 * gv::CONSUMERS);
+    for (int idx = tid; idx < n_out; idx += 32 * gv::CONSUMERS) emit(idx, red[idx]);
+  } else {
+    hop::cluster_sync();
+    const int lo = split * n_out / splits, hi = (split + 1) * n_out / splits;
+    if (warp < gv::CONSUMERS)
+      for (int idx = lo + tid; idx < hi; idx += 32 * gv::CONSUMERS) {
+        float v = 0.f;
+        for (int q = 0; q < splits; ++q)
+          v += gv::ld_cluster_f32(hop::cluster_map(red + idx, q));
+        emit(idx, v);
+      }
+    hop::cluster_sync();   // the peers are done reading this block's sums
   }
 }
 
@@ -533,46 +836,78 @@ __global__ void __launch_bounds__(k1::THREADS, k1::blocks_per_sm(NT)) w4a16_wgmm
       }
 }
 
-template <int M, typename T, bool W3>
-void launch_gemv(const void* x, const int32_t* qw, const float* s, const float* sz,
-                 float* partial, int IC, int OC, int G, int split_k, int vec,
-                 cudaStream_t st) {
-  const dim3 grid(cdiv(OC, GEMV_TILE_N), cdiv(IC, split_k));
-  const dim3 block(32, GEMV_WARPS);
-  w4a16_gemv_kernel<M, T, W3><<<grid, block, 0, st>>>(static_cast<const T*>(x), qw, s, sz,
-                                                partial, IC, OC, G, split_k, vec);
+// The most groups one stage of KS channels spans.
+static int stage_groups(int IC, int G, int KS) {
+  int ns = 1;
+  for (int k0 = 0; k0 < IC; k0 += KS) ns = std::max(ns, (k0 + KS - 1) / G - k0 / G + 1);
+  return ns;
+}
+
+// One GEMV launch over the host plan (ops/w4a16.py::gemv_plan): grid
+// (splits, column tiles), the splits of a tile one cluster. The plan is
+// checked, not adjusted: one the kernel cannot run returns
+// cudaErrorInvalidValue.
+template <typename T, bool W3, bool TC, int M>
+int gemv_launch(const void* x, const void* qw, const void* scales, const void* szeros,
+                const void* bias, void* out, int m_rows, int IC, int OC, int G, int splits,
+                int stages, int vec, cudaStream_t st) {
+  using F = gv::Fmt<W3>;
+  static int smem_set = 0;
+  const int ns = stage_groups(IC, G, F::KS);
+  const int range = (IC / F::KS + splits - 1) / splits * F::KS;
+  const gv::Layout L = gv::layout(TC, m_rows, range, G, stages, gv::stage_bytes(F::ROWS, ns));
+  if (splits < 1 || splits > gv::MAX_CLUSTER || splits > IC / F::KS || stages < 2 ||
+      stages > gv::MAX_STAGES || L.total > 227 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = w4a16_gemv_kernel<T, W3, TC, M>;
+  const int err = hop::allow_smem(kernel, L.total, &smem_set);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(splits, cdiv(OC, gv::BN));
+  cfg.blockDim = dim3(gv::THREADS);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(x), static_cast<const int32_t*>(qw),
+      static_cast<const float*>(scales), static_cast<const float*>(szeros),
+      static_cast<const T*>(bias), static_cast<T*>(out), m_rows, IC, OC, G, ns, stages, vec);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// The CUDA-core body at M rows (f32 x, or a group size that is no
+// multiple of 16).
+template <typename T, bool W3>
+int gemv_fma(const void* x, const void* qw, const void* s, const void* sz, const void* bias,
+             void* out, int M, int IC, int OC, int G, int splits, int stages, int vec,
+             cudaStream_t st) {
+#define AWQ_GEMV_M(m_) case m_: return gemv_launch<T, W3, false, m_>(x, qw, s, sz, bias, out, M, IC, OC, G, splits, stages, vec, st);
+  switch (M) {
+    AWQ_GEMV_M(1) AWQ_GEMV_M(2) AWQ_GEMV_M(3) AWQ_GEMV_M(4)
+    AWQ_GEMV_M(5) AWQ_GEMV_M(6) AWQ_GEMV_M(7) AWQ_GEMV_M(8)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef AWQ_GEMV_M
 }
 
 template <typename T, bool W3>
-int gemv(const void* x, const void* qw, const void* scales, const void* szeros,
-         const void* bias, void* out, void* partial, int M, int IC, int OC, int G,
-         int split_k, int vec, cudaStream_t st) {
-  const int32_t* q = static_cast<const int32_t*>(qw);
-  const float* s = static_cast<const float*>(scales);
-  const float* sz = static_cast<const float*>(szeros);
-  float* p = static_cast<float*>(partial);
-  switch (M) {
-    case 1: launch_gemv<1, T, W3>(x, q, s, sz, p, IC, OC, G, split_k, vec, st); break;
-    case 2: launch_gemv<2, T, W3>(x, q, s, sz, p, IC, OC, G, split_k, vec, st); break;
-    case 3: launch_gemv<3, T, W3>(x, q, s, sz, p, IC, OC, G, split_k, vec, st); break;
-    case 4: launch_gemv<4, T, W3>(x, q, s, sz, p, IC, OC, G, split_k, vec, st); break;
-    case 5: launch_gemv<5, T, W3>(x, q, s, sz, p, IC, OC, G, split_k, vec, st); break;
-    case 6: launch_gemv<6, T, W3>(x, q, s, sz, p, IC, OC, G, split_k, vec, st); break;
-    case 7: launch_gemv<7, T, W3>(x, q, s, sz, p, IC, OC, G, split_k, vec, st); break;
-    case 8: launch_gemv<8, T, W3>(x, q, s, sz, p, IC, OC, G, split_k, vec, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+int gemv(const void* x, const void* qw, const void* s, const void* sz, const void* bias,
+         void* out, int M, int IC, int OC, int G, int splits, int stages, int vec,
+         cudaStream_t st) {
+  if (M < 1 || M > 8) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (!std::is_same<T, float>::value) {
+    if (G % 16 == 0)
+      return gemv_launch<T, W3, true, 8>(x, qw, s, sz, bias, out, M, IC, OC, G, splits, stages,
+                                         vec, st);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t n_out = (size_t)M * OC;
-  const int threads = 256;
-  const size_t want = (n_out + threads - 1) / threads;
-  const int blocks = static_cast<int>(want < 65535 ? want : 65535);
-  splitk_reduce_kernel<T><<<blocks, threads, 0, st>>>(
-      p, static_cast<const T*>(bias), static_cast<T*>(out), M, OC, cdiv(IC, split_k));
-  return static_cast<int>(cudaGetLastError());
+  return gemv_fma<T, W3>(x, qw, s, sz, bias, out, M, IC, OC, G, splits, stages, vec, st);
 }
-
 
 // One GEMM: the TMA descriptors of this call's operands (encoded on the
 // host per launch: a stacked layer is a new address each time), then the
@@ -645,16 +980,16 @@ int gemm(const void* x, const void* qw, const void* scales, const void* szeros,
 // 1 bf16, 2 f16).
 template <bool W3>
 int gemv_entry(const void* x, const void* qw, const void* scales, const void* szeros,
-               const void* bias, void* out, void* partial, int M, int IC, int OC, int G,
-               int split_k, int vec, int dtype, void* stream) {
+               const void* bias, void* out, int M, int IC, int OC, int G, int splits,
+               int stages, int vec, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return gemv<float, W3>(x, qw, scales, szeros, bias, out, partial, M, IC, OC,
-                                   G, split_k, vec, st);
-    case 1: return gemv<bf16, W3>(x, qw, scales, szeros, bias, out, partial, M, IC, OC,
-                                  G, split_k, vec, st);
-    case 2: return gemv<__half, W3>(x, qw, scales, szeros, bias, out, partial, M, IC, OC,
-                                    G, split_k, vec, st);
+    case 0: return gemv<float, W3>(x, qw, scales, szeros, bias, out, M, IC, OC, G, splits,
+                                   stages, vec, st);
+    case 1: return gemv<bf16, W3>(x, qw, scales, szeros, bias, out, M, IC, OC, G, splits,
+                                  stages, vec, st);
+    case 2: return gemv<__half, W3>(x, qw, scales, szeros, bias, out, M, IC, OC, G, splits,
+                                    stages, vec, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -46,6 +46,7 @@ plain version for CPU tensors and launch K4 for CUDA tensors, or raise.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 import os
 from typing import Optional
@@ -171,6 +172,63 @@ def head_in_kernel(params) -> bool:
     return (fmt is not None and head.qweight.dim() == 2 and head.bias is None
             and head.out_features % 32 == 0
             and (body is None or weight_format(body) == fmt))
+
+
+# ---- the schedule of K4's matmul phases (a host mirror of csrc/megakernel.cu) ------
+
+TILE = 32            # output columns of a matmul tile
+WARPS = 8            # warps of a block
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulPhase:
+    """One matmul phase of a launch: ``name`` (``qkv``, ``o``, ``gu``,
+    ``down``, ``head``), its layer, IC and OC, its 32-column tiles (gate/up:
+    pairs of a gate tile and the up tile ``half`` columns on) and its
+    128-channel groups."""
+
+    name: str
+    layer: int
+    ic: int
+    oc: int
+    tiles: int
+    ng: int
+    half: int = 0
+
+
+def matmul_phases(mode: int, n_layers: int, H: int, I: int, nq: int, nkv: int,
+                  vocab: int = 0):
+    """The matmul phases of one launch in order: per layer QKV and o-proj
+    (K4, K12), gate/up and down (K4, K13), then K4's head."""
+    oq, icq = (nq + 2 * nkv) * HEAD_DIM, nq * HEAD_DIM
+    out = []
+    for li in range(n_layers):
+        if mode != MODE_MLP:
+            out += [MatmulPhase("qkv", li, H, oq, oq // TILE, H // GROUP),
+                    MatmulPhase("o", li, icq, H, H // TILE, icq // GROUP)]
+        if mode != MODE_ATT:
+            out += [MatmulPhase("gu", li, H, 2 * I, I // TILE, H // GROUP, I),
+                    MatmulPhase("down", li, I, H, H // TILE, I // GROUP)]
+    if mode == MODE_LAYERS and vocab:
+        out.append(MatmulPhase("head", n_layers, H, vocab, vocab // TILE, H // GROUP))
+    return out
+
+
+def block_tiles(ph: MatmulPhase, b: int, nb: int):
+    """The tiles block ``b`` of ``nb`` computes in a phase: ``b, b + nb, ...``"""
+    return list(range(b, ph.tiles, nb))
+
+
+def warp_loads(ph: MatmulPhase, b: int, nb: int, w: int):
+    """The (tile column, group) loads of warp ``w`` of block ``b`` in a
+    phase, in order: per tile (gate/up: the gate tile, then its up tile),
+    groups ``w, w + 8, ...``; the warp requests each group's codes while it
+    computes on the one before."""
+    out = []
+    for t in block_tiles(ph, b, nb):
+        for col in ((t * TILE, ph.half + t * TILE) if ph.half else (t * TILE,)):
+            out += [(col, g) for g in range(w, ph.ng, WARPS)]
+    return out
 
 
 # ---- plain versions ------------------------------------------------------------

@@ -14,8 +14,10 @@ true 3-bit layout (``IC % 256 == 0``), which streams 0.75x the code bytes.
   ``w4a16_matmul_stacked`` (and their TPU-only tiled and folded layouts)
   and, in its W3 mode (``csrc/w3a16.cu``), ``w3a16_matmul_stacked`` and
   ``w3a16_matmul_stacked_tiled_folded``: the GEMV entry for ``M <= 8``
-  rows (decode), the wgmma GEMM entry for more (prefill), over the host
-  plan of :func:`gemm_plan` (orientation, token tile, IC splits). On a CPU
+  rows (decode; one launch over the host plan of :func:`gemv_plan`: column
+  tiles, IC splits merged in a cluster, ring slots), the wgmma GEMM entry
+  for more (prefill), over the host plan of :func:`gemm_plan` (orientation,
+  token tile, IC splits). On a CPU
   tensor it runs the plain version; on a CUDA tensor it launches the
   kernel or raises. The source note in the ``.cuh`` says what bounds each
   entry on the H100 and what its design does about it.
@@ -68,7 +70,6 @@ LAUNCHES = {"w4a16_gemv": 0, "w4a16_gemm": 0, "w3a16_gemv": 0, "w3a16_gemm": 0,
             "w4a8_gemm": 0, "w8a8_gemm": 0}
 
 GEMV_MAX_M = 8          # rows served by the GEMV entry
-_SPLIT_K = 512          # input channels per GEMV block (csrc/w4a16.cuh)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: Input channels of one ring stage of the wgmma GEMMs: K1 W4 (8 code rows),
@@ -128,6 +129,125 @@ def gemm_plan(m: int, ic: int, oc: int, kind: str = "w4a16", n_sm: int = 132) ->
     splits = 1 if tiles >= n_sm else max(1, min(n_sm * bps // tiles, n_stages))
     return GemmPlan(swap=swap, tile_m=tile_m, stage_k=stage_k, n_stages=n_stages,
                     tiles=tiles, blocks_per_sm=bps, splits=splits)
+
+
+#: The GEMV entry's block: output columns, the most IC splits of a column
+#: tile (one cluster), the most ring slots, and a code row's padding in
+#: words (csrc/w4a16.cuh, namespace gv).
+GEMV_BN = 128
+GEMV_MAX_CLUSTER = 8
+GEMV_MAX_STAGES = 5
+_GEMV_PAD = 4
+_GEMV_ROWS = {"w4a16": 8, "w3a16": 24}        # code rows of one ring stage
+_SMEM_SM = 227 * 1024     # shared memory a block may take
+_GEMV_SMEM = 113 * 1024   # what two blocks an SM leave each
+_GEMV_X = 16 * 1024       # x a block stages, where splits allow
+
+
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    """How K1's GEMV entry covers one product ``[M <= 8, IC] x [IC, OC]``.
+
+    Blocks of ``tile_n`` output columns; IC in ``n_stages`` stages of
+    ``stage_k`` channels (one packing chunk), cut into ``splits`` ranges
+    (split ``z`` takes stages ``[z*n//splits, (z+1)*n//splits)``), the
+    ranges of one column tile a thread-block cluster that adds them in rank
+    order. Each block stages x over its range in shared memory and streams
+    the range through a ring of ``stages`` slots of ``stage_bytes`` (the code
+    rows and the ``ns`` scale rows of the groups a stage spans); ``smem`` is
+    its shared memory. ``tc``: the tensor-core body (bf16/f16 x and a group
+    size that is a multiple of 16), else the f32 one."""
+
+    tile_n: int
+    stage_k: int
+    n_stages: int
+    tiles: int
+    splits: int
+    stages: int
+    ns: int
+    stage_bytes: int
+    smem: int
+    tc: bool
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def cluster(self) -> int:
+        return self.splits
+
+    def edges(self, ic: int):
+        """The channel offsets where the splits start, and IC."""
+        n = self.n_stages
+        return [z * n // self.splits * self.stage_k for z in range(self.splits)] + [ic]
+
+    def ranges(self):
+        """``(first stage, stage count)`` of each split."""
+        n = self.n_stages
+        return [(z * n // self.splits, (z + 1) * n // self.splits - z * n // self.splits)
+                for z in range(self.splits)]
+
+
+def stage_groups(ic: int, group_size: int, stage_k: int) -> int:
+    """The most quantization groups one stage of ``stage_k`` channels spans."""
+    return max((k0 + stage_k - 1) // group_size - k0 // group_size + 1
+               for k0 in range(0, ic, stage_k))
+
+
+def gemv_smem(tc: bool, m: int, rng: int, group_size: int, stages: int, sb: int) -> int:
+    """Shared memory of a GEMV block (``gv::layout``): x over ``rng``
+    channels and its group sums, the ring, its mbarriers."""
+    xw = rng // 2 + 8 if tc else rng + 4
+    ring_off = -(-(m * xw * 4 + (m * (rng // group_size + 2) * 4 if tc else 0)) // 128) * 128
+    return ring_off + stages * sb + 16 * stages
+
+
+def gemv_plan(m: int, ic: int, oc: int, group_size: int, kind: str = "w4a16",
+              n_sm: int = 132, x_dtype: torch.dtype = torch.bfloat16) -> GemvPlan:
+    """The host-side plan of one GEMV call (``kind``: ``w4a16`` or
+    ``w3a16``; ``m <= 8``): column tiles of 128; where they are fewer than
+    three a streaming multiprocessor, each tile's IC is split into as many
+    ranges (a cluster, at most 8, never more than the stages) as bring the
+    blocks to three an SM, and more while a block's x exceeds 16 KB; a ring
+    as deep as the longest range plus one slot (every chunk of a short
+    range in flight at once), at most 5 slots, in what two blocks an SM
+    leave beside x (113 KB), else in a whole SM's 227 KB; more splits where
+    even that does not hold x and two slots. (On the H100 a block streams
+    at a few GB/s, so more blocks in flight beat deeper rings: 5 slots ran
+    down at 8 rows 1.4x faster than 9, and 8 splits of wqkv 8% faster than
+    6.)"""
+    if not 1 <= m <= GEMV_MAX_M:
+        raise ValueError(f"gemv_plan: m={m} outside [1, {GEMV_MAX_M}]")
+    stage_k = STAGE_K[kind]
+    n_stages = ic // stage_k
+    tiles = -(-oc // GEMV_BN)
+    tc = x_dtype != torch.float32 and group_size % 16 == 0
+    splits = max(1, min(GEMV_MAX_CLUSTER, n_stages, -(-3 * n_sm // tiles)))
+    # more splits where a block's x would crowd its SM out of ring slots
+    most = min(GEMV_MAX_CLUSTER, n_stages)
+    while splits < most and m * -(-n_stages // splits) * stage_k * (2 if tc else 4) > _GEMV_X:
+        splits += 1
+    ns = stage_groups(ic, group_size, stage_k)
+    sb = _GEMV_ROWS[kind] * (GEMV_BN + _GEMV_PAD) * 4 + 2 * ns * GEMV_BN * 4
+    while True:
+        longest = -(-n_stages // splits)
+        rng = longest * stage_k
+        want = max(2, min(GEMV_MAX_STAGES, longest + 1))
+        for budget in (_GEMV_SMEM, _SMEM_SM):
+            stages = want
+            while stages > 2 and gemv_smem(tc, m, rng, group_size, stages, sb) > budget:
+                stages -= 1
+            smem = gemv_smem(tc, m, rng, group_size, stages, sb)
+            if smem <= budget:
+                break
+        if smem <= _SMEM_SM or splits >= min(GEMV_MAX_CLUSTER, n_stages):
+            break
+        splits += 1
+    if smem > _SMEM_SM:
+        raise ValueError(f"gemv_plan: x of {m} rows over IC={ic} does not fit a block")
+    return GemvPlan(tile_n=GEMV_BN, stage_k=stage_k, n_stages=n_stages, tiles=tiles,
+                    splits=splits, stages=stages, ns=ns, stage_bytes=sb, smem=smem, tc=tc)
 
 
 def _sm_count(device: torch.device) -> int:
@@ -237,10 +357,10 @@ def w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
     """K1 wrapper: ``x [M, IC] @ dequant(qweight) (+ bias)`` in ``x.dtype``.
 
     CPU tensors take :func:`w4a16_matmul_plain`. CUDA tensors launch the
-    GEMV entry (``M <= 8``) or the wgmma GEMM entry of the format's library
-    (``w4a16``, or ``w3a16`` with ``dense3``; f32 ``x`` rounded to bf16 for
-    it, and with more than one split a second launch that sums the
-    partials), after checking what the
+    GEMV entry (``M <= 8``, one launch over :func:`gemv_plan`) or the wgmma
+    GEMM entry of the format's library (``w4a16``, or ``w3a16`` with
+    ``dense3``; f32 ``x`` rounded to bf16 for it, and with more than one
+    split a second launch that sums the partials), after checking what the
     kernels take: f32, bf16 or f16 ``x`` with a bias of its dtype, int32
     codes, f32 scales, contiguous operands on one device, a group size
     that is a multiple of 8 and divides IC (the whole IC included).
@@ -285,16 +405,16 @@ def w4a16_matmul(x: torch.Tensor, qweight: torch.Tensor,
     bias_ptr = bias.data_ptr() if bias is not None else None
     dtype = _DTYPE_CODE[x.dtype]
     if m <= GEMV_MAX_M:
-        partial = torch.empty((-(-ic // _SPLIT_K), m, oc), dtype=torch.float32,
-                              device=x.device)
+        if x.data_ptr() % 16:
+            x = x.clone()      # x is staged by 16-byte loads
+        plan = gemv_plan(m, ic, oc, group_size, fmt, _sm_count(x.device), x.dtype)
         vec = int(oc % 4 == 0 and all(t.data_ptr() % 16 == 0
                                       for t in (qweight, scales, szeros)))
         fn = getattr(lib, f"awq_{fmt}_gemv")
-        _build.declare(fn, *([_build.P] * 7), *([_build.I] * 7), _build.P)
+        _build.declare(fn, *([_build.P] * 6), *([_build.I] * 8), _build.P)
         err = fn(x.data_ptr(), qweight.data_ptr(), scales.data_ptr(),
-                 szeros.data_ptr(), bias_ptr, out.data_ptr(),
-                 partial.data_ptr(), m, ic, oc, group_size, _SPLIT_K, vec,
-                 dtype, stream)
+                 szeros.data_ptr(), bias_ptr, out.data_ptr(), m, ic, oc, group_size,
+                 plan.splits, plan.stages, vec, dtype, stream)
         what = f"{fmt}_gemv"
     else:
         # f32 x enters the tensor cores as bf16, rounded here once

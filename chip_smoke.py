@@ -253,35 +253,65 @@ def phase_kernels(torch, timer, cases_out):
     # orders: 2^-6 of the output's largest magnitude bounds all of it.
     k1_tol = 2.0 ** -6
 
-    def k1_case(entry, wname, m, dense3=False, dtype=torch.bfloat16):
+    def one_launch(entry, fn):
+        """K1's GEMV is one launch a call: its counter moves by one, and a
+        torch.profiler trace of one call holds one kernel (a trace that
+        recorded no device event at all is taken again, up to three times)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(3):
+            before = w4.LAUNCHES[entry]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+            if w4.LAUNCHES[entry] != before + 1:
+                raise AssertionError(f"{entry}: {w4.LAUNCHES[entry] - before} counted launches "
+                                     "in one call, not 1")
+            if n:
+                break
+        if n != 1:
+            raise AssertionError(f"{entry}: {n} device kernels in one call, not 1")
+
+    def k1_case(entry, wname, m, dense3=False, dtype=torch.bfloat16, g=G, dims=None):
         # dense3: K1's W3 mode over pack_int3 codes (IC*3/32 word rows)
-        ic, oc = shapes[wname]
+        ic, oc = dims or shapes[wname]
         rows = ic * 3 // 32 if dense3 else ic // 8
         x = torch.randn((m, ic), generator=gen, device="cuda").to(dtype)
         qw = torch.randint(-(2**31), 2**31 - 1, (rows, oc), generator=gen,
                            dtype=torch.int32, device="cuda")
-        s = (torch.rand((ic // G, oc), generator=gen, device="cuda") + 0.5) * 0.005
+        s = (torch.rand((ic // g, oc), generator=gen, device="cuda") + 0.5) * 0.005
         sz = s * (4 if dense3 else 8)
-        got = w4.w4a16_matmul(x, qw, s, sz, G, dense3=dense3)
-        ref = w4.w4a16_matmul_plain(x, qw, s, sz, G, dense3=dense3)
+        got = w4.w4a16_matmul(x, qw, s, sz, g, dense3=dense3)
+        ref = w4.w4a16_matmul_plain(x, qw, s, sz, g, dense3=dense3)
         torch.cuda.synchronize()
         dt = "" if dtype == torch.bfloat16 else f" {str(dtype)[6:]}"
-        err, rel = check(f"{entry} {wname} M={m}{dt}", got, ref, k1_tol)
-        w = w4.dequantize(qw, s, sz, G, dtype, dense3)
-        ms = timer(lambda: w4.w4a16_matmul(x, qw, s, sz, G, dense3=dense3))
-        plain_ms = timer(lambda: w4.w4a16_matmul_plain(x, qw, s, sz, G, dense3=dense3),
+        gemv = m <= w4.GEMV_MAX_M
+        # f32 x: the GEMV computes in f32 (1e-5, as the card tests state)
+        tol = 1e-5 if (gemv and dtype == torch.float32) else k1_tol
+        err, rel = check(f"{entry} {wname} M={m}{dt} g{g}", got, ref, tol)
+        if gemv:
+            one_launch(entry, lambda: w4.w4a16_matmul(x, qw, s, sz, g, dense3=dense3))
+            again = w4.w4a16_matmul(x, qw, s, sz, g, dense3=dense3)
+            if not torch.equal(again, got):
+                raise AssertionError(f"{entry} {wname} M={m}: two calls differ")
+        w = w4.dequantize(qw, s, sz, g, dtype, dense3)
+        ms = timer(lambda: w4.w4a16_matmul(x, qw, s, sz, g, dense3=dense3))
+        plain_ms = timer(lambda: w4.w4a16_matmul_plain(x, qw, s, sz, g, dense3=dense3),
                          reps=5)
         lib_ms = timer(lambda: torch.matmul(x, w))
         es = x.element_size()
-        nbytes = m * ic * es + rows * oc * 4 + 2 * (ic // G) * oc * 4 + m * oc * es
+        nbytes = m * ic * es + rows * oc * 4 + 2 * (ic // g) * oc * 4 + m * oc * es
         b_ms, b_by = bound(nbytes, 2.0 * m * ic * oc)
         del w
-        return dict(name=entry, shape=f"{wname} M={m} {ic}->{oc}{dt}", max_abs_err=err,
-                    max_rel_err=rel, tol=f"{k1_tol:g}*max|ref|", ms=ms,
+        gs = "" if g == G else f" g{g}"
+        return dict(name=entry, shape=f"{wname} M={m} {ic}->{oc}{dt}{gs}", max_abs_err=err,
+                    max_rel_err=rel, tol=f"{tol:g}*max|ref|", ms=ms,
                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                     library_ms=lib_ms,
                     library=f"torch.matmul on the{dt or ' bf16'}-dequantized weight",
-                    **plan_of(entry, m, ic, oc))
+                    **plan_of(entry, m, ic, oc, g, dtype))
 
     for wname in ("wqkv", "wo", "wgateup", "down", "head"):
         cases_out.append(k1_case("w4a16_gemv", wname, 1))
@@ -303,10 +333,27 @@ def phase_kernels(torch, timer, cases_out):
             entry = "w3a16_gemv" if m <= w4.GEMV_MAX_M else "w3a16_gemm"
             cases_out.append(k1_case(entry, wname, m, dense3=True))
             log_case(cases_out[-1])
-    # an f16 model's x (K1 follows x's dtype)
-    for entry, m in (("w4a16_gemv", 1), ("w4a16_gemm", 200)):
-        cases_out.append(k1_case(entry, "wgateup", m, dtype=torch.float16))
+    # the GEMV at 2 and 5 rows, and over f16 and f32 x at 1 and 8 rows
+    for dense3, entry in ((False, "w4a16_gemv"), (True, "w3a16_gemv")):
+        for m in (2, 5):
+            for wname in ("wqkv", "wgateup"):
+                cases_out.append(k1_case(entry, wname, m, dense3=dense3))
+                log_case(cases_out[-1])
+        for dtype in (torch.float16, torch.float32):
+            for m in (1, w4.GEMV_MAX_M):
+                cases_out.append(k1_case(entry, "wgateup", m, dense3=dense3, dtype=dtype))
+                log_case(cases_out[-1])
+    # Falcon-7B's decode GEMVs at its published widths, W4 at group 64
+    fh, fi, fv = FALCON_7B["hidden_size"], FALCON_7B["intermediate_size"], FALCON_7B["vocab_size"]
+    fq = (FALCON_7B["num_heads"] + 2 * FALCON_7B["num_kv_heads"]) * FALCON_7B["head_dim"]
+    for fname, dims in (("falcon wqkv", (fh, fq)), ("falcon wo", (fh, fh)),
+                        ("falcon up", (fh, fi)), ("falcon down", (fi, fh)),
+                        ("falcon head", (fh, fv))):
+        cases_out.append(k1_case("w4a16_gemv", fname, 1, g=FALCON_G, dims=dims))
         log_case(cases_out[-1])
+    # an f16 model's x (K1 follows x's dtype)
+    cases_out.append(k1_case("w4a16_gemm", "wgateup", 200, dtype=torch.float16))
+    log_case(cases_out[-1])
 
     # bf16 output rounding 2^-9; K3 also rounds P to bf16 for P.V.
     attn_tol = 2.0 ** -6
@@ -1065,17 +1112,24 @@ def scatter_pages(torch, cache, mp, page, gen, need=None):
     return pool, tables.to(cache.device)
 
 
-def plan_of(entry, m, ic, oc):
-    """The host plan of a wgmma GEMM case (K1's GEMM entry, K11): its
-    orientation and split count, for the case line."""
+def plan_of(entry, m, ic, oc, g=128, dtype=None):
+    """The host plan of a K1 case (the GEMV's tiles, splits and slots; the
+    wgmma GEMMs' orientation and split count) or of a K11 case, for the case
+    line."""
     import torch
 
     from awq_tpu_torch.ops import w4a16 as w4
 
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    if entry in ("w4a16_gemv", "w3a16_gemv"):
+        p = w4.gemv_plan(m, ic, oc, g, entry[:5], n_sm, dtype or torch.bfloat16)
+        return {"plan": f"{p.tiles} tiles x {p.splits} split{'s' if p.splits > 1 else ''} "
+                        f"(cluster), {p.stages} slots, {'tensor cores' if p.tc else 'f32'}, "
+                        f"{p.smem} B shared"}
     kind = {"w4a16_gemm": "w4a16", "w3a16_gemm": "w3a16", "w8a8_gemm": "w8a8"}.get(entry)
     if kind is None:
         return {}
-    p = w4.gemm_plan(m, ic, oc, kind, torch.cuda.get_device_properties(0).multi_processor_count)
+    p = w4.gemm_plan(m, ic, oc, kind, n_sm)
     orient = f"weights as A, tokens as N={p.tile_m}" if p.swap else "128x128 tiles"
     return {"plan": f"{orient}, {p.splits} split{'s' if p.splits > 1 else ''}, "
                     f"{p.blocks} blocks"}
@@ -1903,7 +1957,7 @@ KERNEL_GROUPS = {"megakernel_attn_half": tuple(f"token_kernel<{t}, 1>" for t in 
                      "float", "__nv_bfloat16", "__half", "signed char", "char")),
                  "megakernel_mlp_half": ("token_kernel<__nv_bfloat16, 2>",),
                  "nccl all-reduce": ("nccl",),
-                 "w4a16_gemv": ("w4a16_gemv", "splitk_reduce"),
+                 "w4a16_gemv": ("w4a16_gemv",),
                  "flash_decode_layer": ("LayerKV",),
                  "flash_decode": ("flash_decode",),
                  "w4a16_gemm": ("w4a16_wgmma_kernel", "splitk_reduce"),

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""A/B of the W4 megakernels K4, K5 and K6 between two checkouts on one
-NVIDIA GPU.
+"""A/B of the megakernels K4, K5 and K6 (W4, and with ``w3`` W3) and the
+tensor-parallel halves K12 and K13 between two checkouts on one NVIDIA GPU.
 
-    python3 scripts/ab_megakernels.py OTHER_TREE [--rounds 2]
+    python3 scripts/ab_megakernels.py OTHER_TREE [--rounds 2] [--phases mega,w3,tp]
 
 OTHER_TREE is another checkout of the repository, for example the parent
 commit unpacked with ``git archive`` into a git-ignored directory. Each
 turn runs, in a process of its own, one tree's ``chip_smoke.phase_megakernels``
 over that tree's ``awq_tpu_torch`` (a random W4-g128 model at Llama-3-8B
 width, 32 layers and a W4 head: K4's layer and token entries, K5 at 16 and
-32 rows, K6's slot, int8 and paged modes at 8 and 32 rows), each kernel
-held against its plain version there and timed by that tree's ``Timer``.
+32 rows, K6's slot, int8 and paged modes at 8 and 32 rows), with ``w3``
+the same over a W3 model, and with ``tp`` ``chip_smoke.phase_tp_kernels``
+(K12 and K13 on one rank's shards at tp = 1, 2 and 4), each kernel held
+against its plain version there and timed by that tree's ``Timer``.
 A tree's kernels are built by its own ``_build.build_all`` in its first
 turn. The turns go this, other, other, this, ``--rounds`` times; the
 script prints every case's kernel ms per turn and the median per tree,
@@ -30,7 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 MARK = "AB_CASES "
 
 
-def child(tree: Path) -> int:
+def child(tree: Path, phases) -> int:
     sys.path.insert(0, str(tree))
     import torch
 
@@ -41,7 +43,15 @@ def child(tree: Path) -> int:
     _build.build_all()
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = []
-    chip_smoke.phase_megakernels(torch, chip_smoke.Timer(torch, reps=20), cases)
+    timer = chip_smoke.Timer(torch, reps=20)
+    if "mega" in phases:
+        chip_smoke.phase_megakernels(torch, timer, cases)
+    if "w3" in phases:
+        torch.cuda.empty_cache()
+        chip_smoke.phase_megakernels(torch, timer, cases, w3=True)
+    if "tp" in phases:
+        torch.cuda.empty_cache()
+        chip_smoke.phase_tp_kernels(torch, timer, cases)
     print(MARK + json.dumps([(c["name"], c["shape"], c["ms"]) for c in cases]), flush=True)
     return 0
 
@@ -50,10 +60,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path, help="the checkout to compare with this one")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--phases", default="mega,tp",
+                    help="comma-separated: mega (W4 K4-K6), w3 (W3 K4-K6), tp (K12, K13)")
     ap.add_argument("--child", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        return child(args.child)
+        return child(args.child, args.phases.split(","))
 
     import torch
 
@@ -69,8 +81,8 @@ def main() -> int:
     for r in range(args.rounds):
         for label in ("this", "other", "other", "this"):
             proc = subprocess.run([sys.executable, __file__, str(args.other), "--child",
-                                   str(trees[label])], capture_output=True, text=True,
-                                  cwd=trees[label])
+                                   str(trees[label]), "--phases", args.phases],
+                                  capture_output=True, text=True, cwd=trees[label])
             lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(MARK)]
             if proc.returncode != 0 or not lines:
                 print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
