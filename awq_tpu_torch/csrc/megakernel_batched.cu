@@ -23,67 +23,125 @@
 // What bounds it on the H100: device memory. A step streams every W4 code,
 // scale and szero once (4.22 GB with the head at Llama-3-8B width) for all
 // B rows, plus each row's KV prefix; at B <= 64 the 2·B FLOPs per weight
-// stay far under the card's ~295 FLOPs per byte. What the design does:
-// - K4's launch: a persistent cooperative grid (cudaLaunchCooperativeKernel,
-//   grid from the occupancy query taken after the shared-memory attribute
-//   is set) with cooperative_groups grid barriers between dependent phases:
-//   norm | QKV | attention | combine | o-proj | norm | gate/up | down,
-//   eight per layer, and norm | head at the end;
-// - the B rows fill the M side of the mma.sync m16n8k16 tile that K4 pads
-//   with copies of its one row: the matmul tile is K5's (mega_rows.cuh), 32
-//   columns by up to 32 rows over the full IC, so a weight tile is decoded
-//   once for all rows; B > 32 takes a second pass over the same tile, which
-//   the block just read and finds in L2. Nothing of the TPU kernel's
-//   g-major [unit·B + b, 128] rows, its b-major transposes or its B % 8
-//   rule is carried over: they served Mosaic's (8, 128) tiles;
-// - per-row state: the QKV epilogue ropes row b with cos/sin row b, and
-//   writes its k/v into the cache IN PLACE at position lengths[b] of slot b
-//   (and into k_new/v_new, which the caller gets back). The attention
-//   phase never reads that position from the cache: the current token's
-//   k/v come from the f32 workspace, as the JAX kernel keeps them in
-//   registers. lengths is read on the device and clamped to [0, T-1], as
-//   the JAX append clamps, so no row writes at or past T;
-// - attention is K4's, spread over (row, kv head, position slice) items: a
-//   block takes the group's q heads of one kv head of one row over a slice,
-//   warps stride the positions with an online softmax each, and a combine
-//   phase merges warps and slices. The slices are sized from max_length,
+// stay far under the card's ~295 FLOPs per byte. The first version
+// took 6.8x that bound at 8 rows: every 32-column tile re-staged the rows
+// group by group through L2, padded them to the m16 side of mma.sync, held
+// one group in flight a warp and ended in a block barrier, and eight grid
+// barriers a layer waited on norm phases that one block a row computed.
+// What this design does:
+// - a persistent cooperative grid (cudaLaunchCooperativeKernel, one block
+//   an SM: eight consumer warps and one producer warp) with six grid
+//   barriers a layer: QKV | attention | combine | o-proj | gate/up | down;
+// - the matmul phases take K1's GEMV orientation (w4a16.cuh): the weights
+//   are the A operand of mma.sync m16n8k16 (16 output columns by 16
+//   channels, decoded by K1's code pairs, pair_codes.cuh: 2^7 + q in W4, q
+//   in W3, both exact in bf16) and the rows are N, one n8 tile for every 8
+//   rows: a decoded A fragment feeds all of them, and no row is padded to
+//   16;
+// - each block stages its rows once a phase into shared memory (K1's pair
+//   layout, with the group sums Σ bf16(x)), over the window of input
+//   channels that fits beside the ring (down at 8 rows, every phase at 32:
+//   the windows' partial sums go to a block-private f32 buffer in a fixed
+//   order); the staging of the QKV, gate/up and head phases folds the
+//   rmsnorm in: the phase that writes the residual leaves each block's sum
+//   of squares a row (ssp), and every block reads the f32 residual rows and
+//   the norm weights and writes bf16 rows, so no norm phase and no norm
+//   barrier remains; o-proj's and down's rows, which the combine and the
+//   gate/up epilogue store in that layout, arrive by one bulk copy a row;
+// - the producer warp streams the code and scale rows through a ring of
+//   rounds: a slot holds k chunks of input channels (a W4 group or a W3
+//   packing chunk each) of a wave's tiles, one piece for each busy consumer
+//   warp, as 3-D TMA boxes (codes, scales, szeros; gate/up: a gate and an up
+//   part) completing on the slot's full mbarrier; every consumer warp frees
+//   it through its empty mbarrier. It runs up to a ring ahead across the
+//   grid barriers, so the next phase's first weights are in flight during a
+//   phase's tail, the attention and the combine. One bulk copy a row (64-512
+//   bytes) capped a block at a few GB/s (~60-70 ns a copy, PERF.md §6);
+// - a phase's tiles (gate/up: a gate and an up tile together, so SiLU·mul
+//   stays fused) go to blocks in equal runs of units; the host plan
+//   (ops/megakernel_batched.py::batched_plan) gives each phase's wave, warps
+//   a tile and windows, and plan_for checks it against this build; a block
+//   takes them in waves of up
+//   to eight tiles, K warps splitting a tile's chunks, and adds the warps'
+//   partial sums in shared memory in warp order: deterministic, no atomics;
+// - rope and the cache write at lengths[b] move into the attention phase,
+//   whose item for slice 0 of a (row, kv head) writes the roped k and v (the
+//   int8 mode: quantize_kv of them), so QKV's columns need not pair up;
+// - attention is K4's arithmetic, spread over (row, kv head, position slice)
+//   items: a block takes the group's q heads of one kv head of one row over
+//   a slice, warps stride the positions with an online softmax each over k/v
+//   rows that a cp.async ring a warp brings in 16 positions ahead, two
+//   positions' reductions in flight at once, and a combine phase merges
+//   warps and slices. The slices are sized from max_length,
 //   which the caller knows on the host (the last slice takes whatever lies
 //   past it, so a low max_length costs balance, not correctness); a row
 //   shorter than a slice's start leaves (-inf, 0, 0) there and the combine
-//   gives it weight 0.
+//   gives it weight 0. The current token's k/v come from the QKV workspace,
+//   as the JAX kernel keeps them in registers; lengths is read on the device
+//   and clamped to [0, T-1], as the JAX append clamps.
 // Paged mode (the JAX kernel's `tables`, row 18's paged DMA): the cache is
 // a page pool [L, 2, NP, nkv, page, HD] shared by all rows and row b's
 // position p lives at page tables[b, p / page], offset p % page. Only the
-// two addresses change: the QKV epilogue's write and the attention's reads
-// (kv_row). The row length is clamped to [0, MP·page − 1], as row_length
-// clamps to T − 1 with T = MP·page; freed slots' table rows are 0, the
-// trash page, so their writes land there. The page size is a power of two,
-// so the lookup is a shift and a mask, not a division, in the attention
-// loop. The paged instance is built for a bf16 pool only (the engine's
-// pool dtype).
+// two addresses change: the write and the attention's reads (kv_row). The
+// row length is clamped to [0, MP·page − 1]; freed slots' table rows are 0,
+// the trash page, so their writes land there. The page size is a power of
+// two, so the lookup is a shift and a mask. The paged instance is built for
+// a bf16 pool only (the engine's pool dtype).
 // int8 slot mode (the JAX kernel's cache_scales): the cache holds int8
 // codes and f32 scales [L, 2, B, n_kv, T], one per position and head. The
 // attention dequantizes a position as K4 does (codes widened to f32 times
-// the scale; the current token stays f32), and k_new/v_new come back bf16
-// (JAX's kv_dt). The cache write cannot sit in the QKV epilogue: a block
-// there holds columns d and d + 64 of a head, half of the 128 values whose
-// absmax quantize_kv needs. So it moves past the grid barrier, into the
-// attention phase: the slice-0 item of each (row, kv head) already holds
-// the head's current k and v in shared memory, rounds them to bf16 and
-// writes 128 codes and one scale each at the row's position
-// (quantize_kv_rows). Nothing reads that position from the cache in this
-// step. The paged mode stays bf16: the JAX package has no paged int8 pool.
+// the scale; the current token stays f32), k_new/v_new come back bf16
+// (JAX's kv_dt), and the write stores quantize_kv of them (quantize_rows).
 // W3 mode (the JAX kernel's dense3, Pallas row 18, in every instance):
-// the linears and the head hold pack_int3 codes, read by the tile of a W3
-// unit (mega_rows.cuh).
-// A simple first version, like K5: activation rows are read through L2 by
-// every tile, there is no TMA and no overlap of a phase's tail with the next
-// one's loads.
-#include "mega_rows.cuh"
+// the linears and the head hold pack_int3 codes, decoded by K1's W3 code
+// pairs with the 2^7 taken off again (stage_mma says why).
+#include <string.h>
+
+#include "mega_common.cuh"
+#include "hopper.cuh"
+#include "pair_codes.cuh"
 
 namespace {
 
+constexpr int K6_WARPS = 8;                       // consumer warps
+constexpr int K6_THREADS = 32 * (K6_WARPS + 1);   // and the producer warp
+constexpr int PRODUCER = K6_WARPS;
+constexpr int CB = 1;                             // the consumers' named barrier
+constexpr int SMEM_MAX = 232448;
+constexpr int RING_BYTES = 60 * 1024;
+constexpr int WARP_ROWS = 32;                     // rows a consumer warp sums
+constexpr int RED_FLOATS = K6_WARPS * 16 * WARP_ROWS;
+constexpr int RS_FLOATS = 64;
+// The attention's ring: KV_RING positions a warp in flight, each slot a k
+// row, a v row and (int8) their two scales.
+constexpr int KV_RING = sizeof(AWQ_MEGA_CT) == 4 ? 8 : 16;
+constexpr int KV_VEC = MK_HD * sizeof(AWQ_MEGA_CT) / 16;      // 16-byte pieces of a row
+constexpr int KV_SLOT = (2 * KV_VEC * 16 + 8 + 15) / 16 * 16;
+constexpr int KV_RING_BYTES = 8448;               // a warp's ring, the most of any cache type
+static_assert(KV_RING * KV_SLOT <= KV_RING_BYTES, "attention ring");
+constexpr int ATT_FLOATS = MK_MAXG * MK_HD + 2 * MK_HD + 2 * K6_WARPS * MK_MAXG
+                           + K6_WARPS * MK_MAXG * MK_HD + K6_WARPS + K6_WARPS * KV_RING_BYTES / 4;
+constexpr int MAXB = 64;         // most rows per launch
+constexpr int NPH = 5;           // matmul phases: QKV, o-proj, gate/up, down, head
+
+// A piece: one chunk of input channels of a 16-column tile, its code rows
+// and the scale and szero rows of its groups. W4: a group (16 code rows);
+// W3: a pack_int3 chunk of two groups (24 rows). A ring slot holds one
+// round of a wave: k chunks of its tiles, eight pieces at most, as three
+// TMA boxes a part (codes, scales, szeros; gate/up has a gate and an up
+// part), each box on a 128-byte boundary.
+constexpr int KC = UNIT_W3 ? 256 : 128;
+constexpr int SROWS = UNIT_W3 ? 24 : 16;
+constexpr int SGROUPS = KC / MK_G;
+constexpr int SUB = KC / 64;                      // 64-channel sub-steps
+constexpr int PIECE = (SROWS + 2 * SGROUPS) * 16 * 4;
+constexpr int SB = K6_WARPS * PIECE + 1024;       // and the boxes' alignment
+constexpr int SLOTS = RING_BYTES / SB;
+
+struct PhasePlan { int wave, k, nw; };
+
 struct BatchArgs {
+  CUtensorMap maps[NPH][3];  // each phase's codes, scales and szeros ([L, rows, OC])
   const void* h_in; void* h_out;
   const int32_t* qkv_w; const float* qkv_s; const float* qkv_z; const void* qkv_b;
   const int32_t* o_w; const float* o_s; const float* o_z;
@@ -99,13 +157,46 @@ struct BatchArgs {
   int B, L, H, I, nq, nkv, T, vocab, md, has_bias;
   int np, page, page_shift, mp;
   int nsplit, split_len;
+  int wc, rh, bp;          // window chunks, row halves, rows rounded up to 8
+  PhasePlan pp[NPH];
   float eps;
 };
 
-constexpr int ATT_FLOATS = MK_MAXG * MK_HD + 2 * MK_HD + 2 * MK_WARPS * MK_MAXG
-                           + MK_WARPS * MK_MAXG * MK_HD;
-constexpr int PB = 4;            // cache positions a warp loads at once
-constexpr int MAXB = 64;         // most rows per launch
+// The shared memory of a block (smem_layout, which batched_plan's _smem
+// follows; plan_for refuses a plan of other bytes).
+struct Smem {
+  uint8_t* ring; uint64_t* full; uint64_t* empty; uint64_t* rowbar;
+  float* red; float* rs; float* xsum; uint32_t* rows; float* att;
+  int xp, ng;              // words of a staged row, groups of a window
+};
+
+__host__ __device__ inline int smem_layout(int bp, int wc, int* u_off, int* xs_off,
+                                           int* rows_off) {
+  *u_off = (128 + SLOTS * SB + 16 * SLOTS + 8 + 127) / 128 * 128;
+  *xs_off = *u_off + (RED_FLOATS + RS_FLOATS) * 4;
+  *rows_off = (*xs_off + bp * (wc * KC / MK_G) * 4 + 15) / 16 * 16;
+  const int end = *rows_off + bp * (wc * KC / 2 + 8) * 4;
+  const int att = *u_off + ATT_FLOATS * 4;
+  return end > att ? end : att;
+}
+
+__device__ __forceinline__ Smem carve(uint8_t* base, const BatchArgs& a) {
+  int u, xs, ro;
+  smem_layout(a.bp, a.wc, &u, &xs, &ro);
+  Smem s;
+  s.ring = base + ((128u - (hop::smem_u32(base) & 127u)) & 127u);   // TMA boxes: 128-byte aligned
+  s.full = reinterpret_cast<uint64_t*>(base + 128 + SLOTS * SB);
+  s.empty = s.full + SLOTS;
+  s.rowbar = s.empty + SLOTS;
+  s.red = reinterpret_cast<float*>(base + u);
+  s.rs = s.red + RED_FLOATS;
+  s.xsum = reinterpret_cast<float*>(base + xs);
+  s.rows = reinterpret_cast<uint32_t*>(base + ro);
+  s.att = s.red;
+  s.xp = a.wc * KC / 2 + 8;
+  s.ng = a.wc * KC / MK_G;
+  return s;
+}
 
 __device__ __forceinline__ int row_length(const int32_t* lengths, int b, int T) {
   return min(max(lengths[b], 0), T - 1);
@@ -124,318 +215,1122 @@ __device__ __forceinline__ size_t kv_row(const BatchArgs& a, int l, int which, i
   }
 }
 
-template <typename CT, bool PAGED>
-__global__ void __launch_bounds__(MK_THREADS) batched_kernel(BatchArgs a) {
-  constexpr bool Q8 = sizeof(CT) == 1;   // int8 codes with f32 scales
-  extern __shared__ __align__(16) float sm[];
-  cg::grid_group grid = cg::this_grid();
-  float* red8 = sm;                         // block_sum scratch
-  float* big = sm + MK_WARPS;               // GEMM reduction / attention
-  float* red = big;                         // [8][32][32]
-  float* tout = big + MK_WARPS * MAXS * TILE;  // [2][32][32]
-  uint32_t* stage = reinterpret_cast<uint32_t*>(big + GEMM_FLOATS);  // [8][2][32][72]
+// ---- the matmul phases' schedule ------------------------------------------
+
+// `bytes` (a multiple of 16) global -> shared by the bulk-copy engine,
+// completing on `bar`'s transaction count; both addresses 16-byte aligned.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src, uint32_t bytes,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(hop::smem_u32(dst)), "l"(src), "r"(bytes), "r"(hop::smem_u32(bar))
+      : "memory");
+}
+
+// Wait for the phase of parity `parity` of a ring barrier: try_wait without
+// a suspend-time hint, so a waiting warp polls again as soon as it is
+// scheduled; traps after about 10 s of the global timer, as hop::mbar_wait.
+__device__ __forceinline__ void ring_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = hop::smem_u32(bar);
+  uint64_t t0 = 0;
+  for (uint32_t tries = 1;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((tries & 1023u) == 0u) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 10000000000ull) __trap();
+    }
+  }
+}
+
+// A matmul phase of layer l as block blockIdx.x sees it: the weight, its
+// columns, the block's run of tile units [t0, ...) (nt tiles; gate/up's
+// unit is a pair, tiles 2i and 2i + 1 its gate and up blocks), the plan's
+// wave, warps a tile (k) and windows over IC (nw, chunks nch in all).
+struct PD {
+  const int32_t* qw; const float* sc; const float* sz;
+  int oc, nch, t0, nt, wave, k, nw, pair;
+};
+
+__device__ __forceinline__ PD phase_desc(const BatchArgs& a, int ph, int l) {
+  PD d;
+  const int H = a.H, I = a.I, oq = (a.nq + 2 * a.nkv) * MK_HD;
+  int ic = H;
+  d.pair = 0;
+  if (ph == 0) {
+    d.oc = oq;
+    d.qw = a.qkv_w + (size_t)l * qrows(H, UNIT_W3) * oq;
+    d.sc = a.qkv_s + (size_t)l * (H / MK_G) * oq;
+    d.sz = a.qkv_z + (size_t)l * (H / MK_G) * oq;
+  } else if (ph == 1) {
+    d.oc = H;
+    d.qw = a.o_w + (size_t)l * qrows(H, UNIT_W3) * H;
+    d.sc = a.o_s + (size_t)l * (H / MK_G) * H;
+    d.sz = a.o_z + (size_t)l * (H / MK_G) * H;
+  } else if (ph == 2) {
+    d.oc = 2 * I;
+    d.pair = 1;
+    d.qw = a.gu_w + (size_t)l * qrows(H, UNIT_W3) * 2 * I;
+    d.sc = a.gu_s + (size_t)l * (H / MK_G) * 2 * I;
+    d.sz = a.gu_z + (size_t)l * (H / MK_G) * 2 * I;
+  } else if (ph == 3) {
+    d.oc = H;
+    ic = I;
+    d.qw = a.dn_w + (size_t)l * qrows(I, UNIT_W3) * H;
+    d.sc = a.dn_s + (size_t)l * (I / MK_G) * H;
+    d.sz = a.dn_z + (size_t)l * (I / MK_G) * H;
+  } else {
+    d.oc = a.vocab;
+    d.qw = a.hd_w; d.sc = a.hd_s; d.sz = a.hd_z;
+  }
+  const int units = d.oc / 16 / (1 + d.pair);
+  const int u0 = static_cast<int>((long long)blockIdx.x * units / gridDim.x);
+  const int u1 = static_cast<int>((long long)(blockIdx.x + 1) * units / gridDim.x);
+  d.t0 = u0;
+  d.nt = (u1 - u0) * (1 + d.pair);
+  d.nch = ic / KC;
+  d.wave = a.pp[ph].wave; d.k = a.pp[ph].k; d.nw = a.pp[ph].nw;
+  return d;
+}
+
+// First output column of the block's tile i.
+__device__ __forceinline__ int tile_col(const PD& d, int i, int I) {
+  return d.pair ? ((i & 1) ? I : 0) + 16 * (d.t0 + (i >> 1)) : 16 * (d.t0 + i);
+}
+__device__ __forceinline__ int win_lo(const PD& d, int w) { return w * d.nch / d.nw; }
+
+// A round's boxes in its slot: for each part (gate/up: the gate tiles' and
+// the up tiles' columns) the codes of k chunks over pw columns, then the
+// scale rows, then the szero rows; each box starts on 128 bytes.
+struct Box { int parts, pw, cbx, sbx, tx; };
+__device__ __forceinline__ Box box_of(const PD& d) {
+  Box b;
+  b.parts = 1 + d.pair;
+  b.pw = 16 * d.wave / b.parts;
+  b.cbx = d.k * SROWS * b.pw * 4;
+  b.sbx = (d.k * SGROUPS * b.pw * 4 + 127) / 128 * 128;
+  b.tx = b.parts * (d.k * (SROWS + 2 * SGROUPS) * b.pw * 4);     // bytes the copies bring
+  return b;
+}
+
+// First tile of wave wv's box: the last wave's box ends at the block's
+// last tile (and re-reads tiles of the wave before it) so that no box
+// reaches past a full block's run of tiles.
+__device__ __forceinline__ int wave_start(const PD& d, int wv) {
+  return min(wv * d.wave, max(0, d.nt - d.wave));
+}
+
+// Rounds of a window: each of a tile's k warps takes one chunk a round.
+__device__ __forceinline__ int rounds(const PD& d, int w) {
+  return (win_lo(d, w + 1) - win_lo(d, w) + d.k - 1) / d.k;
+}
+
+// Stages (rounds) of a phase for this block, in the producer's order.
+__device__ __forceinline__ int phase_stages(const PD& d) {
+  if (d.nt == 0) return 0;
+  int n = 0;
+  for (int w = 0; w < d.nw; ++w) n += rounds(d, w);
+  return n * ((d.nt + d.wave - 1) / d.wave);
+}
+
+// The producer's place in the step's sequence of stages: layer, phase,
+// window, wave, round; idx counts stages. What a stage needs is set once a
+// wave (set_wave): the rounds left, this lane's box (which of codes, scales
+// and szeros, which part), its place in a slot, its column and first row,
+// and the row step a round; a stage then costs a wait, an expect_tx and one
+// TMA a lane, no division.
+struct Prod {
+  PD d;
+  const CUtensorMap* map;
+  int l, ph, win, wave, nwaves, idx, left, tx, off, col, row, drow, plane;
+  bool done, loads;
+};
+
+__device__ void set_wave(Prod& p, const BatchArgs& a) {
+  const PD& d = p.d;
+  const Box bx = box_of(d);
+  const int lane = threadIdx.x & 31, st = wave_start(d, p.wave);
+  const int which = lane / bx.parts, part = lane - which * bx.parts;
+  p.left = rounds(d, p.win);
+  p.tx = bx.tx;
+  p.loads = lane < 3 * bx.parts;
+  p.map = &a.maps[p.ph][p.loads ? which : 0];
+  p.off = which == 0 ? part * bx.cbx : bx.parts * bx.cbx + ((which - 1) * bx.parts + part) * bx.sbx;
+  p.col = (d.pair ? 16 * (d.t0 + st / 2) : 16 * (d.t0 + st)) + part * a.I;
+  p.drow = d.k * (which == 0 ? SROWS : SGROUPS);
+  p.row = win_lo(d, p.win) * (which == 0 ? SROWS : SGROUPS);
+  p.plane = p.ph == 4 ? 0 : p.l;
+}
+
+__device__ void prod_phase(Prod& p, const BatchArgs& a) {
+  p.win = p.wave = 0;
+  p.nwaves = (p.d.nt + p.d.wave - 1) / p.d.wave;
+  set_wave(p, a);
+}
+
+__device__ void prod_next_phase(Prod& p, const BatchArgs& a) {
+  do {
+    if (p.ph == 4) { p.done = true; return; }
+    if (p.ph < 3) {
+      ++p.ph;
+    } else if (++p.l < a.L) {
+      p.ph = 0;
+    } else if (a.vocab) {
+      p.ph = 4;
+    } else {
+      p.done = true;
+      return;
+    }
+    p.d = phase_desc(a, p.ph, p.l);
+  } while (p.d.nt == 0 || p.d.nch == 0);
+  prod_phase(p, a);
+}
+
+__device__ void prod_begin(Prod& p, const BatchArgs& a) {
+  p.l = 0; p.ph = 0; p.idx = 0; p.done = false;
+  p.d = phase_desc(a, 0, 0);
+  if (p.d.nt == 0 || p.d.nch == 0) prod_next_phase(p, a);
+  else prod_phase(p, a);
+}
+
+// Start stages until `limit`. Stage idx waits until every consumer warp
+// has freed its slot's previous round, then loads round r of the wave: the
+// codes of chunks r·k .. r·k + k − 1 of the window over the wave's columns
+// (one 3-D TMA box a part) and their scale and szero rows (a box each),
+// all completing on the slot's full barrier. A box may reach past the
+// window or IC (it reads the next chunks, or zeros past the edge) or past
+// the block's tiles; the consumers leave those pieces alone.
+__device__ void pump(Prod& p, const BatchArgs& a, const Smem& s, int limit) {
+  while (!p.done && p.idx < limit) {
+    const int slot = p.idx % SLOTS;
+    if (p.idx >= SLOTS) ring_wait(&s.empty[slot], ((p.idx / SLOTS) - 1) & 1);
+    if ((threadIdx.x & 31) == 0) hop::mbar_expect_tx(&s.full[slot], p.tx);
+    __syncwarp();
+    if (p.loads)
+      hop::tma_load_3d(s.ring + slot * SB + p.off, p.map, &s.full[slot], p.col, p.row, p.plane);
+    ++p.idx;
+    p.row += p.drow;
+    // the next stage: round, wave, window, phase
+    if (--p.left > 0) continue;
+    if (++p.wave == p.nwaves) {
+      p.wave = 0;
+      if (++p.win == p.d.nw) {
+        prod_next_phase(p, a);
+        continue;
+      }
+    }
+    set_wave(p, a);
+  }
+}
+
+// ---- the consumers: rows, chunks, merges -----------------------------------
+
+// The elements of one 16-byte vector of a row as f32.
+template <typename CT> __device__ __forceinline__ void unpack16(uint4 v, float* o);
+template <> __device__ __forceinline__ void unpack16<float>(uint4 v, float* o) {
+  o[0] = __uint_as_float(v.x); o[1] = __uint_as_float(v.y);
+  o[2] = __uint_as_float(v.z); o[3] = __uint_as_float(v.w);
+}
+template <> __device__ __forceinline__ void unpack16<bf16>(uint4 v, float* o) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+    o[2 * i] = __low2float(t); o[2 * i + 1] = __high2float(t);
+  }
+}
+template <> __device__ __forceinline__ void unpack16<__half>(uint4 v, float* o) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2 t = *reinterpret_cast<const __half2*>(&w[i]);
+    o[2 * i] = __low2float(t); o[2 * i + 1] = __high2float(t);
+  }
+}
+
+// Rows [0, B) of a window [k0, k0 + wlen) into the staged pair layout (K1's:
+// each 16-channel block's 8 words as w0 w4 w1 w5 w2 w6 w3 w7, so that lane
+// tq's B fragment is one 8-byte word), rows B..bp-1 zero, and the f32 sums
+// of each row's bf16 values over each group. From f32 rows `srcf` with the
+// rmsnorm folded in (x = bf16(v · rs[r] · w[k]), w of the model dtype md),
+// else bf16 rows `srcb`. A thread takes U 16-channel blocks at a time and
+// starts all their loads before it uses one (the rows sit in L2).
+template <int U, bool F32>
+__device__ void stage_rows_u(const Smem& s, const float* srcf, const bf16* srcb, int ld,
+                             const void* nw, size_t woff, int md, int k0, int wlen, int B,
+                             int bp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nb16 = wlen / 16, total = bp * nb16;
+  for (int base = warp * 32; base < total; base += 32 * K6_WARPS * U) {
+    uint4 raw[U][F32 ? 4 : 2], wt[U][F32 ? 4 : 1];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + 32 * K6_WARPS * u + lane, r = i / nb16, k = k0 + 16 * (i - r * nb16);
+      const bool live = i < total && r < B;
+#pragma unroll
+      for (int v = 0; v < (F32 ? 4 : 2); ++v)
+        raw[u][v] = live ? (F32 ? *reinterpret_cast<const uint4*>(srcf + (size_t)r * ld + k + 4 * v)
+                                : *reinterpret_cast<const uint4*>(srcb + (size_t)r * ld + k + 8 * v))
+                         : make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (F32) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const bool has = live && (md == 0 || v < 2);
+          const size_t off = woff + k + (md == 0 ? 4 * v : 8 * v);
+          wt[u][v] = has ? (md == 0 ? *reinterpret_cast<const uint4*>(static_cast<const float*>(nw) + off)
+                                    : *reinterpret_cast<const uint4*>(static_cast<const bf16*>(nw) + off))
+                         : make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = base + 32 * K6_WARPS * u + lane, r = i / nb16, blk = i - r * nb16;
+      if (base + 32 * K6_WARPS * u >= total) break;          // warp-uniform
+      uint32_t w[8];
+      float sum = 0.f;
+      if constexpr (F32) {
+        const float rs = r < B ? s.rs[r] : 0.f;
+        float x[16], g[16];
+        unpack16<float>(raw[u][0], x); unpack16<float>(raw[u][1], x + 4);
+        unpack16<float>(raw[u][2], x + 8); unpack16<float>(raw[u][3], x + 12);
+        if (md == 0) {
+          unpack16<float>(wt[u][0], g); unpack16<float>(wt[u][1], g + 4);
+          unpack16<float>(wt[u][2], g + 8); unpack16<float>(wt[u][3], g + 12);
+        } else if (md == 1) {
+          unpack16<bf16>(wt[u][0], g); unpack16<bf16>(wt[u][1], g + 8);
+        } else {
+          unpack16<__half>(wt[u][0], g); unpack16<__half>(wt[u][1], g + 8);
+        }
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          x[e] = bf16r(x[e] * rs * g[e]);
+          sum += x[e];
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) w[e] = pack_bf16x2(x[2 * e], x[2 * e + 1]);
+      } else {
+        w[0] = raw[u][0].x; w[1] = raw[u][0].y; w[2] = raw[u][0].z; w[3] = raw[u][0].w;
+        w[4] = raw[u][1].x; w[5] = raw[u][1].y; w[6] = raw[u][1].z; w[7] = raw[u][1].w;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
+          sum += __low2float(t) + __high2float(t);
+        }
+      }
+      uint4* d = reinterpret_cast<uint4*>(s.rows + (size_t)r * s.xp + 8 * blk);
+      d[0] = make_uint4(w[0], w[4], w[1], w[5]);
+      d[1] = make_uint4(w[2], w[6], w[3], w[7]);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      if ((lane & 7) == 0) s.xsum[r * s.ng + blk / 8] = sum;
+    }
+  }
+}
+
+// This thread's stores to global memory become visible to the async proxy
+// (another block's bulk copy of them after the grid barrier).
+__device__ __forceinline__ void fence_proxy_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+// Word of the staged pair layout that holds channels k, k + 1 (k even) of a
+// row: in each 16-channel block the pairs sit in the order 0 4 1 5 2 6 3 7.
+__device__ __forceinline__ int perm_word(int k) {
+  const int p = (k & 15) >> 1;
+  return (k >> 4 << 3) + (p < 4 ? 2 * p : 2 * (p - 4) + 1);
+}
+
+// Rows [0, B) of a window of bf16 rows that their writers (the combine,
+// the gate/up epilogue) stored in the staged pair layout: one bulk copy a
+// row, on the rows barrier (phase `parity`), rows B..bp-1 zero; then the
+// group sums of each row from shared memory, as stage_rows adds them.
+__device__ void stage_bulk(const Smem& s, const bf16* src, int ld, int k0, int wlen, int B,
+                           int bp, uint32_t parity) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, hw = wlen / 2;
+  // every thread's accesses to this memory (the last window's rows, the
+  // attention's scratch) are ordered before the bulk copies overwrite it
+  hop::fence_proxy_async();
+  hop::bar_sync(CB, 32 * K6_WARPS);
+  if (tid == 0) {
+    hop::mbar_expect_tx(s.rowbar, B * wlen * 2);
+    for (int r = 0; r < B; ++r)
+      bulk_g2s(s.rows + (size_t)r * s.xp, src + (size_t)r * ld + k0, wlen * 2, s.rowbar);
+  }
+  for (int i = tid; i < (bp - B) * hw; i += 32 * K6_WARPS)
+    s.rows[(size_t)(B + i / hw) * s.xp + i % hw] = 0u;
+  ring_wait(s.rowbar, parity);
+  const int nb16 = wlen / 16, total = bp * nb16;
+  for (int base = warp * 32; base < total; base += 32 * K6_WARPS) {
+    const int i = base + lane, r = i / nb16, blk = i - r * nb16;
+    const uint4* d = reinterpret_cast<const uint4*>(s.rows + (size_t)r * s.xp + 8 * blk);
+    const uint4 v0 = d[0], v1 = d[1];
+    const uint32_t w[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const __nv_bfloat162 t = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
+      sum += __low2float(t) + __high2float(t);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+    if ((lane & 7) == 0) s.xsum[r * s.ng + blk / 8] = sum;
+  }
+}
+
+// A window's rows: from f32 rows with the rmsnorm folded in, else by bulk
+// copies of bf16 rows in the staged layout (nbulk counts those, for the
+// rows barrier's phase).
+__device__ __forceinline__ void stage_rows(const Smem& s, const float* srcf, const bf16* srcb,
+                                           int ld, const void* nw, size_t woff, int md, int k0,
+                                           int wlen, int B, int bp, int& nbulk) {
+  if (srcf) stage_rows_u<2, true>(s, srcf, srcb, ld, nw, woff, md, k0, wlen, B, bp);
+  else stage_bulk(s, srcb, ld, k0, wlen, B, bp, (nbulk++) & 1);
+}
+
+// The bf16 code pairs of k16 step j of a 64-channel sub-step of one column
+// (pc::code_pairs, as K1's GEMV decodes them): 2^7 + q in W4; W3 takes the
+// 2^7 off again, so that its A operand holds q itself (see stage_mma).
+__device__ __forceinline__ void code_pairs(uint32_t lo0, uint32_t lo1, uint32_t hi0, uint32_t hi1,
+                                           int j, uint32_t& pl, uint32_t& ph) {
+  pc::code_pairs<UNIT_W3 != 0>(lo0, lo1, hi0, hi1, j, 0x43004300u, pl, ph);
+  if constexpr (UNIT_W3) {
+    const __nv_bfloat162 c = __float2bfloat162_rn(128.f);
+    const __nv_bfloat162 l2 = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&pl), c);
+    const __nv_bfloat162 h2 = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&ph), c);
+    pl = *reinterpret_cast<const uint32_t*>(&l2);
+    ph = *reinterpret_cast<const uint32_t*>(&h2);
+  }
+}
+
+// One piece (chunk cl of the window) of a warp's tile: its code rows at cw,
+// scale and szero rows at sv and zv, rows rw words apart; its 16 columns
+// are the A rows (column 2gq + h is row gq + 8h), the NT n8 tiles of its
+// rows from `rb` on the B operand; at each group edge the products fold
+// into acc as s·Σx·(2^7 + q) − (2^7·s + sz)·Σx, JAX's identity with biased
+// codes (W3: s·Σx·q − sz·Σx). Both are exact in bf16, but the tensor core
+// adds a chain of products to about 2^-18.5 of its largest term
+// (scripts/exp_mma_precision.py), so with codes biased by 2^7 the part
+// that survives taking 2^7·s·Σx off loses 75-500 times as much as with q
+// itself. W3 takes q: biased W3 codes moved one ill-conditioned (layer,
+// row) of the smoke's W3 model 6-8% at 32 rows (PERF.md §6).
+template <int NT>
+__device__ __forceinline__ void stage_mma(const Smem& s, const uint32_t* cw, const float* sv,
+                                          const float* zv, int rw, int cl, int rb,
+                                          float (&acc)[4][4]) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const uint32_t* xrow = s.rows + (size_t)(rb + gq) * s.xp + 2 * tq;
+#pragma unroll
+  for (int gi = 0; gi < SGROUPS; ++gi) {
+    // CH product chains over the k16 steps (two where the n8 tiles are few,
+    // so that consecutive products need not wait for each other; one in W3,
+    // whose decode holds more registers)
+    constexpr int CH = NT <= 2 && !UNIT_W3 ? 2 : 1;
+    float d[CH][NT][4];
+#pragma unroll
+    for (int ch = 0; ch < CH; ++ch)
+#pragma unroll
+      for (int nb = 0; nb < NT; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[ch][nb][e] = 0.f;
+#pragma unroll
+    for (int qq = 0; qq < 2; ++qq) {
+      const int q = 2 * gi + qq;
+      uint2 l0, l1, h0 = make_uint2(0u, 0u), h1 = make_uint2(0u, 0u);
+      const int r0 = (UNIT_W3 ? 8 * (q >> 1) : 8 * q) + 2 * tq;
+      l0 = *reinterpret_cast<const uint2*>(cw + r0 * rw + 2 * gq);
+      l1 = *reinterpret_cast<const uint2*>(cw + (r0 + 1) * rw + 2 * gq);
+      if constexpr (UNIT_W3) {
+        h0 = *reinterpret_cast<const uint2*>(cw + (16 + 2 * tq) * rw + 2 * gq);
+        h1 = *reinterpret_cast<const uint2*>(cw + (17 + 2 * tq) * rw + 2 * gq);
+        const int ls = 16 * (q & 1), hs = 8 * q;
+        l0.x >>= ls; l0.y >>= ls; l1.x >>= ls; l1.y >>= ls;
+        h0.x >>= hs; h0.y >>= hs; h1.x >>= hs; h1.y >>= hs;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t a[4];
+        code_pairs(l0.x, l1.x, h0.x, h1.x, j, a[0], a[2]);   // column 2gq
+        code_pairs(l0.y, l1.y, h0.y, h1.y, j, a[1], a[3]);   // column 2gq + 1
+        const int kk = (cl * SUB + q) * 4 + j;
+#pragma unroll
+        for (int nb = 0; nb < NT; ++nb) {
+          const uint2 b = *reinterpret_cast<const uint2*>(xrow + (size_t)nb * 8 * s.xp + 8 * kk);
+          mma_bf16_16816(d[j % CH][nb], a, b.x, b.y);
+        }
+      }
+    }
+    const float2 sc = *reinterpret_cast<const float2*>(sv + gi * rw + 2 * gq);
+    const float2 sz = *reinterpret_cast<const float2*>(zv + gi * rw + 2 * gq);
+    const float zc0 = UNIT_W3 ? sz.x : fmaf(128.f, sc.x, sz.x);
+    const float zc1 = UNIT_W3 ? sz.y : fmaf(128.f, sc.y, sz.y);
+    const int g = cl * SGROUPS + gi;
+#pragma unroll
+    for (int nb = 0; nb < NT; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xs = s.xsum[(rb + 8 * nb + 2 * tq + e) * s.ng + g];
+        float d0 = d[0][nb][e], d1 = d[0][nb][2 + e];
+        if constexpr (CH == 2) {
+          d0 += d[1][nb][e];
+          d1 += d[1][nb][2 + e];
+        }
+        acc[nb][e] += d0 * sc.x - xs * zc0;
+        acc[nb][2 + e] += d1 * sc.y - xs * zc1;
+      }
+    }
+  }
+}
+
+// A wave's rounds for one warp: every consumer warp passes every round (the
+// empty barrier counts all eight); a busy warp takes its piece of each:
+// chunk r·K + kp of its tile slot, NT n8 tiles of rows from rb.
+template <int NT>
+__device__ __forceinline__ void wave_rounds(const Smem& s, const Box& bx, int seq, int nr, int K,
+                                            int kp, bool busy, int box, int tcol, int wc, int rb,
+                                            float (&acc)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  for (int r = 0; r < nr; ++r) {
+    const int idx = seq + r, slot = idx % SLOTS, c = r * K + kp;
+    ring_wait(&s.full[slot], (idx / SLOTS) & 1);
+    if (busy && c < wc) {
+      const uint8_t* base = s.ring + slot * SB;
+      const int ro = kp * SGROUPS * bx.pw + tcol;
+      stage_mma<NT>(s,
+                    reinterpret_cast<const uint32_t*>(base + box * bx.cbx) + kp * SROWS * bx.pw + tcol,
+                    reinterpret_cast<const float*>(base + bx.parts * bx.cbx + box * bx.sbx) + ro,
+                    reinterpret_cast<const float*>(base + bx.parts * bx.cbx + (bx.parts + box) * bx.sbx) + ro,
+                    bx.pw, c, rb, acc);
+    }
+    __syncwarp();
+    if (lane == 0) hop::mbar_arrive(&s.empty[slot]);
+  }
+}
+
+// Row sums of squares of this block's columns [c0, c1) of y [B][H], one
+// warp a row, into ssp[block][row] for the next phase's folded rmsnorm.
+__device__ void row_squares(const float* y, int H, int B, int c0, int c1, float* ssp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < B; r += K6_WARPS) {
+    float v = 0.f;
+    for (int c = c0 + lane; c < c1; c += 32) {
+      const float x = y[(size_t)r * H + c];
+      v += x * x;
+    }
+    v = warp_sum(v);
+    if (lane == 0) ssp[blockIdx.x * MAXB + r] = v;
+  }
+}
+
+// Each row's rmsnorm factor rsqrt(mean of squares + eps) from the blocks'
+// partial sums, added in block order.
+__device__ void norm_factors(const Smem& s, const float* ssp, int B, int H, float eps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < B; r += K6_WARPS) {
+    float v = 0.f;
+    for (int g = lane; g < static_cast<int>(gridDim.x); g += 32) v += ssp[g * MAXB + r];
+    v = warp_sum(v);
+    if (lane == 0) s.rs[r] = rsqrtf(v / H + eps);
+  }
+}
+
+// The epilogue of one output element (row r, column c) of phase ph with
+// its full sum v.
+struct Out {
+  float* hres; float* h1; float* qkv; bf16* xw; bf16* hm; float* logits; float* ssp;
+};
+
+// A matmul phase, consumer side: for each window, stage its rows, then for
+// each wave of the block's tiles let each warp take its chunks, add the
+// warps' sums in warp order and finish (or carry the window's partial sums
+// in `part`, a block-private f32 buffer, to the next window).
+__device__ void mm_phase(const BatchArgs& a, const Smem& s, const PD& d, int ph, int l,
+                         int seq, const Out& o, float* part, int pld, int& nbulk) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int B = a.B, H = a.H, I = a.I, oq = (a.nq + 2 * a.nkv) * MK_HD;
+  const bool fold = ph == 0 || ph == 2 || ph == 4;
+  const float* srcf = ph == 2 ? o.h1 : o.hres;
+  const bf16* srcb = ph == 1 ? o.xw : o.hm;     // the attention rows, SiLU·mul
+  const void* nw = ph == 0 ? a.ln1 : ph == 2 ? a.ln2 : a.norm_w;
+  const size_t woff = ph == 4 ? 0 : (size_t)l * H;
+  const int ic = ph == 3 ? I : H;
+  const int K = d.k, rh = a.rh, nwaves = (d.nt + d.wave - 1) / d.wave;
+  // this warp's place in a wave: tile slot, row half, chunk phase
+  const int ts = warp / (K * rh), rhalf = (warp / K) % rh, kp = warp % K;
+  const int rb = rhalf * WARP_ROWS;
+  const int nt = max(0, min(4, (a.bp - rb) / 8));
+  if (fold) norm_factors(s, o.ssp, B, H, a.eps);
+  for (int win = 0; win < d.nw; ++win) {
+    const int c0 = win_lo(d, win), wc = win_lo(d, win + 1) - c0;
+    hop::bar_sync(CB, 32 * K6_WARPS);        // the last window's rows are read
+    stage_rows(s, fold ? srcf : nullptr, srcb, ic, nw, woff, a.md, c0 * KC, wc * KC, B, a.bp,
+               nbulk);
+    hop::bar_sync(CB, 32 * K6_WARPS);
+    const Box bx = box_of(d);
+    for (int wv = 0; wv < nwaves; ++wv) {
+      // the wave's box holds tiles st .. st + wave − 1; this wave owns [lo, hi)
+      const int st = wave_start(d, wv), lo = wv * d.wave - st, hi = min(d.wave, d.nt - st);
+      float acc[4][4];
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nb][e] = 0.f;
+      // every consumer warp passes every round (the empty barrier counts
+      // all eight); a busy warp takes its piece: chunk r·K + kp of its tile
+      const int nr = (wc + K - 1) / K;
+      const bool busy = ts >= lo && ts < hi;
+      const int box = d.pair ? (ts & 1) : 0, tcol = d.pair ? 16 * (ts >> 1) : 16 * ts;
+      // the n8 tiles of the warp's rows as a constant: no product guarded
+      if (nt == 1) wave_rounds<1>(s, bx, seq, nr, K, kp, busy, box, tcol, wc, rb, acc);
+      else if (nt == 2) wave_rounds<2>(s, bx, seq, nr, K, kp, busy, box, tcol, wc, rb, acc);
+      else if (nt == 3) wave_rounds<3>(s, bx, seq, nr, K, kp, busy, box, tcol, wc, rb, acc);
+      else wave_rounds<4>(s, bx, seq, nr, K, kp, busy, box, tcol, wc, rb, acc);
+      seq += nr;
+      if (busy) {
+        const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              s.red[(warp * 16 + 2 * gq + h) * WARP_ROWS + 8 * nb + 2 * tq + e] = acc[nb][2 * h + e];
+      }
+      hop::bar_sync(CB, 32 * K6_WARPS);
+      // the sum of tile slot t's warps at (column col, row r), in warp order
+      auto total = [&](int t, int col, int r) {
+        float v = 0.f;
+        const int w0 = (t * rh + r / WARP_ROWS) * K;
+        for (int q = 0; q < K; ++q) v += s.red[((w0 + q) * 16 + col) * WARP_ROWS + r % WARP_ROWS];
+        return v;
+      };
+      const bool last = win == d.nw - 1;
+      // carry a window's sum at column c of row r; the full sum on the last
+      auto carry = [&](float v, int r, int c) {
+        float* p = ph == 4 ? o.logits + (size_t)r * a.vocab + c : part + (size_t)r * pld + c;
+        if (d.nw == 1) return v;
+        const float t = (win ? *p : 0.f) + v;
+        if (!last) *p = t;
+        return t;
+      };
+      const int per = 16 * B, t0 = d.pair ? lo / 2 : lo;
+      const int items = (d.pair ? (hi - lo) / 2 : hi - lo) * per;
+      for (int i = tid; i < items; i += 32 * K6_WARPS) {
+        const int t = t0 + i / per, col = (i % per) / B, r = i % B;
+        if (d.pair) {
+          const int cg = tile_col(d, st + 2 * t, I) + col;
+          const float g = carry(total(2 * t, col, r), r, cg);
+          const float u = carry(total(2 * t + 1, col, r), r, cg + I);
+          if (!last) continue;
+          const float gt = bf16r(g), up = bf16r(u);
+          // stored in the staged pair layout that down's bulk staging copies
+          o.hm[(size_t)r * I + 2 * perm_word(cg & ~1) + (cg & 1)] =
+              __float2bfloat16_rn(gt * (1.f / (1.f + expf(-gt))) * up);
+          fence_proxy_global();
+          continue;
+        }
+        const int c = tile_col(d, st + t, I) + col;
+        const float v = carry(total(t, col, r), r, c);
+        if (!last) continue;
+        if (ph == 0) {
+          float x = bf16r(v);
+          if (a.has_bias) x = bf16r(x + load_act(a.qkv_b, a.md, (size_t)l * oq + c));
+          o.qkv[(size_t)r * oq + c] = x;
+        } else if (ph == 1) {
+          o.h1[(size_t)r * H + c] = o.hres[(size_t)r * H + c] + v;
+        } else if (ph == 3) {
+          o.hres[(size_t)r * H + c] = bf16r(o.h1[(size_t)r * H + c] + v);
+        } else if (ph == 4) {
+          o.logits[(size_t)r * a.vocab + c] = v;
+        }
+      }
+      hop::bar_sync(CB, 32 * K6_WARPS);      // red is free
+    }
+  }
+}
+
+// ---- attention ---------------------------------------------------------------
+
+// quantize_kv_rows (mega_common.cuh) over the consumer warps alone: the
+// same arithmetic, bit-equal to quantize_kv, with the consumers' named
+// barrier in place of the block's. Called by all 256 consumer threads.
+__device__ __forceinline__ void quantize_rows(const float* kc, const float* vc, int8_t* kq,
+                                              int8_t* vq, float* ks, float* vs, bf16* kout,
+                                              bf16* vout, float* red) {
+  const int t = threadIdx.x, d = t & (MK_HD - 1), which = t >> 7;
+  const float x = bf16r(which ? vc[d] : kc[d]);
+  const float a = warp_max(fabsf(x));
+  hop::bar_sync(CB, 32 * K6_WARPS);
+  if ((t & 31) == 0) red[t >> 5] = a;
+  hop::bar_sync(CB, 32 * K6_WARPS);
+  const float* r = red + which * (MK_HD / 32);
+  const float sc = __fmul_rn(fmaxf(fmaxf(fmaxf(r[0], r[1]), fmaxf(r[2], r[3])), 1e-6f), 1.f / 127.f);
+  (which ? vq : kq)[d] = static_cast<int8_t>(fminf(fmaxf(rintf(x / sc), -127.f), 127.f));
+  if (d == 0) *(which ? vs : ks) = sc;
+  (which ? vout : kout)[d] = __float2bfloat16_rn(x);
+  hop::bar_sync(CB, 32 * K6_WARPS);
+}
+
+// The attention items (row, kv head, position slice), consumer warps only.
+// An item ropes its q heads (scaled) and its current k in shared memory;
+// slice 0 writes the current k/v at the row's position. Warps stride the
+// positions, each keeping an online softmax (K4's arithmetic) over k/v rows
+// that a ring of its own in shared memory brings in by cp.async, 16 (f32: 8)
+// positions ahead; the block then merges its warps.
+// G: the most q heads a kv head this instance takes (4 or MK_MAXG), so that
+// the running states of a group of 4 hold no registers for 8; EXACT: the
+// group has G heads, so the heads' chains interleave with no guard.
+template <typename CT, bool PAGED, int G, bool EXACT>
+__device__ void attention_g(const BatchArgs& a, const Smem& s, int l, const float* qkv,
+                            CT* cache) {
+  constexpr bool Q8 = sizeof(CT) == 1;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int B = a.B, nq = a.nq, nkv = a.nkv, grp = nq / nkv;
+  const int oq = (nq + 2 * nkv) * MK_HD;
+  float* sq = s.att;                              // [MK_MAXG][128] roped q·scale
+  float* kc = sq + MK_MAXG * MK_HD;               // [128] current k (roped)
+  float* vc = kc + MK_HD;                         // [128] current v
+  float* wm = vc + MK_HD;                         // [8][MK_MAXG]
+  float* wl = wm + K6_WARPS * MK_MAXG;            // [8][MK_MAXG]
+  float* wacc = wl + K6_WARPS * MK_MAXG;          // [8][MK_MAXG][128]
+  float* red8 = wacc + K6_WARPS * MK_MAXG * MK_HD;
+  float* pml = a.ws + (size_t)B * (2 * a.H + oq);
+  const size_t nrows = (size_t)B * nkv * a.nsplit * grp;
+  float* pacc = pml + ((nrows * 2 + 3) & ~(size_t)3);
+  const float scale = 1.f / sqrtf((float)MK_HD);
+  const int items = B * nkv * a.nsplit;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int b = it / (nkv * a.nsplit), kvh = (it / a.nsplit) % nkv, sp = it % a.nsplit;
+    const int len = row_length(a.lengths, b, a.T);
+    const int p0 = sp * a.split_len;
+    // position len is the current token; the last slice runs on to it, so
+    // max_length only balances the slices and no row depends on it
+    const int p1 = sp == a.nsplit - 1 ? len + 1 : min(p0 + a.split_len, len + 1);
+    const float* qrow = qkv + (size_t)b * oq;
+    const float* cr = a.cosr + b * MK_HD;
+    const float* sr = a.sinr + b * MK_HD;
+    hop::bar_sync(CB, 32 * K6_WARPS);             // the last item's smem is read
+    // rope (HF rotate-half, as JAX's rope with the row's cos/sin): for d <
+    // 64, x[d]·c[d] − x[d + 64]·s[d]; else x[d]·c[d] + x[d − 64]·s[d]
+    for (int i = tid; i < (grp + 2) * MK_HD; i += 32 * K6_WARPS) {
+      const int g = i / MK_HD, d = i % MK_HD;
+      const int base = g < grp ? (kvh * grp + g) * MK_HD
+                               : (g == grp ? nq + kvh : nq + nkv + kvh) * MK_HD;
+      const float x = qrow[base + d];
+      if (g == grp + 1) {
+        vc[d] = x;
+        continue;
+      }
+      const float y = d < 64 ? x * cr[d] - qrow[base + d + 64] * sr[d]
+                             : x * cr[d] + qrow[base + d - 64] * sr[d];
+      if (g < grp) sq[i] = y * scale;
+      else kc[d] = y;
+    }
+    hop::bar_sync(CB, 32 * K6_WARPS);
+    if (sp == 0) {                 // the row's k/v at its own position
+      const size_t orow = (((size_t)l * B + b) * nkv + kvh) * MK_HD;
+      const size_t kr = kv_row<PAGED>(a, l, 0, b, kvh, len);
+      const size_t vr = kv_row<PAGED>(a, l, 1, b, kvh, len);
+      if constexpr (Q8) {
+        quantize_rows(kc, vc, cache + kr * MK_HD, cache + vr * MK_HD, a.scales + kr,
+                      a.scales + vr, static_cast<bf16*>(a.k_new) + orow,
+                      static_cast<bf16*>(a.v_new) + orow, red8);
+      } else {
+        const int d = tid & (MK_HD - 1), which = tid >> 7;
+        const CT v = from_f32<CT>(which ? vc[d] : kc[d]);
+        cache[(which ? vr : kr) * MK_HD + d] = v;
+        static_cast<CT*>(which ? a.v_new : a.k_new)[orow + d] = v;
+      }
+    }
+    float m[G], lsum[G], acc[G][4];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m[g] = -INFINITY; lsum[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
+    }
+    // this warp's positions p0 + warp + 8i before len stream through its
+    // ring: position i's k and v rows (and, int8, their scales) by 16-byte
+    // cp.async, KV_RING positions ahead, one commit group each
+    uint8_t* ring = reinterpret_cast<uint8_t*>(red8 + K6_WARPS) + warp * KV_RING * KV_SLOT;
+    const int nown = p1 > p0 + warp ? (p1 - p0 - warp + K6_WARPS - 1) / K6_WARPS : 0;
+    const int nload = min(nown, len > p0 + warp ? (len - p0 - warp + K6_WARPS - 1) / K6_WARPS : 0);
+    auto fetch = [&](int i) {
+      if (i < nload) {
+        const int p = p0 + warp + K6_WARPS * i;
+        uint8_t* slot = ring + (i % KV_RING) * KV_SLOT;
+        const size_t kr = kv_row<PAGED>(a, l, 0, b, kvh, p), vr = kv_row<PAGED>(a, l, 1, b, kvh, p);
+#pragma unroll
+        for (int c = lane; c < 2 * KV_VEC; c += 32) {
+          const int which = c >= KV_VEC, v = c - which * KV_VEC;
+          hop::cp_async16(slot + c * 16, reinterpret_cast<const uint8_t*>(
+                              cache + (which ? vr : kr) * MK_HD) + v * 16, true);
+        }
+        if constexpr (Q8) {
+          if (lane < 2)
+            hop::cp_async4(slot + 2 * KV_VEC * 16 + 4 * lane, a.scales + (lane ? vr : kr), true);
+        }
+      }
+      hop::cp_async_commit();
+    };
+#pragma unroll
+    for (int i = 0; i < KV_RING - 2; ++i) fetch(i);
+    // two positions an iteration: both scores' reductions are in flight
+    // together, then the running states take them in order
+    for (int i = 0; i < nown; i += 2) {
+      fetch(i + KV_RING - 2);
+      fetch(i + KV_RING - 1);
+      asm volatile("cp.async.wait_group %0;" ::"n"(KV_RING - 2) : "memory");
+      __syncwarp();
+      float kv4[2][4], vv4[2][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (i + u < nload) {
+          const uint8_t* slot = ring + ((i + u) % KV_RING) * KV_SLOT;
+          load4<CT>(reinterpret_cast<const CT*>(slot) + lane * 4, kv4[u]);
+          load4<CT>(reinterpret_cast<const CT*>(slot + KV_VEC * 16) + lane * 4, vv4[u]);
+          if constexpr (Q8) {
+            const float ks = reinterpret_cast<const float*>(slot + 2 * KV_VEC * 16)[0];
+            const float vs = reinterpret_cast<const float*>(slot + 2 * KV_VEC * 16)[1];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) { kv4[u][e] *= ks; vv4[u][e] *= vs; }
+          }
+        } else {                      // the current token (or past the slice: unused)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) { kv4[u][e] = kc[lane * 4 + e]; vv4[u][e] = vc[lane * 4 + e]; }
+        }
+      }
+      __syncwarp();                   // the slots are read before fetch() refills them
+      float sc[2][G];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float dp = 0.f;
+          if (EXACT || g < grp) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dp = fmaf(sq[g * MK_HD + lane * 4 + e], kv4[u][e], dp);
+          }
+          sc[u][g] = dp;
+        }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int g = 0; g < G; ++g) sc[u][g] += __shfl_xor_sync(0xffffffffu, sc[u][g], o);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (i + u >= nown) break;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (EXACT || g < grp) {
+            const float mn = fmaxf(m[g], sc[u][g]);
+            const float alpha = expf(m[g] - mn);
+            const float pr = expf(sc[u][g] - mn);
+            lsum[g] = lsum[g] * alpha + pr;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[g][e] = acc[g][e] * alpha + pr * vv4[u][e];
+            m[g] = mn;
+          }
+        }
+      }
+    }
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (g < grp) {
+        if (lane == 0) { wm[warp * MK_MAXG + g] = m[g]; wl[warp * MK_MAXG + g] = lsum[g]; }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) wacc[(warp * MK_MAXG + g) * MK_HD + lane * 4 + e] = acc[g][e];
+      }
+    }
+    hop::bar_sync(CB, 32 * K6_WARPS);
+    for (int i = tid; i < grp * MK_HD; i += 32 * K6_WARPS) {
+      const int g = i / MK_HD, d = i % MK_HD;
+      float mx = -INFINITY;
+      for (int w = 0; w < K6_WARPS; ++w) mx = fmaxf(mx, wm[w * MK_MAXG + g]);
+      float ls = 0.f, ac = 0.f;
+      for (int w = 0; w < K6_WARPS; ++w) {
+        const float mw = wm[w * MK_MAXG + g];
+        if (mw == -INFINITY) continue;
+        const float f = expf(mw - mx);
+        ls += wl[w * MK_MAXG + g] * f;
+        ac += wacc[(w * MK_MAXG + g) * MK_HD + d] * f;
+      }
+      const size_t row = (size_t)it * grp + g;
+      pacc[row * MK_HD + d] = ac;
+      if (d == 0) { pml[row * 2] = mx; pml[row * 2 + 1] = ls; }
+    }
+  }
+}
+
+template <typename CT, bool PAGED>
+__device__ void attention(const BatchArgs& a, const Smem& s, int l, const float* qkv,
+                          CT* cache) {
+  const int grp = a.nq / a.nkv;
+  if (grp == 4) attention_g<CT, PAGED, 4, true>(a, s, l, qkv, cache);
+  else if (grp == MK_MAXG) attention_g<CT, PAGED, MK_MAXG, true>(a, s, l, qkv, cache);
+  else if (grp < 4) attention_g<CT, PAGED, 4, false>(a, s, l, qkv, cache);
+  else attention_g<CT, PAGED, MK_MAXG, false>(a, s, l, qkv, cache);
+}
+
+// ---- the kernel -------------------------------------------------------------
+
+template <typename CT, bool PAGED>
+__global__ void __launch_bounds__(K6_THREADS, 1) batched_kernel(const __grid_constant__ BatchArgs a) {
+  extern __shared__ __align__(128) uint8_t smem_k6[];
+  cg::grid_group grid = cg::this_grid();
+  const Smem s = carve(smem_k6, a);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool producer = warp == PRODUCER;
   const int B = a.B, H = a.H, I = a.I, nq = a.nq, nkv = a.nkv, grp = nq / nkv;
   const int oq = (nq + 2 * nkv) * MK_HD;
-  const int nrb = (B + MAXS - 1) / MAXS;    // 32-row passes of a matmul tile
-  float* hres = a.ws;                       // [B][H]
-  float* h1 = hres + (size_t)B * H;         // [B][H]
-  float* qkv = h1 + (size_t)B * H;          // [B][oq] (bias added, roped)
-  float* pml = qkv + (size_t)B * oq;
-  const size_t nrows = (size_t)B * nkv * a.nsplit * grp;   // attention partial rows
-  float* pacc = pml + ((nrows * 2 + 3) & ~(size_t)3);      // float4 rows
-  // [B][H] and [B][I] bf16 rows in the permuted layout, 16-byte aligned
-  const size_t xoff = ((size_t)(pacc - a.ws) + nrows * MK_HD + 3) & ~(size_t)3;
-  bf16* xw = reinterpret_cast<bf16*>(a.ws + xoff);
-  bf16* hmw = xw + (size_t)B * H;           // [B][I]
+  if (tid == 0) {
+    for (int i = 0; i < SLOTS; ++i) {
+      hop::mbar_init(&s.full[i], 1);           // the producer's arrival with the bytes
+      hop::mbar_init(&s.empty[i], K6_WARPS);   // every consumer warp, busy or not
+    }
+    hop::mbar_init(s.rowbar, 1);               // thread 0's arrival with the rows' bytes
+    hop::mbar_fence_init();
+  }
+  __syncthreads();
+  // the workspace (ops/megakernel_batched.py sizes it from batched_ws)
+  Out o;
+  o.hres = a.ws;                                      // [B][H] f32 residual
+  o.h1 = o.hres + (size_t)B * H;                      // [B][H]
+  o.qkv = o.h1 + (size_t)B * H;                       // [B][oq] (bias added, not roped)
+  const size_t nrows = (size_t)B * nkv * a.nsplit * grp;
+  float* pml = o.qkv + (size_t)B * oq;
+  float* pacc = pml + ((nrows * 2 + 3) & ~(size_t)3);
+  float* tail = pacc + nrows * MK_HD;
+  o.xw = reinterpret_cast<bf16*>(tail);               // [B][H] bf16 attention rows
+  o.hm = o.xw + (size_t)B * H;                        // [B][I] bf16
+  o.ssp = tail + ((size_t)B * (H + I) + 7) / 2 / 4 * 4;   // [grid][64]
+  float* part = o.ssp + (size_t)gridDim.x * MAXB;     // [B][pld] window partial sums
+  const int pld = max(max(oq, H), 2 * I);
+  o.logits = a.logits;
   CT* cache = static_cast<CT*>(a.cache);
-  const int gsize = gridDim.x * MK_THREADS, gtid = blockIdx.x * MK_THREADS + tid;
+  int seq = 0;                                        // stages so far, as the producer's idx
+  int nbulk = 0;                                      // bulk row stagings so far
+  Prod p;
+  if (producer) prod_begin(p, a);
 
-  for (int i = gtid; i < B * H; i += gsize) hres[i] = load_act(a.h_in, a.md, i);
+  // ---- load: h_in into the f32 residual, each block a slice of columns,
+  // and the slice's sums of squares a row for the first rmsnorm
+  if (!producer) {
+    const int c0 = static_cast<int>((long long)blockIdx.x * H / gridDim.x);
+    const int c1 = static_cast<int>((long long)(blockIdx.x + 1) * H / gridDim.x);
+    for (int r = warp; r < B; r += K6_WARPS) {
+      float v = 0.f;
+      for (int c = c0 + lane; c < c1; c += 32) {
+        const float x = load_act(a.h_in, a.md, (size_t)r * H + c);
+        o.hres[(size_t)r * H + c] = x;
+        v += x * x;
+      }
+      v = warp_sum(v);
+      if (lane == 0) o.ssp[blockIdx.x * MAXB + r] = v;
+    }
+  } else {
+    pump(p, a, s, SLOTS);
+  }
   grid.sync();
 
   for (int l = 0; l < a.L; ++l) {
-    // ---- norm1 -> bf16 rows --------------------------------------------------
-    norm_rows(xw, H, hres, a.ln1, (size_t)l * H, a.md, B, H, a.eps, red8);
-    grid.sync();
-    // ---- QKV: a block takes columns d and d + 64 of a head together (two
-    // 32-column tiles), so its epilogue rounds to bf16, adds the bias, rounds
-    // again, ropes q and k in f32 with the row's cos/sin and appends the
-    // row's k/v to the cache at the row's own position ---------------------------
+    // ---- QKV: rmsnorm(h)·ln1 staged a window at a time; bf16, + bias, bf16
     {
-      const int32_t* w = a.qkv_w + (size_t)l * qrows(H, UNIT_W3) * oq;
-      const float* s = a.qkv_s + (size_t)l * (H / MK_G) * oq;
-      const float* z = a.qkv_z + (size_t)l * (H / MK_G) * oq;
-      for (int pt = blockIdx.x; pt < oq / (2 * TILE); pt += gridDim.x) {
-        const int head = pt >> 1, c0 = head * MK_HD + (pt & 1) * TILE;
-        const bool is_kv = head >= nq, roped = head < nq + nkv;
-        const int which = (head - nq) / nkv, kvh = (head - nq) % nkv;   // k or v; kv head
-        for (int rb = 0; rb < nrb; ++rb) {
-          const int r0 = rb * MAXS, rows = min(MAXS, B - r0);
-          const bf16* xr = xw + (size_t)r0 * H;
-          mma_tile(xr, H, rows, w, s, z, H, oq, c0, red, tout, stage);
-          mma_tile(xr, H, rows, w, s, z, H, oq, c0 + MK_HD / 2, red, tout + MAXS * TILE, stage);
-          for (int i = tid; i < rows * TILE; i += MK_THREADS) {
-            const int r = r0 + i / TILE, c = c0 + i % TILE, d = c - head * MK_HD;   // d < 64
-            float x0 = bf16r(tout[i]), x1 = bf16r(tout[MAXS * TILE + i]);     // d, d + 64
-            if (a.has_bias) {
-              x0 = bf16r(x0 + load_act(a.qkv_b, a.md, (size_t)l * oq + c));
-              x1 = bf16r(x1 + load_act(a.qkv_b, a.md, (size_t)l * oq + c + MK_HD / 2));
-            }
-            if (roped) {
-              const float* cr = a.cosr + r * MK_HD;
-              const float* sr = a.sinr + r * MK_HD;
-              const float y0 = x0 * cr[d] - x1 * sr[d];
-              x1 = x1 * cr[d + 64] + x0 * sr[d + 64];
-              x0 = y0;
-            }
-            qkv[(size_t)r * oq + c] = x0;
-            qkv[(size_t)r * oq + c + MK_HD / 2] = x1;
-            if (is_kv) {
-              const size_t orow = (((size_t)l * B + r) * nkv + kvh) * MK_HD;
-              if constexpr (Q8) {      // the codes are written in the attention phase
-                bf16* out = static_cast<bf16*>(which ? a.v_new : a.k_new);
-                out[orow + d] = __float2bfloat16_rn(x0);
-                out[orow + d + 64] = __float2bfloat16_rn(x1);
-              } else {
-                const int pos = row_length(a.lengths, r, a.T);
-                const size_t crow = kv_row<PAGED>(a, l, which, r, kvh, pos) * MK_HD;
-                CT* out = static_cast<CT*>(which ? a.v_new : a.k_new);
-                cache[crow + d] = out[orow + d] = from_f32<CT>(x0);
-                cache[crow + d + 64] = out[orow + d + 64] = from_f32<CT>(x1);
-              }
-            }
-          }
-          __syncthreads();
-        }
-      }
+      const PD d = phase_desc(a, 0, l);
+      if (!producer && d.nt) mm_phase(a, s, d, 0, l, seq, o, part, pld, nbulk);
+      seq += phase_stages(d);
+      if (producer) pump(p, a, s, seq + SLOTS);
     }
     grid.sync();
-    // ---- attention slices: items (row, kv head, position slice) ----------------
-    {
-      float* sq = big;                              // [MK_MAXG][128] q·scale
-      float* kc = sq + MK_MAXG * MK_HD;             // [128] current k (roped)
-      float* vc = kc + MK_HD;                       // [128] current v
-      float* wm = vc + MK_HD;                       // [8][MK_MAXG]
-      float* wl = wm + MK_WARPS * MK_MAXG;          // [8][MK_MAXG]
-      float* wacc = wl + MK_WARPS * MK_MAXG;        // [8][MK_MAXG][128]
-      const float scale = 1.f / sqrtf((float)MK_HD);
-      const int items = B * nkv * a.nsplit;
-      for (int it = blockIdx.x; it < items; it += gridDim.x) {
-        const int b = it / (nkv * a.nsplit), kvh = (it / a.nsplit) % nkv, sp = it % a.nsplit;
-        const int len = row_length(a.lengths, b, a.T);
-        const int p0 = sp * a.split_len;
-        // position len is the current token; the last slice runs on to it, so
-        // max_length only balances the slices and no row depends on it
-        const int p1 = sp == a.nsplit - 1 ? len + 1 : min(p0 + a.split_len, len + 1);
-        const float* qrow = qkv + (size_t)b * oq;
-        for (int i = tid; i < grp * MK_HD; i += MK_THREADS)
-          sq[i] = qrow[kvh * grp * MK_HD + i] * scale;
-        for (int d = tid; d < MK_HD; d += MK_THREADS) {
-          kc[d] = qrow[(nq + kvh) * MK_HD + d];
-          vc[d] = qrow[(nq + nkv + kvh) * MK_HD + d];
-        }
-        __syncthreads();
-        if constexpr (Q8) {
-          if (sp == 0) {               // the row's k/v at its own position
-            const size_t kr = kv_row<PAGED>(a, l, 0, b, kvh, len);
-            const size_t vr = kv_row<PAGED>(a, l, 1, b, kvh, len);
-            quantize_kv_rows(kc, vc, cache + kr * MK_HD, cache + vr * MK_HD, a.scales + kr,
-                             a.scales + vr, nullptr, nullptr, red8);
-          }
-        }
-        float m[MK_MAXG], lsum[MK_MAXG], acc[MK_MAXG][4];
-#pragma unroll
-        for (int g = 0; g < MK_MAXG; ++g) {
-          m[g] = -INFINITY; lsum[g] = 0.f;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
-        }
-        for (int pb = p0 + warp; pb < p1; pb += MK_WARPS * PB) {
-          // PB positions' k/v are loaded before any is used
-          float kv4[PB][4], vv4[PB][4];
-#pragma unroll
-          for (int u = 0; u < PB; ++u) {
-            const int p = pb + u * MK_WARPS;
-            if (p < len && p < p1) {
-              load4<CT>(cache + kv_row<PAGED>(a, l, 0, b, kvh, p) * MK_HD + lane * 4, kv4[u]);
-              load4<CT>(cache + kv_row<PAGED>(a, l, 1, b, kvh, p) * MK_HD + lane * 4, vv4[u]);
-              if constexpr (Q8) {
-                const float ks = a.scales[kv_row<PAGED>(a, l, 0, b, kvh, p)];
-                const float vs = a.scales[kv_row<PAGED>(a, l, 1, b, kvh, p)];
-#pragma unroll
-                for (int e = 0; e < 4; ++e) { kv4[u][e] *= ks; vv4[u][e] *= vs; }
-              }
-            } else {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) { kv4[u][e] = kc[lane * 4 + e]; vv4[u][e] = vc[lane * 4 + e]; }
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < PB; ++u) {
-            if (pb + u * MK_WARPS >= p1) break;
-#pragma unroll
-            for (int g = 0; g < MK_MAXG; ++g) {
-              if (g >= grp) break;
-              float dp = 0.f;
-#pragma unroll
-              for (int e = 0; e < 4; ++e) dp = fmaf(sq[g * MK_HD + lane * 4 + e], kv4[u][e], dp);
-              const float sc = warp_sum(dp);
-              const float mn = fmaxf(m[g], sc);
-              const float alpha = expf(m[g] - mn);
-              const float pr = expf(sc - mn);
-              lsum[g] = lsum[g] * alpha + pr;
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[g][e] = acc[g][e] * alpha + pr * vv4[u][e];
-              m[g] = mn;
-            }
-          }
-        }
-#pragma unroll
-        for (int g = 0; g < MK_MAXG; ++g) {
-          if (g >= grp) break;
-          if (lane == 0) { wm[warp * MK_MAXG + g] = m[g]; wl[warp * MK_MAXG + g] = lsum[g]; }
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            wacc[(warp * MK_MAXG + g) * MK_HD + lane * 4 + e] = acc[g][e];
-        }
-        __syncthreads();
-        for (int i = tid; i < grp * MK_HD; i += MK_THREADS) {
-          const int g = i / MK_HD, d = i % MK_HD;
-          float mx = -INFINITY;
-          for (int w = 0; w < MK_WARPS; ++w) mx = fmaxf(mx, wm[w * MK_MAXG + g]);
-          float ls = 0.f, ac = 0.f;
-          for (int w = 0; w < MK_WARPS; ++w) {
-            const float mw = wm[w * MK_MAXG + g];
-            if (mw == -INFINITY) continue;
-            const float f = expf(mw - mx);
-            ls += wl[w * MK_MAXG + g] * f;
-            ac += wacc[(w * MK_MAXG + g) * MK_HD + d] * f;
-          }
-          const size_t row = (size_t)it * grp + g;
-          pacc[row * MK_HD + d] = ac;
-          if (d == 0) { pml[row * 2] = mx; pml[row * 2 + 1] = ls; }
-        }
-        __syncthreads();
-      }
-    }
+    // ---- attention slices: items (row, kv head, position slice)
+    if (!producer) attention<CT, PAGED>(a, s, l, o.qkv, cache);
     grid.sync();
     // ---- combine the slices -> bf16 attention rows: a warp per (row, head)
-    for (int it = blockIdx.x + warp * gridDim.x; it < B * nq; it += gridDim.x * MK_WARPS) {
-      const int b = it / nq, hq = it % nq;
-      const size_t row0 = ((size_t)(b * nkv + hq / grp) * a.nsplit) * grp + hq % grp;
-      float ac[4];
-      combine_row(pml, pacc, row0, grp, a.nsplit, ac);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        xw[(size_t)b * H + perm_pos(hq * MK_HD + lane * 4 + e)] = __float2bfloat16_rn(ac[e]);
+    if (!producer) {
+      for (int it = blockIdx.x + warp * gridDim.x; it < B * nq; it += gridDim.x * K6_WARPS) {
+        const int b = it / nq, hq = it % nq;
+        const size_t row0 = ((size_t)(b * nkv + hq / grp) * a.nsplit) * grp + hq % grp;
+        float ac[4];
+        combine_row(pml, pacc, row0, grp, a.nsplit, ac);
+        // in the staged pair layout that o-proj's bulk staging copies
+        uint32_t* xr = reinterpret_cast<uint32_t*>(o.xw + (size_t)b * H);
+        const int c = hq * MK_HD + lane * 4;
+        xr[perm_word(c)] = pack_bf16x2(ac[0], ac[1]);
+        xr[perm_word(c + 2)] = pack_bf16x2(ac[2], ac[3]);
+      }
+      fence_proxy_global();
     }
     grid.sync();
-    // ---- o-proj + residual --------------------------------------------------------
+    // ---- o-proj + residual, and the block's sums of squares of h1
     {
-      const int32_t* w = a.o_w + (size_t)l * qrows(H, UNIT_W3) * H;
-      const float* s = a.o_s + (size_t)l * (H / MK_G) * H;
-      const float* z = a.o_z + (size_t)l * (H / MK_G) * H;
-      for (int t = blockIdx.x; t < H / TILE; t += gridDim.x)
-        for (int rb = 0; rb < nrb; ++rb) {
-          const int r0 = rb * MAXS, rows = min(MAXS, B - r0);
-          mma_tile(xw + (size_t)r0 * H, H, rows, w, s, z, H, H, t * TILE, red, tout, stage);
-          for (int i = tid; i < rows * TILE; i += MK_THREADS) {
-            const size_t o = (size_t)(r0 + i / TILE) * H + t * TILE + i % TILE;
-            h1[o] = hres[o] + tout[i];
-          }
-          __syncthreads();
-        }
+      const PD d = phase_desc(a, 1, l);
+      if (!producer) {
+        if (d.nt) mm_phase(a, s, d, 1, l, seq, o, part, pld, nbulk);
+        hop::bar_sync(CB, 32 * K6_WARPS);
+        row_squares(o.h1, H, B, 16 * d.t0, 16 * (d.t0 + d.nt), o.ssp);
+      }
+      seq += phase_stages(d);
+      if (producer) pump(p, a, s, seq + SLOTS);
     }
     grid.sync();
-    // ---- norm2 -> bf16 rows ----------------------------------------------------------
-    norm_rows(xw, H, h1, a.ln2, (size_t)l * H, a.md, B, H, a.eps, red8);
-    grid.sync();
-    // ---- gate/up (each rounded to bf16), hm = bf16(silu(gate)·up) ----------------
+    // ---- gate/up: rmsnorm(h1)·ln2 staged; hm = bf16(silu(bf16 gate)·bf16 up)
     {
-      const int oc = 2 * I;
-      const int32_t* w = a.gu_w + (size_t)l * qrows(H, UNIT_W3) * oc;
-      const float* s = a.gu_s + (size_t)l * (H / MK_G) * oc;
-      const float* z = a.gu_z + (size_t)l * (H / MK_G) * oc;
-      for (int t = blockIdx.x; t < I / TILE; t += gridDim.x)
-        for (int rb = 0; rb < nrb; ++rb) {
-          const int r0 = rb * MAXS, rows = min(MAXS, B - r0);
-          const bf16* xr = xw + (size_t)r0 * H;
-          mma_tile(xr, H, rows, w, s, z, H, oc, t * TILE, red, tout, stage);
-          mma_tile(xr, H, rows, w, s, z, H, oc, I + t * TILE, red, tout + MAXS * TILE, stage);
-          for (int i = tid; i < rows * TILE; i += MK_THREADS) {
-            const float gt = bf16r(tout[i]), up = bf16r(tout[MAXS * TILE + i]);
-            hmw[(size_t)(r0 + i / TILE) * I + perm_pos(t * TILE + i % TILE)] =
-                __float2bfloat16_rn(gt * (1.f / (1.f + expf(-gt))) * up);
-          }
-          __syncthreads();
-        }
+      const PD d = phase_desc(a, 2, l);
+      if (!producer && d.nt) mm_phase(a, s, d, 2, l, seq, o, part, pld, nbulk);
+      seq += phase_stages(d);
+      if (producer) pump(p, a, s, seq + SLOTS);
     }
     grid.sync();
-    // ---- down + residual, rounded to bf16 between layers ----------------------------
+    // ---- down + residual, rounded to bf16 between layers
     {
-      const int32_t* w = a.dn_w + (size_t)l * qrows(I, UNIT_W3) * H;
-      const float* s = a.dn_s + (size_t)l * (I / MK_G) * H;
-      const float* z = a.dn_z + (size_t)l * (I / MK_G) * H;
-      for (int t = blockIdx.x; t < H / TILE; t += gridDim.x)
-        for (int rb = 0; rb < nrb; ++rb) {
-          const int r0 = rb * MAXS, rows = min(MAXS, B - r0);
-          mma_tile(hmw + (size_t)r0 * I, I, rows, w, s, z, I, H, t * TILE, red, tout, stage);
-          for (int i = tid; i < rows * TILE; i += MK_THREADS) {
-            const size_t o = (size_t)(r0 + i / TILE) * H + t * TILE + i % TILE;
-            hres[o] = bf16r(h1[o] + tout[i]);
-          }
-          __syncthreads();
-        }
+      const PD d = phase_desc(a, 3, l);
+      if (!producer) {
+        if (d.nt) mm_phase(a, s, d, 3, l, seq, o, part, pld, nbulk);
+        hop::bar_sync(CB, 32 * K6_WARPS);
+        row_squares(o.hres, H, B, 16 * d.t0, 16 * (d.t0 + d.nt), o.ssp);
+      }
+      seq += phase_stages(d);
+      if (producer) pump(p, a, s, seq + SLOTS);
     }
     grid.sync();
   }
-  for (int i = gtid; i < B * H; i += gsize) store_act(a.h_out, a.md, i, hres[i]);
+  for (int i = blockIdx.x * K6_THREADS + tid; i < B * H; i += gridDim.x * K6_THREADS)
+    store_act(a.h_out, a.md, i, o.hres[i]);
   if (a.vocab) {
-    // ---- final rmsnorm + W4 head -> f32 logits ----------------------------------
-    norm_rows(xw, H, hres, a.norm_w, 0, a.md, B, H, a.eps, red8);
-    grid.sync();
-    for (int t = blockIdx.x; t < a.vocab / TILE; t += gridDim.x)
-      for (int rb = 0; rb < nrb; ++rb) {
-        const int r0 = rb * MAXS, rows = min(MAXS, B - r0);
-        mma_tile(xw + (size_t)r0 * H, H, rows, a.hd_w, a.hd_s, a.hd_z, H, a.vocab,
-                 t * TILE, red, tout, stage);
-        for (int i = tid; i < rows * TILE; i += MK_THREADS)
-          a.logits[(size_t)(r0 + i / TILE) * a.vocab + t * TILE + i % TILE] = tout[i];
-        __syncthreads();
-      }
+    // ---- head: the final rmsnorm staged, the W3/W4 head into f32 logits
+    const PD d = phase_desc(a, 4, 0);
+    if (!producer && d.nt) mm_phase(a, s, d, 4, 0, seq, o, part, pld, nbulk);
+    if (producer) pump(p, a, s, 1 << 30);
   }
 }
 
 enum { P_H, P_OUT, P_QW, P_QS, P_QZ, P_QB, P_OW, P_OS, P_OZ, P_GW, P_GS, P_GZ,
        P_DW, P_DS, P_DZ, P_LN1, P_LN2, P_COS, P_SIN, P_CACHE, P_KN, P_VN, P_LEN,
        P_HW, P_HS, P_HZ, P_NW, P_LOGITS, P_TABLES, P_SCALES };
-// paged mode: N_T is MP·page, N_NP the pool's pages (0: the slot cache)
+// paged mode: N_T is MP·page, N_NP the pool's pages (0: the slot cache);
+// N_GRID .. N_WC: the host plan's grid, shared bytes, ring slots and window;
+// N_PP: each matmul phase's wave, warps a tile and windows (qkv, o-proj,
+// gate/up, down, head)
 enum { N_B, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_MAXLEN, N_VOCAB, N_MD, N_CD, N_BIAS,
-       N_NP, N_PAGE, N_MP, N_W3 };
+       N_NP, N_PAGE, N_MP, N_W3, N_GRID, N_SMEM, N_SLOTS, N_WC, N_PP };
 
-struct Plan { int grid, nsplit, split_len; size_t smem; long long ws; };
+struct Plan {
+  int grid, nsplit, split_len, wc, rh, bp, smem;
+  PhasePlan pp[NPH];
+  long long ws;
+};
 
+// The current card's SM count, after checking once per card that it takes
+// cooperative launches and that a block of K6_THREADS threads with the most
+// shared memory fits an SM (the attribute is set to SMEM_MAX, so that no
+// plan's bytes need another call).
+template <typename CT, bool PAGED>
+int card_sms(int* sms) {
+  constexpr int CARDS = 64;
+  static int cached[CARDS], errs[CARDS];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= CARDS) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!cached[dev]) {
+    int coop = 0, occ = 0, n = 0;
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(batched_kernel<CT, PAGED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, batched_kernel<CT, PAGED>,
+                                                        K6_THREADS, SMEM_MAX);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    errs[dev] = !coop ? static_cast<int>(cudaErrorNotSupported)
+                : occ < 1 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
+    cached[dev] = n;
+  }
+  *sms = cached[dev];
+  return errs[dev];
+}
+
+// The host plan (ops/megakernel_batched.py::batched_plan) as the kernel
+// runs it: the grid (one block an SM), the window of chunks and the shared
+// bytes of its layout, the ring's slots, and each matmul phase's wave,
+// warps a tile and windows, taken from the ints and refused where they do
+// not fit this build (a layout of other bytes, too many warps, a window
+// larger than the rows' room, a TMA box over 256). The attention's slices
+// come from max_length here.
 template <typename CT, bool PAGED>
 int plan_for(const int* n, Plan* p) {
   const int B = n[N_B], H = n[N_H], I = n[N_I], nq = n[N_NQ], nkv = n[N_NKV];
-  p->smem = (size_t)(MK_WARPS + (GEMM_FLOATS + STAGE_FLOATS > ATT_FLOATS
-                                  ? GEMM_FLOATS + STAGE_FLOATS : ATT_FLOATS)) * sizeof(float);
-  const int err = coop_grid(batched_kernel<CT, PAGED>, p->smem, &p->grid);
+  const cudaError_t bad = cudaErrorInvalidValue;
+  if (B < 1 || B > MAXB || H % KC || I % KC) return static_cast<int>(bad);
+  p->bp = (B + 7) / 8 * 8;
+  p->rh = (B + WARP_ROWS - 1) / WARP_ROWS;
+  p->wc = n[N_WC];
+  int u, xs, ro;
+  if (p->wc < 1 || n[N_SLOTS] != SLOTS) return static_cast<int>(bad);
+  p->smem = smem_layout(p->bp, p->wc, &u, &xs, &ro);
+  if (p->smem != n[N_SMEM] || p->smem > SMEM_MAX) return static_cast<int>(bad);
+  int sms = 0;
+  const int err = card_sms<CT, PAGED>(&sms);
   if (err) return err;
+  if (n[N_GRID] != sms) return static_cast<int>(bad);      // one block an SM
+  p->grid = sms;
+  const int G = p->grid;
+  const int oq = (nq + 2 * nkv) * MK_HD;
+  const int ics[NPH] = {H, H, H, I, H};
+  for (int ph = 0; ph < NPH; ++ph) {
+    PhasePlan& q = p->pp[ph];
+    q.wave = n[N_PP + 3 * ph]; q.k = n[N_PP + 3 * ph + 1]; q.nw = n[N_PP + 3 * ph + 2];
+    const int u2 = ph == 2 ? 2 : 1, nch = ics[ph] / KC;
+    if (ph == 4 && !n[N_VOCAB]) continue;
+    if (q.wave < u2 || q.wave % u2 || q.k < 1 || q.wave * q.k * p->rh > K6_WARPS
+        || 16 * q.wave / u2 > 256 || q.k * SROWS > 256 || q.nw < 1 || q.nw > nch
+        || (nch + q.nw - 1) / q.nw > p->wc)
+      return static_cast<int>(bad);
+  }
   // attention items: about one per block, at least 32 positions each
   const int npos = n[N_MAXLEN] + 1;
-  int ns = p->grid / (B * nkv);
+  int ns = G / (B * nkv);
   ns = ns < 1 ? 1 : ns;
   const int most = (npos + 31) / 32;
   ns = ns > most ? most : ns;
   p->split_len = (npos + ns - 1) / ns;
   p->nsplit = (npos + p->split_len - 1) / p->split_len;
-  const long long oq = (long long)(nq + 2 * nkv) * MK_HD;
   const long long nrows = (long long)B * nq * p->nsplit;
-  p->ws = 2LL * B * H + B * oq + nrows * (2 + MK_HD) + 8
-          + ((long long)B * H + (long long)B * I + 1) / 2;
+  const long long pld = oq > H ? (oq > 2 * I ? oq : 2 * I) : (H > 2 * I ? H : 2 * I);
+  p->ws = 2LL * B * H + (long long)B * oq + ((nrows * 2 + 3) & ~3LL) + nrows * MK_HD
+          + ((long long)B * (H + I) + 7) / 2 / 4 * 4 + (long long)G * MAXB + B * pld;
   return 0;
+}
+
+// A [planes, rows, cols] tensor of 4-byte elements, densely packed, read in
+// boxes of box_rows x box_cols of one plane, no swizzle; reads past an
+// edge return zeros. Returns a cudaError_t code (0 on success).
+static int box_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base, uint64_t cols,
+                   uint64_t rows, uint64_t planes, uint32_t box_cols, uint32_t box_rows) {
+  hop::EncodeTiled fn = hop::encode_fn();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {cols, rows, planes};
+  const cuuint64_t strides[2] = {cols * 4, rows * cols * 4};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = fn(map, dt, 3, const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Workspace floats the launch with these arguments needs, or -(CUDA error).
@@ -450,11 +1345,14 @@ long long batched_ws(const int* n) {
 
 // Caller guarantees (ops/megakernel_batched.py checks them): as K4's entry,
 // with 1 <= B <= 64 rows, a cache of B slots, lengths [B] int32 on the
-// device and 0 <= max_length < T. Paged mode (N_NP > 0): a bf16 pool
-// [L, 2, NP, nkv, page, 128] with page a power of two, tables int32
-// [B, MP] of page ids in [0, NP) and T = MP·page. Cache dtype code 3 (slot
-// mode only): int8 codes with f32 scales [L, 2, B, nkv, T] at P_SCALES, and
-// bf16 k_new/v_new. The cache dtype and the mode must be the instance's.
+// device and 0 <= max_length < T, H and I multiples of the stage's chunk
+// (128 channels in W4, 256 in W3), every OC a multiple of 16. Paged mode
+// (N_NP > 0): a bf16 pool [L, 2, NP, nkv, page, 128] with page a power of
+// two, tables int32 [B, MP] of page ids in [0, NP) and T = MP·page. Cache
+// dtype code 3 (slot mode only): int8 codes with f32 scales [L, 2, B, nkv,
+// T] at P_SCALES, and bf16 k_new/v_new. The cache dtype and the mode must be
+// the instance's, and N_GRID on the host plan's (plan_for refuses one that
+// does not fit this build).
 template <typename CT, bool PAGED>
 int batched_launch(const void* const* ptrs, const int* n, float eps, void* ws,
                    void* stream) {
@@ -464,7 +1362,7 @@ int batched_launch(const void* const* ptrs, const int* n, float eps, void* ws,
   int err = plan_for<CT, PAGED>(n, &p);
   if (err) return err;
   if (n[N_B] < 1 || n[N_B] > MAXB || n[N_NQ] % n[N_NKV] || n[N_NQ] / n[N_NKV] > MK_MAXG
-      || n[N_MAXLEN] < 0 || n[N_MAXLEN] >= n[N_T] || n[N_W3] != UNIT_W3)
+      || n[N_MAXLEN] < 0 || n[N_MAXLEN] >= n[N_T] || n[N_W3] != UNIT_W3 || n[N_VOCAB] % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   BatchArgs a;
   a.h_in = ptrs[P_H]; a.h_out = const_cast<void*>(ptrs[P_OUT]);
@@ -497,10 +1395,33 @@ int batched_launch(const void* const* ptrs, const int* n, float eps, void* ws,
     return static_cast<int>(cudaErrorInvalidValue);
   a.page_shift = a.np ? __builtin_ctz(static_cast<unsigned>(a.page)) : 0;
   a.nsplit = p.nsplit; a.split_len = p.split_len; a.eps = eps;
+  a.wc = p.wc; a.rh = p.rh; a.bp = p.bp;
+  for (int ph = 0; ph < NPH; ++ph) a.pp[ph] = p.pp[ph];
+  // the TMA maps of each phase's codes, scales and szeros, [planes, rows,
+  // OC] (the head: one plane), boxes of a round: pw columns, k chunks
+  const int H = a.H, I = a.I, oq = (a.nq + 2 * a.nkv) * MK_HD;
+  const void* w[NPH][3] = {{a.qkv_w, a.qkv_s, a.qkv_z}, {a.o_w, a.o_s, a.o_z},
+                           {a.gu_w, a.gu_s, a.gu_z}, {a.dn_w, a.dn_s, a.dn_z},
+                           {a.hd_w, a.hd_s, a.hd_z}};
+  const int ocs[NPH] = {oq, H, 2 * I, H, a.vocab}, ics[NPH] = {H, H, H, I, H};
+  for (int ph = 0; ph < NPH; ++ph) {
+    if (ph == 4 && !a.vocab) {
+      memset(a.maps[ph], 0, sizeof(a.maps[ph]));
+      continue;
+    }
+    const int pw = 16 * p.pp[ph].wave / (ph == 2 ? 2 : 1), k = p.pp[ph].k;
+    const uint64_t planes = ph == 4 ? 1 : (uint64_t)a.L;
+    err = box_map(&a.maps[ph][0], CU_TENSOR_MAP_DATA_TYPE_INT32, w[ph][0], ocs[ph],
+                  (uint64_t)ics[ph] / KC * SROWS, planes, pw, k * SROWS);
+    for (int z = 1; z < 3 && !err; ++z)
+      err = box_map(&a.maps[ph][z], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w[ph][z], ocs[ph],
+                    ics[ph] / MK_G, planes, pw, k * SGROUPS);
+    if (err) return err;
+  }
   void* kargs[] = {&a};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t e = cudaLaunchCooperativeKernel((const void*)batched_kernel<CT, PAGED>,
-                                                    p.grid, MK_THREADS, kargs, p.smem, st);
+                                                    p.grid, K6_THREADS, kargs, p.smem, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

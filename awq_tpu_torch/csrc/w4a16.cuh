@@ -118,6 +118,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "pair_codes.cuh"
 
 namespace {
 
@@ -174,11 +175,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(hop::smem_u32(dst)), "l"(src), "r"(bytes), "r"(hop::smem_u32(bar))
       : "memory");
-}
-
-// Bytes b of two words side by side: [x.b, x.b, y.b, y.b].
-__device__ __forceinline__ uint32_t pair_bytes(uint32_t x, uint32_t y, int b) {
-  return __byte_perm(x, y, b | (b << 4) | ((4 + b) << 8) | ((4 + b) << 12));
 }
 
 // The tile type's 2^7 (bf16) or 2^10 (f16) in both halves: OR-ed with a
@@ -404,20 +400,8 @@ __global__ void __launch_bounds__(gv::THREADS) w4a16_gemv_kernel(
                                 : make_uint2(0u, 0u);
             uint32_t pl[4], ph[4];   // column c's pairs of units 2j and 2j + 1
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              if constexpr (W3) {
-                const uint32_t L3 = gv::pair_bytes(lo0[c], lo1[c], j >> 1);
-                const uint32_t H3 = gv::pair_bytes(hi0[c], hi1[c], 0) << 2;
-                const int f = 2 * (j & 1);
-                pl[c] = ((L3 >> (2 * f)) & 0x00030003u) | ((H3 >> (2 * j)) & 0x00040004u) | BASE;
-                ph[c] = ((L3 >> (2 * f + 2)) & 0x00030003u) | ((H3 >> (2 * j + 1)) & 0x00040004u) |
-                        BASE;
-              } else {
-                const uint32_t P = gv::pair_bytes(lo0[c], lo1[c], j);
-                pl[c] = (P & 0x000F000Fu) | BASE;
-                ph[c] = ((P >> 4) & 0x000F000Fu) | BASE;
-              }
-            }
+            for (int c = 0; c < 4; ++c)
+              pc::code_pairs<W3>(lo0[c], lo1[c], hi0[c], hi1[c], j, BASE, pl[c], ph[c]);
 #pragma unroll
             for (int t = 0; t < 2; ++t) {
               const uint32_t a[4] = {pl[2 * t], pl[2 * t + 1], ph[2 * t], ph[2 * t + 1]};

@@ -39,6 +39,7 @@ stores ``quantize_kv`` of them, as JAX's caller appends them
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -73,6 +74,120 @@ _INSTANCE = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
              torch.int8: "int8"}
 
 MIN_B, MAX_B = 2, 64      # rows per launch (one row is K4's case)
+
+# ---- K6's schedule: the kernel runs this plan (_plan_ints), and plan_for in
+# csrc/megakernel_batched.cu refuses one that does not fit its build ----
+WARPS = 8                 # consumer warps a block; one producer warp more
+THREADS = 32 * (WARPS + 1)
+SMEM_MAX = 232448         # dynamic shared memory a block may take (227 KB)
+RING_BYTES = 60 * 1024    # code and scale bytes a block keeps in flight, at most
+WARP_ROWS = 32            # rows a consumer warp sums (four n8 tiles)
+RED_BYTES = WARPS * 16 * WARP_ROWS * 4      # the warps' partial sums of a wave
+RS_BYTES = 64 * 4                           # each row's rmsnorm factor
+KV_RING_BYTES = 8448      # a warp's ring of k/v rows in the attention
+ATT_BYTES = (4 * (8 * 128 + 2 * 128 + 2 * WARPS * 8 + WARPS * 8 * 128 + WARPS)
+             + WARPS * KV_RING_BYTES)
+
+
+def chunk_channels(w3: bool) -> int:
+    """Input channels of one ring stage: a W4 group (16 code rows) or a W3
+    packing chunk of two groups (24 rows)."""
+    return 256 if w3 else 128
+
+
+def stage_bytes(w3: bool) -> int:
+    """One ring slot: a round of a wave, at most one piece for each of the
+    eight consumer warps (a piece is a chunk's code rows for 16 columns and
+    the scale and szero rows of its groups), and 1 KB for the 128-byte
+    alignment of its TMA boxes."""
+    rows, groups = (24, 2) if w3 else (16, 1)
+    return WARPS * (rows + 2 * groups) * 16 * 4 + 1024
+
+
+def _smem(b: int, w3: bool, wc: int):
+    """Shared bytes of a block with windows of ``wc`` chunks: the ring and
+    its mbarriers, then the partial sums, the norm factors, the window's
+    group sums and rows (bf16 pairs, 16 bytes of padding a row); the
+    attention reuses the region after the barriers."""
+    bp = -(-b // 8) * 8
+    slots = RING_BYTES // stage_bytes(w3)
+    u_off = -(-(128 + slots * stage_bytes(w3) + 16 * slots + 8) // 128) * 128
+    kc = chunk_channels(w3)
+    xs_off = u_off + RED_BYTES + RS_BYTES
+    rows_off = -(-(xs_off + bp * (wc * kc // 128) * 4) // 16) * 16
+    end = rows_off + bp * (wc * kc // 2 + 8) * 4
+    return max(end, u_off + ATT_BYTES), slots
+
+
+def batched_plan(b: int, H: int, inter: int, nq: int, nkv: int, vocab: int, w3: bool,
+                 grid: int) -> dict:
+    """K6's schedule for ``b`` rows on a cooperative grid of ``grid`` blocks
+    (one an SM): the shared bytes and ring slots of a block, the window of
+    input channels whose rows a block stages at once, and for each matmul
+    phase its tile units (16 output columns; gate/up's unit a pair of gate
+    and up blocks), which units each block takes, how many tiles a wave
+    holds, how many warps split a tile's chunks and the windows over IC.
+    The wrapper hands the kernel this plan (``_plan_ints``); the C side
+    (``plan_for``) refuses one whose shared bytes differ from its own
+    layout's, or that needs more warps, a larger window or a larger TMA box
+    than its build has."""
+    if not MIN_B <= b <= MAX_B:
+        raise ValueError(f"{b} rows; the kernel takes {MIN_B}..{MAX_B}")
+    kc = chunk_channels(w3)
+    most = max(H, inter) // kc
+    wc = 0
+    for c in range(most, 0, -1):
+        if _smem(b, w3, c)[0] <= SMEM_MAX:
+            wc = c
+            break
+    if not wc:
+        raise ValueError(f"{b} rows do not fit a block's shared memory")
+    smem, slots = _smem(b, w3, wc)
+    rh = -(-b // WARP_ROWS)
+    oq = (nq + 2 * nkv) * 128
+    phases = {}
+    for name, ic, oc, u in (("qkv", H, oq, 1), ("o", H, H, 1), ("gateup", H, 2 * inter, 2),
+                            ("down", inter, H, 1), ("head", H, vocab, 1)):
+        if not oc:
+            continue
+        units = oc // 16 // u
+        per = [(g * units // grid, (g + 1) * units // grid) for g in range(grid)]
+        tmax = -(-units // grid) * u
+        wave = min(WARPS // rh, tmax)
+        wave -= wave % u
+        nch = ic // kc
+        nw = -(-nch // wc)
+        phases[name] = dict(ic=ic, oc=oc, unit=u, units=units, blocks=per, wave=wave,
+                            k=WARPS // rh // wave, nch=nch, windows=nw,
+                            window_chunks=[(w * nch // nw, (w + 1) * nch // nw)
+                                           for w in range(nw)])
+    return dict(grid=grid, threads=THREADS, smem=smem, slots=slots, window=wc,
+                chunk=kc, stage_bytes=stage_bytes(w3), row_halves=rh, phases=phases)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_ints(b, H, inter, nq, nkv, vocab, w3, grid) -> tuple:
+    """``batched_plan`` as the kernel takes it, once per shape: the grid,
+    shared bytes, ring slots and window, then each matmul phase's wave,
+    warps a tile and windows (qkv, o-proj, gate/up, down, head; zeros for
+    an absent head). The C side runs this plan and refuses one that does
+    not fit its build."""
+    plan = batched_plan(b, H, inter, nq, nkv, vocab, w3, grid)
+    pp = []
+    for name in ("qkv", "o", "gateup", "down", "head"):
+        ph = plan["phases"].get(name)
+        pp += [ph["wave"], ph["k"], ph["windows"]] if ph else [0, 0, 0]
+    return (plan["grid"], plan["smem"], plan["slots"], plan["window"], *pp)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sm_count(dev) -> int:
+    dev = torch.device(dev)
+    return _sms(torch.cuda.current_device() if dev.index is None else dev.index)
 
 
 def megakernel_batched_supported(cfg, layers, cache, batch: int) -> bool:
@@ -284,7 +399,8 @@ def w4a16_llama_token_step_batched(
             + [tables.data_ptr() if paged else 0,
                scales.data_ptr() if scales is not None else 0])
     ints = [b, L, H, inter, nq, nkv, T, max_length, vocab, _DTYPE_CODE[h.dtype],
-            _CACHE_CODE[cache.dtype], int(bias is not None)] + page_ints + [int(w3)]
+            _CACHE_CODE[cache.dtype], int(bias is not None)] + page_ints + [
+                int(w3), *_plan_ints(b, H, inter, nq, nkv, vocab, w3, _sm_count(dev))]
     unit = ("megakernel_batched_" + ("paged" if paged else _INSTANCE[cache.dtype])
             + ("_w3" if w3 else ""))
     launch("awq_mega_batched", unit, ptrs, ints, eps, dev)

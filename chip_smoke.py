@@ -256,11 +256,12 @@ def phase_kernels(torch, timer, cases_out):
     def one_launch(entry, fn):
         """K1's GEMV is one launch a call: its counter moves by one, and a
         torch.profiler trace of one call holds one kernel (a trace that
-        recorded no device event at all is taken again, up to three times)."""
+        recorded no device event at all is taken again, up to eight times:
+        the tracer now and then returns a trace without device events)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
-        for _ in range(3):
+        for _ in range(8):
             before = w4.LAUNCHES[entry]
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 fn()
@@ -1396,6 +1397,18 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
         ms = timer(lambda: mkb.w4a16_llama_token_step_batched(*step, **kw))
         plain_ms = timer(lambda: mkb.w4a16_llama_token_step_batched_plain(*step_ref, **kw),
                          reps=2)
+        # K6 sums in a fixed order: a call after the timed ones (same inputs,
+        # the same k/v written at the same positions) gives the same bits
+        again = mkb.w4a16_llama_token_step_batched(*step, **kw)
+        if not all(torch.equal(x, y) for x, y in zip(again, got)):
+            raise AssertionError(f"megakernel_batched{sfx} B={b}: two calls differ")
+        del again
+        log(f"  megakernel_batched{sfx} B={b}: two calls bit-equal (outputs, logits, k/v)")
+        log(f"  megakernel_batched{sfx} B={b}: host enqueue "
+            f"{host_ms(torch, lambda: mkb.w4a16_llama_token_step_batched(*step, **kw)):.4f} ms "
+            "a step (median of 20 calls: the wrapper, its plan and the launch, the device "
+            "drained before each)")
+        log_k6_plan(torch, cfg, b, w3)
 
         def stacked_step():
             hh = llama.stacked_layers(params, cfg, h[:, None], cache_b, 0,
@@ -1441,6 +1454,9 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
         ref = mkb.w4a16_llama_token_step_batched_plain(*step_ref, **kw_p)
         torch.cuda.synchronize()
         same = all(torch.equal(a, c) for a, c in zip(got_p, got))
+        if not same:
+            raise AssertionError(f"megakernel_batched_paged{sfx} B={b}: outputs differ from "
+                                 "the slot mode's on the same rows")
         where = tables.long()[rows, at // 256]
         off = at % 256
         for i in (0, 1):
@@ -1463,6 +1479,41 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
         del pool, pool_ref, step, step_ref, got, got_p, ref
         torch.cuda.empty_cache()
     del params
+
+
+def host_ms(torch, fn, reps: int = 20) -> float:
+    """Median host time of one call of ``fn`` (no sync inside), the device
+    drained before each call."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def log_k6_plan(torch, cfg, b, w3):
+    """One line of K6's schedule for ``b`` rows (``batched_plan``): the
+    grid and blocks an SM, the ring, the windows over IC and each matmul
+    phase's wave, warps a tile and windows, and the unit's registers and
+    spills as ptxas printed them."""
+    from awq_tpu_torch import _build
+    from awq_tpu_torch.ops import megakernel_batched as mkb
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = mkb.batched_plan(b, cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                         cfg.num_kv_heads, cfg.vocab_size, w3, sms)
+    unit = "megakernel_batched_bf16" + ("_w3" if w3 else "")
+    regs = " ".join(ln.split("info    :")[-1].strip() for ln in _build.build_log(unit).splitlines()
+                    if "registers" in ln or "spill" in ln)
+    phases = "; ".join(f"{n} wave {v['wave']} k {v['k']} windows {v['windows']}"
+                       for n, v in p["phases"].items())
+    log(f"  K6 plan B={b}{' W3' if w3 else ''}: grid {p['grid']} ({p['grid'] // sms} block an SM, "
+        f"{p['threads']} threads), {p['smem']} B shared, ring {p['slots']} slots of "
+        f"{p['stage_bytes']} B, windows of {p['window']} chunks of {p['chunk']} channels; "
+        f"{phases}; {unit}: {regs}")
 
 
 def weight_bytes(params) -> int:
