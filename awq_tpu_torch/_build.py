@@ -7,13 +7,13 @@ repository root, where ``<hash>`` covers the source, every header of
 ``csrc/`` (so any header a unit includes), the defines and the compiler
 flags: an edited source or header builds anew, an unchanged one is loaded
 from disk. The megakernels are built once per instance: K4
-(``megakernel.cu``) per weight format, K5 (``megakernel_chunk.cu``) per
-cache dtype and format, K6 (``megakernel_batched.cu``) per cache (the
-four slot dtypes and the page pool) and format, so that the instances
-compile in parallel. Nothing here runs at import time; the op modules call
-:func:`load` on their first launch, and :func:`build_all` starts one
-``nvcc`` per unit at once (the smoke script uses it to build in parallel
-and to time the build).
+(``megakernel.cu``) per weight format, K6 (``megakernel_batched.cu``) per
+cache (the four slot dtypes and the page pool) and format, and K5, the
+chunk mode of K6's body (``AWQ_MEGA_CHUNK``), per cache dtype and format,
+so that the instances compile in parallel. Nothing here runs at import
+time; the op modules call :func:`load` on their first launch, and
+:func:`build_all` starts one ``nvcc`` per unit at once (the smoke script
+uses it to build in parallel and to time the build).
 
 Pointers and the stream cross ctypes as ``c_void_p`` and sizes as
 ``c_int``: an undeclared argument would be passed as a
@@ -42,8 +42,9 @@ _FORMATS = (("", 0), ("_w3", 1))     # unit suffix, -DAWQ_MEGA_W3
 UNITS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "w4a16": ("w4a16", ()), "w3a16": ("w3a16", ()), "decode_attn": ("decode_attn", ()),
     **{f"megakernel{sfx}": ("megakernel", (f"AWQ_MEGA_W3={w}",)) for sfx, w in _FORMATS},
-    **{f"megakernel_chunk_{c}{sfx}": ("megakernel_chunk",
-                                      (f"AWQ_MEGA_CT={_CT[c]}", f"AWQ_MEGA_W3={w}"))
+    **{f"megakernel_chunk_{c}{sfx}": ("megakernel_batched",
+                                      (f"AWQ_MEGA_CT={_CT[c]}", "AWQ_MEGA_PAGED=0",
+                                       f"AWQ_MEGA_W3={w}", "AWQ_MEGA_CHUNK=1"))
        for c in ("f32", "bf16", "f16") for sfx, w in _FORMATS},
     **{f"megakernel_batched_{c}{sfx}": (
         "megakernel_batched",

@@ -1,7 +1,7 @@
-// Helpers shared by the megakernels K4 (megakernel.cu), K5
-// (megakernel_chunk.cu) and K6 (megakernel_batched.cu): the unit's weight
-// format, the code pairs of both formats, typed loads of cache rows, the
-// block-wide sum, and the launch plan of a cooperative persistent grid.
+// Helpers shared by the megakernels K4 (megakernel.cu) and K6 with K5, its
+// chunk mode (megakernel_batched.cu): the unit's weight format, the code
+// pairs of both formats, typed loads of cache rows, the block-wide sum, and
+// the launch plan of a cooperative persistent grid.
 #pragma once
 
 #include <cooperative_groups.h>

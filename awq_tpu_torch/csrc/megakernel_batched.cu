@@ -95,13 +95,48 @@
 // W3 mode (the JAX kernel's dense3, Pallas row 18, in every instance):
 // the linears and the head hold pack_int3 codes, decoded by K1's W3 code
 // pairs with the 2^7 taken off again (stage_mma says why).
+//
+// K5, the chunk mode (AWQ_MEGA_CHUNK; replaces the Pallas kernel of
+// awq_tpu/ops/megakernel_chunk.py: w4a16_llama_chunk_step, _cchunk_kernel,
+// row 17): ALL decoder layers for a window of S = 1..32 tokens of one
+// sequence at [hist, hist + S), window row i attending to the cache
+// [0, hist) and to window rows 0..i; the window's k/v go into the cache in
+// place and come back; no head. The same schedule, ring and stagings, with
+// four differences:
+// - the grid runs in thread-block clusters of cl blocks (a cooperative
+//   launch with a cluster dimension): a phase's units go to clusters, each
+//   rank of a cluster takes them over its own run of IC's chunks, so a block
+//   stages 1/cl of the rows' channels, and at each wave's end the ranks add
+//   their sums in rank order through distributed shared memory (merge_wave),
+//   rank q finishing its own rows;
+// - codes are exact and centred in both formats (stage_mma);
+// - QKV's epilogue adds the bias after the bf16 rounding, with no second
+//   rounding (the JAX kernel's bf16 scratch, then + bias);
+// - the attention is a tensor-core tile of a kv head's (window row, head)
+//   query rows over position slices (attention_chunk), its combine merging
+//   the slices.
+// The host plan (ops/megakernel_batched.py::batched_plan with a cluster,
+// chunk_slices) gives both modes their schedule and shared-memory layout.
 #include <string.h>
 
 #include "mega_common.cuh"
 #include "hopper.cuh"
 #include "pair_codes.cuh"
 
+#ifndef AWQ_MEGA_CHUNK
+#define AWQ_MEGA_CHUNK 0
+#endif
+#if AWQ_MEGA_CHUNK
+#define batched_kernel chunk_kernel     // K5's symbol, the name a profile shows
+#endif
+
 namespace {
+
+constexpr bool CHUNK = AWQ_MEGA_CHUNK != 0;      // K5: the chunk mode of this body
+// Codes as the mma sees them: 2^7 + q (K6's W4), q itself (K6's W3) or
+// q - CENTER (K5: -8..7 in W4, -4..3 in W3); stage_mma says why.
+constexpr bool EXACT_CODES = UNIT_W3 || CHUNK;
+constexpr int CENTER = CHUNK ? (UNIT_W3 ? 4 : 8) : 0;
 
 constexpr int K6_WARPS = 8;                       // consumer warps
 constexpr int K6_THREADS = 32 * (K6_WARPS + 1);   // and the producer warp
@@ -123,6 +158,16 @@ constexpr int ATT_FLOATS = MK_MAXG * MK_HD + 2 * MK_HD + 2 * K6_WARPS * MK_MAXG
                            + K6_WARPS * MK_MAXG * MK_HD + K6_WARPS + K6_WARPS * KV_RING_BYTES / 4;
 constexpr int MAXB = 64;         // most rows per launch
 constexpr int NPH = 5;           // matmul phases: QKV, o-proj, gate/up, down, head
+// K5: a block's sums of a wave that its cluster reads (TOT_FLOATS), and the
+// attention's q (hi and lo, 128 rows), the window's k (hi and lo) and v (32
+// rows each) and the K (hi and lo) and V tiles of TP positions in two
+// stages, 16-bit elements
+constexpr int TOT_FLOATS = K6_WARPS * 16 * WARP_ROWS;
+constexpr int TP = 32;
+constexpr int CATT_BYTES = (2 * 128 + 3 * 32 + 2 * 3 * TP) * MK_HD * 2;
+// The shared-memory regions whose byte offsets the host plan gives
+// (ops/megakernel_batched.py::REGIONS), in that order.
+enum { O_BARS, O_RED, O_RS, O_XS, O_ROWS, O_ATT, O_TOT, NREG };
 
 // A piece: one chunk of input channels of a 16-column tile, its code rows
 // and the scale and szero rows of its groups. W4: a group (16 code rows);
@@ -159,40 +204,66 @@ struct BatchArgs {
   int nsplit, split_len;
   int wc, rh, bp;          // window chunks, row halves, rows rounded up to 8
   PhasePlan pp[NPH];
+  int off[NREG];           // the shared-memory regions (the host plan's layout)
+  int cl, hist;            // K5: blocks a cluster, the window's first position
   float eps;
 };
 
-// The shared memory of a block (smem_layout, which batched_plan's _smem
-// follows; plan_for refuses a plan of other bytes).
+// The shared memory of a block, carved at the host plan's offsets
+// (ops/megakernel_batched.py::smem_layout, the one source of the layout;
+// plan_for checks that each region is aligned and as large as this build
+// uses it, and that the fixed ones lie where the build carves them).
 struct Smem {
   uint8_t* ring; uint64_t* full; uint64_t* empty; uint64_t* rowbar;
-  float* red; float* rs; float* xsum; uint32_t* rows; float* att;
+  uint64_t* mready; uint64_t* mfree;      // K5: the cluster merge's barriers
+  float* red; float* rs; float* xsum; uint32_t* rows; float* att; float* tot;
   int xp, ng;              // words of a staged row, groups of a window
 };
 
-__host__ __device__ inline int smem_layout(int bp, int wc, int* u_off, int* xs_off,
-                                           int* rows_off) {
-  *u_off = (128 + SLOTS * SB + 16 * SLOTS + 8 + 127) / 128 * 128;
-  *xs_off = *u_off + (RED_FLOATS + RS_FLOATS) * 4;
-  *rows_off = (*xs_off + bp * (wc * KC / MK_G) * 4 + 15) / 16 * 16;
-  const int end = *rows_off + bp * (wc * KC / 2 + 8) * 4;
-  const int att = *u_off + ATT_FLOATS * 4;
-  return end > att ? end : att;
+// The regions that sit at an offset fixed by the build: the ring's
+// mbarriers after the ring (after up to 128 bytes of its alignment; K5 two
+// more), then the warps' partial sums, where the attention's region starts
+// too, and the norm factors. The kernel carves them at these constants (a
+// base read from the plan cost K6's attention ~20%, PERF.md §6) and
+// layout_fits requires the host layout's offsets to equal them.
+constexpr int NBAR = 2 * SLOTS + 1 + (CHUNK ? 2 : 0);
+constexpr int OFF_BARS = 128 + SLOTS * SB;
+constexpr int OFF_RED = (OFF_BARS + 8 * NBAR + 127) / 128 * 128;
+constexpr int OFF_RS = OFF_RED + RED_FLOATS * 4;
+
+// Whether the host's region offsets `o` and `smem` bytes fit this build at
+// bp rows and windows of wc chunks: the fixed regions where this build puts
+// them, every other region 16-byte aligned and as large as the build uses
+// it (K5's merge sums beside the rows), all within SMEM_MAX.
+inline bool layout_fits(const int* o, int smem, int bp, int wc) {
+  const int xs_bytes = bp * (wc * KC / MK_G) * 4, rows_bytes = bp * (wc * KC / 2 + 8) * 4;
+  const int att = CHUNK ? CATT_BYTES : ATT_FLOATS * 4;
+  bool ok = smem <= SMEM_MAX && o[O_BARS] == OFF_BARS && o[O_RED] == OFF_RED
+            && o[O_RS] == OFF_RS && o[O_ATT] == OFF_RED;
+  ok = ok && o[O_XS] % 16 == 0 && o[O_XS] >= o[O_RS] + RS_FLOATS * 4;
+  ok = ok && o[O_ROWS] % 16 == 0 && o[O_ROWS] >= o[O_XS] + xs_bytes
+       && o[O_ROWS] + rows_bytes <= smem;
+  ok = ok && o[O_ATT] + att <= smem;
+  if (CHUNK)
+    ok = ok && o[O_TOT] % 16 == 0 && o[O_TOT] >= o[O_ROWS] + rows_bytes
+         && o[O_TOT] + TOT_FLOATS * 4 <= smem;
+  return ok;
 }
 
 __device__ __forceinline__ Smem carve(uint8_t* base, const BatchArgs& a) {
-  int u, xs, ro;
-  smem_layout(a.bp, a.wc, &u, &xs, &ro);
   Smem s;
   s.ring = base + ((128u - (hop::smem_u32(base) & 127u)) & 127u);   // TMA boxes: 128-byte aligned
-  s.full = reinterpret_cast<uint64_t*>(base + 128 + SLOTS * SB);
+  s.full = reinterpret_cast<uint64_t*>(base + OFF_BARS);
   s.empty = s.full + SLOTS;
   s.rowbar = s.empty + SLOTS;
-  s.red = reinterpret_cast<float*>(base + u);
-  s.rs = s.red + RED_FLOATS;
-  s.xsum = reinterpret_cast<float*>(base + xs);
-  s.rows = reinterpret_cast<uint32_t*>(base + ro);
+  s.mready = s.rowbar + 1;
+  s.mfree = s.mready + 1;
+  s.red = reinterpret_cast<float*>(base + OFF_RED);
+  s.rs = reinterpret_cast<float*>(base + OFF_RS);
+  s.xsum = reinterpret_cast<float*>(base + a.off[O_XS]);
+  s.rows = reinterpret_cast<uint32_t*>(base + a.off[O_ROWS]);
   s.att = s.red;
+  s.tot = reinterpret_cast<float*>(base + a.off[O_TOT]);
   s.xp = a.wc * KC / 2 + 8;
   s.ng = a.wc * KC / MK_G;
   return s;
@@ -257,7 +328,7 @@ __device__ __forceinline__ void ring_wait(uint64_t* bar, uint32_t parity) {
 // wave, warps a tile (k) and windows over IC (nw, chunks nch in all).
 struct PD {
   const int32_t* qw; const float* sc; const float* sz;
-  int oc, nch, t0, nt, wave, k, nw, pair;
+  int oc, nch, ch0, t0, nt, wave, k, nw, pair;
 };
 
 __device__ __forceinline__ PD phase_desc(const BatchArgs& a, int ph, int l) {
@@ -291,12 +362,16 @@ __device__ __forceinline__ PD phase_desc(const BatchArgs& a, int ph, int l) {
     d.oc = a.vocab;
     d.qw = a.hd_w; d.sc = a.hd_s; d.sz = a.hd_z;
   }
-  const int units = d.oc / 16 / (1 + d.pair);
-  const int u0 = static_cast<int>((long long)blockIdx.x * units / gridDim.x);
-  const int u1 = static_cast<int>((long long)(blockIdx.x + 1) * units / gridDim.x);
+  // K6: the blocks take runs of units over all of IC; K5: the clusters take
+  // the runs, and each rank of a cluster its own run of IC's chunks
+  const int cl = CHUNK ? a.cl : 1, ci = blockIdx.x / cl, rank = blockIdx.x % cl;
+  const int ncl = gridDim.x / cl, units = d.oc / 16 / (1 + d.pair), nch = ic / KC;
+  const int u0 = static_cast<int>((long long)ci * units / ncl);
+  const int u1 = static_cast<int>((long long)(ci + 1) * units / ncl);
   d.t0 = u0;
   d.nt = (u1 - u0) * (1 + d.pair);
-  d.nch = ic / KC;
+  d.ch0 = rank * nch / cl;
+  d.nch = (rank + 1) * nch / cl - d.ch0;
   d.wave = a.pp[ph].wave; d.k = a.pp[ph].k; d.nw = a.pp[ph].nw;
   return d;
 }
@@ -366,7 +441,7 @@ __device__ void set_wave(Prod& p, const BatchArgs& a) {
   p.off = which == 0 ? part * bx.cbx : bx.parts * bx.cbx + ((which - 1) * bx.parts + part) * bx.sbx;
   p.col = (d.pair ? 16 * (d.t0 + st / 2) : 16 * (d.t0 + st)) + part * a.I;
   p.drow = d.k * (which == 0 ? SROWS : SGROUPS);
-  p.row = win_lo(d, p.win) * (which == 0 ? SROWS : SGROUPS);
+  p.row = (d.ch0 + win_lo(d, p.win)) * (which == 0 ? SROWS : SGROUPS);
   p.plane = p.ph == 4 ? 0 : p.l;
 }
 
@@ -599,13 +674,14 @@ __device__ __forceinline__ void stage_rows(const Smem& s, const float* srcf, con
 }
 
 // The bf16 code pairs of k16 step j of a 64-channel sub-step of one column
-// (pc::code_pairs, as K1's GEMV decodes them): 2^7 + q in W4; W3 takes the
-// 2^7 off again, so that its A operand holds q itself (see stage_mma).
+// (pc::code_pairs, as K1's GEMV decodes them): 2^7 + q in K6's W4; K6's W3
+// takes the 2^7 off again, so that the A operand holds q itself, and K5
+// 2^7 + CENTER, so that it holds q - CENTER (see stage_mma).
 __device__ __forceinline__ void code_pairs(uint32_t lo0, uint32_t lo1, uint32_t hi0, uint32_t hi1,
                                            int j, uint32_t& pl, uint32_t& ph) {
   pc::code_pairs<UNIT_W3 != 0>(lo0, lo1, hi0, hi1, j, 0x43004300u, pl, ph);
-  if constexpr (UNIT_W3) {
-    const __nv_bfloat162 c = __float2bfloat162_rn(128.f);
+  if constexpr (EXACT_CODES) {
+    const __nv_bfloat162 c = __float2bfloat162_rn(128.f + CENTER);
     const __nv_bfloat162 l2 = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&pl), c);
     const __nv_bfloat162 h2 = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&ph), c);
     pl = *reinterpret_cast<const uint32_t*>(&l2);
@@ -623,7 +699,12 @@ __device__ __forceinline__ void code_pairs(uint32_t lo0, uint32_t lo1, uint32_t 
 // (scripts/exp_mma_precision.py), so with codes biased by 2^7 the part
 // that survives taking 2^7·s·Σx off loses 75-500 times as much as with q
 // itself. W3 takes q: biased W3 codes moved one ill-conditioned (layer,
-// row) of the smoke's W3 model 6-8% at 32 rows (PERF.md §6).
+// row) of the smoke's W3 model 6-8% at 32 rows (PERF.md §6). K5 takes the
+// codes centred, q - 8 in W4 and q - 4 in W3 (exact in bf16), and folds the
+// centre into the szero term, s·Σx·(q - c) − (sz − c·s)·Σx: with sz near
+// c·s, as AWQ's zero points are on average, the two terms no longer cancel,
+// and the chain's rounding stays small against the group's value. Its rows
+// are the cache that every later decode step reads.
 template <int NT>
 __device__ __forceinline__ void stage_mma(const Smem& s, const uint32_t* cw, const float* sv,
                                           const float* zv, int rw, int cl, int rb,
@@ -672,8 +753,10 @@ __device__ __forceinline__ void stage_mma(const Smem& s, const uint32_t* cw, con
     }
     const float2 sc = *reinterpret_cast<const float2*>(sv + gi * rw + 2 * gq);
     const float2 sz = *reinterpret_cast<const float2*>(zv + gi * rw + 2 * gq);
-    const float zc0 = UNIT_W3 ? sz.x : fmaf(128.f, sc.x, sz.x);
-    const float zc1 = UNIT_W3 ? sz.y : fmaf(128.f, sc.y, sz.y);
+    const float zc0 = EXACT_CODES ? fmaf(-static_cast<float>(CENTER), sc.x, sz.x)
+                                  : fmaf(128.f, sc.x, sz.x);
+    const float zc1 = EXACT_CODES ? fmaf(-static_cast<float>(CENTER), sc.y, sz.y)
+                                  : fmaf(128.f, sc.y, sz.y);
     const int g = cl * SGROUPS + gi;
 #pragma unroll
     for (int nb = 0; nb < NT; ++nb) {
@@ -717,18 +800,26 @@ __device__ __forceinline__ void wave_rounds(const Smem& s, const Box& bx, int se
   }
 }
 
+// Where block g's sum of squares of row r lies in ssp: [block][row] in K6,
+// [row][block] in K5 (whose norm_factors then read a row's sums in a run).
+__device__ __forceinline__ size_t ssp_at(int r, int g) {
+  return CHUNK ? (size_t)r * gridDim.x + g : (size_t)g * MAXB + r;
+}
+
 // Row sums of squares of this block's columns [c0, c1) of y [B][H], one
-// warp a row, into ssp[block][row] for the next phase's folded rmsnorm.
-__device__ void row_squares(const float* y, int H, int B, int c0, int c1, float* ssp) {
+// warp a row, into ssp (ssp_at) for the next phase's folded rmsnorm; K5
+// takes the rows [r0, r1) that this rank finished and leaves 0 for the rest.
+__device__ void row_squares(const float* y, int H, int B, int c0, int c1, float* ssp,
+                            int r0, int r1) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < B; r += K6_WARPS) {
     float v = 0.f;
-    for (int c = c0 + lane; c < c1; c += 32) {
+    for (int c = c0 + lane; r >= r0 && r < r1 && c < c1; c += 32) {
       const float x = y[(size_t)r * H + c];
       v += x * x;
     }
     v = warp_sum(v);
-    if (lane == 0) ssp[blockIdx.x * MAXB + r] = v;
+    if (lane == 0) ssp[ssp_at(r, blockIdx.x)] = v;
   }
 }
 
@@ -738,7 +829,7 @@ __device__ void norm_factors(const Smem& s, const float* ssp, int B, int H, floa
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int r = warp; r < B; r += K6_WARPS) {
     float v = 0.f;
-    for (int g = lane; g < static_cast<int>(gridDim.x); g += 32) v += ssp[g * MAXB + r];
+    for (int g = lane; g < static_cast<int>(gridDim.x); g += 32) v += ssp[ssp_at(r, g)];
     v = warp_sum(v);
     if (lane == 0) s.rs[r] = rsqrtf(v / H + eps);
   }
@@ -750,12 +841,120 @@ struct Out {
   float* hres; float* h1; float* qkv; bf16* xw; bf16* hm; float* logits; float* ssp;
 };
 
+// ---- K5's cluster merge ------------------------------------------------------
+
+// One arrival on rank `rank`'s copy of this block's mbarrier `bar`,
+// releasing this thread's (and, through the barrier before it, the
+// block's) earlier writes to the cluster.
+__device__ __forceinline__ void arrive_remote(uint64_t* bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];"
+               ::"r"(hop::cluster_map(bar, rank)) : "memory");
+}
+
+// Wait for the phase of parity `parity` of a merge barrier, acquiring what
+// the ranks released with their arrivals; traps after about 10 s.
+__device__ __forceinline__ void cluster_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = hop::smem_u32(bar);
+  uint64_t t0 = 0;
+  for (uint32_t tries = 1;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((tries & 1023u) == 0u) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 10000000000ull) __trap();
+    }
+  }
+}
+
+// The rows [r0, r1) whose outputs rank `rank` of a cluster of `cl` finishes.
+__device__ __forceinline__ void rank_rows(int B, int cl, int rank, int& r0, int& r1) {
+  r0 = rank * B / cl;
+  r1 = (rank + 1) * B / cl;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(a) : "memory");
+  return v;
+}
+
+// K5's merge of a wave, after each rank has put its sums over its run of IC
+// (tiles [lo, hi) of the wave's box, 16 columns, B rows, in that order) in
+// tot: the ranks announce their sums (mready), every rank adds all ranks'
+// in rank order from distributed shared memory for its own rows
+// (rank_rows) and finishes them as K6's epilogue does (QKV: bf16, then +
+// bias, no second rounding); then it announces that it has read every
+// rank's tot (mfree), which a rank waits for before it writes tot again.
+// The nmerge-th merge of the launch.
+__device__ void merge_wave(const BatchArgs& a, const Smem& s, const PD& d, int ph, int l,
+                           const Out& o, int st, int lo, int hi, int nmerge) {
+  const int tid = threadIdx.x, B = a.B, I = a.I, H = a.H, oq = (a.nq + 2 * a.nkv) * MK_HD;
+  const int cl = a.cl, rank = blockIdx.x % cl;
+  hop::bar_sync(CB, 32 * K6_WARPS);                 // tot is written
+  if (cl > 1) {
+    if (tid == 0) {
+      asm volatile("fence.acq_rel.cluster;" ::: "memory");
+      for (int q = 0; q < cl; ++q) arrive_remote(s.mready, q);
+    }
+    cluster_wait(s.mready, nmerge & 1);             // every rank's tot is written
+  }
+  int r0, r1;
+  rank_rows(B, cl, rank, r0, r1);
+  const int nr = r1 - r0, per = 16 * nr, units = d.pair ? (hi - lo) / 2 : hi - lo;
+  auto sum = [&](int t, int col, int r) {
+    const int idx = ((t - lo) * 16 + col) * B + r;
+    float v = 0.f;
+    for (int q = 0; q < cl; ++q)
+      v += cl > 1 ? ld_cluster_f32(hop::cluster_map(s.tot, q) + 4u * idx) : s.tot[idx];
+    return v;
+  };
+  // thread tid takes (column, row) j = tid, tid + 256, ... of each unit: the
+  // divisions once a merge, not once an output
+  for (int j = tid; j < per; j += 32 * K6_WARPS) {
+    const int col = j / nr, r = r0 + j % nr;
+    for (int t = 0; t < units; ++t) {
+      if (d.pair) {
+        const int tg = lo + 2 * t, cg = tile_col(d, st + tg, I) + col;
+        const float gt = bf16r(sum(tg, col, r)), up = bf16r(sum(tg + 1, col, r));
+        o.hm[(size_t)r * I + 2 * perm_word(cg & ~1) + (cg & 1)] =
+            __float2bfloat16_rn(gt * (1.f / (1.f + expf(-gt))) * up);
+        fence_proxy_global();
+        continue;
+      }
+      const int tt = lo + t, c = tile_col(d, st + tt, I) + col;
+      const float v = sum(tt, col, r);
+      if (ph == 0) {
+        float x = bf16r(v);
+        if (a.has_bias) x += load_act(a.qkv_b, a.md, (size_t)l * oq + c);
+        o.qkv[(size_t)r * oq + c] = x;
+      } else if (ph == 1) {
+        o.h1[(size_t)r * H + c] = o.hres[(size_t)r * H + c] + v;
+      } else {
+        o.hres[(size_t)r * H + c] = bf16r(o.h1[(size_t)r * H + c] + v);
+      }
+    }
+  }
+  if (cl > 1) {
+    hop::bar_sync(CB, 32 * K6_WARPS);               // this rank has read every tot
+    if (tid == 0)
+      for (int q = 0; q < cl; ++q) arrive_remote(s.mfree, q);
+  }
+}
+
 // A matmul phase, consumer side: for each window, stage its rows, then for
 // each wave of the block's tiles let each warp take its chunks, add the
 // warps' sums in warp order and finish (or carry the window's partial sums
 // in `part`, a block-private f32 buffer, to the next window).
 __device__ void mm_phase(const BatchArgs& a, const Smem& s, const PD& d, int ph, int l,
-                         int seq, const Out& o, float* part, int pld, int& nbulk) {
+                         int seq, const Out& o, float* part, int pld, int& nbulk, int& nmerge) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int B = a.B, H = a.H, I = a.I, oq = (a.nq + 2 * a.nkv) * MK_HD;
   const bool fold = ph == 0 || ph == 2 || ph == 4;
@@ -773,8 +972,8 @@ __device__ void mm_phase(const BatchArgs& a, const Smem& s, const PD& d, int ph,
   for (int win = 0; win < d.nw; ++win) {
     const int c0 = win_lo(d, win), wc = win_lo(d, win + 1) - c0;
     hop::bar_sync(CB, 32 * K6_WARPS);        // the last window's rows are read
-    stage_rows(s, fold ? srcf : nullptr, srcb, ic, nw, woff, a.md, c0 * KC, wc * KC, B, a.bp,
-               nbulk);
+    stage_rows(s, fold ? srcf : nullptr, srcb, ic, nw, woff, a.md, (d.ch0 + c0) * KC, wc * KC, B,
+               a.bp, nbulk);
     hop::bar_sync(CB, 32 * K6_WARPS);
     const Box bx = box_of(d);
     for (int wv = 0; wv < nwaves; ++wv) {
@@ -823,6 +1022,23 @@ __device__ void mm_phase(const BatchArgs& a, const Smem& s, const PD& d, int ph,
         if (!last) *p = t;
         return t;
       };
+      if constexpr (CHUNK) {
+        // this block's sums over its run of IC into tot (carried over the
+        // windows in part, which is the rank's own); the cluster merges them
+        if (last && a.cl > 1 && nmerge > 0) cluster_wait(s.mfree, (nmerge - 1) & 1);
+        // thread tid takes (column, row) j = tid, tid + 256 of each tile's
+        // 16 x B sums, the divisions once a window, not once an output
+        for (int j = tid; j < 16 * B; j += 32 * K6_WARPS) {
+          const int col = j / B, r = j % B;
+          for (int t = lo; t < hi; ++t) {
+            const float v = carry(total(t, col, r), r, tile_col(d, st + t, I) + col);
+            if (last) s.tot[(t - lo) * 16 * B + j] = v;
+          }
+        }
+        if (last) merge_wave(a, s, d, ph, l, o, st, lo, hi, nmerge++);
+        hop::bar_sync(CB, 32 * K6_WARPS);      // red is free
+        continue;
+      }
       const int per = 16 * B, t0 = d.pair ? lo / 2 : lo;
       const int items = (d.pair ? (hi - lo) / 2 : hi - lo) * per;
       for (int i = tid; i < items; i += 32 * K6_WARPS) {
@@ -1085,6 +1301,336 @@ __device__ void attention(const BatchArgs& a, const Smem& s, int l, const float*
   else attention_g<CT, PAGED, MK_MAXG, false>(a, s, l, qkv, cache);
 }
 
+// ---- K5's attention -----------------------------------------------------------
+
+// The 8 elements of 16 bytes of a row of the mma type, from f32.
+template <typename MT>
+__device__ __forceinline__ uint4 pack8(const float* e) {
+  return make_uint4(pack2<MT>(e[0], e[1]), pack2<MT>(e[2], e[3]), pack2<MT>(e[4], e[5]),
+                    pack2<MT>(e[6], e[7]));
+}
+
+// K5's attention, consumer warps only: the window's k/v first go into the
+// cache at [hist, hist + S) and into k_new/v_new (roped k; each element once
+// over the grid), then items (kv head, block of 128 query rows, position
+// slice) run K3's GQA-packed tile inside the persistent grid. A kv head's
+// query rows are the window's (row, head-in-group) pairs, row-major, so
+// that one K/V tile serves every head of the group. An item's block stages
+// its 128 rows of q (roped and scaled in f32, split into hi and lo halves of
+// the mma type: two products into the same sums, so q keeps about f32's
+// precision, as K2's q does) and, where its slice reaches the window, the
+// window's k and v of its kv head from the QKV workspace, not from the
+// cache: the window tail. JAX keeps it in f32 in registers
+// (megakernel_chunk.py:208-229); K5 keeps the window's k at f32's precision
+// too (hi and lo halves, below) and rounds its v to the mma type, as P is
+// rounded, where the cache it writes for later steps holds both rounded to
+// the cache's dtype. Warp w takes rows 16w .. 16w + 15 as mma.sync m16n8k16 A
+// fragments (ldmatrix). The block brings TP-position K and V tiles of the
+// slice into two shared stages (cp.async of 16-byte pieces from the cache,
+// an f32 cache's rows converted on the way, the window's rows from its
+// staged copy; every row's 16-byte chunks XOR-swizzled by its low three
+// bits for ldmatrix). Where a tile holds keys the mma type cannot hold (an
+// f32 cache, or the window's own k, both f32 in the plain version and in
+// JAX), the tile keeps a lo half beside each key and the scores add
+// q_hi·k_lo as a third product: an attention row whose softmax sits on a
+// few large scores moves by several % when its keys lose f32's mantissa
+// (a random model's rows did, PERF.md §6). V stays in the mma type (an
+// f32 cache's rounded to bf16, as K3's f32 mode rounds it). S = Q·K^T, an
+// online max and sum in f32 per row, the causal limit per row by its
+// position; O += P·V with V through ldmatrix.trans and P as hi and lo
+// halves of the mma type (bf16; f16 over an f16 cache), two products into
+// f32 sums, where K3 and JAX's TPU kernel round P once: P's rounding alone
+// moved one row of the smoke's random model by 2% (PERF.md §6). Each slice
+// leaves its (max, sum, unnormalised output) per row for the combine, as
+// K6's slices do.
+constexpr int CQ_ROWS = 128;                       // query rows an item
+template <typename MT>
+__device__ __forceinline__ MT* swz_row(MT* base, int row, int ch) {   // 16-byte chunk ch of a row
+  return base + row * MK_HD + ((ch ^ (row & 7)) * 8);
+}
+
+// Channels 8ch .. 8ch + 7 of a 128-wide f32 row x, roped with the row's
+// cos/sin (HF rotate-half, rope_at's arithmetic) where `rope`, by vector
+// loads.
+__device__ __forceinline__ void row8(const float* x, const float* cr, const float* sr, int ch,
+                                     bool rope, float* y) {
+  const int d = 8 * ch;
+  unpack16<float>(*reinterpret_cast<const uint4*>(x + d), y);
+  unpack16<float>(*reinterpret_cast<const uint4*>(x + d + 4), y + 4);
+  if (!rope) return;
+  const int o = d < MK_HD / 2 ? d + MK_HD / 2 : d - MK_HD / 2;
+  float p[8], c[8], sn[8];
+  unpack16<float>(*reinterpret_cast<const uint4*>(x + o), p);
+  unpack16<float>(*reinterpret_cast<const uint4*>(x + o + 4), p + 4);
+  unpack16<float>(*reinterpret_cast<const uint4*>(cr + d), c);
+  unpack16<float>(*reinterpret_cast<const uint4*>(cr + d + 4), c + 4);
+  unpack16<float>(*reinterpret_cast<const uint4*>(sr + d), sn);
+  unpack16<float>(*reinterpret_cast<const uint4*>(sr + d + 4), sn + 4);
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const float rot = d < MK_HD / 2 ? -p[u] : p[u];
+    y[u] = y[u] * c[u] + rot * sn[u];
+  }
+}
+
+template <typename CT>
+__device__ void attention_chunk(const BatchArgs& a, const Smem& s, int l, const float* qkv,
+                                CT* cache) {
+  using MT = typename MmaOf<CT>::type;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
+  const int S = a.B, nq = a.nq, nkv = a.nkv, grp = nq / nkv, hist = a.hist;
+  const int oq = (nq + 2 * nkv) * MK_HD, R = S * grp, nrb = (R + CQ_ROWS - 1) / CQ_ROWS;
+  const size_t T = a.T;
+  float* pml = a.ws + (size_t)S * (2 * a.H + oq);
+  const size_t nrows = (size_t)S * nq * a.nsplit;
+  float* pacc = pml + ((nrows * 2 + 3) & ~(size_t)3);
+  const float scale = 1.f / sqrtf((float)MK_HD);
+  // the window's k (roped) and v into the cache and k_new/v_new, 8 channels
+  // a thread
+  for (int i = blockIdx.x * 32 * K6_WARPS + tid; i < 2 * nkv * S * 16;
+       i += gridDim.x * 32 * K6_WARPS) {
+    const int ch = i % 16, r = (i / 16) % S, kvh = (i / (16 * S)) % nkv, which = i / (16 * S * nkv);
+    float y[8];
+    row8(qkv + (size_t)r * oq + (nq + which * nkv + kvh) * MK_HD, a.cosr + r * MK_HD,
+         a.sinr + r * MK_HD, ch, !which, y);
+    CT* c = cache + ((((size_t)l * 2 + which) * nkv + kvh) * T + hist + r) * MK_HD + 8 * ch;
+    CT* o = static_cast<CT*>(which ? a.v_new : a.k_new)
+            + (((size_t)l * nkv + kvh) * S + r) * MK_HD + 8 * ch;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) c[u] = o[u] = from_f32<CT>(y[u]);
+  }
+  MT* qh = reinterpret_cast<MT*>(s.att);            // [128][128] q hi, swizzled
+  MT* ql = qh + CQ_ROWS * MK_HD;                    // q lo
+  MT* kw = ql + CQ_ROWS * MK_HD;                    // [32][128] the window's k hi
+  MT* kwl = kw + 32 * MK_HD;                        // its k lo
+  MT* vw = kwl + 32 * MK_HD;                        // and v
+  MT* kt = vw + 32 * MK_HD;                         // [2][TP][128] K tiles (hi)
+  MT* ktl = kt + 2 * TP * MK_HD;                    // K tiles' lo halves
+  MT* vt = ktl + 2 * TP * MK_HD;                    // V tiles
+  const int items = nkv * nrb * a.nsplit;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int kvh = it / (nrb * a.nsplit), rb = (it / a.nsplit) % nrb, sp = it % a.nsplit;
+    const int p0 = sp * a.split_len, p1 = min(p0 + a.split_len, hist + S);
+    const int q0 = rb * CQ_ROWS + warp * 16;        // the warp's first query row
+    const bool busy = q0 < R;
+    hop::bar_sync(CB, 32 * K6_WARPS);               // the last item's shared memory is read
+    // the block's q rows (8 channels a piece), and the window's k/v where
+    // the slice reaches it
+#pragma unroll 4
+    for (int c = tid; c < CQ_ROWS * 16; c += 32 * K6_WARPS) {
+      const int qr = c / 16, ch = c % 16, row = rb * CQ_ROWS + qr;
+      float y[8];
+      if (row < R) {
+        const int r = row / grp, g = row % grp;
+        row8(qkv + (size_t)r * oq + (kvh * grp + g) * MK_HD, a.cosr + r * MK_HD,
+             a.sinr + r * MK_HD, ch, true, y);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) y[u] *= scale;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) y[u] = 0.f;
+      }
+      const uint4 hi = pack8<MT>(y);
+      const MT* hv = reinterpret_cast<const MT*>(&hi);
+      float lo[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) lo[u] = y[u] - to_f32<MT>(hv[u]);
+      *reinterpret_cast<uint4*>(swz_row(qh, qr, ch)) = hi;
+      *reinterpret_cast<uint4*>(swz_row(ql, qr, ch)) = pack8<MT>(lo);
+    }
+    if (p1 > hist) {
+      for (int c = tid; c < 2 * S * 16; c += 32 * K6_WARPS) {
+        const int which = c / (S * 16), r = (c / 16) % S, ch = c % 16;
+        float e[8];
+        row8(qkv + (size_t)r * oq + (nq + which * nkv + kvh) * MK_HD, a.cosr + r * MK_HD,
+             a.sinr + r * MK_HD, ch, !which, e);
+        const uint4 hi = pack8<MT>(e);
+        *reinterpret_cast<uint4*>(swz_row(which ? vw : kw, r, ch)) = hi;
+        if (!which) {
+          const MT* hv = reinterpret_cast<const MT*>(&hi);
+#pragma unroll
+          for (int u = 0; u < 8; ++u) e[u] -= to_f32<MT>(hv[u]);
+          *reinterpret_cast<uint4*>(swz_row(kwl, r, ch)) = pack8<MT>(e);
+        }
+      }
+    }
+    hop::bar_sync(CB, 32 * K6_WARPS);
+    // a tile's k rows as hi and lo halves of the mma type where a row may
+    // need more than the mma type holds: an f32 cache, or the window's own
+    // k (f32 in the plain version and in JAX); the scores then take the lo
+    // halves as a third product
+    auto has_lo = [&](int j) { return sizeof(CT) == 4 || p0 + j * TP + TP > hist; };
+    // the 16-byte pieces (chunk ch) of position p of k and v into tile j
+    auto load_tile = [&](int j) {
+      MT* kb = kt + (j & 1) * TP * MK_HD;
+      MT* kl = ktl + (j & 1) * TP * MK_HD;
+      MT* vb = vt + (j & 1) * TP * MK_HD;
+      const bool lo = has_lo(j);
+      for (int c = tid; c < 2 * TP * 16; c += 32 * K6_WARPS) {
+        const int which = c / (TP * 16), rr = (c / 16) % TP, ch = c % 16;
+        const int p = p0 + j * TP + rr;
+        uint4* dst = reinterpret_cast<uint4*>(swz_row(which ? vb : kb, rr, ch));
+        uint4* dlo = reinterpret_cast<uint4*>(swz_row(kl, rr, ch));
+        const bool klo = lo && !which;
+        if (p < hist) {
+          const CT* src = cache + ((((size_t)l * 2 + which) * nkv + kvh) * T + p) * MK_HD + ch * 8;
+          if constexpr (sizeof(CT) == 2) {
+            hop::cp_async16(dst, src, true);
+            if (klo) *dlo = make_uint4(0u, 0u, 0u, 0u);   // the cache's k is exact
+          } else {
+            float e[8];
+            unpack16<float>(*reinterpret_cast<const uint4*>(src), e);
+            unpack16<float>(*reinterpret_cast<const uint4*>(src + 4), e + 4);
+            const uint4 hi = pack8<MT>(e);
+            *dst = hi;
+            if (klo) {
+              const MT* hv = reinterpret_cast<const MT*>(&hi);
+#pragma unroll
+              for (int u = 0; u < 8; ++u) e[u] -= to_f32<MT>(hv[u]);
+              *dlo = pack8<MT>(e);
+            }
+          }
+        } else if (p < hist + S) {
+          *dst = *reinterpret_cast<const uint4*>(swz_row(which ? vw : kw, p - hist, ch));
+          if (klo) *dlo = *reinterpret_cast<const uint4*>(swz_row(kwl, p - hist, ch));
+        } else {
+          *dst = make_uint4(0u, 0u, 0u, 0u);
+          if (klo) *dlo = make_uint4(0u, 0u, 0u, 0u);
+        }
+      }
+      hop::cp_async_commit();
+    };
+    int lim[2];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int qr = q0 + gq + 8 * h2;
+      lim[h2] = qr < R ? hist + qr / grp : -1;
+    }
+    float m[2] = {-INFINITY, -INFINITY}, ls[2] = {0.f, 0.f}, acc[16][4];
+#pragma unroll
+    for (int n = 0; n < 16; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+    const int ntile = (p1 - p0 + TP - 1) / TP;
+    load_tile(0);
+    for (int i = 0; i < ntile; ++i) {
+      hop::cp_async_wait_all();
+      hop::bar_sync(CB, 32 * K6_WARPS);             // tile i is in; tile i - 1 is read
+      if (i + 1 < ntile) load_tile(i + 1);
+      if (!busy) continue;
+      const MT* kb = kt + (i & 1) * TP * MK_HD;
+      const MT* kl = ktl + (i & 1) * TP * MK_HD;
+      const MT* vb = vt + (i & 1) * TP * MK_HD;
+      const int t0 = p0 + i * TP;
+      const bool lo = has_lo(i);
+      float sc[TP / 8][4];
+#pragma unroll
+      for (int nb = 0; nb < TP / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nb][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        // q's A fragments: rows q0 .. q0 + 15, channels 16kk .. 16kk + 15
+        const int ar = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, ac = 2 * kk + (lane >> 4);
+        uint32_t ah[4], al[4];
+        hop::ldsm_x4(ah, swz_row(qh, ar, ac));
+        hop::ldsm_x4(al, swz_row(ql, ar, ac));
+#pragma unroll
+        for (int nb = 0; nb < TP / 8; nb += 2) {
+          // matrices: positions 8nb.. / 8nb + 8.., channels 16kk.. / 16kk + 8..
+          const int pr = 8 * (nb + (lane >> 4)) + (lane & 7), ch = 2 * kk + ((lane >> 3) & 1);
+          uint32_t b[4];
+          hop::ldsm_x4(b, swz_row(kb, pr, ch));
+          mma_16816<MT>(sc[nb], ah, b[0], b[1]);
+          mma_16816<MT>(sc[nb], al, b[0], b[1]);
+          mma_16816<MT>(sc[nb + 1], ah, b[2], b[3]);
+          mma_16816<MT>(sc[nb + 1], al, b[2], b[3]);
+          if (lo) {
+            hop::ldsm_x4(b, swz_row(kl, pr, ch));
+            mma_16816<MT>(sc[nb], ah, b[0], b[1]);
+            mma_16816<MT>(sc[nb + 1], ah, b[2], b[3]);
+          }
+        }
+      }
+      // causal limit per row, the slice's end; online softmax per row
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nb = 0; nb < TP / 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int p = t0 + 8 * nb + 2 * tq + e;
+            float& v = sc[nb][2 * h2 + e];
+            v = (p < p1 && p <= lim[h2]) ? v : -INFINITY;
+            mx = fmaxf(mx, v);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mn = fmaxf(m[h2], mx);
+        const float mb = mn == -INFINITY ? 0.f : mn;
+        const float alpha = expf(m[h2] - mb);
+        float add = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < TP / 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = sc[nb][2 * h2 + e];
+            v = expf(v - mb);
+            add += v;
+          }
+        ls[h2] = ls[h2] * alpha + add;
+        m[h2] = mn;
+#pragma unroll
+        for (int n = 0; n < 16; ++n) {
+          acc[n][2 * h2] *= alpha;
+          acc[n][2 * h2 + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < TP / 16; ++t) {
+        // P as hi and lo halves of the mma type, two products into the sums
+        uint32_t pa[4], pl[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* v = sc[2 * t + (e >> 1)] + 2 * (e & 1);
+          pa[e] = pack2<MT>(v[0], v[1]);
+          const MT* hv = reinterpret_cast<const MT*>(&pa[e]);
+          pl[e] = pack2<MT>(v[0] - to_f32<MT>(hv[0]), v[1] - to_f32<MT>(hv[1]));
+        }
+#pragma unroll
+        for (int n = 0; n < 16; n += 2) {
+          // matrices: positions 16t.. / 16t + 8.., channels 8n.. / 8n + 8..
+          const int pr = 16 * t + 8 * ((lane >> 3) & 1) + (lane & 7), ch = n + (lane >> 4);
+          uint32_t b[4];
+          hop::ldsm_x4_trans(b, swz_row(vb, pr, ch));
+          mma_16816<MT>(acc[n], pa, b[0], b[1]);
+          mma_16816<MT>(acc[n], pl, b[0], b[1]);
+          mma_16816<MT>(acc[n + 1], pa, b[2], b[3]);
+          mma_16816<MT>(acc[n + 1], pl, b[2], b[3]);
+        }
+      }
+    }
+    if (busy) {
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        float lt = ls[h2];
+        lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+        const int qr = q0 + gq + 8 * h2;
+        if (qr >= R) continue;
+        const size_t row = ((size_t)kvh * a.nsplit + sp) * R + qr;
+        if (tq == 0) { pml[row * 2] = m[h2]; pml[row * 2 + 1] = lt; }
+#pragma unroll
+        for (int n = 0; n < 16; ++n)
+          *reinterpret_cast<float2*>(pacc + row * MK_HD + 8 * n + 2 * tq) =
+              make_float2(acc[n][2 * h2], acc[n][2 * h2 + 1]);
+      }
+    }
+  }
+  hop::cp_async_wait_all();
+}
+
 // ---- the kernel -------------------------------------------------------------
 
 template <typename CT, bool PAGED>
@@ -1102,9 +1648,14 @@ __global__ void __launch_bounds__(K6_THREADS, 1) batched_kernel(const __grid_con
       hop::mbar_init(&s.empty[i], K6_WARPS);   // every consumer warp, busy or not
     }
     hop::mbar_init(s.rowbar, 1);               // thread 0's arrival with the rows' bytes
+    if (CHUNK) {
+      hop::mbar_init(s.mready, a.cl);          // one arrival a rank a merge
+      hop::mbar_init(s.mfree, a.cl);
+    }
     hop::mbar_fence_init();
   }
   __syncthreads();
+  if (CHUNK && a.cl > 1) hop::cluster_sync();  // every rank's merge barriers are set up
   // the workspace (ops/megakernel_batched.py sizes it from batched_ws)
   Out o;
   o.hres = a.ws;                                      // [B][H] f32 residual
@@ -1117,8 +1668,13 @@ __global__ void __launch_bounds__(K6_THREADS, 1) batched_kernel(const __grid_con
   o.xw = reinterpret_cast<bf16*>(tail);               // [B][H] bf16 attention rows
   o.hm = o.xw + (size_t)B * H;                        // [B][I] bf16
   o.ssp = tail + ((size_t)B * (H + I) + 7) / 2 / 4 * 4;   // [grid][64]
-  float* part = o.ssp + (size_t)gridDim.x * MAXB;     // [B][pld] window partial sums
   const int pld = max(max(oq, H), 2 * I);
+  // [B][pld] window partial sums (K5: one buffer a rank of a cluster)
+  float* part = o.ssp + (size_t)gridDim.x * MAXB
+                + (CHUNK ? (size_t)(blockIdx.x % a.cl) * B * pld : 0);
+  int r0 = 0, r1 = B;                                 // the rows this block finishes
+  if (CHUNK) rank_rows(B, a.cl, blockIdx.x % a.cl, r0, r1);
+  int nmerge = 0;                                     // K5's cluster merges so far
   o.logits = a.logits;
   CT* cache = static_cast<CT*>(a.cache);
   int seq = 0;                                        // stages so far, as the producer's idx
@@ -1139,7 +1695,7 @@ __global__ void __launch_bounds__(K6_THREADS, 1) batched_kernel(const __grid_con
         v += x * x;
       }
       v = warp_sum(v);
-      if (lane == 0) o.ssp[blockIdx.x * MAXB + r] = v;
+      if (lane == 0) o.ssp[ssp_at(r, blockIdx.x)] = v;
     }
   } else {
     pump(p, a, s, SLOTS);
@@ -1150,21 +1706,29 @@ __global__ void __launch_bounds__(K6_THREADS, 1) batched_kernel(const __grid_con
     // ---- QKV: rmsnorm(h)·ln1 staged a window at a time; bf16, + bias, bf16
     {
       const PD d = phase_desc(a, 0, l);
-      if (!producer && d.nt) mm_phase(a, s, d, 0, l, seq, o, part, pld, nbulk);
+      if (!producer && d.nt) mm_phase(a, s, d, 0, l, seq, o, part, pld, nbulk, nmerge);
       seq += phase_stages(d);
       if (producer) pump(p, a, s, seq + SLOTS);
     }
     grid.sync();
-    // ---- attention slices: items (row, kv head, position slice)
-    if (!producer) attention<CT, PAGED>(a, s, l, o.qkv, cache);
+    // ---- attention slices: items (row, kv head, position slice); K5: (kv
+    // head, query rows, position slice)
+    if (!producer) {
+      if constexpr (CHUNK) attention_chunk<CT>(a, s, l, o.qkv, cache);
+      else attention<CT, PAGED>(a, s, l, o.qkv, cache);
+    }
     grid.sync();
     // ---- combine the slices -> bf16 attention rows: a warp per (row, head)
     if (!producer) {
       for (int it = blockIdx.x + warp * gridDim.x; it < B * nq; it += gridDim.x * K6_WARPS) {
         const int b = it / nq, hq = it % nq;
-        const size_t row0 = ((size_t)(b * nkv + hq / grp) * a.nsplit) * grp + hq % grp;
+        // K6: a slice's rows are the group's heads of (row, kv head); K5:
+        // the kv head's packed (window row, head) rows
+        const size_t row0 = CHUNK
+            ? (size_t)(hq / grp) * a.nsplit * B * grp + (size_t)b * grp + hq % grp
+            : ((size_t)(b * nkv + hq / grp) * a.nsplit) * grp + hq % grp;
         float ac[4];
-        combine_row(pml, pacc, row0, grp, a.nsplit, ac);
+        combine_row(pml, pacc, row0, CHUNK ? B * grp : grp, a.nsplit, ac);
         // in the staged pair layout that o-proj's bulk staging copies
         uint32_t* xr = reinterpret_cast<uint32_t*>(o.xw + (size_t)b * H);
         const int c = hq * MK_HD + lane * 4;
@@ -1178,9 +1742,9 @@ __global__ void __launch_bounds__(K6_THREADS, 1) batched_kernel(const __grid_con
     {
       const PD d = phase_desc(a, 1, l);
       if (!producer) {
-        if (d.nt) mm_phase(a, s, d, 1, l, seq, o, part, pld, nbulk);
+        if (d.nt) mm_phase(a, s, d, 1, l, seq, o, part, pld, nbulk, nmerge);
         hop::bar_sync(CB, 32 * K6_WARPS);
-        row_squares(o.h1, H, B, 16 * d.t0, 16 * (d.t0 + d.nt), o.ssp);
+        row_squares(o.h1, H, B, 16 * d.t0, 16 * (d.t0 + d.nt), o.ssp, r0, r1);
       }
       seq += phase_stages(d);
       if (producer) pump(p, a, s, seq + SLOTS);
@@ -1189,7 +1753,7 @@ __global__ void __launch_bounds__(K6_THREADS, 1) batched_kernel(const __grid_con
     // ---- gate/up: rmsnorm(h1)·ln2 staged; hm = bf16(silu(bf16 gate)·bf16 up)
     {
       const PD d = phase_desc(a, 2, l);
-      if (!producer && d.nt) mm_phase(a, s, d, 2, l, seq, o, part, pld, nbulk);
+      if (!producer && d.nt) mm_phase(a, s, d, 2, l, seq, o, part, pld, nbulk, nmerge);
       seq += phase_stages(d);
       if (producer) pump(p, a, s, seq + SLOTS);
     }
@@ -1198,9 +1762,9 @@ __global__ void __launch_bounds__(K6_THREADS, 1) batched_kernel(const __grid_con
     {
       const PD d = phase_desc(a, 3, l);
       if (!producer) {
-        if (d.nt) mm_phase(a, s, d, 3, l, seq, o, part, pld, nbulk);
+        if (d.nt) mm_phase(a, s, d, 3, l, seq, o, part, pld, nbulk, nmerge);
         hop::bar_sync(CB, 32 * K6_WARPS);
-        row_squares(o.hres, H, B, 16 * d.t0, 16 * (d.t0 + d.nt), o.ssp);
+        row_squares(o.hres, H, B, 16 * d.t0, 16 * (d.t0 + d.nt), o.ssp, r0, r1);
       }
       seq += phase_stages(d);
       if (producer) pump(p, a, s, seq + SLOTS);
@@ -1212,9 +1776,11 @@ __global__ void __launch_bounds__(K6_THREADS, 1) batched_kernel(const __grid_con
   if (a.vocab) {
     // ---- head: the final rmsnorm staged, the W3/W4 head into f32 logits
     const PD d = phase_desc(a, 4, 0);
-    if (!producer && d.nt) mm_phase(a, s, d, 4, 0, seq, o, part, pld, nbulk);
+    if (!producer && d.nt) mm_phase(a, s, d, 4, 0, seq, o, part, pld, nbulk, nmerge);
     if (producer) pump(p, a, s, 1 << 30);
   }
+  // K5: no rank leaves while another may still reach its shared memory
+  if (CHUNK && a.cl > 1) hop::cluster_sync();
 }
 
 enum { P_H, P_OUT, P_QW, P_QS, P_QZ, P_QB, P_OW, P_OS, P_OZ, P_GW, P_GS, P_GZ,
@@ -1223,29 +1789,39 @@ enum { P_H, P_OUT, P_QW, P_QS, P_QZ, P_QB, P_OW, P_OS, P_OZ, P_GW, P_GS, P_GZ,
 // paged mode: N_T is MP·page, N_NP the pool's pages (0: the slot cache);
 // N_GRID .. N_WC: the host plan's grid, shared bytes, ring slots and window;
 // N_PP: each matmul phase's wave, warps a tile and windows (qkv, o-proj,
-// gate/up, down, head)
+// gate/up, down, head); N_OFF: the byte offsets of the shared-memory
+// regions (O_BARS ..); N_CL: blocks a cluster (K6: 1); K5 (chunk mode):
+// N_HIST, the window's first position, and the attention's slices
+// (ops/megakernel_batched.py::chunk_slices; K6 sizes its own from N_MAXLEN)
 enum { N_B, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_MAXLEN, N_VOCAB, N_MD, N_CD, N_BIAS,
-       N_NP, N_PAGE, N_MP, N_W3, N_GRID, N_SMEM, N_SLOTS, N_WC, N_PP };
+       N_NP, N_PAGE, N_MP, N_W3, N_GRID, N_SMEM, N_SLOTS, N_WC, N_PP,
+       N_OFF = N_PP + 3 * NPH, N_CL = N_OFF + NREG, N_HIST, N_NSPLIT, N_SPLIT, N_INTS };
 
 struct Plan {
-  int grid, nsplit, split_len, wc, rh, bp, smem;
+  int grid, nsplit, split_len, wc, rh, bp, smem, cl;
+  int off[NREG];
   PhasePlan pp[NPH];
   long long ws;
 };
 
-// The current card's SM count, after checking once per card that it takes
-// cooperative launches and that a block of K6_THREADS threads with the most
-// shared memory fits an SM (the attribute is set to SMEM_MAX, so that no
-// plan's bytes need another call).
+// The grid the current card runs at once in clusters of `cl` blocks (1:
+// one block an SM) of K6_THREADS threads with the most shared memory,
+// after checking once per card and cluster size that it takes cooperative
+// launches (the attribute is set to SMEM_MAX, so that no plan's bytes need
+// another call). A cooperative launch with a cluster dimension runs and
+// grid.sync()s on an H100 (the smoke's cluster probe, PERF.md §6); clusters
+// of 4 or 8 leave SMs of a partly filled GPC idle.
 template <typename CT, bool PAGED>
-int card_sms(int* sms) {
+int card_grid(int cl, int* grid) {
   constexpr int CARDS = 64;
-  static int cached[CARDS], errs[CARDS];
+  static int cached[CARDS][4], errs[CARDS][4];
+  const int ci = cl == 1 ? 0 : cl == 2 ? 1 : cl == 4 ? 2 : cl == 8 ? 3 : -1;
+  if (ci < 0) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (dev >= CARDS) return static_cast<int>(cudaErrorInvalidDevice);
-  if (!cached[dev]) {
+  if (!cached[dev][ci]) {
     int coop = 0, occ = 0, n = 0;
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
@@ -1255,22 +1831,34 @@ int card_sms(int* sms) {
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, batched_kernel<CT, PAGED>,
                                                         K6_THREADS, SMEM_MAX);
+    if (e == cudaSuccess && cl > 1) {
+      cudaLaunchConfig_t cfg = {};
+      cudaLaunchAttribute at[1];
+      at[0].id = cudaLaunchAttributeClusterDimension;
+      at[0].val.clusterDim.x = cl; at[0].val.clusterDim.y = 1; at[0].val.clusterDim.z = 1;
+      cfg.gridDim = dim3(cl); cfg.blockDim = dim3(K6_THREADS); cfg.dynamicSmemBytes = SMEM_MAX;
+      cfg.attrs = at; cfg.numAttrs = 1;
+      int ncl = 0;
+      e = cudaOccupancyMaxActiveClusters(&ncl, batched_kernel<CT, PAGED>, &cfg);
+      n = ncl * cl;
+    }
     if (e != cudaSuccess) return static_cast<int>(e);
-    errs[dev] = !coop ? static_cast<int>(cudaErrorNotSupported)
-                : occ < 1 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
-    cached[dev] = n;
+    errs[dev][ci] = !coop ? static_cast<int>(cudaErrorNotSupported)
+                    : occ < 1 || n < 1 ? static_cast<int>(cudaErrorInvalidConfiguration) : 0;
+    cached[dev][ci] = n;
   }
-  *sms = cached[dev];
-  return errs[dev];
+  *grid = cached[dev][ci];
+  return errs[dev][ci];
 }
 
 // The host plan (ops/megakernel_batched.py::batched_plan) as the kernel
-// runs it: the grid (one block an SM), the window of chunks and the shared
-// bytes of its layout, the ring's slots, and each matmul phase's wave,
-// warps a tile and windows, taken from the ints and refused where they do
-// not fit this build (a layout of other bytes, too many warps, a window
-// larger than the rows' room, a TMA box over 256). The attention's slices
-// come from max_length here.
+// runs it: the grid (one block an SM; K5: whole clusters), the window of
+// chunks, the shared bytes and the offsets of its regions, the ring's
+// slots, and each matmul phase's wave, warps a tile and windows, taken
+// from the ints and refused where they do not fit this build (a region
+// misaligned or too small for what this build puts there, too many warps,
+// a TMA box over 256, a grid the card does not run at once). K6's
+// attention slices come from max_length here, K5's from the ints.
 template <typename CT, bool PAGED>
 int plan_for(const int* n, Plan* p) {
   const int B = n[N_B], H = n[N_H], I = n[N_I], nq = n[N_NQ], nkv = n[N_NKV];
@@ -1279,40 +1867,53 @@ int plan_for(const int* n, Plan* p) {
   p->bp = (B + 7) / 8 * 8;
   p->rh = (B + WARP_ROWS - 1) / WARP_ROWS;
   p->wc = n[N_WC];
-  int u, xs, ro;
-  if (p->wc < 1 || n[N_SLOTS] != SLOTS) return static_cast<int>(bad);
-  p->smem = smem_layout(p->bp, p->wc, &u, &xs, &ro);
-  if (p->smem != n[N_SMEM] || p->smem > SMEM_MAX) return static_cast<int>(bad);
-  int sms = 0;
-  const int err = card_sms<CT, PAGED>(&sms);
+  p->smem = n[N_SMEM];
+  p->cl = n[N_CL];
+  for (int i = 0; i < NREG; ++i) p->off[i] = n[N_OFF + i];
+  if (p->wc < 1 || n[N_SLOTS] != SLOTS || !layout_fits(p->off, p->smem, p->bp, p->wc)
+      || (CHUNK ? p->cl < 1 : p->cl != 1))
+    return static_cast<int>(bad);
+  int grid = 0;
+  const int err = card_grid<CT, PAGED>(p->cl, &grid);
   if (err) return err;
-  if (n[N_GRID] != sms) return static_cast<int>(bad);      // one block an SM
-  p->grid = sms;
+  if (n[N_GRID] != grid) return static_cast<int>(bad);      // the grid the card runs at once
+  p->grid = grid;
   const int G = p->grid;
   const int oq = (nq + 2 * nkv) * MK_HD;
   const int ics[NPH] = {H, H, H, I, H};
   for (int ph = 0; ph < NPH; ++ph) {
     PhasePlan& q = p->pp[ph];
     q.wave = n[N_PP + 3 * ph]; q.k = n[N_PP + 3 * ph + 1]; q.nw = n[N_PP + 3 * ph + 2];
-    const int u2 = ph == 2 ? 2 : 1, nch = ics[ph] / KC;
+    const int u2 = ph == 2 ? 2 : 1, nch = ics[ph] / KC, nchq = (nch + p->cl - 1) / p->cl;
     if (ph == 4 && !n[N_VOCAB]) continue;
     if (q.wave < u2 || q.wave % u2 || q.k < 1 || q.wave * q.k * p->rh > K6_WARPS
-        || 16 * q.wave / u2 > 256 || q.k * SROWS > 256 || q.nw < 1 || q.nw > nch
-        || (nch + q.nw - 1) / q.nw > p->wc)
+        || 16 * q.wave / u2 > 256 || q.k * SROWS > 256 || q.nw < 1 || q.nw > nchq
+        || nch < p->cl || (nchq + q.nw - 1) / q.nw > p->wc)
       return static_cast<int>(bad);
   }
-  // attention items: about one per block, at least 32 positions each
-  const int npos = n[N_MAXLEN] + 1;
-  int ns = G / (B * nkv);
-  ns = ns < 1 ? 1 : ns;
-  const int most = (npos + 31) / 32;
-  ns = ns > most ? most : ns;
-  p->split_len = (npos + ns - 1) / ns;
-  p->nsplit = (npos + p->split_len - 1) / p->split_len;
+  if (CHUNK) {
+    // K5's items: the host's slices must cover [0, hist + S) with none empty
+    const int npos = n[N_HIST] + B;
+    p->nsplit = n[N_NSPLIT];
+    p->split_len = n[N_SPLIT];
+    if (p->nsplit < 1 || p->split_len < 1 || (long long)(p->nsplit - 1) * p->split_len >= npos
+        || (long long)p->nsplit * p->split_len < npos)
+      return static_cast<int>(bad);
+  } else {
+    // attention items: about one per block, at least 32 positions each
+    const int npos = n[N_MAXLEN] + 1;
+    int ns = G / (B * nkv);
+    ns = ns < 1 ? 1 : ns;
+    const int most = (npos + 31) / 32;
+    ns = ns > most ? most : ns;
+    p->split_len = (npos + ns - 1) / ns;
+    p->nsplit = (npos + p->split_len - 1) / p->split_len;
+  }
   const long long nrows = (long long)B * nq * p->nsplit;
   const long long pld = oq > H ? (oq > 2 * I ? oq : 2 * I) : (H > 2 * I ? H : 2 * I);
   p->ws = 2LL * B * H + (long long)B * oq + ((nrows * 2 + 3) & ~3LL) + nrows * MK_HD
-          + ((long long)B * (H + I) + 7) / 2 / 4 * 4 + (long long)G * MAXB + B * pld;
+          + ((long long)B * (H + I) + 7) / 2 / 4 * 4 + (long long)G * MAXB
+          + (long long)p->cl * B * pld;
   return 0;
 }
 
@@ -1364,6 +1965,10 @@ int batched_launch(const void* const* ptrs, const int* n, float eps, void* ws,
   if (n[N_B] < 1 || n[N_B] > MAXB || n[N_NQ] % n[N_NKV] || n[N_NQ] / n[N_NKV] > MK_MAXG
       || n[N_MAXLEN] < 0 || n[N_MAXLEN] >= n[N_T] || n[N_W3] != UNIT_W3 || n[N_VOCAB] % 16)
     return static_cast<int>(cudaErrorInvalidValue);
+  // K5: 1..32 window rows at [hist, hist + S) inside the cache, no head, no pages
+  if (CHUNK && (n[N_B] > 32 || n[N_HIST] < 0 || n[N_HIST] + n[N_B] > n[N_T] || n[N_VOCAB]
+                || n[N_NP] || n[N_CD] == 3))
+    return static_cast<int>(cudaErrorInvalidValue);
   BatchArgs a;
   a.h_in = ptrs[P_H]; a.h_out = const_cast<void*>(ptrs[P_OUT]);
   a.qkv_w = static_cast<const int32_t*>(ptrs[P_QW]);
@@ -1397,6 +2002,9 @@ int batched_launch(const void* const* ptrs, const int* n, float eps, void* ws,
   a.nsplit = p.nsplit; a.split_len = p.split_len; a.eps = eps;
   a.wc = p.wc; a.rh = p.rh; a.bp = p.bp;
   for (int ph = 0; ph < NPH; ++ph) a.pp[ph] = p.pp[ph];
+  for (int i = 0; i < NREG; ++i) a.off[i] = p.off[i];
+  a.cl = p.cl;
+  a.hist = CHUNK ? n[N_HIST] : 0;
   // the TMA maps of each phase's codes, scales and szeros, [planes, rows,
   // OC] (the head: one plane), boxes of a round: pw columns, k chunks
   const int H = a.H, I = a.I, oq = (a.nq + 2 * a.nkv) * MK_HD;
@@ -1418,23 +2026,49 @@ int batched_launch(const void* const* ptrs, const int* n, float eps, void* ws,
                     ics[ph] / MK_G, planes, pw, k * SGROUPS);
     if (err) return err;
   }
-  void* kargs[] = {&a};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = cudaLaunchCooperativeKernel((const void*)batched_kernel<CT, PAGED>,
-                                                    p.grid, K6_THREADS, kargs, p.smem, st);
+  cudaError_t e;
+  if (p.cl > 1) {
+    // K5's clusters: a cooperative launch with a cluster dimension
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute at[2];
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = p.cl; at[0].val.clusterDim.y = 1; at[0].val.clusterDim.z = 1;
+    at[1].id = cudaLaunchAttributeCooperative;
+    at[1].val.cooperative = 1;
+    cfg.gridDim = dim3(p.grid); cfg.blockDim = dim3(K6_THREADS); cfg.dynamicSmemBytes = p.smem;
+    cfg.stream = st; cfg.attrs = at; cfg.numAttrs = 2;
+    e = cudaLaunchKernelEx(&cfg, batched_kernel<CT, PAGED>, a);
+  } else {
+    void* kargs[] = {&a};
+    e = cudaLaunchCooperativeKernel((const void*)batched_kernel<CT, PAGED>, p.grid, K6_THREADS,
+                                    kargs, p.smem, st);
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+#if AWQ_MEGA_CHUNK
+#define AWQ_ENTRY(name) awq_mega_chunk##name
+#else
+#define AWQ_ENTRY(name) awq_mega_batched##name
+#endif
+
 // Workspace floats the launch with these arguments needs, or -(CUDA error).
-extern "C" long long awq_mega_batched_ws(const void* const* ptrs, const int* n) {
+extern "C" long long AWQ_ENTRY(_ws)(const void* const* ptrs, const int* n) {
   (void)ptrs;
   return batched_ws<AWQ_MEGA_CT, AWQ_MEGA_PAGED != 0>(n);
 }
 
-extern "C" int awq_mega_batched(const void* const* ptrs, const int* n, float eps, void* ws,
-                                void* stream) {
+extern "C" int AWQ_ENTRY()(const void* const* ptrs, const int* n, float eps, void* ws,
+                           void* stream) {
   return batched_launch<AWQ_MEGA_CT, AWQ_MEGA_PAGED != 0>(ptrs, n, eps, ws, stream);
+}
+
+// The grid the card runs at once in clusters of `cl` blocks, into *grid
+// (the host plan's N_GRID); returns a cudaError_t code.
+extern "C" int AWQ_ENTRY(_grid)(int cl, int* grid) {
+  return card_grid<AWQ_MEGA_CT, AWQ_MEGA_PAGED != 0>(cl, grid);
 }

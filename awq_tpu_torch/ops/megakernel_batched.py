@@ -75,7 +75,8 @@ _INSTANCE = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16",
 
 MIN_B, MAX_B = 2, 64      # rows per launch (one row is K4's case)
 
-# ---- K6's schedule: the kernel runs this plan (_plan_ints), and plan_for in
+# ---- K6's schedule (and K5's, the chunk mode of the same body): the kernel
+# runs this plan (_plan_ints, _layout_ints), and plan_for in
 # csrc/megakernel_batched.cu refuses one that does not fit its build ----
 WARPS = 8                 # consumer warps a block; one producer warp more
 THREADS = 32 * (WARPS + 1)
@@ -87,6 +88,17 @@ RS_BYTES = 64 * 4                           # each row's rmsnorm factor
 KV_RING_BYTES = 8448      # a warp's ring of k/v rows in the attention
 ATT_BYTES = (4 * (8 * 128 + 2 * 128 + 2 * WARPS * 8 + WARPS * 8 * 128 + WARPS)
              + WARPS * KV_RING_BYTES)
+# K5 (chunk mode): window rows, a block's sums of a wave that its cluster
+# reads, and the attention's q (hi and lo, 128 rows), the window's k (hi and
+# lo) and v (32 rows each) and its K (hi and lo) and V tiles of TP positions
+# in two stages, 16-bit elements
+CHUNK_ROWS = 32
+TOT_BYTES = WARPS * 16 * WARP_ROWS * 4
+TP = 32
+CHUNK_ATT_BYTES = (2 * 128 + 3 * 32 + 2 * 3 * TP) * 128 * 2
+#: The regions of a block's shared memory, in the order _layout_ints gives
+#: their byte offsets (the ring starts at the first 128-byte boundary).
+REGIONS = ("bars", "red", "rs", "xsum", "rows", "att", "tot")
 
 
 def chunk_channels(w3: bool) -> int:
@@ -104,45 +116,99 @@ def stage_bytes(w3: bool) -> int:
     return WARPS * (rows + 2 * groups) * 16 * 4 + 1024
 
 
-def _smem(b: int, w3: bool, wc: int):
-    """Shared bytes of a block with windows of ``wc`` chunks: the ring and
-    its mbarriers, then the partial sums, the norm factors, the window's
-    group sums and rows (bf16 pairs, 16 bytes of padding a row); the
-    attention reuses the region after the barriers."""
+def smem_layout(b: int, w3: bool, wc: int, chunk: bool = False) -> dict:
+    """The shared memory of a block with ``b`` rows and windows of ``wc``
+    chunks, the one source of its layout (the kernel carves from these
+    offsets and checks their alignment and room, and that the regions at an
+    offset its build fixes, up to the norm factors, lie there): the ring
+    (after up to 128 bytes of alignment) and its mbarriers (full and empty a slot,
+    the rows' bulk copies; K5 two more, its cluster merge), then the warps'
+    partial sums, the norm factors, the window's group sums and rows (bf16
+    pairs, 16 bytes of padding a row) and, in K5, the sums its cluster
+    reads. The attention reuses the region from the partial sums on."""
     bp = -(-b // 8) * 8
-    slots = RING_BYTES // stage_bytes(w3)
-    u_off = -(-(128 + slots * stage_bytes(w3) + 16 * slots + 8) // 128) * 128
+    sb = stage_bytes(w3)
+    slots = RING_BYTES // sb
     kc = chunk_channels(w3)
-    xs_off = u_off + RED_BYTES + RS_BYTES
-    rows_off = -(-(xs_off + bp * (wc * kc // 128) * 4) // 16) * 16
-    end = rows_off + bp * (wc * kc // 2 + 8) * 4
-    return max(end, u_off + ATT_BYTES), slots
+    bars = 128 + slots * sb
+    red = -(-(bars + 8 * (2 * slots + 1 + 2 * int(chunk))) // 128) * 128
+    rs = red + RED_BYTES
+    xsum = rs + RS_BYTES
+    rows = -(-(xsum + bp * (wc * kc // 128) * 4) // 16) * 16
+    end = rows + bp * (wc * kc // 2 + 8) * 4
+    tot = end if chunk else 0
+    end += TOT_BYTES if chunk else 0
+    att = CHUNK_ATT_BYTES if chunk else ATT_BYTES
+    return dict(bars=bars, red=red, rs=rs, xsum=xsum, rows=rows, att=red, tot=tot,
+                smem=max(end, red + att), slots=slots)
+
+
+def _smem(b: int, w3: bool, wc: int):
+    """K6's shared bytes and ring slots for windows of ``wc`` chunks."""
+    lay = smem_layout(b, w3, wc)
+    return lay["smem"], lay["slots"]
+
+
+WAVE_ROUNDS = 6           # K5: what a wave's end (its cluster merge) costs, in ring rounds
+
+
+def _chunk_wave(tmax: int, u: int, rh: int, nchq: int, nw: int):
+    """K5's wave and warps a tile: the least time over a block's tiles, a
+    wave's rounds (each busy warp a chunk a round) and its cluster merge
+    (``WAVE_ROUNDS``) times the waves, the larger wave on a tie; no wave
+    holds more tiles than a block has, so no box reads past them."""
+    best = None
+    for wave in range(u, min(WARPS // rh, tmax) + 1, u):
+        k = WARPS // rh // wave
+        per = -(-nchq // nw)
+        cost = -(-tmax // wave) * (nw * -(-per // k) + WAVE_ROUNDS)
+        if best is None or cost <= best[0]:
+            best = (cost, wave, k)
+    return best[1], best[2]
 
 
 def batched_plan(b: int, H: int, inter: int, nq: int, nkv: int, vocab: int, w3: bool,
-                 grid: int) -> dict:
+                 grid: int, cluster: int = 0) -> dict:
     """K6's schedule for ``b`` rows on a cooperative grid of ``grid`` blocks
     (one an SM): the shared bytes and ring slots of a block, the window of
     input channels whose rows a block stages at once, and for each matmul
     phase its tile units (16 output columns; gate/up's unit a pair of gate
     and up blocks), which units each block takes, how many tiles a wave
     holds, how many warps split a tile's chunks and the windows over IC.
-    The wrapper hands the kernel this plan (``_plan_ints``); the C side
-    (``plan_for``) refuses one whose shared bytes differ from its own
-    layout's, or that needs more warps, a larger window or a larger TMA box
-    than its build has."""
-    if not MIN_B <= b <= MAX_B:
-        raise ValueError(f"{b} rows; the kernel takes {MIN_B}..{MAX_B}")
+    The wrapper hands the kernel this plan (``_plan_ints``) and the layout's
+    region offsets (``_layout_ints``); the C side (``plan_for``) refuses a
+    region misaligned or too small for what its build puts there, more warps
+    than a block has, a window larger than the rows' room or a TMA box over
+    256.
+
+    ``cluster`` > 0 is K5's plan (the chunk mode, ``vocab`` 0, 1..32 rows):
+    the grid is ``grid / cluster`` thread-block clusters; a phase's units go
+    to clusters in equal runs, each block of a cluster (its rank) takes the
+    same units over its own run of IC's chunks (``ranks``), and the ranks'
+    sums meet in rank order at each wave's end. The wave and warps a tile
+    are those of the least time (``_chunk_wave``)."""
+    chunk = cluster > 0
+    lo, hi = (1, CHUNK_ROWS) if chunk else (MIN_B, MAX_B)
+    if not lo <= b <= hi:
+        raise ValueError(f"{b} rows; the kernel takes {lo}..{hi}")
+    if chunk and vocab:
+        raise ValueError("K5 has no head")
+    C = max(cluster, 1)
+    if grid < C or grid % C:
+        raise ValueError(f"a grid of {grid} blocks is not whole clusters of {C}")
+    ncl = grid // C
     kc = chunk_channels(w3)
-    most = max(H, inter) // kc
+    if chunk and C > min(H, inter) // kc:
+        raise ValueError(f"clusters of {C} split IC finer than its {min(H, inter) // kc} chunks")
+    most = -(-max(H, inter) // kc // C)
     wc = 0
     for c in range(most, 0, -1):
-        if _smem(b, w3, c)[0] <= SMEM_MAX:
+        if smem_layout(b, w3, c, chunk)["smem"] <= SMEM_MAX:
             wc = c
             break
     if not wc:
         raise ValueError(f"{b} rows do not fit a block's shared memory")
-    smem, slots = _smem(b, w3, wc)
+    lay = smem_layout(b, w3, wc, chunk)
     rh = -(-b // WARP_ROWS)
     oq = (nq + 2 * nkv) * 128
     phases = {}
@@ -151,18 +217,33 @@ def batched_plan(b: int, H: int, inter: int, nq: int, nkv: int, vocab: int, w3: 
         if not oc:
             continue
         units = oc // 16 // u
-        per = [(g * units // grid, (g + 1) * units // grid) for g in range(grid)]
-        tmax = -(-units // grid) * u
-        wave = min(WARPS // rh, tmax)
-        wave -= wave % u
+        per = [(g * units // ncl, (g + 1) * units // ncl) for g in range(ncl)]
+        tmax = -(-units // ncl) * u
         nch = ic // kc
-        nw = -(-nch // wc)
+        ranks = [(q * nch // C, (q + 1) * nch // C) for q in range(C)]
+        nchq = max(c1 - c0 for c0, c1 in ranks)
+        nw = -(-nchq // wc)
+        if chunk:
+            wave, k = _chunk_wave(tmax, u, rh, nchq, nw)
+        else:
+            wave = min(WARPS // rh, tmax)
+            wave -= wave % u
+            k = WARPS // rh // wave
         phases[name] = dict(ic=ic, oc=oc, unit=u, units=units, blocks=per, wave=wave,
-                            k=WARPS // rh // wave, nch=nch, windows=nw,
-                            window_chunks=[(w * nch // nw, (w + 1) * nch // nw)
+                            k=k, nch=nch, windows=nw, ranks=ranks,
+                            window_chunks=[(w * nchq // nw, (w + 1) * nchq // nw)
                                            for w in range(nw)])
-    return dict(grid=grid, threads=THREADS, smem=smem, slots=slots, window=wc,
-                chunk=kc, stage_bytes=stage_bytes(w3), row_halves=rh, phases=phases)
+    return dict(grid=grid, threads=THREADS, smem=lay["smem"], slots=lay["slots"], window=wc,
+                chunk=kc, stage_bytes=stage_bytes(w3), row_halves=rh, phases=phases,
+                cluster=C, layout=lay)
+
+
+def rank_windows(ph: dict, q: int) -> list:
+    """The windows of rank ``q`` over a phase's chunks, as absolute chunk
+    ranges: rank q's run of chunks cut as the kernel cuts it."""
+    c0, c1 = ph["ranks"][q]
+    n, nw = c1 - c0, ph["windows"]
+    return [(c0 + w * n // nw, c0 + (w + 1) * n // nw) for w in range(nw)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -173,11 +254,44 @@ def _plan_ints(b, H, inter, nq, nkv, vocab, w3, grid) -> tuple:
     an absent head). The C side runs this plan and refuses one that does
     not fit its build."""
     plan = batched_plan(b, H, inter, nq, nkv, vocab, w3, grid)
+    return _phase_ints(plan)
+
+
+def _phase_ints(plan) -> tuple:
     pp = []
     for name in ("qkv", "o", "gateup", "down", "head"):
         ph = plan["phases"].get(name)
         pp += [ph["wave"], ph["k"], ph["windows"]] if ph else [0, 0, 0]
     return (plan["grid"], plan["smem"], plan["slots"], plan["window"], *pp)
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_ints(b, w3, wc, chunk=False) -> tuple:
+    """The byte offsets of the shared-memory regions (``REGIONS``) that the
+    kernel carves, from ``smem_layout``."""
+    lay = smem_layout(b, w3, wc, chunk)
+    return tuple(lay[r] for r in REGIONS)
+
+
+def chunk_slices(s: int, hist: int, nq: int, nkv: int, grid: int):
+    """K5's attention items over the window's positions ``[0, hist + s)``:
+    ``(row blocks, slices, slice length)``. An item is a kv head's block of
+    up to 128 packed (window row, head) query rows over a slice, about one
+    item a block, each slice whole tiles of ``TP`` positions."""
+    npos = hist + s
+    nrb = -(-(s * (nq // nkv)) // 128)
+    ns = max(1, grid // (nkv * nrb))
+    ns = min(ns, -(-npos // TP))
+    split = -(-(-(-npos // ns)) // TP) * TP
+    return nrb, -(-npos // split), split
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_plan_ints(s, H, inter, nq, nkv, w3, grid, cluster) -> tuple:
+    """K5's plan as the kernel takes it, once per shape: ``_plan_ints``'s
+    fields, the region offsets and the cluster size."""
+    plan = batched_plan(s, H, inter, nq, nkv, 0, w3, grid, cluster=cluster)
+    return (*_phase_ints(plan), *_layout_ints(s, w3, plan["window"], True), plan["cluster"])
 
 
 @functools.lru_cache(maxsize=None)
@@ -398,9 +512,11 @@ def w4a16_llama_token_step_batched(
             + head + [logits.data_ptr() if logits is not None else 0]
             + [tables.data_ptr() if paged else 0,
                scales.data_ptr() if scales is not None else 0])
+    plan = _plan_ints(b, H, inter, nq, nkv, vocab, w3, _sm_count(dev))
+    # the plan, the region offsets, then K5's cluster, hist and slices (K6: 1, 0, 0, 0)
     ints = [b, L, H, inter, nq, nkv, T, max_length, vocab, _DTYPE_CODE[h.dtype],
             _CACHE_CODE[cache.dtype], int(bias is not None)] + page_ints + [
-                int(w3), *_plan_ints(b, H, inter, nq, nkv, vocab, w3, _sm_count(dev))]
+                int(w3), *plan, *_layout_ints(b, w3, plan[3]), 1, 0, 0, 0]
     unit = ("megakernel_batched_" + ("paged" if paged else _INSTANCE[cache.dtype])
             + ("_w3" if w3 else ""))
     launch("awq_mega_batched", unit, ptrs, ints, eps, dev)

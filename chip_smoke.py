@@ -517,6 +517,11 @@ def phase_kernels(torch, timer, cases_out):
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         library="one indexed assignment (index_put_) of the permuted k/v"))
     log_case(cases_out[-1])
+    # what a launch costs at all: an empty kernel (torch.cuda._sleep(0))
+    # timed as K7 is, with CUDA events around it
+    empty_ms = timer(lambda: torch.cuda._sleep(0))
+    log(f"  cache_append: {ms:.4f} ms against its bound {b_ms:.4f} ms and an empty kernel's "
+        f"event-timed launch {empty_ms:.4f} ms")
     del caches
 
     # K7 paged: the same step's k/v into a pool of 8 pages per row; exact
@@ -1333,6 +1338,14 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
                yard="K4 layer entry over the bf16 cache, same length")
         del codes, scales, c8
 
+    # K5: windows of 16 and 32 rows at hist 0 and 700 over the bf16 cache
+    # (the f32 and f16 units below), each held to its plain version as a
+    # whole and row by row, its yardstick the stacked path's device time
+    # for the same window; two calls at the last shape give the same bits
+    if not w3:
+        log_cluster_probe(torch)
+    for s in (16, 32):
+        log_k5_plan(torch, cfg, s, w3)
     for s in (16, 32):
         for hist in (0, 700):
             hw = (torch.randn((s, h_dim), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
@@ -1341,6 +1354,8 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
             got = mkc.w4a16_llama_chunk_step(*step)
             ref = mkc.w4a16_llama_chunk_step_plain(*step)
             torch.cuda.synchronize()
+            check_chunk_rows(torch, f"megakernel_chunk{sfx} S={s} hist={hist}", got, ref,
+                             tol_deep)
             ms = timer(lambda: mkc.w4a16_llama_chunk_step(*step))
             plain_ms = timer(lambda: mkc.w4a16_llama_chunk_step_plain(*step), reps=2)
             yard_ms = device_ms(torch, lambda: llama.stacked_layers(params, cfg, hw[None], cache, hist))
@@ -1348,6 +1363,28 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
             record("megakernel_chunk", f"{L} layers S={s} hist={hist}", got, ref, tol_deep,
                    ms, plain_ms, yard_ms, L * (layer_bytes + kv_pos * (hist + s)),
                    L * (s * layer_flops + 4.0 * nq * hd * pairs))
+    check_chunk_twice(torch, f"megakernel_chunk{sfx}_bf16", mkc, step)
+    # the f32 and f16 caches' units on windows of their own (a generator of
+    # their own, so that the cases after them keep their data)
+    gen_t = torch.Generator(device=dev).manual_seed(8765)
+    for dt, tag in ((torch.float32, "f32"), (torch.float16, "f16")):
+        cache_t = cache.to(dt)
+        for s in (16, 32):
+            for hist in (0, 700):
+                hw = (torch.randn((s, h_dim), generator=gen_t, device=dev) * 0.5).to(torch.bfloat16)
+                step = (hw, *args, cos[hist:hist + s], sin[hist:hist + s], cache_t, hist,
+                        nq, nkv, eps)
+                got = mkc.w4a16_llama_chunk_step(*step)
+                ref = mkc.w4a16_llama_chunk_step_plain(*step)
+                torch.cuda.synchronize()
+                name = f"megakernel_chunk{sfx}_{tag} S={s} hist={hist}"
+                err = max(check(f"{name} output {i}", g, r, tol_deep)[1]
+                          for i, (g, r) in enumerate(zip(got, ref)))
+                check_chunk_rows(torch, name, got, ref, tol_deep)
+                ms = timer(lambda: mkc.w4a16_llama_chunk_step(*step))
+                log(f"  {name}: {ms:.4f} ms, rel to the plain version {err:.2e}")
+        check_chunk_twice(torch, f"megakernel_chunk{sfx}_{tag}", mkc, step)
+        del cache_t
     del cache
 
     # K6: the continuous-batching step, 8 and 32 rows at ragged lengths
@@ -1514,6 +1551,81 @@ def log_k6_plan(torch, cfg, b, w3):
         f"{p['threads']} threads), {p['smem']} B shared, ring {p['slots']} slots of "
         f"{p['stage_bytes']} B, windows of {p['window']} chunks of {p['chunk']} channels; "
         f"{phases}; {unit}: {regs}")
+
+
+def log_k5_plan(torch, cfg, s, w3):
+    """One line of K5's schedule for a window of ``s`` rows (``batched_plan``
+    in its chunk mode): the grid in clusters, the shared memory, the ring,
+    the windows over a rank's IC and each matmul phase's wave, warps a tile
+    and windows, and the unit's registers and spills as ptxas printed them."""
+    from awq_tpu_torch import _build
+    from awq_tpu_torch.ops import megakernel_batched as mkb
+    from awq_tpu_torch.ops import megakernel_chunk as mkc
+
+    unit = "megakernel_chunk_bf16" + ("_w3" if w3 else "")
+    grid = mkc._card_grid(torch.cuda.current_device(), unit, mkc.CLUSTER)
+    p = mkb.batched_plan(s, cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+                         cfg.num_kv_heads, 0, w3, grid, cluster=mkc.CLUSTER)
+    regs = " ".join(ln.split("info    :")[-1].strip() for ln in _build.build_log(unit).splitlines()
+                    if "registers" in ln or "spill" in ln)
+    phases = "; ".join(f"{n} wave {v['wave']} k {v['k']} windows {v['windows']}"
+                       for n, v in p["phases"].items())
+    log(f"  K5 plan S={s}{' W3' if w3 else ''}: grid {p['grid']} in clusters of {p['cluster']} "
+        f"(each rank 1/{p['cluster']} of IC), {p['threads']} threads, {p['smem']} B shared, "
+        f"ring {p['slots']} slots of {p['stage_bytes']} B, windows of {p['window']} chunks of "
+        f"{p['chunk']} channels; {phases}; {unit}: {regs}")
+
+
+def log_cluster_probe(torch):
+    """The cluster probe: the grid a cooperative launch of K5's block (288
+    threads, 227 KB) gets on this card in clusters of 1, 2, 4 and 8 blocks
+    (``cudaOccupancyMaxActiveClusters``); K5 launches clusters of
+    ``megakernel_chunk.CLUSTER`` with the cooperative attribute and
+    ``grid.sync()``s, which its checks below prove."""
+    import ctypes
+
+    from awq_tpu_torch import _build
+
+    lib = _build.load("megakernel_chunk_bf16")
+    fn = lib.awq_mega_chunk_grid
+    _build.declare(fn, _build.I, _build.P)
+    got = []
+    for cl in (1, 2, 4, 8):
+        g = ctypes.c_int(0)
+        err = fn(cl, ctypes.byref(g))
+        got.append(f"{cl}: {g.value} blocks" if err == 0 else f"{cl}: CUDA error {err}")
+    log("  cluster probe (a cooperative launch with a cluster dimension, K5's block): grid in "
+        "clusters of " + ", ".join(got))
+
+
+def check_chunk_rows(torch, name, got, ref, tol):
+    """K5's per-row check: each window row of h and each (layer, kv head,
+    row) of the k/v written within ``tol`` of its own largest magnitude
+    against the plain version, so that a fault in one row cannot hide
+    under another row's larger values."""
+    for what, g, r in (("h", got[0], ref[0]), ("k", got[1].flatten(0, 2), ref[1].flatten(0, 2)),
+                       ("v", got[2].flatten(0, 2), ref[2].flatten(0, 2))):
+        g, r = g.float().flatten(1), r.float().flatten(1)
+        err, scale = (g - r).abs().amax(1), r.abs().amax(1)
+        bad = torch.nonzero(err > tol * scale).flatten().tolist()
+        if bad:
+            raise AssertionError(f"{name}: {what} rows {bad[:8]} off by "
+                                 f"{(err / scale)[bad[:8]].tolist()} of their own largest value")
+    log(f"  {name}: every window row of h and k/v within {tol:g} of its own largest value")
+
+
+def check_chunk_twice(torch, name, mkc, step):
+    """K5 sums in a fixed order: two calls on equal copies of the cache give
+    the same outputs and the same cache, bit for bit."""
+    outs = []
+    for _ in range(2):
+        c = step[9].clone()
+        got = mkc.w4a16_llama_chunk_step(*step[:9], c, *step[10:])
+        torch.cuda.synchronize()
+        outs.append((*got, c))
+    if not all(torch.equal(x, y) for x, y in zip(*outs)):
+        raise AssertionError(f"{name}: two calls differ")
+    log(f"  {name}: two calls bit-equal (outputs, k/v and the cache written)")
 
 
 def weight_bytes(params) -> int:
@@ -2993,7 +3105,7 @@ def main() -> int:
                                     "awq_tpu/ops/megakernel.py:1047"),
                "megakernel_layer": ("awq_tpu_torch/csrc/megakernel.cu",
                                     "awq_tpu/ops/megakernel.py:954"),
-               "megakernel_chunk": ("awq_tpu_torch/csrc/megakernel_chunk.cu",
+               "megakernel_chunk": ("awq_tpu_torch/csrc/megakernel_batched.cu",
                                     "awq_tpu/ops/megakernel_chunk.py:295"),
                "megakernel_batched": ("awq_tpu_torch/csrc/megakernel_batched.cu",
                                       "awq_tpu/ops/megakernel_batched.py:531"),
@@ -3017,7 +3129,7 @@ def main() -> int:
                                        "awq_tpu/ops/megakernel.py:1047"),
                "megakernel_layer_w3": ("awq_tpu_torch/csrc/megakernel.cu",
                                        "awq_tpu/ops/megakernel.py:954"),
-               "megakernel_chunk_w3": ("awq_tpu_torch/csrc/megakernel_chunk.cu",
+               "megakernel_chunk_w3": ("awq_tpu_torch/csrc/megakernel_batched.cu",
                                        "awq_tpu/ops/megakernel_chunk.py:295"),
                "megakernel_batched_w3": ("awq_tpu_torch/csrc/megakernel_batched.cu",
                                          "awq_tpu/ops/megakernel_batched.py:531"),

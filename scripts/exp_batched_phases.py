@@ -106,15 +106,24 @@ def variant(src: str, name: str) -> str:
         src = sub("    if (p.idx >= SLOTS) ring_wait(&s.empty[slot], ((p.idx / SLOTS) - 1) & 1);\n", "")
         src = sub("if ((threadIdx.x & 31) == 0) hop::mbar_expect_tx(&s.full[slot], p.tx);", "")
         src = sub("    if (p.loads)\n", "    if (false)\n")
+    elif name == "runoff":        # the fixed regions carved from the plan's offsets instead
+        for o, n in (("  s.full = reinterpret_cast<uint64_t*>(base + OFF_BARS);",
+                      "  s.full = reinterpret_cast<uint64_t*>(base + a.off[O_BARS]);"),
+                     ("  s.red = reinterpret_cast<float*>(base + OFF_RED);",
+                      "  s.red = reinterpret_cast<float*>(base + a.off[O_RED]);"),
+                     ("  s.rs = reinterpret_cast<float*>(base + OFF_RS);",
+                      "  s.rs = reinterpret_cast<float*>(base + a.off[O_RS]);"),
+                     ("  s.att = s.red;", "  s.att = reinterpret_cast<float*>(base + a.off[O_ATT]);")):
+            src = sub(o, n)
     elif name == "hint":
         src = sub("ring_wait(&", "hop::mbar_wait(&")
-    elif name == "biased":        # W3 codes biased by 128 as W4's
-        src = sub("  if constexpr (UNIT_W3) {\n    const __nv_bfloat162 c = __float2bfloat162_rn(128.f);",
-                  "  if constexpr (false) {\n    const __nv_bfloat162 c = __float2bfloat162_rn(128.f);")
-        src = sub("const float zc0 = UNIT_W3 ? sz.x : fmaf(128.f, sc.x, sz.x);",
-                  "const float zc0 = fmaf(128.f, sc.x, sz.x);")
-        src = sub("const float zc1 = UNIT_W3 ? sz.y : fmaf(128.f, sc.y, sz.y);",
-                  "const float zc1 = fmaf(128.f, sc.y, sz.y);")
+    elif name == "biased":        # W3 (and K5's) codes biased by 128 as K6's W4
+        src = sub("  if constexpr (EXACT_CODES) {\n    const __nv_bfloat162 c = __float2bfloat162_rn(128.f + CENTER);",
+                  "  if constexpr (false) {\n    const __nv_bfloat162 c = __float2bfloat162_rn(128.f + CENTER);")
+        src = sub("const float zc0 = EXACT_CODES ? fmaf(-static_cast<float>(CENTER), sc.x, sz.x)",
+                  "const float zc0 = false ? fmaf(-static_cast<float>(CENTER), sc.x, sz.x)")
+        src = sub("const float zc1 = EXACT_CODES ? fmaf(-static_cast<float>(CENTER), sc.y, sz.y)",
+                  "const float zc1 = false ? fmaf(-static_cast<float>(CENTER), sc.y, sz.y)")
     elif name == "xcheck":        # results right; records group sums that disagree
         src = sub("// ---- the matmul phases' schedule", XCHECK_DEF + "\n// ---- the matmul phases' schedule")
         src = sub("    const int c0 = win_lo(d, win), wc = win_lo(d, win + 1) - c0;\n",

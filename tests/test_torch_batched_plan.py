@@ -150,6 +150,41 @@ def test_plan_refuses_what_the_kernel_refuses():
         _plan(LLAMA3_8B, 65, False)
 
 
+def _old_k6_layout(b, w3, wc):
+    """K6's layout as csrc/megakernel_batched.cu computed it before the host
+    plan carried the offsets (smem_layout there): the partial sums after the
+    ring and its barriers, then the norm factors, the group sums and rows."""
+    kc = 256 if w3 else 128
+    sb = tmb.stage_bytes(w3)
+    slots = tmb.RING_BYTES // sb
+    bp = -(-b // 8) * 8
+    u_off = (128 + slots * sb + 16 * slots + 8 + 127) // 128 * 128
+    xs_off = u_off + tmb.RED_BYTES + tmb.RS_BYTES
+    rows_off = (xs_off + bp * (wc * kc // 128) * 4 + 15) // 16 * 16
+    end = rows_off + bp * (wc * kc // 2 + 8) * 4
+    return (128 + slots * sb, u_off, u_off + tmb.RED_BYTES, xs_off, rows_off,
+            max(end, u_off + tmb.ATT_BYTES))
+
+
+@pytest.mark.parametrize("w3", [False, True])
+@pytest.mark.parametrize("b", (2, 8, 13, 32, 33, 64))
+def test_k6_layout_is_unchanged(b, w3):
+    """K6's regions, now from the host's ``smem_layout`` (the one source of
+    the layout, shared with K5), lie where the kernel put them before, byte
+    for byte, and pass the kernel's check."""
+    from test_torch_chunk_plan import _fits
+
+    for cfg in (dict(LLAMA3_8B), dict(TINY)):
+        p = tmb.batched_plan(b, cfg["H"], cfg["I"], cfg["nq"], cfg["nkv"], cfg["vocab"], w3, 132)
+        lay = tmb.smem_layout(b, w3, p["window"])
+        bars, red, rs, xs, rows, smem = _old_k6_layout(b, w3, p["window"])
+        assert (lay["bars"], lay["red"], lay["rs"], lay["xsum"], lay["rows"], lay["att"]) == (
+            bars, red, rs, xs, rows, red)
+        assert lay["smem"] == smem == p["smem"] and lay["tot"] == 0
+        assert _fits(lay, b, w3, p["window"], False)
+        assert tmb._layout_ints(b, w3, p["window"]) == (bars, red, rs, xs, rows, red, 0)
+
+
 # ---- a torch emulation of the kernel's order of sums ------------------------------
 
 def _seq_sum(parts):

@@ -363,18 +363,144 @@ def test_layer_and_token_kernels_match_plain_on_card(cuda, length, bias):
     assert torch.equal(c1[:, :, :, :, length + 1:], cache[:, :, :, :, length + 1:])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("s,hist", [(1, 0), (17, 40), (32, 200)])
-def test_chunk_kernel_matches_plain_on_card(cuda, s, hist):
+# K5 on the card: its six units (W4 and W3 over f32, bf16 and f16 caches),
+# windows of 1, 2, 17 and 32 rows at hist 0, 40 and 1031 (a cache of 1088
+# positions), 2 layers at H 512, I 1024, 4 q heads over 2 kv heads, a bias.
+CHUNK_T = 1088
+CHUNK_CACHES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _chunk_card_model(dev, w3, cdt, seed):
     nq, nkv, H, I, L = 4, 2, 512, 1024, 2
-    ws, (ln1, ln2), cache, cos, sin, g = _card_model(cuda, nq, nkv, H, I, L, True, s)
-    h = (torch.randn((s, H), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def lin(ic, oc, b=False):
+        rows = ic * 3 // 32 if w3 else ic // 8
+        qw = torch.randint(-(2**31), 2**31 - 1, (L, rows, oc), generator=g,
+                           dtype=torch.int32, device=dev)
+        s = (torch.rand((L, ic // 128, oc), generator=g, device=dev) + 0.5) * (
+            0.005 if w3 else 0.01)
+        bias_t = (torch.randn((L, oc), generator=g, device=dev) * 0.1).to(torch.bfloat16)
+        return QLinear(qweight=qw, scales=s, szeros=s * (4 if w3 else 8),
+                       bias=bias_t if b else None, w_bit=3 if w3 else 4, dense3=w3)
+
+    ws = (lin(H, (nq + 2 * nkv) * HD, True), lin(H, H), lin(H, 2 * I), lin(I, H))
+    ln = [(torch.rand((L, H), generator=g, device=dev) * 0.4 + 0.8).to(torch.bfloat16)
+          for _ in range(2)]
+    cache = (torch.randn((L, 2, 1, nkv, CHUNK_T, HD), generator=g, device=dev) * 0.5).to(cdt)
+    ang = torch.rand((32, HD), generator=g, device=dev) * 6.28
+    h = (torch.randn((32, H), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    return (nq, nkv), ws, ln, cache, torch.cos(ang), torch.sin(ang), h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hist", [0, 40, 1031])
+@pytest.mark.parametrize("s", [1, 2, 17, 32])
+@pytest.mark.parametrize("cdt", CHUNK_CACHES, ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("w3", [False, True], ids=["w4", "w3"])
+def test_chunk_kernel_matches_plain_on_card(cuda, w3, cdt, s, hist):
+    (nq, nkv), ws, (ln1, ln2), cache, cos, sin, h = _chunk_card_model(cuda, w3, cdt, s + hist)
+    h = h[:s].contiguous()
     c1, c2 = cache.clone(), cache.clone()
+    key = "megakernel_chunk" + ("_w3" if w3 else "")
+    before = tmc.LAUNCHES[key]
     got = tmc.w4a16_llama_chunk_step(h, *ws, ln1, ln2, cos[:s], sin[:s], c1,
                                      hist, nq, nkv)
     ref = tmc.w4a16_llama_chunk_step_plain(h, *ws, ln1, ln2, cos[:s], sin[:s],
                                            c2, hist, nq, nkv)
     torch.cuda.synchronize()
+    assert tmc.LAUNCHES[key] == before + 1
     for a, b in zip(got, ref):
         _close(a.cpu(), b.cpu(), CARD_TOL)
     assert torch.equal(c1[:, :, :, :, hist + s:], cache[:, :, :, :, hist + s:])
+    assert torch.equal(c1[:, :, :, :, :hist], cache[:, :, :, :, :hist])
+    assert torch.equal(c1[:, 0, 0, :, hist:hist + s], got[1])
+    assert torch.equal(c1[:, 1, 0, :, hist:hist + s], got[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w3", [False, True], ids=["w4", "w3"])
+def test_chunk_kernel_in_clusters_of_one_on_card(cuda, w3):
+    """A model whose IC is one chunk (128 channels in W4, 256 in W3) gives a
+    cluster of two no chunk for its second rank: K5 runs in clusters of one,
+    every block over all of IC, and holds to the plain version as above."""
+    nq = nkv = 2 if w3 else 1
+    L, s, hist = 2, 17, 40
+    H = I = nq * HD
+    g = torch.Generator(device=cuda).manual_seed(5)
+
+    def lin(ic, oc, b=False):
+        rows = ic * 3 // 32 if w3 else ic // 8
+        sc = (torch.rand((L, ic // 128, oc), generator=g, device=cuda) + 0.5) * 0.01
+        return QLinear(qweight=torch.randint(-(2**31), 2**31 - 1, (L, rows, oc), generator=g,
+                                             dtype=torch.int32, device=cuda),
+                       scales=sc, szeros=sc * (4 if w3 else 8), w_bit=3 if w3 else 4, dense3=w3,
+                       bias=(torch.randn((L, oc), generator=g, device=cuda) * 0.1).to(
+                           torch.bfloat16) if b else None)
+
+    ws = (lin(H, (nq + 2 * nkv) * HD, True), lin(H, H), lin(H, 2 * I), lin(I, H))
+    ln = (torch.rand((L, H), generator=g, device=cuda) * 0.4 + 0.8).to(torch.bfloat16)
+    cache = (torch.randn((L, 2, 1, nkv, T, HD), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    ang = torch.rand((s, HD), generator=g, device=cuda) * 6.28
+    h = (torch.randn((s, H), generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    step = (h, *ws, ln, ln, torch.cos(ang), torch.sin(ang))
+    got = tmc.w4a16_llama_chunk_step(*step, cache.clone(), hist, nq, nkv)
+    ref = tmc.w4a16_llama_chunk_step_plain(*step, cache.clone(), hist, nq, nkv)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        _close(a.cpu(), b.cpu(), CARD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", CHUNK_CACHES, ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("w3", [False, True], ids=["w4", "w3"])
+def test_chunk_kernel_two_calls_bit_equal_on_card(cuda, w3, cdt):
+    """K5 sums in a fixed order (warps, windows and the cluster's ranks in
+    order, no atomics): two calls on equal caches give the same bits, in
+    every unit."""
+    (nq, nkv), ws, (ln1, ln2), cache, cos, sin, h = _chunk_card_model(cuda, w3, cdt, 7)
+    s, hist = 32, 1031
+    outs = []
+    for _ in range(2):
+        c = cache.clone()
+        got = tmc.w4a16_llama_chunk_step(h[:s].contiguous(), *ws, ln1, ln2, cos[:s], sin[:s],
+                                         c, hist, nq, nkv)
+        torch.cuda.synchronize()
+        outs.append((*got, c))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w3,cdt,s,hist", [(False, torch.bfloat16, 32, 1031),
+                                            (True, torch.bfloat16, 17, 40),
+                                            (False, torch.float32, 32, 200),
+                                            (False, torch.float16, 2, 1031)])
+def test_chunk_kernel_rows_match_emulation_on_card(cuda, w3, cdt, s, hist, monkeypatch):
+    """Each window row of h, and each (layer, kv head, row) of the k/v
+    written, holds within the card tolerance of its own largest value to
+    the CPU emulation of K5's order of sums (``test_torch_chunk_plan``: the
+    ranks' runs of IC and windows, centred codes, the tiles of the
+    attention's slices), which the CPU tests hold to the plain version and
+    to JAX's interpret-mode kernel."""
+    import dataclasses
+
+    from test_torch_chunk_plan import emulate
+    from test_torch_megakernel_batched import _rows_close
+
+    (nq, nkv), ws, (ln1, ln2), cache, cos, sin, h = _chunk_card_model(cuda, w3, cdt, 11)
+    h = h[:s].contiguous()
+    got = tmc.w4a16_llama_chunk_step(h, *ws, ln1, ln2, cos[:s], sin[:s], cache.clone(),
+                                     hist, nq, nkv)
+    torch.cuda.synchronize()
+    cpu = lambda q: dataclasses.replace(q, **{f.name: getattr(q, f.name).cpu()
+                                              for f in dataclasses.fields(q)
+                                              if isinstance(getattr(q, f.name), torch.Tensor)})
+    grid = tmc._card_grid(cuda.index or 0, "megakernel_chunk_" + {
+        torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}[cdt]
+        + ("_w3" if w3 else ""), tmc.CLUSTER)
+    emu = emulate(monkeypatch, h.cpu(), [cpu(q) for q in ws], ln1.cpu(), ln2.cpu(),
+                  cos[:s].cpu(), sin[:s].cpu(), cache.cpu(), hist, nq, nkv, grid, tmc.CLUSTER)
+    _rows_close(got[0], emu[0], CARD_TOL, "h")
+    for i, name in ((1, "k"), (2, "v")):     # [L, nkv, s, hd]: each (layer, kv head, row)
+        _rows_close(got[i].flatten(0, 2), emu[i].flatten(0, 2), CARD_TOL, name)
