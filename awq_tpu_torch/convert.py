@@ -61,6 +61,8 @@ from awq_tpu_torch.quant.packing import pack_int3
 
 
 def _tensor(a, dev: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):      # a record of the port's checkpoint loader
+        return a.detach().to(dev, copy=True).contiguous()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: carry the bits
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(dev)
@@ -137,13 +139,13 @@ def _qparams(qp: np.ndarray):
 
 def unfold_qlinear(x):
     """``(qweight, scales, szeros)`` of a JAX QLinear in the port's plain
-    layout, as numpy arrays."""
+    layout, as numpy arrays (an untiled one's scales and szeros as given)."""
     g = int(x.group_size)
     qw = np.asarray(x.qweight)
-    if not getattr(x, "tiled_bn", 0):
-        return qw, np.asarray(x.scales), np.asarray(x.szeros)
+    if not getattr(x, "tiled_bn", 0):       # the scales as given (bf16 stays bf16)
+        return qw, x.scales, x.szeros
     if not getattr(x, "folded", False):
-        return _untile(qw), np.asarray(x.scales), np.asarray(x.szeros)
+        return _untile(qw), x.scales, x.szeros
     if getattr(x, "dense3", False):
         n_g = int(x.n_groups)
         crows = 64 * (n_g // 5) + 16 * (n_g % 5)

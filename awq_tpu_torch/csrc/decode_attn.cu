@@ -215,7 +215,8 @@ struct LayerKV {   // K14: k_cache, v_cache [B, n_kv, T, D], one length
   using Elem = E;
   const E* k;
   const E* v;
-  int nkv, T, len;
+  int nkv, T, len;         // len: the length, or with lenp its host bound
+  const int* lenp;         // the length in device memory, or null
   struct Row {
     const E* k;
     const E* v;
@@ -226,7 +227,9 @@ struct LayerKV {   // K14: k_cache, v_cache [B, n_kv, T, D], one length
     const size_t r = ((size_t)b * nkv + h) * T * D;
     return Row{k + r, v + r};
   }
-  __device__ __forceinline__ int length(int) const { return len; }
+  __device__ __forceinline__ int length(int) const {
+    return lenp ? min(max(*lenp, 1), len) : len;
+  }
   __device__ __forceinline__ int bound() const { return len; }
 };
 
@@ -1230,9 +1233,10 @@ int run_typed(int cdt, Make make, const DecodeArgs& a, int B, int cluster, int s
 // K14 at head_dim D over a cache of E: one 16-row tile of q heads a warp
 // and 4 warps a tile up to 32 heads, 2 warps (32 positions each) above.
 template <int D, typename E>
-int run_layer(const void* kc, const void* vc, int nkv, int T, int length, const DecodeArgs& a,
-              int B, int cluster, int smem, cudaStream_t st) {
-  const LayerKV<E, D> kv{static_cast<const E*>(kc), static_cast<const E*>(vc), nkv, T, length};
+int run_layer(const void* kc, const void* vc, int nkv, int T, int length, const int* lenp,
+              const DecodeArgs& a, int B, int cluster, int smem, cudaStream_t st) {
+  const LayerKV<E, D> kv{static_cast<const E*>(kc), static_cast<const E*>(vc), nkv, T, length,
+                         lenp};
   if (a.nq / nkv <= 32) return launch_decode<D, 16, false>(kv, a, B, cluster, smem, st);
   return launch_decode<D, 32, false>(kv, a, B, cluster, smem, st);
 }
@@ -1339,18 +1343,21 @@ extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, in
 // K14: q [B, nq, hd] contiguous of qdt; k_cache, v_cache [B, nkv, T, hd],
 // each contiguous and 16-byte aligned, of cdt; positions [0, length)
 // attended, 1 <= length <= T; out [B, nq, hd] of qdt; hd 64 or 128,
-// g = nq / nkv <= 128; the plan as for awq_flash_decode.
+// g = nq / nkv <= 128; the plan as for awq_flash_decode. With `lengths` (an
+// int32 in device memory, for every row) the length is read there, and
+// `length` is its host bound, which the plan covers.
 extern "C" int awq_flash_decode_layer(const void* q, const void* k_cache,
-                                      const void* v_cache, void* out, int B, int nq, int nkv,
-                                      int T, int length, int hd, int cluster, int per,
-                                      int stages, int smem, float scale, int qdt, int cdt,
-                                      void* stream) {
+                                      const void* v_cache, void* out, const void* lengths,
+                                      int B, int nq, int nkv, int T, int length, int hd,
+                                      int cluster, int per, int stages, int smem, float scale,
+                                      int qdt, int cdt, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DecodeArgs a{q, nullptr, nullptr, out, qdt, 0, nq, nkv, per, stages, scale};
   if (nq % nkv || nq / nkv > 128 || length < 1 || length > T)
     return static_cast<int>(cudaErrorInvalidValue);
 #define AWQ_LAYER(D_, E_) \
-  return run_layer<D_, E_>(k_cache, v_cache, nkv, T, length, a, B, cluster, smem, st)
+  return run_layer<D_, E_>(k_cache, v_cache, nkv, T, length, static_cast<const int*>(lengths), \
+                           a, B, cluster, smem, st)
   if (hd == 64) {
     switch (cdt) {
       case 0: AWQ_LAYER(64, float);

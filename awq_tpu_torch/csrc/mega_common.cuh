@@ -218,11 +218,23 @@ __device__ __forceinline__ void combine_row(const float* pml, const float* pacc,
 // Size of a cooperative persistent grid: the blocks that fit on the card
 // at once with `smem` bytes of dynamic shared memory each, at most
 // `max_per_sm` per SM. The attribute has to be set before the occupancy
-// query, since it changes the answer.
+// query, since it changes the answer. The answer is kept per (device,
+// kernel, bytes): a launch after the first makes no runtime call but the
+// launch itself, so that it can be captured into a CUDA graph.
 template <typename K>
 static int coop_grid(K kernel, size_t smem, int* grid, int max_per_sm = 1 << 30) {
+  struct Seen { int dev; const void* fn; size_t smem; int max_per_sm, grid; };
+  static Seen seen[64];
+  static int n_seen = 0;
   int dev = 0, sms = 0, occ = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].dev == dev && seen[i].fn == (const void*)kernel && seen[i].smem == smem
+        && seen[i].max_per_sm == max_per_sm) {
+      *grid = seen[i].grid;
+      return 0;
+    }
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess && !coop) return static_cast<int>(cudaErrorNotSupported);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -234,5 +246,6 @@ static int coop_grid(K kernel, size_t smem, int* grid, int max_per_sm = 1 << 30)
   if (e != cudaSuccess) return static_cast<int>(e);
   if (occ < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   *grid = (occ < max_per_sm ? occ : max_per_sm) * sms;
+  if (n_seen < 64) seen[n_seen++] = Seen{dev, (const void*)kernel, smem, max_per_sm, *grid};
   return 0;
 }

@@ -111,8 +111,10 @@ struct TokenArgs {
   float* logits;
   float* scales;           // int8 cache: [L, 2, 1, nkv, T]
   float* ws;
+  const int* pos;          // the position in device memory, or null: `length`
   int layer0, n_layers, L, H, I, nq, nkv, T, length, vocab, round_res, md, has_bias;
-  int nsplit, split_len;
+  int rope_ld;             // with pos: cosr/sinr are tables of rows this far apart
+  int ws_split;            // attention slices the workspace holds a kv head
   float eps;
 };
 
@@ -124,6 +126,21 @@ constexpr int ATT_FLOATS = MK_MAXG * MK_HD + 2 * MK_HD + 2 * MK_WARPS * MK_MAXG
                            + MK_WARPS * MK_MAXG * MK_HD;
 constexpr int MAX_PER_SM = 4;                  // blocks per SM (barrier cost)
 constexpr int PB = 4;                          // cache positions a warp loads at once
+
+// The attention's slices for `npos` positions (the length and the current
+// token) over a grid of `grid` blocks: about one item (kv head, slice) a
+// block, at least 32 positions a slice; `nsplit` slices of `split_len`
+// (the last one shorter). With `target`, `nsplit` is the slice count aimed
+// at, an upper bound on the count of every shorter length.
+__host__ __device__ inline void attn_split(int npos, int grid, int nkv, int* nsplit,
+                                           int* split_len, bool target = false) {
+  int ns = grid / nkv;
+  ns = ns < 1 ? 1 : ns;
+  const int most = (npos + 31) / 32;
+  ns = ns > most ? most : ns;
+  *split_len = (npos + ns - 1) / ns;
+  *nsplit = target ? ns : (npos + *split_len - 1) / *split_len;
+}
 // The source row of a staged input sits in L2 (another block wrote it
 // before the barrier): a thread issues SU pairs of loads before it stores
 // any, so a row costs a few L2 round trips rather than one per element.
@@ -309,8 +326,8 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
   float* hres = a.ws;
   float* qkv = hres + H;
   float* pml = qkv + oq;
-  float* pacc = pml + (((size_t)nkv * a.nsplit * grp * 2 + 3) & ~(size_t)3);  // float4 rows
-  float* xo = pacc + (size_t)nkv * a.nsplit * grp * MK_HD;
+  float* pacc = pml + (((size_t)nkv * a.ws_split * grp * 2 + 3) & ~(size_t)3);  // float4 rows
+  float* xo = pacc + (size_t)nkv * a.ws_split * grp * MK_HD;
   float* h1 = xo + nq * MK_HD;
   float* hm = h1 + H;
   CT* cache = static_cast<CT*>(a.cache);
@@ -318,6 +335,16 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
   const int gtid = blockIdx.x * MK_THREADS + tid;
   const int vb = blockIdx.x;
   const size_t es = a.md ? 2 : 4;                // bytes of a norm weight
+  // the position: from device memory (a captured decode step reads it
+  // there at every replay), kept inside the cache
+  const int length = a.pos ? min(max(*a.pos, 0), a.T - 1) : a.length;
+  const float* cosr = a.cosr + (a.pos ? (size_t)length * a.rope_ld : 0);
+  const float* sinr = a.sinr + (a.pos ? (size_t)length * a.rope_ld : 0);
+  // the attention split, from the length itself: a launch that reads its
+  // position in device memory sums in the order of a launch given that
+  // length as a host int, whatever bound its workspace was sized for
+  int nsplit, split_len;
+  attn_split(length + 1, gridDim.x, nkv, &nsplit, &split_len);
 
   float* part = static_cast<float*>(a.h_out);   // K12, K13: the f32 partial
   if constexpr (MODE == MODE_MLP) {
@@ -356,18 +383,18 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
       float* wl = wm + MK_WARPS * MK_MAXG;          // [8][MK_MAXG]
       float* wacc = wl + MK_WARPS * MK_MAXG;        // [8][MK_MAXG][128]
       const float scale = 1.f / sqrtf((float)MK_HD);
-      const int items = nkv * a.nsplit;
+      const int items = nkv * nsplit;
       const size_t T = a.T;
       for (int it = vb; it < items; it += gridDim.x) {
-        const int kvh = it / a.nsplit, sp = it % a.nsplit;
-        const int p0 = sp * a.split_len;
-        const int p1 = min(p0 + a.split_len, a.length + 1);
+        const int kvh = it / nsplit, sp = it % nsplit;
+        const int p0 = sp * split_len;
+        const int p1 = min(p0 + split_len, length + 1);
         for (int i = tid; i < grp * MK_HD; i += MK_THREADS) {
           const int g = i / MK_HD, d = i % MK_HD;
-          sq[i] = rope_at(qkv + (kvh * grp + g) * MK_HD, a.cosr, a.sinr, d) * scale;
+          sq[i] = rope_at(qkv + (kvh * grp + g) * MK_HD, cosr, sinr, d) * scale;
         }
         for (int d = tid; d < MK_HD; d += MK_THREADS) {
-          kc[d] = rope_at(qkv + (nq + kvh) * MK_HD, a.cosr, a.sinr, d);
+          kc[d] = rope_at(qkv + (nq + kvh) * MK_HD, cosr, sinr, d);
           vc[d] = qkv[(nq + nkv + kvh) * MK_HD + d];
         }
         __syncthreads();
@@ -376,14 +403,14 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
         if (sp == 0) {
           if constexpr (Q8) {
             const size_t o = ((size_t)li * nkv + kvh) * MK_HD;
-            quantize_kv_rows(kc, vc, cache + (krow + a.length) * MK_HD,
-                             cache + (vrow + a.length) * MK_HD, a.scales + krow + a.length,
-                             a.scales + vrow + a.length, static_cast<bf16*>(a.k_new) + o,
+            quantize_kv_rows(kc, vc, cache + (krow + length) * MK_HD,
+                             cache + (vrow + length) * MK_HD, a.scales + krow + length,
+                             a.scales + vrow + length, static_cast<bf16*>(a.k_new) + o,
                              static_cast<bf16*>(a.v_new) + o, red);
           } else {
             for (int d = tid; d < MK_HD; d += MK_THREADS) {
-              cache[(krow + a.length) * MK_HD + d] = from_f32<CT>(kc[d]);
-              cache[(vrow + a.length) * MK_HD + d] = from_f32<CT>(vc[d]);
+              cache[(krow + length) * MK_HD + d] = from_f32<CT>(kc[d]);
+              cache[(vrow + length) * MK_HD + d] = from_f32<CT>(vc[d]);
               static_cast<CT*>(a.k_new)[((size_t)li * nkv + kvh) * MK_HD + d] = from_f32<CT>(kc[d]);
               static_cast<CT*>(a.v_new)[((size_t)li * nkv + kvh) * MK_HD + d] = from_f32<CT>(vc[d]);
             }
@@ -402,7 +429,7 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
 #pragma unroll
           for (int u = 0; u < PB; ++u) {
             const int p = pb + u * MK_WARPS;
-            if (p < a.length && p < p1) {
+            if (p < length && p < p1) {
               load4<CT>(cache + (krow + p) * MK_HD + lane * 4, kv4[u]);
               load4<CT>(cache + (vrow + p) * MK_HD + lane * 4, vv4[u]);
               if constexpr (Q8) {
@@ -467,7 +494,7 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
     // ---- phase 3: combine the slices -> attention output rows, a warp per head
     for (int hq = vb + warp * gridDim.x; hq < nq; hq += gridDim.x * MK_WARPS) {
       float ac[4];
-      combine_row(pml, pacc, (size_t)(hq / grp) * a.nsplit * grp + hq % grp, grp, a.nsplit, ac);
+      combine_row(pml, pacc, (size_t)(hq / grp) * nsplit * grp + hq % grp, grp, nsplit, ac);
 #pragma unroll
       for (int e = 0; e < 4; ++e) xo[hq * MK_HD + lane * 4 + e] = ac[e];
     }
@@ -544,11 +571,11 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
 // Pointer and size arguments, in the order the wrapper passes them.
 enum { P_H, P_OUT, P_QW, P_QS, P_QZ, P_QB, P_OW, P_OS, P_OZ, P_GW, P_GS, P_GZ,
        P_DW, P_DS, P_DZ, P_LN1, P_LN2, P_COS, P_SIN, P_CACHE, P_KN, P_VN,
-       P_HW, P_HS, P_HZ, P_NW, P_LOGITS, P_SCALES };
+       P_HW, P_HS, P_HZ, P_NW, P_LOGITS, P_SCALES, P_POS };
 enum { N_L0, N_NL, N_L, N_H, N_I, N_NQ, N_NKV, N_T, N_LEN, N_VOCAB, N_ROUND,
-       N_MD, N_CD, N_BIAS, N_W3, N_MODE };
+       N_MD, N_CD, N_BIAS, N_W3, N_MODE, N_PLAN };
 
-struct Plan { int grid, nsplit, split_len; size_t smem; long long ws; };
+struct Plan { int grid, ws_split; size_t smem; long long ws; };
 
 template <typename CT, int MODE>
 int plan_for(const int* n, Plan* p) {
@@ -558,16 +585,14 @@ int plan_for(const int* n, Plan* p) {
   p->smem = (size_t)(MK_THREADS + (xfloats > ATT_FLOATS ? xfloats : ATT_FLOATS)) * sizeof(float);
   const int err = coop_grid(token_kernel<CT, MODE>, p->smem, &p->grid, MAX_PER_SM);
   if (err) return err;
-  // attention items: about one per block, at least 32 positions each
-  const int npos = n[N_LEN] + 1;
-  int ns = p->grid / nkv;
-  ns = ns < 1 ? 1 : ns;
-  const int most = (npos + 31) / 32;
-  ns = ns > most ? most : ns;
-  p->split_len = (npos + ns - 1) / ns;
-  p->nsplit = (npos + p->split_len - 1) / p->split_len;
+  // the workspace holds the attention slices of any length up to N_PLAN
+  // (the host length, or the bound on a position read from device memory):
+  // attn_split's slice count grows with the length and is at most its
+  // target there
+  int split_len;
+  attn_split(n[N_PLAN] + 1, p->grid, nkv, &p->ws_split, &split_len, true);
   const long long grp = nq / nkv;
-  p->ws = 2LL * H + (long long)(nq + 2 * nkv) * MK_HD + nkv * p->nsplit * grp * (2 + MK_HD) + 4
+  p->ws = 2LL * H + (long long)(nq + 2 * nkv) * MK_HD + nkv * p->ws_split * grp * (2 + MK_HD) + 4
           + (long long)nq * MK_HD + I;
   return 0;
 }
@@ -629,7 +654,10 @@ extern "C" long long awq_mega_token_ws(const void* const* ptrs, const int* n) {
 // [L, IC/8, OC] or with N_W3 W3 [L, IC*3/32, OC] (every linear and the
 // head), with f32 scales and szeros [L, IC/128, OC]; head_dim 128; nq/nkv
 // <= 8; every OC a multiple of 32; H, I and nq·128 multiples of 128 (of
-// 256 in W3); 0 <= length < T; batch 1. Cache dtype code 3 is int8 codes
+// 256 in W3); 0 <= length <= N_PLAN < T; batch 1. P_POS, where not null,
+// points to the position as an int32 in device memory (N_LEN is then not
+// read), and P_COS/P_SIN to the rope tables [T', 128] f32 rather than to
+// one row each. Cache dtype code 3 is int8 codes
 // with f32 scales [L, 2, 1, nkv, T] at P_SCALES, and bf16 k_new/v_new.
 // N_MODE: MODE_LAYERS (K4: P_H and P_OUT in the model dtype), MODE_ATT (K12:
 // P_OUT the f32 [H] partial, one layer, wo [L, nq·128/8, H]) or MODE_MLP
@@ -665,8 +693,9 @@ extern "C" int awq_mega_token(const void* const* ptrs, const int* n, float eps,
   a.ws = static_cast<float*>(ws);
   a.layer0 = n[N_L0]; a.n_layers = n[N_NL]; a.L = n[N_L]; a.H = n[N_H]; a.I = n[N_I];
   a.nq = n[N_NQ]; a.nkv = n[N_NKV]; a.T = n[N_T]; a.length = n[N_LEN];
+  a.pos = static_cast<const int*>(ptrs[P_POS]); a.rope_ld = MK_HD;
   a.vocab = n[N_VOCAB]; a.round_res = n[N_ROUND]; a.md = n[N_MD]; a.has_bias = n[N_BIAS];
-  a.nsplit = p.nsplit; a.split_len = p.split_len; a.eps = eps;
+  a.ws_split = p.ws_split; a.eps = eps;
   void* kargs[] = {&a};
   const void* fn = kernel(n);
   if (!fn) return static_cast<int>(cudaErrorInvalidValue);

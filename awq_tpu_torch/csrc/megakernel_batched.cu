@@ -34,8 +34,8 @@
 //   barriers a layer: QKV | attention | combine | o-proj | gate/up | down;
 // - the matmul phases take K1's GEMV orientation (w4a16.cuh): the weights
 //   are the A operand of mma.sync m16n8k16 (16 output columns by 16
-//   channels, decoded by K1's code pairs, pair_codes.cuh: 2^7 + q in W4, q
-//   in W3, both exact in bf16) and the rows are N, one n8 tile for every 8
+//   channels, decoded by K1's code pairs, pair_codes.cuh, then centred:
+//   q - 8 in W4, q in W3, both exact in bf16) and the rows are N, one n8 tile for every 8
 //   rows: a decoded A fragment feeds all of them, and no row is padded to
 //   16;
 // - each block stages its rows once a phase into shared memory (K1's pair
@@ -133,10 +133,9 @@
 namespace {
 
 constexpr bool CHUNK = AWQ_MEGA_CHUNK != 0;      // K5: the chunk mode of this body
-// Codes as the mma sees them: 2^7 + q (K6's W4), q itself (K6's W3) or
-// q - CENTER (K5: -8..7 in W4, -4..3 in W3); stage_mma says why.
-constexpr bool EXACT_CODES = UNIT_W3 || CHUNK;
-constexpr int CENTER = CHUNK ? (UNIT_W3 ? 4 : 8) : 0;
+// Codes as the mma sees them: q - CENTER, centred in W4 (-8..7, K5 and
+// K6) and in K5's W3 (-4..3), q itself in K6's W3; stage_mma says why.
+constexpr int CENTER = UNIT_W3 ? (CHUNK ? 4 : 0) : 8;
 
 constexpr int K6_WARPS = 8;                       // consumer warps
 constexpr int K6_THREADS = 32 * (K6_WARPS + 1);   // and the producer warp
@@ -674,37 +673,35 @@ __device__ __forceinline__ void stage_rows(const Smem& s, const float* srcf, con
 }
 
 // The bf16 code pairs of k16 step j of a 64-channel sub-step of one column
-// (pc::code_pairs, as K1's GEMV decodes them): 2^7 + q in K6's W4; K6's W3
-// takes the 2^7 off again, so that the A operand holds q itself, and K5
-// 2^7 + CENTER, so that it holds q - CENTER (see stage_mma).
+// (pc::code_pairs, as K1's GEMV decodes them, 2^7 + q), with 2^7 + CENTER
+// taken off again, so that the A operand holds q - CENTER (see stage_mma).
 __device__ __forceinline__ void code_pairs(uint32_t lo0, uint32_t lo1, uint32_t hi0, uint32_t hi1,
                                            int j, uint32_t& pl, uint32_t& ph) {
   pc::code_pairs<UNIT_W3 != 0>(lo0, lo1, hi0, hi1, j, 0x43004300u, pl, ph);
-  if constexpr (EXACT_CODES) {
-    const __nv_bfloat162 c = __float2bfloat162_rn(128.f + CENTER);
-    const __nv_bfloat162 l2 = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&pl), c);
-    const __nv_bfloat162 h2 = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&ph), c);
-    pl = *reinterpret_cast<const uint32_t*>(&l2);
-    ph = *reinterpret_cast<const uint32_t*>(&h2);
-  }
+  const __nv_bfloat162 c = __float2bfloat162_rn(128.f + CENTER);
+  const __nv_bfloat162 l2 = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&pl), c);
+  const __nv_bfloat162 h2 = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&ph), c);
+  pl = *reinterpret_cast<const uint32_t*>(&l2);
+  ph = *reinterpret_cast<const uint32_t*>(&h2);
 }
 
 // One piece (chunk cl of the window) of a warp's tile: its code rows at cw,
 // scale and szero rows at sv and zv, rows rw words apart; its 16 columns
 // are the A rows (column 2gq + h is row gq + 8h), the NT n8 tiles of its
 // rows from `rb` on the B operand; at each group edge the products fold
-// into acc as s·Σx·(2^7 + q) − (2^7·s + sz)·Σx, JAX's identity with biased
-// codes (W3: s·Σx·q − sz·Σx). Both are exact in bf16, but the tensor core
-// adds a chain of products to about 2^-18.5 of its largest term
-// (scripts/exp_mma_precision.py), so with codes biased by 2^7 the part
-// that survives taking 2^7·s·Σx off loses 75-500 times as much as with q
-// itself. W3 takes q: biased W3 codes moved one ill-conditioned (layer,
-// row) of the smoke's W3 model 6-8% at 32 rows (PERF.md §6). K5 takes the
-// codes centred, q - 8 in W4 and q - 4 in W3 (exact in bf16), and folds the
-// centre into the szero term, s·Σx·(q - c) − (sz − c·s)·Σx: with sz near
-// c·s, as AWQ's zero points are on average, the two terms no longer cancel,
-// and the chain's rounding stays small against the group's value. Its rows
-// are the cache that every later decode step reads.
+// into acc as s·Σx·(q − c) − (sz − c·s)·Σx, with the codes centred: c = 8
+// in W4 (K5 and K6), 4 in K5's W3, 0 in K6's W3. JAX's identity takes the
+// codes biased by 2^7, s·Σx·(2^7 + q) − (2^7·s + sz)·Σx; both are exact in
+// bf16, but the tensor core adds a chain of products to about 2^-18.5 of
+// its largest term (scripts/exp_mma_precision.py), so with codes biased by
+// 2^7 the part that survives taking 2^7·s·Σx off loses 75-500 times as much
+// as with q itself. Biased W3 codes moved one ill-conditioned (layer, row)
+// of the smoke's W3 model 6-8% at 32 rows, and biased W4 codes one int8
+// 32-row window's written cache by 7.9 against 0.05 of its largest 21.0
+// (PERF.md §6). With sz near c·s, as AWQ's zero points are on average, the
+// two terms no longer cancel, and the chain's rounding stays small against
+// the group's value. K6's and K5's rows are the cache that every later
+// decode step reads.
 template <int NT>
 __device__ __forceinline__ void stage_mma(const Smem& s, const uint32_t* cw, const float* sv,
                                           const float* zv, int rw, int cl, int rb,
@@ -753,10 +750,8 @@ __device__ __forceinline__ void stage_mma(const Smem& s, const uint32_t* cw, con
     }
     const float2 sc = *reinterpret_cast<const float2*>(sv + gi * rw + 2 * gq);
     const float2 sz = *reinterpret_cast<const float2*>(zv + gi * rw + 2 * gq);
-    const float zc0 = EXACT_CODES ? fmaf(-static_cast<float>(CENTER), sc.x, sz.x)
-                                  : fmaf(128.f, sc.x, sz.x);
-    const float zc1 = EXACT_CODES ? fmaf(-static_cast<float>(CENTER), sc.y, sz.y)
-                                  : fmaf(128.f, sc.y, sz.y);
+    const float zc0 = fmaf(-static_cast<float>(CENTER), sc.x, sz.x);
+    const float zc1 = fmaf(-static_cast<float>(CENTER), sc.y, sz.y);
     const int g = cl * SGROUPS + gi;
 #pragma unroll
     for (int nb = 0; nb < NT; ++nb) {

@@ -47,7 +47,8 @@ _LLAMA_MAP = {
 
 _ST_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
               "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
-              "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
+              "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
+              "U16": torch.uint16}
 
 
 def read_safetensors(path: str) -> Dict[str, torch.Tensor]:

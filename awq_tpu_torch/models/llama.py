@@ -111,7 +111,8 @@ from awq_tpu_torch.ops.cache_append import (
     quantize_kv,
 )
 from awq_tpu_torch.ops.decode_attn import flash_decode, flash_decode_plain
-from awq_tpu_torch.ops.decode_attn import flash_decode_layer_plain, flash_decode_supported
+from awq_tpu_torch.ops.decode_attn import flash_decode_layer, flash_decode_layer_plain
+from awq_tpu_torch.ops.decode_attn import flash_decode_supported
 from awq_tpu_torch.ops.decode_attn import flash_decode_int8, flash_decode_int8_plain
 from awq_tpu_torch.ops.decode_attn import flash_decode_paged, flash_decode_paged_plain
 from awq_tpu_torch.ops.decode_attn import flash_prefill, flash_prefill_plain
@@ -632,7 +633,8 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                    cache: Cache, start_pos: int, impl: str = "auto",
                    layer_ids=None, lengths: Optional[torch.Tensor] = None,
                    max_length: Optional[int] = None,
-                   tables: Optional[torch.Tensor] = None, tp_axis=None) -> torch.Tensor:
+                   tables: Optional[torch.Tensor] = None, tp_axis=None,
+                   one_position: bool = False) -> torch.Tensor:
     """The stacked per-kernel path over ``h [B, S, H]`` for the layers
     ``layer_ids`` (all by default): returns the new residual and writes
     each layer's k/v into the cache in place.
@@ -649,7 +651,9 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     (K7). ``max_length`` (at least ``lengths.max()``, from the caller's host
     copy) sizes K2's grid without a device sync. With ``tables [B, MP]`` as
     well, ``cache`` is a page pool and K8 and the paged K7 take K2's and
-    K7's places. With ``tp_axis`` (a rank's shards under tensor
+    K7's places. ``one_position`` says every row sits at ``lengths[0]``
+    (``decode_step``): where K2 cannot take the heads, K14 then reads that
+    length on the device. With ``tp_axis`` (a rank's shards under tensor
     parallelism) the row-parallel ``wo`` and ``down`` end in an all-reduce
     of their partial sums, their bias added once after it
     (``_lin_row_fn``, ``awq_tpu/models/llama.py:463-494``)."""
@@ -704,8 +708,10 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     # where K2 cannot take the shape, a single-position step at one shared
     # position writes its k/v and attends over the layer's cache
     # (layers.attention: K14, which launches or raises on the card), as
-    # JAX's forward does (models/llama.py:938-978)
-    fallback = (s == 1 and lengths is None and not q8 and tables is None
+    # JAX's forward does (models/llama.py:938-978); with ``lengths`` and
+    # ``one_position`` (every row at ``lengths[0]``, K14 takes one length)
+    # the position is read on the device
+    fallback = (s == 1 and (lengths is None or one_position) and not q8 and tables is None
                 and not flash_decode_supported(nq, nkv, hd, cache.dtype))
 
     def at(name, idx):
@@ -724,7 +730,17 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         k = k.reshape(b, s, nkv, hd)
         v = v.reshape(b, s, nkv, hd)
         q, k = apply_rope(q, k, cos, sin, positions)
-        if fallback:
+        if fallback and lengths is not None:
+            kv.index_copy_(3, lengths[:1].long(),
+                           torch.stack([k, v]).transpose(2, 3).to(kv.dtype))
+            n_att = lengths[:1] + 1
+            if plain:
+                attn = flash_decode_layer_plain(q[:, 0], kv[0], kv[1], int(n_att))
+            else:
+                attn = flash_decode_layer(q[:, 0].contiguous(), kv[0], kv[1], n_att,
+                                          max_length=max_length + 1)
+            attn = attn.reshape(b, 1, nq * hd)
+        elif fallback:
             update_kv_cache(kv, k, v, start_pos)
             if plain:
                 attn = flash_decode_layer_plain(q[:, 0], kv[0], kv[1], start_pos + 1)
@@ -786,6 +802,83 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         append = batched_cache_append_plain if plain else batched_cache_append
         append(cache, torch.stack(kv_new), lengths, tables)
     return h
+
+
+def decode_step_on_k4(params: Params, cfg: ModelConfig, cache: Cache, b: int) -> bool:
+    """Whether :func:`decode_step` of ``b`` rows takes K4 (else the stacked
+    path); the environment's ``AWQ_TPU_DISABLE_MEGAKERNEL`` counts."""
+    return b == 1 and mk.megakernel_supported(cfg, params["layers"], cache)
+
+
+@torch.no_grad()
+def decode_step(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,       # [B] one token per row
+    cache: Cache,               # [L, 2, B, n_kv, T, hd] or a KVCache8, in place
+    pos: torch.Tensor,          # [1] int32 on the cache's device: the position
+    max_length: int,            # host bound on pos (a length bucket)
+    impl: str = "auto",
+) -> torch.Tensor:
+    """One single-stream decode step whose position lives in device memory:
+    every row feeds its token at ``pos`` (the rows of one dialogue, as
+    :func:`forward` with ``S == 1`` at ``start_pos = pos``), and the logits
+    ``[B, V]`` f32 come back. Nothing is read back to the host, so the step
+    can be captured into a CUDA graph and replayed at every position
+    (``runtime/generate.py``): the rope rows are gathered on the device, the
+    k/v written in place at ``pos``. ``pos`` itself is not advanced.
+
+    ``max_length`` (at least ``pos``, below the cache length) bounds the
+    position. K4 (batch 1 under
+    :func:`~awq_tpu_torch.ops.megakernel.megakernel_supported`) splits its
+    attention by the position it reads, so its step gives the bits of
+    :func:`forward`'s at that position; ``max_length`` sizes its workspace.
+    The stacked path, K2 (K9 over an int8 cache) with one K7 append, or K14
+    where K2 cannot take the heads (falcon), plans its attention splits for
+    ``max_length``: two of its steps with one ``max_length`` sum in the same
+    order whatever ``pos`` holds, and in another than :func:`forward`'s,
+    which plans for the length. ``impl`` as in :func:`forward`; the plain
+    versions read ``pos`` on the host."""
+    _check_supported(cfg)
+    _check_cache(cache)
+    if isinstance(cache, KVCache8):
+        check_llama_family(cfg, "forward over an int8 KV cache")
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
+    dev = cache.device
+    b = tokens.shape[0]
+    t_max = cache_seq_len(cache)
+    max_length = int(max_length)
+    if not 0 <= max_length < t_max:
+        raise ValueError(f"max_length {max_length} outside the cache [0, {t_max})")
+    if pos.dtype != torch.int32 or pos.numel() != 1 or pos.device != dev:
+        raise ValueError(f"pos must be one int32 on {dev}, got {pos.dtype} "
+                         f"{tuple(pos.shape)} on {pos.device}")
+    plain = impl == "plain"
+    h = params["embed"][tokens.to(dev)].to(_dtype(cfg))            # [B, H]
+    if decode_step_on_k4(params, cfg, cache, b):
+        la = params["layers"]
+        cos, sin = _rope_cached(cfg, t_max, dev)
+        kw = dict(nq=cfg.num_heads, nkv=cfg.num_kv_heads, eps=cfg.rms_eps)
+        if mk.head_in_kernel(params):
+            kw.update(whead=params["lm_head"], norm_w=params["norm"])
+        data, kw["cache_scales"] = mk.split_cache(cache)
+        args = (h, la["wqkv"], la["wo"], la["wgateup"], la["down"], la["ln1"], la["ln2"])
+        if plain:
+            at = int(pos)
+            res = mk.w4a16_llama_token_step_plain(*args, cos[at], sin[at], data, at, **kw)
+        else:
+            res = mk.w4a16_llama_token_step(*args, cos, sin, data, pos,
+                                            max_length=max_length, **kw)
+        if len(res) == 4:
+            return res[3]
+        h = res[0]
+    else:
+        h = stacked_layers(params, cfg, h[:, None], cache, 0, impl,
+                           lengths=pos.expand(b).contiguous(), max_length=max_length,
+                           one_position=True)[:, 0]
+    h = _norm(cfg, h, params["norm"], params.get("norm_b"))
+    return _head_logits(params, h, impl)
 
 
 def _check_cache(cache) -> None:

@@ -662,13 +662,22 @@ def flash_prefill(q: torch.Tensor, cache: torch.Tensor,
 
 
 def flash_decode_layer(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                       length: Union[int, torch.Tensor]) -> torch.Tensor:
+                       length: Union[int, torch.Tensor],
+                       max_length: Optional[int] = None) -> torch.Tensor:
     """K14 wrapper, JAX's ``flash_decode`` signature. ``q [B, nq, hd]`` one
     query position per row; ``k_cache``/``v_cache [B, nkv, T, hd]`` one
     layer's cache (two tensors, e.g. the views ``kv[0]``, ``kv[1]``),
     ``length`` the positions ``[0, length)`` every row attends, the current
-    token's included (it is already written). Returns ``[B, nq, hd]``."""
-    length = int(length)
+    token's included (it is already written). Returns ``[B, nq, hd]``.
+
+    ``length`` may be an int32 tensor ``[1]`` on the device: the kernel
+    reads it there (a captured decode step replays at every length), and
+    ``max_length`` (at least the length, at most T) is the bound its split
+    is planned for. A host length with the same ``max_length`` gives the
+    same bits."""
+    dev_len = isinstance(length, torch.Tensor) and length.device.type != "cpu"
+    if not dev_len:
+        length = int(length)
     if q.device.type == "cpu":
         return flash_decode_layer_plain(q, k_cache, v_cache, length)
     what = "flash_decode_layer"
@@ -684,8 +693,18 @@ def flash_decode_layer(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
            what, f"q, k_cache and v_cache must be contiguous on {q.device}")
     _check(k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0, what,
            "k_cache and v_cache must be 16-byte aligned")
-    _check(1 <= length <= t, what, f"length {length} not in [1, {t}]")
-    plan = decode_plan(b, nq, nkv, hd, length, k_cache.element_size(), PLAN_UNIT[what],
+    if dev_len:
+        _check(length.dtype == torch.int32 and length.numel() == 1 and length.is_contiguous()
+               and length.device == q.device, what, f"a device length is one int32 on {q.device}")
+        _check(max_length is not None, what, "a device length needs max_length")
+        bound, lptr = int(max_length), length.data_ptr()
+        n_len = bound          # the C entry's length: the bound the kernel clamps to
+    else:
+        bound = length if max_length is None else int(max_length)
+        _check(1 <= length <= bound, what, f"length {length} not in [1, {bound}]")
+        lptr, n_len = 0, length
+    _check(1 <= bound <= t, what, f"length bound {bound} not in [1, {t}]")
+    plan = decode_plan(b, nq, nkv, hd, bound, k_cache.element_size(), PLAN_UNIT[what],
                        sms=_sm_count(q.device))
     out = torch.empty_like(q)
 
@@ -693,10 +712,10 @@ def flash_decode_layer(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
 
     lib = _build.load("decode_attn")
     fn = lib.awq_flash_decode_layer
-    _build.declare(fn, *([_build.P] * 4), *([_build.I] * 10), _build.F, _build.I,
+    _build.declare(fn, *([_build.P] * 5), *([_build.I] * 10), _build.F, _build.I,
                    _build.I, _build.P)
-    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), b, nq,
-             nkv, t, length, hd, *_plan_args(plan), 1.0 / math.sqrt(hd),
+    err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), lptr, b,
+             nq, nkv, t, n_len, hd, *_plan_args(plan), 1.0 / math.sqrt(hd),
              _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:

@@ -488,21 +488,43 @@ def launch(entry: str, what: str, ptrs, ints, eps: float, dev) -> None:
 
 def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
                   sin_row, cache, layer0, n_layers, length, nq, nkv, eps,
-                  whead=None, norm_w=None, round_residual=True, scales=None):
+                  whead=None, norm_w=None, round_residual=True, scales=None,
+                  max_length=None):
     dev = cache.device
     if not cache.is_cuda:
         _fail(what, f"unsupported device {dev}")
     L, H, inter, w3 = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
                                      cache, nq, nkv, 1, scales=scales)
     T = cache.shape[4]
-    if not 0 <= length < T:
-        _fail(what, f"length {length} must lie in [0, {T})")
+    pos = None
+    if isinstance(length, torch.Tensor):
+        # the position lives in device memory: the kernel reads it there,
+        # gathers its rope rows from the tables and plans its attention
+        # split from it; max_length, the host's bound on it, sizes the
+        # workspace
+        pos = length
+        check_small(what, dev, torch.int32, length=pos)
+        if pos.numel() != 1:
+            _fail(what, f"a device length holds one int32, got {pos.numel()}")
+        if max_length is None or not 0 <= int(max_length) < T:
+            _fail(what, f"a device length needs max_length in [0, {T}), got {max_length}")
+        if cos_row.dim() != 2 or cos_row.shape[1] != HEAD_DIM or cos_row.shape[0] <= max_length \
+                or sin_row.shape != cos_row.shape:
+            _fail(what, f"with a device length cos/sin are the rope tables [> {max_length}, "
+                  f"{HEAD_DIM}], got {tuple(cos_row.shape)}")
+        length, plan = 0, int(max_length)
+    else:
+        length = int(length)
+        plan = length if max_length is None else int(max_length)
+        if not 0 <= length <= plan < T:
+            _fail(what, f"length {length} and max_length {plan} must satisfy "
+                  f"0 <= length <= max_length < {T}")
+        if cos_row.numel() != HEAD_DIM or sin_row.numel() != HEAD_DIM:
+            _fail(what, f"cos/sin rows must hold {HEAD_DIM} values")
     if layer0 < 0 or layer0 + n_layers > L:
         _fail(what, f"layers [{layer0}, {layer0 + n_layers}) outside [0, {L})")
     check_small(what, dev, None, h=h, ln1=ln1, ln2=ln2, cache=cache)
     check_small(what, dev, torch.float32, cos_row=cos_row, sin_row=sin_row)
-    if cos_row.numel() != HEAD_DIM or sin_row.numel() != HEAD_DIM:
-        _fail(what, f"cos/sin rows must hold {HEAD_DIM} values")
     bias = wqkv.bias
     check_small(what, dev, h.dtype, bias=bias, norm_w=norm_w)
     vocab, head, logits = head_operands(what, whead, norm_w, H, 1, dev, w3)
@@ -516,10 +538,11 @@ def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
         + [ln1.data_ptr(), ln2.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(),
            cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr()]
         + head + [logits.data_ptr() if logits is not None else 0,
-                  scales.data_ptr() if scales is not None else 0])
+                  scales.data_ptr() if scales is not None else 0,
+                  pos.data_ptr() if pos is not None else 0])
     ints = [layer0, n_layers, L, H, inter, nq, nkv, T, length, vocab,
             int(round_residual), _DTYPE_CODE[h.dtype], _CACHE_CODE[cache.dtype],
-            int(bias is not None), int(w3), MODE_LAYERS]
+            int(bias is not None), int(w3), MODE_LAYERS, plan]
     launch("awq_mega_token", "megakernel_w3" if w3 else "megakernel", ptrs, ints, eps, dev)
     LAUNCHES[counter + ("_w3" if w3 else "") + ("_int8" if scales is not None else "")] += 1
     res = (out, k_new, v_new)
@@ -550,18 +573,32 @@ def w4a16_llama_token_step(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row,
                            cache, length, nq, nkv, eps=1e-5,
                            whead: Optional[QLinear] = None,
                            norm_w: Optional[torch.Tensor] = None,
-                           cache_scales=None):
+                           cache_scales=None, max_length: Optional[int] = None):
     """All decoder layers for one token in one launch of K4; with
     ``whead``/``norm_w`` also the final RMSNorm and the W4 head. Returns
     ``(h_new [1, H], k_new [L, nkv, hd], v_new)`` (+ ``logits [1, V]``
     f32); the cache is written at ``length`` in every layer (int8 codes and
-    ``cache_scales`` for an int8 cache, whose k/v come back bf16)."""
+    ``cache_scales`` for an int8 cache, whose k/v come back bf16).
+
+    ``length`` is a host int, with ``cos_row``/``sin_row`` the rope rows
+    ``[hd]`` at it, or an int32 tensor ``[1]`` on the cache's device, with
+    ``cos_row``/``sin_row`` the rope tables ``[T', hd]``: the kernel then
+    reads the position and its rope rows from device memory, so that a
+    captured decode step replays at every position. ``max_length`` (at
+    least the length; required with a device length) bounds the position
+    and sizes the workspace; the kernel splits its attention by the length
+    it reads, so a device length gives the bits of the same length passed
+    as a host int, whatever ``max_length``."""
     if cache.device.type == "cpu":
+        if isinstance(length, torch.Tensor):
+            length = int(length.reshape(-1)[0])
+            cos_row, sin_row = cos_row[length], sin_row[length]
         return w4a16_llama_token_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2,
                                             cos_row, sin_row, cache, length,
                                             nq, nkv, eps, whead, norm_w,
                                             cache_scales)
     return _token_launch("megakernel_token", "megakernel_token", h, wqkv, wo,
                          wgu, wdn, ln1, ln2, cos_row, sin_row, cache, 0,
-                         cache.shape[0], int(length), nq, nkv, eps,
-                         whead=whead, norm_w=norm_w, scales=cache_scales)
+                         cache.shape[0], length, nq, nkv, eps,
+                         whead=whead, norm_w=norm_w, scales=cache_scales,
+                         max_length=max_length)

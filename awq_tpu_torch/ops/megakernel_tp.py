@@ -188,9 +188,9 @@ def w4a16_llama_attn_half(h, wqkv, wo, ln1, cos_row, sin_row, cache, layer_idx, 
             + mk.qlinear_ptrs(wo, dev) + [0] * 6
             + [ln1.data_ptr(), 0, cos_row.data_ptr(), sin_row.data_ptr(),
                cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr()]
-            + [0] * 5 + [cache_scales.data_ptr() if cache_scales is not None else 0])
+            + [0] * 5 + [cache_scales.data_ptr() if cache_scales is not None else 0, 0])
     ints = [layer_idx, 1, L, H, 0, nq, nkv, T, length, 0, 0, mk._DTYPE_CODE[h.dtype],
-            mk._CACHE_CODE[cache.dtype], int(bias is not None), int(w3), mk.MODE_ATT]
+            mk._CACHE_CODE[cache.dtype], int(bias is not None), int(w3), mk.MODE_ATT, length]
     mk.launch("awq_mega_token", "megakernel_w3" if w3 else "megakernel", ptrs, ints, eps, dev)
     LAUNCHES["megakernel_attn_half" + ("_w3" if w3 else "")
              + ("_int8" if cache_scales is not None else "")] += 1
@@ -229,9 +229,9 @@ def w4a16_llama_mlp_half(h1, wgu, wdn, ln2, layer_idx, eps=1e-5):
     part = torch.empty((1, H), dtype=torch.float32, device=dev)
     ptrs = ([h1.data_ptr(), part.data_ptr()] + [0] * 7
             + mk.qlinear_ptrs(wgu, dev) + mk.qlinear_ptrs(wdn, dev)
-            + [0, ln2.data_ptr()] + [0] * 11)
+            + [0, ln2.data_ptr()] + [0] * 12)
     ints = [layer_idx, 1, L, H, inter, 1, 1, 0, 0, 0, 0, mk._DTYPE_CODE[ln2.dtype],
-            mk._CACHE_CODE[torch.bfloat16], 0, int(w3), mk.MODE_MLP]
+            mk._CACHE_CODE[torch.bfloat16], 0, int(w3), mk.MODE_MLP, 0]
     mk.launch("awq_mega_token", "megakernel_w3" if w3 else "megakernel", ptrs, ints, eps, dev)
     LAUNCHES["megakernel_mlp_half" + ("_w3" if w3 else "")] += 1
     return part

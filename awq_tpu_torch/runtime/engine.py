@@ -20,6 +20,13 @@ keeps the rank's deploy layout (``build_tp_params``) and its kv-head shard
 of the cache (bf16, or int8 codes and scales), on the group's device;
 prefill and decode run through ``tp_forward`` and ``tp_decode_scan``, and
 every rank returns the same ids.
+
+On a card the decode runs through a
+:class:`~awq_tpu_torch.runtime.generate.DecodeLoop` over the engine's cache:
+a decode step captured as a CUDA graph per length bucket, path and sampling
+configuration and replayed once a token. On the CPU it is one ``forward``
+call a token (``decode_scan``). :meth:`InferenceEngine.stream` streams a
+round through the same steps.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from awq_tpu_torch.models.llama import (
 )
 from awq_tpu_torch.parallel.deploy import build_tp_params
 from awq_tpu_torch.parallel.tp import tp_forward, tp_local_cfg
-from awq_tpu_torch.runtime.generate import generate
+from awq_tpu_torch.runtime.generate import DecodeLoop, StreamGenerator, generate
 
 
 class InferenceEngine:
@@ -53,10 +60,13 @@ class InferenceEngine:
         runtime: Optional[RuntimeConfig] = None,
         cache_dtype=torch.bfloat16,
         device="cuda",
+        tokenizer=None,
     ):
         self.cfg = cfg
         self.rt = runtime or RuntimeConfig()
         self.mesh = self.rt.mesh
+        self.tokenizer = tokenizer
+        self.loop = None
         t = min(self.rt.max_seq_len, cfg.max_position_embeddings)
         self._pending = []      # an id returned but not yet fed (see generate)
         self.start_pos = 0
@@ -84,6 +94,8 @@ class InferenceEngine:
             self.params, self.cfg = attach_prefill_w8(self.params, cfg, self.rt)
         self.cache = init_cache(cfg, self.rt.max_batch_size, t, cache_dtype,
                                 device=self.device)
+        if self.device.type == "cuda":
+            self.loop = DecodeLoop(self.params, self.cfg, self.cache, self.rt.max_batch_size)
 
     # ---- conversation state (history KV reused across rounds) ----
 
@@ -130,14 +142,11 @@ class InferenceEngine:
         ``start_pos`` then stops at that id's position and the id stays
         pending: the next round prepends it to its prompt, so its KV is
         written before the history is attended."""
-        ids = self._pending + list(prompt_ids)
-        if self.start_pos + len(ids) + gen.max_new_tokens > self.max_seq_len:
-            self.reset()  # simplistic eviction; the paged cache lands later
-            ids = list(prompt_ids)
+        ids = self.round_ids(prompt_ids, gen.max_new_tokens)
         tokens = torch.tensor([ids], dtype=torch.long, device=self.device)
         out = generate(self.params, self.cfg, tokens, self.cache, gen,
                        stop_ids=stop_ids, start_pos=self.start_pos,
-                       generator=generator, mesh=self.mesh)
+                       generator=generator, mesh=self.mesh, loop=self.loop)
         self.cache = out["cache"]
         n_new = int(out["n_valid"][0])
         ids_out = out["output_ids"][0, :n_new]
@@ -146,7 +155,29 @@ class InferenceEngine:
             self.start_pos += len(ids) + n_new - int(unfed)
             self._pending = [int(ids_out[-1])] if unfed else []
         out["output_ids"] = ids_out
+        if self.tokenizer is not None:
+            out["text"] = self.tokenizer.decode(ids_out.tolist())
         return out
+
+    def round_ids(self, prompt_ids: Sequence[int], max_new_tokens: int):
+        """A round's ids to prefill: the pending id, if any, then the
+        prompt; a round that would overrun the cache resets it first."""
+        ids = self._pending + list(prompt_ids)
+        if self.start_pos + len(ids) + max_new_tokens > self.max_seq_len:
+            self.reset()  # simplistic eviction; the paged cache lands later
+            ids = list(prompt_ids)
+        return ids
+
+    def stream(self, gen: GenConfig, stop_ids: Sequence[int] = (),
+               stream_interval: int = 2) -> StreamGenerator:
+        """A :class:`~awq_tpu_torch.runtime.generate.StreamGenerator` over
+        the engine's cache and decode loop. Call it with
+        :meth:`round_ids` and ``start_pos=self.start_pos``; its last chunk's
+        ``new_start_pos`` and ``pending`` are the engine's next
+        ``start_pos`` and pending ids."""
+        return StreamGenerator(self.params, self.cfg, self.tokenizer, gen, self.cache,
+                               stop_ids=stop_ids, stream_interval=stream_interval,
+                               mesh=self.mesh, loop=self.loop)
 
     def generate_speculative(self, *args, **kwargs):
         raise NotImplementedError("speculative decoding is ROADMAP queue A, item 11")

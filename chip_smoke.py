@@ -62,8 +62,26 @@ Phases (each failure ends the run with a non-zero exit):
    on a random W4A16-g128 model of Llama-3-8B's widths with a W4 head,
    twice: on the megakernels (the default) and with
    ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` (the stacked per-kernel path). The
-   launch counts are set to 0 before each and read after it: K4 and K5
-   must grow in the first, K1-K3 in the second.
+   greedy decode replays a captured step a token (``DecodeLoop``), which
+   calls no kernel wrapper, so each path's main run is profiled: the launch
+   counts are set to 0 before it and read after it, and the launches are
+   the kernels of each counter's symbol in the device trace. K4 and K5
+   must run in the first, K1-K3 in the second, both by the wrappers'
+   counts and by the trace's. The requests run again unprofiled (TTFT,
+   ms/token) and with the engine's loop taken away (one ``forward`` call a
+   token at a host position): on K4 its ids must equal the graph's bit for
+   bit; on the stacked path, whose attention plans for the burst's bucket
+   on the graph, the share that is equal is printed. Then the host's time
+   to queue a replay, a profile of replays (kernels, idle share) and the
+   graphs' count, capture time and pool.
+3i. Phase 3's model through the port's ``save_checkpoint`` and
+   ``load_checkpoint`` (every array equal), served as phase 3 serves it
+   (ids equal to phase 3's), a sampled round on the graph and on the
+   forward loop from one seed (ids equal), then behind the port's
+   ``ModelWorker`` as
+   ``input_ids`` over HTTP (ids equal to phase 3's); last, K4 at the served
+   lengths with its position in device memory, bit-equal to the launch
+   given the length as a host int, timed both ways.
 3b. Serve twelve requests (prompts of 16, 24, 200 and 1000 ids in rotation,
    32 greedy new tokens each) through a ``BatchEngine`` of 8 slots over the
    same model, a new request joining every few steps while the others
@@ -124,8 +142,8 @@ Phases (each failure ends the run with a non-zero exit):
    ``InferenceEngine`` on the stacked path, decode through K14 per layer
    (K2 cannot take 71 q heads per kv head at head_dim 64), prefill on K1's
    GEMM and K3's head_dim-64 mode; no megakernel, and K14 runs in no other
-   phase. Prints TTFT, ms/token, GB/token, kernels per decode step, idle
-   share, peak memory and the ids.
+   phase. Driven as phase 3 drives its paths. Prints TTFT, ms/token,
+   GB/token, kernels per decode step, idle share, peak memory and the ids.
 4. At the same widths and 2 layers, feed the same tokens through
    ``forward`` on the kernel path and on the plain path and compare
    logits: a 100-token prefill and 8 decodes on the stacked path, a
@@ -158,6 +176,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
@@ -1035,7 +1054,9 @@ def phase_f16_attention(torch, timer, cases_out):
 def phase_layer_attention(torch, timer, cases_out):
     """Phase 2, the single-layer attention of the falcon path: K14
     (``flash_decode_layer``) at Falcon-7B's shape (B 1, one kv head, 71 q
-    heads, head_dim 64, bf16; lengths 1, 1000 and 2047) and at Llama-3-8B's
+    heads, head_dim 64, bf16; lengths 1, 1000 and 2047, read from device
+    memory as the served step reads them, the split planned for the
+    length's bucket) and at Llama-3-8B's
     (B 1 and 8, 8 kv heads, 4 q heads each, head_dim 128; lengths 1000 and
     4000), and K3 at head_dim 64 at Falcon-7B's shape (S 512 from 0 and
     from 700, S 1000 from 0), each against its plain version; the library
@@ -1043,6 +1064,7 @@ def phase_layer_attention(torch, timer, cases_out):
     import torch.nn.functional as F
 
     from awq_tpu_torch.ops import decode_attn as da
+    from awq_tpu_torch.runtime.generate import cache_bucket
 
     gen = torch.Generator(device="cuda").manual_seed(1357)
     tol = 2.0 ** -6           # bf16 output rounding; K3 rounds P to bf16 too
@@ -1069,14 +1091,30 @@ def phase_layer_attention(torch, timer, cases_out):
         kv, q = rnd(2, b, nkv, t, hd), rnd(b, nq, hd)
         for length in lengths:
             k_l, v_l = kv[0, :, :, :length].contiguous(), kv[1, :, :, :length].contiguous()
-            add("flash_decode_layer", f"len={length} B={b} nq={nq} nkv={nkv} hd={hd}",
-                lambda: da.flash_decode_layer(q, kv[0], kv[1], length),
+            n_att, bound_at, where = length, length, ""
+            if nkv == 1:
+                # falcon's served step: the length in device memory, the
+                # split planned for the burst's bucket; bit-equal to a host
+                # length with the same bound
+                bound_at = cache_bucket(t, length)
+                n_att = torch.tensor([length], dtype=torch.int32, device="cuda")
+                where = f" (device length, bound {bound_at})"
+                same = torch.equal(da.flash_decode_layer(q, kv[0], kv[1], n_att, bound_at),
+                                   da.flash_decode_layer(q, kv[0], kv[1], length, bound_at))
+                if not same:
+                    raise AssertionError(f"flash_decode_layer len={length}: the device-length "
+                                         "launch differs from the host-length one")
+                log(f"  flash_decode_layer len={length}: the device-length launch is bit-equal "
+                    f"to the host-length one with the same bound; planned for the length "
+                    f"{timer(lambda: da.flash_decode_layer(q, kv[0], kv[1], length)):.4f} ms")
+            add("flash_decode_layer", f"len={length} B={b} nq={nq} nkv={nkv} hd={hd}{where}",
+                lambda: da.flash_decode_layer(q, kv[0], kv[1], n_att, bound_at),
                 lambda: da.flash_decode_layer_plain(q, kv[0], kv[1], length),
                 lambda: F.scaled_dot_product_attention(q[:, :, None], k_l, v_l,
                                                        enable_gqa=True),
                 (2 * b * nq * hd + 2 * b * nkv * length * hd) * 2,
                 4.0 * b * nq * length * hd, "F.scaled_dot_product_attention(enable_gqa=True)",
-                decode_plan_of("flash_decode_layer", b, nq, nkv, hd, length, 2))
+                decode_plan_of("flash_decode_layer", b, nq, nkv, hd, bound_at, 2))
             del k_l, v_l
         del kv
     nq, t = fal["num_heads"], 2048
@@ -1268,15 +1306,27 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
                ms, plain_ms, yard_ms, layer_bytes + kv_pos * (length + 1),
                layer_flops + 4.0 * nq * hd * (length + 1))
 
-    length = 1000
+    # the token entry as the served decode step launches it: the position
+    # in device memory, the rope rows gathered from the tables, the
+    # workspace sized for the burst's bucket (served requests at length 1000
+    # take the 2048-position one); held to the plain version and, bit for
+    # bit, to the launch given the length as a host int
+    length, bucket = 1000, 2047
+    pos = torch.tensor([length], dtype=torch.int32, device=dev)
     h = (torch.randn((1, h_dim), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-    step = (h, *args, cos[length], sin[length], cache, length, nq, nkv, eps)
+    step_host = (h, *args, cos[length], sin[length], cache, length, nq, nkv, eps)
+    step = (h, *args, cos, sin, cache, pos, nq, nkv, eps)
     head = dict(whead=params["lm_head"], norm_w=params["norm"])
-    got = mk.w4a16_llama_token_step(*step, **head)
-    ref = mk.w4a16_llama_token_step_plain(*step, **head)
+    got = mk.w4a16_llama_token_step(*step, max_length=bucket, **head)
+    ref = mk.w4a16_llama_token_step_plain(*step_host, **head)
+    host = mk.w4a16_llama_token_step(*step_host, **head)
     torch.cuda.synchronize()
-    ms = timer(lambda: mk.w4a16_llama_token_step(*step, **head))
-    plain_ms = timer(lambda: mk.w4a16_llama_token_step_plain(*step, **head), reps=2)
+    k4_same("megakernel_token" + sfx, got, host)
+    ms = timer(lambda: mk.w4a16_llama_token_step(*step, max_length=bucket, **head))
+    host_len_ms = timer(lambda: mk.w4a16_llama_token_step(*step_host, **head))
+    log(f"  megakernel_token{sfx} len={length}: {ms:.4f} ms with its position in device "
+        f"memory (bucket {bucket + 1}), {host_len_ms:.4f} ms given it as a host int")
+    plain_ms = timer(lambda: mk.w4a16_llama_token_step_plain(*step_host, **head), reps=2)
 
     def stacked_token():
         hh = llama.stacked_layers(params, cfg, h[None], cache, length)
@@ -1284,8 +1334,8 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
 
     yard_ms = device_ms(torch, stacked_token)
     token_flops = L * (layer_flops + 4.0 * nq * hd * (length + 1)) + 2.0 * h_dim * vocab
-    record("megakernel_token", f"{L} layers + W4 head, len={length}", got, ref, tol_deep,
-           ms, plain_ms, yard_ms,
+    record("megakernel_token", f"{L} layers + W4 head, len={length} (device position, "
+           f"bucket {bucket + 1})", got, ref, tol_deep, ms, plain_ms, yard_ms,
            L * (layer_bytes + kv_pos * (length + 1)) + head_bytes, token_flops)
 
     # K4's int8 mode (cache_scales) over the same cache quantized: the token
@@ -1299,27 +1349,38 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
         one = torch.zeros(1, dtype=torch.long, device=dev)
         at = torch.full((1,), length, dtype=torch.long, device=dev)
         bf16_token_ms = ms
-        got = mk.w4a16_llama_token_step(*step[:9], c8[0][0], length, nq, nkv, eps,
-                                        cache_scales=c8[0][1], **head)
-        ref = mk.w4a16_llama_token_step_plain(*step[:9], c8[1][0], length, nq, nkv, eps,
+        c8.append(tuple(x.clone() for x in c8[0]))
+        got = mk.w4a16_llama_token_step(*step[:9], c8[0][0], pos, nq, nkv, eps,
+                                        cache_scales=c8[0][1], max_length=bucket, **head)
+        ref = mk.w4a16_llama_token_step_plain(*step_host[:9], c8[1][0], length, nq, nkv, eps,
                                               cache_scales=c8[1][1], **head)
+        host = mk.w4a16_llama_token_step(*step_host[:9], c8[2][0], length, nq, nkv, eps,
+                                         cache_scales=c8[2][1], **head)
         torch.cuda.synchronize()
         check_int8_write(torch, "megakernel_token_int8", c8[0], c8[1],
                          [x[:, None] for x in got[1:3]], one, at, tol_deep)
-        ms = timer(lambda: mk.w4a16_llama_token_step(*step[:9], c8[0][0], length, nq, nkv, eps,
-                                                     cache_scales=c8[0][1], **head))
+        k4_same("megakernel_token_int8", got, host)
+        if not all(torch.equal(x, y) for x, y in zip(c8[0], c8[2])):
+            raise AssertionError("megakernel_token_int8: the device-position launch wrote "
+                                 "other codes or scales than the host-length launch")
+        c8.pop()
+        ms = timer(lambda: mk.w4a16_llama_token_step(*step[:9], c8[0][0], pos, nq, nkv, eps,
+                                                     cache_scales=c8[0][1], max_length=bucket,
+                                                     **head))
         plain_ms = timer(lambda: mk.w4a16_llama_token_step_plain(
-            *step[:9], c8[1][0], length, nq, nkv, eps, cache_scales=c8[1][1], **head), reps=2)
-        record("megakernel_token_int8", f"{L} layers + W4 head, len={length}", got, ref,
+            *step_host[:9], c8[1][0], length, nq, nkv, eps, cache_scales=c8[1][1], **head),
+            reps=2)
+        record("megakernel_token_int8", f"{L} layers + W4 head, len={length} (device "
+               f"position, bucket {bucket + 1})", got, ref,
                tol_deep, ms, plain_ms, bf16_token_ms,
                L * (layer_bytes + kv8_pos * (length + 1)) + head_bytes, token_flops,
                yard="K4 over the bf16 cache, same step")
         for x, y in zip(*c8):     # the token step wrote both: start the layer entry equal
             x.copy_(y)
-        got = mk.w4a16_llama_layer_step(*step[:9], c8[0][0], layer, length, nq, nkv, eps,
+        got = mk.w4a16_llama_layer_step(*step_host[:9], c8[0][0], layer, length, nq, nkv, eps,
                                         cache_scales=c8[0][1])
-        ref = mk.w4a16_llama_layer_step_plain(*step[:9], c8[1][0], layer, length, nq, nkv, eps,
-                                              cache_scales=c8[1][1])
+        ref = mk.w4a16_llama_layer_step_plain(*step_host[:9], c8[1][0], layer, length, nq, nkv,
+                                              eps, cache_scales=c8[1][1])
         torch.cuda.synchronize()
         pick = torch.arange(L, device=dev) == layer         # only layer `layer` is written
         check_int8_write(torch, "megakernel_layer_int8",
@@ -1328,10 +1389,11 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
         for x, y in zip(c8[0], c8[1]):
             if not torch.equal(x[~pick], y[~pick]):
                 raise AssertionError("megakernel_layer_int8: the kernel wrote another layer")
-        ms = timer(lambda: mk.w4a16_llama_layer_step(*step[:9], c8[0][0], layer, length, nq, nkv,
-                                                     eps, cache_scales=c8[0][1]))
+        ms = timer(lambda: mk.w4a16_llama_layer_step(*step_host[:9], c8[0][0], layer, length,
+                                                     nq, nkv, eps, cache_scales=c8[0][1]))
         plain_ms = timer(lambda: mk.w4a16_llama_layer_step_plain(
-            *step[:9], c8[1][0], layer, length, nq, nkv, eps, cache_scales=c8[1][1]), reps=3)
+            *step_host[:9], c8[1][0], layer, length, nq, nkv, eps, cache_scales=c8[1][1]),
+            reps=3)
         record("megakernel_layer_int8", f"layer {layer} len={length}", got, ref, tol_layer, ms,
                plain_ms, layer_ms[length], layer_bytes + kv8_pos * (length + 1),
                layer_flops + 4.0 * nq * hd * (length + 1),
@@ -1365,7 +1427,10 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
                    L * (s * layer_flops + 4.0 * nq * hd * pairs))
     check_chunk_twice(torch, f"megakernel_chunk{sfx}_bf16", mkc, step)
     # the f32 and f16 caches' units on windows of their own (a generator of
-    # their own, so that the cases after them keep their data)
+    # their own, so that the cases after them keep their data); K6's cases
+    # below are drawn once more from the stream as it runs on from here
+    # when these windows come from ``gen`` (check_k6_other_stream)
+    k5_state = gen.get_state()
     gen_t = torch.Generator(device=dev).manual_seed(8765)
     for dt, tag in ((torch.float32, "f32"), (torch.float16, "f16")):
         cache_t = cache.to(dt)
@@ -1515,7 +1580,77 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
                yard=f"contiguous K6, same rows (outputs {'equal' if same else 'differ'})")
         del pool, pool_ref, step, step_ref, got, got_p, ref
         torch.cuda.empty_cache()
+    if not w3:
+        check_k6_other_stream(torch, cfg, params, k5_state, t_b, tol_deep)
     del params
+
+
+def k4_same(name, got, host):
+    """K4's launch with its position in device memory against the launch
+    given the same length as a host int: every output bit-equal."""
+    if not all(x.dtype == y.dtype and bool((x == y).all()) for x, y in zip(got, host)):
+        raise AssertionError(f"{name}: the device-position launch differs from the "
+                             "host-length launch")
+    log(f"  {name}: the device-position launch is bit-equal to the host-length launch "
+        "(outputs, k/v, logits)")
+
+
+def check_k6_other_stream(torch, cfg, params, state, t_b, tol):
+    """K6's 32-row int8 case on the data it drew when K5's f32/f16 windows
+    shared K6's generator: the random stream from ``state`` (taken where
+    those windows are drawn) runs through the windows' draws and the draws
+    of the 8-row and 32-row K6 cases in order, and the 32-row int8 case is
+    checked as above (its written cache within ``tol`` of the plain
+    version's, the rest of the cache bit-equal). This window failed the
+    written-cache check with K6's W4 codes biased by 2^7."""
+    from awq_tpu_torch.models import llama
+    from awq_tpu_torch.ops import megakernel_batched as mkb
+
+    dev = "cuda"
+    g = torch.Generator(device=dev)
+    g.set_state(state)
+    h_dim, nq, nkv, hd, L = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
+                             cfg.head_dim, cfg.num_layers)
+    for _ in range(2):                     # the f32 and f16 caches' windows
+        for s in (16, 32):
+            for _ in (0, 700):
+                torch.randn((s, h_dim), generator=g, device=dev)
+    cos, sin = llama.rope_table(cfg, t_b, device=dev)
+    for b in (8, 32):
+        ragged = [700 + (i * 97) % 600 for i in range(b)]
+        ragged[1] = 0
+        cache_b = llama.init_kv_cache(cfg, b, t_b)
+        cache_b.normal_(generator=g)
+        n_pages = 1 + sum(n // 256 + 1 for n in ragged)   # scatter_pages' draws
+        torch.randperm(n_pages - 1, generator=g, device=dev)
+        torch.randn((L, 2, 1, nkv, 256, hd), generator=g, device=dev)
+        h = (torch.randn((b, h_dim), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+        if b == 8:
+            del cache_b
+            continue
+        lens = torch.tensor(ragged, dtype=torch.int32, device=dev)
+        c8 = quantize_cache(torch, cache_b)
+        del cache_b
+        torch.cuda.empty_cache()
+        c8 = [c8, tuple(x.clone() for x in c8)]
+        la = params["layers"]
+        args8 = (la["wqkv"], la["wo"], la["wgateup"], la["down"], la["ln1"], la["ln2"],
+                 cos[lens.long()], sin[lens.long()])
+        kw = dict(whead=params["lm_head"], norm_w=params["norm"], max_length=max(ragged))
+        got8 = mkb.w4a16_llama_token_step_batched(h, *args8, c8[0][0], lens, nq, nkv,
+                                                  cfg.rms_eps, cache_scales=c8[0][1], **kw)
+        ref8 = mkb.w4a16_llama_token_step_batched_plain(h, *args8, c8[1][0], lens, nq, nkv,
+                                                        cfg.rms_eps, cache_scales=c8[1][1],
+                                                        **kw)
+        torch.cuda.synchronize()
+        name = "megakernel_batched_int8 B=32 (K5's f32/f16 windows on K6's stream)"
+        rows, at = torch.arange(b, device=dev), lens.long()
+        check_int8_write(torch, name, c8[0], c8[1], got8[1:3], rows, at, tol)
+        for i, (x, r) in enumerate(zip(got8, ref8)):
+            check(f"{name} output {i}", x, r, tol)
+        log(f"  {name}: the written cache and the outputs hold")
+        del c8, got8, ref8
+        torch.cuda.empty_cache()
 
 
 def host_ms(torch, fn, reps: int = 20) -> float:
@@ -1755,53 +1890,405 @@ def phase_serve(torch, layers: int):
 
 def serve_single(torch, engine, cfg, labels):
     """Phase 3's four requests through ``engine`` once per path of
-    ``labels`` (SERVE_PATHS), the launch counts set to 0 just before and
-    read just after each; then a profile of decode steps. Returns {label:
-    launches}, {label: the requests' greedy ids} and {label: their TTFTs, ms}."""
+    ``labels`` (SERVE_PATHS), three times:
+
+    1. the main path's run: the launch counts set to 0 just before, the
+       requests under torch.profiler, the launches read just after. On a
+       card a decode burst replays a captured step, which calls no wrapper:
+       the wrappers' counts (their calls: the prefills, and a bucket's
+       warm-up step and capture) are printed, and a kernel that a replay
+       holds counts the kernels of its symbol in the device trace
+       (``trace_launches``); one that no graph holds (a prefill's) counts
+       its wrapper calls, which are its launches. The trace is held to the
+       launches these imply (``trace_short``, printed: CUPTI can drop a
+       record). The calls and the launches must be non-zero for the path's
+       kernels and zero for the kernels off it;
+    2. unprofiled, on the graphs the first run captured: TTFT and ms/token,
+       the ids equal to the first run's;
+    3. with the engine's loop taken away: the forward loop (a ``forward``
+       call a token at a host position, the decode of the engine before the
+       graphs). On K4, which splits its attention by the position it reads,
+       its ids must equal the graph's bit for bit; on the stacked path, whose
+       attention kernels plan for the burst's bucket on the graph and for
+       the length in the forward loop, how many are equal is printed.
+
+    Then the host's time to queue a replay, a profile of replayed steps and
+    the graphs' count, capture time and pool. Returns {label: launches},
+    {label: the requests' greedy ids} and {label: their TTFTs, ms}."""
     from awq_tpu_torch.config import GenConfig
+    from awq_tpu_torch.models.llama import decode_step_on_k4
 
     wbytes = weight_bytes(engine.params)
     kv_row = cache_bytes(engine.cache) // engine.max_seq_len   # bytes/position
     gen = GenConfig(greedy=True, max_new_tokens=32)
-    out_launches, out_ids, out_ttft = {}, {}, {}
-    for label in labels:
-        disable, must, off = SERVE_PATHS[label]
-        set_config(disable)
-        log(f"  [{label}] AWQ_TPU_DISABLE_MEGAKERNEL={disable or 'unset'}")
-        engine.warmup()
-        rng = torch.Generator().manual_seed(7)
-        reset_counters()
-        results, ids_all = [], []
-        for i, (n, fresh) in enumerate(REQUESTS):
+    prompts = request_prompts(cfg)
+    loop = engine.loop
+
+    def run():
+        ids_all, tms, spans = [], [], []
+        for i, ((n, fresh), prompt) in enumerate(zip(REQUESTS, prompts)):
             if fresh:
                 engine.reset()
-            prompt = torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
             start = engine.start_pos
             out = engine.generate(prompt, gen)
             ids = out["output_ids"]
             if len(ids) != 32 or int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab_size:
                 raise AssertionError(f"request {i + 1}: bad output ids {ids.tolist()}")
             ids_all.append(ids.tolist())
-            tm = out["timing"]
-            fed = engine.start_pos - start - 31          # prompt plus a pending id
-            mean_pos = start + fed + 16
-            gb_tok = (wbytes + kv_row * mean_pos) / 1e9
+            tms.append(out["timing"])
+            spans.append((start, engine.start_pos))
+        return ids_all, tms, spans
+
+    out_launches, out_ids, out_ttft = {}, {}, {}
+    for label in labels:
+        disable, must, off = SERVE_PATHS[label]
+        set_config(disable)
+        on_k4 = decode_step_on_k4(engine.params, engine.cfg, engine.cache, 1)
+        log(f"  [{label}] AWQ_TPU_DISABLE_MEGAKERNEL={disable or 'unset'}; decode loop: "
+            f"{'graph (a captured step replayed a token)' if loop else 'forward'}")
+        engine.warmup()
+        before = set(loop.graphs) if loop is not None else set()
+        reset_counters()
+        prof, (ids_all, tms, _) = traced(torch, run)
+        calls = read_counters()
+        captured = len(set(loop.graphs) - before) if loop is not None else 0
+        t0 = time.perf_counter()
+        launches = trace_launches(prof, calls)
+        del prof
+        log(f"  [{label}] main path's run (profiled): decode loop "
+            f"{sorted({tm['loop'] for tm in tms})}, {captured} graphs captured; wrapper calls "
+            f"{nonzero(calls)}; device launches (trace, {time.perf_counter() - t0:.1f} s to "
+            f"read) {nonzero(launches)}")
+        log(f"  [{label}] greedy ids: {json.dumps(ids_all)}")
+        check_path(label + " (wrapper calls)", calls, must, off)
+
+        again, tms, spans = run()
+        if again != ids_all:
+            compare_ids(f"{label} replayed", again, ids_all, "the main path's run")
+            raise AssertionError(f"[{label}] the unprofiled run's ids differ")
+        for i, ((n, _), tm, (start, end)) in enumerate(zip(REQUESTS, tms, spans)):
+            fed = end - start - 31                       # prompt plus a pending id
+            gb_tok = (wbytes + kv_row * (start + fed + 16)) / 1e9
             ms_tok = tm["ms_per_token"]
-            log(f"  [{label}] request {i + 1}: prompt {n} (+{fed - n} pending) at "
+            log(f"  [{label} {tm['loop']}] request {i + 1}: prompt {n} (+{fed - n} pending) at "
                 f"start_pos {start}: TTFT {tm['ttft_s'] * 1e3:.2f} ms, {ms_tok:.3f} "
                 f"ms/token over 31 decode steps, {gb_tok:.3f} GB/token streamed, "
                 f"{gb_tok / ms_tok * 1e3:.1f} GB/s effective")
-            results.append(dict(prompt=n, start_pos=start, ttft_ms=tm["ttft_s"] * 1e3,
-                                ms_per_token=ms_tok, gb_per_token=gb_tok))
-        launches = read_counters()
-        log(f"  [{label}] launches during the four requests: {launches}")
-        log(f"  [{label}] greedy ids: {json.dumps(ids_all)}")
+        ms_graph = tms[-1]["ms_per_token"]
+        out_ttft[label] = [tm["ttft_s"] * 1e3 for tm in tms]
+
+        if loop is not None:
+            engine.loop = None
+            try:
+                fwd, ftms, _ = run()
+            finally:
+                engine.loop = loop
+            log(f"  [{label} forward] ms/token by request: "
+                + " / ".join(f"{tm['ms_per_token']:.3f}" for tm in ftms)
+                + " (the forward loop: done read after every step)")
+            if fwd == ids_all:
+                log(f"  [{label}] the graph's greedy ids equal the forward loop's, bit for bit")
+            elif on_k4:
+                compare_ids(f"{label} forward", fwd, ids_all, "the graph's")
+                raise AssertionError(f"[{label}] the graph's ids differ from the forward "
+                                     "loop's on K4")
+            else:
+                compare_ids(f"{label} forward", fwd, ids_all, "the graph's (the stacked "
+                            "attention plans for the bucket on the graph, for the length "
+                            "in the forward loop)")
+            per_step = profile_replays(torch, engine, cfg, label, ms_graph, calls)
+            # a kernel that no graph holds launches where its wrapper is
+            # called: its calls are its launches, and the trace's count of
+            # it only checks the trace
+            steps = len(REQUESTS) * (gen.max_new_tokens - 1)
+            short = trace_short(launches, calls, per_step, steps, captured)
+            launches = {k: (v if per_step.get(k) else calls.get(k, v))
+                        for k, v in launches.items()}
+            log(f"  [{label}] launches: the wrapper calls of the kernels no graph holds, the "
+                f"trace's count of those a replay holds ({nonzero(per_step)} a replay, "
+                f"{steps - captured} of the {steps} decode steps replays): "
+                f"{nonzero(launches)}; "
+                + (f"the trace is short of the launches this implies: {short} (CUPTI drops "
+                   "records)" if short else "the trace holds every launch this implies"))
         check_path(label, launches, must, off)
         out_launches[label], out_ids[label] = launches, ids_all
-        out_ttft[label] = [r["ttft_ms"] for r in results]
-        profile_decode(torch, engine, results[-1]["ms_per_token"], label)
     set_config(None)
     return out_launches, out_ids, out_ttft
+
+
+def nonzero(d):
+    return {k: v for k, v in d.items() if v}
+
+
+def traced(torch, fn):
+    """``fn()`` under torch.profiler (device activity), the device drained
+    and left idle a moment before and after it; returns the profiler and
+    ``fn``'s result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    return prof, out
+
+
+def trace_short(launches, calls, per_step, steps, captured):
+    """Where a run's trace holds another count of kernels than the run
+    launched. A counter's launches are its wrapper calls (the prefills',
+    and each captured graph's warm-up step and capture, which runs nothing)
+    plus, for each of the ``steps`` decode steps that was no warm-up, the
+    launches a replay holds (``per_step``, from a trace of replays,
+    rounded): {counter: (traced, implied)} where the two differ."""
+    out = {}
+    for k, n in launches.items():
+        if k in TRACE_SYMBOLS and (calls.get(k) or per_step.get(k)):
+            want = calls.get(k, 0) + (steps - 2 * captured) * round(per_step.get(k, 0))
+            if n != want:
+                out[k] = (n, want)
+    return out
+
+
+# each launch counter's kernel: a regex on the symbol a device trace shows
+# (the kernel that one wrapper call launches once; a split-K reduce or an
+# epilogue after it is not counted). W3 units share their W4 symbols: a
+# symbol that several counters match counts for the one the run called.
+TRACE_SYMBOLS = {
+    "megakernel_token": r"token_kernel<(float|__nv_bfloat16|__half), 0>",
+    "megakernel_token_w3": r"token_kernel<(float|__nv_bfloat16|__half), 0>",
+    "megakernel_token_int8": r"token_kernel<(signed )?char, 0>",
+    "megakernel_chunk": r"chunk_kernel<", "megakernel_chunk_w3": r"chunk_kernel<",
+    "w4a16_gemv": r"w4a16_gemv_kernel<[^,<>]+, false",
+    "w3a16_gemv": r"w4a16_gemv_kernel<[^,<>]+, true",
+    "w4a16_gemm": r"w4a16_wgmma_kernel<[^,<>]+, [^,<>]+, false",
+    "w3a16_gemm": r"w4a16_wgmma_kernel<[^,<>]+, [^,<>]+, true",
+    "flash_decode": r"flash_decode_kernel<.*ContigKV",
+    "flash_decode_int8": r"flash_decode_kernel<.*Int8KV",
+    "flash_decode_layer": r"flash_decode_kernel<.*LayerKV",
+    "flash_prefill": r"flash_prefill(_wgmma)?_kernel",
+    "cache_append": r"cache_append_kernel", "cache_append_int8": r"cache_append_int8_kernel",
+    "w8a8_gemm": r"w8a8_wgmma_kernel", "w4a8_gemm": r"w4a8_wgmma_kernel",
+    "quant_per_token": r"quant_per_token_kernel",
+}
+
+
+def trace_launches(prof, calls):
+    """The launches of a profiled run by counter: each counter of
+    TRACE_SYMBOLS counts the device trace's kernels of its symbol (where
+    several match, the one the wrappers called in the run, ``calls``);
+    other counters keep their calls."""
+    import re
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    names = Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+    out = {k: (0 if k in TRACE_SYMBOLS else v) for k, v in calls.items()}
+    for name, n in names.items():
+        keys = [k for k, pat in TRACE_SYMBOLS.items() if re.search(pat, name)]
+        called = [k for k in keys if calls.get(k)]
+        if len(called) > 1:
+            raise AssertionError(f"the trace's {name} matches the counters {called}")
+        for k in called or keys:
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def request_prompts(cfg):
+    """Phase 3's four prompts (the generator ``serve_single`` draws them from)."""
+    import torch
+
+    rng = torch.Generator().manual_seed(7)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+            for n, _ in REQUESTS]
+
+
+def profile_replays(torch, engine, cfg, label, ms_ref: float, calls, steps: int = 16):
+    """After the requests: the host's time to queue ``steps`` replays of the
+    engine's captured step at the dialogue's end (no sync between), a
+    profile of ``steps`` replays (device time, kernels, idle share against
+    ``ms_ref``), and the loop's graphs: count, capture seconds and pool.
+    Returns each counter's launches a replay, from that profile (a symbol
+    that several counters match counts for the one in ``calls``)."""
+    from awq_tpu_torch.config import GenConfig
+    from awq_tpu_torch.runtime.generate import plan_bound
+
+    loop = engine.loop
+    pos = engine.start_pos
+    first = torch.zeros((1,), dtype=torch.long, device="cuda")
+    seen = torch.zeros((1, cfg.vocab_size), dtype=torch.bool, device="cuda")
+    loop.begin(first, pos, [], seen, GenConfig(greedy=True),
+               plan_bound(engine.max_seq_len, pos + 2 * steps + 2))
+    loop.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loop.step()
+    host = (time.perf_counter() - t0) / steps * 1e3
+    torch.cuda.synchronize()
+    dev_ms = (time.perf_counter() - t0) / steps * 1e3
+    log(f"  [{label} graph] host {host:.3f} ms a step to queue {steps} replays at position "
+        f"{pos + 1}, {dev_ms:.3f} ms a step to the last one's end")
+    prof = profile_steps(torch, lambda i: loop.step(), ms_ref, f"{label} graph",
+                         f"position {pos + steps + 1}", "ms/token", steps)
+    log(f"  [{label}] graphs so far: {len(loop.graphs)} captured (one a length bucket and "
+        f"path), {loop.capture_s * 1e3:.1f} ms of capture, pool "
+        f"{loop.pool_bytes / 2**20:.1f} MiB")
+    engine.reset()
+    return {k: v / steps for k, v in trace_launches(prof, calls).items()
+            if k in TRACE_SYMBOLS and v}
+
+
+def phase_serve_checkpoint(torch, layers: int, single_ids):
+    """Phase 3i: phase 3's model (``init_qparams`` from seed 0, W4 g128)
+    saved with the port's ``save_checkpoint`` under ``build/``, loaded back
+    (every array equal), then served: an ``InferenceEngine`` with a W4 head
+    over the loaded checkpoint takes phase 3's four requests as
+    ``serve_single`` drives them (the graph's ids equal to phase 3's and to
+    the forward loop's), one sampled round on the graph and on the forward
+    loop from one seed (ids equal), then behind ``ModelWorker`` as
+    ``input_ids`` over HTTP (localhost), each reply's ids equal to phase
+    3's. Last, K4 with
+    its position in device memory against the host-length launch at the
+    served lengths."""
+    import shutil
+
+    from awq_tpu_torch.config import GenConfig, ModelConfig, QuantConfig, RuntimeConfig
+    from awq_tpu_torch.models.llama import init_qparams
+    from awq_tpu_torch.runtime.engine import InferenceEngine
+    from awq_tpu_torch.serve.http import post_stream
+    from awq_tpu_torch.serve.worker import ModelWorker
+    from awq_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg = ModelConfig(**{**LLAMA3_8B, "num_layers": layers})
+    qcfg = QuantConfig(w_bit=4, group_size=G)
+    params = init_qparams(cfg, qcfg, torch.Generator(device="cuda").manual_seed(0))
+    out_dir = Path(__file__).resolve().parent / "build" / "smoke_checkpoint"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    path = str(out_dir / "llama3_8b_w4_random")
+    t0 = time.perf_counter()
+    nbytes = save_checkpoint(path, params, cfg, qcfg)
+    t1 = time.perf_counter()
+    loaded, lcfg, lq = load_checkpoint(path)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"  checkpoint: {nbytes / 1e9:.3f} GB written in {t1 - t0:.2f} s, loaded onto the card "
+        f"in {t2 - t1:.2f} s (the page cache warm: just written)")
+
+    def same(a, b, at="params"):
+        if isinstance(a, dict):
+            if sorted(a) != sorted(b):
+                raise AssertionError(f"{at}: keys differ")
+            for k in a:
+                same(a[k], b[k], f"{at}/{k}")
+        elif isinstance(a, torch.Tensor):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"{at}: arrays differ")
+        elif hasattr(a, "qweight"):
+            for f in ("qweight", "scales", "szeros"):
+                same(getattr(a, f), getattr(b, f), f"{at}.{f}")
+            if (a.w_bit, a.group_size, a.dense3) != (b.w_bit, b.group_size, b.dense3):
+                raise AssertionError(f"{at}: formats differ")
+        elif a is not None or b is not None:
+            raise AssertionError(f"{at}: {type(a).__name__} against {type(b).__name__}")
+
+    same(loaded, params)
+    if lcfg != cfg or lq != qcfg:
+        raise AssertionError("the loaded configs differ")
+    log("  checkpoint: every array and both configs equal the saved ones")
+    del params
+    engine = InferenceEngine(lcfg, loaded, RuntimeConfig(max_seq_len=2048, quantize_head=True))
+    del loaded
+    shutil.rmtree(out_dir, ignore_errors=True)
+    launches, ids, _ = serve_single(torch, engine, cfg, ("megakernels",))
+    if ids["megakernels"] != single_ids:
+        compare_ids("checkpoint", ids["megakernels"], single_ids, "phase 3's")
+        raise AssertionError("the loaded checkpoint's ids differ from phase 3's")
+    log("  [checkpoint] the four requests' ids equal phase 3's, bit for bit")
+    # a sampled round (the worker's default sampling) replayed on its own
+    # graph, against the forward loop from the same seed
+    sgen = GenConfig(temperature=0.7, top_p=0.9, top_k=40, max_new_tokens=32)
+    loop, got = engine.loop, {}
+    for mode in ("graph", "forward"):
+        engine.reset()
+        engine.loop = loop if mode == "graph" else None
+        try:
+            out = engine.generate(request_prompts(cfg)[0], sgen,
+                                  generator=torch.Generator(device="cuda").manual_seed(21))
+        finally:
+            engine.loop = loop
+        if out["timing"]["loop"] != mode:
+            raise AssertionError(f"[sampled] the decode ran {out['timing']['loop']}, not {mode}")
+        got[mode] = out["output_ids"].tolist()
+        log(f"  [sampled {mode}] {out['timing']['ms_per_token']:.3f} ms/token over 31 steps "
+            f"(temperature 0.7, top-p 0.9, top-k 40, seed 21): {got[mode]}")
+    if got["graph"] != got["forward"]:
+        raise AssertionError("[sampled] the graph's ids differ from the forward loop's")
+    log("  [sampled] the graph's ids equal the forward loop's from the same seed, bit for bit")
+    engine.warmup()
+    worker = ModelWorker(engine, "llama3-8b-w4-random", port=0)
+    worker.start()
+    try:
+        got = []
+        for (n, fresh), prompt in zip(REQUESTS, request_prompts(cfg)):
+            chunks = list(post_stream(worker.url + "/worker_generate_stream", dict(
+                input_ids=prompt, greedy=True, max_new_tokens=32, stream_interval=8,
+                continue_dialogue=not fresh), timeout=300))
+            last = chunks[-1]
+            if last.get("error_code") or not last.get("finished"):
+                raise AssertionError(f"worker: request of {n} tokens answered {last}")
+            got.append(last["ids"])
+            tm = last["timing"]
+            log(f"  [worker] request of {n} tokens: {len(chunks)} chunks, TTFT "
+                f"{tm['ttft_s'] * 1e3:.2f} ms, {tm['ms_per_token']:.3f} ms/token streamed "
+                f"(ids read every 8 steps), decode loop {tm['loop']}")
+    finally:
+        worker.stop()
+    if got != single_ids:
+        compare_ids("worker", got, single_ids, "phase 3's")
+        raise AssertionError("worker: the streamed ids differ from phase 3's")
+    log("  [worker] the four replies' ids equal phase 3's, bit for bit")
+    k4_bucket_cost(torch, engine, cfg)
+    del engine, worker
+    torch.cuda.empty_cache()
+    return {"checkpoint": launches["megakernels"]}
+
+
+def k4_bucket_cost(torch, engine, cfg) -> None:
+    """K4 (the served model's, W4 head in the kernel) at lengths 48, 300 and
+    1000, given the length as a host int against the position in device
+    memory with the workspace sized for the bucket the served requests take
+    there (256, 512, 2048 positions) and for the whole cache: the outputs
+    bit-equal, and CUDA event medians of 20 calls, L2 flushed."""
+    from awq_tpu_torch.models.llama import _rope_cached
+    from awq_tpu_torch.ops import megakernel as mk
+
+    la = engine.params["layers"]
+    args = (la["wqkv"], la["wo"], la["wgateup"], la["down"], la["ln1"], la["ln2"])
+    kw = dict(nq=cfg.num_heads, nkv=cfg.num_kv_heads, eps=cfg.rms_eps,
+              whead=engine.params["lm_head"], norm_w=engine.params["norm"])
+    cos, sin = _rope_cached(cfg, engine.max_seq_len, torch.device("cuda"))
+    h = torch.zeros((1, cfg.hidden_size), dtype=torch.bfloat16, device="cuda")
+    timer = Timer(torch, reps=20)
+    for length, bucket in ((48, 255), (300, 511), (1000, 2047)):
+        pos = torch.tensor([length], dtype=torch.int32, device="cuda")
+        exact = timer(lambda: mk.w4a16_llama_token_step(h, *args, cos[length], sin[length],
+                                                        engine.cache, length, **kw))
+        at_bucket = timer(lambda: mk.w4a16_llama_token_step(h, *args, cos, sin, engine.cache,
+                                                            pos, max_length=bucket, **kw))
+        at_full = timer(lambda: mk.w4a16_llama_token_step(h, *args, cos, sin, engine.cache, pos,
+                                                          max_length=engine.max_seq_len - 1,
+                                                          **kw))
+        k4_same(f"megakernel_token len={length} bucket {bucket + 1}",
+                mk.w4a16_llama_token_step(h, *args, cos, sin, engine.cache, pos,
+                                          max_length=bucket, **kw),
+                mk.w4a16_llama_token_step(h, *args, cos[length], sin[length], engine.cache,
+                                          length, **kw))
+        log(f"  K4 at length {length}: {exact:.4f} ms given the length as a host int, "
+            f"{at_bucket:.4f} ms with the position in device memory (workspace for its bucket "
+            f"of {bucket + 1} positions), {at_full:.4f} ms (workspace for the whole cache)")
 
 
 def phase_serve_falcon(torch, layers: int):
@@ -1832,7 +2319,7 @@ def phase_serve_falcon(torch, layers: int):
     torch.cuda.reset_peak_memory_stats()      # serving's peak, the build left out
     launches, ids, _ = serve_single(torch, engine, cfg, ("falcon",))
     steps = len(REQUESTS) * 31                  # decode steps: 32 new tokens a request
-    per_step = launches["falcon"]["flash_decode_layer"] / steps
+    per_step = round(launches["falcon"]["flash_decode_layer"] / steps)
     log(f"  [falcon] K14 launches per decode step {per_step:g} (one per layer), K3 launches "
         f"per prompt {launches['falcon']['flash_prefill'] / len(REQUESTS):g}")
     if per_step != layers:
@@ -2092,30 +2579,6 @@ def phase_serve_int8_prefill(torch, cfg, params, ref):
     return out_launches
 
 
-def profile_decode(torch, engine, ms_per_token: float, label: str,
-                   steps: int = 8) -> None:
-    """Device time of decode steps by kernel, from a torch.profiler trace of
-    ``steps`` forward calls after the last request, against the request's
-    unprofiled ms/token: the rest of the step is the device's idle share."""
-    from awq_tpu_torch.models.llama import forward
-
-    tok = torch.zeros((1, 1), dtype=torch.long, device="cuda")
-    pos = engine.start_pos
-    # host-side rate: forward calls back to back, one sync at the end
-    for at in (64, pos):
-        forward(engine.params, engine.cfg, tok, engine.cache, at)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(steps):
-            forward(engine.params, engine.cfg, tok, engine.cache, at + 1 + i)
-        torch.cuda.synchronize()
-        log(f"  [{label}] {steps} forward calls at position {at + 1}, no sync between: "
-            f"{(time.perf_counter() - t0) / steps * 1e3:.3f} ms/step")
-    profile_steps(torch, lambda i: forward(engine.params, engine.cfg, tok, engine.cache,
-                                           pos + 1 + i),
-                  ms_per_token, label, f"position {pos + 1}", "ms/token", steps)
-
-
 KERNEL_GROUPS = {"megakernel_attn_half": tuple(f"token_kernel<{t}, 1>" for t in (
                      "float", "__nv_bfloat16", "__half", "signed char", "char")),
                  "megakernel_mlp_half": ("token_kernel<__nv_bfloat16, 2>",),
@@ -2138,7 +2601,7 @@ def profile_steps(torch, run_step, ms_ref: float, label: str, where: str, unit: 
     """A torch.profiler trace of ``steps`` calls of ``run_step(i)``: the host's
     time per step and its top operations, the device time per step by kernel,
     the kernels per step, and the device's idle share against ``ms_ref``, the
-    unprofiled time of such a step."""
+    unprofiled time of such a step. Returns the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2167,13 +2630,14 @@ def profile_steps(torch, run_step, ms_ref: float, label: str, where: str, unit: 
         us[key] += e.time_range.elapsed_us()
     if not n_kernels:
         log(f"  [{label}] profiler: no device events recorded; no breakdown")
-        return
+        return prof
     busy_ms = sum(us.values()) / steps / 1e3
     parts = ", ".join(f"{k} {v / steps / 1e3:.3f}" for k, v in us.items() if v)
     log(f"  [{label}] decode step device time (torch.profiler, {steps} steps at "
         f"{where}): {busy_ms:.3f} ms/step busy [{parts}], "
         f"{n_kernels / steps:.0f} kernels/step; against {ms_ref:.3f} "
         f"{unit} unprofiled the device is idle {1 - busy_ms / ms_ref:.1%}")
+    return prof
 
 
 BATCH_PROMPTS = (16, 24, 200, 1000)     # in rotation over the twelve requests
@@ -3035,6 +3499,11 @@ def main() -> int:
                                                                               args.layers)
     w4 = dict(weight_bytes=weight_bytes(params), single_peak=single_peak)
 
+    stamp(f"phase 3i: phase 3's model through a checkpoint and the worker, {args.layers} layers: "
+          "saved and loaded by the port, served by ModelWorker over HTTP, and the four requests "
+          "on the graph-replayed and the eager decode")
+    launches.update(phase_serve_checkpoint(torch, args.layers, single_ids))
+
     stamp(f"phase 3b: serve twelve requests through an 8-slot BatchEngine, {args.layers} "
         "layers, on the batched megakernel and on the stacked batched path")
     batched, ids, peaks = phase_serve_batched(torch, cfg, params)
@@ -3170,8 +3639,10 @@ def main() -> int:
             "quant_per_token": "M=1000 IC=4096",
             "megakernel_attn_half": "tp=2 layer 5 len=1000", "megakernel_mlp_half": "tp=2 ",
             "flash_decode_layer": "len=1000 B=1 nq=71", "flash_prefill_hd64": "S=512 start=700"}
-    # launches: each kernel's count on its own path's run in phases 3, 3b
-    # and 3c (the stacked path carries K1-K3, the megakernels K4-K5, the
+    # launches: each kernel's count on its own path's main run in phases 3,
+    # 3b and 3c; on the single-stream paths, whose decode replays a captured
+    # step, the count of its symbol in that run's device trace (serve_single)
+    # (the stacked path carries K1-K3, the megakernels K4-K5, the
     # batched engine K6, its stacked path K7, the paged engine K6's and K7's
     # paged modes and K8, with the default pool; phase 3d's int8 runs K4's
     # and K6's int8 modes, and on the stacked paths K9 and K7's int8 mode;

@@ -62,13 +62,14 @@ def _old_split(max_length: int, rows: int) -> tuple:
 class Build:
     """One library's four entries behind one call signature per kernel."""
 
-    def __init__(self, so: Path, planned: bool):
+    def __init__(self, so: Path, planned: bool, dev_len: bool = False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        self.lib, self.planned = ctypes.CDLL(str(so)), planned
+        self.lib, self.planned, self.dev_len = ctypes.CDLL(str(so)), planned, dev_len
         sigs = ({"awq_flash_decode": [P] * 6 + [I] * 8 + [F] + [I] * 3 + [P],
                  "awq_flash_decode_paged": [P] * 7 + [I] * 10 + [F] + [I] * 3 + [P],
                  "awq_flash_decode_int8": [P] * 7 + [I] * 8 + [F, I, P],
-                 "awq_flash_decode_layer": [P] * 4 + [I] * 10 + [F, I, I, P]} if planned else
+                 "awq_flash_decode_layer": [P] * (4 + dev_len) + [I] * 10 + [F, I, I, P]}
+                if planned else
                 {"awq_flash_decode": [P] * 8 + [I] * 6 + [F] + [I] * 3 + [P],
                  "awq_flash_decode_paged": [P] * 9 + [I] * 8 + [F] + [I] * 3 + [P],
                  "awq_flash_decode_int8": [P] * 9 + [I] * 6 + [F, I, P],
@@ -90,9 +91,13 @@ class Build:
             nkv, t = k.shape[1], k.shape[2]
             if self.planned:
                 p = da.decode_plan(b, nq, nkv, hd, length, 2, da.PLAN_UNIT["flash_decode_layer"])
+                # a build whose K14 can read its length on the device takes a
+                # null pointer for a host length
+                ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()) + (
+                    (None,) if self.dev_len else ())
                 err = self.lib.awq_flash_decode_layer(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nkv, t,
-                    length, hd, p.cluster, p.per, p.stages, p.smem, scale, bf16, bf16, stream)
+                    *ptrs, b, nq, nkv, t, length, hd, p.cluster, p.per, p.stages, p.smem,
+                    scale, bf16, bf16, stream)
             else:
                 ns, sl = _old_split(length, b * nkv * -(-(nq // nkv) // 8))
                 ml, acc = self._parts(torch, bufs, b, nkv, ns, nq // nkv, hd)
@@ -251,7 +256,8 @@ def main() -> int:
     procs = [build(src, so) for src, so in srcs.values()]
     if any(p.wait() for p in procs):
         return 1
-    builds = {name: Build(so, "part_ml" not in src.read_text())
+    builds = {name: Build(so, "part_ml" not in src.read_text(),
+                          "const int* lenp" in src.read_text())
               for name, (src, so) in srcs.items()}
     print("builds: " + "; ".join(f"{n} ({'planned, one launch' if b.planned else 'split + combine'})"
                                  for n, b in builds.items()), flush=True)

@@ -117,13 +117,14 @@ def variant(src: str, name: str) -> str:
             src = sub(o, n)
     elif name == "hint":
         src = sub("ring_wait(&", "hop::mbar_wait(&")
-    elif name == "biased":        # W3 (and K5's) codes biased by 128 as K6's W4
-        src = sub("  if constexpr (EXACT_CODES) {\n    const __nv_bfloat162 c = __float2bfloat162_rn(128.f + CENTER);",
-                  "  if constexpr (false) {\n    const __nv_bfloat162 c = __float2bfloat162_rn(128.f + CENTER);")
-        src = sub("const float zc0 = EXACT_CODES ? fmaf(-static_cast<float>(CENTER), sc.x, sz.x)",
-                  "const float zc0 = false ? fmaf(-static_cast<float>(CENTER), sc.x, sz.x)")
-        src = sub("const float zc1 = EXACT_CODES ? fmaf(-static_cast<float>(CENTER), sc.y, sz.y)",
-                  "const float zc1 = false ? fmaf(-static_cast<float>(CENTER), sc.y, sz.y)")
+    elif name == "biased":        # every unit's codes biased by 128 (JAX's identity), as
+                                  # K6's W4 took them before its codes were centred
+        src = sub("  const __nv_bfloat162 c = __float2bfloat162_rn(128.f + CENTER);",
+                  "  const __nv_bfloat162 c = __float2bfloat162_rn(0.f);")
+        src = sub("const float zc0 = fmaf(-static_cast<float>(CENTER), sc.x, sz.x);",
+                  "const float zc0 = fmaf(128.f, sc.x, sz.x);")
+        src = sub("const float zc1 = fmaf(-static_cast<float>(CENTER), sc.y, sz.y);",
+                  "const float zc1 = fmaf(128.f, sc.y, sz.y);")
     elif name == "xcheck":        # results right; records group sums that disagree
         src = sub("// ---- the matmul phases' schedule", XCHECK_DEF + "\n// ---- the matmul phases' schedule")
         src = sub("    const int c0 = win_lo(d, win), wc = win_lo(d, win + 1) - c0;\n",

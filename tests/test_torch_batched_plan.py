@@ -227,8 +227,8 @@ def _sched(plan, kinds, grid):
         xb = x.to(torch.bfloat16).float()
         xs = _group_sums(xb, kinds[id(ql)] in ("qkv", "gateup", "head"))    # [b, ng]
         q = tmk.unpack_codes(qw, ql.dense3).reshape(ng, 128, oc)
-        # W4: codes biased by 128 (the JAX kernels' identity); W3: exact codes
-        bias = 0.0 if ql.dense3 else 128.0
+        # W4: codes centred, q - 8; W3: exact codes
+        bias = 0.0 if ql.dense3 else -8.0
         dot = torch.einsum("bgk,gkc->gbc", xb.reshape(b, ng, 128), q + bias)
         contrib = dot * s[:, None, :] - xs.t()[:, :, None] * (bias * s + z)[:, None, :]
         gpc = kc // 128                           # groups a chunk

@@ -392,9 +392,10 @@ def test_batched_kernel_rows_match_plain_on_card(cuda, b, w3, monkeypatch):
     the plain version and to JAX's interpret-mode kernel), and the whole
     outputs hold to the plain version as above. A row is held to the
     emulation, not to the plain version: W4's group identity with codes
-    biased by 128 (JAX's) moves single rows of this random model by up to
+    biased by 128 (JAX's) moved single rows of this random model by up to
     3.4% of their own largest value in f32 on the CPU too
-    (scripts/exp_batched_rows.py)."""
+    (scripts/exp_batched_rows.py); K6 now takes its W4 codes centred (q -
+    8), and so does the emulation."""
     import dataclasses
 
     from test_torch_batched_plan import _sched
