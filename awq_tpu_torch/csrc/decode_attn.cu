@@ -33,6 +33,15 @@
 // The four differ only in where a position's K and V rows are (an address
 // functor: ContigKV, PagedKV, Int8KV, LayerKV) and in the current token
 // (a compile-time flag CUR, set for K2, K8 and K9).
+// ALiBi (MPT, BLOOM; K2 and K14, the JAX kernel's has_bias; the unit
+// decode_attn_alibi, -DAWQ_ALIBI=1): slopes f32 [nq] in device memory, the
+// score of position t gains slope * t before the running max, and K2's
+// current token slope * len_b, as decode_attn.py:130-140 and :218-219 add it
+// (the row-relative slope * (t - len_b) differs by a constant of the row,
+// which the softmax drops). The bias is compiled in, never tested at run
+// time: a runtime branch on a null pointer, not taken, cost K2 3-7% and K3's
+// head_dim-64 mode 5% against the parent build (scripts/ab_flash_decode.py,
+// ab_prefill_attn.py), so the unit without it is the parent's code.
 //
 // What bounds it: the K and V bytes of the rows' prefixes, read once, at
 // 3.35 TB/s (16.4 MB at Llama-3-8B B=1, length 4000: 4.9 us); each byte
@@ -119,11 +128,23 @@
 //   (about 3 significant digits) for mma.sync m16n8k16 with f32 sums.
 // Both keep f32 accumulators, the online max and sum in f32 and P rounded
 // to bf16 (f16 over an f16 cache) for P·V; the [S, T] score matrix never
-// exists in memory.
+// exists in memory. ALiBi: with a slopes pointer both add the row-relative
+// slope * (j - i) of query position i and key j to the f32 score in the
+// exp2 domain (slope * log2(e)), before the running max, as the TPU kernel
+// does (decode_attn.py:597-618): the scores stay bounded at long prompts,
+// where slope * j would reach 512 at 2048 positions and an f32 ulp there
+// is 6e-5.
 #include "common.cuh"
 #include "hopper.cuh"
 
 #include <type_traits>
+
+#ifndef AWQ_ALIBI
+#define AWQ_ALIBI 0
+#endif
+// The unit's mode: decode_attn (every entry without slopes), or
+// decode_attn_alibi (K2, K3 and K14 with ALiBi slopes, entries *_alibi).
+constexpr bool UNIT_ALIBI = AWQ_ALIBI;
 
 namespace {
 
@@ -243,6 +264,7 @@ struct DecodeArgs {
   void* out;
   int qdt, kdt, nq, nkv, per, stages;
   float scale;
+  const float* slopes;   // ALiBi slopes [nq] f32, or null
 };
 
 // Shared memory of one block, in bytes (ops/decode_attn.py::decode_plan
@@ -411,7 +433,8 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
         for (int e = 0; e < QC; ++e) part = fmaf(v[u][e], kn[u][e], part);
 #pragma unroll
         for (int o = CPQ / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-        if (c < nqc && c % CPQ == 0 && r < g) sc[r] = part;
+        if (c < nqc && c % CPQ == 0 && r < g)
+          sc[r] = UNIT_ALIBI ? part + a.slopes[h * g + r] * (float)len : part;
       }
     }
   }
@@ -431,6 +454,14 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float slope[2] = {0.f, 0.f};   // ALiBi: rows gq, gq + 8 of row tile mt
+  if constexpr (UNIT_ALIBI) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = mt * 16 + gq + 8 * r;
+      slope[r] = row < g ? a.slopes[h * g + row] : 0.f;
+    }
+  }
 
   for (int i = 0; i < ntiles; ++i) {
     hop::cp_async_wait_pending(a.stages - 2);   // tile i has landed (this thread's copies)
@@ -536,6 +567,11 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
         if constexpr (I8) {
           sa *= kscale[col];
           sb *= kscale[col];
+        }
+        if constexpr (UNIT_ALIBI) {
+          const float pos = (float)(t0 + col);
+          sa += slope[0] * pos;
+          sb += slope[1] * pos;
         }
         s[j][e] = live ? sa : NEG_INF;
         s[j][2 + e] = live ? sb : NEG_INF;
@@ -842,7 +878,8 @@ __device__ __forceinline__ uint4 load8(const E* p) {
 template <typename E, int D>
 __global__ void __launch_bounds__(128) flash_prefill_kernel(
     const void* __restrict__ q, const E* __restrict__ cache, void* __restrict__ out,
-    int qdt, int B, int S, int nq, int nkv, int T, int start_pos, float scale_log2) {
+    int qdt, int B, int S, int nq, int nkv, int T, int start_pos, float scale_log2,
+    const float* __restrict__ slopes) {
   using MT = typename MmaOf<E>::type;
   __shared__ __align__(16) MT ks[PF_BKV][D + PF_PAD];
   __shared__ __align__(16) MT vs[PF_BKV][D + PF_PAD];
@@ -876,6 +913,8 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
   float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
   const int pos_a = start_pos + ra, pos_b = start_pos + rb;
+  // ALiBi: this head's slope in the exp2 domain
+  const float sl2 = UNIT_ALIBI ? slopes[h] * 1.4426950408889634f : 0.f;
 
   const int last_row = min(qb * PF_BQ + PF_BQ, S) - 1;
   const int kv_end = min(start_pos + last_row + 1, T);  // causal frontier
@@ -914,8 +953,13 @@ __global__ void __launch_bounds__(128) flash_prefill_kernel(
       for (int e = 0; e < 2; ++e) {
         const int key = j0 + nt * 8 + 2 * tq + e;
         const bool live = key < kv_end;
-        sc[nt][e] = (live && key <= pos_a) ? sc[nt][e] * scale_log2 : NEG_INF;
-        sc[nt][2 + e] = (live && key <= pos_b) ? sc[nt][2 + e] * scale_log2 : NEG_INF;
+        float va = sc[nt][e] * scale_log2, vb = sc[nt][2 + e] * scale_log2;
+        if constexpr (UNIT_ALIBI) {
+          va += sl2 * (float)(key - pos_a);
+          vb += sl2 * (float)(key - pos_b);
+        }
+        sc[nt][e] = (live && key <= pos_a) ? va : NEG_INF;
+        sc[nt][2 + e] = (live && key <= pos_b) ? vb : NEG_INF;
         mx_a = fmaxf(mx_a, sc[nt][e]);
         mx_b = fmaxf(mx_b, sc[nt][2 + e]);
       }
@@ -1025,7 +1069,7 @@ template <typename MT, int D>
 __global__ void __launch_bounds__(k3::THREADS, 1) flash_prefill_wgmma_kernel(
     const __grid_constant__ CUtensorMap kvmap, const void* __restrict__ q,
     void* __restrict__ out, int qdt, int B, int S, int nq, int nkv, int start_pos,
-    int n_tiles, float scale_log2) {
+    int n_tiles, float scale_log2, const float* __restrict__ slopes) {
   constexpr int NP = D / 64;                 // 128-byte panels along head_dim
   constexpr int BKV = k3::bkv<D>();
   constexpr int QP = k3::BQ * 128;           // one Q panel
@@ -1093,6 +1137,13 @@ __global__ void __launch_bounds__(k3::THREADS, 1) flash_prefill_wgmma_kernel(
 #pragma unroll
   for (int h = 0; h < 2; ++h) lim[h] = start_pos + min(r0 + rl + 8 * h, rows - 1) / g;
   const int lim_min = start_pos + r0 / g;    // tiles at or below it need no mask
+  // ALiBi: each row's head's slope in the exp2 domain
+  float sl2[2] = {0.f, 0.f};
+  if constexpr (UNIT_ALIBI) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      sl2[h] = slopes[kvh * g + min(r0 + rl + 8 * h, rows - 1) % g] * 1.4426950408889634f;
+  }
   float o[NO], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < NO; ++i) o[i] = 0.f;
@@ -1120,6 +1171,19 @@ __global__ void __launch_bounds__(k3::THREADS, 1) flash_prefill_wgmma_kernel(
     const int j0 = j * BKV;
     const bool masked = j0 + BKV - 1 > lim_min;
     float mx[2] = {NEG_INF, NEG_INF};
+    if constexpr (UNIT_ALIBI) {   // + slope * (key - query position), key = rel + 8jj + e
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float rel = (float)(j0 + 2 * (lane & 3) - lim[h]);
+#pragma unroll
+        for (int jj = 0; jj < BKV / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = s[4 * jj + 2 * h + e];
+            v = fmaf(v, scale_log2, sl2[h] * (rel + (float)(8 * jj + e)));
+          }
+      }
+    }
 #pragma unroll
     for (int jj = 0; jj < BKV / 8; ++jj)
 #pragma unroll
@@ -1128,7 +1192,7 @@ __global__ void __launch_bounds__(k3::THREADS, 1) flash_prefill_wgmma_kernel(
         for (int e = 0; e < 2; ++e) {
           float& v = s[4 * jj + 2 * h + e];
           const int key = j0 + 8 * jj + 2 * (lane & 3) + e;
-          v = (!masked || key <= lim[h]) ? v * scale_log2 : NEG_INF;
+          v = (!masked || key <= lim[h]) ? (UNIT_ALIBI ? v : v * scale_log2) : NEG_INF;
           mx[h] = fmaxf(mx[h], v);
         }
     float ref[2], alpha[2], sum[2] = {0.f, 0.f};
@@ -1203,7 +1267,7 @@ __global__ void __launch_bounds__(k3::THREADS, 1) flash_prefill_wgmma_kernel(
 template <typename MT, int D>
 int prefill_wgmma(const void* q, const void* cache, void* out, int B, int S, int nq, int nkv,
                   int T, int start_pos, int n_tiles, float scale_log2, int qdt,
-                  cudaStream_t st) {
+                  const float* slopes, cudaStream_t st) {
   static int smem_set = 0;
   constexpr int BKV = k3::bkv<D>();
   const int bytes = 1024 + (D / 64) * k3::BQ * 128 + k3::STAGES * (2 * (D / 64) * BKV * 128 + 16);
@@ -1214,7 +1278,7 @@ int prefill_wgmma(const void* q, const void* cache, void* out, int B, int S, int
   if (!err) err = hop::allow_smem(kernel, bytes, &smem_set);
   if (err) return err;
   kernel<<<n_tiles * B * nkv, k3::THREADS, bytes, st>>>(map, q, out, qdt, B, S, nq, nkv,
-                                                        start_pos, n_tiles, scale_log2);
+                                                        start_pos, n_tiles, scale_log2, slopes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1238,25 +1302,27 @@ int run_layer(const void* kc, const void* vc, int nkv, int T, int length, const 
   const LayerKV<E, D> kv{static_cast<const E*>(kc), static_cast<const E*>(vc), nkv, T, length,
                          lenp};
   if (a.nq / nkv <= 32) return launch_decode<D, 16, false>(kv, a, B, cluster, smem, st);
-  return launch_decode<D, 32, false>(kv, a, B, cluster, smem, st);
+  // the ALiBi families are MHA: their unit builds no wide-group instance
+  if constexpr (UNIT_ALIBI) return static_cast<int>(cudaErrorNotSupported);
+  else return launch_decode<D, 32, false>(kv, a, B, cluster, smem, st);
 }
 
 template <int D>
 int run_prefill(const void* q, const void* cache, void* out, int B, int S, int nq, int nkv,
                 int T, int start_pos, int n_tiles, float scale_log2, int qdt, int cdt,
-                cudaStream_t st) {
+                const float* slopes, cudaStream_t st) {
   switch (cdt) {
     case 0: {
       const dim3 grid(cdiv(S, PF_BQ), nq, B);
       flash_prefill_kernel<float, D><<<grid, 128, 0, st>>>(
           q, static_cast<const float*>(cache), out, qdt, B, S, nq, nkv, T, start_pos,
-          scale_log2);
+          scale_log2, slopes);
       return static_cast<int>(cudaGetLastError());
     }
     case 1: return prefill_wgmma<bf16, D>(q, cache, out, B, S, nq, nkv, T, start_pos, n_tiles,
-                                          scale_log2, qdt, st);
+                                          scale_log2, qdt, slopes, st);
     case 2: return prefill_wgmma<__half, D>(q, cache, out, B, S, nq, nkv, T, start_pos,
-                                            n_tiles, scale_log2, qdt, st);
+                                            n_tiles, scale_log2, qdt, slopes, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1270,18 +1336,32 @@ int run_prefill(const void* q, const void* cache, void* out, int B, int S, int n
 // The plan (ops/decode_attn.py::decode_plan): `cluster` blocks of `per`
 // positions (a multiple of 64, cluster * per >= max(lengths)) for each
 // (row, kv head), `stages` ring stages, `smem` bytes of shared memory.
-extern "C" int awq_flash_decode(const void* q, const void* k_new, const void* v_new,
-                                const void* cache, const void* lengths, void* out, int B,
-                                int nq, int nkv, int T, int cluster, int per, int stages,
-                                int smem, float scale, int qdt, int kdt, int cdt,
-                                void* stream) {
-  const DecodeArgs a{q, k_new, v_new, out, qdt, kdt, nq, nkv, per, stages, scale};
+// The entries of the unit decode_attn take no slopes (the signatures the A/B
+// scripts call in another tree's build); those of decode_attn_alibi
+// (AWQ_ALIBI) are K2's, K3's and K14's with `slopes`, f32 [nq] in device
+// memory, before the stream.
+static int decode_entry(const void* q, const void* k_new, const void* v_new,
+                        const void* cache, const void* lengths, void* out, int B, int nq,
+                        int nkv, int T, int cluster, int per, int stages, int smem, float scale,
+                        int qdt, int kdt, int cdt, const void* slopes, void* stream) {
+  const DecodeArgs a{q,   k_new, v_new, out,    qdt,   kdt,
+                     nq,  nkv,   per,   stages, scale, static_cast<const float*>(slopes)};
   auto make = [&](auto tag) {
     using E = typename decltype(tag)::Elem;
     return ContigKV<E>{static_cast<const E*>(cache), static_cast<const int*>(lengths), B, nkv,
                        T};
   };
   return run_typed<ContigKV>(cdt, make, a, B, cluster, smem, stream);
+}
+
+#if !AWQ_ALIBI
+extern "C" int awq_flash_decode(const void* q, const void* k_new, const void* v_new,
+                                const void* cache, const void* lengths, void* out, int B,
+                                int nq, int nkv, int T, int cluster, int per, int stages,
+                                int smem, float scale, int qdt, int kdt, int cdt,
+                                void* stream) {
+  return decode_entry(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, cluster, per, stages,
+                      smem, scale, qdt, kdt, cdt, nullptr, stream);
 }
 
 // K8: as awq_flash_decode, over one layer of the page pool, pool
@@ -1324,21 +1404,32 @@ extern "C" int awq_flash_decode_int8(const void* q, const void* k_new, const voi
 // a multiple of nkv; n_tiles = ceil(S * nq / nkv / 128), the host plan's
 // row tiles (ops/decode_attn.py::prefill_plan; the f32 mode ignores it);
 // scale_log2 = log2(e) / sqrt(hd).
-extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, int B,
-                                 int S, int nq, int nkv, int T, int start_pos, int hd,
-                                 int n_tiles, float scale_log2, int qdt, int cdt,
-                                 void* stream) {
+#endif
+static int prefill_entry(const void* q, const void* cache, void* out, int B, int S, int nq,
+                         int nkv, int T, int start_pos, int hd, int n_tiles, float scale_log2,
+                         int qdt, int cdt, const void* slopes, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sl = static_cast<const float*>(slopes);
   if (nq % nkv || n_tiles != cdiv(S * (nq / nkv), k3::BQ))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 64: return run_prefill<64>(q, cache, out, B, S, nq, nkv, T, start_pos, n_tiles,
-                                    scale_log2, qdt, cdt, st);
+                                    scale_log2, qdt, cdt, sl, st);
     case 128: return run_prefill<128>(q, cache, out, B, S, nq, nkv, T, start_pos, n_tiles,
-                                      scale_log2, qdt, cdt, st);
+                                      scale_log2, qdt, cdt, sl, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+#if !AWQ_ALIBI
+extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, int B,
+                                 int S, int nq, int nkv, int T, int start_pos, int hd,
+                                 int n_tiles, float scale_log2, int qdt, int cdt,
+                                 void* stream) {
+  return prefill_entry(q, cache, out, B, S, nq, nkv, T, start_pos, hd, n_tiles, scale_log2,
+                       qdt, cdt, nullptr, stream);
+}
+#endif
 
 // K14: q [B, nq, hd] contiguous of qdt; k_cache, v_cache [B, nkv, T, hd],
 // each contiguous and 16-byte aligned, of cdt; positions [0, length)
@@ -1346,13 +1437,13 @@ extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, in
 // g = nq / nkv <= 128; the plan as for awq_flash_decode. With `lengths` (an
 // int32 in device memory, for every row) the length is read there, and
 // `length` is its host bound, which the plan covers.
-extern "C" int awq_flash_decode_layer(const void* q, const void* k_cache,
-                                      const void* v_cache, void* out, const void* lengths,
-                                      int B, int nq, int nkv, int T, int length, int hd,
-                                      int cluster, int per, int stages, int smem, float scale,
-                                      int qdt, int cdt, void* stream) {
+static int layer_entry(const void* q, const void* k_cache, const void* v_cache, void* out,
+                       const void* lengths, int B, int nq, int nkv, int T, int length, int hd,
+                       int cluster, int per, int stages, int smem, float scale, int qdt,
+                       int cdt, const void* slopes, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const DecodeArgs a{q, nullptr, nullptr, out, qdt, 0, nq, nkv, per, stages, scale};
+  const DecodeArgs a{q,   nullptr, nullptr, out,    qdt,   0,
+                     nq,  nkv,     per,     stages, scale, static_cast<const float*>(slopes)};
   if (nq % nkv || nq / nkv > 128 || length < 1 || length > T)
     return static_cast<int>(cudaErrorInvalidValue);
 #define AWQ_LAYER(D_, E_) \
@@ -1374,3 +1465,41 @@ extern "C" int awq_flash_decode_layer(const void* q, const void* k_cache,
 #undef AWQ_LAYER
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#if AWQ_ALIBI
+extern "C" int awq_flash_decode_alibi(const void* q, const void* k_new, const void* v_new,
+                                      const void* cache, const void* lengths, void* out,
+                                      int B, int nq, int nkv, int T, int cluster, int per,
+                                      int stages, int smem, float scale, int qdt, int kdt,
+                                      int cdt, const void* slopes, void* stream) {
+  return decode_entry(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, cluster, per, stages,
+                      smem, scale, qdt, kdt, cdt, slopes, stream);
+}
+
+extern "C" int awq_flash_prefill_alibi(const void* q, const void* cache, void* out, int B,
+                                       int S, int nq, int nkv, int T, int start_pos, int hd,
+                                       int n_tiles, float scale_log2, int qdt, int cdt,
+                                       const void* slopes, void* stream) {
+  return prefill_entry(q, cache, out, B, S, nq, nkv, T, start_pos, hd, n_tiles, scale_log2,
+                       qdt, cdt, slopes, stream);
+}
+
+extern "C" int awq_flash_decode_layer_alibi(const void* q, const void* k_cache,
+                                            const void* v_cache, void* out,
+                                            const void* lengths, int B, int nq, int nkv, int T,
+                                            int length, int hd, int cluster, int per,
+                                            int stages, int smem, float scale, int qdt,
+                                            int cdt, const void* slopes, void* stream) {
+  return layer_entry(q, k_cache, v_cache, out, lengths, B, nq, nkv, T, length, hd, cluster, per,
+                     stages, smem, scale, qdt, cdt, slopes, stream);
+}
+#else
+extern "C" int awq_flash_decode_layer(const void* q, const void* k_cache,
+                                      const void* v_cache, void* out, const void* lengths,
+                                      int B, int nq, int nkv, int T, int length, int hd,
+                                      int cluster, int per, int stages, int smem, float scale,
+                                      int qdt, int cdt, void* stream) {
+  return layer_entry(q, k_cache, v_cache, out, lengths, B, nq, nkv, T, length, hd, cluster, per,
+                     stages, smem, scale, qdt, cdt, nullptr, stream);
+}
+#endif

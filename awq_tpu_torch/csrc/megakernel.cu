@@ -93,9 +93,30 @@
 // on the rank's gate/up columns and down rows and writes down's f32
 // partial. The caller all-reduces each partial over the group and adds the
 // residual (models/llama.py). Bound by the rank's weight bytes, as K4.
+// The MPT shape (Pallas rows 15-16's mpt_shape, megakernel.py:883-899;
+// units megakernel_mpt and megakernel_mpt_w3, -DAWQ_MEGA_MPT=1, MODE_LAYERS
+// over float caches only): per layer
+//   x = layernorm(h)·ln1 (no bias); qkv = x @ W(wqkv); no rope;
+//   attention with the ALiBi bias slope_h·t on the score of position t
+//   (the current token's at `length`), slope_h = 2^(-8(h+1)/nq) computed
+//   from the head index (nq a power of two), as _alibi_chunk_slopes does;
+//   h1 = h + attn @ W(wo); xm = layernorm(h1)·ln2;
+//   hm = gelu(xm @ W(up)) with the exact erf GELU; h = h1 + hm @ W(down)
+// and the final LayerNorm before the head. The LayerNorm takes the mean in
+// one block sum and the variance of the centred row in a second, both over
+// the row held in registers (E[x²] − E[x]² in one pass would lose the
+// variance where the residual's mean dominates). Up is a plain [H, I]
+// stack: I/32 tiles of 32 columns (512 at MPT-7B's I = 16384), down's staged
+// row I/2 words (32 KB); the attention scratch stays the larger region, so
+// the shared memory and the grid are llama's.
 // Activations live in a device workspace that the wrapper allocates; the
 // kernel allocates nothing.
 #include "mega_common.cuh"
+
+#ifndef AWQ_MEGA_MPT
+#define AWQ_MEGA_MPT 0
+#endif
+constexpr bool UNIT_MPT = AWQ_MEGA_MPT;   // the unit's layer shape: llama, or MPT
 
 namespace {
 
@@ -226,6 +247,68 @@ __device__ void stage_rms(uint32_t* xa, float* xsum, const float* src, const voi
   group_sums(xa, xsum, n);
 }
 
+// xa = permuted bf16((src − mean) · rsqrt(var + eps) · w), the bias-free
+// LayerNorm of the MPT shape: the mean in one block sum, the variance of the
+// centred values in a second, f32, the row and its weights loaded once (a
+// longer row than 2·SU·256 values read twice).
+__device__ void stage_ln(uint32_t* xa, float* xsum, const float* src, const void* w,
+                         int md, int n, float eps, float* red) {
+  if (n / 2 > SU * MK_THREADS) {
+    float s1 = 0.f;
+    for (int i = threadIdx.x * 4; i < n; i += MK_THREADS * 4) {
+      const float4 v = *reinterpret_cast<const float4*>(src + i);
+      s1 += v.x + v.y + v.z + v.w;
+    }
+    const float mean = block_sum(s1, red) / n;
+    float ss = 0.f;
+    for (int i = threadIdx.x * 4; i < n; i += MK_THREADS * 4) {
+      const float4 v = *reinterpret_cast<const float4*>(src + i);
+      const float a = v.x - mean, b = v.y - mean, c = v.z - mean, d = v.w - mean;
+      ss += a * a + b * b + c * c + d * d;
+    }
+    const float rs = rsqrtf(block_sum(ss, red) / n + eps);
+    stage_x(xa, xsum, n, [&](int i) { return (src[i] - mean) * rs * load_act(w, md, i); });
+    return;
+  }
+  float lo[SU], hi[SU], wl[SU], wh[SU], s1 = 0.f;
+#pragma unroll
+  for (int u = 0; u < SU; ++u) {
+    const int p = threadIdx.x + u * MK_THREADS, i = slot_channel(p);
+    const bool ok = p < n / 2;
+    lo[u] = ok ? src[i] : 0.f;
+    hi[u] = ok ? src[i + 32] : 0.f;
+    wl[u] = ok ? load_act(w, md, i) : 0.f;
+    wh[u] = ok ? load_act(w, md, i + 32) : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < SU; ++u) s1 += lo[u] + hi[u];
+  const float mean = block_sum(s1, red) / n;
+  float ss = 0.f;
+#pragma unroll
+  for (int u = 0; u < SU; ++u) {
+    if (threadIdx.x + u * MK_THREADS < n / 2) {
+      lo[u] -= mean;
+      hi[u] -= mean;
+    }
+    ss += lo[u] * lo[u] + hi[u] * hi[u];
+  }
+  const float rs = rsqrtf(block_sum(ss, red) / n + eps);
+#pragma unroll
+  for (int u = 0; u < SU; ++u) {
+    const int p = threadIdx.x + u * MK_THREADS;
+    if (p < n / 2) xa[p] = pack_bf16x2(lo[u] * rs * wl[u], hi[u] * rs * wh[u]);
+  }
+  group_sums(xa, xsum, n);
+}
+
+// The layer shape's norm: RMSNorm, or the MPT shape's LayerNorm.
+__device__ __forceinline__ void stage_norm(uint32_t* xa, float* xsum, const float* src,
+                                           const void* w, int md, int n, float eps,
+                                           float* red) {
+  if constexpr (UNIT_MPT) stage_ln(xa, xsum, src, w, md, n, eps, red);
+  else stage_rms(xa, xsum, src, w, md, n, eps, red);
+}
+
 __device__ void stage_copy(uint32_t* xa, float* xsum, const float* src, int n) {
   stage_x(xa, xsum, n, [&](int i) { return src[i]; });
 }
@@ -338,8 +421,8 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
   // the position: from device memory (a captured decode step reads it
   // there at every replay), kept inside the cache
   const int length = a.pos ? min(max(*a.pos, 0), a.T - 1) : a.length;
-  const float* cosr = a.cosr + (a.pos ? (size_t)length * a.rope_ld : 0);
-  const float* sinr = a.sinr + (a.pos ? (size_t)length * a.rope_ld : 0);
+  const float* cosr = UNIT_MPT ? nullptr : a.cosr + (a.pos ? (size_t)length * a.rope_ld : 0);
+  const float* sinr = UNIT_MPT ? nullptr : a.sinr + (a.pos ? (size_t)length * a.rope_ld : 0);
   // the attention split, from the length itself: a launch that reads its
   // position in device memory sums in the order of a launch given that
   // length as a host int, whatever bound its workspace was sized for
@@ -357,14 +440,15 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
   for (int li = 0; li < a.n_layers; ++li) {
     const int l = a.layer0 + li;
     if constexpr (ATT) {
-    // ---- phase 1: rmsnorm + fused QKV (+ bias) ---------------------------
+    // ---- phase 1: rmsnorm (MPT: layernorm) + fused QKV (+ bias) ----------
     {
       const int nt = oq / TILE;
       const int32_t* w = a.qkv_w + (size_t)l * qrows(H, UNIT_W3) * oq;
       const float* s = a.qkv_s + (size_t)l * (H / MK_G) * oq;
       const float* z = a.qkv_z + (size_t)l * (H / MK_G) * oq;
-      if (vb < nt) stage_rms(xa, xsum, hres, static_cast<const char*>(a.ln1) + (size_t)l * H * es,
-                             a.md, H, a.eps, red);
+      if (vb < nt) stage_norm(xa, xsum, hres,
+                              static_cast<const char*>(a.ln1) + (size_t)l * H * es, a.md, H,
+                              a.eps, red);
       for (int t = vb; t < nt; t += gridDim.x) {
         const float v = gemv_tile(xa, xsum, w, s, z, H, oq, t * TILE, red);
         if (tid < TILE) {
@@ -374,7 +458,7 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
       }
     }
     grid.sync();
-    // ---- phase 2: rope + attention slices + the in-place append ----------
+    // ---- phase 2: rope (MPT: ALiBi) + attention slices + the in-place append
     {
       float* sq = xs;                               // [MK_MAXG][128] q·scale
       float* kc = sq + MK_MAXG * MK_HD;             // [128] current k (roped)
@@ -391,12 +475,19 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
         const int p1 = min(p0 + split_len, length + 1);
         for (int i = tid; i < grp * MK_HD; i += MK_THREADS) {
           const int g = i / MK_HD, d = i % MK_HD;
-          sq[i] = rope_at(qkv + (kvh * grp + g) * MK_HD, cosr, sinr, d) * scale;
+          const float* qr = qkv + (kvh * grp + g) * MK_HD;
+          sq[i] = (UNIT_MPT ? qr[d] : rope_at(qr, cosr, sinr, d)) * scale;
         }
         for (int d = tid; d < MK_HD; d += MK_THREADS) {
-          kc[d] = rope_at(qkv + (nq + kvh) * MK_HD, cosr, sinr, d);
+          const float* kr = qkv + (nq + kvh) * MK_HD;
+          kc[d] = UNIT_MPT ? kr[d] : rope_at(kr, cosr, sinr, d);
           vc[d] = qkv[(nq + nkv + kvh) * MK_HD + d];
         }
+        // MPT: the q heads' ALiBi slopes 2^(-8(h+1)/nq)
+        float slope[MK_MAXG];
+#pragma unroll
+        for (int g = 0; g < MK_MAXG; ++g)
+          slope[g] = UNIT_MPT ? exp2f(-(8.f / nq) * (float)(kvh * grp + g + 1)) : 0.f;
         __syncthreads();
         const size_t krow = (((size_t)l * 2 + 0) * nkv + kvh) * T;
         const size_t vrow = (((size_t)l * 2 + 1) * nkv + kvh) * T;
@@ -451,7 +542,8 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
               float dp = 0.f;
 #pragma unroll
               for (int e = 0; e < 4; ++e) dp = fmaf(sq[g * MK_HD + lane * 4 + e], kv4[u][e], dp);
-              const float sc = warp_sum(dp);
+              float sc = warp_sum(dp);
+              if constexpr (UNIT_MPT) sc += slope[g] * (float)(pb + u * MK_WARPS);
               const float mn = fmaxf(m[g], sc);
               const float alpha = expf(m[g] - mn);
               const float pr = expf(sc - mn);
@@ -517,18 +609,24 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
     if constexpr (MODE == MODE_LAYERS) grid.sync();
     }
     if constexpr (MLP) {
-    // ---- phase 5: rmsnorm + gate/up, SiLU·mul fused ---------------------------
+    // ---- phase 5: rmsnorm + gate/up, SiLU·mul fused (MPT: layernorm + up, GELU)
     {
-      const int nt = I / TILE, oc = 2 * I;
+      const int nt = I / TILE, oc = UNIT_MPT ? I : 2 * I;
       const int32_t* w = a.gu_w + (size_t)l * qrows(H, UNIT_W3) * oc;
       const float* s = a.gu_s + (size_t)l * (H / MK_G) * oc;
       const float* z = a.gu_z + (size_t)l * (H / MK_G) * oc;
-      if (vb < nt) stage_rms(xa, xsum, h1, static_cast<const char*>(a.ln2) + (size_t)l * H * es,
-                             a.md, H, a.eps, red);
+      if (vb < nt) stage_norm(xa, xsum, h1,
+                              static_cast<const char*>(a.ln2) + (size_t)l * H * es, a.md, H,
+                              a.eps, red);
       for (int t = vb; t < nt; t += gridDim.x) {
-        const float gt = gemv_tile(xa, xsum, w, s, z, H, oc, t * TILE, red);
-        const float up = gemv_tile(xa, xsum, w, s, z, H, oc, I + t * TILE, red);
-        if (tid < TILE) hm[t * TILE + tid] = gt * (1.f / (1.f + expf(-gt))) * up;
+        if constexpr (UNIT_MPT) {
+          const float up = gemv_tile(xa, xsum, w, s, z, H, oc, t * TILE, red);
+          if (tid < TILE) hm[t * TILE + tid] = 0.5f * up * (1.f + erff(up * 0.70710678118654752f));
+        } else {
+          const float gt = gemv_tile(xa, xsum, w, s, z, H, oc, t * TILE, red);
+          const float up = gemv_tile(xa, xsum, w, s, z, H, oc, I + t * TILE, red);
+          if (tid < TILE) hm[t * TILE + tid] = gt * (1.f / (1.f + expf(-gt))) * up;
+        }
       }
     }
     grid.sync();
@@ -558,9 +656,9 @@ __global__ void __launch_bounds__(MK_THREADS) token_kernel(TokenArgs a) {
   if constexpr (MODE != MODE_LAYERS) return;
   for (int i = gtid; i < H; i += gsize) store_act(a.h_out, a.md, i, hres[i]);
   if (a.vocab) {
-    // ---- final rmsnorm + W4 head -> f32 logits ----------------------------------
+    // ---- final rmsnorm (MPT: layernorm) + W4 head -> f32 logits ----------------
     const int nt = a.vocab / TILE;
-    if (vb < nt) stage_rms(xa, xsum, hres, a.norm_w, a.md, H, a.eps, red);
+    if (vb < nt) stage_norm(xa, xsum, hres, a.norm_w, a.md, H, a.eps, red);
     for (int t = vb; t < nt; t += gridDim.x) {
       const float v = gemv_tile(xa, xsum, a.hd_w, a.hd_s, a.hd_z, H, a.vocab, t * TILE, red);
       if (tid < TILE) a.logits[t * TILE + tid] = v;
@@ -605,7 +703,9 @@ const void* kernel_for(int cd) {
     case 0: return (const void*)token_kernel<float, MODE>;
     case 1: return (const void*)token_kernel<bf16, MODE>;
     case 2: return (const void*)token_kernel<__half, MODE>;
-    case 3: return (const void*)token_kernel<int8_t, MODE>;
+    case 3:
+      if constexpr (!UNIT_MPT) return (const void*)token_kernel<int8_t, MODE>;
+      [[fallthrough]];
     default: return nullptr;
   }
 }
@@ -616,26 +716,41 @@ int plan_mode(const int* n, Plan* p) {
     case 0: return plan_for<float, MODE>(n, p);
     case 1: return plan_for<bf16, MODE>(n, p);
     case 2: return plan_for<__half, MODE>(n, p);
-    case 3: return plan_for<int8_t, MODE>(n, p);
+    case 3:
+      if constexpr (!UNIT_MPT) return plan_for<int8_t, MODE>(n, p);
+      [[fallthrough]];
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// The MPT units hold K4 over float caches only: no int8 instance, no K12/K13
+// (templates, so that the discarded branch instantiates nothing).
+template <bool MPT = UNIT_MPT>
 int plan(const int* n, Plan* p) {
-  switch (n[N_MODE]) {
-    case MODE_LAYERS: return plan_mode<MODE_LAYERS>(n, p);
-    case MODE_ATT: return plan_mode<MODE_ATT>(n, p);
-    case MODE_MLP: return n[N_CD] == 1 ? plan_for<bf16, MODE_MLP>(n, p)
-                                       : static_cast<int>(cudaErrorInvalidValue);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (MPT) {
+    return n[N_MODE] == MODE_LAYERS ? plan_mode<MODE_LAYERS>(n, p)
+                                    : static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    switch (n[N_MODE]) {
+      case MODE_LAYERS: return plan_mode<MODE_LAYERS>(n, p);
+      case MODE_ATT: return plan_mode<MODE_ATT>(n, p);
+      case MODE_MLP: return n[N_CD] == 1 ? plan_for<bf16, MODE_MLP>(n, p)
+                                         : static_cast<int>(cudaErrorInvalidValue);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
+template <bool MPT = UNIT_MPT>
 const void* kernel(const int* n) {
-  switch (n[N_MODE]) {
-    case MODE_LAYERS: return kernel_for<MODE_LAYERS>(n[N_CD]);
-    case MODE_ATT: return kernel_for<MODE_ATT>(n[N_CD]);
-    default: return n[N_CD] == 1 ? (const void*)token_kernel<bf16, MODE_MLP> : nullptr;
+  if constexpr (MPT) {
+    return n[N_MODE] == MODE_LAYERS ? kernel_for<MODE_LAYERS>(n[N_CD]) : nullptr;
+  } else {
+    switch (n[N_MODE]) {
+      case MODE_LAYERS: return kernel_for<MODE_LAYERS>(n[N_CD]);
+      case MODE_ATT: return kernel_for<MODE_ATT>(n[N_CD]);
+      default: return n[N_CD] == 1 ? (const void*)token_kernel<bf16, MODE_MLP> : nullptr;
+    }
   }
 }
 
@@ -654,7 +769,10 @@ extern "C" long long awq_mega_token_ws(const void* const* ptrs, const int* n) {
 // [L, IC/8, OC] or with N_W3 W3 [L, IC*3/32, OC] (every linear and the
 // head), with f32 scales and szeros [L, IC/128, OC]; head_dim 128; nq/nkv
 // <= 8; every OC a multiple of 32; H, I and nq·128 multiples of 128 (of
-// 256 in W3); 0 <= length <= N_PLAN < T; batch 1. P_POS, where not null,
+// 256 in W3); 0 <= length <= N_PLAN < T; batch 1. An MPT unit
+// (AWQ_MEGA_MPT) takes MODE_LAYERS over a float cache, nq a power of two,
+// P_GW..P_GZ the up stack [L, H/8, I] and no rope tables (P_COS, P_SIN
+// unread). P_POS, where not null,
 // points to the position as an int32 in device memory (N_LEN is then not
 // read), and P_COS/P_SIN to the rope tables [T', 128] f32 rather than to
 // one row each. Cache dtype code 3 is int8 codes
@@ -668,7 +786,8 @@ extern "C" int awq_mega_token(const void* const* ptrs, const int* n, float eps,
   Plan p;
   int err = plan(n, &p);
   if (err) return err;
-  if (n[N_NQ] % n[N_NKV] || n[N_NQ] / n[N_NKV] > MK_MAXG || n[N_W3] != UNIT_W3)
+  if (n[N_NQ] % n[N_NKV] || n[N_NQ] / n[N_NKV] > MK_MAXG || n[N_W3] != UNIT_W3 ||
+      (UNIT_MPT && (n[N_NQ] & (n[N_NQ] - 1))))   // MPT: in-kernel slopes need nq = 2^k
     return static_cast<int>(cudaErrorInvalidValue);
   TokenArgs a;
   a.h_in = ptrs[P_H]; a.h_out = const_cast<void*>(ptrs[P_OUT]);

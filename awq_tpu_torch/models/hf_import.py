@@ -6,9 +6,11 @@ build tiny random ones) or a checkpoint directory holding ``config.json``
 and ``*.safetensors`` shards (or ``*.bin`` ones). Weights are transposed to
 the ``[IC, OC]`` convention and stacked on a leading layer axis, the tree
 :func:`~awq_tpu_torch.models.llama.forward` reads. The llama family
-(llama, mistral, qwen2) and falcon (7b-style MQA with one norm, and the
-40b-style grouped QKV with two) are ported; the other families raise,
-naming ROADMAP A12.
+(llama, mistral, qwen2), falcon (7b-style MQA with one norm, and the
+40b-style grouped QKV with two), MPT (the ``concat`` QKV of ``attn.Wqkv``)
+and BLOOM (the per-head ``neox`` interleave of ``query_key_value`` and the
+embedding LayerNorm) are ported; the other families raise, naming ROADMAP
+A12.
 
 Shards are read by :func:`read_safetensors`, a reader of the format
 itself (an 8-byte little-endian header length, a JSON header, then raw
@@ -106,7 +108,8 @@ def import_hf_model(model_or_path, dtype: str = "bfloat16",
     if dtype:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     builders = {"llama": _build_llama_params, "mistral": _build_llama_params,
-                "qwen2": _build_llama_params, "falcon": _build_falcon_params}
+                "qwen2": _build_llama_params, "falcon": _build_falcon_params,
+                "mpt": _build_mpt_params, "bloom": _build_bloom_params}
     if cfg.arch not in builders:
         raise NotImplementedError(f"importer: arch {cfg.arch!r}; the other decoder "
                                   "families are ROADMAP queue A, item 12")
@@ -136,11 +139,24 @@ def _stack_vec(cfg: ModelConfig, sd, fmt: str) -> torch.Tensor:
 
 def _split_qkv(cfg: ModelConfig, fused: Linear, layout: str) -> Dict[str, Linear]:
     """Split a stacked fused-QKV Linear ``[L, H, qkv_out]``: ``"concat"``
-    (q | k | v blocks: falcon-7b's q heads, its one k and one v) or
-    ``"grouped"`` (falcon's new_decoder_architecture: per kv group
-    ``[n_kv, q_per_group + 2, head_dim]``)."""
+    (q | k | v blocks: falcon-7b's q heads, its one k and one v; MPT),
+    ``"neox"`` (BLOOM's per-head ``[n_heads, 3, head_dim]`` interleave, HF
+    ``BloomAttention._split_heads``) or ``"grouped"`` (falcon's
+    new_decoder_architecture: per kv group ``[n_kv, q_per_group + 2,
+    head_dim]``)."""
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     w, b = fused.w, fused.b
+    if layout == "neox":
+        L, H, _ = w.shape
+        w3 = w.reshape(L, H, nq, 3, hd)
+        b3 = None if b is None else b.reshape(L, nq, 3, hd)
+
+        def part(j):
+            return Linear(w=w3[:, :, :, j].reshape(L, H, nq * hd).contiguous(),
+                          b=None if b3 is None
+                          else b3[:, :, j].reshape(L, nq * hd).contiguous())
+
+        return {"wq": part(0), "wk": part(1), "wv": part(2)}
     if layout == "grouped":
         L, H, _ = w.shape
         g = nq // nkv
@@ -175,6 +191,51 @@ def _build_llama_params(cfg: ModelConfig, sd) -> Params:
     if not cfg.tie_word_embeddings and "lm_head.weight" in sd:
         params["lm_head"] = sd["lm_head.weight"].T.to(dt).contiguous()
     return params
+
+
+def _build_mpt_params(cfg: ModelConfig, sd) -> Params:
+    """MPT (``awq_tpu/models/hf_import.py:290-306``): the fused ``attn.Wqkv``
+    in the ``concat`` layout, bias-free norms ``norm_1``/``norm_2``, the MLP
+    ``ffn.up_proj``/``ffn.down_proj``; the head is the tied embedding."""
+    dt = _dt(cfg)
+    pre = "transformer.blocks.{i}."
+    fused = _stack_lin(cfg, sd, pre + "attn.Wqkv")
+    layers: Params = {
+        "ln1": _stack_vec(cfg, sd, pre + "norm_1.weight"),
+        "ln2": _stack_vec(cfg, sd, pre + "norm_2.weight"),
+        **_split_qkv(cfg, fused, "concat"),
+        "wo": _stack_lin(cfg, sd, pre + "attn.out_proj"),
+        "up": _stack_lin(cfg, sd, pre + "ffn.up_proj"),
+        "down": _stack_lin(cfg, sd, pre + "ffn.down_proj"),
+    }
+    return {"embed": sd["transformer.wte.weight"].to(dt), "layers": layers,
+            "norm": sd["transformer.norm_f.weight"].to(dt)}
+
+
+def _build_bloom_params(cfg: ModelConfig, sd) -> Params:
+    """BLOOM (``awq_tpu/models/hf_import.py:332-366``): the fused
+    ``query_key_value`` in the per-head ``neox`` interleave, LayerNorms with
+    bias, the MLP ``dense_h_to_4h``/``dense_4h_to_h``, and the embedding's
+    ``word_embeddings_layernorm`` (``embed_ln_w``/``embed_ln_b``); the head
+    is the tied embedding."""
+    dt = _dt(cfg)
+    pre = "transformer.h.{i}."
+    fused = _stack_lin(cfg, sd, pre + "self_attention.query_key_value")
+    layers: Params = {
+        "ln1": _stack_vec(cfg, sd, pre + "input_layernorm.weight"),
+        "ln1_b": _stack_vec(cfg, sd, pre + "input_layernorm.bias"),
+        "ln2": _stack_vec(cfg, sd, pre + "post_attention_layernorm.weight"),
+        "ln2_b": _stack_vec(cfg, sd, pre + "post_attention_layernorm.bias"),
+        **_split_qkv(cfg, fused, "neox"),
+        "wo": _stack_lin(cfg, sd, pre + "self_attention.dense"),
+        "up": _stack_lin(cfg, sd, pre + "mlp.dense_h_to_4h"),
+        "down": _stack_lin(cfg, sd, pre + "mlp.dense_4h_to_h"),
+    }
+    return {"embed": sd["transformer.word_embeddings.weight"].to(dt),
+            "embed_ln_w": sd["transformer.word_embeddings_layernorm.weight"].to(dt),
+            "embed_ln_b": sd["transformer.word_embeddings_layernorm.bias"].to(dt),
+            "layers": layers, "norm": sd["transformer.ln_f.weight"].to(dt),
+            "norm_b": sd["transformer.ln_f.bias"].to(dt)}
 
 
 def _build_falcon_params(cfg: ModelConfig, sd) -> Params:

@@ -5,7 +5,8 @@ package. These stay plain PyTorch: the JAX package left them to XLA
 fusions, and the port has no hand kernel for them. :func:`attention`
 sends a one-position step to K14 (``ops/decode_attn.py::flash_decode_layer``,
 its plain version on the CPU), as the JAX function dispatches it to
-``flash_decode`` on a TPU.
+``flash_decode`` on a TPU; with ALiBi :func:`alibi_slopes` it passes the
+slopes to K14.
 """
 
 from __future__ import annotations
@@ -58,6 +59,24 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tenso
     if bias is not None:
         out = out + bias.float()
     return out.to(x.dtype)
+
+
+def alibi_slopes(n_heads: int, device=None) -> torch.Tensor:
+    """ALiBi slopes ``[n_heads]`` f32 (MPT, BLOOM; the port's own copy of
+    ``awq_tpu/models/layers.py::alibi_slopes``): ``2^(-8 (h + 1) / n)`` for a
+    power-of-two ``n``, else the closest power of two's slopes followed by
+    every other slope of twice that many heads."""
+
+    def pow2slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+
+    if math.log2(n_heads).is_integer():
+        vals = pow2slopes(n_heads)
+    else:
+        closest = 2 ** math.floor(math.log2(n_heads))
+        vals = pow2slopes(closest) + pow2slopes(2 * closest)[0::2][: n_heads - closest]
+    return torch.tensor(vals, dtype=torch.float32, device=device)
 
 
 def rope_table(cfg: ModelConfig, max_len: int,
@@ -126,23 +145,36 @@ def attention(
     v_cache: torch.Tensor,      # [B, n_kv, T, hd]
     start_pos: int,             # the chunk occupies [start, start+S)
     bias: Optional[torch.Tensor] = None,  # e.g. alibi [n_q, 1, T]
+    slopes: Optional[torch.Tensor] = None,  # ALiBi [n_q] f32
 ) -> torch.Tensor:
     """Causal (chunk-offset) attention, GQA-aware, over a static cache that
     already holds the chunk: query ``i`` attends positions ``j <= start_pos
     + i``. Returns ``[B, S, n_q * hd]`` in ``q.dtype``.
 
-    One position (S = 1) with no bias is :func:`flash_decode_layer` over
-    ``[0, start_pos + 1)``: K14 on a CUDA tensor, which launches or raises
-    (``NotImplementedError`` naming ROADMAP A12 for a head_dim other than
-    64 or 128, or more than 128 query heads per kv head), and its plain
-    version (f32 softmax weights) on the CPU. Everything else takes the
-    masked path below, the JAX function's (f32 scores and softmax, the
-    weights rounded to ``q.dtype``)."""
+    One position (S = 1) with no ``bias`` is :func:`flash_decode_layer` over
+    ``[0, start_pos + 1)``, with the ALiBi ``slopes`` where given (the
+    score of position ``j`` plus ``slope * j``): K14 on a CUDA tensor, which
+    launches or raises (``NotImplementedError`` naming ROADMAP A12 for a
+    head_dim other than 64 or 128, or more than 128 query heads per kv
+    head), and its plain version (f32 softmax weights) on the CPU.
+    Everything else takes the masked path below, the JAX function's (f32
+    scores and softmax, the weights rounded to ``q.dtype``), ``slopes`` as
+    the bias ``slope * j``; on a CUDA tensor that path takes no ALiBi step
+    and raises instead (the model's ALiBi prompts run K3, its decode K2, K14
+    or K4)."""
     b, s, n_q, hd = q.shape
     n_kv, t = k_cache.shape[1], k_cache.shape[2]
     if s == 1 and bias is None:
-        out = flash_decode_layer(q[:, 0].contiguous(), k_cache, v_cache, start_pos + 1)
+        out = flash_decode_layer(q[:, 0].contiguous(), k_cache, v_cache, start_pos + 1,
+                                 slopes=slopes)
         return out.reshape(b, 1, n_q * hd)
+    if q.is_cuda and (slopes is not None or bias is not None):
+        raise NotImplementedError(
+            "attention: a biased (ALiBi) step on the masked path on the card; the model's "
+            "ALiBi prompts run K3 and its decode K2, K14 or K4, each with the slopes")
+    if slopes is not None:
+        bias = slopes.float()[:, None, None] * torch.arange(t, dtype=torch.float32,
+                                                            device=q.device)
     groups = n_q // n_kv
     qf = q.reshape(b, s, n_kv, groups, hd).float()
     scores = torch.einsum("bskgh,bkth->bkgst", qf, k_cache.float()) / math.sqrt(hd)

@@ -78,6 +78,21 @@ JAX's ``forward`` falls back to ``attention`` after its in-scan append;
 prefill runs K3's head_dim-64 mode. Falcon's batched, paged, int8-KV and
 tensor-parallel paths raise (ROADMAP A12).
 
+The ALiBi families (``pos_embed="alibi"``, no rope; the slopes of
+``layers.alibi_slopes``) take :func:`forward` and :func:`decode_step` at
+batch 1 over a float cache: MPT (bias-free LayerNorm, the erf-GELU plain
+MLP; MPT-7B is MHA at head_dim 128) decodes on K4's MPT shape
+(``megakernel_supported``, a power-of-two head count, as JAX's gate) and
+prefills on the stacked path; BLOOM (the embedding LayerNorm
+``embed_ln``, LayerNorm with bias, the tanh-GELU MLP, biases on every
+linear) takes the stacked path alone, as JAX's K4 refuses its LayerNorm
+bias. On the stacked path every attention call gets the slopes: K2 (the
+current token at ``slope * len``), K3 (the row-relative ``slope * (j -
+i)``) and, where K2 cannot take the shape (BLOOM-560m's head_dim 64), K14
+through ``layers.attention``. Their batched, paged, int8-KV and
+tensor-parallel paths raise (ROADMAP A12; JAX too sends an ALiBi int8 cache
+to XLA attention, not to its kernels).
+
 Other family features raise ``NotImplementedError`` naming their ROADMAP
 item.
 """
@@ -94,6 +109,7 @@ from awq_tpu_torch.config import ModelConfig, QuantConfig
 from awq_tpu_torch.models.layers import (
     Linear,
     activation,
+    alibi_slopes,
     apply_rope,
     attention,
     layer_norm,
@@ -134,7 +150,13 @@ Params = Dict[str, Any]
 # per-layer linears eligible for AWQ quantization, in block order
 LAYER_LINEARS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 LLAMA_ARCHS = ("llama", "mistral", "qwen2")
-SUPPORTED_ARCHS = LLAMA_ARCHS + ("falcon",)
+ALIBI_ARCHS = ("mpt", "bloom")
+SUPPORTED_ARCHS = LLAMA_ARCHS + ("falcon",) + ALIBI_ARCHS
+# each family's (positions, norm, activation, embedding norm, linear biases)
+_FAMILY = {**{a: ("rope", "rmsnorm", "silu", False, False) for a in LLAMA_ARCHS},
+           "falcon": ("rope", "layernorm", "gelu", False, False),
+           "mpt": ("alibi", "layernorm", "gelu", False, False),
+           "bloom": ("alibi", "layernorm", "gelu_tanh", True, True)}
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -151,8 +173,9 @@ def _family_layers(cfg: ModelConfig, dev: torch.device, lin) -> Params:
     """The stacked layer tree of ``cfg``'s family, each linear drawn by
     ``lin(ic, oc, bias)`` in the order wq, wk, wv, wo, gate, up, down (as
     ``awq_tpu/models/llama.py::init_params`` lays it out): a gate only for a
-    SiLU MLP, no ``ln2`` under ``single_ln``, and LayerNorm biases (zeros)
-    for a LayerNorm with bias."""
+    SiLU MLP, no ``ln2`` under ``single_ln``, LayerNorm biases (zeros)
+    for a LayerNorm with bias, and the linears' biases of ``qkv_bias``,
+    ``attn_bias`` and ``mlp_bias`` (BLOOM: all)."""
     dt = _dtype(cfg)
     h, i = cfg.hidden_size, cfg.intermediate_size
     nq, nkv, hd, L = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
@@ -161,19 +184,26 @@ def _family_layers(cfg: ModelConfig, dev: torch.device, lin) -> Params:
     layers: Params = {n: torch.ones((L, h), dtype=dt, device=dev) for n in norms}
     if ln_bias:
         layers.update({n + "_b": torch.zeros((L, h), dtype=dt, device=dev) for n in norms})
-    layers.update(wq=lin(h, nq * hd, cfg.qkv_bias), wk=lin(h, nkv * hd, cfg.qkv_bias),
-                  wv=lin(h, nkv * hd, cfg.qkv_bias), wo=lin(nq * hd, h, False))
+    qkv_b, mlp_b = cfg.qkv_bias or cfg.attn_bias, cfg.mlp_bias
+    layers.update(wq=lin(h, nq * hd, qkv_b), wk=lin(h, nkv * hd, qkv_b),
+                  wv=lin(h, nkv * hd, qkv_b), wo=lin(nq * hd, h, cfg.attn_bias))
     if cfg.act == "silu":
-        layers["gate"] = lin(h, i, False)
-    layers.update(up=lin(h, i, False), down=lin(i, h, False))
+        layers["gate"] = lin(h, i, mlp_b)
+    layers.update(up=lin(h, i, mlp_b), down=lin(i, h, mlp_b))
     return layers
 
 
-def _final_norm(cfg: ModelConfig, dev: torch.device) -> Params:
-    """``norm`` (and ``norm_b`` for a LayerNorm with bias) of the final norm."""
-    out = {"norm": torch.ones((cfg.hidden_size,), dtype=_dtype(cfg), device=dev)}
+def _outer_norms(cfg: ModelConfig, dev: torch.device) -> Params:
+    """``norm`` (and ``norm_b`` for a LayerNorm with bias) of the final norm,
+    and BLOOM's embedding LayerNorm ``embed_ln_w``/``embed_ln_b`` (ones and
+    zeros, as JAX's ``init_params``, ``awq_tpu/models/llama.py:95-97``)."""
+    ones = lambda: torch.ones((cfg.hidden_size,), dtype=_dtype(cfg), device=dev)  # noqa: E731
+    zeros = lambda: torch.zeros((cfg.hidden_size,), dtype=_dtype(cfg), device=dev)  # noqa: E731
+    out = {"norm": ones()}
     if cfg.norm == "layernorm" and cfg.norm_bias:
-        out["norm_b"] = torch.zeros((cfg.hidden_size,), dtype=_dtype(cfg), device=dev)
+        out["norm_b"] = zeros()
+    if cfg.embed_ln:
+        out.update(embed_ln_w=ones(), embed_ln_b=zeros())
     return out
 
 
@@ -196,7 +226,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
     layers = _family_layers(cfg, dev, lin)
     params: Params = {"embed": w((cfg.vocab_size, h)), "layers": layers,
-                      **_final_norm(cfg, dev)}
+                      **_outer_norms(cfg, dev)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((h, cfg.vocab_size))
     return params
@@ -248,7 +278,7 @@ def init_qparams(cfg: ModelConfig, qcfg: QuantConfig,
         "embed": (torch.randn((cfg.vocab_size, h), generator=gen, device=dev)
                   * scale).to(dt),
         "layers": layers,
-        **_final_norm(cfg, dev),
+        **_outer_norms(cfg, dev),
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = (torch.randn((h, cfg.vocab_size), generator=gen,
@@ -430,21 +460,26 @@ def params_to(params: Params, device) -> Params:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    """The llama family (RMSNorm, SwiGLU, sequential block) and falcon
+    """The llama family (RMSNorm, SwiGLU, sequential block), falcon
     (LayerNorm with or without bias, exact GELU, the parallel block with one
-    or two norms, MQA or grouped QKV); rope positions over the whole head.
-    Everything else raises, naming ROADMAP A12."""
+    or two norms, MQA or grouped QKV), both with rope over the whole head;
+    MPT (ALiBi, LayerNorm without bias, exact GELU, sequential block) and
+    BLOOM (ALiBi, ``embed_ln``, LayerNorm with bias, the tanh GELU,
+    ``attn_bias`` and ``mlp_bias``, sequential block). Everything else
+    raises, naming ROADMAP A12."""
     family = "other decoder families are ROADMAP queue A, item 12"
     if cfg.arch not in SUPPORTED_ARCHS:
         raise NotImplementedError(f"arch {cfg.arch!r}: {family}")
-    llama = cfg.arch in LLAMA_ARCHS
+    pos, norm, act, embed_ln, biased = _FAMILY[cfg.arch]
     for bad, what in (
-        (cfg.pos_embed != "rope", f"pos_embed={cfg.pos_embed!r} (learned/alibi)"),
-        (cfg.norm != ("rmsnorm" if llama else "layernorm"), f"norm={cfg.norm!r}"),
-        (cfg.act != ("silu" if llama else "gelu"), f"act={cfg.act!r}"),
-        (llama and (cfg.parallel_block or cfg.single_ln), "parallel_block"),
-        (cfg.embed_ln, "embed_ln"),
-        (cfg.attn_bias or cfg.mlp_bias, "attention/MLP bias"),
+        (cfg.pos_embed != pos, f"pos_embed={cfg.pos_embed!r}"),
+        (cfg.norm != norm, f"norm={cfg.norm!r}"),
+        (cfg.act != act, f"act={cfg.act!r}"),
+        (cfg.arch != "falcon" and (cfg.parallel_block or cfg.single_ln), "parallel_block"),
+        (cfg.embed_ln != embed_ln, f"embed_ln={cfg.embed_ln}"),
+        (cfg.attn_bias != biased or cfg.mlp_bias != biased,
+         f"attention/MLP bias {cfg.attn_bias}/{cfg.mlp_bias}"),
+        (cfg.arch == "mpt" and cfg.norm_bias, "LayerNorm bias (MPT no_bias=False)"),
         (cfg.rotary_pct != 1.0, "partial rotary (rotary_pct)"),
     ):
         if bad:
@@ -454,7 +489,8 @@ def _check_supported(cfg: ModelConfig) -> None:
 def check_llama_family(cfg: ModelConfig, what: str) -> None:
     """The batched, paged, int8-KV and tensor-parallel paths take the llama
     family only: K2, K6, K8 and K9 have no head_dim-64 or wide-group mode,
-    and the layer body of K6 and K12/K13 is the llama block."""
+    K6, K8 and K9 no ALiBi slopes, and the layer body of K6 and K12/K13 is
+    the llama block."""
     if cfg.arch not in LLAMA_ARCHS:
         raise NotImplementedError(
             f"{what} of a {cfg.arch} model: the family's batched, paged, int8-KV and "
@@ -469,6 +505,26 @@ def _norm(cfg: ModelConfig, x: torch.Tensor, weight: torch.Tensor,
 
 
 _ROPE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_SLOPES: Dict[tuple, torch.Tensor] = {}
+
+
+def _slopes(cfg: ModelConfig, dev: torch.device) -> Optional[torch.Tensor]:
+    """The ALiBi slopes ``[nq]`` f32 on ``dev`` (built once per device and
+    head count), or None for a rope model."""
+    if cfg.pos_embed != "alibi":
+        return None
+    key = (cfg.num_heads, str(dev))
+    if key not in _SLOPES:
+        _SLOPES[key] = alibi_slopes(cfg.num_heads, device=dev)
+    return _SLOPES[key]
+
+
+def _embed_ln(cfg: ModelConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
+    """BLOOM's ``word_embeddings_layernorm`` on the embedding output (JAX's
+    ``_embed_ln``, ``awq_tpu/models/llama.py:422-429``); ``h`` otherwise."""
+    if not cfg.embed_ln:
+        return h
+    return layer_norm(h, params["embed_ln_w"], params.get("embed_ln_b"), cfg.rms_eps)
 
 
 def _rope_cached(cfg: ModelConfig, t: int, dev: torch.device):
@@ -481,12 +537,17 @@ def _rope_cached(cfg: ModelConfig, t: int, dev: torch.device):
     return _ROPE[key]
 
 
+def _mlp_in(layers: Params, shape: str):
+    """K4's first MLP stack: ``wgateup``, or the MPT shape's ``up``."""
+    return layers["up"] if shape == "mpt" else layers["wgateup"]
+
+
 def _megakernel_forward(params, cfg, h, cache, start_pos, plain):
     """The megakernel path: ``(h [1, S, H], logits or None)``."""
     la = params["layers"]
     s = h.shape[1]
-    cos, sin = _rope_cached(cfg, cache_seq_len(cache), cache.device)
-    args = (la["wqkv"], la["wo"], la["wgateup"], la["down"], la["ln1"], la["ln2"])
+    shape = mk.model_shape(cfg)
+    args = (la["wqkv"], la["wo"], _mlp_in(la, shape), la["down"], la["ln1"], la["ln2"])
     kw = dict(nq=cfg.num_heads, nkv=cfg.num_kv_heads, eps=cfg.rms_eps)
     if s == 1:
         fn = mk.w4a16_llama_token_step_plain if plain else mk.w4a16_llama_token_step
@@ -494,8 +555,13 @@ def _megakernel_forward(params, cfg, h, cache, start_pos, plain):
             kw.update(whead=params["lm_head"], norm_w=params["norm"])
         if isinstance(cache, KVCache8):
             cache, kw["cache_scales"] = cache
-        res = fn(h[0], *args, cos[start_pos], sin[start_pos], cache, start_pos, **kw)
+        rows = (None, None)         # the MPT shape reads no rope
+        if shape == "llama":
+            cos, sin = _rope_cached(cfg, cache_seq_len(cache), cache.device)
+            rows = (cos[start_pos], sin[start_pos])
+        res = fn(h[0], *args, *rows, cache, start_pos, shape=shape, **kw)
         return res[0][None], (res[3][:, None, :] if len(res) == 4 else None)
+    cos, sin = _rope_cached(cfg, cache_seq_len(cache), cache.device)
     fn = mkc.w4a16_llama_chunk_step_plain if plain else mkc.w4a16_llama_chunk_step
     res = fn(h[0], *args, cos[start_pos:start_pos + s], sin[start_pos:start_pos + s],
              cache, start_pos, **kw)
@@ -604,7 +670,7 @@ def forward(
         raise ValueError(f"chunk [{start_pos}, {start_pos + s}) exceeds the "
                          f"cache length {t_max}")
     layers = params["layers"]
-    h = _embed_lookup(params, cfg, tokens.to(dev), dt, tp_axis)
+    h = _embed_ln(cfg, params, _embed_lookup(params, cfg, tokens.to(dev), dt, tp_axis))
     if tp_axis is not None:
         # Megatron TP: no whole-model megakernel (its layers leave no room
         # for the all-reduces); the halves at batch-1 decode, else stacked
@@ -656,7 +722,11 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     length on the device. With ``tp_axis`` (a rank's shards under tensor
     parallelism) the row-parallel ``wo`` and ``down`` end in an all-reduce
     of their partial sums, their bias added once after it
-    (``_lin_row_fn``, ``awq_tpu/models/llama.py:463-494``)."""
+    (``_lin_row_fn``, ``awq_tpu/models/llama.py:463-494``).
+
+    An ALiBi model (MPT, BLOOM) runs no rope, and every attention call
+    takes the model's slopes: K2, K3, and K14 in the single-position
+    fallback (``layers.attention``, or the device-position call)."""
     b, s = h.shape[:2]
     dt = _dtype(cfg)
     dev = cache.device
@@ -668,6 +738,8 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     decode8 = flash_decode_int8_plain if plain else flash_decode_int8
     decode_paged = flash_decode_paged_plain if plain else flash_decode_paged
     prefill = flash_prefill_plain if plain else flash_prefill
+    slopes = _slopes(cfg, dev)
+    rope = slopes is None
 
     # the int8-activation prefill (cfg.prefill_a8): K11 over a layer's
     # int8 cache (``<name>_w8``), else K10; decode stays W4A16
@@ -694,14 +766,16 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         return out if bias is None else out + bias[idx].to(out.dtype)
 
     if lengths is None:
-        cos, sin = rope_table(cfg, start_pos + s, device=dev)
-        positions = torch.arange(start_pos, start_pos + s, device=dev)
+        if rope:
+            cos, sin = rope_table(cfg, start_pos + s, device=dev)
+            positions = torch.arange(start_pos, start_pos + s, device=dev)
         row_lengths = torch.full((b,), start_pos, dtype=torch.int32, device=dev)
         max_length = start_pos
     else:
         t_max = cache_seq_len(cache) * (1 if tables is None else tables.shape[1])
-        cos, sin = _rope_cached(cfg, t_max, dev)
-        positions = lengths.long()[:, None]
+        if rope:
+            cos, sin = _rope_cached(cfg, t_max, dev)
+            positions = lengths.long()[:, None]
         row_lengths = lengths
     kv_new = []       # per-row decode: every layer's [2, B, n_kv, hd]
 
@@ -729,23 +803,24 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         q = q.reshape(b, s, nq, hd)
         k = k.reshape(b, s, nkv, hd)
         v = v.reshape(b, s, nkv, hd)
-        q, k = apply_rope(q, k, cos, sin, positions)
+        if rope:
+            q, k = apply_rope(q, k, cos, sin, positions)
         if fallback and lengths is not None:
             kv.index_copy_(3, lengths[:1].long(),
                            torch.stack([k, v]).transpose(2, 3).to(kv.dtype))
             n_att = lengths[:1] + 1
             if plain:
-                attn = flash_decode_layer_plain(q[:, 0], kv[0], kv[1], int(n_att))
+                attn = flash_decode_layer_plain(q[:, 0], kv[0], kv[1], int(n_att), slopes)
             else:
                 attn = flash_decode_layer(q[:, 0].contiguous(), kv[0], kv[1], n_att,
-                                          max_length=max_length + 1)
+                                          max_length=max_length + 1, slopes=slopes)
             attn = attn.reshape(b, 1, nq * hd)
         elif fallback:
             update_kv_cache(kv, k, v, start_pos)
             if plain:
-                attn = flash_decode_layer_plain(q[:, 0], kv[0], kv[1], start_pos + 1)
+                attn = flash_decode_layer_plain(q[:, 0], kv[0], kv[1], start_pos + 1, slopes)
             else:
-                attn = attention(q, kv[0], kv[1], start_pos)
+                attn = attention(q, kv[0], kv[1], start_pos, slopes=slopes)
             attn = attn.reshape(b, 1, nq * hd)
         elif s == 1:
             # the current token rides as an operand; append it afterwards
@@ -757,7 +832,8 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
             else:
                 k1, v1 = k[:, 0].to(kv.dtype).contiguous(), v[:, 0].to(kv.dtype).contiguous()
                 if tables is None:
-                    attn = decode(q1, k1, v1, kv, row_lengths, max_length=max_length)
+                    attn = decode(q1, k1, v1, kv, row_lengths, max_length=max_length,
+                                  slopes=slopes)
                 else:
                     attn = decode_paged(q1, k1, v1, cache, tables, idx, row_lengths,
                                         max_length=max_length)
@@ -776,7 +852,7 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                                                          kv_s[:, :, :, :end], dt), start_pos)
         else:
             update_kv_cache(kv, k, v, start_pos)
-            attn = prefill(q.contiguous(), kv, start_pos)
+            attn = prefill(q.contiguous(), kv, start_pos, slopes)
         attn_out = lin_row("wo", idx, attn.to(dt))
         if cfg.parallel_block:
             # falcon: both branches read norms of the same input (falcon-7b
@@ -855,18 +931,23 @@ def decode_step(
         raise ValueError(f"pos must be one int32 on {dev}, got {pos.dtype} "
                          f"{tuple(pos.shape)} on {pos.device}")
     plain = impl == "plain"
-    h = params["embed"][tokens.to(dev)].to(_dtype(cfg))            # [B, H]
+    h = _embed_ln(cfg, params, params["embed"][tokens.to(dev)].to(_dtype(cfg)))   # [B, H]
     if decode_step_on_k4(params, cfg, cache, b):
         la = params["layers"]
-        cos, sin = _rope_cached(cfg, t_max, dev)
-        kw = dict(nq=cfg.num_heads, nkv=cfg.num_kv_heads, eps=cfg.rms_eps)
+        shape = mk.model_shape(cfg)
+        cos = sin = None            # the MPT shape reads no rope
+        if shape == "llama":
+            cos, sin = _rope_cached(cfg, t_max, dev)
+        kw = dict(nq=cfg.num_heads, nkv=cfg.num_kv_heads, eps=cfg.rms_eps, shape=shape)
         if mk.head_in_kernel(params):
             kw.update(whead=params["lm_head"], norm_w=params["norm"])
         data, kw["cache_scales"] = mk.split_cache(cache)
-        args = (h, la["wqkv"], la["wo"], la["wgateup"], la["down"], la["ln1"], la["ln2"])
+        args = (h, la["wqkv"], la["wo"], _mlp_in(la, shape), la["down"], la["ln1"],
+                la["ln2"])
         if plain:
             at = int(pos)
-            res = mk.w4a16_llama_token_step_plain(*args, cos[at], sin[at], data, at, **kw)
+            rows = (None, None) if cos is None else (cos[at], sin[at])
+            res = mk.w4a16_llama_token_step_plain(*args, *rows, data, at, **kw)
         else:
             res = mk.w4a16_llama_token_step(*args, cos, sin, data, pos,
                                             max_length=max_length, **kw)

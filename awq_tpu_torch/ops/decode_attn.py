@@ -56,9 +56,18 @@ and the reference the kernels are held to on the card. On a CUDA tensor
 the wrappers launch the kernel or raise. The kernels take f32, bf16 and
 f16 for q (the output's dtype), the current token's k/v and the cache,
 each of its own dtype, as the JAX kernels follow ``q.dtype``; an f32
-cache takes at most 16 query heads per kv head (K2, K8). ALiBi (``forward`` refuses
-alibi models) and head_dim 64 in K2, K8 and K9 (the TPU kernels' paired
-mode; those wrappers raise) wait for their model families.
+cache takes at most 16 query heads per kv head (K2, K8).
+
+ALiBi (MPT, BLOOM): K2, K3 and K14 take ``slopes``, f32 ``[nq]`` on q's
+device (``models/layers.py::alibi_slopes``), and add the bias to each f32
+score before the running max, in JAX's forms: ``slope * j`` over key
+positions ``j`` in decode (K2's current token at ``j = len_b``), the
+row-relative ``slope * (j - i)`` in prefill (query position ``i``), which
+keeps the scores bounded at long prompts. With slopes the wrappers launch
+the unit ``decode_attn_alibi`` (the bias compiled in), without them
+``decode_attn``, the kernels as before. K8 and K9 take no slopes (no ALiBi path
+reaches them; ROADMAP A12), and head_dim 64 in K2, K8 and K9 (the TPU
+kernels' paired mode) waits for its model families: those wrappers raise.
 """
 
 from __future__ import annotations
@@ -70,9 +79,11 @@ from typing import Optional, Union
 
 import torch
 
-#: Launches of K2, K8, K9, K3 and K14, counted where the wrappers launch them.
+#: Launches of K2, K8, K9, K3 and K14, counted where the wrappers launch them;
+#: K2, K3 and K14 with ALiBi slopes count under ``<name>_alibi``.
 LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0, "flash_decode_int8": 0,
-            "flash_prefill": 0, "flash_decode_layer": 0}
+            "flash_prefill": 0, "flash_decode_layer": 0, "flash_decode_alibi": 0,
+            "flash_prefill_alibi": 0, "flash_decode_layer_alibi": 0}
 
 HEAD_DIM = 128            # the head_dim K2, K8 and K9 are built for
 HEAD_DIMS = (64, 128)     # the head_dims K3 and K14 are built for
@@ -95,11 +106,21 @@ PREFILL_KV_TILE = {128: 64, 64: 128}   # K3: positions of a K/V tile by head_dim
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
+def _no_slopes(what: str, slopes) -> None:
+    if slopes is not None:
+        raise NotImplementedError(
+            f"{what}: ALiBi slopes; no ALiBi path reaches this kernel (the batched and "
+            "paged ALiBi paths are ROADMAP queue A, item 12)")
+
+
 def flash_decode_plain(q: torch.Tensor, k_new: torch.Tensor,
                        v_new: torch.Tensor, cache: torch.Tensor,
                        lengths: torch.Tensor,
-                       max_length: Optional[int] = None) -> torch.Tensor:
-    """Plain version of K2, in f32: ``[B, nq, hd]`` in ``q.dtype``."""
+                       max_length: Optional[int] = None,
+                       slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K2, in f32: ``[B, nq, hd]`` in ``q.dtype``. With
+    ALiBi ``slopes [nq]``, score ``j`` gains ``slope * j`` (the current
+    token's ``slope * len_b``), as JAX's ``flash_decode_stacked`` adds it."""
     b, nq, hd = q.shape
     nkv = cache.shape[2]
     g = nq // nkv
@@ -108,9 +129,13 @@ def flash_decode_plain(q: torch.Tensor, k_new: torch.Tensor,
     kf = cache[0, :, :, :t].float()
     vf = cache[1, :, :, :t].float()
     s = torch.einsum("bkgh,bkth->bkgt", qf, kf)
+    s_cur = torch.einsum("bkgh,bkh->bkg", qf, k_new.float())[..., None]
+    if slopes is not None:
+        sl = slopes.float().to(q.device).reshape(1, nkv, g, 1)
+        s = s + sl * torch.arange(t, dtype=torch.float32, device=q.device)
+        s_cur = s_cur + sl * lengths.to(q.device).float().reshape(b, 1, 1, 1)
     live = torch.arange(t, device=q.device)[None, :] < lengths[:, None].to(q.device)
     s = s.masked_fill(~live[:, None, None, :], float("-inf"))
-    s_cur = torch.einsum("bkgh,bkh->bkg", qf, k_new.float())[..., None]
     p = torch.softmax(torch.cat([s, s_cur], dim=-1), dim=-1)
     out = (torch.einsum("bkgt,bkth->bkgh", p[..., :t], vf)
            + p[..., t:] * v_new.float()[:, :, None, :])
@@ -171,8 +196,12 @@ def flash_decode_paged_plain(q: torch.Tensor, k_new: torch.Tensor,
 
 
 def flash_prefill_plain(q: torch.Tensor, cache: torch.Tensor,
-                        start_pos: int) -> torch.Tensor:
-    """Plain version of K3, in f32: ``[B, S, nq*hd]`` in ``q.dtype``."""
+                        start_pos: int,
+                        slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K3, in f32: ``[B, S, nq*hd]`` in ``q.dtype``. With
+    ALiBi ``slopes [nq]``, the score of query position ``i`` and key ``j``
+    gains the row-relative ``slope * (j - i)``, as JAX's
+    ``flash_prefill_stacked`` adds it."""
     b, s, nq, hd = q.shape
     nkv = cache.shape[2]
     g = nq // nkv
@@ -182,6 +211,9 @@ def flash_prefill_plain(q: torch.Tensor, cache: torch.Tensor,
     vf = cache[1, :, :, :end].float()
     scores = torch.einsum("bskgh,bkth->bkgst", qf, kf) * (1.0 / math.sqrt(hd))
     rows = start_pos + torch.arange(s, device=q.device)
+    if slopes is not None:
+        rel = (torch.arange(end, device=q.device)[None, :] - rows[:, None]).float()
+        scores = scores + slopes.float().to(q.device).reshape(1, nkv, g, 1, 1) * rel
     mask = torch.arange(end, device=q.device)[None, :] <= rows[:, None]
     scores = scores.masked_fill(~mask, float("-inf"))
     p = torch.softmax(scores, dim=-1)
@@ -190,15 +222,20 @@ def flash_prefill_plain(q: torch.Tensor, cache: torch.Tensor,
 
 
 def flash_decode_layer_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                             v_cache: torch.Tensor, length: int) -> torch.Tensor:
+                             v_cache: torch.Tensor, length: int,
+                             slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K14, in f32: ``q [B, nq, hd]`` over positions
     ``[0, length)`` of ``k_cache``/``v_cache [B, nkv, T, hd]``; ``[B, nq,
-    hd]`` in ``q.dtype``."""
+    hd]`` in ``q.dtype``. With ALiBi ``slopes [nq]``, score ``j`` gains
+    ``slope * j``."""
     b, nq, hd = q.shape
     nkv = k_cache.shape[1]
     length = int(length)
     qf = q.float().reshape(b, nkv, nq // nkv, hd) * (1.0 / math.sqrt(hd))
     s = torch.einsum("bkgh,bkth->bkgt", qf, k_cache[:, :, :length].float())
+    if slopes is not None:
+        s = s + (slopes.float().to(q.device).reshape(1, nkv, nq // nkv, 1)
+                 * torch.arange(length, dtype=torch.float32, device=q.device))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,bkth->bkgh", p, v_cache[:, :, :length].float())
     return out.reshape(b, nq, hd).to(q.dtype)
@@ -264,6 +301,29 @@ def _check_group(what: str, nq: int, nkv: int, cache_dtype) -> None:
     _check(flash_decode_supported(nq, nkv, HEAD_DIM, cache_dtype), what,
            f"nq={nq} is not a multiple of nkv={nkv} with at most {most} q heads "
            f"per kv head over a {cache_dtype} cache")
+
+
+def _slopes_ptr(what: str, slopes: Optional[torch.Tensor], nq: int, dev) -> int:
+    """The device pointer of ALiBi ``slopes`` (f32 ``[nq]``, contiguous on
+    ``dev``), or 0 without them."""
+    if slopes is None:
+        return 0
+    _check(slopes.dtype == torch.float32 and tuple(slopes.shape) == (nq,)
+           and slopes.is_contiguous() and slopes.device == dev, what,
+           f"slopes must be contiguous f32 [{nq}] on {dev}, got {slopes.dtype} "
+           f"{tuple(slopes.shape)} on {slopes.device}")
+    return slopes.data_ptr()
+
+
+def _unit(sptr: int, entry: str):
+    """``(library, entry name, slopes argument)`` of a launch: the unit
+    ``decode_attn`` without slopes, ``decode_attn_alibi`` (its ``*_alibi``
+    entries, the slopes pointer before the stream) with them."""
+    from awq_tpu_torch import _build
+
+    if sptr:
+        return _build.load("decode_attn_alibi"), entry + "_alibi", (sptr,)
+    return _build.load("decode_attn"), entry, ()
 
 
 def _round_up(x: int, m: int) -> int:
@@ -403,14 +463,15 @@ def _plan_args(plan: DecodePlan) -> tuple:
 
 def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                  cache: torch.Tensor, lengths: torch.Tensor,
-                 max_length: Optional[int] = None) -> torch.Tensor:
+                 max_length: Optional[int] = None,
+                 slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2 wrapper. ``q [B, nq, hd]``, ``k_new``/``v_new [B, nkv, hd]`` (the
     current token, post-rope), ``cache [2, B, nkv, T, hd]`` (one layer),
     ``lengths [B]`` int32 cache-prefix lengths. ``max_length`` (at least
     ``lengths.max()``) sizes the split-K grid without a device sync.
-    Returns ``[B, nq, hd]``."""
+    ``slopes``: ALiBi slopes f32 ``[nq]`` or None. Returns ``[B, nq, hd]``."""
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k_new, v_new, cache, lengths, max_length)
+        return flash_decode_plain(q, k_new, v_new, cache, lengths, max_length, slopes)
     what = "flash_decode"
     _check(q.is_cuda, what, f"unsupported device {q.device}")
     _check_common(what, q, cache)
@@ -431,33 +492,37 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     if max_length is None:
         max_length = int(lengths.max())
     _check(0 <= max_length <= t, what, f"max_length {max_length} not in [0, {t}]")
+    sptr = _slopes_ptr(what, slopes, nq, q.device)
     plan = decode_plan(b, nq, nkv, hd, max_length, cache.element_size(), PLAN_UNIT[what],
                        sms=_sm_count(q.device))
     out = torch.empty_like(q)
 
     from awq_tpu_torch import _build
 
-    lib = _build.load("decode_attn")
-    fn = lib.awq_flash_decode
-    _build.declare(fn, *([_build.P] * 6), *([_build.I] * 8), _build.F,
-                   *([_build.I] * 3), _build.P)
+    lib, entry, tail = _unit(sptr, "awq_flash_decode")
+    fn = getattr(lib, entry)
+    _build.declare(fn, *([_build.P] * 6), *([_build.I] * 8), _build.F, *([_build.I] * 3),
+                   *([_build.P] * len(tail)), _build.P)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), b, nq, nkv, t, *_plan_args(plan),
              1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_new.dtype],
-             _DTYPE_CODE[cache.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+             _DTYPE_CODE[cache.dtype], *tail, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         _build.check(lib, err, f"{what} ({plan.describe()})")
-    LAUNCHES["flash_decode"] += 1
+    LAUNCHES["flash_decode_alibi" if sptr else "flash_decode"] += 1
     return out
 
 
 def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                       cache: torch.Tensor, scales: torch.Tensor, lengths: torch.Tensor,
-                      max_length: Optional[int] = None) -> torch.Tensor:
+                      max_length: Optional[int] = None,
+                      slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K9 wrapper. As :func:`flash_decode`, over one layer of an int8 cache:
     ``cache [2, B, nkv, T, hd]`` int8 codes and ``scales [2, B, nkv, T]``
     f32. ``k_new``/``v_new`` (in q's dtype) are the current token in full
-    precision, quantized by the caller's append after the step."""
+    precision, quantized by the caller's append after the step. ALiBi
+    ``slopes`` raise (``NotImplementedError``)."""
+    _no_slopes("flash_decode_int8", slopes)
     if q.device.type == "cpu":
         return flash_decode_int8_plain(q, k_new, v_new, cache, scales, lengths,
                                        max_length)
@@ -510,13 +575,16 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
 def flash_decode_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                        pool: torch.Tensor, tables: torch.Tensor, layer: int,
                        lengths: torch.Tensor,
-                       max_length: Optional[int] = None) -> torch.Tensor:
+                       max_length: Optional[int] = None,
+                       slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K8 wrapper, JAX's signature. ``q [B, nq, hd]``, ``k_new``/``v_new
     [B, nkv, hd]`` (the current token, post-rope), ``pool [L, 2, NP, nkv,
     page, hd]``, ``tables [B, MP]`` int32 page ids (in ``[0, NP)``: not
     checked, that would take a sync), ``layer`` the pool's layer,
     ``lengths [B]`` int32. ``max_length`` (at least ``lengths.max()``)
-    sizes the split-K grid without a device sync. Returns ``[B, nq, hd]``."""
+    sizes the split-K grid without a device sync. Returns ``[B, nq, hd]``.
+    ALiBi ``slopes`` raise (``NotImplementedError``)."""
+    _no_slopes("flash_decode_paged", slopes)
     if q.device.type == "cpu":
         return flash_decode_paged_plain(q, k_new, v_new, pool, tables, layer, lengths,
                                         max_length)
@@ -626,13 +694,15 @@ def prefill_plan(b: int, s: int, nq: int, nkv: int, t: int, start: int, hd: int)
 
 
 def flash_prefill(q: torch.Tensor, cache: torch.Tensor,
-                  start_pos: Union[int, torch.Tensor]) -> torch.Tensor:
+                  start_pos: Union[int, torch.Tensor],
+                  slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3 wrapper. ``q [B, S, nq, hd]`` post-rope queries of the chunk at
     ``[start_pos, start_pos + S)``, already written into ``cache
-    [2, B, nkv, T, hd]`` (one layer); hd 64 or 128. Returns ``[B, S, nq*hd]``."""
+    [2, B, nkv, T, hd]`` (one layer); hd 64 or 128; ``slopes``: ALiBi slopes
+    f32 ``[nq]`` or None. Returns ``[B, S, nq*hd]``."""
     start_pos = int(start_pos)
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, cache, start_pos)
+        return flash_prefill_plain(q, cache, start_pos, slopes)
     what = "flash_prefill"
     _check(q.is_cuda, what, f"unsupported device {q.device}")
     _check_common(what, q, cache, HEAD_DIMS)
@@ -642,28 +712,30 @@ def flash_prefill(q: torch.Tensor, cache: torch.Tensor,
            f"q {tuple(q.shape)} does not fit cache {tuple(cache.shape)}")
     _check(start_pos >= 0 and start_pos + s <= t, what,
            f"chunk [{start_pos}, {start_pos + s}) outside the cache (T={t})")
+    sptr = _slopes_ptr(what, slopes, nq, q.device)
     out = torch.empty((b, s, nq * hd), dtype=q.dtype, device=q.device)
     if s == 0:
         return out
 
     from awq_tpu_torch import _build
 
-    lib = _build.load("decode_attn")
-    fn = lib.awq_flash_prefill
+    lib, entry, tail = _unit(sptr, "awq_flash_prefill")
+    fn = getattr(lib, entry)
     plan = prefill_plan(b, s, nq, nkv, t, start_pos, hd)
-    _build.declare(fn, *([_build.P] * 3), *([_build.I] * 8), _build.F,
-                   _build.I, _build.I, _build.P)
+    _build.declare(fn, *([_build.P] * 3), *([_build.I] * 8), _build.F, _build.I, _build.I,
+                   *([_build.P] * len(tail)), _build.P)
     err = fn(q.data_ptr(), cache.data_ptr(), out.data_ptr(), b, s, nq, nkv,
              t, start_pos, hd, plan.n_tiles, _LOG2E / math.sqrt(hd), _DTYPE_CODE[q.dtype],
-             _DTYPE_CODE[cache.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+             _DTYPE_CODE[cache.dtype], *tail, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, err, what)
-    LAUNCHES["flash_prefill"] += 1
+    LAUNCHES["flash_prefill_alibi" if sptr else "flash_prefill"] += 1
     return out
 
 
 def flash_decode_layer(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                        length: Union[int, torch.Tensor],
-                       max_length: Optional[int] = None) -> torch.Tensor:
+                       max_length: Optional[int] = None,
+                       slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K14 wrapper, JAX's ``flash_decode`` signature. ``q [B, nq, hd]`` one
     query position per row; ``k_cache``/``v_cache [B, nkv, T, hd]`` one
     layer's cache (two tensors, e.g. the views ``kv[0]``, ``kv[1]``),
@@ -674,12 +746,12 @@ def flash_decode_layer(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
     reads it there (a captured decode step replays at every length), and
     ``max_length`` (at least the length, at most T) is the bound its split
     is planned for. A host length with the same ``max_length`` gives the
-    same bits."""
+    same bits. ``slopes``: ALiBi slopes f32 ``[nq]`` or None."""
     dev_len = isinstance(length, torch.Tensor) and length.device.type != "cpu"
     if not dev_len:
         length = int(length)
     if q.device.type == "cpu":
-        return flash_decode_layer_plain(q, k_cache, v_cache, length)
+        return flash_decode_layer_plain(q, k_cache, v_cache, length, slopes)
     what = "flash_decode_layer"
     _check(q.is_cuda, what, f"unsupported device {q.device}")
     b, nq, hd = q.shape
@@ -704,21 +776,26 @@ def flash_decode_layer(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
         _check(1 <= length <= bound, what, f"length {length} not in [1, {bound}]")
         lptr, n_len = 0, length
     _check(1 <= bound <= t, what, f"length bound {bound} not in [1, {t}]")
+    sptr = _slopes_ptr(what, slopes, nq, q.device)
+    if sptr and nq // nkv > 32:
+        raise NotImplementedError(
+            f"{what}: ALiBi slopes with {nq // nkv} q heads per kv head; the ALiBi unit takes "
+            "at most 32 (the ALiBi families are MHA; wider groups are ROADMAP queue A, item 12)")
     plan = decode_plan(b, nq, nkv, hd, bound, k_cache.element_size(), PLAN_UNIT[what],
                        sms=_sm_count(q.device))
     out = torch.empty_like(q)
 
     from awq_tpu_torch import _build
 
-    lib = _build.load("decode_attn")
-    fn = lib.awq_flash_decode_layer
-    _build.declare(fn, *([_build.P] * 5), *([_build.I] * 10), _build.F, _build.I,
-                   _build.I, _build.P)
+    lib, entry, tail = _unit(sptr, "awq_flash_decode_layer")
+    fn = getattr(lib, entry)
+    _build.declare(fn, *([_build.P] * 5), *([_build.I] * 10), _build.F, _build.I, _build.I,
+                   *([_build.P] * len(tail)), _build.P)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), lptr, b,
              nq, nkv, t, n_len, hd, *_plan_args(plan), 1.0 / math.sqrt(hd),
-             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype],
+             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], *tail,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         _build.check(lib, err, f"{what} ({plan.describe()})")
-    LAUNCHES["flash_decode_layer"] += 1
+    LAUNCHES["flash_decode_layer_alibi" if sptr else "flash_decode_layer"] += 1
     return out

@@ -38,6 +38,17 @@ QLinears, g128). K4 reads them as stored in its W3 mode, 0.375 B per
 weight; the plain versions unpack them with ``unpack_int3``. The rounding
 points are the W4 ones.
 
+The MPT shape (``shape="mpt"``, the JAX kernel's ``norm="layernorm"``,
+``act="gelu"``, ``pos_embed="alibi"``; units ``megakernel_mpt`` and
+``megakernel_mpt_w3``, the shape a compile-time define as the format is):
+bias-free LayerNorm (mean, then the variance of the centred row, in f32)
+for both norms and the final one; no rope; ALiBi slopes ``2^(-8 (h + 1) /
+nq)`` computed from the head index (:func:`mpt_slopes`; ``nq`` a power of
+two), ``slope * t`` added to the score of position ``t``, the current
+token's at ``length``; the MLP ``down(gelu(up(x)))`` with the exact erf
+GELU, ``up`` an ``[L, H/8, I]`` stack in ``wgateup``'s place. K12 and K13
+take no MPT shape, as in JAX.
+
 Each function has a plain PyTorch version (``*_plain``): the CPU path and
 the reference the kernel is held to on the card. The wrappers run the
 plain version for CPU tensors and launch K4 for CUDA tensors, or raise.
@@ -57,9 +68,12 @@ from awq_tpu_torch.ops.cache_append import dequantize_kv, quantize_kv
 from awq_tpu_torch.ops.w4a16 import QLinear, unpack_codes
 
 #: Launches of K4's two entries, over a float cache and over an int8 one,
-#: in W4 and in W3 mode, counted where the wrappers launch them.
-LAUNCHES = {f"megakernel_{e}{w}{c}": 0 for e in ("token", "layer")
-            for w in ("", "_w3") for c in ("", "_int8")}
+#: in W4 and in W3 mode, and of the MPT shape (float caches), counted where
+#: the wrappers launch them.
+LAUNCHES = {**{f"megakernel_{e}{w}{c}": 0 for e in ("token", "layer")
+               for w in ("", "_w3") for c in ("", "_int8")},
+            **{f"megakernel_{e}_mpt{w}": 0 for e in ("token", "layer") for w in ("", "_w3")}}
+SHAPES = ("llama", "mpt")   # the layer bodies K4 is built for
 
 GROUP = 128        # the group size the kernels are built for
 HEAD_DIM = 128     # the head_dim the kernels are built for
@@ -107,6 +121,23 @@ def weight_format(p) -> Optional[bool]:
     return None
 
 
+def model_shape(cfg) -> Optional[str]:
+    """K4's layer body for ``cfg``: ``"llama"`` (rope, RMSNorm, SwiGLU),
+    ``"mpt"`` (ALiBi with a power-of-two head count, bias-free LayerNorm,
+    the erf-GELU plain MLP, no embedding norm; JAX's ``mpt_shape``,
+    ``awq_tpu/ops/megakernel.py:894-899``, its tanh-GELU variant left to
+    the stacked path) or None. Either takes the sequential block over whole
+    heads of 128."""
+    if cfg.head_dim != HEAD_DIM or cfg.parallel_block or cfg.rotary_pct != 1.0:
+        return None
+    if cfg.act == "silu" and cfg.norm == "rmsnorm" and cfg.pos_embed == "rope":
+        return "llama"
+    if (cfg.act == "gelu" and cfg.norm == "layernorm" and cfg.pos_embed == "alibi"
+            and cfg.num_heads & (cfg.num_heads - 1) == 0 and not cfg.embed_ln):
+        return "mpt"
+    return None
+
+
 def megakernel_supported(cfg, layers, cache, slots: int = 1) -> bool:
     """Whether ``forward`` takes the megakernels for this model and cache
     (of ``slots`` batch rows: 1 for K4 and K5, B for the batched K6).
@@ -123,8 +154,10 @@ def megakernel_supported(cfg, layers, cache, slots: int = 1) -> bool:
     float cache of batch 1 on CUDA (``AWQ_TPU_FORCE_MEGAKERNEL=1`` lets the
     plain version run on the CPU, the JAX test hook);
     ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` turns it off. An int8 ``KVCache8`` is
-    taken with its scales (a bare int8 tensor is not). The MPT shape (A12)
-    is not ported and takes the stacked path.
+    taken with its scales (a bare int8 tensor is not). K4's MPT shape
+    (:func:`model_shape`, batch 1 only) takes ``up`` in ``wgateup``'s place,
+    no LayerNorm bias (``ln1_b``) and a float cache: JAX never gives K4 an
+    ALiBi int8 cache (``awq_tpu/models/llama.py:681``).
     """
     if _env("AWQ_TPU_DISABLE_MEGAKERNEL"):
         return False
@@ -140,16 +173,17 @@ def megakernel_supported(cfg, layers, cache, slots: int = 1) -> bool:
         return False
     if cache.dim() != 6 or cache.shape[2] != slots:
         return False
-    if (cfg.head_dim != HEAD_DIM or cfg.act != "silu" or cfg.norm != "rmsnorm"
-            or cfg.pos_embed != "rope" or cfg.parallel_block
-            or cfg.rotary_pct != 1.0
-            or cfg.num_heads % cfg.num_kv_heads
+    shape = model_shape(cfg)
+    if (shape is None or cfg.num_heads % cfg.num_kv_heads
             or cfg.num_heads // cfg.num_kv_heads > MAX_GROUP):
+        return False
+    if shape == "mpt" and (slots != 1 or scales is not None or "ln1_b" in layers
+                           or "ln2_b" in layers):
         return False
     if cfg.hidden_size % GROUP or cfg.intermediate_size % GROUP:
         return False
     fmt = weight_format(layers.get("wqkv"))
-    for name in ("wqkv", "wo", "wgateup", "down"):
+    for name in ("wqkv", "wo", "wgateup" if shape == "llama" else "up", "down"):
         p = layers.get(name)
         if not isinstance(p, QLinear) or p.qweight.dim() != 3:
             return False
@@ -165,11 +199,13 @@ def head_in_kernel(params) -> bool:
     head is a 2-D g128 :class:`QLinear` without bias (``quantize_head``),
     in the body's format (a W3 head only with a W3 body, as JAX's
     ``models/llama.py:742``), whose vocabulary is a whole number of the
-    kernels' 32-column tiles."""
+    kernels' 32-column tiles, and a final norm without bias (``norm_b``,
+    ``awq_tpu/models/llama.py:735``)."""
     head = params.get("lm_head")
     body = params.get("layers", {}).get("wqkv")
     fmt = weight_format(head)
     return (fmt is not None and head.qweight.dim() == 2 and head.bias is None
+            and params.get("norm_b") is None
             and head.out_features % 32 == 0
             and (body is None or weight_format(body) == fmt))
 
@@ -197,9 +233,10 @@ class MatmulPhase:
 
 
 def matmul_phases(mode: int, n_layers: int, H: int, I: int, nq: int, nkv: int,
-                  vocab: int = 0):
+                  vocab: int = 0, shape: str = "llama"):
     """The matmul phases of one launch in order: per layer QKV and o-proj
-    (K4, K12), gate/up and down (K4, K13), then K4's head."""
+    (K4, K12), gate/up (the MPT shape: ``up``, OC = I) and down (K4, K13),
+    then K4's head."""
     oq, icq = (nq + 2 * nkv) * HEAD_DIM, nq * HEAD_DIM
     out = []
     for li in range(n_layers):
@@ -207,7 +244,8 @@ def matmul_phases(mode: int, n_layers: int, H: int, I: int, nq: int, nkv: int,
             out += [MatmulPhase("qkv", li, H, oq, oq // TILE, H // GROUP),
                     MatmulPhase("o", li, icq, H, H // TILE, icq // GROUP)]
         if mode != MODE_ATT:
-            out += [MatmulPhase("gu", li, H, 2 * I, I // TILE, H // GROUP, I),
+            out += [MatmulPhase("up", li, H, I, I // TILE, H // GROUP) if shape == "mpt"
+                    else MatmulPhase("gu", li, H, 2 * I, I // TILE, H // GROUP, I),
                     MatmulPhase("down", li, I, H, H // TILE, I // GROUP)]
     if mode == MODE_LAYERS and vocab:
         out.append(MatmulPhase("head", n_layers, H, vocab, vocab // TILE, H // GROUP))
@@ -254,6 +292,27 @@ def rms_rows(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt(ms + eps) * w.float()
 
 
+def ln_rows(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """Row-wise bias-free LayerNorm in f32 (``_norm_rows(kind="layernorm")``):
+    the mean, then the mean square of the centred row."""
+    xc = x - torch.mean(x, dim=-1, keepdim=True)
+    ms = torch.mean(xc * xc, dim=-1, keepdim=True)
+    return xc * torch.rsqrt(ms + eps) * w.float()
+
+
+def norm_rows(x: torch.Tensor, w: torch.Tensor, eps: float, shape: str = "llama"):
+    """The layer body's norm: RMSNorm, or the MPT shape's LayerNorm."""
+    return ln_rows(x, w, eps) if shape == "mpt" else rms_rows(x, w, eps)
+
+
+def mpt_slopes(nq: int, device=None) -> torch.Tensor:
+    """The MPT shape's ALiBi slopes as the kernels compute them from the head
+    index (``_alibi_chunk_slopes``): ``exp2(-(8 / nq) * (h + 1))`` in f32,
+    ``alibi_slopes`` for a power-of-two ``nq`` up to rounding."""
+    h = torch.arange(nq, dtype=torch.float32, device=device)
+    return torch.exp2(-(8.0 / nq) * (h + 1.0))
+
+
 def rope_rows(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """HF rotate-half rope of ``x [..., hd]`` in f32."""
     half = x.shape[-1] // 2
@@ -271,20 +330,24 @@ def qdot_layer(ql: QLinear, l: Optional[int], x: torch.Tensor) -> torch.Tensor:
 
 
 def attn_plain(h, wqkv, ln1, cos_row, sin_row, cache, l, length, nq, nkv, eps,
-               scales=None):
+               scales=None, shape="llama"):
     """The attention of one layer on the f32 residual ``h [1, H]``: RMSNorm,
     QKV (+ bias), rope, attention over the cache prefix and the current
-    token. Writes the cache (codes and ``scales`` for an int8 one) at
-    ``length`` and returns ``(attn f32 [1, nq*hd], k, v f32 [nkv, hd])``."""
+    token (the MPT shape: LayerNorm, no rope, the ALiBi bias ``slope * t``
+    on the score of position ``t``). Writes the cache (codes and ``scales``
+    for an int8 one) at ``length`` and returns ``(attn f32 [1, nq*hd], k, v
+    f32 [nkv, hd])``."""
     hd = HEAD_DIM
     grp = nq // nkv
-    x = rms_rows(h, ln1[l], eps)
+    x = norm_rows(h, ln1[l], eps, shape)
     qkv = qdot_layer(wqkv, l, x)[0]
     if wqkv.bias is not None:
         qkv = qkv + wqkv.bias[l].float()
-    cos, sin = cos_row.float(), sin_row.float()
-    q = rope_rows(qkv[:nq * hd].reshape(nq, hd), cos, sin)
-    k = rope_rows(qkv[nq * hd:(nq + nkv) * hd].reshape(nkv, hd), cos, sin)
+    q = qkv[:nq * hd].reshape(nq, hd)
+    k = qkv[nq * hd:(nq + nkv) * hd].reshape(nkv, hd)
+    if shape != "mpt":
+        cos, sin = cos_row.float(), sin_row.float()
+        q, k = rope_rows(q, cos, sin), rope_rows(k, cos, sin)
     v = qkv[(nq + nkv) * hd:].reshape(nkv, hd)
     qs = (q * (1.0 / math.sqrt(hd))).reshape(nkv, grp, hd)
     if scales is None:
@@ -293,31 +356,38 @@ def attn_plain(h, wqkv, ln1, cos_row, sin_row, cache, l, length, nq, nkv, eps,
         prefix = dequantize_kv(cache[l, :, 0, :, :length], scales[l, :, 0, :, :length])
     keys = torch.cat([prefix[0], k[:, None]], dim=1)
     vals = torch.cat([prefix[1], v[:, None]], dim=1)
-    p = torch.softmax(torch.einsum("kgh,kth->kgt", qs, keys), dim=-1)
+    sc = torch.einsum("kgh,kth->kgt", qs, keys)
+    if shape == "mpt":
+        pos = torch.arange(length + 1, dtype=torch.float32, device=h.device)
+        sc = sc + mpt_slopes(nq, h.device).reshape(nkv, grp, 1) * pos
+    p = torch.softmax(sc, dim=-1)
     attn = torch.einsum("kgt,kth->kgh", p, vals).reshape(1, nq * hd)
     write_kv(cache, scales, (l, slice(None), 0, slice(None), length), torch.stack([k, v]))
     return attn, k, v
 
 
-def mlp_plain(h1, wgu, wdn, ln2, l, eps):
+def mlp_plain(h1, wgu, wdn, ln2, l, eps, shape="llama"):
     """The MLP of one layer on the f32 residual ``h1 [1, H]``: RMSNorm,
-    gate/up, SiLU·mul, down; returns down's output, f32 ``[1, H]``, without
-    the residual."""
-    gu = qdot_layer(wgu, l, rms_rows(h1, ln2[l], eps))
-    gate, up = gu.chunk(2, dim=-1)
-    hm = gate * torch.sigmoid(gate) * up
+    gate/up, SiLU·mul, down (the MPT shape: LayerNorm, up, the erf GELU,
+    down); returns down's output, f32 ``[1, H]``, without the residual."""
+    gu = qdot_layer(wgu, l, norm_rows(h1, ln2[l], eps, shape))
+    if shape == "mpt":
+        hm = torch.nn.functional.gelu(gu)
+    else:
+        gate, up = gu.chunk(2, dim=-1)
+        hm = gate * torch.sigmoid(gate) * up
     return qdot_layer(wdn, l, hm)
 
 
 def _layer_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
-                 l, length, nq, nkv, eps, scales=None):
+                 l, length, nq, nkv, eps, scales=None, shape="llama"):
     """One layer on the f32 residual ``h [1, H]``; writes the cache (codes
     and ``scales`` for an int8 one) at ``length`` and returns ``(h_new f32
     [1, H], k, v f32 [nkv, hd])``."""
     attn, k, v = attn_plain(h, wqkv, ln1, cos_row, sin_row, cache, l, length, nq, nkv,
-                            eps, scales)
+                            eps, scales, shape)
     h1 = h + qdot_layer(wo, l, attn)
-    return h1 + mlp_plain(h1, wgu, wdn, ln2, l, eps), k, v
+    return h1 + mlp_plain(h1, wgu, wdn, ln2, l, eps, shape), k, v
 
 
 def write_kv(cache, scales, at, kv):
@@ -333,13 +403,13 @@ def write_kv(cache, scales, at, kv):
 
 def w4a16_llama_layer_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
                                  sin_row, cache, layer_idx, length, nq, nkv,
-                                 eps=1e-5, cache_scales=None):
+                                 eps=1e-5, cache_scales=None, shape="llama"):
     """Plain version of K4's layer entry: ``(h_new [1, H] in h.dtype,
     k_new, v_new [1, nkv, hd] in the cache dtype, bf16 for int8)``; writes
     the cache."""
     hn, k, v = _layer_plain(h.float(), wqkv, wo, wgu, wdn, ln1, ln2,
                             cos_row, sin_row, cache, int(layer_idx),
-                            int(length), nq, nkv, eps, cache_scales)
+                            int(length), nq, nkv, eps, cache_scales, shape)
     kt = kv_out_dtype(cache)
     return (hn.to(h.dtype), k[None].to(kt), v[None].to(kt))
 
@@ -348,7 +418,7 @@ def w4a16_llama_token_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
                                  sin_row, cache, length, nq, nkv, eps=1e-5,
                                  whead: Optional[QLinear] = None,
                                  norm_w: Optional[torch.Tensor] = None,
-                                 cache_scales=None):
+                                 cache_scales=None, shape="llama"):
     """Plain version of K4's token entry: ``(h_new [1, H], k_new, v_new
     [L, nkv, hd])`` plus ``logits [1, V]`` f32 with a head; writes the
     cache at ``length`` in every layer."""
@@ -357,7 +427,7 @@ def w4a16_llama_token_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
     for l in range(cache.shape[0]):
         hn, k, v = _layer_plain(hh, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
                                 sin_row, cache, l, int(length), nq, nkv, eps,
-                                cache_scales)
+                                cache_scales, shape)
         hh = hn.to(torch.bfloat16).float()   # bf16 between layers
         ks.append(k)
         vs.append(v)
@@ -365,7 +435,7 @@ def w4a16_llama_token_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
     out = (hh.to(h.dtype), torch.stack(ks).to(kt), torch.stack(vs).to(kt))
     if whead is None:
         return out
-    xf = rms_rows(hh, norm_w, eps)
+    xf = norm_rows(hh, norm_w, eps, shape)
     return out + (qdot_layer(whead, None, xf),)
 
 
@@ -376,11 +446,12 @@ def _fail(what: str, msg: str):
 
 
 def check_operands(what, h, lins, ln1, ln2, cache, nq, nkv, rows, slots=1,
-                   scales=None):
+                   scales=None, gated=True):
     """Shared checks of K4, K5 and K6: what the kernels take. An int8 cache
-    comes with its f32 ``scales [L, 2, slots, nkv, T]``. Returns ``(L, H,
-    I, w3)``, ``w3`` the linears' format (all W3 in ``pack_int3``, or all
-    W4)."""
+    comes with its f32 ``scales [L, 2, slots, nkv, T]``. ``gated``: the MLP's
+    first linear is gate/up ``[.., 2I]`` (else K4's MPT ``up``, ``[.., I]``).
+    Returns ``(L, H, I, w3)``, ``w3`` the linears' format (all W3 in
+    ``pack_int3``, or all W4)."""
     if cache.dtype == torch.int8:
         if scales is None:
             _fail(what, "an int8 cache needs its scales (cache_scales)")
@@ -405,14 +476,15 @@ def check_operands(what, h, lins, ln1, ln2, cache, nq, nkv, rows, slots=1,
         _fail(what, f"h must be float [{rows}, {H}], got {h.dtype} "
               f"{tuple(h.shape)}")
     wqkv, wo, wgu, wdn = lins
-    inter = wgu.out_features // 2
+    inter = wgu.out_features // 2 if gated else wgu.out_features
     w3 = weight_format(wqkv)
     if w3 is None:
         _fail(what, f"wqkv must be W4 or W3 in pack_int3 (dense3), g{GROUP}; got "
               f"w_bit={wqkv.w_bit}, dense3={wqkv.dense3}, g{wqkv.group_size}")
     fmt = "W3 (dense3)" if w3 else "W4"
     shapes = {"wqkv": (wqkv, H, (nq + 2 * nkv) * hd), "wo": (wo, H, H),
-              "wgateup": (wgu, H, 2 * inter), "down": (wdn, inter, H)}
+              ("wgateup" if gated else "up"): (wgu, H, (2 if gated else 1) * inter),
+              "down": (wdn, inter, H)}
     for name, (p, ic, oc) in shapes.items():
         rows = ic * 3 // 32 if w3 else ic // 8
         if weight_format(p) != w3 or tuple(p.qweight.shape) != (L, rows, oc):
@@ -489,12 +561,17 @@ def launch(entry: str, what: str, ptrs, ints, eps: float, dev) -> None:
 def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
                   sin_row, cache, layer0, n_layers, length, nq, nkv, eps,
                   whead=None, norm_w=None, round_residual=True, scales=None,
-                  max_length=None):
+                  max_length=None, shape="llama"):
     dev = cache.device
     if not cache.is_cuda:
         _fail(what, f"unsupported device {dev}")
+    if shape not in SHAPES:
+        _fail(what, f"shape {shape!r}: K4 is built for {SHAPES}")
+    mpt = shape == "mpt"
+    if mpt and (scales is not None or nq & (nq - 1)):
+        _fail(what, "the MPT shape takes a float cache and a power-of-two head count")
     L, H, inter, w3 = check_operands(what, h, (wqkv, wo, wgu, wdn), ln1, ln2,
-                                     cache, nq, nkv, 1, scales=scales)
+                                     cache, nq, nkv, 1, scales=scales, gated=not mpt)
     T = cache.shape[4]
     pos = None
     if isinstance(length, torch.Tensor):
@@ -508,8 +585,8 @@ def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
             _fail(what, f"a device length holds one int32, got {pos.numel()}")
         if max_length is None or not 0 <= int(max_length) < T:
             _fail(what, f"a device length needs max_length in [0, {T}), got {max_length}")
-        if cos_row.dim() != 2 or cos_row.shape[1] != HEAD_DIM or cos_row.shape[0] <= max_length \
-                or sin_row.shape != cos_row.shape:
+        if not mpt and (cos_row.dim() != 2 or cos_row.shape[1] != HEAD_DIM
+                        or cos_row.shape[0] <= max_length or sin_row.shape != cos_row.shape):
             _fail(what, f"with a device length cos/sin are the rope tables [> {max_length}, "
                   f"{HEAD_DIM}], got {tuple(cos_row.shape)}")
         length, plan = 0, int(max_length)
@@ -519,8 +596,10 @@ def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
         if not 0 <= length <= plan < T:
             _fail(what, f"length {length} and max_length {plan} must satisfy "
                   f"0 <= length <= max_length < {T}")
-        if cos_row.numel() != HEAD_DIM or sin_row.numel() != HEAD_DIM:
+        if not mpt and (cos_row.numel() != HEAD_DIM or sin_row.numel() != HEAD_DIM):
             _fail(what, f"cos/sin rows must hold {HEAD_DIM} values")
+    if mpt:
+        cos_row = sin_row = None       # no rope: the kernel reads no table
     if layer0 < 0 or layer0 + n_layers > L:
         _fail(what, f"layers [{layer0}, {layer0 + n_layers}) outside [0, {L})")
     check_small(what, dev, None, h=h, ln1=ln1, ln2=ln2, cache=cache)
@@ -535,45 +614,50 @@ def _token_launch(what, counter, h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row,
         [h.data_ptr(), out.data_ptr()]
         + qlinear_ptrs(wqkv, dev) + [bias.data_ptr() if bias is not None else 0]
         + qlinear_ptrs(wo, dev) + qlinear_ptrs(wgu, dev) + qlinear_ptrs(wdn, dev)
-        + [ln1.data_ptr(), ln2.data_ptr(), cos_row.data_ptr(), sin_row.data_ptr(),
-           cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr()]
+        + [ln1.data_ptr(), ln2.data_ptr(), 0 if mpt else cos_row.data_ptr(),
+           0 if mpt else sin_row.data_ptr(), cache.data_ptr(), k_new.data_ptr(),
+           v_new.data_ptr()]
         + head + [logits.data_ptr() if logits is not None else 0,
                   scales.data_ptr() if scales is not None else 0,
                   pos.data_ptr() if pos is not None else 0])
     ints = [layer0, n_layers, L, H, inter, nq, nkv, T, length, vocab,
             int(round_residual), _DTYPE_CODE[h.dtype], _CACHE_CODE[cache.dtype],
             int(bias is not None), int(w3), MODE_LAYERS, plan]
-    launch("awq_mega_token", "megakernel_w3" if w3 else "megakernel", ptrs, ints, eps, dev)
-    LAUNCHES[counter + ("_w3" if w3 else "") + ("_int8" if scales is not None else "")] += 1
+    unit = "megakernel" + ("_mpt" if mpt else "") + ("_w3" if w3 else "")
+    launch("awq_mega_token", unit, ptrs, ints, eps, dev)
+    LAUNCHES[counter + ("_mpt" if mpt else "") + ("_w3" if w3 else "")
+             + ("_int8" if scales is not None else "")] += 1
     res = (out, k_new, v_new)
     return res + ((logits,) if logits is not None else ())
 
 
 def w4a16_llama_layer_step(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row,
                            cache, layer_idx, length, nq, nkv, eps=1e-5,
-                           cache_scales=None):
+                           cache_scales=None, shape="llama"):
     """One decoder layer for one token (K4 over ``[l, l+1)``).
 
     ``h [1, H]`` residual, the four stacked W4 linears, ``ln1``/``ln2
     [L, H]``, the rope rows ``[hd]`` f32 at position ``length``, ``cache
     [L, 2, 1, nkv, T, hd]`` (written at ``length`` of layer ``l``; int8
-    with ``cache_scales [L, 2, 1, nkv, T]`` f32). Returns ``(h_new [1, H],
-    k_new [1, nkv, hd], v_new)``."""
+    with ``cache_scales [L, 2, 1, nkv, T]`` f32). ``shape="mpt"``: K4's MPT
+    shape (``wgu`` the ``up`` stack; the rope rows are not read and may be
+    None). Returns ``(h_new [1, H], k_new [1, nkv, hd], v_new)``."""
     if cache.device.type == "cpu":
         return w4a16_llama_layer_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2,
                                             cos_row, sin_row, cache, layer_idx,
-                                            length, nq, nkv, eps, cache_scales)
+                                            length, nq, nkv, eps, cache_scales, shape)
     return _token_launch("megakernel_layer", "megakernel_layer", h, wqkv, wo,
                          wgu, wdn, ln1, ln2, cos_row, sin_row, cache,
                          int(layer_idx), 1, int(length), nq, nkv, eps,
-                         round_residual=False, scales=cache_scales)
+                         round_residual=False, scales=cache_scales, shape=shape)
 
 
 def w4a16_llama_token_step(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row,
                            cache, length, nq, nkv, eps=1e-5,
                            whead: Optional[QLinear] = None,
                            norm_w: Optional[torch.Tensor] = None,
-                           cache_scales=None, max_length: Optional[int] = None):
+                           cache_scales=None, max_length: Optional[int] = None,
+                           shape: str = "llama"):
     """All decoder layers for one token in one launch of K4; with
     ``whead``/``norm_w`` also the final RMSNorm and the W4 head. Returns
     ``(h_new [1, H], k_new [L, nkv, hd], v_new)`` (+ ``logits [1, V]``
@@ -588,17 +672,20 @@ def w4a16_llama_token_step(h, wqkv, wo, wgu, wdn, ln1, ln2, cos_row, sin_row,
     least the length; required with a device length) bounds the position
     and sizes the workspace; the kernel splits its attention by the length
     it reads, so a device length gives the bits of the same length passed
-    as a host int, whatever ``max_length``."""
+    as a host int, whatever ``max_length``. ``shape="mpt"``: K4's MPT shape
+    (``wgu`` the ``up`` stack, the final norm a LayerNorm; the rope rows or
+    tables are not read and may be None)."""
     if cache.device.type == "cpu":
         if isinstance(length, torch.Tensor):
             length = int(length.reshape(-1)[0])
-            cos_row, sin_row = cos_row[length], sin_row[length]
+            if cos_row is not None:
+                cos_row, sin_row = cos_row[length], sin_row[length]
         return w4a16_llama_token_step_plain(h, wqkv, wo, wgu, wdn, ln1, ln2,
                                             cos_row, sin_row, cache, length,
                                             nq, nkv, eps, whead, norm_w,
-                                            cache_scales)
+                                            cache_scales, shape)
     return _token_launch("megakernel_token", "megakernel_token", h, wqkv, wo,
                          wgu, wdn, ln1, ln2, cos_row, sin_row, cache, 0,
                          cache.shape[0], length, nq, nkv, eps,
                          whead=whead, norm_w=norm_w, scales=cache_scales,
-                         max_length=max_length)
+                         max_length=max_length, shape=shape)

@@ -58,6 +58,7 @@ from awq_tpu_torch.ops.megakernel import (
     kv_out_dtype,
     launch,
     megakernel_supported,
+    model_shape,
     qdot_layer,
     qlinear_ptrs,
     rms_rows,
@@ -311,7 +312,7 @@ def megakernel_batched_supported(cfg, layers, cache, batch: int) -> bool:
     its VMEM budget are facts of Mosaic's (8, 128) tiles and of the TPU's
     scratch memory: K6 takes any row count (rows fill ``mma`` tiles of 16,
     in passes of 32) and keeps its activations in device memory."""
-    if not MIN_B <= batch <= MAX_B:
+    if not MIN_B <= batch <= MAX_B or model_shape(cfg) != "llama":
         return False
     return megakernel_supported(cfg, layers, cache, slots=batch)
 
@@ -326,7 +327,8 @@ def megakernel_paged_supported(cfg, layers, pool, batch: int) -> bool:
     paged instance is built for bf16, the engine's pool dtype: its wrapper
     refuses another (the plain version takes any float pool). An int8 pool
     is refused, as the JAX gate refuses it: there is no paged int8 cache."""
-    if isinstance(pool, tuple) or not MIN_B <= batch <= MAX_B or pool.dim() != 6:
+    if (isinstance(pool, tuple) or not MIN_B <= batch <= MAX_B or pool.dim() != 6
+            or model_shape(cfg) != "llama"):
         return False
     page = pool.shape[4]
     if page < 1 or page & (page - 1):

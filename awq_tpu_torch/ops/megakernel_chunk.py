@@ -45,6 +45,7 @@ from awq_tpu_torch.ops.megakernel import (
     check_small,
     launch,
     megakernel_supported,
+    model_shape,
     qdot_layer,
     qlinear_ptrs,
     rms_rows,
@@ -63,9 +64,11 @@ def chunk_megakernel_supported(cfg, layers, cache, s: int) -> bool:
     (:func:`~awq_tpu_torch.ops.megakernel.megakernel_supported`); the
     JAX gate's VMEM budget for 32 activation rows is a TPU fact. An int8
     ``KVCache8`` is refused, as JAX refuses it (``megakernel_chunk.py:269``,
-    and ``forward`` gates its chunk kernel on ``not is_q8``)."""
+    and ``forward`` gates its chunk kernel on ``not is_q8``), and so is K4's
+    MPT shape: JAX's chunk gate takes rope and RMSNorm only
+    (``awq_tpu/models/llama.py:698-701``)."""
     return (0 < s <= CHUNK_S and not isinstance(cache, tuple)
-            and megakernel_supported(cfg, layers, cache))
+            and model_shape(cfg) == "llama" and megakernel_supported(cfg, layers, cache))
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

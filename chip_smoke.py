@@ -56,6 +56,18 @@ Phases (each failure ends the run with a non-zero exit):
    1000, 2047) and Llama-3-8B's (B 1 and 8, 8 kv heads of 4; lengths 1000
    and 4000), and K3's head_dim-64 mode at Falcon-7B's shape (S 512 from
    0 and from 700, S 1000 from 0: the 1000-token prompt); yardstick SDPA.
+   Then the ALiBi modes (MPT, BLOOM), yardstick SDPA with the same bias as
+   an additive mask: K2 with slopes at MPT-7B's heads (32 q over 32 kv
+   heads, head_dim 128; B 1 at lengths 1000 and 4000, and the 8 ragged rows),
+   K3 with slopes (S 512 from 0 and from 700, bf16 and f32 caches) and K14
+   with slopes at BLOOM-560m's 16 heads of 64 (lengths 1, 1000, 2047 read in
+   device memory) and at 12 heads (the closest-power-of-two slopes); zero
+   slopes give each kernel's bits without slopes. Last, K4's MPT shape
+   (units ``megakernel_mpt``, ``megakernel_mpt_w3``) over a 32-layer MPT-7B
+   in W4 and in W3: the layer entry at layer 5 over lengths 0, 1000 and
+   4000, the token entry with the quantized tied head at length 1000 (its
+   position in device memory, bit-equal to the host-length launch);
+   yardstick the stacked path's device time.
 3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
    new tokens each, the second continuing the first's dialogue, then a
    24-token follow-up continuing the third's) through ``InferenceEngine``
@@ -131,11 +143,12 @@ Phases (each failure ends the run with a non-zero exit):
    on K12 and K13 with an all-reduce after each (K4 and K5 must not run);
    (b) at tp = 2 over gloo, two spawned processes sharing the card (they
    meet through a FileStore under ``build/``, with a timeout), each
-   building the model from the seed and serving the same requests. Prints
+   building 8 of the model's layers (``TP2_LAYERS``) from the seed and
+   serving the same requests. Prints
    TTFT, ms/token (in (b) two ranks time-sliced on one card, no TP
    speed-up), kernels per decode step and idle share (a), each rank's
    peak memory (b), and how many requests' greedy ids equal phase 3's on
-   K4 and (b)'s equal (a)'s (information; both ranks must agree).
+   K4 (information; both ranks of (b) must agree).
 3h. Falcon-7B at full width and depth (32 layers), random
    W4-g64 weights and head from seed 0 (``init_qparams``, ``quantize_head``),
    a bf16 cache of 2048 positions: phase 3's four requests through
@@ -144,6 +157,15 @@ Phases (each failure ends the run with a non-zero exit):
    GEMM and K3's head_dim-64 mode; no megakernel, and K14 runs in no other
    phase. Driven as phase 3 drives its paths. Prints TTFT, ms/token,
    GB/token, kernels per decode step, idle share, peak memory and the ids.
+3j. MPT-7B at full width and depth (``awq_tpu/benchmark.py:60-65``'s
+   widths: 32 heads of 128 over 32 kv heads, I 16384, vocab 50432), random
+   W4-g128 weights from seed 0, the tied embedding quantized as the head,
+   a bf16 cache of 2048 positions: phase 3's four requests through
+   ``InferenceEngine`` under the graph, on K4's MPT shape (one launch a
+   token by the device trace; the forward loop's ids equal the graph's) and
+   on the stacked path (K1, K2 with slopes); every prompt on K1's GEMM and K3
+   with slopes. Then the four requests through ``ModelWorker`` over HTTP,
+   the ids equal to the K4 run's. Prints what phase 3 prints.
 4. At the same widths and 2 layers, feed the same tokens through
    ``forward`` on the kernel path and on the plain path and compare
    logits: a 100-token prefill and 8 decodes on the stacked path, a
@@ -159,7 +181,10 @@ Phases (each failure ends the run with a non-zero exit):
    600-token one with ``prefill_a8`` alone (K10); then a 2-layer Falcon-7B
    model, a 100-token prefill and 16 decodes (K14 once per layer and step),
    both paths also against the same model in f32: the kernel path no
-   further from it than 1.25 times the plain path.
+   further from it than 1.25 times the plain path. Then the ALiBi families
+   at 2 layers, within 5e-2 of the largest logit: MPT-7B's widths on K4's
+   MPT shape and on the stacked path, BLOOM-560m's (random biases) on the
+   stacked path, K14 and K3 with slopes once per layer and step.
 5. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, where CUDA is not available or the
@@ -196,6 +221,22 @@ FALCON_7B = dict(arch="falcon", vocab_size=65024, hidden_size=4544,
                  head_dim=64, max_position_embeddings=2048, norm="layernorm", act="gelu",
                  parallel_block=True, single_ln=True, dtype="bfloat16")
 FALCON_G = 64
+# MPT-7B at the widths of awq_tpu/benchmark.py:60-65 (mosaicml/mpt-7b's
+# config.json: d_model 4096, 32 heads of 128 over 32 kv heads, expansion 4,
+# vocab 50432): bias-free LayerNorm, ALiBi, the erf-GELU MLP; its head is the
+# tied embedding
+MPT_7B = dict(arch="mpt", vocab_size=50432, hidden_size=4096, intermediate_size=16384,
+              num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128,
+              max_position_embeddings=2048, norm="layernorm", norm_bias=False, act="gelu",
+              pos_embed="alibi", tie_word_embeddings=True, dtype="bfloat16")
+# BLOOM-560m (bigscience/bloom-560m's config.json: hidden 1024, 16 heads of 64,
+# 24 layers, vocab 250880): the embedding LayerNorm, LayerNorms and linears
+# with bias, the tanh GELU, ALiBi
+BLOOM_560M = dict(arch="bloom", vocab_size=250880, hidden_size=1024, intermediate_size=4096,
+                  num_layers=24, num_heads=16, num_kv_heads=16, head_dim=64,
+                  max_position_embeddings=2048, norm="layernorm", act="gelu_tanh",
+                  pos_embed="alibi", attn_bias=True, mlp_bias=True, embed_ln=True,
+                  tie_word_embeddings=True, dtype="bfloat16")
 
 
 def log(msg: str) -> None:
@@ -1136,6 +1177,253 @@ def phase_layer_attention(torch, timer, cases_out):
         del cache, k_all, v_all
 
 
+def alibi_bias(torch, slopes, rows, length, relative=False):
+    """SDPA's additive mask for ALiBi: ``slope * j`` (``relative``: ``slope *
+    (j - i)``) over keys ``j < length`` for query positions ``rows [S]``,
+    -inf past each row's causal limit; ``[1, nq, S, length]`` f32."""
+    j = torch.arange(length, device="cuda", dtype=torch.float32)
+    rel = j[None, :] - (rows[:, None].float() if relative else 0.0)
+    bias = slopes[:, None, None] * rel[None]
+    return bias.masked_fill(j[None, None, :] > rows[None, :, None].float(), float("-inf"))[None]
+
+
+def phase_alibi_attention(torch, timer, cases_out):
+    """Phase 2, the ALiBi modes (MPT, BLOOM): K2 with slopes at MPT-7B's
+    heads (32 q over 32 kv heads, head_dim 128; B 1 at lengths 1000 and
+    4000, and 8 ragged rows), K3 with slopes at MPT-7B's heads (S 512 from 0
+    and from 700, over a bf16 and an f32 cache) and K14 with slopes at
+    BLOOM-560m's (16 heads of 64; lengths 1, 1000 and 2047 read in device
+    memory, as the served step reads them) and at 12 heads of 64 (the
+    closest-power-of-two slopes), each against its plain version; the library
+    call is SDPA with the same bias as an additive mask. Zero slopes give
+    each kernel's bits without slopes."""
+    import torch.nn.functional as F
+
+    from awq_tpu_torch.models.layers import alibi_slopes
+    from awq_tpu_torch.ops import decode_attn as da
+    from awq_tpu_torch.runtime.generate import cache_bucket
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    tol = 2.0 ** -6           # as the modes without slopes: bf16 output, P in bf16
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def add(name, shape, fn, plain, lib, nbytes, flops, plan=None, zero=None):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err, rel = check(f"{name} {shape}", got, ref, tol)
+        if zero is not None and not torch.equal(*zero()):
+            raise AssertionError(f"{name} {shape}: zero slopes change the output of the "
+                                 "launch without slopes")
+        b_ms, b_by = bound(nbytes, flops)
+        cases_out.append(dict(
+            name=name, shape=shape, max_abs_err=err, max_rel_err=rel,
+            tol=f"{tol:g}*max|ref|", ms=timer(fn), plain_ms=timer(plain, reps=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=timer(lib),
+            library="F.scaled_dot_product_attention(attn_mask=ALiBi bias)", **(plan or {})))
+        log_case(cases_out[-1])
+        if zero is not None:
+            log(f"  {name} {shape}: zero slopes give the bits of the launch without slopes")
+
+    mpt = MPT_7B
+    nq, hd = mpt["num_heads"], mpt["head_dim"]
+    sl = alibi_slopes(nq, device="cuda")
+    zeros = torch.zeros_like(sl)
+    for b, lengths in ((1, (1000,)), (1, (4000,)), (8, tuple(RAGGED))):
+        t = 4096 if b == 1 else 2048
+        cache = rnd(2, b, nq, t, hd)
+        q, kn, vn = rnd(b, nq, hd), rnd(b, nq, hd), rnd(b, nq, hd)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        mx = max(lengths)
+        k_all = torch.cat([cache[0, :, :, :mx], kn[:, :, None]], dim=2)
+        v_all = torch.cat([cache[1, :, :, :mx], vn[:, :, None]], dim=2)
+        # SDPA: the current token at column mx, at position len_b
+        pos = torch.arange(mx + 1, device="cuda", dtype=torch.float32)[None, :].repeat(b, 1)
+        pos[:, mx] = lens.float()
+        live = torch.arange(mx + 1, device="cuda")[None, :] < lens[:, None]
+        live[:, mx] = True
+        mask = (sl[None, :, None] * pos[:, None, :]).masked_fill(
+            ~live[:, None, :], float("-inf"))[:, :, None].to(torch.bfloat16)
+        shape = (f"len={lengths[0]} B=1" if b == 1 else f"B={b} ragged len 0..{mx}") + \
+            f" nq={nq} nkv={nq} hd={hd}"
+        add("flash_decode_alibi", shape,
+            lambda: da.flash_decode(q, kn, vn, cache, lens, max_length=mx, slopes=sl),
+            lambda: da.flash_decode_plain(q, kn, vn, cache, lens, max_length=mx, slopes=sl),
+            lambda: F.scaled_dot_product_attention(q[:, :, None], k_all, v_all, attn_mask=mask),
+            (2 * b * nq * hd + 2 * b * nq * hd + 2 * nq * hd * sum(lengths)) * 2 + nq * 4,
+            4.0 * nq * hd * (sum(lengths) + b),
+            decode_plan_of("flash_decode", b, nq, nq, hd, mx, 2),
+            zero=(lambda: (da.flash_decode(q, kn, vn, cache, lens, max_length=mx,
+                                           slopes=zeros),
+                           da.flash_decode(q, kn, vn, cache, lens, max_length=mx)))
+            if b == 1 and lengths[0] == 1000 else None)
+        del cache, k_all, v_all
+    for dtype in (torch.bfloat16, torch.float32):
+        for s_, start in ((512, 0), (512, 700)):
+            cache, q = rnd(2, 1, nq, 2048, hd, dtype=dtype), rnd(1, s_, nq, hd, dtype=dtype)
+            end = start + s_
+            k_all, v_all = cache[0, :, :, :end].contiguous(), cache[1, :, :, :end].contiguous()
+            qt = q.transpose(1, 2).contiguous()
+            mask = alibi_bias(torch, sl, start + torch.arange(s_, device="cuda"), end, True)
+            pairs = s_ * start + s_ * (s_ + 1) // 2
+            es = 2 if dtype == torch.bfloat16 else 4
+            add("flash_prefill_alibi",
+                f"S={s_} start={start} nq={nq} nkv={nq} {str(dtype)[6:]}",
+                lambda: da.flash_prefill(q, cache, start, slopes=sl),
+                lambda: da.flash_prefill_plain(q, cache, start, slopes=sl),
+                lambda: F.scaled_dot_product_attention(qt, k_all, v_all, attn_mask=mask.to(dtype)),
+                (2 * s_ * nq * hd + 2 * nq * end * hd) * es + nq * 4, 4.0 * nq * hd * pairs,
+                zero=(lambda: (da.flash_prefill(q, cache, start, slopes=zeros),
+                               da.flash_prefill(q, cache, start))) if start == 700 else None)
+            del cache, k_all, v_all
+    for nq_l, lengths in ((BLOOM_560M["num_heads"], (1, 1000, 2047)), (12, (1000,))):
+        hd_l, t = 64, 2048
+        sl_l = alibi_slopes(nq_l, device="cuda")
+        kv, q = rnd(2, 1, nq_l, t, hd_l), rnd(1, nq_l, hd_l)
+        for length in lengths:
+            # the served step's length in device memory, planned for its bucket
+            bucket = cache_bucket(t, length)
+            n_dev = torch.tensor([length], dtype=torch.int32, device="cuda")
+            same = torch.equal(da.flash_decode_layer(q, kv[0], kv[1], n_dev, bucket, slopes=sl_l),
+                               da.flash_decode_layer(q, kv[0], kv[1], length, bucket,
+                                                     slopes=sl_l))
+            if not same:
+                raise AssertionError(f"flash_decode_layer_alibi len={length}: the device-length "
+                                     "launch differs from the host-length one")
+            k_l, v_l = kv[0, :, :, :length].contiguous(), kv[1, :, :, :length].contiguous()
+            mask = alibi_bias(torch, sl_l, torch.tensor([length - 1], device="cuda"), length)
+            add("flash_decode_layer_alibi",
+                f"len={length} B=1 nq={nq_l} nkv={nq_l} hd={hd_l} (device length, bound "
+                f"{bucket})",
+                lambda: da.flash_decode_layer(q, kv[0], kv[1], n_dev, bucket, slopes=sl_l),
+                lambda: da.flash_decode_layer_plain(q, kv[0], kv[1], length, slopes=sl_l),
+                lambda: F.scaled_dot_product_attention(q[:, :, None], k_l, v_l,
+                                                       attn_mask=mask.to(torch.bfloat16)),
+                (2 * nq_l * hd_l + 2 * nq_l * length * hd_l) * 2 + nq_l * 4,
+                4.0 * nq_l * length * hd_l,
+                decode_plan_of("flash_decode_layer", 1, nq_l, nq_l, hd_l, bucket, 2),
+                zero=(lambda: (da.flash_decode_layer(q, kv[0], kv[1], length,
+                                                     slopes=torch.zeros_like(sl_l)),
+                               da.flash_decode_layer(q, kv[0], kv[1], length)))
+                if length == 1000 else None)
+            del k_l, v_l
+        del kv
+
+
+def zero_mean(params, w_bit: int):
+    """``init_qparams``' random layers with their zero points at the codes'
+    mean, (2^w_bit - 1) / 2, so that the weights have zero mean, as a trained
+    model's are near. At the zero point 2^(w_bit - 1) the mean weight is -s/2:
+    every down output of an MPT layer then carries -s/2 times the sum of the
+    GELU's mostly positive outputs, the residual gathers a common mode of
+    -244 against a spread of 9 over 32 layers at MPT-7B's intermediate width
+    (``scripts/exp_mpt_conditioning.py``, H 1024, I 16384), which LayerNorm
+    subtracts, leaving bf16's rounding of the residual a large share of the
+    rest: one input element moved by one bf16 step then moves layer 31's k by
+    24% of its largest, and any two implementations part as far; with zero-
+    mean weights by 1.4%."""
+    from awq_tpu_torch.ops.w4a16 import QLinear
+
+    for p in params["layers"].values():
+        if isinstance(p, QLinear):
+            p.szeros.copy_(p.scales * ((2 ** w_bit - 1) / 2))
+    return params
+
+
+def phase_mpt_megakernels(torch, timer, cases_out):
+    """Phase 2, K4's MPT shape at MPT-7B's widths (32 layers, random
+    zero-mean weights and head from a seed, ``zero_mean``), in W4 and in W3: the layer entry at layer 5 over
+    lengths 0, 1000 and 4000, and the token entry over 32 layers and the
+    head at length 1000 with its position in device memory (the workspace
+    for the 2048-position bucket), held to the plain version and, bit for
+    bit, to the launch given the length as a host int; the yardstick is the
+    stacked path's device time for the same step (K1's GEMV, K2 with
+    slopes and the glue)."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig
+    from awq_tpu_torch.models import llama
+    from awq_tpu_torch.ops import megakernel as mk
+
+    cfg = ModelConfig(**MPT_7B)
+    h_dim, nq, hd, L, vocab = (cfg.hidden_size, cfg.num_heads, cfg.head_dim,
+                               cfg.num_layers, cfg.vocab_size)
+    t_cache = 4096 + 64
+    tol_layer, tol_deep = 2.0 ** -6, 5e-2      # as the llama shape's cases
+    for w3 in (False, True):
+        sfx, wname = ("_w3", "W3") if w3 else ("", "W4")
+        gen = torch.Generator(device="cuda").manual_seed(1357 + w3)
+        params = zero_mean(llama.init_qparams(cfg, QuantConfig(w_bit=3 if w3 else 4,
+                                                               group_size=G), gen), 3 if w3 else 4)
+        params["lm_head"] = params["embed"].T.contiguous()       # the tied head, quantized
+        params = llama.fuse_linears(llama.quantize_head(params, cfg), cfg)
+        la = params["layers"]
+        lins = (la["wqkv"], la["wo"], la["up"], la["down"])
+        args = lins + (la["ln1"], la["ln2"], None, None)
+        cache = llama.init_kv_cache(cfg, 1, t_cache)
+        cache.normal_(generator=gen)
+        layer_bytes = sum(qlinear_bytes(p, 0) for p in lins) + 2 * h_dim * 2
+        layer_flops = 2 * sum(p.in_features * p.out_features for p in lins)
+        kv_pos = 2 * nq * hd * 2
+        head = dict(whead=params["lm_head"], norm_w=params["norm"], shape="mpt")
+
+        def record(name, shape, got, ref, tol, ms, plain_ms, yard_ms, nbytes, flops):
+            err = rel = 0.0
+            for i, (g_, r_) in enumerate(zip(got, ref)):
+                e, r2 = check(f"{name} {shape} output {i}", g_, r_, tol)
+                err, rel = max(err, e), max(rel, r2)
+            b_ms, b_by = bound(nbytes, flops)
+            cases_out.append(dict(
+                name=name, shape=shape, max_abs_err=err, max_rel_err=rel,
+                tol=f"{tol:g}*max|ref|", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, library="none", yardstick_ms=yard_ms,
+                yardstick="stacked per-kernel path (K1 GEMV, K2 with slopes), same step, "
+                          "device time (profiler)"))
+            log_case(cases_out[-1])
+
+        layer = 5
+        for length in (0, 1000, 4000):
+            h = (torch.randn((1, h_dim), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+            step = (h, *args, cache, layer, length, nq, nq, cfg.rms_eps)
+            got = mk.w4a16_llama_layer_step(*step, shape="mpt")
+            ref = mk.w4a16_llama_layer_step_plain(*step, shape="mpt")
+            torch.cuda.synchronize()
+            ms = timer(lambda: mk.w4a16_llama_layer_step(*step, shape="mpt"))
+            plain_ms = timer(lambda: mk.w4a16_llama_layer_step_plain(*step, shape="mpt"), reps=3)
+            yard = device_ms(torch, lambda: llama.stacked_layers(params, cfg, h[None], cache,
+                                                                 length, layer_ids=[layer]))
+            record("megakernel_layer_mpt" + sfx, f"layer {layer} len={length}", got, ref,
+                   tol_layer, ms, plain_ms, yard, layer_bytes + kv_pos * (length + 1),
+                   layer_flops + 4.0 * nq * hd * (length + 1))
+        length, bucket = 1000, 2047
+        pos = torch.tensor([length], dtype=torch.int32, device="cuda")
+        h = (torch.randn((1, h_dim), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+        step_host = (h, *args, cache, length, nq, nq, cfg.rms_eps)
+        step = (h, *args, cache, pos, nq, nq, cfg.rms_eps)
+        got = mk.w4a16_llama_token_step(*step, max_length=bucket, **head)
+        ref = mk.w4a16_llama_token_step_plain(*step_host, **head)
+        host = mk.w4a16_llama_token_step(*step_host, **head)
+        torch.cuda.synchronize()
+        k4_same("megakernel_token_mpt" + sfx, got, host)
+        ms = timer(lambda: mk.w4a16_llama_token_step(*step, max_length=bucket, **head))
+        host_ms = timer(lambda: mk.w4a16_llama_token_step(*step_host, **head))
+        log(f"  megakernel_token_mpt{sfx} len={length}: {ms:.4f} ms with its position in device "
+            f"memory (bucket {bucket + 1}), {host_ms:.4f} ms given it as a host int")
+        plain_ms = timer(lambda: mk.w4a16_llama_token_step_plain(*step_host, **head), reps=2)
+
+        def stacked_token():
+            hh = llama.stacked_layers(params, cfg, h[None], cache, length)
+            return llama._head_logits(params, llama._norm(cfg, hh, params["norm"]), "auto")
+
+        yard = device_ms(torch, stacked_token)
+        record("megakernel_token_mpt" + sfx,
+               f"{L} layers + {wname} head, len={length} (device position, bucket "
+               f"{bucket + 1})", got, ref, tol_deep, ms, plain_ms, yard,
+               L * (layer_bytes + kv_pos * (length + 1)) + qlinear_bytes(params["lm_head"]),
+               L * (layer_flops + 4.0 * nq * hd * (length + 1)) + 2.0 * h_dim * vocab)
+        del params, la, lins, args, cache, step, step_host, head, got, ref, host
+        torch.cuda.empty_cache()
+
+
 def scatter_pages(torch, cache, mp, page, gen, need=None):
     """A slot cache ``[L, 2, B, nkv, mp*page, hd]`` scattered into a pool of
     permuted pages: ``(pool [L, 2, NP, nkv, page, hd], tables [B, mp] int32)``.
@@ -1816,6 +2104,21 @@ SERVE_PATHS = {
     "falcon": (None, ("w4a16_gemv", "w4a16_gemm", "flash_decode_layer", "flash_prefill"),
                ("megakernel_token", "megakernel_chunk", "flash_decode", "flash_decode_int8",
                 "cache_append")),
+    # MPT-7B (phase 3j): decode on K4's MPT shape, every prompt on the stacked
+    # prefill (K5 takes the llama shape only): K1's GEMM, K3 with slopes, the
+    # head's GEMV after it; no attention kernel without slopes
+    "mpt": (None, ("megakernel_token_mpt", "w4a16_gemm", "w4a16_gemv", "flash_prefill_alibi"),
+            ("megakernel_token", "megakernel_chunk", "flash_decode", "flash_prefill",
+             "flash_decode_alibi", "flash_decode_layer_alibi")),
+    "mpt_stacked": ("1", ("w4a16_gemv", "w4a16_gemm", "flash_decode_alibi",
+                          "flash_prefill_alibi"),
+                    ("megakernel_token_mpt", "megakernel_token", "megakernel_chunk",
+                     "flash_decode", "flash_prefill", "flash_decode_layer_alibi")),
+    # BLOOM-560m (phase 4): the stacked path, decode on K14 with slopes (K2
+    # takes no head_dim 64), prompts on K1's GEMM and K3 with slopes
+    "bloom": (None, ("w4a16_gemm", "flash_decode_layer_alibi", "flash_prefill_alibi"),
+              ("megakernel_token", "megakernel_token_mpt", "flash_decode", "flash_prefill",
+               "flash_decode_layer", "flash_decode_alibi")),
 }
 
 
@@ -2053,11 +2356,14 @@ def trace_short(launches, calls, per_step, steps, captured):
 
 # each launch counter's kernel: a regex on the symbol a device trace shows
 # (the kernel that one wrapper call launches once; a split-K reduce or an
-# epilogue after it is not counted). W3 units share their W4 symbols: a
-# symbol that several counters match counts for the one the run called.
+# epilogue after it is not counted). W3 and MPT units share their llama W4
+# symbols, and the ALiBi modes of K2, K3 and K14 their kernels' (the slopes
+# are an argument): a symbol that several counters match counts for the one
+# the run called.
 TRACE_SYMBOLS = {
     "megakernel_token": r"token_kernel<(float|__nv_bfloat16|__half), 0>",
     "megakernel_token_w3": r"token_kernel<(float|__nv_bfloat16|__half), 0>",
+    "megakernel_token_mpt": r"token_kernel<(float|__nv_bfloat16|__half), 0>",
     "megakernel_token_int8": r"token_kernel<(signed )?char, 0>",
     "megakernel_chunk": r"chunk_kernel<", "megakernel_chunk_w3": r"chunk_kernel<",
     "w4a16_gemv": r"w4a16_gemv_kernel<[^,<>]+, false",
@@ -2065,6 +2371,9 @@ TRACE_SYMBOLS = {
     "w4a16_gemm": r"w4a16_wgmma_kernel<[^,<>]+, [^,<>]+, false",
     "w3a16_gemm": r"w4a16_wgmma_kernel<[^,<>]+, [^,<>]+, true",
     "flash_decode": r"flash_decode_kernel<.*ContigKV",
+    "flash_decode_alibi": r"flash_decode_kernel<.*ContigKV",
+    "flash_decode_layer_alibi": r"flash_decode_kernel<.*LayerKV",
+    "flash_prefill_alibi": r"flash_prefill(_wgmma)?_kernel",
     "flash_decode_int8": r"flash_decode_kernel<.*Int8KV",
     "flash_decode_layer": r"flash_decode_kernel<.*LayerKV",
     "flash_prefill": r"flash_prefill(_wgmma)?_kernel",
@@ -2329,6 +2638,80 @@ def phase_serve_falcon(torch, layers: int):
     for i, row in enumerate(ids["falcon"]):
         log(f"  [falcon] request {i + 1} ids: {row}")
     del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_mpt(torch, layers: int):
+    """Phase 3j: MPT-7B at full width (``layers`` of its 32), random W4-g128
+    weights from seed 0 through ``init_qparams`` (``zero_mean``), the tied embedding as the
+    head quantized to W4-g128 (``quantize_head``) and a bf16 cache of 2048
+    positions, serving phase 3's four requests through ``InferenceEngine``
+    (greedy, 32 new tokens each) as ``serve_single`` drives them: decode on
+    K4's MPT shape under the graph (one K4 launch a token, counted in the
+    device trace; the forward loop's ids equal the graph's), and on the
+    stacked path (``AWQ_TPU_DISABLE_MEGAKERNEL=1``: K1, K2 with slopes) under
+    the graph; then the four requests behind ``ModelWorker`` over HTTP, whose
+    ids must equal the K4 run's. Returns {"mpt": launches, "mpt_stacked":
+    launches}."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig, RuntimeConfig
+    from awq_tpu_torch.models.llama import init_qparams
+    from awq_tpu_torch.runtime.engine import InferenceEngine
+    from awq_tpu_torch.serve.http import post_stream
+    from awq_tpu_torch.serve.worker import ModelWorker
+
+    cfg = ModelConfig(**{**MPT_7B, "num_layers": layers})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = zero_mean(init_qparams(cfg, QuantConfig(w_bit=4, group_size=G),
+                                    torch.Generator(device="cuda").manual_seed(0)), 4)
+    params["lm_head"] = params["embed"].T.contiguous()     # the tied head, quantized below
+    engine = InferenceEngine(cfg, params, RuntimeConfig(max_seq_len=2048, quantize_head=True))
+    del params
+    torch.cuda.synchronize()
+    log(f"  model: MPT-7B, {layers} layers, W4-g{G} weights + the tied embedding as a W4 head "
+        f"{weight_bytes(engine.params) / 1e9:.3f} GB, embedding "
+        f"{engine.params['embed'].numel() * 2 / 1e9:.3f} GB, KV cache "
+        f"{cache_bytes(engine.cache) / 1e9:.4f} GB (32 kv heads), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()      # serving's peak, the build left out
+    launches, ids, _ = serve_single(torch, engine, cfg, ("mpt", "mpt_stacked"))
+    steps = len(REQUESTS) * 31                  # decode steps: 32 new tokens a request
+    per_step = launches["mpt"]["megakernel_token_mpt"] / steps
+    log(f"  [mpt] K4 launches per decode step {per_step:.3f} (the device trace's count over "
+        f"{steps} steps: the replays, plus each graph's warm-up step); K3 launches per prompt "
+        f"{launches['mpt']['flash_prefill_alibi'] / len(REQUESTS):g}; stacked: K2 launches per "
+        f"decode step {launches['mpt_stacked']['flash_decode_alibi'] / steps:.3f}")
+    if round(per_step) != 1:
+        raise AssertionError(f"[mpt] {per_step:.3f} K4 launches a decode step, not 1")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  [mpt] peak device memory while serving {peak:.2f} GiB")
+    engine.warmup()
+    worker = ModelWorker(engine, "mpt-7b-w4-random", port=0)
+    worker.start()
+    try:
+        got = []
+        for (n, fresh), prompt in zip(REQUESTS, request_prompts(cfg)):
+            chunks = list(post_stream(worker.url + "/worker_generate_stream", dict(
+                input_ids=prompt, greedy=True, max_new_tokens=32, stream_interval=8,
+                continue_dialogue=not fresh), timeout=300))
+            last = chunks[-1]
+            if last.get("error_code") or not last.get("finished"):
+                raise AssertionError(f"[mpt worker] request of {n} tokens answered {last}")
+            got.append(last["ids"])
+            tm = last["timing"]
+            log(f"  [mpt worker] request of {n} tokens: {len(chunks)} chunks, TTFT "
+                f"{tm['ttft_s'] * 1e3:.2f} ms, {tm['ms_per_token']:.3f} ms/token streamed, "
+                f"decode loop {tm['loop']}")
+    finally:
+        worker.stop()
+    if got != ids["mpt"]:
+        compare_ids("mpt worker", got, ids["mpt"], "phase 3j's on K4")
+        raise AssertionError("[mpt worker] the streamed ids differ from phase 3j's")
+    log("  [mpt worker] the four replies' ids equal phase 3j's on K4, bit for bit")
+    for i, row in enumerate(ids["mpt"]):
+        log(f"  [mpt] request {i + 1} ids: {row}")
+    del engine, worker
     torch.cuda.empty_cache()
     return launches
 
@@ -2917,6 +3300,11 @@ TP_PATHS = {
             ("megakernel_token", "megakernel_chunk")),
 }
 TP2_TIMEOUT_S = 420
+# phase 3g (b) serves 8 of the model's layers: its two ranks, time-sliced on
+# one card with gloo's all-reduces through the host, took 150-215 ms a token
+# and 44 s of the run at 32 layers (NVIDIA H100 80GB HBM3, 700 W), and the
+# run keeps within the time its earlier phases and 3j leave
+TP2_LAYERS = 8
 
 
 def free_port() -> int:
@@ -3094,8 +3482,11 @@ def phase_serve_tp2(torch, layers: int, tp1_ids, single_ids):
             "time-sliced on one card, gloo all-reduces through the host): " + ", ".join(
                 f"{x['ms_per_token']:.2f}" for x in g["results"]) + "; TTFT ms: " + ", ".join(
                 f"{x['ttft_ms']:.1f}" for x in g["results"]))
-    compare_ids("tp2", got[0]["ids"], tp1_ids, "(a)'s at tp = 1")
-    compare_ids("tp2", got[0]["ids"], single_ids, "phase 3's on K4")
+    if tp1_ids is None:
+        log(f"  [tp2] {layers} layers: the ids are not compared with (a)'s and phase 3's")
+    else:
+        compare_ids("tp2", got[0]["ids"], tp1_ids, "(a)'s at tp = 1")
+        compare_ids("tp2", got[0]["ids"], single_ids, "phase 3's on K4")
     return got[0]["launches"]
 
 
@@ -3353,6 +3744,69 @@ def phase_model_parity_falcon(torch):
         f"{launches['flash_prefill']} K3 launches")
 
 
+def phase_model_parity_alibi(torch):
+    """Phase 4, the ALiBi families at 2 layers, kernel path against
+    ``impl="plain"`` through ``forward``, within 5e-2 of the largest logit as
+    phase 4's llama models: MPT-7B's widths (W4-g128 zero-mean layers and the
+    tied head quantized) over a 100-token prefill and 8 decode steps on K4's MPT shape
+    and on the stacked path (K2 with slopes); BLOOM-560m's widths (W4-g128,
+    random biases) over a 100-token prefill and 16 decode steps on the
+    stacked path, K14 with slopes once per layer and step and K3 with slopes
+    once per layer. Returns {"bloom": launches}."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig
+    from awq_tpu_torch.models import llama
+    from awq_tpu_torch.ops.w4a16 import QLinear
+
+    tol = 5e-2
+    out = {}
+    for label, base, disable, n_dec in (("mpt", MPT_7B, None, 8),
+                                        ("mpt_stacked", MPT_7B, "1", 8),
+                                        ("bloom", BLOOM_560M, None, 16)):
+        set_config(disable)
+        cfg = ModelConfig(**{**base, "num_layers": 2})
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        params = zero_mean(llama.init_qparams(cfg, QuantConfig(w_bit=4, group_size=G), gen), 4)
+        for p in params["layers"].values():
+            if isinstance(p, QLinear) and p.bias is not None:
+                p.bias.copy_(torch.randn(p.bias.shape, generator=gen, device="cuda") * 0.05)
+        params["lm_head"] = params["embed"].T.contiguous()
+        params = llama.fuse_linears(llama.quantize_head(params, cfg), cfg)
+        caches = [llama.init_cache(cfg, 1, 512) for _ in range(2)]
+        rng = torch.Generator().manual_seed(3)
+        steps = [torch.randint(0, cfg.vocab_size, (1, 100), generator=rng)] + [
+            torch.randint(0, cfg.vocab_size, (1, 1), generator=rng) for _ in range(n_dec)]
+        pos, agree, worst, launches = 0, 0, 0.0, {}
+        for toks in steps:
+            toks = toks.cuda()
+            reset_counters()
+            got, _ = llama.forward(params, cfg, toks, caches[0], pos)
+            for k, v in read_counters().items():
+                launches[k] = launches.get(k, 0) + v
+            ref, _ = llama.forward(params, cfg, toks, caches[1], pos, impl="plain")
+            err, rel = check(f"[{label}] forward at start_pos {pos}", got, ref, tol)
+            worst = max(worst, rel)
+            agree += int(torch.equal(got[:, -1].argmax(-1), ref[:, -1].argmax(-1)))
+            pos += toks.shape[1]
+        cerr, _ = check(f"[{label}] the cache", caches[0], caches[1], tol)
+        n_l = cfg.num_layers
+        want = {"mpt": {"megakernel_token_mpt": n_dec, "flash_prefill_alibi": n_l},
+                "mpt_stacked": {"flash_decode_alibi": n_dec * n_l, "flash_prefill_alibi": n_l},
+                "bloom": {"flash_decode_layer_alibi": n_dec * n_l,
+                          "flash_prefill_alibi": n_l}}[label]
+        if any(launches.get(k, 0) != v for k, v in want.items()):
+            raise AssertionError(f"[{label}] launches {nonzero(launches)}, want {want}")
+        check_path(label, launches, *SERVE_PATHS[label][1:])
+        log(f"  [{label}] 100-token prefill + {n_dec} decodes, 2 layers, logits kernel vs "
+            f"plain: worst max_abs_err/max|ref| {worst:.3e} (tol {tol:g}), cache max_abs_err "
+            f"{cerr:.3e}; greedy ids agree on {agree}/{len(steps)} steps; launches "
+            f"{nonzero(launches)}")
+        out[label] = launches
+        del params, caches
+        torch.cuda.empty_cache()
+    set_config(None)
+    return {"bloom": out["bloom"]}
+
+
 def phase_model_parity_w3_f16(torch):
     """Phase 4, continued: a 2-layer W3 model (pack_int3 linears and head)
     through forward on the stacked path (K1's W3 mode) and on the
@@ -3490,6 +3944,11 @@ def main() -> int:
     phase_tp_kernels(torch, timer, cases)
     log(f"  the tensor-parallel halves: {time.perf_counter() - t_tp:.1f} s")
     phase_layer_attention(torch, timer, cases)
+    t_alibi = time.perf_counter()
+    phase_alibi_attention(torch, timer, cases)
+    torch.cuda.empty_cache()
+    phase_mpt_megakernels(torch, timer, cases)
+    log(f"  the ALiBi modes and K4's MPT shape: {time.perf_counter() - t_alibi:.1f} s")
     del timer
     torch.cuda.empty_cache()
 
@@ -3542,17 +4001,26 @@ def main() -> int:
           "bf16 and an int8 cache, (b) at tp = 2 over gloo, two ranks sharing the card")
     tp_launches, mesh, tp1_ids = phase_serve_tp(torch, args.layers, single_ids)
     launches.update(tp_launches)
-    stamp("phase 3g (b): tp = 2 over gloo")
-    launches["tp2"] = phase_serve_tp2(torch, args.layers, tp1_ids, single_ids)
+    tp2_layers = min(TP2_LAYERS, args.layers)
+    stamp(f"phase 3g (b): tp = 2 over gloo, {tp2_layers} layers")
+    same = tp2_layers == args.layers
+    launches["tp2"] = phase_serve_tp2(torch, tp2_layers, tp1_ids if same else None,
+                                      single_ids if same else None)
 
     stamp(f"phase 3h: Falcon-7B, {FALCON_7B['num_layers']} layers at full width, W4-g{FALCON_G}: "
           "phase 3's four requests through InferenceEngine on the stacked path (K14, K3 hd 64)")
     launches.update(phase_serve_falcon(torch, FALCON_7B["num_layers"]))
 
+    stamp(f"phase 3j: MPT-7B, {MPT_7B['num_layers']} layers at full width, W4-g{G}: phase 3's "
+          "four requests through InferenceEngine on K4's MPT shape and on the stacked path "
+          "(K2, K3 with slopes), under the graph, then through ModelWorker")
+    launches.update(phase_serve_mpt(torch, MPT_7B["num_layers"]))
+
     stamp(f"phase 4: forward, kernel path against plain path (2 layers)")
     phase_model_parity(torch)
     phase_model_parity_w3_f16(torch)
     phase_model_parity_falcon(torch)
+    launches.update(phase_model_parity_alibi(torch))
     phase_model_parity_tp(torch, mesh)
     import torch.distributed as dist
 
@@ -3617,7 +4085,21 @@ def main() -> int:
                "flash_decode_layer": ("awq_tpu_torch/csrc/decode_attn.cu",
                                       "awq_tpu/ops/decode_attn.py:803"),
                "flash_prefill_hd64": ("awq_tpu_torch/csrc/decode_attn.cu",
-                                      "awq_tpu/ops/decode_attn.py:691")}
+                                      "awq_tpu/ops/decode_attn.py:691"),
+               "flash_decode_alibi": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                      "awq_tpu/ops/decode_attn.py:394"),
+               "flash_prefill_alibi": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                       "awq_tpu/ops/decode_attn.py:691"),
+               "flash_decode_layer_alibi": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                            "awq_tpu/ops/decode_attn.py:803"),
+               "megakernel_token_mpt": ("awq_tpu_torch/csrc/megakernel.cu",
+                                        "awq_tpu/ops/megakernel.py:1047"),
+               "megakernel_layer_mpt": ("awq_tpu_torch/csrc/megakernel.cu",
+                                        "awq_tpu/ops/megakernel.py:954"),
+               "megakernel_token_mpt_w3": ("awq_tpu_torch/csrc/megakernel.cu",
+                                           "awq_tpu/ops/megakernel.py:1047"),
+               "megakernel_layer_mpt_w3": ("awq_tpu_torch/csrc/megakernel.cu",
+                                           "awq_tpu/ops/megakernel.py:954")}
     # one representative shape per kernel in the summary; every case is
     # printed above
     pick = {"w4a16_gemv": "wgateup M=1 ", "w4a16_gemm": "wgateup M=1000",
@@ -3638,7 +4120,11 @@ def main() -> int:
             "w8a8_gemm": "wgateup M=1000", "w4a8_gemm": "wgateup M=1000",
             "quant_per_token": "M=1000 IC=4096",
             "megakernel_attn_half": "tp=2 layer 5 len=1000", "megakernel_mlp_half": "tp=2 ",
-            "flash_decode_layer": "len=1000 B=1 nq=71", "flash_prefill_hd64": "S=512 start=700"}
+            "flash_decode_layer": "len=1000 B=1 nq=71", "flash_prefill_hd64": "S=512 start=700",
+            "flash_decode_alibi": "len=4000", "flash_prefill_alibi": "S=512 start=700 nq=32 nkv=32 bf",
+            "flash_decode_layer_alibi": "len=1000 B=1 nq=16",
+            "megakernel_token_mpt": "32 layers", "megakernel_layer_mpt": "layer 5 len=1000",
+            "megakernel_token_mpt_w3": "32 layers", "megakernel_layer_mpt_w3": "layer 5 len=1000"}
     # launches: each kernel's count on its own path's main run in phases 3,
     # 3b and 3c; on the single-stream paths, whose decode replays a captured
     # step, the count of its symbol in that run's device trace (serve_single)
@@ -3646,7 +4132,10 @@ def main() -> int:
     # batched engine K6, its stacked path K7, the paged engine K6's and K7's
     # paged modes and K8, with the default pool; phase 3d's int8 runs K4's
     # and K6's int8 modes, and on the stacked paths K9 and K7's int8 mode;
-    # phase 3h's falcon run K14 and K3's head_dim-64 mode).
+    # phase 3h's falcon run K14 and K3's head_dim-64 mode; phase 3j's MPT-7B
+    # runs K4's MPT shape and K3 with slopes, its stacked run K2 with slopes;
+    # K14 with slopes counts on phase 4's BLOOM run, the one path that takes
+    # it; K4's MPT W3 units and layer entry serve no request: 0).
     # forward calls K4's token entry; the layer entry is the same kernel over
     # one layer and has no caller on the main path, so it counts 0 there.
     runs = {"megakernel_batched": "batched", "cache_append": "batched_stacked",
@@ -3663,7 +4152,11 @@ def main() -> int:
             "w8a8_gemm": "prefill_w8", "w4a8_gemm": "prefill_a8",
             "quant_per_token": "prefill_w8",
             "megakernel_attn_half": "tp1", "megakernel_mlp_half": "tp1",
-            "flash_decode_layer": "falcon", "flash_prefill_hd64": "falcon"}
+            "flash_decode_layer": "falcon", "flash_prefill_hd64": "falcon",
+            "flash_decode_alibi": "mpt_stacked", "flash_prefill_alibi": "mpt",
+            "flash_decode_layer_alibi": "bloom", "megakernel_token_mpt": "mpt",
+            "megakernel_layer_mpt": "mpt", "megakernel_token_mpt_w3": "mpt",
+            "megakernel_layer_mpt_w3": "mpt"}
     # K3's head_dim-64 mode counts under K3's one wrapper
     counter = {"flash_prefill_hd64": "flash_prefill"}
     kernels = []

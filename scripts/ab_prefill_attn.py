@@ -15,11 +15,13 @@ which from the source.
 Shapes: Llama-3-8B (32 q heads over 8 kv heads, head_dim 128) and
 Falcon-7B (71 q heads over one, head_dim 64), bf16 q and cache of 4096 /
 2048 positions, B = 1: S = 512 from 0 and from 700, and S = 1000 from 0
-(the 1000-token prompt). The builds run in turns (in order, then in
+(the 1000-token prompt), and the same over an f32 q and cache (K3's
+``mma.sync`` mode). The builds run in turns (in order, then in
 reverse, ``--rounds`` times), each turn the median of ``--reps`` calls
 with the L2 flushed before each (``chip_smoke.Timer``); SDPA on the same
 positions is timed once per shape as the library column. The script
-prints each shape's turns, the medians and the ratio, with the card's name
+prints each shape's turns, the medians and the ratio, whether the two
+builds' outputs are equal bit for bit, with the card's name
 and power limit, and checks that each build's output is within 2^-6 of
 the largest magnitude of ``flash_prefill_plain``'s. It exits 1 if a check
 fails.
@@ -99,23 +101,23 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
     timer = Timer(torch, reps=args.reps)
-    bf16 = 1
     failed, rows = False, []
-    for model, (nq, nkv, hd, t) in MODELS.items():
+    for (model, (nq, nkv, hd, t)), dtype in [(m, torch.bfloat16) for m in MODELS.items()] + [
+            (m, torch.float32) for m in MODELS.items()]:
+        code = 1 if dtype == torch.bfloat16 else 0
         for s, start in CHUNKS:
-            cache = torch.randn((2, 1, nkv, t, hd), generator=gen,
-                                device="cuda").to(torch.bfloat16)
-            q = torch.randn((1, s, nq, hd), generator=gen, device="cuda").to(torch.bfloat16)
+            cache = torch.randn((2, 1, nkv, t, hd), generator=gen, device="cuda").to(dtype)
+            q = torch.randn((1, s, nq, hd), generator=gen, device="cuda").to(dtype)
             ref = da.flash_prefill_plain(q, cache, start).float()
             plan = da.prefill_plan(1, s, nq, nkv, t, start, hd)
-            outs = {k: torch.empty((1, s, nq * hd), dtype=torch.bfloat16, device="cuda")
+            outs = {k: torch.empty((1, s, nq * hd), dtype=dtype, device="cuda")
                     for k in builds}
 
-            def call(k, q=q, cache=cache, start=start, s=s, plan=plan):
+            def call(k, q=q, cache=cache, start=start, s=s, plan=plan, code=code):
                 b = builds[k]
                 tiles = (plan.n_tiles,) if b.planned else ()
                 err = b.fn(q.data_ptr(), cache.data_ptr(), outs[k].data_ptr(), 1, s, nq, nkv, t,
-                           start, hd, *tiles, math.log2(math.e) / math.sqrt(hd), bf16, bf16,
+                           start, hd, *tiles, math.log2(math.e) / math.sqrt(hd), code, code,
                            torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"{k} K3: CUDA error {err}")
@@ -140,12 +142,14 @@ def main() -> int:
             med = {k: statistics.median(ts) for k, ts in times.items()}
             ratio = med["checkout"] / med["other"]
             rows.append((model, s, start, ratio))
-            print(f"K3 {model} S={s} start={start} (blocks {plan.blocks}): "
+            same = torch.equal(outs["checkout"], outs["other"])
+            print(f"K3 {model} {str(dtype)[6:]} S={s} start={start} (blocks {plan.blocks}): "
                   + "; ".join(f"{k} median {med[k]:.4f} ms ("
                               + " ".join(f"{x:.4f}" for x in ts) + f"), err {errs[k]:.2e}"
                               for k, ts in times.items())
                   + f"; SDPA {lib:.4f}; checkout/other {ratio:.3f}; "
-                  + ("within 2^-6 of the plain version" if ok else "OUTSIDE 2^-6"), flush=True)
+                  + ("within 2^-6 of the plain version" if ok else "OUTSIDE 2^-6")
+                  + ("; the builds bit-equal" if same else "; the builds differ"), flush=True)
             del cache, q, k_all, v_all
             torch.cuda.empty_cache()
     slower = [r for r in rows if r[3] > 1.0]
