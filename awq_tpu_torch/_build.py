@@ -8,7 +8,8 @@ repository root, where ``<hash>`` covers the source, every header of
 flags: an edited source or header builds anew, an unchanged one is loaded
 from disk. The megakernels are built once per instance: K4
 (``megakernel.cu``) per weight format and layer shape (llama, MPT), the
-flash attention (``decode_attn.cu``) without and with ALiBi slopes, K6 (``megakernel_batched.cu``) per
+flash attention (``decode_attn.cu``) without ALiBi slopes (head_dim 128 and
+up to 32 q heads a kv head; the wide unit the other shapes) and with them, K6 (``megakernel_batched.cu``) per
 cache (the four slot dtypes and the page pool) and format, and K5, the
 chunk mode of K6's body (``AWQ_MEGA_CHUNK``), per cache dtype and format,
 so that the instances compile in parallel. Nothing here runs at import
@@ -42,7 +43,9 @@ _FORMATS = (("", 0), ("_w3", 1))     # unit suffix, -DAWQ_MEGA_W3
 #: Unit name -> (source stem in csrc/, defines).
 UNITS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "w4a16": ("w4a16", ()), "w3a16": ("w3a16", ()), "decode_attn": ("decode_attn", ()),
-    # K2, K3 and K14 with ALiBi slopes compiled in (entries *_alibi)
+    # K2, K8 and K9 at head_dim 64 and wide query groups (entries *_wide)
+    "decode_attn_wide": ("decode_attn", ("AWQ_DECODE_WIDE=1",)),
+    # K2, K3, K8, K9 and K14 with ALiBi slopes compiled in (entries *_alibi)
     "decode_attn_alibi": ("decode_attn", ("AWQ_ALIBI=1",)),
     **{f"megakernel{sfx}": ("megakernel", (f"AWQ_MEGA_W3={w}",)) for sfx, w in _FORMATS},
     # K4's MPT shape (bias-free LayerNorm, ALiBi, the erf-GELU plain MLP)

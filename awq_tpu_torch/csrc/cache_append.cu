@@ -26,11 +26,12 @@
 //
 // int8 mode (the int8 KV cache, KVCache8; JAX quantizes with quantize_kv
 // and writes with a per-row dynamic_update_slice loop in XLA,
-// models/llama.py:1313-1325): codes [L, 2, B, n_kv, T, 128] int8 and scales
-// [L, 2, B, n_kv, T] f32. One warp per (l, s, b, h) row: lane j holds
-// elements 4j..4j+3, a warp max gives the row's absmax, and the lane writes
-// its 4 codes as one 32-bit word (128 bytes per row, coalesced) and lane 0
-// the scale. The arithmetic is quantize_kv's under jit to the bit: s =
+// models/llama.py:1313-1325): codes [L, 2, B, n_kv, T, HD] int8 and scales
+// [L, 2, B, n_kv, T] f32, HD 128 or 64. HD / 4 lanes per (l, s, b, h) row
+// (a warp at 128, a half-warp at 64, two rows a warp): lane j of the row
+// holds elements 4j..4j+3, a max over the row's lanes gives its absmax, and
+// the lane writes its 4 codes as one 32-bit word (HD bytes per row,
+// coalesced) and the row's first lane the scale. The arithmetic is quantize_kv's under jit to the bit: s =
 // max(absmax, 1e-6f) * f32(1/127) (XLA turns the source's division by the
 // constant 127 into this product) and q = clip(rint(x / s), -127, 127), a
 // true division and round-half-even (the build has no fast-math flag).
@@ -82,20 +83,37 @@ template <> __device__ __forceinline__ void load4f<bf16>(const bf16* p, float* o
   o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
 }
 
-// One warp per (l, s, b, h) row of 128 elements; 8 warps per block.
-template <typename T>
+// HD / 4 lanes per (l, s, b, h) row of HD elements; 256 / (HD / 4) rows per
+// block. A row's lanes are consecutive and aligned, so the max over them
+// stays inside the row (the two rows of a warp at HD 64 both take part in
+// every shuffle: no lane leaves early).
+template <typename T, int HD>
 __global__ void __launch_bounds__(256) cache_append_int8_kernel(
     int8_t* __restrict__ codes, float* __restrict__ scales, const T* __restrict__ kv,
     const int* __restrict__ lengths, int B, int nkv, int T_, int rows) {
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);   // (l, s, b, h) flattened
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int b = (row / nkv) % B;
+  constexpr int LPR = HD / 4;                             // lanes a row
+  const int row = blockIdx.x * (256 / LPR) + threadIdx.x / LPR;   // (l, s, b, h) flattened
+  const int lane = threadIdx.x % LPR;
+  const bool live = row < rows;
+  if constexpr (LPR == 32) {
+    if (!live) return;
+  } else {
+    // a warp's rows end together only where `rows` is even; the other lanes
+    // still join the shuffles below
+    if (__all_sync(0xffffffffu, !live)) return;
+  }
+  const int b = live ? (row / nkv) % B : 0;
   const int pos = min(max(lengths[b], 0), T_ - 1);
-  float x[4];
-  load4f<T>(kv + (size_t)row * 128 + lane * 4, x);
+  float x[4] = {0.f, 0.f, 0.f, 0.f};
+  if (live) load4f<T>(kv + (size_t)row * HD + lane * 4, x);
   float a = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3])));
-  a = warp_max(a);
+  if constexpr (LPR == 32) {
+    a = warp_max(a);
+  } else {
+#pragma unroll
+    for (int o = LPR / 2; o > 0; o >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+    if (!live) return;
+  }
   const float s = __fmul_rn(fmaxf(a, 1e-6f), 1.f / 127.f);
   uint32_t word = 0;
 #pragma unroll
@@ -104,7 +122,7 @@ __global__ void __launch_bounds__(256) cache_append_int8_kernel(
     word |= (static_cast<uint32_t>(static_cast<int>(q)) & 0xFFu) << (8 * e);
   }
   const size_t at = (size_t)row * T_ + pos;
-  *reinterpret_cast<uint32_t*>(codes + at * 128 + lane * 4) = word;
+  *reinterpret_cast<uint32_t*>(codes + at * HD + lane * 4) = word;
   if (lane == 0) scales[at] = s;
 }
 
@@ -153,23 +171,33 @@ extern "C" int awq_cache_append_paged(void* pool, const void* kv, const void* le
   return static_cast<int>(cudaGetLastError());
 }
 
-// int8 mode: codes int8 [L, 2, B, nkv, T, 128] and scales f32 [L, 2, B, nkv, T],
-// kv [L, 2, B, nkv, 128] bf16 (kv_f32 = 0) or f32 (1), lengths [B] int32, all
-// contiguous on one device. `rows` is L·2·B·nkv.
-extern "C" int awq_cache_append_int8(void* codes, void* scales, const void* kv,
-                                     const void* lengths, int rows, int B, int nkv, int T,
-                                     int kv_f32, void* stream) {
-  if (rows <= 0) return 0;
-  if (B < 1 || nkv < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned blocks = static_cast<unsigned>(cdiv(rows, 8));
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace {
+template <int HD>
+int launch_int8(void* codes, void* scales, const void* kv, const void* lengths, int rows,
+                int B, int nkv, int T, int kv_f32, cudaStream_t st) {
+  const unsigned blocks = static_cast<unsigned>(cdiv(rows, 256 / (HD / 4)));
   if (kv_f32)
-    cache_append_int8_kernel<float><<<blocks, 256, 0, st>>>(
+    cache_append_int8_kernel<float, HD><<<blocks, 256, 0, st>>>(
         static_cast<int8_t*>(codes), static_cast<float*>(scales),
         static_cast<const float*>(kv), static_cast<const int*>(lengths), B, nkv, T, rows);
   else
-    cache_append_int8_kernel<bf16><<<blocks, 256, 0, st>>>(
+    cache_append_int8_kernel<bf16, HD><<<blocks, 256, 0, st>>>(
         static_cast<int8_t*>(codes), static_cast<float*>(scales),
         static_cast<const bf16*>(kv), static_cast<const int*>(lengths), B, nkv, T, rows);
   return static_cast<int>(cudaGetLastError());
+}
+}  // namespace
+
+// int8 mode: codes int8 [L, 2, B, nkv, T, hd] and scales f32 [L, 2, B, nkv, T],
+// kv [L, 2, B, nkv, hd] bf16 (kv_f32 = 0) or f32 (1), lengths [B] int32, all
+// contiguous on one device; hd 128 or 64. `rows` is L·2·B·nkv.
+extern "C" int awq_cache_append_int8(void* codes, void* scales, const void* kv,
+                                     const void* lengths, int rows, int B, int nkv, int T,
+                                     int kv_f32, int hd, void* stream) {
+  if (rows <= 0) return 0;
+  if (B < 1 || nkv < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 128) return launch_int8<128>(codes, scales, kv, lengths, rows, B, nkv, T, kv_f32, st);
+  if (hd == 64) return launch_int8<64>(codes, scales, kv, lengths, rows, B, nkv, T, kv_f32, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

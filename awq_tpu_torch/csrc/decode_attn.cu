@@ -2,11 +2,14 @@
 // (sm_90a).
 //
 // K2, K8 and K9 read ONE layer of the stacked cache, the contiguous view
-// cache[l] = [2, B, n_kv, T, HD] (K at index 0, V at 1), head-major so
-// that each head's [T, HD] slab is contiguous (K8 a page pool, K9 int8
-// codes); HD is 128 for them. K14 reads one layer's k_cache and v_cache
-// [B, n_kv, T, D], two tensors. K3 and K14 take head_dim 64 or 128 (a
-// template parameter D). The cache is f32, bf16 or f16 (a template
+// cache[l] = [2, B, n_kv, T, D] (K at index 0, V at 1), head-major so
+// that each head's [T, D] slab is contiguous (K8 a page pool, K9 int8
+// codes). K14 reads one layer's k_cache and v_cache [B, n_kv, T, D], two
+// tensors. All five take head_dim 64 or 128 (a template parameter D) and
+// up to 128 query heads a kv head (K3 any number); the unit decode_attn
+// holds K2, K8 and K9 at D = 128 and up to 32 q heads a kv head, the unit
+// decode_attn_wide (-DAWQ_DECODE_WIDE=1) their other shapes (Falcon-7B: 71
+// q heads over one kv head at D = 64; BLOOM: 64 over 64). The cache is f32, bf16 or f16 (a template
 // parameter, E); q, the current token's k/v and the output are f32, bf16
 // or f16 too, each of its own dtype (a runtime code: they are read once
 // per block), as the JAX kernels follow q.dtype and the cache's dtype apart.
@@ -33,10 +36,12 @@
 // The four differ only in where a position's K and V rows are (an address
 // functor: ContigKV, PagedKV, Int8KV, LayerKV) and in the current token
 // (a compile-time flag CUR, set for K2, K8 and K9).
-// ALiBi (MPT, BLOOM; K2 and K14, the JAX kernel's has_bias; the unit
-// decode_attn_alibi, -DAWQ_ALIBI=1): slopes f32 [nq] in device memory, the
-// score of position t gains slope * t before the running max, and K2's
-// current token slope * len_b, as decode_attn.py:130-140 and :218-219 add it
+// ALiBi (MPT, BLOOM; K2, K8, K9 and K14, the JAX kernel's has_bias; the
+// unit decode_attn_alibi, -DAWQ_ALIBI=1, D 64 or 128, up to 32 q heads a
+// kv head): slopes f32 [nq] in device memory, the score of position t
+// gains slope * t before the running max (K9: after K's scale), and the
+// current token of K2, K8 and K9 slope * len_b, as decode_attn.py:130-140
+// and :218-219 add it
 // (the row-relative slope * (t - len_b) differs by a constant of the row,
 // which the softmax drops). The bias is compiled in, never tested at run
 // time: a runtime branch on a null pointer, not taken, cost K2 3-7% and K3's
@@ -71,7 +76,8 @@
 //   address where they are consecutive (K8: one table read a tile when a
 //   page holds whole tiles), else row by row. Rows are stored with
 //   their 16-byte chunks XOR-swizzled by the row's low three bits, which
-//   keeps ldmatrix (and the f32 mode's vector loads) free of bank conflicts.
+//   keeps ldmatrix (and the f32 mode's vector loads) free of bank conflicts
+//   (K9's int8 rows at D = 64 have four chunks: the low two bits).
 // - The group's heads are the rows of one product. The q heads of the kv
 //   head, padded to 16-row tiles (one for g <= 16, five for falcon's 71),
 //   are A operands of mma.sync m16n8k16: S = Q.K^T over a warp's 16 (or
@@ -142,13 +148,22 @@
 #ifndef AWQ_ALIBI
 #define AWQ_ALIBI 0
 #endif
-// The unit's mode: decode_attn (every entry without slopes), or
-// decode_attn_alibi (K2, K3 and K14 with ALiBi slopes, entries *_alibi).
+#ifndef AWQ_DECODE_WIDE
+#define AWQ_DECODE_WIDE 0
+#endif
+// The unit's mode: decode_attn (every entry without slopes; K2, K8 and K9 at
+// head_dim 128 and up to 32 q heads a kv head), decode_attn_wide (K2, K8
+// and K9 without slopes at the other shapes: head_dim 64, and up to 128 q
+// heads a kv head; entries *_wide, no K3 or K14), or decode_attn_alibi (K2,
+// K3, K8, K9 and K14 with ALiBi slopes, entries *_alibi, up to 32 q heads a
+// kv head). The wide shapes live in a unit of their own so that
+// decode_attn's instances stay the code they were.
 constexpr bool UNIT_ALIBI = AWQ_ALIBI;
+constexpr bool UNIT_WIDE = AWQ_DECODE_WIDE;
 
 namespace {
 
-constexpr int HD = 128;        // K2, K8 and K9's head_dim
+constexpr int HD = 128;        // the head_dim of decode_attn's K2, K8 and K9
 // -inf as a bit pattern (device code only)
 #define NEG_INF (__int_as_float(0xff800000))
 
@@ -164,8 +179,8 @@ constexpr int SMEM_MAX = 232448;     // dynamic shared memory a block may have
 // a multiple of 64 are consecutive rows where slab() holds); length(b) is
 // row b's number of cached positions, and every position below bound() may
 // be read whatever the length.
-template <typename E>
-struct ContigKV {  // K2: cache [2, B, n_kv, T, HD]
+template <typename E, int D>
+struct ContigKV {  // K2: cache [2, B, n_kv, T, D]
   using Elem = E;
   const E* base;
   const int* lengths;
@@ -173,18 +188,18 @@ struct ContigKV {  // K2: cache [2, B, n_kv, T, HD]
   struct Row {
     const E* k;
     const E* v;
-    __device__ __forceinline__ size_t off(int t) const { return (size_t)t * HD; }
+    __device__ __forceinline__ size_t off(int t) const { return (size_t)t * D; }
     __device__ __forceinline__ bool slab() const { return true; }
   };
   __device__ __forceinline__ Row row(int b, int h) const {
-    const E* k = base + ((size_t)b * nkv + h) * T * HD;
-    return Row{k, k + (size_t)B * nkv * T * HD};
+    const E* k = base + ((size_t)b * nkv + h) * T * D;
+    return Row{k, k + (size_t)B * nkv * T * D};
   }
   __device__ __forceinline__ int length(int b) const { return min(max(lengths[b], 0), T); }
   __device__ __forceinline__ int bound() const { return T; }
 };
-template <typename E>
-struct PagedKV {   // K8: pool [2, NP, n_kv, page, HD], tables [B, MP]
+template <typename E, int D>
+struct PagedKV {   // K8: pool [2, NP, n_kv, page, D], tables [B, MP]
   using Elem = E;
   const E* base;
   const int* tables;
@@ -194,22 +209,23 @@ struct PagedKV {   // K8: pool [2, NP, n_kv, page, HD], tables [B, MP]
     const E* k;         // head h of page 0, K plane
     const E* v;         // the same in the V plane
     const int* tab;     // row b's table
-    int pstride;        // elements from one page to the next: nkv * page * HD
+    int pstride;        // elements from one page to the next: nkv * page * D
     int page;
     __device__ __forceinline__ size_t off(int t) const {
-      return (size_t)__ldg(tab + t / page) * pstride + (size_t)(t % page) * HD;
+      return (size_t)__ldg(tab + t / page) * pstride + (size_t)(t % page) * D;
     }
     __device__ __forceinline__ bool slab() const { return page % dec::TILE == 0; }
   };
   __device__ __forceinline__ Row row(int b, int h) const {
-    const E* k = base + (size_t)h * page * HD;
-    return Row{k, k + (size_t)np * nkv * page * HD, tables + (size_t)b * mp,
-               nkv * page * HD, page};
+    const E* k = base + (size_t)h * page * D;
+    return Row{k, k + (size_t)np * nkv * page * D, tables + (size_t)b * mp,
+               nkv * page * D, page};
   }
   __device__ __forceinline__ int length(int b) const { return min(max(lengths[b], 0), mp * page); }
   __device__ __forceinline__ int bound() const { return mp * page; }
 };
-struct Int8KV {    // K9: codes [2, B, n_kv, T, HD] int8, scales [2, B, n_kv, T] f32
+template <int D>
+struct Int8KV {    // K9: codes [2, B, n_kv, T, D] int8, scales [2, B, n_kv, T] f32
   using Elem = int8_t;
   const int8_t* base;
   const float* scales;
@@ -220,13 +236,13 @@ struct Int8KV {    // K9: codes [2, B, n_kv, T, HD] int8, scales [2, B, n_kv, T]
     const int8_t* v;
     const float* ks;    // K scale of position t at ks[t]
     const float* vs;
-    __device__ __forceinline__ size_t off(int t) const { return (size_t)t * HD; }
+    __device__ __forceinline__ size_t off(int t) const { return (size_t)t * D; }
     __device__ __forceinline__ bool slab() const { return true; }
   };
   __device__ __forceinline__ Row row(int b, int h) const {
     const size_t r = ((size_t)b * nkv + h) * T;
     const size_t plane = (size_t)B * nkv * T;
-    return Row{base + r * HD, base + (r + plane) * HD, scales + r, scales + r + plane};
+    return Row{base + r * D, base + (r + plane) * D, scales + r, scales + r + plane};
   }
   __device__ __forceinline__ int length(int b) const { return min(max(lengths[b], 0), T); }
   __device__ __forceinline__ int bound() const { return T; }
@@ -268,7 +284,8 @@ struct DecodeArgs {
 };
 
 // Shared memory of one block, in bytes (ops/decode_attn.py::decode_plan
-// mirrors it): a header (the current token's scores sc[32] and v[D]), then
+// mirrors it): a header (the current token's scores sc[32], or one a q row
+// of a wide group's K2, K8 and K9, and its v[D]), then
 // the main region: q (hi and lo halves, or f32), the ring, K9's widened
 // tile and the f32 mode's P; after the loop the merge's state overlays the
 // main region.
@@ -276,11 +293,11 @@ struct DecLayout {
   int hdr, q, stage, ring, wide, ps, merge, total;
 };
 __host__ __device__ constexpr int round128(int x) { return (x + 127) & ~127; }
-template <int D, int NPW, typename E>
+template <int D, int NPW, typename E, bool CUR>
 __host__ __device__ inline DecLayout dec_layout(int g, int stages) {
   const int rows = 16 * ((g + 15) / 16), warps = rows / 16 * (dec::TILE / NPW);
   DecLayout L{};
-  L.hdr = round128((32 + D) * 4);
+  L.hdr = round128(((CUR && NPW == 32 ? rows : 32) + D) * 4);
   L.q = round128(rows * D * 4);
   L.stage = round128(2 * dec::TILE * D * (int)sizeof(E) + (sizeof(E) == 1 ? 2 * dec::TILE * 4 : 0));
   L.ring = stages * L.stage;
@@ -326,16 +343,21 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
   constexpr int ROWB = D * (int)sizeof(E);  // a ring row
   constexpr int CPR = ROWB / 16;            // its 16-byte chunks
   constexpr int MROWB = D * 2;              // a 16-bit row (q halves, K9's widened tile)
-  static_assert(CPR >= 8 && MROWB / 16 >= 8, "a swizzled row needs 8 chunks");
+  static_assert((I8 ? CPR >= 4 : CPR >= 8) && MROWB / 16 >= 8,
+                "a swizzled row needs 8 chunks (K9's int8 ring rows 4)");
+  // a ring row's chunk c: swz, but K9's head_dim-64 rows (4 chunks) XOR with
+  // the row's low two bits (only the widening pass reads them)
+  constexpr int RSW = CPR >= 8 ? 7 : CPR - 1;
+  auto rswz = [](int r, int c) { return r * ROWB + ((c ^ (r & RSW)) << 4); };
   extern __shared__ __align__(128) uint8_t smem[];
 
   const int rank = blockIdx.x, nsplit = gridDim.x, h = blockIdx.y, b = blockIdx.z;
   const int g = a.nq / a.nkv, rows = 16 * ((g + 15) / 16);
   const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int nw = nthr >> 5;
-  const DecLayout L = dec_layout<D, NPW, E>(g, a.stages);
-  float* sc = reinterpret_cast<float*>(smem);        // [32] the current token's scores
-  float* vnew = sc + 32;                              // [D] the current token's v
+  const DecLayout L = dec_layout<D, NPW, E, CUR>(g, a.stages);
+  float* sc = reinterpret_cast<float*>(smem);        // [32] (or [rows]) the current token's scores
+  float* vnew = sc + (CUR && NPW == 32 ? rows : 32);  // [D] the current token's v
   uint8_t* qs = smem + L.hdr;
   uint8_t* ring = qs + L.q;
   uint8_t* wide = ring + L.ring;
@@ -365,8 +387,8 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
       const bool ok = pos < end;
       const size_t o =
           ok ? (slab ? o0 + (size_t)r * D : kvr.off(pos)) + ch * (16 / (int)sizeof(E)) : 0;
-      hop::cp_async16(st + swz(r, ch, ROWB), kvr.k + o, ok);
-      hop::cp_async16(st + TILE * ROWB + swz(r, ch, ROWB), kvr.v + o, ok);
+      hop::cp_async16(st + rswz(r, ch), kvr.k + o, ok);
+      hop::cp_async16(st + TILE * ROWB + rswz(r, ch), kvr.v + o, ok);
     }
     if constexpr (I8) {
       float* scl = reinterpret_cast<float*>(st + 2 * TILE * ROWB);
@@ -473,7 +495,7 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
     if (i == 0 && min(spec, t0 + TILE) > p1) {   // the first tile ran past the row's end:
       const int r0 = p1 - t0;                   // zero V there (0 * NaN is NaN)
       for (int c = tid; c < (TILE - r0) * CPR; c += nthr)
-        *reinterpret_cast<uint4*>(st + TILE * ROWB + swz(r0 + c / CPR, c % CPR, ROWB)) =
+        *reinterpret_cast<uint4*>(st + TILE * ROWB + rswz(r0 + c / CPR, c % CPR)) =
             make_uint4(0u, 0u, 0u, 0u);
       if constexpr (I8)
         for (int c = r0 + tid; c < TILE; c += nthr)
@@ -488,7 +510,7 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
       for (int c = tid; c < 2 * TILE * CPR; c += nthr) {
         const int kvs = c / (TILE * CPR), rem = c - kvs * TILE * CPR;
         const int r = rem / CPR, ch = rem % CPR;
-        const uint4 w = *reinterpret_cast<const uint4*>(st + kvs * TILE * ROWB + swz(r, ch, ROWB));
+        const uint4 w = *reinterpret_cast<const uint4*>(st + kvs * TILE * ROWB + rswz(r, ch));
         uint32_t x[8];
         widen4(w.x, x[0], x[1]);
         widen4(w.y, x[2], x[3]);
@@ -819,7 +841,7 @@ int launch_decode(const KV& kv, const DecodeArgs& a, int B, int cluster, int sme
   const int g = a.nq / a.nkv;
   if (a.stages < 2 || a.stages > 4 || cluster < 1 || cluster > dec::MAX_CLUSTER ||
       a.per < dec::TILE || a.per % dec::TILE || smem > dec::SMEM_MAX ||
-      smem != dec_layout<D, NPW, E>(g, a.stages).total)
+      smem != dec_layout<D, NPW, E, CUR>(g, a.stages).total)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_decode_kernel<D, NPW, CUR, KV>;
   int err = hop::allow_smem(kernel, smem, &smem_set);
@@ -853,11 +875,33 @@ int launch_decode(const KV& kv, const DecodeArgs& a, int B, int cluster, int sme
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// K2, K8 and K9: head_dim 128 and at most two 16-row tiles of q heads.
-template <typename KV>
+// K2, K8 and K9 at head_dim D (the address functor's): one 16-row tile of q
+// heads a warp and 4 warps a tile up to 32 q heads a kv head, 2 warps (32
+// positions each) up to 128, as K14. Each unit builds its own share
+// (UNIT_WIDE, UNIT_ALIBI above); another shape returns cudaErrorInvalidValue
+// (the wrappers route it to the unit that has it, or raise first).
+template <int D, typename KV>
 int run_decode(const KV& kv, const DecodeArgs& a, int B, int cluster, int smem, void* stream) {
-  if (a.nq % a.nkv || a.nq / a.nkv > 32) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_decode<HD, 16, true>(kv, a, B, cluster, smem, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int g = a.nkv > 0 ? a.nq / a.nkv : 0;
+  if (g < 1 || a.nq % a.nkv || g > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (g <= 32) {
+    // decode_attn's own instances are not rebuilt in the wide unit
+    if constexpr (UNIT_WIDE && D == HD) return static_cast<int>(cudaErrorInvalidValue);
+    else return launch_decode<D, 16, true>(kv, a, B, cluster, smem, st);
+  }
+  if constexpr (UNIT_WIDE) return launch_decode<D, 32, true>(kv, a, B, cluster, smem, st);
+  else return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// fn(std::integral_constant<int, D>) for head_dim hd: 128 in decode_attn
+// (its instances), 64 or 128 in the wide and ALiBi units.
+template <typename Fn>
+int by_head_dim(int hd, Fn fn) {
+  if (hd == 128) return fn(std::integral_constant<int, 128>{});
+  if constexpr (UNIT_WIDE || UNIT_ALIBI)
+    if (hd == 64) return fn(std::integral_constant<int, 64>{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 constexpr int PF_BQ = 64, PF_BKV = 64, PF_PAD = 8;
 
@@ -1282,14 +1326,15 @@ int prefill_wgmma(const void* q, const void* cache, void* out, int B, int S, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// run_decode over the address functor F<E> of the cache dtype code cdt.
-template <template <typename> class F, typename Make>
+// run_decode at head_dim D over the address functor F<E, D> of the cache
+// dtype code cdt.
+template <int D, template <typename, int> class F, typename Make>
 int run_typed(int cdt, Make make, const DecodeArgs& a, int B, int cluster, int smem,
               void* stream) {
   switch (cdt) {
-    case 0: return run_decode(make(F<float>{}), a, B, cluster, smem, stream);
-    case 1: return run_decode(make(F<bf16>{}), a, B, cluster, smem, stream);
-    case 2: return run_decode(make(F<__half>{}), a, B, cluster, smem, stream);
+    case 0: return run_decode<D>(make(F<float, D>{}), a, B, cluster, smem, stream);
+    case 1: return run_decode<D>(make(F<bf16, D>{}), a, B, cluster, smem, stream);
+    case 2: return run_decode<D>(make(F<__half, D>{}), a, B, cluster, smem, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1329,82 +1374,145 @@ int run_prefill(const void* q, const void* cache, void* out, int B, int S, int n
 
 }  // namespace
 
-// Dtype codes: 0 f32, 1 bf16, 2 f16. q [B, nq, 128] and out of qdt;
-// k_new, v_new [B, nkv, 128] of kdt; cache [2, B, nkv, T, 128] contiguous
+// Dtype codes: 0 f32, 1 bf16, 2 f16. q [B, nq, hd] and out of qdt;
+// k_new, v_new [B, nkv, hd] of kdt; cache [2, B, nkv, T, hd] contiguous
 // and 16-byte aligned, of cdt; lengths int32 [B] (clamped to [0, T]);
-// g = nq / nkv <= 32 (16 for an f32 cache: the host plan's shared memory).
+// hd 128 and g = nq / nkv <= 32 in decode_attn (its entries take no hd),
+// hd 64 or 128 and g <= 128 in decode_attn_wide (every shape but
+// decode_attn's), hd 64 or 128 and g <= 32 with ALiBi slopes.
 // The plan (ops/decode_attn.py::decode_plan): `cluster` blocks of `per`
 // positions (a multiple of 64, cluster * per >= max(lengths)) for each
 // (row, kv head), `stages` ring stages, `smem` bytes of shared memory.
 // The entries of the unit decode_attn take no slopes (the signatures the A/B
-// scripts call in another tree's build); those of decode_attn_alibi
-// (AWQ_ALIBI) are K2's, K3's and K14's with `slopes`, f32 [nq] in device
-// memory, before the stream.
+// scripts call in another tree's build); those of decode_attn_wide
+// (AWQ_DECODE_WIDE, *_wide) take the head_dim after T, those of
+// decode_attn_alibi (AWQ_ALIBI, *_alibi) the head_dim after T and `slopes`,
+// f32 [nq] in device memory, before the stream.
 static int decode_entry(const void* q, const void* k_new, const void* v_new,
                         const void* cache, const void* lengths, void* out, int B, int nq,
-                        int nkv, int T, int cluster, int per, int stages, int smem, float scale,
-                        int qdt, int kdt, int cdt, const void* slopes, void* stream) {
+                        int nkv, int T, int hd, int cluster, int per, int stages, int smem,
+                        float scale, int qdt, int kdt, int cdt, const void* slopes,
+                        void* stream) {
   const DecodeArgs a{q,   k_new, v_new, out,    qdt,   kdt,
                      nq,  nkv,   per,   stages, scale, static_cast<const float*>(slopes)};
-  auto make = [&](auto tag) {
-    using E = typename decltype(tag)::Elem;
-    return ContigKV<E>{static_cast<const E*>(cache), static_cast<const int*>(lengths), B, nkv,
-                       T};
-  };
-  return run_typed<ContigKV>(cdt, make, a, B, cluster, smem, stream);
+  return by_head_dim(hd, [&](auto dtag) {
+    constexpr int D = decltype(dtag)::value;
+    auto make = [&](auto tag) {
+      using E = typename decltype(tag)::Elem;
+      return ContigKV<E, D>{static_cast<const E*>(cache), static_cast<const int*>(lengths), B,
+                            nkv, T};
+    };
+    return run_typed<D, ContigKV>(cdt, make, a, B, cluster, smem, stream);
+  });
 }
 
-#if !AWQ_ALIBI
+// K8: as decode_entry, over one layer of the page pool, pool
+// [2, NP, nkv, page, hd] contiguous of cdt, with tables int32 [B, MP] of
+// page ids in [0, NP); lengths are clamped to [0, MP * page]; `per` is a
+// whole number of pages.
+static int paged_entry(const void* q, const void* k_new, const void* v_new, const void* pool,
+                       const void* tables, const void* lengths, void* out, int B, int nq,
+                       int nkv, int np, int page, int mp, int hd, int cluster, int per,
+                       int stages, int smem, float scale, int qdt, int kdt, int cdt,
+                       const void* slopes, void* stream) {
+  if (page < 1 || per % page) return static_cast<int>(cudaErrorInvalidValue);
+  const DecodeArgs a{q,   k_new, v_new, out,    qdt,   kdt,
+                     nq,  nkv,   per,   stages, scale, static_cast<const float*>(slopes)};
+  return by_head_dim(hd, [&](auto dtag) {
+    constexpr int D = decltype(dtag)::value;
+    auto make = [&](auto tag) {
+      using E = typename decltype(tag)::Elem;
+      return PagedKV<E, D>{static_cast<const E*>(pool), static_cast<const int*>(tables),
+                           static_cast<const int*>(lengths), np, nkv, page, mp};
+    };
+    return run_typed<D, PagedKV>(cdt, make, a, B, cluster, smem, stream);
+  });
+}
+
+// K9: as decode_entry, over one layer of an int8 cache: codes int8
+// [2, B, nkv, T, hd] (16-byte aligned) and scales f32 [2, B, nkv, T], both
+// contiguous; q, out, k_new and v_new of qdt.
+static int int8_entry(const void* q, const void* k_new, const void* v_new, const void* codes,
+                      const void* scales, const void* lengths, void* out, int B, int nq,
+                      int nkv, int T, int hd, int cluster, int per, int stages, int smem,
+                      float scale, int qdt, const void* slopes, void* stream) {
+  const DecodeArgs a{q,   k_new, v_new, out,    qdt,   qdt,
+                     nq,  nkv,   per,   stages, scale, static_cast<const float*>(slopes)};
+  return by_head_dim(hd, [&](auto dtag) {
+    constexpr int D = decltype(dtag)::value;
+    const Int8KV<D> kv{static_cast<const int8_t*>(codes), static_cast<const float*>(scales),
+                       static_cast<const int*>(lengths), B, nkv, T};
+    return run_decode<D>(kv, a, B, cluster, smem, stream);
+  });
+}
+
+#if !AWQ_ALIBI && !AWQ_DECODE_WIDE
 extern "C" int awq_flash_decode(const void* q, const void* k_new, const void* v_new,
                                 const void* cache, const void* lengths, void* out, int B,
                                 int nq, int nkv, int T, int cluster, int per, int stages,
                                 int smem, float scale, int qdt, int kdt, int cdt,
                                 void* stream) {
-  return decode_entry(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, cluster, per, stages,
-                      smem, scale, qdt, kdt, cdt, nullptr, stream);
+  return decode_entry(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, HD, cluster, per,
+                      stages, smem, scale, qdt, kdt, cdt, nullptr, stream);
 }
 
-// K8: as awq_flash_decode, over one layer of the page pool, pool
-// [2, NP, nkv, page, 128] contiguous of cdt, with tables int32 [B, MP] of
-// page ids in [0, NP); lengths are clamped to [0, MP * page]; `per` is a
-// whole number of pages.
 extern "C" int awq_flash_decode_paged(const void* q, const void* k_new,
                                       const void* v_new, const void* pool,
                                       const void* tables, const void* lengths, void* out,
                                       int B, int nq, int nkv, int np, int page, int mp,
                                       int cluster, int per, int stages, int smem, float scale,
                                       int qdt, int kdt, int cdt, void* stream) {
-  if (page < 1 || per % page) return static_cast<int>(cudaErrorInvalidValue);
-  const DecodeArgs a{q, k_new, v_new, out, qdt, kdt, nq, nkv, per, stages, scale};
-  auto make = [&](auto tag) {
-    using E = typename decltype(tag)::Elem;
-    return PagedKV<E>{static_cast<const E*>(pool), static_cast<const int*>(tables),
-                      static_cast<const int*>(lengths), np, nkv, page, mp};
-  };
-  return run_typed<PagedKV>(cdt, make, a, B, cluster, smem, stream);
+  return paged_entry(q, k_new, v_new, pool, tables, lengths, out, B, nq, nkv, np, page, mp, HD,
+                     cluster, per, stages, smem, scale, qdt, kdt, cdt, nullptr, stream);
 }
 
-// K9: as awq_flash_decode, over one layer of an int8 cache: codes int8
-// [2, B, nkv, T, 128] (16-byte aligned) and scales f32 [2, B, nkv, T], both
-// contiguous; q, out, k_new and v_new of qdt.
 extern "C" int awq_flash_decode_int8(const void* q, const void* k_new, const void* v_new,
                                      const void* codes, const void* scales,
                                      const void* lengths, void* out, int B, int nq, int nkv,
                                      int T, int cluster, int per, int stages, int smem,
                                      float scale, int qdt, void* stream) {
-  const DecodeArgs a{q, k_new, v_new, out, qdt, qdt, nq, nkv, per, stages, scale};
-  const Int8KV kv{static_cast<const int8_t*>(codes), static_cast<const float*>(scales),
-                  static_cast<const int*>(lengths), B, nkv, T};
-  return run_decode(kv, a, B, cluster, smem, stream);
+  return int8_entry(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, HD, cluster,
+                    per, stages, smem, scale, qdt, nullptr, stream);
+}
+#endif
+
+#if AWQ_DECODE_WIDE
+extern "C" int awq_flash_decode_wide(const void* q, const void* k_new, const void* v_new,
+                                     const void* cache, const void* lengths, void* out, int B,
+                                     int nq, int nkv, int T, int hd, int cluster, int per,
+                                     int stages, int smem, float scale, int qdt, int kdt,
+                                     int cdt, void* stream) {
+  return decode_entry(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, hd, cluster, per,
+                      stages, smem, scale, qdt, kdt, cdt, nullptr, stream);
 }
 
+extern "C" int awq_flash_decode_paged_wide(const void* q, const void* k_new,
+                                           const void* v_new, const void* pool,
+                                           const void* tables, const void* lengths, void* out,
+                                           int B, int nq, int nkv, int np, int page, int mp,
+                                           int hd, int cluster, int per, int stages, int smem,
+                                           float scale, int qdt, int kdt, int cdt,
+                                           void* stream) {
+  return paged_entry(q, k_new, v_new, pool, tables, lengths, out, B, nq, nkv, np, page, mp, hd,
+                     cluster, per, stages, smem, scale, qdt, kdt, cdt, nullptr, stream);
+}
+
+extern "C" int awq_flash_decode_int8_wide(const void* q, const void* k_new, const void* v_new,
+                                          const void* codes, const void* scales,
+                                          const void* lengths, void* out, int B, int nq,
+                                          int nkv, int T, int hd, int cluster, int per,
+                                          int stages, int smem, float scale, int qdt,
+                                          void* stream) {
+  return int8_entry(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, hd, cluster,
+                    per, stages, smem, scale, qdt, nullptr, stream);
+}
+#else
 // q [B, S, nq, hd] contiguous of qdt; cache [2, B, nkv, T, hd] contiguous
 // and 16-byte aligned, of cdt, with the chunk already written at
 // [start_pos, start_pos + S); out [B, S, nq * hd] of qdt; hd 64 or 128, nq
 // a multiple of nkv; n_tiles = ceil(S * nq / nkv / 128), the host plan's
 // row tiles (ops/decode_attn.py::prefill_plan; the f32 mode ignores it);
 // scale_log2 = log2(e) / sqrt(hd).
-#endif
 static int prefill_entry(const void* q, const void* cache, void* out, int B, int S, int nq,
                          int nkv, int T, int start_pos, int hd, int n_tiles, float scale_log2,
                          int qdt, int cdt, const void* slopes, void* stream) {
@@ -1420,16 +1528,6 @@ static int prefill_entry(const void* q, const void* cache, void* out, int B, int
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-
-#if !AWQ_ALIBI
-extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, int B,
-                                 int S, int nq, int nkv, int T, int start_pos, int hd,
-                                 int n_tiles, float scale_log2, int qdt, int cdt,
-                                 void* stream) {
-  return prefill_entry(q, cache, out, B, S, nq, nkv, T, start_pos, hd, n_tiles, scale_log2,
-                       qdt, cdt, nullptr, stream);
-}
-#endif
 
 // K14: q [B, nq, hd] contiguous of qdt; k_cache, v_cache [B, nkv, T, hd],
 // each contiguous and 16-byte aligned, of cdt; positions [0, length)
@@ -1465,15 +1563,38 @@ static int layer_entry(const void* q, const void* k_cache, const void* v_cache, 
 #undef AWQ_LAYER
   return static_cast<int>(cudaErrorInvalidValue);
 }
+#endif
 
 #if AWQ_ALIBI
 extern "C" int awq_flash_decode_alibi(const void* q, const void* k_new, const void* v_new,
                                       const void* cache, const void* lengths, void* out,
-                                      int B, int nq, int nkv, int T, int cluster, int per,
-                                      int stages, int smem, float scale, int qdt, int kdt,
-                                      int cdt, const void* slopes, void* stream) {
-  return decode_entry(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, cluster, per, stages,
-                      smem, scale, qdt, kdt, cdt, slopes, stream);
+                                      int B, int nq, int nkv, int T, int hd, int cluster,
+                                      int per, int stages, int smem, float scale, int qdt,
+                                      int kdt, int cdt, const void* slopes, void* stream) {
+  return decode_entry(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, hd, cluster, per,
+                      stages, smem, scale, qdt, kdt, cdt, slopes, stream);
+}
+
+extern "C" int awq_flash_decode_paged_alibi(const void* q, const void* k_new,
+                                            const void* v_new, const void* pool,
+                                            const void* tables, const void* lengths,
+                                            void* out, int B, int nq, int nkv, int np,
+                                            int page, int mp, int hd, int cluster, int per,
+                                            int stages, int smem, float scale, int qdt,
+                                            int kdt, int cdt, const void* slopes,
+                                            void* stream) {
+  return paged_entry(q, k_new, v_new, pool, tables, lengths, out, B, nq, nkv, np, page, mp, hd,
+                     cluster, per, stages, smem, scale, qdt, kdt, cdt, slopes, stream);
+}
+
+extern "C" int awq_flash_decode_int8_alibi(const void* q, const void* k_new,
+                                           const void* v_new, const void* codes,
+                                           const void* scales, const void* lengths, void* out,
+                                           int B, int nq, int nkv, int T, int hd, int cluster,
+                                           int per, int stages, int smem, float scale, int qdt,
+                                           const void* slopes, void* stream) {
+  return int8_entry(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, hd, cluster,
+                    per, stages, smem, scale, qdt, slopes, stream);
 }
 
 extern "C" int awq_flash_prefill_alibi(const void* q, const void* cache, void* out, int B,
@@ -1493,7 +1614,15 @@ extern "C" int awq_flash_decode_layer_alibi(const void* q, const void* k_cache,
   return layer_entry(q, k_cache, v_cache, out, lengths, B, nq, nkv, T, length, hd, cluster, per,
                      stages, smem, scale, qdt, cdt, slopes, stream);
 }
-#else
+#elif !AWQ_DECODE_WIDE
+extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, int B,
+                                 int S, int nq, int nkv, int T, int start_pos, int hd,
+                                 int n_tiles, float scale_log2, int qdt, int cdt,
+                                 void* stream) {
+  return prefill_entry(q, cache, out, B, S, nq, nkv, T, start_pos, hd, n_tiles, scale_log2,
+                       qdt, cdt, nullptr, stream);
+}
+
 extern "C" int awq_flash_decode_layer(const void* q, const void* k_cache,
                                       const void* v_cache, void* out, const void* lengths,
                                       int B, int nq, int nkv, int T, int length, int hd,

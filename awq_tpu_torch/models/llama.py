@@ -68,15 +68,16 @@ up to 32 tokens still takes K5, as in the JAX package.
 Falcon (``arch="falcon"``: LayerNorm with bias, the exact-GELU MLP ``up``
 /``down`` with no gate, the parallel block with one norm (7b, ``single_ln``)
 or two (40b), MQA or grouped QKV) takes the stacked path of :func:`forward`
-alone: its norm and MLP refuse every megakernel gate, and K2 takes neither
-its head_dim 64 nor its 71 query heads per kv head. Where K2's gate
-(``flash_decode_supported``) fails, a one-position step at one shared
-position writes each layer's k/v and then attends through
-``layers.attention``, whose S = 1 branch is K14 (``flash_decode_layer``:
-it launches or raises on the card, its plain version on the CPU), as
-JAX's ``forward`` falls back to ``attention`` after its in-scan append;
-prefill runs K3's head_dim-64 mode. Falcon's batched, paged, int8-KV and
-tensor-parallel paths raise (ROADMAP A12).
+alone: its norm and MLP refuse every megakernel gate. Where
+``flash_decode_supported`` fails (head_dim 64, 71 query heads per kv head),
+a one-position step at one shared position writes each layer's k/v and
+then attends through ``layers.attention``, whose S = 1 branch is K14
+(``flash_decode_layer``: it launches or raises on the card, its plain
+version on the CPU), as JAX's ``forward`` falls back to ``attention``
+after its in-scan append; prefill runs K3's head_dim-64 mode. Falcon's
+per-row batched and paged steps and its int8 steps take K2, K8 and K9 at
+head_dim 64 and wide groups; its tensor-parallel paths raise (ROADMAP
+A17b).
 
 The ALiBi families (``pos_embed="alibi"``, no rope; the slopes of
 ``layers.alibi_slopes``) take :func:`forward` and :func:`decode_step` at
@@ -89,9 +90,12 @@ linear) takes the stacked path alone, as JAX's K4 refuses its LayerNorm
 bias. On the stacked path every attention call gets the slopes: K2 (the
 current token at ``slope * len``), K3 (the row-relative ``slope * (j -
 i)``) and, where K2 cannot take the shape (BLOOM-560m's head_dim 64), K14
-through ``layers.attention``. Their batched, paged, int8-KV and
-tensor-parallel paths raise (ROADMAP A12; JAX too sends an ALiBi int8 cache
-to XLA attention, not to its kernels).
+through ``layers.attention``. Their batched and paged steps take K2 and
+K8 with slopes (K6 takes the llama shape only, as JAX's gate); over an
+int8 cache, K9 with slopes: the single-position step in JAX's ``forward``
+order (the current token quantized first), the per-row step in its
+``decode_step_batched`` order (see :func:`stacked_layers`). Their
+tensor-parallel paths raise (ROADMAP A17b).
 
 Other family features raise ``NotImplementedError`` naming their ROADMAP
 item.
@@ -487,14 +491,14 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def check_llama_family(cfg: ModelConfig, what: str) -> None:
-    """The batched, paged, int8-KV and tensor-parallel paths take the llama
-    family only: K2, K6, K8 and K9 have no head_dim-64 or wide-group mode,
-    K6, K8 and K9 no ALiBi slopes, and the layer body of K6 and K12/K13 is
-    the llama block."""
+    """The tensor-parallel paths take the llama family only: the layer body
+    of K12/K13 and the deploy layout are the llama block's, and JAX's ALiBi
+    paged step refuses a TP axis (``awq_tpu/models/llama.py:1625``). Every
+    family takes the batched, paged and int8-KV paths."""
     if cfg.arch not in LLAMA_ARCHS:
         raise NotImplementedError(
-            f"{what} of a {cfg.arch} model: the family's batched, paged, int8-KV and "
-            "tensor-parallel paths are ROADMAP queue A, item 12")
+            f"{what} of a {cfg.arch} model: the family's tensor-parallel paths are "
+            "ROADMAP queue A, item 17b")
 
 
 def _norm(cfg: ModelConfig, x: torch.Tensor, weight: torch.Tensor,
@@ -657,8 +661,6 @@ def forward(
     _check_cache(cache)
     if tp_axis is not None:
         check_llama_family(cfg, "forward under tensor parallelism")
-    if isinstance(cache, KVCache8):
-        check_llama_family(cfg, "forward over an int8 KV cache")
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
     start_pos = int(start_pos)
@@ -725,8 +727,23 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     (``_lin_row_fn``, ``awq_tpu/models/llama.py:463-494``).
 
     An ALiBi model (MPT, BLOOM) runs no rope, and every attention call
-    takes the model's slopes: K2, K3, and K14 in the single-position
-    fallback (``layers.attention``, or the device-position call)."""
+    takes the model's slopes: K2, K8, K9, K3, and K14 in the single-position
+    fallback (``layers.attention``, or the device-position call). Falcon's
+    and BLOOM's per-row steps take K2, K8 and K9 at head_dim 64 (Falcon-7B's
+    71 q heads over one kv head); their single-position step keeps K14.
+
+    Over an int8 cache an ALiBi model's single-position step (``lengths`` is
+    None, or ``one_position``) follows JAX's ``forward``, which sends an
+    int8 ALiBi cache to XLA attention (``use_flash`` is false there,
+    ``awq_tpu/models/llama.py:681``): the current token is quantized into
+    the cache first and attended at its dequantized value (:900-947). K9
+    then takes ``dequantize_kv(quantize_kv(k))`` as its current token: the
+    same scores and weights as attending the written row, while the append
+    after the loop still quantizes the full-precision k/v, so the codes are
+    the quantize-first order's. The per-row batched step follows JAX's
+    ``decode_step_batched``, whose XLA attention takes the current token in
+    full precision (``xla_attn``, :1198-1224, :1262-1267), as every rope
+    family's K9 step does."""
     b, s = h.shape[:2]
     dt = _dtype(cfg)
     dev = cache.device
@@ -785,8 +802,10 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     # JAX's forward does (models/llama.py:938-978); with ``lengths`` and
     # ``one_position`` (every row at ``lengths[0]``, K14 takes one length)
     # the position is read on the device
-    fallback = (s == 1 and (lengths is None or one_position) and not q8 and tables is None
+    single = lengths is None or one_position
+    fallback = (s == 1 and single and not q8 and tables is None
                 and not flash_decode_supported(nq, nkv, hd, cache.dtype))
+    quantize_first = q8 and single and slopes is not None
 
     def at(name, idx):
         t = layers.get(name)
@@ -828,7 +847,11 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
             q1 = q[:, 0].contiguous()
             if q8:
                 k1, v1 = k[:, 0].contiguous(), v[:, 0].contiguous()
-                attn = decode8(q1, k1, v1, kv, kv_s, row_lengths, max_length=max_length)
+                ka, va = k1, v1
+                if quantize_first:
+                    ka, va = (dequantize_kv(*quantize_kv(x), dt) for x in (k1, v1))
+                attn = decode8(q1, ka, va, kv, kv_s, row_lengths, max_length=max_length,
+                               slopes=slopes)
             else:
                 k1, v1 = k[:, 0].to(kv.dtype).contiguous(), v[:, 0].to(kv.dtype).contiguous()
                 if tables is None:
@@ -836,7 +859,7 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                                   slopes=slopes)
                 else:
                     attn = decode_paged(q1, k1, v1, cache, tables, idx, row_lengths,
-                                        max_length=max_length)
+                                        max_length=max_length, slopes=slopes)
             attn = attn.reshape(b, 1, nq * hd)
             if lengths is None and not q8:
                 update_kv_cache(kv, k, v, start_pos)
@@ -849,7 +872,8 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
             kq, ks = quantize_kv(torch.stack([k, v]).transpose(2, 3))   # [2, B, n_kv, S, *]
             kv[:, :, :, start_pos:end], kv_s[:, :, :, start_pos:end] = kq, ks
             attn = prefill(q.contiguous(), dequantize_kv(kv[:, :, :, :end],
-                                                         kv_s[:, :, :, :end], dt), start_pos)
+                                                         kv_s[:, :, :, :end], dt), start_pos,
+                           slopes)
         else:
             update_kv_cache(kv, k, v, start_pos)
             attn = prefill(q.contiguous(), kv, start_pos, slopes)
@@ -917,8 +941,6 @@ def decode_step(
     versions read ``pos`` on the host."""
     _check_supported(cfg)
     _check_cache(cache)
-    if isinstance(cache, KVCache8):
-        check_llama_family(cfg, "forward over an int8 KV cache")
     if impl not in ("auto", "plain"):
         raise ValueError(f"impl must be 'auto' or 'plain', not {impl!r}")
     dev = cache.device
@@ -978,7 +1000,6 @@ def _check_cache(cache) -> None:
 def _check_step(cfg: ModelConfig, cache, impl: str, tp_axis) -> None:
     """What the batched and paged steps refuse."""
     _check_supported(cfg)
-    check_llama_family(cfg, "the batched or paged step")
     if tp_axis is not None:
         raise NotImplementedError(
             "the batched and paged steps under tensor parallelism (tp_axis) are "
@@ -1016,7 +1037,7 @@ def decode_step_batched(
     lengths = lengths.to(device=dev, dtype=torch.int32)
     dt = _dtype(cfg)
     layers = params["layers"]
-    h = params["embed"][tokens.to(dev)].to(dt)                     # [B, H]
+    h = _embed_ln(cfg, params, params["embed"][tokens.to(dev)].to(dt))   # [B, H]
     if mkb.megakernel_batched_supported(cfg, layers, cache, b):
         fn = (mkb.w4a16_llama_token_step_batched_plain if impl == "plain"
               else mkb.w4a16_llama_token_step_batched)
@@ -1036,7 +1057,7 @@ def decode_step_batched(
     else:
         h = stacked_layers(params, cfg, h[:, None], cache, 0, impl,
                            lengths=lengths, max_length=max_length)[:, 0]
-    h = rms_norm(h, params["norm"], cfg.rms_eps)
+    h = _norm(cfg, h, params["norm"], params.get("norm_b"))
     return _head_logits(params, h, impl), cache
 
 
@@ -1082,7 +1103,7 @@ def decode_step_paged(
     tables = tables.to(device=dev, dtype=torch.int32)
     dt = _dtype(cfg)
     layers = params["layers"]
-    h = params["embed"][tokens.to(dev)].to(dt)                     # [B, H]
+    h = _embed_ln(cfg, params, params["embed"][tokens.to(dev)].to(dt))   # [B, H]
     if mkb.megakernel_paged_supported(cfg, layers, pool, b):
         fn = (mkb.w4a16_llama_token_step_batched_plain if impl == "plain"
               else mkb.w4a16_llama_token_step_batched)
@@ -1103,5 +1124,5 @@ def decode_step_paged(
     else:
         h = stacked_layers(params, cfg, h[:, None], pool, 0, impl, lengths=lengths,
                            max_length=max_length, tables=tables)[:, 0]
-    h = rms_norm(h, params["norm"], cfg.rms_eps)
+    h = _norm(cfg, h, params["norm"], params.get("norm_b"))
     return _head_logits(params, h, impl), pool

@@ -14,9 +14,9 @@ position 0.
 
 int8 mode (:func:`batched_cache_append_int8`): the cache is a
 ``KVCache8``'s codes ``data [L, 2, B, n_kv, T, hd]`` int8 and ``scales
-[L, 2, B, n_kv, T]`` f32. The kernel quantizes every row of ``kv`` as
-:func:`quantize_kv` does and writes its 128 codes and its scale at the
-row's position, clamped as above. JAX does this with ``quantize_kv`` and a
+[L, 2, B, n_kv, T]`` f32, head_dim 128 or 64 (Falcon-7B, BLOOM). The
+kernel quantizes every row of ``kv`` as :func:`quantize_kv` does and
+writes its codes and its scale at the row's position, clamped as above. JAX does this with ``quantize_kv`` and a
 per-row ``dynamic_update_slice`` loop in XLA (``models/llama.py:1313-1325``
 and ``:1015-1027``); the kernel is bit-equal to it.
 
@@ -40,6 +40,8 @@ import torch
 #: Launches of K7 on a slot cache, on a page pool and in int8 mode, counted
 #: where the wrapper launches it.
 LAUNCHES = {"cache_append": 0, "cache_append_paged": 0, "cache_append_int8": 0}
+#: The head_dims of K7's int8 mode: a warp a row at 128, a half-warp at 64.
+INT8_HEAD_DIMS = (64, 128)
 
 
 def quantize_kv(k: torch.Tensor):
@@ -114,7 +116,11 @@ def batched_cache_append_int8(data: torch.Tensor, scales: torch.Tensor,
            f"data must be int8 [L, 2, B, n_kv, T, hd], got {data.dtype} "
            f"{tuple(data.shape)}")
     L, _, b, nkv, t, hd = data.shape
-    _check(hd == 128, f"head_dim {hd}: the int8 mode is built for 128")
+    if hd not in INT8_HEAD_DIMS:
+        raise NotImplementedError(
+            f"batched_cache_append_int8: head_dim {hd}; the int8 mode is built for "
+            f"{' and '.join(map(str, INT8_HEAD_DIMS))} (other head_dims wait for their "
+            "model families, ROADMAP queue A, item 12)")
     _check(tuple(scales.shape) == (L, 2, b, nkv, t) and scales.dtype == torch.float32,
            f"scales must be f32 [{L}, 2, {b}, {nkv}, {t}]")
     _check(tuple(kv.shape) == (L, 2, b, nkv, hd)
@@ -132,9 +138,9 @@ def batched_cache_append_int8(data: torch.Tensor, scales: torch.Tensor,
 
     lib = _build.load("cache_append")
     fn = lib.awq_cache_append_int8
-    _build.declare(fn, *([_build.P] * 4), *([_build.I] * 5), _build.P)
+    _build.declare(fn, *([_build.P] * 4), *([_build.I] * 6), _build.P)
     err = fn(data.data_ptr(), scales.data_ptr(), kv.data_ptr(), lengths.data_ptr(),
-             L * 2 * b * nkv, b, nkv, t, int(kv.dtype == torch.float32),
+             L * 2 * b * nkv, b, nkv, t, int(kv.dtype == torch.float32), hd,
              torch.cuda.current_stream(data.device).cuda_stream)
     _build.check(lib, err, "cache_append_int8")
     LAUNCHES["cache_append_int8"] += 1

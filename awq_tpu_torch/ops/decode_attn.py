@@ -55,19 +55,24 @@ Each has a plain PyTorch version beside it (``*_plain``): the CPU path,
 and the reference the kernels are held to on the card. On a CUDA tensor
 the wrappers launch the kernel or raise. The kernels take f32, bf16 and
 f16 for q (the output's dtype), the current token's k/v and the cache,
-each of its own dtype, as the JAX kernels follow ``q.dtype``; an f32
-cache takes at most 16 query heads per kv head (K2, K8).
+each of its own dtype, as the JAX kernels follow ``q.dtype``. Every
+decode kernel takes head_dim 64 (the TPU kernels' paired mode: Falcon-7B,
+BLOOM) or 128 and up to 128 query heads per kv head (Falcon-7B's 71 over
+one); another head_dim or a wider group raises ``NotImplementedError``
+naming ROADMAP A12.
 
-ALiBi (MPT, BLOOM): K2, K3 and K14 take ``slopes``, f32 ``[nq]`` on q's
-device (``models/layers.py::alibi_slopes``), and add the bias to each f32
+ALiBi (MPT, BLOOM): every kernel takes ``slopes``, f32 ``[nq]`` on q's
+device (``models/layers.py::alibi_slopes``), and adds the bias to each f32
 score before the running max, in JAX's forms: ``slope * j`` over key
-positions ``j`` in decode (K2's current token at ``j = len_b``), the
-row-relative ``slope * (j - i)`` in prefill (query position ``i``), which
-keeps the scores bounded at long prompts. With slopes the wrappers launch
-the unit ``decode_attn_alibi`` (the bias compiled in), without them
-``decode_attn``, the kernels as before. K8 and K9 take no slopes (no ALiBi path
-reaches them; ROADMAP A12), and head_dim 64 in K2, K8 and K9 (the TPU
-kernels' paired mode) waits for its model families: those wrappers raise.
+positions ``j`` in decode (the current token of K2, K8 and K9 at ``j =
+len_b``; K9's after K's scale), the row-relative ``slope * (j - i)`` in
+prefill (query position ``i``), which keeps the scores bounded at long
+prompts. With slopes the wrappers launch the unit ``decode_attn_alibi``
+(the bias compiled in; at most 32 query heads per kv head, the ALiBi
+families being MHA). Without them K2, K8 and K9 at head_dim 128 and up to
+32 query heads per kv head launch ``decode_attn``, the kernels as before,
+and their other shapes the unit ``decode_attn_wide``; K3 and K14 launch
+``decode_attn``.
 """
 
 from __future__ import annotations
@@ -80,14 +85,19 @@ from typing import Optional, Union
 import torch
 
 #: Launches of K2, K8, K9, K3 and K14, counted where the wrappers launch them;
-#: K2, K3 and K14 with ALiBi slopes count under ``<name>_alibi``.
+#: with ALiBi slopes they count under ``<name>_alibi``, and K2, K8 and K9 at
+#: head_dim 64 or a group wider than 32 (the unit ``decode_attn_wide``) under
+#: ``<name>_wide``.
 LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0, "flash_decode_int8": 0,
             "flash_prefill": 0, "flash_decode_layer": 0, "flash_decode_alibi": 0,
-            "flash_prefill_alibi": 0, "flash_decode_layer_alibi": 0}
+            "flash_prefill_alibi": 0, "flash_decode_layer_alibi": 0,
+            "flash_decode_paged_alibi": 0, "flash_decode_int8_alibi": 0,
+            "flash_decode_wide": 0, "flash_decode_paged_wide": 0, "flash_decode_int8_wide": 0}
 
-HEAD_DIM = 128            # the head_dim K2, K8 and K9 are built for
-HEAD_DIMS = (64, 128)     # the head_dims K3 and K14 are built for
-LAYER_MAX_GROUP = 128     # K14's most query heads per kv head
+HEAD_DIM = 128            # the head_dim of the unit decode_attn's K2, K8 and K9
+HEAD_DIMS = (64, 128)     # the head_dims every decode and prefill kernel takes
+LAYER_MAX_GROUP = 128     # the most query heads per kv head of K2, K8, K9 and K14
+NARROW_GROUP = 32         # the most of decode_attn's K2, K8, K9 and of any ALiBi mode
 DECODE_TILE = 64          # positions of a ring stage (csrc dec::TILE)
 # K2's and K8's slices are whole 256-position units (the paged engine's
 # page), so that K8 over pages dividing 256 slices rows as K2 does and
@@ -104,13 +114,6 @@ _LOG2E = 1.4426950408889634
 PREFILL_ROWS = 128        # K3: packed query rows of a block (csrc k3::BQ)
 PREFILL_KV_TILE = {128: 64, 64: 128}   # K3: positions of a K/V tile by head_dim
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-
-def _no_slopes(what: str, slopes) -> None:
-    if slopes is not None:
-        raise NotImplementedError(
-            f"{what}: ALiBi slopes; no ALiBi path reaches this kernel (the batched and "
-            "paged ALiBi paths are ROADMAP queue A, item 12)")
 
 
 def flash_decode_plain(q: torch.Tensor, k_new: torch.Tensor,
@@ -145,10 +148,14 @@ def flash_decode_plain(q: torch.Tensor, k_new: torch.Tensor,
 def flash_decode_int8_plain(q: torch.Tensor, k_new: torch.Tensor,
                             v_new: torch.Tensor, cache: torch.Tensor,
                             scales: torch.Tensor, lengths: torch.Tensor,
-                            max_length: Optional[int] = None) -> torch.Tensor:
+                            max_length: Optional[int] = None,
+                            slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K9, in f32, in the TPU kernel's order: scores
     ``(q·scale)·k_int8`` times K's scale, softmax weights times V's scale
-    before ``p·v_int8``. ``[B, nq, hd]`` in ``q.dtype``."""
+    before ``p·v_int8``. ``[B, nq, hd]`` in ``q.dtype``. With ALiBi
+    ``slopes [nq]``, score ``j`` gains ``slope * j`` after K's scale (the
+    current token's ``slope * len_b``), as JAX's XLA attention over the
+    dequantized cache adds it (``decode_step_batched``'s ``xla_attn``)."""
     b, nq, hd = q.shape
     nkv = cache.shape[2]
     g = nq // nkv
@@ -156,9 +163,13 @@ def flash_decode_int8_plain(q: torch.Tensor, k_new: torch.Tensor,
     qf = q.float().reshape(b, nkv, g, hd) * (1.0 / math.sqrt(hd))
     s = (torch.einsum("bkgh,bkth->bkgt", qf, cache[0, :, :, :t].float())
          * scales[0, :, :, None, :t])
+    s_cur = torch.einsum("bkgh,bkh->bkg", qf, k_new.to(q.dtype).float())[..., None]
+    if slopes is not None:
+        sl = slopes.float().to(q.device).reshape(1, nkv, g, 1)
+        s = s + sl * torch.arange(t, dtype=torch.float32, device=q.device)
+        s_cur = s_cur + sl * lengths.to(q.device).float().reshape(b, 1, 1, 1)
     live = torch.arange(t, device=q.device)[None, :] < lengths[:, None].to(q.device)
     s = s.masked_fill(~live[:, None, None, :], float("-inf"))
-    s_cur = torch.einsum("bkgh,bkh->bkg", qf, k_new.to(q.dtype).float())[..., None]
     p = torch.softmax(torch.cat([s, s_cur], dim=-1), dim=-1)
     out = (torch.einsum("bkgt,bkth->bkgh", p[..., :t] * scales[1, :, :, None, :t],
                         cache[1, :, :, :t].float())
@@ -181,18 +192,20 @@ def flash_decode_paged_plain(q: torch.Tensor, k_new: torch.Tensor,
                              v_new: torch.Tensor, pool: torch.Tensor,
                              tables: torch.Tensor, layer: int,
                              lengths: torch.Tensor,
-                             max_length: Optional[int] = None) -> torch.Tensor:
+                             max_length: Optional[int] = None,
+                             slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of K8: gather each row's pages into a contiguous view
-    and run :func:`flash_decode_plain` over it. The current token's k/v are
-    rounded to the pool dtype first, as JAX's wrapper does. Lengths are
-    clamped to ``[0, MP * page]``, as the kernel clamps them."""
+    and run :func:`flash_decode_plain` over it (ALiBi ``slopes`` as there).
+    The current token's k/v are rounded to the pool dtype first, as JAX's
+    wrapper does. Lengths are clamped to ``[0, MP * page]``, as the kernel
+    clamps them."""
     page, mp = pool.shape[4], tables.shape[1]
     lengths = lengths.to(q.device).clamp(0, mp * page)
     t = int(lengths.max()) if max_length is None else min(int(max_length), mp * page)
     n_pages = -(-t // page)
     cache = gather_pages(pool, tables, int(layer), n_pages)
     return flash_decode_plain(q, k_new.to(pool.dtype), v_new.to(pool.dtype), cache,
-                              lengths, max_length=t)
+                              lengths, max_length=t, slopes=slopes)
 
 
 def flash_prefill_plain(q: torch.Tensor, cache: torch.Tensor,
@@ -270,10 +283,14 @@ def _check_common(what: str, q: torch.Tensor, cache: torch.Tensor,
 
 
 def flash_decode_supported(nq: int, nkv: int, hd: int, cache_dtype) -> bool:
-    """Whether K2 takes this shape and float cache dtype: head_dim 128, ``nq``
-    a multiple of ``nkv`` with at most 32 query heads per kv head (16 over
-    an f32 cache). A static test; the model's S = 1 step falls back to
-    :func:`flash_decode_layer` (K14) where it fails."""
+    """Whether the single-position step at one shared position takes K2 for
+    this shape and float cache dtype: head_dim 128, ``nq`` a multiple of
+    ``nkv`` with at most 32 query heads per kv head (16 over an f32 cache),
+    the unit ``decode_attn``'s shapes. A static test; that step falls back
+    to :func:`flash_decode_layer` (K14) where it fails (falcon, BLOOM), as
+    it did before K2 took their shapes, so that their single-stream paths
+    keep their kernels and their bits. The per-row batched and paged steps
+    take K2, K8 and K9 at every shape :func:`_check_decode_group` admits."""
     most = 16 if cache_dtype == torch.float32 else 32
     return (hd == HEAD_DIM and cache_dtype in _DTYPE_CODE and nq % nkv == 0
             and nq // nkv <= most)
@@ -296,11 +313,33 @@ def _check_layer(what: str, nq: int, nkv: int, hd: int, q_dtype, k_dtype, v_dtyp
            f"{q_dtype}, {k_dtype} and {v_dtype}")
 
 
-def _check_group(what: str, nq: int, nkv: int, cache_dtype) -> None:
-    most = 16 if cache_dtype == torch.float32 else 32
-    _check(flash_decode_supported(nq, nkv, HEAD_DIM, cache_dtype), what,
-           f"nq={nq} is not a multiple of nkv={nkv} with at most {most} q heads "
-           f"per kv head over a {cache_dtype} cache")
+def _check_decode_group(what: str, nq: int, nkv: int, alibi: bool) -> None:
+    """The query group of K2, K8 and K9: ``nq`` a multiple of ``nkv``
+    (``ValueError``), at most :data:`LAYER_MAX_GROUP` query heads per kv head
+    and :data:`NARROW_GROUP` with ALiBi slopes (``NotImplementedError``
+    naming ROADMAP A12 beyond)."""
+    _check(nkv > 0 and nq % nkv == 0, what, f"nq={nq} is not a multiple of nkv={nkv}")
+    most = NARROW_GROUP if alibi else LAYER_MAX_GROUP
+    if nq // nkv > most:
+        raise NotImplementedError(
+            f"{what}: {nq // nkv} q heads per kv head{' with ALiBi slopes' if alibi else ''}; "
+            f"the kernel takes at most {most} (wider groups wait for their model families, "
+            "ROADMAP queue A, item 12)")
+
+
+def _decode_unit(sptr: int, hd: int, g: int, entry: str):
+    """``(library, entry name, head_dim argument, slopes argument, counter
+    suffix)`` of a K2, K8 or K9 launch: the unit ``decode_attn_alibi`` with
+    slopes; without them ``decode_attn`` at its shapes (head_dim 128, at most
+    32 q heads a kv head; its entries take no head_dim), else
+    ``decode_attn_wide``."""
+    from awq_tpu_torch import _build
+
+    if sptr:
+        return _build.load("decode_attn_alibi"), entry + "_alibi", (hd,), (sptr,), "_alibi"
+    if hd == HEAD_DIM and g <= NARROW_GROUP:
+        return _build.load("decode_attn"), entry, (), (), ""
+    return _build.load("decode_attn_wide"), entry + "_wide", (hd,), (), "_wide"
 
 
 def _slopes_ptr(what: str, slopes: Optional[torch.Tensor], nq: int, dev) -> int:
@@ -343,9 +382,10 @@ class DecodePlan:
     thread-block cluster (the grid is ``(cluster, nkv, b)``) and merge their
     softmax states on chip. The kv head's ``g`` query heads are padded to
     ``row_tiles`` 16-row tiles of ``mma.sync``; ``warps_per_tile`` warps
-    share a tile's positions, ``npw`` each. ``smem`` mirrors
-    ``csrc/decode_attn.cu::dec_layout``; the C entry refuses a plan whose
-    bytes differ."""
+    share a tile's positions, ``npw`` each. ``cur``: the current token rides
+    as an operand (K2, K8, K9; not K14), its scores in the header. ``smem``
+    mirrors ``csrc/decode_attn.cu::dec_layout``; the C entry refuses a plan
+    whose bytes differ."""
 
     b: int
     nq: int
@@ -357,6 +397,7 @@ class DecodePlan:
     cluster: int
     per: int
     stages: int
+    cur: bool = True
 
     @property
     def g(self) -> int:
@@ -393,7 +434,9 @@ class DecodePlan:
         stages = self.stages if stages is None else stages
         r128 = lambda x: (x + 127) & ~127   # noqa: E731
         rows, t = 16 * self.row_tiles, DECODE_TILE
-        lay = dict(hdr=r128((32 + self.hd) * 4), q=r128(rows * self.hd * 4),
+        # the current token's scores: 32, or one a q row of a wide group
+        n_sc = rows if self.cur and self.npw == 32 else 32
+        lay = dict(hdr=r128((n_sc + self.hd) * 4), q=r128(rows * self.hd * 4),
                    stage=r128(2 * t * self.row_bytes + (2 * t * 4 if self.esize == 1 else 0)),
                    wide=2 * t * self.hd * 2 if self.esize == 1 else 0,
                    ps=self.warps * 16 * self.npw * 4 if self.esize == 4 else 0,
@@ -421,11 +464,12 @@ class DecodePlan:
 @functools.lru_cache(maxsize=512)
 def decode_plan(b: int, nq: int, nkv: int, hd: int, max_length: int, esize: int,
                 unit: int = DECODE_TILE, page: int = 0, sms: int = H100_SMS,
-                max_cluster: int = MAX_CLUSTER) -> DecodePlan:
+                max_cluster: int = MAX_CLUSTER, cur: bool = True) -> DecodePlan:
     """The split flash decode's host plan (see :class:`DecodePlan`) for
     ``b`` rows of ``nq`` query heads over ``nkv`` kv heads at head_dim
     ``hd``, rows at most ``max_length`` long, a cache of ``esize``-byte
-    elements, slices a multiple of ``unit`` (K8: and of its ``page``). The
+    elements, slices a multiple of ``unit`` (K8: and of its ``page``),
+    ``cur`` for K2, K8 and K9 (the current token an operand), not K14. The
     cluster fills one wave of ``sms``
     blocks: ``sms // (b * nkv)`` blocks a (row, kv head), at most
     ``max_cluster``, fewer when the rows are short; a longer cache gives
@@ -441,7 +485,7 @@ def decode_plan(b: int, nq: int, nkv: int, hd: int, max_length: int, esize: int,
     per = max(unit, _round_up(-(-max_length // want), unit))
     cluster = max(1, -(-max_length // per))
     plan = DecodePlan(b=b, nq=nq, nkv=nkv, hd=hd, max_length=max_length, esize=esize,
-                      page=page, cluster=cluster, per=per, stages=2)
+                      page=page, cluster=cluster, per=per, stages=2, cur=cur)
     per_sm = max(-(-plan.blocks // sms), 2 if cluster > 8 else 1)
     most = max(2, min(4, -(-min(per, max_length) // DECODE_TILE) + 1))
     for stages in range(most, 1, -1):
@@ -469,17 +513,18 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     current token, post-rope), ``cache [2, B, nkv, T, hd]`` (one layer),
     ``lengths [B]`` int32 cache-prefix lengths. ``max_length`` (at least
     ``lengths.max()``) sizes the split-K grid without a device sync.
-    ``slopes``: ALiBi slopes f32 ``[nq]`` or None. Returns ``[B, nq, hd]``."""
+    ``slopes``: ALiBi slopes f32 ``[nq]`` or None. head_dim 64 or 128, up
+    to 128 q heads a kv head (32 with slopes). Returns ``[B, nq, hd]``."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_new, v_new, cache, lengths, max_length, slopes)
     what = "flash_decode"
     _check(q.is_cuda, what, f"unsupported device {q.device}")
-    _check_common(what, q, cache)
+    _check_common(what, q, cache, HEAD_DIMS)
     b, nq, hd = q.shape
     nkv, t = cache.shape[2], cache.shape[3]
     _check(cache.shape[1] == b, what,
            f"q {tuple(q.shape)} does not fit cache {tuple(cache.shape)}")
-    _check_group(what, nq, nkv, cache.dtype)
+    _check_decode_group(what, nq, nkv, slopes is not None)
     _check(k_new.dtype == v_new.dtype and k_new.dtype in _DTYPE_CODE, what,
            "k_new and v_new must share one of f32, bf16, f16")
     for name, kv in (("k_new", k_new), ("v_new", v_new)):
@@ -499,17 +544,17 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
 
     from awq_tpu_torch import _build
 
-    lib, entry, tail = _unit(sptr, "awq_flash_decode")
+    lib, entry, hd_arg, tail, tag = _decode_unit(sptr, hd, nq // nkv, "awq_flash_decode")
     fn = getattr(lib, entry)
-    _build.declare(fn, *([_build.P] * 6), *([_build.I] * 8), _build.F, *([_build.I] * 3),
-                   *([_build.P] * len(tail)), _build.P)
+    _build.declare(fn, *([_build.P] * 6), *([_build.I] * (8 + len(hd_arg))), _build.F,
+                   *([_build.I] * 3), *([_build.P] * len(tail)), _build.P)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), b, nq, nkv, t, *_plan_args(plan),
+             lengths.data_ptr(), out.data_ptr(), b, nq, nkv, t, *hd_arg, *_plan_args(plan),
              1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_new.dtype],
              _DTYPE_CODE[cache.dtype], *tail, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         _build.check(lib, err, f"{what} ({plan.describe()})")
-    LAUNCHES["flash_decode_alibi" if sptr else "flash_decode"] += 1
+    LAUNCHES[what + tag] += 1
     return out
 
 
@@ -519,17 +564,17 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                       slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K9 wrapper. As :func:`flash_decode`, over one layer of an int8 cache:
     ``cache [2, B, nkv, T, hd]`` int8 codes and ``scales [2, B, nkv, T]``
-    f32. ``k_new``/``v_new`` (in q's dtype) are the current token in full
-    precision, quantized by the caller's append after the step. ALiBi
-    ``slopes`` raise (``NotImplementedError``)."""
-    _no_slopes("flash_decode_int8", slopes)
+    f32. ``k_new``/``v_new`` (in q's dtype) are the current token: in full
+    precision where the caller's append quantizes it after the step, or
+    already dequantized (``models/llama.py``'s ALiBi single-position step).
+    ``slopes``: ALiBi slopes f32 ``[nq]`` or None."""
     if q.device.type == "cpu":
         return flash_decode_int8_plain(q, k_new, v_new, cache, scales, lengths,
-                                       max_length)
+                                       max_length, slopes)
     what = "flash_decode_int8"
     _check(q.is_cuda, what, f"unsupported device {q.device}")
     b, nq, hd = q.shape
-    _check_head_dim(what, hd)
+    _check_head_dim(what, hd, HEAD_DIMS)
     _check(cache.dim() == 5 and cache.shape[0] == 2 and cache.shape[1] == b
            and cache.shape[-1] == hd and cache.dtype == torch.int8, what,
            f"cache must be int8 [2, {b}, n_kv, T, {hd}], got {cache.dtype} "
@@ -538,8 +583,8 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     _check(tuple(scales.shape) == (2, b, nkv, t) and scales.dtype == torch.float32,
            what, f"scales must be f32 [2, {b}, {nkv}, {t}], got {scales.dtype} "
            f"{tuple(scales.shape)}")
-    _check(q.dtype in _DTYPE_CODE and nq % nkv == 0 and nq // nkv <= 32, what,
-           f"q must be f32, bf16 or f16 [{b}, nq, {hd}] with nq a multiple of {nkv}")
+    _check(q.dtype in _DTYPE_CODE, what, f"q must be f32, bf16 or f16, got {q.dtype}")
+    _check_decode_group(what, nq, nkv, slopes is not None)
     for name, kv in (("k_new", k_new), ("v_new", v_new)):
         _check(tuple(kv.shape) == (b, nkv, hd) and kv.dtype == q.dtype, what,
                f"{name} must be {q.dtype} [{b}, {nkv}, {hd}]")
@@ -552,23 +597,24 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     if max_length is None:
         max_length = int(lengths.max())
     _check(0 <= max_length <= t, what, f"max_length {max_length} not in [0, {t}]")
+    sptr = _slopes_ptr(what, slopes, nq, q.device)
     plan = decode_plan(b, nq, nkv, hd, max_length, 1, PLAN_UNIT[what],
                        sms=_sm_count(q.device))
     out = torch.empty_like(q)
 
     from awq_tpu_torch import _build
 
-    lib = _build.load("decode_attn")
-    fn = lib.awq_flash_decode_int8
-    _build.declare(fn, *([_build.P] * 7), *([_build.I] * 8), _build.F, _build.I,
-                   _build.P)
+    lib, entry, hd_arg, tail, tag = _decode_unit(sptr, hd, nq // nkv, "awq_flash_decode_int8")
+    fn = getattr(lib, entry)
+    _build.declare(fn, *([_build.P] * 7), *([_build.I] * (8 + len(hd_arg))), _build.F,
+                   _build.I, *([_build.P] * len(tail)), _build.P)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
-             scales.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, nq, nkv, t,
-             *_plan_args(plan), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+             scales.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, nq, nkv, t, *hd_arg,
+             *_plan_args(plan), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], *tail,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         _build.check(lib, err, f"{what} ({plan.describe()})")
-    LAUNCHES["flash_decode_int8"] += 1
+    LAUNCHES[what + tag] += 1
     return out
 
 
@@ -582,22 +628,21 @@ def flash_decode_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
     page, hd]``, ``tables [B, MP]`` int32 page ids (in ``[0, NP)``: not
     checked, that would take a sync), ``layer`` the pool's layer,
     ``lengths [B]`` int32. ``max_length`` (at least ``lengths.max()``)
-    sizes the split-K grid without a device sync. Returns ``[B, nq, hd]``.
-    ALiBi ``slopes`` raise (``NotImplementedError``)."""
-    _no_slopes("flash_decode_paged", slopes)
+    sizes the split-K grid without a device sync. ``slopes``: ALiBi slopes
+    f32 ``[nq]`` or None. Returns ``[B, nq, hd]``."""
     if q.device.type == "cpu":
         return flash_decode_paged_plain(q, k_new, v_new, pool, tables, layer, lengths,
-                                        max_length)
+                                        max_length, slopes)
     what = "flash_decode_paged"
     _check(q.is_cuda, what, f"unsupported device {q.device}")
     layer = int(layer)
     _check(pool.dim() == 6 and pool.shape[1] == 2 and 0 <= layer < pool.shape[0], what,
            f"pool must be [L, 2, NP, n_kv, page, hd] with layer {layer} in it, got "
            f"{tuple(pool.shape)}")
-    _check_common(what, q, pool[layer])
+    _check_common(what, q, pool[layer], HEAD_DIMS)
     b, nq, hd = q.shape
     np_, nkv, page = pool.shape[2], pool.shape[3], pool.shape[4]
-    _check_group(what, nq, nkv, pool.dtype)
+    _check_decode_group(what, nq, nkv, slopes is not None)
     _check(k_new.dtype == v_new.dtype and k_new.dtype in _DTYPE_CODE, what,
            "k_new and v_new must share one of f32, bf16, f16")
     for name, kv in (("k_new", k_new), ("v_new", v_new)):
@@ -615,26 +660,27 @@ def flash_decode_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
     if max_length is None:
         max_length = int(lengths.max())
     max_length = min(max(int(max_length), 0), mp * page)
+    sptr = _slopes_ptr(what, slopes, nq, q.device)
     plan = decode_plan(b, nq, nkv, hd, max_length, pool.element_size(), PLAN_UNIT[what],
                        page, sms=_sm_count(q.device))
     out = torch.empty_like(q)
 
     from awq_tpu_torch import _build
 
-    lib = _build.load("decode_attn")
-    fn = lib.awq_flash_decode_paged
-    _build.declare(fn, *([_build.P] * 7), *([_build.I] * 10), _build.F,
-                   *([_build.I] * 3), _build.P)
+    lib, entry, hd_arg, tail, tag = _decode_unit(sptr, hd, nq // nkv, "awq_flash_decode_paged")
+    fn = getattr(lib, entry)
+    _build.declare(fn, *([_build.P] * 7), *([_build.I] * (10 + len(hd_arg))), _build.F,
+                   *([_build.I] * 3), *([_build.P] * len(tail)), _build.P)
     # the plain version rounds the current token to the pool dtype first
     k_new, v_new = k_new.to(pool.dtype), v_new.to(pool.dtype)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), pool[layer].data_ptr(),
              tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, nq, nkv, np_, page,
-             mp, *_plan_args(plan), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
-             _DTYPE_CODE[pool.dtype], _DTYPE_CODE[pool.dtype],
+             mp, *hd_arg, *_plan_args(plan), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+             _DTYPE_CODE[pool.dtype], _DTYPE_CODE[pool.dtype], *tail,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         _build.check(lib, err, f"{what} ({plan.describe()})")
-    LAUNCHES["flash_decode_paged"] += 1
+    LAUNCHES[what + tag] += 1
     return out
 
 
@@ -782,7 +828,7 @@ def flash_decode_layer(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
             f"{what}: ALiBi slopes with {nq // nkv} q heads per kv head; the ALiBi unit takes "
             "at most 32 (the ALiBi families are MHA; wider groups are ROADMAP queue A, item 12)")
     plan = decode_plan(b, nq, nkv, hd, bound, k_cache.element_size(), PLAN_UNIT[what],
-                       sms=_sm_count(q.device))
+                       sms=_sm_count(q.device), cur=False)
     out = torch.empty_like(q)
 
     from awq_tpu_torch import _build

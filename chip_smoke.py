@@ -67,7 +67,13 @@ Phases (each failure ends the run with a non-zero exit):
    in W4 and in W3: the layer entry at layer 5 over lengths 0, 1000 and
    4000, the token entry with the quantized tied head at length 1000 (its
    position in device memory, bit-equal to the host-length launch);
-   yardstick the stacked path's device time.
+   yardstick the stacked path's device time. Then the per-row steps of the
+   other families: K2, K8 and K9 at Falcon-7B's heads (71 q heads over one
+   kv head, head_dim 64: the unit ``decode_attn_wide``) on K2's 8 ragged
+   rows, K8 and K9 with ALiBi slopes at MPT-7B's and BLOOM-560m's heads and
+   K2 with slopes at BLOOM-560m's, on the same rows (K8 over pages of 256
+   equal to K2 bit for bit; K9 beside K2 on the dequantized cache), and
+   K7's int8 mode at head_dim 64 (exact); yardstick SDPA.
 3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
    new tokens each, the second continuing the first's dialogue, then a
    24-token follow-up continuing the third's) through ``InferenceEngine``
@@ -166,6 +172,15 @@ Phases (each failure ends the run with a non-zero exit):
    on the stacked path (K1, K2 with slopes); every prompt on K1's GEMM and K3
    with slopes. Then the four requests through ``ModelWorker`` over HTTP,
    the ids equal to the K4 run's. Prints what phase 3 prints.
+3k. Falcon-7B (W4-g64) and MPT-7B (W4-g128, ``zero_mean``, the tied head
+   quantized) at 32 layers and full width: phase 3b's twelve requests
+   through an 8-slot ``BatchEngine`` over a bf16 and over an int8 cache,
+   then through an 8-slot ``PagedBatchEngine`` with pages of 256 (greedy ids
+   equal to the bf16 slot engine's, bit for bit). Every step is the stacked
+   path: K1's GEMV at 8 rows, K2, K9 or K8 at head_dim 64 and 71 q heads a
+   kv head (falcon) or with ALiBi slopes (MPT), one K7 append; no K14, K6
+   or K4 (by the counters and the device trace). Prints what phase 3b
+   prints, peak memory and the split decode's instances a step.
 4. At the same widths and 2 layers, feed the same tokens through
    ``forward`` on the kernel path and on the plain path and compare
    logits: a 100-token prefill and 8 decodes on the stacked path, a
@@ -184,7 +199,11 @@ Phases (each failure ends the run with a non-zero exit):
    further from it than 1.25 times the plain path. Then the ALiBi families
    at 2 layers, within 5e-2 of the largest logit: MPT-7B's widths on K4's
    MPT shape and on the stacked path, BLOOM-560m's (random biases) on the
-   stacked path, K14 and K3 with slopes once per layer and step.
+   stacked path, K14 and K3 with slopes once per layer and step. Last,
+   the same three families' per-row steps: one ``decode_step_batched`` of
+   8 ragged rows over a bf16 and an int8 cache and one ``decode_step_paged``
+   over pages of 256, each within 5e-2 of the largest logit, its mode of K2,
+   K9 or K8 once a layer, no K14.
 5. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, where CUDA is not available or the
@@ -1311,6 +1330,165 @@ def phase_alibi_attention(torch, timer, cases_out):
         del kv
 
 
+def decode_mask(torch, lens, mx, slopes=None):
+    """SDPA's additive mask for a decode step whose current token sits at
+    column ``mx`` (after the ``mx`` cached columns): -inf past each row's
+    length, and with ALiBi ``slopes [nq]`` the bias ``slope * j``, the
+    current token's at ``j = len_b``. ``[B, nq or 1, 1, mx + 1]`` bf16."""
+    b = lens.shape[0]
+    live = torch.arange(mx + 1, device="cuda")[None, :] < lens[:, None]
+    live[:, mx] = True
+    if slopes is None:
+        bias = torch.zeros((b, 1, mx + 1), device="cuda")
+    else:
+        pos = torch.arange(mx + 1, device="cuda", dtype=torch.float32)[None, :].repeat(b, 1)
+        pos[:, mx] = lens.float()
+        bias = slopes[None, :, None] * pos[:, None, :]
+    return bias.masked_fill(~live[:, None, :], float("-inf"))[:, :, None].to(torch.bfloat16)
+
+
+def phase_family_attention(torch, timer, cases_out):
+    """Phase 2, the batched, paged and int8 steps of falcon, MPT and BLOOM:
+    K2, K8 and K9 at Falcon-7B's heads (71 q heads over one kv head at
+    head_dim 64: the unit ``decode_attn_wide``) on K2's 8 ragged rows (K8
+    over a permuted pool of pages of 256, its output equal to K2's bit for
+    bit; K9 over int8 codes, K2 on the dequantized cache beside it); K8 and
+    K9 with ALiBi slopes at MPT-7B's 32 heads of 128 and BLOOM-560m's 16 of
+    64, and K2 with slopes at BLOOM-560m's, on the same rows; K7's int8 mode
+    at head_dim 64 (Falcon-7B's one kv head, 32 layers, 8 rows), exact. Each
+    against its plain version at 2^-6 of the largest value; the library call
+    is SDPA on the same positions (the bias as an additive mask; over the
+    gathered or dequantized view)."""
+    import torch.nn.functional as F
+
+    from awq_tpu_torch.models.layers import alibi_slopes
+    from awq_tpu_torch.ops import cache_append as ca
+    from awq_tpu_torch.ops import decode_attn as da
+
+    gen = torch.Generator(device="cuda").manual_seed(97531)
+    tol = 2.0 ** -6           # bf16 output rounding, sums in other orders
+    b, mx, t = len(RAGGED), max(RAGGED), 2048
+    lens = torch.tensor(RAGGED, dtype=torch.int32, device="cuda")
+    n_pos = sum(RAGGED)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def add(name, shape, fn, plain, lib, nbytes, flops, library, plan, extra=None):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err, rel = check(f"{name} {shape}", got, ref, tol)
+        b_ms, b_by = bound(nbytes, flops)
+        cases_out.append(dict(
+            name=name, shape=shape, max_abs_err=err, max_rel_err=rel,
+            tol=f"{tol:g}*max|ref|", ms=timer(fn), plain_ms=timer(plain, reps=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=timer(lib), library=library,
+            **plan, **(extra or {})))
+        log_case(cases_out[-1])
+        return got
+
+    def sdpa(q, k_all, v_all, mask, gqa):
+        return lambda: F.scaled_dot_product_attention(q[:, :, None], k_all, v_all,
+                                                      attn_mask=mask, enable_gqa=gqa)
+
+    # (label, nq, nkv, hd, slopes): Falcon-7B without slopes; MPT-7B and
+    # BLOOM-560m with them
+    for fam, nq, nkv, hd, alibi in (("Falcon-7B", FALCON_7B["num_heads"], 1, 64, False),
+                                    ("MPT-7B", MPT_7B["num_heads"], MPT_7B["num_heads"], 128,
+                                     True),
+                                    ("BLOOM-560m", BLOOM_560M["num_heads"],
+                                     BLOOM_560M["num_heads"], 64, True)):
+        sl = alibi_slopes(nq, device="cuda") if alibi else None
+        tag = "_alibi" if alibi else "_wide"
+        shape = f"{fam} B={b} ragged len 0..{mx} nq={nq} nkv={nkv} hd={hd}"
+        cache = rnd(2, b, nkv, t, hd)
+        q, kn, vn = rnd(b, nq, hd), rnd(b, nkv, hd), rnd(b, nkv, hd)
+        k_all = torch.cat([cache[0, :, :, :mx], kn[:, :, None]], dim=2)
+        v_all = torch.cat([cache[1, :, :, :mx], vn[:, :, None]], dim=2)
+        mask = decode_mask(torch, lens, mx, sl)
+        lib = sdpa(q, k_all, v_all, mask, nkv != nq)
+        library = ("F.scaled_dot_product_attention(attn_mask=ALiBi bias)" if alibi else
+                   "F.scaled_dot_product_attention(attn_mask, enable_gqa=True)")
+        kv_bytes = (2 * b * nq * hd + 2 * b * nkv * hd + 2 * nkv * hd * n_pos) * 2
+        flops = 4.0 * nq * hd * (n_pos + b)
+        k2 = None
+        if fam != "MPT-7B":    # K2 with slopes at MPT-7B's heads: phase_alibi_attention
+            k2 = add("flash_decode" + tag, shape,
+                     lambda: da.flash_decode(q, kn, vn, cache, lens, max_length=mx, slopes=sl),
+                     lambda: da.flash_decode_plain(q, kn, vn, cache, lens, max_length=mx,
+                                                   slopes=sl),
+                     lib, kv_bytes + (nq * 4 if alibi else 0), flops, library,
+                     decode_plan_of("flash_decode", b, nq, nkv, hd, mx, 2))
+        pool, tables = scatter_pages(torch, cache[None], t // PAGE, PAGE, gen,
+                                     need=[-(-(n + 1) // PAGE) for n in RAGGED])
+        k8 = add("flash_decode_paged" + tag, shape + f" page {PAGE}",
+                 lambda: da.flash_decode_paged(q, kn, vn, pool, tables, 0, lens, max_length=mx,
+                                               slopes=sl),
+                 lambda: da.flash_decode_paged_plain(q, kn, vn, pool, tables, 0, lens,
+                                                     max_length=mx, slopes=sl),
+                 lib, kv_bytes + sum(-(-n // PAGE) for n in RAGGED) * 4
+                 + (nq * 4 if alibi else 0), flops, library,
+                 decode_plan_of("flash_decode_paged", b, nq, nkv, hd, mx, 2, PAGE))
+        if k2 is None:
+            k2 = da.flash_decode(q, kn, vn, cache, lens, max_length=mx, slopes=sl)
+        if not torch.equal(k8, k2):
+            raise AssertionError(f"flash_decode_paged{tag} {shape}: pages of {PAGE} do not "
+                                 "give K2's output bit for bit")
+        log(f"  flash_decode_paged{tag} {fam}: pages of {PAGE} give K2's output bit for bit")
+        del pool, tables
+        codes, scales = ca.quantize_kv(cache.float())
+        deq = ca.dequantize_kv(codes, scales, torch.bfloat16)
+        kq_all = torch.cat([deq[0, :, :, :mx], kn[:, :, None]], dim=2)
+        vq_all = torch.cat([deq[1, :, :, :mx], vn[:, :, None]], dim=2)
+        on_deq = da.flash_decode(q, kn, vn, deq, lens, max_length=mx, slopes=sl)
+        k2_ms = timer(lambda: da.flash_decode(q, kn, vn, deq, lens, max_length=mx, slopes=sl))
+        got9 = da.flash_decode_int8(q, kn, vn, codes, scales, lens, max_length=mx, slopes=sl)
+        vs_k2, _ = check(f"flash_decode_int8{tag} against K2 on the dequantized cache", got9,
+                         on_deq, tol)
+        add("flash_decode_int8" + tag, shape,
+            lambda: da.flash_decode_int8(q, kn, vn, codes, scales, lens, max_length=mx,
+                                         slopes=sl),
+            lambda: da.flash_decode_int8_plain(q, kn, vn, codes, scales, lens, max_length=mx,
+                                               slopes=sl),
+            sdpa(q, kq_all, vq_all, mask, nkv != nq),
+            (2 * b * nq * hd + 2 * b * nkv * hd) * 2 + 2 * nkv * n_pos * (hd + 4)
+            + (nq * 4 if alibi else 0), flops, library + " on the dequantized bf16 view",
+            decode_plan_of("flash_decode_int8", b, nq, nkv, hd, mx, 1),
+            dict(yardstick_ms=k2_ms,
+                 yardstick=f"K2 on the dequantized bf16 cache (max diff {vs_k2:.2e})"))
+        del cache, codes, scales, deq, k_all, v_all, kq_all, vq_all
+
+    # K7's int8 mode at head_dim 64: one step's k/v of Falcon-7B's 32 layers
+    # (one kv head) quantized into an 8-slot int8 cache at the ragged rows'
+    # lengths; exact, K7 on a bf16 cache of the same rows beside it
+    n_l, nkv, hd = FALCON_7B["num_layers"], 1, 64
+    codes = torch.randint(-127, 128, (n_l, 2, b, nkv, t, hd), generator=gen,
+                          dtype=torch.int8, device="cuda")
+    scales = torch.rand((n_l, 2, b, nkv, t), generator=gen, device="cuda") * 0.03
+    c8 = [(codes, scales), (codes.clone(), scales.clone())]
+    kv = torch.randn((n_l, 2, b, nkv, hd), generator=gen, device="cuda").to(torch.bfloat16)
+    kv[0, 1, 2, 0] = 0.0                                  # a zero row: the 1e-6 floor
+    ca.batched_cache_append_int8(*c8[0], kv, lens)
+    ca.batched_cache_append_int8_plain(*c8[1], kv, lens)
+    torch.cuda.synchronize()
+    if not (torch.equal(c8[0][0], c8[1][0]) and torch.equal(c8[0][1], c8[1][1])):
+        raise AssertionError("cache_append_int8 hd=64: the kernel's codes or scales differ "
+                             "from the plain version's")
+    cache16 = torch.zeros((n_l, 2, b, nkv, t, hd), dtype=torch.bfloat16, device="cuda")
+    rows_kv = kv.numel() // hd
+    b_ms, b_by = bound(kv.numel() * 2 + kv.numel() + rows_kv * 4 + b * 4, 0.0)
+    cases_out.append(dict(
+        name="cache_append_int8_hd64", shape=f"L={n_l} B={b} nkv={nkv} hd={hd} T={t}",
+        max_abs_err=0.0, max_rel_err=0.0, tol="exact",
+        ms=timer(lambda: ca.batched_cache_append_int8(*c8[0], kv, lens)),
+        plain_ms=timer(lambda: ca.batched_cache_append_int8_plain(*c8[1], kv, lens), reps=5),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none",
+        yardstick_ms=timer(lambda: ca.batched_cache_append(cache16, kv, lens)),
+        yardstick="K7 on a bf16 cache, same rows"))
+    log_case(cases_out[-1])
+    del codes, scales, c8, cache16
+
+
 def zero_mean(params, w_bit: int):
     """``init_qparams``' random layers with their zero points at the codes'
     mean, (2^w_bit - 1) / 2, so that the weights have zero mean, as a trained
@@ -1475,7 +1653,8 @@ def decode_plan_of(name, b, nq, nkv, hd, max_length, esize, page=0):
     from awq_tpu_torch.ops import decode_attn as da
 
     p = da.decode_plan(b, nq, nkv, hd, max_length, esize, da.PLAN_UNIT[name], page,
-                       sms=torch.cuda.get_device_properties(0).multi_processor_count)
+                       sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                       cur=name != "flash_decode_layer")
     return {"plan": p.describe()}
 
 
@@ -2114,8 +2293,9 @@ SERVE_PATHS = {
                           "flash_prefill_alibi"),
                     ("megakernel_token_mpt", "megakernel_token", "megakernel_chunk",
                      "flash_decode", "flash_prefill", "flash_decode_layer_alibi")),
-    # BLOOM-560m (phase 4): the stacked path, decode on K14 with slopes (K2
-    # takes no head_dim 64), prompts on K1's GEMM and K3 with slopes
+    # BLOOM-560m (phase 4): the stacked path, decode on K14 with slopes (the
+    # single-position step keeps K14 at head_dim 64; the per-row steps take
+    # K2, K8 and K9), prompts on K1's GEMM and K3 with slopes
     "bloom": (None, ("w4a16_gemm", "flash_decode_layer_alibi", "flash_prefill_alibi"),
               ("megakernel_token", "megakernel_token_mpt", "flash_decode", "flash_prefill",
                "flash_decode_layer", "flash_decode_alibi")),
@@ -3194,6 +3374,7 @@ def phase_serve_batched(torch, cfg, params, cache_dtype=None, labels=None):
 
 
 PAGE, SMALL_POOL = 256, 12     # phase 3c: page size; pages of the preempting pool
+FAMILY_LAYERS = 32             # phase 3k: Falcon-7B's and MPT-7B's depth
 
 
 def phase_serve_paged(torch, cfg, params, slot_ids):
@@ -3256,6 +3437,150 @@ def phase_serve_paged(torch, cfg, params, slot_ids):
     set_config(None)
     torch.cuda.empty_cache()
     return out_launches
+
+
+# phase 3k: (label, kernels that must run, kernels that must not) of the
+# families' batched, int8 and paged engines; every prompt takes the stacked
+# prefill (K5 and K6 take the llama shape only), no K14 and no megakernel
+_FAMILY_OFF = ("flash_decode_layer", "flash_decode_layer_alibi", "megakernel_batched",
+               "megakernel_batched_paged", "megakernel_batched_int8", "megakernel_token",
+               "megakernel_token_mpt", "megakernel_chunk", "flash_decode", "flash_decode_paged",
+               "flash_decode_int8")
+FAMILY_PATHS = {
+    "falcon": {"batched": (("flash_decode_wide", "flash_prefill", "cache_append"),
+                           ("flash_decode_paged_wide", "flash_decode_int8_wide",
+                            "cache_append_int8")),
+               "batched_int8": (("flash_decode_int8_wide", "flash_prefill",
+                                 "cache_append_int8"),
+                                ("flash_decode_wide", "cache_append")),
+               "paged": (("flash_decode_paged_wide", "flash_prefill", "cache_append_paged"),
+                         ("flash_decode_wide", "cache_append"))},
+    "mpt": {"batched": (("flash_decode_alibi", "flash_prefill_alibi", "cache_append"),
+                        ("flash_decode_paged_alibi", "flash_decode_int8_alibi", "flash_prefill",
+                         "cache_append_int8")),
+            "batched_int8": (("flash_decode_int8_alibi", "flash_prefill_alibi",
+                              "cache_append_int8"),
+                             ("flash_decode_alibi", "flash_prefill", "cache_append")),
+            "paged": (("flash_decode_paged_alibi", "flash_prefill_alibi", "cache_append_paged"),
+                      ("flash_decode_alibi", "flash_prefill", "cache_append"))},
+}
+# the address functor of the split decode's instance each engine's step
+# launches, as the device trace names it (flash_decode_kernel<D, NPW, CUR, KV>)
+FAMILY_FUNCTOR = {"batched": "ContigKV", "batched_int8": "Int8KV", "paged": "PagedKV"}
+
+
+def decode_instances(prof, steps: int) -> dict:
+    """The split decode's instances in a device trace: {short name: launches
+    per step}, the name cut to the kernel's template arguments."""
+    from torch.autograd import DeviceType
+
+    seen = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and "flash_decode_kernel<" in e.name:
+            name = e.name[e.name.index("flash_decode_kernel<"):].split(">(")[0] + ">"
+            name = name.replace("(anonymous namespace)::", "")
+            seen[name] = seen.get(name, 0) + 1
+    return {k: v / steps for k, v in seen.items()}
+
+
+def phase_serve_families_batched(torch, layers: int):
+    """Phase 3k: Falcon-7B (W4-g64, its head quantized) and MPT-7B (W4-g128
+    ``zero_mean``, the tied embedding quantized as the head) at ``layers``
+    layers and full width, phase 3b's twelve requests through an 8-slot
+    ``BatchEngine`` over a bf16 and over an int8 cache, then through an
+    8-slot ``PagedBatchEngine`` with pages of 256 and the default pool
+    (its greedy ids must equal the bf16 slot engine's bit for bit). Every
+    step is the stacked path: K1's GEMV at 8 rows, K2, K9 or K8 in their
+    head_dim-64 wide-group modes (falcon) or with ALiBi slopes (MPT), one
+    K7 append; no K14, K6 or K4. Each run: ms/step, tokens/s, TTFT, peak
+    memory, and a profile of eight steps (kernels per step, idle share, the
+    split decode's instances by the device trace). Returns {label:
+    launches}."""
+    from awq_tpu_torch.config import GenConfig, ModelConfig, QuantConfig
+    from awq_tpu_torch.models.llama import init_qparams
+    from awq_tpu_torch.runtime.batch_engine import BatchEngine
+    from awq_tpu_torch.runtime.paged import PagedBatchEngine
+
+    out = {}
+    set_config(None)
+    for fam, base, group in (("falcon", FALCON_7B, FALCON_G), ("mpt", MPT_7B, G)):
+        cfg = ModelConfig(**{**base, "num_layers": layers})
+        prompts = batch_prompts(cfg)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = init_qparams(cfg, QuantConfig(w_bit=4, group_size=group),
+                              torch.Generator(device="cuda").manual_seed(0))
+        if fam == "mpt":
+            params = zero_mean(params, 4)
+            params["lm_head"] = params["embed"].T.contiguous()
+        ids, quantize_head = {}, True
+        for kind in ("batched", "batched_int8", "paged"):
+            label = f"{fam}_{kind}"
+            must, off = FAMILY_PATHS[fam][kind]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            if kind == "paged":
+                engine = PagedBatchEngine(cfg, params, n_slots=BATCH_SLOTS, max_seq_len=2048,
+                                          page_size=PAGE)
+                kv_bytes = engine.cache.numel() * engine.cache.element_size()
+            else:
+                engine = BatchEngine(cfg, params, n_slots=BATCH_SLOTS, max_seq_len=2048,
+                                     quantize_head=quantize_head,
+                                     **({"cache_dtype": "int8"} if kind == "batched_int8"
+                                        else {}))
+                kv_bytes = cache_bytes(engine.cache)
+            if quantize_head:       # the engines after the first share its fused tree
+                params, quantize_head = engine.params, False
+                torch.cuda.synchronize()
+                log(f"  [{fam}] model: {layers} layers, W4-g{group} weights + W4 head "
+                    f"{weight_bytes(params) / 1e9:.3f} GB, built in "
+                    f"{time.perf_counter() - t0:.1f} s")
+            log(f"  [{label}] the {BATCH_SLOTS}-slot cache"
+                + (f" ({engine.n_pages} pages of {PAGE})" if kind == "paged" else "")
+                + f": {kv_bytes / 2**30:.4f} GiB")
+            done, launches, ms_step = drive(torch, engine, prompts, label, cfg)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ids[kind] = [r.out_ids for r in done]
+            check_path(label, launches, ("w4a16_gemv", "w4a16_gemm") + must, _FAMILY_OFF + off)
+            log(f"  [{label}] peak device memory {peak:.2f} GiB")
+            if kind == "paged":
+                gen = GenConfig(greedy=True, max_new_tokens=12)
+                for i in range(BATCH_SLOTS):
+                    engine.submit(prompts[i], gen)
+                engine.step()
+
+                def one_step(i):
+                    engine.step()
+            else:
+                def one_step(i):
+                    engine._decode().argmax(-1).cpu()
+                    engine.lengths += 1
+
+                one_step(0)
+            where = f"slot lengths {sorted(int(x) for x in engine.lengths)}"
+            prof = profile_steps(torch, one_step, ms_step, label, where, "ms/step")
+            inst = decode_instances(prof, 8)
+            log(f"  [{label}] the split decode's instances by the device trace, per step: "
+                + (", ".join(f"{k} x{v:g}" for k, v in inst.items()) or "none recorded"))
+            if any("LayerKV" in k for k in inst):
+                raise AssertionError(f"[{label}] K14 (LayerKV) in the batched step's trace")
+            if inst and not any(FAMILY_FUNCTOR[kind] in k for k in inst):
+                raise AssertionError(f"[{label}] no {FAMILY_FUNCTOR[kind]} instance in the "
+                                     "batched step's trace")
+            if kind == "paged":
+                engine.run()
+            out[label] = launches
+            del engine
+        if ids["paged"] != ids["batched"]:
+            compare_ids(f"{fam}_paged", ids["paged"], ids["batched"], "the slot engine's")
+            raise AssertionError(f"[{fam}_paged] greedy ids differ from the slot engine's")
+        log(f"  [{fam}_paged] greedy ids equal the bf16 slot engine's for all "
+            f"{BATCH_REQUESTS} requests, bit for bit")
+        compare_ids(f"{fam}_batched_int8", ids["batched_int8"], ids["batched"],
+                    "the bf16 cache's (information: int8 changes the numbers)")
+        del params
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_prefix_copy(torch, engine, slot: int = 3, reps: int = 5) -> None:
@@ -3807,6 +4132,83 @@ def phase_model_parity_alibi(torch):
     return {"bloom": out["bloom"]}
 
 
+def phase_model_parity_families_batched(torch):
+    """Phase 4, the families' per-row steps at 2 layers: Falcon-7B's widths
+    (W4-g64), MPT-7B's and BLOOM-560m's (W4-g128 zero-mean, BLOOM's random
+    biases), one ``decode_step_batched`` of 8 rows at ragged lengths over a
+    bf16 cache and over its int8 quantization, and one ``decode_step_paged``
+    of the same rows over a permuted pool of pages of 256; kernel path
+    against ``impl="plain"`` within 5e-2 of the largest logit (and of the
+    cache's largest value, dequantized for int8), as phase 4's llama steps.
+    Each step must launch its mode of K2, K9 or K8 once a layer (falcon:
+    head_dim 64 and 71 q heads a kv head; MPT, BLOOM: with ALiBi slopes) and
+    no K14. Returns {label: launches}."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig
+    from awq_tpu_torch.models import llama
+    from awq_tpu_torch.ops import cache_append as ca
+    from awq_tpu_torch.ops.w4a16 import QLinear
+
+    tol, out = 5e-2, {}
+    ragged = [300, 0, 17, 511 - 1, 64, 255, 128, 5]
+    set_config(None)
+    for fam, base, group, tag in (("falcon", FALCON_7B, FALCON_G, "_wide"),
+                                  ("mpt", MPT_7B, G, "_alibi"),
+                                  ("bloom", BLOOM_560M, G, "_alibi")):
+        cfg = ModelConfig(**{**base, "num_layers": 2})
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        params = llama.init_qparams(cfg, QuantConfig(w_bit=4, group_size=group), gen)
+        if fam != "falcon":
+            params = zero_mean(params, 4)
+            for p in params["layers"].values():
+                if isinstance(p, QLinear) and p.bias is not None:
+                    p.bias.copy_(torch.randn(p.bias.shape, generator=gen, device="cuda") * 0.05)
+            params["lm_head"] = params["embed"].T.contiguous()
+        params = llama.fuse_linears(llama.quantize_head(params, cfg), cfg)
+        lens = torch.tensor(ragged, dtype=torch.int32, device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (8,), generator=gen, device="cuda")
+        cache = llama.init_kv_cache(cfg, 8, 512)
+        cache.normal_(generator=gen)
+        pool, tables = scatter_pages(torch, cache, 2, PAGE, gen)
+        n_l = cfg.num_layers
+        for kind, counter in (("batched", "flash_decode"), ("batched_int8", "flash_decode_int8"),
+                              ("paged", "flash_decode_paged")):
+            label = f"{fam}_{kind}"
+            if kind == "batched":
+                states = [cache.clone(), cache.clone()]
+            elif kind == "paged":
+                states = [pool.clone(), pool.clone()]
+            else:
+                c8 = quantize_cache(torch, cache)
+                states = [llama.KVCache8(*(x.clone() for x in c8)) for _ in range(2)]
+            step = (lambda st, **kw: llama.decode_step_paged(params, cfg, toks, st, tables, lens,
+                                                             **kw)) if kind == "paged" else (
+                lambda st, **kw: llama.decode_step_batched(params, cfg, toks, st, lens, **kw))
+            reset_counters()
+            got, _ = step(states[0], max_length=max(ragged))
+            launches = read_counters()
+            ref, _ = step(states[1], impl="plain")
+            torch.cuda.synchronize()
+            if launches[counter + tag] != n_l or launches["flash_decode_layer"] \
+                    or launches["flash_decode_layer_alibi"]:
+                raise AssertionError(f"[{label}] launches {nonzero(launches)}: want "
+                                     f"{counter + tag} x{n_l} and no K14")
+            err, rel = check(f"[{label}] logits", got, ref, tol)
+            if kind == "batched_int8":
+                cerr, _ = check(f"[{label}] the cache, dequantized", ca.dequantize_kv(*states[0]),
+                                ca.dequantize_kv(*states[1]), tol)
+            else:
+                cerr, _ = check(f"[{label}] the cache", states[0], states[1], tol)
+            agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+            log(f"  [{label}] 8 rows at lengths {ragged}, 2 layers, kernel vs plain: logits "
+                f"max_abs_err/max|ref| {rel:.3e} (tol {tol:g}), cache max_abs_err {cerr:.3e}; "
+                f"greedy ids agree on {agree}/8 rows; launches {nonzero(launches)}")
+            out["parity_" + label] = launches
+            del states
+        del params, cache, pool
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_model_parity_w3_f16(torch):
     """Phase 4, continued: a 2-layer W3 model (pack_int3 linears and head)
     through forward on the stacked path (K1's W3 mode) and on the
@@ -3947,6 +4349,10 @@ def main() -> int:
     t_alibi = time.perf_counter()
     phase_alibi_attention(torch, timer, cases)
     torch.cuda.empty_cache()
+    t_fam = time.perf_counter()
+    phase_family_attention(torch, timer, cases)
+    log(f"  the families' batched, paged and int8 modes: {time.perf_counter() - t_fam:.1f} s")
+    torch.cuda.empty_cache()
     phase_mpt_megakernels(torch, timer, cases)
     log(f"  the ALiBi modes and K4's MPT shape: {time.perf_counter() - t_alibi:.1f} s")
     del timer
@@ -4016,11 +4422,18 @@ def main() -> int:
           "(K2, K3 with slopes), under the graph, then through ModelWorker")
     launches.update(phase_serve_mpt(torch, MPT_7B["num_layers"]))
 
+    stamp(f"phase 3k: Falcon-7B and MPT-7B, {FAMILY_LAYERS} layers at full width: phase 3b's "
+          "twelve requests through an 8-slot BatchEngine over a bf16 and an int8 cache and "
+          f"through a PagedBatchEngine with pages of {PAGE} (K2, K9, K8 at head_dim 64 and "
+          "wide groups, or with ALiBi slopes)")
+    launches.update(phase_serve_families_batched(torch, FAMILY_LAYERS))
+
     stamp(f"phase 4: forward, kernel path against plain path (2 layers)")
     phase_model_parity(torch)
     phase_model_parity_w3_f16(torch)
     phase_model_parity_falcon(torch)
     launches.update(phase_model_parity_alibi(torch))
+    phase_model_parity_families_batched(torch)
     phase_model_parity_tp(torch, mesh)
     import torch.distributed as dist
 
@@ -4099,7 +4512,19 @@ def main() -> int:
                "megakernel_token_mpt_w3": ("awq_tpu_torch/csrc/megakernel.cu",
                                            "awq_tpu/ops/megakernel.py:1047"),
                "megakernel_layer_mpt_w3": ("awq_tpu_torch/csrc/megakernel.cu",
-                                           "awq_tpu/ops/megakernel.py:954")}
+                                           "awq_tpu/ops/megakernel.py:954"),
+               "flash_decode_wide": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                     "awq_tpu/ops/decode_attn.py:394"),
+               "flash_decode_paged_wide": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                           "awq_tpu/ops/decode_attn.py:944"),
+               "flash_decode_int8_wide": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                          "awq_tpu/ops/decode_attn.py:325"),
+               "flash_decode_paged_alibi": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                            "awq_tpu/ops/decode_attn.py:944"),
+               "flash_decode_int8_alibi": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                           "awq_tpu/ops/decode_attn.py:325"),
+               "cache_append_int8_hd64": ("awq_tpu_torch/csrc/cache_append.cu",
+                                          "awq_tpu/models/llama.py:1313")}
     # one representative shape per kernel in the summary; every case is
     # printed above
     pick = {"w4a16_gemv": "wgateup M=1 ", "w4a16_gemm": "wgateup M=1000",
@@ -4124,7 +4549,10 @@ def main() -> int:
             "flash_decode_alibi": "len=4000", "flash_prefill_alibi": "S=512 start=700 nq=32 nkv=32 bf",
             "flash_decode_layer_alibi": "len=1000 B=1 nq=16",
             "megakernel_token_mpt": "32 layers", "megakernel_layer_mpt": "layer 5 len=1000",
-            "megakernel_token_mpt_w3": "32 layers", "megakernel_layer_mpt_w3": "layer 5 len=1000"}
+            "megakernel_token_mpt_w3": "32 layers", "megakernel_layer_mpt_w3": "layer 5 len=1000",
+            "flash_decode_wide": "Falcon-7B", "flash_decode_paged_wide": "Falcon-7B",
+            "flash_decode_int8_wide": "Falcon-7B", "flash_decode_paged_alibi": "MPT-7B",
+            "flash_decode_int8_alibi": "MPT-7B", "cache_append_int8_hd64": "L=32"}
     # launches: each kernel's count on its own path's main run in phases 3,
     # 3b and 3c; on the single-stream paths, whose decode replays a captured
     # step, the count of its symbol in that run's device trace (serve_single)
@@ -4156,9 +4584,14 @@ def main() -> int:
             "flash_decode_alibi": "mpt_stacked", "flash_prefill_alibi": "mpt",
             "flash_decode_layer_alibi": "bloom", "megakernel_token_mpt": "mpt",
             "megakernel_layer_mpt": "mpt", "megakernel_token_mpt_w3": "mpt",
-            "megakernel_layer_mpt_w3": "mpt"}
-    # K3's head_dim-64 mode counts under K3's one wrapper
-    counter = {"flash_prefill_hd64": "flash_prefill"}
+            "megakernel_layer_mpt_w3": "mpt", "flash_decode_wide": "falcon_batched",
+            "flash_decode_paged_wide": "falcon_paged",
+            "flash_decode_int8_wide": "falcon_batched_int8",
+            "flash_decode_paged_alibi": "mpt_paged", "flash_decode_int8_alibi": "mpt_batched_int8",
+            "cache_append_int8_hd64": "falcon_batched_int8"}
+    # K3's head_dim-64 mode counts under K3's one wrapper, K7's int8 mode at
+    # head_dim 64 under K7's int8 wrapper
+    counter = {"flash_prefill_hd64": "flash_prefill", "cache_append_int8_hd64": "cache_append_int8"}
     kernels = []
     for name, (src, replaces) in sources.items():
         c = next(c for c in cases if c["name"] == name and c["shape"].startswith(pick[name]))

@@ -90,7 +90,8 @@ class Build:
             k, v, length = a["k"], a["v"], a["length"]
             nkv, t = k.shape[1], k.shape[2]
             if self.planned:
-                p = da.decode_plan(b, nq, nkv, hd, length, 2, da.PLAN_UNIT["flash_decode_layer"])
+                p = da.decode_plan(b, nq, nkv, hd, length, 2, da.PLAN_UNIT["flash_decode_layer"],
+                                   cur=False)
                 # a build whose K14 can read its length on the device takes a
                 # null pointer for a host length
                 ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()) + (

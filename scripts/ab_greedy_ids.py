@@ -2,7 +2,7 @@
 """Greedy ids of the smoke script's single-stream requests in two trees on
 one NVIDIA GPU, and the logit gap behind each difference.
 
-    python3 scripts/ab_greedy_ids.py OTHER_TREE
+    python3 scripts/ab_greedy_ids.py OTHER_TREE [--labels falcon mpt ...]
 
 OTHER_TREE is another checkout's root (e.g. the parent commit's, ``git
 archive`` into ``build/parent_full``). Each tree runs, in a process of
@@ -11,8 +11,11 @@ requests of ``chip_smoke.py``'s phase 3 (prompts of 16, 200, 1000 and 24
 ids, 32 greedy new tokens each, requests 2 and 4 continuing 1 and 3) on
 the 32-layer random Llama-3-8B W4A16 model: on the megakernels, on the
 stacked path (``AWQ_TPU_DISABLE_MEGAKERNEL=1``) and with
-``cfg.prefill_a8`` (phase 3f); and on the 32-layer random Falcon-7B
-(phase 3h). The script prints, per configuration, each request's first
+``cfg.prefill_a8`` (phase 3f); on the 32-layer random Falcon-7B
+(phase 3h); and with ``--labels`` also on phase 3j's MPT-7B (``mpt`` on
+K4's MPT shape, ``mpt_stacked`` on the stacked path). ``--labels`` picks
+the configurations (all of the first four by default). The script prints,
+per configuration, each request's first
 differing step (None: equal). Where a request differs and its dialogue's
 earlier requests did not, it replays the checkout's engine up to that
 step and prints the two candidate ids' logits at it, with the largest
@@ -34,6 +37,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 LABELS = ("megakernels", "stacked", "prefill_a8", "falcon")
+MPT_LABELS = ("mpt", "mpt_stacked")
 
 
 def _engine(torch, cs, label):
@@ -41,6 +45,13 @@ def _engine(torch, cs, label):
     from awq_tpu_torch.models.llama import init_qparams
     from awq_tpu_torch.runtime.engine import InferenceEngine
 
+    if label in MPT_LABELS:
+        # phase 3j's engine: zero-mean W4-g128 layers, the tied head quantized
+        cfg = ModelConfig(**{**cs.MPT_7B, "num_layers": 32})
+        params = cs.zero_mean(init_qparams(cfg, QuantConfig(w_bit=4, group_size=cs.G),
+                                           torch.Generator(device="cuda").manual_seed(0)), 4)
+        params["lm_head"] = params["embed"].T.contiguous()
+        return InferenceEngine(cfg, params, RuntimeConfig(max_seq_len=2048, quantize_head=True))
     falcon = label == "falcon"
     cfg = ModelConfig(**{**(cs.FALCON_7B if falcon else cs.LLAMA3_8B), "num_layers": 32})
     params = init_qparams(cfg, QuantConfig(w_bit=4, group_size=cs.FALCON_G if falcon else cs.G),
@@ -54,8 +65,8 @@ def _engine(torch, cs, label):
     return InferenceEngine(cfg, params, RuntimeConfig(max_seq_len=2048, quantize_head=True))
 
 
-def probe(out_path: str) -> None:
-    """In the current tree: every label's greedy ids, as serve_single makes them."""
+def probe(out_path: str, labels) -> None:
+    """In the current tree: each label's greedy ids, as serve_single makes them."""
     sys.path.insert(0, os.getcwd())
     import torch
 
@@ -64,7 +75,7 @@ def probe(out_path: str) -> None:
 
     _build.build_all()
     ids = {}
-    for label in LABELS:
+    for label in labels:
         engine = _engine(torch, cs, label)
         _, got, _ = cs.serve_single(torch, engine, engine.cfg, (label,))
         ids[label] = got[label]
@@ -130,10 +141,12 @@ def near_ties(torch, cs, label, mine, other, diffs):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", nargs="?", type=Path, help="the other tree's root")
+    ap.add_argument("--labels", nargs="+", default=list(LABELS),
+                    choices=LABELS + MPT_LABELS, help="the configurations to run")
     ap.add_argument("--probe", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.probe:
-        probe(args.probe)
+        probe(args.probe, args.labels)
         return 0
 
     import torch
@@ -151,14 +164,15 @@ def main() -> int:
     for tag, tree in (("other", args.other.resolve()), ("checkout", ROOT)):
         path = out_dir / f"{tag}.json"
         with open(out_dir / f"{tag}.log", "w") as log:
-            subprocess.run([sys.executable, str(Path(__file__).resolve()), "--probe", str(path)],
+            subprocess.run([sys.executable, str(Path(__file__).resolve()), "--probe", str(path),
+                            "--labels", *args.labels],
                            cwd=tree, check=True, stdout=log, stderr=subprocess.STDOUT)
         ids[tag] = json.load(open(path))
 
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
 
-    for label in LABELS:
+    for label in args.labels:
         diffs = first_diffs(ids["checkout"][label], ids["other"][label])
         print(f"{label}: first differing step by request {diffs}", flush=True)
         if any(d is not None for d in diffs):

@@ -181,18 +181,35 @@ def test_attention_with_slopes_matches_jax_bias_on_cpu():
 
 
 def test_k8_and_k9_refuse_slopes():
+    """K8 and K9 take ALiBi slopes: on the CPU their wrappers run the plain
+    versions with the bias (K8's equal to K2's over the same rows); what
+    they refuse is a group wider than the ALiBi unit's 32 q heads a kv head
+    (the ALiBi families are MHA), naming ROADMAP A12."""
     rng = np.random.default_rng(2)
     q = torch.from_numpy(_normal(rng, 1, 4, 128))
     kn = torch.from_numpy(_normal(rng, 1, 4, 128))
     lens = torch.tensor([3], dtype=torch.int32)
     sl = tlayers.alibi_slopes(4)
-    pool = torch.zeros((1, 2, 2, 4, 16, 128))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tda.flash_decode_paged(q, kn, kn, pool, torch.tensor([[1]], dtype=torch.int32), 0,
-                               lens, slopes=sl)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tda.flash_decode_int8(q, kn, kn, torch.zeros((2, 1, 4, 16, 128), dtype=torch.int8),
-                              torch.ones((2, 1, 4, 16)), lens, slopes=sl)
+    pool = torch.from_numpy(_normal(rng, 1, 2, 2, 4, 16, 128))
+    tables = torch.tensor([[1]], dtype=torch.int32)
+    paged = tda.flash_decode_paged(q, kn, kn, pool, tables, 0, lens, slopes=sl)
+    torch.testing.assert_close(paged, tda.flash_decode_plain(
+        q, kn, kn, pool[0][:, 1:2], lens, max_length=3, slopes=sl), rtol=0, atol=0)
+    assert not torch.equal(paged, tda.flash_decode_paged(q, kn, kn, pool, tables, 0, lens))
+    codes = torch.from_numpy(rng.integers(-127, 128, (2, 1, 4, 16, 128)).astype(np.int8))
+    scales = torch.from_numpy(rng.uniform(0.01, 0.02, (2, 1, 4, 16)).astype(np.float32))
+    k9 = tda.flash_decode_int8(q, kn, kn, codes, scales, lens, slopes=sl)
+    ref = tda.flash_decode_plain(q, kn, kn, codes.float() * scales[..., None], lens,
+                                 slopes=sl)
+    torch.testing.assert_close(k9, ref, rtol=0, atol=1e-5)
+    assert not torch.equal(k9, tda.flash_decode_int8(q, kn, kn, codes, scales, lens))
+    for what in ("flash_decode", "flash_decode_paged", "flash_decode_int8"):
+        tda._check_decode_group(what, 32, 1, True)
+        tda._check_decode_group(what, 71, 1, False)
+        with pytest.raises(NotImplementedError, match="item 12"):
+            tda._check_decode_group(what, 64, 1, True)
+        with pytest.raises(NotImplementedError, match="item 12"):
+            tda._check_decode_group(what, 129, 1, False)
 
 
 # ---- on the card: each ALiBi mode against its plain version ---------------

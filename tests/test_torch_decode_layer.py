@@ -105,15 +105,20 @@ def test_gates_of_k2_and_k14():
 
 
 def test_only_k3_and_k14_take_head_dim_64():
-    """K2, K8 and K9 keep head_dim 128 and raise naming A12 (the checks their
-    wrappers run on a CUDA tensor); K3's takes 64."""
+    """The helper's default is the unit ``decode_attn``'s head_dim (128);
+    every decode and prefill wrapper passes ``HEAD_DIMS``, so K2, K8 and K9
+    take head_dim 64 as K3 and K14 do (their new modes live in the unit
+    ``decode_attn_wide``), and another head_dim raises naming A12 (the
+    checks the wrappers run on a CUDA tensor)."""
     q = torch.zeros((1, 8, 64))
     cache = torch.zeros((2, 1, 1, 32, 64))
     with pytest.raises(NotImplementedError, match="item 12"):
         tda._check_common("flash_decode", q, cache)
     with pytest.raises(NotImplementedError, match="item 12"):
         tda._check_head_dim("flash_decode_int8", 64)
-    tda._check_common("flash_prefill", q, cache, tda.HEAD_DIMS)
+    for what in ("flash_decode", "flash_decode_paged", "flash_prefill"):
+        tda._check_common(what, q, cache, tda.HEAD_DIMS)
+    tda._check_head_dim("flash_decode_int8", 64, tda.HEAD_DIMS)
     with pytest.raises(NotImplementedError, match="item 12"):
         tda._check_common("flash_prefill", torch.zeros((1, 8, 96)),
                           torch.zeros((2, 1, 1, 32, 96)), tda.HEAD_DIMS)
@@ -164,11 +169,15 @@ def test_flash_decode_layer_kernel_matches_plain(cuda, dtype, b, nq, nkv, hd, le
 
 @pytest.mark.cuda
 def test_k2_k8_k9_raise_on_head_dim_64_on_the_card(cuda):
+    """K2, K8 and K9 take head_dim 64 (``tests/test_torch_family_*.py`` hold
+    those modes to their plain versions); a head_dim of 96 raises naming A12
+    in each wrapper, and nothing launches."""
     rng = np.random.default_rng(1)
-    q = _dev(cuda, rng, torch.bfloat16, 1, 8, 64)
-    kn = _dev(cuda, rng, torch.bfloat16, 1, 1, 64)
-    cache = _dev(cuda, rng, torch.bfloat16, 2, 1, 1, 256, 64)
+    q = _dev(cuda, rng, torch.bfloat16, 1, 8, 96)
+    kn = _dev(cuda, rng, torch.bfloat16, 1, 1, 96)
+    cache = _dev(cuda, rng, torch.bfloat16, 2, 1, 1, 256, 96)
     lens = torch.tensor([10], dtype=torch.int32, device=cuda)
+    before = dict(tda.LAUNCHES)
     with pytest.raises(NotImplementedError, match="item 12"):
         tda.flash_decode(q, kn, kn, cache, lens)
     with pytest.raises(NotImplementedError, match="item 12"):
@@ -177,6 +186,7 @@ def test_k2_k8_k9_raise_on_head_dim_64_on_the_card(cuda):
     with pytest.raises(NotImplementedError, match="item 12"):
         tda.flash_decode_int8(q, kn, kn, cache.to(torch.int8), torch.ones(
             (2, 1, 1, 256), device=cuda), lens)
+    assert tda.LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -33,17 +33,21 @@ LENGTHS = [0, 1, 31, 32, 33, 1000, 2047, 4000]
 # (name, nq, nkv, hd, element bytes, slice unit, page), as the wrappers ask:
 # K2 and K9 at Llama-3-8B's group, K8 over pages of 256 and of 16, K14 at
 # Falcon-7B's (71 q heads over one kv head, head_dim 64), at Llama-3-8B's
-# and at its widest group (128)
+# and at its widest group (128); K2, K9 and K8 at Falcon-7B's group and K2
+# at the widest over an f32 cache (the unit decode_attn_wide's shapes)
 K2U, T = tda.K2_UNIT, tda.DECODE_TILE
 KINDS = [("k2", 32, 8, 128, 2, K2U, 0), ("k2_f32", 16, 1, 128, 4, K2U, 0),
          ("k9", 32, 8, 128, 1, T, 0), ("k8_256", 32, 8, 128, 2, K2U, 256),
          ("k8_16", 32, 8, 128, 2, K2U, 16), ("k14_falcon", 71, 1, 64, 2, T, 0),
-         ("k14_llama", 32, 8, 128, 2, T, 0), ("k14_g128_f32", 128, 1, 128, 4, T, 0)]
+         ("k14_llama", 32, 8, 128, 2, T, 0), ("k14_g128_f32", 128, 1, 128, 4, T, 0),
+         ("k2_falcon", 71, 1, 64, 2, K2U, 0), ("k2_g128_f32", 128, 1, 128, 4, K2U, 0),
+         ("k9_falcon", 71, 1, 64, 1, T, 0), ("k8_falcon_16", 71, 1, 64, 2, K2U, 16)]
 
 
 def _plan(kind, b, max_length):
-    _, nq, nkv, hd, esize, unit, page = kind
-    return tda.decode_plan(b, nq, nkv, hd, max_length, esize, unit, page)
+    name, nq, nkv, hd, esize, unit, page = kind
+    return tda.decode_plan(b, nq, nkv, hd, max_length, esize, unit, page,
+                           cur=not name.startswith("k14"))
 
 
 @pytest.mark.parametrize("b", [1, 8])
@@ -79,7 +83,9 @@ def test_plan_fits_the_card(kind, max_length, b):
     # regions on 16-byte (cp.async, ldmatrix) boundaries; a position's row is
     # a whole number of 16-byte copies, and so is K8's page stride
     assert all(lay[k] % 16 == 0 for k in ("hdr", "q", "stage", "ring", "wide", "ps"))
-    assert plan.row_bytes % 16 == 0 and plan.row_bytes // 16 >= 8
+    # (K9's int8 rows at head_dim 64 have four chunks, swizzled by two bits)
+    assert plan.row_bytes % 16 == 0 and plan.row_bytes // 16 >= (
+        4 if plan.esize == 1 and plan.hd == 64 else 8)
     if plan.page:
         assert (plan.nkv * plan.page * plan.row_bytes) % 16 == 0
     for rank in range(plan.cluster):
