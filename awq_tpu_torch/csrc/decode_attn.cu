@@ -94,8 +94,18 @@
 //   multiplies a position's score and V's its weight before the rounding,
 //   as the TPU kernel does. An f32 cache takes a CUDA-core body
 //   in the same fragment layout (q, K, V and P all f32).
+// - A launch may split by the length it reads in device memory (DYN, the
+//   *_dev entries: a decode step captured into a CUDA graph once and
+//   replayed at every position). Its grid is planned for the bound of the
+//   lengths; each block reads its row's length first and takes the slice
+//   the host plan of that length gives it (dec_split, the formula of
+//   decode_plan), the blocks past the length's slices leave, and the live
+//   ones merge as a launch of that many blocks: a replay is bit-equal to
+//   the launch planned on the host for its length, as K4 splits by the
+//   position it reads (megakernel.cu, attn_split). The host-length entries
+//   keep the plan's split.
 // A block's first tile is copied before its row's length arrives (a
-// memory latency less), so positions past len_b may be read there, never
+// memory latency less; not under DYN), so positions past len_b may be read there, never
 // past T (MP * page for K8); they are masked, and their V rows zeroed
 // before use. A row of length 0 returns its current token's v. Row lengths
 // are clamped to [0, T] ([0, MP * page] for K8, so no table entry past MP
@@ -272,7 +282,8 @@ struct LayerKV {   // K14: k_cache, v_cache [B, n_kv, T, D], one length
 
 // q [B, nq, D] and out of dtype code qdt (0 f32, 1 bf16, 2 f16); k_new,
 // v_new [B, nkv, D] of kdt (read with CUR only); `per` positions a block,
-// `stages` ring stages.
+// `stages` ring stages. A launch that splits by the length it reads (DYN
+// below) takes `want`, `unit` and `maxlen` of dec_split.
 struct DecodeArgs {
   const void* q;
   const void* k_new;
@@ -281,7 +292,23 @@ struct DecodeArgs {
   int qdt, kdt, nq, nkv, per, stages;
   float scale;
   const float* slopes;   // ALiBi slopes [nq] f32, or null
+  int want, unit, maxlen;
 };
+
+// The split of a row of `length` positions: `n` slices of `per` positions,
+// `per` a multiple of `unit`, about `want` slices and at least one
+// (ops/decode_attn.py::decode_split mirrors it, and decode_plan plans a host
+// length with it). Never more than min(want, ceil(length / unit)) slices,
+// so a grid of that many blocks at the largest length covers every shorter
+// one.
+__host__ __device__ inline void dec_split(int length, int want, int unit, int* per, int* n) {
+  int p = (length + want - 1) / want;
+  p = (p + unit - 1) / unit * unit;
+  p = p < unit ? unit : p;
+  const int c = (length + p - 1) / p;
+  *per = p;
+  *n = c < 1 ? 1 : c;
+}
 
 // Shared memory of one block, in bytes (ops/decode_attn.py::decode_plan
 // mirrors it): a header (the current token's scores sc[32], or one a q row
@@ -327,11 +354,16 @@ __device__ __forceinline__ int swz(int r, int c, int rowb) { return r * rowb + (
 
 // The split-and-merge body. Block (rank, h, b) of a cluster of gridDim.x
 // blocks takes positions [rank * per, min(len_b, (rank + 1) * per)) of
-// (row b, kv head h). Warp w owns query-row tile w / PW (16 rows of the
+// (row b, kv head h). With DYN (a decode step captured once and replayed
+// at every length, its grid planned for the bound a.maxlen) the block reads
+// the row's length first and splits it as the host plans that length
+// (dec_split): ranks past the length's slices return, and the others merge
+// as a launch of that many blocks does, so the output is the host-planned
+// launch's bit for bit. Warp w owns query-row tile w / PW (16 rows of the
 // group, padded) and positions [(w % PW) * NPW, +NPW) of each tile; in
 // mma.sync's C layout lane (gq, tq) = (lane / 4, lane % 4) holds rows gq
 // and gq + 8, columns 2 tq, 2 tq + 1 of each 8-column piece.
-template <int D, int NPW, bool CUR, typename KV>
+template <int D, int NPW, bool CUR, typename KV, bool DYN>
 __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(const KV kv,
                                                                              const DecodeArgs a) {
   using E = typename KV::Elem;
@@ -351,7 +383,19 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
   auto rswz = [](int r, int c) { return r * ROWB + ((c ^ (r & RSW)) << 4); };
   extern __shared__ __align__(128) uint8_t smem[];
 
-  const int rank = blockIdx.x, nsplit = gridDim.x, h = blockIdx.y, b = blockIdx.z;
+  const int rank = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  int nsplit = gridDim.x, per = a.per, len_dyn = 0;
+  if constexpr (DYN) {
+    len_dyn = min(kv.length(b), a.maxlen);
+    dec_split(len_dyn, a.want, a.unit, &per, &nsplit);
+    if (rank >= nsplit) {   // no slice and no share of the merge; the barriers
+      if (nsplit > 1) {     // of the cluster's live blocks
+        hop::cluster_sync();
+        hop::cluster_sync();
+      }
+      return;
+    }
+  }
   const int g = a.nq / a.nkv, rows = 16 * ((g + 15) / 16);
   const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const int nw = nthr >> 5;
@@ -371,7 +415,7 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
   const size_t kvo = ((size_t)b * a.nkv + h) * D;       // this kv head's k_new / v_new
   const float vn = CUR && tid < D ? load_act(a.v_new, a.kdt, kvo + tid) : 0.f;
 
-  const int p0 = rank * a.per;
+  const int p0 = rank * per;
   const typename KV::Row kvr = kv.row(b, h);
 
   // tile i of the slice into its ring stage, positions below `end`: K rows,
@@ -400,11 +444,11 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
     }
   };
   // the first tile before the row's length is known (up to bound(): a
-  // memory latency less), the ring's next ones once it is
-  const int spec = min(kv.bound(), p0 + a.per);
+  // memory latency less), the ring's next ones once it is (DYN: known)
+  const int spec = DYN ? min(len_dyn, p0 + per) : min(kv.bound(), p0 + per);
   if (spec > p0) issue(0, spec);
   hop::cp_async_commit();
-  const int len = kv.length(b);   // in flight with the q loads below
+  const int len = DYN ? len_dyn : kv.length(b);   // in flight with the q loads below
 
   // q * scale of the group's rows (zeros past g), while the first tiles fly:
   // 8 consecutive elements a chunk, a thread's two chunks of a pass loaded
@@ -461,7 +505,7 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
     }
   }
   if (CUR && tid < D) vnew[tid] = vn;
-  const int p1 = min(len, p0 + a.per);
+  const int p1 = min(len, p0 + per);
   const int ntiles = p1 > p0 ? (p1 - p0 + TILE - 1) / TILE : 0;
   for (int s = 1; s < a.stages - 1; ++s) {
     if (s < ntiles) issue(s, p1);
@@ -832,8 +876,9 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
 // One launch of the body as clusters of `cluster` blocks along x. The
 // plan (ops/decode_attn.py::decode_plan) is checked, not adjusted: a plan
 // the kernel cannot run, or a cluster the card cannot schedule, returns
-// cudaErrorInvalidValue.
-template <int D, int NPW, bool CUR, typename KV>
+// cudaErrorInvalidValue. DYN: the cluster must hold the most slices of any
+// length up to a.maxlen.
+template <int D, int NPW, bool CUR, bool DYN, typename KV>
 int launch_decode(const KV& kv, const DecodeArgs& a, int B, int cluster, int smem,
                   cudaStream_t st) {
   using E = typename KV::Elem;
@@ -843,7 +888,14 @@ int launch_decode(const KV& kv, const DecodeArgs& a, int B, int cluster, int sme
       a.per < dec::TILE || a.per % dec::TILE || smem > dec::SMEM_MAX ||
       smem != dec_layout<D, NPW, E, CUR>(g, a.stages).total)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_decode_kernel<D, NPW, CUR, KV>;
+  if (DYN) {
+    const int most = a.unit > 0 && cdiv(a.maxlen, a.unit) < a.want ? cdiv(a.maxlen, a.unit)
+                                                                    : a.want;
+    if (a.want < 1 || a.unit < dec::TILE || a.unit % dec::TILE || a.maxlen < 0 ||
+        cluster < most)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_decode_kernel<D, NPW, CUR, KV, DYN>;
   int err = hop::allow_smem(kernel, smem, &smem_set);
   if (err) return err;
   if (cluster > 8 && !nonportable) {
@@ -880,7 +932,7 @@ int launch_decode(const KV& kv, const DecodeArgs& a, int B, int cluster, int sme
 // positions each) up to 128, as K14. Each unit builds its own share
 // (UNIT_WIDE, UNIT_ALIBI above); another shape returns cudaErrorInvalidValue
 // (the wrappers route it to the unit that has it, or raise first).
-template <int D, typename KV>
+template <int D, bool DYN, typename KV>
 int run_decode(const KV& kv, const DecodeArgs& a, int B, int cluster, int smem, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g = a.nkv > 0 ? a.nq / a.nkv : 0;
@@ -888,9 +940,9 @@ int run_decode(const KV& kv, const DecodeArgs& a, int B, int cluster, int smem, 
   if (g <= 32) {
     // decode_attn's own instances are not rebuilt in the wide unit
     if constexpr (UNIT_WIDE && D == HD) return static_cast<int>(cudaErrorInvalidValue);
-    else return launch_decode<D, 16, true>(kv, a, B, cluster, smem, st);
+    else return launch_decode<D, 16, true, DYN>(kv, a, B, cluster, smem, st);
   }
-  if constexpr (UNIT_WIDE) return launch_decode<D, 32, true>(kv, a, B, cluster, smem, st);
+  if constexpr (UNIT_WIDE) return launch_decode<D, 32, true, DYN>(kv, a, B, cluster, smem, st);
   else return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1328,28 +1380,28 @@ int prefill_wgmma(const void* q, const void* cache, void* out, int B, int S, int
 
 // run_decode at head_dim D over the address functor F<E, D> of the cache
 // dtype code cdt.
-template <int D, template <typename, int> class F, typename Make>
+template <int D, bool DYN, template <typename, int> class F, typename Make>
 int run_typed(int cdt, Make make, const DecodeArgs& a, int B, int cluster, int smem,
               void* stream) {
   switch (cdt) {
-    case 0: return run_decode<D>(make(F<float, D>{}), a, B, cluster, smem, stream);
-    case 1: return run_decode<D>(make(F<bf16, D>{}), a, B, cluster, smem, stream);
-    case 2: return run_decode<D>(make(F<__half, D>{}), a, B, cluster, smem, stream);
+    case 0: return run_decode<D, DYN>(make(F<float, D>{}), a, B, cluster, smem, stream);
+    case 1: return run_decode<D, DYN>(make(F<bf16, D>{}), a, B, cluster, smem, stream);
+    case 2: return run_decode<D, DYN>(make(F<__half, D>{}), a, B, cluster, smem, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // K14 at head_dim D over a cache of E: one 16-row tile of q heads a warp
 // and 4 warps a tile up to 32 heads, 2 warps (32 positions each) above.
-template <int D, typename E>
+template <int D, bool DYN, typename E>
 int run_layer(const void* kc, const void* vc, int nkv, int T, int length, const int* lenp,
               const DecodeArgs& a, int B, int cluster, int smem, cudaStream_t st) {
   const LayerKV<E, D> kv{static_cast<const E*>(kc), static_cast<const E*>(vc), nkv, T, length,
                          lenp};
-  if (a.nq / nkv <= 32) return launch_decode<D, 16, false>(kv, a, B, cluster, smem, st);
+  if (a.nq / nkv <= 32) return launch_decode<D, 16, false, DYN>(kv, a, B, cluster, smem, st);
   // the ALiBi families are MHA: their unit builds no wide-group instance
   if constexpr (UNIT_ALIBI) return static_cast<int>(cudaErrorNotSupported);
-  else return launch_decode<D, 32, false>(kv, a, B, cluster, smem, st);
+  else return launch_decode<D, 32, false, DYN>(kv, a, B, cluster, smem, st);
 }
 
 template <int D>
@@ -1388,13 +1440,20 @@ int run_prefill(const void* q, const void* cache, void* out, int B, int S, int n
 // (AWQ_DECODE_WIDE, *_wide) take the head_dim after T, those of
 // decode_attn_alibi (AWQ_ALIBI, *_alibi) the head_dim after T and `slopes`,
 // f32 [nq] in device memory, before the stream.
+// The *_dev entries (K2, K9 and K14; DYN) split by the length they read
+// in device memory, each row its own (a decode step's rows share one):
+// `want` and `unit` are the host plan's (decode_plan), `maxlen` the bound
+// of the lengths, to which they are clamped; the plan's cluster covers
+// min(want, ceil(maxlen / unit)) slices.
+template <bool DYN>
 static int decode_entry(const void* q, const void* k_new, const void* v_new,
                         const void* cache, const void* lengths, void* out, int B, int nq,
                         int nkv, int T, int hd, int cluster, int per, int stages, int smem,
                         float scale, int qdt, int kdt, int cdt, const void* slopes,
-                        void* stream) {
-  const DecodeArgs a{q,   k_new, v_new, out,    qdt,   kdt,
-                     nq,  nkv,   per,   stages, scale, static_cast<const float*>(slopes)};
+                        void* stream, int want = 0, int unit = 0, int maxlen = 0) {
+  const DecodeArgs a{q,      k_new, v_new, out,  qdt,  kdt,   nq,
+                     nkv,    per,   stages, scale, static_cast<const float*>(slopes),
+                     want,   unit,  maxlen};
   return by_head_dim(hd, [&](auto dtag) {
     constexpr int D = decltype(dtag)::value;
     auto make = [&](auto tag) {
@@ -1402,7 +1461,7 @@ static int decode_entry(const void* q, const void* k_new, const void* v_new,
       return ContigKV<E, D>{static_cast<const E*>(cache), static_cast<const int*>(lengths), B,
                             nkv, T};
     };
-    return run_typed<D, ContigKV>(cdt, make, a, B, cluster, smem, stream);
+    return run_typed<D, DYN, ContigKV>(cdt, make, a, B, cluster, smem, stream);
   });
 }
 
@@ -1425,24 +1484,27 @@ static int paged_entry(const void* q, const void* k_new, const void* v_new, cons
       return PagedKV<E, D>{static_cast<const E*>(pool), static_cast<const int*>(tables),
                            static_cast<const int*>(lengths), np, nkv, page, mp};
     };
-    return run_typed<D, PagedKV>(cdt, make, a, B, cluster, smem, stream);
+    return run_typed<D, false, PagedKV>(cdt, make, a, B, cluster, smem, stream);
   });
 }
 
 // K9: as decode_entry, over one layer of an int8 cache: codes int8
 // [2, B, nkv, T, hd] (16-byte aligned) and scales f32 [2, B, nkv, T], both
 // contiguous; q, out, k_new and v_new of qdt.
+template <bool DYN>
 static int int8_entry(const void* q, const void* k_new, const void* v_new, const void* codes,
                       const void* scales, const void* lengths, void* out, int B, int nq,
                       int nkv, int T, int hd, int cluster, int per, int stages, int smem,
-                      float scale, int qdt, const void* slopes, void* stream) {
-  const DecodeArgs a{q,   k_new, v_new, out,    qdt,   qdt,
-                     nq,  nkv,   per,   stages, scale, static_cast<const float*>(slopes)};
+                      float scale, int qdt, const void* slopes, void* stream, int want = 0,
+                      int unit = 0, int maxlen = 0) {
+  const DecodeArgs a{q,      k_new, v_new, out,  qdt,  qdt,   nq,
+                     nkv,    per,   stages, scale, static_cast<const float*>(slopes),
+                     want,   unit,  maxlen};
   return by_head_dim(hd, [&](auto dtag) {
     constexpr int D = decltype(dtag)::value;
     const Int8KV<D> kv{static_cast<const int8_t*>(codes), static_cast<const float*>(scales),
                        static_cast<const int*>(lengths), B, nkv, T};
-    return run_decode<D>(kv, a, B, cluster, smem, stream);
+    return run_decode<D, DYN>(kv, a, B, cluster, smem, stream);
   });
 }
 
@@ -1452,8 +1514,8 @@ extern "C" int awq_flash_decode(const void* q, const void* k_new, const void* v_
                                 int nq, int nkv, int T, int cluster, int per, int stages,
                                 int smem, float scale, int qdt, int kdt, int cdt,
                                 void* stream) {
-  return decode_entry(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, HD, cluster, per,
-                      stages, smem, scale, qdt, kdt, cdt, nullptr, stream);
+  return decode_entry<false>(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, HD, cluster,
+                             per, stages, smem, scale, qdt, kdt, cdt, nullptr, stream);
 }
 
 extern "C" int awq_flash_decode_paged(const void* q, const void* k_new,
@@ -1471,8 +1533,29 @@ extern "C" int awq_flash_decode_int8(const void* q, const void* k_new, const voi
                                      const void* lengths, void* out, int B, int nq, int nkv,
                                      int T, int cluster, int per, int stages, int smem,
                                      float scale, int qdt, void* stream) {
-  return int8_entry(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, HD, cluster,
-                    per, stages, smem, scale, qdt, nullptr, stream);
+  return int8_entry<false>(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, HD,
+                           cluster, per, stages, smem, scale, qdt, nullptr, stream);
+}
+
+extern "C" int awq_flash_decode_dev(const void* q, const void* k_new, const void* v_new,
+                                    const void* cache, const void* lengths, void* out, int B,
+                                    int nq, int nkv, int T, int cluster, int per, int stages,
+                                    int smem, float scale, int qdt, int kdt, int cdt, int want,
+                                    int unit, int maxlen, void* stream) {
+  return decode_entry<true>(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, HD, cluster,
+                            per, stages, smem, scale, qdt, kdt, cdt, nullptr, stream, want, unit,
+                            maxlen);
+}
+
+extern "C" int awq_flash_decode_int8_dev(const void* q, const void* k_new, const void* v_new,
+                                         const void* codes, const void* scales,
+                                         const void* lengths, void* out, int B, int nq, int nkv,
+                                         int T, int cluster, int per, int stages, int smem,
+                                         float scale, int qdt, int want, int unit, int maxlen,
+                                         void* stream) {
+  return int8_entry<true>(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, HD,
+                          cluster, per, stages, smem, scale, qdt, nullptr, stream, want, unit,
+                          maxlen);
 }
 #endif
 
@@ -1482,8 +1565,8 @@ extern "C" int awq_flash_decode_wide(const void* q, const void* k_new, const voi
                                      int nq, int nkv, int T, int hd, int cluster, int per,
                                      int stages, int smem, float scale, int qdt, int kdt,
                                      int cdt, void* stream) {
-  return decode_entry(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, hd, cluster, per,
-                      stages, smem, scale, qdt, kdt, cdt, nullptr, stream);
+  return decode_entry<false>(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, hd, cluster,
+                             per, stages, smem, scale, qdt, kdt, cdt, nullptr, stream);
 }
 
 extern "C" int awq_flash_decode_paged_wide(const void* q, const void* k_new,
@@ -1503,8 +1586,19 @@ extern "C" int awq_flash_decode_int8_wide(const void* q, const void* k_new, cons
                                           int nkv, int T, int hd, int cluster, int per,
                                           int stages, int smem, float scale, int qdt,
                                           void* stream) {
-  return int8_entry(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, hd, cluster,
-                    per, stages, smem, scale, qdt, nullptr, stream);
+  return int8_entry<false>(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, hd,
+                           cluster, per, stages, smem, scale, qdt, nullptr, stream);
+}
+
+extern "C" int awq_flash_decode_int8_wide_dev(const void* q, const void* k_new,
+                                              const void* v_new, const void* codes,
+                                              const void* scales, const void* lengths, void* out,
+                                              int B, int nq, int nkv, int T, int hd, int cluster,
+                                              int per, int stages, int smem, float scale, int qdt,
+                                              int want, int unit, int maxlen, void* stream) {
+  return int8_entry<true>(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, hd,
+                          cluster, per, stages, smem, scale, qdt, nullptr, stream, want, unit,
+                          maxlen);
 }
 #else
 // q [B, S, nq, hd] contiguous of qdt; cache [2, B, nkv, T, hd] contiguous
@@ -1534,18 +1628,21 @@ static int prefill_entry(const void* q, const void* cache, void* out, int B, int
 // attended, 1 <= length <= T; out [B, nq, hd] of qdt; hd 64 or 128,
 // g = nq / nkv <= 128; the plan as for awq_flash_decode. With `lengths` (an
 // int32 in device memory, for every row) the length is read there, and
-// `length` is its host bound, which the plan covers.
+// `length` is its host bound, which the plan covers: the host entry keeps
+// the plan's split, the *_dev entry splits by the length read.
+template <bool DYN>
 static int layer_entry(const void* q, const void* k_cache, const void* v_cache, void* out,
                        const void* lengths, int B, int nq, int nkv, int T, int length, int hd,
                        int cluster, int per, int stages, int smem, float scale, int qdt,
-                       int cdt, const void* slopes, void* stream) {
+                       int cdt, const void* slopes, void* stream, int want = 0, int unit = 0) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const DecodeArgs a{q,   nullptr, nullptr, out,    qdt,   0,
-                     nq,  nkv,     per,     stages, scale, static_cast<const float*>(slopes)};
-  if (nq % nkv || nq / nkv > 128 || length < 1 || length > T)
+  const DecodeArgs a{q,      nullptr, nullptr, out,  qdt,  0,      nq,
+                     nkv,    per,     stages,  scale, static_cast<const float*>(slopes),
+                     want,   unit,    length};
+  if (nq % nkv || nq / nkv > 128 || length < 1 || length > T || (DYN && !lengths))
     return static_cast<int>(cudaErrorInvalidValue);
 #define AWQ_LAYER(D_, E_) \
-  return run_layer<D_, E_>(k_cache, v_cache, nkv, T, length, static_cast<const int*>(lengths), \
+  return run_layer<D_, DYN, E_>(k_cache, v_cache, nkv, T, length, static_cast<const int*>(lengths), \
                            a, B, cluster, smem, st)
   if (hd == 64) {
     switch (cdt) {
@@ -1571,8 +1668,8 @@ extern "C" int awq_flash_decode_alibi(const void* q, const void* k_new, const vo
                                       int B, int nq, int nkv, int T, int hd, int cluster,
                                       int per, int stages, int smem, float scale, int qdt,
                                       int kdt, int cdt, const void* slopes, void* stream) {
-  return decode_entry(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, hd, cluster, per,
-                      stages, smem, scale, qdt, kdt, cdt, slopes, stream);
+  return decode_entry<false>(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, hd, cluster,
+                             per, stages, smem, scale, qdt, kdt, cdt, slopes, stream);
 }
 
 extern "C" int awq_flash_decode_paged_alibi(const void* q, const void* k_new,
@@ -1593,8 +1690,31 @@ extern "C" int awq_flash_decode_int8_alibi(const void* q, const void* k_new,
                                            int B, int nq, int nkv, int T, int hd, int cluster,
                                            int per, int stages, int smem, float scale, int qdt,
                                            const void* slopes, void* stream) {
-  return int8_entry(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, hd, cluster,
-                    per, stages, smem, scale, qdt, slopes, stream);
+  return int8_entry<false>(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, hd,
+                           cluster, per, stages, smem, scale, qdt, slopes, stream);
+}
+
+extern "C" int awq_flash_decode_alibi_dev(const void* q, const void* k_new, const void* v_new,
+                                          const void* cache, const void* lengths, void* out,
+                                          int B, int nq, int nkv, int T, int hd, int cluster,
+                                          int per, int stages, int smem, float scale, int qdt,
+                                          int kdt, int cdt, int want, int unit, int maxlen,
+                                          const void* slopes, void* stream) {
+  return decode_entry<true>(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, hd, cluster,
+                            per, stages, smem, scale, qdt, kdt, cdt, slopes, stream, want, unit,
+                            maxlen);
+}
+
+extern "C" int awq_flash_decode_int8_alibi_dev(const void* q, const void* k_new,
+                                               const void* v_new, const void* codes,
+                                               const void* scales, const void* lengths,
+                                               void* out, int B, int nq, int nkv, int T, int hd,
+                                               int cluster, int per, int stages, int smem,
+                                               float scale, int qdt, int want, int unit,
+                                               int maxlen, const void* slopes, void* stream) {
+  return int8_entry<true>(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, hd,
+                          cluster, per, stages, smem, scale, qdt, slopes, stream, want, unit,
+                          maxlen);
 }
 
 extern "C" int awq_flash_prefill_alibi(const void* q, const void* cache, void* out, int B,
@@ -1611,8 +1731,20 @@ extern "C" int awq_flash_decode_layer_alibi(const void* q, const void* k_cache,
                                             int length, int hd, int cluster, int per,
                                             int stages, int smem, float scale, int qdt,
                                             int cdt, const void* slopes, void* stream) {
-  return layer_entry(q, k_cache, v_cache, out, lengths, B, nq, nkv, T, length, hd, cluster, per,
-                     stages, smem, scale, qdt, cdt, slopes, stream);
+  return layer_entry<false>(q, k_cache, v_cache, out, lengths, B, nq, nkv, T, length, hd,
+                            cluster, per, stages, smem, scale, qdt, cdt, slopes, stream);
+}
+
+extern "C" int awq_flash_decode_layer_alibi_dev(const void* q, const void* k_cache,
+                                                const void* v_cache, void* out,
+                                                const void* lengths, int B, int nq, int nkv,
+                                                int T, int length, int hd, int cluster, int per,
+                                                int stages, int smem, float scale, int qdt,
+                                                int cdt, int want, int unit, const void* slopes,
+                                                void* stream) {
+  return layer_entry<true>(q, k_cache, v_cache, out, lengths, B, nq, nkv, T, length, hd,
+                           cluster, per, stages, smem, scale, qdt, cdt, slopes, stream, want,
+                           unit);
 }
 #elif !AWQ_DECODE_WIDE
 extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, int B,
@@ -1628,7 +1760,18 @@ extern "C" int awq_flash_decode_layer(const void* q, const void* k_cache,
                                       int B, int nq, int nkv, int T, int length, int hd,
                                       int cluster, int per, int stages, int smem, float scale,
                                       int qdt, int cdt, void* stream) {
-  return layer_entry(q, k_cache, v_cache, out, lengths, B, nq, nkv, T, length, hd, cluster, per,
-                     stages, smem, scale, qdt, cdt, nullptr, stream);
+  return layer_entry<false>(q, k_cache, v_cache, out, lengths, B, nq, nkv, T, length, hd,
+                            cluster, per, stages, smem, scale, qdt, cdt, nullptr, stream);
+}
+
+extern "C" int awq_flash_decode_layer_dev(const void* q, const void* k_cache,
+                                          const void* v_cache, void* out, const void* lengths,
+                                          int B, int nq, int nkv, int T, int length, int hd,
+                                          int cluster, int per, int stages, int smem,
+                                          float scale, int qdt, int cdt, int want, int unit,
+                                          void* stream) {
+  return layer_entry<true>(q, k_cache, v_cache, out, lengths, B, nq, nkv, T, length, hd,
+                           cluster, per, stages, smem, scale, qdt, cdt, nullptr, stream, want,
+                           unit);
 }
 #endif

@@ -7,10 +7,15 @@ and ``*.safetensors`` shards (or ``*.bin`` ones). Weights are transposed to
 the ``[IC, OC]`` convention and stacked on a leading layer axis, the tree
 :func:`~awq_tpu_torch.models.llama.forward` reads. The llama family
 (llama, mistral, qwen2), falcon (7b-style MQA with one norm, and the
-40b-style grouped QKV with two), MPT (the ``concat`` QKV of ``attn.Wqkv``)
-and BLOOM (the per-head ``neox`` interleave of ``query_key_value`` and the
-embedding LayerNorm) are ported; the other families raise, naming ROADMAP
-A12.
+40b-style grouped QKV with two), MPT (the ``concat`` QKV of ``attn.Wqkv``),
+BLOOM (the per-head ``neox`` interleave of ``query_key_value`` and the
+embedding LayerNorm), OPT (separate q/k/v, the position table from row 2),
+GPT-BigCode (``c_attn``: q heads, one k and one v under ``multi_query``,
+else HF's per-head ``[n_head, 3, head_dim]`` interleave) and GPT-NeoX (the
+per-head interleave, an untied ``embed_out`` head) are ported; the other
+families raise, naming ROADMAP A12, and so do OPT's projected embedding
+(``word_embed_proj_dim != hidden_size``, OPT-350m) and its post-LN
+variant.
 
 Shards are read by :func:`read_safetensors`, a reader of the format
 itself (an 8-byte little-endian header length, a JSON header, then raw
@@ -109,12 +114,22 @@ def import_hf_model(model_or_path, dtype: str = "bfloat16",
         cfg = dataclasses.replace(cfg, dtype=dtype)
     builders = {"llama": _build_llama_params, "mistral": _build_llama_params,
                 "qwen2": _build_llama_params, "falcon": _build_falcon_params,
-                "mpt": _build_mpt_params, "bloom": _build_bloom_params}
+                "mpt": _build_mpt_params, "bloom": _build_bloom_params,
+                "opt": _build_opt_params, "bigcode": _build_bigcode_params,
+                "neox": _build_neox_params}
     if cfg.arch not in builders:
         raise NotImplementedError(f"importer: arch {cfg.arch!r}; the other decoder "
                                   "families are ROADMAP queue A, item 12")
-    from awq_tpu_torch.models.llama import params_to
+    proj = raw_cfg.get("word_embed_proj_dim", cfg.hidden_size)
+    if cfg.arch == "opt" and proj != cfg.hidden_size:
+        # JAX's importer drops project_in / project_out and runs a wrong model
+        raise NotImplementedError(
+            f"importer: OPT with word_embed_proj_dim {proj} != hidden_size {cfg.hidden_size} "
+            "(project_in / project_out, OPT-350m): ROADMAP queue A, item 12")
+    from awq_tpu_torch.models.llama import STACKED_ARCHS, _check_supported, params_to
 
+    if cfg.arch in STACKED_ARCHS:
+        _check_supported(cfg)     # OPT's post-LN variant, GPT-NeoX-20B's head_dim 96
     return cfg, params_to(builders[cfg.arch](cfg, sd), dev)
 
 
@@ -138,9 +153,11 @@ def _stack_vec(cfg: ModelConfig, sd, fmt: str) -> torch.Tensor:
 
 
 def _split_qkv(cfg: ModelConfig, fused: Linear, layout: str) -> Dict[str, Linear]:
-    """Split a stacked fused-QKV Linear ``[L, H, qkv_out]``: ``"concat"``
-    (q | k | v blocks: falcon-7b's q heads, its one k and one v; MPT),
-    ``"neox"`` (BLOOM's per-head ``[n_heads, 3, head_dim]`` interleave, HF
+    """Split a stacked fused-QKV Linear ``[L, H, qkv_out]``: ``"concat"`` or
+    ``"mqa"`` (q | k | v blocks: falcon-7b's q heads, its one k and one v;
+    MPT; GPT-BigCode's ``c_attn`` under ``multi_query``),
+    ``"neox"`` (the per-head ``[n_heads, 3, head_dim]`` interleave of
+    BLOOM, GPT-NeoX and GPT-BigCode without ``multi_query``, HF
     ``BloomAttention._split_heads``) or ``"grouped"`` (falcon's
     new_decoder_architecture: per kv group ``[n_kv, q_per_group + 2,
     head_dim]``)."""
@@ -263,3 +280,88 @@ def _build_falcon_params(cfg: ModelConfig, sd) -> Params:
     if not cfg.tie_word_embeddings and "lm_head.weight" in sd:
         params["lm_head"] = sd["lm_head.weight"].T.to(dt).contiguous()
     return params
+
+
+def _build_opt_params(cfg: ModelConfig, sd) -> Params:
+    """OPT (``awq_tpu/models/hf_import.py:233-256``): separate q/k/v/out
+    projections with biases, the LayerNorms ``self_attn_layer_norm`` and
+    ``final_layer_norm`` with bias, the MLP ``fc1``/``fc2``, the position
+    table ``embed_positions`` (row ``p + 2`` for position ``p``) and the
+    final norm; the head is the tied embedding."""
+    dt = _dt(cfg)
+    pre = "model.decoder.layers.{i}."
+    layers: Params = {
+        "ln1": _stack_vec(cfg, sd, pre + "self_attn_layer_norm.weight"),
+        "ln1_b": _stack_vec(cfg, sd, pre + "self_attn_layer_norm.bias"),
+        "ln2": _stack_vec(cfg, sd, pre + "final_layer_norm.weight"),
+        "ln2_b": _stack_vec(cfg, sd, pre + "final_layer_norm.bias"),
+        "wq": _stack_lin(cfg, sd, pre + "self_attn.q_proj"),
+        "wk": _stack_lin(cfg, sd, pre + "self_attn.k_proj"),
+        "wv": _stack_lin(cfg, sd, pre + "self_attn.v_proj"),
+        "wo": _stack_lin(cfg, sd, pre + "self_attn.out_proj"),
+        "up": _stack_lin(cfg, sd, pre + "fc1"),
+        "down": _stack_lin(cfg, sd, pre + "fc2"),
+    }
+    params: Params = {"embed": sd["model.decoder.embed_tokens.weight"].to(dt),
+                      "pos_embed": sd["model.decoder.embed_positions.weight"].to(dt),
+                      "layers": layers,
+                      "norm": sd["model.decoder.final_layer_norm.weight"].to(dt),
+                      "norm_b": sd["model.decoder.final_layer_norm.bias"].to(dt)}
+    if not cfg.tie_word_embeddings and "lm_head.weight" in sd:
+        params["lm_head"] = sd["lm_head.weight"].T.to(dt).contiguous()
+    return params
+
+
+def _build_bigcode_params(cfg: ModelConfig, sd) -> Params:
+    """GPT-BigCode, StarCoder (``awq_tpu/models/hf_import.py:309-330``): the
+    fused ``attn.c_attn`` split ``"mqa"`` under ``multi_query`` (one kv
+    head), else per head as HF views it (``"neox"``; the JAX importer takes
+    ``"concat"`` there, ROADMAP C), LayerNorms ``ln_1``/``ln_2`` with
+    bias, the MLP ``mlp.c_fc``/``mlp.c_proj``, the position table ``wpe``
+    and the final norm ``ln_f``; the head is the tied embedding."""
+    dt = _dt(cfg)
+    pre = "transformer.h.{i}."
+    fused = _stack_lin(cfg, sd, pre + "attn.c_attn")
+    layers: Params = {
+        "ln1": _stack_vec(cfg, sd, pre + "ln_1.weight"),
+        "ln1_b": _stack_vec(cfg, sd, pre + "ln_1.bias"),
+        "ln2": _stack_vec(cfg, sd, pre + "ln_2.weight"),
+        "ln2_b": _stack_vec(cfg, sd, pre + "ln_2.bias"),
+        **_split_qkv(cfg, fused, "mqa" if cfg.num_kv_heads == 1 else "neox"),
+        "wo": _stack_lin(cfg, sd, pre + "attn.c_proj"),
+        "up": _stack_lin(cfg, sd, pre + "mlp.c_fc"),
+        "down": _stack_lin(cfg, sd, pre + "mlp.c_proj"),
+    }
+    params: Params = {"embed": sd["transformer.wte.weight"].to(dt),
+                      "pos_embed": sd["transformer.wpe.weight"].to(dt), "layers": layers,
+                      "norm": sd["transformer.ln_f.weight"].to(dt),
+                      "norm_b": sd["transformer.ln_f.bias"].to(dt)}
+    if not cfg.tie_word_embeddings and "lm_head.weight" in sd:
+        params["lm_head"] = sd["lm_head.weight"].T.to(dt).contiguous()
+    return params
+
+
+def _build_neox_params(cfg: ModelConfig, sd) -> Params:
+    """GPT-NeoX, Pythia (``awq_tpu/models/hf_import.py:368-388``): the fused
+    ``attention.query_key_value`` in the per-head ``neox`` interleave,
+    LayerNorms ``input_layernorm`` and ``post_attention_layernorm`` with
+    bias (the two norms of the parallel block, or of the sequential one),
+    the MLP ``dense_h_to_4h``/``dense_4h_to_h``, the final norm and the
+    untied head ``embed_out``."""
+    dt = _dt(cfg)
+    pre = "gpt_neox.layers.{i}."
+    fused = _stack_lin(cfg, sd, pre + "attention.query_key_value")
+    layers: Params = {
+        "ln1": _stack_vec(cfg, sd, pre + "input_layernorm.weight"),
+        "ln1_b": _stack_vec(cfg, sd, pre + "input_layernorm.bias"),
+        "ln2": _stack_vec(cfg, sd, pre + "post_attention_layernorm.weight"),
+        "ln2_b": _stack_vec(cfg, sd, pre + "post_attention_layernorm.bias"),
+        **_split_qkv(cfg, fused, "neox"),
+        "wo": _stack_lin(cfg, sd, pre + "attention.dense"),
+        "up": _stack_lin(cfg, sd, pre + "mlp.dense_h_to_4h"),
+        "down": _stack_lin(cfg, sd, pre + "mlp.dense_4h_to_h"),
+    }
+    return {"embed": sd["gpt_neox.embed_in.weight"].to(dt), "layers": layers,
+            "norm": sd["gpt_neox.final_layer_norm.weight"].to(dt),
+            "norm_b": sd["gpt_neox.final_layer_norm.bias"].to(dt),
+            "lm_head": sd["embed_out.weight"].T.to(dt).contiguous()}

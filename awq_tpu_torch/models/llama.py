@@ -1,4 +1,4 @@
-"""Llama-family and falcon decoder (PyTorch port of ``awq_tpu/models/llama.py``).
+"""The decoder of every ported family (PyTorch port of ``awq_tpu/models/llama.py``).
 
 Parameters are a plain dict, the same tree as the JAX package's: decoder
 layers stacked on a leading axis (``params["layers"]["wqkv"]`` is one
@@ -97,6 +97,19 @@ order (the current token quantized first), the per-row step in its
 ``decode_step_batched`` order (see :func:`stacked_layers`). Their
 tensor-parallel paths raise (ROADMAP A17b).
 
+OPT (``pos_embed="learned"``: the position table ``pos_embed``, row ``p +
+2`` for position ``p``; LayerNorm with bias, ReLU, biases), GPT-BigCode
+(StarCoder: the table from row 0, the tanh GELU, MQA) and GPT-NeoX (Pythia:
+rope over ``rotary_pct`` of the head, exact GELU, the parallel block with
+two norms or the sequential one, an untied head) take the stacked path of
+every entry point, as JAX's megakernel gates refuse them: K2 (K14 where K2
+cannot take the heads: StarCoder's 48 q heads over one kv head, or head_dim
+64), K3, K1, and on the per-row steps K2, K8 and K9. The table's row is
+looked up by the position, a device tensor in :func:`decode_step`, and
+added after the embedding in the model dtype, as JAX adds it. Their
+tensor-parallel paths raise (ROADMAP A17b), and so do a head_dim other than
+64 or 128 (GPT-NeoX-20B's 96) and OPT's post-LN variant (A12).
+
 Other family features raise ``NotImplementedError`` naming their ROADMAP
 item.
 """
@@ -155,12 +168,21 @@ Params = Dict[str, Any]
 LAYER_LINEARS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
 LLAMA_ARCHS = ("llama", "mistral", "qwen2")
 ALIBI_ARCHS = ("mpt", "bloom")
-SUPPORTED_ARCHS = LLAMA_ARCHS + ("falcon",) + ALIBI_ARCHS
+# learned positions (OPT, GPT-BigCode) and NeoX's partial rotary: the
+# stacked path alone, as in the JAX package
+STACKED_ARCHS = ("opt", "bigcode", "neox")
+SUPPORTED_ARCHS = LLAMA_ARCHS + ("falcon",) + ALIBI_ARCHS + STACKED_ARCHS
 # each family's (positions, norm, activation, embedding norm, linear biases)
 _FAMILY = {**{a: ("rope", "rmsnorm", "silu", False, False) for a in LLAMA_ARCHS},
            "falcon": ("rope", "layernorm", "gelu", False, False),
            "mpt": ("alibi", "layernorm", "gelu", False, False),
-           "bloom": ("alibi", "layernorm", "gelu_tanh", True, True)}
+           "bloom": ("alibi", "layernorm", "gelu_tanh", True, True),
+           "opt": ("learned", "layernorm", "relu", False, True),
+           "bigcode": ("learned", "layernorm", "gelu_tanh", False, True),
+           "neox": ("rope", "layernorm", "gelu", False, True)}
+# the kernels' head_dims (the JAX package sends others, GPT-NeoX-20B's 96,
+# to XLA attention)
+_KERNEL_HEAD_DIMS = (64, 128)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -197,6 +219,12 @@ def _family_layers(cfg: ModelConfig, dev: torch.device, lin) -> Params:
     return layers
 
 
+def pos_offset(cfg: ModelConfig) -> int:
+    """The row of position 0 in a learned position table: 2 for OPT (its
+    ``OPTLearnedPositionalEmbedding``), else 0 (JAX's ``off``)."""
+    return 2 if cfg.arch == "opt" else 0
+
+
 def _outer_norms(cfg: ModelConfig, dev: torch.device) -> Params:
     """``norm`` (and ``norm_b`` for a LayerNorm with bias) of the final norm,
     and BLOOM's embedding LayerNorm ``embed_ln_w``/``embed_ln_b`` (ones and
@@ -213,8 +241,10 @@ def _outer_norms(cfg: ModelConfig, dev: torch.device) -> Params:
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 scale: float = 0.02, device="cuda") -> Params:
-    """Random fp parameters of a llama-family or falcon model (tests and
-    benchmarks; the generator must live on ``device``)."""
+    """Random fp parameters of a model of any supported family (tests and
+    benchmarks; the generator must live on ``device``): the learned
+    position table ``pos_embed`` ``[max_position_embeddings + 2, H]`` for
+    OPT (``+ 0`` for GPT-BigCode), as JAX's ``init_params`` lays it out."""
     _check_supported(cfg)
     dev = _device.resolve(device)
     gen = _gen(generator, dev)
@@ -231,6 +261,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     layers = _family_layers(cfg, dev, lin)
     params: Params = {"embed": w((cfg.vocab_size, h)), "layers": layers,
                       **_outer_norms(cfg, dev)}
+    if cfg.pos_embed == "learned":
+        params["pos_embed"] = w((cfg.max_position_embeddings + pos_offset(cfg), h))
     if not cfg.tie_word_embeddings:
         params["lm_head"] = w((h, cfg.vocab_size))
     return params
@@ -284,6 +316,9 @@ def init_qparams(cfg: ModelConfig, qcfg: QuantConfig,
         "layers": layers,
         **_outer_norms(cfg, dev),
     }
+    if cfg.pos_embed == "learned":
+        params["pos_embed"] = (torch.randn((cfg.max_position_embeddings + pos_offset(cfg), h),
+                                           generator=gen, device=dev) * scale).to(dt)
     if not cfg.tie_word_embeddings:
         params["lm_head"] = (torch.randn((h, cfg.vocab_size), generator=gen,
                                          device=dev) * scale).to(dt)
@@ -467,9 +502,16 @@ def _check_supported(cfg: ModelConfig) -> None:
     """The llama family (RMSNorm, SwiGLU, sequential block), falcon
     (LayerNorm with or without bias, exact GELU, the parallel block with one
     or two norms, MQA or grouped QKV), both with rope over the whole head;
-    MPT (ALiBi, LayerNorm without bias, exact GELU, sequential block) and
+    MPT (ALiBi, LayerNorm without bias, exact GELU, sequential block),
     BLOOM (ALiBi, ``embed_ln``, LayerNorm with bias, the tanh GELU,
-    ``attn_bias`` and ``mlp_bias``, sequential block). Everything else
+    ``attn_bias`` and ``mlp_bias``, sequential block), OPT (learned
+    positions from row 2, LayerNorm with bias, ReLU, biases, pre-LN only:
+    OPT-350m's ``do_layer_norm_before=False`` is refused, which the JAX
+    config parses and no JAX code reads), GPT-BigCode (learned positions,
+    LayerNorm with bias, the tanh GELU, biases, MQA or MHA) and GPT-NeoX
+    (rope over ``rotary_pct`` of the head, LayerNorm with bias, exact GELU,
+    biases, the parallel block with two norms or the sequential one). The
+    new three take head_dim 64 or 128 (the kernels'). Everything else
     raises, naming ROADMAP A12."""
     family = "other decoder families are ROADMAP queue A, item 12"
     if cfg.arch not in SUPPORTED_ARCHS:
@@ -479,12 +521,17 @@ def _check_supported(cfg: ModelConfig) -> None:
         (cfg.pos_embed != pos, f"pos_embed={cfg.pos_embed!r}"),
         (cfg.norm != norm, f"norm={cfg.norm!r}"),
         (cfg.act != act, f"act={cfg.act!r}"),
-        (cfg.arch != "falcon" and (cfg.parallel_block or cfg.single_ln), "parallel_block"),
+        (cfg.arch not in ("falcon", "neox") and cfg.parallel_block, "parallel_block"),
+        (cfg.arch != "falcon" and cfg.single_ln, "single_ln"),
         (cfg.embed_ln != embed_ln, f"embed_ln={cfg.embed_ln}"),
         (cfg.attn_bias != biased or cfg.mlp_bias != biased,
          f"attention/MLP bias {cfg.attn_bias}/{cfg.mlp_bias}"),
         (cfg.arch == "mpt" and cfg.norm_bias, "LayerNorm bias (MPT no_bias=False)"),
-        (cfg.rotary_pct != 1.0, "partial rotary (rotary_pct)"),
+        (cfg.arch in STACKED_ARCHS and not cfg.norm_bias, "LayerNorm without bias"),
+        (cfg.rotary_pct != 1.0 and cfg.arch != "neox", "partial rotary (rotary_pct)"),
+        (not cfg.do_layer_norm_before, "post-LN (do_layer_norm_before=False, OPT-350m)"),
+        (cfg.arch in STACKED_ARCHS and cfg.head_dim not in _KERNEL_HEAD_DIMS,
+         f"head_dim {cfg.head_dim} (the kernels take 64 and 128; GPT-NeoX-20B's 96)"),
     ):
         if bad:
             raise NotImplementedError(f"{cfg.arch}: {what}: {family}")
@@ -587,6 +634,24 @@ def _embed_lookup(params: Params, cfg: ModelConfig, ids: torch.Tensor, dt,
     return emb[ids].to(dt)
 
 
+def _embed(params: Params, cfg: ModelConfig, ids: torch.Tensor, positions: torch.Tensor,
+           tp_axis=None) -> torch.Tensor:
+    """The decoder's input in the model dtype: the token embedding, BLOOM's
+    embedding norm, then for learned positions (OPT, GPT-BigCode) the
+    table's row of each position cast to the model dtype and added, JAX's
+    rounding point (``awq_tpu/models/llama.py:638-641``, :1080-1082,
+    :1545-1547). ``positions`` broadcasts against ``ids`` (a range, the
+    rows' lengths, or :func:`decode_step`'s position read on the device);
+    a row past the table is clamped to its last, as JAX's gather clamps."""
+    dt = _dtype(cfg)
+    h = _embed_ln(cfg, params, _embed_lookup(params, cfg, ids, dt, tp_axis))
+    if cfg.pos_embed == "learned":
+        table = params["pos_embed"]
+        rows = (positions.long() + pos_offset(cfg)).clamp(0, table.shape[0] - 1)
+        h = h + table[rows].to(dt)
+    return h
+
+
 def _tp_halves_forward(params, cfg, h, cache, start_pos, plain, tp_axis):
     """One token through every layer on K12 and K13, per layer in JAX's
     rounding order (``awq_tpu/models/llama.py:778-830``): ``h1 = f32(h) +
@@ -672,7 +737,8 @@ def forward(
         raise ValueError(f"chunk [{start_pos}, {start_pos + s}) exceeds the "
                          f"cache length {t_max}")
     layers = params["layers"]
-    h = _embed_ln(cfg, params, _embed_lookup(params, cfg, tokens.to(dev), dt, tp_axis))
+    h = _embed(params, cfg, tokens.to(dev), torch.arange(start_pos, start_pos + s, device=dev),
+               tp_axis)
     if tp_axis is not None:
         # Megatron TP: no whole-model megakernel (its layers leave no room
         # for the all-reduces); the halves at batch-1 decode, else stacked
@@ -720,14 +786,17 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     copy) sizes K2's grid without a device sync. With ``tables [B, MP]`` as
     well, ``cache`` is a page pool and K8 and the paged K7 take K2's and
     K7's places. ``one_position`` says every row sits at ``lengths[0]``
-    (``decode_step``): where K2 cannot take the heads, K14 then reads that
-    length on the device. With ``tp_axis`` (a rank's shards under tensor
-    parallelism) the row-parallel ``wo`` and ``down`` end in an all-reduce
-    of their partial sums, their bias added once after it
+    (``decode_step``): K2 and K9 then split by the length they read, and
+    where K2 cannot take the heads K14 reads that length on the device and
+    splits by it; ``max_length`` only sizes their grids. With ``tp_axis``
+    (a rank's shards under tensor parallelism) the row-parallel ``wo`` and
+    ``down`` end in an all-reduce of their partial sums, their bias added
+    once after it
     (``_lin_row_fn``, ``awq_tpu/models/llama.py:463-494``).
 
-    An ALiBi model (MPT, BLOOM) runs no rope, and every attention call
-    takes the model's slopes: K2, K8, K9, K3, and K14 in the single-position
+    An ALiBi or learned-position model (MPT, BLOOM; OPT, GPT-BigCode) runs
+    no rope, and an ALiBi model's every attention call takes its slopes:
+    K2, K8, K9, K3, and K14 in the single-position
     fallback (``layers.attention``, or the device-position call). Falcon's
     and BLOOM's per-row steps take K2, K8 and K9 at head_dim 64 (Falcon-7B's
     71 q heads over one kv head); their single-position step keeps K14.
@@ -756,7 +825,7 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     decode_paged = flash_decode_paged_plain if plain else flash_decode_paged
     prefill = flash_prefill_plain if plain else flash_prefill
     slopes = _slopes(cfg, dev)
-    rope = slopes is None
+    rope = cfg.pos_embed == "rope"      # ALiBi and learned positions run none
 
     # the int8-activation prefill (cfg.prefill_a8): K11 over a layer's
     # int8 cache (``<name>_w8``), else K10; decode stays W4A16
@@ -806,6 +875,11 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     fallback = (s == 1 and single and not q8 and tables is None
                 and not flash_decode_supported(nq, nkv, hd, cache.dtype))
     quantize_first = q8 and single and slopes is not None
+    # decode_step's device position: K2 and K9 split by the length they read
+    # (K14 does so for its device length), so that a captured step gives the
+    # bits of the step planned for that length on the host
+    by_length = {"by_length": True} if one_position and lengths is not None and not plain \
+        else {}
 
     def at(name, idx):
         t = layers.get(name)
@@ -851,12 +925,12 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                 if quantize_first:
                     ka, va = (dequantize_kv(*quantize_kv(x), dt) for x in (k1, v1))
                 attn = decode8(q1, ka, va, kv, kv_s, row_lengths, max_length=max_length,
-                               slopes=slopes)
+                               slopes=slopes, **by_length)
             else:
                 k1, v1 = k[:, 0].to(kv.dtype).contiguous(), v[:, 0].to(kv.dtype).contiguous()
                 if tables is None:
                     attn = decode(q1, k1, v1, kv, row_lengths, max_length=max_length,
-                                  slopes=slopes)
+                                  slopes=slopes, **by_length)
                 else:
                     attn = decode_paged(q1, k1, v1, cache, tables, idx, row_lengths,
                                         max_length=max_length, slopes=slopes)
@@ -933,12 +1007,12 @@ def decode_step(
     :func:`~awq_tpu_torch.ops.megakernel.megakernel_supported`) splits its
     attention by the position it reads, so its step gives the bits of
     :func:`forward`'s at that position; ``max_length`` sizes its workspace.
-    The stacked path, K2 (K9 over an int8 cache) with one K7 append, or K14
-    where K2 cannot take the heads (falcon), plans its attention splits for
-    ``max_length``: two of its steps with one ``max_length`` sum in the same
-    order whatever ``pos`` holds, and in another than :func:`forward`'s,
-    which plans for the length. ``impl`` as in :func:`forward`; the plain
-    versions read ``pos`` on the host."""
+    So do the stacked path's attention kernels, K2 (K9 over an int8 cache)
+    with one K7 append, or K14 where K2 cannot take the heads (falcon,
+    StarCoder, BLOOM): their grids are planned for ``max_length`` and each
+    splits by the length it reads, as :func:`forward` plans that length on
+    the host. ``impl`` as in :func:`forward`; the plain versions read
+    ``pos`` on the host."""
     _check_supported(cfg)
     _check_cache(cache)
     if impl not in ("auto", "plain"):
@@ -953,7 +1027,7 @@ def decode_step(
         raise ValueError(f"pos must be one int32 on {dev}, got {pos.dtype} "
                          f"{tuple(pos.shape)} on {pos.device}")
     plain = impl == "plain"
-    h = _embed_ln(cfg, params, params["embed"][tokens.to(dev)].to(_dtype(cfg)))   # [B, H]
+    h = _embed(params, cfg, tokens.to(dev), pos)   # [B, H]
     if decode_step_on_k4(params, cfg, cache, b):
         la = params["layers"]
         shape = mk.model_shape(cfg)
@@ -1035,9 +1109,8 @@ def decode_step_batched(
         raise ValueError(f"{b} tokens need a cache of {b} slots and lengths "
                          f"[{b}], got {tuple(data.shape)} and {tuple(lengths.shape)}")
     lengths = lengths.to(device=dev, dtype=torch.int32)
-    dt = _dtype(cfg)
     layers = params["layers"]
-    h = _embed_ln(cfg, params, params["embed"][tokens.to(dev)].to(dt))   # [B, H]
+    h = _embed(params, cfg, tokens.to(dev), lengths)   # [B, H]
     if mkb.megakernel_batched_supported(cfg, layers, cache, b):
         fn = (mkb.w4a16_llama_token_step_batched_plain if impl == "plain"
               else mkb.w4a16_llama_token_step_batched)
@@ -1101,9 +1174,8 @@ def decode_step_paged(
                          f"{tuple(tables.shape)} and {tuple(lengths.shape)}")
     lengths = lengths.to(device=dev, dtype=torch.int32)
     tables = tables.to(device=dev, dtype=torch.int32)
-    dt = _dtype(cfg)
     layers = params["layers"]
-    h = _embed_ln(cfg, params, params["embed"][tokens.to(dev)].to(dt))   # [B, H]
+    h = _embed(params, cfg, tokens.to(dev), lengths)   # [B, H]
     if mkb.megakernel_paged_supported(cfg, layers, pool, b):
         fn = (mkb.w4a16_llama_token_step_batched_plain if impl == "plain"
               else mkb.w4a16_llama_token_step_batched)

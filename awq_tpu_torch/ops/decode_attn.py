@@ -327,19 +327,26 @@ def _check_decode_group(what: str, nq: int, nkv: int, alibi: bool) -> None:
             "ROADMAP queue A, item 12)")
 
 
-def _decode_unit(sptr: int, hd: int, g: int, entry: str):
+def _decode_unit(sptr: int, hd: int, g: int, entry: str, by_length: bool = False):
     """``(library, entry name, head_dim argument, slopes argument, counter
     suffix)`` of a K2, K8 or K9 launch: the unit ``decode_attn_alibi`` with
     slopes; without them ``decode_attn`` at its shapes (head_dim 128, at most
     32 q heads a kv head; its entries take no head_dim), else
-    ``decode_attn_wide``."""
+    ``decode_attn_wide``. ``by_length``: the entry ``<name>_dev``, which
+    splits by the lengths it reads (K2 and K9; the wide unit has K9's)."""
     from awq_tpu_torch import _build
 
+    dev = "_dev" if by_length else ""
     if sptr:
-        return _build.load("decode_attn_alibi"), entry + "_alibi", (hd,), (sptr,), "_alibi"
+        return (_build.load("decode_attn_alibi"), entry + "_alibi" + dev, (hd,), (sptr,),
+                "_alibi")
     if hd == HEAD_DIM and g <= NARROW_GROUP:
-        return _build.load("decode_attn"), entry, (), (), ""
-    return _build.load("decode_attn_wide"), entry + "_wide", (hd,), (), "_wide"
+        return _build.load("decode_attn"), entry + dev, (), (), ""
+    if by_length and entry == "awq_flash_decode":
+        raise NotImplementedError(
+            f"flash_decode split by the length it reads at head_dim {hd} and {g} q heads a kv "
+            "head: the single-position step takes K14 at these shapes (flash_decode_supported)")
+    return _build.load("decode_attn_wide"), entry + "_wide" + dev, (hd,), (), "_wide"
 
 
 def _slopes_ptr(what: str, slopes: Optional[torch.Tensor], nq: int, dev) -> int:
@@ -398,6 +405,9 @@ class DecodePlan:
     per: int
     stages: int
     cur: bool = True
+    want: int = 1             # the slices aimed at (decode_split)
+    unit: int = DECODE_TILE   # what ``per`` is a multiple of
+    by_length: bool = False   # the kernel splits by the length it reads
 
     @property
     def g(self) -> int:
@@ -452,19 +462,31 @@ class DecodePlan:
 
     def slice(self, rank: int, length: int) -> tuple:
         """Positions ``[lo, hi)`` that block ``rank`` reads of a row of
-        ``length`` cached positions (empty past the row's end)."""
-        lo = rank * self.per
-        return lo, max(lo, min(length, lo + self.per))
+        ``length`` cached positions (empty past the row's end); with
+        ``by_length`` the slices of that length's split."""
+        per = decode_split(length, self.want, self.unit)[0] if self.by_length else self.per
+        lo = rank * per
+        return lo, max(lo, min(length, lo + per))
 
     def describe(self) -> str:
         return (f"cluster {self.cluster}, {self.per} positions a block, {self.stages} stages, "
                 f"{self.threads} threads, {self.smem} B shared")
 
 
+def decode_split(length: int, want: int, unit: int) -> tuple:
+    """``(per, n)``: a row of ``length`` positions in ``n`` slices of ``per``
+    positions, ``per`` a multiple of ``unit``, about ``want`` slices and at
+    least one (``csrc/decode_attn.cu::dec_split``, which the kernels run
+    when they split by the length they read)."""
+    per = max(unit, _round_up(-(-length // want), unit))
+    return per, max(1, -(-length // per))
+
+
 @functools.lru_cache(maxsize=512)
 def decode_plan(b: int, nq: int, nkv: int, hd: int, max_length: int, esize: int,
                 unit: int = DECODE_TILE, page: int = 0, sms: int = H100_SMS,
-                max_cluster: int = MAX_CLUSTER, cur: bool = True) -> DecodePlan:
+                max_cluster: int = MAX_CLUSTER, cur: bool = True,
+                by_length: bool = False) -> DecodePlan:
     """The split flash decode's host plan (see :class:`DecodePlan`) for
     ``b`` rows of ``nq`` query heads over ``nkv`` kv heads at head_dim
     ``hd``, rows at most ``max_length`` long, a cache of ``esize``-byte
@@ -479,13 +501,22 @@ def decode_plan(b: int, nq: int, nkv: int, hd: int, max_length: int, esize: int,
     two when the cluster is above 8: a 16-block cluster whose blocks take
     an SM each waits for a GPC with 16 free SMs (on the H100, clusters of
     16 at 140 KB a block ran 1.5x slower than at 107 KB,
-    ``scripts/exp_decode_plan.py``)."""
+    ``scripts/exp_decode_plan.py``).
+
+    ``by_length``: the plan of a launch that reads its rows' lengths on the
+    device and splits each by :func:`decode_split` (a decode step captured
+    once and replayed at every length up to ``max_length``): the cluster
+    holds the most slices of any such length, ``min(want, ceil(max_length /
+    unit))``, and the ring and shared memory are planned for ``max_length``.
+    A replay then gives the bits of the launch planned for its length."""
     unit = math.lcm(DECODE_TILE, unit, page or 1)
     want = max(1, min(max_cluster, sms // (b * nkv)))
-    per = max(unit, _round_up(-(-max_length // want), unit))
-    cluster = max(1, -(-max_length // per))
+    per, cluster = decode_split(max_length, want, unit)
+    if by_length:
+        cluster = max(1, min(want, -(-max_length // unit)))
     plan = DecodePlan(b=b, nq=nq, nkv=nkv, hd=hd, max_length=max_length, esize=esize,
-                      page=page, cluster=cluster, per=per, stages=2, cur=cur)
+                      page=page, cluster=cluster, per=per, stages=2, cur=cur, want=want,
+                      unit=unit, by_length=by_length)
     per_sm = max(-(-plan.blocks // sms), 2 if cluster > 8 else 1)
     most = max(2, min(4, -(-min(per, max_length) // DECODE_TILE) + 1))
     for stages in range(most, 1, -1):
@@ -505,16 +536,31 @@ def _plan_args(plan: DecodePlan) -> tuple:
     return plan.cluster, plan.per, plan.stages, plan.smem
 
 
+def _split_args(plan: DecodePlan) -> tuple:
+    """The ``*_dev`` entries' ``want``, ``unit`` and bound of a ``by_length``
+    plan; nothing for a host plan."""
+    return (plan.want, plan.unit, plan.max_length) if plan.by_length else ()
+
+
 def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                  cache: torch.Tensor, lengths: torch.Tensor,
                  max_length: Optional[int] = None,
-                 slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 slopes: Optional[torch.Tensor] = None,
+                 by_length: bool = False) -> torch.Tensor:
     """K2 wrapper. ``q [B, nq, hd]``, ``k_new``/``v_new [B, nkv, hd]`` (the
     current token, post-rope), ``cache [2, B, nkv, T, hd]`` (one layer),
     ``lengths [B]`` int32 cache-prefix lengths. ``max_length`` (at least
     ``lengths.max()``) sizes the split-K grid without a device sync.
     ``slopes``: ALiBi slopes f32 ``[nq]`` or None. head_dim 64 or 128, up
-    to 128 q heads a kv head (32 with slopes). Returns ``[B, nq, hd]``."""
+    to 128 q heads a kv head (32 with slopes). Returns ``[B, nq, hd]``.
+
+    ``by_length`` (``max_length`` given; rows that share one length, as a
+    single-position step's): the kernel splits each row by the length it
+    reads, as :func:`decode_plan` plans that length, clamped to
+    ``max_length``, the bound the grid is planned for. A captured step
+    replayed at any length then gives the bits of the launch planned for
+    that length on the host. Head_dim 128 and at most 32 q heads a kv
+    head (:func:`flash_decode_supported`), or ALiBi slopes."""
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_new, v_new, cache, lengths, max_length, slopes)
     what = "flash_decode"
@@ -534,24 +580,27 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,)
            and lengths.device == q.device and lengths.is_contiguous(), what,
            f"lengths must be int32 [{b}] on {q.device}")
+    _check(max_length is not None or not by_length, what, "by_length needs max_length")
     if max_length is None:
         max_length = int(lengths.max())
     _check(0 <= max_length <= t, what, f"max_length {max_length} not in [0, {t}]")
     sptr = _slopes_ptr(what, slopes, nq, q.device)
     plan = decode_plan(b, nq, nkv, hd, max_length, cache.element_size(), PLAN_UNIT[what],
-                       sms=_sm_count(q.device))
+                       sms=_sm_count(q.device), by_length=by_length)
     out = torch.empty_like(q)
 
     from awq_tpu_torch import _build
 
-    lib, entry, hd_arg, tail, tag = _decode_unit(sptr, hd, nq // nkv, "awq_flash_decode")
+    lib, entry, hd_arg, tail, tag = _decode_unit(sptr, hd, nq // nkv, "awq_flash_decode",
+                                                 by_length)
     fn = getattr(lib, entry)
     _build.declare(fn, *([_build.P] * 6), *([_build.I] * (8 + len(hd_arg))), _build.F,
-                   *([_build.I] * 3), *([_build.P] * len(tail)), _build.P)
+                   *([_build.I] * (3 + 3 * by_length)), *([_build.P] * len(tail)), _build.P)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), b, nq, nkv, t, *hd_arg, *_plan_args(plan),
              1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_new.dtype],
-             _DTYPE_CODE[cache.dtype], *tail, torch.cuda.current_stream(q.device).cuda_stream)
+             _DTYPE_CODE[cache.dtype], *_split_args(plan), *tail,
+             torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         _build.check(lib, err, f"{what} ({plan.describe()})")
     LAUNCHES[what + tag] += 1
@@ -561,13 +610,15 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
 def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                       cache: torch.Tensor, scales: torch.Tensor, lengths: torch.Tensor,
                       max_length: Optional[int] = None,
-                      slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      slopes: Optional[torch.Tensor] = None,
+                      by_length: bool = False) -> torch.Tensor:
     """K9 wrapper. As :func:`flash_decode`, over one layer of an int8 cache:
     ``cache [2, B, nkv, T, hd]`` int8 codes and ``scales [2, B, nkv, T]``
     f32. ``k_new``/``v_new`` (in q's dtype) are the current token: in full
     precision where the caller's append quantizes it after the step, or
     already dequantized (``models/llama.py``'s ALiBi single-position step).
-    ``slopes``: ALiBi slopes f32 ``[nq]`` or None."""
+    ``slopes``: ALiBi slopes f32 ``[nq]`` or None. ``by_length`` as in
+    :func:`flash_decode`, at every shape K9 takes."""
     if q.device.type == "cpu":
         return flash_decode_int8_plain(q, k_new, v_new, cache, scales, lengths,
                                        max_length, slopes)
@@ -594,24 +645,26 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                for x in (q, k_new, v_new, cache, scales, lengths)), what,
            f"operands must be contiguous on {q.device}")
     _check(cache.data_ptr() % 16 == 0, what, "cache must be 16-byte aligned")
+    _check(max_length is not None or not by_length, what, "by_length needs max_length")
     if max_length is None:
         max_length = int(lengths.max())
     _check(0 <= max_length <= t, what, f"max_length {max_length} not in [0, {t}]")
     sptr = _slopes_ptr(what, slopes, nq, q.device)
     plan = decode_plan(b, nq, nkv, hd, max_length, 1, PLAN_UNIT[what],
-                       sms=_sm_count(q.device))
+                       sms=_sm_count(q.device), by_length=by_length)
     out = torch.empty_like(q)
 
     from awq_tpu_torch import _build
 
-    lib, entry, hd_arg, tail, tag = _decode_unit(sptr, hd, nq // nkv, "awq_flash_decode_int8")
+    lib, entry, hd_arg, tail, tag = _decode_unit(sptr, hd, nq // nkv, "awq_flash_decode_int8",
+                                                 by_length)
     fn = getattr(lib, entry)
     _build.declare(fn, *([_build.P] * 7), *([_build.I] * (8 + len(hd_arg))), _build.F,
-                   _build.I, *([_build.P] * len(tail)), _build.P)
+                   *([_build.I] * (1 + 3 * by_length)), *([_build.P] * len(tail)), _build.P)
     err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
              scales.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, nq, nkv, t, *hd_arg,
-             *_plan_args(plan), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], *tail,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             *_plan_args(plan), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], *_split_args(plan),
+             *tail, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         _build.check(lib, err, f"{what} ({plan.describe()})")
     LAUNCHES[what + tag] += 1
@@ -789,10 +842,12 @@ def flash_decode_layer(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
     token's included (it is already written). Returns ``[B, nq, hd]``.
 
     ``length`` may be an int32 tensor ``[1]`` on the device: the kernel
-    reads it there (a captured decode step replays at every length), and
-    ``max_length`` (at least the length, at most T) is the bound its split
-    is planned for. A host length with the same ``max_length`` gives the
-    same bits. ``slopes``: ALiBi slopes f32 ``[nq]`` or None."""
+    reads it there (a captured decode step replays at every length) and
+    splits by it as :func:`decode_plan` plans that length, and
+    ``max_length`` (at least the length, at most T) is the bound its grid
+    is planned for, to which it clamps the length. It gives the bits of
+    the host-length launch planned for that length (``max_length`` None).
+    ``slopes``: ALiBi slopes f32 ``[nq]`` or None."""
     dev_len = isinstance(length, torch.Tensor) and length.device.type != "cpu"
     if not dev_len:
         length = int(length)
@@ -828,18 +883,18 @@ def flash_decode_layer(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
             f"{what}: ALiBi slopes with {nq // nkv} q heads per kv head; the ALiBi unit takes "
             "at most 32 (the ALiBi families are MHA; wider groups are ROADMAP queue A, item 12)")
     plan = decode_plan(b, nq, nkv, hd, bound, k_cache.element_size(), PLAN_UNIT[what],
-                       sms=_sm_count(q.device), cur=False)
+                       sms=_sm_count(q.device), cur=False, by_length=dev_len)
     out = torch.empty_like(q)
 
     from awq_tpu_torch import _build
 
     lib, entry, tail = _unit(sptr, "awq_flash_decode_layer")
-    fn = getattr(lib, entry)
+    fn = getattr(lib, entry + ("_dev" if dev_len else ""))
     _build.declare(fn, *([_build.P] * 5), *([_build.I] * 10), _build.F, _build.I, _build.I,
-                   *([_build.P] * len(tail)), _build.P)
+                   *([_build.I] * (2 * dev_len)), *([_build.P] * len(tail)), _build.P)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), lptr, b,
              nq, nkv, t, n_len, hd, *_plan_args(plan), 1.0 / math.sqrt(hd),
-             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], *tail,
+             _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], *_split_args(plan)[:2], *tail,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         _build.check(lib, err, f"{what} ({plan.describe()})")

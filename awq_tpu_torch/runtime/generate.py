@@ -24,7 +24,9 @@ stop and repetition-penalty (``seen``) logic:
 The JAX ``generate`` ran each burst on a power-of-two prefix of the cache
 (``cache_bucket``); the port's kernels read only the valid prefix, and the
 bucket (:func:`plan_bound`) bounds a burst's positions: the stacked path's
-attention kernels plan their splits for it, K4 sizes its workspace by it.
+attention kernels plan their grids for it and split by the length they
+read, K4 sizes its workspace by it, so a replay gives the bits of the
+``forward`` step at its position.
 
 :class:`StreamGenerator` (JAX's, one decode step a token) yields the ids
 every ``stream_interval`` tokens; it steps the engine's :class:`DecodeLoop`

@@ -73,7 +73,17 @@ Phases (each failure ends the run with a non-zero exit):
    rows, K8 and K9 with ALiBi slopes at MPT-7B's and BLOOM-560m's heads and
    K2 with slopes at BLOOM-560m's, on the same rows (K8 over pages of 256
    equal to K2 bit for bit; K9 beside K2 on the dequantized cache), and
-   K7's int8 mode at head_dim 64 (exact); yardstick SDPA.
+   K7's int8 mode at head_dim 64 (exact); yardstick SDPA. Last, phase
+   3l's attention: at StarCoder's heads (48 q heads over ONE kv head at
+   head_dim 128) K14 at B 1 (lengths 1, 1000, 2047 in device memory, the
+   grid planned for the bucket), K2, K8 and K9 of the wide unit on the 8
+   ragged rows (K8 over pages of 256 equal to K2) and K3 (S 512 from 0 and
+   700); K2 at OPT-6.7B's heads (32 over 32 of 128) at length 1000 in device
+   memory; and the repair of the served step: K2 and K9 at Llama-3-8B's and
+   OPT-6.7B's heads and K14 at Falcon-7B's and StarCoder's with their
+   lengths in device memory and grids planned for the bucket, each
+   bit-equal to the host launch planned for its length at 1, 255, 1000 and
+   2047, both timed.
 3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
    new tokens each, the second continuing the first's dialogue, then a
    24-token follow-up continuing the third's) through ``InferenceEngine``
@@ -87,9 +97,9 @@ Phases (each failure ends the run with a non-zero exit):
    must run in the first, K1-K3 in the second, both by the wrappers'
    counts and by the trace's. The requests run again unprofiled (TTFT,
    ms/token) and with the engine's loop taken away (one ``forward`` call a
-   token at a host position): on K4 its ids must equal the graph's bit for
-   bit; on the stacked path, whose attention plans for the burst's bucket
-   on the graph, the share that is equal is printed. Then the host's time
+   token at a host position): its ids must equal the graph's bit for bit
+   on both paths (K4 and the stacked attention kernels split by the length
+   they read under the graph). Then the host's time
    to queue a replay, a profile of replays (kernels, idle share) and the
    graphs' count, capture time and pool.
 3i. Phase 3's model through the port's ``save_checkpoint`` and
@@ -181,6 +191,16 @@ Phases (each failure ends the run with a non-zero exit):
    kv head (falcon) or with ALiBi slopes (MPT), one K7 append; no K14, K6
    or K4 (by the counters and the device trace). Prints what phase 3b
    prints, peak memory and the split decode's instances a step.
+3l. OPT-6.7B, StarCoder and Pythia-6.9B at their published widths and
+   depths (32, 40 and 32 layers; facebook/opt-6.7b, bigcode/starcoder,
+   EleutherAI/pythia-6.9b), random W4-g128 zero-mean weights from seed 0,
+   the head quantized: phase 3's four requests through ``InferenceEngine``
+   under the graph (K2, or K14 at StarCoder's 48-over-1 group, split by
+   the length read; the forward loop's ids equal the graph's), then phase
+   3b's twelve through an 8-slot ``BatchEngine`` over a bf16 cache at the
+   models' first 8 layers (StarCoder also over an int8 cache and through a
+   ``PagedBatchEngine``, ids equal to the slot engine's). No K4, K5 or K6.
+   Prints what phases 3 and 3b print.
 4. At the same widths and 2 layers, feed the same tokens through
    ``forward`` on the kernel path and on the plain path and compare
    logits: a 100-token prefill and 8 decodes on the stacked path, a
@@ -203,7 +223,10 @@ Phases (each failure ends the run with a non-zero exit):
    the same three families' per-row steps: one ``decode_step_batched`` of
    8 ragged rows over a bf16 and an int8 cache and one ``decode_step_paged``
    over pages of 256, each within 5e-2 of the largest logit, its mode of K2,
-   K9 or K8 once a layer, no K14.
+   K9 or K8 once a layer, no K14. Then phase 3l's three families at 2
+   layers: a 100-token prefill and 8 decodes through ``forward`` and one
+   batched step of 8 ragged rows (StarCoder's also over an int8 cache and
+   a page pool), within 5e-2 of the largest logit.
 5. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, where CUDA is not available or the
@@ -256,6 +279,29 @@ BLOOM_560M = dict(arch="bloom", vocab_size=250880, hidden_size=1024, intermediat
                   max_position_embeddings=2048, norm="layernorm", act="gelu_tanh",
                   pos_embed="alibi", attn_bias=True, mlp_bias=True, embed_ln=True,
                   tie_word_embeddings=True, dtype="bfloat16")
+# The families of phase 3l at their published widths (their config.json),
+# served on the stacked path: OPT-6.7B (facebook/opt-6.7b: hidden 4096,
+# ffn 16384, 32 layers of 32 heads of 128, vocab 50272, 2048 positions from
+# row 2, ReLU, LayerNorms and linears with bias, the tied head); StarCoder
+# (bigcode/starcoder: n_embd 6144, n_inner 24576, 40 layers, 48 heads over
+# ONE kv head (multi_query), vocab 49152, 8192 positions, the tanh GELU, the
+# tied head); Pythia-6.9B (EleutherAI/pythia-6.9b: hidden 4096, 16384, 32
+# layers of 32 heads of 128, vocab 50432, rope over a quarter of the head
+# (rotary_pct 0.25), the parallel block with two norms, the untied head)
+_LN_BIASED = dict(norm="layernorm", attn_bias=True, mlp_bias=True, dtype="bfloat16")
+OPT_6_7B = dict(arch="opt", vocab_size=50272, hidden_size=4096, intermediate_size=16384,
+                num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128,
+                max_position_embeddings=2048, act="relu", pos_embed="learned",
+                tie_word_embeddings=True, **_LN_BIASED)
+STARCODER = dict(arch="bigcode", vocab_size=49152, hidden_size=6144, intermediate_size=24576,
+                 num_layers=40, num_heads=48, num_kv_heads=1, head_dim=128,
+                 max_position_embeddings=8192, act="gelu_tanh", pos_embed="learned",
+                 tie_word_embeddings=True, **_LN_BIASED)
+PYTHIA_6_9B = dict(arch="neox", vocab_size=50432, hidden_size=4096, intermediate_size=16384,
+                   num_layers=32, num_heads=32, num_kv_heads=32, head_dim=128,
+                   max_position_embeddings=2048, act="gelu", pos_embed="rope",
+                   rotary_pct=0.25, parallel_block=True, **_LN_BIASED)
+NEW_FAMILIES = {"opt": OPT_6_7B, "starcoder": STARCODER, "pythia": PYTHIA_6_9B}
 
 
 def log(msg: str) -> None:
@@ -1115,8 +1161,9 @@ def phase_layer_attention(torch, timer, cases_out):
     """Phase 2, the single-layer attention of the falcon path: K14
     (``flash_decode_layer``) at Falcon-7B's shape (B 1, one kv head, 71 q
     heads, head_dim 64, bf16; lengths 1, 1000 and 2047, read from device
-    memory as the served step reads them, the split planned for the
-    length's bucket) and at Llama-3-8B's
+    memory as the served step reads them, the grid planned for the
+    length's bucket and split by the length read, bit-equal to the launch
+    planned for the length on the host) and at Llama-3-8B's
     (B 1 and 8, 8 kv heads, 4 q heads each, head_dim 128; lengths 1000 and
     4000), and K3 at head_dim 64 at Falcon-7B's shape (S 512 from 0 and
     from 700, S 1000 from 0), each against its plain version; the library
@@ -1154,19 +1201,21 @@ def phase_layer_attention(torch, timer, cases_out):
             n_att, bound_at, where = length, length, ""
             if nkv == 1:
                 # falcon's served step: the length in device memory, the
-                # split planned for the burst's bucket; bit-equal to a host
-                # length with the same bound
+                # grid planned for the burst's bucket, the split by the
+                # length read; bit-equal to the host launch planned for
+                # the length (forward's)
                 bound_at = cache_bucket(t, length)
                 n_att = torch.tensor([length], dtype=torch.int32, device="cuda")
                 where = f" (device length, bound {bound_at})"
                 same = torch.equal(da.flash_decode_layer(q, kv[0], kv[1], n_att, bound_at),
-                                   da.flash_decode_layer(q, kv[0], kv[1], length, bound_at))
+                                   da.flash_decode_layer(q, kv[0], kv[1], length))
                 if not same:
                     raise AssertionError(f"flash_decode_layer len={length}: the device-length "
-                                         "launch differs from the host-length one")
-                log(f"  flash_decode_layer len={length}: the device-length launch is bit-equal "
-                    f"to the host-length one with the same bound; planned for the length "
-                    f"{timer(lambda: da.flash_decode_layer(q, kv[0], kv[1], length)):.4f} ms")
+                                         "launch differs from the host launch planned for "
+                                         "its length")
+                log(f"  flash_decode_layer len={length}: the device-length launch (bound "
+                    f"{bound_at}) is bit-equal to the host launch planned for the length; that "
+                    f"one {timer(lambda: da.flash_decode_layer(q, kv[0], kv[1], length)):.4f} ms")
             add("flash_decode_layer", f"len={length} B={b} nq={nq} nkv={nkv} hd={hd}{where}",
                 lambda: da.flash_decode_layer(q, kv[0], kv[1], n_att, bound_at),
                 lambda: da.flash_decode_layer_plain(q, kv[0], kv[1], length),
@@ -1174,7 +1223,8 @@ def phase_layer_attention(torch, timer, cases_out):
                                                        enable_gqa=True),
                 (2 * b * nq * hd + 2 * b * nkv * length * hd) * 2,
                 4.0 * b * nq * length * hd, "F.scaled_dot_product_attention(enable_gqa=True)",
-                decode_plan_of("flash_decode_layer", b, nq, nkv, hd, bound_at, 2))
+                decode_plan_of("flash_decode_layer", b, nq, nkv, hd, bound_at, 2,
+                               by_length=nkv == 1))
             del k_l, v_l
         del kv
     nq, t = fal["num_heads"], 2048
@@ -1301,15 +1351,16 @@ def phase_alibi_attention(torch, timer, cases_out):
         sl_l = alibi_slopes(nq_l, device="cuda")
         kv, q = rnd(2, 1, nq_l, t, hd_l), rnd(1, nq_l, hd_l)
         for length in lengths:
-            # the served step's length in device memory, planned for its bucket
+            # the served step's length in device memory, the grid planned for
+            # its bucket: the bits of the host launch planned for the length
             bucket = cache_bucket(t, length)
             n_dev = torch.tensor([length], dtype=torch.int32, device="cuda")
             same = torch.equal(da.flash_decode_layer(q, kv[0], kv[1], n_dev, bucket, slopes=sl_l),
-                               da.flash_decode_layer(q, kv[0], kv[1], length, bucket,
-                                                     slopes=sl_l))
+                               da.flash_decode_layer(q, kv[0], kv[1], length, slopes=sl_l))
             if not same:
                 raise AssertionError(f"flash_decode_layer_alibi len={length}: the device-length "
-                                     "launch differs from the host-length one")
+                                     "launch differs from the host launch planned for its "
+                                     "length")
             k_l, v_l = kv[0, :, :, :length].contiguous(), kv[1, :, :, :length].contiguous()
             mask = alibi_bias(torch, sl_l, torch.tensor([length - 1], device="cuda"), length)
             add("flash_decode_layer_alibi",
@@ -1321,7 +1372,8 @@ def phase_alibi_attention(torch, timer, cases_out):
                                                        attn_mask=mask.to(torch.bfloat16)),
                 (2 * nq_l * hd_l + 2 * nq_l * length * hd_l) * 2 + nq_l * 4,
                 4.0 * nq_l * length * hd_l,
-                decode_plan_of("flash_decode_layer", 1, nq_l, nq_l, hd_l, bucket, 2),
+                decode_plan_of("flash_decode_layer", 1, nq_l, nq_l, hd_l, bucket, 2,
+                               by_length=True),
                 zero=(lambda: (da.flash_decode_layer(q, kv[0], kv[1], length,
                                                      slopes=torch.zeros_like(sl_l)),
                                da.flash_decode_layer(q, kv[0], kv[1], length)))
@@ -1489,6 +1541,187 @@ def phase_family_attention(torch, timer, cases_out):
     del codes, scales, c8, cache16
 
 
+def repair_pair(da, kern, q, kn, vn, cache, codes, scales, lens1, length, t):
+    """The host launch planned for ``length`` and the launch whose grid is
+    planned for the bucket ``t - 1`` (``t`` for K14, whose length counts the
+    current token) and which splits by the length it reads, of K2, K9 or
+    K14: two callables."""
+    if kern == "K2":
+        return (lambda: da.flash_decode(q, kn, vn, cache, lens1, max_length=length),
+                lambda: da.flash_decode(q, kn, vn, cache, lens1, max_length=t - 1,
+                                        by_length=True))
+    if kern == "K9":
+        return (lambda: da.flash_decode_int8(q, kn, vn, codes, scales, lens1,
+                                             max_length=length),
+                lambda: da.flash_decode_int8(q, kn, vn, codes, scales, lens1,
+                                             max_length=t - 1, by_length=True))
+    return (lambda: da.flash_decode_layer(q, cache[0], cache[1], length),
+            lambda: da.flash_decode_layer(q, cache[0], cache[1], lens1, t))
+
+def phase_new_family_attention(torch, timer, cases_out):
+    """Phase 2, the attention of phase 3l's families and the repair of the
+    device-length split. At StarCoder's heads (48 q heads over ONE kv head at
+    head_dim 128): K14 at B 1 over lengths 1, 1000 and 2047 read in device
+    memory, the grid planned for the length's bucket (the served step); K2,
+    K8 (pages of 256: K2's output bit for bit) and K9 in the unit
+    ``decode_attn_wide`` on K2's 8 ragged rows; K3 at S 512 from 0 and from
+    700. K2 at OPT-6.7B's and Pythia-6.9B's heads (32 q over 32 kv heads of
+    128) at B 1 and length 1000 read in device memory. Each against its
+    plain version at 2^-6 of the largest value, SDPA beside it. Then the
+    repair: K2 and K9 at Llama-3-8B's and OPT-6.7B's heads and K14 at
+    Falcon-7B's and StarCoder's, their lengths in device memory and their
+    grids planned for the bucket 2047 (or 2048), each bit-equal to the host
+    launch planned for its length at lengths 1, 255, 1000 and 2047; the two
+    launches' times are printed."""
+    import torch.nn.functional as F
+
+    from awq_tpu_torch.ops import cache_append as ca
+    from awq_tpu_torch.ops import decode_attn as da
+    from awq_tpu_torch.runtime.generate import cache_bucket
+
+    gen = torch.Generator(device="cuda").manual_seed(24680)
+    tol = 2.0 ** -6           # bf16 output rounding, sums in other orders
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def add(name, shape, fn, plain, lib, nbytes, flops, library, plan, extra=None):
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err, rel = check(f"{name} {shape}", got, ref, tol)
+        b_ms, b_by = bound(nbytes, flops)
+        cases_out.append(dict(
+            name=name, shape=shape, max_abs_err=err, max_rel_err=rel,
+            tol=f"{tol:g}*max|ref|", ms=timer(fn), plain_ms=timer(plain, reps=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=timer(lib), library=library,
+            **plan, **(extra or {})))
+        log_case(cases_out[-1])
+        return got
+
+    nq, nkv, hd, t = STARCODER["num_heads"], 1, 128, 2048
+    sc = f"StarCoder nq={nq} nkv={nkv} hd={hd}"
+    kv, q1 = rnd(2, 1, nkv, t, hd), rnd(1, nq, hd)
+    for length in (1, 1000, 2047):
+        bucket = cache_bucket(t, length)
+        n_dev = torch.tensor([length], dtype=torch.int32, device="cuda")
+        k_l, v_l = kv[0, :, :, :length].contiguous(), kv[1, :, :, :length].contiguous()
+        add("flash_decode_layer_starcoder", f"{sc} B=1 len={length} (device length, bound "
+            f"{bucket})",
+            lambda: da.flash_decode_layer(q1, kv[0], kv[1], n_dev, bucket),
+            lambda: da.flash_decode_layer_plain(q1, kv[0], kv[1], length),
+            lambda: F.scaled_dot_product_attention(q1[:, :, None], k_l, v_l, enable_gqa=True),
+            (2 * nq * hd + 2 * nkv * length * hd) * 2, 4.0 * nq * length * hd,
+            "F.scaled_dot_product_attention(enable_gqa=True)",
+            decode_plan_of("flash_decode_layer", 1, nq, nkv, hd, bucket, 2, by_length=True))
+        del k_l, v_l
+    b, mx = len(RAGGED), max(RAGGED)
+    lens = torch.tensor(RAGGED, dtype=torch.int32, device="cuda")
+    n_pos = sum(RAGGED)
+    cache = rnd(2, b, nkv, t, hd)
+    q, kn, vn = rnd(b, nq, hd), rnd(b, nkv, hd), rnd(b, nkv, hd)
+    k_all = torch.cat([cache[0, :, :, :mx], kn[:, :, None]], dim=2)
+    v_all = torch.cat([cache[1, :, :, :mx], vn[:, :, None]], dim=2)
+    mask = decode_mask(torch, lens, mx)
+
+    def sdpa(kk, vv):
+        return lambda: F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=mask,
+                                                      enable_gqa=True)
+
+    library = "F.scaled_dot_product_attention(attn_mask, enable_gqa=True)"
+    shape = f"{sc} B={b} ragged len 0..{mx}"
+    kv_bytes = (2 * b * nq * hd + 2 * b * nkv * hd + 2 * nkv * hd * n_pos) * 2
+    flops = 4.0 * nq * hd * (n_pos + b)
+    k2 = add("flash_decode_wide_starcoder", shape,
+             lambda: da.flash_decode(q, kn, vn, cache, lens, max_length=mx),
+             lambda: da.flash_decode_plain(q, kn, vn, cache, lens, max_length=mx),
+             sdpa(k_all, v_all), kv_bytes, flops, library,
+             decode_plan_of("flash_decode", b, nq, nkv, hd, mx, 2))
+    pool, tables = scatter_pages(torch, cache[None], t // PAGE, PAGE, gen,
+                                 need=[-(-(n + 1) // PAGE) for n in RAGGED])
+    k8 = add("flash_decode_paged_wide_starcoder", shape + f" page {PAGE}",
+             lambda: da.flash_decode_paged(q, kn, vn, pool, tables, 0, lens, max_length=mx),
+             lambda: da.flash_decode_paged_plain(q, kn, vn, pool, tables, 0, lens,
+                                                 max_length=mx),
+             sdpa(k_all, v_all), kv_bytes + sum(-(-n // PAGE) for n in RAGGED) * 4, flops,
+             library, decode_plan_of("flash_decode_paged", b, nq, nkv, hd, mx, 2, PAGE))
+    if not torch.equal(k8, k2):
+        raise AssertionError(f"flash_decode_paged_wide {sc}: pages of {PAGE} do not give "
+                             "K2's output bit for bit")
+    log(f"  flash_decode_paged_wide {sc}: pages of {PAGE} give K2's output bit for bit")
+    del pool, tables
+    codes, scales = ca.quantize_kv(cache.float())
+    deq = ca.dequantize_kv(codes, scales, torch.bfloat16)
+    kq_all = torch.cat([deq[0, :, :, :mx], kn[:, :, None]], dim=2)
+    vq_all = torch.cat([deq[1, :, :, :mx], vn[:, :, None]], dim=2)
+    k2_ms = timer(lambda: da.flash_decode(q, kn, vn, deq, lens, max_length=mx))
+    add("flash_decode_int8_wide_starcoder", shape,
+        lambda: da.flash_decode_int8(q, kn, vn, codes, scales, lens, max_length=mx),
+        lambda: da.flash_decode_int8_plain(q, kn, vn, codes, scales, lens, max_length=mx),
+        sdpa(kq_all, vq_all), (2 * b * nq * hd + 2 * b * nkv * hd) * 2
+        + 2 * nkv * n_pos * (hd + 4), flops, library + " on the dequantized bf16 view",
+        decode_plan_of("flash_decode_int8", b, nq, nkv, hd, mx, 1),
+        dict(yardstick_ms=k2_ms, yardstick="K2 on the dequantized bf16 cache"))
+    del cache, codes, scales, deq, k_all, v_all, kq_all, vq_all
+    for s_, start in ((512, 0), (512, 700)):
+        cache, qp = rnd(2, 1, nkv, t, hd), rnd(1, s_, nq, hd)
+        end = start + s_
+        k_e, v_e = cache[0, :, :, :end].contiguous(), cache[1, :, :, :end].contiguous()
+        qt = qp.transpose(1, 2).contiguous()
+        causal = (torch.arange(end, device="cuda")[None, :]
+                  <= (start + torch.arange(s_, device="cuda"))[:, None])
+        pairs = s_ * start + s_ * (s_ + 1) // 2
+        add("flash_prefill_starcoder", f"S={s_} start={start} {sc}",
+            lambda: da.flash_prefill(qp, cache, start),
+            lambda: da.flash_prefill_plain(qp, cache, start),
+            lambda: F.scaled_dot_product_attention(qt, k_e, v_e, attn_mask=causal,
+                                                   enable_gqa=True),
+            (2 * s_ * nq * hd + 2 * end * nkv * hd) * 2, 4.0 * nq * hd * pairs,
+            "F.scaled_dot_product_attention(attn_mask, enable_gqa=True)", {})
+        del cache, k_e, v_e
+
+    # K2 at OPT-6.7B's and Pythia-6.9B's heads, their served step: B 1, the
+    # length in device memory, the grid planned for the bucket
+    nq, nkv, length = OPT_6_7B["num_heads"], OPT_6_7B["num_kv_heads"], 1000
+    bucket = cache_bucket(t, length + 1) - 1
+    cache, q, kn, vn = rnd(2, 1, nkv, t, hd), rnd(1, nq, hd), rnd(1, nkv, hd), rnd(1, nkv, hd)
+    lens1 = torch.tensor([length], dtype=torch.int32, device="cuda")
+    k_all = torch.cat([cache[0, :, :, :length], kn[:, :, None]], dim=2)
+    v_all = torch.cat([cache[1, :, :, :length], vn[:, :, None]], dim=2)
+    add("flash_decode_opt", f"OPT-6.7B nq={nq} nkv={nkv} hd={hd} B=1 len={length} (device "
+        f"length, bound {bucket})",
+        lambda: da.flash_decode(q, kn, vn, cache, lens1, max_length=bucket, by_length=True),
+        lambda: da.flash_decode_plain(q, kn, vn, cache, lens1, max_length=length),
+        lambda: F.scaled_dot_product_attention(q[:, :, None], k_all, v_all),
+        (2 * nq * hd + 2 * nkv * hd + 2 * nkv * length * hd) * 2,
+        4.0 * nq * hd * (length + 1), "F.scaled_dot_product_attention",
+        decode_plan_of("flash_decode", 1, nq, nkv, hd, bucket, 2, by_length=True))
+    del cache, k_all, v_all
+
+    # the repair: a launch planned for the bucket that splits by the length
+    # it reads, bit-equal to the launch planned on the host for the length
+    for kern, nq, nkv, hd in (("K2", 32, 8, 128), ("K2", 32, 32, 128), ("K9", 32, 8, 128),
+                              ("K9", 32, 32, 128), ("K14", FALCON_7B["num_heads"], 1, 64),
+                              ("K14", STARCODER["num_heads"], 1, 128)):
+        cache, q, kn, vn = rnd(2, 1, nkv, t, hd), rnd(1, nq, hd), rnd(1, nkv, hd), rnd(1, nkv, hd)
+        codes, scales = ca.quantize_kv(cache.float()) if kern == "K9" else (None, None)
+        times = []
+        for length in (1, 255, 1000, 2047):
+            lens1 = torch.tensor([length], dtype=torch.int32, device="cuda")
+            host, dev = repair_pair(da, kern, q, kn, vn, cache, codes, scales, lens1, length, t)
+            a, d = host(), dev()
+            torch.cuda.synchronize()
+            if not torch.equal(a, d):
+                raise AssertionError(f"{kern} nq={nq} nkv={nkv} hd={hd} len={length}: the "
+                                     "launch split by the length it reads differs from the "
+                                     "host launch planned for the length")
+            times.append(f"{length}: {timer(host):.4f} / {timer(dev):.4f}")
+        log(f"  {kern} nq={nq} nkv={nkv} hd={hd}: the device-length launch planned for the "
+            f"bucket {t if kern == 'K14' else t - 1} is bit-equal to the host launch planned "
+            "for the length at lengths 1, 255, 1000, 2047; ms host / device by length: "
+            + ", ".join(times))
+        del cache, codes, scales
+
+
 def zero_mean(params, w_bit: int):
     """``init_qparams``' random layers with their zero points at the codes'
     mean, (2^w_bit - 1) / 2, so that the weights have zero mean, as a trained
@@ -1645,17 +1878,19 @@ def plan_of(entry, m, ic, oc, g=128, dtype=None):
                     f"{p.blocks} blocks"}
 
 
-def decode_plan_of(name, b, nq, nkv, hd, max_length, esize, page=0):
+def decode_plan_of(name, b, nq, nkv, hd, max_length, esize, page=0, by_length=False):
     """The host plan of a split flash-decode case (K2, K8, K9, K14), as its
-    wrapper makes it: cluster, positions a block, stages, for the case line."""
+    wrapper makes it: cluster, positions a block, stages, for the case line
+    (``by_length``: the grid of a launch that splits by the length it reads,
+    planned for the bound ``max_length``)."""
     import torch
 
     from awq_tpu_torch.ops import decode_attn as da
 
     p = da.decode_plan(b, nq, nkv, hd, max_length, esize, da.PLAN_UNIT[name], page,
                        sms=torch.cuda.get_device_properties(0).multi_processor_count,
-                       cur=name != "flash_decode_layer")
-    return {"plan": p.describe()}
+                       cur=name != "flash_decode_layer", by_length=by_length)
+    return {"plan": p.describe() + (", split by the length read" if by_length else "")}
 
 
 def log_case(c):
@@ -2293,6 +2528,18 @@ SERVE_PATHS = {
                           "flash_prefill_alibi"),
                     ("megakernel_token_mpt", "megakernel_token", "megakernel_chunk",
                      "flash_decode", "flash_prefill", "flash_decode_layer_alibi")),
+    # phase 3l: OPT-6.7B and Pythia-6.9B decode on K2 (MHA, head_dim 128),
+    # StarCoder on K14 (48 q heads over one kv head, wider than K2's
+    # decode_attn unit), each split by the length it reads under the graph;
+    # every prompt on K1's GEMM and K3; no megakernel (JAX's gates refuse
+    # the three)
+    **{fam: (None, ("w4a16_gemv", "w4a16_gemm", dec, "flash_prefill"),
+             ("megakernel_token", "megakernel_token_mpt", "megakernel_chunk",
+              "megakernel_batched", off, "flash_decode_int8", "flash_decode_alibi",
+              "flash_prefill_alibi"))
+       for fam, dec, off in (("opt", "flash_decode", "flash_decode_layer"),
+                             ("starcoder", "flash_decode_layer", "flash_decode"),
+                             ("pythia", "flash_decode", "flash_decode_layer"))},
     # BLOOM-560m (phase 4): the stacked path, decode on K14 with slopes (the
     # single-position step keeps K14 at head_dim 64; the per-row steps take
     # K2, K8 and K9), prompts on K1's GEMM and K3 with slopes
@@ -2390,10 +2637,10 @@ def serve_single(torch, engine, cfg, labels):
        the ids equal to the first run's;
     3. with the engine's loop taken away: the forward loop (a ``forward``
        call a token at a host position, the decode of the engine before the
-       graphs). On K4, which splits its attention by the position it reads,
-       its ids must equal the graph's bit for bit; on the stacked path, whose
-       attention kernels plan for the burst's bucket on the graph and for
-       the length in the forward loop, how many are equal is printed.
+       graphs). Its ids must equal the graph's bit for bit on every path: K4
+       splits its attention by the position it reads, and so do the stacked
+       path's K2, K9 and K14 (their grids planned for the burst's bucket),
+       as the forward loop plans each length on the host.
 
     Then the host's time to queue a replay, a profile of replayed steps and
     the graphs' count, capture time and pool. Returns {label: launches},
@@ -2470,15 +2717,12 @@ def serve_single(torch, engine, cfg, labels):
                 + " / ".join(f"{tm['ms_per_token']:.3f}" for tm in ftms)
                 + " (the forward loop: done read after every step)")
             if fwd == ids_all:
-                log(f"  [{label}] the graph's greedy ids equal the forward loop's, bit for bit")
-            elif on_k4:
+                log(f"  [{label}] the graph's greedy ids equal the forward loop's for all "
+                    f"{len(fwd)} requests, bit for bit ({'K4' if on_k4 else 'the stacked path'})")
+            else:
                 compare_ids(f"{label} forward", fwd, ids_all, "the graph's")
                 raise AssertionError(f"[{label}] the graph's ids differ from the forward "
-                                     "loop's on K4")
-            else:
-                compare_ids(f"{label} forward", fwd, ids_all, "the graph's (the stacked "
-                            "attention plans for the bucket on the graph, for the length "
-                            "in the forward loop)")
+                                     "loop's")
             per_step = profile_replays(torch, engine, cfg, label, ms_graph, calls)
             # a kernel that no graph holds launches where its wrapper is
             # called: its calls are its launches, and the trace's count of
@@ -3269,8 +3513,9 @@ def drive(torch, engine, prompts, label, cfg):
 
 
 def check_path(label, launches, must, off):
-    if not label.startswith("falcon") and launches.get("flash_decode_layer"):
-        raise AssertionError(f"[{label}] K14 (flash_decode_layer) ran off the falcon path")
+    if not label.startswith(("falcon", "starcoder")) and launches.get("flash_decode_layer"):
+        raise AssertionError(f"[{label}] K14 (flash_decode_layer) ran off the falcon and "
+                             "StarCoder paths")
     for k in must:
         if launches[k] <= 0:
             raise AssertionError(f"[{label}] kernel {k} was not launched on its path")
@@ -3375,6 +3620,9 @@ def phase_serve_batched(torch, cfg, params, cache_dtype=None, labels=None):
 
 PAGE, SMALL_POOL = 256, 12     # phase 3c: page size; pages of the preempting pool
 FAMILY_LAYERS = 32             # phase 3k: Falcon-7B's and MPT-7B's depth
+# phase 3l's 8-slot runs: the first 8 layers of each model (at full depth, 32 / 40
+# / 32 layers, the smoke passed 900 s of its 1200 s limit on the H100)
+NEW_FAMILY_BATCH_LAYERS = 8
 
 
 def phase_serve_paged(torch, cfg, params, slot_ids):
@@ -3578,6 +3826,166 @@ def phase_serve_families_batched(torch, layers: int):
             f"{BATCH_REQUESTS} requests, bit for bit")
         compare_ids(f"{fam}_batched_int8", ids["batched_int8"], ids["batched"],
                     "the bf16 cache's (information: int8 changes the numbers)")
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+# phase 3l's 8-slot runs: (kernels that must run, kernels that must not) by
+# family and engine; every step the stacked path (K2 at OPT-6.7B's and
+# Pythia-6.9B's MHA heads, the wide unit's K2, K9 and K8 at StarCoder's
+# group), no K14, K6 or K4
+_NEW_OFF = ("flash_decode_layer", "megakernel_batched", "megakernel_batched_paged",
+            "megakernel_batched_int8", "megakernel_token", "megakernel_chunk",
+            "flash_decode_alibi", "flash_prefill_alibi", "flash_decode_layer_alibi")
+NEW_FAMILY_PATHS = {
+    "opt": {"batched": (("flash_decode", "flash_prefill", "cache_append"),
+                        ("flash_decode_wide", "flash_decode_paged", "flash_decode_int8"))},
+    "pythia": {"batched": (("flash_decode", "flash_prefill", "cache_append"),
+                           ("flash_decode_wide", "flash_decode_paged", "flash_decode_int8"))},
+    "starcoder": {"batched": (("flash_decode_wide", "flash_prefill", "cache_append"),
+                              ("flash_decode", "flash_decode_paged_wide",
+                               "flash_decode_int8_wide", "cache_append_int8")),
+                  "batched_int8": (("flash_decode_int8_wide", "flash_prefill",
+                                    "cache_append_int8"),
+                                   ("flash_decode_wide", "flash_decode_int8", "cache_append")),
+                  "paged": (("flash_decode_paged_wide", "flash_prefill", "cache_append_paged"),
+                            ("flash_decode_wide", "flash_decode_paged", "cache_append"))},
+}
+
+
+def cut_layers(params, n: int):
+    """The first ``n`` decoder layers of a stacked parameter tree (views)."""
+    from awq_tpu_torch.ops.w4a16 import QLinear
+
+    def cut(x):
+        if isinstance(x, QLinear):
+            return QLinear(qweight=x.qweight[:n], scales=x.scales[:n], szeros=x.szeros[:n],
+                           bias=None if x.bias is None else x.bias[:n], w_bit=x.w_bit,
+                           group_size=x.group_size, dense3=x.dense3)
+        return x[:n]
+
+    return {**params, "layers": {k: cut(v) for k, v in params["layers"].items()}}
+
+
+def phase_serve_new_families(torch, batch_layers=None):
+    """Phase 3l: OPT-6.7B, StarCoder and Pythia-6.9B at their published
+    widths and depths, random W4-g128 weights from seed 0 (``init_qparams``,
+    ``zero_mean``; the tied embedding of OPT and StarCoder as the head),
+    the head quantized (``quantize_head``), a bf16 cache of 2048 positions:
+    phase 3's four requests through ``InferenceEngine`` as ``serve_single``
+    drives them (decode a captured step replayed a token, its ids equal to
+    the forward loop's bit for bit; K2 or K14 once a layer and step by the
+    device trace, no K4, K5 or K6), then phase 3b's twelve requests through
+    an 8-slot ``BatchEngine`` over a bf16 cache (StarCoder also over an int8
+    cache and through a ``PagedBatchEngine`` with pages of 256, whose ids
+    must equal the slot engine's), at ``batch_layers`` of the model's layers
+    (all by default). Prints TTFT, ms/token, ms/step, tokens/s, kernels a
+    step, idle share and peak memory. Returns {label: launches}."""
+    from awq_tpu_torch.config import GenConfig, ModelConfig, QuantConfig, RuntimeConfig
+    from awq_tpu_torch.models.llama import init_qparams
+    from awq_tpu_torch.runtime.batch_engine import BatchEngine
+    from awq_tpu_torch.runtime.engine import InferenceEngine
+    from awq_tpu_torch.runtime.paged import PagedBatchEngine
+
+    out = {}
+    set_config(None)
+    for fam, base in NEW_FAMILIES.items():
+        cfg = ModelConfig(**base)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = zero_mean(init_qparams(cfg, QuantConfig(w_bit=4, group_size=G),
+                                        torch.Generator(device="cuda").manual_seed(0)), 4)
+        if cfg.tie_word_embeddings:
+            params["lm_head"] = params["embed"].T.contiguous()
+        engine = InferenceEngine(cfg, params, RuntimeConfig(max_seq_len=2048,
+                                                            quantize_head=True))
+        del params
+        torch.cuda.synchronize()
+        pos = engine.params.get("pos_embed")
+        log(f"  [{fam}] model: {cfg.num_layers} layers, H {cfg.hidden_size}, "
+            f"{cfg.num_heads} q heads over {cfg.num_kv_heads} kv heads of {cfg.head_dim}, "
+            f"W4-g{G} weights + W4 head {weight_bytes(engine.params) / 1e9:.3f} GB, embedding "
+            f"{engine.params['embed'].numel() * 2 / 1e9:.3f} GB"
+            + (f", position table {pos.numel() * 2 / 1e9:.3f} GB" if pos is not None else "")
+            + f", KV cache {cache_bytes(engine.cache) / 1e9:.4f} GB "
+            f"({cache_bytes(engine.cache) // engine.max_seq_len // 1024} KB a position), built "
+            f"in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+        launches, ids, _ = serve_single(torch, engine, cfg, (fam,))
+        dec = SERVE_PATHS[fam][1][2]
+        per_step = round(launches[fam][dec] / (len(REQUESTS) * 31))
+        log(f"  [{fam}] {dec} launches per decode step {per_step:g} (one per layer), K3 launches "
+            f"per prompt {launches[fam]['flash_prefill'] / len(REQUESTS):g}")
+        if per_step != cfg.num_layers:
+            raise AssertionError(f"[{fam}] {per_step:g} {dec} launches per decode step, not "
+                                 f"{cfg.num_layers}")
+        log(f"  [{fam}] peak device memory while serving "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        out.update(launches)
+        params = engine.params
+        del engine
+        n_l = cfg.num_layers if batch_layers is None else min(batch_layers, cfg.num_layers)
+        if n_l < cfg.num_layers:
+            cfg, params = dataclasses.replace(cfg, num_layers=n_l), cut_layers(params, n_l)
+        prompts = batch_prompts(cfg)
+        slot_ids = {}
+        for kind, (must, off) in NEW_FAMILY_PATHS[fam].items():
+            label = f"{fam}_{kind}"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            if kind == "paged":
+                engine = PagedBatchEngine(cfg, params, n_slots=BATCH_SLOTS, max_seq_len=2048,
+                                          page_size=PAGE)
+                kv_bytes = engine.cache.numel() * engine.cache.element_size()
+            else:
+                engine = BatchEngine(cfg, params, n_slots=BATCH_SLOTS, max_seq_len=2048,
+                                     quantize_head=False,
+                                     **({"cache_dtype": "int8"} if kind == "batched_int8"
+                                        else {}))
+                kv_bytes = cache_bytes(engine.cache)
+            log(f"  [{label}] {n_l} layers; the {BATCH_SLOTS}-slot cache"
+                + (f" ({engine.n_pages} pages of {PAGE})" if kind == "paged" else "")
+                + f": {kv_bytes / 2**30:.4f} GiB")
+            done, launches, ms_step = drive(torch, engine, prompts, label, cfg)
+            slot_ids[kind] = [r.out_ids for r in done]
+            check_path(label, launches, ("w4a16_gemv", "w4a16_gemm") + must, _NEW_OFF + off)
+            log(f"  [{label}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                "GiB")
+            if kind == "paged":
+                gen = GenConfig(greedy=True, max_new_tokens=12)
+                for i in range(BATCH_SLOTS):
+                    engine.submit(prompts[i], gen)
+                engine.step()
+
+                def one_step(i):
+                    engine.step()
+            else:
+                def one_step(i):
+                    engine._decode().argmax(-1).cpu()
+                    engine.lengths += 1
+
+                one_step(0)
+            where = f"slot lengths {sorted(int(x) for x in engine.lengths)}"
+            prof = profile_steps(torch, one_step, ms_step, label, where, "ms/step")
+            inst = decode_instances(prof, 8)
+            log(f"  [{label}] the split decode's instances by the device trace, per step: "
+                + (", ".join(f"{k} x{v:g}" for k, v in inst.items()) or "none recorded"))
+            if any("LayerKV" in k for k in inst):
+                raise AssertionError(f"[{label}] K14 (LayerKV) in the batched step's trace")
+            if kind == "paged":
+                engine.run()
+            out[label] = launches
+            del engine
+        if "paged" in slot_ids:
+            if slot_ids["paged"] != slot_ids["batched"]:
+                compare_ids(f"{fam}_paged", slot_ids["paged"], slot_ids["batched"],
+                            "the slot engine's")
+                raise AssertionError(f"[{fam}_paged] greedy ids differ from the slot engine's")
+            log(f"  [{fam}_paged] greedy ids equal the bf16 slot engine's for all "
+                f"{BATCH_REQUESTS} requests, bit for bit")
+            compare_ids(f"{fam}_batched_int8", slot_ids["batched_int8"], slot_ids["batched"],
+                        "the bf16 cache's (information: int8 changes the numbers)")
         del params
         torch.cuda.empty_cache()
     return out
@@ -4209,6 +4617,105 @@ def phase_model_parity_families_batched(torch):
     return out
 
 
+def phase_model_parity_new_families(torch):
+    """Phase 4, phase 3l's families at 2 layers of OPT-6.7B's, StarCoder's
+    and Pythia-6.9B's widths (W4-g128 zero-mean layers, random biases, the
+    head quantized; OPT's and StarCoder's the tied embedding): a 100-token
+    prefill and 8 decode steps through ``forward`` (K1, K3, and K2 or K14
+    once a layer and step), then one ``decode_step_batched`` of 8 rows at
+    ragged lengths over a bf16 cache (StarCoder also over its int8
+    quantization, and one ``decode_step_paged`` over a permuted pool of
+    pages of 256), kernel path against ``impl="plain"`` within 5e-2 of the
+    largest logit (and of the cache's largest value), as phase 4's other
+    models. Returns {label: launches}."""
+    from awq_tpu_torch.config import ModelConfig, QuantConfig
+    from awq_tpu_torch.models import llama
+    from awq_tpu_torch.ops import cache_append as ca
+    from awq_tpu_torch.ops.w4a16 import QLinear
+
+    tol, out = 5e-2, {}
+    ragged = [300, 0, 17, 511 - 1, 64, 255, 128, 5]
+    set_config(None)
+    for fam, base in NEW_FAMILIES.items():
+        cfg = ModelConfig(**{**base, "num_layers": 2})
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        params = zero_mean(llama.init_qparams(cfg, QuantConfig(w_bit=4, group_size=G), gen), 4)
+        for p in params["layers"].values():
+            if isinstance(p, QLinear) and p.bias is not None:
+                p.bias.copy_(torch.randn(p.bias.shape, generator=gen, device="cuda") * 0.05)
+        if cfg.tie_word_embeddings:
+            params["lm_head"] = params["embed"].T.contiguous()
+        params = llama.fuse_linears(llama.quantize_head(params, cfg), cfg)
+        dec = SERVE_PATHS[fam][1][2]
+        caches = [llama.init_cache(cfg, 1, 512) for _ in range(2)]
+        rng = torch.Generator().manual_seed(3)
+        steps = [torch.randint(0, cfg.vocab_size, (1, 100), generator=rng)] + [
+            torch.randint(0, cfg.vocab_size, (1, 1), generator=rng) for _ in range(8)]
+        pos, worst, launches = 0, 0.0, {}
+        for toks in steps:
+            toks = toks.cuda()
+            reset_counters()
+            got, _ = llama.forward(params, cfg, toks, caches[0], pos)
+            for k, v in read_counters().items():
+                launches[k] = launches.get(k, 0) + v
+            ref, _ = llama.forward(params, cfg, toks, caches[1], pos, impl="plain")
+            worst = max(worst, check(f"[{fam}] forward at start_pos {pos}", got, ref, tol)[1])
+            pos += toks.shape[1]
+        cerr, _ = check(f"[{fam}] the cache", caches[0], caches[1], tol)
+        if launches[dec] != 8 * cfg.num_layers or launches["flash_prefill"] != cfg.num_layers:
+            raise AssertionError(f"[{fam}] {launches[dec]} {dec} and {launches['flash_prefill']} "
+                                 f"K3 launches, not {8 * cfg.num_layers} and {cfg.num_layers}")
+        check_path(fam, launches, *SERVE_PATHS[fam][1:])
+        log(f"  [{fam}] 100-token prefill + 8 decodes, 2 layers, logits kernel vs plain: worst "
+            f"max_abs_err/max|ref| {worst:.3e} (tol {tol:g}), cache max_abs_err {cerr:.3e}; "
+            f"launches {nonzero(launches)}")
+        out["parity_" + fam] = launches
+        del caches
+        lens = torch.tensor(ragged, dtype=torch.int32, device="cuda")
+        toks = torch.randint(0, cfg.vocab_size, (8,), generator=gen, device="cuda")
+        cache = llama.init_kv_cache(cfg, 8, 512)
+        cache.normal_(generator=gen)
+        kinds = NEW_FAMILY_PATHS[fam]
+        pool = tables = None
+        if "paged" in kinds:
+            pool, tables = scatter_pages(torch, cache, 2, PAGE, gen)
+        for kind, (must, _) in kinds.items():
+            label = f"{fam}_{kind}"
+            if kind == "batched":
+                states = [cache.clone(), cache.clone()]
+            elif kind == "paged":
+                states = [pool.clone(), pool.clone()]
+            else:
+                c8 = quantize_cache(torch, cache)
+                states = [llama.KVCache8(*(x.clone() for x in c8)) for _ in range(2)]
+            step = (lambda st, **kw: llama.decode_step_paged(params, cfg, toks, st, tables, lens,
+                                                             **kw)) if kind == "paged" else (
+                lambda st, **kw: llama.decode_step_batched(params, cfg, toks, st, lens, **kw))
+            reset_counters()
+            got, _ = step(states[0], max_length=max(ragged))
+            launches = read_counters()
+            ref, _ = step(states[1], impl="plain")
+            torch.cuda.synchronize()
+            if launches[must[0]] != cfg.num_layers or launches["flash_decode_layer"]:
+                raise AssertionError(f"[{label}] launches {nonzero(launches)}: want "
+                                     f"{must[0]} x{cfg.num_layers} and no K14")
+            err, rel = check(f"[{label}] logits", got, ref, tol)
+            if kind == "batched_int8":
+                cerr, _ = check(f"[{label}] the cache, dequantized", ca.dequantize_kv(*states[0]),
+                                ca.dequantize_kv(*states[1]), tol)
+            else:
+                cerr, _ = check(f"[{label}] the cache", states[0], states[1], tol)
+            log(f"  [{label}] 8 rows at lengths {ragged}, 2 layers, kernel vs plain: logits "
+                f"max_abs_err/max|ref| {rel:.3e} (tol {tol:g}), cache max_abs_err {cerr:.3e}; "
+                f"greedy ids agree on {int((got.argmax(-1) == ref.argmax(-1)).sum())}/8 rows; "
+                f"launches {nonzero(launches)}")
+            out["parity_" + label] = launches
+            del states
+        del params, cache, pool
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_model_parity_w3_f16(torch):
     """Phase 4, continued: a 2-layer W3 model (pack_int3 linears and head)
     through forward on the stacked path (K1's W3 mode) and on the
@@ -4352,6 +4859,11 @@ def main() -> int:
     t_fam = time.perf_counter()
     phase_family_attention(torch, timer, cases)
     log(f"  the families' batched, paged and int8 modes: {time.perf_counter() - t_fam:.1f} s")
+    t_new = time.perf_counter()
+    phase_new_family_attention(torch, timer, cases)
+    log(f"  StarCoder's group, OPT-6.7B's heads and the device-length split: "
+        f"{time.perf_counter() - t_new:.1f} s")
+    torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     phase_mpt_megakernels(torch, timer, cases)
     log(f"  the ALiBi modes and K4's MPT shape: {time.perf_counter() - t_alibi:.1f} s")
@@ -4428,12 +4940,20 @@ def main() -> int:
           "wide groups, or with ALiBi slopes)")
     launches.update(phase_serve_families_batched(torch, FAMILY_LAYERS))
 
+    stamp("phase 3l: OPT-6.7B, StarCoder and Pythia-6.9B at full width and depth, W4-g128: "
+          "phase 3's four requests through InferenceEngine under the graph (K2 or K14 split by "
+          f"the length read), then phase 3b's twelve through an 8-slot BatchEngine at "
+          f"{NEW_FAMILY_BATCH_LAYERS} layers (StarCoder also over an int8 cache and through a "
+          "PagedBatchEngine)")
+    launches.update(phase_serve_new_families(torch, NEW_FAMILY_BATCH_LAYERS))
+
     stamp(f"phase 4: forward, kernel path against plain path (2 layers)")
     phase_model_parity(torch)
     phase_model_parity_w3_f16(torch)
     phase_model_parity_falcon(torch)
     launches.update(phase_model_parity_alibi(torch))
     phase_model_parity_families_batched(torch)
+    launches.update(phase_model_parity_new_families(torch))
     phase_model_parity_tp(torch, mesh)
     import torch.distributed as dist
 
@@ -4524,7 +5044,19 @@ def main() -> int:
                "flash_decode_int8_alibi": ("awq_tpu_torch/csrc/decode_attn.cu",
                                            "awq_tpu/ops/decode_attn.py:325"),
                "cache_append_int8_hd64": ("awq_tpu_torch/csrc/cache_append.cu",
-                                          "awq_tpu/models/llama.py:1313")}
+                                          "awq_tpu/models/llama.py:1313"),
+               "flash_decode_opt": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                    "awq_tpu/ops/decode_attn.py:394"),
+               "flash_decode_layer_starcoder": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                                "awq_tpu/ops/decode_attn.py:803"),
+               "flash_prefill_starcoder": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                           "awq_tpu/ops/decode_attn.py:691"),
+               "flash_decode_wide_starcoder": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                               "awq_tpu/ops/decode_attn.py:394"),
+               "flash_decode_paged_wide_starcoder": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                                     "awq_tpu/ops/decode_attn.py:944"),
+               "flash_decode_int8_wide_starcoder": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                                    "awq_tpu/ops/decode_attn.py:325")}
     # one representative shape per kernel in the summary; every case is
     # printed above
     pick = {"w4a16_gemv": "wgateup M=1 ", "w4a16_gemm": "wgateup M=1000",
@@ -4552,7 +5084,11 @@ def main() -> int:
             "megakernel_token_mpt_w3": "32 layers", "megakernel_layer_mpt_w3": "layer 5 len=1000",
             "flash_decode_wide": "Falcon-7B", "flash_decode_paged_wide": "Falcon-7B",
             "flash_decode_int8_wide": "Falcon-7B", "flash_decode_paged_alibi": "MPT-7B",
-            "flash_decode_int8_alibi": "MPT-7B", "cache_append_int8_hd64": "L=32"}
+            "flash_decode_int8_alibi": "MPT-7B", "cache_append_int8_hd64": "L=32",
+            "flash_decode_opt": "OPT-6.7B", "flash_decode_layer_starcoder": "StarCoder nq=48 "
+            "nkv=1 hd=128 B=1 len=1000", "flash_prefill_starcoder": "S=512 start=700",
+            "flash_decode_wide_starcoder": "StarCoder", "flash_decode_paged_wide_starcoder":
+            "StarCoder", "flash_decode_int8_wide_starcoder": "StarCoder"}
     # launches: each kernel's count on its own path's main run in phases 3,
     # 3b and 3c; on the single-stream paths, whose decode replays a captured
     # step, the count of its symbol in that run's device trace (serve_single)
@@ -4588,10 +5124,19 @@ def main() -> int:
             "flash_decode_paged_wide": "falcon_paged",
             "flash_decode_int8_wide": "falcon_batched_int8",
             "flash_decode_paged_alibi": "mpt_paged", "flash_decode_int8_alibi": "mpt_batched_int8",
-            "cache_append_int8_hd64": "falcon_batched_int8"}
+            "cache_append_int8_hd64": "falcon_batched_int8",
+            # phase 3l: OPT-6.7B's single stream (K2 on the graph), StarCoder's
+            # (K14, K3) and its 8-slot runs
+            "flash_decode_opt": "opt", "flash_decode_layer_starcoder": "starcoder",
+            "flash_prefill_starcoder": "starcoder",
+            "flash_decode_wide_starcoder": "starcoder_batched",
+            "flash_decode_paged_wide_starcoder": "starcoder_paged",
+            "flash_decode_int8_wide_starcoder": "starcoder_batched_int8"}
     # K3's head_dim-64 mode counts under K3's one wrapper, K7's int8 mode at
     # head_dim 64 under K7's int8 wrapper
-    counter = {"flash_prefill_hd64": "flash_prefill", "cache_append_int8_hd64": "cache_append_int8"}
+    counter = {"flash_prefill_hd64": "flash_prefill", "cache_append_int8_hd64": "cache_append_int8",
+               **{k: k.replace("_starcoder", "").replace("_opt", "")
+                  for k in runs if k.endswith(("_starcoder", "_opt"))}}
     kernels = []
     for name, (src, replaces) in sources.items():
         c = next(c for c in cases if c["name"] == name and c["shape"].startswith(pick[name]))

@@ -7,12 +7,15 @@
   (which splits the attention by that length, as the device launch does),
   at lengths 0, 1000 and 2047 of a 2048-position cache, over bf16 and int8
   caches and in W3 mode, and within the card tolerance of the plain version.
-- K14 (the single-layer split decode) with a device length is bit-equal to
-  the host-length launch with the same bound, at Falcon-7B's heads.
+- K2, K9 and K14 with their lengths in device memory and a grid planned for
+  a bucket split by the length they read: each is bit-equal to the launch
+  planned on the host for that length, at every length of a bucket's
+  edges, at Llama-3-8B's, OPT-6.7B's, Falcon-7B's and StarCoder's heads.
 - Greedy ids of an engine whose decode replays captured graphs equal those
   of the same engine with no loop (one ``forward`` call a token, a host
   position), on K4, on the stacked path (K1, K2), over an int8 cache (K9,
-  K7's int8 mode) and on a falcon-shaped model (K14); rounds whose greedy
+  K7's int8 mode), on falcon-shaped models (K14; one with Falcon-7B's 71 q
+  heads over one kv head) and on OPT, StarCoder and Pythia shapes; rounds whose greedy
   configurations differ only in fields the step does not read replay one
   graph. Sampled rounds replay a graph too and draw the forward loop's ids
   from the same seed.
@@ -105,17 +108,79 @@ def test_k4_device_position_bit_equal_on_card(cuda, variant, length):
 @pytest.mark.cuda
 @pytest.mark.parametrize("length", [1, 1000, 2048])
 def test_k14_device_length_bit_equal_on_card(cuda, length):
+    """K14 at Falcon-7B's heads with its length in device memory and a grid
+    for the whole cache splits by the length it reads: bit-equal to the
+    host launch planned for that length (``forward``'s)."""
     g = torch.Generator(device=cuda).manual_seed(length)
     q = torch.randn((1, 71, 64), generator=g, device=cuda).to(torch.bfloat16)
     kc = torch.randn((1, 1, T, 64), generator=g, device=cuda).to(torch.bfloat16)
     vc = torch.randn((1, 1, T, 64), generator=g, device=cuda).to(torch.bfloat16)
-    host = tda.flash_decode_layer(q, kc, vc, length, max_length=T)
+    host = tda.flash_decode_layer(q, kc, vc, length)
     dev = tda.flash_decode_layer(q, kc, vc, torch.tensor([length], dtype=torch.int32,
                                                          device=cuda), max_length=T)
     ref = tda.flash_decode_layer_plain(q, kc, vc, length)
     torch.cuda.synchronize()
     assert torch.equal(host, dev)
     assert (dev.float() - ref.float()).abs().max() <= CARD_TOL * ref.float().abs().max()
+
+
+# lengths at a bucket's edges and the split's: 0, one tile, a K2 unit (256),
+# a slice more, the bucket's last
+EDGES = [0, 1, 63, 64, 255, 256, 257, 700, 1023, 1024, 1500, 2047]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(32, 8), (32, 32)], ids=["llama3_8b", "opt_6_7b"])
+@pytest.mark.parametrize("kernel", ["k2", "k9"])
+def test_k2_k9_device_length_bit_equal_on_card(cuda, kernel, heads):
+    """K2 and K9 at one shared length read in device memory, their grid
+    planned for the bucket 2047 (``by_length``, the captured step's), are
+    bit-equal to the launch planned on the host for that length, at every
+    length of ``EDGES``, and within the card tolerance of the plain
+    version."""
+    nq, nkv = heads
+    g = torch.Generator(device=cuda).manual_seed(nq + nkv)
+    q = torch.randn((1, nq, HD), generator=g, device=cuda).to(torch.bfloat16)
+    kn, vn = (torch.randn((1, nkv, HD), generator=g, device=cuda).to(torch.bfloat16)
+              for _ in range(2))
+    cache = torch.randn((2, 1, nkv, T, HD), generator=g, device=cuda).to(torch.bfloat16)
+    codes, scales = quantize_kv(cache.float())
+    for length in EDGES:
+        lens = torch.tensor([length], dtype=torch.int32, device=cuda)
+        if kernel == "k2":
+            host = tda.flash_decode(q, kn, vn, cache, lens, max_length=length)
+            dev = tda.flash_decode(q, kn, vn, cache, lens, max_length=T - 1, by_length=True)
+            ref = tda.flash_decode_plain(q, kn, vn, cache, lens, max_length=length)
+        else:
+            host = tda.flash_decode_int8(q, kn, vn, codes, scales, lens, max_length=length)
+            dev = tda.flash_decode_int8(q, kn, vn, codes, scales, lens, max_length=T - 1,
+                                        by_length=True)
+            ref = tda.flash_decode_int8_plain(q, kn, vn, codes, scales, lens,
+                                              max_length=length)
+        torch.cuda.synchronize()
+        assert torch.equal(host, dev), length
+        assert (dev.float() - ref.float()).abs().max() <= CARD_TOL * ref.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(71, 1, 64), (48, 1, 128), (32, 8, 128)],
+                         ids=["falcon_7b", "starcoder", "llama3_8b"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k14_device_length_edges_on_card(cuda, heads, dtype):
+    """K14 with a device length and a bucket of 1024 positions, bit-equal to
+    the host launch planned for the length at every length of ``EDGES``
+    under the bucket."""
+    nq, nkv, hd = heads
+    g = torch.Generator(device=cuda).manual_seed(nq)
+    q = torch.randn((1, nq, hd), generator=g, device=cuda).to(dtype)
+    kc, vc = (torch.randn((1, nkv, T, hd), generator=g, device=cuda).to(dtype)
+              for _ in range(2))
+    for length in [n for n in EDGES if 1 <= n <= 1024]:
+        host = tda.flash_decode_layer(q, kc, vc, length)
+        dev = tda.flash_decode_layer(q, kc, vc, torch.tensor([length], dtype=torch.int32,
+                                                             device=cuda), max_length=1024)
+        torch.cuda.synchronize()
+        assert torch.equal(host, dev), length
 
 
 GEOMS = {
@@ -126,22 +191,42 @@ GEOMS = {
                    num_layers=2, num_heads=5, num_kv_heads=1, head_dim=64,
                    max_position_embeddings=T, dtype="bfloat16", norm="layernorm",
                    act="gelu", parallel_block=True, single_ln=True),
+    # Falcon-7B's heads (71 over one kv head), two layers
+    "falcon71": dict(arch="falcon", vocab_size=1024, hidden_size=4544, intermediate_size=4544,
+                     num_layers=2, num_heads=71, num_kv_heads=1, head_dim=64,
+                     max_position_embeddings=T, dtype="bfloat16", norm="layernorm",
+                     act="gelu", parallel_block=True, single_ln=True),
+    # OPT-6.7B's, StarCoder's and Pythia-6.9B's heads at a narrow width
+    "opt": dict(arch="opt", vocab_size=1024, hidden_size=512, intermediate_size=1024,
+                num_layers=2, num_heads=4, num_kv_heads=4, head_dim=128,
+                max_position_embeddings=T, dtype="bfloat16", norm="layernorm", act="relu",
+                pos_embed="learned", attn_bias=True, mlp_bias=True, tie_word_embeddings=True),
+    "starcoder": dict(arch="bigcode", vocab_size=1024, hidden_size=512, intermediate_size=1024,
+                      num_layers=2, num_heads=48, num_kv_heads=1, head_dim=128,
+                      max_position_embeddings=T, dtype="bfloat16", norm="layernorm",
+                      act="gelu_tanh", pos_embed="learned", attn_bias=True, mlp_bias=True,
+                      tie_word_embeddings=True),
+    "neox": dict(arch="neox", vocab_size=1024, hidden_size=512, intermediate_size=1024,
+                 num_layers=2, num_heads=4, num_kv_heads=4, head_dim=128,
+                 max_position_embeddings=T, dtype="bfloat16", norm="layernorm", act="gelu",
+                 rotary_pct=0.25, parallel_block=True, attn_bias=True, mlp_bias=True),
 }
+FAMILY_PATHS = ("falcon", "falcon71", "opt", "starcoder", "neox")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("path", ["megakernel", "stacked", "int8", "falcon"])
+@pytest.mark.parametrize("path", ["megakernel", "stacked", "int8"] + list(FAMILY_PATHS))
 def test_graph_decode_ids_equal_eager_on_card(cuda, path, monkeypatch):
     if path in ("stacked", "int8"):
         monkeypatch.setenv("AWQ_TPU_DISABLE_MEGAKERNEL", "1")
     else:
         monkeypatch.delenv("AWQ_TPU_DISABLE_MEGAKERNEL", raising=False)
-    cfg = ModelConfig(**GEOMS["falcon" if path == "falcon" else "llama"])
-    q = QuantConfig(w_bit=4, group_size=64 if path == "falcon" else 128)
+    cfg = ModelConfig(**GEOMS[path if path in FAMILY_PATHS else "llama"])
+    q = QuantConfig(w_bit=4, group_size=64 if cfg.head_dim == 64 else 128)
     params = llama.init_qparams(cfg, q, torch.Generator(device=cuda).manual_seed(5),
                                 device=cuda)
     cache_dtype = "int8" if path == "int8" else torch.bfloat16
-    rt = RuntimeConfig(max_seq_len=T, quantize_head=path != "falcon")
+    rt = RuntimeConfig(max_seq_len=T, quantize_head=not path.startswith("falcon"))
     prompts = [list(range(7, 27)), list(range(40, 45))]
     gens = [GenConfig(greedy=True, max_new_tokens=40),
             GenConfig(greedy=True, max_new_tokens=33, top_p=0.5, top_k=7)]

@@ -275,3 +275,52 @@ def test_emulated_k14_matches_plain(b, nq, nkv, hd, length, mma):
     plan = tda.decode_plan(b, nq, nkv, hd, length, 4 if mma is None else 2)
     got = _emulate(plan, q, k, v, [length] * b, mma=mma)
     _assert_close(got, tda.flash_decode_layer_plain(q, k, v, length))
+
+
+def _c_dec_split(length: int, want: int, unit: int) -> tuple:
+    """``csrc/decode_attn.cu::dec_split`` line by line, in C's integer
+    arithmetic: the split a block of a ``*_dev`` launch works out from the
+    length it reads."""
+    p = (length + want - 1) // want
+    p = (p + unit - 1) // unit * unit
+    p = unit if p < unit else p
+    c = (length + p - 1) // p
+    return p, (1 if c < 1 else c)
+
+
+# the single-position step's launches under a captured decode step: K2 and
+# K9 at Llama-3-8B's and OPT-6.7B's groups, K14 at Falcon-7B's and
+# StarCoder's (48 q heads over one kv head, head_dim 128), B = 1, in the
+# buckets of runtime/generate.py::plan_bound (255 ... 2047)
+DEV_KINDS = [("k2", 32, 8, 128, 2, K2U, True), ("k2_mha", 32, 32, 128, 2, K2U, True),
+             ("k9", 32, 8, 128, 1, T, True), ("k14_falcon", 71, 1, 64, 2, T, False),
+             ("k14_starcoder", 48, 1, 128, 2, T, False), ("k14_f32", 48, 1, 128, 4, T, False)]
+
+
+@pytest.mark.parametrize("bucket", [255, 511, 1023, 2047])
+@pytest.mark.parametrize("kind", DEV_KINDS, ids=[k[0] for k in DEV_KINDS])
+def test_device_length_split_gives_host_plan_slices(kind, bucket):
+    """A launch planned for a bucket (``by_length``) whose blocks split by the
+    length they read (the kernel's ``dec_split``, mirrored here) gives,
+    for EVERY length up to the bucket, the slices of the launch planned on
+    the host for that length: the same ``per``, block for block the same
+    positions, as many live blocks as the host plan's cluster, the others
+    empty; the bucket's cluster holds them all; its shared memory is the
+    body's layout at its stages, and it fits the card."""
+    _, nq, nkv, hd, esize, unit, cur = kind
+    dev = tda.decode_plan(1, nq, nkv, hd, bucket, esize, unit, cur=cur, by_length=True)
+    assert dev.by_length and dev.smem == dev.layout()["total"] <= tda.SMEM_MAX
+    for length in range(bucket + 1):
+        host = tda.decode_plan(1, nq, nkv, hd, length, esize, unit, cur=cur)
+        per, live = _c_dec_split(length, dev.want, dev.unit)
+        assert (per, live) == tda.decode_split(length, dev.want, dev.unit)
+        assert (per, live) == (host.per, host.cluster) and (dev.want, dev.unit) == (
+            host.want, host.unit)
+        assert live <= dev.cluster
+        for rank in range(dev.cluster):
+            got = dev.slice(rank, length)
+            if rank < live:
+                assert got == host.slice(rank, length)
+            else:
+                assert got[0] == got[1]
+    assert dev.cluster == max(_c_dec_split(n, dev.want, dev.unit)[1] for n in range(bucket + 1))

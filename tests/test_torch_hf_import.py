@@ -123,9 +123,17 @@ def test_import_from_a_directory(name, tmp_path):
 
 
 def test_other_families_raise():
+    # OPT imports since the port serves it; its projected embedding
+    # (OPT-350m's word_embed_proj_dim != hidden_size) and GPT-NeoX-20B's
+    # head_dim 96 do not
     cfg = transformers.OPTConfig(vocab_size=64, hidden_size=32, ffn_dim=64,
                                  num_hidden_layers=1, num_attention_heads=2,
-                                 word_embed_proj_dim=32)
+                                 word_embed_proj_dim=16)
     model = transformers.OPTForCausalLM(cfg).eval()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        thf.import_hf_model(model, dtype="float32", device="cpu")
+    cfg = transformers.GPTNeoXConfig(vocab_size=64, hidden_size=192, intermediate_size=64,
+                                     num_hidden_layers=1, num_attention_heads=2)
+    model = transformers.GPTNeoXForCausalLM(cfg).eval()
     with pytest.raises(NotImplementedError, match="item 12"):
         thf.import_hf_model(model, dtype="float32", device="cpu")
