@@ -111,6 +111,34 @@
 // are clamped to [0, T] ([0, MP * page] for K8, so no table entry past MP
 // is read).
 //
+// ---- The append, fused into K2, K8 and K9 ----------------------------------
+//
+// Every CUR launch also writes the current token into the layer's cache, the
+// write JAX makes after its layer scan (awq_tpu/models/llama.py:1156,
+// :1313-1332) and the port's K7 (csrc/cache_append.cu) made in a launch of
+// its own over every layer's stacked [L, 2, B, n_kv, hd]: row b's k/v at
+// position min(max(len_b, 0), T - 1) in the cache's dtype (K2), at page
+// tables[b, p / page], offset p % page with p clamped to MP * page - 1 (K8;
+// freed rows point at page 0, the trash page), or as quantize_kv's codes and
+// scale (K9: D / 4 lanes a row, a shuffle max, s = max(absmax, 1e-6) *
+// f32(1/127), codes rint(x / s) by a true division, 32-bit words, K7's int8
+// arithmetic). The TPU could not fuse it (a single-position bf16 write
+// breaks Mosaic's (8, 128) tile, awq_tpu/ops/cache_append.py:9-13); here it
+// costs the step no launch and no stacking of every layer's k/v. K2 and K8
+// append the current token they attend (k_new, v_new); K9 takes an append
+// source of its own (k_app, v_app of dtype code adt: the current token, or
+// for the int8 ALiBi step, which attends over its dequantized codes, the
+// full-precision k/v it quantizes). Cluster rank 0
+// of each (row, kv head) writes, after the cluster's last barrier (or, alone,
+// after its own reads have landed): no block of the cluster reads the cache
+// after that, so the attention never sees the write, even where a length at
+// or past T puts it at position T - 1, inside the prefix read. Rank 0 is
+// always live (DYN's dead ranks are the last ones). The write is compiled
+// into every CUR instance, not tested at run time (the ALiBi lesson above);
+// the destination is its own pointer (dst), the cache itself on the path,
+// so that a test can send the write elsewhere and hold the output against
+// the one that appended in place.
+//
 // ---- K3 -------------------------------------------------------------------
 //
 // K3 replaces flash_prefill_stacked (_stacked_prefill_kernel) with its
@@ -183,16 +211,115 @@ constexpr int MAX_CLUSTER = 16;      // blocks of a cluster (non-portable above 
 constexpr int SMEM_MAX = 232448;     // dynamic shared memory a block may have
 }  // namespace dec
 
+// q [B, nq, D] and out of dtype code qdt (0 f32, 1 bf16, 2 f16); k_new,
+// v_new [B, nkv, D] of kdt (read with CUR only); `per` positions a block,
+// `stages` ring stages. A launch that splits by the length it reads (DYN
+// below) takes `want`, `unit` and `maxlen` of dec_split. With CUR, K2 and
+// K8 append k_new, v_new to the cache; K9 quantizes and appends k_app,
+// v_app [B, nkv, D] of adt (k_new, v_new, or for the int8 ALiBi step the
+// full-precision token whose dequantized codes it attends over).
+struct DecodeArgs {
+  const void* q;
+  const void* k_new;
+  const void* v_new;
+  void* out;
+  int qdt, kdt, nq, nkv, per, stages;
+  float scale;
+  const float* slopes;   // ALiBi slopes [nq] f32, or null
+  int want, unit, maxlen;
+  const void* k_app;
+  const void* v_app;
+  int adt;
+};
+
+// The append is staged before the tile loop (the values loaded, converted
+// and quantized, the address computed while the first tiles fly) and
+// stored at the launch's end, so that the store after the last barrier
+// waits on no load: Pending holds one thread's share, `at` null for a
+// thread without one.
+struct Pending {
+  uint4 w;
+  uint4* at;
+  __device__ __forceinline__ void store() const {
+    if (at) *at = w;
+  }
+};
+struct Pending8 {   // K9: a lane's 4 codes, and its row's scale from its first lane
+  uint32_t w;
+  float s;
+  uint32_t* at;
+  float* sat;
+  __device__ __forceinline__ void store() const {
+    if (at) *at = w;
+    if (sat) *sat = s;
+  }
+};
+
+// K2's and K8's share of thread threadIdx.x: a 16-byte vector of the current
+// token's K (the first D / V threads) or V row (D elements of dtype code
+// a.kdt at a.k_new, a.v_new + so) converted to the cache's E (as torch's
+// .to: round to nearest even), for k or v. Every block has at least
+// 2 D / V threads (128 threads; 2 D / V <= 64).
+template <typename E, int D>
+__device__ __forceinline__ Pending stage_token(E* k, E* v, const DecodeArgs& a, size_t so) {
+  constexpr int V = 16 / (int)sizeof(E), NV = D / V;
+  const int i = threadIdx.x;
+  if (i >= 2 * NV) return Pending{make_uint4(0u, 0u, 0u, 0u), nullptr};
+  const int s = i / NV, c = (i % NV) * V;
+  const void* src = s ? a.v_new : a.k_new;
+  uint32_t w[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (sizeof(E) == 4)
+      w[e] = __float_as_uint(load_act(src, a.kdt, so + c + e));
+    else
+      w[e] = pack2<E>(load_act(src, a.kdt, so + c + 2 * e),
+                      load_act(src, a.kdt, so + c + 2 * e + 1));
+  }
+  return Pending{make_uint4(w[0], w[1], w[2], w[3]), reinterpret_cast<uint4*>((s ? v : k) + c)};
+}
+
+// K9's share: quantize_kv of the current token's K and V rows, K7's int8
+// arithmetic bit for bit (csrc/cache_append.cu): D / 4 lanes a row (threads
+// [0, D / 2): two warps at D = 128, one at 64, so every lane of a warp
+// takes part in the shuffles), a lane's 4 codes one 32-bit word, the scale
+// from the row's first lane.
+template <int D>
+__device__ __forceinline__ Pending8 stage_token8(int8_t* ck, int8_t* cv, float* sk, float* sv,
+                                                 const DecodeArgs& a, size_t so) {
+  constexpr int LPR = D / 4;
+  if (threadIdx.x >= 2 * LPR) return Pending8{0u, 0.f, nullptr, nullptr};
+  const int s = threadIdx.x / LPR, lane = threadIdx.x % LPR;
+  const void* src = s ? a.v_app : a.k_app;
+  float x[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) x[e] = load_act(src, a.adt, so + lane * 4 + e);
+  float am = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3])));
+#pragma unroll
+  for (int o = LPR / 2; o > 0; o >>= 1) am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, o));
+  const float sc = __fmul_rn(fmaxf(am, 1e-6f), 1.f / 127.f);
+  uint32_t word = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float c = fminf(fmaxf(rintf(x[e] / sc), -127.f), 127.f);
+    word |= (static_cast<uint32_t>(static_cast<int>(c)) & 0xFFu) << (8 * e);
+  }
+  return Pending8{word, sc, reinterpret_cast<uint32_t*>((s ? cv : ck) + lane * 4),
+                  lane == 0 ? (s ? sv : sk) : nullptr};
+}
+
 // Where the positions of (row b, kv head h) sit in one layer: row(b, h) is
 // a cursor whose K and V rows of position t are at k + off(t) and
 // v + off(t) (consecutive positions of a 64-position tile that starts on
 // a multiple of 64 are consecutive rows where slab() holds); length(b) is
 // row b's number of cached positions, and every position below bound() may
-// be read whatever the length.
+// be read whatever the length. stage(b, h, a) (K2, K8, K9) stages the
+// current token of (row b, kv head h) for dst, the cache's layout (Pending).
 template <typename E, int D>
 struct ContigKV {  // K2: cache [2, B, n_kv, T, D]
   using Elem = E;
   const E* base;
+  E* dst;
   const int* lengths;
   int B, nkv, T;
   struct Row {
@@ -207,11 +334,18 @@ struct ContigKV {  // K2: cache [2, B, n_kv, T, D]
   }
   __device__ __forceinline__ int length(int b) const { return min(max(lengths[b], 0), T); }
   __device__ __forceinline__ int bound() const { return T; }
+  using Pend = Pending;
+  __device__ __forceinline__ Pending stage(int b, int h, const DecodeArgs& a) const {
+    const int p = min(max(lengths[b], 0), T - 1);
+    E* k = dst + (((size_t)b * nkv + h) * T + p) * D;
+    return stage_token<E, D>(k, k + (size_t)B * nkv * T * D, a, ((size_t)b * nkv + h) * D);
+  }
 };
 template <typename E, int D>
 struct PagedKV {   // K8: pool [2, NP, n_kv, page, D], tables [B, MP]
   using Elem = E;
   const E* base;
+  E* dst;
   const int* tables;
   const int* lengths;
   int np, nkv, page, mp;
@@ -233,12 +367,21 @@ struct PagedKV {   // K8: pool [2, NP, n_kv, page, D], tables [B, MP]
   }
   __device__ __forceinline__ int length(int b) const { return min(max(lengths[b], 0), mp * page); }
   __device__ __forceinline__ int bound() const { return mp * page; }
+  using Pend = Pending;
+  __device__ __forceinline__ Pending stage(int b, int h, const DecodeArgs& a) const {
+    const int p = min(max(lengths[b], 0), mp * page - 1);
+    const int pid = tables[(size_t)b * mp + p / page];
+    E* k = dst + (((size_t)pid * nkv + h) * page + p % page) * D;
+    return stage_token<E, D>(k, k + (size_t)np * nkv * page * D, a, ((size_t)b * nkv + h) * D);
+  }
 };
 template <int D>
 struct Int8KV {    // K9: codes [2, B, n_kv, T, D] int8, scales [2, B, n_kv, T] f32
   using Elem = int8_t;
   const int8_t* base;
   const float* scales;
+  int8_t* dst;          // the codes and scales the append writes
+  float* dst_scales;
   const int* lengths;
   int B, nkv, T;
   struct Row {
@@ -256,6 +399,13 @@ struct Int8KV {    // K9: codes [2, B, n_kv, T, D] int8, scales [2, B, n_kv, T] 
   }
   __device__ __forceinline__ int length(int b) const { return min(max(lengths[b], 0), T); }
   __device__ __forceinline__ int bound() const { return T; }
+  using Pend = Pending8;
+  __device__ __forceinline__ Pending8 stage(int b, int h, const DecodeArgs& a) const {
+    const size_t r = ((size_t)b * nkv + h) * T + min(max(lengths[b], 0), T - 1);
+    const size_t plane = (size_t)B * nkv * T;
+    return stage_token8<D>(dst + r * D, dst + (r + plane) * D, dst_scales + r,
+                           dst_scales + r + plane, a, ((size_t)b * nkv + h) * D);
+  }
 };
 template <typename E, int D>
 struct LayerKV {   // K14: k_cache, v_cache [B, n_kv, T, D], one length
@@ -278,21 +428,9 @@ struct LayerKV {   // K14: k_cache, v_cache [B, n_kv, T, D], one length
     return lenp ? min(max(*lenp, 1), len) : len;
   }
   __device__ __forceinline__ int bound() const { return len; }
-};
-
-// q [B, nq, D] and out of dtype code qdt (0 f32, 1 bf16, 2 f16); k_new,
-// v_new [B, nkv, D] of kdt (read with CUR only); `per` positions a block,
-// `stages` ring stages. A launch that splits by the length it reads (DYN
-// below) takes `want`, `unit` and `maxlen` of dec_split.
-struct DecodeArgs {
-  const void* q;
-  const void* k_new;
-  const void* v_new;
-  void* out;
-  int qdt, kdt, nq, nkv, per, stages;
-  float scale;
-  const float* slopes;   // ALiBi slopes [nq] f32, or null
-  int want, unit, maxlen;
+  struct Pend {   // K14 appends nothing (its caller wrote the token)
+    __device__ __forceinline__ void store() const {}
+  };
 };
 
 // The split of a row of `length` positions: `n` slices of `per` positions,
@@ -528,6 +666,12 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
       slope[r] = row < g ? a.slopes[h * g + row] : 0.f;
     }
   }
+  // rank 0 stages the append while the first tiles fly and stores it after
+  // the cluster's last barrier (a block alone: after its own reads), when no
+  // block of the cluster reads the cache any more
+  typename KV::Pend pend{};
+  if constexpr (CUR)
+    if (rank == 0) pend = kv.stage(b, h, a);
 
   for (int i = 0; i < ntiles; ++i) {
     hop::cp_async_wait_pending(a.stages - 2);   // tile i has landed (this thread's copies)
@@ -808,6 +952,7 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
         store_act(a.out, a.qdt, oo + e,
                   (CUR ? fmaf(p_c, vnew[d + e], acc[e]) : acc[e]) / den);
     }
+    pend.store();   // rank 0: the block's reads have all landed
     return;
   }
   const int lo = rank * n4 / nsplit, hi = (rank + 1) * n4 / nsplit;
@@ -871,6 +1016,7 @@ __global__ void __launch_bounds__(NPW == 16 ? 256 : 512) flash_decode_kernel(con
     }
   }
   hop::cluster_sync();   // the peers are done reading this block's state
+  pend.store();          // rank 0: every block of the cluster is done reading the cache
 }
 
 // One launch of the body as clusters of `cluster` blocks along x. The
@@ -1445,21 +1591,25 @@ int run_prefill(const void* q, const void* cache, void* out, int B, int S, int n
 // `want` and `unit` are the host plan's (decode_plan), `maxlen` the bound
 // of the lengths, to which they are clamped; the plan's cluster covers
 // min(want, ceil(maxlen / unit)) slices.
+// K2 and K8 append k_new, v_new into dst, the cache's layout (the cache
+// itself on the path; 16-byte aligned), at each row's position
+// min(max(len_b, 0), T - 1) (K8: MP * page - 1), after the attention.
 template <bool DYN>
 static int decode_entry(const void* q, const void* k_new, const void* v_new,
-                        const void* cache, const void* lengths, void* out, int B, int nq,
-                        int nkv, int T, int hd, int cluster, int per, int stages, int smem,
-                        float scale, int qdt, int kdt, int cdt, const void* slopes,
+                        const void* cache, void* dst, const void* lengths, void* out, int B,
+                        int nq, int nkv, int T, int hd, int cluster, int per, int stages,
+                        int smem, float scale, int qdt, int kdt, int cdt, const void* slopes,
                         void* stream, int want = 0, int unit = 0, int maxlen = 0) {
-  const DecodeArgs a{q,      k_new, v_new, out,  qdt,  kdt,   nq,
+  const DecodeArgs a{q,      k_new, v_new, out,   qdt,     kdt,     nq,
                      nkv,    per,   stages, scale, static_cast<const float*>(slopes),
-                     want,   unit,  maxlen};
+                     want,   unit,  maxlen, nullptr, nullptr, 0};
+  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   return by_head_dim(hd, [&](auto dtag) {
     constexpr int D = decltype(dtag)::value;
     auto make = [&](auto tag) {
       using E = typename decltype(tag)::Elem;
-      return ContigKV<E, D>{static_cast<const E*>(cache), static_cast<const int*>(lengths), B,
-                            nkv, T};
+      return ContigKV<E, D>{static_cast<const E*>(cache), static_cast<E*>(dst),
+                            static_cast<const int*>(lengths), B, nkv, T};
     };
     return run_typed<D, DYN, ContigKV>(cdt, make, a, B, cluster, smem, stream);
   });
@@ -1470,19 +1620,21 @@ static int decode_entry(const void* q, const void* k_new, const void* v_new,
 // page ids in [0, NP); lengths are clamped to [0, MP * page]; `per` is a
 // whole number of pages.
 static int paged_entry(const void* q, const void* k_new, const void* v_new, const void* pool,
-                       const void* tables, const void* lengths, void* out, int B, int nq,
-                       int nkv, int np, int page, int mp, int hd, int cluster, int per,
+                       void* dst, const void* tables, const void* lengths, void* out, int B,
+                       int nq, int nkv, int np, int page, int mp, int hd, int cluster, int per,
                        int stages, int smem, float scale, int qdt, int kdt, int cdt,
                        const void* slopes, void* stream) {
-  if (page < 1 || per % page) return static_cast<int>(cudaErrorInvalidValue);
-  const DecodeArgs a{q,   k_new, v_new, out,    qdt,   kdt,
-                     nq,  nkv,   per,   stages, scale, static_cast<const float*>(slopes)};
+  if (page < 1 || mp < 1 || per % page) return static_cast<int>(cudaErrorInvalidValue);
+  const DecodeArgs a{q,   k_new, v_new, out,     qdt,     kdt,
+                     nq,  nkv,   per,   stages,  scale,   static_cast<const float*>(slopes),
+                     0,   0,     0,     nullptr, nullptr, 0};
   return by_head_dim(hd, [&](auto dtag) {
     constexpr int D = decltype(dtag)::value;
     auto make = [&](auto tag) {
       using E = typename decltype(tag)::Elem;
-      return PagedKV<E, D>{static_cast<const E*>(pool), static_cast<const int*>(tables),
-                           static_cast<const int*>(lengths), np, nkv, page, mp};
+      return PagedKV<E, D>{static_cast<const E*>(pool), static_cast<E*>(dst),
+                           static_cast<const int*>(tables), static_cast<const int*>(lengths),
+                           np, nkv, page, mp};
     };
     return run_typed<D, false, PagedKV>(cdt, make, a, B, cluster, smem, stream);
   });
@@ -1490,19 +1642,23 @@ static int paged_entry(const void* q, const void* k_new, const void* v_new, cons
 
 // K9: as decode_entry, over one layer of an int8 cache: codes int8
 // [2, B, nkv, T, hd] (16-byte aligned) and scales f32 [2, B, nkv, T], both
-// contiguous; q, out, k_new and v_new of qdt.
+// contiguous; q, out, k_new and v_new of qdt; the append quantizes k_app,
+// v_app (adt) into dst_codes, dst_scales (the codes' and scales' layouts).
 template <bool DYN>
-static int int8_entry(const void* q, const void* k_new, const void* v_new, const void* codes,
-                      const void* scales, const void* lengths, void* out, int B, int nq,
-                      int nkv, int T, int hd, int cluster, int per, int stages, int smem,
-                      float scale, int qdt, const void* slopes, void* stream, int want = 0,
-                      int unit = 0, int maxlen = 0) {
-  const DecodeArgs a{q,      k_new, v_new, out,  qdt,  qdt,   nq,
+static int int8_entry(const void* q, const void* k_new, const void* v_new, const void* k_app,
+                      const void* v_app, const void* codes, const void* scales,
+                      void* dst_codes, void* dst_scales, const void* lengths, void* out, int B,
+                      int nq, int nkv, int T, int hd, int cluster, int per, int stages,
+                      int smem, float scale, int qdt, int adt, const void* slopes,
+                      void* stream, int want = 0, int unit = 0, int maxlen = 0) {
+  const DecodeArgs a{q,      k_new, v_new, out,   qdt,   qdt,   nq,
                      nkv,    per,   stages, scale, static_cast<const float*>(slopes),
-                     want,   unit,  maxlen};
+                     want,   unit,  maxlen, k_app, v_app, adt};
+  if (T < 1) return static_cast<int>(cudaErrorInvalidValue);
   return by_head_dim(hd, [&](auto dtag) {
     constexpr int D = decltype(dtag)::value;
     const Int8KV<D> kv{static_cast<const int8_t*>(codes), static_cast<const float*>(scales),
+                       static_cast<int8_t*>(dst_codes), static_cast<float*>(dst_scales),
                        static_cast<const int*>(lengths), B, nkv, T};
     return run_decode<D, DYN>(kv, a, B, cluster, smem, stream);
   });
@@ -1510,95 +1666,99 @@ static int int8_entry(const void* q, const void* k_new, const void* v_new, const
 
 #if !AWQ_ALIBI && !AWQ_DECODE_WIDE
 extern "C" int awq_flash_decode(const void* q, const void* k_new, const void* v_new,
-                                const void* cache, const void* lengths, void* out, int B,
-                                int nq, int nkv, int T, int cluster, int per, int stages,
-                                int smem, float scale, int qdt, int kdt, int cdt,
-                                void* stream) {
-  return decode_entry<false>(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, HD, cluster,
+                                const void* cache, void* dst, const void* lengths, void* out, int B,
+                                int nq, int nkv, int T, int cluster, int per, int stages, int smem,
+                                float scale, int qdt, int kdt, int cdt, void* stream) {
+  return decode_entry<false>(q, k_new, v_new, cache, dst, lengths, out, B, nq, nkv, T, HD, cluster,
                              per, stages, smem, scale, qdt, kdt, cdt, nullptr, stream);
 }
 
-extern "C" int awq_flash_decode_paged(const void* q, const void* k_new,
-                                      const void* v_new, const void* pool,
-                                      const void* tables, const void* lengths, void* out,
-                                      int B, int nq, int nkv, int np, int page, int mp,
-                                      int cluster, int per, int stages, int smem, float scale,
-                                      int qdt, int kdt, int cdt, void* stream) {
-  return paged_entry(q, k_new, v_new, pool, tables, lengths, out, B, nq, nkv, np, page, mp, HD,
+extern "C" int awq_flash_decode_paged(const void* q, const void* k_new, const void* v_new,
+                                      const void* pool, void* dst, const void* tables,
+                                      const void* lengths, void* out, int B, int nq, int nkv,
+                                      int np, int page, int mp, int cluster, int per, int stages,
+                                      int smem, float scale, int qdt, int kdt, int cdt,
+                                      void* stream) {
+  return paged_entry(q, k_new, v_new, pool, dst, tables, lengths, out, B, nq, nkv, np, page, mp, HD,
                      cluster, per, stages, smem, scale, qdt, kdt, cdt, nullptr, stream);
 }
 
 extern "C" int awq_flash_decode_int8(const void* q, const void* k_new, const void* v_new,
-                                     const void* codes, const void* scales,
-                                     const void* lengths, void* out, int B, int nq, int nkv,
-                                     int T, int cluster, int per, int stages, int smem,
-                                     float scale, int qdt, void* stream) {
-  return int8_entry<false>(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, HD,
-                           cluster, per, stages, smem, scale, qdt, nullptr, stream);
+                                     const void* k_app, const void* v_app, const void* codes,
+                                     const void* scales, void* dst_codes, void* dst_scales,
+                                     const void* lengths, void* out, int B, int nq, int nkv, int T,
+                                     int cluster, int per, int stages, int smem, float scale,
+                                     int qdt, int adt, void* stream) {
+  return int8_entry<false>(q, k_new, v_new, k_app, v_app, codes, scales, dst_codes, dst_scales,
+                           lengths, out, B, nq, nkv, T, HD, cluster, per, stages, smem, scale, qdt,
+                           adt, nullptr, stream);
 }
 
 extern "C" int awq_flash_decode_dev(const void* q, const void* k_new, const void* v_new,
-                                    const void* cache, const void* lengths, void* out, int B,
-                                    int nq, int nkv, int T, int cluster, int per, int stages,
+                                    const void* cache, void* dst, const void* lengths, void* out,
+                                    int B, int nq, int nkv, int T, int cluster, int per, int stages,
                                     int smem, float scale, int qdt, int kdt, int cdt, int want,
                                     int unit, int maxlen, void* stream) {
-  return decode_entry<true>(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, HD, cluster,
+  return decode_entry<true>(q, k_new, v_new, cache, dst, lengths, out, B, nq, nkv, T, HD, cluster,
                             per, stages, smem, scale, qdt, kdt, cdt, nullptr, stream, want, unit,
                             maxlen);
 }
 
 extern "C" int awq_flash_decode_int8_dev(const void* q, const void* k_new, const void* v_new,
-                                         const void* codes, const void* scales,
+                                         const void* k_app, const void* v_app, const void* codes,
+                                         const void* scales, void* dst_codes, void* dst_scales,
                                          const void* lengths, void* out, int B, int nq, int nkv,
                                          int T, int cluster, int per, int stages, int smem,
-                                         float scale, int qdt, int want, int unit, int maxlen,
-                                         void* stream) {
-  return int8_entry<true>(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, HD,
-                          cluster, per, stages, smem, scale, qdt, nullptr, stream, want, unit,
-                          maxlen);
+                                         float scale, int qdt, int adt, int want, int unit,
+                                         int maxlen, void* stream) {
+  return int8_entry<true>(q, k_new, v_new, k_app, v_app, codes, scales, dst_codes, dst_scales,
+                          lengths, out, B, nq, nkv, T, HD, cluster, per, stages, smem, scale, qdt,
+                          adt, nullptr, stream, want, unit, maxlen);
 }
 #endif
 
 #if AWQ_DECODE_WIDE
 extern "C" int awq_flash_decode_wide(const void* q, const void* k_new, const void* v_new,
-                                     const void* cache, const void* lengths, void* out, int B,
-                                     int nq, int nkv, int T, int hd, int cluster, int per,
-                                     int stages, int smem, float scale, int qdt, int kdt,
-                                     int cdt, void* stream) {
-  return decode_entry<false>(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, hd, cluster,
+                                     const void* cache, void* dst, const void* lengths, void* out,
+                                     int B, int nq, int nkv, int T, int hd, int cluster, int per,
+                                     int stages, int smem, float scale, int qdt, int kdt, int cdt,
+                                     void* stream) {
+  return decode_entry<false>(q, k_new, v_new, cache, dst, lengths, out, B, nq, nkv, T, hd, cluster,
                              per, stages, smem, scale, qdt, kdt, cdt, nullptr, stream);
 }
 
-extern "C" int awq_flash_decode_paged_wide(const void* q, const void* k_new,
-                                           const void* v_new, const void* pool,
-                                           const void* tables, const void* lengths, void* out,
-                                           int B, int nq, int nkv, int np, int page, int mp,
-                                           int hd, int cluster, int per, int stages, int smem,
-                                           float scale, int qdt, int kdt, int cdt,
-                                           void* stream) {
-  return paged_entry(q, k_new, v_new, pool, tables, lengths, out, B, nq, nkv, np, page, mp, hd,
+extern "C" int awq_flash_decode_paged_wide(const void* q, const void* k_new, const void* v_new,
+                                           const void* pool, void* dst, const void* tables,
+                                           const void* lengths, void* out, int B, int nq, int nkv,
+                                           int np, int page, int mp, int hd, int cluster, int per,
+                                           int stages, int smem, float scale, int qdt, int kdt,
+                                           int cdt, void* stream) {
+  return paged_entry(q, k_new, v_new, pool, dst, tables, lengths, out, B, nq, nkv, np, page, mp, hd,
                      cluster, per, stages, smem, scale, qdt, kdt, cdt, nullptr, stream);
 }
 
 extern "C" int awq_flash_decode_int8_wide(const void* q, const void* k_new, const void* v_new,
-                                          const void* codes, const void* scales,
-                                          const void* lengths, void* out, int B, int nq,
-                                          int nkv, int T, int hd, int cluster, int per,
-                                          int stages, int smem, float scale, int qdt,
-                                          void* stream) {
-  return int8_entry<false>(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, hd,
-                           cluster, per, stages, smem, scale, qdt, nullptr, stream);
+                                          const void* k_app, const void* v_app, const void* codes,
+                                          const void* scales, void* dst_codes, void* dst_scales,
+                                          const void* lengths, void* out, int B, int nq, int nkv,
+                                          int T, int hd, int cluster, int per, int stages,
+                                          int smem, float scale, int qdt, int adt, void* stream) {
+  return int8_entry<false>(q, k_new, v_new, k_app, v_app, codes, scales, dst_codes, dst_scales,
+                           lengths, out, B, nq, nkv, T, hd, cluster, per, stages, smem, scale, qdt,
+                           adt, nullptr, stream);
 }
 
-extern "C" int awq_flash_decode_int8_wide_dev(const void* q, const void* k_new,
-                                              const void* v_new, const void* codes,
-                                              const void* scales, const void* lengths, void* out,
-                                              int B, int nq, int nkv, int T, int hd, int cluster,
-                                              int per, int stages, int smem, float scale, int qdt,
+extern "C" int awq_flash_decode_int8_wide_dev(const void* q, const void* k_new, const void* v_new,
+                                              const void* k_app, const void* v_app,
+                                              const void* codes, const void* scales,
+                                              void* dst_codes, void* dst_scales,
+                                              const void* lengths, void* out, int B, int nq,
+                                              int nkv, int T, int hd, int cluster, int per,
+                                              int stages, int smem, float scale, int qdt, int adt,
                                               int want, int unit, int maxlen, void* stream) {
-  return int8_entry<true>(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, hd,
-                          cluster, per, stages, smem, scale, qdt, nullptr, stream, want, unit,
-                          maxlen);
+  return int8_entry<true>(q, k_new, v_new, k_app, v_app, codes, scales, dst_codes, dst_scales,
+                          lengths, out, B, nq, nkv, T, hd, cluster, per, stages, smem, scale, qdt,
+                          adt, nullptr, stream, want, unit, maxlen);
 }
 #else
 // q [B, S, nq, hd] contiguous of qdt; cache [2, B, nkv, T, hd] contiguous
@@ -1664,57 +1824,59 @@ static int layer_entry(const void* q, const void* k_cache, const void* v_cache, 
 
 #if AWQ_ALIBI
 extern "C" int awq_flash_decode_alibi(const void* q, const void* k_new, const void* v_new,
-                                      const void* cache, const void* lengths, void* out,
-                                      int B, int nq, int nkv, int T, int hd, int cluster,
-                                      int per, int stages, int smem, float scale, int qdt,
-                                      int kdt, int cdt, const void* slopes, void* stream) {
-  return decode_entry<false>(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, hd, cluster,
+                                      const void* cache, void* dst, const void* lengths, void* out,
+                                      int B, int nq, int nkv, int T, int hd, int cluster, int per,
+                                      int stages, int smem, float scale, int qdt, int kdt, int cdt,
+                                      const void* slopes, void* stream) {
+  return decode_entry<false>(q, k_new, v_new, cache, dst, lengths, out, B, nq, nkv, T, hd, cluster,
                              per, stages, smem, scale, qdt, kdt, cdt, slopes, stream);
 }
 
-extern "C" int awq_flash_decode_paged_alibi(const void* q, const void* k_new,
-                                            const void* v_new, const void* pool,
-                                            const void* tables, const void* lengths,
-                                            void* out, int B, int nq, int nkv, int np,
-                                            int page, int mp, int hd, int cluster, int per,
-                                            int stages, int smem, float scale, int qdt,
-                                            int kdt, int cdt, const void* slopes,
-                                            void* stream) {
-  return paged_entry(q, k_new, v_new, pool, tables, lengths, out, B, nq, nkv, np, page, mp, hd,
+extern "C" int awq_flash_decode_paged_alibi(const void* q, const void* k_new, const void* v_new,
+                                            const void* pool, void* dst, const void* tables,
+                                            const void* lengths, void* out, int B, int nq, int nkv,
+                                            int np, int page, int mp, int hd, int cluster, int per,
+                                            int stages, int smem, float scale, int qdt, int kdt,
+                                            int cdt, const void* slopes, void* stream) {
+  return paged_entry(q, k_new, v_new, pool, dst, tables, lengths, out, B, nq, nkv, np, page, mp, hd,
                      cluster, per, stages, smem, scale, qdt, kdt, cdt, slopes, stream);
 }
 
-extern "C" int awq_flash_decode_int8_alibi(const void* q, const void* k_new,
-                                           const void* v_new, const void* codes,
-                                           const void* scales, const void* lengths, void* out,
-                                           int B, int nq, int nkv, int T, int hd, int cluster,
-                                           int per, int stages, int smem, float scale, int qdt,
+extern "C" int awq_flash_decode_int8_alibi(const void* q, const void* k_new, const void* v_new,
+                                           const void* k_app, const void* v_app, const void* codes,
+                                           const void* scales, void* dst_codes, void* dst_scales,
+                                           const void* lengths, void* out, int B, int nq, int nkv,
+                                           int T, int hd, int cluster, int per, int stages,
+                                           int smem, float scale, int qdt, int adt,
                                            const void* slopes, void* stream) {
-  return int8_entry<false>(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, hd,
-                           cluster, per, stages, smem, scale, qdt, slopes, stream);
+  return int8_entry<false>(q, k_new, v_new, k_app, v_app, codes, scales, dst_codes, dst_scales,
+                           lengths, out, B, nq, nkv, T, hd, cluster, per, stages, smem, scale, qdt,
+                           adt, slopes, stream);
 }
 
 extern "C" int awq_flash_decode_alibi_dev(const void* q, const void* k_new, const void* v_new,
-                                          const void* cache, const void* lengths, void* out,
-                                          int B, int nq, int nkv, int T, int hd, int cluster,
-                                          int per, int stages, int smem, float scale, int qdt,
-                                          int kdt, int cdt, int want, int unit, int maxlen,
+                                          const void* cache, void* dst, const void* lengths,
+                                          void* out, int B, int nq, int nkv, int T, int hd,
+                                          int cluster, int per, int stages, int smem, float scale,
+                                          int qdt, int kdt, int cdt, int want, int unit, int maxlen,
                                           const void* slopes, void* stream) {
-  return decode_entry<true>(q, k_new, v_new, cache, lengths, out, B, nq, nkv, T, hd, cluster,
+  return decode_entry<true>(q, k_new, v_new, cache, dst, lengths, out, B, nq, nkv, T, hd, cluster,
                             per, stages, smem, scale, qdt, kdt, cdt, slopes, stream, want, unit,
                             maxlen);
 }
 
-extern "C" int awq_flash_decode_int8_alibi_dev(const void* q, const void* k_new,
-                                               const void* v_new, const void* codes,
-                                               const void* scales, const void* lengths,
-                                               void* out, int B, int nq, int nkv, int T, int hd,
-                                               int cluster, int per, int stages, int smem,
-                                               float scale, int qdt, int want, int unit,
-                                               int maxlen, const void* slopes, void* stream) {
-  return int8_entry<true>(q, k_new, v_new, codes, scales, lengths, out, B, nq, nkv, T, hd,
-                          cluster, per, stages, smem, scale, qdt, slopes, stream, want, unit,
-                          maxlen);
+extern "C" int awq_flash_decode_int8_alibi_dev(const void* q, const void* k_new, const void* v_new,
+                                               const void* k_app, const void* v_app,
+                                               const void* codes, const void* scales,
+                                               void* dst_codes, void* dst_scales,
+                                               const void* lengths, void* out, int B, int nq,
+                                               int nkv, int T, int hd, int cluster, int per,
+                                               int stages, int smem, float scale, int qdt, int adt,
+                                               int want, int unit, int maxlen, const void* slopes,
+                                               void* stream) {
+  return int8_entry<true>(q, k_new, v_new, k_app, v_app, codes, scales, dst_codes, dst_scales,
+                          lengths, out, B, nq, nkv, T, hd, cluster, per, stages, smem, scale, qdt,
+                          adt, slopes, stream, want, unit, maxlen);
 }
 
 extern "C" int awq_flash_prefill_alibi(const void* q, const void* cache, void* out, int B,

@@ -20,7 +20,7 @@
 //       sx = max(absmax(f32 x), 1e-5) * f32(1/127) (XLA's jit turns the
 //       JAX source's division by the constant 127 into this product),
 //       xq = clip(rint(x / sx), -128, 127) with a true division (__fdiv_rn),
-//       one block per row.
+//       one block per row, one pass over its x (below).
 //
 // What bounds them on the H100: at prefill lengths the product is bound by
 // tensor-core operations (2·M·IC·OC int8 operations against IC·OC weight
@@ -82,6 +82,8 @@
 #include "common.cuh"
 #include "hopper.cuh"
 
+#include <type_traits>
+
 namespace {
 
 // 128 + v for a code v in [0, 15], exact: the code in the mantissa of 2^7.
@@ -93,38 +95,232 @@ __device__ __forceinline__ int clamp_int(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-// With `perm`, channel 64c + 8s + r is written to 64c + 8r + s (K10's K
-// order within each 64-channel block; IC % 64 == 0).
-template <typename T>
-__global__ void __launch_bounds__(256) quant_per_token_kernel(
-    const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx, int IC,
-    int perm) {
-  __shared__ float red[8];
-  const int m = blockIdx.x, tid = threadIdx.x;
-  const T* row = x + (size_t)m * IC;
-  float amax = 0.f;
-  for (int k = tid; k < IC; k += 256) amax = fmaxf(amax, fabsf(to_f32<T>(row[k])));
-  amax = warp_max(amax);
-  if ((tid & 31) == 0) red[tid >> 5] = amax;
-  __syncthreads();
-  amax = red[0];
+// ---- quant_per_token: one pass -------------------------------------------
+//
+// Bound by device memory: a row's x read once and its codes written once
+// (M * IC * (sizeof(x) + 1) bytes). One block a row, a thread a 16-channel
+// chunk (two chunks, `NCH`, past 16384 channels): its x is loaded as
+// 16-byte vectors into registers, every load issued before any is used (one
+// memory latency a row, not a loop of them), the absmax taken on the raw
+// bits (a magnitude's bits order as its value: the sign masked off, an
+// integer max, two 16-bit halves at once for bf16 and f16), reduced by
+// shuffles and one shared-memory round, and the codes computed from the
+// registers by the true division (__fdiv_rn: JAX's `x / sx` under jit
+// divides by a tensor) and stored as a 16-byte word. A chunk of 16 keeps a
+// thread's chain of divisions short (each is a branch of its own, so they
+// run one after another; 64 a thread made short prompts slower than the
+// two-pass kernel). With `perm` (K10's channel order: 64c + 8s + r written
+// to 64c + 8r + s) a 64-channel block is the chunks of four adjacent lanes,
+// rows s = 2j, 2j + 1 of the 8 x 8 byte matrix on lane j: each lane packs
+// the 2 x 2 bytes every lane of its quad needs by byte permutes, three xor
+// shuffles trade them, and byte permutes assemble the lane's 16 output
+// bytes (rows r = 2j, 2j + 1), again one 16-byte store. A row whose IC is
+// no multiple of 16 (x rows not 16-byte aligned) takes the same chunking
+// with element loads and byte stores (VEC false). A row wider than the
+// registers of one block hold (QPT_ONE_PASS_IC channels: two chunks of
+// each of 1024 threads; 64 registers a thread at that size) is taken in
+// passes of that many channels (LOOP): the absmax over every pass, then
+// each pass loaded again and quantized, so such a row is read twice.
+constexpr int QPT_CHUNK = 16;          // channels a chunk
+constexpr int QPT_THREADS = 1024;
+constexpr int QPT_ONE_PASS_IC = 2 * QPT_THREADS * QPT_CHUNK;   // two chunks a thread
+
+// The bits of the largest magnitude among a 16-byte vector's elements: f32
+// (mag_bits), or bf16 / f16 in each halfword (mag_bits2: __vmaxu2 is a
+// per-halfword unsigned max); bits_f32 turns them into the float they
+// stand for.
+__device__ __forceinline__ uint32_t mag_bits(uint4 v) {
+  return max(max(v.x & 0x7fffffffu, v.y & 0x7fffffffu), max(v.z & 0x7fffffffu, v.w & 0x7fffffffu));
+}
+__device__ __forceinline__ uint32_t mag_bits2(uint4 v) {
+  return __vmaxu2(__vmaxu2(v.x & 0x7fff7fffu, v.y & 0x7fff7fffu),
+                  __vmaxu2(v.z & 0x7fff7fffu, v.w & 0x7fff7fffu));
+}
+template <typename T> __device__ __forceinline__ float bits_f32(uint32_t m);
+template <> __device__ __forceinline__ float bits_f32<float>(uint32_t m) {
+  return __uint_as_float(m);
+}
+template <> __device__ __forceinline__ float bits_f32<bf16>(uint32_t m) {
+  return __uint_as_float(max(m & 0xffffu, m >> 16) << 16);
+}
+template <> __device__ __forceinline__ float bits_f32<__half>(uint32_t m) {
+  return __half2float(__ushort_as_half(static_cast<unsigned short>(max(m & 0xffffu, m >> 16))));
+}
+
+// Element e of a 16-byte vector of T as f32.
+template <typename T> __device__ __forceinline__ float elem_f32(const uint4& v, int e) {
+  const uint32_t w = (&v.x)[e * (int)sizeof(T) / 4];
+  if constexpr (sizeof(T) == 4) return __uint_as_float(w);
+  else if constexpr (std::is_same<T, bf16>::value)
+    return __uint_as_float(e & 1 ? w & 0xffff0000u : w << 16);
+  else return __half2float(__ushort_as_half(static_cast<unsigned short>(e & 1 ? w >> 16 : w)));
+}
+
+__device__ __forceinline__ uint32_t code_byte(float x, float scale) {
+  return static_cast<uint32_t>(clamp_int(__float2int_rn(__fdiv_rn(x, scale)), -128, 127)) & 0xffu;
+}
+
+// r[i] for a lane-dependent i in [0, 4), by selects (no local memory).
+__device__ __forceinline__ uint32_t pick4(const uint32_t* r, int i) {
+  return i & 2 ? (i & 1 ? r[3] : r[2]) : (i & 1 ? r[1] : r[0]);
+}
+
+// K10's order within a 64-channel block held by a quad of lanes: lane
+// j = lane % 4 holds the codes of channels 16 j .. 16 j + 15, i.e. rows
+// s = 2 j, 2 j + 1 of the 8 x 8 matrix (channel 8 s + r), as w[0] = row
+// 2 j columns 0..3, w[1] = row 2 j columns 4..7, w[2], w[3] row 2 j + 1.
+// Returns the lane's 16 output bytes 16 j .. 16 j + 15: output rows r =
+// 2 j, 2 j + 1, each the bytes of rows s = 0..7 at column r. Every lane of
+// the warp must call it (xor shuffles over the whole warp).
+__device__ __forceinline__ uint4 perm_quad(const uint32_t* w) {
+  const int j = threadIdx.x & 3;
+  uint32_t recv[4];   // recv[d]: rows 2 (j ^ d), 2 (j ^ d) + 1 at columns 2 j, 2 j + 1
 #pragma unroll
-  for (int w = 1; w < 8; ++w) amax = fmaxf(amax, red[w]);
-  const float scale = __fmul_rn(fmaxf(amax, 1e-5f), 1.f / 127.f);
-  if (tid == 0) sx[m] = scale;
+  for (int d = 0; d < 4; ++d) {
+    const int t = j ^ d;                 // the lane this packet is for: its columns 2t, 2t+1
+    const uint32_t c = 2 * (t & 1);      // their byte within a word of four columns
+    const uint32_t a = t & 2 ? w[1] : w[0], b = t & 2 ? w[3] : w[2];
+    const uint32_t pk = __byte_perm(a, b, c | (c + 1) << 4 | (c + 4) << 8 | (c + 5) << 12);
+    recv[d] = d ? __shfl_xor_sync(0xffffffffu, pk, d) : pk;
+  }
+  // from lane i: [row 2i col 2j, row 2i col 2j+1, row 2i+1 col 2j, row 2i+1 col 2j+1]
+  const uint32_t p0 = pick4(recv, j), p1 = pick4(recv, j ^ 1), p2 = pick4(recv, j ^ 2),
+                 p3 = pick4(recv, j ^ 3);
+  return make_uint4(__byte_perm(p0, p1, 0x6420), __byte_perm(p2, p3, 0x6420),
+                    __byte_perm(p0, p1, 0x7531), __byte_perm(p2, p3, 0x7531));
+}
+
+// A thread's chunks of one pass: chunk i covers channels c0[i] .. c0[i] +
+// 15 of the row, c0[i] = base + 16 (t + i * blockDim.x), so the lanes of a
+// quad hold one 64-channel block (blockDim.x % 4 == 0), zeros past the row.
+// VEC: 16-byte vectors v; else f32 elements xs.
+template <typename T, bool VEC, int NCH>
+struct QptChunks {
+  static constexpr int EV = 16 / (int)sizeof(T);     // elements a 16-byte vector
+  static constexpr int NV = QPT_CHUNK / EV;          // vectors a chunk: 4 f32, 2 bf16 / f16
+  int c0[NCH];
+  uint4 v[NCH][NV];
+  float xs[VEC ? 1 : NCH][VEC ? 1 : QPT_CHUNK];
+
+  // Loads the pass at channel `base`, every load issued before any is
+  // used; returns the largest magnitude among them.
+  __device__ __forceinline__ float load(const T* row, int base, int IC) {
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) c0[i] = base + (threadIdx.x + i * (int)blockDim.x) * QPT_CHUNK;
+    if constexpr (VEC) {   // IC % 16 == 0: whole vectors, whole 16-byte words
+#pragma unroll
+      for (int i = 0; i < NCH; ++i)
+#pragma unroll
+        for (int j = 0; j < NV; ++j)
+          v[i][j] = c0[i] < IC ? __ldg(reinterpret_cast<const uint4*>(row + c0[i]) + j)
+                               : make_uint4(0u, 0u, 0u, 0u);
+      uint32_t mb = 0;
+#pragma unroll
+      for (int i = 0; i < NCH; ++i)
+#pragma unroll
+        for (int j = 0; j < NV; ++j) {
+          if constexpr (sizeof(T) == 4) mb = max(mb, mag_bits(v[i][j]));
+          else mb = __vmaxu2(mb, mag_bits2(v[i][j]));
+        }
+      return bits_f32<T>(mb);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NCH; ++i)
+#pragma unroll
+        for (int e = 0; e < QPT_CHUNK; ++e)
+          xs[i][e] = c0[i] + e < IC ? to_f32<T>(row[c0[i] + e]) : 0.f;
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < NCH; ++i)
+#pragma unroll
+        for (int e = 0; e < QPT_CHUNK; ++e) amax = fmaxf(amax, fabsf(xs[i][e]));
+      return amax;
+    }
+  }
+
+  // The codes of the loaded pass, stored into the row's `out`.
+  template <bool PERM>
+  __device__ __forceinline__ void store(int8_t* out, int IC, float scale) const {
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      if constexpr (VEC) {
+        uint32_t w[QPT_CHUNK / 4];   // channels 4 k .. 4 k + 3, the first in the low byte
+#pragma unroll
+        for (int k = 0; k < QPT_CHUNK / 4; ++k) {
+          uint32_t word = 0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 4 * k + e;
+            word |= code_byte(elem_f32<T>(v[i][c / EV], c % EV), scale) << (8 * e);
+          }
+          w[k] = word;
+        }
+        // past the row the lanes still take part in the quad's shuffles
+        const uint4 o = PERM ? perm_quad(w) : make_uint4(w[0], w[1], w[2], w[3]);
+        if (c0[i] < IC) *reinterpret_cast<uint4*>(out + c0[i]) = o;
+      } else {
+#pragma unroll
+        for (int e = 0; e < QPT_CHUNK; ++e)
+          if (c0[i] + e < IC) out[c0[i] + e] = static_cast<int8_t>(code_byte(xs[i][e], scale));
+      }
+    }
+  }
+};
+
+// One block a row; LOOP: the row in passes of NCH * blockDim.x * 16
+// channels, read twice (above).
+template <typename T, bool VEC, bool PERM, int NCH, bool LOOP>
+__global__ void __launch_bounds__(QPT_THREADS) quant_per_token_kernel(
+    const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx, int IC) {
+  __shared__ float red[QPT_THREADS / 32];
+  const int m = blockIdx.x, t = threadIdx.x;
+  const T* row = x + (size_t)m * IC;
   int8_t* out = xq + (size_t)m * IC;
-  for (int k = tid; k < IC; k += 256)
-    out[perm ? (k & ~63) | ((k & 7) << 3) | ((k >> 3) & 7) : k] = static_cast<int8_t>(
-        clamp_int(__float2int_rn(__fdiv_rn(to_f32<T>(row[k]), scale)), -128, 127));
+  const int span = NCH * (int)blockDim.x * QPT_CHUNK;   // channels a pass
+  const int passes = LOOP ? (IC + span - 1) / span : 1;
+  QptChunks<T, VEC, NCH> ch;
+  float amax = 0.f;
+  for (int p = 0; p < passes; ++p) amax = fmaxf(amax, ch.load(row, p * span, IC));
+  amax = warp_max(amax);
+  if ((t & 31) == 0) red[t >> 5] = amax;
+  __syncthreads();
+  amax = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) amax = fmaxf(amax, red[w]);
+  const float scale = __fmul_rn(fmaxf(amax, 1e-5f), 1.f / 127.f);
+  if (t == 0) sx[m] = scale;
+  for (int p = 0; p < passes; ++p) {
+    if constexpr (LOOP) ch.load(row, p * span, IC);
+    ch.template store<PERM>(out, IC, scale);
+  }
+}
+
+template <typename T, int NCH, bool LOOP>
+int quant_launch_n(const void* x, void* xq, void* sx, int M, int IC, bool vec, int perm,
+                   cudaStream_t st) {
+  const int threads =
+      LOOP ? QPT_THREADS : cdiv(cdiv(cdiv(IC, QPT_CHUNK), NCH), 32) * 32;
+  const T* xp = static_cast<const T*>(x);
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* s = static_cast<float*>(sx);
+  if (perm)
+    quant_per_token_kernel<T, true, true, NCH, LOOP><<<M, threads, 0, st>>>(xp, q, s, IC);
+  else if (vec)
+    quant_per_token_kernel<T, true, false, NCH, LOOP><<<M, threads, 0, st>>>(xp, q, s, IC);
+  else
+    quant_per_token_kernel<T, false, false, NCH, LOOP><<<M, threads, 0, st>>>(xp, q, s, IC);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int quant_launch(const void* x, void* xq, void* sx, int M, int IC, int perm,
                  cudaStream_t st) {
-  quant_per_token_kernel<T><<<M, 256, 0, st>>>(static_cast<const T*>(x),
-                                               static_cast<int8_t*>(xq),
-                                               static_cast<float*>(sx), IC, perm);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec = IC % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(xq) % 16 == 0;
+  if (perm && !vec) return static_cast<int>(cudaErrorInvalidValue);
+  if (IC <= QPT_THREADS * QPT_CHUNK)
+    return quant_launch_n<T, 1, false>(x, xq, sx, M, IC, vec, perm, st);
+  if (IC <= QPT_ONE_PASS_IC) return quant_launch_n<T, 2, false>(x, xq, sx, M, IC, vec, perm, st);
+  return quant_launch_n<T, 2, true>(x, xq, sx, M, IC, vec, perm, st);
 }
 
 // ---- K11: wgmma s8 fed by a TMA ring -----------------------------------
@@ -629,12 +825,14 @@ int k10_launch(const void* xq, const void* sx, const void* qw, const void* scale
 }  // namespace
 
 // Caller guarantees: x [M, IC] contiguous of dtype code `dtype` (0 f32,
-// 1 bf16, 2 f16), xq int8 [M, IC], sx f32 [M]; M >= 1; with perm (K10's
-// channel order within 64-blocks) IC % 64 == 0.
+// 1 bf16, 2 f16), xq int8 [M, IC], sx f32 [M]; M >= 1, IC >= 1; with perm
+// (K10's channel order within 64-blocks) IC % 64 == 0 and x, xq 16-byte
+// aligned.
 extern "C" int awq_quant_per_token(const void* x, void* xq, void* sx, int M, int IC,
                                    int dtype, int perm, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (perm && IC % 64) return static_cast<int>(cudaErrorInvalidValue);
+  if ((perm && IC % 64) || IC < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case 0: return quant_launch<float>(x, xq, sx, M, IC, perm, st);
     case 1: return quant_launch<bf16>(x, xq, sx, M, IC, perm, st);

@@ -19,30 +19,30 @@ cache; this one returns the same tensor it was given).
   window of 2..32
   tokens is one launch of K5. Both write the cache in place.
 - otherwise the stacked per-kernel path: per layer RMSNorm -> fused QKV
-  (K1) -> rope -> flash decode (K2, current token's k/v as operands, then
-  a one-position in-place append) or in-place chunk append + flash
-  prefill (K3) -> o-proj (K1) -> RMSNorm -> fused gate/up (K1) ->
+  (K1) -> rope -> flash decode (K2, current token's k/v as operands,
+  appended to the layer's cache by the same launch) or in-place chunk
+  append + flash prefill (K3) -> o-proj (K1) -> RMSNorm -> fused gate/up (K1) ->
   SiLU·mul -> down (K1).
 
 :func:`decode_step_batched` is the continuous-batching step: one token per
 row, every row at its own position. With 2..64 rows under the same gate it
 is ONE launch of K6 (``ops/megakernel_batched.py``), which also writes each
-row's k/v in place; otherwise the stacked path with per-row rope rows, K2
-over per-row lengths and one deferred append of all layers through K7
-(``ops/cache_append.py``).
+row's k/v in place; otherwise the stacked path with per-row rope rows and
+K2 over per-row lengths, each launch appending its layer's current token
+(K7's write, ``ops/cache_append.py``, fused into K2).
 
 :func:`decode_step_paged` is the same step over a PAGED cache: a page pool
 ``[L, 2, NP, n_kv, page, hd]`` and a block table ``[B, MP]`` per row. It
 takes K6's paged mode (2..64 rows, pages of a power-of-two size), or the
-stacked path with K8 (``flash_decode_paged``) per layer and one paged K7
-append.
+stacked path with K8 (``flash_decode_paged``) per layer, which appends
+into the layer's pages.
 
 The int8 KV cache, :class:`KVCache8` (int8 codes and f32 scales, one per
 position and head), rides :func:`forward` and :func:`decode_step_batched`:
 decode through K4's and K6's int8 modes, or the stacked path with K9
-(``flash_decode_int8``) per layer and one K7 int8 append; the current
-token's k/v enter its own attention in full precision and are quantized
-after every layer has run, as on the TPU. Prefill quantizes the chunk and
+(``flash_decode_int8``) per layer, which quantizes the current token into
+the layer's cache after attending to it in full precision, as the TPU's
+append after the layer scan does. Prefill quantizes the chunk and
 writes it first, then attends over the dequantized prefix with K3. There
 is no paged int8 pool and no int8 K5, as in the JAX package.
 
@@ -135,19 +135,12 @@ from awq_tpu_torch.models.layers import (
     rope_table,
     update_kv_cache,
 )
-from awq_tpu_torch.ops.cache_append import (
-    batched_cache_append,
-    batched_cache_append_int8,
-    batched_cache_append_int8_plain,
-    batched_cache_append_plain,
-    dequantize_kv,
-    quantize_kv,
-)
-from awq_tpu_torch.ops.decode_attn import flash_decode, flash_decode_plain
+from awq_tpu_torch.ops.cache_append import dequantize_kv, quantize_kv
+from awq_tpu_torch.ops.decode_attn import flash_decode, flash_decode_append_plain
 from awq_tpu_torch.ops.decode_attn import flash_decode_layer, flash_decode_layer_plain
 from awq_tpu_torch.ops.decode_attn import flash_decode_supported
-from awq_tpu_torch.ops.decode_attn import flash_decode_int8, flash_decode_int8_plain
-from awq_tpu_torch.ops.decode_attn import flash_decode_paged, flash_decode_paged_plain
+from awq_tpu_torch.ops.decode_attn import flash_decode_int8, flash_decode_int8_append_plain
+from awq_tpu_torch.ops.decode_attn import flash_decode_paged, flash_decode_paged_append_plain
 from awq_tpu_torch.ops.decode_attn import flash_prefill, flash_prefill_plain
 from awq_tpu_torch.ops import megakernel as mk
 from awq_tpu_torch.ops import megakernel_batched as mkb
@@ -773,19 +766,23 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     ``layer_ids`` (all by default): returns the new residual and writes
     each layer's k/v into the cache in place.
 
-    Over a :class:`KVCache8`, decode (``S == 1``) takes K9 per layer with
-    the current token in full precision and ONE K7 int8 append of every
-    layer after the loop; prefill quantizes the chunk into the cache, then
-    runs K3 over the layer's dequantized prefix ``[0, start_pos + S)``.
+    Decode (``S == 1``) takes K2 per layer with the current token as an
+    operand, and the same launch appends it to the layer's cache after its
+    attention (K7's write, fused: no stacking of the layers' k/v and no
+    launch of its own); the plain path attends, then appends (JAX writes
+    after its layer scan, which is the same, a layer reading only its own
+    cache). Over a :class:`KVCache8` K9 takes K2's place, the current token
+    in full precision, its append quantized; prefill quantizes the chunk
+    into the cache, then runs K3 over the layer's dequantized prefix ``[0,
+    start_pos + S)``.
 
     With ``lengths [B]`` (int32 on the cache's device; ``S == 1``) row ``b``
     decodes at its own position ``lengths[b]`` and ``start_pos`` is not
-    read: per-row rope rows, K2 over the per-row prefixes with the current
-    token as an operand, and ONE append of every layer's k/v after the loop
-    (K7). ``max_length`` (at least ``lengths.max()``, from the caller's host
-    copy) sizes K2's grid without a device sync. With ``tables [B, MP]`` as
-    well, ``cache`` is a page pool and K8 and the paged K7 take K2's and
-    K7's places. ``one_position`` says every row sits at ``lengths[0]``
+    read: per-row rope rows, K2 over the per-row prefixes, each row's
+    append at its own position. ``max_length`` (at least ``lengths.max()``,
+    from the caller's host copy) sizes K2's grid without a device sync. With
+    ``tables [B, MP]`` as well, ``cache`` is a page pool and K8 takes K2's
+    place, appending into the rows' pages. ``one_position`` says every row sits at ``lengths[0]``
     (``decode_step``): K2 and K9 then split by the length they read, and
     where K2 cannot take the heads K14 reads that length on the device and
     splits by it; ``max_length`` only sizes their grids. With ``tp_axis``
@@ -807,9 +804,9 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     ``awq_tpu/models/llama.py:681``): the current token is quantized into
     the cache first and attended at its dequantized value (:900-947). K9
     then takes ``dequantize_kv(quantize_kv(k))`` as its current token: the
-    same scores and weights as attending the written row, while the append
-    after the loop still quantizes the full-precision k/v, so the codes are
-    the quantize-first order's. The per-row batched step follows JAX's
+    same scores and weights as attending the written row, while its append
+    quantizes the full-precision k/v (``k_app``, ``v_app``), so the codes
+    are the quantize-first order's. The per-row batched step follows JAX's
     ``decode_step_batched``, whose XLA attention takes the current token in
     full precision (``xla_attn``, :1198-1224, :1262-1267), as every rope
     family's K9 step does."""
@@ -820,9 +817,9 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     layers = params["layers"]
     plain = impl == "plain"
     q8 = isinstance(cache, KVCache8)
-    decode = flash_decode_plain if plain else flash_decode
-    decode8 = flash_decode_int8_plain if plain else flash_decode_int8
-    decode_paged = flash_decode_paged_plain if plain else flash_decode_paged
+    decode = flash_decode_append_plain if plain else flash_decode
+    decode8 = flash_decode_int8_append_plain if plain else flash_decode_int8
+    decode_paged = flash_decode_paged_append_plain if plain else flash_decode_paged
     prefill = flash_prefill_plain if plain else flash_prefill
     slopes = _slopes(cfg, dev)
     rope = cfg.pos_embed == "rope"      # ALiBi and learned positions run none
@@ -863,7 +860,6 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
             cos, sin = _rope_cached(cfg, t_max, dev)
             positions = lengths.long()[:, None]
         row_lengths = lengths
-    kv_new = []       # per-row decode: every layer's [2, B, n_kv, hd]
 
     # where K2 cannot take the shape, a single-position step at one shared
     # position writes its k/v and attends over the layer's cache
@@ -916,8 +912,9 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                 attn = attention(q, kv[0], kv[1], start_pos, slopes=slopes)
             attn = attn.reshape(b, 1, nq * hd)
         elif s == 1:
-            # the current token rides as an operand; append it afterwards
-            # (over an int8 cache in full precision: the append quantizes it)
+            # the current token rides as an operand, and the launch appends
+            # it to the layer's cache after attending (over an int8 cache in
+            # full precision: the append quantizes it)
             q1 = q[:, 0].contiguous()
             if q8:
                 k1, v1 = k[:, 0].contiguous(), v[:, 0].contiguous()
@@ -925,7 +922,7 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                 if quantize_first:
                     ka, va = (dequantize_kv(*quantize_kv(x), dt) for x in (k1, v1))
                 attn = decode8(q1, ka, va, kv, kv_s, row_lengths, max_length=max_length,
-                               slopes=slopes, **by_length)
+                               slopes=slopes, k_app=k1, v_app=v1, **by_length)
             else:
                 k1, v1 = k[:, 0].to(kv.dtype).contiguous(), v[:, 0].to(kv.dtype).contiguous()
                 if tables is None:
@@ -935,10 +932,6 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                     attn = decode_paged(q1, k1, v1, cache, tables, idx, row_lengths,
                                         max_length=max_length, slopes=slopes)
             attn = attn.reshape(b, 1, nq * hd)
-            if lengths is None and not q8:
-                update_kv_cache(kv, k, v, start_pos)
-            else:
-                kv_new.append(torch.stack([k1, v1]))
         elif q8:
             # quantize and write the chunk, then attend over the dequantized
             # prefix, the chunk's own quantized positions included
@@ -969,12 +962,6 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
             hm = torch.nn.functional.silu(g.float()).to(dt) * u
         m = lin_row("down", idx, hm)
         h = h + attn_out + m if cfg.parallel_block else h + m
-    if kv_new and q8:
-        append8 = batched_cache_append_int8_plain if plain else batched_cache_append_int8
-        append8(cache.data, cache.scales, torch.stack(kv_new), row_lengths)
-    elif kv_new:
-        append = batched_cache_append_plain if plain else batched_cache_append
-        append(cache, torch.stack(kv_new), lengths, tables)
     return h
 
 
@@ -1007,8 +994,8 @@ def decode_step(
     :func:`~awq_tpu_torch.ops.megakernel.megakernel_supported`) splits its
     attention by the position it reads, so its step gives the bits of
     :func:`forward`'s at that position; ``max_length`` sizes its workspace.
-    So do the stacked path's attention kernels, K2 (K9 over an int8 cache)
-    with one K7 append, or K14 where K2 cannot take the heads (falcon,
+    So do the stacked path's attention kernels, K2 (K9 over an int8 cache),
+    each appending its layer's token, or K14 where K2 cannot take the heads (falcon,
     StarCoder, BLOOM): their grids are planned for ``max_length`` and each
     splits by the length it reads, as :func:`forward` plans that length on
     the host. ``impl`` as in :func:`forward`; the plain versions read
@@ -1157,7 +1144,7 @@ def decode_step_paged(
 
     2..64 rows under K6's paged gate (on the card, a bf16 pool) are ONE
     launch of K6's paged mode (no append after it); otherwise the stacked
-    path with K8 per layer and one paged K7 append. ``impl`` as in
+    path with K8 per layer, each appending into the rows' pages. ``impl`` as in
     :func:`forward`. A :class:`KVCache8` pool raises: the JAX package has
     no paged int8 cache either."""
     if isinstance(pool, KVCache8) or pool.dtype == torch.int8:

@@ -40,6 +40,26 @@ its valid prefix.
   64 or 128 and up to 128 query heads per kv head (falcon-7b: 71 over one
   kv head at head_dim 64). ``layers.attention`` calls it at S = 1.
 
+K2, K8 and K9 also APPEND the current token to the layer's cache, in
+place, after their attention has read it: row ``b``'s k/v at position
+``min(max(len_b, 0), T - 1)`` in the cache's dtype (K8: at page
+``tables[b, p // page]``, offset ``p % page``, ``p`` clamped to ``MP * page -
+1``; K9: :func:`~awq_tpu_torch.ops.cache_append.quantize_kv`'s codes and
+scale). It is the write JAX makes after its layer scan
+(``awq_tpu/models/llama.py:1156``, ``:1313-1332``) and the port's K7
+(``ops/cache_append.py``) made in a launch of its own over every layer,
+fused into the attention's launch by cluster rank 0 of each (row, kv head)
+after the cluster's last barrier, so the attention never sees it. The CPU
+path keeps JAX's order: the plain attention, then the plain append
+(``*_append_plain``). The wrappers count each append under K7's names
+(``cache_append.LAUNCHES``: ``cache_append``, ``cache_append_paged``,
+``cache_append_int8``). ``append_to`` is a seam for the checks alone: no
+caller on the serving path passes it. It sends the write to another tensor
+of the cache's layout, so that the card tests and ``chip_smoke.py`` can hold
+the output of a launch that appended in place, bit for bit, against one
+whose attention read a cache that nothing wrote: the proof that the
+attention never sees its own write.
+
 K2, K8, K9 and K14 are one split-and-merge body, one launch a call: the
 positions of each (row, kv head) are cut into slices whose blocks form a
 thread-block cluster and merge their online-softmax states through
@@ -84,10 +104,17 @@ from typing import Optional, Union
 
 import torch
 
+from awq_tpu_torch.ops import cache_append
+from awq_tpu_torch.ops.cache_append import (
+    batched_cache_append_int8_plain,
+    batched_cache_append_plain,
+)
+
 #: Launches of K2, K8, K9, K3 and K14, counted where the wrappers launch them;
 #: with ALiBi slopes they count under ``<name>_alibi``, and K2, K8 and K9 at
 #: head_dim 64 or a group wider than 32 (the unit ``decode_attn_wide``) under
-#: ``<name>_wide``.
+#: ``<name>_wide``. The appends of K2, K8 and K9 count in
+#: ``cache_append.LAUNCHES``.
 LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0, "flash_decode_int8": 0,
             "flash_prefill": 0, "flash_decode_layer": 0, "flash_decode_alibi": 0,
             "flash_prefill_alibi": 0, "flash_decode_layer_alibi": 0,
@@ -206,6 +233,66 @@ def flash_decode_paged_plain(q: torch.Tensor, k_new: torch.Tensor,
     cache = gather_pages(pool, tables, int(layer), n_pages)
     return flash_decode_plain(q, k_new.to(pool.dtype), v_new.to(pool.dtype), cache,
                               lengths, max_length=t, slopes=slopes)
+
+
+def _append_plain(cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lengths: torch.Tensor, tables: Optional[torch.Tensor] = None) -> None:
+    """K7's plain version over ONE layer ``cache [2, B, n_kv, T, hd]`` (or a
+    pool layer ``[2, NP, n_kv, page, hd]`` with ``tables``): the current
+    token ``k``, ``v [B, n_kv, hd]`` at each row's clamped position, in the
+    cache's dtype, in place."""
+    batched_cache_append_plain(cache[None], torch.stack([k, v])[None], lengths, tables)
+
+
+def flash_decode_append_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                              cache: torch.Tensor, lengths: torch.Tensor,
+                              max_length: Optional[int] = None,
+                              slopes: Optional[torch.Tensor] = None, by_length: bool = False,
+                              append_to: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`flash_decode` in JAX's order: K2's plain
+    attention, then K7's plain append of the current token into ``cache``
+    (or ``append_to``). ``by_length`` changes nothing here."""
+    out = flash_decode_plain(q, k_new, v_new, cache, lengths, max_length, slopes)
+    _append_plain(cache if append_to is None else append_to, k_new, v_new, lengths)
+    return out
+
+
+def flash_decode_int8_append_plain(q: torch.Tensor, k_new: torch.Tensor,
+                                   v_new: torch.Tensor, cache: torch.Tensor,
+                                   scales: torch.Tensor, lengths: torch.Tensor,
+                                   max_length: Optional[int] = None,
+                                   slopes: Optional[torch.Tensor] = None,
+                                   by_length: bool = False,
+                                   k_app: Optional[torch.Tensor] = None,
+                                   v_app: Optional[torch.Tensor] = None,
+                                   append_to=None) -> torch.Tensor:
+    """Plain version of :func:`flash_decode_int8` in JAX's order: K9's plain
+    attention, then K7's plain int8 append (``quantize_kv``) of ``k_app``,
+    ``v_app`` (by default ``k_new``, ``v_new``) into ``(cache, scales)`` (or
+    ``append_to``, a pair of the same layouts)."""
+    out = flash_decode_int8_plain(q, k_new, v_new, cache, scales, lengths, max_length, slopes)
+    codes, scl = (cache, scales) if append_to is None else append_to
+    kv = torch.stack([k_new if k_app is None else k_app, v_new if v_app is None else v_app])
+    batched_cache_append_int8_plain(codes[None], scl[None], kv[None], lengths)
+    return out
+
+
+def flash_decode_paged_append_plain(q: torch.Tensor, k_new: torch.Tensor,
+                                    v_new: torch.Tensor, pool: torch.Tensor,
+                                    tables: torch.Tensor, layer: int, lengths: torch.Tensor,
+                                    max_length: Optional[int] = None,
+                                    slopes: Optional[torch.Tensor] = None,
+                                    append_to: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`flash_decode_paged` in JAX's order: K8's
+    plain attention, then K7's plain paged append of the current token
+    (rounded to the pool's dtype) into layer ``layer`` of ``pool`` (or of
+    ``append_to``)."""
+    out = flash_decode_paged_plain(q, k_new, v_new, pool, tables, layer, lengths, max_length,
+                                   slopes)
+    dst = pool if append_to is None else append_to
+    _append_plain(dst[int(layer)], k_new.to(dst.dtype), v_new.to(dst.dtype), lengths,
+                  tables.to(dst.device))
+    return out
 
 
 def flash_prefill_plain(q: torch.Tensor, cache: torch.Tensor,
@@ -542,17 +629,57 @@ def _split_args(plan: DecodePlan) -> tuple:
     return (plan.want, plan.unit, plan.max_length) if plan.by_length else ()
 
 
+def _check_kv_new(what: str, k_new: torch.Tensor, v_new: torch.Tensor, shape: tuple,
+                  dev, dtypes=tuple(_DTYPE_CODE), names=("k_new", "v_new")) -> None:
+    """Two ``shape`` tensors of one dtype of ``dtypes``, contiguous on ``dev``."""
+    _check(k_new.dtype == v_new.dtype and k_new.dtype in dtypes, what,
+           f"{names[0]} and {names[1]} must share one of {', '.join(map(str, dtypes))}")
+    for name, kv in zip(names, (k_new, v_new)):
+        _check(tuple(kv.shape) == shape and kv.is_contiguous() and kv.device == dev, what,
+               f"{name} must be contiguous {list(shape)} on {dev}")
+
+
+def _check_append_to(what: str, dst: torch.Tensor, like: torch.Tensor) -> None:
+    """``append_to`` must have the layout it stands in for."""
+    _check(dst.shape == like.shape and dst.dtype == like.dtype and dst.device == like.device
+           and dst.is_contiguous() and dst.data_ptr() % 16 == 0, what,
+           f"append_to must be a contiguous, 16-byte aligned {like.dtype} "
+           f"{tuple(like.shape)} on {like.device}")
+
+
+def _launch(what: str, lib, entry: str, ptrs: tuple, ints: tuple, scale: float,
+            codes: tuple, tail_ptrs: tuple, plan: DecodePlan, dev) -> None:
+    """One K2, K8 or K9 launch: the C entry's pointers, ints, scale, dtype
+    codes (and a ``by_length`` plan's split), slopes, stream."""
+    from awq_tpu_torch import _build
+
+    fn = getattr(lib, entry)
+    tail = codes + _split_args(plan)
+    _build.declare(fn, *([_build.P] * len(ptrs)), *([_build.I] * len(ints)), _build.F,
+                   *([_build.I] * len(tail)), *([_build.P] * len(tail_ptrs)), _build.P)
+    err = fn(*ptrs, *ints, scale, *tail, *tail_ptrs, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        _build.check(lib, err, f"{what} ({plan.describe()})")
+
+
 def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                  cache: torch.Tensor, lengths: torch.Tensor,
                  max_length: Optional[int] = None,
                  slopes: Optional[torch.Tensor] = None,
-                 by_length: bool = False) -> torch.Tensor:
+                 by_length: bool = False,
+                 append_to: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K2 wrapper. ``q [B, nq, hd]``, ``k_new``/``v_new [B, nkv, hd]`` (the
     current token, post-rope), ``cache [2, B, nkv, T, hd]`` (one layer),
     ``lengths [B]`` int32 cache-prefix lengths. ``max_length`` (at least
     ``lengths.max()``) sizes the split-K grid without a device sync.
     ``slopes``: ALiBi slopes f32 ``[nq]`` or None. head_dim 64 or 128, up
     to 128 q heads a kv head (32 with slopes). Returns ``[B, nq, hd]``.
+
+    After the attention the launch appends the current token to ``cache``
+    in place (``cache[:, b, :, min(max(len_b, 0), T - 1)] = k_new, v_new``
+    in the cache's dtype), or to ``append_to`` (a tensor of the cache's
+    layout; the checks' seam, see the module's docstring), leaving
+    ``cache`` as it was.
 
     ``by_length`` (``max_length`` given; rows that share one length, as a
     single-position step's): the kernel splits each row by the length it
@@ -562,7 +689,8 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     that length on the host. Head_dim 128 and at most 32 q heads a kv
     head (:func:`flash_decode_supported`), or ALiBi slopes."""
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k_new, v_new, cache, lengths, max_length, slopes)
+        return flash_decode_append_plain(q, k_new, v_new, cache, lengths, max_length, slopes,
+                                         append_to=append_to)
     what = "flash_decode"
     _check(q.is_cuda, what, f"unsupported device {q.device}")
     _check_common(what, q, cache, HEAD_DIMS)
@@ -571,15 +699,12 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     _check(cache.shape[1] == b, what,
            f"q {tuple(q.shape)} does not fit cache {tuple(cache.shape)}")
     _check_decode_group(what, nq, nkv, slopes is not None)
-    _check(k_new.dtype == v_new.dtype and k_new.dtype in _DTYPE_CODE, what,
-           "k_new and v_new must share one of f32, bf16, f16")
-    for name, kv in (("k_new", k_new), ("v_new", v_new)):
-        _check(tuple(kv.shape) == (b, nkv, hd)
-               and kv.is_contiguous() and kv.device == q.device, what,
-               f"{name} must be contiguous [{b}, {nkv}, {hd}]")
+    _check_kv_new(what, k_new, v_new, (b, nkv, hd), q.device)
     _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,)
            and lengths.device == q.device and lengths.is_contiguous(), what,
            f"lengths must be int32 [{b}] on {q.device}")
+    dst = cache if append_to is None else append_to
+    _check_append_to(what, dst, cache)
     _check(max_length is not None or not by_length, what, "by_length needs max_length")
     if max_length is None:
         max_length = int(lengths.max())
@@ -588,22 +713,16 @@ def flash_decode(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     plan = decode_plan(b, nq, nkv, hd, max_length, cache.element_size(), PLAN_UNIT[what],
                        sms=_sm_count(q.device), by_length=by_length)
     out = torch.empty_like(q)
-
-    from awq_tpu_torch import _build
-
     lib, entry, hd_arg, tail, tag = _decode_unit(sptr, hd, nq // nkv, "awq_flash_decode",
                                                  by_length)
-    fn = getattr(lib, entry)
-    _build.declare(fn, *([_build.P] * 6), *([_build.I] * (8 + len(hd_arg))), _build.F,
-                   *([_build.I] * (3 + 3 * by_length)), *([_build.P] * len(tail)), _build.P)
-    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), b, nq, nkv, t, *hd_arg, *_plan_args(plan),
-             1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_new.dtype],
-             _DTYPE_CODE[cache.dtype], *_split_args(plan), *tail,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        _build.check(lib, err, f"{what} ({plan.describe()})")
+    _launch(what, lib, entry,
+            (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(), dst.data_ptr(),
+             lengths.data_ptr(), out.data_ptr()),
+            (b, nq, nkv, t, *hd_arg, *_plan_args(plan)), 1.0 / math.sqrt(hd),
+            (_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_new.dtype], _DTYPE_CODE[cache.dtype]), tail,
+            plan, q.device)
     LAUNCHES[what + tag] += 1
+    cache_append.LAUNCHES["cache_append"] += 1
     return out
 
 
@@ -611,17 +730,26 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                       cache: torch.Tensor, scales: torch.Tensor, lengths: torch.Tensor,
                       max_length: Optional[int] = None,
                       slopes: Optional[torch.Tensor] = None,
-                      by_length: bool = False) -> torch.Tensor:
+                      by_length: bool = False,
+                      k_app: Optional[torch.Tensor] = None,
+                      v_app: Optional[torch.Tensor] = None,
+                      append_to=None) -> torch.Tensor:
     """K9 wrapper. As :func:`flash_decode`, over one layer of an int8 cache:
     ``cache [2, B, nkv, T, hd]`` int8 codes and ``scales [2, B, nkv, T]``
     f32. ``k_new``/``v_new`` (in q's dtype) are the current token: in full
-    precision where the caller's append quantizes it after the step, or
-    already dequantized (``models/llama.py``'s ALiBi single-position step).
-    ``slopes``: ALiBi slopes f32 ``[nq]`` or None. ``by_length`` as in
-    :func:`flash_decode`, at every shape K9 takes."""
+    precision, or already dequantized (``models/llama.py``'s ALiBi
+    single-position step). ``slopes``: ALiBi slopes f32 ``[nq]`` or None.
+    ``by_length`` as in :func:`flash_decode`, at every shape K9 takes.
+
+    After the attention the launch quantizes ``k_app``, ``v_app`` (f32,
+    bf16 or f16 ``[B, nkv, hd]``; by default ``k_new``, ``v_new``) as
+    :func:`~awq_tpu_torch.ops.cache_append.quantize_kv` does and writes the
+    codes and scales at each row's clamped position, in place, or into
+    ``append_to``, a ``(codes, scales)`` pair of the same layouts."""
     if q.device.type == "cpu":
-        return flash_decode_int8_plain(q, k_new, v_new, cache, scales, lengths,
-                                       max_length, slopes)
+        return flash_decode_int8_append_plain(q, k_new, v_new, cache, scales, lengths,
+                                              max_length, slopes, k_app=k_app, v_app=v_app,
+                                              append_to=append_to)
     what = "flash_decode_int8"
     _check(q.is_cuda, what, f"unsupported device {q.device}")
     b, nq, hd = q.shape
@@ -636,15 +764,19 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
            f"{tuple(scales.shape)}")
     _check(q.dtype in _DTYPE_CODE, what, f"q must be f32, bf16 or f16, got {q.dtype}")
     _check_decode_group(what, nq, nkv, slopes is not None)
-    for name, kv in (("k_new", k_new), ("v_new", v_new)):
-        _check(tuple(kv.shape) == (b, nkv, hd) and kv.dtype == q.dtype, what,
-               f"{name} must be {q.dtype} [{b}, {nkv}, {hd}]")
+    _check_kv_new(what, k_new, v_new, (b, nkv, hd), q.device, (q.dtype,))
+    k_app = k_new if k_app is None else k_app
+    v_app = v_new if v_app is None else v_app
+    _check_kv_new(what, k_app, v_app, (b, nkv, hd), q.device, names=("k_app", "v_app"))
     _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,), what,
            f"lengths must be int32 [{b}]")
     _check(all(x.device == q.device and x.is_contiguous()
-               for x in (q, k_new, v_new, cache, scales, lengths)), what,
+               for x in (q, cache, scales, lengths)), what,
            f"operands must be contiguous on {q.device}")
     _check(cache.data_ptr() % 16 == 0, what, "cache must be 16-byte aligned")
+    dst, dst_s = (cache, scales) if append_to is None else append_to
+    _check_append_to(what, dst, cache)
+    _check_append_to(what, dst_s, scales)
     _check(max_length is not None or not by_length, what, "by_length needs max_length")
     if max_length is None:
         max_length = int(lengths.max())
@@ -653,21 +785,16 @@ def flash_decode_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
     plan = decode_plan(b, nq, nkv, hd, max_length, 1, PLAN_UNIT[what],
                        sms=_sm_count(q.device), by_length=by_length)
     out = torch.empty_like(q)
-
-    from awq_tpu_torch import _build
-
     lib, entry, hd_arg, tail, tag = _decode_unit(sptr, hd, nq // nkv, "awq_flash_decode_int8",
                                                  by_length)
-    fn = getattr(lib, entry)
-    _build.declare(fn, *([_build.P] * 7), *([_build.I] * (8 + len(hd_arg))), _build.F,
-                   *([_build.I] * (1 + 3 * by_length)), *([_build.P] * len(tail)), _build.P)
-    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
-             scales.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, nq, nkv, t, *hd_arg,
-             *_plan_args(plan), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype], *_split_args(plan),
-             *tail, torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        _build.check(lib, err, f"{what} ({plan.describe()})")
+    _launch(what, lib, entry,
+            (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_app.data_ptr(),
+             v_app.data_ptr(), cache.data_ptr(), scales.data_ptr(), dst.data_ptr(),
+             dst_s.data_ptr(), lengths.data_ptr(), out.data_ptr()),
+            (b, nq, nkv, t, *hd_arg, *_plan_args(plan)), 1.0 / math.sqrt(hd),
+            (_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_app.dtype]), tail, plan, q.device)
     LAUNCHES[what + tag] += 1
+    cache_append.LAUNCHES["cache_append_int8"] += 1
     return out
 
 
@@ -675,17 +802,26 @@ def flash_decode_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
                        pool: torch.Tensor, tables: torch.Tensor, layer: int,
                        lengths: torch.Tensor,
                        max_length: Optional[int] = None,
-                       slopes: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       slopes: Optional[torch.Tensor] = None,
+                       append_to: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K8 wrapper, JAX's signature. ``q [B, nq, hd]``, ``k_new``/``v_new
     [B, nkv, hd]`` (the current token, post-rope), ``pool [L, 2, NP, nkv,
     page, hd]``, ``tables [B, MP]`` int32 page ids (in ``[0, NP)``: not
     checked, that would take a sync), ``layer`` the pool's layer,
     ``lengths [B]`` int32. ``max_length`` (at least ``lengths.max()``)
     sizes the split-K grid without a device sync. ``slopes``: ALiBi slopes
-    f32 ``[nq]`` or None. Returns ``[B, nq, hd]``."""
+    f32 ``[nq]`` or None. Returns ``[B, nq, hd]``.
+
+    After the attention the launch appends the current token (rounded to
+    the pool's dtype) to layer ``layer`` of ``pool`` in place, or of
+    ``append_to`` (a tensor of the pool's layout): row ``b``'s position
+    ``p = min(max(len_b, 0), MP * page - 1)`` at page ``tables[b, p //
+    page]``, offset ``p % page``. Rows that share a page (freed rows all
+    point at page 0, the trash page) race there, and their outputs are
+    not defined; a live row's pages are its own."""
     if q.device.type == "cpu":
-        return flash_decode_paged_plain(q, k_new, v_new, pool, tables, layer, lengths,
-                                        max_length, slopes)
+        return flash_decode_paged_append_plain(q, k_new, v_new, pool, tables, layer, lengths,
+                                               max_length, slopes, append_to=append_to)
     what = "flash_decode_paged"
     _check(q.is_cuda, what, f"unsupported device {q.device}")
     layer = int(layer)
@@ -696,12 +832,7 @@ def flash_decode_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
     b, nq, hd = q.shape
     np_, nkv, page = pool.shape[2], pool.shape[3], pool.shape[4]
     _check_decode_group(what, nq, nkv, slopes is not None)
-    _check(k_new.dtype == v_new.dtype and k_new.dtype in _DTYPE_CODE, what,
-           "k_new and v_new must share one of f32, bf16, f16")
-    for name, kv in (("k_new", k_new), ("v_new", v_new)):
-        _check(tuple(kv.shape) == (b, nkv, hd)
-               and kv.is_contiguous() and kv.device == q.device, what,
-               f"{name} must be contiguous [{b}, {nkv}, {hd}]")
+    _check_kv_new(what, k_new, v_new, (b, nkv, hd), q.device)
     _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,)
            and lengths.device == q.device and lengths.is_contiguous(), what,
            f"lengths must be int32 [{b}] on {q.device}")
@@ -709,6 +840,8 @@ def flash_decode_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
            and tables.shape[1] > 0 and tables.device == q.device
            and tables.is_contiguous(), what,
            f"tables must be contiguous int32 [{b}, MP] on {q.device}")
+    dst = pool if append_to is None else append_to
+    _check_append_to(what, dst, pool)
     mp = tables.shape[1]
     if max_length is None:
         max_length = int(lengths.max())
@@ -717,23 +850,17 @@ def flash_decode_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor
     plan = decode_plan(b, nq, nkv, hd, max_length, pool.element_size(), PLAN_UNIT[what],
                        page, sms=_sm_count(q.device))
     out = torch.empty_like(q)
-
-    from awq_tpu_torch import _build
-
     lib, entry, hd_arg, tail, tag = _decode_unit(sptr, hd, nq // nkv, "awq_flash_decode_paged")
-    fn = getattr(lib, entry)
-    _build.declare(fn, *([_build.P] * 7), *([_build.I] * (10 + len(hd_arg))), _build.F,
-                   *([_build.I] * 3), *([_build.P] * len(tail)), _build.P)
     # the plain version rounds the current token to the pool dtype first
     k_new, v_new = k_new.to(pool.dtype), v_new.to(pool.dtype)
-    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), pool[layer].data_ptr(),
-             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, nq, nkv, np_, page,
-             mp, *hd_arg, *_plan_args(plan), 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
-             _DTYPE_CODE[pool.dtype], _DTYPE_CODE[pool.dtype], *tail,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        _build.check(lib, err, f"{what} ({plan.describe()})")
+    cd = _DTYPE_CODE[pool.dtype]
+    _launch(what, lib, entry,
+            (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), pool[layer].data_ptr(),
+             dst[layer].data_ptr(), tables.data_ptr(), lengths.data_ptr(), out.data_ptr()),
+            (b, nq, nkv, np_, page, mp, *hd_arg, *_plan_args(plan)), 1.0 / math.sqrt(hd),
+            (_DTYPE_CODE[q.dtype], cd, cd), tail, plan, q.device)
     LAUNCHES[what + tag] += 1
+    cache_append.LAUNCHES["cache_append_paged"] += 1
     return out
 
 

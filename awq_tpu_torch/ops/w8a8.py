@@ -12,11 +12,15 @@ tensor stays a true division); the port computes what the package runs.
 kernel uses ``__fdiv_rn``.
 
 :func:`quant_per_token` is the wrapper of a small hand kernel in
-``csrc/w8a8.cu`` (one block per row: the absmax reduction, then the
-quantization), which replaces the plain version's six launches per linear
-with one; on a CPU tensor it runs :func:`quant_per_token_plain`, on a CUDA
-tensor it launches the kernel or raises. JAX computes it in XLA; the rest
-of that JAX module (the W8A8 linears of the vision towers) is ROADMAP
+``csrc/w8a8.cu``, which replaces the plain version's six launches per
+linear with one: one block a row, one pass over it (a thread's 16-channel
+chunk loaded into registers as 16-byte vectors, the absmax by shuffles and
+one shared-memory round, the codes from the registers, stored as a 16-byte
+word; with ``perm`` the 8x8 byte transpose of a 64-channel block across the
+four lanes that hold it, by byte permutes and shuffles). A row wider than
+32768 channels is taken in passes of that many, and read twice. On a CPU
+tensor it runs :func:`quant_per_token_plain`, on a CUDA tensor it launches
+the kernel or raises. JAX computes it in XLA; the rest of that JAX module (the W8A8 linears of the vision towers) is ROADMAP
 queue A, item 15.
 """
 
@@ -61,6 +65,10 @@ def quant_per_token(x: torch.Tensor, perm: bool = False) -> Tuple[torch.Tensor, 
         raise ValueError(f"quant_per_token: x must be a contiguous f32, bf16 or f16 "
                          f"[M, IC], got {x.dtype} {tuple(x.shape)}")
     m, ic = x.shape
+    if perm and ic % 64:
+        raise ValueError(f"quant_per_token: perm needs IC % 64 == 0, got {ic}")
+    if x.data_ptr() % 16:
+        x = x.clone()         # 16-byte vectors: a fresh allocation is aligned
     xq = torch.empty((m, ic), dtype=torch.int8, device=x.device)
     sx = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     if m == 0:

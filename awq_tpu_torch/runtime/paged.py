@@ -8,7 +8,7 @@ max_pages]`` of physical page ids per slot. The memory a request holds
 grows with its actual length, a page at a time, instead of ``max_seq`` per
 slot. Each engine step is one
 :func:`~awq_tpu_torch.models.llama.decode_step_paged` (K6's paged mode, or
-the stacked path with K8 and the paged K7).
+the stacked path with K8, which appends each layer's token to its pages).
 
 Page 0 is the trash page: :class:`PageAllocator` never hands it out, and a
 freed slot's table row is all 0, so the k/v that the step still writes for

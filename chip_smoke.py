@@ -18,7 +18,8 @@ Phases (each failure ends the run with a non-zero exit):
    32 rows and K2 at 8 rows of
    ragged lengths as the batched stacked path calls them, the batched
    megakernel K6 at 8 and 32 rows (its in-place cache write included) and
-   the KV append K7; then the paged KV path: K8 (paged flash decode) on
+   the standalone KV append K7 (since the append rides K2, K8 and K9 on the
+   path, it is their card-side reference); then the paged KV path: K8 (paged flash decode) on
    K2's 8 rows over a permuted pool of 256-position pages (yardsticks: K2
    on the contiguous cache, SDPA on the gathered view), K6's paged mode at
    8 and 32 rows (yardstick: the contiguous K6 on the same rows; the pool
@@ -37,9 +38,17 @@ Phases (each failure ends the run with a non-zero exit):
    (layer and token entries, a W3 head), K5 and K6 (slot, int8 and paged,
    their in-place writes held as above) over a 32-layer W3 model. Then an
    f16 model's kernels: K1 (GEMV and GEMM), K2, K8, K3 and K9 over f16.
+   Then the append fused into K2, K8 and K9 on the 8 rows with a row at
+   T - 1 and one past T, at Llama-3-8B's, Falcon-7B's and MPT-7B's heads
+   (K9 also in the quantize-first order), and the device-length K2 and K9:
+   each append bit-equal to the standalone K7's and the plain append's, each
+   output bit-equal to a launch that appended elsewhere (``append_to``).
    Last, the int8-activation prefill at the four projections: the
-   per-token quantization kernel, K11 (over one layer's int8 weight cache,
-   built on the card) at 32, 40, 200 and 1000 rows and K10 (the W4 codes
+   per-token quantization kernel (at 32, 40, 200, 512 and 1000 rows of
+   both input widths, in K11's channel order and K10's; its plain version
+   timed at 1000; and at 40 rows of 36864 and 57344 channels, past the
+   kernel's one pass), K11 (over one layer's int8 weight cache, built on
+   the card) at 32, 40, 200 and 1000 rows and K10 (the W4 codes
    requantized in the kernel) at 40, 512 and 1000, each bit-equal to its
    plain version, K11 to K10, and the card's cache to the CPU's build;
    yardsticks ``torch._int_mm`` with the same epilogue and K1's GEMM, and
@@ -114,21 +123,22 @@ Phases (each failure ends the run with a non-zero exit):
    32 greedy new tokens each) through a ``BatchEngine`` of 8 slots over the
    same model, a new request joining every few steps while the others
    decode; again twice: on K6 (the default) and with
-   ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` (K1 GEMV at 8 rows, K2, K7). K6 must
-   grow in the first, K1, K2 and K7 in the second. The copy of a prompt's
+   ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` (K1 GEMV at 8 rows, K2 with its fused
+   append). K6 must grow in the first, K1, K2 and the appends (counted
+   under K7's name) in the second. The copy of a prompt's
    prefix from the staging cache into its slot is timed by prompt length.
 3c. Serve phase 3b's twelve requests through an 8-slot ``PagedBatchEngine``
    with pages of 256: with the default pool of 32 pages (greedy ids must
    equal phase 3b's on K6 for all twelve) and with a pool of 12 pages,
    which must preempt at least once while every request completes; each
    on K6's paged mode and with ``AWQ_TPU_DISABLE_MEGAKERNEL=1`` (K1, K8 and
-   the paged K7). Prints ms/step, tokens/s, the pool's bytes and the peak
+   its paged append). Prints ms/step, tokens/s, the pool's bytes and the peak
    device memory, and profiles eight steps of eight live requests.
 3d. The int8 KV cache: phase 3's four requests through
    ``InferenceEngine(cache_dtype="int8")`` and phase 3b's twelve through an
    8-slot ``BatchEngine(cache_dtype="int8")``, each on the megakernels (K4's
    and K6's int8 modes must grow) and with ``AWQ_TPU_DISABLE_MEGAKERNEL=1``
-   (K9 and K7's int8 mode must grow); every prompt takes the stacked
+   (K9 and its int8 appends must grow); every prompt takes the stacked
    prefill, as K5 takes no int8 cache. Prints the caches' bytes, the peak
    device memory against phase 3b's, and how many requests' greedy ids
    equal the bf16 runs' (information: int8 changes the numbers).
@@ -188,7 +198,7 @@ Phases (each failure ends the run with a non-zero exit):
    then through an 8-slot ``PagedBatchEngine`` with pages of 256 (greedy ids
    equal to the bf16 slot engine's, bit for bit). Every step is the stacked
    path: K1's GEMV at 8 rows, K2, K9 or K8 at head_dim 64 and 71 q heads a
-   kv head (falcon) or with ALiBi slopes (MPT), one K7 append; no K14, K6
+   kv head (falcon) or with ALiBi slopes (MPT), each appending; no K14, K6
    or K4 (by the counters and the device trace). Prints what phase 3b
    prints, peak memory and the split decode's instances a step.
 3l. OPT-6.7B, StarCoder and Pythia-6.9B at their published widths and
@@ -311,6 +321,12 @@ def log(msg: str) -> None:
 def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def appended(b: int, nkv: int, hd: int, esize: int) -> int:
+    """The cache bytes a K2, K8 or K9 launch writes with its append: each
+    row's current k and v (int8 codes and an f32 scale each for K9)."""
+    return 2 * b * nkv * (hd * esize + (4 if esize == 1 else 0))
 
 
 class Timer:
@@ -502,12 +518,12 @@ def phase_kernels(torch, timer, cases_out):
         k_all = torch.cat([cache[0, :, :, :length], kn[:, :, None]], dim=2)
         v_all = torch.cat([cache[1, :, :, :length], vn[:, :, None]], dim=2)
         ms = timer(lambda: da.flash_decode(q, kn, vn, cache, lens, max_length=length))
-        plain_ms = timer(lambda: da.flash_decode_plain(q, kn, vn, cache, lens,
-                                                       max_length=length), reps=5)
+        plain_ms = timer(lambda: da.flash_decode_append_plain(q, kn, vn, cache, lens,
+                                                              max_length=length), reps=5)
         lib_ms = timer(lambda: F.scaled_dot_product_attention(
             q[:, :, None], k_all, v_all, enable_gqa=True))
         nbytes = (nq * hd + 2 * nkv * hd + 2 * nkv * length * hd + nq * hd) * 2
-        b_ms, b_by = bound(nbytes, 4.0 * nq * (length + 1) * hd)
+        b_ms, b_by = bound(nbytes + appended(1, nkv, hd, 2), 4.0 * nq * (length + 1) * hd)
         cases_out.append(dict(
             name="flash_decode", shape=f"len={length} nq={nq} nkv={nkv} hd={hd}",
             max_abs_err=err, max_rel_err=rel, tol=f"{attn_tol:g}*max|ref|", ms=ms,
@@ -563,11 +579,12 @@ def phase_kernels(torch, timer, cases_out):
     mask = torch.arange(mx + 1, device="cuda")[None, :] < lens[:, None]
     mask[:, mx] = True
     ms = timer(lambda: da.flash_decode(q, kn, vn, cache, lens, max_length=mx))
-    plain_ms = timer(lambda: da.flash_decode_plain(q, kn, vn, cache, lens,
-                                                   max_length=mx), reps=5)
+    plain_ms = timer(lambda: da.flash_decode_append_plain(q, kn, vn, cache, lens,
+                                                          max_length=mx), reps=5)
     lib_ms = timer(lambda: F.scaled_dot_product_attention(
         q[:, :, None], k_all, v_all, attn_mask=mask[:, None, None, :], enable_gqa=True))
-    nbytes = (2 * b * nq * hd + 2 * b * nkv * hd + 2 * nkv * hd * sum(ragged)) * 2
+    nbytes = ((2 * b * nq * hd + 2 * b * nkv * hd + 2 * nkv * hd * sum(ragged)) * 2
+              + appended(b, nkv, hd, 2))
     b_ms, b_by = bound(nbytes, 4.0 * nq * hd * (sum(ragged) + b))
     cases_out.append(dict(
         name="flash_decode", shape=f"B={b} ragged len 0..{mx} nq={nq} nkv={nkv}",
@@ -594,8 +611,8 @@ def phase_kernels(torch, timer, cases_out):
                              f"(max diff {vs_k2:.3e}); the paged functor may change addresses "
                              "only")
     ms = timer(lambda: da.flash_decode_paged(q, kn, vn, pool, tables, 0, lens, max_length=mx))
-    plain_ms = timer(lambda: da.flash_decode_paged_plain(q, kn, vn, pool, tables, 0, lens,
-                                                         max_length=mx), reps=5)
+    plain_ms = timer(lambda: da.flash_decode_paged_append_plain(q, kn, vn, pool, tables, 0,
+                                                                lens, max_length=mx), reps=5)
     k2_ms = timer(lambda: da.flash_decode(q, kn, vn, cache, lens, max_length=mx))
     lib_ms = timer(lambda: F.scaled_dot_product_attention(
         q[:, :, None], k_all, v_all, attn_mask=mask[:, None, None, :], enable_gqa=True))
@@ -762,12 +779,13 @@ def phase_int8_kernels(torch, timer, cases_out):
         mask = torch.arange(mx + 1, device="cuda")[None, :] < lens[:, None]
         mask[:, mx] = True
         ms = timer(lambda: da.flash_decode_int8(q, kn, vn, codes, scales, lens, max_length=mx))
-        plain_ms = timer(lambda: da.flash_decode_int8_plain(q, kn, vn, codes, scales, lens,
-                                                            max_length=mx), reps=5)
+        plain_ms = timer(lambda: da.flash_decode_int8_append_plain(
+            q, kn, vn, codes, scales, lens, max_length=mx), reps=5)
         k2_ms = timer(lambda: da.flash_decode(q, kn, vn, deq, lens, max_length=mx))
         lib_ms = timer(lambda: F.scaled_dot_product_attention(
             q[:, :, None], k_all, v_all, attn_mask=mask[:, None, None, :], enable_gqa=True))
-        nbytes = (2 * b * nq * hd + 2 * b * nkv * hd) * 2 + 2 * nkv * sum(ragged) * (hd + 4)
+        nbytes = ((2 * b * nq * hd + 2 * b * nkv * hd) * 2 + 2 * nkv * sum(ragged) * (hd + 4)
+                  + appended(b, nkv, hd, 1))
         b_ms, b_by = bound(nbytes, 4.0 * nq * hd * (sum(ragged) + b))
         cases_out.append(dict(
             name="flash_decode_int8", shape=f"{what} nq={nq} nkv={nkv}", max_abs_err=err,
@@ -812,9 +830,123 @@ def phase_int8_kernels(torch, timer, cases_out):
     del codes, scales, c8, cache16
 
 
+def phase_fused_append(torch, cases_out):
+    """Phase 2, continued: the append fused into K2, K8 and K9 (each launch
+    writes its rows' current token into the layer's cache after its
+    attention). On the batched step's 8 rows with the edges (a row of length
+    0, one at T - 1 and one past T, whose write is clamped to T - 1, a
+    position its attention reads): Llama-3-8B's heads, Falcon-7B's 71 q heads
+    over one kv head at head_dim 64 (the wide unit) and MPT-7B's with ALiBi
+    slopes, over a bf16 slot cache (K2), a permuted pool of pages of 256 (K8)
+    and an int8 cache (K9, also in the int8 ALiBi step's quantize-first
+    order: attending over the dequantized token, appending the full one);
+    then the device-length entries of K2 and K9 under a bucket. Every append
+    bit-equal to the standalone K7's and to the plain append's, and every
+    output bit-equal to that of a launch whose append went to another tensor
+    (``append_to``) and which left its cache's bits alone: the attention
+    never sees its own write. The fused launches' times are the K2, K8 and K9
+    cases' (each launch appends); the kernels line puts them beside K7's."""
+    from awq_tpu_torch.models.layers import alibi_slopes
+    from awq_tpu_torch.ops import cache_append as ca
+    from awq_tpu_torch.ops import decode_attn as da
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(13579)
+    t = 2048
+    rows = [1000, 0, t - 1, 1100, t + 5, 850, 1200, 977]
+    b = len(rows)
+    lens = torch.tensor(rows, dtype=torch.int32, device="cuda")
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def same(what, *pairs):
+        torch.cuda.synchronize()
+        for i, (x, y) in enumerate(pairs):
+            if isinstance(x, tuple):
+                ok = all(torch.equal(u, v) for u, v in zip(x, y))
+            else:
+                ok = torch.equal(x, y)
+            if not ok:
+                raise AssertionError(f"fused append, {what}: check {i} (the read cache kept, "
+                                     "the outputs equal, the append = K7's, = elsewhere's, "
+                                     "= plain's) failed")
+
+    checked = []
+    for fam, nq, nkv, hd, alibi in (("Llama-3-8B", 32, 8, 128, False),
+                                    ("Falcon-7B", FALCON_7B["num_heads"], 1, 64, False),
+                                    ("MPT-7B", 32, 32, 128, True)):
+        sl = alibi_slopes(nq, device="cuda") if alibi else None
+        cache, q = rnd(2, b, nkv, t, hd), rnd(b, nq, hd)
+        kn, vn = rnd(b, nkv, hd), rnd(b, nkv, hd)
+        kv = torch.stack([kn, vn])[None].contiguous()
+        # K2
+        read, away, inplace, plain = (cache.clone() for _ in range(4))
+        k7 = cache.clone()[None]
+        o_away = da.flash_decode(q, kn, vn, read, lens, max_length=t, slopes=sl, append_to=away)
+        o_in = da.flash_decode(q, kn, vn, inplace, lens, max_length=t, slopes=sl)
+        ca.batched_cache_append(k7, kv, lens)
+        ca.batched_cache_append_plain(plain[None], kv, lens)
+        same(f"K2 {fam}", (read, cache), (o_in, o_away), (inplace, k7[0]), (away, k7[0]),
+             (inplace, plain))
+        # K8 over a permuted pool of pages
+        pool, tables = scatter_pages(torch, cache[None], t // PAGE, PAGE, gen)
+        read, away, inplace, plain, k7 = (pool.clone() for _ in range(5))
+        o_away = da.flash_decode_paged(q, kn, vn, read, tables, 0, lens, max_length=t,
+                                       slopes=sl, append_to=away)
+        o_in = da.flash_decode_paged(q, kn, vn, inplace, tables, 0, lens, max_length=t,
+                                     slopes=sl)
+        ca.batched_cache_append(k7, kv, lens, tables)
+        ca.batched_cache_append_plain(plain, kv, lens, tables)
+        same(f"K8 {fam}", (read, pool), (o_in, o_away), (inplace, k7), (away, k7),
+             (inplace, plain))
+        del pool, read, away, inplace, plain, k7
+        # K9, in the deployed order and the quantize-first one
+        codes, scales = ca.quantize_kv(cache.float())
+        for order in ("full", "quantize_first"):
+            ka, va = kn, vn
+            if order == "quantize_first":
+                ka, va = (ca.dequantize_kv(*ca.quantize_kv(x), torch.bfloat16) for x in (kn, vn))
+            read, away, inplace, plain, k7 = ((codes.clone(), scales.clone()) for _ in range(5))
+            o_away = da.flash_decode_int8(q, ka, va, *read, lens, max_length=t, slopes=sl,
+                                          k_app=kn, v_app=vn, append_to=away)
+            o_in = da.flash_decode_int8(q, ka, va, *inplace, lens, max_length=t, slopes=sl,
+                                        k_app=kn, v_app=vn)
+            ca.batched_cache_append_int8(k7[0][None], k7[1][None], kv, lens)
+            ca.batched_cache_append_int8_plain(plain[0][None], plain[1][None], kv, lens)
+            same(f"K9 {fam} {order}", (read, (codes, scales)), (o_in, o_away), (inplace, k7),
+                 (away, k7), (inplace, plain))
+        checked.append(fam)
+        del cache, codes, scales
+    # the device-length entries (the captured step's): B 1, a bucket of t - 1
+    nq, nkv, hd = LLAMA3_8B["num_heads"], LLAMA3_8B["num_kv_heads"], LLAMA3_8B["head_dim"]
+    for length in (1000, t - 1):
+        lens1 = torch.tensor([length], dtype=torch.int32, device="cuda")
+        cache, q, kn, vn = rnd(2, 1, nkv, t, hd), rnd(1, nq, hd), rnd(1, nkv, hd), rnd(1, nkv, hd)
+        kv = torch.stack([kn, vn])[None].contiguous()
+        c = [cache.clone() for _ in range(4)]
+        host = da.flash_decode(q, kn, vn, c[0], lens1, max_length=length)
+        dev = da.flash_decode(q, kn, vn, c[1], lens1, max_length=t - 1, by_length=True)
+        ca.batched_cache_append(c[2][None], kv, lens1)
+        same(f"K2 device length {length}", (dev, host), (c[1], c[0]), (c[1], c[2]))
+        codes, scales = ca.quantize_kv(cache.float())
+        c8 = [(codes.clone(), scales.clone()) for _ in range(3)]
+        host = da.flash_decode_int8(q, kn, vn, *c8[0], lens1, max_length=length)
+        dev = da.flash_decode_int8(q, kn, vn, *c8[1], lens1, max_length=t - 1, by_length=True)
+        ca.batched_cache_append_int8(c8[2][0][None], c8[2][1][None], kv, lens1)
+        same(f"K9 device length {length}", (dev, host), (c8[1], c8[0]), (c8[1], c8[2]))
+        del cache, codes, scales, c, c8
+    log(f"  the append fused into K2, K8 and K9 at {', '.join(checked)}'s heads (rows {rows}, "
+        f"T {t}; K9 also quantize-first) and the device-length K2 and K9 (lengths 1000, "
+        f"{t - 1}): every append bit-equal to K7's and the plain append's, every output "
+        "bit-equal to a launch that appended elsewhere, the read cache kept "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+
+
 def phase_int8_prefill_kernels(torch, timer, cases_out):
     """Phase 2, continued: the int8-activation prefill at the four
-    Llama-3-8B projections. ``quant_per_token``, K11 (over one layer's int8
+    Llama-3-8B projections. ``quant_per_token`` (also checked at 36864 and
+    57344 channels), K11 (over one layer's int8
     cache, built on the card by ``requant_w8``) at 32, 40, 200 and 1000 rows
     and K10 (the W4 codes requantized in the kernel) at 40, 512 and 1000,
     each bit-equal to its plain version and K11 to K10 where both run; the
@@ -841,19 +973,39 @@ def phase_int8_prefill_kernels(torch, timer, cases_out):
     def int_mm(xq, sx, w8, scol, dtype):
         return ((torch._int_mm(xq, w8.t()).float() * scol) * sx).to(dtype)
 
+    # the quantization at the prefill's rows: K11's natural channel order and
+    # K10's (perm), 1000 rows first (the kernels line's shape, the one whose
+    # plain version is timed); then, checked only, rows wider than the
+    # kernel's one pass (OPT-66B's and BLOOM-176B's down, read in passes)
     for ic in (h, inter):
-        x = torch.randn((1000, ic), generator=gen, device="cuda").to(torch.bfloat16)
-        got, ref = q8.quant_per_token(x), q8.quant_per_token_plain(x)
-        torch.cuda.synchronize()
-        exact(f"quant_per_token M=1000 IC={ic}", torch.cat([got[0].float(), got[1]], 1),
-              torch.cat([ref[0].float(), ref[1]], 1))
-        b_ms, b_by = bound(1000 * ic * 3 + 1000 * 4, 0.0)
-        cases_out.append(dict(
-            name="quant_per_token", shape=f"M=1000 IC={ic}", max_abs_err=0.0,
-            max_rel_err=0.0, tol="0 (bit-equal)", ms=timer(lambda: q8.quant_per_token(x)),
-            plain_ms=timer(lambda: q8.quant_per_token_plain(x), reps=5), bound_ms=b_ms,
-            bound_by=b_by, library_ms=None))
-        log_case(cases_out[-1])
+        for m in (1000, 32, 40, 200, 512):
+            x = torch.randn((m, ic), generator=gen, device="cuda").to(torch.bfloat16)
+            ref = q8.quant_per_token_plain(x)
+            plain_ms = timer(lambda: q8.quant_per_token_plain(x), reps=3) if m == 1000 else None
+            for perm in (False, True):
+                got = q8.quant_per_token(x, perm=perm)
+                torch.cuda.synchronize()
+                want = q8.permute64(ref[0]) if perm else ref[0]
+                exact(f"quant_per_token M={m} IC={ic}{' perm' if perm else ''}",
+                      torch.cat([got[0].float(), got[1]], 1), torch.cat([want.float(), ref[1]], 1))
+                b_ms, b_by = bound(m * ic * 3 + m * 4, 0.0)
+                cases_out.append(dict(
+                    name="quant_per_token", shape=f"M={m} IC={ic}{' perm' if perm else ''}",
+                    max_abs_err=0.0, max_rel_err=0.0, tol="0 (bit-equal)",
+                    ms=timer(lambda: q8.quant_per_token(x, perm=perm)),
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                log_case(cases_out[-1])
+    for ic in (36864, 57344):
+        x = torch.randn((40, ic), generator=gen, device="cuda").to(torch.bfloat16)
+        ref = q8.quant_per_token_plain(x)
+        for perm in (False, True):
+            got = q8.quant_per_token(x, perm=perm)
+            torch.cuda.synchronize()
+            want = q8.permute64(ref[0]) if perm else ref[0]
+            exact(f"quant_per_token M=40 IC={ic}{' perm' if perm else ''}",
+                  torch.cat([got[0].float(), got[1]], 1), torch.cat([want.float(), ref[1]], 1))
+    log("  quant_per_token at IC 36864 and 57344 (passes of 32768 channels), M=40, both "
+        "orders: bit-equal to plain")
 
     for wname, (ic, oc) in shapes.items():
         qw = torch.randint(-(2**31), 2**31 - 1, (ic // 8, oc), generator=gen,
@@ -1100,7 +1252,8 @@ def phase_f16_attention(torch, timer, cases_out):
         v_all = torch.cat([cache[1, :, :, :mx], vn[:, :, None]], dim=2)
         mask = torch.arange(mx + 1, device="cuda")[None, :] < lens[:, None]
         mask[:, mx] = True
-        nbytes = (2 * b * nq * hd + 2 * b * nkv * hd + 2 * nkv * hd * sum(ragged)) * 2
+        nbytes = ((2 * b * nq * hd + 2 * b * nkv * hd + 2 * nkv * hd * sum(ragged)) * 2
+                  + appended(b, nkv, hd, 2))
         flops = 4.0 * nq * hd * (sum(ragged) + b)
 
         def lib():
@@ -1122,7 +1275,8 @@ def phase_f16_attention(torch, timer, cases_out):
                 da.flash_decode_int8_plain(*args8, max_length=mx),
                 lambda: da.flash_decode_int8(*args8, max_length=mx),
                 lambda: da.flash_decode_int8_plain(*args8, max_length=mx), lib,
-                (2 * b * nq * hd + 2 * b * nkv * hd) * 2 + 2 * nkv * mx * (hd + 4), flops,
+                (2 * b * nq * hd + 2 * b * nkv * hd) * 2 + 2 * nkv * mx * (hd + 4)
+                + appended(b, nkv, hd, 1), flops,
                 "F.scaled_dot_product_attention in f16 on the f16 cache",
                 decode_plan_of("flash_decode_int8", b, nq, nkv, hd, mx, 1))
             del codes, scales
@@ -1320,7 +1474,8 @@ def phase_alibi_attention(torch, timer, cases_out):
             lambda: da.flash_decode(q, kn, vn, cache, lens, max_length=mx, slopes=sl),
             lambda: da.flash_decode_plain(q, kn, vn, cache, lens, max_length=mx, slopes=sl),
             lambda: F.scaled_dot_product_attention(q[:, :, None], k_all, v_all, attn_mask=mask),
-            (2 * b * nq * hd + 2 * b * nq * hd + 2 * nq * hd * sum(lengths)) * 2 + nq * 4,
+            (2 * b * nq * hd + 2 * b * nq * hd + 2 * nq * hd * sum(lengths)) * 2 + nq * 4
+            + appended(b, nq, hd, 2),
             4.0 * nq * hd * (sum(lengths) + b),
             decode_plan_of("flash_decode", b, nq, nq, hd, mx, 2),
             zero=(lambda: (da.flash_decode(q, kn, vn, cache, lens, max_length=mx,
@@ -1461,7 +1616,8 @@ def phase_family_attention(torch, timer, cases_out):
         lib = sdpa(q, k_all, v_all, mask, nkv != nq)
         library = ("F.scaled_dot_product_attention(attn_mask=ALiBi bias)" if alibi else
                    "F.scaled_dot_product_attention(attn_mask, enable_gqa=True)")
-        kv_bytes = (2 * b * nq * hd + 2 * b * nkv * hd + 2 * nkv * hd * n_pos) * 2
+        kv_bytes = ((2 * b * nq * hd + 2 * b * nkv * hd + 2 * nkv * hd * n_pos) * 2
+                    + appended(b, nkv, hd, 2))
         flops = 4.0 * nq * hd * (n_pos + b)
         k2 = None
         if fam != "MPT-7B":    # K2 with slopes at MPT-7B's heads: phase_alibi_attention
@@ -1500,11 +1656,12 @@ def phase_family_attention(torch, timer, cases_out):
         add("flash_decode_int8" + tag, shape,
             lambda: da.flash_decode_int8(q, kn, vn, codes, scales, lens, max_length=mx,
                                          slopes=sl),
-            lambda: da.flash_decode_int8_plain(q, kn, vn, codes, scales, lens, max_length=mx,
-                                               slopes=sl),
+            lambda: da.flash_decode_int8_append_plain(q, kn, vn, codes, scales, lens,
+                                                      max_length=mx, slopes=sl),
             sdpa(q, kq_all, vq_all, mask, nkv != nq),
             (2 * b * nq * hd + 2 * b * nkv * hd) * 2 + 2 * nkv * n_pos * (hd + 4)
-            + (nq * 4 if alibi else 0), flops, library + " on the dequantized bf16 view",
+            + (nq * 4 if alibi else 0) + appended(b, nkv, hd, 1), flops,
+            library + " on the dequantized bf16 view",
             decode_plan_of("flash_decode_int8", b, nq, nkv, hd, mx, 1),
             dict(yardstick_ms=k2_ms,
                  yardstick=f"K2 on the dequantized bf16 cache (max diff {vs_k2:.2e})"))
@@ -1629,7 +1786,8 @@ def phase_new_family_attention(torch, timer, cases_out):
 
     library = "F.scaled_dot_product_attention(attn_mask, enable_gqa=True)"
     shape = f"{sc} B={b} ragged len 0..{mx}"
-    kv_bytes = (2 * b * nq * hd + 2 * b * nkv * hd + 2 * nkv * hd * n_pos) * 2
+    kv_bytes = ((2 * b * nq * hd + 2 * b * nkv * hd + 2 * nkv * hd * n_pos) * 2
+                + appended(b, nkv, hd, 2))
     flops = 4.0 * nq * hd * (n_pos + b)
     k2 = add("flash_decode_wide_starcoder", shape,
              lambda: da.flash_decode(q, kn, vn, cache, lens, max_length=mx),
@@ -1658,7 +1816,8 @@ def phase_new_family_attention(torch, timer, cases_out):
         lambda: da.flash_decode_int8(q, kn, vn, codes, scales, lens, max_length=mx),
         lambda: da.flash_decode_int8_plain(q, kn, vn, codes, scales, lens, max_length=mx),
         sdpa(kq_all, vq_all), (2 * b * nq * hd + 2 * b * nkv * hd) * 2
-        + 2 * nkv * n_pos * (hd + 4), flops, library + " on the dequantized bf16 view",
+        + 2 * nkv * n_pos * (hd + 4) + appended(b, nkv, hd, 1), flops,
+        library + " on the dequantized bf16 view",
         decode_plan_of("flash_decode_int8", b, nq, nkv, hd, mx, 1),
         dict(yardstick_ms=k2_ms, yardstick="K2 on the dequantized bf16 cache"))
     del cache, codes, scales, deq, k_all, v_all, kq_all, vq_all
@@ -1692,7 +1851,7 @@ def phase_new_family_attention(torch, timer, cases_out):
         lambda: da.flash_decode(q, kn, vn, cache, lens1, max_length=bucket, by_length=True),
         lambda: da.flash_decode_plain(q, kn, vn, cache, lens1, max_length=length),
         lambda: F.scaled_dot_product_attention(q[:, :, None], k_all, v_all),
-        (2 * nq * hd + 2 * nkv * hd + 2 * nkv * length * hd) * 2,
+        (2 * nq * hd + 2 * nkv * hd + 2 * nkv * length * hd) * 2 + appended(1, nkv, hd, 2),
         4.0 * nq * hd * (length + 1), "F.scaled_dot_product_attention",
         decode_plan_of("flash_decode", 1, nq, nkv, hd, bucket, 2, by_length=True))
     del cache, k_all, v_all
@@ -1901,7 +2060,8 @@ def log_case(c):
     plan = f" [{c['plan']}]" if "plan" in c else ""
     log(f"  {c['name']:16s} {c['shape']:34s} max_abs_err={c['max_abs_err']:.3e} "
         f"max_rel_err={c['max_rel_err']:.3e} (tol {c['tol']}) "
-        f"kernel_ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
+        f"kernel_ms={c['ms']:.4f} plain_ms="
+        + ("none" if c["plain_ms"] is None else f"{c['plain_ms']:.4f}") + " "
         f"{lib} bound_ms={c['bound_ms']:.4f} ({c['bound_by']}){plan}")
 
 
@@ -2156,7 +2316,7 @@ def phase_megakernels(torch, timer, cases_out, w3=False):
 
     # K6: the continuous-batching step, 8 and 32 rows at ragged lengths
     # around 1000 (row 1 is empty); the yardstick is the stacked batched
-    # path (K1 at M rows, K2, glue, K7) for the same step
+    # path (K1 at M rows, K2 with its append, glue) for the same step
     from awq_tpu_torch.ops import megakernel_batched as mkb
 
     t_b = 2048
@@ -2807,11 +2967,24 @@ TRACE_SYMBOLS = {
 }
 
 
+# the appends fused into K2, K8 and K9: every launch of these counters' kernels
+# appends, so a device trace counts the append's launches as theirs (and
+# the standalone K7's symbol, which the path no longer launches, beside);
+# the kernels line gives K7's entries the first of these launches whose
+# case has the entry's shape (``pick``)
+FUSED_APPEND = {"cache_append": ("flash_decode", "flash_decode_alibi", "flash_decode_wide"),
+                "cache_append_paged": ("flash_decode_paged", "flash_decode_paged_alibi",
+                                       "flash_decode_paged_wide"),
+                "cache_append_int8": ("flash_decode_int8", "flash_decode_int8_alibi",
+                                      "flash_decode_int8_wide")}
+
+
 def trace_launches(prof, calls):
     """The launches of a profiled run by counter: each counter of
     TRACE_SYMBOLS counts the device trace's kernels of its symbol (where
     several match, the one the wrappers called in the run, ``calls``);
-    other counters keep their calls."""
+    other counters keep their calls. K7's counters add the launches of the
+    attention kernels that append (FUSED_APPEND)."""
     import re
     from collections import Counter
 
@@ -2826,6 +2999,8 @@ def trace_launches(prof, calls):
             raise AssertionError(f"the trace's {name} matches the counters {called}")
         for k in called or keys:
             out[k] = out.get(k, 0) + n
+    for k, attention in FUSED_APPEND.items():
+        out[k] = out.get(k, 0) + sum(out.get(a, 0) for a in attention)
     return out
 
 
@@ -3153,7 +3328,7 @@ def compare_ids(label, got, ref, what):
 def phase_serve_int8(torch, cfg, params, single_ids, slot_ids, slot_peak):
     """Phase 3d, the int8 KV cache (KVCache8): phase 3's four requests
     through InferenceEngine(cache_dtype="int8") on K4's int8 mode and on the
-    stacked path (K9, the K7 int8 append), then phase 3b's twelve through an
+    stacked path (K9 and its int8 append), then phase 3b's twelve through an
     8-slot BatchEngine(cache_dtype="int8") on K6's int8 mode and on the
     stacked path. Prints the caches' bytes, the peak device memory against
     phase 3b's and how many requests' greedy ids equal the bf16 runs' (on
@@ -3740,7 +3915,7 @@ def phase_serve_families_batched(torch, layers: int):
     (its greedy ids must equal the bf16 slot engine's bit for bit). Every
     step is the stacked path: K1's GEMV at 8 rows, K2, K9 or K8 in their
     head_dim-64 wide-group modes (falcon) or with ALiBi slopes (MPT), one
-    K7 append; no K14, K6 or K4. Each run: ms/step, tokens/s, TTFT, peak
+    append fused into them; no K14, K6 or K4. Each run: ms/step, tokens/s, TTFT, peak
     memory, and a profile of eight steps (kernels per step, idle share, the
     split decode's instances by the device trace). Returns {label:
     launches}."""
@@ -4283,7 +4458,7 @@ def phase_model_parity(torch):
     for label, disable, prompt in (("stacked", "1", 100), ("megakernels", None, 20),
                                    ("stacked_int8", "1", 100), ("megakernels_int8", None, 20)):
         # the int8 cache (KVCache8): the prefill takes the stacked path either
-        # way (K5 takes no int8 cache); decode takes K9 and the K7 int8
+        # way (K5 takes no int8 cache); decode takes K9 and its int8
         # append, or K4's int8 mode
         set_config(disable)
         caches = [llama.init_cache(cfg, 1, 512, "int8" if label.endswith("int8")
@@ -4307,7 +4482,7 @@ def phase_model_parity(torch):
         if label.endswith("int8"):
             check_path(label, read_counters(), *SERVE_PATHS[label][1:])
     # one continuous-batching step of 8 rows at ragged lengths (row 1 empty)
-    # over a random cache: K6, then the stacked batched path (K1, K2, K7)
+    # over a random cache: K6, then the stacked batched path (K1, K2 appending)
     gen = torch.Generator(device="cuda").manual_seed(5)
     ragged = [300, 0, 17, 511 - 1, 64, 255, 128, 5]
     lens = torch.tensor(ragged, dtype=torch.int32, device="cuda")
@@ -4328,7 +4503,7 @@ def phase_model_parity(torch):
             f"logits max_abs_err/max|ref| {rel:.3e} (tol {tol:g}), cache max_abs_err "
             f"{cerr:.3e}; greedy ids agree on {agree}/8 rows")
     # the same step over the int8 cache (the random cache quantized): K6's
-    # int8 slot mode, then the stacked path (K1, K9, the K7 int8 append)
+    # int8 slot mode, then the stacked path (K1, K9 with its int8 append)
     base8 = quantize_cache(torch, base)
     for label, disable in (("batched_int8", None), ("batched_stacked_int8", "1")):
         set_config(disable)
@@ -4350,7 +4525,7 @@ def phase_model_parity(torch):
             f"max_abs_err {cerr:.3e}; greedy ids agree on {agree}/8 rows")
     del base8
     # the same step paged: pages of 128 over a permuted pool; K6's paged
-    # mode, then the stacked paged path (K1, K8, paged K7)
+    # mode, then the stacked paged path (K1, K8 with its paged append)
     pool, tables = scatter_pages(torch, base, 4, 128, gen)
     for label, disable in (("paged", None), ("paged_stacked", "1")):
         set_config(disable)
@@ -4847,6 +5022,7 @@ def main() -> int:
     phase_megakernels(torch, timer, cases, w3=True)
     torch.cuda.empty_cache()
     phase_int8_kernels(torch, timer, cases)
+    phase_fused_append(torch, cases)
     phase_f16_attention(torch, timer, cases)
     phase_int8_prefill_kernels(torch, timer, cases)
     t_tp = time.perf_counter()
@@ -5063,11 +5239,12 @@ def main() -> int:
             "flash_decode": "len=4000", "flash_prefill": "S=512 start=700",
             "megakernel_token": "32 layers", "megakernel_layer": "layer 5 len=1000",
             "megakernel_chunk": "32 layers S=32 hist=700",
-            "megakernel_batched": "32 layers + W4 head, B=8", "cache_append": "L=32",
+            "megakernel_batched": "32 layers + W4 head, B=8", "cache_append": "B=8 ragged",
             "flash_decode_paged": "B=8", "megakernel_batched_paged": "32 layers + W4 head, B=8",
-            "cache_append_paged": "L=32", "flash_decode_int8": "len=4000",
+            "cache_append_paged": "B=8", "flash_decode_int8": "len=4000",
             "megakernel_token_int8": "32 layers",
-            "megakernel_batched_int8": "32 layers + W4 head, B=8", "cache_append_int8": "L=32",
+            "megakernel_batched_int8": "32 layers + W4 head, B=8",
+            "cache_append_int8": "B=8 ragged",
             "w3a16_gemv": "wgateup M=1 ", "w3a16_gemm": "wgateup M=1000",
             "megakernel_token_w3": "32 layers", "megakernel_layer_w3": "layer 5 len=1000",
             "megakernel_chunk_w3": "32 layers S=32 hist=700",
@@ -5084,7 +5261,7 @@ def main() -> int:
             "megakernel_token_mpt_w3": "32 layers", "megakernel_layer_mpt_w3": "layer 5 len=1000",
             "flash_decode_wide": "Falcon-7B", "flash_decode_paged_wide": "Falcon-7B",
             "flash_decode_int8_wide": "Falcon-7B", "flash_decode_paged_alibi": "MPT-7B",
-            "flash_decode_int8_alibi": "MPT-7B", "cache_append_int8_hd64": "L=32",
+            "flash_decode_int8_alibi": "MPT-7B", "cache_append_int8_hd64": "Falcon-7B",
             "flash_decode_opt": "OPT-6.7B", "flash_decode_layer_starcoder": "StarCoder nq=48 "
             "nkv=1 hd=128 B=1 len=1000", "flash_prefill_starcoder": "S=512 start=700",
             "flash_decode_wide_starcoder": "StarCoder", "flash_decode_paged_wide_starcoder":
@@ -5093,9 +5270,10 @@ def main() -> int:
     # 3b and 3c; on the single-stream paths, whose decode replays a captured
     # step, the count of its symbol in that run's device trace (serve_single)
     # (the stacked path carries K1-K3, the megakernels K4-K5, the
-    # batched engine K6, its stacked path K7, the paged engine K6's and K7's
-    # paged modes and K8, with the default pool; phase 3d's int8 runs K4's
-    # and K6's int8 modes, and on the stacked paths K9 and K7's int8 mode;
+    # batched engine K6, its stacked path the appends fused into K2 (K7's
+    # counter), the paged engine K6's paged mode and, stacked, K8 and its
+    # appends, with the default pool; phase 3d's int8 runs K4's
+    # and K6's int8 modes, and on the stacked paths K9 and its int8 appends;
     # phase 3h's falcon run K14 and K3's head_dim-64 mode; phase 3j's MPT-7B
     # runs K4's MPT shape and K3 with slopes, its stacked run K2 with slopes;
     # K14 with slopes counts on phase 4's BLOOM run, the one path that takes
@@ -5139,14 +5317,29 @@ def main() -> int:
                   for k in runs if k.endswith(("_starcoder", "_opt"))}}
     kernels = []
     for name, (src, replaces) in sources.items():
-        c = next(c for c in cases if c["name"] == name and c["shape"].startswith(pick[name]))
         run = runs.get(name, "megakernels" if name.startswith("megakernel") else "stacked")
+        extra = {}
+        if counter.get(name, name) in FUSED_APPEND:
+            # K7's appends on the path are fused into the attention's launches:
+            # their launches count under K7's names, beside the time and bound
+            # of one such launch (attention and append of one layer) at the
+            # batched step's shape; the standalone K7, off the path, stands
+            # beside as the reference its appends are held to
+            k7 = next(c for c in cases if c["name"] == name and c["shape"].startswith("L=32"))
+            c = next(x for a in FUSED_APPEND[counter.get(name, name)] for x in cases
+                     if x["name"] == a and x["shape"].startswith(pick[name]))
+            src = "awq_tpu_torch/csrc/decode_attn.cu"
+            extra = dict(fused_into=c["name"], standalone=dict(
+                source=sources[name][0], launches=0, shape=k7["shape"], ms=k7["ms"],
+                plain_ms=k7["plain_ms"], bound_ms=k7["bound_ms"], library_ms=k7["library_ms"]))
+        else:
+            c = next(c for c in cases if c["name"] == name and c["shape"].startswith(pick[name]))
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[run][counter.get(name, name)], max_abs_err=c["max_abs_err"],
             ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"], bound_by=c["bound_by"],
-            library_ms=c["library_ms"], shape=c["shape"],
+            library_ms=c["library_ms"], shape=c["shape"], **extra,
             **{k: c[k] for k in ("yardstick_ms", "yardstick", "composition_ms", "composition")
                if k in c}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -2,13 +2,17 @@
 """A/B of the split flash decode, K2, K8, K9 and K14, between builds of
 ``csrc/decode_attn.cu`` on one NVIDIA GPU.
 
-    python3 scripts/ab_flash_decode.py OTHER.cu [OTHER2.cu ...] [--reps 20] [--rounds 3]
+    python3 scripts/ab_flash_decode.py OTHER.cu [OTHER2.cu ...] [--reps 20] [--rounds 3] [--ptxas]
 
 Builds each OTHER.cu and the checkout's ``awq_tpu_torch/csrc/decode_attn.cu``
 with the port's nvcc flags (one nvcc each, in parallel) into
 ``build/ab_flash_decode/`` and reads from each source which C signatures it
-has: the planned one-launch entries (``ops/decode_attn.py::decode_plan``) or
-the earlier split-and-combine entries with their partial buffers, whose
+has: the planned one-launch entries (``ops/decode_attn.py::decode_plan``),
+those that also append the current token (K2, K8 and K9 with the append's
+destination, here the cache itself: every case's rows end before T, so the
+write lands past what any launch reads; K9 also with its append source
+``k_app``, ``v_app``, here the token again),
+or the earlier split-and-combine entries with their partial buffers, whose
 split rule this script keeps (``_old_split``). Then it times, at the smoke
 script's shapes: K2 at batch 1 at 1, 1000 and 4000 cached positions and on
 8 rows of ragged lengths 0..1200; K8 on those 8 rows over a permuted pool
@@ -22,8 +26,13 @@ each (``chip_smoke.Timer``), with SDPA on the same positions beside them;
 the script prints every turn and the medians with the card's name and power
 limit. Every build's output must lie within 2^-6 of the largest magnitude
 of its plain version's; the builds' mutual max difference is printed (the
-numerics differ on purpose between designs), and inside each build K8's
-output must equal K2's bit for bit on the same rows.
+numerics differ on purpose between designs) with whether every build's
+output equals the first's bit for bit, and inside each build K8's output
+must equal K2's bit for bit on the same rows. With ``--ptxas`` it first
+builds every source as each of the three units (``decode_attn``,
+``decode_attn_wide``, ``decode_attn_alibi``: the defines of ``_build.UNITS``)
+and prints each kernel instance's registers and spill bytes per build, and
+the instances where they differ.
 """
 
 from __future__ import annotations
@@ -42,12 +51,64 @@ sys.path.insert(0, str(ROOT))
 TOL = 2.0 ** -6
 
 
-def build(src: Path, out: Path):
+def build(src: Path, out: Path, defines=()):
     from awq_tpu_torch import _build
 
     log = open(out.with_suffix(".log"), "w")
-    return subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-                             "-o", str(out), str(src)], stdout=log, stderr=subprocess.STDOUT)
+    return subprocess.Popen([_build.nvcc_path(), *_build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                             "-I", str(_build.CSRC), "-o", str(out), str(src)], stdout=log,
+                            stderr=subprocess.STDOUT)
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel instance: (registers, spill stores, spill loads)} from a
+    ``-Xptxas -v`` log, the instance's mangled name with its anonymous
+    namespace (a hash of the file) cut out, so that builds compare."""
+    import re
+
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", m.group(1))
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn] = out.get(fn, (0, 0, 0))[:1] + (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn] = (int(m.group(1)),) + out.get(fn, (0, 0, 0))[1:]
+    return out
+
+
+def compare_ptxas(srcs: dict, out_dir: Path) -> None:
+    """Build every source as each decode unit and print the instances'
+    registers and spills side by side."""
+    from awq_tpu_torch import _build
+
+    units = {u: _build.UNITS[u][1]
+             for u in ("decode_attn", "decode_attn_wide", "decode_attn_alibi")}
+    jobs = {(name, u): (src, out_dir / f"ptxas-{name.split(':')[0]}-{u}.so", d)
+            for name, (src, _) in srcs.items() for u, d in units.items()}
+    procs = {k: build(src, so, d) for k, (src, so, d) in jobs.items()}
+    for k, proc in procs.items():
+        if proc.wait():
+            raise RuntimeError(f"nvcc failed for {k}")
+    names = list(srcs)
+    for u in units:
+        use = {n: ptxas_usage(jobs[(n, u)][1].with_suffix(".log").read_text()) for n in names}
+        keys = sorted(set().union(*use.values()))
+        differ = 0
+        for key in keys:
+            cells = [use[n].get(key) for n in names]
+            same = all(c == cells[0] for c in cells)
+            differ += not same
+            print(f"ptxas {u} {key[:120]}: " + "; ".join(
+                f"{n} " + (f"{c[0]} registers, spills {c[1]}/{c[2]} B" if c else "absent")
+                for n, c in zip(names, cells)) + ("" if same else "  <- differs"), flush=True)
+        print(f"ptxas {u}: {len(keys)} instances, {differ} differ across the builds", flush=True)
 
 
 def _old_split(max_length: int, rows: int) -> tuple:
@@ -62,10 +123,16 @@ def _old_split(max_length: int, rows: int) -> tuple:
 class Build:
     """One library's four entries behind one call signature per kernel."""
 
-    def __init__(self, so: Path, planned: bool, dev_len: bool = False):
+    def __init__(self, so: Path, planned: bool, dev_len: bool = False, fused: bool = False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         self.lib, self.planned, self.dev_len = ctypes.CDLL(str(so)), planned, dev_len
-        sigs = ({"awq_flash_decode": [P] * 6 + [I] * 8 + [F] + [I] * 3 + [P],
+        self.fused = fused
+        sigs = ({"awq_flash_decode": [P] * 7 + [I] * 8 + [F] + [I] * 3 + [P],
+                 "awq_flash_decode_paged": [P] * 8 + [I] * 10 + [F] + [I] * 3 + [P],
+                 "awq_flash_decode_int8": [P] * 11 + [I] * 8 + [F, I, I, P],
+                 "awq_flash_decode_layer": [P] * 5 + [I] * 10 + [F, I, I, P]}
+                if fused else
+                {"awq_flash_decode": [P] * 6 + [I] * 8 + [F] + [I] * 3 + [P],
                  "awq_flash_decode_paged": [P] * 7 + [I] * 10 + [F] + [I] * 3 + [P],
                  "awq_flash_decode_int8": [P] * 7 + [I] * 8 + [F, I, P],
                  "awq_flash_decode_layer": [P] * (4 + dev_len) + [I] * 10 + [F, I, I, P]}
@@ -108,10 +175,14 @@ class Build:
                     stream)
         else:
             kn, vn, lens, mx = a["kn"], a["vn"], a["lens"], a["mx"]
+            # a build that appends takes the cache itself as the destination
+            # (K9 also the token again as its append source)
+            app = (kn.data_ptr(), vn.data_ptr()) if self.fused else ()
             if mode == "paged":
                 pool, tables, page = a["pool"], a["tables"], a["page"]
                 nkv, mp = pool.shape[3], tables.shape[1]
-                head = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), pool[0].data_ptr(),
+                dst = (pool[0].data_ptr(),) if self.fused else ()
+                head = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), pool[0].data_ptr(), *dst,
                         tables.data_ptr(), lens.data_ptr())
                 dims = (b, nq, nkv, pool.shape[2], page, mp)
                 tail = (scale, bf16, bf16, bf16, stream)
@@ -119,16 +190,18 @@ class Build:
             elif mode == "int8":
                 codes, scales = a["codes"], a["scales"]
                 nkv = codes.shape[2]
-                head = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), codes.data_ptr(),
-                        scales.data_ptr(), lens.data_ptr())
+                dst = (codes.data_ptr(), scales.data_ptr()) if self.fused else ()
+                head = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), *app, codes.data_ptr(),
+                        scales.data_ptr(), *dst, lens.data_ptr())
                 dims = (b, nq, nkv, codes.shape[3])
-                tail = (scale, bf16, stream)
+                tail = (scale, bf16, *((bf16,) if self.fused else ()), stream)
                 fn, esize, unit = self.lib.awq_flash_decode_int8, 1, "flash_decode_int8"
                 page = 0
             else:
                 cache = a["cache"]
                 nkv = cache.shape[2]
-                head = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), cache.data_ptr(),
+                dst = (cache.data_ptr(),) if self.fused else ()
+                head = (q.data_ptr(), kn.data_ptr(), vn.data_ptr(), cache.data_ptr(), *dst,
                         lens.data_ptr())
                 dims = (b, nq, nkv, cache.shape[3])
                 tail = (scale, bf16, bf16, bf16, stream)
@@ -234,6 +307,8 @@ def main() -> int:
                     help="decode_attn.cu sources to compare with the checkout's")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--ptxas", action="store_true",
+                    help="first compare the three decode units' registers and spills")
     args = ap.parse_args()
 
     import torch
@@ -254,14 +329,17 @@ def main() -> int:
     srcs = {f"{i}:{src.parent.name}/{src.name}": (src.resolve(), out_dir / f"other{i}.so")
             for i, src in enumerate(args.other)}
     srcs["checkout"] = (_build.CSRC / "decode_attn.cu", out_dir / "checkout.so")
+    if args.ptxas:
+        compare_ptxas(srcs, out_dir)
     procs = [build(src, so) for src, so in srcs.values()]
     if any(p.wait() for p in procs):
         return 1
     builds = {name: Build(so, "part_ml" not in src.read_text(),
-                          "const int* lenp" in src.read_text())
+                          "const int* lenp" in src.read_text(), "k_app" in src.read_text())
               for name, (src, so) in srcs.items()}
-    print("builds: " + "; ".join(f"{n} ({'planned, one launch' if b.planned else 'split + combine'})"
-                                 for n, b in builds.items()), flush=True)
+    print("builds: " + "; ".join(
+        f"{n} ({'planned, one launch' if b.planned else 'split + combine'}"
+        f"{', appends' if b.fused else ''})" for n, b in builds.items()), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     timer = Timer(torch, reps=args.reps)
@@ -280,6 +358,8 @@ def main() -> int:
         errs = {name: (o.float() - ref).abs().max().item() for name, o in out.items()}
         mutual = max((out[a].float() - out[c].float()).abs().max().item()
                      for a in builds for c in builds)
+        first = next(iter(out.values()))
+        equal = all(torch.equal(o, first) for o in out.values())
         times = {name: [] for name in builds}
         order = list(builds)
         for _ in range(args.rounds):
@@ -292,7 +372,8 @@ def main() -> int:
             f"{name} median {statistics.median(ts):.4f} ms ("
             + " ".join(f"{x:.4f}" for x in ts) + f"), max err {errs[name]:.3e}"
             for name, ts in times.items())
-        line += f"; SDPA {sdpa_ms:.4f} ms; builds' max diff {mutual:.3e} (tol {TOL:g}*{scale:.3e})"
+        line += (f"; SDPA {sdpa_ms:.4f} ms; builds' max diff {mutual:.3e} (tol {TOL:g}*{scale:.3e})"
+                 f"; outputs {'bit-equal across builds' if equal else 'DIFFER across builds'}")
         if "same_as" in case:
             same = {name: torch.equal(out[name], outs[case["same_as"]][name]) for name in builds}
             line += "; K8 = K2 " + ", ".join(f"{n} {'equal' if e else 'DIFFERS'}"

@@ -150,7 +150,7 @@ def _no_k2(monkeypatch):
         raise AssertionError("the S = 1 step took K2")
 
     monkeypatch.setattr(tllama, "flash_decode", refuse)
-    monkeypatch.setattr(tllama, "flash_decode_plain", refuse)
+    monkeypatch.setattr(tllama, "flash_decode_append_plain", refuse)
 
 
 # f32 on both sides, JAX's masked XLA attention against the port's (the

@@ -128,7 +128,8 @@ def test_forward_kv8_scales_are_jitted_quantize_kv_of_its_own_kv(model, monkeypa
     position it wrote (an 11-token prefill, then four decodes through the
     int8 append), exactly JAX's ``jax.jit(quantize_kv)`` of the k/v that this
     same forward computed: codes and scales at 0 ulp. The k/v are taken at
-    the two writes (the prefill's ``quantize_kv`` and the decode's append),
+    the two writes (the prefill's ``quantize_kv`` and each decode layer's
+    K9, which appends them),
     so this holds the serving path's own scale formula, not the two sides'
     k/v, which differ in f32 rounding."""
     import jax
@@ -142,17 +143,20 @@ def test_forward_kv8_scales_are_jitted_quantize_kv_of_its_own_kv(model, monkeypa
         seen.append(("prefill", kv.clone()))
         return tca.quantize_kv(kv)
 
-    def rec_append(real):
-        def append(data, scales, kv, lengths):
-            seen.append(("decode", kv.clone(), lengths.clone()))
-            return real(data, scales, kv, lengths)
-        return append
+    def rec_decode(real):
+        # K9 appends the current token (k_app, v_app; by default k_new,
+        # v_new) to its layer's cache after attending
+        def decode(q, k_new, v_new, *a, k_app=None, v_app=None, **kw):
+            kv = torch.stack([k_new if k_app is None else k_app,
+                              v_new if v_app is None else v_app])
+            seen.append(("decode", kv.clone(), a[2].clone()))
+            return real(q, k_new, v_new, *a, k_app=k_app, v_app=v_app, **kw)
+        return decode
 
     monkeypatch.setattr(tllama, "quantize_kv", rec_quantize)
-    monkeypatch.setattr(tllama, "batched_cache_append_int8",
-                        rec_append(tllama.batched_cache_append_int8))
-    monkeypatch.setattr(tllama, "batched_cache_append_int8_plain",
-                        rec_append(tllama.batched_cache_append_int8_plain))
+    monkeypatch.setattr(tllama, "flash_decode_int8", rec_decode(tllama.flash_decode_int8))
+    monkeypatch.setattr(tllama, "flash_decode_int8_append_plain",
+                        rec_decode(tllama.flash_decode_int8_append_plain))
     rng = np.random.default_rng(3)
     steps = [rng.integers(0, 512, (1, 11))] + [rng.integers(0, 512, (1, 1)) for _ in range(4)]
     cache = tllama.init_kv_cache8(tcfg, 1, 256, device="cpu")
@@ -169,14 +173,16 @@ def test_forward_kv8_scales_are_jitted_quantize_kv_of_its_own_kv(model, monkeypa
             got_c = cache.data[layer % 2, :, :, :, :s].numpy()
             got_s = cache.scales[layer % 2, :, :, :, :s].numpy()
             layer += 1
-        else:                            # every layer's [L, 2, B, n_kv, hd]
+        else:                            # one layer's [2, B, n_kv, hd]
             codes, scales = (np.asarray(a) for a in jq(jnp.asarray(rec[1].numpy())))
             p = int(rec[2][0])
-            got_c, got_s = cache.data[:, :, 0, :, p].numpy(), cache.scales[:, :, 0, :, p].numpy()
-            codes, scales = codes[:, :, 0], scales[:, :, 0]
+            got_c = cache.data[layer % 2, :, 0, :, p].numpy()
+            got_s = cache.scales[layer % 2, :, 0, :, p].numpy()
+            codes, scales = codes[:, 0], scales[:, 0]
+            layer += 1
         np.testing.assert_array_equal(got_s, scales)
         np.testing.assert_array_equal(got_c, codes)
-    assert [r[0] for r in seen] == ["prefill"] * 2 + ["decode"] * 4
+    assert [r[0] for r in seen] == ["prefill"] * 2 + ["decode"] * 8
 
 
 def test_forward_kv8_deployed_order_differs_from_cpu_order(model, monkeypatch):
