@@ -9,7 +9,9 @@ flags: an edited source or header builds anew, an unchanged one is loaded
 from disk. The megakernels are built once per instance: K4
 (``megakernel.cu``) per weight format and layer shape (llama, MPT), the
 flash attention (``decode_attn.cu``) without ALiBi slopes (head_dim 128 and
-up to 32 q heads a kv head; the wide unit the other shapes) and with them, K6 (``megakernel_batched.cu``) per
+up to 32 q heads a kv head; the wide unit the other shapes), with them, and
+in its window mode (the batched speculative verify, unit
+``decode_attn_verify``), K6 (``megakernel_batched.cu``) per
 cache (the four slot dtypes and the page pool) and format, and K5, the
 chunk mode of K6's body (``AWQ_MEGA_CHUNK``), per cache dtype and format,
 so that the instances compile in parallel. Nothing here runs at import
@@ -47,6 +49,9 @@ UNITS: Dict[str, Tuple[str, Tuple[str, ...]]] = {
     "decode_attn_wide": ("decode_attn", ("AWQ_DECODE_WIDE=1",)),
     # K2, K3, K8, K9 and K14 with ALiBi slopes compiled in (entries *_alibi)
     "decode_attn_alibi": ("decode_attn", ("AWQ_ALIBI=1",)),
+    # the window mode of K2 and K9, the batched speculative verify (entries
+    # awq_flash_verify, awq_flash_verify_int8)
+    "decode_attn_verify": ("decode_attn", ("AWQ_DECODE_VERIFY=1",)),
     **{f"megakernel{sfx}": ("megakernel", (f"AWQ_MEGA_W3={w}",)) for sfx, w in _FORMATS},
     # K4's MPT shape (bias-free LayerNorm, ALiBi, the erf-GELU plain MLP)
     **{f"megakernel_mpt{sfx}": ("megakernel", (f"AWQ_MEGA_W3={w}", "AWQ_MEGA_MPT=1"))

@@ -1,5 +1,5 @@
-// K2, K8, K9, K14 (flash decode) and K3 (causal flash prefill) for Hopper
-// (sm_90a).
+// K2, K8, K9, K14 (flash decode), K3 (causal flash prefill) and the window
+// mode of K2 and K9 (the batched speculative verify) for Hopper (sm_90a).
 //
 // K2, K8 and K9 read ONE layer of the stacked cache, the contiguous view
 // cache[l] = [2, B, n_kv, T, D] (K at index 0, V at 1), head-major so
@@ -189,13 +189,18 @@
 #ifndef AWQ_DECODE_WIDE
 #define AWQ_DECODE_WIDE 0
 #endif
+#ifndef AWQ_DECODE_VERIFY
+#define AWQ_DECODE_VERIFY 0
+#endif
 // The unit's mode: decode_attn (every entry without slopes; K2, K8 and K9 at
 // head_dim 128 and up to 32 q heads a kv head), decode_attn_wide (K2, K8
 // and K9 without slopes at the other shapes: head_dim 64, and up to 128 q
-// heads a kv head; entries *_wide, no K3 or K14), or decode_attn_alibi (K2,
+// heads a kv head; entries *_wide, no K3 or K14), decode_attn_alibi (K2,
 // K3, K8, K9 and K14 with ALiBi slopes, entries *_alibi, up to 32 q heads a
-// kv head). The wide shapes live in a unit of their own so that
-// decode_attn's instances stay the code they were.
+// kv head), or decode_attn_verify (-DAWQ_DECODE_VERIFY=1: the window mode of
+// K2 and K9 alone, entries awq_flash_verify and awq_flash_verify_int8; the
+// section at the end of this file). The wide shapes live in a unit of their
+// own so that decode_attn's instances stay the code they were.
 constexpr bool UNIT_ALIBI = AWQ_ALIBI;
 constexpr bool UNIT_WIDE = AWQ_DECODE_WIDE;
 
@@ -1572,6 +1577,7 @@ int run_prefill(const void* q, const void* cache, void* out, int B, int S, int n
 
 }  // namespace
 
+#if !AWQ_DECODE_VERIFY
 // Dtype codes: 0 f32, 1 bf16, 2 f16. q [B, nq, hd] and out of qdt;
 // k_new, v_new [B, nkv, hd] of kdt; cache [2, B, nkv, T, hd] contiguous
 // and 16-byte aligned, of cdt; lengths int32 [B] (clamped to [0, T]);
@@ -1664,7 +1670,9 @@ static int int8_entry(const void* q, const void* k_new, const void* v_new, const
   });
 }
 
-#if !AWQ_ALIBI && !AWQ_DECODE_WIDE
+#endif  // !AWQ_DECODE_VERIFY
+
+#if !AWQ_ALIBI && !AWQ_DECODE_WIDE && !AWQ_DECODE_VERIFY
 extern "C" int awq_flash_decode(const void* q, const void* k_new, const void* v_new,
                                 const void* cache, void* dst, const void* lengths, void* out, int B,
                                 int nq, int nkv, int T, int cluster, int per, int stages, int smem,
@@ -1760,7 +1768,7 @@ extern "C" int awq_flash_decode_int8_wide_dev(const void* q, const void* k_new, 
                           lengths, out, B, nq, nkv, T, hd, cluster, per, stages, smem, scale, qdt,
                           adt, nullptr, stream, want, unit, maxlen);
 }
-#else
+#elif !AWQ_DECODE_VERIFY
 // q [B, S, nq, hd] contiguous of qdt; cache [2, B, nkv, T, hd] contiguous
 // and 16-byte aligned, of cdt, with the chunk already written at
 // [start_pos, start_pos + S); out [B, S, nq * hd] of qdt; hd 64 or 128, nq
@@ -1908,7 +1916,7 @@ extern "C" int awq_flash_decode_layer_alibi_dev(const void* q, const void* k_cac
                            cluster, per, stages, smem, scale, qdt, cdt, slopes, stream, want,
                            unit);
 }
-#elif !AWQ_DECODE_WIDE
+#elif !AWQ_DECODE_WIDE && !AWQ_DECODE_VERIFY
 extern "C" int awq_flash_prefill(const void* q, const void* cache, void* out, int B,
                                  int S, int nq, int nkv, int T, int start_pos, int hd,
                                  int n_tiles, float scale_log2, int qdt, int cdt,
@@ -1935,5 +1943,546 @@ extern "C" int awq_flash_decode_layer_dev(const void* q, const void* k_cache,
   return layer_entry<true>(q, k_cache, v_cache, out, lengths, B, nq, nkv, T, length, hd,
                            cluster, per, stages, smem, scale, qdt, cdt, nullptr, stream, want,
                            unit);
+}
+#endif
+
+#if AWQ_DECODE_VERIFY
+// ---- The window mode of K2 and K9: the batched speculative verify --------
+//
+// flash_verify (K2's window mode) and flash_verify_int8 (K9's) are the
+// attention of one layer of verify_step_batched (awq_tpu/models/llama.py:
+// 1345-1502), which the JAX package runs in XLA (xla_attn, :1407-1434): no
+// Pallas kernel, so no TPU kernel is replaced. Row b brings a window of W
+// <= 32 tokens, q [B, W, nq, D] and the window's k/v [B, W, nkv, D] (post
+// rope, in q's dtype, as operands: not yet in the cache); query j of row b
+// attends the cache positions t < len_b and the window positions 0..j.
+// The cache is one layer [2, B, nkv, T, D] of f32, bf16 or f16, or of int8
+// codes with scales [2, B, nkv, T] f32 (K9's); the window's k/v are taken
+// in full precision over either, as JAX attends them before its append.
+//
+// A block takes 64 packed query rows of one (row b, kv head h): row r of
+// the (b, h) pair is window position r / g, head-in-group r % g (q's own
+// order), so the group's heads share every K/V tile it loads; 71 q heads
+// over one kv head at W = 8 are 568 rows, nine blocks (`chunks`). The
+// positions of the prefix are cut into `cluster` slices of `per`
+// positions, one block each, and the blocks of a slice set are one
+// thread-block cluster that merges through distributed shared memory, as
+// K2's do. Four warps, a warp a 16-row tile of the chunk, each over all 64
+// positions of a K/V tile: S = (q * scale) . K^T by mma.sync m16n8k16 with
+// q * scale split into hi and lo halves of the mma type (K2's numerics),
+// the online softmax in f32, P rounded to the mma type for P . V. K/V tiles
+// come in by 16-byte cp.async into a ring of `stages` tiles (zero-filled
+// past the slice, never read past len_b); an int8 tile widens to f16 exactly
+// and an f32 tile rounds to bf16 in a 16-bit tile before the products (K9's
+// K scale multiplies a score, its V scale a weight before the rounding).
+//
+// After the loop each block leaves its rows' (max, sum, output) in shared
+// memory; after a cluster barrier block `rank` merges the rows rank,
+// rank + cluster, ... a warp a row, reading every block's state, then folds
+// in the row's causal window on CUDA cores in f32 (the scores of window
+// positions 0..j against the f32 window k, their weights times the window
+// v) and writes the output. The append: after the cluster's last barrier
+// (no block of the cluster reads the cache any more) block rank 0 of chunk 0
+// writes the W positions at start_b = min(max(len_b, 0), T - W), where
+// JAX's dynamic_update_slice puts them, in the cache's dtype (K2), or as
+// quantize_kv's codes and scales (K9: K7's int8 arithmetic, D / 4 lanes a
+// row, a true division, round half to even). The other chunks of the pair
+// read only [0, len_b), below start_b: a row whose window does not fit
+// (len_b + W > T, a freed slot's stale length) is written inside its prefix
+// and its outputs are not defined where its rows span several chunks.
+namespace {
+namespace ver {
+constexpr int TILE = 64;       // positions of a ring stage
+constexpr int ROWS = 64;       // packed query rows of a block
+constexpr int THREADS = 128;   // 4 warps, a 16-row tile each
+constexpr int MAX_W = 32;
+}  // namespace ver
+
+struct VerifyArgs {
+  const void* q;         // [B, W, nq, D] of qdt
+  const void* k_new;     // [B, W, nkv, D] of qdt
+  const void* v_new;
+  void* out;             // [B, W, nq, D] of qdt
+  const int* lengths;    // [B]
+  const void* cache;     // [2, B, nkv, T, D] of E
+  const float* scales;   // [2, B, nkv, T] (int8) or null
+  void* dst;             // the append's destination, the cache's layout
+  float* dst_scales;
+  int qdt, B, W, nq, nkv, T, per, chunks, stages;
+  float scale;
+};
+
+// Shared memory of a block in bytes (ops/decode_attn.py::verify_plan mirrors
+// it): q's hi and lo halves, the ring, the 16-bit tile of int8 and f32
+// caches; after the loop the merge state [ROWS][D + 4] and [ROWS][2]
+// overlays them.
+struct VerLayout {
+  int q, stage, ring, wide, merge, total;
+};
+template <int D>
+__host__ __device__ inline VerLayout ver_layout(int esize, int stages) {
+  VerLayout L{};
+  L.q = 2 * ver::ROWS * D * 2;
+  L.stage = round128(2 * ver::TILE * D * esize + (esize == 1 ? 2 * ver::TILE * 4 : 0));
+  L.ring = stages * L.stage;
+  L.wide = esize != 2 ? 2 * ver::TILE * D * 2 : 0;
+  L.merge = round128((ver::ROWS * (D + 4) + 2 * ver::ROWS) * 4);
+  const int main_region = L.q + L.ring + L.wide;
+  L.total = main_region > L.merge ? main_region : L.merge;
+  return L;
+}
+
+template <typename E, int D>
+__global__ void __launch_bounds__(ver::THREADS) flash_verify_kernel(const VerifyArgs a) {
+  using MT = typename std::conditional<sizeof(E) == 1, __half, typename MmaOf<E>::type>::type;
+  constexpr bool I8 = sizeof(E) == 1, F32 = sizeof(E) == 4, NARROW = sizeof(E) == 2;
+  constexpr int TILE = ver::TILE, ROWS = ver::ROWS;
+  constexpr int ROWB = D * (int)sizeof(E), CPR = ROWB / 16, MROWB = D * 2;
+  constexpr int RSW = CPR >= 8 ? 7 : CPR - 1;
+  auto rswz = [](int r, int c) { return r * ROWB + ((c ^ (r & RSW)) << 4); };
+  extern __shared__ __align__(128) uint8_t smem[];
+
+  const int rank = blockIdx.x, nsplit = gridDim.x;
+  const int chunk = blockIdx.y % a.chunks, h = blockIdx.y / a.chunks, b = blockIdx.z;
+  const int g = a.nq / a.nkv, r0 = chunk * ROWS, nrows = min(ROWS, g * a.W - r0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const VerLayout L = ver_layout<D>((int)sizeof(E), a.stages);
+  uint8_t* qs = smem;
+  uint8_t* ring = qs + L.q;
+  uint8_t* wide = ring + L.ring;
+  float* st_o = reinterpret_cast<float*>(smem);     // after the loop: [ROWS][D + 4]
+  float* st_ml = st_o + ROWS * (D + 4);             // [ROWS][2]
+
+  const E* kbase = static_cast<const E*>(a.cache) + ((size_t)b * a.nkv + h) * a.T * D;
+  const E* vbase = kbase + (size_t)a.B * a.nkv * a.T * D;
+  const float* ksb = I8 ? a.scales + ((size_t)b * a.nkv + h) * a.T : nullptr;
+  const float* vsb = I8 ? ksb + (size_t)a.B * a.nkv * a.T : nullptr;
+  const int len = min(max(a.lengths[b], 0), a.T);
+  const int p0 = rank * a.per, p1 = min(len, p0 + a.per);
+  const int ntiles = p1 > p0 ? (p1 - p0 + TILE - 1) / TILE : 0;
+
+  // tile i of the slice into its ring stage: positions below p1, zeros past
+  auto issue = [&](int i) {
+    uint8_t* st = ring + (i % a.stages) * L.stage;
+    const int t0 = p0 + i * TILE;
+    for (int c = tid; c < TILE * CPR; c += ver::THREADS) {
+      const int r = c / CPR, ch = c % CPR, pos = t0 + r;
+      const bool ok = pos < p1;
+      const size_t o = ok ? (size_t)pos * D + ch * (16 / (int)sizeof(E)) : 0;
+      hop::cp_async16(st + rswz(r, ch), kbase + o, ok);
+      hop::cp_async16(st + TILE * ROWB + rswz(r, ch), vbase + o, ok);
+    }
+    if constexpr (I8) {
+      float* scl = reinterpret_cast<float*>(st + 2 * TILE * ROWB);
+      for (int c = tid; c < 2 * TILE; c += ver::THREADS) {
+        const int pos = t0 + c % TILE;
+        const bool ok = pos < p1;
+        hop::cp_async4(scl + c, (c < TILE ? ksb : vsb) + (ok ? pos : 0), ok);
+      }
+    }
+  };
+  if (ntiles > 0) issue(0);
+  hop::cp_async_commit();
+
+  // q * scale of the chunk's rows as hi and lo halves of MT (zeros past
+  // nrows), while the first tile flies
+  constexpr int QC = 8, CPQ = D / QC;
+  for (int c = tid; c < ROWS * CPQ; c += ver::THREADS) {
+    const int r = c / CPQ, d = (c % CPQ) * QC, rr = r0 + r;
+    float v[QC];
+    const size_t qo = (((size_t)b * a.W + rr / g) * a.nq + h * g + rr % g) * D + d;
+#pragma unroll
+    for (int e = 0; e < QC; ++e) v[e] = r < nrows ? load_act(a.q, a.qdt, qo + e) * a.scale : 0.f;
+    uint32_t hi[QC / 2], lo[QC / 2];
+#pragma unroll
+    for (int e = 0; e < QC; e += 2) {
+      hi[e / 2] = pack2<MT>(v[e], v[e + 1]);
+      const MT* hp = reinterpret_cast<const MT*>(&hi[e / 2]);
+      lo[e / 2] = pack2<MT>(v[e] - to_f32<MT>(hp[0]), v[e + 1] - to_f32<MT>(hp[1]));
+    }
+    const int off = swz(r, d / 8, MROWB);
+    *reinterpret_cast<uint4*>(qs + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(qs + ROWS * MROWB + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+  for (int s = 1; s < a.stages - 1; ++s) {
+    if (s < ntiles) issue(s);
+    hop::cp_async_commit();
+  }
+
+  const int gq = lane >> 2, tq = lane & 3;
+  const bool live_warp = warp * 16 < nrows;
+  float o[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < ntiles; ++i) {
+    hop::cp_async_wait_pending(a.stages - 2);   // tile i has landed (this thread's copies)
+    __syncthreads();                            // everyone's, and tile i - 1 is consumed
+    if (i + a.stages - 1 < ntiles) issue(i + a.stages - 1);
+    hop::cp_async_commit();
+    uint8_t* st = ring + (i % a.stages) * L.stage;
+    const int t0 = p0 + i * TILE;
+    const uint8_t* kt = st;
+    const uint8_t* vt = st + TILE * ROWB;
+    const float* kscale = nullptr;
+    const float* vscale = nullptr;
+    if constexpr (!NARROW) {   // int8 codes widened to f16 (exact), f32 rounded to bf16
+      for (int c = tid; c < 2 * TILE * (D / 8); c += ver::THREADS) {
+        const int kvs = c / (TILE * (D / 8)), rem = c - kvs * TILE * (D / 8);
+        const int r = rem / (D / 8), c8 = rem % (D / 8);   // 8 elements: one 16-byte MT chunk
+        const uint8_t* src = st + kvs * TILE * ROWB;
+        uint4 outv;
+        if constexpr (I8) {
+          const uint2 w = *reinterpret_cast<const uint2*>(src + rswz(r, c8 / 2) + (c8 & 1) * 8);
+          widen4(w.x, outv.x, outv.y);
+          widen4(w.y, outv.z, outv.w);
+        } else {
+          const float4 x0 = *reinterpret_cast<const float4*>(src + rswz(r, 2 * c8));
+          const float4 x1 = *reinterpret_cast<const float4*>(src + rswz(r, 2 * c8 + 1));
+          outv = make_uint4(pack2<MT>(x0.x, x0.y), pack2<MT>(x0.z, x0.w), pack2<MT>(x1.x, x1.y),
+                            pack2<MT>(x1.z, x1.w));
+        }
+        *reinterpret_cast<uint4*>(wide + kvs * TILE * MROWB + swz(r, c8, MROWB)) = outv;
+      }
+      __syncthreads();
+      kt = wide;
+      vt = wide + TILE * MROWB;
+      if constexpr (I8) {
+        kscale = reinterpret_cast<const float*>(st + 2 * TILE * ROWB);
+        vscale = kscale + TILE;
+      }
+    }
+    if (!live_warp) continue;
+
+    // S = (q * scale) . K^T over the tile's 64 positions (the lo half's
+    // products in sl)
+    float s[TILE / 8][4], sl[TILE / 8][4];
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sl[j][e] = 0.f;
+    const int qrow = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+    const int krow = (lane & 7) + 8 * (lane >> 4);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qh[4], ql[4];
+      const int qo = swz(qrow, 2 * kk + (lane >> 4), MROWB);
+      hop::ldsm_x4(qh, qs + qo);
+      hop::ldsm_x4(ql, qs + ROWS * MROWB + qo);
+#pragma unroll
+      for (int np = 0; np < TILE / 16; ++np) {
+        uint32_t kb[4];
+        hop::ldsm_x4(kb, kt + swz(krow + 16 * np, 2 * kk + ((lane >> 3) & 1), MROWB));
+        mma_16816<MT>(s[2 * np], qh, kb[0], kb[1]);
+        mma_16816<MT>(sl[2 * np], ql, kb[0], kb[1]);
+        mma_16816<MT>(s[2 * np + 1], qh, kb[2], kb[3]);
+        mma_16816<MT>(sl[2 * np + 1], ql, kb[2], kb[3]);
+      }
+    }
+
+    // online softmax of rows gq, gq + 8 (K9: K's scale on the score)
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * tq + e;
+        const bool live = t0 + col < p1;
+        float sa = s[j][e] + sl[j][e], sb = s[j][2 + e] + sl[j][2 + e];
+        if constexpr (I8) {
+          sa *= kscale[col];
+          sb *= kscale[col];
+        }
+        s[j][e] = live ? sa : NEG_INF;
+        s[j][2 + e] = live ? sb : NEG_INF;
+        mx[0] = fmaxf(mx[0], s[j][e]);
+        mx[1] = fmaxf(mx[1], s[j][2 + e]);
+      }
+    float ref[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float mn = fmaxf(m[r], mx[r]);
+      ref[r] = mn == NEG_INF ? 0.f : mn;
+      alpha[r] = __expf(m[r] - ref[r]);
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int j = 0; j < TILE / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = __expf(s[j][e] - ref[0]);
+        s[j][2 + e] = __expf(s[j][2 + e] - ref[1]);
+        sum[0] += s[j][e];
+        sum[1] += s[j][2 + e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += P . V (V read through ldmatrix.trans)
+    const int vrow = (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) {
+      float w[4] = {1.f, 1.f, 1.f, 1.f};   // K9: V's scale of columns 2tq, +1, +8, +9
+      if constexpr (I8) {
+        const int col = 16 * kk + 2 * tq;
+        w[0] = vscale[col];
+        w[1] = vscale[col + 1];
+        w[2] = vscale[col + 8];
+        w[3] = vscale[col + 9];
+      }
+      uint32_t pa[4];
+      pa[0] = pack2<MT>(s[2 * kk][0] * w[0], s[2 * kk][1] * w[1]);
+      pa[1] = pack2<MT>(s[2 * kk][2] * w[0], s[2 * kk][3] * w[1]);
+      pa[2] = pack2<MT>(s[2 * kk + 1][0] * w[2], s[2 * kk + 1][1] * w[3]);
+      pa[3] = pack2<MT>(s[2 * kk + 1][2] * w[2], s[2 * kk + 1][3] * w[3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vb[4];
+        hop::ldsm_x4_trans(vb, vt + swz(vrow + 16 * kk, 2 * dp + (lane >> 4), MROWB));
+        mma_16816<MT>(o[2 * dp], pa, vb[0], vb[1]);
+        mma_16816<MT>(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+  // the rows' state into shared memory (over the ring: every copy landed),
+  // rows padded to D + 4 floats
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  hop::cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(st_o + (warp * 16 + gq + 8 * r) * (D + 4) + 8 * dn + 2 * tq) =
+          make_float2(o[dn][2 * r], o[dn][2 * r + 1]);
+  if (tq == 0) {
+    *reinterpret_cast<float2*>(st_ml + (warp * 16 + gq) * 2) = make_float2(m[0], l[0]);
+    *reinterpret_cast<float2*>(st_ml + (warp * 16 + gq + 8) * 2) = make_float2(m[1], l[1]);
+  }
+  if (nsplit > 1) hop::cluster_sync();
+  else __syncthreads();
+
+  // the merge, a warp a row: the cluster's slices, then the causal window in
+  // f32, DPL output columns a lane
+  constexpr int DPL = D / 32;
+  for (int rr = rank + nsplit * warp; rr < nrows; rr += nsplit * (ver::THREADS / 32)) {
+    // (M, Lsum, acc) += each block's (m, l, o), online
+    float M = NEG_INF, Lsum = 0.f, acc[DPL];
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
+    const float* op = st_o + rr * (D + 4) + lane * DPL;
+    for (int q = 0; q < nsplit; ++q) {
+      float2 ml;
+      float ov[DPL];
+      if (nsplit > 1) {
+        ml = hop::ld_cluster_f32x2(hop::cluster_map(st_ml + 2 * rr, q));
+        if constexpr (DPL == 4) {
+          const float4 v4 = hop::ld_cluster_f32x4(hop::cluster_map(op, q));
+          ov[0] = v4.x; ov[1] = v4.y; ov[2] = v4.z; ov[3] = v4.w;
+        } else {
+          const float2 v2 = hop::ld_cluster_f32x2(hop::cluster_map(op, q));
+          ov[0] = v2.x; ov[1] = v2.y;
+        }
+      } else {
+        ml = *reinterpret_cast<const float2*>(st_ml + 2 * rr);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) ov[e] = op[e];
+      }
+      const float mn = fmaxf(M, ml.x), ref = mn == NEG_INF ? 0.f : mn;
+      const float wa = __expf(M - ref), wb = __expf(ml.x - ref);
+      Lsum = Lsum * wa + ml.y * wb;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[e] = acc[e] * wa + ov[e] * wb;
+      M = mn;
+    }
+    // the window: positions 0..j of the row's own k/v, in f32
+    const int row = r0 + rr, j = row / g, head = h * g + row % g;
+    const size_t qo = (((size_t)b * a.W + j) * a.nq + head) * D + lane * DPL;
+    float qf[DPL];
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) qf[e] = load_act(a.q, a.qdt, qo + e) * a.scale;
+    for (int jj = 0; jj <= j; ++jj) {
+      const size_t ko = (((size_t)b * a.W + jj) * a.nkv + h) * D + lane * DPL;
+      float part = 0.f;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) part = fmaf(qf[e], load_act(a.k_new, a.qdt, ko + e), part);
+      const float sw = warp_sum(part);
+      const float mn = fmaxf(M, sw);
+      const float wa = M == NEG_INF ? 0.f : __expf(M - mn), wb = __expf(sw - mn);
+      Lsum = Lsum * wa + wb;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e)
+        acc[e] = fmaf(wb, load_act(a.v_new, a.qdt, ko + e), acc[e] * wa);
+      M = mn;
+    }
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) store_act(a.out, a.qdt, qo + e, acc[e] / Lsum);
+  }
+  if (nsplit > 1) hop::cluster_sync();   // the peers are done reading this block's state
+  if (rank != 0 || chunk != 0) return;
+
+  // the append of the W window positions (every block of the cluster is done
+  // reading the cache)
+  const int start = min(max(a.lengths[b], 0), a.T - a.W);
+  const size_t plane = (size_t)a.B * a.nkv * a.T * D;
+  const size_t row0 = (((size_t)b * a.nkv + h) * a.T + start) * D;
+  if constexpr (!I8) {
+    constexpr int V = 16 / (int)sizeof(E), NV = D / V;
+    E* dk = static_cast<E*>(a.dst) + row0;
+    for (int c = tid; c < 2 * a.W * NV; c += ver::THREADS) {
+      const int s = c / (a.W * NV), jw = (c / NV) % a.W, d = (c % NV) * V;
+      const size_t so = (((size_t)b * a.W + jw) * a.nkv + h) * D + d;
+      const void* src = s ? a.v_new : a.k_new;
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (F32)
+          w[e] = __float_as_uint(load_act(src, a.qdt, so + e));
+        else
+          w[e] = pack2<E>(load_act(src, a.qdt, so + 2 * e), load_act(src, a.qdt, so + 2 * e + 1));
+      }
+      *reinterpret_cast<uint4*>(dk + s * plane + (size_t)jw * D + d) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  } else {
+    // quantize_kv of each window position's K and V rows: D / 4 lanes a row,
+    // a lane's 4 codes one 32-bit word, the scale from the row's first lane
+    constexpr int LPR = D / 4, RPP = ver::THREADS / LPR;
+    int8_t* dc = static_cast<int8_t*>(a.dst) + row0;
+    float* ds = a.dst_scales + ((size_t)b * a.nkv + h) * a.T + start;
+    const size_t splane = (size_t)a.B * a.nkv * a.T;
+    for (int p = 0; p < (2 * a.W + RPP - 1) / RPP; ++p) {
+      const int rw = p * RPP + tid / LPR, ln = tid % LPR;
+      const bool ok = rw < 2 * a.W;
+      const int s = ok ? rw / a.W : 0, jw = ok ? rw % a.W : 0;
+      const size_t so = (((size_t)b * a.W + jw) * a.nkv + h) * D + ln * 4;
+      const void* src = s ? a.v_new : a.k_new;
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = ok ? load_act(src, a.qdt, so + e) : 0.f;
+      float am = fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3])));
+#pragma unroll
+      for (int o2 = LPR / 2; o2 > 0; o2 >>= 1) am = fmaxf(am, __shfl_xor_sync(0xffffffffu, am, o2));
+      const float sc = __fmul_rn(fmaxf(am, 1e-6f), 1.f / 127.f);
+      uint32_t word = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float c = fminf(fmaxf(rintf(x[e] / sc), -127.f), 127.f);
+        word |= (static_cast<uint32_t>(static_cast<int>(c)) & 0xFFu) << (8 * e);
+      }
+      if (ok) {
+        *reinterpret_cast<uint32_t*>(dc + s * plane + (size_t)jw * D + ln * 4) = word;
+        if (ln == 0) ds[s * splane + jw] = sc;
+      }
+    }
+  }
+}
+
+template <typename E, int D>
+int launch_verify(const VerifyArgs& a, int cluster, int smem, cudaStream_t st) {
+  static int smem_set = 0, nonportable = 0, checked[dec::MAX_CLUSTER + 1] = {0};
+  const int g = a.nkv > 0 ? a.nq / a.nkv : 0;
+  if (g < 1 || a.nq % a.nkv || a.W < 1 || a.W > ver::MAX_W || a.W > a.T || a.stages < 2 ||
+      a.stages > 4 || cluster < 1 || cluster > dec::MAX_CLUSTER || a.per < ver::TILE ||
+      a.per % ver::TILE || a.chunks != cdiv(g * a.W, ver::ROWS) || smem > dec::SMEM_MAX ||
+      smem != ver_layout<D>((int)sizeof(E), a.stages).total)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_verify_kernel<E, D>;
+  int err = hop::allow_smem(kernel, smem, &smem_set);
+  if (err) return err;
+  if (cluster > 8 && !nonportable) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    nonportable = 1;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cluster, a.chunks * a.nkv, a.B);
+  cfg.blockDim = dim3(ver::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (smem > checked[cluster]) {
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+    checked[cluster] = smem;
+  }
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <typename E>
+int verify_hd(const VerifyArgs& a, int hd, int cluster, int smem, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 128) return launch_verify<E, 128>(a, cluster, smem, st);
+  if (hd == 64) return launch_verify<E, 64>(a, cluster, smem, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+}  // namespace
+
+// The window mode of K2: q [B, W, nq, hd], k_new, v_new [B, W, nkv, hd]
+// and out [B, W, nq, hd], all contiguous of qdt; cache [2, B, nkv, T, hd]
+// contiguous and 16-byte aligned, of cdt (0 f32, 1 bf16, 2 f16); dst the
+// cache's layout (the cache itself on the path); lengths int32 [B]; hd 64 or
+// 128, g = nq / nkv <= 128, 1 <= W <= 32 and W <= T. The plan
+// (ops/decode_attn.py::verify_plan): `cluster` blocks of `per` positions (a
+// multiple of 64, cluster * per >= max(lengths)) for each (row, kv head,
+// chunk of 64 query rows), `stages` ring stages, `smem` bytes.
+extern "C" int awq_flash_verify(const void* q, const void* k_new, const void* v_new,
+                                const void* cache, void* dst, const void* lengths, void* out,
+                                int B, int W, int nq, int nkv, int T, int hd, int cluster,
+                                int per, int stages, int smem, float scale, int qdt, int cdt,
+                                void* stream) {
+  const int chunks = nkv > 0 ? cdiv((nq / nkv) * W, ver::ROWS) : 0;
+  const VerifyArgs a{q,  k_new, v_new, out, static_cast<const int*>(lengths), cache, nullptr,
+                     dst, nullptr, qdt, B, W, nq, nkv, T, per, chunks, stages, scale};
+  switch (cdt) {
+    case 0: return verify_hd<float>(a, hd, cluster, smem, stream);
+    case 1: return verify_hd<bf16>(a, hd, cluster, smem, stream);
+    case 2: return verify_hd<__half>(a, hd, cluster, smem, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The window mode of K9: as awq_flash_verify over one layer of an int8
+// cache, codes [2, B, nkv, T, hd] int8 (16-byte aligned) and scales
+// [2, B, nkv, T] f32; the append quantizes the window into dst_codes,
+// dst_scales (the codes' and scales' layouts).
+extern "C" int awq_flash_verify_int8(const void* q, const void* k_new, const void* v_new,
+                                     const void* codes, const void* scales, void* dst_codes,
+                                     void* dst_scales, const void* lengths, void* out, int B,
+                                     int W, int nq, int nkv, int T, int hd, int cluster, int per,
+                                     int stages, int smem, float scale, int qdt, void* stream) {
+  const int chunks = nkv > 0 ? cdiv((nq / nkv) * W, ver::ROWS) : 0;
+  const VerifyArgs a{q,         k_new, v_new, out, static_cast<const int*>(lengths), codes,
+                     static_cast<const float*>(scales), dst_codes,
+                     static_cast<float*>(dst_scales), qdt, B, W, nq, nkv, T, per, chunks, stages,
+                     scale};
+  return verify_hd<int8_t>(a, hd, cluster, smem, stream);
 }
 #endif

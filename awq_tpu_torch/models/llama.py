@@ -31,6 +31,11 @@ row's k/v in place; otherwise the stacked path with per-row rope rows and
 K2 over per-row lengths, each launch appending its layer's current token
 (K7's write, ``ops/cache_append.py``, fused into K2).
 
+:func:`verify_step_batched` is the batched speculative verify: a window of
+W tokens a row, every row at its own position, the logits of every window
+position back; the stacked path with K1 over ``B * W`` rows and the window
+mode of K2 (K9 over an int8 cache) a layer, which appends the windows.
+
 :func:`decode_step_paged` is the same step over a PAGED cache: a page pool
 ``[L, 2, NP, n_kv, page, hd]`` and a block table ``[B, MP]`` per row. It
 takes K6's paged mode (2..64 rows, pages of a power-of-two size), or the
@@ -142,6 +147,8 @@ from awq_tpu_torch.ops.decode_attn import flash_decode_supported
 from awq_tpu_torch.ops.decode_attn import flash_decode_int8, flash_decode_int8_append_plain
 from awq_tpu_torch.ops.decode_attn import flash_decode_paged, flash_decode_paged_append_plain
 from awq_tpu_torch.ops.decode_attn import flash_prefill, flash_prefill_plain
+from awq_tpu_torch.ops.decode_attn import flash_verify, flash_verify_append_plain
+from awq_tpu_torch.ops.decode_attn import flash_verify_int8, flash_verify_int8_append_plain
 from awq_tpu_torch.ops import megakernel as mk
 from awq_tpu_torch.ops import megakernel_batched as mkb
 from awq_tpu_torch.ops import megakernel_chunk as mkc
@@ -782,7 +789,14 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     append at its own position. ``max_length`` (at least ``lengths.max()``,
     from the caller's host copy) sizes K2's grid without a device sync. With
     ``tables [B, MP]`` as well, ``cache`` is a page pool and K8 takes K2's
-    place, appending into the rows' pages. ``one_position`` says every row sits at ``lengths[0]``
+    place, appending into the rows' pages. With ``lengths`` and ``S > 1``
+    (``verify_step_batched``, no ``tables``) row ``b``'s window of S tokens
+    sits at ``lengths[b] + [0, S)``: the window mode of K2 (K9 over an int8
+    cache) attends its prefix and its causal window, the window in full
+    precision, and appends the window after its attention, where JAX
+    appends after its layer scan (over int8, quantized then); the linears
+    stay W4A16 under ``cfg.prefill_a8``, as JAX's verify step.
+    ``one_position`` says every row sits at ``lengths[0]``
     (``decode_step``): K2 and K9 then split by the length they read, and
     where K2 cannot take the heads K14 reads that length on the device and
     splits by it; ``max_length`` only sizes their grids. With ``tp_axis``
@@ -821,12 +835,15 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
     decode8 = flash_decode_int8_append_plain if plain else flash_decode_int8
     decode_paged = flash_decode_paged_append_plain if plain else flash_decode_paged
     prefill = flash_prefill_plain if plain else flash_prefill
+    verify = flash_verify_append_plain if plain else flash_verify
+    verify8 = flash_verify_int8_append_plain if plain else flash_verify_int8
     slopes = _slopes(cfg, dev)
     rope = cfg.pos_embed == "rope"      # ALiBi and learned positions run none
 
     # the int8-activation prefill (cfg.prefill_a8): K11 over a layer's
-    # int8 cache (``<name>_w8``), else K10; decode stays W4A16
-    a8 = s > 1 and cfg.prefill_a8
+    # int8 cache (``<name>_w8``), else K10; decode and the verify windows
+    # stay W4A16, as in the JAX package
+    a8 = s > 1 and cfg.prefill_a8 and lengths is None
 
     def lin(name, idx, xx, with_bias=True):
         p = layers[name]
@@ -858,7 +875,10 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
         t_max = cache_seq_len(cache) * (1 if tables is None else tables.shape[1])
         if rope:
             cos, sin = _rope_cached(cfg, t_max, dev)
-            positions = lengths.long()[:, None]
+            # row b's positions lengths[b] + [0, S), clamped to the table
+            # as JAX's gather clamps them (a freed slot's stale length)
+            positions = (lengths.long()[:, None] + torch.arange(s, device=dev)).clamp(
+                0, t_max - 1)
         row_lengths = lengths
 
     # where K2 cannot take the shape, a single-position step at one shared
@@ -932,6 +952,14 @@ def stacked_layers(params: Params, cfg: ModelConfig, h: torch.Tensor,
                     attn = decode_paged(q1, k1, v1, cache, tables, idx, row_lengths,
                                         max_length=max_length, slopes=slopes)
             attn = attn.reshape(b, 1, nq * hd)
+        elif lengths is not None:
+            # a verify window a row (verify_step_batched): the window mode of
+            # K2 (K9 over an int8 cache) attends each row's prefix and its
+            # causal window in full precision, then appends the window
+            attn = (verify8(q.contiguous(), k.contiguous(), v.contiguous(), kv, kv_s,
+                            row_lengths, max_length=max_length) if q8 else
+                    verify(q.contiguous(), k.contiguous(), v.contiguous(), kv, row_lengths,
+                           max_length=max_length)).reshape(b, s, nq * hd)
         elif q8:
             # quantize and write the chunk, then attend over the dequantized
             # prefix, the chunk's own quantized positions included
@@ -1059,11 +1087,11 @@ def _check_cache(cache) -> None:
 
 
 def _check_step(cfg: ModelConfig, cache, impl: str, tp_axis) -> None:
-    """What the batched and paged steps refuse."""
+    """What the batched, paged and verify steps refuse."""
     _check_supported(cfg)
     if tp_axis is not None:
         raise NotImplementedError(
-            "the batched and paged steps under tensor parallelism (tp_axis) are "
+            "the batched, paged and verify steps under tensor parallelism (tp_axis) are "
             "ROADMAP queue A, item 17b")
     _check_cache(cache)
     if impl not in ("auto", "plain"):
@@ -1117,6 +1145,58 @@ def decode_step_batched(
     else:
         h = stacked_layers(params, cfg, h[:, None], cache, 0, impl,
                            lengths=lengths, max_length=max_length)[:, 0]
+    h = _norm(cfg, h, params["norm"], params.get("norm_b"))
+    return _head_logits(params, h, impl), cache
+
+
+@torch.no_grad()
+def verify_step_batched(
+    params: Params,
+    cfg: ModelConfig,
+    windows: torch.Tensor,      # [B, W] ids: [current token, d1..d_{W-1}]
+    cache: Cache,               # [L, 2, B, n_kv, T, hd] or a KVCache8, in place
+    lengths: torch.Tensor,      # [B] int32 per-row lengths (the window's first position)
+    impl: str = "auto",
+    max_length: Optional[int] = None,
+    tp_axis=None,
+) -> Tuple[torch.Tensor, Cache]:
+    """One speculative VERIFY step for a batch (``awq_tpu/models/llama.py:
+    1345``): row ``b``'s window of W tokens forwards at positions
+    ``lengths[b] + [0, W)``, reading its cache prefix ``[0, lengths[b])``,
+    and the logits of every position come back, ``[B, W, V]`` f32. The
+    window's k/v are written into the cache in place at those positions
+    (clamped to ``T - W`` as JAX's ``dynamic_update_slice`` clamps), rejected
+    drafts included: the cache masks by length, so they are dead until
+    overwritten. Over a :class:`KVCache8` the window attends in full
+    precision and is quantized into the cache after.
+
+    The stacked path with ``S = W``: the linears on K1 over ``B * W`` rows,
+    rope at the per-row positions, and a layer's attention ONE launch of the
+    window mode of K2 or K9 (``flash_verify``, ``flash_verify_int8``), which
+    appends the window itself: no append launch. ``max_length`` (at least
+    ``lengths.max()``, from the caller's host copy) sizes its split. Every
+    family of JAX's verify step: rope (with NeoX's partial rope), learned
+    positions (OPT's offset of 2) and none; ALiBi raises, as JAX's verify
+    has no ALiBi path (its ``BatchEngine`` takes plain decode there), and so
+    does ``tp_axis`` (ROADMAP A17b). ``impl`` as in :func:`forward`."""
+    _check_step(cfg, cache, impl, tp_axis)
+    if cfg.pos_embed == "alibi":
+        raise ValueError(f"verify_step_batched of a {cfg.arch} model: the verify step has no "
+                         "ALiBi path (JAX asserts rope, learned or none); BatchEngine decodes "
+                         "ALiBi models without speculation")
+    dev = cache.device
+    b, w = windows.shape
+    data, _ = mk.split_cache(cache)
+    if data.shape[2] != b or tuple(lengths.shape) != (b,):
+        raise ValueError(f"{b} windows need a cache of {b} slots and lengths [{b}], got "
+                         f"{tuple(data.shape)} and {tuple(lengths.shape)}")
+    lengths = lengths.to(device=dev, dtype=torch.int32)
+    if max_length is None:
+        max_length = int(lengths.max())
+    max_length = min(max(int(max_length), 0), data.shape[4])
+    positions = lengths.long()[:, None] + torch.arange(w, device=dev)
+    h = _embed(params, cfg, windows.to(dev), positions)     # [B, W, H]
+    h = stacked_layers(params, cfg, h, cache, 0, impl, lengths=lengths, max_length=max_length)
     h = _norm(cfg, h, params["norm"], params.get("norm_b"))
     return _head_logits(params, h, impl), cache
 

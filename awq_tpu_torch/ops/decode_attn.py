@@ -39,6 +39,11 @@ its valid prefix.
   one length for every row, the current token already written. head_dim
   64 or 128 and up to 128 query heads per kv head (falcon-7b: 71 over one
   kv head at head_dim 64). ``layers.attention`` calls it at S = 1.
+- :func:`flash_verify` and :func:`flash_verify_int8` are the window mode of
+  K2 and K9, the attention of ``models/llama.py::verify_step_batched`` (XLA
+  in the JAX package, no TPU kernel): W <= 32 queries a row over the row's
+  prefix and its causal window, the window's k/v as operands, appended by
+  the same launch (the section at the end of this module).
 
 K2, K8 and K9 also APPEND the current token to the layer's cache, in
 place, after their attention has read it: row ``b``'s k/v at position
@@ -53,12 +58,13 @@ after the cluster's last barrier, so the attention never sees it. The CPU
 path keeps JAX's order: the plain attention, then the plain append
 (``*_append_plain``). The wrappers count each append under K7's names
 (``cache_append.LAUNCHES``: ``cache_append``, ``cache_append_paged``,
-``cache_append_int8``). ``append_to`` is a seam for the checks alone: no
-caller on the serving path passes it. It sends the write to another tensor
-of the cache's layout, so that the card tests and ``chip_smoke.py`` can hold
-the output of a launch that appended in place, bit for bit, against one
-whose attention read a cache that nothing wrote: the proof that the
-attention never sees its own write.
+``cache_append_int8``). ``append_to`` (of these wrappers and of the window
+mode's) is a seam for the checks alone: no caller on the serving path passes
+it. It sends the write to another tensor of the cache's layout, so that the
+card tests (``tests/test_torch_fused_append.py``, ``test_torch_verify.py``)
+and ``chip_smoke.py`` can hold the output of a launch that appended in
+place, bit for bit, against one whose attention read a cache that nothing
+wrote: the proof that the attention never sees its own write.
 
 K2, K8, K9 and K14 are one split-and-merge body, one launch a call: the
 positions of each (row, kv head) are cut into slices whose blocks form a
@@ -114,12 +120,16 @@ from awq_tpu_torch.ops.cache_append import (
 #: with ALiBi slopes they count under ``<name>_alibi``, and K2, K8 and K9 at
 #: head_dim 64 or a group wider than 32 (the unit ``decode_attn_wide``) under
 #: ``<name>_wide``. The appends of K2, K8 and K9 count in
-#: ``cache_append.LAUNCHES``.
+#: ``cache_append.LAUNCHES``. The window modes of K2 and K9 (the unit
+#: ``decode_attn_verify``) count under ``flash_verify`` and
+#: ``flash_verify_int8``; the window's append is part of that launch and
+#: counts nowhere else.
 LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0, "flash_decode_int8": 0,
             "flash_prefill": 0, "flash_decode_layer": 0, "flash_decode_alibi": 0,
             "flash_prefill_alibi": 0, "flash_decode_layer_alibi": 0,
             "flash_decode_paged_alibi": 0, "flash_decode_int8_alibi": 0,
-            "flash_decode_wide": 0, "flash_decode_paged_wide": 0, "flash_decode_int8_wide": 0}
+            "flash_decode_wide": 0, "flash_decode_paged_wide": 0, "flash_decode_int8_wide": 0,
+            "flash_verify": 0, "flash_verify_int8": 0}
 
 HEAD_DIM = 128            # the head_dim of the unit decode_attn's K2, K8 and K9
 HEAD_DIMS = (64, 128)     # the head_dims every decode and prefill kernel takes
@@ -141,6 +151,8 @@ _LOG2E = 1.4426950408889634
 PREFILL_ROWS = 128        # K3: packed query rows of a block (csrc k3::BQ)
 PREFILL_KV_TILE = {128: 64, 64: 128}   # K3: positions of a K/V tile by head_dim
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+VERIFY_ROWS = 64          # the window mode: packed query rows of a block (csrc ver::ROWS)
+VERIFY_MAX_W = 32         # the longest window it takes (csrc ver::MAX_W)
 
 
 def flash_decode_plain(q: torch.Tensor, k_new: torch.Tensor,
@@ -1026,4 +1038,296 @@ def flash_decode_layer(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Te
     if err:
         _build.check(lib, err, f"{what} ({plan.describe()})")
     LAUNCHES["flash_decode_layer_alibi" if sptr else "flash_decode_layer"] += 1
+    return out
+
+
+# ---- The window mode of K2 and K9: the batched speculative verify ----------
+#
+# ``models/llama.py::verify_step_batched`` attends, in every layer, a window
+# of W tokens a row: query j of row b over the cache positions t < len_b and
+# the window positions 0..j, the window's k/v as operands in full precision
+# (JAX's ``xla_attn``, ``awq_tpu/models/llama.py:1407-1434``; no Pallas
+# kernel). :func:`flash_verify` (over a float cache) and
+# :func:`flash_verify_int8` (over a ``KVCache8`` layer) launch the window
+# mode of K2's and K9's split body (``csrc/decode_attn.cu``, unit
+# ``decode_attn_verify``), which also appends the window after its last
+# cluster barrier: W positions at ``min(max(len_b, 0), T - W)``, where
+# JAX's ``dynamic_update_slice`` puts them (:1484-1502), in the cache's
+# dtype or as ``quantize_kv``'s codes and scales.
+
+
+def verify_layout(hd: int, esize: int, stages: int) -> dict:
+    """A window-mode block's shared memory in bytes
+    (``csrc/decode_attn.cu::ver_layout``): q's hi and lo halves, the ring of
+    ``stages`` K/V tiles (K9's scales beside), the 16-bit tile of an int8
+    or f32 cache; the merge state overlays them after the loop."""
+    r128 = lambda x: (x + 127) & ~127   # noqa: E731
+    lay = dict(q=2 * VERIFY_ROWS * hd * 2,
+               stage=r128(2 * DECODE_TILE * hd * esize + (2 * DECODE_TILE * 4 if esize == 1
+                                                          else 0)),
+               wide=2 * DECODE_TILE * hd * 2 if esize != 2 else 0,
+               merge=r128((VERIFY_ROWS * (hd + 4) + 2 * VERIFY_ROWS) * 4))
+    lay["ring"] = stages * lay["stage"]
+    lay["total"] = max(lay["q"] + lay["ring"] + lay["wide"], lay["merge"])
+    return lay
+
+
+@dataclasses.dataclass(frozen=True)
+class VerifyPlan:
+    """How the window mode covers one call: the ``g * w`` query rows of each
+    (row b, kv head), packed as ``r = j * g + head-in-group``, in ``chunks``
+    blocks of :data:`VERIFY_ROWS`; the prefix ``[0, max_length)`` cut into
+    ``cluster`` slices of ``per`` positions, one block each, the blocks of
+    a slice set one thread-block cluster (the grid is ``(cluster, chunks *
+    nkv, b)``), ``stages`` ring stages, ``smem`` bytes a block."""
+
+    b: int
+    w: int
+    nq: int
+    nkv: int
+    hd: int
+    max_length: int
+    esize: int
+    chunks: int
+    cluster: int
+    per: int
+    stages: int
+
+    @property
+    def smem(self) -> int:
+        return verify_layout(self.hd, self.esize, self.stages)["total"]
+
+    def describe(self) -> str:
+        return (f"{self.chunks} chunks of rows, cluster {self.cluster}, {self.per} positions a "
+                f"block, {self.stages} stages, {self.smem} B shared")
+
+
+@functools.lru_cache(maxsize=512)
+def verify_plan(b: int, w: int, nq: int, nkv: int, hd: int, max_length: int, esize: int,
+                sms: int = H100_SMS) -> VerifyPlan:
+    """The window mode's host plan (see :class:`VerifyPlan`): as
+    :func:`decode_plan`, the cluster fills one wave of ``sms`` blocks, at
+    most :data:`MAX_CLUSTER` (8 over an f32 cache, whose 192 KB blocks take
+    an SM each), fewer when the rows are short; two ring stages."""
+    chunks = -(-(nq // nkv) * w // VERIFY_ROWS)
+    most = 8 if esize == 4 else MAX_CLUSTER
+    want = max(1, min(most, sms // (b * nkv * chunks)))
+    per, cluster = decode_split(max_length, want, DECODE_TILE)
+    return VerifyPlan(b=b, w=w, nq=nq, nkv=nkv, hd=hd, max_length=max_length, esize=esize,
+                      chunks=chunks, cluster=cluster, per=per, stages=2)
+
+
+def _verify_attend(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                   kf: torch.Tensor, vf: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """JAX's ``xla_attn`` of ``verify_step_batched`` in f32 over the prefix
+    ``kf``/``vf [B, nkv, t, hd]`` f32: ``[B, W, nq, hd]`` in ``q.dtype``."""
+    b, w, nq, hd = q.shape
+    nkv, t = kf.shape[1], kf.shape[2]
+    g = nq // nkv
+    qf = q.transpose(1, 2).reshape(b, nkv, g, w, hd).float()
+    scores = torch.einsum("bkgwh,bkth->bkgwt", qf, kf) / math.sqrt(hd)
+    live = torch.arange(t, device=q.device)[None, :] < lengths.to(q.device).long()[:, None]
+    scores = scores.masked_fill(~live[:, None, None, None, :], float("-inf"))
+    kw = k_new.transpose(1, 2).float()                                 # [B, nkv, W, hd]
+    s_win = torch.einsum("bkgwh,bkjh->bkgwj", qf, kw) / math.sqrt(hd)
+    causal = torch.ones((w, w), dtype=torch.bool, device=q.device).tril()
+    s_win = s_win.masked_fill(~causal, float("-inf"))
+    p = torch.softmax(torch.cat([scores, s_win], dim=-1), dim=-1)
+    o = (torch.einsum("bkgwt,bkth->bkgwh", p[..., :t], vf)
+         + torch.einsum("bkgwj,bkjh->bkgwh", p[..., t:], v_new.transpose(1, 2).float()))
+    return o.reshape(b, nq, w, hd).transpose(1, 2).to(q.dtype)
+
+
+def _prefix_bound(lengths: torch.Tensor, t: int, max_length: Optional[int]) -> int:
+    return min(max(int(lengths.max()) if max_length is None else int(max_length), 0), t)
+
+
+def flash_verify_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                       cache: torch.Tensor, lengths: torch.Tensor,
+                       max_length: Optional[int] = None) -> torch.Tensor:
+    """Plain version of the window mode's attention over one float cache
+    layer ``[2, B, nkv, T, hd]``: ``q [B, W, nq, hd]``, the window's
+    ``k_new``/``v_new [B, W, nkv, hd]``, ``lengths [B]``; ``[B, W, nq, hd]``
+    in ``q.dtype``. ``max_length`` (at least ``lengths.max()``) bounds the
+    positions read."""
+    t = _prefix_bound(lengths, cache.shape[3], max_length)
+    return _verify_attend(q, k_new, v_new, cache[0, :, :, :t].float(),
+                          cache[1, :, :, :t].float(), lengths)
+
+
+def flash_verify_int8_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                            codes: torch.Tensor, scales: torch.Tensor, lengths: torch.Tensor,
+                            max_length: Optional[int] = None) -> torch.Tensor:
+    """As :func:`flash_verify_plain` over one int8 layer (codes ``[2, B,
+    nkv, T, hd]``, scales ``[2, B, nkv, T]``), dequantized in f32 as JAX's
+    ``xla_attn`` does (``kc.astype(f32) * ksc[..., None]``); the window in
+    full precision."""
+    t = _prefix_bound(lengths, codes.shape[3], max_length)
+    deq = codes[:, :, :, :t].float() * scales[:, :, :, :t, None]
+    return _verify_attend(q, k_new, v_new, deq[0], deq[1], lengths)
+
+
+def _window_rows(lengths: torch.Tensor, t: int, w: int, dev) -> tuple:
+    """The ``(rows [B, 1], positions [B, W])`` index pair of every row's
+    window, which starts at ``min(max(len_b, 0), T - W)`` (JAX's
+    ``dynamic_update_slice`` clamp)."""
+    b = lengths.shape[0]
+    pos = lengths.to(dev).long().clamp(0, t - w)[:, None] + torch.arange(w, device=dev)
+    return torch.arange(b, device=dev)[:, None], pos
+
+
+def window_append_plain(cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lengths: torch.Tensor) -> None:
+    """Each row's window ``k``, ``v [B, W, nkv, hd]`` into one float cache
+    layer ``[2, B, nkv, T, hd]`` at its positions (:func:`_window_rows`), in
+    the cache's dtype, in place."""
+    rows, pos = _window_rows(lengths, cache.shape[3], k.shape[1], cache.device)
+    # cache[s][rows, :, pos] is [B, W, nkv, hd]
+    cache[0][rows, :, pos] = k.to(device=cache.device, dtype=cache.dtype)
+    cache[1][rows, :, pos] = v.to(device=cache.device, dtype=cache.dtype)
+
+
+def window_append_int8_plain(codes: torch.Tensor, scales: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, lengths: torch.Tensor) -> None:
+    """As :func:`window_append_plain` into one int8 layer: ``quantize_kv``
+    of f32(k), f32(v) (JAX's quantize after its layer scan), the codes and
+    the scales at the window's positions, in place."""
+    rows, pos = _window_rows(lengths, codes.shape[3], k.shape[1], codes.device)
+    for s, x in enumerate((k, v)):
+        cq, cs = cache_append.quantize_kv(x.float().to(codes.device))
+        codes[s][rows, :, pos] = cq
+        scales[s][rows, :, pos] = cs
+
+
+def flash_verify_append_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                              cache: torch.Tensor, lengths: torch.Tensor,
+                              max_length: Optional[int] = None,
+                              append_to: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`flash_verify` in JAX's order: the attention,
+    then the window's append into ``cache`` (or ``append_to``)."""
+    out = flash_verify_plain(q, k_new, v_new, cache, lengths, max_length)
+    window_append_plain(cache if append_to is None else append_to, k_new, v_new, lengths)
+    return out
+
+
+def flash_verify_int8_append_plain(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                                   codes: torch.Tensor, scales: torch.Tensor,
+                                   lengths: torch.Tensor, max_length: Optional[int] = None,
+                                   append_to=None) -> torch.Tensor:
+    """Plain version of :func:`flash_verify_int8` in JAX's order: the
+    attention over the dequantized prefix and the full-precision window,
+    then the window quantized into ``(codes, scales)`` (or ``append_to``)."""
+    out = flash_verify_int8_plain(q, k_new, v_new, codes, scales, lengths, max_length)
+    dst, dst_s = (codes, scales) if append_to is None else append_to
+    window_append_int8_plain(dst, dst_s, k_new, v_new, lengths)
+    return out
+
+
+def _check_verify(what: str, q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                  cache: torch.Tensor, lengths: torch.Tensor) -> tuple:
+    """The window mode's checks common to both wrappers; ``(b, w, nq, nkv,
+    t, hd)``."""
+    _check(q.is_cuda, what, f"unsupported device {q.device}")
+    _check(q.dim() == 4, what, f"q must be [B, W, nq, hd], got {tuple(q.shape)}")
+    b, w, nq, hd = q.shape
+    _check_head_dim(what, hd, HEAD_DIMS)
+    _check(cache.dim() == 5 and cache.shape[0] == 2 and cache.shape[1] == b
+           and cache.shape[-1] == hd, what,
+           f"cache must be one layer [2, {b}, n_kv, T, {hd}], got {tuple(cache.shape)}")
+    nkv, t = cache.shape[2], cache.shape[3]
+    _check_decode_group(what, nq, nkv, False)
+    _check(1 <= w <= min(VERIFY_MAX_W, t), what,
+           f"a window of {w} positions: the kernel takes 1 to {VERIFY_MAX_W}, at most T = {t}")
+    _check(q.dtype in _DTYPE_CODE, what, f"q must be f32, bf16 or f16, got {q.dtype}")
+    _check_kv_new(what, k_new, v_new, (b, w, nkv, hd), q.device, (q.dtype,))
+    _check(lengths.dtype == torch.int32 and tuple(lengths.shape) == (b,)
+           and lengths.device == q.device and lengths.is_contiguous(), what,
+           f"lengths must be int32 [{b}] on {q.device}")
+    _check(q.is_contiguous() and cache.is_contiguous() and cache.device == q.device, what,
+           f"q and the cache must be contiguous on {q.device}")
+    _check(cache.data_ptr() % 16 == 0, what, "cache must be 16-byte aligned")
+    return b, w, nq, nkv, t, hd
+
+
+def flash_verify(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                 cache: torch.Tensor, lengths: torch.Tensor,
+                 max_length: Optional[int] = None,
+                 append_to: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K2's window mode. ``q [B, W, nq, hd]`` (post-rope), the window's
+    ``k_new``/``v_new [B, W, nkv, hd]`` (post-rope, q's dtype), ``cache [2,
+    B, nkv, T, hd]`` one float layer (f32, bf16 or f16), ``lengths [B]``
+    int32 prefix lengths. ``max_length`` (at least ``lengths.max()``) sizes
+    the split without a device sync. head_dim 64 or 128, up to 128 q heads
+    a kv head, ``1 <= W <= 32``. Returns ``[B, W, nq, hd]``.
+
+    After the attention the launch writes the window into ``cache`` in
+    place (row ``b``'s positions ``min(max(len_b, 0), T - W) + [0, W)`` in
+    the cache's dtype), or into ``append_to`` (the checks' seam, as
+    :func:`flash_decode`'s)."""
+    if q.device.type == "cpu":
+        return flash_verify_append_plain(q, k_new, v_new, cache, lengths, max_length,
+                                         append_to=append_to)
+    what = "flash_verify"
+    b, w, nq, nkv, t, hd = _check_verify(what, q, k_new, v_new, cache, lengths)
+    _check(cache.dtype in _DTYPE_CODE, what, f"cache must be f32, bf16 or f16, got {cache.dtype}")
+    dst = cache if append_to is None else append_to
+    _check_append_to(what, dst, cache)
+    plan = verify_plan(b, w, nq, nkv, hd, _prefix_bound(lengths, t, max_length),
+                       cache.element_size(), sms=_sm_count(q.device))
+    out = torch.empty_like(q)
+
+    from awq_tpu_torch import _build
+
+    lib = _build.load("decode_attn_verify")
+    fn = lib.awq_flash_verify
+    _build.declare(fn, *([_build.P] * 7), *([_build.I] * 10), _build.F, _build.I, _build.I,
+                   _build.P)
+    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(), dst.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), b, w, nq, nkv, t, hd, plan.cluster, plan.per,
+             plan.stages, plan.smem, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+             _DTYPE_CODE[cache.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        _build.check(lib, err, f"{what} ({plan.describe()})")
+    LAUNCHES[what] += 1
+    return out
+
+
+def flash_verify_int8(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                      cache: torch.Tensor, scales: torch.Tensor, lengths: torch.Tensor,
+                      max_length: Optional[int] = None, append_to=None) -> torch.Tensor:
+    """K9's window mode. As :func:`flash_verify` over one layer of an int8
+    cache: ``cache [2, B, nkv, T, hd]`` int8 codes and ``scales [2, B, nkv,
+    T]`` f32; the window attends in full precision. After the attention the
+    launch quantizes the window as :func:`~awq_tpu_torch.ops.cache_append.
+    quantize_kv` does and writes its codes and scales in place, or into
+    ``append_to``, a ``(codes, scales)`` pair of the same layouts."""
+    if q.device.type == "cpu":
+        return flash_verify_int8_append_plain(q, k_new, v_new, cache, scales, lengths,
+                                              max_length, append_to=append_to)
+    what = "flash_verify_int8"
+    b, w, nq, nkv, t, hd = _check_verify(what, q, k_new, v_new, cache, lengths)
+    _check(cache.dtype == torch.int8, what, f"cache must be int8, got {cache.dtype}")
+    _check(tuple(scales.shape) == (2, b, nkv, t) and scales.dtype == torch.float32
+           and scales.is_contiguous() and scales.device == q.device, what,
+           f"scales must be contiguous f32 [2, {b}, {nkv}, {t}] on {q.device}")
+    dst, dst_s = (cache, scales) if append_to is None else append_to
+    _check_append_to(what, dst, cache)
+    _check_append_to(what, dst_s, scales)
+    plan = verify_plan(b, w, nq, nkv, hd, _prefix_bound(lengths, t, max_length), 1,
+                       sms=_sm_count(q.device))
+    out = torch.empty_like(q)
+
+    from awq_tpu_torch import _build
+
+    lib = _build.load("decode_attn_verify")
+    fn = lib.awq_flash_verify_int8
+    _build.declare(fn, *([_build.P] * 9), *([_build.I] * 10), _build.F, _build.I, _build.P)
+    err = fn(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
+             scales.data_ptr(), dst.data_ptr(), dst_s.data_ptr(), lengths.data_ptr(),
+             out.data_ptr(), b, w, nq, nkv, t, hd, plan.cluster, plan.per, plan.stages,
+             plan.smem, 1.0 / math.sqrt(hd), _DTYPE_CODE[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        _build.check(lib, err, f"{what} ({plan.describe()})")
+    LAUNCHES[what] += 1
     return out

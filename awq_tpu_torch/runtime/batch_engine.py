@@ -46,8 +46,19 @@ codes and scales.
 ``RuntimeConfig.prefill_w8`` builds the int8 prefill weight cache and
 turns on ``cfg.prefill_a8``, as in ``InferenceEngine``.
 
-Not ported: speculative verify (``spec_k``) and a device mesh raise
-``NotImplementedError``.
+``spec_k`` turns on speculative verify (prompt-lookup drafting,
+``runtime/speculative.py``): each step drafts up to ``spec_k`` tokens a
+slot from its own context and verifies every slot's ``spec_k + 1``-token
+window in ONE :func:`~awq_tpu_torch.models.llama.verify_step_batched` (the
+window mode of K2, or K9 over an int8 cache, a layer, which appends the
+windows), then accepts on the device
+(:func:`~awq_tpu_torch.runtime.sampling.spec_accept_sample`: greedy rows by
+the argmax, whose ids are plain decoding's; sampled rows by rejection
+sampling). A step then returns a LIST of ids a rid. Where a slot's window
+would not fit its cache, or the model is ALiBi (JAX's verify step has none),
+the step decodes without speculation; the paged engine never verifies.
+
+Not ported: a device mesh raises ``NotImplementedError`` (ROADMAP A17b).
 """
 
 from __future__ import annotations
@@ -103,14 +114,16 @@ class BatchEngine:
         cache_dtype=torch.bfloat16,
         quantize_head: bool = False,
         runtime=None,   # Optional[RuntimeConfig]: quantize_head, prefill_w8
+        # speculative verify (prompt-lookup drafting): each step verifies a
+        # spec_k + 1 window a slot instead of decoding one token
         spec_k: int = 0,
+        spec_n: int = 3,
         device="cuda",
     ):
         self.device = _device.resolve(device)
         self.cfg = cfg
-        if spec_k:
-            raise NotImplementedError(
-                "speculative verify (spec_k) is ROADMAP queue A, item 11")
+        self.spec_k = int(spec_k)
+        self.spec_n = int(spec_n)
         if getattr(runtime, "mesh", None) is not None:
             raise NotImplementedError(
                 "BatchEngine over a tensor-parallel group (RuntimeConfig.mesh) is "
@@ -259,13 +272,77 @@ class BatchEngine:
                 req.out_ids.pop()
             self._finish(req)
 
+    # ---- speculative verify -----------------------------------------------
+
+    def _spec_eligible(self, active) -> bool:
+        """Whether this step verifies (``awq_tpu/runtime/batch_engine.py:
+        281-294``): ``spec_k`` set, a model the verify step takes (no ALiBi),
+        and every active slot's window inside its cache. The paged engine
+        overrides it off."""
+        if not self.spec_k:
+            return False
+        if self.cfg.pos_embed not in ("rope", "learned", "none"):
+            return False
+        w = self.spec_k + 1
+        return all(self.lengths[i] + w <= self.max_seq for i in active)
+
+    def _step_spec(self, active) -> Dict[int, List[int]]:
+        """One verify step (``awq_tpu/runtime/batch_engine.py:296-355``):
+        per-slot prompt-lookup drafts, ONE batched ``spec_k + 1`` forward,
+        acceptance on the device, and one device fetch (the emitted ids and
+        counts), as the plain decode fetches its ids."""
+        from awq_tpu_torch.models.llama import verify_step_batched
+        from awq_tpu_torch.runtime.sampling import spec_accept_sample
+        from awq_tpu_torch.runtime.speculative import ngram_propose
+
+        k = self.spec_k
+        drafts = np.zeros((self.n_slots, k), np.int64)
+        m_cap = np.zeros(self.n_slots, np.int64)
+        for i in active:
+            req = self.slots[i]
+            ctx = np.asarray(list(req.prompt_ids) + list(req.out_ids), np.int32)
+            d = ngram_propose(ctx, k, self.spec_n)
+            drafts[i, :len(d)] = d
+            budget = req.gen.max_new_tokens - len(req.out_ids)
+            m_cap[i] = max(min(len(d), budget - 1), 0)
+        windows = torch.from_numpy(np.concatenate([self.tokens[:, None], drafts], axis=1))
+        windows = windows.to(self.device)
+        logits, _ = verify_step_batched(self.params, self.cfg, windows, self.cache,
+                                        torch.from_numpy(self.lengths).to(self.device),
+                                        max_length=int(self.lengths.max()))
+        emit, take = spec_accept_sample(
+            logits, windows, torch.from_numpy(m_cap), torch.from_numpy(self.temps),
+            torch.from_numpy(self.top_ks), torch.from_numpy(self.top_ps),
+            torch.from_numpy(self.greedy), generator=self._generator)
+        read = torch.cat([emit, take[:, None]], dim=1).cpu().numpy()   # the step's one fetch
+        out: Dict[int, List[int]] = {}
+        for i in active:
+            req = self.slots[i]
+            take_i = int(read[i, k + 1])
+            emit_i = [int(t) for t in read[i, :take_i]]
+            self.lengths[i] += take_i
+            self.tokens[i] = emit_i[-1]
+            got = []
+            for tok in emit_i:
+                if req.done:
+                    break
+                got.append(tok)
+                self._record(req, tok)
+            out[req.rid] = got
+            if not req.done and self.lengths[i] + 1 >= self.max_seq:
+                self._finish(req)
+        return out
+
     def step(self) -> Dict[int, int]:
         """Admit + one batched decode step. Returns {rid: new_token} for
-        slots that produced a token this step."""
+        slots that produced a token this step; with ``spec_k`` a step that
+        verifies returns {rid: [new tokens]} (a slot may produce several)."""
         self._admit()
         active = [i for i, r in enumerate(self.slots) if r is not None]
         if not active:
             return {}
+        if self._spec_eligible(active):
+            return self._step_spec(active)
         logits = self._decode()
         nxt = sample_logits_batched(
             logits, torch.from_numpy(self.temps), torch.from_numpy(self.top_ks),

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
 from awq_tpu_torch import _device
@@ -179,5 +180,87 @@ class InferenceEngine:
                                stop_ids=stop_ids, stream_interval=stream_interval,
                                mesh=self.mesh, loop=self.loop)
 
-    def generate_speculative(self, *args, **kwargs):
-        raise NotImplementedError("speculative decoding is ROADMAP queue A, item 11")
+    def generate_speculative(
+        self,
+        prompt_ids: Sequence[int],
+        max_new_tokens: int,
+        stop_ids: Sequence[int] = (),
+        k: int = 7,
+        n: int = 3,
+        continue_dialogue: bool = True,
+        device_loop: Optional[bool] = None,
+        gen: Optional[GenConfig] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, Any]:
+        """Generation with prompt-lookup speculative verification
+        (``runtime/speculative.py``; ``awq_tpu/runtime/engine.py:169-245``):
+        up to ``k`` drafted tokens verified a forward, the output identical
+        to :meth:`generate` with ``GenConfig(greedy=True)``. Returns
+        ``{"output_ids", "stats": {steps, drafted, accepted, length}}``
+        (and ``text`` with a tokenizer); the first stop id of ``stop_ids``
+        ends the round and is returned.
+
+        By default a greedy round runs the host loop
+        (:func:`~awq_tpu_torch.runtime.speculative.generate_speculative`: the
+        drafts found on the host, a window of ``k + 1`` through ``forward``,
+        K5 on the card, or of the one last token where none is found).
+        ``device_loop`` (the default for a sampled ``gen``) runs JAX's
+        device-side loop (:func:`~awq_tpu_torch.runtime.speculative.
+        spec_decode_device`: a fixed ``k + 1`` window a step through
+        ``forward``, a host loop here with one read a step).
+        ``gen``: a sampling :class:`GenConfig` (``temperature > 0``) rides
+        rejection-sampling acceptance, its draws from ``generator``; it needs
+        the device loop. Under a mesh the host loop routes every window
+        through ``tp_forward``, greedy only, as in the JAX engine.
+
+        History KV is reused as in :meth:`generate`: the round prefills the
+        pending id, if any, and its prompt from ``start_pos``. An id the
+        round returned but never fed (its last, unless a stop id among the
+        accepted drafts ended it) stays pending for the next round, and
+        ``start_pos`` stops at its position. (JAX's engine moves past that
+        id's slot, which no step wrote.)"""
+        from awq_tpu_torch.runtime.speculative import generate_speculative, spec_decode_device
+
+        ids = self.round_ids(prompt_ids, max_new_tokens)
+        tokens = torch.tensor([ids], dtype=torch.long, device=self.device)
+        eos = int(stop_ids[0]) if len(stop_ids) else None
+        sampled = gen is not None and not gen.greedy and gen.temperature >= 1e-5
+        if self.mesh is not None:
+            if device_loop:
+                raise ValueError("device_loop is single-device; mesh speculation uses the "
+                                 "host verify loop")
+            if sampled:
+                raise NotImplementedError(
+                    "sampled speculation under a mesh: BatchEngine(spec_k=...) over a mesh is "
+                    "ROADMAP queue A, item 17b")
+            out_ids, stats = generate_speculative(self.params, self.cfg, tokens, self.cache,
+                                                  max_new_tokens, k=k, n=n, eos=eos,
+                                                  start_pos=self.start_pos, mesh=self.mesh)
+        else:
+            if device_loop is None:
+                device_loop = sampled
+            if sampled and not device_loop:
+                raise ValueError("sampled speculation (gen.temperature > 0) requires "
+                                 "device_loop=True")
+            if device_loop:
+                out_ids, stats = spec_decode_device(self.params, self.cfg, tokens, self.cache,
+                                                    max_new_tokens, k=k, n=n, eos=eos,
+                                                    start_pos=self.start_pos, gen=gen,
+                                                    generator=generator)
+            else:
+                out_ids, stats = generate_speculative(self.params, self.cfg, tokens,
+                                                      self.cache, max_new_tokens, k=k, n=n,
+                                                      eos=eos, start_pos=self.start_pos)
+        self.cache = stats.pop("cache")
+        if continue_dialogue:
+            # every step feeds the ids it emitted but its last (an accepted
+            # stop id ends a round fed, with the drafts after it written too),
+            # so the last id was fed iff the written length reaches it
+            written = int(np.max(stats["length"])) - self.start_pos - len(ids)
+            unfed = bool(out_ids) and written < len(out_ids)
+            self.start_pos += len(ids) + len(out_ids) - int(unfed)
+            self._pending = [int(out_ids[-1])] if unfed else []
+        out: Dict[str, Any] = {"output_ids": out_ids, "stats": stats}
+        if self.tokenizer is not None:
+            out["text"] = self.tokenizer.decode(list(map(int, out_ids)))
+        return out

@@ -30,7 +30,9 @@ slot owns.
 
 Not ported: the paged int8 cache raises ``NotImplementedError``, as in JAX
 (``awq_tpu/runtime/paged.py:107-109``), whose paged engine has none; a mesh
-and ``spec_k`` raise as in ``BatchEngine``.
+raises as in ``BatchEngine``. The paged engine never verifies speculatively
+(``_spec_eligible`` is False, as JAX's: the verify step's window append
+needs contiguous rows).
 """
 
 from __future__ import annotations
@@ -118,6 +120,9 @@ class PagedBatchEngine(BatchEngine):
         # 0 = the trash page: a freed slot's writes land there
         self.tables = np.zeros((n_slots, self.max_pages), np.int32)
         self.slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
+
+    def _spec_eligible(self, active) -> bool:
+        return False   # the verify window's append needs contiguous rows
 
     def _can_admit(self, req: Request) -> bool:
         need = math.ceil((len(req.prompt_ids) + 1) / self.page_size)

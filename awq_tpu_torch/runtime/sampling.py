@@ -96,6 +96,72 @@ def sample_logits_batched(logits: torch.Tensor, temperature: torch.Tensor,
     return torch.where(take_arg.to(dev), arg, sampled)
 
 
+def spec_accept_sample(logits: torch.Tensor, windows: torch.Tensor, m_cap: torch.Tensor,
+                       temperature: torch.Tensor, top_k: torch.Tensor, top_p: torch.Tensor,
+                       greedy: torch.Tensor,
+                       generator: Optional[torch.Generator] = None) -> tuple:
+    """Speculative window acceptance of a verify step, greedy and sampled
+    rows (``awq_tpu/runtime/sampling.py:109-178``). ``logits [B, W, V]``,
+    ``windows [B, W]`` (``windows[:, 1:]`` the drafts), ``m_cap [B]`` (at
+    most that many drafts accepted: ``min(draft_len, budget - 1)``) and the
+    per-row parameters ``[B]``. Returns ``(emit [B, W], take [B])`` int64 on
+    the logits' device: row ``b`` emits ``emit[b, :take[b]]``, its accepted
+    draft prefix and one bonus token.
+
+    Greedy rows (``greedy`` or a temperature under 1e-5) keep the longest
+    draft prefix equal to the argmax of the raw logits and take the argmax
+    at the first disagreement: the ids of plain greedy decoding. Sampled
+    rows run rejection sampling against the point-mass drafter: draft ``d``
+    at position ``j`` is accepted with probability ``p_j(d)`` of the
+    processed distribution (:func:`process_logits`), and the first
+    rejection draws from ``p_j`` with ``d`` masked out; a stop forced by the
+    drafts or the budget draws from ``p_m`` whole. A residual with no mass
+    left (``top_k=1`` masked the draft) takes the argmax. The uniforms and
+    the bonus draw come from ``generator``; they are not ``jax.random``'s,
+    so sampled rows agree with JAX's in distribution, greedy rows bit for
+    bit. ``emit`` past ``take`` holds the drafts (0 in the last column), as
+    JAX's does. The parameters may live on the host: a step whose rows are
+    all greedy then runs the argmax only, with no device sync."""
+    b, w, v = logits.shape
+    k = w - 1
+    dev = logits.device
+    lf = logits.float()
+    windows = windows.to(dev).long()
+    m_cap = m_cap.to(dev).long()
+    drafts = windows[:, 1:]
+    argm = torch.argmax(lf, dim=-1)                                   # [B, W]
+    take_arg = greedy | (temperature < 1e-5)
+    all_greedy = bool(take_arg.all())
+    cols = torch.arange(k, device=dev)[None]
+    if all_greedy:
+        ok = drafts == argm[:, :k]
+    else:
+        proc = process_logits(lf, temperature.to(dev)[:, None], top_k.to(dev)[:, None],
+                              top_p.to(dev)[:, None])                 # [B, W, V]
+        p = torch.softmax(proc, dim=-1)
+        pd = torch.gather(p[:, :k], -1, drafts[..., None])[..., 0]    # [B, k]
+        u = torch.rand((b, k), generator=generator, device=dev)
+        g_rows = take_arg.to(dev)[:, None]
+        ok = torch.where(g_rows, drafts == argm[:, :k], u < pd)
+    ok = ok & (cols < m_cap[:, None])
+    m = torch.cumprod(ok.long(), dim=-1).sum(dim=-1)                  # [B]
+    bonus = torch.gather(argm, 1, m[:, None])[:, 0]
+    if not all_greedy:
+        # a true rejection (m < m_cap) masks the rejected draft out of the
+        # residual; a forced stop draws from the whole distribution
+        proc_m = torch.gather(proc, 1, m[:, None, None].expand(b, 1, v))[:, 0]   # [B, V]
+        d_next = torch.gather(windows, 1, (m + 1).clamp(max=k)[:, None])[:, 0]
+        mask = (m < m_cap)[:, None] & (torch.arange(v, device=dev)[None] == d_next[:, None])
+        proc_m = proc_m.masked_fill(mask, float("-inf"))
+        empty = torch.isneginf(proc_m).all(dim=-1)
+        probs = torch.softmax(proc_m.masked_fill(empty[:, None], 0.0), dim=-1)
+        drawn = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        bonus = torch.where(take_arg.to(dev) | empty, bonus, drawn)
+    emit = torch.cat([drafts, torch.zeros((b, 1), dtype=torch.long, device=dev)], dim=1)
+    emit = torch.where(torch.arange(w, device=dev)[None] == m[:, None], bonus[:, None], emit)
+    return emit, m + 1
+
+
 def sample_logits(logits: torch.Tensor, gen: GenConfig,
                   seen: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -87,7 +87,10 @@ class BatchWorker:
             for rid, tok in out.items():
                 q = self._queues.get(rid)
                 if q is not None:
-                    q.put(tok)
+                    # a speculative step (spec_k) emits a list of accepted
+                    # ids a rid: one put a token, in order
+                    for t in (tok if isinstance(tok, list) else [tok]):
+                        q.put(t)
             for rid in finished:
                 q = self._queues.get(rid)
                 if q is not None:

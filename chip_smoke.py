@@ -92,7 +92,16 @@ Phases (each failure ends the run with a non-zero exit):
    OPT-6.7B's heads and K14 at Falcon-7B's and StarCoder's with their
    lengths in device memory and grids planned for the bucket, each
    bit-equal to the host launch planned for its length at 1, 255, 1000 and
-   2047, both timed.
+   2047, both timed. Last, the window mode of K2 and K9 (``flash_verify``,
+   ``flash_verify_int8``: the attention of ``verify_step_batched``, XLA in the
+   JAX package, so no TPU kernel): 8 queries a row over the row's prefix and
+   its causal window, at Llama-3-8B's heads at B 1 (lengths 1000 and 4000)
+   and on K2's 8 ragged rows, and at Falcon-7B's (71 q heads over one kv
+   head, head_dim 64) on the 8 rows; bf16, f16 and int8 caches; each row's
+   output within 2^-6 of that row's largest value, the window the launch
+   wrote bit-equal to the plain append's
+   (codes and scales); yardsticks SDPA with the prefix-and-causal mask on
+   the (dequantized) cache and K2 (K9) on the same rows with one query.
 3. Serve four requests (prompts of 16, 200 and 1000 random ids, 32 greedy
    new tokens each, the second continuing the first's dialogue, then a
    24-token follow-up continuing the third's) through ``InferenceEngine``
@@ -142,6 +151,25 @@ Phases (each failure ends the run with a non-zero exit):
    prefill, as K5 takes no int8 cache. Prints the caches' bytes, the peak
    device memory against phase 3b's, and how many requests' greedy ids
    equal the bf16 runs' (information: int8 changes the numbers).
+3m. Speculative decoding over phase 3's model (run after 3d): (a) four
+   requests whose prompts repeat a random 16-gram (3, 4, 8, 16 times), each
+   a fresh dialogue, through ``InferenceEngine.generate_speculative(k=7)``
+   (greedy, the host loop: a window of 8 a step through ``forward``, one K5
+   launch; then with ``device_loop=True``: a fixed window of 8 a step, K5
+   too) and through the same engine's ``generate`` (K4 on the graph): ids
+   equal, or parting only where the reference's top-two logit gap is at
+   most 1e-2 of its largest logit (the near-tie rule); ms per verify step
+   against ms per decode step, tokens/s, drafted and accepted; the host
+   loop's verify step in parts (the drafter, K5 and the head with the read)
+   and profiled;
+   (b) phase 3b's twelve requests through an 8-slot ``BatchEngine(spec_k=7)``
+   over a bf16 and an int8 cache (every step ``verify_step_batched``: K1's
+   GEMM over 64 rows and the window mode of K2 or K9 once a layer, which
+   appends the windows: no K7 and no fused append, no K6; by the counters),
+   ids against phases 3b's and 3d's K6 ids under the same rule, and a
+   sampled run over bf16; a verify step's and a K6 decode step's host-clock
+   time at the run's lengths, one verify step's launches, and a profile of
+   verify steps (kernels, idle share).
 3e. The W3 model (W3-g128 pack_int3 weights and a W3 head from
    ``quantize_head``, at ``--layers`` as phase 3): phase 3's four
    requests through ``InferenceEngine`` and phase 3b's twelve through an
@@ -373,6 +401,23 @@ def check(name, got, ref, rel_tol):
         raise AssertionError(f"{name}: max_abs_err {err:.3e} > {rel_tol:g} * "
                              f"max|ref| {scale:.3e}")
     return err, rel
+
+
+def check_rows(name, got, ref, rel_tol):
+    """As :func:`check`, each row of dim 0 against its own max|ref|;
+    returns the max abs error and the largest row's error over its scale."""
+    gf, rf = got.float(), ref.float()
+    if not bool(gf.isfinite().all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (gf - rf).abs().flatten(1).amax(1)
+    scale = rf.abs().flatten(1).amax(1)
+    rel = err / scale.clamp(min=1e-30)
+    bad = (err > rel_tol * scale).nonzero().flatten().tolist()
+    if bad:
+        r = bad[0]
+        raise AssertionError(f"{name}: row {r}: max_abs_err {err[r].item():.3e} > {rel_tol:g} "
+                             f"* that row's max|ref| {scale[r].item():.3e}")
+    return err.max().item(), rel.max().item()
 
 
 def phase_kernels(torch, timer, cases_out):
@@ -1881,6 +1926,125 @@ def phase_new_family_attention(torch, timer, cases_out):
         del cache, codes, scales
 
 
+VERIFY_W = 8            # phase 2's and 3m's window: k = 7 drafts and the last token
+
+
+def phase_verify_attention(torch, timer, cases_out):
+    """Phase 2, the window mode of K2 and K9 (``flash_verify``,
+    ``flash_verify_int8``; ``verify_step_batched``'s attention, XLA in the JAX
+    package: no TPU kernel): W = 8 queries a row over the row's prefix and
+    its causal window, at Llama-3-8B's heads (32 q over 8 kv, head_dim 128)
+    at B = 1, lengths 1000 and 4000, and on K2's 8 ragged rows, and at
+    Falcon-7B's (71 q over ONE kv head, head_dim 64) on the 8 rows; over
+    bf16, f16 and int8 caches. Each row's output within 2^-6 of that row's
+    largest magnitude in the plain version (a row at length 0 attends its
+    window alone, many times the magnitude of a row over ~1000 positions);
+    the cache the launch wrote (the window at each row's
+    length) bit-equal to the plain append's, codes and scales included, and
+    nothing else of it touched. Yardsticks: SDPA with the prefix-and-causal
+    mask on the (dequantized) cache, and K2 (K9 over int8) on the same rows
+    with one query a row."""
+    import torch.nn.functional as F
+
+    from awq_tpu_torch.ops import cache_append as ca
+    from awq_tpu_torch.ops import decode_attn as da
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    tol = 2.0 ** -6               # bf16/f16 outputs, P rounded for P.V, other orders
+    w = VERIFY_W
+    shapes = [("Llama-3-8B", LLAMA3_8B, [1000], 4096), ("Llama-3-8B", LLAMA3_8B, [4000], 4096),
+              ("Llama-3-8B", LLAMA3_8B, RAGGED, 2048), ("Falcon-7B", FALCON_7B, RAGGED, 2048)]
+    for model, cfg, ragged, t in shapes:
+        nq, nkv, hd = cfg["num_heads"], cfg["num_kv_heads"], cfg["head_dim"]
+        b, mx = len(ragged), max(ragged)
+        lens = torch.tensor(ragged, dtype=torch.int32, device="cuda")
+        what = f"W={w} len={mx}" if b == 1 else f"W={w} B={b} ragged len 0..{mx}"
+        for dt in ("bf16", "f16", "int8"):
+            int8 = dt == "int8"
+            qdt = torch.float16 if dt == "f16" else torch.bfloat16
+            rnd = lambda *sh: torch.randn(sh, generator=gen, device="cuda")  # noqa: E731
+            q = rnd(b, w, nq, hd).to(qdt)
+            kn, vn = rnd(b, w, nkv, hd).to(qdt), rnd(b, w, nkv, hd).to(qdt)
+            if int8:
+                codes, scales = ca.quantize_kv(rnd(2, b, nkv, t, hd))
+                deq = ca.dequantize_kv(codes, scales, qdt)
+                got_c, ref_c = (codes.clone(), scales.clone()), (codes.clone(), scales.clone())
+                got = da.flash_verify_int8(q, kn, vn, *got_c, lens, max_length=mx)
+                ref = da.flash_verify_int8_append_plain(q, kn, vn, *ref_c, lens,
+                                                        max_length=mx)
+                run = lambda: da.flash_verify_int8(q, kn, vn, codes, scales,  # noqa: E731
+                                                   lens, max_length=mx)
+                plain = lambda: da.flash_verify_int8_append_plain(  # noqa: E731
+                    q, kn, vn, codes, scales, lens, max_length=mx)
+                k2 = lambda: da.flash_decode_int8(  # noqa: E731
+                    q[:, 0].contiguous(), kn[:, 0].contiguous(), vn[:, 0].contiguous(), codes,
+                    scales, lens, max_length=mx)
+                same = torch.equal(got_c[0], ref_c[0]) and torch.equal(got_c[1], ref_c[1])
+                esize = 1
+            else:
+                cache = rnd(2, b, nkv, t, hd).to(qdt)
+                deq = cache
+                got_c, ref_c = cache.clone(), cache.clone()
+                got = da.flash_verify(q, kn, vn, got_c, lens, max_length=mx)
+                ref = da.flash_verify_append_plain(q, kn, vn, ref_c, lens, max_length=mx)
+                run = lambda: da.flash_verify(q, kn, vn, cache, lens,  # noqa: E731
+                                              max_length=mx)
+                plain = lambda: da.flash_verify_append_plain(  # noqa: E731
+                    q, kn, vn, cache, lens, max_length=mx)
+                k2 = lambda: da.flash_decode(  # noqa: E731
+                    q[:, 0].contiguous(), kn[:, 0].contiguous(), vn[:, 0].contiguous(), cache,
+                    lens, max_length=mx)
+                same = torch.equal(got_c, ref_c)
+                esize = 2
+            torch.cuda.synchronize()
+            name = "flash_verify_int8" if int8 else "flash_verify"
+            label = f"{name} {model} {what} {dt}"
+            err, rel = check_rows(label, got, ref, tol)
+            if not same:
+                raise AssertionError(f"{label}: the written cache differs from the plain "
+                                     "append's")
+            # SDPA over the prefix [0, mx) and the window, each row's mask:
+            # t < len_b on the prefix, j <= i in the window
+            k_all = torch.cat([deq[0, :, :, :mx], kn.transpose(1, 2)], dim=2)
+            v_all = torch.cat([deq[1, :, :, :mx], vn.transpose(1, 2)], dim=2)
+            mask = torch.cat([
+                (torch.arange(mx, device="cuda")[None, :] < lens[:, None])[:, None, :]
+                .expand(b, w, mx),
+                torch.ones((w, w), dtype=torch.bool, device="cuda").tril()[None].expand(b, w, w)],
+                dim=2)[:, None]
+            qt = q.transpose(1, 2)
+            ms = timer(run)
+            plain_ms = timer(plain, reps=5)
+            lib_ms = timer(lambda: F.scaled_dot_product_attention(qt, k_all, v_all,
+                                                                  attn_mask=mask,
+                                                                  enable_gqa=True))
+            k2_ms = timer(k2)
+            rows = sum(ragged)
+            prefix = 2 * nkv * rows * (hd * esize + (4 if int8 else 0))
+            window = 2 * b * w * nkv * hd * 2                 # read, q's dtype
+            written = 2 * b * w * nkv * (hd * esize + (4 if int8 else 0))
+            nbytes = 2 * b * w * nq * hd * 2 + window + prefix + written
+            flops = 4.0 * nq * hd * (w * rows + b * w * (w + 1) // 2)
+            b_ms, b_by = bound(nbytes, flops)
+            plan = da.verify_plan(b, w, nq, nkv, hd, mx, esize,
+                                  sms=torch.cuda.get_device_properties(0).multi_processor_count)
+            cases_out.append(dict(
+                name=name, shape=f"{what} {model} nq={nq} nkv={nkv} hd={hd} {dt}",
+                max_abs_err=err, max_rel_err=rel, tol=f"{tol:g}*max|ref| of each row", ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library="F.scaled_dot_product_attention(prefix-and-causal mask, enable_gqa) on "
+                        "the " + ("dequantized " if int8 else "") + "cache",
+                yardstick_ms=k2_ms,
+                yardstick=("K9" if int8 else "K2") + " on the same rows, one query a row",
+                plan=plan.describe(), written="bit-equal to the plain append"))
+            log_case(cases_out[-1])
+            del got_c, ref_c, deq, k_all, v_all
+            if int8:
+                del codes, scales
+            else:
+                del cache
+
+
 def zero_mean(params, w_bit: int):
     """``init_qparams``' random layers with their zero points at the codes'
     mean, (2^w_bit - 1) / 2, so that the weights have zero mean, as a trained
@@ -3332,7 +3496,8 @@ def phase_serve_int8(torch, cfg, params, single_ids, slot_ids, slot_peak):
     8-slot BatchEngine(cache_dtype="int8") on K6's int8 mode and on the
     stacked path. Prints the caches' bytes, the peak device memory against
     phase 3b's and how many requests' greedy ids equal the bf16 runs' (on
-    the megakernels). Returns {config: launches}."""
+    the megakernels). Returns {config: launches} and the 8-slot int8 engine's
+    greedy ids on K6 (phase 3m's reference)."""
     from awq_tpu_torch.config import RuntimeConfig
     from awq_tpu_torch.runtime.engine import InferenceEngine
 
@@ -3354,7 +3519,7 @@ def phase_serve_int8(torch, cfg, params, single_ids, slot_ids, slot_peak):
         compare_ids(label, bids[label], slot_ids, "phase 3b's on the bf16 K6")
         log(f"  [{label}] peak device memory {peaks[label]:.2f} GiB against "
             f"{slot_peak:.2f} GiB for phase 3b's bf16 engine on K6")
-    return out_launches
+    return out_launches, bids["batched_int8"]
 
 
 def phase_serve_w3(torch, layers, w4, single_ids, slot_ids):
@@ -3568,6 +3733,7 @@ KERNEL_GROUPS = {"megakernel_attn_half": tuple(f"token_kernel<{t}, 1>" for t in 
                  "w4a16_gemv": ("w4a16_gemv",),
                  "flash_decode_layer": ("LayerKV",),
                  "flash_decode": ("flash_decode",),
+                 "flash_verify": ("flash_verify_kernel",),
                  "w4a16_gemm": ("w4a16_wgmma_kernel", "splitk_reduce"),
                  "flash_prefill": ("flash_prefill",), "megakernel_token": ("token_kernel",),
                  "megakernel_chunk": ("chunk_kernel",),
@@ -3634,15 +3800,15 @@ def batch_prompts(cfg):
                           generator=rng).tolist() for i in range(BATCH_REQUESTS)]
 
 
-def drive(torch, engine, prompts, label, cfg):
+def drive(torch, engine, prompts, label, cfg, gen=None):
     """The twelve requests through ``engine``: six at once, then one more
     every fourth step while a slot is free, so each joins while the others
-    decode. Warms the engine first and resets the launch counts just before
-    the run. Returns the finished requests in submission order, the launch
-    counts and the median decode-only ms/step."""
+    decode; greedy, or ``gen``'s sampling. Warms the engine first and resets
+    the launch counts just before the run. Returns the finished requests in
+    submission order, the launch counts and the median decode-only ms/step."""
     from awq_tpu_torch.config import GenConfig
 
-    gen = GenConfig(greedy=True, max_new_tokens=BATCH_NEW)
+    gen = gen or GenConfig(greedy=True, max_new_tokens=BATCH_NEW)
     # warm: first launches load the kernels' modules
     engine.submit(prompts[0][:8], GenConfig(greedy=True, max_new_tokens=2))
     engine.submit(prompts[2][:40], GenConfig(greedy=True, max_new_tokens=2))
@@ -3742,6 +3908,15 @@ BATCH_PATHS = {
     "paged_prefill_w8": (None, ("megakernel_batched_paged", "megakernel_chunk", "w8a8_gemm",
                                 "quant_per_token"),
                          ("w4a8_gemm", "w4a16_gemm", "megakernel_batched")),
+    # phase 3m: BatchEngine(spec_k=7), every step a verify (the stacked path
+    # at W = 8: K1's GEMM over 64 rows, the window mode of K2 or K9 a layer,
+    # which appends the windows: no K7 or fused append, no K6)
+    **{label: (None, (ver, "w4a16_gemm", "flash_prefill"),
+               ("cache_append", "cache_append_int8", "flash_decode", "flash_decode_int8",
+                "megakernel_batched", "megakernel_batched_int8", other))
+       for label, ver, other in (("spec", "flash_verify", "flash_verify_int8"),
+                                 ("spec_sampled", "flash_verify", "flash_verify_int8"),
+                                 ("spec_int8", "flash_verify_int8", "flash_verify"))},
 }
 
 
@@ -3791,6 +3966,207 @@ def phase_serve_batched(torch, cfg, params, cache_dtype=None, labels=None):
             f"{BATCH_REQUESTS} requests (random weights: a rounding difference can flip an "
             "argmax and the rest follows)")
     return out_launches, ids, peaks
+
+
+SPEC_K = VERIFY_W - 1           # phase 3m's drafts a window
+SPEC_GRAM, SPEC_REPEATS = 16, (3, 4, 8, 16)     # phase 3m (a): prompts of a repeated 16-gram
+NEAR_TIE = 1e-2                  # where ids part: the reference's top-two gap / its largest
+
+
+def near_tie_gap(torch, cfg, params, ctx, cache_dtype) -> float:
+    """The top-two gap of the logits after ``ctx``, over their largest
+    magnitude: ``forward`` of the whole context on a fresh one-row cache of
+    ``cache_dtype`` (the reference's logits at the step where two runs'
+    ids part, up to the kernels' rounding)."""
+    from awq_tpu_torch.models.llama import forward, init_cache
+
+    cache = init_cache(cfg, 1, len(ctx), cache_dtype or torch.bfloat16, device="cuda")
+    logits = forward(params, cfg, torch.tensor([ctx], device="cuda"), cache, 0)[0][0, -1].float()
+    top = logits.topk(2).values
+    return float((top[0] - top[1]) / logits.abs().max())
+
+
+def check_near_ties(torch, cfg, params, label, prompts, got, ref, what, cache_dtype=None):
+    """Greedy ids of two runs: equal, or where a request's ids part the
+    reference's top-two logit gap at that step is a near-tie (at most
+    NEAR_TIE of its largest logit, ``tests/test_torch_tp_engine_greedy.py``'s
+    rule); anything else fails."""
+    parted = []
+    for i, (prompt, a, b) in enumerate(zip(prompts, got, ref)):
+        j = next((n for n, (x, y) in enumerate(zip(a, b)) if x != y),
+                 None if len(a) == len(b) else min(len(a), len(b)))
+        if j is None:
+            continue
+        gap = near_tie_gap(torch, cfg, params, list(prompt) + list(b[:j]), cache_dtype)
+        parted.append((i + 1, j, gap))
+        if gap > NEAR_TIE:
+            raise AssertionError(f"[{label}] request {i + 1}: ids part from {what} at step {j} "
+                                 f"where the reference's top-two gap is {gap:.3e} of its "
+                                 f"largest logit (> {NEAR_TIE:g}: no near-tie)")
+    log(f"  [{label}] greedy ids equal {what} for {len(ref) - len(parted)}/{len(ref)} "
+        "requests" + ("" if not parted else "; where they part (request, step, the "
+                      "reference's top-two gap / its largest logit): "
+                      + ", ".join(f"({r}, {j}, {g:.2e})" for r, j, g in parted)
+                      + f", each a near-tie (<= {NEAR_TIE:g})"))
+
+
+def phase_serve_spec(torch, cfg, params, slot_ids, int8_slot_ids):
+    """Phase 3m, speculative decoding (ROADMAP A11) over phase 3's model:
+
+    (a) four requests whose prompts repeat a random 16-gram (3, 4, 8 and 16
+    times), each a fresh dialogue, through ``InferenceEngine.
+    generate_speculative(k=7)`` (greedy: the host loop, the drafts found on
+    the host and a window of 8 a step through ``forward``, one launch of K5;
+    and with ``device_loop=True``, a fixed window of 8 a step through
+    ``forward`` too) and through the same engine's
+    ``generate`` (K4 on the graph): ids equal, or parting at a near-tie; ms
+    per verify step against ms per decode step; drafted and accepted; the
+    host loop's verify step in parts (the drafter, K5 and the head with the
+    read, the step) and a profile of it (kernels, idle share);
+    (b) phase 3b's twelve requests through an 8-slot ``BatchEngine(spec_k=7)``
+    over a bf16 cache and an int8 cache (every step a ``verify_step_batched``,
+    the window mode of K2 or K9 once a layer, no append launch) against the
+    ``spec_k=0`` engines' ids of phases 3b and 3d (K6), and a sampled run over
+    bf16; the verify step's and the decode step's host-clock times at the
+    run's lengths, tokens/s, and a profile of verify steps (kernels, idle
+    share). Returns {label: launches}."""
+    import numpy as np
+
+    from awq_tpu_torch.config import GenConfig, RuntimeConfig
+    from awq_tpu_torch.models.llama import forward, verify_step_batched
+    from awq_tpu_torch.runtime.batch_engine import BatchEngine
+    from awq_tpu_torch.runtime.engine import InferenceEngine
+
+    out_launches = {}
+    torch.cuda.empty_cache()
+    engine = InferenceEngine(cfg, params, RuntimeConfig(max_seq_len=2048))
+    rng = torch.Generator().manual_seed(13)
+    gram = torch.randint(0, cfg.vocab_size, (SPEC_GRAM,), generator=rng).tolist()
+    prompts = [gram * r for r in SPEC_REPEATS]
+    greedy = GenConfig(greedy=True, max_new_tokens=BATCH_NEW)
+    engine.warmup()
+    # None: generate; False: the host loop (the default); True: device_loop
+    modes = (None, False, True)
+    runs = {}
+    for label, mode in [("warm", m) for m in modes] + [("run", m) for m in modes]:
+        reset_counters()
+        rows = []
+        for prompt in prompts:
+            engine.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode is None:
+                out = engine.generate(prompt, greedy)
+                ids = out["output_ids"].tolist()
+            else:
+                out = engine.generate_speculative(prompt, BATCH_NEW, k=SPEC_K,
+                                                  **({"device_loop": True} if mode else {}))
+                ids = list(out["output_ids"])
+            torch.cuda.synchronize()
+            rows.append((ids, out, (time.perf_counter() - t0) * 1e3))
+        if label == "run":
+            runs[mode] = rows, read_counters()
+    refs = runs[None][0]
+    for mode, name, must, off in (
+            (False, "spec single", ("megakernel_chunk",),
+             ("flash_verify", "flash_verify_int8", "flash_decode")),
+            (True, "spec single device_loop", ("megakernel_chunk",),
+             ("flash_verify", "flash_verify_int8", "flash_decode"))):
+        gots, calls = runs[mode]
+        out_launches["spec_single" + ("_device" if mode else "")] = calls
+        log(f"  [{name}] wrapper calls over the four speculative requests: {nonzero(calls)}")
+        check_path(name, calls, must, off)
+        check_near_ties(torch, cfg, engine.params, name, prompts, [g[0] for g in gots],
+                        [r[0] for r in refs], "the same engine's generate")
+        for i, ((ids, out, ms), (_, ref, ref_ms)) in enumerate(zip(gots, refs)):
+            st = out["stats"]
+            ttft = ref["timing"]["ttft_s"] * 1e3
+            verify_ms = (ms - ttft) / max(st["steps"] - 1, 1)
+            log(f"  [{name}] request {i + 1}: prompt {len(prompts[i])}: {st['steps']} steps "
+                f"(the prefill and {st['steps'] - 1} verify steps), drafted {st['drafted']}, "
+                f"accepted {st['accepted']}; {ms:.1f} ms for {len(ids)} tokens "
+                f"({len(ids) / ms * 1e3:.1f} tokens/s) against generate's {ref_ms:.1f} ms "
+                f"({len(ids) / ref_ms * 1e3:.1f} tokens/s); a verify step {verify_ms:.3f} ms "
+                f"(the round less generate's TTFT {ttft:.2f} ms) against a decode step "
+                f"{ref['timing']['ms_per_token']:.3f} ms (K4 on the graph): "
+                f"{verify_ms / ref['timing']['ms_per_token']:.2f}x")
+    # the host loop's verify step in parts, after a 1000-position history: the
+    # drafter (numpy, over the longest prompt, where it finds 7 drafts), K5 and
+    # the head over one window of 8 with the argmax read back, and the whole step
+    from awq_tpu_torch.runtime.speculative import ngram_propose
+
+    engine.reset()
+    hist = torch.randint(0, cfg.vocab_size, (1, 1000), generator=rng).to("cuda")
+    engine._forward(hist, 0)
+    ctx = np.asarray(prompts[-1], np.int32)
+    draft_ms = host_ms(torch, lambda: ngram_propose(ctx, SPEC_K), reps=20)
+    win = torch.randint(0, cfg.vocab_size, (1, VERIFY_W), generator=rng).to("cuda")
+    k5_ms = host_ms(torch, lambda: forward(engine.params, engine.cfg, win, engine.cache, 1000,
+                                           last_only=False)[0].argmax(-1).cpu(), reps=10)
+
+    def host_step(i):
+        d = ngram_propose(ctx, SPEC_K)
+        w = torch.from_numpy(np.concatenate([ctx[-1:], d]).astype(np.int64)[None]).to("cuda")
+        forward(engine.params, engine.cfg, w, engine.cache, 1000,
+                last_only=False)[0][0].argmax(-1).tolist()
+
+    step_ms = host_ms(torch, lambda: host_step(0), reps=10)
+    log(f"  [spec single] the host loop's verify step at position 1000, host clock: the "
+        f"drafter {draft_ms:.3f} ms (ngram_propose over {len(ctx)} ids, found "
+        f"{len(ngram_propose(ctx, SPEC_K))}), K5 and the head over {VERIFY_W} rows with the "
+        f"argmax read {k5_ms:.3f} ms, the whole step {step_ms:.3f} ms")
+    profile_steps(torch, host_step, step_ms, "spec single verify", "position 1000", "ms/step")
+    del engine
+    torch.cuda.empty_cache()
+
+    bprompts = batch_prompts(cfg)
+    sampled = GenConfig(greedy=False, temperature=0.7, top_k=40, top_p=0.9,
+                        max_new_tokens=BATCH_NEW)
+    for label, cache_dtype, gen, ref in (("spec", None, None, slot_ids),
+                                         ("spec_int8", "int8", None, int8_slot_ids),
+                                         ("spec_sampled", None, sampled, None)):
+        disable, must, off = BATCH_PATHS[label]
+        set_config(disable)
+        torch.cuda.empty_cache()
+        engine = BatchEngine(cfg, params, n_slots=BATCH_SLOTS, max_seq_len=2048,
+                             spec_k=SPEC_K,
+                             **({} if cache_dtype is None else {"cache_dtype": cache_dtype}))
+        done, launches, ms_step = drive(torch, engine, bprompts, label, cfg, gen=gen)
+        check_path(label, launches, must, off)
+        out_launches[label] = launches
+        if ref is not None:
+            check_near_ties(torch, cfg, params, label, bprompts, [r.out_ids for r in done], ref,
+                            "the spec_k=0 engine's on K6", cache_dtype)
+        # a verify step and a decode step (K6) over the 8 slots at the lengths
+        # the run left behind, by the host clock, and one verify step's launches
+        mx = int(engine.lengths.max())
+        lens = torch.from_numpy(engine.lengths).to("cuda")
+        windows = torch.randint(0, cfg.vocab_size, (BATCH_SLOTS, VERIFY_W), generator=rng
+                                ).to("cuda")
+
+        def verify_once(i):
+            verify_step_batched(engine.params, engine.cfg, windows, engine.cache, lens,
+                                max_length=mx)[0].argmax(-1).cpu()
+
+        verify_once(0)
+        reset_counters()
+        verify_once(0)
+        one = nonzero(read_counters())
+        ver = "flash_verify_int8" if cache_dtype else "flash_verify"
+        if one.get(ver) != cfg.num_layers or any(k.startswith("cache_append") for k in one):
+            raise AssertionError(f"[{label}] one verify step launched {one}: not the window "
+                                 f"mode once a layer ({cfg.num_layers}) with no append")
+        v_ms = host_ms(torch, lambda: verify_once(0), reps=8)
+        d_ms = host_ms(torch, lambda: engine._decode().argmax(-1).cpu(), reps=8)
+        log(f"  [{label}] one verify step of {BATCH_SLOTS} x {VERIFY_W} at slot lengths up to "
+            f"{mx}: {v_ms:.3f} ms against a decode step (K6) {d_ms:.3f} ms "
+            f"({v_ms / d_ms:.2f}x), host clock; its launches: {one}")
+        profile_steps(torch, verify_once, v_ms, label + " verify",
+                      f"slot lengths up to {mx}", "ms/step")
+        del engine
+        torch.cuda.empty_cache()
+    set_config(None)
+    return out_launches
 
 
 PAGE, SMALL_POOL = 256, 12     # phase 3c: page size; pages of the preempting pool
@@ -5039,6 +5415,10 @@ def main() -> int:
     phase_new_family_attention(torch, timer, cases)
     log(f"  StarCoder's group, OPT-6.7B's heads and the device-length split: "
         f"{time.perf_counter() - t_new:.1f} s")
+    t_ver = time.perf_counter()
+    phase_verify_attention(torch, timer, cases)
+    log(f"  the window mode of K2 and K9 (the batched verify): "
+        f"{time.perf_counter() - t_ver:.1f} s")
     torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     phase_mpt_megakernels(torch, timer, cases)
@@ -5071,8 +5451,16 @@ def main() -> int:
     stamp(f"phase 3d: the int8 KV cache, {args.layers} layers: phase 3's four requests "
         "through InferenceEngine(cache_dtype='int8') and phase 3b's twelve through an "
         "8-slot BatchEngine(cache_dtype='int8'), on the megakernels and on the stacked path")
-    launches.update(phase_serve_int8(torch, cfg, params, single_ids, slot_ids,
-                                     peaks["batched"]))
+    int8_launches, int8_slot_ids = phase_serve_int8(torch, cfg, params, single_ids, slot_ids,
+                                                    peaks["batched"])
+    launches.update(int8_launches)
+
+    stamp(f"phase 3m: speculative decoding, {args.layers} layers: four requests whose prompts "
+          "repeat a random 16-gram through InferenceEngine.generate_speculative(k=7) (the host "
+          "loop, K5 over each window; and device_loop=True), then phase 3b's twelve through "
+          "an 8-slot BatchEngine(spec_k=7) over a bf16 and an int8 cache (the window mode of "
+          "K2 and K9 a layer) and a sampled run")
+    launches.update(phase_serve_spec(torch, cfg, params, slot_ids, int8_slot_ids))
 
     stamp(f"phase 3f: the int8-activation prefill, {args.layers} layers: phase 3's four "
         "requests and phase 3b's twelve with RuntimeConfig(prefill_w8=True) (K11) and with "
@@ -5232,7 +5620,13 @@ def main() -> int:
                "flash_decode_paged_wide_starcoder": ("awq_tpu_torch/csrc/decode_attn.cu",
                                                      "awq_tpu/ops/decode_attn.py:944"),
                "flash_decode_int8_wide_starcoder": ("awq_tpu_torch/csrc/decode_attn.cu",
-                                                    "awq_tpu/ops/decode_attn.py:325")}
+                                                    "awq_tpu/ops/decode_attn.py:325"),
+               # XLA in the JAX package (verify_step_batched's xla_attn), not
+               # Pallas: no TPU kernel to replace
+               "flash_verify": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                "awq_tpu/models/llama.py:1407"),
+               "flash_verify_int8": ("awq_tpu_torch/csrc/decode_attn.cu",
+                                     "awq_tpu/models/llama.py:1407")}
     # one representative shape per kernel in the summary; every case is
     # printed above
     pick = {"w4a16_gemv": "wgateup M=1 ", "w4a16_gemm": "wgateup M=1000",
@@ -5265,7 +5659,9 @@ def main() -> int:
             "flash_decode_opt": "OPT-6.7B", "flash_decode_layer_starcoder": "StarCoder nq=48 "
             "nkv=1 hd=128 B=1 len=1000", "flash_prefill_starcoder": "S=512 start=700",
             "flash_decode_wide_starcoder": "StarCoder", "flash_decode_paged_wide_starcoder":
-            "StarCoder", "flash_decode_int8_wide_starcoder": "StarCoder"}
+            "StarCoder", "flash_decode_int8_wide_starcoder": "StarCoder",
+            "flash_verify": f"W={VERIFY_W} B=8 ragged len 0..1200 Llama-3-8B",
+            "flash_verify_int8": f"W={VERIFY_W} B=8 ragged len 0..1200 Llama-3-8B"}
     # launches: each kernel's count on its own path's main run in phases 3,
     # 3b and 3c; on the single-stream paths, whose decode replays a captured
     # step, the count of its symbol in that run's device trace (serve_single)
@@ -5309,7 +5705,9 @@ def main() -> int:
             "flash_prefill_starcoder": "starcoder",
             "flash_decode_wide_starcoder": "starcoder_batched",
             "flash_decode_paged_wide_starcoder": "starcoder_paged",
-            "flash_decode_int8_wide_starcoder": "starcoder_batched_int8"}
+            "flash_decode_int8_wide_starcoder": "starcoder_batched_int8",
+            # phase 3m: the 8-slot BatchEngine(spec_k=7) over bf16 and int8
+            "flash_verify": "spec", "flash_verify_int8": "spec_int8"}
     # K3's head_dim-64 mode counts under K3's one wrapper, K7's int8 mode at
     # head_dim 64 under K7's int8 wrapper
     counter = {"flash_prefill_hd64": "flash_prefill", "cache_append_int8_hd64": "cache_append_int8",

@@ -219,13 +219,29 @@ def test_batch_engine_mixes_greedy_and_sampled_rows(model):
 
 
 @pytest.mark.parametrize("what,kw", [
-    ("item 11", dict(spec_k=4)),
     ("item 17", dict(runtime=TRuntime(mesh=object()))),
 ])
 def test_batch_engine_unported_options_raise(model, what, kw):
     _, _, tcfg, tparams = model
     with pytest.raises(NotImplementedError, match=what):
         TBatchEngine(tcfg, tparams, n_slots=2, max_seq_len=T, device="cpu", **kw)
+
+
+def test_batch_engine_takes_spec_k(model):
+    """``spec_k`` (ROADMAP A11, once refused here) verifies drafted windows:
+    a step returns a list of ids a rid, and the greedy ids equal the plain
+    engine's (tests/test_torch_speculative.py holds them to JAX's)."""
+    _, _, tcfg, tparams = model
+    prompt = [5, 6, 7, 5, 6, 7, 5, 6, 7]
+    outs = []
+    for k in (0, 4):
+        eng = TBatchEngine(tcfg, tparams, n_slots=2, max_seq_len=T, spec_k=k,
+                           cache_dtype=torch.float32, device="cpu")
+        rid = eng.submit(prompt, TGen(greedy=True, max_new_tokens=8))
+        first = eng.step()
+        assert isinstance(first[rid], list) == bool(k)
+        outs.append(eng.run()[rid].out_ids)
+    assert outs[0] == outs[1] and len(outs[0]) == 8
 
 
 def test_batch_engine_defaults_to_the_card(model):
